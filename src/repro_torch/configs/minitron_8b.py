@@ -1,0 +1,19 @@
+"""minitron-8b [dense]: 32L d_model=4096 32H (GQA kv=8) d_ff=16384
+vocab=256000 — pruned nemotron [arXiv:2407.14679]."""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-8b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=16384,
+    vocab_size=256000,
+    gated_mlp=False,         # nemotron/minitron use squared-ReLU, 2-matrix FFN
+    rope_theta=1e4,
+    norm_eps=1e-5,
+    source="arXiv:2407.14679; hf",
+)

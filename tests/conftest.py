@@ -22,3 +22,9 @@ if "REPRO_PLAN_DIR" not in os.environ:
 import jax  # noqa: E402
 
 jax.config.update("jax_threefry_partitionable", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (runs the port's CUDA kernels); "
+        "skips where torch.cuda is unavailable")
