@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA card.
 
-Drives the port's main path — ``specialize(target="h100-sxm")`` ->
-``ServeEngine.from_plan`` -> bucketed prefill -> paged-KV decode ->
-tokens — for full-width, full-depth qwen3-8b (random weights from a
-seed), and holds each of the path's hand-written kernels against its
-plain PyTorch version on the card.
+Drives the port's main paths — ``specialize(target="h100-sxm")`` ->
+``ServeEngine.from_plan`` -> bucketed prefill -> decode -> tokens — for
+full-width, full-depth qwen3-8b (paged-KV decode) and mamba2-2.7b (SSD
+prefill, recurrent decode), random weights from a seed, and holds each
+of the paths' hand-written kernels against its plain PyTorch version on
+the card.
 
 Phases (any failure exits non-zero before the last line):
 
 1. device: ``nvidia-smi`` name and power limit, the kernels' build
    (``nvcc`` for ``sm_90a``, one process per source, all at once);
-2. kernels: each kernel against its plain version at the main path's
-   attention widths (32 q heads, 8 kv heads, head_dim 128, bf16), then
-   its time, the plain version's, one library call's (a yardstick the
-   port never calls) and the bound (bytes at 3.35 TB/s or operations at
-   989 TFLOP/s, whichever is larger);
-3. serve, paged: the plan's paged pool, 16 requests;
-4. serve, dense: the same weights under a dense-residency plan;
-5. checks: a full-width consistency check (decode-step logits against
-   the flash prefill of the same tokens, under both decode kernels)
-   and a small model on the card against the same model on the CPU;
-6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+2. kernels: each kernel against its plain version at its path's widths
+   (attention: 32 q heads, 8 kv heads, head_dim 128, bf16; SSD scan: 80
+   heads of 64, state 128, one group, chunk 256, fp32), with planted
+   faults that must fail the same check, then its time, the plain
+   version's, one library call's where one exists (a yardstick the port
+   never calls) and the bound (bytes at 3.35 TB/s or operations at the
+   data-sheet rate of the kernel's arithmetic, whichever is larger);
+3. qwen3-8b serve, paged: the plan's paged pool, 16 requests;
+4. qwen3-8b serve, dense: the same weights under a dense-residency plan;
+5. qwen3-8b checks: a full-width consistency check (decode-step logits
+   against the flash prefill of the same tokens, under both decode
+   kernels) and a small model on the card against the CPU;
+6. mamba2-2.7b serve (qwen's weights freed first): 16 requests, 64
+   SSD-scan launches per prefill call;
+7. mamba2-2.7b checks: the full-depth consistency check (prefill + one
+   recurrent decode step against the kernel's prefill of the same
+   tokens) and a small mamba2 on the card against the CPU;
+8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+
+Every line with a measured number carries the card's ``nvidia-smi``
+name and power limit.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -40,16 +51,20 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 PEAK_BF16 = 989e12          # H100 SXM data sheet, dense bf16 tensor core
+PEAK_FP32 = 67e12           # H100 SXM data sheet, fp32 on the CUDA cores
 HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
 # worst row's rms |kernel - plain| / rms |plain|, a few times the error
 # measured on an H100 (flash 4.1e-3: it rounds P to bf16 for its MMAs;
-# decode 6.7e-4 paged, 2.8e-4 dense: fp32 P); see row_err
+# decode 6.7e-4 paged, 2.8e-4 dense: fp32 P); see row_err.  The SSD scan
+# is fp32 on both sides: only the order of its sums differs.
 TOL = {"flash_attention": 1e-2, "paged_decode_attention": 3e-3,
-       "decode_attention": 3e-3}
+       "decode_attention": 3e-3, "ssd_scan": 1e-3}
 LOGIT_TOL = 2e-2            # small model: max |card - cpu| / max |cpu| logits
-FULL_TOL = 0.1              # rms-relative logits, 36 layers (see below)
+FULL_TOL = 0.1              # rms-relative logits, full depth (see below)
 H, K, D = 32, 8, 128        # qwen3-8b attention widths
+SSD_H, SSD_P, SSD_N, SSD_G = 80, 64, 128, 1   # mamba2-2.7b SSD widths
 SEED = 0
+CARD = ""                   # nvidia-smi name, power limit (set in main)
 
 
 def log(msg: str) -> None:
@@ -86,9 +101,9 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = PEAK_BF16):
     t_bytes = nbytes / HBM_BW * 1e3
-    t_ops = flops / PEAK_BF16 * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -112,14 +127,15 @@ def row_err(torch, got, want):
     return float(e.abs().max()), float(rel.max())
 
 
-def control(kernel, fault, torch, got, want):
-    """A planted fault must fail the check that the kernel passes."""
+def control(kernel, fault, torch, got, want, factor: float = 1.0):
+    """A planted fault must fail the check that the kernel passes, by
+    ``factor`` times its tolerance."""
     _, rel = row_err(torch, got, want)
     tol = TOL[kernel]
     log(f"control {kernel} {fault}: worst row rel={rel:.3e} (must exceed "
-        f"tol {tol})")
-    check(rel > tol, f"control {kernel} {fault} passed the check "
-          f"({rel} <= {tol})")
+        f"{factor:g} x tol {tol}) [{CARD}]")
+    check(rel > factor * tol, f"control {kernel} {fault} passed the check "
+          f"({rel} <= {factor:g} x {tol})")
     return rel
 
 
@@ -150,7 +166,7 @@ def kernel_phase(torch, dev):
                            want)
         tol = TOL["flash_attention"]
         log(f"kernel flash_attention S={S}: max_abs_err={err:.3e} "
-            f"worst row rel={rel:.3e} (tol {tol})")
+            f"worst row rel={rel:.3e} (tol {tol}) [{CARD}]")
         check(rel <= tol, f"flash_attention S={S} row rel err {rel} > {tol}")
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
     # planted fault: the longest rows miss their first kv tile (64 keys)
@@ -213,7 +229,8 @@ def kernel_phase(torch, dev):
         want)
     tol = TOL["paged_decode_attention"]
     log(f"kernel paged_decode_attention bl={bl} lens={lens_list}: "
-        f"max_abs_err={err:.3e} worst row rel={rel:.3e} (tol {tol})")
+        f"max_abs_err={err:.3e} worst row rel={rel:.3e} (tol {tol}) "
+        f"[{CARD}]")
     check(rel <= tol, f"paged_decode_attention row rel err {rel} > {tol}")
     ctl = min(control("paged_decode_attention", "one tile short", torch,
                       dec.paged_decode_attention(qd, kp, vp, tbl,
@@ -249,7 +266,8 @@ def kernel_phase(torch, dev):
         torch, dec.decode_attention(qd, kd, vd, cache_len=lens), want)
     tol = TOL["decode_attention"]
     log(f"kernel decode_attention S={max_len} lens={lens_list}: "
-        f"max_abs_err={err:.3e} worst row rel={rel:.3e} (tol {tol})")
+        f"max_abs_err={err:.3e} worst row rel={rel:.3e} (tol {tol}) "
+        f"[{CARD}]")
     check(rel <= tol, f"decode_attention row rel err {rel} > {tol}")
     ctl = control("decode_attention", "one tile short", torch,
                   dec.decode_attention(qd, kd, vd, cache_len=short), want)
@@ -269,16 +287,94 @@ def kernel_phase(torch, dev):
         library_ms=lib, bound_ms=b_ms, bound_by=b_by,
         shape=f"B={Bd} S={max_len} H={H} K={K} D={D} lens={lens_list} bf16",
         library_call="F.scaled_dot_product_attention(attn_mask, enable_gqa)")
+    res["ssd_scan"] = ssd_kernel_check(torch, dev, g)
     for name, r in res.items():
         log(f"timing {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) at {r['shape']}")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) at {r['shape']} "
+            f"[{CARD}]")
     ops.reset_launch_counts()       # comparison launches do not count
     return res
 
 
+def ssd_kernel_check(torch, dev, g):
+    """The SSD scan at mamba2-2.7b's widths (batch 1, 80 heads of 64,
+    state 128, one group, the plan's chunk 256): S = 2048 and a ragged
+    S = 1000, against the plain version.  A row is one (batch, position,
+    head)'s 64 outputs; the final state is held per head, as its
+    (64, 128) block.  Two planted faults must fail that check by 10x:
+    the carry into the second chunk dropped (the kernel run on the
+    positions from the second chunk on, against the plain rows there),
+    and the final state one chunk short."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    chunk, tol = 256, TOL["ssd_scan"]
+
+    def inputs(S):
+        x = F.silu(torch.randn((1, S, SSD_H, SSD_P), generator=g,
+                               device=dev))
+        dt = F.softplus(torch.randn((1, S, SSD_H), generator=g,
+                                    device=dev) - 2.0)
+        A = -torch.linspace(1.0, 16.0, SSD_H, device=dev)
+        Bm = F.silu(torch.randn((1, S, SSD_G, SSD_N), generator=g,
+                                device=dev))
+        Cm = F.silu(torch.randn((1, S, SSD_G, SSD_N), generator=g,
+                                device=dev))
+        return x, dt, A, Bm, Cm
+
+    worst = worst_rel = worst_state = 0.0
+    for S in (2048, 1000):
+        ins = inputs(S)
+        y, fin = ssd.ssd_scan(*ins, chunk=chunk, heads_block=1)
+        y_want, fin_want = ssd.ssd_scan_plain(*ins, chunk=chunk)
+        err, rel = row_err(torch, y, y_want)
+        _, srel = row_err(torch, fin.flatten(-2), fin_want.flatten(-2))
+        log(f"kernel ssd_scan S={S}: max_abs_err={err:.3e} worst row "
+            f"rel={rel:.3e} final state worst head rel={srel:.3e} "
+            f"(tol {tol}) [{CARD}]")
+        check(rel <= tol and srel <= tol,
+              f"ssd_scan S={S} row rel err {rel} / state {srel} > {tol}")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        worst_state = max(worst_state, srel)
+    ins = inputs(2048)                       # timed, and the faults
+    y_want, fin_want = ssd.ssd_scan_plain(*ins, chunk=chunk)
+    tail = [t[:, chunk:].contiguous() if t.dim() > 1 else t for t in ins]
+    head = [t[:, :-chunk].contiguous() if t.dim() > 1 else t for t in ins]
+    ctl = min(
+        control("ssd_scan", "carry into the second chunk dropped", torch,
+                ssd.ssd_scan(*tail, chunk=chunk)[0], y_want[:, chunk:],
+                factor=10),
+        control("ssd_scan", "final state one chunk short", torch,
+                ssd.ssd_scan(*head, chunk=chunk)[1].flatten(-2),
+                fin_want.flatten(-2), factor=10))
+    ms = time_ms(torch, lambda: ssd.ssd_scan(*ins, chunk=chunk))
+    plain = time_ms(torch, lambda: ssd.ssd_scan_plain(*ins, chunk=chunk),
+                    iters=5)
+    S, Q = 2048, chunk
+    nc = -(-S // Q)
+    # causal half only: the k <= q entries of C.B^T and of scores.x,
+    # plus C.state^T and the state update
+    flops = SSD_H * nc * (Q * (Q + 1) * (SSD_N + SSD_P)
+                          + 4 * Q * SSD_P * SSD_N)
+    nbytes = 4 * (2 * S * SSD_H * SSD_P + S * SSD_H + SSD_H
+                  + 2 * S * SSD_G * SSD_N + SSD_H * SSD_P * SSD_N)
+    b_ms, b_by = bound(nbytes, flops, PEAK_FP32)
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:83",
+        max_abs_err=worst, row_rel_err=worst_rel,
+        state_rel_err=worst_state, control_row_rel_err=ctl, tolerance=tol,
+        ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+        bound_by=b_by,
+        shape=f"B=1 S={S} H={SSD_H} P={SSD_P} N={SSD_N} G={SSD_G} "
+              f"chunk={chunk} fp32, bound at the fp32 CUDA-core rate",
+        library_call="none: no single PyTorch call computes the SSD scan")
+
+
 # ---------------------------------------------------------------------
-# phases 3-4: serving
+# phases 3-4 and 6: serving
 # ---------------------------------------------------------------------
 
 def serve_phase(torch, dev, name, arch, plan, params, n_requests,
@@ -295,7 +391,7 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
         f"kv_n_blocks={est.get('kv_n_blocks')} "
         f"kv_admission={est.get('kv_admission')} "
         f"kv_prefill_mode={est.get('kv_prefill_mode')} "
-        f"decode tile={dict(plan.partitions['decode_attention'].blocks)}")
+        f"tiles={ {k: dict(v.blocks) for k, v in plan.partitions.items()} }")
     eng = ServeEngine.from_plan(plan, params, arch=arch,
                                 kv_prefix_reuse="off", kv_host_blocks=0,
                                 seed=SEED)
@@ -330,22 +426,25 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
         f"ttft_ms_p95={np.percentile(ttft, 95):.1f} "
         f"prompt_lens={[len(p) for p in prompts]} "
         f"prefill_calls={eng.prefill_calls} "
-        f"prefill_batches={list(eng.prefill_batches)} ticks={eng.tick}")
+        f"prefill_batches={list(eng.prefill_batches)} ticks={eng.tick} "
+        f"[{CARD}]")
     log(f"serve[{name}] block_stats={st} launches={counts} "
-        f"decode_path={eng.decode_path}")
+        f"decode_path={eng.decode_path} [{CARD}]")
     for r in done[:2]:
         log(f"serve[{name}]   rid={r.rid} prompt={len(r.prompt)} "
             f"t={r.temperature} -> {r.out_tokens[:8]}...")
+    calls = eng.prefill_calls
     del eng
     torch.cuda.empty_cache()
     return counts, {"requests": len(done), "tokens": toks, "wall_s": wall,
                     "tok_per_s": toks / wall,
                     "ttft_ms_p50": float(np.percentile(ttft, 50)),
-                    "ttft_ms_p95": float(np.percentile(ttft, 95))}
+                    "ttft_ms_p95": float(np.percentile(ttft, 95)),
+                    "prefill_calls": calls, "card": CARD}
 
 
 # ---------------------------------------------------------------------
-# phase 5: outputs against references
+# phases 5 and 7: outputs against references
 # ---------------------------------------------------------------------
 
 def _rms_rel(torch, got, want) -> float:
@@ -411,12 +510,94 @@ def consistency_check(torch, dev, arch, params, cfg, bl):
         log(f"check full-width decode[{residency}] vs flash prefill logits: "
             f"rms_rel={rms:.3e} (tol {FULL_TOL}; flash re-tiled against "
             f"itself {floor:.3e}; wrong-token control {control:.3e}) "
-            f"top1_agree={top1} scale={float(want.abs().max()):.3f}")
+            f"top1_agree={top1} scale={float(want.abs().max()):.3f} "
+            f"[{CARD}]")
         check(rms <= FULL_TOL and top1,
               f"consistency[{residency}] rms_rel {rms} > {FULL_TOL} "
               f"or top-1 differs")
         check(control > FULL_TOL, f"consistency[{residency}]: the "
               f"wrong-token control passed ({control})")
+
+
+def ssm_consistency_check(torch, dev, arch, params, cfg):
+    """Full width and depth mamba2: the logits of one recurrent decode
+    step after the kernel's prefill of ``P = 1000`` tokens (its final
+    SSM state and conv tail carry the whole prompt) against the kernel's
+    prefill of the same ``P + 1`` tokens.  rms-relative at
+    :data:`FULL_TOL`, beside the noise floor of two right paths (the
+    prefill against itself under chunk 128) and a wrong-token control
+    that must fail; top-1 tokens must agree.  The two paths round
+    differently by design (the prefill conv sums bf16 taps one by one,
+    the decode conv reduces its window in fp32)."""
+    from repro_torch.models import lm
+
+    g = torch.Generator(dev).manual_seed(SEED + 2)
+    P = 1000
+    V = arch.vocab_size
+    toks = torch.randint(0, V, (2, P + 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    want = lm.prefill(arch, params, {"tokens": toks}, cfg)[0][:, :V].float()
+    rechunked = dataclasses.replace(cfg, ssd_chunk=128)
+    floor = _rms_rel(torch, lm.prefill(arch, params, {"tokens": toks},
+                                       rechunked)[0][:, :V].float(), want)
+    results = {}
+    for name, last in (("right", toks[:, P:]),
+                       ("wrong", (toks[:, P:] + 1) % V)):
+        _, cache = lm.prefill(arch, params, {"tokens": toks[:, :P]}, cfg)
+        got, _ = lm.decode_step(arch, params, cache, {"tokens": last}, cfg)
+        check(tuple(got.shape) == (2, params["embed"].shape[0])
+              and bool(torch.isfinite(got).all()),
+              f"ssm consistency: logits {tuple(got.shape)} not finite or "
+              "misshapen")
+        results[name] = got[:, :V].float()
+    rms = _rms_rel(torch, results["right"], want)
+    control = _rms_rel(torch, results["wrong"], want)
+    top1 = bool((results["right"].argmax(-1) == want.argmax(-1)).all())
+    log(f"check full-depth mamba2 decode vs SSD-kernel prefill logits: "
+        f"rms_rel={rms:.3e} (tol {FULL_TOL}; prefill re-chunked against "
+        f"itself {floor:.3e}; wrong-token control {control:.3e}) "
+        f"top1_agree={top1} scale={float(want.abs().max()):.3f} [{CARD}]")
+    check(rms <= FULL_TOL and top1,
+          f"ssm consistency rms_rel {rms} > {FULL_TOL} or top-1 differs")
+    check(control > FULL_TOL,
+          f"ssm consistency: the wrong-token control passed ({control})")
+
+
+def small_ssm_check(torch, dev):
+    """A small mamba2 (2 layers, d_model 128, state 16, head_dim 32):
+    a ragged 100-token prefill and four decode steps through the SSD
+    kernel on the card against the plain version on the CPU."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.core.passes.lowering import build_run_cfg
+    from repro_torch.models import lm
+
+    arch = get_arch("mamba2-2.7b").reduced()
+    plan = specialize(arch, ShapeConfig("small", "decode", 512, 4),
+                      mesh_shape=(1, 1), cache=False)
+    cfg = build_run_cfg(plan, arch)
+    params = lm.init_params(arch, torch.Generator().manual_seed(SEED),
+                            *plan.padded_sizes())
+    toks = torch.randint(0, arch.vocab_size, (4, 104),
+                         generator=torch.Generator().manual_seed(SEED),
+                         dtype=torch.int32)
+    outs = {}
+    for d in (torch.device("cpu"), dev):
+        p = _to(torch, params, d)
+        logits, cache = lm.prefill(arch, p, {"tokens": toks[:, :100].to(d)},
+                                   cfg)
+        steps = [logits.float().cpu()]
+        for i in range(100, 104):
+            logits, cache = lm.decode_step(arch, p, cache,
+                                           {"tokens": toks[:, i:i + 1].to(d)},
+                                           cfg)
+            steps.append(logits.float().cpu())
+        outs[d.type] = torch.stack(steps)
+    rel = float((outs["cuda"] - outs["cpu"]).abs().max()
+                / outs["cpu"].abs().max())
+    log(f"check small mamba2 card vs cpu logits: rel={rel:.3e} "
+        f"(tol {LOGIT_TOL}) [{CARD}]")
+    check(rel <= LOGIT_TOL, f"small mamba2: rel {rel} > {LOGIT_TOL}")
 
 
 def small_model_check(torch, dev):
@@ -465,7 +646,7 @@ def small_model_check(torch, dev):
         rel = float((outs["cuda"] - outs["cpu"]).abs().max()
                     / outs["cpu"].abs().max())
         log(f"check small model ({residency}) card vs cpu logits: "
-            f"rel={rel:.3e} (tol {LOGIT_TOL})")
+            f"rel={rel:.3e} (tol {LOGIT_TOL}) [{CARD}]")
         check(rel <= LOGIT_TOL,
               f"small model {residency}: rel {rel} > {LOGIT_TOL}")
 
@@ -494,10 +675,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- phase 1: device and build ----
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    CARD = smi
     log(smi)
     log(f"device {torch.cuda.get_device_name(0)} count "
         f"{torch.cuda.device_count()} torch {torch.__version__} "
@@ -506,12 +689,12 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"build: {len(build.SOURCES)} sources with nvcc for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s [{CARD}]")
     for name, text in build.PTXAS_LOG.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", text))
         log(f"ptxas {name}: {len(regs)} kernels, registers <= {max(regs)}, "
-            f"{spills} bytes of spill stores and loads")
+            f"{spills} bytes of spill stores and loads [{CARD}]")
 
     # ---- phase 2: kernels ----
     kern = kernel_phase(torch, dev)
@@ -535,7 +718,7 @@ def main() -> int:
     log(f"weights: qwen3-8b layers={arch.n_layers} d_model={arch.d_model} "
         f"heads={arch.n_heads}/{arch.n_kv_heads} d_ff={arch.d_ff} "
         f"vocab={arch.vocab_size} params={n_params} random (seed {SEED}) "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"in {time.perf_counter() - t0:.1f} s [{CARD}]")
     paged_counts, paged = serve_phase(torch, dev, "paged", arch, plan,
                                       params, n_requests=16, new_tokens=32)
     check(paged_counts["flash_attention"] > 0
@@ -557,22 +740,60 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     small_model_check(torch, dev)
+
+    # ---- phases 6-7: mamba2-2.7b, qwen's weights freed ----
+    march = get_arch("mamba2-2.7b")
+    mplan = specialize(march, shape, mesh_shape=(1, 1), target="h100-sxm")
+    ssd_blocks = dict(mplan.partitions["ssd_scan"].blocks)
+    check(ssd_blocks["chunk"] == 256 and ssd_blocks["heads_block"] == 1
+          and "kv_residency" not in mplan.estimates,
+          f"unexpected mamba2 h100 plan: {ssd_blocks} {mplan.estimates}")
+    t0 = time.perf_counter()
+    mparams = lm.init_params(march, torch.Generator(dev).manual_seed(SEED),
+                             *mplan.padded_sizes())
+    torch.cuda.synchronize()
+    log(f"weights: mamba2-2.7b layers={march.n_layers} "
+        f"d_model={march.d_model} d_inner={march.d_inner} "
+        f"ssm_heads={march.ssm_heads}x{march.ssm_head_dim} "
+        f"state={march.ssm_state} groups={march.ssm_n_groups} "
+        f"conv={march.ssm_conv} vocab={march.vocab_size} (padded "
+        f"{mparams['embed'].shape[0]}) params="
+        f"{sum(t.numel() for t in _leaves(mparams))} random (seed {SEED}) "
+        f"in {time.perf_counter() - t0:.1f} s [{CARD}]")
+    ssm_counts, ssm_serve = serve_phase(torch, dev, "ssm", march, mplan,
+                                        mparams, n_requests=16,
+                                        new_tokens=32)
+    calls = ssm_serve["prefill_calls"]
+    check(ssm_counts["ssd_scan"] == march.n_layers * calls > 0,
+          f"ssm serve: {ssm_counts['ssd_scan']} ssd_scan launches for "
+          f"{calls} prefill calls of {march.n_layers} layers")
+    log(f"serve[ssm] ssd_scan launches {ssm_counts['ssd_scan']} = "
+        f"{march.n_layers} per prefill call x {calls} calls [{CARD}]")
+    ssm_consistency_check(torch, dev, march, mparams,
+                          build_run_cfg(mplan, march))
+    del mparams
+    torch.cuda.empty_cache()
+    small_ssm_check(torch, dev)
     ops.reset_launch_counts()
 
-    # ---- phase 6: results ----
-    launches = {k: paged_counts[k] + dense_counts[k] for k in paged_counts}
+    # ---- phase 8: results ----
+    launches = {k: paged_counts[k] + dense_counts[k] + ssm_counts[k]
+                for k in paged_counts}
     kernels = []
     for name, r in kern.items():
         kernels.append({"name": name, **{k: r[k] for k in (
             "route", "source", "replaces")}, "launches": launches[name],
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
-                                 "row_rel_err", "tolerance",
-                                 "control_row_rel_err", "shape",
-                                 "library_call")}})
+                                 "row_rel_err", "state_rel_err",
+                                 "tolerance", "control_row_rel_err",
+                                 "shape", "library_call") if k in r},
+            "card": CARD})
     log(json.dumps({"serve": {"paged": paged, "dense": dense,
+                              "ssm": ssm_serve,
                               "launches": {"paged": paged_counts,
-                                           "dense": dense_counts}}}))
+                                           "dense": dense_counts,
+                                           "ssm": ssm_counts}}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -17,17 +17,23 @@ from repro_torch.configs.base import ArchConfig
 
 def build_run_cfg(plan, arch: ArchConfig):
     """The model-side knobs of a plan: the padded kv-head count, the
-    attention tiles of its ``BlockPlan``s and the kernel mode
-    (``plan.use_pallas``: ``auto``/``on`` run the port's kernels on the
-    card; ``off`` makes the card path raise)."""
+    attention and SSD-scan tiles of its ``BlockPlan``s (``chunk`` and
+    ``heads_block``, as ``src/repro/core/passes/lowering.py:74,91``
+    reads the chunk) and the kernel mode (``plan.use_pallas``:
+    ``auto``/``on`` run the port's kernels on the card; ``off`` makes the
+    card path raise)."""
+    from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK
     from repro_torch.models.lm import RunCfg
     fa = plan.partitions.get("flash_attention")
     dec = plan.partitions.get("decode_attention")
+    ssd = plan.partitions.get("ssd_scan")
     return RunCfg(
         kv_heads_padded=int(plan.estimates.get("kv_heads_padded", 0)),
         flash_tiles=((int(fa.blocks["block_q"]), int(fa.blocks["block_kv"]))
                      if fa else None),
         decode_block_kv=int(dec.blocks["block_kv"]) if dec else None,
+        ssd_chunk=int(ssd.blocks["chunk"]) if ssd else DEFAULT_CHUNK,
+        ssd_heads_block=int(ssd.blocks["heads_block"]) if ssd else 1,
         kernels=str(plan.use_pallas),
     )
 

@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES: Tuple[str, ...] = ("flash_attention", "decode_attention")
+SOURCES: Tuple[str, ...] = ("flash_attention", "decode_attention", "ssd_scan")
 HEADERS: Tuple[str, ...] = ("common.cuh",)
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -127,6 +127,12 @@ _SIGNATURES = {
         # stream
         "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _P],
+    },
+    "ssd_scan": {
+        # x, dt, A, Bm, Cm, init, y, fin, B, S, H, P, G, N, chunk,
+        # heads_block, stream
+        "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _P],
     },
 }
 

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
 
 MODES = ("auto", "on", "off")
 
@@ -75,14 +76,32 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, *, cache_len,
                                        block_kv=block_kv)
 
 
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: Optional[int] = None,
+             heads_block: Optional[int] = None, initial_state=None,
+             mode: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan over x ``(B, S, H, P)`` with B/C ``(B, S, G,
+    N)``: ``(y, final_state)``.  ``chunk``/``heads_block`` are the
+    plan's ``ssd_scan`` BlockPlan (the plain version takes the chunk
+    only: heads are one batched product there)."""
+    if not _use_kernel("ssd_scan", x, mode):
+        return _ssd.ssd_scan_plain(
+            x, dt, A, Bm, Cm, chunk=chunk or _ssd.DEFAULT_CHUNK,
+            initial_state=initial_state)
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                         heads_block=heads_block,
+                         initial_state=initial_state)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"flash_attention": _fa.launches,
             "paged_decode_attention": _dec.paged_launches,
-            "decode_attention": _dec.dense_launches}
+            "decode_attention": _dec.dense_launches,
+            "ssd_scan": _ssd.launches}
 
 
 def reset_launch_counts() -> None:
     _fa.launches = 0
     _dec.paged_launches = 0
     _dec.dense_launches = 0
+    _ssd.launches = 0

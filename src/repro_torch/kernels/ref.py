@@ -91,3 +91,20 @@ def paged_decode_attention_ref(q, k_pool, v_pool, tbl, *, cache_len,
     return decode_attention_ref(q, paged_gather_ref(k_pool, tbl),
                                 paged_gather_ref(v_pool, tbl),
                                 cache_len=cache_len, window=window)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, initial_state=None):
+    """Sequential recurrence oracle, ``S_t = exp(dt_t A) S_{t-1} + dt_t
+    B_t x_t``, ``y_t = S_t C_t``; groups pre-broadcast (Bm/Cm ``(B, S,
+    H, N)``).  Returns ``(y (B, S, H, P), final_state (B, H, P, N))``."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    s = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state)
+    ys = []
+    for t in range(S):
+        dec = torch.exp(dt[:, t] * A)[..., None, None]
+        s = s * dec + torch.einsum("bh,bhn,bhp->bhpn", dt[:, t], Bm[:, t],
+                                   x[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", s, Cm[:, t]))
+    return torch.stack(ys, 1), s

@@ -10,13 +10,16 @@ Two modes, as in the JAX package's launcher, on one card:
   plan chose.
 
 The model is the arch's reduced config, with its published head_dim
-(the kernels are built for 128), unless ``--full`` asks for its
-published widths and depth; weights are random, from ``--seed``.
+(the attention kernels are built for 128), unless ``--full`` asks for
+its published widths and depth; weights are random, from ``--seed``.
+``--arch`` takes the dense decoders and ``mamba2-2.7b``.
 Entry points run on ``cuda``; ``--device cpu`` runs the kernels' plain
 versions.  ``--profile`` traces the run with ``torch.profiler`` and
 prints the device time by kernel and by group.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve --from-plan
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+          --from-plan --full --max-len 2048 --max-batch 8
 """
 
 from __future__ import annotations
@@ -106,16 +109,17 @@ def main(argv=None) -> None:
 
 
 def _profiler(device):
+    """Device events only on the card: the report reads nothing else, and
+    the host-op events of a 64-layer eager run (mamba2-2.7b) kept the
+    profiler's teardown busy for more than four minutes."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    return profile(activities=acts)
+    return profile(activities=[ProfilerActivity.CUDA if device.type == "cuda"
+                               else ProfilerActivity.CPU])
 
 
 #: kernel-name fragments of each group in the device-time breakdown
-_GROUPS = (("attention (port kernels)", ("flash_fwd_kernel",
-                                         "decode_kernel")),
+_GROUPS = (("port kernels (attention, SSD scan)",
+            ("flash_fwd_kernel", "decode_kernel", "ssd_scan_kernel")),
            ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "splitK")),
            ("copy", ("Memcpy", "Memset")))
 

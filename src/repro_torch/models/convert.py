@@ -58,9 +58,12 @@ def params_from_numpy(arch: ArchConfig, tree: Mapping[str, Any],
     read off the tree's own shapes)."""
     params = _convert(tree, device)
     hd = arch.hd
-    attn = params["blocks"]["attn"]
-    specs = leaf_specs(arch, vocab_padded=params["embed"].shape[0],
-                       heads_padded=attn["wq"].shape[-1] // hd,
-                       kv_heads_padded=attn["wk"].shape[-1] // hd)
+    attn = params["blocks"].get("attn")
+    ssm = params["blocks"].get("ssm")
+    specs = leaf_specs(
+        arch, vocab_padded=params["embed"].shape[0],
+        heads_padded=attn["wq"].shape[-1] // hd if attn else 0,
+        ssm_heads_padded=ssm["A_log"].shape[-1] if ssm else 0,
+        kv_heads_padded=attn["wk"].shape[-1] // hd if attn else 0)
     _check(arch, params, specs)
     return params

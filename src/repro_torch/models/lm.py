@@ -1,23 +1,24 @@
-"""Dense-decoder language model: parameters, prefill and decode.
+"""Language model: parameters, prefill and decode.
 
 The port of ``repro/models/lm.py``'s serving path for dense GQA
 decoders with a SiLU-gated FFN (qwen3-8b, deepseek-7b,
-deepseek-coder-33b).  Parameters are the JAX package's nested dicts,
-stacked over layers (``params["blocks"]["attn"]["wq"]`` is ``(L, d,
-H*hd)``), so :mod:`repro_torch.models.convert` carries a reference
-parameter tree across unchanged; layers run as a Python loop over that
-stack.  SSM, hybrid, MoE, M-RoPE and audio architectures raise
-:class:`NotImplementedError` naming the arch.
+deepseek-coder-33b) and attention-free mamba2 SSM decoders
+(mamba2-2.7b).  Parameters are the JAX package's nested dicts, stacked
+over layers (``params["blocks"]["attn"]["wq"]`` is ``(L, d, H*hd)``), so
+:mod:`repro_torch.models.convert` carries a reference parameter tree
+across unchanged; layers run as a Python loop over that stack.  Hybrid,
+MoE, M-RoPE and audio architectures raise :class:`NotImplementedError`
+naming the arch.
 
-Attention runs through :mod:`repro_torch.kernels.ops`: the port's
-hand-written kernels on the card, their plain versions on the CPU.
-Projections and the FFN are ``torch.matmul`` in bf16, as the JAX
-package left them to XLA.
+Attention and the SSD scan run through :mod:`repro_torch.kernels.ops`:
+the port's hand-written kernels on the card, their plain versions on
+the CPU.  Projections and the FFN are ``torch.matmul`` in bf16, as the
+JAX package left them to XLA.
 
 Unlike the JAX functions, which returned new arrays, the session cache
 is updated **in place**: :func:`append_kv`, :func:`append_kv_paged` and
 :func:`decode_step` write into the cache tensors they are given (and
-:func:`decode_step` replaces ``cache["pos"]``).
+:func:`decode_step` replaces ``cache["pos"]``); so does the SSM state.
 """
 
 from __future__ import annotations
@@ -31,9 +32,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.describe import global_layer_mask
+from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.common import rms_norm, truncated_normal_
+from repro_torch.models.ssm import SSMDims, SSMParams
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +49,9 @@ class RunCfg:
     ``decode_attention`` tile (both decode kernels, paged and dense,
     stage that many cache rows per step); ``None`` means the plan has
     none and the kernel module's documented default applies.
+    ``ssd_chunk`` and ``ssd_heads_block`` are the plan's ``ssd_scan``
+    BlockPlan (the kernel module's ``DEFAULT_CHUNK`` and one head
+    without one).
     ``kernels`` is the plan's ``use_pallas`` mode.  The JAX package's
     mesh and sharding fields are gone (the port runs on one card), and
     so are the knobs of paths the port does not have yet.
@@ -53,28 +60,33 @@ class RunCfg:
     kv_heads_padded: int = 0       # 0 -> arch.n_kv_heads
     flash_tiles: Optional[Tuple[int, int]] = None
     decode_block_kv: Optional[int] = None
+    ssd_chunk: int = DEFAULT_CHUNK
+    ssd_heads_block: int = 1
     kernels: str = "auto"
 
 
 def check_supported(arch: ArchConfig) -> None:
     """Raise for an architecture the port cannot run yet."""
     why = None
-    if arch.has_ssm:
-        why = "SSM/hybrid mixers"
+    ssm = arch.family == "ssm"
+    if arch.has_ssm and not ssm:
+        why = ("hybrid attention + SSM mixers (attention kernels at "
+               "head_dim 64 with a GQA group of 5, sliding windows)")
     elif arch.is_moe:
         why = "MoE FFNs"
     elif arch.mrope_sections is not None:
         why = "M-RoPE"
     elif arch.modality != "text" or arch.is_encoder:
         why = f"{arch.modality} {arch.family} models"
-    elif not arch.has_attention:
-        why = "attention-free models"
+    elif not arch.has_attention and not ssm:
+        why = "attention-free models other than mamba2"
     elif not arch.gated_mlp:
         why = "non-gated FFNs"
     if why is not None:
         raise NotImplementedError(
             f"{arch.name}: the port serves dense GQA decoders with a "
-            f"SiLU-gated FFN; {why} are not ported yet")
+            f"SiLU-gated FFN and mamba2 SSM decoders; {why} are not "
+            "ported yet")
 
 
 # =====================================================================
@@ -87,11 +99,31 @@ class LeafSpec(NamedTuple):
     scale: float = 0.02             # 0.0 -> zeros
 
 
+def _ssm_specs(arch: ArchConfig, L: int, d: int,
+               ssm_heads_padded: int = 0) -> Dict[str, LeafSpec]:
+    """The mamba2 mixer's leaves (``src/repro/models/lm.py:158-177``)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    H = ssm_heads_padded or arch.ssm_heads
+    di = H * arch.ssm_head_dim
+    G, N = arch.ssm_n_groups, arch.ssm_state
+    cdim = di + 2 * G * N
+    return {
+        "in_proj": LeafSpec((L, d, 2 * di + 2 * G * N + H), bf),
+        "conv_w": LeafSpec((L, arch.ssm_conv, cdim), bf),
+        "conv_b": LeafSpec((L, cdim), bf, 0.0),
+        "A_log": LeafSpec((L, H), f32, 0.0),
+        "D": LeafSpec((L, H), f32, 0.0),
+        "dt_bias": LeafSpec((L, H), f32, 0.0),
+        "norm": LeafSpec((L, di), f32, 0.0),
+        "out_proj": LeafSpec((L, di, d), bf, 0.02 / math.sqrt(2 * L)),
+    }
+
+
 def leaf_specs(arch: ArchConfig, vocab_padded: int = 0,
                heads_padded: int = 0, ssm_heads_padded: int = 0,
                kv_heads_padded: int = 0) -> Dict[str, Any]:
     """The parameter-spec tree (same keys, shapes and argument order as
-    the JAX one; ``ssm_heads_padded`` has no leaf in a dense decoder)."""
+    the JAX one).  A mamba2 block holds only ``pre_norm`` and ``ssm``."""
     check_supported(arch)
     bf, f32 = torch.bfloat16, torch.float32
     d, L, hd, ff = arch.d_model, arch.n_layers, arch.hd, arch.d_ff
@@ -99,25 +131,28 @@ def leaf_specs(arch: ArchConfig, vocab_padded: int = 0,
     H = heads_padded or arch.n_heads
     K = kv_heads_padded or arch.n_kv_heads
     out_scale = 0.02 / math.sqrt(2 * L)
-    attn = {
-        "wq": LeafSpec((L, d, H * hd), bf),
-        "wk": LeafSpec((L, d, K * hd), bf),
-        "wv": LeafSpec((L, d, K * hd), bf),
-        "wo": LeafSpec((L, H * hd, d), bf, out_scale),
-    }
-    if arch.qk_norm:
-        attn["q_norm"] = LeafSpec((L, hd), f32, 0.0)
-        attn["k_norm"] = LeafSpec((L, hd), f32, 0.0)
+    blocks: Dict[str, Any] = {"pre_norm": LeafSpec((L, d), f32, 0.0)}
+    if arch.has_attention:
+        attn = {
+            "wq": LeafSpec((L, d, H * hd), bf),
+            "wk": LeafSpec((L, d, K * hd), bf),
+            "wv": LeafSpec((L, d, K * hd), bf),
+            "wo": LeafSpec((L, H * hd, d), bf, out_scale),
+        }
+        if arch.qk_norm:
+            attn["q_norm"] = LeafSpec((L, hd), f32, 0.0)
+            attn["k_norm"] = LeafSpec((L, hd), f32, 0.0)
+        blocks["attn"] = attn
+    if arch.has_ssm:
+        blocks["ssm"] = _ssm_specs(arch, L, d, ssm_heads_padded)
+    if arch.family != "ssm":
+        blocks["mlp_norm"] = LeafSpec((L, d), f32, 0.0)
+        blocks["mlp"] = {"wi": LeafSpec((L, d, 2 * ff), bf),
+                         "wo": LeafSpec((L, ff, d), bf, out_scale)}
     specs: Dict[str, Any] = {
         "embed": LeafSpec((V, d), bf),
         "final_norm": LeafSpec((d,), f32, 0.0),
-        "blocks": {
-            "pre_norm": LeafSpec((L, d), f32, 0.0),
-            "attn": attn,
-            "mlp_norm": LeafSpec((L, d), f32, 0.0),
-            "mlp": {"wi": LeafSpec((L, d, 2 * ff), bf),
-                    "wo": LeafSpec((L, ff, d), bf, out_scale)},
-        },
+        "blocks": blocks,
     }
     if not arch.tie_embeddings:
         specs["lm_head"] = LeafSpec((d, V), bf)
@@ -137,7 +172,9 @@ def init_params(arch: ArchConfig, generator: torch.Generator,
     """Random parameters on ``generator``'s device: truncated normal
     (two standard deviations) at each leaf's scale, zeros where the
     scale is 0 (norm weights — :func:`rms_norm` scales by ``1 + w``).
-    Layout-padded heads get zero projections, as in the JAX package."""
+    Layout-padded heads get zero projections, and the SSM leaves the JAX
+    package's fixed values (``A_log = log(linspace(1, 16, H))``, ``D =
+    1``, ``dt_bias = -2``)."""
     dev = generator.device
 
     def leaf(s: LeafSpec) -> torch.Tensor:
@@ -148,15 +185,22 @@ def init_params(arch: ArchConfig, generator: torch.Generator,
 
     params = _map_specs(leaf_specs(arch, vocab_padded, heads_padded,
                                    ssm_heads_padded, kv_heads_padded), leaf)
-    attn = params["blocks"]["attn"]
-    if heads_padded and heads_padded != arch.n_heads:
+    attn = params["blocks"].get("attn")
+    if attn is not None and heads_padded and heads_padded != arch.n_heads:
         cut = arch.n_heads * arch.hd
         attn["wq"][..., cut:] = 0
         attn["wo"][:, cut:, :] = 0
-    if kv_heads_padded and kv_heads_padded != arch.n_kv_heads:
+    if attn is not None and kv_heads_padded \
+            and kv_heads_padded != arch.n_kv_heads:
         cut = arch.n_kv_heads * arch.hd
         attn["wk"][..., cut:] = 0
         attn["wv"][..., cut:] = 0
+    ssm = params["blocks"].get("ssm")
+    if ssm is not None:
+        H = ssm["A_log"].shape[-1]
+        ssm["A_log"].copy_(torch.log(torch.linspace(1.0, 16.0, H)))
+        ssm["D"].fill_(1.0)
+        ssm["dt_bias"].fill_(-2.0)
     return params
 
 
@@ -169,6 +213,16 @@ def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
 def _window_schedule(arch: ArchConfig) -> List[int]:
     """Per-layer attention window (0 = global)."""
     return [0 if g else arch.window for g in global_layer_mask(arch)]
+
+
+def _ssm_dims(arch: ArchConfig, sp: SSMParams) -> SSMDims:
+    """The mixer's dims, read off ``sp`` so that they follow the layout
+    pass's padding (heads from ``A_log``, ``d_inner`` from
+    ``out_proj``)."""
+    H = sp.A_log.shape[-1]
+    di = sp.out_proj.shape[-2]
+    return SSMDims(arch.d_model, di, H, di // H, arch.ssm_state,
+                   arch.ssm_n_groups, arch.ssm_conv)
 
 
 # =====================================================================
@@ -204,16 +258,14 @@ def _qkv(arch: ArchConfig, grp, h: torch.Tensor, positions: torch.Tensor):
         arch.hd, positions, arch.rope_theta, arch.norm_eps)
 
 
-def _mixer_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
-               positions: torch.Tensor, window: int):
-    """Pre-norm attention over a whole prompt.  Returns ``(x, k, v)``
-    with this layer's post-RoPE keys and values for the cache."""
-    h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
-    ap, (q, k, v) = _qkv(arch, grp, h, positions)
-    ctx = attn_mod.attention_chunked(q, k, v, causal=arch.causal,
-                                     window=window, tiles=cfg.flash_tiles,
-                                     mode=cfg.kernels)
-    return x + ctx.reshape(*ctx.shape[:2], -1) @ ap.wo, k, v
+def _residual(x: torch.Tensor, outs: List[torch.Tensor]) -> torch.Tensor:
+    """Add the layer's mixer outputs to the residual: their mean, as the
+    JAX block combines parallel attention and SSM paths (``x + out /
+    n_paths``); a single path is added as it is."""
+    out = outs[0]
+    for o in outs[1:]:
+        out = out + o
+    return x + (out if len(outs) == 1 else out / len(outs))
 
 
 def _ffn_fwd(arch: ArchConfig, grp, x: torch.Tensor) -> torch.Tensor:
@@ -234,16 +286,28 @@ def _kv_geometry(arch: ArchConfig, kv_heads: int) -> Tuple[int, int, int]:
 
 
 def init_cache(arch: ArchConfig, batch_size: int, max_len: int,
-               dtype=torch.bfloat16, kv_heads: int = 0,
+               dtype=torch.bfloat16, kv_heads: int = 0, ssm_heads: int = 0,
                device="cuda") -> Dict[str, torch.Tensor]:
-    """Dense session state: ``k``/``v`` stripes ``(L, B, max_len, K,
-    hd)`` and per-slot positions ``pos`` ``(B,)``."""
+    """Dense session state: per-slot positions ``pos`` ``(B,)``; with
+    attention, ``k``/``v`` stripes ``(L, B, max_len, K, hd)``; with an
+    SSM, the fp32 ``ssm`` state ``(L, B, H, P, N)`` and the bf16 ``conv``
+    window ``(L, B, k, di + 2GN)`` (``src/repro/models/lm.py:513-525``)."""
     L, K, hd = _kv_geometry(arch, kv_heads)
-    shape = (L, batch_size, max_len, K, hd)
-    return {"pos": torch.zeros((batch_size,), dtype=torch.int32,
-                               device=device),
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"pos": torch.zeros((batch_size,), dtype=torch.int32,
+                                device=device)}
+    if arch.has_attention:
+        shape = (L, batch_size, max_len, K, hd)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if arch.has_ssm:
+        H, P = ssm_heads or arch.ssm_heads, arch.ssm_head_dim
+        G, N = arch.ssm_n_groups, arch.ssm_state
+        cache["ssm"] = torch.zeros((L, batch_size, H, P, N),
+                                   dtype=torch.float32, device=device)
+        cache["conv"] = torch.zeros(
+            (L, batch_size, arch.ssm_conv, H * P + 2 * G * N),
+            dtype=torch.bfloat16, device=device)
+    return cache
 
 
 def init_paged_cache(arch: ArchConfig, batch_size: int, max_len: int,
@@ -306,26 +370,65 @@ def append_kv_paged(pool: torch.Tensor, new: torch.Tensor,
 # Serving: prefill + decode
 # =====================================================================
 
+def _ssm_prefill(h: torch.Tensor, sp: SSMParams, arch: ArchConfig,
+                 cfg: RunCfg):
+    """The SSD mixer over a whole prompt, with the final states for the
+    cache (``src/repro/models/lm.py:1034-1057``): ``(y, ssm_state,
+    conv_tail)``, the tail being the last ``k`` pre-conv rows, left-padded
+    with zeros for prompts shorter than ``k``."""
+    dims = _ssm_dims(arch, sp)
+    y, final, xbc_raw = ssm_mod.mixer(h, sp, dims, cfg.ssd_chunk,
+                                      heads_block=cfg.ssd_heads_block,
+                                      mode=cfg.kernels)
+    k = dims.conv_k
+    tail = F.pad(xbc_raw, (0, 0, k - 1, 0))[:, -k:, :].to(torch.bfloat16)
+    return y, final, tail
+
+
+def cache_heads(arch: ArchConfig, blocks) -> Dict[str, int]:
+    """Cache head counts read off the (possibly padded) parameters."""
+    out = {}
+    if "attn" in blocks:
+        out["kv_heads"] = blocks["attn"]["wk"].shape[-1] // arch.hd
+    if "ssm" in blocks:
+        out["ssm_heads"] = blocks["ssm"]["A_log"].shape[-1]
+    return out
+
+
 def prefill(arch: ArchConfig, params, batch, cfg: RunCfg,
             max_len: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process prompts ``batch["tokens"]`` ``(B, S)``: returns the
-    last-token logits ``(B, V)`` and a dense cache of ``max_len`` rows
-    (default ``S``) holding every layer's post-RoPE K/V for rows
-    ``0..S-1`` (zeros past them) with ``pos = S``."""
+    last-token logits ``(B, V)`` and a dense cache with ``pos = S``:
+    with attention, ``max_len`` rows (default ``S``) of every layer's
+    post-RoPE K/V for rows ``0..S-1`` (zeros past them); with an SSM,
+    every layer's final state and conv tail."""
     x = _embed_in(arch, params, batch)
     B, S = x.shape[:2]
     max_len = max_len or S
-    positions = torch.arange(S, device=x.device).expand(B, S)
     blocks = params["blocks"]
-    cache = init_cache(arch, B, max_len,
-                       kv_heads=blocks["attn"]["wk"].shape[-1] // arch.hd,
+    cache = init_cache(arch, B, max_len, **cache_heads(arch, blocks),
                        device=x.device)
-    for i, w in enumerate(_window_schedule(arch)):
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    windows = _window_schedule(arch)
+    for i in range(arch.n_layers):
         grp = _layer(blocks, i)
-        x, k, v = _mixer_fwd(arch, cfg, grp, x, positions, w)
-        x = _ffn_fwd(arch, grp, x)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
+        outs = []
+        if arch.has_attention:
+            ap, (q, k, v) = _qkv(arch, grp, h, positions)
+            ctx = attn_mod.attention_chunked(
+                q, k, v, causal=arch.causal, window=windows[i],
+                tiles=cfg.flash_tiles, mode=cfg.kernels)
+            outs.append(ctx.reshape(B, S, -1) @ ap.wo)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+        if arch.has_ssm:
+            y, cache["ssm"][i], cache["conv"][i] = _ssm_prefill(
+                h, SSMParams(**grp["ssm"]), arch, cfg)
+            outs.append(y)
+        x = _residual(x, outs)
+        if arch.family != "ssm":
+            x = _ffn_fwd(arch, grp, x)
     x = rms_norm(x[:, -1:], params["final_norm"], arch.norm_eps)
     cache["pos"].fill_(S)
     return _logits(arch, params, x)[:, 0], cache
@@ -337,7 +440,9 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
     """One-token decode for every slot: appends each slot's K/V at its
     own ``cache["pos"]`` (in place), attends over ``pos + 1`` rows, and
     sets ``cache["pos"] = pos + 1``.  A ``block_tbl`` in the cache
-    selects paged residency.  Returns ``(logits (B, V), cache)``."""
+    selects paged residency.  A mamba2 model instead steps each layer's
+    SSM state and conv window (in place); freed slots step too, on stale
+    state, as in the JAX engine.  Returns ``(logits (B, V), cache)``."""
     x = _embed_in(arch, params, batch)                      # (B, 1, d)
     B = x.shape[0]
     pos = torch.as_tensor(cache["pos"], dtype=torch.int32, device=x.device)
@@ -348,25 +453,38 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
     targets = (paged_targets(pos, tbl, cache["k"].shape[2])
                if tbl is not None else None)
     blocks = params["blocks"]
-    for i, w in enumerate(_window_schedule(arch)):
+    windows = _window_schedule(arch)
+    for i in range(arch.n_layers):
         grp = _layer(blocks, i)
         h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
-        ap, (q, k, v) = _qkv(arch, grp, h, positions)
-        kc, vc = cache["k"][i], cache["v"][i]
-        if tbl is not None:
-            append_kv_paged(kc, k, pos, tbl, targets)
-            append_kv_paged(vc, v, pos, tbl, targets)
-            ctx = attn_mod.attention_decode_paged(
-                q, kc, vc, tbl, cache_len=cache_len, window=w,
-                block_kv=cfg.decode_block_kv, mode=cfg.kernels)
-        else:
-            append_kv(kc, k, pos)
-            append_kv(vc, v, pos)
-            ctx = attn_mod.attention_decode(
-                q, kc, vc, cache_len=cache_len, window=w,
-                block_kv=cfg.decode_block_kv, mode=cfg.kernels)
-        x = x + ctx.reshape(B, 1, -1) @ ap.wo
-        x = _ffn_fwd(arch, grp, x)
+        outs = []
+        if arch.has_attention:
+            ap, (q, k, v) = _qkv(arch, grp, h, positions)
+            kc, vc = cache["k"][i], cache["v"][i]
+            if tbl is not None:
+                append_kv_paged(kc, k, pos, tbl, targets)
+                append_kv_paged(vc, v, pos, tbl, targets)
+                ctx = attn_mod.attention_decode_paged(
+                    q, kc, vc, tbl, cache_len=cache_len, window=windows[i],
+                    block_kv=cfg.decode_block_kv, mode=cfg.kernels)
+            else:
+                append_kv(kc, k, pos)
+                append_kv(vc, v, pos)
+                ctx = attn_mod.attention_decode(
+                    q, kc, vc, cache_len=cache_len, window=windows[i],
+                    block_kv=cfg.decode_block_kv, mode=cfg.kernels)
+            outs.append(ctx.reshape(B, 1, -1) @ ap.wo)
+        if arch.has_ssm:
+            sp = SSMParams(**grp["ssm"])
+            y, sc, cc = ssm_mod.ssm_decode_step(
+                h, sp, _ssm_dims(arch, sp), cache["ssm"][i],
+                cache["conv"][i])
+            cache["ssm"][i].copy_(sc)
+            cache["conv"][i].copy_(cc)
+            outs.append(y)
+        x = _residual(x, outs)
+        if arch.family != "ssm":
+            x = _ffn_fwd(arch, grp, x)
     x = rms_norm(x, params["final_norm"], arch.norm_eps)
     cache["pos"] = cache_len
     return _logits(arch, params, x)[:, 0], cache

@@ -16,7 +16,10 @@ KV residency is the plan's ``kv_residency``: ``dense`` per-slot
 data-organization pass chose, with every admitted request reserving its
 worst-case block budget (``kv_admission="reserve"``) and returning it
 on finish.  On the card, prefill runs the port's flash-attention kernel
-and every decode tick its paged (or dense) decode kernel.
+and every decode tick its paged (or dense) decode kernel.  An
+attention-free (mamba2) model has no KV to page: it is dense whatever
+is asked, each slot holding its SSM state and conv window; its prefill
+runs the SSD-scan kernel and its decode ticks the recurrence.
 
 What the port does not have yet, and refuses loudly: grow-on-demand
 grants with migration and preemption (``kv_admission="grant"``),
@@ -99,7 +102,10 @@ class ServeEngine:
         self.max_batch, self.max_len = max_batch, max_len
         self.kv_admission = kv_admission
         self.kv_prefill_mode = "inline"
-        self.kv_residency = "paged" if kv_residency == "paged" else "dense"
+        # an SSM-only arch has no KV stripes to page (its state is O(1)
+        # in the sequence), as in the JAX engine
+        self.kv_residency = ("paged" if kv_residency == "paged"
+                             and arch.has_attention else "dense")
         if self.kv_residency == "paged":
             self.block_len = kv_block_len or default_block_len(max_len)
             per_seq = -(-max_len // self.block_len)
@@ -113,8 +119,10 @@ class ServeEngine:
         else:
             self.block_len = 0
             self.n_blocks = 0
-            self.cache = lm.init_cache(arch, max_batch, max_len,
-                                       kv_heads=kv_heads, device=self.device)
+            self.cache = lm.init_cache(
+                arch, max_batch, max_len, kv_heads=kv_heads,
+                ssm_heads=lm.cache_heads(arch, params["blocks"]).get(
+                    "ssm_heads", 0), device=self.device)
         self._alloc = BlockAllocator(self.n_blocks, 1)
         self.free_slots = list(range(max_batch))
         self.active: Dict[int, Request] = {}
@@ -260,11 +268,15 @@ class ServeEngine:
 
     @property
     def decode_path(self) -> str:
-        """The attention the decode ticks run: the paged or dense decode
-        kernel on the card, its plain version on the CPU."""
+        """What the decode ticks run: the paged or dense decode kernel on
+        the card, its plain version on the CPU; for an attention-free
+        arch the SSM recurrence (plain PyTorch on either device)."""
+        on_card = self.device.type == "cuda"
+        if not self.arch.has_attention:
+            return f"ssm_recurrence:{'cuda' if on_card else 'cpu'}"
         kernel = ("paged_decode_attention" if self.kv_residency == "paged"
                   else "decode_attention")
-        return f"{kernel}:{'cuda' if self.device.type == 'cuda' else 'plain'}"
+        return f"{kernel}:{'cuda' if on_card else 'plain'}"
 
     def telemetry(self) -> Dict[str, Any]:
         """One JSON-serializable snapshot of the engine."""
@@ -356,13 +368,16 @@ class ServeEngine:
             return
         live_slots = np.asarray([slots[i] for i in idxs], np.int64)
         gidx = np.asarray(idxs, np.int64)
+        st = torch.from_numpy(live_slots).to(self.device)
+        gi = torch.from_numpy(gidx).to(self.device)
         if self.kv_residency == "paged":
             self._scatter_paged_prefill(live, live_slots, gidx, cacheg, plen)
-        else:
-            st = torch.from_numpy(live_slots).to(self.device)
-            gi = torch.from_numpy(gidx).to(self.device)
+        elif self.arch.has_attention:
             for key in ("k", "v"):
                 self.cache[key][:, st, :plen] = cacheg[key][:, gi]
+        for key in ("ssm", "conv"):
+            if key in self.cache:
+                self.cache[key][:, st] = cacheg[key][:, gi]
         for slot, r in zip(live_slots, live):
             r.slot = int(slot)
             self.slot_len[slot] = plen

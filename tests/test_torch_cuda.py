@@ -20,6 +20,13 @@ most, where a dropped or misread tile of a long row is tens of parts in
 100 (:func:`test_row_check_rejects_planted_faults`).  Logits of the
 small model on the card against the CPU: 2e-2 of their largest
 magnitude.
+
+The SSD scan kernel (fp32 in and out) is held the same way: a row is
+one (batch, position, head)'s head_dim outputs, and the final state is
+held per head, as its (head_dim, state) block; worst rms-relative error
+<= 1e-3 for both (the kernel and the plain version sum in other orders,
+in fp32).  Its planted faults (the carry into the second chunk dropped;
+the final state one chunk short) must fail that check by 10x.
 """
 
 import dataclasses
@@ -29,6 +36,7 @@ import torch
 
 import repro_torch.kernels.decode_attention as tdec
 import repro_torch.kernels.flash_attention as tfa
+import repro_torch.kernels.ssd_scan as tssd
 from repro_torch.configs import ShapeConfig, get_arch
 from repro_torch.core import specialize
 from repro_torch.core.passes.lowering import build_run_cfg
@@ -38,6 +46,7 @@ from repro_torch.models import lm
 FLASH_TOL = 1e-2            # worst row, rms-relative (see above)
 DECODE_TOL = 3e-3
 LOGIT_TOL = 2e-2
+SSD_TOL = 1e-3              # worst row / head, rms-relative, fp32
 H, K, D = 32, 8, 128
 
 
@@ -45,6 +54,7 @@ H, K, D = 32, 8, 128
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
     return torch.device("cuda")
 
 
@@ -160,7 +170,7 @@ def test_wrappers_count_launches_and_refuse_what_the_kernels_do_not_take(dev):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 1,
                                    "paged_decode_attention": 1,
-                                   "decode_attention": 1}
+                                   "decode_attention": 1, "ssd_scan": 0}
     with pytest.raises(RuntimeError, match="use_pallas='off'"):
         ops.flash_attention(q, k, k, mode="off")
     with pytest.raises(TypeError, match="bfloat16"):
@@ -277,3 +287,149 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------
+
+def ssd_inputs(gen, B, S, H, P, G, N):
+    """Model-like fp32 inputs: x and B/C through SiLU, dt a softplus
+    around softplus(-2) (the model's dt_bias), A = -linspace(1, 16, H)."""
+    dev = gen.device
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = torch.nn.functional.silu(rnd(B, S, H, P))
+    dt = torch.nn.functional.softplus(rnd(B, S, H) - 2.0)
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    Bm = torch.nn.functional.silu(rnd(B, S, G, N))
+    Cm = torch.nn.functional.silu(rnd(B, S, G, N))
+    return x, dt, A, Bm, Cm
+
+
+def ssd_err(y, fin, y_want, fin_want):
+    """Worst row of y and worst head of the final state, rms-relative."""
+    return (_rel_err(y, y_want),
+            _rel_err(fin.flatten(-2), fin_want.flatten(-2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 7, 300, 1000, 2048])
+@pytest.mark.parametrize("chunk", [64, 256])
+@pytest.mark.parametrize("P,N,H,G", [(64, 128, 80, 1), (64, 128, 8, 8),
+                                     (32, 16, 8, 1), (64, 16, 25, 1)])
+def test_ssd_kernel_matches_plain(dev, S, chunk, P, N, H, G):
+    g = torch.Generator(dev).manual_seed(S + chunk + P + N + H + G)
+    ins = ssd_inputs(g, 2, S, H, P, G, N)
+    y, fin = tssd.ssd_scan(*ins, chunk=chunk)
+    y_want, fin_want = tssd.ssd_scan_plain(*ins, chunk=chunk)
+    torch.cuda.synchronize()
+    assert max(ssd_err(y, fin, y_want, fin_want)) < SSD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads_block", [1, 2, 8])
+def test_ssd_kernel_heads_block_and_initial_state(dev, heads_block):
+    g = torch.Generator(dev).manual_seed(heads_block)
+    ins = ssd_inputs(g, 2, 500, 8, 32, 1, 16)
+    s0 = torch.randn((2, 8, 32, 16), generator=g, device=dev)
+    y, fin = tssd.ssd_scan(*ins, chunk=128, heads_block=heads_block,
+                           initial_state=s0)
+    y_want, fin_want = tssd.ssd_scan_plain(*ins, chunk=128,
+                                           initial_state=s0)
+    torch.cuda.synchronize()
+    assert max(ssd_err(y, fin, y_want, fin_want)) < SSD_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    g = torch.Generator(dev).manual_seed(0)
+    x, dt, A, Bm, Cm = ssd_inputs(g, 1, 64, 8, 32, 1, 16)
+    ops.reset_launch_counts()
+    ops.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == 1
+    with pytest.raises(ValueError, match="not one of the kernel's chunks"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=96)
+    with pytest.raises(ValueError, match="does not divide"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, heads_block=3)
+    with pytest.raises(TypeError, match="float32"):
+        ops.ssd_scan(x.bfloat16(), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                     Bm, Cm)
+    with pytest.raises(ValueError, match="head_dim, state"):
+        ops.ssd_scan(x[..., :16].contiguous(), dt, A, Bm, Cm)
+    with pytest.raises(RuntimeError, match="use_pallas='off'"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, mode="off")
+    assert ops.launch_counts()["ssd_scan"] == 1
+
+
+def ssd_faulted(fault: str, d: torch.device, chunk: int = 256):
+    """``(got, want)`` for a planted SSD fault, each a tensor whose last
+    dim is a row: y rows for the dropped carry, per-head final states
+    for the short state.  On the CPU the plain version plays the faulty
+    kernel."""
+    g = torch.Generator(d).manual_seed(11)
+    S, H = 2 * chunk, 16 if d.type == "cpu" else 80
+    ins = ssd_inputs(g, 1, S, H, 64, 1, 128 if d.type == "cuda" else 32)
+    y_want, fin_want = tssd.ssd_scan_plain(*ins, chunk=chunk)
+    if fault == "carry into the second chunk dropped":
+        tail = [t[:, chunk:].contiguous() if t.dim() > 1 else t for t in ins]
+        y, _ = ops.ssd_scan(*tail, chunk=chunk)
+        return y, y_want[:, chunk:]
+    head = [t[:, :S - chunk].contiguous() if t.dim() > 1 else t for t in ins]
+    _, fin = ops.ssd_scan(*head, chunk=chunk)
+    return fin.flatten(-2), fin_want.flatten(-2)
+
+
+@pytest.mark.parametrize("fault", ["carry into the second chunk dropped",
+                                   "final state one chunk short"])
+@pytest.mark.parametrize("where", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_ssd_check_rejects_planted_faults(where, fault):
+    if where == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    got, want = ssd_faulted(fault, torch.device(where),
+                            chunk=64 if where == "cpu" else 256)
+    assert _rel_err(got, want) > 10 * SSD_TOL
+
+
+def _card_ssm_arch():
+    return get_arch("mamba2-2.7b").reduced()
+
+
+@pytest.mark.cuda
+def test_ssm_model_on_card_matches_cpu(dev):
+    """Reduced mamba2: prefill (ragged, 100 tokens) and four decode
+    steps through the SSD kernel on the card against the plain version
+    on the CPU, same weights and tokens: logits within 2e-2 of the CPU
+    logits' scale; one kernel launch per layer per prefill."""
+    arch = _card_ssm_arch()
+    plan = specialize(arch, ShapeConfig("t", "decode", 512, 4),
+                      mesh_shape=(1, 1), cache=False)
+    cfg = build_run_cfg(plan, arch)
+    params_cpu = lm.init_params(arch, torch.Generator().manual_seed(0),
+                                *plan.padded_sizes())
+    toks = torch.randint(0, arch.vocab_size, (4, 105),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        params = _to(params_cpu, d)
+        ops.reset_launch_counts()
+        logits, cache = lm.prefill(arch, params,
+                                   {"tokens": toks[:, :100].to(d)}, cfg)
+        steps = [logits.float().cpu()]
+        for i in range(100, 104):
+            logits, cache = lm.decode_step(arch, params, cache,
+                                           {"tokens": toks[:, i:i + 1].to(d)},
+                                           cfg)
+            steps.append(logits.float().cpu())
+        out[d.type] = torch.stack(steps)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["ssd_scan"] == arch.n_layers
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert float((gpu - cpu).abs().max() / cpu.abs().max()) < LOGIT_TOL

@@ -1,15 +1,18 @@
-"""Model parity: the port's qwen3 serving path against the JAX package's.
+"""Model parity: the port's serving path against the JAX package's.
 
-Reduced qwen3-8b (2 layers, d_model 128, GQA 4:2, qk-norm, untied head),
-the JAX package's ``init_params`` carried across by
-``repro_torch.models.convert``.  Both packages run the same function on
+Reduced qwen3-8b (2 layers, d_model 128, GQA 4:2, qk-norm, untied head)
+and reduced mamba2-2.7b (2 layers, d_model 128, 8 SSM heads of 32,
+state 16, tied embeddings), the JAX package's ``init_params`` carried
+across by ``repro_torch.models.convert``.  Both packages run the same function on
 the same weights and tokens: the port through its kernels' plain
 versions (CPU tensors), the JAX package through its XLA mirrors.
 
 Tolerance: 2e-2 of the reference's largest magnitude, for logits and
 for every K/V row.  Both run in bf16 and round at different places
 (the JAX mirror scales q in bf16 before the scores, the port in fp32;
-the softmax sums run in another order).
+the softmax sums run in another order); the same 2e-2 for mamba2's
+logits, SSM state and conv window, whose bf16 projections round at
+other places too.
 """
 
 import jax
@@ -152,8 +155,119 @@ def test_decode_steps_match(model, residency):
 
 
 def test_unported_archs_raise_naming_the_arch():
-    for name in ("mamba2-2.7b", "hymba-1.5b", "granite-moe-1b-a400m",
+    for name in ("hymba-1.5b", "granite-moe-1b-a400m",
                  "qwen2-vl-72b", "hubert-xlarge"):
         arch = tget_arch(name).reduced()
         with pytest.raises(NotImplementedError, match=name):
             tlm.leaf_specs(arch)
+
+
+# ---------------------------------------------------------------------
+# mamba2 (attention-free SSM)
+# ---------------------------------------------------------------------
+
+SSM_S = 100                 # ragged against the plan's chunk
+
+
+@pytest.fixture(scope="module")
+def ssm_model():
+    rarch = rget_arch("mamba2-2.7b").reduced()
+    tarch = tget_arch("mamba2-2.7b").reduced()
+    shape = ("serve_demo", "decode", 128, 4)
+    rplan = rspecialize(rarch, RShape(*shape), mesh_shape=(1, 1))
+    tplan = tspecialize(tarch, TShape(*shape), mesh_shape=(1, 1),
+                        target="tpu-v5e")
+    assert tplan.content_hash() == rplan.content_hash()
+    rparams = rlm.init_params(rarch, jax.random.PRNGKey(0),
+                              *rplan.padded_sizes())
+    tparams = convert.params_from_numpy(
+        tarch, jax.tree.map(np.asarray, rparams), device="cpu")
+    tokens = np.random.default_rng(1).integers(
+        0, rarch.vocab_size, (B, SSM_S)).astype(np.int32)
+    rcfg = rbuild_run_cfg(rplan, rarch, None)
+    tcfg = tbuild_run_cfg(tplan, tarch)
+    assert (tcfg.ssd_chunk, tcfg.ssd_heads_block) == (
+        rcfg.ssd_chunk, tplan.partitions["ssd_scan"].blocks["heads_block"])
+    return {"rarch": rarch, "tarch": tarch, "rparams": rparams,
+            "tparams": tparams, "rcfg": rcfg, "tcfg": tcfg,
+            "tokens": tokens}
+
+
+def test_ssm_convert_carries_every_leaf_bit_for_bit(ssm_model):
+    flat_r = jax.tree_util.tree_flatten_with_path(ssm_model["rparams"])[0]
+    assert set(ssm_model["tparams"]["blocks"]) == {"pre_norm", "ssm"}
+    n = 0
+    for path, leaf in flat_r:
+        t = ssm_model["tparams"]
+        for k in path:
+            t = t[k.key]
+        want = np.asarray(leaf)
+        assert tuple(t.shape) == want.shape
+        if want.dtype.name == "bfloat16":
+            np.testing.assert_array_equal(
+                t.view(torch.int16).numpy(), want.view(np.int16))
+        else:
+            np.testing.assert_array_equal(t.numpy(), want)
+        n += 1
+    assert n == 11                  # embed, final_norm, pre_norm, 8 ssm
+
+
+def test_ssm_init_params_fixes_the_ssm_leaves(ssm_model):
+    """The port's own init draws other numbers, but its A_log, D and
+    dt_bias are the JAX package's fixed values."""
+    arch = ssm_model["tarch"]
+    params = tlm.init_params(arch, torch.Generator().manual_seed(0))
+    want = ssm_model["rparams"]["blocks"]["ssm"]
+    for key in ("A_log", "D", "dt_bias"):
+        np.testing.assert_allclose(params["blocks"]["ssm"][key].numpy(),
+                                   np.asarray(want[key]), rtol=1e-6)
+
+
+def _ssm_prefill(m):
+    rl, rc = rlm.prefill(m["rarch"], m["rparams"],
+                         {"tokens": jnp.asarray(m["tokens"])}, m["rcfg"],
+                         max_len=MAX_LEN)
+    tl, tc = tlm.prefill(m["tarch"], m["tparams"],
+                         {"tokens": torch.from_numpy(m["tokens"])}, m["tcfg"],
+                         max_len=MAX_LEN)
+    return rl, rc, tl, tc
+
+
+def test_ssm_prefill_logits_and_state_match(ssm_model):
+    rl, rc, tl, tc = _ssm_prefill(ssm_model)
+    assert sorted(tc) == sorted(rc) == ["conv", "pos", "ssm"]
+    assert tl.dtype == torch.bfloat16 and tuple(tl.shape) == rl.shape
+    assert _rel(_np(tl), rl) < TOL
+    assert tc["ssm"].dtype == torch.float32
+    assert tc["conv"].dtype == torch.bfloat16
+    for key in ("ssm", "conv"):
+        want = np.asarray(rc[key], np.float32)
+        got = _np(tc[key])
+        assert got.shape == want.shape
+        for layer in range(want.shape[0]):       # layer by layer
+            assert _rel(got[layer], want[layer]) < TOL
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(rc["pos"]))
+
+
+def test_ssm_decode_steps_match(ssm_model):
+    """Four decode steps from the same prefilled state, fed the same
+    (reference-greedy) tokens: logits, state and window agree."""
+    _, rcache, _, tcache = _ssm_prefill(ssm_model)
+    tok = ssm_model["tokens"][:, -1:]
+    for _ in range(4):
+        rl, rcache = rlm.decode_step(ssm_model["rarch"],
+                                     ssm_model["rparams"], rcache,
+                                     {"tokens": jnp.asarray(tok)},
+                                     ssm_model["rcfg"])
+        tl, tcache = tlm.decode_step(ssm_model["tarch"],
+                                     ssm_model["tparams"], tcache,
+                                     {"tokens": torch.from_numpy(tok)},
+                                     ssm_model["tcfg"])
+        assert _rel(_np(tl), rl) < TOL
+        np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                      np.asarray(rcache["pos"]))
+        tok = np.asarray(jnp.argmax(rl.astype(jnp.float32), -1),
+                         np.int32)[:, None]
+    for key in ("ssm", "conv"):
+        assert _rel(_np(tcache[key]), np.asarray(rcache[key], np.float32)) \
+            < TOL

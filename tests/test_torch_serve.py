@@ -6,6 +6,9 @@ Both engines are built ``from_plan`` on the ``serve_demo`` plan
 overridden off, on the same weights, and serve the same 10 greedy
 requests.  The port runs its kernels' plain versions (CPU tensors).
 
+The same holds for reduced mamba2-2.7b (attention-free: dense per-slot
+SSM state whatever residency is asked), on its own ``serve_demo`` plan.
+
 Greedy tokens must be identical wherever the reference's top-2 logit
 margin exceeds the logit tolerance (2e-2 of the logits' largest
 magnitude, the bf16 tolerance of ``test_torch_model.py``); past a step
@@ -108,7 +111,7 @@ def test_pool_accounting_and_prefill_batching_match(served):
     assert tel["decode_path"] == "paged_decode_attention:plain"
     assert tel["kernel_launches"] == {"flash_attention": 0,
                                       "paged_decode_attention": 0,
-                                      "decode_attention": 0}
+                                      "decode_attention": 0, "ssd_scan": 0}
 
 
 def test_from_plan_refuses_what_the_port_cannot_honour():
@@ -161,3 +164,56 @@ def test_block_allocator_matches_reference_op_for_op(seed):
             blocks = held.pop(int(rng.integers(0, len(held))))
             assert ta.release(blocks) == ra.release(blocks)
         assert ta.stats() == ra.stats()
+
+
+# ---------------------------------------------------------------------
+# mamba2 (attention-free SSM)
+# ---------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ssm_served():
+    rarch = rget_arch("mamba2-2.7b").reduced()
+    tarch = tget_arch("mamba2-2.7b").reduced()
+    rplan = rspecialize(rarch, RShape("serve_demo", "decode", 128, 4),
+                        mesh_shape=(1, 1))
+    tplan = tspecialize(tarch, TShape("serve_demo", "decode", 128, 4),
+                        mesh_shape=(1, 1), target="tpu-v5e")
+    rparams = rlm.init_params(rarch, jax.random.PRNGKey(0),
+                              *rplan.padded_sizes())
+    tparams = convert.params_from_numpy(
+        tarch, jax.tree.map(np.asarray, rparams), device="cpu")
+    over = {"kv_prefix_reuse": "off", "kv_host_blocks": 0}
+    reng = RServeEngine.from_plan(rplan, rparams, arch=rarch, **over)
+    teng = TServeEngine.from_plan(tplan, tparams, arch=tarch, **over)
+    prompts = _requests()
+    for eng in (reng, teng):
+        for p in prompts:
+            eng.submit(p, max_new_tokens=12, temperature=0.0)
+    rdone = {r.rid: r for r in reng.run_until_idle()}
+    tdone = {r.rid: r for r in teng.run_until_idle()}
+    return {"rarch": rarch, "rparams": rparams,
+            "rcfg": rbuild_run_cfg(rplan, rarch, None), "reng": reng,
+            "teng": teng, "rdone": rdone, "tdone": tdone, "prompts": prompts,
+            "tarch": tarch, "tparams": tparams}
+
+
+def test_ssm_greedy_tokens_match_where_the_margin_allows(ssm_served):
+    test_greedy_tokens_match_where_the_margin_allows(ssm_served)
+
+
+def test_ssm_engine_is_dense_and_batches_like_the_reference(ssm_served):
+    reng, teng = ssm_served["reng"], ssm_served["teng"]
+    assert teng.kv_residency == reng.kv_residency == "dense"
+    assert sorted(teng.cache) == ["conv", "pos", "ssm"]
+    assert teng.prefill_calls == reng.prefill_calls
+    assert list(teng.prefill_batches) == list(reng.prefill_batches)
+    assert max(teng.prefill_batches) > 1
+    assert teng.tick == reng.tick
+    tel = teng.telemetry()
+    assert tel["decode_path"] == "ssm_recurrence:cpu"
+    assert tel["kernel_launches"]["ssd_scan"] == 0
+    # asked for paged residency, an attention-free arch stays dense
+    paged = TServeEngine(ssm_served["tarch"], ssm_served["tparams"],
+                         teng.cfg, max_batch=2, max_len=64,
+                         kv_residency="paged", kv_block_len=16)
+    assert paged.kv_residency == "dense" and "block_tbl" not in paged.cache
