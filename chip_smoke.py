@@ -14,7 +14,8 @@ Phases (any failure exits non-zero before the last line):
    (``nvcc`` for ``sm_90a``, one process per source, all at once);
 2. kernels: each kernel against its plain version at its path's widths
    (attention: 32 q heads, 8 kv heads, head_dim 128, bf16; SSD scan: 80
-   heads of 64, state 128, one group, chunk 256, fp32), with planted
+   heads of 64, state 128, one group, chunk 256, fp32; tiled matmul:
+   every tile it is built for, bf16 and fp32, ragged shapes), with planted
    faults that must fail the same check, then its time, the plain
    version's, one library call's where one exists (a yardstick the port
    never calls) and the bound (bytes at 3.35 TB/s or operations at the
@@ -29,7 +30,15 @@ Phases (any failure exits non-zero before the last line):
 7. mamba2-2.7b checks: the full-depth consistency check (prefill + one
    recurrent decode step against the kernel's prefill of the same
    tokens) and a small mamba2 on the card against the CPU;
-8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+8. the plan-driven matmul path: the serve phases' ``h100-sxm`` plans
+   stored, reloaded by hash prefix and shown with the plan-store CLI
+   (``launch.plan show --log``), then ``kernels.ops.matmul`` on each
+   plan's tiles at five full-width GEMM shapes of the two models, each
+   held against the plain version row by row beside two planted faults,
+   and timed beside its bound, the plain version and ``torch.matmul``.
+   No serving path launches this kernel: the models' projections stay
+   ``torch.matmul``;
+9. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
 name and power limit.
@@ -42,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -49,6 +59,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+PLAN_DIR = ROOT / "build" / "plans"     # the plan store of this run
 
 PEAK_BF16 = 989e12          # H100 SXM data sheet, dense bf16 tensor core
 PEAK_FP32 = 67e12           # H100 SXM data sheet, fp32 on the CUDA cores
@@ -59,6 +70,10 @@ HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
 # is fp32 on both sides: only the order of its sums differs.
 TOL = {"flash_attention": 1e-2, "paged_decode_attention": 3e-3,
        "decode_attention": 3e-3, "ssd_scan": 1e-3}
+# tiled matmul, worst output row rms-relative and max/max: the JAX
+# tests' tolerances (bf16: both sides sum exact bf16 products in fp32
+# and round once; fp32: only the order of the sums differs, no TF32)
+MM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 LOGIT_TOL = 2e-2            # small model: max |card - cpu| / max |cpu| logits
 FULL_TOL = 0.1              # rms-relative logits, full depth (see below)
 H, K, D = 32, 8, 128        # qwen3-8b attention widths
@@ -288,13 +303,40 @@ def kernel_phase(torch, dev):
         shape=f"B={Bd} S={max_len} H={H} K={K} D={D} lens={lens_list} bf16",
         library_call="F.scaled_dot_product_attention(attn_mask, enable_gqa)")
     res["ssd_scan"] = ssd_kernel_check(torch, dev, g)
+    mm_worst = matmul_kernel_check(torch, dev, g)
     for name, r in res.items():
         log(f"timing {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) at {r['shape']} "
             f"[{CARD}]")
     ops.reset_launch_counts()       # comparison launches do not count
-    return res
+    return res, mm_worst
+
+
+def matmul_kernel_check(torch, dev, g):
+    """The tiled matmul at every tile it is built for, bf16 and fp32, on
+    a ragged shape (300, 584, 1000) and a decode tick's (8, 4096, 2048),
+    against the plain version, row by row (a row: one output row).
+    Returns the worst row error by dtype."""
+    from repro_torch.kernels import tiled_matmul as mm
+
+    worst = {}
+    for tiles in mm.KERNEL_TILES:
+        for dt in mm.DTYPES:
+            name = str(dt).split(".")[-1]
+            for M, K, N in ((300, 584, 1000), (8, 4096, 2048)):
+                a = torch.randn((M, K), generator=g, device=dev).to(dt)
+                b = torch.randn((K, N), generator=g, device=dev).to(dt)
+                err, rel = row_err(torch, mm.tiled_matmul(a, b, tiles=tiles),
+                                   mm.tiled_matmul_plain(a, b))
+                tol = MM_TOL[name]
+                log(f"kernel tiled_matmul tiles={tiles} {name} M={M} K={K} "
+                    f"N={N}: max_abs_err={err:.3e} worst row rel={rel:.3e} "
+                    f"(tol {tol}) [{CARD}]")
+                check(rel <= tol, f"tiled_matmul {tiles} {name} ({M}, {K}, "
+                      f"{N}) row rel err {rel} > {tol}")
+                worst[name] = max(worst.get(name, 0.0), rel)
+    return worst
 
 
 def ssd_kernel_check(torch, dev, g):
@@ -658,6 +700,150 @@ def _to(torch, tree, dev):
 
 
 # ---------------------------------------------------------------------
+# phase 8: the plan-driven matmul path
+# ---------------------------------------------------------------------
+
+def matmul_shapes(qwen, mamba):
+    """``(name, arch, M, K, N, dtype)`` of the phase's GEMMs, from the
+    two models' configs: qwen3-8b's fused gate/up and FFN down on a
+    2048-token prefill and its logits on one 8-slot decode tick;
+    mamba2-2.7b's in_proj on a ragged 1000-token prefill and its fp32
+    ``y @ out_proj`` (JAX's promotion, which the port keeps)."""
+    in_proj = (2 * mamba.d_inner + 2 * mamba.ssm_n_groups * mamba.ssm_state
+               + mamba.ssm_heads)
+    return (
+        ("qwen3-8b gate/up, 2048-token prefill", "qwen3-8b", 2048,
+         qwen.d_model, 2 * qwen.d_ff, "bfloat16"),
+        ("qwen3-8b FFN down, 2048-token prefill", "qwen3-8b", 2048,
+         qwen.d_ff, qwen.d_model, "bfloat16"),
+        ("qwen3-8b logits, one 8-slot decode tick", "qwen3-8b", 8,
+         qwen.d_model, qwen.vocab_size, "bfloat16"),
+        ("mamba2-2.7b in_proj, 1000-token prefill", "mamba2-2.7b", 1000,
+         mamba.d_model, in_proj, "bfloat16"),
+        ("mamba2-2.7b y @ out_proj in fp32, 1000 tokens", "mamba2-2.7b",
+         1000, mamba.d_inner, mamba.d_model, "float32"))
+
+
+def matmul_path_phase(torch, dev, plans, shapes):
+    """The plan-driven path of the tiled matmul: the serve phases'
+    plans, already in the store at :data:`PLAN_DIR`, are reloaded by
+    hash prefix and shown with the plan-store CLI; ``ops.matmul`` then
+    runs each shape once on its model's plan's tiles (the launches this
+    phase reports), held against the plain version row by row and by
+    the JAX test's max/max error.  Two planted faults must fail the row
+    check at every shape: the last K tile dropped (the kernel run on
+    ``a[:, :K-bk]``, ``b[:K-bk]``) and the first two N tiles swapped (on
+    ``b`` with those column blocks exchanged).  Then each shape is timed
+    beside its bound, the plain version and ``torch.matmul``."""
+    from repro_torch.core.planstore import PlanStore
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tiled_matmul as mm
+    from repro_torch.launch import plan as plan_cli
+
+    store = PlanStore(PLAN_DIR)              # a fresh store: reads the disk
+    d = str(PLAN_DIR)
+    check(plan_cli.main(["--plan-dir", d, "list"]) == 0, "plan list failed")
+    tiles = {}
+    for name, plan in plans.items():
+        h = plan.content_hash()
+        hits = [f.stem for f in PLAN_DIR.glob(f"{h[:12]}*.json")]
+        check(hits == [h], f"plan {name}: {h[:12]} not stored once: {hits}")
+        log(f"matmul path: plan {name}: python -m repro_torch.launch.plan "
+            f"show {h[:12]} --log")
+        check(plan_cli.main(["--plan-dir", d, "show", h[:12], "--log"]) == 0,
+              f"plan show {h[:12]} failed")
+        again = store.load(hits[0])
+        check(again is not None and again.content_hash() == h,
+              f"plan {name}: reload by prefix {h[:12]} failed")
+        t = ops.matmul_tiles(again)
+        bp = again.partitions["tiled_matmul"]
+        check(t in mm.KERNEL_TILES and bp.vmem_bytes == mm.smem_bytes(*t),
+              f"plan {name}: tile {t}, {bp.vmem_bytes} B, is not a kernel "
+              "tile")
+        tiles[again.arch] = t
+    check(plan_cli.main(["--plan-dir", d, "verify"]) == 0,
+          "plan verify failed")
+
+    g = torch.Generator(dev).manual_seed(SEED + 3)
+    ins = [tuple(torch.randn(s, generator=g, device=dev).to(getattr(
+        torch, dt)) for s in ((M, K), (K, N)))
+        for _, _, M, K, N, dt in shapes]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = [ops.matmul(a, b, tiles=tiles[arch])
+            for (_, arch, *_), (a, b) in zip(shapes, ins)]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["tiled_matmul"]
+    check(launches == len(shapes), f"matmul path: {launches} launches for "
+          f"{len(shapes)} calls")
+
+    per = []
+    for (name, arch, M, K, N, dt), (a, b), out in zip(shapes, ins, outs):
+        t = tiles[arch]
+        bk, bn = t[1], t[2]
+        tol = MM_TOL[dt]
+        want = mm.tiled_matmul_plain(a, b)
+        check(out.dtype == a.dtype and tuple(out.shape) == (M, N),
+              f"matmul {name}: {out.dtype} {tuple(out.shape)}")
+        err, rel = row_err(torch, out, want)
+        maxrel = float((out.float() - want.float()).abs().max()
+                       / want.float().abs().max())
+        log(f"check matmul {name} ({M}, {K}, {N}) {dt} tiles={t}: "
+            f"max_abs_err={err:.3e} worst row rel={rel:.3e} max/max "
+            f"rel={maxrel:.3e} (tol {tol}) [{CARD}]")
+        check(rel <= tol and maxrel <= tol, f"matmul {name}: row rel {rel}, "
+              f"max/max {maxrel} > {tol}")
+        idx = torch.arange(N, device=dev)
+        idx[:2 * bn] = idx[:2 * bn].roll(bn)
+        ctl = []
+        for fault, got in (
+                ("last K tile dropped", lambda: ops.matmul(
+                    a[:, :K - bk].contiguous(), b[:K - bk].contiguous(),
+                    tiles=t)),
+                ("two N tiles swapped", lambda: ops.matmul(
+                    a, b[:, idx].contiguous(), tiles=t))):
+            _, frel = row_err(torch, got(), want)
+            log(f"control matmul {name} {fault}: worst row rel={frel:.3e} "
+                f"(must exceed tol {tol}) [{CARD}]")
+            check(frel > tol, f"control matmul {name} {fault} passed the "
+                  f"check ({frel} <= {tol})")
+            ctl.append(frel)
+        del want
+        ms = time_ms(torch, lambda: mm.tiled_matmul(a, b, tiles=t))
+        plain = time_ms(torch, lambda: mm.tiled_matmul_plain(a, b), iters=5)
+        lib = time_ms(torch, lambda: torch.matmul(a, b))
+        e = a.element_size()
+        b_ms, b_by = bound(e * (M * K + K * N + M * N), 2 * M * K * N,
+                           PEAK_FP32 if dt == "float32" else PEAK_BF16)
+        log(f"timing tiled_matmul {name} ({M}, {K}, {N}) {dt} tiles={t}: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
+            f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{CARD}]")
+        per.append(dict(name=name, M=M, K=K, N=N, dtype=dt, tiles=list(t),
+                        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                        bound_by=b_by, max_abs_err=err, row_rel_err=rel,
+                        max_rel_err=maxrel, tolerance=tol,
+                        control_row_rel_err=min(ctl)))
+    ops.reset_launch_counts()       # comparison launches do not count
+    by = {}
+    for p in per:
+        by[p["bound_by"]] = by.get(p["bound_by"], 0.0) + p["bound_ms"]
+    return launches, dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/tiled_matmul.cu",
+        replaces="src/repro/kernels/tiled_matmul.py:38",
+        max_abs_err=max(p["max_abs_err"] for p in per),
+        row_rel_err=max(p["row_rel_err"] for p in per),
+        control_row_rel_err=min(p["control_row_rel_err"] for p in per),
+        tolerance=MM_TOL, ms=sum(p["ms"] for p in per),
+        plain_ms=sum(p["plain_ms"] for p in per),
+        library_ms=sum(p["library_ms"] for p in per),
+        bound_ms=sum(by.values()), bound_by=max(by, key=by.get),
+        shape="sums over the matmul phase's five calls (each in 'shapes')",
+        shapes=per, library_call="torch.matmul (cuBLAS), TF32 off",
+        launched_by="the plan-driven matmul phase; no serving path "
+                    "launches it")
+
+
+# ---------------------------------------------------------------------
 
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").exists():
@@ -697,7 +883,7 @@ def main() -> int:
             f"{spills} bytes of spill stores and loads [{CARD}]")
 
     # ---- phase 2: kernels ----
-    kern = kernel_phase(torch, dev)
+    kern, mm_worst = kernel_phase(torch, dev)
 
     # ---- phases 3-4: serve ----
     from repro_torch.configs import ShapeConfig, get_arch
@@ -707,7 +893,9 @@ def main() -> int:
 
     arch = get_arch("qwen3-8b")
     shape = ShapeConfig("serve_h100", "decode", 2048, 8)
-    plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm")
+    shutil.rmtree(PLAN_DIR, ignore_errors=True)
+    plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
+                      plan_dir=PLAN_DIR)
     check(plan.estimates.get("kv_residency") == "paged",
           f"the h100 plan is not paged: {plan.estimates.get('kv_residency')}")
     t0 = time.perf_counter()
@@ -725,7 +913,7 @@ def main() -> int:
           and paged_counts["paged_decode_attention"] > 0,
           f"paged serve did not launch its kernels: {paged_counts}")
     dplan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
-                       kv_residency="dense")
+                       kv_residency="dense", plan_dir=PLAN_DIR)
     check(dplan.estimates.get("kv_residency") == "dense",
           "the dense plan is not dense")
     dense_counts, dense = serve_phase(torch, dev, "dense", arch, dplan,
@@ -743,7 +931,8 @@ def main() -> int:
 
     # ---- phases 6-7: mamba2-2.7b, qwen's weights freed ----
     march = get_arch("mamba2-2.7b")
-    mplan = specialize(march, shape, mesh_shape=(1, 1), target="h100-sxm")
+    mplan = specialize(march, shape, mesh_shape=(1, 1), target="h100-sxm",
+                       plan_dir=PLAN_DIR)
     ssd_blocks = dict(mplan.partitions["ssd_scan"].blocks)
     check(ssd_blocks["chunk"] == 256 and ssd_blocks["heads_block"] == 1
           and "kv_residency" not in mplan.estimates,
@@ -776,9 +965,23 @@ def main() -> int:
     small_ssm_check(torch, dev)
     ops.reset_launch_counts()
 
-    # ---- phase 8: results ----
+    # ---- phase 8: the plan-driven matmul path ----
+    serve_mm = {n: c["tiled_matmul"] for n, c in (
+        ("paged", paged_counts), ("dense", dense_counts), ("ssm", ssm_counts))}
+    check(not any(serve_mm.values()),
+          f"a serving path launched tiled_matmul: {serve_mm}")
+    t0 = time.perf_counter()
+    mm_launches, kern["tiled_matmul"] = matmul_path_phase(
+        torch, dev, {"qwen3-8b paged": plan, "qwen3-8b dense": dplan,
+                     "mamba2-2.7b": mplan}, matmul_shapes(arch, march))
+    kern["tiled_matmul"]["kernel_check_row_rel_err"] = mm_worst
+    log(f"matmul path: {mm_launches} launches, phase took "
+        f"{time.perf_counter() - t0:.1f} s [{CARD}]")
+
+    # ---- phase 9: results ----
     launches = {k: paged_counts[k] + dense_counts[k] + ssm_counts[k]
                 for k in paged_counts}
+    launches["tiled_matmul"] = mm_launches
     kernels = []
     for name, r in kern.items():
         kernels.append({"name": name, **{k: r[k] for k in (
@@ -786,8 +989,11 @@ def main() -> int:
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "row_rel_err", "state_rel_err",
-                                 "tolerance", "control_row_rel_err",
-                                 "shape", "library_call") if k in r},
+                                 "max_rel_err", "tolerance",
+                                 "control_row_rel_err",
+                                 "kernel_check_row_rel_err", "shape",
+                                 "shapes", "library_call", "launched_by")
+               if k in r},
             "card": CARD})
     log(json.dumps({"serve": {"paged": paged, "dense": dense,
                               "ssm": ssm_serve,

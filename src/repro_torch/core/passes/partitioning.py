@@ -23,6 +23,9 @@ from repro_torch.core.ir import OpKind
 from repro_torch.core.plan import BlockPlan
 from repro_torch.core.passes import Pass, PassContext
 
+#: targets whose tiled_matmul runs the hand-written CUDA kernel
+CUDA_TARGETS = ("h100-sxm",)
+
 
 def _align_down(n: int, q: int) -> int:
     return max(q, (n // q) * q)
@@ -149,6 +152,9 @@ class LocalPartitioningPass(Pass):
                     "recurrence (VPU) with state resident in VMEM")
 
     def _matmul(self, ctx: PassContext, budget: int) -> None:
+        if ctx.target.name in CUDA_TARGETS:
+            self._matmul_cuda(ctx, budget)
+            return
         bm, bk, bn = 512, 512, 512
         while matmul_tile_bytes(bm, bk, bn) * 2 > budget and bm > 128:
             bm //= 2
@@ -165,3 +171,30 @@ class LocalPartitioningPass(Pass):
         self.record(ctx, "tiled_matmul", f"{bm}x{bk}x{bn}",
                     f"2-bank {2*bp.vmem_bytes/2**20:.1f} MiB working set; "
                     "K-inner grid for accumulator reuse")
+
+    def _matmul_cuda(self, ctx: PassContext, budget: int) -> None:
+        """On a CUDA card the tile is one the kernel is built for: the
+        largest ``bm x bn`` (then ``bk``) whose bf16 operand stages fit
+        the shared-memory budget.  The fp32 accumulator lives in
+        registers, not in shared memory, so it is not charged here."""
+        from repro_torch.kernels import tiled_matmul as mm
+
+        fits = [t for t in mm.KERNEL_TILES if mm.smem_bytes(*t) <= budget]
+        bm, bk, bn = max(fits, key=lambda t: (t[0] * t[2], t[1]))
+        smem = mm.smem_bytes(bm, bk, bn)
+        bp = BlockPlan(
+            kernel="tiled_matmul",
+            blocks={"bm": bm, "bk": bk, "bn": bn},
+            n_buffers=mm.STAGES,
+            vmem_bytes=smem,
+            grid_note=(f"grid=ceil(M/{bm}) x ceil(N/{bn}) CTAs, K loop inside "
+                       f"each CTA; {mm.STAGES} cp.async operand stages in "
+                       "shared memory; fp32 accumulator in registers"),
+        )
+        ctx.plan.partitions[bp.kernel] = bp
+        ctx.template["plm.matmul"].refine(self.name, **bp.blocks)
+        self.record(ctx, "tiled_matmul", f"{bm}x{bk}x{bn}",
+                    f"{mm.STAGES}-bank bf16 operand stages, {smem} B of shared "
+                    f"memory <= budget {budget} B; fp32 accumulator in "
+                    "registers, not shared memory; a tile the CUDA kernel is "
+                    "built for")

@@ -23,7 +23,8 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES: Tuple[str, ...] = ("flash_attention", "decode_attention", "ssd_scan")
+SOURCES: Tuple[str, ...] = ("flash_attention", "decode_attention", "ssd_scan",
+                            "tiled_matmul")
 HEADERS: Tuple[str, ...] = ("common.cuh",)
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -133,6 +134,10 @@ _SIGNATURES = {
         # heads_block, stream
         "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _I, _P],
+    },
+    "tiled_matmul": {
+        # a, b, out, M, K, N, bm, bk, bn, fp32, stream
+        "tiled_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import tiled_matmul as _mm
 
 MODES = ("auto", "on", "off")
 
@@ -92,12 +93,34 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: Optional[int] = None,
                          initial_state=initial_state)
 
 
+def matmul_tiles(plan) -> Optional[Tuple[int, int, int]]:
+    """The ``(bm, bk, bn)`` of a plan's ``tiled_matmul`` BlockPlan, or
+    ``None`` (the kernel's documented default) for a plan without one."""
+    bp = plan.partitions.get("tiled_matmul")
+    if bp is None:
+        return None
+    return bp.blocks["bm"], bp.blocks["bk"], bp.blocks["bn"]
+
+
+def matmul(a, b, *, tiles: Optional[Tuple[int, int, int]] = None,
+           mode: str = "auto") -> torch.Tensor:
+    """a ``(M, K)`` @ b ``(K, N)`` summed in fp32, in a's dtype, on the
+    plan's ``(bm, bk, bn)`` (:func:`matmul_tiles`).  The tile is checked
+    on either device, so a plan the kernel cannot run fails on the CPU
+    too; the plain version has no tiles."""
+    _mm.kernel_tiles(tiles)
+    if not _use_kernel("tiled_matmul", a, mode):
+        return _mm.tiled_matmul_plain(a, b)
+    return _mm.tiled_matmul(a, b, tiles=tiles)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"flash_attention": _fa.launches,
             "paged_decode_attention": _dec.paged_launches,
             "decode_attention": _dec.dense_launches,
-            "ssd_scan": _ssd.launches}
+            "ssd_scan": _ssd.launches,
+            "tiled_matmul": _mm.launches}
 
 
 def reset_launch_counts() -> None:
@@ -105,3 +128,4 @@ def reset_launch_counts() -> None:
     _dec.paged_launches = 0
     _dec.dense_launches = 0
     _ssd.launches = 0
+    _mm.launches = 0

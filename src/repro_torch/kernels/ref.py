@@ -108,3 +108,8 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, initial_state=None):
                                    x[:, t])
         ys.append(torch.einsum("bhpn,bhn->bhp", s, Cm[:, t]))
     return torch.stack(ys, 1), s
+
+
+def tiled_matmul_ref(a, b) -> torch.Tensor:
+    """The product in fp32, cast back to ``a``'s dtype."""
+    return torch.matmul(a.float(), b.float()).to(a.dtype)

@@ -27,6 +27,13 @@ held per head, as its (head_dim, state) block; worst rms-relative error
 <= 1e-3 for both (the kernel and the plain version sum in other orders,
 in fp32).  Its planted faults (the carry into the second chunk dropped;
 the final state one chunk short) must fail that check by 10x.
+
+The tiled matmul (bf16 on the tensor cores, fp32 on the CUDA cores) is
+held per output row, rms-relative, at the JAX tests' tolerances: 2e-2 in
+bf16 (both sides sum exact bf16 products in fp32 and round once to bf16)
+and 1e-5 in fp32 (only the order of the fp32 sums differs).  Its planted
+faults (the last K tile dropped; two N tiles swapped) must fail that
+check by 5x.
 """
 
 import dataclasses
@@ -37,6 +44,7 @@ import torch
 import repro_torch.kernels.decode_attention as tdec
 import repro_torch.kernels.flash_attention as tfa
 import repro_torch.kernels.ssd_scan as tssd
+import repro_torch.kernels.tiled_matmul as tmm
 from repro_torch.configs import ShapeConfig, get_arch
 from repro_torch.core import specialize
 from repro_torch.core.passes.lowering import build_run_cfg
@@ -47,6 +55,7 @@ FLASH_TOL = 1e-2            # worst row, rms-relative (see above)
 DECODE_TOL = 3e-3
 LOGIT_TOL = 2e-2
 SSD_TOL = 1e-3              # worst row / head, rms-relative, fp32
+MM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}    # worst output row
 H, K, D = 32, 8, 128
 
 
@@ -170,7 +179,8 @@ def test_wrappers_count_launches_and_refuse_what_the_kernels_do_not_take(dev):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 1,
                                    "paged_decode_attention": 1,
-                                   "decode_attention": 1, "ssd_scan": 0}
+                                   "decode_attention": 1, "ssd_scan": 0,
+                                   "tiled_matmul": 0}
     with pytest.raises(RuntimeError, match="use_pallas='off'"):
         ops.flash_attention(q, k, k, mode="off")
     with pytest.raises(TypeError, match="bfloat16"):
@@ -433,3 +443,100 @@ def test_ssm_model_on_card_matches_cpu(dev):
             assert ops.launch_counts()["ssd_scan"] == arch.n_layers
     cpu, gpu = out["cpu"], out["cuda"]
     assert float((gpu - cpu).abs().max() / cpu.abs().max()) < LOGIT_TOL
+
+
+# ---------------------------------------------------------------------
+# the plan-driven tiled matmul
+# ---------------------------------------------------------------------
+
+def _mm_inputs(gen, M, K, N, dtype):
+    return (torch.randn((M, K), generator=gen, device=gen.device).to(dtype),
+            torch.randn((K, N), generator=gen, device=gen.device).to(dtype))
+
+
+def _h100_tiles():
+    plan = specialize(get_arch("qwen3-8b"),
+                      ShapeConfig("serve_h100", "decode", 2048, 8),
+                      mesh_shape=(1, 1), target="h100-sxm", cache=False)
+    return ops.matmul_tiles(plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", tmm.KERNEL_TILES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(256, 512, 384), (300, 584, 1000)])
+def test_matmul_kernel_matches_plain(dev, tiles, dtype, M, K, N):
+    g = torch.Generator(dev).manual_seed(M + K)
+    a, b = _mm_inputs(g, M, K, N, dtype)
+    got = ops.matmul(a, b, tiles=tiles)
+    assert got.dtype == dtype and tuple(got.shape) == (M, N)
+    assert _rel_err(got, tmm.tiled_matmul_plain(a, b)) < MM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 2048), (1000, 256, 10576),
+                                   (1, 64, 8), (130, 8, 136), (4, 0, 64)])
+def test_matmul_kernel_ragged_shapes(dev, dtype, M, K, N):
+    """A decode tick's M = 8, a ragged prefill bucket, mamba2's in_proj
+    width, one row, and an empty K, on the H100 plan's tile."""
+    g = torch.Generator(dev).manual_seed(M + N)
+    a, b = _mm_inputs(g, M, K, N, dtype)
+    got = ops.matmul(a, b, tiles=_h100_tiles())
+    want = tmm.tiled_matmul_plain(a, b)
+    if K == 0:
+        assert torch.equal(got, want)
+    else:
+        assert _rel_err(got, want) < MM_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_matmul_wrapper_counts_launches_and_refuses_what_it_does_not_take(dev):
+    g = torch.Generator(dev).manual_seed(0)
+    ops.reset_launch_counts()
+    a, b = _mm_inputs(g, 64, 64, 64, torch.bfloat16)
+    ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["tiled_matmul"] == 1
+    with pytest.raises(RuntimeError, match="use_pallas='off'"):
+        ops.matmul(a, b, mode="off")
+    with pytest.raises(TypeError, match="both bfloat16 or both float32"):
+        ops.matmul(a, b.float())
+    with pytest.raises(TypeError, match="both bfloat16 or both float32"):
+        ops.matmul(a.half(), b.half())
+    with pytest.raises(ValueError, match="not contiguous"):
+        ops.matmul(a, b.t())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.matmul(a[:, :60].contiguous(), b[:60].contiguous())
+    with pytest.raises(ValueError, match="not one the kernel is built for"):
+        ops.matmul(a, b, tiles=(128, 128, 128))
+    assert ops.launch_counts()["tiled_matmul"] == 1
+
+
+def mm_faulted(fault: str, d: torch.device):
+    """``(got, want)`` for a planted matmul fault, on the H100 plan's
+    tile: the kernel run without the last K tile, or on B with its first
+    two N tiles swapped, against the plain product of the right inputs.
+    On the CPU the plain version plays the faulty kernel."""
+    g = torch.Generator(d).manual_seed(13)
+    M, K, N = (64, 512, 1024) if d.type == "cpu" else (1000, 2560, 10576)
+    a, b = _mm_inputs(g, M, K, N, torch.bfloat16)
+    tiles = tmm.DEFAULT_TILES
+    bk, bn = tiles[1], tiles[2]
+    want = tmm.tiled_matmul_plain(a, b)
+    if fault == "last K tile dropped":
+        return ops.matmul(a[:, :K - bk].contiguous(), b[:K - bk].contiguous(),
+                          tiles=tiles), want
+    idx = torch.arange(N, device=d)
+    idx[:2 * bn] = idx[:2 * bn].roll(bn)
+    return ops.matmul(a, b[:, idx].contiguous(), tiles=tiles), want
+
+
+@pytest.mark.parametrize("fault", ["last K tile dropped", "two N tiles swapped"])
+@pytest.mark.parametrize("where", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_matmul_check_rejects_planted_faults(where, fault):
+    if where == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    got, want = mm_faulted(fault, torch.device(where))
+    assert _rel_err(got, want) > 5 * MM_TOL[torch.bfloat16]

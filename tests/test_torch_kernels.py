@@ -267,7 +267,8 @@ def test_ops_on_cpu_tensors_launch_no_kernel():
                                cache_len=torch.tensor([5, 70]))
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "paged_decode_attention": 0,
-                                   "decode_attention": 0, "ssd_scan": 0}
+                                   "decode_attention": 0, "ssd_scan": 0,
+                                   "tiled_matmul": 0}
     with pytest.raises(ValueError, match="kernel mode"):
         ops.flash_attention(q, k, k, mode="maybe")
     with pytest.raises(ValueError, match="runs on CUDA tensors"):

@@ -1,0 +1,169 @@
+"""The plan-driven tiled matmul: the port's entry point against JAX.
+
+``repro_torch.kernels.ops.matmul`` on CPU tensors runs the kernel's
+plain version; here it is held against the JAX package's Pallas kernel
+in interpret mode and its oracle ``ref.tiled_matmul_ref``, on the same
+inputs made with numpy from a seed (bf16 carried across as raw 16-bit
+words, as ``models/convert.py`` does).  Tolerances are
+``tests/test_kernels.py``'s: its ``_rel_err`` (max error over max
+magnitude) below 1e-5 in fp32 and 2e-2 in bf16.
+
+The port's contract is a superset of the Pallas one (any M, K and N:
+the Pallas kernel asserted that its clamped tiles divide them), so the
+ragged shapes a plan-driven caller meets — a decode tick's M = 8, a
+prefill bucket's M = 1000, mamba2's ``in_proj`` width N = 10576 — are
+held against ``jnp.dot``.  The CUDA kernel itself runs only on the
+card (``tests/test_torch_cuda.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.kernels.tiled_matmul as tmm
+from repro.kernels import ref as jref
+from repro.kernels.tiled_matmul import tiled_matmul as pallas_mm
+from repro_torch.configs import ShapeConfig, get_arch
+from repro_torch.core import planstore, specialize
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.launch import plan as plan_cli
+from repro_torch.models.convert import tensor_from_numpy
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+SMEM_BUDGET = int(0.75 * 232_448)      # the pass's share of one block's
+
+
+def _rel_err(a, b) -> float:
+    """``tests/test_kernels.py``'s measure."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-6))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.float().numpy()
+
+
+def _inputs(seed: int, M: int, K: int, N: int, dtype: str):
+    """``(a, b)`` as JAX arrays and as torch tensors with the same bits."""
+    rng = np.random.default_rng(seed)
+    ja = jnp.asarray(rng.standard_normal((M, K)).astype(np.float32),
+                     JAX_DTYPES[dtype])
+    jb = jnp.asarray(rng.standard_normal((K, N)).astype(np.float32),
+                     JAX_DTYPES[dtype])
+    return (ja, jb), (tensor_from_numpy(np.asarray(ja), "cpu"),
+                      tensor_from_numpy(np.asarray(jb), "cpu"))
+
+
+def _h100_plan():
+    return specialize(get_arch("qwen3-8b"),
+                      ShapeConfig("serve_h100", "decode", 2048, 8),
+                      mesh_shape=(1, 1), target="h100-sxm", cache=False)
+
+
+# the three cases of the JAX package's test_tiled_matmul
+CASES = [(128, 256, 128, 64, 128, 64),
+         (256, 128, 512, 128, 64, 128),
+         (64, 64, 64, 64, 64, 64)]
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk,bn", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_matches_pallas_and_ref(M, K, N, bm, bk, bn, dtype):
+    (ja, jb), (ta, tb) = _inputs(M + 3 * N, M, K, N, dtype)
+    want = jref.tiled_matmul_ref(ja, jb)
+    pal = pallas_mm(ja, jb, bm=bm, bk=bk, bn=bn, interpret=True)
+    got = ops.matmul(ta, tb, tiles=(bm, bk, bn))
+    assert got.dtype == ta.dtype and tuple(got.shape) == (M, N)
+    assert _rel_err(_np(got), want) < TOL[dtype]
+    assert _rel_err(_np(got), pal) < TOL[dtype]
+    assert _rel_err(_np(tref.tiled_matmul_ref(ta, tb)), want) < TOL[dtype]
+    assert _rel_err(_np(tmm.tiled_matmul_plain(ta, tb)), want) < TOL[dtype]
+
+
+# a decode tick (M = 8), a ragged prefill bucket (M = 1000) and mamba2's
+# in_proj width (N = 10576, not a multiple of 128), at a small K
+RAGGED = [(8, 64, 256), (1000, 64, 200), (24, 32, 10576)]
+
+
+@pytest.mark.parametrize("M,K,N", RAGGED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_ragged_shapes_match_jnp_dot(M, K, N, dtype):
+    (ja, jb), (ta, tb) = _inputs(M * 7 + N, M, K, N, dtype)
+    want = jnp.dot(ja.astype(jnp.float32),
+                   jb.astype(jnp.float32)).astype(JAX_DTYPES[dtype])
+    got = ops.matmul(ta, tb, tiles=ops.matmul_tiles(_h100_plan()))
+    assert got.dtype == ta.dtype and tuple(got.shape) == (M, N)
+    assert _rel_err(_np(got), want) < TOL[dtype]
+
+
+def test_kernel_tiles_cover_the_plan_the_default_and_the_jax_cases():
+    assert tmm.kernel_tiles(None) == tmm.DEFAULT_TILES
+    assert tmm.DEFAULT_TILES in tmm.KERNEL_TILES
+    assert ops.matmul_tiles(_h100_plan()) in tmm.KERNEL_TILES
+    for case in CASES:
+        assert tmm.kernel_tiles(case[3:]) == case[3:]
+
+
+@pytest.mark.parametrize("tiles", [(128, 128, 128), (256, 64, 128),
+                                   (128, 512, 128), (8, 64, 128)])
+def test_kernel_tiles_refuse_a_tile_the_kernel_lacks(tiles):
+    with pytest.raises(ValueError, match="not one the kernel is built for"):
+        tmm.kernel_tiles(tiles)
+    # the entry point checks the plan's tile on the CPU as well
+    a, b = torch.ones(8, 16), torch.ones(16, 8)
+    with pytest.raises(ValueError, match="not one the kernel is built for"):
+        ops.matmul(a, b, tiles=tiles)
+
+
+def test_smem_bytes_matches_the_plan_and_the_kernel_layout():
+    bp = _h100_plan().partitions["tiled_matmul"]
+    tiles = (bp.blocks["bm"], bp.blocks["bk"], bp.blocks["bn"])
+    assert bp.vmem_bytes == tmm.smem_bytes(*tiles) <= SMEM_BUDGET
+    assert bp.n_buffers == tmm.STAGES
+    # two stages of A (bm, bk) and B (bk, bn), rows padded by 16 bytes
+    assert tmm.smem_bytes(128, 64, 128) == 2 * (128 * 72 + 64 * 136) * 2
+    assert tmm.smem_bytes(64, 64, 64, torch.float32) == \
+        2 * (64 * 68 + 64 * 68) * 4
+    for t in tmm.KERNEL_TILES:
+        for dt in tmm.DTYPES:
+            assert tmm.smem_bytes(*t, dt) <= 232_448, (t, dt)
+
+
+def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
+    ops.reset_launch_counts()
+    (_, _), (ta, tb) = _inputs(1, 16, 32, 24, "bfloat16")
+    for mode in ops.MODES:
+        out = ops.matmul(ta, tb, mode=mode)
+        assert torch.equal(out, tmm.tiled_matmul_plain(ta, tb))
+    assert ops.launch_counts()["tiled_matmul"] == 0
+    with pytest.raises(ValueError, match="kernel mode"):
+        ops.matmul(ta, tb, mode="sometimes")
+    with pytest.raises(ValueError, match="runs on CUDA tensors"):
+        tmm.tiled_matmul(ta, tb)
+
+
+def test_plan_driven_path_end_to_end(tmp_path, capsys):
+    """specialize(h100-sxm) -> the plan store -> ``plan show --log`` by
+    hash prefix -> ``ops.matmul`` on the reloaded plan's tiles, held
+    against the Pallas kernel run on the same tiles."""
+    d = tmp_path / "plans"
+    plan = specialize(get_arch("qwen3-8b"),
+                      ShapeConfig("serve_h100", "decode", 2048, 8),
+                      mesh_shape=(1, 1), target="h100-sxm", plan_dir=d)
+    h = plan.content_hash()
+    assert plan_cli.main(["--plan-dir", str(d), "show", h[:10], "--log"]) == 0
+    out = capsys.readouterr().out
+    bm, bk, bn = ops.matmul_tiles(plan)
+    assert f"[local_partitioning] tiled_matmul: {bm}x{bk}x{bn}" in out
+    assert "accumulator in registers" in out
+    reloaded = planstore.PlanStore(d).load(h)
+    assert reloaded.content_hash() == h
+    tiles = ops.matmul_tiles(reloaded)
+    (ja, jb), (ta, tb) = _inputs(5, 256, 128, 256, "bfloat16")
+    pal = pallas_mm(ja, jb, bm=tiles[0], bk=tiles[1], bn=tiles[2],
+                    interpret=True)
+    assert _rel_err(_np(ops.matmul(ta, tb, tiles=tiles)), pal) < TOL["bfloat16"]

@@ -17,6 +17,7 @@ import repro_torch.core as tcore
 from repro_torch.hw import get_target
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import tiled_matmul as tmm
 
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of shared memory per block
 RUNNABLE = [(a, s) for a, s, ok, _ in rcfg.all_cells() if ok]
@@ -81,6 +82,27 @@ def test_h100_plan_for_the_chip_smoke_shape():
     assert "flash_attention" not in plan.partitions
     rows, bkv = tfa.kernel_tiles(G)
     assert tfa.smem_bytes(rows, bkv) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("arch,shape", RUNNABLE,
+                         ids=[f"{a}@{s}" for a, s in RUNNABLE])
+def test_h100_matmul_tile_is_a_kernel_tile_that_fits(arch, shape):
+    """On the card the tile is one the CUDA kernel is built for, its
+    operand stages fit the pass's share of shared memory, the fp32
+    accumulator is counted in registers, and the log records that tile."""
+    plan = tcore.specialize(arch, shape, target="h100-sxm", cache=False)
+    bp = plan.partitions["tiled_matmul"]
+    tiles = (bp.blocks["bm"], bp.blocks["bk"], bp.blocks["bn"])
+    budget = 0.75 * SMEM_PER_BLOCK
+    assert tiles in tmm.KERNEL_TILES
+    bm, bk, bn = tiles
+    assert bp.n_buffers * (bm * bk + bk * bn) * 2 <= budget
+    assert bp.vmem_bytes == tmm.smem_bytes(*tiles) <= budget
+    assert "accumulator in registers" in bp.grid_note
+    logged = [(d, why) for _, subj, d, why in plan.log
+              if subj == "tiled_matmul"]
+    assert [d for d, _ in logged] == [f"{bm}x{bk}x{bn}"]
+    assert "accumulator in registers" in logged[0][1]
 
 
 def test_tpu_v5e_plans_a_one_sequence_grant_pool_for_full_qwen3():
