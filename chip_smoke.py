@@ -11,7 +11,11 @@ the card.
 Phases (any failure exits non-zero before the last line):
 
 1. device: ``nvidia-smi`` name and power limit, the kernels' build
-   (``nvcc`` for ``sm_90a``, one process per source, all at once);
+   (``nvcc`` for ``sm_90a``, one process per source, all at once), each
+   wgmma kernel's registers from ``ptxas -v``, and the count of ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) instructions in each library's SASS
+   (``cuobjdump --dump-sass``): the flash and matmul libraries must have
+   both;
 2. kernels: each kernel against its plain version at its path's widths
    (attention: 32 q heads, 8 kv heads, head_dim 128, bf16; SSD scan: 80
    heads of 64, state 128, one group, chunk 256, fp32; tiled matmul:
@@ -19,7 +23,10 @@ Phases (any failure exits non-zero before the last line):
    faults that must fail the same check, then its time, the plain
    version's, one library call's where one exists (a yardstick the port
    never calls) and the bound (bytes at 3.35 TB/s or operations at the
-   data-sheet rate of the kernel's arithmetic, whichever is larger);
+   data-sheet rate of the kernel's arithmetic, whichever is larger).
+   Flash is timed at the four 2048-token prefill buckets (B=1 S=2048 to
+   B=8 S=256) and, like the matmul phase, in turns with its library call
+   (five rounds, medians), with the host time to encode its tensor maps;
 3. qwen3-8b serve, paged: the plan's paged pool, 16 requests;
 4. qwen3-8b serve, dense: the same weights under a dense-residency plan;
 5. qwen3-8b checks: a full-width consistency check (decode-step logits
@@ -80,6 +87,12 @@ H, K, D = 32, 8, 128        # qwen3-8b attention widths
 SSD_H, SSD_P, SSD_N, SSD_G = 80, 64, 128, 1   # mamba2-2.7b SSD widths
 SEED = 0
 CARD = ""                   # nvidia-smi name, power limit (set in main)
+# prefill buckets of 2048 prompt tokens (the serve phases' power-of-two
+# buckets), flash timed at each beside SDPA
+FLASH_BUCKETS = ((1, 2048), (2, 1024), (4, 512), (8, 256))
+TURNS = 5                   # rounds of kernel / library taken in turns
+# the kernels built on wgmma fed by TMA: phase 1 finds both in their SASS
+HOPPER_SOURCES = ("flash_attention", "tiled_matmul")
 
 
 def log(msg: str) -> None:
@@ -114,6 +127,23 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(torch, fns):
+    """Time each of ``fns`` (a dict of name -> callable) in turns,
+    :data:`TURNS` rounds of one ``time_ms`` each (a, b, a, b, ...), so
+    that a card whose clocks or neighbours drift during the run moves
+    both alike.  Returns the medians and the rounds, by name."""
+    rounds = {name: [] for name in fns}
+    for _ in range(TURNS):
+        for name, fn in fns.items():
+            rounds[name].append(time_ms(torch, fn))
+    med = {name: sorted(r)[len(r) // 2] for name, r in rounds.items()}
+    return med, rounds
+
+
+def fmt(ms_list) -> str:
+    return "[" + ", ".join(f"{t:.4f}" for t in ms_list) + "]"
 
 
 def bound(nbytes: float, flops: float, peak: float = PEAK_BF16):
@@ -161,6 +191,7 @@ def control(kernel, fault, torch, got, want, factor: float = 1.0):
 def kernel_phase(torch, dev):
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -188,25 +219,76 @@ def kernel_phase(torch, dev):
     ctl = control("flash_attention", "drops one kv tile", torch,
                   fa.flash_attention(q, k, v, causal=True, window=S - 64),
                   want)
-    B, S = 2, 1024                  # timed: a bucket of two 1024-token prompts
+    # timed: the 2048-token serve buckets, the kernel and SDPA in turns,
+    # each held row by row first
+    per = []
+    for B, S in FLASH_BUCKETS:
+        q, k, v = rnd(B, S, H, D), rnd(B, S, K, D), rnd(B, S, K, D)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        err, rel = row_err(torch, fa.flash_attention(q, k, v, causal=True),
+                           fa.flash_attention_plain(q, k, v, causal=True))
+        tol = TOL["flash_attention"]
+        check(rel <= tol, f"flash_attention B={B} S={S} row rel err {rel} "
+              f"> {tol}")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        med, rounds = in_turns(torch, {
+            "kernel": lambda: fa.flash_attention(q, k, v, causal=True),
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)})
+        pairs = B * S * (S + 1) / 2
+        b_ms, b_by = bound(2 * (2 * B * S * H * D + 2 * B * S * K * D),
+                           4 * D * H * pairs)
+        log(f"timing flash_attention B={B} S={S}: kernel {med['kernel']:.4f} "
+            f"ms, SDPA {med['library']:.4f} ms (medians of {TURNS} turns: "
+            f"kernel {fmt(rounds['kernel'])}, SDPA {fmt(rounds['library'])}"
+            f"), bound {b_ms:.4f} ms ({b_by}), worst row rel={rel:.3e} "
+            f"[{CARD}]")
+        per.append(dict(B=B, S=S, ms=med["kernel"], library_ms=med["library"],
+                        kernel_turns_ms=rounds["kernel"],
+                        library_turns_ms=rounds["library"], bound_ms=b_ms,
+                        bound_by=b_by, row_rel_err=rel))
+    B, S = 2, 1024                  # the headline: two 1024-token prompts
     q, k, v = rnd(B, S, H, D), rnd(B, S, K, D), rnd(B, S, K, D)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
+    head = next(p for p in per if (p["B"], p["S"]) == (B, S))
+    by_tile = {}
+    for rows, bkv in fa.KERNEL_TILES:   # every tile, in turns with SDPA
+        bq = rows // (H // K)
+        _, rel = row_err(torch, fa.flash_attention(
+            q, k, v, causal=True, block_q=bq, block_kv=bkv),
+            fa.flash_attention_plain(q, k, v, causal=True))
+        check(rel <= TOL["flash_attention"], f"flash_attention tile "
+              f"{(rows, bkv)} row rel err {rel}")
+        med, _ = in_turns(torch, {
+            "kernel": lambda: fa.flash_attention(q, k, v, causal=True,
+                                                 block_q=bq, block_kv=bkv),
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)})
+        by_tile[f"{rows}x{bkv}"] = med
+        log(f"timing flash_attention B={B} S={S} tile {rows} rows x {bkv} "
+            f"kv: kernel {med['kernel']:.4f} ms, SDPA {med['library']:.4f} "
+            f"ms (medians of {TURNS} turns), worst row rel={rel:.3e} "
+            f"[{CARD}]")
     plain = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
                                                             causal=True),
                     iters=5)
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    pairs = B * S * (S + 1) / 2
-    b_ms, b_by = bound(2 * (2 * B * S * H * D + 2 * B * S * K * D),
-                       4 * D * H * pairs)
+    rows, bkv = fa.kernel_tiles(H // K)
+    enc = build.library("flash_attention").flash_attention_map_encode_us(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, H, K, D, rows, bkv,
+        1000)
+    check(enc > 0, f"flash_attention: tensor-map encoder failed ({enc})")
+    log(f"host flash_attention: {enc:.3f} us per launch to encode its 3 "
+        f"tensor maps (mean of 1000) [{CARD}]")
     res["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:221",
         max_abs_err=worst, row_rel_err=worst_rel, control_row_rel_err=ctl,
-        tolerance=TOL["flash_attention"], ms=ms, plain_ms=plain,
-        library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-        shape=f"B={B} S={S} H={H} K={K} D={D} causal bf16",
+        tolerance=TOL["flash_attention"], ms=head["ms"], plain_ms=plain,
+        library_ms=head["library_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], map_encode_us=enc, tiles_ms=by_tile,
+        shape=f"B={B} S={S} H={H} K={K} D={D} causal bf16, tile {rows} "
+              f"rows x {bkv} kv; kernel and library: medians of {TURNS} "
+              "turns", shapes=per,
         library_call="F.scaled_dot_product_attention(is_causal, enable_gqa)")
 
     # ---- decode: 8 slots, mixed cache lengths 1..2048 ----
@@ -501,12 +583,14 @@ def consistency_check(torch, dev, arch, params, cfg, bl):
     blocks, in reverse order, behind a table).
 
     Through 36 bf16 layers the model amplifies the kernels' rounding:
-    the flash prefill against itself under another tile (only the order
-    of its own fp32 sums and where P rounds to bf16 change) already
-    differs by ~5e-2 rms of the logits, and a wrong input token by more
-    than 1.  So the check is rms-relative, at :data:`FULL_TOL`, with
-    that noise floor printed beside it and a wrong-token control that
-    must fail it; top-1 tokens must agree.  The kernels' own tolerance
+    the flash prefill against itself under another kv tile (64 keys
+    where the plan's has 128: only the order of its online-softmax
+    rescales and where P rounds to bf16 change; a row's arithmetic does
+    not depend on how many rows share its CTA) differs by several 1e-2
+    rms of the logits, and a wrong input token by more than 1.  So the
+    check is rms-relative, at :data:`FULL_TOL`, with that noise floor
+    printed beside it and a wrong-token control that must fail it; top-1
+    tokens must agree.  The kernels' own tolerance
     is held row by row in the kernel phase, and :data:`LOGIT_TOL` by
     :func:`small_model_check`.
     """
@@ -518,7 +602,7 @@ def consistency_check(torch, dev, arch, params, cfg, bl):
                          device=dev, dtype=torch.int32)
     V = arch.vocab_size
     want = lm.prefill(arch, params, {"tokens": toks}, cfg)[0][:, :V].float()
-    retiled = dataclasses.replace(cfg, flash_tiles=(16, 128))
+    retiled = dataclasses.replace(cfg, flash_tiles=(16, 64))
     other = lm.prefill(arch, params, {"tokens": toks}, retiled)[0]
     floor = _rms_rel(torch, other[:, :V].float(), want)
     for residency in ("dense", "paged"):
@@ -736,7 +820,7 @@ def matmul_path_phase(torch, dev, plans, shapes):
     ``b`` with those column blocks exchanged).  Then each shape is timed
     beside its bound, the plain version and ``torch.matmul``."""
     from repro_torch.core.planstore import PlanStore
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import tiled_matmul as mm
     from repro_torch.launch import plan as plan_cli
 
@@ -809,20 +893,34 @@ def matmul_path_phase(torch, dev, plans, shapes):
                   f"check ({frel} <= {tol})")
             ctl.append(frel)
         del want
-        ms = time_ms(torch, lambda: mm.tiled_matmul(a, b, tiles=t))
+        med, rounds = in_turns(torch, {
+            "kernel": lambda: mm.tiled_matmul(a, b, tiles=t),
+            "library": lambda: torch.matmul(a, b)})
+        ms, lib = med["kernel"], med["library"]
         plain = time_ms(torch, lambda: mm.tiled_matmul_plain(a, b), iters=5)
-        lib = time_ms(torch, lambda: torch.matmul(a, b))
         e = a.element_size()
         b_ms, b_by = bound(e * (M * K + K * N + M * N), 2 * M * K * N,
                            PEAK_FP32 if dt == "float32" else PEAK_BF16)
         log(f"timing tiled_matmul {name} ({M}, {K}, {N}) {dt} tiles={t}: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
-            f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{CARD}]")
+            f"{lib:.4f} ms (medians of {TURNS} turns: kernel "
+            f"{fmt(rounds['kernel'])}, torch.matmul {fmt(rounds['library'])}"
+            f"), {2 * M * K * N / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms "
+            f"({b_by}) [{CARD}]")
         per.append(dict(name=name, M=M, K=K, N=N, dtype=dt, tiles=list(t),
                         ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                        bound_by=b_by, max_abs_err=err, row_rel_err=rel,
+                        bound_by=b_by, kernel_turns_ms=rounds["kernel"],
+                        library_turns_ms=rounds["library"],
+                        max_abs_err=err, row_rel_err=rel,
                         max_rel_err=maxrel, tolerance=tol,
                         control_row_rel_err=min(ctl)))
+        if dt == "bfloat16" and "map_encode_us" not in per[0]:
+            enc = build.library("tiled_matmul").tiled_matmul_map_encode_us(
+                a.data_ptr(), b.data_ptr(), M, K, N, t[0], t[1], 1000)
+            check(enc > 0, f"tiled_matmul: tensor-map encoder failed ({enc})")
+            log(f"host tiled_matmul: {enc:.3f} us per launch to encode its 2 "
+                f"tensor maps (mean of 1000) [{CARD}]")
+            per[0]["map_encode_us"] = enc
     ops.reset_launch_counts()       # comparison launches do not count
     by = {}
     for p in per:
@@ -837,7 +935,9 @@ def matmul_path_phase(torch, dev, plans, shapes):
         plain_ms=sum(p["plain_ms"] for p in per),
         library_ms=sum(p["library_ms"] for p in per),
         bound_ms=sum(by.values()), bound_by=max(by, key=by.get),
-        shape="sums over the matmul phase's five calls (each in 'shapes')",
+        map_encode_us=per[0]["map_encode_us"],
+        shape="sums over the matmul phase's five calls (each in 'shapes'); "
+              f"kernel and library: medians of {TURNS} turns",
         shapes=per, library_call="torch.matmul (cuBLAS), TF32 off",
         launched_by="the plan-driven matmul phase; no serving path "
                     "launches it")
@@ -877,10 +977,26 @@ def main() -> int:
     log(f"build: {len(build.SOURCES)} sources with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
     for name, text in build.PTXAS_LOG.items():
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
-        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", text))
-        log(f"ptxas {name}: {len(regs)} kernels, registers <= {max(regs)}, "
-            f"{spills} bytes of spill stores and loads [{CARD}]")
+        entries = build.ptxas_entries(text)
+        log(f"ptxas {name}: {len(entries)} kernels, registers <= "
+            f"{max(r for _, r, _ in entries)}, "
+            f"{sum(sp for _, _, sp in entries)} bytes of spill stores and "
+            f"loads [{CARD}]")
+        if name in HOPPER_SOURCES:
+            for kernel, regs, spills in entries:
+                log(f"ptxas {name}: {kernel}: {regs} registers at entry, "
+                    f"{spills} bytes of spills")
+    for name in build.SOURCES:
+        sass = build.sass(name)
+        hgmma = len(re.findall(r"\bHGMMA\b", sass))
+        utmaldg = len(re.findall(r"\bUTMALDG\b", sass))
+        log(f"sass {name}: {hgmma} HGMMA, {utmaldg} UTMALDG instructions "
+            f"(cuobjdump --dump-sass) [{CARD}]")
+        if name in HOPPER_SOURCES:
+            check(hgmma > 0 and utmaldg > 0,
+                  f"{name}: its library has {hgmma} HGMMA and {utmaldg} "
+                  "UTMALDG instructions; the kernel is built on wgmma fed "
+                  "by TMA")
 
     # ---- phase 2: kernels ----
     kern, mm_worst = kernel_phase(torch, dev)
@@ -991,7 +1107,8 @@ def main() -> int:
                                  "row_rel_err", "state_rel_err",
                                  "max_rel_err", "tolerance",
                                  "control_row_rel_err",
-                                 "kernel_check_row_rel_err", "shape",
+                                 "kernel_check_row_rel_err",
+                                 "map_encode_us", "tiles_ms", "shape",
                                  "shapes", "library_call", "launched_by")
                if k in r},
             "card": CARD})

@@ -23,7 +23,8 @@ from repro_torch.core.ir import OpKind
 from repro_torch.core.plan import BlockPlan
 from repro_torch.core.passes import Pass, PassContext
 
-#: targets whose tiled_matmul runs the hand-written CUDA kernel
+#: targets whose flash_attention and tiled_matmul run the hand-written
+#: CUDA kernels
 CUDA_TARGETS = ("h100-sxm",)
 
 
@@ -58,6 +59,9 @@ class LocalPartitioningPass(Pass):
 
     # ------------------------------------------------------------------
     def _attention(self, ctx: PassContext, budget: int) -> None:
+        if ctx.target.name in CUDA_TARGETS:
+            self._attention_cuda(ctx, budget)
+            return
         arch, mesh = ctx.arch, ctx.mesh
         hd = arch.hd
         seq = ctx.shape.seq_len
@@ -103,6 +107,58 @@ class LocalPartitioningPass(Pass):
                     + (" (square: packed-causal grid)" if packed else ""),
                     f"2-bank working set {2*vm/2**20:.1f} MiB <= "
                     f"budget {budget/2**20:.0f} MiB; tiles MXU-aligned")
+
+    def _attention_cuda(self, ctx: PassContext, budget: int) -> None:
+        """On a CUDA card the tile is one the flash kernel is built for.
+        Its CTA holds ``rows = block_q * G`` query rows (``block_q``
+        positions times the ``G`` query heads of one kv head) and streams
+        ``block_kv`` K/V rows a tile: the most rows, then the widest kv
+        tile, whose rows hold whole GQA groups and whose shared memory (Q
+        plus the K/V ring) fits the budget.  S, P and the O accumulator
+        live in registers, so only those tiles are charged.  An arch the
+        kernel is not built for (another head_dim, or a GQA group that
+        divides no tile's rows) gets no tile, and the kernel's wrapper
+        raises on it at launch."""
+        from repro_torch.kernels import flash_attention as fa
+
+        arch, est = ctx.arch, ctx.plan.estimates
+        G = (int(est.get("heads_padded", arch.n_heads))
+             // int(est.get("kv_heads_padded", arch.n_kv_heads)))
+        fits = [t for t in fa.KERNEL_TILES
+                if t[0] % G == 0 and fa.smem_bytes(*t) <= budget]
+        if arch.hd != fa.HEAD_DIM or not fits:
+            self.record(ctx, "flash_attention", "no kernel tile",
+                        f"the CUDA kernel is built for head_dim "
+                        f"{fa.HEAD_DIM} and rows in "
+                        f"{sorted({r for r, _ in fa.KERNEL_TILES})} holding "
+                        f"whole GQA groups; this arch has head_dim {arch.hd} "
+                        f"and G={G}")
+            return
+        rows, block_kv = max(fits)
+        block_q = rows // G
+        smem = fa.smem_bytes(rows, block_kv)
+        bp = BlockPlan(
+            kernel="flash_attention",
+            blocks={"block_q": block_q, "block_kv": block_kv,
+                    "head_dim": arch.hd},
+            n_buffers=fa.STAGES,
+            vmem_bytes=smem,
+            grid_note=(f"grid=(batch x kv_heads, ceil(seq/{block_q})) CTAs, "
+                       f"longest q tiles first; {rows} query rows = "
+                       f"{block_q} positions x G={G}; K/V in a "
+                       f"{fa.STAGES}-stage TMA ring of {block_kv}-row tiles; "
+                       "S, P and the O accumulator in registers"),
+        )
+        ctx.plan.partitions[bp.kernel] = bp
+        ctx.template["plm.attention"].refine(
+            self.name, **bp.blocks, n_buffers=fa.STAGES, vmem_bytes=smem)
+        self.record(ctx, "flash_attention",
+                    f"block_q={block_q} block_kv={block_kv}",
+                    f"{rows} query rows = {block_q} x G={G}; Q plus a "
+                    f"{fa.STAGES}-stage K/V TMA ring, {smem} B of shared "
+                    f"memory <= budget {budget} B; S, P and the O "
+                    "accumulator in registers; a tile the CUDA kernel is "
+                    "built for")
 
     def _decode(self, ctx: PassContext, budget: int) -> None:
         arch = ctx.arch
@@ -174,9 +230,9 @@ class LocalPartitioningPass(Pass):
 
     def _matmul_cuda(self, ctx: PassContext, budget: int) -> None:
         """On a CUDA card the tile is one the kernel is built for: the
-        largest ``bm x bn`` (then ``bk``) whose bf16 operand stages fit
-        the shared-memory budget.  The fp32 accumulator lives in
-        registers, not in shared memory, so it is not charged here."""
+        largest ``bm x bn`` (then ``bk``) whose bf16 TMA ring fits the
+        shared-memory budget.  The fp32 accumulator lives in registers,
+        not in shared memory, so it is not charged here."""
         from repro_torch.kernels import tiled_matmul as mm
 
         fits = [t for t in mm.KERNEL_TILES if mm.smem_bytes(*t) <= budget]
@@ -188,13 +244,14 @@ class LocalPartitioningPass(Pass):
             n_buffers=mm.STAGES,
             vmem_bytes=smem,
             grid_note=(f"grid=ceil(M/{bm}) x ceil(N/{bn}) CTAs, K loop inside "
-                       f"each CTA; {mm.STAGES} cp.async operand stages in "
-                       "shared memory; fp32 accumulator in registers"),
+                       f"each CTA; a {mm.STAGES}-stage TMA ring of bf16 "
+                       "operand tiles feeding wgmma (deeper at M <= 64); "
+                       "fp32 accumulator in registers"),
         )
         ctx.plan.partitions[bp.kernel] = bp
         ctx.template["plm.matmul"].refine(self.name, **bp.blocks)
         self.record(ctx, "tiled_matmul", f"{bm}x{bk}x{bn}",
-                    f"{mm.STAGES}-bank bf16 operand stages, {smem} B of shared "
+                    f"{mm.STAGES}-stage bf16 TMA ring, {smem} B of shared "
                     f"memory <= budget {budget} B; fp32 accumulator in "
                     "registers, not shared memory; a tile the CUDA kernel is "
                     "built for")

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,7 +26,7 @@ from typing import Dict, List, Tuple
 CSRC = Path(__file__).parent / "csrc"
 SOURCES: Tuple[str, ...] = ("flash_attention", "decode_attention", "ssd_scan",
                             "tiled_matmul")
-HEADERS: Tuple[str, ...] = ("common.cuh",)
+HEADERS: Tuple[str, ...] = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
@@ -111,6 +112,51 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def sass(name: str) -> str:
+    """``cuobjdump --dump-sass`` of the library of ``csrc/<name>.cu``
+    (built on first use): the instructions the card runs, where the
+    wgmma kernels show ``HGMMA`` and their TMA loads ``UTMALDG``."""
+    library(name)
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "--dump-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def _demangle(mangled: str) -> str:
+    """``ns::kernel<1, 2>`` from an Itanium-mangled kernel name with
+    integer template arguments (enough for the port's kernels)."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    names = []
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group(0)
+        names.append(rest[len(n):len(n) + int(n)])
+        rest = rest[len(n) + int(n):]
+    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    name = names[-1] if names else mangled
+    if args is None:
+        return name
+    return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+
+
+def ptxas_entries(log: str) -> List[Tuple[str, int, int]]:
+    """``(kernel, registers, spill bytes)`` for each entry function of one
+    build's ``-Xptxas -v`` log, the kernel with its template arguments
+    (``flash_fwd_kernel<128, 128, 2>``)."""
+    out = []
+    entry, spills = "", 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spills = _demangle(m.group(1)), 0
+            continue
+        spills += sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append((entry, int(m.group(1)), spills))
+            entry = ""
+    return out
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_attention": {
@@ -118,6 +164,9 @@ _SIGNATURES = {
         # scale, stream
         "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _P],
+        # q, k, v, B, S, H, K, D, rows, block_kv, iters -> us (double)
+        "flash_attention_map_encode_us": [_P, _P, _P, _I, _I, _I, _I, _I,
+                                          _I, _I, _I],
     },
     "decode_attention": {
         # q, k_pool, v_pool, tbl, cache_len, out, B, H, K, D, bl, nb,
@@ -138,12 +187,24 @@ _SIGNATURES = {
     "tiled_matmul": {
         # a, b, out, M, K, N, bm, bk, bn, fp32, stream
         "tiled_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # a, b, M, K, N, bm, bk, iters -> us (double)
+        "tiled_matmul_map_encode_us": [_P, _P, _I, _I, _I, _I, _I, _I],
     },
 }
+
+
+def describe_error(err: int) -> str:
+    """A kernel entry point's nonzero return: a cudaError_t, or a
+    negative CUresult of ``cuTensorMapEncodeTiled`` (-999: the driver
+    has no encoder)."""
+    if err < 0:
+        return f"CUresult {-err} from the tensor-map encoder"
+    return f"cudaError {err}"
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     for fn, argtypes in _SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = (ctypes.c_double if fn.endswith("_map_encode_us")
+                     else ctypes.c_int)

@@ -5,253 +5,403 @@
 //   _flash_causal_packed (body _flash_kernel_packed), which paired q rows i
 //   and n-1-i so a rectangular TPU grid skipped the blocks above the
 //   diagonal.  Here a CTA's kv loop simply stops at the tile holding its
-//   last query position (and starts at the first tile inside a window):
-//   the same work, the same output.
+//   last query position (and starts at the first tile inside a window),
+//   and the q tiles with the most kv tiles are launched first, so the last
+//   wave is short: the same work, the same output.
 //
 // What bounds it on the H100: operations.  Prefill does 4*D multiply-adds
 // per (query, key) pair against 2*D bytes per key read, far above the
-// card's ~295 FLOP/byte balance, so the products run on the tensor cores
-// (bf16 in, fp32 accumulate, through the warp-level WMMA 16x16x16 API):
-//   * one CTA per (q tile, batch x kv head).  The tile's M rows are
-//     (position, head) pairs: M/G positions times the G = H/K query heads
-//     that share a kv head, so every K/V tile staged in shared memory
-//     serves all G heads (GQA reuse instead of re-reading per head);
-//   * each warp owns 16 query rows: S = Q K^T for its rows, the masked
-//     online softmax in fp32 (running max/sum per row), P rounded to bf16,
-//     then O += P V into an fp32 accumulator kept in shared memory (the
-//     WMMA fragment layout is opaque, so the per-row rescale of O happens
-//     there, between a store and a load of the accumulator fragments);
-//   * ragged S is masked (the Pallas kernel asserted S % block == 0):
-//     rows past S load as zeros and are never written, keys past S score
-//     -inf.
-// Tiles (M rows, N kv rows) come from the plan; the kernel is built for
-// (M, N) in {(64, 64), (64, 128), (128, 64)} and D = 128, and the wrapper
-// raises on anything else.  Not done yet (later work): wgmma + TMA, a
-// register-resident accumulator, warp specialisation.
+// card's ~295 FLOP/byte balance, so both products run on wgmma (bf16 in,
+// fp32 accumulate), fed by TMA (csrc/hopper.cuh):
+//   * one CTA per (batch x kv head, q tile).  The tile's rows are
+//     (position, head) pairs: rows/G positions times the G = H/K query
+//     heads that share a kv head, so every K/V tile in shared memory serves
+//     all G heads.  A 4-D TMA box (64 of D, G heads, rows/G positions) over
+//     q (B, S, H, D) lands in exactly that row order; D = 128 is two
+//     64-wide, 128-byte-swizzled boxes;
+//   * one producer warpgroup, of which one thread issues every copy: Q
+//     once, then K and V tiles into a ring of two stages, each on its own
+//     "full" mbarrier, a stage refilled only after every consumer thread
+//     has arrived on its "empty" mbarrier.  With two consumer warpgroups it
+//     gives its registers to them (setmaxnreg 24 / 240);
+//   * each consumer warpgroup owns 64 rows.  S = Q K^T is wgmma SS
+//     m64n{block_kv}k16 (both operands K-major in shared memory), the fp32
+//     scores in registers.  The online softmax runs in registers: a row
+//     lives in a quad of lanes (two shfl_xor), its running max and sum in
+//     registers, exp2 of scores pre-scaled by log2(e)/sqrt(D).  Masks
+//     (causal, window, the S edge) are applied only on the tiles that
+//     straddle a boundary; tiles wholly above the diagonal or outside the
+//     window are never loaded;
+//   * O += P V is wgmma RS m64n128k16: P rounded to bf16 in registers is
+//     the A operand as it stands (the accumulator layout is the A fragment
+//     layout), V (block_kv, D) the MN-major B in its transposed form.  O
+//     stays in registers for the whole kv loop: S, P and O never touch
+//     shared memory;
+//   * ragged S: TMA zero-fills rows past S, keys past S are masked, and
+//     query rows past S are never written (the Pallas kernel asserted
+//     S % block == 0).
+// Tiles (rows, block_kv) in {(64, 64), (64, 128), (128, 64), (128, 128)}
+// (rows = 64 per consumer warpgroup), head_dim a template parameter
+// instantiated at 128; rows must hold whole GQA groups (G = 1, 2, 4, 8,
+// 16 ...).  The wrapper raises on anything else.  Shared memory at
+// (128, 128): Q 32 KB + 2 stages x (K + V) 128 KB = 160 KB, one CTA an SM.
+// Not done yet (later work): overlapping one tile's softmax with the next
+// tile's S product (in a warpgroup or ping-pong across the two), a
+// TMA-store epilogue, a persistent grid.
 
-#include <mma.h>
+#include <chrono>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
-using namespace nvcuda;
 using repro::bf16;
+namespace sm90 = repro::sm90;
 
 namespace {
 
-constexpr int kD = 128;
-constexpr int kQP = kD + 8;  // bf16 pitch of Q, K, V rows (272 B)
-constexpr int kOP = kD + 4;  // fp32 pitch of the O accumulator (528 B)
+constexpr int kStages = 2;
 
-template <int M, int N>
+template <int D, int BKV, int NWG>
 struct Smem {
-  static constexpr int SP = N + 4;  // fp32 pitch of scores
-  static constexpr int PP = N + 8;  // bf16 pitch of probabilities
-  static constexpr size_t q = size_t(M) * kQP * sizeof(bf16);
-  static constexpr size_t kv = size_t(N) * kQP * sizeof(bf16);
-  static constexpr size_t s = size_t(M) * SP * sizeof(float);
-  static constexpr size_t p = size_t(M) * PP * sizeof(bf16);
-  static constexpr size_t o = size_t(M) * kOP * sizeof(float);
-  static constexpr size_t stats = size_t(2) * M * sizeof(float);
-  static constexpr size_t total = q + 2 * kv + s + p + o + stats;
+  static constexpr int kRows = NWG * 64;
+  static constexpr int kQ = kRows * D * 2;   // bytes of the Q tile
+  static constexpr int kKV = BKV * D * 2;    // bytes of one K or V tile
+  static constexpr int kStage = 2 * kKV;     // K then V
+  static constexpr int kBars = (1 + 3 * kStages) * 8;
+  // + 1024: the dynamic shared memory is re-aligned to a swizzle atom
+  static constexpr size_t kBytes =
+      size_t(kQ) + size_t(kStages) * kStage + kBars + 1024;
 };
 
-template <int M, int N>
-__global__ void __launch_bounds__(M / 16 * 32)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int S,
-                 int H, int K, int causal, int window, float scale) {
-  using L = Smem<M, N>;
-  constexpr int kThreads = M / 16 * 32;
-  constexpr int SP = L::SP, PP = L::PP;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::q + L::kv);
-  float* ss = reinterpret_cast<float*>(smem + L::q + 2 * L::kv);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L::q + 2 * L::kv + L::s);
-  float* os = reinterpret_cast<float*>(smem + L::q + 2 * L::kv + L::s + L::p);
-  float* row_m = reinterpret_cast<float*>(smem + L::q + 2 * L::kv + L::s +
-                                          L::p + L::o);
-  float* row_l = row_m + M;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ bool key_ok(int kpos, int qpos, int S, int causal,
+                                       int window) {
+  return kpos < S && (!causal || kpos <= qpos) &&
+         (window <= 0 || qpos - kpos < window);
+}
+
+template <int D, int BKV, int NWG>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 bf16* __restrict__ out, int S, int H, int K, int causal,
+                 int window, float scale_log2) {
+  using L = Smem<D, BKV, NWG>;
+  constexpr int kRows = L::kRows;
+  constexpr int kAtoms = D / 64;  // 128-byte swizzle atoms along D
+  static_assert(D == 128, "the P V product is built for head_dim 128");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = smem;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + L::kQ + kStages * L::kStage);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
 
   const int G = H / K;
-  const int BQ = M / G;                 // query positions per tile
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / K, kvh = blockIdx.y % K;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  // ---- stage Q (rows past S are zeros), clear O and the row statistics
-  for (int idx = tid; idx < M * (kD / 8); idx += kThreads) {
-    const int r = idx / (kD / 8), c = idx % (kD / 8);
-    const int pos = q0 + r / G, h = kvh * G + r % G;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (pos < S)
-      val = *reinterpret_cast<const uint4*>(
-          q + ((size_t(b) * S + pos) * H + h) * kD + c * 8);
-    *reinterpret_cast<uint4*>(qs + r * kQP + c * 8) = val;
-  }
-  for (int i = tid; i < M * kOP; i += kThreads) os[i] = 0.f;
-  for (int i = tid; i < M; i += kThreads) {
-    row_m[i] = -INFINITY;
-    row_l[i] = 0.f;
-  }
-
+  const int BQ = kRows / G;  // query positions per CTA
+  const int b = blockIdx.x / K, kvh = blockIdx.x % K;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
   const int q_last = min(q0 + BQ, S) - 1;
   const int kv_end = causal ? q_last + 1 : S;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int r0 = warp * 16;  // this warp's first query row
+  const int t_begin = kv_begin / BKV;
+  const int n_tiles = (kv_end + BKV - 1) / BKV - t_begin;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  for (int t = kv_begin / N; t * N < kv_end; ++t) {
-    __syncthreads();  // previous tile's K/V fully consumed (and Q staged)
-    for (int idx = tid; idx < N * (kD / 8); idx += kThreads) {
-      const int r = idx / (kD / 8), c = idx % (kD / 8);
-      const int j = t * N + r;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (j < S) {
-        const size_t off = ((size_t(b) * S + j) * K + kvh) * kD + c * 8;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(ks + r * kQP + c * 8) = kv;
-      *reinterpret_cast<uint4*>(vs + r * kQP + c * 8) = vv;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&empty[s], NWG * 128);
     }
-    __syncthreads();
-
-    // ---- S = Q K^T for this warp's 16 rows (tensor cores)
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          qa[kD / 16];
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wmma::load_matrix_sync(qa[kk], qs + r0 * kQP + kk * 16, kQP);
-#pragma unroll
-      for (int n = 0; n < N / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
-        wmma::fill_fragment(sc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-          wmma::load_matrix_sync(kb, ks + n * 16 * kQP + kk * 16, kQP);
-          wmma::mma_sync(sc, qa[kk], kb, sc);
-        }
-        wmma::store_matrix_sync(ss + r0 * SP + n * 16, sc, SP,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // ---- masked online softmax per row, then rescale the row of O
-    for (int i = 0; i < 16; ++i) {
-      const int r = r0 + i;
-      const int qpos = q0 + r / G;
-      float sv[N / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < N / 32; ++u) {
-        const int col = lane + 32 * u;
-        const int kpos = t * N + col;
-        bool ok = qpos < S && kpos < S;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && qpos - kpos < window;
-        sv[u] = ok ? ss[r * SP + col] * scale : -INFINITY;
-        mx = fmaxf(mx, sv[u]);
-      }
-      mx = repro::warp_max(mx);
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < N / 32; ++u) {
-        const bf16 p = __float2bfloat16(repro::masked_exp(sv[u], m_new));
-        ps[r * PP + lane + 32 * u] = p;
-        sum += __bfloat162float(p);
-      }
-      sum = repro::warp_sum(sum);
-      const float alpha = repro::rescale(m_old, m_new);
-#pragma unroll
-      for (int d = lane; d < kD; d += 32) os[r * kOP + d] *= alpha;
-      if (lane == 0) {
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
-      }
-    }
-    __syncwarp();
-
-    // ---- O += P V for this warp's rows (tensor cores)
-#pragma unroll
-    for (int dn = 0; dn < kD / 16; ++dn) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oc;
-      wmma::load_matrix_sync(oc, os + r0 * kOP + dn * 16, kOP,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < N / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(pa, ps + r0 * PP + kk * 16, PP);
-        wmma::load_matrix_sync(vb, vs + kk * 16 * kQP + dn * 16, kQP);
-        wmma::mma_sync(oc, pa, vb, oc);
-      }
-      wmma::store_matrix_sync(os + r0 * kOP + dn * 16, oc, kOP,
-                              wmma::mem_row_major);
-    }
+    sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  // ---- normalise and write this warp's rows (positions < S only)
-  for (int i = 0; i < 16; ++i) {
-    const int r = r0 + i;
-    const int pos = q0 + r / G;
-    if (pos >= S) continue;
-    const int h = kvh * G + r % G;
-    const float l = row_l[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    bf16* dst = out + ((size_t(b) * S + pos) * H + h) * kD;
+  if (wg == NWG) {
+    // ---- producer: Q once, then the K/V ring
+    if constexpr (NWG == 2) sm90::setmaxnreg_dec<24>();
+    if (tid == 0) {
+      sm90::mbar_expect_tx(q_full, L::kQ);
 #pragma unroll
-    for (int d = lane; d < kD; d += 32)
-      dst[d] = __float2bfloat16(os[r * kOP + d] * inv);
+      for (int a = 0; a < kAtoms; ++a)
+        sm90::tma_load_4d(q_s + a * kRows * 128, &map_q, q_full, a * 64,
+                          kvh * G, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const int kv0 = (t_begin + i) * BKV;
+        unsigned char* k_s = smem + L::kQ + s * L::kStage;
+        unsigned char* v_s = k_s + L::kKV;
+        sm90::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        sm90::mbar_expect_tx(&k_full[s], L::kKV);
+#pragma unroll
+        for (int a = 0; a < kAtoms; ++a)
+          sm90::tma_load_4d(k_s + a * BKV * 128, &map_k, &k_full[s], a * 64,
+                            kvh, kv0, b);
+        sm90::mbar_expect_tx(&v_full[s], L::kKV);
+#pragma unroll
+        for (int a = 0; a < kAtoms; ++a)
+          sm90::tma_load_4d(v_s + a * BKV * 128, &map_v, &v_full[s], a * 64,
+                            kvh, kv0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 rows each; this thread holds rows r and r + 8
+  if constexpr (NWG == 2) sm90::setmaxnreg_inc<240>();
+  const int warp = tid / 32, lane = tid % 32;
+  const int r_lo = wg * 64 + warp * 16 + lane / 4, r_hi = r_lo + 8;
+  const int qpos_lo = q0 + r_lo / G, qpos_hi = q0 + r_hi / G;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  const unsigned char* q_wg = q_s + wg * 64 * 128;
+  sm90::mbar_wait(q_full, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    const uint32_t phase = (i / kStages) & 1;
+    const int kv0 = (t_begin + i) * BKV;
+    const unsigned char* k_s = smem + L::kQ + s * L::kStage;
+    const unsigned char* v_s = k_s + L::kKV;
+
+    // S = Q K^T, fp32 in registers
+    float sc[BKV / 2];
+    sm90::mbar_wait(&k_full[s], phase);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = sm90::desc_sw128(
+          q_wg + (kk / 4) * kRows * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = sm90::desc_sw128(
+          k_s + (kk / 4) * BKV * 128 + (kk % 4) * 32, 16, 1024);
+      sm90::wgmma_ss<BKV, 0>(sc, da, db, kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+
+    // masks, only on a tile that straddles a boundary
+    if (kv0 + BKV > S || (causal && kv0 + BKV - 1 > q0) ||
+        (window > 0 && q_last - kv0 >= window)) {
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = kv0 + 8 * j + 2 * (lane % 4) + e;
+          if (!key_ok(kpos, qpos_lo, S, causal, window))
+            sc[4 * j + e] = -INFINITY;
+          if (!key_ok(kpos, qpos_hi, S, causal, window))
+            sc[4 * j + 2 + e] = -INFINITY;
+        }
+    }
+
+    // online softmax: row max over the quad, rescale, exponentiate
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    const float new_lo = fmaxf(m_lo, quad_max(mx_lo) * scale_log2);
+    const float new_hi = fmaxf(m_hi, quad_max(mx_hi) * scale_log2);
+    // no live key yet: subtract 0, so exp2(-inf) = 0 and nothing is NaN
+    const float base_lo = new_lo == -INFINITY ? 0.f : new_lo;
+    const float base_hi = new_hi == -INFINITY ? 0.f : new_hi;
+    const float alpha_lo = ex2(m_lo - base_lo);
+    const float alpha_hi = ex2(m_hi - base_hi);
+    m_lo = new_lo;
+    m_hi = new_hi;
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], scale_log2, -base_lo));
+        sc[4 * j + 2 + e] =
+            ex2(fmaf(sc[4 * j + 2 + e], scale_log2, -base_hi));
+        sum_lo += sc[4 * j + e];
+        sum_hi += sc[4 * j + 2 + e];
+      }
+    l_lo = l_lo * alpha_lo + sum_lo;
+    l_hi = l_hi * alpha_hi + sum_hi;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= alpha_lo;
+      o[4 * j + 1] *= alpha_lo;
+      o[4 * j + 2] *= alpha_hi;
+      o[4 * j + 3] *= alpha_hi;
+    }
+    // P in bf16 as the A operand: k16 slice kk is accumulator blocks 2 kk
+    // (registers 8 kk .. + 3) and 2 kk + 1 (8 kk + 4 .. + 7)
+    uint32_t pa[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = sm90::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    // O += P V
+    sm90::mbar_wait(&v_full[s], phase);
+    sm90::fence_regs(o);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint64_t db =
+          sm90::desc_sw128(v_s + kk * 2048, BKV * 128, 1024);
+      sm90::wgmma_m64n128k16_rs<1>(o, pa[kk], db, 1);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    sm90::mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue: normalise, write rows whose position is < S
+  const float lsum_lo = quad_sum(l_lo), lsum_hi = quad_sum(l_hi);
+  const float inv_lo = lsum_lo > 0.f ? 1.f / lsum_lo : 0.f;
+  const float inv_hi = lsum_hi > 0.f ? 1.f / lsum_hi : 0.f;
+  const int b_row = b * S;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = h ? r_hi : r_lo;
+    const int qpos = h ? qpos_hi : qpos_lo;
+    const float inv = h ? inv_hi : inv_lo;
+    if (qpos >= S) continue;
+    bf16* dst = out + (size_t(b_row + qpos) * H + kvh * G + r % G) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(o[4 * j + 2 * h] * inv,
+                                o[4 * j + 2 * h + 1] * inv);
   }
 }
 
-template <int M, int N>
+// The three maps of a launch: q (B, S, H, D) in boxes of (64, G, rows/G,
+// 1), k and v (B, S, K, D) in boxes of (64, 1, block_kv, 1).
+int encode_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
+                const void* q, const void* k, const void* v, int B, int S,
+                int H, int K, int D, int rows, int block_kv) {
+  const int G = H / K;
+  const cuuint64_t dq[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S),
+                            cuuint64_t(B)};
+  const cuuint64_t sq[3] = {cuuint64_t(D) * 2, cuuint64_t(H) * D * 2,
+                            cuuint64_t(S) * H * D * 2};
+  const cuuint32_t bq[4] = {64, cuuint32_t(G), cuuint32_t(rows / G), 1};
+  int err = sm90::encode_bf16_sw128(mq, q, 4, dq, sq, bq);
+  if (err) return err;
+  const cuuint64_t dk[4] = {cuuint64_t(D), cuuint64_t(K), cuuint64_t(S),
+                            cuuint64_t(B)};
+  const cuuint64_t sk[3] = {cuuint64_t(D) * 2, cuuint64_t(K) * D * 2,
+                            cuuint64_t(S) * K * D * 2};
+  const cuuint32_t bk[4] = {64, 1, cuuint32_t(block_kv), 1};
+  err = sm90::encode_bf16_sw128(mk, k, 4, dk, sk, bk);
+  if (err) return err;
+  return sm90::encode_bf16_sw128(mv, v, 4, dk, sk, bk);
+}
+
+template <int D, int BKV, int NWG>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int H, int K, int causal, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem = Smem<M, N>::total;
-  auto kern = flash_fwd_kernel<M, N>;
-  cudaError_t err = cudaFuncSetAttribute(
+  constexpr int kRows = NWG * 64;
+  CUtensorMap mq, mk, mv;
+  int err = encode_maps(&mq, &mk, &mv, q, k, v, B, S, H, K, D, kRows, BKV);
+  if (err) return err;
+  const size_t smem = Smem<D, BKV, NWG>::kBytes;
+  auto kern = flash_fwd_kernel<D, BKV, NWG>;
+  cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const int G = H / K;
-  const int BQ = M / G;
-  dim3 grid((S + BQ - 1) / BQ, B * K);
-  kern<<<grid, M / 16 * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, K, causal,
-      window, scale);
+  if (e != cudaSuccess) return int(e);
+  const int BQ = kRows / (H / K);
+  const int q_tiles = (S + BQ - 1) / BQ;
+  if (q_tiles > 65535) return int(cudaErrorInvalidValue);
+  const float kLog2e = 1.4426950408889634f;
+  kern<<<dim3(B * K, q_tiles), (NWG + 1) * 128, smem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(out), S, H, K, causal, window,
+      scale * kLog2e);
   return int(cudaGetLastError());
+}
+
+bool takes(const void* q, const void* k, const void* v, const void* out,
+           int S, int H, int K, int D, int rows) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) |
+                         reinterpret_cast<uintptr_t>(out);
+  return D == 128 && K > 0 && H % K == 0 && rows % (H / K) == 0 && S > 0 &&
+         ptrs % 16 == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B, S, H, D), k/v (B, S, K, D), out (B, S, H, D), all bf16 and
-// contiguous.  rows = query rows per CTA (positions x G), block_kv = K/V
-// rows per tile.  Returns a cudaError_t (0 = launched).
+// q (B, S, H, D), k/v (B, S, K, D), out (B, S, H, D), all bf16, contiguous
+// and 16-byte aligned.  rows = query rows per CTA (positions x G),
+// block_kv = K/V rows per tile.  Returns 0 when launched, a cudaError_t, or
+// a negative CUresult of the tensor-map encoder.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, int B, int S, int H, int K, int D,
                         int causal, int window, int rows, int block_kv,
                         float scale, void* stream) {
-  if (D != kD || K <= 0 || H % K || rows % (H / K) || S <= 0)
+  if (!takes(q, k, v, out, S, H, K, D, rows))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 64 && block_kv == 64)
-    return launch<64, 64>(q, k, v, out, B, S, H, K, causal, window, scale, s);
+    return launch<128, 64, 1>(q, k, v, out, B, S, H, K, causal, window, scale,
+                              s);
   if (rows == 64 && block_kv == 128)
-    return launch<64, 128>(q, k, v, out, B, S, H, K, causal, window, scale, s);
+    return launch<128, 128, 1>(q, k, v, out, B, S, H, K, causal, window,
+                               scale, s);
   if (rows == 128 && block_kv == 64)
-    return launch<128, 64>(q, k, v, out, B, S, H, K, causal, window, scale, s);
+    return launch<128, 64, 2>(q, k, v, out, B, S, H, K, causal, window, scale,
+                              s);
+  if (rows == 128 && block_kv == 128)
+    return launch<128, 128, 2>(q, k, v, out, B, S, H, K, causal, window,
+                               scale, s);
   return int(cudaErrorInvalidValue);
+}
+
+// Host microseconds to encode the three tensor maps of one launch, the mean
+// of `iters` encodings (no launch); negative on an encoder error.
+double flash_attention_map_encode_us(const void* q, const void* k,
+                                     const void* v, int B, int S, int H,
+                                     int K, int D, int rows, int block_kv,
+                                     int iters) {
+  CUtensorMap mq, mk, mv;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i) {
+    const int err =
+        encode_maps(&mq, &mk, &mv, q, k, v, B, S, H, K, D, rows, block_kv);
+    if (err) return double(err);
+  }
+  const auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::micro>(t1 - t0).count() /
+         (iters > 0 ? iters : 1);
 }
 
 }  // extern "C"

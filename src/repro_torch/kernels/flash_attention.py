@@ -15,12 +15,14 @@ kernel on CUDA tensors and raises on any other device;
 :func:`flash_attention_plain` (one masked softmax in fp32, no tiles).
 
 Tiles: the kernel's CTA holds ``rows = block_q * G`` query rows
-(``block_q`` positions times the ``G = H/K`` heads sharing a kv head)
-and stages ``block_kv`` K/V rows at a time.  It is built for ``(rows,
-block_kv)`` in :data:`KERNEL_TILES`; :func:`kernel_tiles` raises on any
-other plan tile.  A plan without a ``flash_attention`` BlockPlan (decode
-shapes have none) gets :data:`DEFAULT_ROWS` x :data:`DEFAULT_BLOCK_KV`,
-113 KB of shared memory, two CTAs to an SM.
+(``block_q`` positions times the ``G = H/K`` heads sharing a kv head),
+64 rows to each consumer warpgroup, and streams ``block_kv`` K/V rows a
+tile through a TMA ring of :data:`STAGES` stages.  It is built for
+``(rows, block_kv)`` in :data:`KERNEL_TILES`; :func:`kernel_tiles`
+raises on any other plan tile.  A plan without a ``flash_attention``
+BlockPlan (decode shapes have none) gets :data:`DEFAULT_ROWS` x
+:data:`DEFAULT_BLOCK_KV`, 164,920 B of shared memory, one CTA to an SM.
+TMA reads q, k and v in place, so each must start on a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -31,21 +33,27 @@ import torch
 
 from repro_torch.kernels import build
 
-#: (query rows, kv rows) the CUDA kernel is instantiated for
-KERNEL_TILES = ((64, 64), (64, 128), (128, 64))
-DEFAULT_ROWS = 64
-DEFAULT_BLOCK_KV = 64
+#: (query rows, kv rows) the CUDA kernel is instantiated for: one or two
+#: 64-row consumer warpgroups, 64- or 128-row K/V tiles
+KERNEL_TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
+DEFAULT_ROWS = 128
+DEFAULT_BLOCK_KV = 128
 HEAD_DIM = 128
+#: K/V stages of the TMA ring in shared memory
+STAGES = 2
 
 #: launches of the CUDA kernel in this process (reset by the caller)
 launches = 0
 
 
 def smem_bytes(rows: int, block_kv: int) -> int:
-    """Shared memory one CTA uses at a tile (``csrc`` ``Smem::total``)."""
-    qp, op = HEAD_DIM + 8, HEAD_DIM + 4
-    return (rows * qp * 2 + 2 * block_kv * qp * 2 + rows * (block_kv + 4) * 4
-            + rows * (block_kv + 8) * 2 + rows * op * 4 + 2 * rows * 4)
+    """Dynamic shared memory one CTA asks for (``csrc`` ``Smem::kBytes``):
+    the Q tile, :data:`STAGES` K and V tiles, the ring's mbarriers and
+    1 KB to align the tiles to the 128-byte swizzle's 1024-byte atom.
+    S, P and the O accumulator live in registers."""
+    bars = (1 + 3 * STAGES) * 8
+    return (rows * HEAD_DIM * 2 + STAGES * 2 * block_kv * HEAD_DIM * 2
+            + bars + 1024)
 
 
 def kernel_tiles(G: int, block_q: Optional[int] = None,
@@ -58,7 +66,9 @@ def kernel_tiles(G: int, block_q: Optional[int] = None,
         if rows % G:
             raise ValueError(
                 f"flash_attention: default tile of {rows} query rows does "
-                f"not hold whole GQA groups of {G} heads")
+                f"not hold whole GQA groups of {G} heads (the kernel's "
+                "64-row warpgroups take G = 1, 2, 4, 8, 16, ...; G = 5, "
+                "hymba's, is not taken)")
         return rows, bkv
     if block_q is None or block_kv is None:
         raise ValueError("flash_attention: give both block_q and block_kv")
@@ -101,8 +111,9 @@ def _check(q, k, v) -> None:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash_attention: {name} is {t.dtype}; the "
                             "kernel takes bfloat16")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} is not contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not contiguous "
+                             "and 16-byte aligned (TMA reads it in place)")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -138,6 +149,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         float(D ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd: launch failed with "
-                           f"cudaError {err}")
+                           f"{build.describe_error(err)}")
     launches += 1
     return out

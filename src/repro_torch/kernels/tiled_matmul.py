@@ -8,20 +8,21 @@ them.  The CUDA source, ``csrc/tiled_matmul.cu``, says in its header
 what bounds it on the card and how the design answers that.
 
 Contract (a superset of the Pallas one): a ``(M, K)`` @ b ``(K, N)``,
-both contiguous and of one dtype, bf16 or fp32; the product is summed in
-fp32 and written in the input dtype.  Any M, K and N (the Pallas kernel
-asserted that the clamped tiles divide them): the ragged edges are
-zero-filled on load and never written.  The kernel copies 16-byte rows
-of A and B with ``cp.async``, so it needs ``K`` and ``N`` to be
-multiples of 16 bytes' worth of elements (8 in bf16, 4 in fp32) and
-raises otherwise.
+both contiguous, 16-byte aligned and of one dtype, bf16 or fp32; the
+product is summed in fp32 and written in the input dtype.  Any M, K and
+N (the Pallas kernel asserted that the clamped tiles divide them): the
+ragged edges are zero-filled on load and never written.  bf16 loads its
+tiles with TMA and fp32 with 16-byte ``cp.async`` rows; both need ``K``
+and ``N`` to be multiples of 16 bytes' worth of elements (8 in bf16, 4
+in fp32) and raise otherwise.
 
 Tiles: the kernel is built for the ``(bm, bk, bn)`` of
 :data:`KERNEL_TILES`; :func:`kernel_tiles` raises on any other and
 never substitutes one.  A plan without a ``tiled_matmul`` BlockPlan
-gets :data:`DEFAULT_TILES`.  No model path calls this kernel: the
-model's projections stay ``torch.matmul``, as the JAX model left them
-to XLA.
+gets :data:`DEFAULT_TILES`.  bf16 runs ``wgmma`` on a ring of
+:data:`STAGES` TMA stages; fp32 runs FMAs on :data:`FP32_STAGES`
+``cp.async`` stages.  No model path calls this kernel: the model's
+projections stay ``torch.matmul``, as the JAX model left them to XLA.
 """
 
 from __future__ import annotations
@@ -37,8 +38,13 @@ from repro_torch.kernels import build
 #: ``test_tiled_matmul`` cases
 KERNEL_TILES = ((128, 64, 128), (64, 128, 64), (64, 64, 64))
 DEFAULT_TILES = (128, 64, 128)
-#: operand stages in shared memory (the paper's 2-bank PLM)
-STAGES = 2
+#: bf16 operand stages of the TMA ring in shared memory
+STAGES = 4
+#: the ring's stages when a 128-row tile meets M <= 64 (a decode tick):
+#: the kernel runs it as a 64-row tile on a deeper ring
+SMALL_M_STAGES = 7
+#: fp32 operand stages (cp.async, the paper's 2-bank PLM)
+FP32_STAGES = 2
 DTYPES = (torch.bfloat16, torch.float32)
 
 #: launches of the CUDA kernel in this process (reset by the caller)
@@ -46,12 +52,22 @@ launches = 0
 
 
 def smem_bytes(bm: int, bk: int, bn: int, dtype=torch.bfloat16) -> int:
-    """Shared memory one CTA uses (``csrc`` ``Layout<...>::kBytes``):
-    :data:`STAGES` copies of the A ``(bm, bk)`` and B ``(bk, bn)`` tiles,
-    each row padded by 16 bytes.  The fp32 accumulator is in registers."""
+    """The most dynamic shared memory one CTA asks for at a tile.  bf16
+    (``csrc`` ``Ring::kBytes``): :data:`STAGES` A ``(bm, bk)`` and B
+    ``(bk, bn)`` tiles, their mbarriers and 1 KB to align the tiles to
+    the 128-byte swizzle's 1024-byte atom; a 128-row tile at M <= 64
+    runs :data:`SMALL_M_STAGES` stages of a 64-row A tile instead, and
+    the larger of the two counts.  fp32 (``csrc`` ``Layout::kBytes``):
+    :data:`FP32_STAGES` copies of the two tiles, each row padded by 16
+    bytes.  The fp32 accumulator is in registers on both paths."""
+    if dtype == torch.bfloat16:
+        def ring(rows, stages):
+            return stages * (rows * bk + bk * bn) * 2 + 2 * stages * 8
+        small = ring(64, SMALL_M_STAGES) if bm == 128 else 0
+        return max(ring(bm, STAGES), small) + 1024
     e = dtype.itemsize
     pad = 16 // e
-    return STAGES * (bm * (bk + pad) + bk * (bn + pad)) * e
+    return FP32_STAGES * (bm * (bk + pad) + bk * (bn + pad)) * e
 
 
 def kernel_tiles(tiles: Optional[Sequence[int]]) -> Tuple[int, int, int]:
@@ -118,6 +134,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
         int(a.dtype == torch.float32),
         torch.cuda.current_stream(a.device).cuda_stream)
     if err:
-        raise RuntimeError(f"tiled_matmul: launch failed with cudaError {err}")
+        raise RuntimeError(f"tiled_matmul: launch failed with "
+                           f"{build.describe_error(err)}")
     launches += 1
     return out

@@ -150,6 +150,10 @@ def _report(prof, wall_s: float) -> None:
     for e in rows[:12]:
         print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
               f"x{e.count:6d}  {e.key[:100]}")
+    for e in rows:                  # every port kernel, in the top 12 or not
+        if any(k in e.key for k in _GROUPS[0][1]):
+            print(f"profile port kernel {e.self_device_time_total / 1e3:9.2f}"
+                  f" ms x{e.count:6d}  {e.key[:100]}")
 
 
 if __name__ == "__main__":

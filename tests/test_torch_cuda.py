@@ -85,7 +85,7 @@ def _rnd(gen, *shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [64, 130, 1000, 2048])
 @pytest.mark.parametrize("window", [0, 300])
-@pytest.mark.parametrize("tiles", [None, (16, 128), (32, 64)])
+@pytest.mark.parametrize("tiles", [None, (16, 64), (16, 128), (32, 64)])
 def test_flash_kernel_matches_plain(dev, S, window, tiles):
     g = torch.Generator(dev).manual_seed(S + window)
     q, k, v = _rnd(g, 2, S, H, D), _rnd(g, 2, S, K, D), _rnd(g, 2, S, K, D)
@@ -109,6 +109,87 @@ def test_flash_kernel_gqa_groups(dev, heads, kv, causal):
     want = tfa.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert _rel_err(got, want) < FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows,block_kv", tfa.KERNEL_TILES)
+def test_flash_kernel_every_tile_at_every_gqa_group(dev, G, rows, block_kv):
+    """Each tile the kernel is built for at G = 1, 2, 4 and 8 query heads
+    per kv head (rows = block_q * G), ragged S."""
+    g = torch.Generator(dev).manual_seed(G * rows + block_kv)
+    S, kv = 300, 2
+    q, k, v = (_rnd(g, 2, S, G * kv, D), _rnd(g, 2, S, kv, D),
+               _rnd(g, 2, S, kv, D))
+    got = tfa.flash_attention(q, k, v, causal=True, block_q=rows // G,
+                              block_kv=block_kv)
+    want = tfa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) < FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 65, 1000, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_ragged_lengths(dev, S, causal):
+    """Batch 3 at lengths around and past the 64- and 128-row tiles: rows
+    past S are zero-filled on load and never written."""
+    g = torch.Generator(dev).manual_seed(S + causal)
+    q, k, v = _rnd(g, 3, S, H, D), _rnd(g, 3, S, K, D), _rnd(g, 3, S, K, D)
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert _rel_err(got, want) < FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 37, 100, 129, 700])
+@pytest.mark.parametrize("tiles", [None, (16, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_window_starting_mid_tile(dev, window, tiles, causal):
+    """Windows whose first key falls inside a kv tile, so the first tile a
+    CTA loads is masked at its front and the tiles before it are never
+    loaded."""
+    g = torch.Generator(dev).manual_seed(window)
+    S = 1000
+    q, k, v = _rnd(g, 2, S, H, D), _rnd(g, 2, S, K, D), _rnd(g, 2, S, K, D)
+    bq, bkv = tiles or (None, None)
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                              block_q=bq, block_kv=bkv)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) < FLASH_TOL
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_a_view_that_is_not_16_byte_aligned(dev):
+    """TMA reads the operands in place: both wrappers raise on a
+    contiguous view whose data is not 16-byte aligned, and launch
+    nothing."""
+    g = torch.Generator(dev).manual_seed(3)
+    q, k = _rnd(g, 1, 64, H, D), _rnd(g, 1, 64, K, D)
+    a, b = _mm_inputs(g, 64, 64, 64, torch.bfloat16)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(_misaligned(q), k, k)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(q, k, _misaligned(k))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.matmul(_misaligned(a), b)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.matmul(a, _misaligned(b))
+    assert sum(ops.launch_counts().values()) == 0
 
 
 def _paged_case(g, bl, B=6, max_len=2048):
@@ -488,6 +569,21 @@ def test_matmul_kernel_ragged_shapes(dev, dtype, M, K, N):
         assert torch.equal(got, want)
     else:
         assert _rel_err(got, want) < MM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", tmm.KERNEL_TILES)
+@pytest.mark.parametrize("M", [1, 8, 1000])
+def test_matmul_kernel_at_mamba2_in_proj_width(dev, tiles, M):
+    """N = 10576 (mamba2-2.7b's in_proj, not a multiple of any bn) at one
+    row, a decode tick's 8 rows and a ragged 1000-token prefill."""
+    g = torch.Generator(dev).manual_seed(M)
+    a, b = _mm_inputs(g, M, 2560, 10576, torch.bfloat16)
+    got = ops.matmul(a, b, tiles=tiles)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (M, 10576)
+    assert _rel_err(got, tmm.tiled_matmul_plain(a, b)) < \
+        MM_TOL[torch.bfloat16]
 
 
 @pytest.mark.cuda

@@ -96,14 +96,26 @@ def test_flash_plain_block_invariance(block_kv):
 
 def test_flash_kernel_tiles_raise_instead_of_substituting():
     assert tfa.kernel_tiles(4) == (tfa.DEFAULT_ROWS, tfa.DEFAULT_BLOCK_KV)
+    assert (tfa.DEFAULT_ROWS, tfa.DEFAULT_BLOCK_KV) in tfa.KERNEL_TILES
+    assert tfa.kernel_tiles(4, 16, 64) == (64, 64)
     assert tfa.kernel_tiles(4, 16, 128) == (64, 128)
     assert tfa.kernel_tiles(4, 32, 64) == (128, 64)
+    assert tfa.kernel_tiles(4, 32, 128) == (128, 128)  # h100 prefill plan
+    assert tfa.kernel_tiles(8, 16, 128) == (128, 128)
+    assert tfa.kernel_tiles(1, 64, 64) == (64, 64)
     with pytest.raises(ValueError, match="not one the kernel is built for"):
-        tfa.kernel_tiles(4, 128, 128)         # the h100 prefill-shape plan
+        tfa.kernel_tiles(4, 128, 128)         # 512 rows: the tpu-v5e tile
+    with pytest.raises(ValueError, match="not one the kernel is built for"):
+        tfa.kernel_tiles(4, 32, 256)
     with pytest.raises(ValueError, match="whole GQA groups"):
         tfa.kernel_tiles(3)
+    with pytest.raises(ValueError, match="hymba"):
+        tfa.kernel_tiles(5)
     for rows, bkv in tfa.KERNEL_TILES:
         assert tfa.smem_bytes(rows, bkv) <= 232_448
+    # Q plus two stages of K and V, their mbarriers, 1 KB of alignment
+    assert tfa.smem_bytes(128, 128) == 128 * 256 + 2 * 2 * 128 * 256 + 7 * 8 \
+        + 1024
 
 
 # ---------------------------------------------------------------------

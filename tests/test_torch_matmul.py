@@ -124,8 +124,14 @@ def test_smem_bytes_matches_the_plan_and_the_kernel_layout():
     tiles = (bp.blocks["bm"], bp.blocks["bk"], bp.blocks["bn"])
     assert bp.vmem_bytes == tmm.smem_bytes(*tiles) <= SMEM_BUDGET
     assert bp.n_buffers == tmm.STAGES
-    # two stages of A (bm, bk) and B (bk, bn), rows padded by 16 bytes
-    assert tmm.smem_bytes(128, 64, 128) == 2 * (128 * 72 + 64 * 136) * 2
+    # bf16: four TMA stages of A (bm, bk) and B (bk, bn), their
+    # mbarriers and 1 KB of alignment, or, for the 128-row tile, the
+    # seven stages of a 64-row A tile it runs at M <= 64, the larger;
+    # fp32: two cp.async stages, rows padded by 16 bytes
+    assert tmm.smem_bytes(128, 64, 128) == \
+        7 * (64 * 64 + 64 * 128) * 2 + 2 * 7 * 8 + 1024
+    assert tmm.smem_bytes(64, 64, 64) == \
+        4 * (64 * 64 + 64 * 64) * 2 + 2 * 4 * 8 + 1024
     assert tmm.smem_bytes(64, 64, 64, torch.float32) == \
         2 * (64 * 68 + 64 * 68) * 4
     for t in tmm.KERNEL_TILES:

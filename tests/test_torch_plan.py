@@ -105,6 +105,64 @@ def test_h100_matmul_tile_is_a_kernel_tile_that_fits(arch, shape):
     assert "accumulator in registers" in logged[0][1]
 
 
+@pytest.mark.parametrize("arch,shape", RUNNABLE,
+                         ids=[f"{a}@{s}" for a, s in RUNNABLE])
+def test_h100_flash_tile_is_a_kernel_tile_that_fits(arch, shape):
+    """On the card the flash tile is one the CUDA kernel is built for:
+    ``block_q * G`` rows and ``block_kv`` in its tile set, Q plus the
+    K/V ring within the pass's share of shared memory, and the log says
+    so.  An arch the kernel is not built for gets no tile and a logged
+    reason; a cell without a prefill attention op gets neither."""
+    plan = tcore.specialize(arch, shape, target="h100-sxm", cache=False)
+    a = tcfg.get_arch(arch)
+    bp = plan.partitions.get("flash_attention")
+    logged = [(d, why) for _, subj, d, why in plan.log
+              if subj == "flash_attention"]
+    G = (int(plan.estimates.get("heads_padded", a.n_heads))
+         // int(plan.estimates.get("kv_heads_padded", a.n_kv_heads or 1)))
+    if bp is None:
+        if logged:
+            assert [d for d, _ in logged] == ["no kernel tile"]
+            assert a.hd != tfa.HEAD_DIM or all(
+                r % G for r, _ in tfa.KERNEL_TILES)
+        return
+    bq, bkv = bp.blocks["block_q"], bp.blocks["block_kv"]
+    rows = bq * G
+    assert tfa.kernel_tiles(G, bq, bkv) == (rows, bkv)
+    assert bp.blocks["head_dim"] == a.hd == tfa.HEAD_DIM
+    assert bp.n_buffers == tfa.STAGES
+    budget = 0.75 * SMEM_PER_BLOCK
+    assert rows * a.hd * 2 + bp.n_buffers * 2 * bkv * a.hd * 2 <= budget
+    assert bp.vmem_bytes == tfa.smem_bytes(rows, bkv) <= budget
+    assert "TMA ring" in bp.grid_note
+    assert "accumulator in registers" in bp.grid_note
+    assert [d for d, _ in logged] == [f"block_q={bq} block_kv={bkv}"]
+    assert "accumulator in registers" in logged[0][1]
+    # the largest tile that fits: two 64-row warpgroups where G allows
+    assert rows == max(r for r, _ in tfa.KERNEL_TILES if r % G == 0)
+
+
+def test_h100_prefill_plan_flash_tile_runs_through_kernel_tiles():
+    """qwen3-8b's prefill-shape plan on the card: 32 positions x G=4 =
+    128 rows by 128 kv rows, which the kernel takes and the model's
+    RunCfg carries; the tpu-v5e plan keeps its TPU tile (512 x 512 per
+    head), which the CUDA kernel refuses."""
+    from repro_torch.core.passes.lowering import build_run_cfg
+    arch = tcfg.get_arch("qwen3-8b")
+    plan = tcore.specialize(arch, "prefill_32k", target="h100-sxm",
+                            cache=False)
+    bp = plan.partitions["flash_attention"]
+    assert (bp.blocks["block_q"], bp.blocks["block_kv"]) == (32, 128)
+    cfg = build_run_cfg(plan, arch)
+    assert cfg.flash_tiles == (32, 128)
+    assert tfa.kernel_tiles(4, *cfg.flash_tiles) == (128, 128)
+    tpu = tcore.specialize(arch, "prefill_32k", target="tpu-v5e",
+                           cache=False).partitions["flash_attention"]
+    assert (tpu.blocks["block_q"], tpu.blocks["block_kv"]) == (512, 512)
+    with pytest.raises(ValueError, match="not one the kernel is built for"):
+        tfa.kernel_tiles(4, tpu.blocks["block_q"], tpu.blocks["block_kv"])
+
+
 def test_tpu_v5e_plans_a_one_sequence_grant_pool_for_full_qwen3():
     """Why the port needs a card target: on v5e the 16 GiB of
     weights leave room for one sequence, and the pool is a grant pool."""
