@@ -12,7 +12,7 @@ Phases (any failure exits non-zero before the last line):
 
 1. device: ``nvidia-smi`` name and power limit, the kernels' build
    (``nvcc`` for ``sm_90a``, one process per source, all at once), each
-   wgmma kernel's registers from ``ptxas -v``, and the count of ``HGMMA``
+   kernel's registers and spills from ``ptxas -v``, and the count of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in each library's SASS
    (``cuobjdump --dump-sass``): the flash and matmul libraries must have
    both;
@@ -27,6 +27,8 @@ Phases (any failure exits non-zero before the last line):
    Flash is timed at the four 2048-token prefill buckets (B=1 S=2048 to
    B=8 S=256) and, like the matmul phase, in turns with its library call
    (five rounds, medians), with the host time to encode its tensor maps;
+   paged and dense decode in turns with masked SDPA, and the SSD scan in
+   turns, each with its grid (CTAs, launches per call);
 3. qwen3-8b serve, paged: the plan's paged pool, 16 requests;
 4. qwen3-8b serve, dense: the same weights under a dense-residency plan;
 5. qwen3-8b checks: a full-width consistency check (decode-step logits
@@ -70,6 +72,7 @@ PLAN_DIR = ROOT / "build" / "plans"     # the plan store of this run
 
 PEAK_BF16 = 989e12          # H100 SXM data sheet, dense bf16 tensor core
 PEAK_FP32 = 67e12           # H100 SXM data sheet, fp32 on the CUDA cores
+PEAK_TF32 = 495e12          # H100 SXM data sheet, dense TF32 tensor core
 HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
 # worst row's rms |kernel - plain| / rms |plain|, a few times the error
 # measured on an H100 (flash 4.1e-3: it rounds P to bf16 for its MMAs;
@@ -129,15 +132,72 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(torch, fns):
+def graph_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of ``fn()`` with no host gaps between launches:
+    ``iters`` calls captured in one CUDA graph, the replay timed by CUDA
+    events.  For kernels shorter than their wrapper's host time, where
+    ``time_ms`` measures the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(torch, fn, iters: int = 200) -> float:
+    """Host time of one call of ``fn`` (the enqueue, not the device),
+    mean of ``iters`` calls after a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def device_ms_by_kernel(torch, fn, calls: int = 5):
+    """Device time of each kernel ``fn`` launches, per call, from
+    ``torch.profiler`` (device events only)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.key: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0}
+
+
+def in_turns(torch, fns, timer=None):
     """Time each of ``fns`` (a dict of name -> callable) in turns,
-    :data:`TURNS` rounds of one ``time_ms`` each (a, b, a, b, ...), so
-    that a card whose clocks or neighbours drift during the run moves
-    both alike.  Returns the medians and the rounds, by name."""
+    :data:`TURNS` rounds of one ``timer`` (default ``time_ms``) each (a,
+    b, a, b, ...), so that a card whose clocks or neighbours drift during
+    the run moves both alike.  Returns the medians and the rounds, by
+    name."""
+    timer = timer or time_ms
     rounds = {name: [] for name in fns}
     for _ in range(TURNS):
         for name, fn in fns.items():
-            rounds[name].append(time_ms(torch, fn))
+            rounds[name].append(timer(torch, fn))
     med = {name: sorted(r)[len(r) // 2] for name, r in rounds.items()}
     return med, rounds
 
@@ -334,15 +394,18 @@ def kernel_phase(torch, dev):
                                                  cache_len=short), want),
               control("paged_decode_attention", "one table entry swapped",
                       torch, dec.paged_decode_attention(
-                          qd, kp, vp, swapped, cache_len=lens), want))
+                          qd, kp, vp, swapped, cache_len=lens), want),
+              control("paged_decode_attention",
+                      "split 0 dropped from the merge", torch,
+                      dec.paged_decode_attention(qd, kp, vp, tbl,
+                                                 cache_len=lens,
+                                                 drop_split=0), want))
     # a freed slot (table row -1, length 1) reads zero rows: zeros out
     free_tbl = tbl.clone()
     free_tbl[0] = -1
     out = dec.paged_decode_attention(qd, kp, vp, free_tbl, cache_len=lens)
     check(float(out[0].float().abs().max()) == 0.0,
           "paged_decode_attention: freed slot output is not zero")
-    ms = time_ms(torch, lambda: dec.paged_decode_attention(
-        qd, kp, vp, tbl, cache_len=lens))
     plain = time_ms(torch, lambda: dec.paged_decode_attention_plain(
         qd, kp, vp, tbl, cache_len=lens), iters=5)
     b_ms, b_by = bound(qkv_io + kv_bytes + 4 * sum(need), dec_flops)
@@ -350,7 +413,7 @@ def kernel_phase(torch, dev):
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:130",
         max_abs_err=err, row_rel_err=rel, control_row_rel_err=ctl,
-        tolerance=tol, ms=ms, plain_ms=plain, library_ms=None,
+        tolerance=tol, plain_ms=plain, library_ms=None,
         bound_ms=b_ms, bound_by=b_by,
         shape=f"B={Bd} bl={bl} H={H} K={K} D={D} lens={lens_list} bf16",
         library_call="none takes a block table")
@@ -366,23 +429,72 @@ def kernel_phase(torch, dev):
         f"max_abs_err={err:.3e} worst row rel={rel:.3e} (tol {tol}) "
         f"[{CARD}]")
     check(rel <= tol, f"decode_attention row rel err {rel} > {tol}")
-    ctl = control("decode_attention", "one tile short", torch,
-                  dec.decode_attention(qd, kd, vd, cache_len=short), want)
-    ms = time_ms(torch, lambda: dec.decode_attention(qd, kd, vd,
-                                                     cache_len=lens))
+    ctl = min(control("decode_attention", "one tile short", torch,
+                      dec.decode_attention(qd, kd, vd, cache_len=short),
+                      want),
+              control("decode_attention", "split 0 dropped from the merge",
+                      torch, dec.decode_attention(qd, kd, vd, cache_len=lens,
+                                                  drop_split=0), want))
     plain = time_ms(torch, lambda: dec.decode_attention_plain(
         qd, kd, vd, cache_len=lens), iters=5)
+    # the counters of the in-launch merge are left at zero: repeated
+    # launches give the same bits
+    outs = [f() for f in (lambda: dec.decode_attention(qd, kd, vd,
+                                                       cache_len=lens),) * 3
+            + (lambda: dec.paged_decode_attention(qd, kp, vp, tbl,
+                                                  cache_len=lens),) * 3]
+    torch.cuda.synchronize()
+    check(all(torch.equal(outs[0], o) for o in outs[1:3])
+          and all(torch.equal(outs[3], o) for o in outs[4:])
+          and int(dec._COUNTERS[qd.device].abs().sum()) == 0,
+          "decode: back-to-back launches differ or left a counter set")
+    splits, rows = dec.decode_split(Bd, K, max_len, dec.DEFAULT_BLOCK_KV)
+    live_ctas = K * sum(-(-n // rows) for n in lens_list)
+    log(f"grid decode_kernel (paged and dense): {Bd} slots x {K} kv heads x "
+        f"{splits} splits of {rows} rows = {Bd * K * splits} CTAs "
+        f"({live_ctas} with live rows), 1 launch per call; back-to-back "
+        f"launches bitwise equal, counters back at 0 [{CARD}]")
     q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask, enable_gqa=True))
+    fns = {
+        "paged": lambda: dec.paged_decode_attention(qd, kp, vp, tbl,
+                                                    cache_len=lens),
+        "dense": lambda: dec.decode_attention(qd, kd, vd, cache_len=lens),
+        "library": lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True)}
+    # device time (CUDA graph of 20 launches: the kernels are shorter than
+    # their wrappers' host time) and eager time (back-to-back launches)
+    med, rounds = in_turns(torch, fns, timer=graph_ms)
+    eager, _ = in_turns(torch, fns)
+    host = {name: host_us(torch, fn) for name, fn in fns.items()}
+    log(f"timing decode B={Bd} S={max_len} lens={lens_list}, device (CUDA "
+        f"graph): paged {med['paged']:.4f} ms, dense {med['dense']:.4f} ms, "
+        f"SDPA (masked) {med['library']:.4f} ms (medians of {TURNS} turns: "
+        f"paged {fmt(rounds['paged'])}, dense {fmt(rounds['dense'])}, SDPA "
+        f"{fmt(rounds['library'])}); eager back-to-back: paged "
+        f"{eager['paged']:.4f}, dense {eager['dense']:.4f}, SDPA "
+        f"{eager['library']:.4f} ms; host per call: paged "
+        f"{host['paged']:.1f}, dense {host['dense']:.1f}, SDPA "
+        f"{host['library']:.1f} us [{CARD}]")
+    ms, lib = med["dense"], med["library"]
+    grid = dict(splits=splits, split_rows=rows, ctas=Bd * K * splits,
+                live_ctas=live_ctas, launches_per_call=1)
+    res["paged_decode_attention"].update(
+        ms=med["paged"], turns_ms=rounds["paged"], grid=grid,
+        eager_ms=eager["paged"], host_us=host["paged"],
+        timing="device time: CUDA graph of 20 launches, medians of 5 turns")
     b_ms, b_by = bound(qkv_io + kv_bytes, dec_flops)
     res["decode_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:194",
         max_abs_err=err, row_rel_err=rel, control_row_rel_err=ctl,
-        tolerance=tol, ms=ms, plain_ms=plain,
+        tolerance=tol, ms=ms, plain_ms=plain, turns_ms=rounds["dense"],
+        library_turns_ms=rounds["library"], grid=grid,
+        eager_ms=eager["dense"], host_us=host["dense"],
+        library_eager_ms=eager["library"],
+        timing="device time: CUDA graph of 20 launches, medians of 5 turns",
         library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-        shape=f"B={Bd} S={max_len} H={H} K={K} D={D} lens={lens_list} bf16",
+        shape=f"B={Bd} S={max_len} H={H} K={K} D={D} lens={lens_list} bf16; "
+              f"kernel and library: medians of {TURNS} turns",
         library_call="F.scaled_dot_product_attention(attn_mask, enable_gqa)")
     res["ssd_scan"] = ssd_kernel_check(torch, dev, g)
     mm_worst = matmul_kernel_check(torch, dev, g)
@@ -472,28 +584,65 @@ def ssd_kernel_check(torch, dev, g):
                 factor=10),
         control("ssd_scan", "final state one chunk short", torch,
                 ssd.ssd_scan(*head, chunk=chunk)[1].flatten(-2),
-                fin_want.flatten(-2), factor=10))
-    ms = time_ms(torch, lambda: ssd.ssd_scan(*ins, chunk=chunk))
+                fin_want.flatten(-2), factor=10),
+        control("ssd_scan", "state not passed between chunks", torch,
+                ssd.ssd_scan(*ins, chunk=chunk, no_carry=True)[0], y_want,
+                factor=10))
+    grid = ssd.grid_ctas(1, 2048, SSD_H, SSD_P, SSD_N, chunk)
+    log(f"grid ssd_scan S=2048: chunk states {grid[0]} CTAs, state passing "
+        f"{grid[1]} CTAs, chunk scan {grid[2]} CTAs; 3 launches per call "
+        f"(a one-CTA-per-head scan would have {SSD_H}) [{CARD}]")
+    med, rounds = in_turns(torch, {
+        "kernel": lambda: ssd.ssd_scan(*ins, chunk=chunk)})
+    ms = med["kernel"]
+    passes = device_ms_by_kernel(
+        torch, lambda: ssd.ssd_scan(*ins, chunk=chunk))
+    log(f"timing ssd_scan S=2048: kernel {ms:.4f} ms (median of {TURNS} "
+        f"turns: {fmt(rounds['kernel'])}); device time per call by pass "
+        f"(torch.profiler): "
+        + ", ".join(f"{re.search(r'(\w+)(<[^>]*>)?\(', k).group(1)} "
+                    f"{v:.4f} ms" for k, v in passes.items()) + f" [{CARD}]")
     plain = time_ms(torch, lambda: ssd.ssd_scan_plain(*ins, chunk=chunk),
                     iters=5)
+    by_chunk = {}
+    for q in ssd.KERNEL_CHUNKS:           # every chunk the kernel takes
+        by_chunk[q] = {re.search(r"(\w+)(<[^>]*>)?\(", k).group(1): v
+                       for k, v in device_ms_by_kernel(
+                           torch, lambda: ssd.ssd_scan(*ins, chunk=q)).items()}
+        log(f"timing ssd_scan S=2048 chunk={q}: device time per call by pass "
+            f"{by_chunk[q]}, sum {sum(by_chunk[q].values()):.4f} ms [{CARD}]")
     S, Q = 2048, chunk
     nc = -(-S // Q)
-    # causal half only: the k <= q entries of C.B^T and of scores.x,
-    # plus C.state^T and the state update
-    flops = SSD_H * nc * (Q * (Q + 1) * (SSD_N + SSD_P)
-                          + 4 * Q * SSD_P * SSD_N)
+    # causal half only: the k <= q entries of C.B^T (once per group: its
+    # heads share B and C) and of scores.x (per head), plus C.state^T and
+    # the state update (per head)
+    flops = nc * (SSD_G * Q * (Q + 1) * SSD_N
+                  + SSD_H * (Q * (Q + 1) * SSD_P + 4 * Q * SSD_P * SSD_N))
+    # the count with C.B^T per head, for comparison with a per-head scan
+    flops_per_head = SSD_H * nc * (Q * (Q + 1) * (SSD_N + SSD_P)
+                                   + 4 * Q * SSD_P * SSD_N)
     nbytes = 4 * (2 * S * SSD_H * SSD_P + S * SSD_H + SSD_H
                   + 2 * S * SSD_G * SSD_N + SSD_H * SSD_P * SSD_N)
     b_ms, b_by = bound(nbytes, flops, PEAK_FP32)
+    # the chunk scan's products run in 3xTF32: three TF32 products each
+    b3_ms, b3_by = bound(nbytes, flops, PEAK_TF32 / 3)
+    b_head_ms, _ = bound(nbytes, flops_per_head, PEAK_FP32)
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:83",
         max_abs_err=worst, row_rel_err=worst_rel,
         state_rel_err=worst_state, control_row_rel_err=ctl, tolerance=tol,
-        ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-        bound_by=b_by,
+        ms=ms, turns_ms=rounds["kernel"], plain_ms=plain, library_ms=None,
+        passes_ms=passes, chunks_ms=by_chunk,
+        bound_ms=b_ms, bound_by=b_by, bound_3xtf32_ms=b3_ms,
+        bound_3xtf32_by=b3_by, bound_per_head_scores_ms=b_head_ms,
+        grid=dict(zip(("chunk_state", "state_pass", "chunk_scan"), grid),
+                  launches_per_call=3),
         shape=f"B=1 S={S} H={SSD_H} P={SSD_P} N={SSD_N} G={SSD_G} "
-              f"chunk={chunk} fp32, bound at the fp32 CUDA-core rate",
+              f"chunk={chunk} fp32; bound_ms at the fp32 CUDA-core rate, "
+              "bound_3xtf32_ms at a third of the TF32 tensor-core rate, "
+              "both with C.B^T once per group; bound_per_head_scores_ms is "
+              "the count with C.B^T per head, at the fp32 rate",
         library_call="none: no single PyTorch call computes the SSD scan")
 
 
@@ -976,16 +1125,16 @@ def main() -> int:
     build.build_all()
     log(f"build: {len(build.SOURCES)} sources with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
-    for name, text in build.PTXAS_LOG.items():
-        entries = build.ptxas_entries(text)
+    ptxas = {name: build.ptxas_entries(text)
+             for name, text in build.PTXAS_LOG.items()}
+    for name, entries in ptxas.items():
         log(f"ptxas {name}: {len(entries)} kernels, registers <= "
             f"{max(r for _, r, _ in entries)}, "
             f"{sum(sp for _, _, sp in entries)} bytes of spill stores and "
             f"loads [{CARD}]")
-        if name in HOPPER_SOURCES:
-            for kernel, regs, spills in entries:
-                log(f"ptxas {name}: {kernel}: {regs} registers at entry, "
-                    f"{spills} bytes of spills")
+        for kernel, regs, spills in entries:
+            log(f"ptxas {name}: {kernel}: {regs} registers at entry, "
+                f"{spills} bytes of spills [{CARD}]")
     for name in build.SOURCES:
         sass = build.sass(name)
         hgmma = len(re.findall(r"\bHGMMA\b", sass))
@@ -1108,9 +1257,16 @@ def main() -> int:
                                  "max_rel_err", "tolerance",
                                  "control_row_rel_err",
                                  "kernel_check_row_rel_err",
-                                 "map_encode_us", "tiles_ms", "shape",
+                                 "map_encode_us", "tiles_ms", "grid",
+                                 "turns_ms", "library_turns_ms", "eager_ms",
+                                 "library_eager_ms", "host_us", "timing",
+                                 "passes_ms", "chunks_ms", "bound_3xtf32_ms",
+                                 "bound_per_head_scores_ms",
+                                 "shape",
                                  "shapes", "library_call", "launched_by")
                if k in r},
+            "ptxas": [[kernel, regs, spills] for kernel, regs, spills
+                      in ptxas.get(Path(r["source"]).stem, [])],
             "card": CARD})
     log(json.dumps({"serve": {"paged": paged, "dense": dense,
                               "ssm": ssm_serve,

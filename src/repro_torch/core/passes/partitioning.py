@@ -23,8 +23,8 @@ from repro_torch.core.ir import OpKind
 from repro_torch.core.plan import BlockPlan
 from repro_torch.core.passes import Pass, PassContext
 
-#: targets whose flash_attention and tiled_matmul run the hand-written
-#: CUDA kernels
+#: targets whose kernels (flash_attention, decode_attention, ssd_scan,
+#: tiled_matmul) are the hand-written CUDA ones
 CUDA_TARGETS = ("h100-sxm",)
 
 
@@ -161,6 +161,9 @@ class LocalPartitioningPass(Pass):
                     "built for")
 
     def _decode(self, ctx: PassContext, budget: int) -> None:
+        if ctx.target.name in CUDA_TARGETS:
+            self._decode_cuda(ctx, budget)
+            return
         arch = ctx.arch
         hd = arch.hd
         # decode reads the whole cache once: wide kv tiles amortize the
@@ -182,7 +185,60 @@ class LocalPartitioningPass(Pass):
         self.record(ctx, "decode_attention", f"block_kv={block_kv}",
                     "stream the session cache through VMEM in 2 banks")
 
+    def _decode_cuda(self, ctx: PassContext, budget: int) -> None:
+        """On a CUDA card ``block_kv`` is the split-KV kernel's tile: each
+        CTA's split of the cache is a whole number of tiles.  The widest
+        tile whose splits still give the grid :data:`SPLIT_CTAS` CTAs at
+        the plan's batch, kv heads and cache length, else the narrowest.
+        The shared memory charged is the kernel's: the warps' cp.async K/V
+        rings, which do not depend on the tile.  An arch the kernel is not
+        built for (another head_dim, or a GQA group that is not a power of
+        two up to 8) gets no tile and a logged reason."""
+        from repro_torch.kernels import decode_attention as dec
+
+        arch, est = ctx.arch, ctx.plan.estimates
+        K = int(est.get("kv_heads_padded", arch.n_kv_heads))
+        G = int(est.get("heads_padded", arch.n_heads)) // K
+        smem = dec.smem_bytes(G, dec.DEFAULT_BLOCK_KV)
+        if arch.hd != dec.HEAD_DIM or G > dec.MAX_GROUP or G & (G - 1) \
+                or smem > budget:
+            self.record(ctx, "decode_attention", "no kernel tile",
+                        f"the CUDA kernel is built for head_dim "
+                        f"{dec.HEAD_DIM} and a power-of-two GQA group <= "
+                        f"{dec.MAX_GROUP}; this arch has head_dim {arch.hd} "
+                        f"and G={G}")
+            return
+        B, cap = ctx.shape.global_batch, ctx.shape.seq_len
+
+        def ctas(tile):
+            return B * K * dec.decode_split(B, K, cap, tile)[0]
+
+        full = [t for t in dec.KERNEL_TILES if ctas(t) >= dec.SPLIT_CTAS]
+        block_kv = max(full) if full else min(dec.KERNEL_TILES)
+        splits, rows = dec.decode_split(B, K, cap, block_kv)
+        bp = BlockPlan(
+            kernel="decode_attention",
+            blocks={"block_kv": block_kv, "head_dim": arch.hd},
+            n_buffers=dec.STAGES,
+            vmem_bytes=smem,
+            grid_note=(f"grid=(batch x kv_heads) x {splits} splits of "
+                       f"{rows} rows = {ctas(block_kv)} CTAs at batch {B}; "
+                       f"each warp a {dec.STAGES}-stage cp.async K/V ring; "
+                       "the last split to finish merges in the same launch"),
+        )
+        ctx.plan.partitions[bp.kernel] = bp
+        ctx.template["cache.kv"].refine(self.name, block_kv=block_kv)
+        self.record(ctx, "decode_attention", f"block_kv={block_kv}",
+                    f"{splits} splits of {rows} rows give {ctas(block_kv)} "
+                    f"CTAs (>= {dec.SPLIT_CTAS} where the cache allows); "
+                    f"{dec.STAGES}-stage cp.async K/V rings, {smem} B of "
+                    f"shared memory <= budget {budget} B; a tile the CUDA "
+                    "kernel is built for")
+
     def _ssd(self, ctx: PassContext, budget: int) -> None:
+        if ctx.target.name in CUDA_TARGETS:
+            self._ssd_cuda(ctx, budget)
+            return
         arch = ctx.arch
         chunk = 256
         hd, st = arch.ssm_head_dim, arch.ssm_state
@@ -206,6 +262,43 @@ class LocalPartitioningPass(Pass):
         self.record(ctx, "ssd_scan", f"chunk={chunk} heads_block={heads_block}",
                     "SSD duality: intra-chunk matmul (MXU) + inter-chunk "
                     "recurrence (VPU) with state resident in VMEM")
+
+    def _ssd_cuda(self, ctx: PassContext, budget: int) -> None:
+        """On a CUDA card the chunk is one the three-pass kernel is built
+        for: the largest whose chunk-scan pass (C, two cp.async B/x
+        stages, the score tile) fits the budget.  ``heads_block`` stays 1:
+        the kernel validates it but its grid gives every (batch, head,
+        chunk) its own CTAs.  Widths the kernel is not built for get no
+        tile and a logged reason."""
+        from repro_torch.kernels import ssd_scan as ssd
+
+        arch = ctx.arch
+        P, N = arch.ssm_head_dim, arch.ssm_state
+        smem = ssd.smem_bytes(P, N)
+        if (P, N) not in ssd.KERNEL_WIDTHS or smem > budget:
+            self.record(ctx, "ssd_scan", "no kernel tile",
+                        f"the CUDA kernel is built for (head_dim, state) in "
+                        f"{ssd.KERNEL_WIDTHS}; this arch has ({P}, {N})")
+            return
+        chunk = max(ssd.KERNEL_CHUNKS)
+        bp = BlockPlan(
+            kernel="ssd_scan",
+            blocks={"chunk": chunk, "heads_block": 1, "head_dim": P,
+                    "state": N},
+            n_buffers=2,
+            vmem_bytes=smem,
+            grid_note=(f"three launches: chunk states (batch x heads x "
+                       f"chunks CTAs), state passing over the chunks, chunk "
+                       f"scan (x {chunk // 64} query tiles); B/x tiles on two "
+                       "cp.async stages; fp32 states in a workspace"),
+        )
+        ctx.plan.partitions[bp.kernel] = bp
+        ctx.template["plm.scan"].refine(self.name, **bp.blocks)
+        self.record(ctx, "ssd_scan", f"chunk={chunk} heads_block=1",
+                    f"chunk-parallel SSD: each (batch, head, chunk) on its "
+                    f"own CTAs, the carried state passed by a second launch; "
+                    f"{smem} B of shared memory <= budget {budget} B; "
+                    "heads_block is validated but unused by the CUDA grid")
 
     def _matmul(self, ctx: PassContext, budget: int) -> None:
         if ctx.target.name in CUDA_TARGETS:

@@ -123,19 +123,22 @@ def sass(name: str) -> str:
 
 
 def _demangle(mangled: str) -> str:
-    """``ns::kernel<1, 2>`` from an Itanium-mangled kernel name with
-    integer template arguments (enough for the port's kernels)."""
+    """``ns::kernel<1, 2, true>`` from an Itanium-mangled kernel name with
+    integer and bool template arguments (enough for the port's
+    kernels)."""
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
     names = []
     while rest[:1].isdigit():
         n = re.match(r"\d+", rest).group(0)
         names.append(rest[len(n):len(n) + int(n)])
         rest = rest[len(n) + int(n):]
-    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    args = re.match(r"I((?:L[ib]-?\d+E)+)E", rest)
     name = names[-1] if names else mangled
     if args is None:
         return name
-    return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+    vals = [v if t == "i" else ("false", "true")[int(v)]
+            for t, v in re.findall(r"L([ib])(-?\d+)E", args.group(1))]
+    return f"{name}<{', '.join(vals)}>"
 
 
 def ptxas_entries(log: str) -> List[Tuple[str, int, int]]:
@@ -169,20 +172,20 @@ _SIGNATURES = {
                                           _I, _I, _I],
     },
     "decode_attention": {
-        # q, k_pool, v_pool, tbl, cache_len, out, B, H, K, D, bl, nb,
-        # window, tile, scale, stream
-        "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _F, _P],
-        # q, k, v, cache_len, out, B, S, H, K, D, window, tile, scale,
-        # stream
-        "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _F, _P],
+        # q, k_pool, v_pool, tbl, cache_len, out, ws, counters, B, H, K,
+        # D, bl, nb, window, splits, split_rows, scale, drop_split, stream
+        "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        # q, k, v, cache_len, out, ws, counters, B, S, H, K, D, window,
+        # splits, split_rows, scale, drop_split, stream
+        "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _F, _I, _P],
     },
     "ssd_scan": {
-        # x, dt, A, Bm, Cm, init, y, fin, B, S, H, P, G, N, chunk,
-        # heads_block, stream
-        "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _P],
+        # x, dt, A, Bm, Cm, init, y, fin, ws, B, S, H, P, G, N, chunk,
+        # heads_block, no_carry, stream
+        "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _P],
     },
     "tiled_matmul": {
         # a, b, out, M, K, N, bm, bk, bn, fp32, stream

@@ -44,4 +44,25 @@ __device__ __forceinline__ float rescale(float m_old, float m_new) {
   return m_old == -INFINITY ? 0.f : __expf(m_old - m_new);
 }
 
+// 16-byte asynchronous copy global -> shared.  With pred false the source
+// size is 0: nothing is read (src is never dereferenced) and the 16 bytes
+// of dst are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 }  // namespace repro

@@ -10,23 +10,41 @@
 // What bounds it on the H100: bytes.  A decode step reads every live K/V row
 // once and does 2*G multiply-adds per element read (G = H/K query heads per
 // kv head, 4 for qwen3-8b), far below the ~295 FLOP/byte the card needs
-// before its arithmetic is the limit.  So the design reads each live row
-// exactly once and keeps everything else on chip:
-//   * one CTA per (slot, kv head); the G query heads of that kv head share
-//     every K/V row the CTA stages into shared memory (16-byte loads,
-//     neighbouring threads on neighbouring addresses, rows padded by 16
-//     bytes so the per-row dot products are free of bank conflicts);
-//   * the CTA reads its own block-table row (no scalar prefetch on a GPU)
-//     and walks only the ceil(cache_len / tile) live tiles, starting at the
-//     first tile inside a sliding window; rows past cache_len are never
-//     loaded, and a -1 table entry is never dereferenced: its rows read as
-//     zeros, exactly what the oracle paged_gather_ref gives;
-//   * online softmax in fp32 (running max m, sum l, accumulator in
-//     registers), bf16 output.
-// A freed slot (token 0, pos 0, table row -1) therefore attends one zero row
-// and writes zeros; the engine discards that output.
-// Not done yet (later work): split-K across CTAs for long caches with few
-// slots, cp.async/TMA double buffering.
+// before its arithmetic is the limit.  So the design keeps as many of the
+// live bytes in flight on as many SMs as it can, and reads each once:
+//   * split-KV: the grid is (slot x kv head) x splits.  Split s owns the
+//     cache rows [s * split_rows, (s + 1) * split_rows); the host picks
+//     splits and split_rows from B, K and the cache's capacity alone
+//     (kernels/decode_attention.py decode_split), never from cache_len,
+//     which lives on the device.  A split wholly past the slot's length or
+//     before its window start writes an empty partial (m = -inf, l = 0).
+//   * inside a CTA each of the 4 warps owns kRows = 16 consecutive rows of
+//     every 64-row step and runs its own online softmax over them.  A lane
+//     pair computes one row's G scores (each lane half the row's 16-byte
+//     chunks against q, scaled, in shared memory; one shuffle joins the
+//     halves), so a score costs no warp-wide reduction; then each lane
+//     accumulates P.V for D / 32 head dims of all G query heads.  Each
+//     warp fills its own ring of kStages shared-memory stages with
+//     cp.async (16 bytes a lane; each row's table entry is read by one
+//     lane and shared by shuffle; rows past the split and -1 table
+//     entries are zero-filled with a source size of 0 and never
+//     dereferenced, so a -1 block reads as zero rows, as the oracle
+//     paged_gather_ref does).  K rows sit at a 16-byte padded pitch, so a
+//     quarter warp's chunk reads hit distinct banks.  The ring is
+//     warp-private: no CTA barrier in the row loop, only __syncwarp.
+//   * the warps' partials merge in shared memory, and the split's fp32
+//     partial (m, l, acc[G][D]) goes to a workspace.  The last CTA of a
+//     (slot, kv head) to finish -- it learns that from an atomicAdd on a
+//     per-(slot, kv head) counter after a __threadfence -- merges the
+//     splits in split order (deterministic: the same bits whichever CTA is
+//     last), writes the bf16 output and sets the counter back to 0.  So a
+//     decode layer stays one launch, with no memset and no combine kernel.
+//     The merge's weights are reduced by warps striding over the splits
+//     and its loads are issued four at a time: a chain of dependent L2
+//     loads there cost more than the whole row loop.  Empty partials
+//     merge as absent; a slot with no live row outputs 0.
+// fp32 softmax statistics and accumulation; the math stays on the CUDA
+// cores (bytes bound it).  D is a template parameter, built at 128.
 
 #include "common.cuh"
 
@@ -34,197 +52,347 @@ using repro::bf16;
 
 namespace {
 
-constexpr int kD = 128;         // head_dim the kernel is built for
-constexpr int kThreads = 256;
-constexpr int kPitch = kD + 8;  // bf16 row pitch in shared memory (272 B)
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 16;       // rows a warp stages per step: a lane pair each
+// depth of each warp's cp.async ring: two stages at three CTAs an SM
+// (70,656 bytes each at G = 4) ran faster on an H100 than three stages
+// at two CTAs an SM
+constexpr int kStages = 2;
 
-template <int G, int TILE>
-constexpr size_t smem_bytes() {
-  return size_t(2) * TILE * kPitch * sizeof(bf16)    // K, V tiles
-         + size_t(G) * kD * sizeof(float)            // scaled q
-         + size_t(G) * TILE * sizeof(float)          // scores / probabilities
-         + size_t(3) * G * sizeof(float);            // m, l, alpha
+template <int G, int D>
+struct Smem {
+  static constexpr int kKP = D + 8;    // K row pitch: 16 bytes of padding
+  static constexpr int kStageElems = kRows * (kKP + D);   // K rows, V rows
+  static constexpr size_t kRing =
+      size_t(kWarps) * kStages * kStageElems * sizeof(bf16);
+  // the warps' partials, merged after the row loop (reuses the ring)
+  static constexpr size_t kMerge = size_t(kWarps) * G * (D + 2) * sizeof(float);
+  static constexpr size_t kMain = kRing > kMerge ? kRing : kMerge;
+  static constexpr size_t kBytes =
+      kMain + size_t(G) * D * sizeof(float)             // scaled q
+      + size_t(kWarps) * kRows * G * sizeof(float);     // each warp's p
+};
+
+// E bf16 values (E even, 4-byte aligned) to fp32.
+template <int E>
+__device__ __forceinline__ void load_row(const bf16* p, float (&f)[E]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
+#pragma unroll
+  for (int i = 0; i < E / 2; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
 }
 
 // PAGED: k/v are (N, bl, K, D) pools and tbl (B, nb) maps the slot's
-// dense-view position j to block tbl[b, j / bl], row j % bl.
+// dense-view position j to block tbl[b, j / bl], row j % bl (seq = bl).
 // Dense: k/v are (B, S, K, D); seq is S.
-template <int G, int TILE, bool PAGED>
+// ws: (B * K, splits, G, 2) floats (m, l), then (B * K, splits, G, D)
+// (acc).  counters: (B * K) ints, 0 between launches.  drop_split >= 0 is a
+// planted fault for the checks: that split is left out of the merge.
+template <int G, int D, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const int* __restrict__ tbl,
               const int* __restrict__ cache_len, bf16* __restrict__ out,
-              int seq, int nb, int K, int window, float scale) {
-  constexpr int kOut = (G * kD + kThreads - 1) / kThreads;
+              float* __restrict__ ws, int* __restrict__ counters, int seq,
+              int nb, int K, int window, int split_rows, float scale,
+              int drop_split) {
+  constexpr int C = D / 8;      // 16-byte chunks per row
+  constexpr int CH = C / 2;     // chunks of K each lane of a pair reads
+  constexpr int E = D / 32;     // head dims per lane in P.V
+  constexpr int kStep = kWarps * kRows;
+  static_assert(kRows * 2 == 32 && CH % 2 == 0, "a lane pair per row");
+  using L = Smem<G, D>;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + TILE * kPitch;
-  float* qs = reinterpret_cast<float*>(vs + TILE * kPitch);
-  float* ps = qs + G * kD;
-  float* ms = ps + G * TILE;
-  float* ls = ms + G;
-  float* as = ls + G;
+  __shared__ int is_last;
+  float* qs = reinterpret_cast<float*>(smem + L::kMain);   // (G, D)
+  float* ps_all = qs + G * D;                              // (warp, row, G)
 
-  const int b = blockIdx.x / K;
-  const int kvh = blockIdx.x % K;
-  const int tid = threadIdx.x;
+  const int bk = blockIdx.x;                 // slot * K + kv head
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int b = bk / K, kvh = bk % K;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int H = K * G;
-  const size_t row_stride = size_t(K) * kD;
+  const size_t row_stride = size_t(K) * D;
 
-  int len = cache_len[b];
-  len = min(len, PAGED ? nb * seq : seq);
+  const int len = min(cache_len[b], PAGED ? nb * seq : seq);
   const int lo = window > 0 ? max(0, len - window) : 0;
+  const int r0 = max(split * split_rows, lo);
+  const int r1 = min((split + 1) * split_rows, len);
 
-  for (int i = tid; i < G * kD; i += kThreads)
-    qs[i] = __bfloat162float(q[(size_t(b) * H + kvh * G) * kD + i]) * scale;
-  if (tid < G) {
-    ms[tid] = -INFINITY;
-    ls[tid] = 0.f;
-  }
-  float acc[kOut];
+  float* ws_ml = ws;
+  float* ws_acc = ws + size_t(gridDim.x) * splits * G * 2;
+  const size_t part = size_t(bk) * splits + split;
+
+  if (r0 < r1) {
+    for (int i = tid; i < G * D; i += kThreads)
+      qs[i] = __bfloat162float(q[(size_t(b) * H + kvh * G) * D + i]) * scale;
+    float m[G], l[G], acc[G][E];
 #pragma unroll
-  for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
-  __syncthreads();
+    for (int g = 0; g < G; ++g) {
+      m[g] = -INFINITY;
+      l[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+    }
+    bf16* ring = reinterpret_cast<bf16*>(smem) +
+                 size_t(warp) * kStages * L::kStageElems;
+    float* ps = ps_all + warp * kRows * G;
+    const int n_it = (r1 - r0 + kStep - 1) / kStep;
 
-  const int t_end = (len + TILE - 1) / TILE;
-  for (int t = lo / TILE; t < t_end; ++t) {
-    // ---- stage the tile's live K/V rows (16 bytes per thread per step)
-#pragma unroll 4
-    for (int idx = tid; idx < TILE * (kD / 8); idx += kThreads) {
-      const int r = idx / (kD / 8), c = idx % (kD / 8);
-      const int j = t * TILE + r;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (j < len) {
+    // stage step `it` of this warp's rows into ring slot it % kStages:
+    // lane r < kRows resolves row r's offset (its table entry) once and
+    // the warp shares it; K rows land at a padded pitch.  Always commits
+    // a group, so the wait count below stays exact.
+    auto issue = [&](int it) {
+      if (it < n_it) {
+        bf16* st = ring + (it % kStages) * L::kStageElems;
+        const int j = r0 + it * kStep + warp * kRows + lane % kRows;
+        int live = j < r1;
         size_t off = 0;
-        bool live = true;
-        if (PAGED) {
-          const int blk = tbl[size_t(b) * nb + j / seq];
-          live = blk >= 0;
-          off = (size_t(blk) * seq + j % seq) * row_stride;
-        } else {
-          off = (size_t(b) * seq + j) * row_stride;
-        }
         if (live) {
-          off += size_t(kvh) * kD + c * 8;
-          kv = *reinterpret_cast<const uint4*>(k + off);
-          vv = *reinterpret_cast<const uint4*>(v + off);
+          if (PAGED) {
+            const int blk = tbl[size_t(b) * nb + j / seq];
+            live = blk >= 0;
+            off = (size_t(live ? blk : 0) * seq + j % seq) * row_stride;
+          } else {
+            off = (size_t(b) * seq + j) * row_stride;
+          }
+          off += size_t(kvh) * D;
+        }
+#pragma unroll 4
+        for (int idx = lane; idx < kRows * 2 * C; idx += 32) {
+          const int r = idx / (2 * C), t = (idx / C) % 2, c = idx % C;
+          const size_t o = __shfl_sync(0xffffffffu, off, r);
+          const int ok = __shfl_sync(0xffffffffu, live, r);
+          bf16* dst = t ? st + kRows * L::kKP + r * D + c * 8
+                        : st + r * L::kKP + c * 8;
+          repro::cp_async16(dst, (t ? v : k) + o + c * 8, ok != 0);
         }
       }
-      *reinterpret_cast<uint4*>(ks + r * kPitch + c * 8) = kv;
-      *reinterpret_cast<uint4*>(vs + r * kPitch + c * 8) = vv;
-    }
-    __syncthreads();
+      repro::cp_async_commit();
+    };
 
-    // ---- scores: one (head, row) pair per thread step
-    for (int idx = tid; idx < G * TILE; idx += kThreads) {
-      const int g = idx / TILE, r = idx % TILE;
-      const int j = t * TILE + r;
-      float s = -INFINITY;
-      if (j < len && j >= lo) {
-        const uint4* kr = reinterpret_cast<const uint4*>(ks + r * kPitch);
-        const float* qg = qs + g * kD;
-        float dot = 0.f;
 #pragma unroll
-        for (int c = 0; c < kD / 8; ++c) {
-          float f[8];
-          repro::bf16x8_to_float(kr[c], f);
+    for (int s = 0; s < kStages - 1; ++s) issue(s);
+    __syncthreads();             // qs written
+    const int pr = lane / 2, half = lane % 2;
+    for (int it = 0; it < n_it; ++it) {
+      issue(it + kStages - 1);
+      repro::cp_async_wait<kStages - 1>();
+      __syncwarp();
+      const bf16* st = ring + (it % kStages) * L::kStageElems;
+
+      // scores: the lane pair of row pr splits its chunks; the halves walk
+      // them in orders a quarter row apart, so that a quarter warp's
+      // 16-byte reads hit eight distinct bank groups
+      const bf16* kr = st + pr * L::kKP;
+      float s[G];
 #pragma unroll
-          for (int e = 0; e < 8; ++e) dot = fmaf(qg[c * 8 + e], f[e], dot);
+      for (int g = 0; g < G; ++g) s[g] = 0.f;
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        const int c = half * CH + (i + half * (CH / 2)) % CH;
+        float kf[8];
+        repro::bf16x8_to_float(*reinterpret_cast<const uint4*>(kr + c * 8),
+                               kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float4 qa = *reinterpret_cast<const float4*>(qs + g * D + c * 8);
+          const float4 qb =
+              *reinterpret_cast<const float4*>(qs + g * D + c * 8 + 4);
+          float d = s[g];
+          d = fmaf(qa.x, kf[0], d);
+          d = fmaf(qa.y, kf[1], d);
+          d = fmaf(qa.z, kf[2], d);
+          d = fmaf(qa.w, kf[3], d);
+          d = fmaf(qb.x, kf[4], d);
+          d = fmaf(qb.y, kf[5], d);
+          d = fmaf(qb.z, kf[6], d);
+          s[g] = fmaf(qb.w, kf[7], d);
         }
-        s = dot;
       }
-      ps[g * TILE + r] = s;
-    }
-    __syncthreads();
+      const bool ok = r0 + it * kStep + warp * kRows + pr < r1;
 
-    // ---- online softmax statistics: one warp per query head
-    const int warp = tid / 32, lane = tid % 32;
-    for (int g = warp; g < G; g += kThreads / 32) {
-      float mx = -INFINITY;
-      for (int r = lane; r < TILE; r += 32) mx = fmaxf(mx, ps[g * TILE + r]);
-      mx = repro::warp_max(mx);
-      const float m_old = ms[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int r = lane; r < TILE; r += 32) {
-        const float p = repro::masked_exp(ps[g * TILE + r], m_new);
-        ps[g * TILE + r] = p;
-        sum += p;
+      // online softmax over the step's rows (each row is in two lanes)
+      float a[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float sg = s[g] + __shfl_xor_sync(0xffffffffu, s[g], 1);
+        sg = ok ? sg : -INFINITY;
+        const float mx = fmaxf(m[g], repro::warp_max(sg));
+        a[g] = repro::rescale(m[g], mx);
+        const float p = repro::masked_exp(sg, mx);
+        l[g] = l[g] * a[g] + repro::warp_sum(half ? 0.f : p);
+        m[g] = mx;
+        if (half == 0) ps[pr * G + g] = p;
       }
-      sum = repro::warp_sum(sum);
+      __syncwarp();
+
+      // P.V: each lane owns E head dims of every query head
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] *= a[g];
+      const bf16* vr = st + kRows * L::kKP + lane * E;
+#pragma unroll 4
+      for (int r = 0; r < kRows; ++r) {
+        float vf[E];
+        load_row<E>(vr + r * D, vf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float p = ps[r * G + g];
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        }
+      }
+      __syncwarp();              // every lane is done with this slot and ps
+    }
+    repro::cp_async_wait<0>();
+    __syncthreads();             // every warp is done with the ring
+
+    // ---- merge the warps' partials into the split's, in warp order
+    float* sacc = reinterpret_cast<float*>(smem);     // (warp, G, D)
+    float* sml = sacc + kWarps * G * D;                // (warp, G, 2)
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        sacc[(warp * G + g) * D + lane * E + e] = acc[g][e];
       if (lane == 0) {
-        const float a = repro::rescale(m_old, m_new);
-        as[g] = a;
-        ls[g] = ls[g] * a + sum;
-        ms[g] = m_new;
+        sml[(warp * G + g) * 2] = m[g];
+        sml[(warp * G + g) * 2 + 1] = l[g];
       }
     }
     __syncthreads();
-
-    // ---- accumulate P V: each thread owns kOut (head, dim) outputs
+    for (int o = tid; o < G * D; o += kThreads) {
+      const int g = o / D, d = o % D;
+      float mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < kOut; ++i) {
-      const int o = tid + i * kThreads;
-      if (o < G * kD) {
-        const int g = o / kD, d = o % kD;
-        const float* pg = ps + g * TILE;
-        float a = acc[i] * as[g];
-#pragma unroll 8
-        for (int r = 0; r < TILE; ++r)
-          a = fmaf(pg[r], __bfloat162float(vs[r * kPitch + d]), a);
-        acc[i] = a;
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sml[(w * G + g) * 2]);
+      float a = 0.f, lsum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float mw = sml[(w * G + g) * 2];
+        if (mw != -INFINITY) {
+          const float f = __expf(mw - mx);
+          a = fmaf(f, sacc[(w * G + g) * D + d], a);
+          lsum = fmaf(f, sml[(w * G + g) * 2 + 1], lsum);
+        }
+      }
+      ws_acc[(part * G + g) * D + d] = a;
+      if (d == 0) {
+        ws_ml[(part * G + g) * 2] = mx;
+        ws_ml[(part * G + g) * 2 + 1] = lsum;
       }
     }
-    __syncthreads();
+  } else if (tid < G) {          // an empty split: merges as absent
+    ws_ml[(part * G + tid) * 2] = -INFINITY;
+    ws_ml[(part * G + tid) * 2 + 1] = 0.f;
   }
 
-#pragma unroll
-  for (int i = 0; i < kOut; ++i) {
-    const int o = tid + i * kThreads;
-    if (o < G * kD) {
-      const int g = o / kD, d = o % kD;
-      const float l = ls[g];
-      out[(size_t(b) * H + kvh * G + g) * kD + d] =
-          __float2bfloat16(l > 0.f ? acc[i] / l : 0.f);
+  // ---- the last split of this (slot, kv head) to finish merges them all
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(counters + bk, 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // weights exp(m_s - m) of the splits in shared memory (free again):
+  // warp w reduces heads w, w + kWarps, ..., its lanes striding over the
+  // splits, so no thread walks a chain of dependent loads
+  const size_t first = size_t(bk) * splits;
+  float* fw = reinterpret_cast<float*>(smem);         // (splits, G)
+  float* linv = fw + splits * G;                       // (G)
+  for (int g = warp; g < G; g += kWarps) {
+    float mx = -INFINITY;
+    for (int s = lane; s < splits; s += 32)
+      if (s != drop_split)
+        mx = fmaxf(mx, __ldcg(ws_ml + ((first + s) * G + g) * 2));
+    mx = repro::warp_max(mx);
+    float lsum = 0.f;
+    for (int s = lane; s < splits; s += 32) {
+      const float ms = __ldcg(ws_ml + ((first + s) * G + g) * 2);
+      const float f =
+          s == drop_split || ms == -INFINITY ? 0.f : __expf(ms - mx);
+      fw[s * G + g] = f;
+      if (f != 0.f)
+        lsum = fmaf(f, __ldcg(ws_ml + ((first + s) * G + g) * 2 + 1), lsum);
     }
+    lsum = repro::warp_sum(lsum);
+    if (lane == 0) linv[g] = lsum > 0.f ? 1.f / lsum : 0.f;
   }
+  __syncthreads();
+  // each output sums its splits in split order; four loads in flight
+  for (int o = tid; o < G * D; o += kThreads) {
+    const int g = o / D, d = o % D;
+    const float* src = ws_acc + (first * G + g) * D + d;
+    float a = 0.f;
+    int s = 0;
+    for (; s + 4 <= splits; s += 4) {
+      float t[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) t[u] = __ldcg(src + size_t(s + u) * G * D);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float f = fw[(s + u) * G + g];
+        if (f != 0.f) a = fmaf(f, t[u], a);
+      }
+    }
+    for (; s < splits; ++s) {
+      const float f = fw[s * G + g];
+      if (f != 0.f) a = fmaf(f, __ldcg(src + size_t(s) * G * D), a);
+    }
+    out[(size_t(b) * H + kvh * G + g) * D + d] = __float2bfloat16(a * linv[g]);
+  }
+  if (tid == 0) counters[bk] = 0;
 }
 
-template <int G, int TILE, bool PAGED>
+template <int G, int D, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const int* tbl,
-           const int* cache_len, void* out, int B, int seq, int nb, int K,
-           int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<G, TILE>();
-  auto kern = decode_kernel<G, TILE, PAGED>;
+           const int* cache_len, void* out, void* ws, void* counters, int B,
+           int seq, int nb, int K, int window, int splits, int split_rows,
+           float scale, int drop_split, cudaStream_t stream) {
+  const size_t smem = Smem<G, D>::kBytes;
+  // the merge keeps one weight per (split, head) in shared memory
+  if ((size_t(splits) + 1) * G * sizeof(float) > Smem<G, D>::kMain)
+    return int(cudaErrorInvalidValue);
+  auto kern = decode_kernel<G, D, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  kern<<<B * K, kThreads, smem, stream>>>(
+  kern<<<dim3(B * K, splits), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), tbl, cache_len, static_cast<bf16*>(out),
-      seq, nb, K, window, scale);
+      static_cast<float*>(ws), static_cast<int*>(counters), seq, nb, K,
+      window, split_rows, scale, drop_split);
   return int(cudaGetLastError());
 }
 
 template <bool PAGED>
 int dispatch(const void* q, const void* k, const void* v, const int* tbl,
-             const int* cache_len, void* out, int B, int H, int K, int D,
-             int seq, int nb, int window, int tile, float scale,
+             const int* cache_len, void* out, void* ws, void* counters,
+             int B, int H, int K, int D, int seq, int nb, int window,
+             int splits, int split_rows, float scale, int drop_split,
              void* stream) {
-  if (D != kD || K <= 0 || H % K) return int(cudaErrorInvalidValue);
+  const long capacity = PAGED ? long(nb) * seq : long(seq);
+  if (B <= 0 || K <= 0 || H % K || splits <= 0 || splits > 65535 ||
+      split_rows <= 0 || long(splits) * split_rows < capacity)
+    return int(cudaErrorInvalidValue);
   const int G = H / K;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_DECODE_CASE(GG, TT)                                              \
-  if (G == GG && tile == TT)                                                   \
-    return launch<GG, TT, PAGED>(q, k, v, tbl, cache_len, out, B, seq, nb, K, \
-                                 window, scale, s);
-#define REPRO_DECODE_TILES(GG) \
-  REPRO_DECODE_CASE(GG, 64) REPRO_DECODE_CASE(GG, 128) REPRO_DECODE_CASE(GG, 256)
-  REPRO_DECODE_TILES(1)
-  REPRO_DECODE_TILES(2)
-  REPRO_DECODE_TILES(4)
-  REPRO_DECODE_TILES(8)
-#undef REPRO_DECODE_TILES
+#define REPRO_DECODE_CASE(GG, DD)                                           \
+  if (G == GG && D == DD)                                                   \
+    return launch<GG, DD, PAGED>(q, k, v, tbl, cache_len, out, ws, counters, \
+                                 B, seq, nb, K, window, splits, split_rows, \
+                                 scale, drop_split, s);
+  REPRO_DECODE_CASE(1, 128)
+  REPRO_DECODE_CASE(2, 128)
+  REPRO_DECODE_CASE(4, 128)
+  REPRO_DECODE_CASE(8, 128)
 #undef REPRO_DECODE_CASE
   return int(cudaErrorInvalidValue);
 }
@@ -234,27 +402,36 @@ int dispatch(const void* q, const void* k, const void* v, const int* tbl,
 extern "C" {
 
 // q (B, H, D); k_pool/v_pool (N, bl, K, D); tbl (B, nb) int32, -1 = none;
-// cache_len (B,) int32; out (B, H, D).  All bf16 unless stated.  tile is
-// the rows staged per step, any of the built tiles whatever bl is (each
-// staged row looks up its own block).  Returns a cudaError_t (0 = launched).
+// cache_len (B,) int32; out (B, H, D).  All bf16 unless stated.  ws: fp32
+// workspace of B * K * splits * G * (D + 2) floats; counters: B * K int32,
+// zero, left zero.  Split s covers rows [s * split_rows, (s + 1) *
+// split_rows) of each slot's dense view; splits * split_rows >= nb * bl.
+// drop_split: -1, or a planted fault (that split left out of the merge).
+// Returns a cudaError_t (0 = launched).
 int paged_decode_attention(const void* q, const void* k_pool,
                            const void* v_pool, const void* tbl,
-                           const void* cache_len, void* out, int B, int H,
-                           int K, int D, int bl, int nb, int window, int tile,
-                           float scale, void* stream) {
-  if (bl <= 0) return int(cudaErrorInvalidValue);
+                           const void* cache_len, void* out, void* ws,
+                           void* counters, int B, int H, int K, int D, int bl,
+                           int nb, int window, int splits, int split_rows,
+                           float scale, int drop_split, void* stream) {
+  if (bl <= 0 || nb <= 0) return int(cudaErrorInvalidValue);
   return dispatch<true>(q, k_pool, v_pool, static_cast<const int*>(tbl),
-                        static_cast<const int*>(cache_len), out, B, H, K, D,
-                        bl, nb, window, tile, scale, stream);
+                        static_cast<const int*>(cache_len), out, ws, counters,
+                        B, H, K, D, bl, nb, window, splits, split_rows, scale,
+                        drop_split, stream);
 }
 
-// q (B, H, D); k/v (B, S, K, D); cache_len (B,) int32; out (B, H, D).
+// q (B, H, D); k/v (B, S, K, D); cache_len (B,) int32; out (B, H, D); ws,
+// counters, splits, split_rows and drop_split as above, with S rows.
 int decode_attention(const void* q, const void* k, const void* v,
-                     const void* cache_len, void* out, int B, int S, int H,
-                     int K, int D, int window, int tile, float scale,
-                     void* stream) {
+                     const void* cache_len, void* out, void* ws,
+                     void* counters, int B, int S, int H, int K, int D,
+                     int window, int splits, int split_rows, float scale,
+                     int drop_split, void* stream) {
+  if (S <= 0) return int(cudaErrorInvalidValue);
   return dispatch<false>(q, k, v, nullptr, static_cast<const int*>(cache_len),
-                         out, B, H, K, D, S, 0, window, tile, scale, stream);
+                         out, ws, counters, B, H, K, D, S, 0, window, splits,
+                         split_rows, scale, drop_split, stream);
 }
 
 }  // extern "C"

@@ -17,39 +17,50 @@
 //
 // Supersets of the Pallas contract: any S (rows past S read as dt = 0,
 // x = 0, which is exactly the reference's zero padding, and write
-// nothing); B and C as (B, S, G, N), head h reading group h / (H / G), so
-// the G = 1 model never materialises an 80x copy of them; an optional
-// initial state in and the final state out, (B, H, P, N).
+// nothing, so the final state is the state after the last live row); B and
+// C as (B, S, G, N), head h reading group h / (H / G), so the G = 1 model
+// never materialises an 80x copy of them; an optional initial state in and
+// the final state out, (B, H, P, N).
 //
 // What bounds it on the H100: operations.  Per (head, chunk) the chunked
 // algorithm does Q(Q+1)(N + P) + 4QPN flops (the causal halves of C.B^T
 // and of scores.x, then the carried-state term and the state update)
 // against (2P + 1) Q * 4 bytes of its own x, dt and y (B and C are shared
 // by a group's heads): ~160 flops a byte at Q = 256, P = 64, N = 128, far
-// above the ~20 the card's fp32 CUDA-core rate needs.  So the
-// design keeps every operand of the products in shared memory and the
-// accumulators in registers:
-//   * one CTA per (batch, heads_block heads), looping over its heads and,
-//     inside, over the chunks; the (P, N) state (32 KB at full width) stays
-//     in shared memory for the whole sequence (the VMEM scratch's role);
-//   * a chunk's (Q, N) operands do not all fit shared memory at Q = 256
-//     (128 KB each), so rows are staged in 64-row sub-tiles: for each query
-//     tile, C is staged once, then every key tile <= it (B and x), the
-//     64x64 masked, decayed scores go to shared memory and are multiplied
-//     into the query tile's y accumulators (registers); the carried-state
-//     term follows.  The key tiles of the chunk's last live query tile are
-//     all of the chunk's live tiles, so the state update accumulates in
-//     registers during that tile's key loop and loads nothing again;
-//   * 256 threads as 16 x 16, each owning a 4 x 4 (or 4 x P/16) register
-//     block; a thread's rows are strided by 16 so that the 16-byte
-//     shared-memory reads of a quarter warp hit 32 distinct banks (rows are
-//     padded by 4 floats);
-//   * causal tiles above the diagonal are never computed, and query tiles
-//     wholly past S are skipped.
-// With B * H = 80 CTAs at batch 1, 52 of the 132 SMs idle; splitting P
-// across CTAs would recompute the scores (the largest term) per slice, so
-// that is left to a later PR, as are tensor cores (TF32 or bf16 wgmma
-// would need an argument about tolerance).
+// above the ~20 the card's fp32 CUDA-core rate needs.
+//
+// The design runs the chunks of one (batch, head) on different SMs, in the
+// three passes of the SSD formulation, each its own kernel on the stream:
+//   1. chunk state, grid B * H * nc: the chunk's cumsum and its local end
+//      state sum_k (x dt exp(cs[Q-1] - cs))^T B, to an fp32 workspace
+//      (B, nc, H, N, P) (transposed, so that pass 3 reads it as it reads
+//      x), and its total decay log cs[Q-1] to (B, H, nc).  The chunk's
+//      raw causal score tiles C.B^T depend on the group, not the head, so
+//      the group's heads share them out and each is computed once, in
+//      3xTF32 (below), to (B, G, nc, pairs, 64, 64);
+//   2. state passing, one thread per (batch, head, p, n), serial over the
+//      nc chunks only: overwrites each chunk's local state with the state
+//      carried into it, and writes the final state;
+//   3. chunk scan, grid B * H * nc * (Q / 64), one CTA per 64-row query
+//      tile (the tiles with the most key tiles launch first): this head's
+//      causal mask and decay applied to each raw score tile, the
+//      intra-chunk term scores.x, then the carried-in term C.state^T.
+//      Both products run on the tensor cores in 3xTF32: each operand
+//      split into a big and a small TF32 part, three mma.sync m16n8k8
+//      products summed in fp32 (small.small, ~2^-22 of a product,
+//      dropped).  Plain TF32 would keep about three digits against the
+//      1e-3 row tolerance; 3xTF32 keeps about fp32's.
+// Operand tiles are staged by cp.async, double-buffered (the next key
+// tile's B and x, or scores and x, or the carried state, load while this
+// one is used), with row pitches that make every fragment read
+// conflict-free (C, and B where it is read transposed, padded by 4
+// floats; x, the state, and B where it is read row-wise, by 8); passes 1
+// and 3 each fit two CTAs an SM.  Every product, pass 1's state sum
+// included, runs in 3xTF32 (below).  Causal tiles above the diagonal are
+// never computed, and query tiles wholly past S exit at once.
+// heads_block (the plan's heads per CTA on the TPU grid) is still taken
+// and validated, but the grid no longer uses it: every CTA owns one
+// (batch, head, chunk).
 
 #include "common.cuh"
 
@@ -61,270 +72,442 @@ constexpr int kMaxChunk = 256;
 
 template <int P, int N>
 struct Layout {
-  static constexpr int kNP = N + 4;     // row pitch of C, B and the state
-  static constexpr int kSP = kT + 4;    // row pitch of the score tile
-  static constexpr size_t kFloats = size_t(P) * kNP + 2 * size_t(kT) * kNP +
-                                    size_t(kT) * P + size_t(kT) * kSP +
-                                    2 * size_t(kMaxChunk);
-  static constexpr size_t kBytes = kFloats * sizeof(float);
+  static constexpr int kNP = N + 4;     // row pitch of C and B
+  static constexpr int kXP = P + 8;     // row pitch of x and the state
+  static constexpr int kSP = kT + 4;    // row pitch of a score tile (pass 3)
+  static constexpr int kNB = N + 8;     // row pitch of B in pass 1's sum
+  static constexpr int kKey = kT * kNB + kT * kXP;  // pass 1: one B + x stage
+  // pass 3: one stage holds a score tile and an x tile, or the state
+  static constexpr int kScanStage =
+      kT * kSP + kT * kXP > N * kXP ? kT * kSP + kT * kXP : N * kXP;
+  // pass 1: two B/x stages (then a C and a B tile for the scores), cum, dt
+  static constexpr size_t kStateBytes =
+      (2 * size_t(kKey) + 2 * kMaxChunk) * sizeof(float);
+  // pass 3: C, two stages, cum and dt
+  static constexpr size_t kScanBytes =
+      (size_t(kT) * kNP + 2 * size_t(kScanStage) + 2 * kMaxChunk) *
+      sizeof(float);
 };
 
-// Stage rows [0, valid) of a (kT, W) tile whose rows lie `stride` floats
-// apart in global memory into shared memory of row pitch `pitch`; rows at
-// or past `valid` read as zeros.  16-byte loads, W % 4 == 0.
-template <int W>
-__device__ __forceinline__ void stage(float* dst, int pitch,
-                                      const float* src, size_t stride,
-                                      int valid) {
+// The (query tile, key tile) pairs of a chunk's causal score tiles:
+// pair (qi, kj), kj <= qi, is number qi (qi + 1) / 2 + kj.
+__host__ __device__ __forceinline__ int n_pairs(int chunk) {
+  return (chunk / kT) * (chunk / kT + 1) / 2;
+}
+
+// Start copying rows [0, valid) of a (ROWS, W) tile whose rows lie
+// `stride` floats apart in global memory into shared memory of row pitch
+// `pitch`; rows at or past `valid` are zero-filled (never read).
+// W % 4 == 0.
+template <int W, int ROWS = kT>
+__device__ __forceinline__ void stage_async(float* dst, int pitch,
+                                            const float* src, size_t stride,
+                                            int valid) {
   constexpr int kV = W / 4;
-  for (int i = threadIdx.x; i < kT * kV; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * kV; i += kThreads) {
     const int r = i / kV, c = (i % kV) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid) v = *reinterpret_cast<const float4*>(src + r * stride + c);
-    *reinterpret_cast<float4*>(dst + r * pitch + c) = v;
+    const bool ok = r < valid;
+    repro::cp_async16(dst + r * pitch + c, ok ? src + r * stride + c : src,
+                      ok);
   }
 }
 
-__device__ __forceinline__ float dot4(const float4& a, const float4& b,
-                                      float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// ---------------------------------------------------------------------
+// 3xTF32 on the tensor cores: x = big + small, both TF32 (big keeps 11
+// bits of mantissa, small the next 11), and a.b ~ as.bb + ab.bs + ab.bb
+// (small.small, ~2^-22 of the product, dropped), summed in fp32 by
+// mma.sync m16n8k8.  Lane (g, t) = (lane / 4, lane % 4) holds A (16 x 8)
+// at (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8) at (t, g),
+// (t + 4, g); C (16 x 8) at (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1).
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
 }
 
-__device__ __forceinline__ float lane(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// One warp: acc[j] (16 rows x 8 columns, j < NT) += A . B over K (a
+// multiple of 8), in 3xTF32.  A is row-major (rows, K) at `a` (pitch ap,
+// the warp's first row), or with AT the (K, rows) transpose of that; B is
+// row-major (K, n) at `b` (pitch bp, the warp's first column), or with BT
+// the (n, K) transpose of that.
+template <int NT, bool BT, bool AT = false>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a,
+                                         int ap, const float* b, int bp,
+                                         int K) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  auto at = [&](int i, int k) { return AT ? a[k * ap + i] : a[i * ap + k]; };
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ab[4], as[4];
+    split_tf32(at(g, k0 + t), ab[0], as[0]);
+    split_tf32(at(g + 8, k0 + t), ab[1], as[1]);
+    split_tf32(at(g, k0 + t + 4), ab[2], as[2]);
+    split_tf32(at(g + 8, k0 + t + 4), ab[3], as[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float b0 = BT ? b[(8 * j + g) * bp + k0 + t]
+                          : b[(k0 + t) * bp + 8 * j + g];
+      const float b1 = BT ? b[(8 * j + g) * bp + k0 + t + 4]
+                          : b[(k0 + t + 4) * bp + 8 * j + g];
+      uint32_t bb[2], bs[2];
+      split_tf32(b0, bb[0], bs[0]);
+      split_tf32(b1, bb[1], bs[1]);
+      mma_tf32(acc[j], as, bb);
+      mma_tf32(acc[j], ab, bs);
+      mma_tf32(acc[j], ab, bb);
+    }
+  }
+}
+
+// dt of the chunk's rows and its inclusive cumsum of dt * a, by warp 0;
+// rows at or past `rows` read dt = 0, so cum stays at the last live row.
+__device__ __forceinline__ void chunk_cumsum(float* cum, float* dts,
+                                             const float* dtb, size_t dstride,
+                                             float a, int chunk, int rows) {
+  const int tid = threadIdx.x;
+  if (tid >= 32) return;
+  const int per = chunk / 32;
+  float v[kMaxChunk / 32];
+  float run = 0.f;
+#pragma unroll
+  for (int e = 0; e < kMaxChunk / 32; ++e) {
+    if (e < per) {
+      const int r = tid * per + e;
+      const float d = r < rows ? dtb[size_t(r) * dstride] : 0.f;
+      dts[r] = d;
+      run += d * a;
+      v[e] = run;
+    }
+  }
+  float tot = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, tot, o);
+    if (tid >= o) tot += t;
+  }
+  const float before = tot - run;
+#pragma unroll
+  for (int e = 0; e < kMaxChunk / 32; ++e)
+    if (e < per) cum[tid * per + e] = v[e] + before;
+}
+
+// Pass 1: the local end state of chunk c of (b, h), and its decay log.
 template <int P, int N>
 __global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
-                const float* __restrict__ Cm, const float* __restrict__ init,
-                float* __restrict__ y, float* __restrict__ fin, int S, int H,
-                int G, int chunk, int heads_block) {
+                const float* __restrict__ Cm, float* __restrict__ states,
+                float* __restrict__ cs_last, float* __restrict__ scores,
+                int S, int H, int G, int chunk, int nc) {
   using L = Layout<P, N>;
-  constexpr int NP = L::kNP, SP = L::kSP;
-  constexpr int PJ = P / 16;       // y columns (and state rows) per thread
-  constexpr int NJ = N / 16;       // state columns per thread
+  constexpr int NP = L::kNP, NB = L::kNB, XP = L::kXP;
   extern __shared__ __align__(16) float smem[];
-  float* st = smem;                // (P, NP) running state
-  float* cs = st + P * NP;         // (kT, NP) C rows of the query tile
-  float* bs = cs + kT * NP;        // (kT, NP) B rows of the key tile
-  float* xs = bs + kT * NP;        // (kT, P) x rows of the key tile
-  float* ss = xs + kT * P;         // (kT, SP) masked, decayed scores
-  float* cum = ss + kT * SP;       // (chunk) cumsum of dt * A
-  float* dts = cum + kMaxChunk;    // (chunk) dt
+  float* cum = smem + 2 * L::kKey;
+  float* dts = cum + kMaxChunk;
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int per = chunk / 32;      // cumsum entries per lane of warp 0
+  const int c = blockIdx.x % nc;
+  const int bh = blockIdx.x / nc;
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int tid = threadIdx.x;
+  const int c0 = c * chunk;
+  const int rows = min(chunk, S - c0);
+  const int ntiles = (rows + kT - 1) / kT;
   const size_t xrow = size_t(H) * P, brow = size_t(G) * N;
+  const float* xb = x + (size_t(b) * S + c0) * xrow + size_t(h) * P;
+  const float* bb = Bm + (size_t(b) * S + c0) * brow + size_t(g) * N;
 
-  for (int hb = 0; hb < heads_block; ++hb) {
-    const int bh = blockIdx.x * heads_block + hb;
-    const int b = bh / H, h = bh % H, g = h / (H / G);
-    const float a = A[h];
-    const float* xb = x + size_t(b) * S * xrow + size_t(h) * P;
-    float* yb = y + size_t(b) * S * xrow + size_t(h) * P;
-    const float* dtb = dt + size_t(b) * S * H + h;
-    const float* bb = Bm + size_t(b) * S * brow + size_t(g) * N;
-    const float* cb = Cm + size_t(b) * S * brow + size_t(g) * N;
+  auto issue = [&](int kj) {
+    float* bs = smem + (kj & 1) * L::kKey;
+    stage_async<N>(bs, NB, bb + size_t(kj) * kT * brow, brow,
+                   rows - kj * kT);
+    stage_async<P>(bs + kT * NB, XP, xb + size_t(kj) * kT * xrow, xrow,
+                   rows - kj * kT);
+    repro::cp_async_commit();
+  };
+  issue(0);
+  chunk_cumsum(cum, dts, dt + (size_t(b) * S + c0) * H + h, H, A[h], chunk,
+               rows);
+  __syncthreads();
+  const float cum_last = cum[chunk - 1];
+  // each row's weight dt exp(cs[Q-1] - cs), once for the chunk
+  for (int r = tid; r < chunk; r += kThreads)
+    dts[r] *= expf(cum_last - cum[r]);
+  __syncthreads();
 
-    __syncthreads();               // the previous head is done with st
-    for (int i = tid; i < P * N; i += kThreads)
-      st[(i / N) * NP + i % N] = init ? init[size_t(bh) * P * N + i] : 0.f;
+  // state (P, N) = (x w)^T B over the chunk's rows, in 3xTF32: warp w owns
+  // the 16 state rows of m-tile w % MT and NTW n-tiles of 8 columns
+  constexpr int MT = P / 16, NTT = N / 8, WPM = 8 / MT;
+  constexpr int NTW = NTT / WPM > 0 ? NTT / WPM : 1;
+  const int warp = tid / 32, lane = tid % 32;
+  const int lg = lane / 4, lt = lane % 4;
+  const int mt = warp % MT, nt0 = warp / MT * NTW;
+  float sacc[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
 
-    for (int c0 = 0; c0 < S; c0 += chunk) {
-      const int rows = min(chunk, S - c0);
-      const int ntiles = (rows + kT - 1) / kT;
-      __syncthreads();             // st written; cum/dts free
-      if (tid < 32) {              // dt and its inclusive cumsum, warp 0
-        float v[kMaxChunk / 32];
-        float run = 0.f;
-#pragma unroll
-        for (int e = 0; e < kMaxChunk / 32; ++e) {
-          if (e < per) {
-            const int r = tid * per + e;
-            const float d = r < rows ? dtb[size_t(c0 + r) * H] : 0.f;
-            dts[r] = d;
-            run += d * a;
-            v[e] = run;
-          }
-        }
-        float tot = run;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const float t = __shfl_up_sync(0xffffffffu, tot, o);
-          if (tid >= o) tot += t;
-        }
-        const float before = tot - run;
-#pragma unroll
-        for (int e = 0; e < kMaxChunk / 32; ++e)
-          if (e < per) cum[tid * per + e] = v[e] + before;
-      }
-      __syncthreads();
-      const float cum_last = cum[chunk - 1];
-
-      float sacc[PJ][NJ];          // state update (last live query tile)
-#pragma unroll
-      for (int i = 0; i < PJ; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) sacc[i][j] = 0.f;
-
-      for (int qi = 0; qi < ntiles; ++qi) {
-        const bool last = qi == ntiles - 1;
-        __syncthreads();           // cs free (previous tile's carried term)
-        stage<N>(cs, NP, cb + size_t(c0 + qi * kT) * brow, brow,
-                 rows - qi * kT);
-        float yacc[4][PJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) yacc[i][j] = 0.f;
-
-        for (int kj = 0; kj <= qi; ++kj) {
-          __syncthreads();         // bs, xs, ss free
-          const size_t r0 = size_t(c0 + kj * kT);
-          stage<N>(bs, NP, bb + r0 * brow, brow, rows - kj * kT);
-          stage<P>(xs, P, xb + r0 * xrow, xrow, rows - kj * kT);
-          __syncthreads();
-
-          // scores C.B^T of the 64 x 64 tile pair, 4 x 4 per thread
-          float sc[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-          for (int n = 0; n < N; n += 4) {
-            float4 cv[4], bv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              cv[i] = *reinterpret_cast<const float4*>(cs + (ty + 16 * i) * NP + n);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              bv[j] = *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * NP + n);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) sc[i][j] = dot4(cv[i], bv[j], sc[i][j]);
-          }
-          // causal mask, decay exp(cs[q] - cs[k]) (<= 0 exponent), dt[k]
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int q = qi * kT + ty + 16 * i;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int k = kj * kT + tx + 16 * j;
-              ss[(ty + 16 * i) * SP + tx + 16 * j] =
-                  k <= q ? sc[i][j] * expf(cum[q] - cum[k]) * dts[k] : 0.f;
-            }
-          }
-          __syncthreads();
-
-          // y += scores . x
-#pragma unroll 2
-          for (int k = 0; k < kT; k += 4) {
-            float4 sv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              sv[i] = *reinterpret_cast<const float4*>(ss + (ty + 16 * i) * SP + k);
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              float xv[PJ];
-#pragma unroll
-              for (int j = 0; j < PJ; ++j) xv[j] = xs[(k + kk) * P + tx + 16 * j];
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < PJ; ++j)
-                  yacc[i][j] = fmaf(lane(sv[i], kk), xv[j], yacc[i][j]);
-            }
-          }
-
-          if (last) {
-            // state += (x dt exp(cs[Q-1] - cs))^T B over this key tile
-#pragma unroll 4
-            for (int k = 0; k < kT; ++k) {
-              const int kr = kj * kT + k;
-              const float w = dts[kr] * expf(cum_last - cum[kr]);
-              float xv[PJ], bv[NJ];
-#pragma unroll
-              for (int i = 0; i < PJ; ++i) xv[i] = xs[k * P + ty + 16 * i] * w;
-#pragma unroll
-              for (int j = 0; j < NJ; ++j) bv[j] = bs[k * NP + tx + 16 * j];
-#pragma unroll
-              for (int i = 0; i < PJ; ++i)
-#pragma unroll
-                for (int j = 0; j < NJ; ++j)
-                  sacc[i][j] = fmaf(xv[i], bv[j], sacc[i][j]);
-            }
-          }
-        }
-
-        // carried-in state: y += exp(cs[q]) C[q] . state^T
-        float cst[4][PJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) cst[i][j] = 0.f;
-#pragma unroll 4
-        for (int n = 0; n < N; n += 4) {
-          float4 cv[4], sv[PJ];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            cv[i] = *reinterpret_cast<const float4*>(cs + (ty + 16 * i) * NP + n);
-#pragma unroll
-          for (int j = 0; j < PJ; ++j)
-            sv[j] = *reinterpret_cast<const float4*>(st + (tx + 16 * j) * NP + n);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < PJ; ++j) cst[i][j] = dot4(cv[i], sv[j], cst[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int q = qi * kT + ty + 16 * i;
-          if (q < rows) {
-            const float d = expf(cum[q]);
-#pragma unroll
-            for (int j = 0; j < PJ; ++j)
-              yb[size_t(c0 + q) * xrow + tx + 16 * j] =
-                  fmaf(d, cst[i][j], yacc[i][j]);
-          }
-        }
-      }
-
-      __syncthreads();             // every read of the old state is done
-      const float decay = expf(cum_last);
-#pragma unroll
-      for (int i = 0; i < PJ; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          float& s = st[(ty + 16 * i) * NP + tx + 16 * j];
-          s = fmaf(s, decay, sacc[i][j]);
-        }
+  for (int kj = 0; kj < ntiles; ++kj) {
+    if (kj + 1 < ntiles) {
+      issue(kj + 1);
+      repro::cp_async_wait<1>();
+    } else {
+      repro::cp_async_wait<0>();
     }
-
     __syncthreads();
-    for (int i = tid; i < P * N; i += kThreads)
-      fin[size_t(bh) * P * N + i] = st[(i / N) * NP + i % N];
+    const float* bs = smem + (kj & 1) * L::kKey;
+    float* xs = smem + (kj & 1) * L::kKey + kT * NB;
+    for (int i = tid; i < kT * P; i += kThreads)
+      xs[(i / P) * XP + i % P] *= dts[kj * kT + i / P];
+    __syncthreads();
+    if (nt0 < NTT)
+      warp_mma<NTW, false, true>(sacc, xs + mt * 16, XP, bs + nt0 * 8, NB,
+                                 kT);
+    __syncthreads();             // this stage is free for the next issue
   }
+
+  // the state is stored transposed, (N, P): the chunk scan reads it as it
+  // reads x
+  float* out = states + ((size_t(b) * nc + c) * H + h) * P * N;
+  if (nt0 < NTT) {
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        out[((nt0 + j) * 8 + 2 * lt + e % 2) * P + mt * 16 + lg +
+            8 * (e / 2)] = sacc[j][e];
+  }
+  if (tid == 0) cs_last[size_t(bh) * nc + c] = cum_last;
+
+  // The raw score tiles C.B^T of this chunk depend on its group only, not
+  // the head: the group's heads share them out, each CTA computing pairs
+  // r, r + H / G, ... (r its head's rank in the group), in 3xTF32.
+  const int heads = H / G;
+  const int m0 = 16 * (warp % 4), n0 = 32 * (warp / 4);
+  const float* cb = Cm + (size_t(b) * S + c0) * brow + size_t(g) * N;
+  float* sc_out = scores + ((size_t(b) * G + g) * nc + c) * n_pairs(chunk) *
+                               kT * kT;
+  for (int pi = h % heads; pi < n_pairs(chunk); pi += heads) {
+    int qi = 0;
+    while ((qi + 1) * (qi + 2) / 2 <= pi) ++qi;
+    const int kj = pi - qi * (qi + 1) / 2;
+    __syncthreads();             // the stages are free
+    stage_async<N>(smem, NP, cb + size_t(qi) * kT * brow, brow,
+                   rows - qi * kT);
+    stage_async<N>(smem + kT * NP, NP, bb + size_t(kj) * kT * brow, brow,
+                   rows - kj * kT);
+    repro::cp_async_commit();
+    repro::cp_async_wait<0>();
+    __syncthreads();
+    float sc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    warp_mma<4, true>(sc, smem + m0 * NP, NP, smem + (kT + n0) * NP, NP, N);
+    float* o = sc_out + size_t(pi) * kT * kT;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(o + (m0 + lg + 8 * hf) * kT + n0 + 8 * j +
+                                   2 * lt) =
+            make_float2(sc[j][2 * hf], sc[j][2 * hf + 1]);
+  }
+}
+
+// Pass 2: one thread per (b, h, n, p) element walks the chunks in order,
+// replacing each chunk's local state with the state carried into it.  The
+// workspace holds states as (N, P); init and fin are (P, N).  Loads run
+// kBatch chunks ahead of the dependent chain.  no_carry is a planted fault
+// for the checks: each chunk after the first starts from a zero state.
+constexpr int kBatch = 8;
+
+__global__ void __launch_bounds__(kThreads)
+ssd_state_pass(float* __restrict__ states, const float* __restrict__ cs_last,
+               const float* __restrict__ init, float* __restrict__ fin,
+               int Bt, int H, int P, int N, int nc, int no_carry) {
+  const size_t PN = size_t(P) * N;
+  const size_t e = size_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= size_t(Bt) * H * PN) return;
+  const size_t bh = e / PN, np = e % PN;
+  const size_t b = bh / H, h = bh % H;
+  const size_t pn = (np % P) * N + np / P;         // (p, n) in init / fin
+  float s = init ? init[bh * PN + pn] : 0.f;
+  for (int c0 = 0; c0 < nc; c0 += kBatch) {
+    float local[kBatch], decay[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (c0 + i < nc) {
+        local[i] = states[((b * nc + c0 + i) * H + h) * PN + np];
+        decay[i] = expf(cs_last[bh * nc + c0 + i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (c0 + i < nc) {
+        if (no_carry && c0 + i > 0) s = 0.f;
+        states[((b * nc + c0 + i) * H + h) * PN + np] = s;
+        s = fmaf(s, decay[i], local[i]);
+      }
+    }
+  }
+  fin[bh * PN + pn] = s;
+}
+
+// Pass 3: y of query tile qi of chunk c of (b, h), its products in
+// 3xTF32 on the tensor cores.  Each key tile's raw scores come from pass 1;
+// the CTA applies this head's causal mask and decay to them in shared
+// memory.  Warp w owns rows m0 = 16 (w % 4) of the tile and columns
+// P/2 (w / 4) of y.
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ A, const float* __restrict__ Cm,
+               const float* __restrict__ states,
+               const float* __restrict__ scores, float* __restrict__ y,
+               int S, int H, int G, int chunk, int nc) {
+  using L = Layout<P, N>;
+  constexpr int NP = L::kNP, XP = L::kXP, SP = L::kSP;
+  constexpr int YT = P / 16;       // y column tiles of 8 per warp
+  extern __shared__ __align__(16) float smem[];
+  float* cs = smem;                // (kT, NP) C rows of the query tile
+  float* stg = cs + kT * NP;       // two stages: scores (kT, SP) + x (kT,
+                                   // XP), or the carried state (N, XP)
+  float* cum = stg + 2 * L::kScanStage;   // (chunk) cumsum of dt * A
+  float* dts = cum + kMaxChunk;           // (chunk) dt
+
+  const int n_bhc = gridDim.x / (chunk / kT);
+  const int qi = chunk / kT - 1 - blockIdx.x / n_bhc;   // longest first
+  const int bhc = blockIdx.x % n_bhc;
+  const int c = bhc % nc, bh = bhc / nc;
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int c0 = c * chunk;
+  const int rows = min(chunk, S - c0);
+  if (qi * kT >= rows) return;     // a query tile wholly past S
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lg = lane / 4, lt = lane % 4;
+  const int m0 = 16 * (warp % 4), p0 = P / 2 * (warp / 4);
+  const size_t xrow = size_t(H) * P, brow = size_t(G) * N;
+  const float* xb = x + (size_t(b) * S + c0) * xrow + size_t(h) * P;
+  const float* cb = Cm + (size_t(b) * S + c0) * brow + size_t(g) * N;
+  const float* sc_in = scores + (((size_t(b) * G + g) * nc + c) *
+                                     n_pairs(chunk) + qi * (qi + 1) / 2) *
+                                    kT * kT;
+
+  auto issue = [&](int kj) {
+    float* st = stg + (kj & 1) * L::kScanStage;
+    stage_async<kT>(st, SP, sc_in + size_t(kj) * kT * kT, kT, kT);
+    stage_async<P>(st + kT * SP, XP, xb + size_t(kj) * kT * xrow, xrow,
+                   rows - kj * kT);
+  };
+  stage_async<N>(cs, NP, cb + size_t(qi) * kT * brow, brow, rows - qi * kT);
+  issue(0);
+  repro::cp_async_commit();
+  chunk_cumsum(cum, dts, dt + (size_t(b) * S + c0) * H + h, H, A[h], chunk,
+               rows);
+
+  float yacc[YT][4];
+#pragma unroll
+  for (int j = 0; j < YT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) yacc[j][e] = 0.f;
+
+  for (int kj = 0; kj <= qi; ++kj) {
+    if (kj < qi) {
+      issue(kj + 1);
+    } else {                     // the carried-in state, stored (N, P)
+      stage_async<P, N>(stg + ((kj + 1) & 1) * L::kScanStage, XP,
+                        states + ((size_t(b) * nc + c) * H + h) * P * N, P,
+                        N);
+    }
+    repro::cp_async_commit();
+    repro::cp_async_wait<1>();
+    __syncthreads();
+    float* ss = stg + (kj & 1) * L::kScanStage;
+    // this head's causal mask, decay exp(cs[q] - cs[k]) (<= 0 exponent)
+    // and dt[k], applied to the raw scores in place
+    for (int i = tid; i < kT * kT; i += kThreads) {
+      const int r = i / kT, col = i % kT;
+      const int q = qi * kT + r, k = kj * kT + col;
+      float& v = ss[r * SP + col];
+      v = k <= q ? v * expf(cum[q] - cum[k]) * dts[k] : 0.f;
+    }
+    __syncthreads();
+    warp_mma<YT, false>(yacc, ss + m0 * SP, SP, ss + kT * SP + p0, XP, kT);
+    __syncthreads();             // this stage is free
+  }
+  repro::cp_async_wait<0>();
+  __syncthreads();
+
+  // carried-in state: y += exp(cs[q]) C[q] . state^T
+  float cst[YT][4];
+#pragma unroll
+  for (int j = 0; j < YT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cst[j][e] = 0.f;
+  warp_mma<YT, false>(cst, cs + m0 * NP, NP,
+                      stg + ((qi + 1) & 1) * L::kScanStage + p0, XP, N);
+  float* yb = y + (size_t(b) * S + c0) * xrow + size_t(h) * P;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int q = qi * kT + m0 + lg + 8 * hf;
+    if (q < rows) {
+      const float d = expf(cum[q]);
+#pragma unroll
+      for (int j = 0; j < YT; ++j)
+        *reinterpret_cast<float2*>(yb + size_t(q) * xrow + p0 + 8 * j +
+                                   2 * lt) =
+            make_float2(fmaf(d, cst[j][2 * hf], yacc[j][2 * hf]),
+                        fmaf(d, cst[j][2 * hf + 1], yacc[j][2 * hf + 1]));
+    }
+  }
+}
+
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
 template <int P, int N>
 int launch(const float* x, const float* dt, const float* A, const float* Bm,
-           const float* Cm, const float* init, float* y, float* fin, int Bt,
-           int S, int H, int G, int chunk, int heads_block,
+           const float* Cm, const float* init, float* y, float* fin,
+           float* ws, int Bt, int S, int H, int G, int chunk, int no_carry,
            cudaStream_t stream) {
-  const size_t smem = Layout<P, N>::kBytes;
-  auto kern = ssd_scan_kernel<P, N>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  using L = Layout<P, N>;
+  const int nc = (S + chunk - 1) / chunk;
+  float* states = ws;                                 // (B, nc, H, N, P)
+  float* cs_last = states + size_t(Bt) * nc * H * P * N;  // (B, H, nc)
+  // (B, G, nc, pairs, 64, 64), 16-byte aligned for cp.async
+  float* scores = cs_last + ((size_t(Bt) * H * nc + 3) & ~size_t(3));
+  cudaError_t err = allow_smem(ssd_chunk_state<P, N>, L::kStateBytes);
+  if (err == cudaSuccess) err = allow_smem(ssd_chunk_scan<P, N>, L::kScanBytes);
   if (err != cudaSuccess) return int(err);
-  kern<<<Bt * H / heads_block, kThreads, smem, stream>>>(
-      x, dt, A, Bm, Cm, init, y, fin, S, H, G, chunk, heads_block);
+  ssd_chunk_state<P, N><<<Bt * H * nc, kThreads, L::kStateBytes, stream>>>(
+      x, dt, A, Bm, Cm, states, cs_last, scores, S, H, G, chunk, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  const size_t elems = size_t(Bt) * H * P * N;
+  ssd_state_pass<<<unsigned((elems + kThreads - 1) / kThreads), kThreads, 0,
+                   stream>>>(states, cs_last, init, fin, Bt, H, P, N, nc,
+                             no_carry);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  ssd_chunk_scan<P, N><<<Bt * H * nc * (chunk / kT), kThreads, L::kScanBytes,
+                         stream>>>(x, dt, A, Cm, states, scores, y, S, H, G,
+                                   chunk, nc);
   return int(cudaGetLastError());
 }
 
@@ -333,14 +516,18 @@ int launch(const float* x, const float* dt, const float* A, const float* Bm,
 extern "C" {
 
 // x (B, S, H, P); dt (B, S, H); A (H,); Bm, Cm (B, S, G, N); init
-// (B, H, P, N) or null for a zero state; y (B, S, H, P); fin (B, H, P, N).
-// All fp32, contiguous, 16-byte aligned.  chunk in {64, 128, 256};
-// heads_block divides H; G divides H.  Returns a cudaError_t (0 =
+// (B, H, P, N) or null for a zero state; y (B, S, H, P); fin (B, H, P, N);
+// ws: fp32 workspace, nc = ceil(S / chunk): B * nc * H * P * N floats
+// of chunk states, B * H * nc decay logs rounded up to a multiple of 4,
+// then B * G * nc * T (T + 1) / 2 score tiles of 64 x 64, T = chunk / 64.  All fp32, contiguous, 16-byte aligned.  chunk in {64,
+// 128, 256}; heads_block divides H (validated, not used by the grid); G
+// divides H.  no_carry: 0, or a planted fault (no state passed between
+// chunks).  Three launches on `stream`.  Returns a cudaError_t (0 =
 // launched).
 int ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
-             const void* Cm, const void* init, void* y, void* fin, int B,
-             int S, int H, int P, int G, int N, int chunk, int heads_block,
-             void* stream) {
+             const void* Cm, const void* init, void* y, void* fin, void* ws,
+             int B, int S, int H, int P, int G, int N, int chunk,
+             int heads_block, int no_carry, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G || heads_block <= 0 ||
       H % heads_block || chunk % kT || chunk > kMaxChunk)
     return int(cudaErrorInvalidValue);
@@ -352,11 +539,12 @@ int ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
   const auto* inf = static_cast<const float*>(init);
   auto* yf = static_cast<float*>(y);
   auto* ff = static_cast<float*>(fin);
+  auto* wf = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_SSD_CASE(PP, NN)                                             \
-  if (P == PP && N == NN)                                                  \
-    return launch<PP, NN>(xf, df, af, bf, cf, inf, yf, ff, B, S, H, G,     \
-                          chunk, heads_block, s);
+#define REPRO_SSD_CASE(PP, NN)                                              \
+  if (P == PP && N == NN)                                                   \
+    return launch<PP, NN>(xf, df, af, bf, cf, inf, yf, ff, wf, B, S, H, G,  \
+                          chunk, no_carry, s);
   REPRO_SSD_CASE(64, 128)          // mamba2-2.7b
   REPRO_SSD_CASE(32, 16)           // mamba2, reduced
   REPRO_SSD_CASE(64, 16)           // hymba-1.5b

@@ -21,16 +21,24 @@ wrappers launch the kernels on CUDA tensors and raise on any other
 device; :mod:`repro_torch.kernels.ops` sends a CPU tensor to the plain
 version beside each (one masked softmax in fp32, no tiles).
 
-Tiles: both kernels stage ``block_kv`` cache rows per step — the plan's
-``decode_attention`` BlockPlan, else :data:`DEFAULT_BLOCK_KV`.  The paged
-kernel looks up each staged row's block on its own, so its tile is
-independent of the pool's block length (the plan picks block lengths from
-16 to 512).  Tiles outside :data:`KERNEL_TILES` raise.
+Tiles and splits: both kernels split each slot's cache rows across
+CTAs.  :func:`decode_split` turns the plan's ``decode_attention``
+BlockPlan tile (``block_kv``, else :data:`DEFAULT_BLOCK_KV`) into the
+split size: every split covers a whole number of tiles, and there are
+enough splits that the grid fills the card twice over where the
+capacity allows.  The rule reads B, K and the cache's capacity, never
+``cache_len`` (device memory: reading it would sync every tick).  Inside
+a split each warp streams its rows through a ``cp.async`` ring of its
+own, each row looking up its own block, so the tile is independent of
+the pool's block length (the plan picks block lengths from 16 to 512).
+Tiles outside :data:`KERNEL_TILES` raise.  :func:`decode_attention_splits`
+mirrors the kernels' split-and-merge arithmetic in plain PyTorch for the
+tests; nothing on the main path calls it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -40,6 +48,13 @@ KERNEL_TILES = (64, 128, 256)
 DEFAULT_BLOCK_KV = 256
 HEAD_DIM = 128
 MAX_GROUP = 8
+#: the card's SMs; the split rule aims at two CTAs for each
+SMS = 132
+SPLIT_CTAS = 2 * SMS
+MAX_SPLITS = 1024
+#: ``csrc`` decode_kernel: warps a CTA, rows a warp stages per step, and
+#: the depth of each warp's ``cp.async`` ring
+WARPS, WARP_ROWS, STAGES = 4, 16, 2
 
 #: launches of each CUDA kernel in this process (reset by the caller)
 paged_launches = 0
@@ -66,9 +81,29 @@ def kernel_tile(name: str, block_kv: Optional[int]) -> int:
 
 
 def smem_bytes(G: int, tile: int) -> int:
-    """Shared memory one CTA uses (``csrc`` ``smem_bytes<G, TILE>``)."""
-    return 2 * tile * (HEAD_DIM + 8) * 2 + G * HEAD_DIM * 4 + G * tile * 4 \
-        + 3 * G * 4
+    """Shared memory one CTA uses (``csrc`` ``Smem<G, D>::kBytes``): the
+    warps' K/V rings (K rows padded by 16 bytes), reused after the row
+    loop to merge the warps' partials, then the scaled q and each warp's
+    probabilities.  The tile sets only the split size, not the ring."""
+    ring = WARPS * STAGES * WARP_ROWS * (2 * HEAD_DIM + 8) * 2
+    merge = WARPS * G * (HEAD_DIM + 2) * 4
+    return max(ring, merge) + G * HEAD_DIM * 4 + WARPS * WARP_ROWS * G * 4
+
+
+def decode_split(B: int, K: int, capacity: int, tile: int
+                 ) -> Tuple[int, int]:
+    """``(splits, split_rows)`` of a launch: split ``s`` covers the rows
+    ``[s * split_rows, (s + 1) * split_rows)`` of every slot.  Splits are
+    whole tiles, at least one, and as many as it takes for ``B * K *
+    splits`` to reach :data:`SPLIT_CTAS` where the capacity has that many
+    tiles, and at most :data:`MAX_SPLITS` (the merge keeps a weight per
+    split and head in shared memory).  It reads no ``cache_len``: the
+    grid is the same for every length, and a split with no live row
+    exits at once."""
+    tiles = -(-capacity // tile)
+    want = -(-SPLIT_CTAS // max(1, B * K))
+    rows = tile * max(1, tiles // want, -(-tiles // MAX_SPLITS))
+    return -(-capacity // rows), rows
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,6 +147,70 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                   cache_len=cache_len, window=window)
 
 
+def decode_attention_splits(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, cache_len: IntOrTensor,
+                            split_rows: int, window: int = 0,
+                            drop_split: int = -1) -> torch.Tensor:
+    """The kernels' split-and-merge arithmetic in plain fp32 PyTorch, over
+    a dense ``(B, S, K, D)`` cache (a paged one through its gathered
+    view): split ``s``'s partial ``(m, l, acc)`` over its live rows, an
+    empty split as ``m = -inf, l = 0``, merged in split order with empty
+    partials absent; ``drop_split`` leaves one split out (the planted
+    fault).  The tests hold it against the one-softmax plain versions;
+    nothing on the main path calls it."""
+    B, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    cl = _lengths(cache_len, B, q.device).long().clamp(max=S)[:, None]
+    lo = (cl - window).clamp_min(0) if window > 0 else torch.zeros_like(cl)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    live = (kpos < cl) & (kpos >= lo)                          # (B, S)
+    s = torch.einsum("bkgd,bskd->bkgs",
+                     q.reshape(B, K, H // K, D).float() * (D ** -0.5),
+                     k.float())
+    parts = []
+    for i in range(-(-S // split_rows)):
+        ok = (live & (kpos >= i * split_rows)
+              & (kpos < (i + 1) * split_rows))[:, None, None, :]
+        sc = torch.where(ok, s, float("-inf"))
+        m = sc.amax(-1)                                        # (B, K, G)
+        p = torch.where(ok, torch.exp(sc - m[..., None]), 0.0)
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgs,bskd->bkgd", p, v.float())))
+    kept = [x for i, x in enumerate(parts) if i != drop_split]
+    m_all = torch.stack([m for m, _, _ in kept]).amax(0)
+    acc = torch.zeros_like(kept[0][2])
+    lsum = torch.zeros_like(kept[0][1])
+    for m, l, a in kept:
+        f = torch.where(m == float("-inf"), 0.0, torch.exp(m - m_all))
+        acc = acc + f[..., None] * a
+        lsum = lsum + f * l
+    o = torch.where(lsum[..., None] > 0,
+                    acc / lsum.clamp_min(1e-30)[..., None], 0.0)
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+#: per-device arrival counters of the kernels' in-launch merge
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The ``(slot, kv head)`` arrival counters: zeroed once per device
+    (again only when a launch needs more of them) and left at zero by
+    every launch, so a call adds no memset.  Launches that share them
+    must be ordered: the port launches on the current stream."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
+
+
+def _workspace(q: torch.Tensor, K: int, splits: int) -> torch.Tensor:
+    B, H, D = q.shape
+    return torch.empty(B * K * splits * (H // K) * (D + 2),
+                       dtype=torch.float32, device=q.device)
+
+
 def _check(name: str, q, caches, ints) -> None:
     for tname, t in caches:
         if t.device != q.device:
@@ -150,9 +249,12 @@ def _launch_error(name: str, err: int) -> None:
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tbl: torch.Tensor, *,
                            cache_len: IntOrTensor, window: int = 0,
-                           block_kv: Optional[int] = None) -> torch.Tensor:
+                           block_kv: Optional[int] = None,
+                           drop_split: int = -1) -> torch.Tensor:
     """Launch the paged decode kernel on CUDA tensors (raises on any
-    other device or on inputs the kernel does not take)."""
+    other device or on inputs the kernel does not take).  ``drop_split``
+    plants a fault for the checks: that split is left out of the
+    merge."""
     global paged_launches
     _on_card("paged_decode_attention", q)
     tile = kernel_tile("paged_decode_attention", block_kv)
@@ -167,12 +269,16 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"paged_decode_attention: shapes q {tuple(q.shape)} "
                          f"pool {tuple(k_pool.shape)} "
                          f"table {tuple(block_tbl.shape)}")
+    nb = block_tbl.shape[1]
+    splits, rows = decode_split(B, K, nb * bl, tile)
     out = torch.empty_like(q)
+    ws = _workspace(q, K, splits)
     err = build.library("decode_attention").paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tbl.data_ptr(), cl.data_ptr(), out.data_ptr(),
-        B, H, K, D, bl, block_tbl.shape[1], int(window), tile,
-        float(D ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+        block_tbl.data_ptr(), cl.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        _counters(q.device, B * K).data_ptr(), B, H, K, D, bl, nb,
+        int(window), splits, rows, float(D ** -0.5), int(drop_split),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _launch_error("paged_decode_attention", err)
     paged_launches += 1
     return out
@@ -180,9 +286,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      cache_len: IntOrTensor, window: int = 0,
-                     block_kv: Optional[int] = None) -> torch.Tensor:
+                     block_kv: Optional[int] = None,
+                     drop_split: int = -1) -> torch.Tensor:
     """Launch the dense decode kernel on CUDA tensors (raises on any
-    other device or on inputs the kernel does not take)."""
+    other device or on inputs the kernel does not take).  ``drop_split``
+    as in :func:`paged_decode_attention`."""
     global dense_launches
     _on_card("decode_attention", q)
     tile = kernel_tile("decode_attention", block_kv)
@@ -194,11 +302,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)}")
+    splits, rows = decode_split(B, K, S, tile)
     out = torch.empty_like(q)
+    ws = _workspace(q, K, splits)
     err = build.library("decode_attention").decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(),
-        out.data_ptr(), B, S, H, K, D, int(window), tile, float(D ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), ws.data_ptr(), _counters(q.device, B * K).data_ptr(),
+        B, S, H, K, D, int(window), splits, rows, float(D ** -0.5),
+        int(drop_split), torch.cuda.current_stream(q.device).cuda_stream)
     _launch_error("decode_attention", err)
     dense_launches += 1
     return out

@@ -13,10 +13,14 @@ chunk`` requirement); an optional initial state; returns ``(y (B, S,
 H, P), final_state (B, H, P, N))`` in fp32.
 
 Tiles: the plan's ``ssd_scan`` BlockPlan gives ``chunk`` (rows per
-scan step, one of :data:`KERNEL_CHUNKS`) and ``heads_block`` (heads one
-CTA walks in turn, a divisor of H); with no plan, :data:`DEFAULT_CHUNK`
-and one head.  The kernel is built for the ``(head_dim, state)`` pairs
-of :data:`KERNEL_WIDTHS`.  Anything else raises.
+chunk, one of :data:`KERNEL_CHUNKS`) and ``heads_block`` (the TPU grid's
+heads per step: still validated as a divisor of H, but the CUDA grid
+gives every (batch, head, chunk) its own CTAs and does not use it); with
+no plan, :data:`DEFAULT_CHUNK`.  The kernel is built for the
+``(head_dim, state)`` pairs of :data:`KERNEL_WIDTHS`.  Anything else
+raises.  One call launches the three passes of ``csrc/ssd_scan.cu``
+(chunk states, state passing, chunk scan) through an fp32 workspace of
+:func:`workspace_floats` floats.
 """
 
 from __future__ import annotations
@@ -117,17 +121,45 @@ def kernel_tiles(chunk: Optional[int], heads_block: Optional[int],
 
 
 def smem_bytes(P: int, N: int) -> int:
-    """Shared memory one CTA uses (``csrc`` ``Layout<P, N>::kBytes``)."""
-    return 4 * (P * (N + 4) + 2 * 64 * (N + 4) + 64 * P + 64 * 68 + 2 * 256)
+    """Shared memory of the larger of the kernel's two tiled passes
+    (``csrc`` ``Layout<P, N>``): the chunk states (two cp.async stages of
+    B and x, cumsum, dt) or the chunk scan (C, two stages of a score tile
+    and x or of the carried state, cumsum, dt)."""
+    state = 2 * (64 * (N + 8) + 64 * (P + 8)) + 2 * 256
+    stage = max(64 * 68 + 64 * (P + 8), N * (P + 8))
+    scan = 64 * (N + 4) + 2 * stage + 2 * 256
+    return 4 * max(state, scan)
+
+
+def workspace_floats(B: int, S: int, H: int, P: int, N: int, G: int,
+                     chunk: int) -> int:
+    """fp32 workspace of one call (``csrc`` ``ssd_scan``): each chunk's
+    state, transposed, ``(B, nc, H, N, P)``; its decay log ``(B, H,
+    nc)``, padded to 16 bytes; each group's raw causal score tiles ``(B,
+    G, nc, T (T + 1) / 2, 64, 64)``; ``nc = ceil(S / chunk)``, ``T =
+    chunk / 64``."""
+    nc = -(-S // chunk)
+    T = chunk // 64
+    return (B * nc * H * P * N + -(-B * H * nc // 4) * 4
+            + B * G * nc * T * (T + 1) // 2 * 64 * 64)
+
+
+def grid_ctas(B: int, S: int, H: int, P: int, N: int, chunk: int
+              ) -> Tuple[int, int, int]:
+    """CTAs of the three launches: chunk states, state passing, chunk
+    scan (one CTA per 64-row query tile of each chunk)."""
+    nc = -(-S // chunk)
+    return B * H * nc, -(-B * H * P * N // 256), B * H * nc * (chunk // 64)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *,
              chunk: Optional[int] = None, heads_block: Optional[int] = None,
-             initial_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             initial_state: Optional[torch.Tensor] = None,
+             no_carry: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the SSD scan kernel on CUDA tensors (raises on any other
-    device or on inputs the kernel does not take)."""
+    device or on inputs the kernel does not take).  ``no_carry`` plants
+    a fault for the checks: no state passes between chunks."""
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: the kernel runs on CUDA tensors, got "
@@ -161,12 +193,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"got P={P} N={N} H={H} G={G} S={S}")
     y = torch.empty_like(x)
     fin = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ws = torch.empty(workspace_floats(Bsz, S, H, P, N, G, q),
+                     dtype=torch.float32, device=x.device)
     err = build.library("ssd_scan").ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(),
         initial_state.data_ptr() if initial_state is not None else None,
-        y.data_ptr(), fin.data_ptr(), Bsz, S, H, P, G, N, q, hb,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        y.data_ptr(), fin.data_ptr(), ws.data_ptr(), Bsz, S, H, P, G, N, q,
+        hb, int(no_carry), torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan: launch failed with cudaError {err}")
     launches += 1

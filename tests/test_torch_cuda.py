@@ -26,7 +26,11 @@ one (batch, position, head)'s head_dim outputs, and the final state is
 held per head, as its (head_dim, state) block; worst rms-relative error
 <= 1e-3 for both (the kernel and the plain version sum in other orders,
 in fp32).  Its planted faults (the carry into the second chunk dropped;
-the final state one chunk short) must fail that check by 10x.
+the final state one chunk short; the kernel's state-passing launch
+passing no state) must fail that check by 10x.  The decode kernels'
+split-KV merge is held at split edges, for repeatability (bitwise-equal
+repeated launches, counters back at zero), and against a planted split
+dropped from the merge.
 
 The tiled matmul (bf16 on the tensor cores, fp32 on the CUDA cores) is
 held per output row, rms-relative, at the JAX tests' tolerances: 2e-2 in
@@ -49,6 +53,7 @@ from repro_torch.configs import ShapeConfig, get_arch
 from repro_torch.core import specialize
 from repro_torch.core.passes.lowering import build_run_cfg
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
 from repro_torch.models import lm
 
 FLASH_TOL = 1e-2            # worst row, rms-relative (see above)
@@ -245,6 +250,64 @@ def test_dense_kernel_matches_plain(dev, tile, window, kv):
     assert _rel_err(got, want) < DECODE_TOL
 
 
+EDGES = {"len 1, one tile and one past": ([1, 256, 257, 2048], 0),
+         "window starting mid-split": ([2048, 1000, 300, 700], 389),
+         "-1 entries inside a split": ([2048, 1500, 600, 64], 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bl", [16, 512])
+@pytest.mark.parametrize("case", list(EDGES))
+def test_decode_kernels_at_split_edges(dev, bl, case):
+    """Both kernels where splits begin and end (tile 256: 256-row
+    splits at 4 slots x 8 kv heads): a one-row slot, a slot of exactly
+    one split and one a row past it, a window whose start falls inside a
+    split, and unassigned blocks inside a slot's live rows (zero rows),
+    at the smallest and largest pool block lengths."""
+    g = torch.Generator(dev).manual_seed(bl + len(case))
+    lens_list, window = EDGES[case]
+    B, cap = len(lens_list), 2048
+    assert tdec.decode_split(B, K, cap, 256) == (8, 256)
+    nb = cap // bl
+    tbl = torch.randperm(B * nb, generator=g, device=dev).int().reshape(B, nb)
+    if case.startswith("-1"):
+        tbl[0, 1] = -1
+        tbl[1, nb // 3] = -1
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    q, kp, vp = _rnd(g, B, H, D), _rnd(g, B * nb, bl, K, D), \
+        _rnd(g, B * nb, bl, K, D)
+    got = tdec.paged_decode_attention(q, kp, vp, tbl, cache_len=lens,
+                                      window=window)
+    want = tdec.paged_decode_attention_plain(q, kp, vp, tbl, cache_len=lens,
+                                             window=window)
+    kd, vd = tref.paged_gather_ref(kp, tbl), tref.paged_gather_ref(vp, tbl)
+    dense = tdec.decode_attention(q, kd, vd, cache_len=lens, window=window)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) < DECODE_TOL
+    assert _rel_err(dense, want) < DECODE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [True, False])
+def test_decode_back_to_back_launches_are_bitwise_equal(dev, paged):
+    """The in-launch merge runs in split order and every launch leaves
+    its arrival counters at zero, so repeated launches give the same
+    bits (a counter left behind would merge too early, or never)."""
+    g = torch.Generator(dev).manual_seed(3)
+    q, kp, vp, tbl, lens = _paged_case(g, 256)
+    kd, vd = tref.paged_gather_ref(kp, tbl), tref.paged_gather_ref(vp, tbl)
+
+    def run():
+        if paged:
+            return tdec.paged_decode_attention(q, kp, vp, tbl, cache_len=lens)
+        return tdec.decode_attention(q, kd, vd, cache_len=lens)
+
+    outs = [run() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert int(tdec._COUNTERS[q.device].abs().sum()) == 0
+
+
 @pytest.mark.cuda
 def test_wrappers_count_launches_and_refuse_what_the_kernels_do_not_take(dev):
     g = torch.Generator(dev).manual_seed(0)
@@ -288,6 +351,16 @@ def _faulted(fault: str, d: torch.device):
                 tfa.flash_attention_plain(q, k, v))
     q, kp, vp, tbl, lens = _paged_case(g, 256)
     want = tdec.paged_decode_attention_plain(q, kp, vp, tbl, cache_len=lens)
+    if fault == "decode split dropped from the merge":
+        if d.type == "cpu":          # the plain mirror of the split merge
+            _, rows = tdec.decode_split(q.shape[0], K, tbl.shape[1] * 256,
+                                        tdec.DEFAULT_BLOCK_KV)
+            return tdec.decode_attention_splits(
+                q, tref.paged_gather_ref(kp, tbl),
+                tref.paged_gather_ref(vp, tbl), cache_len=lens,
+                split_rows=rows, drop_split=0), want
+        return tdec.paged_decode_attention(q, kp, vp, tbl, cache_len=lens,
+                                           drop_split=0), want
     if fault == "paged one table entry swapped":
         bad = tbl.clone()
         bad[4, 0] = tbl[3, 0]
@@ -300,7 +373,8 @@ def _faulted(fault: str, d: torch.device):
 
 @pytest.mark.parametrize("fault", ["flash drops one kv tile",
                                    "paged one tile short",
-                                   "paged one table entry swapped"])
+                                   "paged one table entry swapped",
+                                   "decode split dropped from the merge"])
 @pytest.mark.parametrize("where", [
     "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 def test_row_check_rejects_planted_faults(where, fault):
@@ -435,6 +509,25 @@ def test_ssd_kernel_heads_block_and_initial_state(dev, heads_block):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,chunk", [(50, 64), (100, 256), (700, 256),
+                                     (1000, 128), (321, 64)])
+@pytest.mark.parametrize("G", [1, 2, 8])
+def test_ssd_kernel_chunk_edges_initial_state_and_groups(dev, S, chunk, G):
+    """The chunk-parallel passes at S below one chunk and at S not a
+    multiple of the chunk (a ragged last chunk, whose state must stop at
+    the last live row), from an initial state, with grouped B/C, at
+    mamba2-2.7b's (P, N) = (64, 128)."""
+    g = torch.Generator(dev).manual_seed(S + chunk + G)
+    ins = ssd_inputs(g, 2, S, 8, 64, G, 128)
+    s0 = torch.randn((2, 8, 64, 128), generator=g, device=dev)
+    y, fin = tssd.ssd_scan(*ins, chunk=chunk, initial_state=s0)
+    y_want, fin_want = tssd.ssd_scan_plain(*ins, chunk=chunk,
+                                           initial_state=s0)
+    torch.cuda.synchronize()
+    assert max(ssd_err(y, fin, y_want, fin_want)) < SSD_TOL
+
+
+@pytest.mark.cuda
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(dev):
     g = torch.Generator(dev).manual_seed(0)
     x, dt, A, Bm, Cm = ssd_inputs(g, 1, 64, 8, 32, 1, 16)
@@ -471,13 +564,22 @@ def ssd_faulted(fault: str, d: torch.device, chunk: int = 256):
         tail = [t[:, chunk:].contiguous() if t.dim() > 1 else t for t in ins]
         y, _ = ops.ssd_scan(*tail, chunk=chunk)
         return y, y_want[:, chunk:]
+    if fault == "state not passed between chunks":
+        if d.type == "cuda":
+            return tssd.ssd_scan(*ins, chunk=chunk, no_carry=True)[0], y_want
+        # on the CPU: each chunk scanned alone, from a zero state
+        parts = [[t[:, c:c + chunk].contiguous() if t.dim() > 1 else t
+                  for t in ins] for c in range(0, S, chunk)]
+        return torch.cat([tssd.ssd_scan_plain(*p, chunk=chunk)[0]
+                          for p in parts], 1), y_want
     head = [t[:, :S - chunk].contiguous() if t.dim() > 1 else t for t in ins]
     _, fin = ops.ssd_scan(*head, chunk=chunk)
     return fin.flatten(-2), fin_want.flatten(-2)
 
 
 @pytest.mark.parametrize("fault", ["carry into the second chunk dropped",
-                                   "final state one chunk short"])
+                                   "final state one chunk short",
+                                   "state not passed between chunks"])
 @pytest.mark.parametrize("where", [
     "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 def test_ssd_check_rejects_planted_faults(where, fault):

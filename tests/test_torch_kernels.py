@@ -203,6 +203,103 @@ def test_decode_tile_contract():
         assert tdec.smem_bytes(g, max(tdec.KERNEL_TILES)) <= 232_448
 
 
+@pytest.mark.parametrize("B,K,capacity", [(8, 8, 2048), (1, 8, 2048),
+                                          (1, 1, 64), (3, 4, 1000),
+                                          (8, 8, 32768), (64, 8, 2048),
+                                          (1, 1, 1 << 17)])
+@pytest.mark.parametrize("tile", tdec.KERNEL_TILES)
+def test_decode_split_covers_every_live_tile_once(B, K, capacity, tile):
+    """Splits are whole tiles, never less than one, and every tile of the
+    capacity lies in exactly one split."""
+    splits, rows = tdec.decode_split(B, K, capacity, tile)
+    assert rows % tile == 0 and rows >= tile
+    assert splits <= tdec.MAX_SPLITS
+    assert (splits - 1) * rows < capacity <= splits * rows
+    owner = [t * tile // rows for t in range(-(-capacity // tile))]
+    covered = [sum(1 for o in owner if o == s) for s in range(splits)]
+    assert sum(covered) == len(owner) and all(c >= 1 for c in covered)
+    assert owner == sorted(owner)
+
+
+@pytest.mark.parametrize("tile", tdec.KERNEL_TILES)
+def test_decode_split_fills_the_card_at_the_timed_shape(tile):
+    """B = 8 slots x K = 8 kv heads over a 2048-row cache: at least two
+    CTAs per SM of the H100, in one launch."""
+    splits, _ = tdec.decode_split(8, 8, 2048, tile)
+    assert 8 * 8 * splits >= 2 * 132 == tdec.SPLIT_CTAS
+
+
+def test_decode_split_reads_no_cache_len():
+    """The rule sees shapes only, so the grid is the same for every
+    cache_len (which lives on the device) and costs no host sync."""
+    import inspect
+    assert list(inspect.signature(tdec.decode_split).parameters) == \
+        ["B", "K", "capacity", "tile"]
+    assert len({tdec.decode_split(8, 8, 2048, 256) for _ in range(3)}) == 1
+
+
+@pytest.mark.parametrize("K", [8, 4, 2, 1])            # G = 1, 2, 4, 8
+@pytest.mark.parametrize("window", [0, 5, 23])
+@pytest.mark.parametrize("split_rows", [1, 7, 16, 64])
+def test_split_merge_mirror_matches_plain_and_jax(K, window, split_rows):
+    """The kernels' split-and-merge arithmetic (plain mirror) against the
+    one-softmax plain version and the JAX oracle, fp32 at 1e-5: random
+    lengths, a slot with no live row (zeros out), splits wholly past a
+    slot's length or before its window start (empty partials)."""
+    B, S, H, D = 5, 64, 8, 32
+    rng = np.random.default_rng(K * 100 + window * 10 + split_rows)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, "float32") for s in
+                                    [(B, H, D), (B, S, K, D), (B, S, K, D)])
+    lens = np.array([0, 1, *rng.integers(2, S, 2), S], np.int32)
+    cl = torch.from_numpy(lens)
+    got = tdec.decode_attention_splits(tq, tk, tv, cache_len=cl,
+                                       split_rows=split_rows, window=window)
+    plain = tdec.decode_attention_plain(tq, tk, tv, cache_len=cl,
+                                        window=window)
+    assert _rel_err(_np(got), _np(plain)) < TOL["float32"]
+    assert np.abs(_np(got)[0]).max() == 0.0
+    want = jref.decode_attention_ref(jq, jk, jv, cache_len=jnp.asarray(lens),
+                                     window=window)
+    assert _rel_err(_np(got)[1:], np.asarray(want)[1:]) < TOL["float32"]
+
+
+@pytest.mark.parametrize("K", [8, 2])
+@pytest.mark.parametrize("window", [0, 6])
+@pytest.mark.parametrize("split_rows", [3, 8, 24])
+def test_split_merge_mirror_matches_paged_plain_and_jax(K, window,
+                                                        split_rows):
+    """The mirror over a paged cache's gathered view, -1 blocks and the
+    freed slot included, against the paged plain version and the JAX
+    paged oracle (live slots), fp32 at 1e-5."""
+    rng = np.random.default_rng(30 + K + window + split_rows)
+    (jq, tq), (jk, tk), (jv, tv), tbl, lens = _paged_case(rng, "float32", K)
+    ttbl, cl = torch.from_numpy(tbl), torch.from_numpy(lens)
+    got = tdec.decode_attention_splits(
+        tq, tref.paged_gather_ref(tk, ttbl), tref.paged_gather_ref(tv, ttbl),
+        cache_len=cl, split_rows=split_rows, window=window)
+    plain = tdec.paged_decode_attention_plain(tq, tk, tv, ttbl, cache_len=cl,
+                                              window=window)
+    assert _rel_err(_np(got), _np(plain)) < TOL["float32"]
+    want = jref.paged_decode_attention_ref(
+        jq, jk, jv, jnp.asarray(tbl), cache_len=jnp.asarray(lens),
+        window=window)
+    assert _rel_err(_np(got), np.asarray(want)) < TOL["float32"]
+
+
+def test_split_merge_mirror_dropped_split_is_caught():
+    """The planted fault the card checks plant (one split left out of
+    the merge) moves the longest slot far past the tolerance."""
+    rng = np.random.default_rng(5)
+    (_, tq), (_, tk), (_, tv) = (_pair(rng, s, "float32") for s in
+                                 [(2, 8, 32), (2, 64, 2, 32), (2, 64, 2, 32)])
+    cl = torch.tensor([64, 40], dtype=torch.int32)
+    good = tdec.decode_attention_splits(tq, tk, tv, cache_len=cl,
+                                        split_rows=16)
+    bad = tdec.decode_attention_splits(tq, tk, tv, cache_len=cl,
+                                       split_rows=16, drop_split=0)
+    assert _rel_err(_np(bad), _np(good)) > 0.1
+
+
 @pytest.mark.parametrize("block_kv", [8, 16, 64])
 def test_paged_plain_tile_is_independent_of_block_len(block_kv):
     """On a CPU tensor ``ops`` ignores the kernel's tile, whatever the

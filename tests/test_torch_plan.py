@@ -17,6 +17,7 @@ import repro_torch.core as tcore
 from repro_torch.hw import get_target
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.kernels import tiled_matmul as tmm
 
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of shared memory per block
@@ -140,6 +141,64 @@ def test_h100_flash_tile_is_a_kernel_tile_that_fits(arch, shape):
     assert "accumulator in registers" in logged[0][1]
     # the largest tile that fits: two 64-row warpgroups where G allows
     assert rows == max(r for r, _ in tfa.KERNEL_TILES if r % G == 0)
+
+
+@pytest.mark.parametrize("arch,shape", RUNNABLE,
+                         ids=[f"{a}@{s}" for a, s in RUNNABLE])
+def test_h100_decode_tile_is_a_split_kv_kernel_tile(arch, shape):
+    """On the card ``block_kv`` is a tile the split-KV kernel is built
+    for, its shared memory is the kernel's (``smem_bytes``), and the
+    widest tile whose splits fill the card at the plan's batch is taken;
+    an arch the kernel is not built for gets a logged reason instead."""
+    plan = tcore.specialize(arch, shape, target="h100-sxm", cache=False)
+    a = tcfg.get_arch(arch)
+    bp = plan.partitions.get("decode_attention")
+    logged = [(d, why) for _, subj, d, why in plan.log
+              if subj == "decode_attention"]
+    K = int(plan.estimates.get("kv_heads_padded", a.n_kv_heads or 1))
+    G = int(plan.estimates.get("heads_padded", a.n_heads)) // K
+    if bp is None:
+        if logged:
+            assert [d for d, _ in logged] == ["no kernel tile"]
+            assert a.hd != tdec.HEAD_DIM or G > tdec.MAX_GROUP \
+                or G & (G - 1)
+        return
+    tile = bp.blocks["block_kv"]
+    assert tdec.kernel_tile("x", tile) == tile
+    assert bp.n_buffers == tdec.STAGES
+    assert bp.vmem_bytes == tdec.smem_bytes(G, tile) <= 0.75 * SMEM_PER_BLOCK
+    sc = tcfg.SHAPES[shape]
+    B, cap = sc.global_batch, sc.seq_len
+    ctas = {t: B * K * tdec.decode_split(B, K, cap, t)[0]
+            for t in tdec.KERNEL_TILES}
+    full = [t for t in tdec.KERNEL_TILES if ctas[t] >= tdec.SPLIT_CTAS]
+    assert tile == (max(full) if full else min(tdec.KERNEL_TILES))
+    assert [d for d, _ in logged] == [f"block_kv={tile}"]
+    assert "cp.async" in logged[0][1] and "cp.async" in bp.grid_note
+
+
+@pytest.mark.parametrize("arch,shape", RUNNABLE,
+                         ids=[f"{a}@{s}" for a, s in RUNNABLE])
+def test_h100_ssd_tile_is_a_chunk_parallel_kernel_tile(arch, shape):
+    """On the card the SSD chunk is one the three-pass kernel is built
+    for, heads_block is 1 (validated, unused by the CUDA grid), and the
+    shared memory charged is the chunk-scan pass's."""
+    plan = tcore.specialize(arch, shape, target="h100-sxm", cache=False)
+    bp = plan.partitions.get("ssd_scan")
+    logged = [(d, why) for _, subj, d, why in plan.log if subj == "ssd_scan"]
+    if bp is None:
+        a = tcfg.get_arch(arch)
+        if logged:
+            assert [d for d, _ in logged] == ["no kernel tile"]
+            assert (a.ssm_head_dim, a.ssm_state) not in tssd.KERNEL_WIDTHS
+        return
+    P, N = bp.blocks["head_dim"], bp.blocks["state"]
+    chunk = bp.blocks["chunk"]
+    assert tssd.kernel_tiles(chunk, bp.blocks["heads_block"], 64) == \
+        (chunk, 1)
+    assert bp.vmem_bytes == tssd.smem_bytes(P, N) <= 0.75 * SMEM_PER_BLOCK
+    assert [d for d, _ in logged] == [f"chunk={chunk} heads_block=1"]
+    assert "unused by the CUDA grid" in logged[0][1]
 
 
 def test_h100_prefill_plan_flash_tile_runs_through_kernel_tiles():
