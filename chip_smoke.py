@@ -29,17 +29,28 @@ Phases (any failure exits non-zero before the last line):
    (five rounds, medians), with the host time to encode its tensor maps;
    paged and dense decode in turns with masked SDPA, and the SSD scan in
    turns, each with its grid (CTAs, launches per call);
-3. qwen3-8b serve, paged: the plan's paged pool, 16 requests;
+   Flash is also held with a query block at an offset (a prompt's tail
+   over a resident prefix), beside its planted fault (the offset
+   ignored), and timed beside the full-length launch of the same rows;
+3. qwen3-8b serve, paged: the plan as frozen (paged pool, prefix reuse,
+   512 host blocks), 16 requests; both tiers whole after the engine's
+   block cache is dropped;
 4. qwen3-8b serve, dense: the same weights under a dense-residency plan;
-5. qwen3-8b checks: a full-width consistency check (decode-step logits
+5. qwen3-8b shared prefixes: 16 requests, 12 behind one 1,024-token
+   system prompt, on the plan as frozen and on a control with prefix
+   reuse and the host tier off: fewer prefill calls, rides, the tail
+   path's logits and tokens against the control's, then a spill of
+   every cold block and a hit that promotes the system prompt back
+   bitwise;
+6. qwen3-8b checks: a full-width consistency check (decode-step logits
    against the flash prefill of the same tokens, under both decode
    kernels) and a small model on the card against the CPU;
-6. mamba2-2.7b serve (qwen's weights freed first): 16 requests, 64
+7. mamba2-2.7b serve (qwen's weights freed first): 16 requests, 64
    SSD-scan launches per prefill call;
-7. mamba2-2.7b checks: the full-depth consistency check (prefill + one
+8. mamba2-2.7b checks: the full-depth consistency check (prefill + one
    recurrent decode step against the kernel's prefill of the same
    tokens) and a small mamba2 on the card against the CPU;
-8. the plan-driven matmul path: the serve phases' ``h100-sxm`` plans
+9. the plan-driven matmul path: the serve phases' ``h100-sxm`` plans
    stored, reloaded by hash prefix and shown with the plan-store CLI
    (``launch.plan show --log``), then ``kernels.ops.matmul`` on each
    plan's tiles at five full-width GEMM shapes of the two models, each
@@ -47,7 +58,7 @@ Phases (any failure exits non-zero before the last line):
    and timed beside its bound, the plain version and ``torch.matmul``.
    No serving path launches this kernel: the models' projections stay
    ``torch.matmul``;
-9. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+10. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
 name and power limit.
@@ -332,6 +343,9 @@ def kernel_phase(torch, dev):
     plain = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
                                                             causal=True),
                     iters=5)
+    offset = flash_offset_check(torch, F, fa, rnd)
+    worst = max(worst, offset["max_abs_err"])
+    worst_rel = max(worst_rel, offset["row_rel_err"])
     rows, bkv = fa.kernel_tiles(H // K)
     enc = build.library("flash_attention").flash_attention_map_encode_us(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, H, K, D, rows, bkv,
@@ -346,6 +360,7 @@ def kernel_phase(torch, dev):
         tolerance=TOL["flash_attention"], ms=head["ms"], plain_ms=plain,
         library_ms=head["library_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], map_encode_us=enc, tiles_ms=by_tile,
+        offset=offset,
         shape=f"B={B} S={S} H={H} K={K} D={D} causal bf16, tile {rows} "
               f"rows x {bkv} kv; kernel and library: medians of {TURNS} "
               "turns", shapes=per,
@@ -507,6 +522,72 @@ def kernel_phase(torch, dev):
     return res, mm_worst
 
 
+def flash_offset_check(torch, F, fa, rnd):
+    """Flash with a query block at an offset (prefix-reuse prefill): B=2,
+    M=1024 resident prefix rows, tails of T=256 and T=1000 (ragged
+    against the tiles), causal.  Each tail is held row by row against
+    the plain version; the planted fault (the offset ignored: queries
+    taken as positions 0..T-1) must fail the same check.  Timed in turns
+    beside the Sq == Skv launch of the same M + T rows and SDPA with the
+    same bottom-right causal mask; whether the tail rows of the full
+    launch equal the offset launch bit for bit is printed, not held."""
+    B, M = 2, 1024
+    out = {"shapes": []}
+    worst = worst_rel = 0.0
+    for T in (256, 1000):
+        S = M + T
+        qf, k, v = rnd(B, S, H, D), rnd(B, S, K, D), rnd(B, S, K, D)
+        q = qf[:, M:].contiguous()
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        got = fa.flash_attention(q, k, v, causal=True)
+        err, rel = row_err(torch, got, want)
+        tol = TOL["flash_attention"]
+        log(f"kernel flash_attention offset B={B} M={M} T={T}: "
+            f"max_abs_err={err:.3e} worst row rel={rel:.3e} (tol {tol}) "
+            f"[{CARD}]")
+        check(rel <= tol, f"flash_attention offset M={M} T={T} row rel "
+              f"err {rel} > {tol}")
+        ctl = control("flash_attention", f"offset ignored (M={M} T={T})",
+                      torch, fa.flash_attention(q, k, v, causal=True,
+                                                ignore_offset=True), want)
+        full = fa.flash_attention(qf, k, v, causal=True)
+        bitwise = bool(torch.equal(full[:, M:], got))
+        qpos = torch.arange(M, S, device=q.device)[:, None]
+        mask = torch.arange(S, device=q.device)[None, :] <= qpos
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        qft = qf.transpose(1, 2)
+        med, rounds = in_turns(torch, {
+            "offset": lambda: fa.flash_attention(q, k, v, causal=True),
+            "full": lambda: fa.flash_attention(qf, k, v, causal=True),
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True),
+            "library_full": lambda: F.scaled_dot_product_attention(
+                qft, kt, vt, is_causal=True, enable_gqa=True)})
+        pairs = B * (T * M + T * (T + 1) / 2)
+        b_ms, b_by = bound(2 * (2 * B * T * H * D + 2 * B * S * K * D),
+                           4 * D * H * pairs)
+        plain = time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal=True), iters=5)
+        log(f"timing flash_attention offset B={B} M={M} T={T}: kernel "
+            f"{med['offset']:.4f} ms, the Sq == Skv launch of the same "
+            f"{S} rows {med['full']:.4f} ms, SDPA (bottom-right mask) "
+            f"{med['library']:.4f} ms, SDPA full causal "
+            f"{med['library_full']:.4f} ms (medians of {TURNS} turns: "
+            f"kernel {fmt(rounds['offset'])}, full {fmt(rounds['full'])}), "
+            f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); tail rows "
+            f"of the full launch bitwise equal to the offset launch: "
+            f"{bitwise} [{CARD}]")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        out["shapes"].append(dict(
+            B=B, M=M, T=T, ms=med["offset"], full_ms=med["full"],
+            library_ms=med["library"], library_full_ms=med["library_full"],
+            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, row_rel_err=rel,
+            control_row_rel_err=ctl, tail_rows_bitwise=bitwise,
+            kernel_turns_ms=rounds["offset"], full_turns_ms=rounds["full"]))
+    out.update(max_abs_err=worst, row_rel_err=worst_rel)
+    return out
+
+
 def matmul_kernel_check(torch, dev, g):
     """The tiled matmul at every tile it is built for, bf16 and fp32, on
     a ragged shape (300, 584, 1000) and a decode tick's (8, 4096, 2048),
@@ -665,9 +746,7 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
         f"kv_admission={est.get('kv_admission')} "
         f"kv_prefill_mode={est.get('kv_prefill_mode')} "
         f"tiles={ {k: dict(v.blocks) for k, v in plan.partitions.items()} }")
-    eng = ServeEngine.from_plan(plan, params, arch=arch,
-                                kv_prefix_reuse="off", kv_host_blocks=0,
-                                seed=SEED)
+    eng = ServeEngine.from_plan(plan, params, arch=arch, seed=SEED)
     rng = np.random.default_rng(SEED)
     vocab = eng.arch.vocab_size
     prompts = [rng.integers(0, vocab, (int(rng.integers(1, 25)) * 64,))
@@ -690,8 +769,13 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
         check(len(r.out_tokens) == new_tokens
               and all(0 <= t < vocab for t in r.out_tokens),
               f"serve[{name}]: request {r.rid} tokens {r.out_tokens}")
+    # blocks a finished request leaves trie-indexed stay engine-cached;
+    # dropped, both tiers must be whole again
+    cached = eng.block_stats()["cached"]
+    eng.drop_block_cache()
     st = eng.block_stats()
-    check(st["free"] == st["total"] and st["in_use"] == 0,
+    check(st["free"] == st["total"] and st["in_use"] == 0
+          and st["host_free"] == st["host_total"],
           f"serve[{name}]: blocks not all returned: {st}")
     log(f"serve[{name}] requests={len(done)} tokens={toks} "
         f"wall_s={wall:.3f} tok_per_s={toks / wall:.1f} "
@@ -701,8 +785,12 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
         f"prefill_calls={eng.prefill_calls} "
         f"prefill_batches={list(eng.prefill_batches)} ticks={eng.tick} "
         f"[{CARD}]")
-    log(f"serve[{name}] block_stats={st} launches={counts} "
+    log(f"serve[{name}] kv_prefix_reuse={eng.kv_prefix_reuse} "
+        f"kv_host_blocks={eng.host_blocks} kv_prefetch={eng.kv_prefetch} "
+        f"cached_at_idle={cached} block_stats={st} launches={counts} "
         f"decode_path={eng.decode_path} [{CARD}]")
+    log(f"serve[{name}] pressure_stats={eng.pressure_stats()} "
+        f"tier_ms={eng.tier_ms} [{CARD}]")
     for r in done[:2]:
         log(f"serve[{name}]   rid={r.rid} prompt={len(r.prompt)} "
             f"t={r.temperature} -> {r.out_tokens[:8]}...")
@@ -714,6 +802,244 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
                     "ttft_ms_p50": float(np.percentile(ttft, 50)),
                     "ttft_ms_p95": float(np.percentile(ttft, 95)),
                     "prefill_calls": calls, "card": CARD}
+
+
+def _recording_engine(ServeEngine):
+    """A ServeEngine that keeps, per request, the fp32 logits its first
+    token was sampled from and, at every sampled token, the top-2 margin
+    relative to the logits' largest magnitude (the margin rule of
+    ``tests/test_torch_serve.py``)."""
+
+    class Recording(ServeEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.first, self.margins, self._rids = {}, {}, []
+
+        def _admit_group(self, group, *args):
+            self._rids = [r.rid for r in group]
+            super()._admit_group(group, *args)
+
+        def _ensure_writable(self):
+            super()._ensure_writable()
+            # the rows of this tick's decode sample, in slot order
+            self._rids = [self.active[s].rid for s in sorted(self.active)]
+
+        def _sample(self, logits, temperatures):
+            lf = logits[:, :self.arch.vocab_size].float()
+            top = lf.topk(2, dim=-1).values
+            rel = ((top[:, 0] - top[:, 1]) / lf.abs().amax(-1)).tolist()
+            for rid, row, m in zip(self._rids, lf, rel):
+                self.first.setdefault(rid, row.cpu())
+                self.margins.setdefault(rid, []).append(m)
+            return super()._sample(logits, temperatures)
+
+    return Recording
+
+
+def shared_prefix_phase(torch, dev, arch, plan, params):
+    """Full-width qwen3-8b on the decode 2048 x 8 plan as frozen (prefix
+    reuse on, 512 host blocks), against a control with both off, in the
+    same call.  16 greedy requests of 32 new tokens: 12 open with one
+    1,024-token system prompt (4 blocks of 256) and a distinct tail of
+    64k tokens (k seeded in 1..8); 2 are the system prompt plus one token
+    (1,025 tokens, the second a repeat of the first), which ride; 2 share
+    nothing.  The first request is submitted, then one request a tick.
+
+    Checks: fewer prefill calls than the control; at least one ride; the
+    tail path launched the flash kernel at an offset; each hit request's
+    first-token logits within the full-depth rms-relative bound
+    (:data:`FULL_TOL`) of the control's, with the noise floor of two
+    right paths printed (the full prefill under another flash tile);
+    greedy tokens identical until a step where the control's top-2
+    margin is within :data:`FULL_TOL` of its logits' largest magnitude.
+    Then a cached system-prompt block is snapshot, every cold block
+    spilled to the host tier, and a shared request resubmitted: the hit
+    promotes, the promoted rows equal the snapshot bitwise, and both
+    tiers are whole after ``drop_block_cache()``."""
+    import numpy as np
+
+    from repro_torch.core.passes.lowering import build_run_cfg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.prefix_cache import chain_hashes
+
+    Rec = _recording_engine(ServeEngine)
+    rng = np.random.default_rng(SEED + 3)
+    V = arch.vocab_size
+    system = rng.integers(0, V, 1024).astype(np.int32)
+    shared = [np.concatenate([system, rng.integers(0, V, 64 * int(k))
+                              .astype(np.int32)])
+              for k in rng.integers(1, 9, 12)]
+    ride = np.concatenate([system, rng.integers(0, V, 1).astype(np.int32)])
+    alone = [rng.integers(0, V, 64 * int(k)).astype(np.int32)
+             for k in rng.integers(1, 17, 2)]
+    order = (shared[:6] + [ride, alone[0]] + shared[6:10]
+             + [ride.copy(), alone[1]] + shared[10:])
+    hit_rids = [i for i, p in enumerate(order)
+                if i > 0 and len(p) > 1024 and (p[:1024] == system).all()]
+
+    def run(reuse: bool):
+        over = {} if reuse else {"kv_prefix_reuse": "off",
+                                 "kv_host_blocks": 0}
+        eng = Rec.from_plan(plan, params, arch=arch, seed=SEED, **over)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.submit(order[0], max_new_tokens=32)
+        for p in order[1:]:
+            eng.step()
+            eng.submit(p, max_new_tokens=32)
+        done = eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launch_counts(), flash_tail=fa.tail_launches)
+        check(len(done) == len(order)
+              and all(len(r.out_tokens) == 32 for r in done),
+              f"shared-prefix[{'reuse' if reuse else 'control'}]: "
+              f"{len(done)} of {len(order)} requests finished")
+        toks = {r.rid: r.out_tokens for r in done}
+        ttft = np.array([(r.t_first - r.t_submit) * 1e3 for r in done])
+        n = sum(len(t) for t in toks.values())
+        ps = eng.pressure_stats()
+        res = {"prefill_calls": eng.prefill_calls,
+               "prefill_batches": list(eng.prefill_batches),
+               "tokens": n, "wall_s": wall, "tok_per_s": n / wall,
+               "ttft_ms_p50": float(np.percentile(ttft, 50)),
+               "ttft_ms_p95": float(np.percentile(ttft, 95)),
+               "ticks": eng.tick, "launches": counts,
+               "pressure": {k: ps[k] for k in (
+                   "prefix_hits", "prefix_hit_tokens", "prefix_rides",
+                   "cow_copies", "spills", "promotes", "shared_blocks",
+                   "cached_blocks")}}
+        log(f"serve[shared-prefix {'reuse' if reuse else 'control'}] "
+            f"kv_prefix_reuse={eng.kv_prefix_reuse} "
+            f"kv_host_blocks={eng.host_blocks} prompt_lens="
+            f"{[len(p) for p in order]} prefill_calls={eng.prefill_calls} "
+            f"prefill_batches={res['prefill_batches']} tokens={n} "
+            f"wall_s={wall:.3f} tok_per_s={n / wall:.1f} "
+            f"ttft_ms_p50={res['ttft_ms_p50']:.1f} "
+            f"ttft_ms_p95={res['ttft_ms_p95']:.1f} ticks={eng.tick} "
+            f"launches={counts} pressure={res['pressure']} [{CARD}]")
+        return eng, toks, res
+
+    ctl, ctl_toks, ctl_res = run(False)
+    ctl_first, ctl_margins = ctl.first, ctl.margins
+    del ctl
+    torch.cuda.empty_cache()
+    eng, toks, res = run(True)
+    check(res["prefill_calls"] < ctl_res["prefill_calls"],
+          f"shared-prefix: {res['prefill_calls']} prefill calls with reuse, "
+          f"{ctl_res['prefill_calls']} without")
+    check(res["pressure"]["prefix_rides"] >= 1,
+          f"shared-prefix: no ride ({res['pressure']})")
+    check(res["launches"]["flash_tail"] > 0
+          and ctl_res["launches"]["flash_tail"] == 0,
+          f"shared-prefix: flash at an offset launched "
+          f"{res['launches']['flash_tail']} times with reuse, "
+          f"{ctl_res['launches']['flash_tail']} in the control")
+    # first-token logits of every hit request against the control's
+    errs = {rid: _rms_rel(torch, eng.first[rid], ctl_first[rid])
+            for rid in hit_rids}
+    cfg = build_run_cfg(plan, arch)
+    toks1 = torch.from_numpy(order[hit_rids[0]][None]).to(dev)
+    want = lm.prefill(arch, params, {"tokens": toks1}, cfg)[0][:, :V]
+    other = lm.prefill(arch, params, {"tokens": toks1}, dataclasses.replace(
+        cfg, flash_tiles=(16, 64)))[0][:, :V]
+    floor = _rms_rel(torch, other.float(), want.float())
+    worst = max(errs.values())
+    log(f"check shared-prefix first-token logits, tail path or ride vs the "
+        f"control's full prefill, {len(errs)} hit requests: worst rms_rel="
+        f"{worst:.3e} (tol {FULL_TOL}; full prefill re-tiled against "
+        f"itself {floor:.3e}) per request "
+        f"{ {r: round(e, 5) for r, e in errs.items()} } [{CARD}]")
+    check(worst <= FULL_TOL, f"shared-prefix: first-token logits rms_rel "
+          f"{worst} > {FULL_TOL}")
+    compared = same = 0
+    for rid, want_toks in ctl_toks.items():
+        for i, (a, b) in enumerate(zip(toks[rid], want_toks)):
+            compared += 1
+            if a != b:
+                m = ctl_margins[rid][i]
+                check(m <= FULL_TOL, f"shared-prefix: request {rid} token "
+                      f"{i} differs ({a} vs {b}) at a control margin {m} "
+                      f"> {FULL_TOL}")
+                break
+            same += 1
+    log(f"check shared-prefix greedy tokens vs control: {same} identical "
+        f"of {compared} compared (a request is compared up to its first "
+        f"difference, allowed only where the control's top-2 margin is "
+        f"<= {FULL_TOL} of its largest logit) [{CARD}]")
+    res.update(first_logits_rms_rel=worst, noise_floor=floor,
+               tokens_compared=compared, tokens_identical=same)
+
+    # ---- spill every cold block, then a hit promotes the system prompt
+    bl = eng.block_len
+
+    def system_block():
+        """The id of the system prompt's first block and its k/v rows
+        (from whichever tier holds it), on the host."""
+        b = eng._prefix.match(chain_hashes(system, bl))[0]
+        if eng._alloc.tier_of(b) == "hbm":
+            return b, {k: eng.cache[k][:, b].cpu() for k in ("k", "v")}
+        return b, {k: eng._host[k][:, b - eng.n_blocks].clone()
+                   for k in ("k", "v")}
+
+    _, snap = system_block()
+    ps0 = eng.pressure_stats()
+    tier0 = dict(eng.tier_ms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_spilled = eng.spill_cached()
+    spill_wall = (time.perf_counter() - t0) * 1e3
+    b_host, host_rows = system_block()
+    check(eng._alloc.tier_of(b_host) == "host"
+          and all(torch.equal(host_rows[k], snap[k]) for k in ("k", "v")),
+          f"spill: {n_spilled} blocks spilled; the system prompt's first "
+          "block is not on the host tier with its rows")
+    rid = eng.submit(shared[1], max_new_tokens=4)
+    eng.step()                        # admission promotes, tail prefill
+    torch.cuda.synchronize()
+    r = next(x for x in eng.active.values() if x.rid == rid)
+    same_rows = all(torch.equal(eng.cache[k][:, r.blocks[0]].cpu(),
+                                snap[k]) for k in ("k", "v"))
+    eng.run_until_idle()
+    ps1 = eng.pressure_stats()
+    promoted = ps1["promotes"] - ps0["promotes"]
+    spill_ms = (eng.tier_ms["spill"] - tier0["spill"]) / max(n_spilled, 1)
+    promote_ms = ((eng.tier_ms["promote"] - tier0["promote"])
+                  / max(promoted, 1))
+    eng.drop_block_cache()
+    st = eng.block_stats()
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                mem[key] = val.strip()
+    log(f"check spill -> promote: {n_spilled} cold blocks spilled "
+        f"({spill_ms:.2f} ms per block of {2 * snap['k'].numel() * 2} "
+        f"bytes, host copy waited for; spill_cached() {spill_wall:.1f} ms "
+        f"wall), {promoted} promoted ({promote_ms:.2f} ms per block, host "
+        f"time of the copy), prefix_hits {ps0['prefix_hits']} -> "
+        f"{ps1['prefix_hits']}, promoted rows bitwise equal to the "
+        f"snapshot: {same_rows}, block_stats after drop_block_cache={st}; "
+        f"host MemTotal={mem.get('MemTotal')} "
+        f"MemAvailable={mem.get('MemAvailable')} [{CARD}]")
+    check(promoted >= 1 and ps1["prefix_hits"] > ps0["prefix_hits"],
+          f"promote: {promoted} promotes, hits {ps0['prefix_hits']} -> "
+          f"{ps1['prefix_hits']}")
+    check(same_rows, "promote: promoted rows differ from the spilled rows")
+    check(st["free"] == st["total"] and st["host_free"] == st["host_total"]
+          and st["prefix_trie"] == 0,
+          f"spill/promote: blocks leaked: {st}")
+    res.update(spilled=n_spilled, promoted=promoted, spill_ms_per_block=
+               spill_ms, promote_ms_per_block=promote_ms,
+               promoted_rows_bitwise=same_rows, meminfo=mem, card=CARD)
+    del eng
+    torch.cuda.empty_cache()
+    return res, ctl_res
 
 
 # ---------------------------------------------------------------------
@@ -1187,14 +1513,17 @@ def main() -> int:
           and dense_counts["decode_attention"] > 0,
           f"dense serve did not launch its kernels: {dense_counts}")
 
-    # ---- phase 5: outputs against references ----
+    # ---- phase 5: shared prefixes, the plan as frozen against a control
+    shared, shared_ctl = shared_prefix_phase(torch, dev, arch, plan, params)
+
+    # ---- phase 6: outputs against references ----
     consistency_check(torch, dev, arch, params, build_run_cfg(plan, arch),
                       int(plan.estimates["kv_block_len"]))
     del params
     torch.cuda.empty_cache()
     small_model_check(torch, dev)
 
-    # ---- phases 6-7: mamba2-2.7b, qwen's weights freed ----
+    # ---- phases 7-8: mamba2-2.7b, qwen's weights freed ----
     march = get_arch("mamba2-2.7b")
     mplan = specialize(march, shape, mesh_shape=(1, 1), target="h100-sxm",
                        plan_dir=PLAN_DIR)
@@ -1230,7 +1559,7 @@ def main() -> int:
     small_ssm_check(torch, dev)
     ops.reset_launch_counts()
 
-    # ---- phase 8: the plan-driven matmul path ----
+    # ---- phase 9: the plan-driven matmul path ----
     serve_mm = {n: c["tiled_matmul"] for n, c in (
         ("paged", paged_counts), ("dense", dense_counts), ("ssm", ssm_counts))}
     check(not any(serve_mm.values()),
@@ -1243,9 +1572,12 @@ def main() -> int:
     log(f"matmul path: {mm_launches} launches, phase took "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
 
-    # ---- phase 9: results ----
-    launches = {k: paged_counts[k] + dense_counts[k] + ssm_counts[k]
-                for k in paged_counts}
+    # ---- phase 10: results ----
+    runs = (paged_counts, dense_counts, ssm_counts, shared["launches"],
+            shared_ctl["launches"])
+    launches = {k: sum(c[k] for c in runs) for k in paged_counts}
+    kern["flash_attention"]["tail_launches"] = sum(
+        c.get("flash_tail", 0) for c in runs)
     launches["tiled_matmul"] = mm_launches
     kernels = []
     for name, r in kern.items():
@@ -1263,13 +1595,15 @@ def main() -> int:
                                  "passes_ms", "chunks_ms", "bound_3xtf32_ms",
                                  "bound_per_head_scores_ms",
                                  "shape",
-                                 "shapes", "library_call", "launched_by")
+                                 "shapes", "library_call", "launched_by",
+                                 "offset", "tail_launches")
                if k in r},
             "ptxas": [[kernel, regs, spills] for kernel, regs, spills
                       in ptxas.get(Path(r["source"]).stem, [])],
             "card": CARD})
     log(json.dumps({"serve": {"paged": paged, "dense": dense,
-                              "ssm": ssm_serve,
+                              "ssm": ssm_serve, "shared_prefix": shared,
+                              "shared_prefix_control": shared_ctl,
                               "launches": {"paged": paged_counts,
                                            "dense": dense_counts,
                                            "ssm": ssm_counts}}}))

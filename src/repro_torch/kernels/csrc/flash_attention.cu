@@ -39,7 +39,12 @@
 //     shared memory;
 //   * ragged S: TMA zero-fills rows past S, keys past S are masked, and
 //     query rows past S are never written (the Pallas kernel asserted
-//     S % block == 0).
+//     S % block == 0);
+//   * a query block at an offset: q may hold Sq <= Skv rows, the last Sq
+//     positions of the key stream (a prompt's tail prefilled over a resident
+//     prefix).  Row i sits at absolute position q_off + i; the kv range,
+//     the edge-tile test and the masks all compare absolute positions, so
+//     Sq == Skv (q_off = 0) is the whole-prompt launch.
 // Tiles (rows, block_kv) in {(64, 64), (64, 128), (128, 64), (128, 128)}
 // (rows = 64 per consumer warpgroup), head_dim a template parameter
 // instantiated at 128; rows must hold whole GQA groups (G = 1, 2, 4, 8,
@@ -89,9 +94,10 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__device__ __forceinline__ bool key_ok(int kpos, int qpos, int S, int causal,
-                                       int window) {
-  return kpos < S && (!causal || kpos <= qpos) &&
+// qpos is the query's absolute position in the key stream (row + q_off)
+__device__ __forceinline__ bool key_ok(int kpos, int qpos, int Skv,
+                                       int causal, int window) {
+  return kpos < Skv && (!causal || kpos <= qpos) &&
          (window <= 0 || qpos - kpos < window);
 }
 
@@ -100,8 +106,8 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
-                 bf16* __restrict__ out, int S, int H, int K, int causal,
-                 int window, float scale_log2) {
+                 bf16* __restrict__ out, int Sq, int Skv, int q_off, int H,
+                 int K, int causal, int window, float scale_log2) {
   using L = Smem<D, BKV, NWG>;
   constexpr int kRows = L::kRows;
   constexpr int kAtoms = D / 64;  // 128-byte swizzle atoms along D
@@ -121,9 +127,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int BQ = kRows / G;  // query positions per CTA
   const int b = blockIdx.x / K, kvh = blockIdx.x % K;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int kv_end = causal ? q_last + 1 : S;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // query row i sits at absolute position q_off + i of the key stream (the
+  // wrapper passes q_off = Skv - Sq: the queries are its last Sq positions)
+  const int p0 = q_off + q0;
+  const int p_last = q_off + min(q0 + BQ, Sq) - 1;
+  const int kv_end = causal ? p_last + 1 : Skv;
+  const int kv_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   const int t_begin = kv_begin / BKV;
   const int n_tiles = (kv_end + BKV - 1) / BKV - t_begin;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
@@ -173,7 +182,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   if constexpr (NWG == 2) sm90::setmaxnreg_inc<240>();
   const int warp = tid / 32, lane = tid % 32;
   const int r_lo = wg * 64 + warp * 16 + lane / 4, r_hi = r_lo + 8;
-  const int qpos_lo = q0 + r_lo / G, qpos_hi = q0 + r_hi / G;
+  const int qrow_lo = q0 + r_lo / G, qrow_hi = q0 + r_hi / G;
+  const int qpos_lo = q_off + qrow_lo, qpos_hi = q_off + qrow_hi;
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -205,16 +215,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     sm90::fence_regs(sc);
 
     // masks, only on a tile that straddles a boundary
-    if (kv0 + BKV > S || (causal && kv0 + BKV - 1 > q0) ||
-        (window > 0 && q_last - kv0 >= window)) {
+    if (kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > p0) ||
+        (window > 0 && p_last - kv0 >= window)) {
 #pragma unroll
       for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kpos = kv0 + 8 * j + 2 * (lane % 4) + e;
-          if (!key_ok(kpos, qpos_lo, S, causal, window))
+          if (!key_ok(kpos, qpos_lo, Skv, causal, window))
             sc[4 * j + e] = -INFINITY;
-          if (!key_ok(kpos, qpos_hi, S, causal, window))
+          if (!key_ok(kpos, qpos_hi, Skv, causal, window))
             sc[4 * j + 2 + e] = -INFINITY;
         }
     }
@@ -280,18 +290,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     sm90::mbar_arrive(&empty[s]);
   }
 
-  // ---- epilogue: normalise, write rows whose position is < S
+  // ---- epilogue: normalise, write query rows < Sq
   const float lsum_lo = quad_sum(l_lo), lsum_hi = quad_sum(l_hi);
   const float inv_lo = lsum_lo > 0.f ? 1.f / lsum_lo : 0.f;
   const float inv_hi = lsum_hi > 0.f ? 1.f / lsum_hi : 0.f;
-  const int b_row = b * S;
+  const int b_row = b * Sq;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = h ? r_hi : r_lo;
-    const int qpos = h ? qpos_hi : qpos_lo;
+    const int qrow = h ? qrow_hi : qrow_lo;
     const float inv = h ? inv_hi : inv_lo;
-    if (qpos >= S) continue;
-    bf16* dst = out + (size_t(b_row + qpos) * H + kvh * G + r % G) * D;
+    if (qrow >= Sq) continue;
+    bf16* dst = out + (size_t(b_row + qrow) * H + kvh * G + r % G) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * (lane % 4)) =
@@ -300,23 +310,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// The three maps of a launch: q (B, S, H, D) in boxes of (64, G, rows/G,
-// 1), k and v (B, S, K, D) in boxes of (64, 1, block_kv, 1).
+// The three maps of a launch: q (B, Sq, H, D) in boxes of (64, G, rows/G,
+// 1), k and v (B, Skv, K, D) in boxes of (64, 1, block_kv, 1).
 int encode_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
-                const void* q, const void* k, const void* v, int B, int S,
-                int H, int K, int D, int rows, int block_kv) {
+                const void* q, const void* k, const void* v, int B, int Sq,
+                int Skv, int H, int K, int D, int rows, int block_kv) {
   const int G = H / K;
-  const cuuint64_t dq[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S),
+  const cuuint64_t dq[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(Sq),
                             cuuint64_t(B)};
   const cuuint64_t sq[3] = {cuuint64_t(D) * 2, cuuint64_t(H) * D * 2,
-                            cuuint64_t(S) * H * D * 2};
+                            cuuint64_t(Sq) * H * D * 2};
   const cuuint32_t bq[4] = {64, cuuint32_t(G), cuuint32_t(rows / G), 1};
   int err = sm90::encode_bf16_sw128(mq, q, 4, dq, sq, bq);
   if (err) return err;
-  const cuuint64_t dk[4] = {cuuint64_t(D), cuuint64_t(K), cuuint64_t(S),
+  const cuuint64_t dk[4] = {cuuint64_t(D), cuuint64_t(K), cuuint64_t(Skv),
                             cuuint64_t(B)};
   const cuuint64_t sk[3] = {cuuint64_t(D) * 2, cuuint64_t(K) * D * 2,
-                            cuuint64_t(S) * K * D * 2};
+                            cuuint64_t(Skv) * K * D * 2};
   const cuuint32_t bk[4] = {64, 1, cuuint32_t(block_kv), 1};
   err = sm90::encode_bf16_sw128(mk, k, 4, dk, sk, bk);
   if (err) return err;
@@ -325,11 +335,12 @@ int encode_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
 
 template <int D, int BKV, int NWG>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int K, int causal, int window, float scale,
-           cudaStream_t stream) {
+           int Sq, int Skv, int q_off, int H, int K, int causal, int window,
+           float scale, cudaStream_t stream) {
   constexpr int kRows = NWG * 64;
   CUtensorMap mq, mk, mv;
-  int err = encode_maps(&mq, &mk, &mv, q, k, v, B, S, H, K, D, kRows, BKV);
+  int err = encode_maps(&mq, &mk, &mv, q, k, v, B, Sq, Skv, H, K, D, kRows,
+                        BKV);
   if (err) return err;
   const size_t smem = Smem<D, BKV, NWG>::kBytes;
   auto kern = flash_fwd_kernel<D, BKV, NWG>;
@@ -337,52 +348,55 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
   const int BQ = kRows / (H / K);
-  const int q_tiles = (S + BQ - 1) / BQ;
+  const int q_tiles = (Sq + BQ - 1) / BQ;
   if (q_tiles > 65535) return int(cudaErrorInvalidValue);
   const float kLog2e = 1.4426950408889634f;
   kern<<<dim3(B * K, q_tiles), (NWG + 1) * 128, smem, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(out), S, H, K, causal, window,
-      scale * kLog2e);
+      mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, q_off, H, K, causal,
+      window, scale * kLog2e);
   return int(cudaGetLastError());
 }
 
 bool takes(const void* q, const void* k, const void* v, const void* out,
-           int S, int H, int K, int D, int rows) {
+           int Sq, int Skv, int q_off, int H, int K, int D, int rows) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) |
                          reinterpret_cast<uintptr_t>(out);
-  return D == 128 && K > 0 && H % K == 0 && rows % (H / K) == 0 && S > 0 &&
-         ptrs % 16 == 0;
+  return D == 128 && K > 0 && H % K == 0 && rows % (H / K) == 0 && Sq > 0 &&
+         Skv >= Sq && q_off >= 0 && q_off <= Skv - Sq && ptrs % 16 == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B, S, H, D), k/v (B, S, K, D), out (B, S, H, D), all bf16, contiguous
-// and 16-byte aligned.  rows = query rows per CTA (positions x G),
-// block_kv = K/V rows per tile.  Returns 0 when launched, a cudaError_t, or
-// a negative CUresult of the tensor-map encoder.
+// q (B, Sq, H, D), k/v (B, Skv, K, D), out (B, Sq, H, D), all bf16,
+// contiguous and 16-byte aligned, Sq <= Skv.  Query row i sits at absolute
+// position q_off + i of the key stream (the wrapper passes Skv - Sq: the
+// queries are the stream's last Sq positions; q_off = 0 with Sq == Skv is
+// a whole prompt).  rows = query rows per CTA (positions x G), block_kv =
+// K/V rows per tile.  Returns 0 when launched, a cudaError_t, or a negative
+// CUresult of the tensor-map encoder.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* out, int B, int S, int H, int K, int D,
-                        int causal, int window, int rows, int block_kv,
-                        float scale, void* stream) {
-  if (!takes(q, k, v, out, S, H, K, D, rows))
+                        void* out, int B, int Sq, int Skv, int q_off, int H,
+                        int K, int D, int causal, int window, int rows,
+                        int block_kv, float scale, void* stream) {
+  if (!takes(q, k, v, out, Sq, Skv, q_off, H, K, D, rows))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 64 && block_kv == 64)
-    return launch<128, 64, 1>(q, k, v, out, B, S, H, K, causal, window, scale,
-                              s);
+    return launch<128, 64, 1>(q, k, v, out, B, Sq, Skv, q_off, H, K, causal,
+                              window, scale, s);
   if (rows == 64 && block_kv == 128)
-    return launch<128, 128, 1>(q, k, v, out, B, S, H, K, causal, window,
-                               scale, s);
+    return launch<128, 128, 1>(q, k, v, out, B, Sq, Skv, q_off, H, K, causal,
+                               window, scale, s);
   if (rows == 128 && block_kv == 64)
-    return launch<128, 64, 2>(q, k, v, out, B, S, H, K, causal, window, scale,
-                              s);
+    return launch<128, 64, 2>(q, k, v, out, B, Sq, Skv, q_off, H, K, causal,
+                              window, scale, s);
   if (rows == 128 && block_kv == 128)
-    return launch<128, 128, 2>(q, k, v, out, B, S, H, K, causal, window,
-                               scale, s);
+    return launch<128, 128, 2>(q, k, v, out, B, Sq, Skv, q_off, H, K, causal,
+                               window, scale, s);
   return int(cudaErrorInvalidValue);
 }
 
@@ -396,7 +410,7 @@ double flash_attention_map_encode_us(const void* q, const void* k,
   const auto t0 = std::chrono::steady_clock::now();
   for (int i = 0; i < iters; ++i) {
     const int err =
-        encode_maps(&mq, &mk, &mv, q, k, v, B, S, H, K, D, rows, block_kv);
+        encode_maps(&mq, &mk, &mv, q, k, v, B, S, S, H, K, D, rows, block_kv);
     if (err) return double(err);
   }
   const auto t1 = std::chrono::steady_clock::now();

@@ -211,6 +211,13 @@ def _workspace(q: torch.Tensor, K: int, splits: int) -> torch.Tensor:
                        dtype=torch.float32, device=q.device)
 
 
+def takes_group(G: int, D: int = HEAD_DIM) -> bool:
+    """The decode kernels' admission rule for ``G`` query heads per kv
+    head at head_dim ``D``: ``D`` is :data:`HEAD_DIM` and ``G`` a power
+    of two up to :data:`MAX_GROUP` (one template instance each)."""
+    return D == HEAD_DIM and 1 <= G <= MAX_GROUP and not G & (G - 1)
+
+
 def _check(name: str, q, caches, ints) -> None:
     for tname, t in caches:
         if t.device != q.device:
@@ -227,8 +234,7 @@ def _check(name: str, q, caches, ints) -> None:
                              f"{q.device}, got {t.dtype} on {t.device}")
     B, H, D = q.shape
     K = caches[1][1].shape[2]
-    if D != HEAD_DIM or H % K or H // K > MAX_GROUP \
-            or (H // K) & (H // K - 1):
+    if H % K or not takes_group(H // K, D):
         raise ValueError(f"{name}: kernel takes head_dim {HEAD_DIM} and a "
                          f"power-of-two GQA group <= {MAX_GROUP}, got D={D} "
                          f"H={H} K={K}")

@@ -6,11 +6,16 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 ``csrc/flash_attention.cu``; its header says what bounds it on the card
 and how the design answers that.
 
-Contract (a superset of the Pallas one): q ``(B, S, H, D)``, k/v
-``(B, S, K, D)``, GQA with ``H % K == 0``, causal and sliding-window
-masks, any ``S`` (the ragged edge is masked; Pallas asserted ``S % block
-== 0``).  Output has q's dtype.  :func:`flash_attention` launches the
-kernel on CUDA tensors and raises on any other device;
+Contract (a superset of the Pallas one): q ``(B, Sq, H, D)``, k/v
+``(B, Skv, K, D)`` with ``Sq <= Skv``, GQA with ``H % K == 0``, causal
+and sliding-window masks, any lengths (the ragged edge is masked; Pallas
+asserted ``S % block == 0``).  The queries are the key stream's last
+``Sq`` positions: query row ``i`` sits at absolute position ``Skv - Sq +
+i`` (bottom-right-aligned causal), so ``Sq == Skv`` is a whole prompt
+and ``Sq < Skv`` a prompt's tail prefilled over a resident prefix (the
+JAX package's ``attention_tail``).  Output has q's dtype.
+:func:`flash_attention` launches the kernel on CUDA tensors and raises
+on any other device;
 :mod:`repro_torch.kernels.ops` sends a CPU tensor to
 :func:`flash_attention_plain` (one masked softmax in fp32, no tiles).
 
@@ -42,8 +47,10 @@ HEAD_DIM = 128
 #: K/V stages of the TMA ring in shared memory
 STAGES = 2
 
-#: launches of the CUDA kernel in this process (reset by the caller)
+#: launches of the CUDA kernel in this process (reset by the caller), and
+#: how many of them ran a query block at an offset (``Sq < Skv``)
 launches = 0
+tail_launches = 0
 
 
 def smem_bytes(rows: int, block_kv: int) -> int:
@@ -85,22 +92,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           window: int = 0) -> torch.Tensor:
     """The kernel's function in plain PyTorch: one masked softmax over
-    all key positions in fp32, the same superset contract (any ``S``).
-    Runs on any device."""
-    B, S, H, D = q.shape
-    K = k.shape[2]
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(S, device=q.device)[None, :]
-    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    all key positions in fp32, the same superset contract (any lengths,
+    queries the last ``Sq`` of ``Skv`` positions).  Runs on any device."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    if Sq > Skv:
+        raise ValueError(f"flash_attention: {Sq} queries over {Skv} keys; "
+                         "the queries are the key stream's last positions")
+    qpos = torch.arange(Skv - Sq, Skv, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:
         ok &= kpos <= qpos
     if window > 0:
         ok &= (qpos - kpos) < window
-    s = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(B, S, K, H // K, D).float(),
+    s = torch.einsum("bqkgd,bskd->bkgqs",
+                     q.reshape(B, Sq, K, H // K, D).float(),
                      k.float()) * (D ** -0.5)
     p = torch.softmax(torch.where(ok, s, float("-inf")), dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, S, H, D).to(q.dtype)
+    return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def _check(q, k, v) -> None:
@@ -117,10 +128,10 @@ def _check(q, k, v) -> None:
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    B, S, H, D = q.shape
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != D:
+    B, Sq, H, D = q.shape
+    if k.shape[0] != B or k.shape[1] < Sq or k.shape[3] != D:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
-                         f"match q {tuple(q.shape)}")
+                         f"match q {tuple(q.shape)} (Sq <= Skv)")
     if D != HEAD_DIM or H % k.shape[2]:
         raise ValueError(f"flash_attention: kernel takes head_dim "
                          f"{HEAD_DIM} and H % K == 0, got D={D} H={H} "
@@ -130,25 +141,30 @@ def _check(q, k, v) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     block_q: Optional[int] = None,
-                    block_kv: Optional[int] = None) -> torch.Tensor:
+                    block_kv: Optional[int] = None,
+                    ignore_offset: bool = False) -> torch.Tensor:
     """Launch the GQA flash kernel on CUDA tensors (raises on any other
-    device or on inputs the kernel does not take)."""
-    global launches
+    device or on inputs the kernel does not take).  ``ignore_offset``
+    plants a fault for the checks (tests and ``chip_smoke.py`` only): a
+    tail's queries are taken as positions ``0..Sq-1``."""
+    global launches, tail_launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: the kernel runs on CUDA tensors, "
                          f"got {q.device} (kernels.ops routes CPU tensors to "
                          "the plain version)")
     _check(q, k, v)
-    B, S, H, D = q.shape
-    K = k.shape[2]
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
     rows, bkv = kernel_tiles(H // K, block_q, block_kv)
     out = torch.empty_like(q)
     err = build.library("flash_attention").flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, H, K, D, int(causal), int(window), rows, bkv,
-        float(D ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+        B, Sq, Skv, 0 if ignore_offset else Skv - Sq, H, K, D, int(causal),
+        int(window), rows, bkv, float(D ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd: launch failed with "
                            f"{build.describe_error(err)}")
     launches += 1
+    tail_launches += Sq < Skv
     return out

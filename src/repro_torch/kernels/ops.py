@@ -44,8 +44,11 @@ def _use_kernel(name: str, t: torch.Tensor, mode: str) -> bool:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     tiles: Optional[Tuple[int, int]] = None,
                     mode: str = "auto") -> torch.Tensor:
-    """q ``(B, S, H, D)``, k/v ``(B, S, K, D)``; ``tiles`` is the plan's
-    ``(block_q, block_kv)`` (the plain version has no tiles)."""
+    """q ``(B, Sq, H, D)``, k/v ``(B, Skv, K, D)`` with ``Sq <= Skv``:
+    the queries are the key stream's last ``Sq`` positions (``Sq ==
+    Skv``: a whole prompt; ``Sq < Skv``: a tail over a resident prefix).
+    ``tiles`` is the plan's ``(block_q, block_kv)`` (the plain version has
+    no tiles)."""
     if not _use_kernel("flash_attention", q, mode):
         return _fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
@@ -125,6 +128,7 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     _fa.launches = 0
+    _fa.tail_launches = 0
     _dec.paged_launches = 0
     _dec.dense_launches = 0
     _ssd.launches = 0

@@ -7,7 +7,9 @@ Two modes, as in the JAX package's launcher, on one card:
 * plan mode (``--from-plan``) — run the specialization flow for a
   decode shape on the ``h100-sxm`` target, build the engine with
   :meth:`ServeEngine.from_plan`, and serve through the KV residency the
-  plan chose.
+  plan chose, its prefix reuse and its host spill tier as frozen (the
+plan's host pool is allocated, untouched, in host memory: at the
+full-width qwen3-8b decode 2048 x 8 plan, 512 blocks of 37.7 MB).
 
 The model is the arch's reduced config, with its published head_dim
 (the attention kernels are built for 128), unless ``--full`` asks for
@@ -53,27 +55,35 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core.passes.lowering import build_run_cfg
     from repro_torch.core.pipeline import specialize
-    from repro_torch.models.lm import RunCfg, init_params
+    from repro_torch.models.lm import RunCfg, check_on_device, init_params
     from repro_torch.serve.engine import ServeEngine
 
     arch = get_arch(args.arch)
     if not args.full:
         arch = dataclasses.replace(arch.reduced(), head_dim=arch.head_dim)
-    gen = torch.Generator(args.device).manual_seed(args.seed)
     if args.from_plan:
         shape = ShapeConfig("serve", "decode", args.max_len, args.max_batch)
         plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm")
+        _, heads, _, kv_heads = plan.padded_sizes()
+        # refuse an arch the card's kernels cannot take before any weight
+        check_on_device(arch, args.device, heads=heads, kv_heads=kv_heads,
+                        flash_tiles=build_run_cfg(plan, arch).flash_tiles)
+        gen = torch.Generator(args.device).manual_seed(args.seed)
         params = init_params(arch, gen, *plan.padded_sizes())
         engine = ServeEngine.from_plan(plan, params, arch=arch,
-                                       seed=args.seed, kv_prefix_reuse="off",
-                                       kv_host_blocks=0,
-                                       kv_admission="reserve")
+                                       seed=args.seed)
         print(f"plan {plan.content_hash()[:12]} target={plan.target} "
               f"kv_residency={engine.kv_residency} "
               f"block_len={engine.block_len} n_blocks={engine.n_blocks} "
+              f"kv_prefix_reuse={engine.kv_prefix_reuse} "
+              f"kv_host_blocks={engine.host_blocks} "
+              f"kv_prefetch={engine.kv_prefetch} "
               f"-> decode_path={engine.decode_path}")
     else:
+        check_on_device(arch, args.device)
+        gen = torch.Generator(args.device).manual_seed(args.seed)
         params = init_params(arch, gen)
         engine = ServeEngine(arch, params, RunCfg(),
                              max_batch=args.max_batch, max_len=args.max_len,
@@ -106,6 +116,7 @@ def main(argv=None) -> None:
               f"total={(r.t_done - r.t_submit) * 1e3:.0f}ms "
               f"tokens={r.out_tokens[:8]}...")
     print(f"telemetry {engine.telemetry()}")
+    print(f"pressure {engine.pressure_stats()}")
 
 
 def _profiler(device):

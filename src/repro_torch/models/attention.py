@@ -36,6 +36,18 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ops.flash_attention(q, k, v, **kw)
 
 
+def attention_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   **kw) -> torch.Tensor:
+    """Prefill attention for a prompt's tail: post-RoPE q ``(B, T, H,
+    hd)`` at absolute positions ``M..M+T-1`` over k/v ``(B, M+T, K, hd)``
+    (the resident prefix's rows, then the tail's).  The same route as
+    :func:`attention_chunked`: :func:`repro_torch.kernels.ops
+    .flash_attention`, whose queries are the key stream's last ``T``
+    positions, so on the card the flash kernel runs at the offset and
+    never falls back to the plain version."""
+    return ops.flash_attention(q, k, v, **kw)
+
+
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, **kw) -> torch.Tensor:
     """One-token decode, q ``(B, 1, H, hd)``, against a dense per-slot

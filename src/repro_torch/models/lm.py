@@ -89,6 +89,44 @@ def check_supported(arch: ArchConfig) -> None:
             "ported yet")
 
 
+def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
+                    kv_heads: int = 0,
+                    flash_tiles: Optional[Tuple[int, int]] = None) -> None:
+    """Raise, before any weights are built, for an architecture whose
+    attention the port's CUDA kernels do not take on ``device``: the
+    rules are the kernels' own (:func:`repro_torch.kernels
+    .flash_attention.kernel_tiles` at the plan's flash tiles, and
+    :func:`repro_torch.kernels.decode_attention.takes_group`).  On the
+    CPU every arch :func:`check_supported` admits runs (the plain
+    versions take any GQA group).  ``heads``/``kv_heads`` are the
+    layout pass's padded counts (0: the arch's own)."""
+    check_supported(arch)
+    if torch.device(device).type != "cuda" or not arch.has_attention:
+        return
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    H, K = heads or arch.n_heads, kv_heads or arch.n_kv_heads
+    G = H // K
+    refused = []
+    if arch.hd != fa.HEAD_DIM:
+        refused.append(f"flash_attention (built for head_dim "
+                       f"{fa.HEAD_DIM}, got {arch.hd})")
+    try:
+        fa.kernel_tiles(G, *(flash_tiles or (None, None)))
+    except ValueError as e:
+        refused.append(f"flash_attention ({e})")
+    if not dec.takes_group(G, arch.hd):
+        refused.append(f"decode_attention (head_dim {dec.HEAD_DIM} and a "
+                       f"power-of-two GQA group <= {dec.MAX_GROUP})")
+    if refused:
+        raise NotImplementedError(
+            f"{arch.name}: GQA group G = {G} ({H} query heads over {K} kv "
+            f"heads, head_dim {arch.hd}) is refused on CUDA by "
+            + "; ".join(refused) + ". Groups that are not powers of two "
+            "wait for ROADMAP §2 K2 (and head_dim 64 for K1); the plain "
+            "versions serve it on the CPU")
+
+
 # =====================================================================
 # Parameters
 # =====================================================================
@@ -329,6 +367,39 @@ def init_paged_cache(arch: ArchConfig, batch_size: int, max_len: int,
                                     device=device)}
 
 
+def init_host_pool(arch: ArchConfig, n_host_blocks: int, block_len: int,
+                   dtype=torch.bfloat16, kv_heads: int = 0
+                   ) -> Dict[str, torch.Tensor]:
+    """Host-DRAM spill tier behind the paged pool (``kv_tier_split``):
+    ``k``/``v`` CPU tensors ``(L, host_blocks, block_len, K, hd)`` in the
+    device pool's dtype, so a spill → promote round trip is bitwise
+    (``src/repro/models/lm.py:568-594``).
+
+    Allocated with ``torch.empty`` and not pinned: like the JAX
+    package's ``np.zeros``, untouched pages cost no RAM (a full-width
+    plan's pool is tens of GB), and rows are read only after a spill
+    has written them."""
+    L, K, hd = _kv_geometry(arch, kv_heads)
+    shape = (L, n_host_blocks, block_len, K, hd)
+    return {"k": torch.empty(shape, dtype=dtype, device="cpu"),
+            "v": torch.empty(shape, dtype=dtype, device="cpu")}
+
+
+def gather_blocks(pool: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Whole blocks of a ``(L, n_blocks, block_len, K, hd)`` pool as
+    ``(L, len(ids), block_len, K, hd)`` rows, one batched gather."""
+    return pool[:, ids]
+
+
+def scatter_blocks(pool: torch.Tensor, ids: torch.Tensor,
+                   rows: torch.Tensor) -> torch.Tensor:
+    """Write whole blocks into a pool **in place** (the inverse of
+    :func:`gather_blocks`, one batched scatter); ``rows`` may lie on
+    another device (a host → device promote).  Returns ``pool``."""
+    pool[:, ids] = rows.to(pool.device)
+    return pool
+
+
 def append_kv(cache: torch.Tensor, new: torch.Tensor,
               pos: torch.Tensor) -> torch.Tensor:
     """Per-slot append **in place**: ``cache[b, pos[b]] = new[b, 0]``
@@ -432,6 +503,61 @@ def prefill(arch: ArchConfig, params, batch, cfg: RunCfg,
     x = rms_norm(x[:, -1:], params["final_norm"], arch.norm_eps)
     cache["pos"].fill_(S)
     return _logits(arch, params, x)[:, 0], cache
+
+
+def prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg,
+                 k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 prefix_blocks: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill only the unmatched *tail* of prompts whose leading ``M``
+    rows sit in resident pool blocks (cross-request prefix reuse;
+    ``src/repro/models/lm.py:882-968``).
+
+    ``batch["tokens"]`` is ``(B, T)`` tail tokens; ``prefix_blocks``
+    ``(B, nbm)`` names each prompt's matched blocks in the
+    ``(L, N, bl, K, hd)`` pools (``M = nbm * bl`` rows, post-RoPE at
+    positions ``0..M-1``, as the donor's prefill wrote them).  The tail
+    is embedded at positions ``M..M+T-1``; each layer gathers its own
+    prefix rows from the pool (one layer's share, never the whole
+    ``(L, B, M, K, hd)`` stack), appends the tail's K/V and attends
+    through :func:`repro_torch.models.attention.attention_tail` — the
+    flash kernel at a query offset on the card.
+
+    Returns ``(last-token logits (B, V), tail_k, tail_v)``, the tail
+    K/V ``(L, B, T, K, hd)`` for the caller to scatter into fresh blocks.
+    Raises for an arch with an SSM: its state at position ``M`` depends
+    on every earlier token, so the prefix compute cannot be skipped."""
+    if arch.has_ssm:
+        raise ValueError(
+            f"prefill_tail cannot skip prefix compute for {arch.name}: "
+            "SSM state at the split point depends on the whole prefix")
+    x = _embed_in(arch, params, batch)
+    B, T = x.shape[:2]
+    ids = prefix_blocks.long().to(x.device)
+    M = ids.shape[1] * k_pool.shape[2]
+    positions = (M + torch.arange(T, device=x.device)).expand(B, T)
+    blocks = params["blocks"]
+    windows = _window_schedule(arch)
+    K = blocks["attn"]["wk"].shape[-1] // arch.hd
+    tail_k = torch.empty((arch.n_layers, B, T, K, arch.hd), dtype=x.dtype,
+                         device=x.device)
+    tail_v = torch.empty_like(tail_k)
+    for i in range(arch.n_layers):
+        grp = _layer(blocks, i)
+        h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
+        ap, (q, k, v) = _qkv(arch, grp, h, positions)
+        pk = k_pool[i][ids].reshape(B, M, K, arch.hd)
+        pv = v_pool[i][ids].reshape(B, M, K, arch.hd)
+        ctx = attn_mod.attention_tail(
+            q, torch.cat([pk.to(k.dtype), k], 1),
+            torch.cat([pv.to(v.dtype), v], 1), causal=arch.causal,
+            window=windows[i], tiles=cfg.flash_tiles, mode=cfg.kernels)
+        x = x + ctx.reshape(B, T, -1) @ ap.wo
+        x = _ffn_fwd(arch, grp, x)
+        tail_k[i] = k
+        tail_v[i] = v
+    x = rms_norm(x[:, -1:], params["final_norm"], arch.norm_eps)
+    return _logits(arch, params, x)[:, 0], tail_k, tail_v
 
 
 def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],

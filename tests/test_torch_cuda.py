@@ -55,6 +55,8 @@ from repro_torch.core.passes.lowering import build_run_cfg
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import lm
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.prefix_cache import chain_hashes
 
 FLASH_TOL = 1e-2            # worst row, rms-relative (see above)
 DECODE_TOL = 3e-3
@@ -165,6 +167,34 @@ def test_flash_kernel_window_starting_mid_tile(dev, window, tiles, causal):
     want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert _rel_err(got, want) < FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T", [(1024, 256), (1024, 1000), (64, 1),
+                                 (300, 77), (2048, 129)])
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("tiles", [None, (16, 64), (32, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_query_block_at_an_offset(dev, M, T, window, tiles,
+                                               causal):
+    """A tail of T queries at absolute positions M..M+T-1 over M + T keys
+    (prefix-reuse prefill): against the plain version of the same call,
+    and against the tail rows of the full-length launch, row by row.
+    Ragged T, so the q tiles and kv tiles straddle the offset."""
+    g = torch.Generator(dev).manual_seed(M + T + window)
+    q = _rnd(g, 2, M + T, H, D)
+    k, v = _rnd(g, 2, M + T, K, D), _rnd(g, 2, M + T, K, D)
+    tail = q[:, M:].contiguous()
+    bq, bkv = tiles or (None, None)
+    kw = dict(causal=causal, window=window, block_q=bq, block_kv=bkv)
+    got = tfa.flash_attention(tail, k, v, **kw)
+    full = tfa.flash_attention(q, k, v, **kw)
+    want = tfa.flash_attention_plain(tail, k, v, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert got.shape == tail.shape
+    assert _rel_err(got, want) < FLASH_TOL
+    assert _rel_err(got, full[:, M:]) < FLASH_TOL
 
 
 def _misaligned(t: torch.Tensor) -> torch.Tensor:
@@ -344,6 +374,14 @@ def _faulted(fault: str, d: torch.device):
     """``(got, want)``: ``ops`` on a planted fault against the plain
     version of the right input.  On the CPU both sides are plain."""
     g = torch.Generator(d).manual_seed(7)
+    if fault == "flash tail offset ignored":
+        M, T = (256, 100) if d.type == "cpu" else (1024, 1000)
+        q = _rnd(g, 2, T, H, D)
+        k, v = _rnd(g, 2, M + T, K, D), _rnd(g, 2, M + T, K, D)
+        want = tfa.flash_attention_plain(q, k, v)
+        if d.type == "cpu":          # queries taken as positions 0..T-1
+            return tfa.flash_attention_plain(q, k[:, :T], v[:, :T]), want
+        return tfa.flash_attention(q, k, v, ignore_offset=True), want
     if fault == "flash drops one kv tile":
         S = 512 if d.type == "cpu" else 2048
         q, k, v = _rnd(g, 1, S, H, D), _rnd(g, 1, S, K, D), _rnd(g, 1, S, K, D)
@@ -372,6 +410,7 @@ def _faulted(fault: str, d: torch.device):
 
 
 @pytest.mark.parametrize("fault", ["flash drops one kv tile",
+                                   "flash tail offset ignored",
                                    "paged one tile short",
                                    "paged one table entry swapped",
                                    "decode split dropped from the merge"])
@@ -452,6 +491,103 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------
+# prefix reuse and the host tier on the card (chip_smoke.py's
+# shared-prefix phase at reduced width)
+# ---------------------------------------------------------------------
+
+class _FirstLogits(ServeEngine):
+    """Keeps the logits each request's first token was sampled from."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.first, self._rids = {}, []
+
+    def _admit_group(self, group, *args):
+        self._rids = [r.rid for r in group]
+        super()._admit_group(group, *args)
+
+    def _ensure_writable(self):
+        super()._ensure_writable()
+        self._rids = [self.active[s].rid for s in sorted(self.active)]
+
+    def _sample(self, logits, temperatures):
+        for rid, row in zip(self._rids, logits.float().cpu()):
+            self.first.setdefault(rid, row)
+        return super()._sample(logits, temperatures)
+
+
+@pytest.mark.cuda
+def test_shared_prefix_and_spill_promote_on_card(dev):
+    """A 64-token system prompt (4 blocks of 16) behind 6 of 8 greedy
+    requests, one a ride, on the card with prefix reuse and 16 host
+    blocks against a control with both off: fewer prefill calls, a ride,
+    the flash kernel launched at an offset, every hit's first-token
+    logits within 2e-2 of the control's scale.  Then every cold block
+    spills and a resubmitted shared request promotes the system prompt's
+    first block back, bitwise; both tiers end whole."""
+    arch = _card_arch()
+    params = _to(lm.init_params(arch, torch.Generator().manual_seed(0)), dev)
+    rng = torch.Generator().manual_seed(5)
+    system = torch.randint(0, arch.vocab_size, (64,), generator=rng)
+
+    def tokens(n):
+        return torch.randint(0, arch.vocab_size, (n,), generator=rng)
+
+    prompts = [torch.cat([system, tokens(n)]) for n in (20, 37, 16, 50)]
+    prompts += [torch.cat([system, tokens(1)]), tokens(40), tokens(23),
+                torch.cat([system, tokens(9)])]
+    prompts = [p.numpy().astype("int32") for p in prompts]
+    runs = {}
+    for reuse in (False, True):
+        over = ({"kv_prefix_reuse": "on", "kv_host_blocks": 16} if reuse
+                else {"kv_prefix_reuse": "off"})
+        eng = _FirstLogits(arch, params, lm.RunCfg(), max_batch=4,
+                           max_len=256, kv_residency="paged",
+                           kv_block_len=16, **over)
+        ops.reset_launch_counts()
+        eng.submit(prompts[0], max_new_tokens=8)
+        for p in prompts[1:]:
+            eng.step()
+            eng.submit(p, max_new_tokens=8)
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        runs[reuse] = (eng, tfa.tail_launches)
+    (ctl, ctl_tail), (eng, tail) = runs[False], runs[True]
+    ps = eng.pressure_stats()
+    assert eng.prefill_calls < ctl.prefill_calls
+    assert ps["prefix_rides"] >= 1 and ps["prefix_hits"] >= 5, ps
+    assert tail > 0 and ctl_tail == 0
+    for rid in (1, 2, 3, 4, 7):
+        want = ctl.first[rid]
+        err = float((eng.first[rid] - want).abs().max() / want.abs().max())
+        assert err < LOGIT_TOL, (rid, err)
+    # spill every cold block; a hit promotes the system prompt back
+    b0 = eng._prefix.match(chain_hashes(prompts[0], 16))[0]
+    snap = {k: eng.cache[k][:, b0].cpu() for k in ("k", "v")}
+    assert eng.spill_cached() >= 4
+    rid = eng.submit(prompts[1], max_new_tokens=3)
+    eng.step()
+    torch.cuda.synchronize()
+    r = next(x for x in eng.active.values() if x.rid == rid)
+    for k in ("k", "v"):
+        assert torch.equal(eng.cache[k][:, r.blocks[0]].cpu(), snap[k])
+    assert eng.pressure_stats()["promotes"] >= 4
+    eng.run_until_idle()
+    eng.drop_block_cache()
+    st = eng.block_stats()
+    assert st["free"] == st["total"] and st["host_free"] == st["host_total"]
+
+
+def test_device_check_names_the_group_and_k2():
+    """deepseek-coder-33b (G = 7) is refused for a CUDA device before any
+    weight is built, on any machine; qwen3-8b and mamba2 are admitted."""
+    with pytest.raises(NotImplementedError, match=r"G = 7.*K2"):
+        lm.check_on_device(get_arch("deepseek-coder-33b"), "cuda")
+    for name in ("qwen3-8b", "mamba2-2.7b"):
+        lm.check_on_device(get_arch(name), "cuda")
 
 
 # ---------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Both engines are built ``from_plan`` on the ``serve_demo`` plan
 (reduced qwen3-8b, decode 128 x 4, target tpu-v5e — the plan
 ``examples/serve_batch.py`` serves) with prefix reuse and the host tier
-overridden off, on the same weights, and serve the same 10 greedy
+overridden off (``tests/test_torch_prefix.py`` serves the plan as
+frozen), on the same weights, and serve the same 10 greedy
 requests.  The port runs its kernels' plain versions (CPU tensors).
 
 The same holds for reduced mamba2-2.7b (attention-free: dense per-slot
@@ -115,7 +116,10 @@ def test_pool_accounting_and_prefill_batching_match(served):
                                       "tiled_matmul": 0}
 
 
-def test_from_plan_refuses_what_the_port_cannot_honour():
+def test_from_plan_refuses_what_the_port_cannot_honour(served):
+    """Grant admission and meshes still raise, naming the decision; a
+    plan that asks for prefix reuse and a host tier is served as it is
+    (those halves were refusals until the port had both)."""
     arch = tget_arch("qwen3-8b")
     grant = tspecialize(arch, TShape("serve_h100", "decode", 2048, 8),
                         mesh_shape=(1, 1), target="tpu-v5e")
@@ -123,21 +127,27 @@ def test_from_plan_refuses_what_the_port_cannot_honour():
     with pytest.raises(NotImplementedError, match="kv_admission"):
         TServeEngine.from_plan(grant, {}, kv_prefix_reuse="off",
                                kv_host_blocks=0)
+    with pytest.raises(NotImplementedError, match="kv_admission"):
+        TServeEngine.from_plan(grant, {})
     demo = tspecialize(arch.reduced(), TShape("serve_demo", "decode", 128, 4),
                        mesh_shape=(1, 1), target="tpu-v5e")
     assert demo.estimates["kv_prefix_reuse"] == "on"
-    with pytest.raises(NotImplementedError, match="kv_prefix_reuse"):
-        TServeEngine.from_plan(demo, {}, arch=arch.reduced(),
-                               kv_host_blocks=0)
-    with pytest.raises(NotImplementedError, match="kv_host_blocks"):
-        TServeEngine.from_plan(demo, {}, arch=arch.reduced(),
-                               kv_prefix_reuse="off")
+    assert int(demo.estimates["kv_host_blocks"]) > 0
+    params = served["teng"].params
+    for over in ({"kv_host_blocks": 0}, {"kv_prefix_reuse": "off"}, {}):
+        eng = TServeEngine.from_plan(demo, params, arch=arch.reduced(),
+                                     **over)
+        assert eng.kv_prefix_reuse == (over.get("kv_prefix_reuse") != "off")
+        assert (eng.host_blocks > 0) == ("kv_host_blocks" not in over)
+        assert eng.block_stats()["host_total"] == eng.host_blocks
     meshed = tspecialize(arch.reduced(), TShape("serve_demo", "decode", 128,
                                                 4), mesh_shape=(2, 2),
                          target="tpu-v5e")
     with pytest.raises(NotImplementedError, match="mesh"):
         TServeEngine.from_plan(meshed, {}, arch=arch.reduced(),
                                kv_prefix_reuse="off", kv_host_blocks=0)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        TServeEngine.from_plan(meshed, {}, arch=arch.reduced())
 
 
 @pytest.mark.parametrize("seed", [0, 1])
