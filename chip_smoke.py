@@ -3,10 +3,11 @@
 
 Drives the port's main paths — ``specialize(target="h100-sxm")`` ->
 ``ServeEngine.from_plan`` -> bucketed prefill -> decode -> tokens — for
-full-width, full-depth qwen3-8b (paged-KV decode) and mamba2-2.7b (SSD
-prefill, recurrent decode), random weights from a seed, and holds each
-of the paths' hand-written kernels against its plain PyTorch version on
-the card.
+full-width, full-depth qwen3-8b (paged-KV decode), mamba2-2.7b (SSD
+prefill, recurrent decode) and deepseek-coder-33b (a GQA group of 7,
+grant admission and the preemption ladder), random weights from a seed,
+and holds each of the paths' hand-written kernels against its plain
+PyTorch version on the card.
 
 Phases (any failure exits non-zero before the last line):
 
@@ -31,7 +32,10 @@ Phases (any failure exits non-zero before the last line):
    turns, each with its grid (CTAs, launches per call);
    Flash is also held with a query block at an offset (a prompt's tail
    over a resident prefix), beside its planted fault (the offset
-   ignored), and timed beside the full-length launch of the same rows;
+   ignored), and timed beside the full-length launch of the same rows.
+   Flash (whole and at an offset) and decode (paged and dense) are held
+   and timed again at deepseek-coder-33b's 56 / 8 heads (G = 7), with
+   each flash CTA's boundary rows checked on their own;
 3. qwen3-8b serve, paged: the plan as frozen (paged pool, prefix reuse,
    512 host blocks), 16 requests; both tiers whole after the engine's
    block cache is dropped;
@@ -49,8 +53,15 @@ Phases (any failure exits non-zero before the last line):
    SSD-scan launches per prefill call;
 8. mamba2-2.7b checks: the full-depth consistency check (prefill + one
    recurrent decode step against the kernel's prefill of the same
-   tokens) and a small mamba2 on the card against the CPU;
-9. the plan-driven matmul path: the serve phases' ``h100-sxm`` plans
+   tokens), a park with state (``preempt(rid)`` mid-decode: no prefill
+   call on resume, tokens identical to the untouched run) and a small
+   mamba2 on the card against the CPU;
+9. deepseek-coder-33b (every earlier weight freed): the grant plan as
+   frozen (8 pool blocks, 64 host blocks) serves 12 requests through the
+   grant -> migrate -> preempt ladder, parks with state and resumes by
+   promote, against a reserve control on the same weights; then its
+   full-depth consistency check at G = 7;
+10. the plan-driven matmul path: the serve phases' ``h100-sxm`` plans
    stored, reloaded by hash prefix and shown with the plan-store CLI
    (``launch.plan show --log``), then ``kernels.ops.matmul`` on each
    plan's tiles at five full-width GEMM shapes of the two models, each
@@ -58,7 +69,7 @@ Phases (any failure exits non-zero before the last line):
    and timed beside its bound, the plain version and ``torch.matmul``.
    No serving path launches this kernel: the models' projections stay
    ``torch.matmul``;
-10. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+11. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
 name and power limit.
@@ -98,6 +109,7 @@ MM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 LOGIT_TOL = 2e-2            # small model: max |card - cpu| / max |cpu| logits
 FULL_TOL = 0.1              # rms-relative logits, full depth (see below)
 H, K, D = 32, 8, 128        # qwen3-8b attention widths
+H7, K7 = 56, 8              # deepseek-coder-33b: a GQA group of 7
 SSD_H, SSD_P, SSD_N, SSD_G = 80, 64, 128, 1   # mamba2-2.7b SSD widths
 SEED = 0
 CARD = ""                   # nvidia-smi name, power limit (set in main)
@@ -511,6 +523,8 @@ def kernel_phase(torch, dev):
         shape=f"B={Bd} S={max_len} H={H} K={K} D={D} lens={lens_list} bf16; "
               f"kernel and library: medians of {TURNS} turns",
         library_call="F.scaled_dot_product_attention(attn_mask, enable_gqa)")
+    for name, r in g7_kernel_check(torch, F, fa, dec, rnd, dev, g).items():
+        res[name]["g7"] = r
     res["ssd_scan"] = ssd_kernel_check(torch, dev, g)
     mm_worst = matmul_kernel_check(torch, dev, g)
     for name, r in res.items():
@@ -585,6 +599,193 @@ def flash_offset_check(torch, F, fa, rnd):
             control_row_rel_err=ctl, tail_rows_bitwise=bitwise,
             kernel_turns_ms=rounds["offset"], full_turns_ms=rounds["full"]))
     out.update(max_abs_err=worst, row_rel_err=worst_rel)
+    return out
+
+
+def g7_kernel_check(torch, F, fa, dec, rnd, dev, g):
+    """The attention kernels at deepseek-coder-33b's widths: 56 query
+    heads over 8 kv heads of 128 (G = 7, a group that divides no tile:
+    18 positions fill 126 of the flash CTA's 128 rows).  Flash at B=2
+    S=1024 causal and at a query offset (M=1024, T=256); decode, paged
+    and dense, at 8 slots of 1 to 2048 rows.  Each is held row by row
+    against its plain version at :data:`TOL`, with the rows of every
+    flash CTA's first position (``q0 + BQ``, where a pad row written by
+    the CTA before would land) held on their own; beside each a planted
+    fault must fail the same check.  Each is timed in turns with SDPA
+    (``enable_gqa``; the bottom-right boolean mask at the offset; the
+    masked dense call for decode, as device time of a CUDA graph), with
+    its bound."""
+    out = {}
+    B, S = 2, 1024
+    q, k, v = rnd(B, S, H7, D), rnd(B, S, K7, D), rnd(B, S, K7, D)
+    rows, bkv = fa.kernel_tiles(H7 // K7)
+    bq = rows // (H7 // K7)
+    edge = torch.arange(bq, S, bq, device=dev)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    got = fa.flash_attention(q, k, v, causal=True)
+    err, rel = row_err(torch, got, want)
+    _, rel_edge = row_err(torch, got[:, edge], want[:, edge])
+    tol = TOL["flash_attention"]
+    log(f"kernel flash_attention G=7 B={B} S={S} tile {rows} rows = {bq} "
+        f"positions x 7 + {rows - bq * 7} pad: max_abs_err={err:.3e} worst "
+        f"row rel={rel:.3e}, worst row at the {edge.numel()} CTA-boundary "
+        f"positions rel={rel_edge:.3e} (tol {tol}) [{CARD}]")
+    check(rel <= tol and rel_edge <= tol,
+          f"flash_attention G=7 row rel err {rel} / {rel_edge} > {tol}")
+    ctl = control("flash_attention", "G=7 drops one kv tile", torch,
+                  fa.flash_attention(q, k, v, causal=True, window=S - 64),
+                  want)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    med, rounds = in_turns(torch, {
+        "kernel": lambda: fa.flash_attention(q, k, v, causal=True),
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)})
+    pairs = B * S * (S + 1) / 2
+    b_ms, b_by = bound(2 * (2 * B * S * H7 * D + 2 * B * S * K7 * D),
+                       4 * D * H7 * pairs)
+    plain = time_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal=True), iters=5)
+    log(f"timing flash_attention G=7 B={B} S={S}: kernel {med['kernel']:.4f}"
+        f" ms, SDPA {med['library']:.4f} ms (medians of {TURNS} turns: "
+        f"kernel {fmt(rounds['kernel'])}, SDPA {fmt(rounds['library'])}), "
+        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{CARD}]")
+    out["flash_attention"] = dict(
+        shape=f"B={B} S={S} H={H7} K={K7} D={D} causal bf16, tile {rows} "
+              f"rows ({bq} positions x 7)", ms=med["kernel"],
+        library_ms=med["library"], plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, max_abs_err=err, row_rel_err=rel,
+        boundary_row_rel_err=rel_edge, control_row_rel_err=ctl,
+        kernel_turns_ms=rounds["kernel"], library_turns_ms=rounds["library"])
+
+    # ---- at a query offset: a 256-token tail over 1024 resident rows
+    M, T = 1024, 256
+    qf, k, v = rnd(B, M + T, H7, D), rnd(B, M + T, K7, D), rnd(B, M + T, K7, D)
+    q = qf[:, M:].contiguous()
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    got = fa.flash_attention(q, k, v, causal=True)
+    err, rel = row_err(torch, got, want)
+    edge = torch.arange(bq, T, bq, device=dev)
+    _, rel_edge = row_err(torch, got[:, edge], want[:, edge])
+    log(f"kernel flash_attention G=7 offset B={B} M={M} T={T}: "
+        f"max_abs_err={err:.3e} worst row rel={rel:.3e}, CTA-boundary "
+        f"positions rel={rel_edge:.3e} (tol {tol}) [{CARD}]")
+    check(rel <= tol and rel_edge <= tol,
+          f"flash_attention G=7 offset row rel err {rel} / {rel_edge}")
+    ctl_off = control("flash_attention", f"G=7 offset ignored (M={M} T={T})",
+                      torch, fa.flash_attention(q, k, v, causal=True,
+                                                ignore_offset=True), want)
+    qpos = torch.arange(M, M + T, device=dev)[:, None]
+    mask = torch.arange(M + T, device=dev)[None, :] <= qpos
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    med, rounds = in_turns(torch, {
+        "kernel": lambda: fa.flash_attention(q, k, v, causal=True),
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)})
+    pairs = B * (T * M + T * (T + 1) / 2)
+    b_ms, b_by = bound(2 * (2 * B * T * H7 * D + 2 * B * (M + T) * K7 * D),
+                       4 * D * H7 * pairs)
+    plain = time_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal=True), iters=5)
+    log(f"timing flash_attention G=7 offset B={B} M={M} T={T}: kernel "
+        f"{med['kernel']:.4f} ms, SDPA (bottom-right mask) "
+        f"{med['library']:.4f} ms (medians of {TURNS} turns: kernel "
+        f"{fmt(rounds['kernel'])}), plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}) [{CARD}]")
+    out["flash_attention"]["offset"] = dict(
+        M=M, T=T, ms=med["kernel"], library_ms=med["library"],
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+        row_rel_err=rel, boundary_row_rel_err=rel_edge,
+        control_row_rel_err=ctl_off)
+
+    # ---- decode, paged and dense: 8 slots, 1..2048 rows
+    lens_list = [1, 64, 300, 777, 1024, 1500, 1999, 2048]
+    Bd, max_len, bl = len(lens_list), 2048, 256
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    nb = max_len // bl
+    need = [-(-n // bl) for n in lens_list]
+    perm = torch.randperm(nb * Bd, generator=g, device=dev).int()
+    tbl = torch.full((Bd, nb), -1, dtype=torch.int32, device=dev)
+    at = 0
+    for b, n in enumerate(need):
+        tbl[b, :n] = perm[at:at + n]
+        at += n
+    qd = rnd(Bd, H7, D)
+    kp, vp = rnd(nb * Bd, bl, K7, D), rnd(nb * Bd, bl, K7, D)
+    kd, vd = rnd(Bd, max_len, K7, D), rnd(Bd, max_len, K7, D)
+    short = lens.clone()
+    short[-1] -= bl
+    swapped = tbl.clone()
+    swapped[-1, 0] = tbl[-2, 0]
+    live = sum(lens_list)
+    flops = 4 * D * H7 * live
+    io = 2 * (2 * Bd * H7 * D) + 4 * Bd
+    kv_bytes = 2 * 2 * live * K7 * D
+    dtol = TOL["paged_decode_attention"]
+    want = dec.paged_decode_attention_plain(qd, kp, vp, tbl, cache_len=lens)
+    err, rel = row_err(torch, dec.paged_decode_attention(
+        qd, kp, vp, tbl, cache_len=lens), want)
+    log(f"kernel paged_decode_attention G=7 bl={bl} lens={lens_list}: "
+        f"max_abs_err={err:.3e} worst row rel={rel:.3e} (tol {dtol}) "
+        f"[{CARD}]")
+    check(rel <= dtol, f"paged_decode_attention G=7 row rel err {rel}")
+    ctl_p = min(
+        control("paged_decode_attention", "G=7 one tile short", torch,
+                dec.paged_decode_attention(qd, kp, vp, tbl, cache_len=short),
+                want),
+        control("paged_decode_attention", "G=7 one table entry swapped",
+                torch, dec.paged_decode_attention(qd, kp, vp, swapped,
+                                                  cache_len=lens), want),
+        control("paged_decode_attention", "G=7 split 0 dropped", torch,
+                dec.paged_decode_attention(qd, kp, vp, tbl, cache_len=lens,
+                                           drop_split=0), want))
+    plain_p = time_ms(torch, lambda: dec.paged_decode_attention_plain(
+        qd, kp, vp, tbl, cache_len=lens), iters=5)
+    wantd = dec.decode_attention_plain(qd, kd, vd, cache_len=lens)
+    errd, reld = row_err(torch, dec.decode_attention(qd, kd, vd,
+                                                     cache_len=lens), wantd)
+    log(f"kernel decode_attention G=7 S={max_len} lens={lens_list}: "
+        f"max_abs_err={errd:.3e} worst row rel={reld:.3e} (tol "
+        f"{TOL['decode_attention']}) [{CARD}]")
+    check(reld <= TOL["decode_attention"],
+          f"decode_attention G=7 row rel err {reld}")
+    ctl_d = min(
+        control("decode_attention", "G=7 one tile short", torch,
+                dec.decode_attention(qd, kd, vd, cache_len=short), wantd),
+        control("decode_attention", "G=7 split 0 dropped", torch,
+                dec.decode_attention(qd, kd, vd, cache_len=lens,
+                                     drop_split=0), wantd))
+    plain_d = time_ms(torch, lambda: dec.decode_attention_plain(
+        qd, kd, vd, cache_len=lens), iters=5)
+    mask = (torch.arange(max_len, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+    med, rounds = in_turns(torch, {
+        "paged": lambda: dec.paged_decode_attention(qd, kp, vp, tbl,
+                                                    cache_len=lens),
+        "dense": lambda: dec.decode_attention(qd, kd, vd, cache_len=lens),
+        "library": lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True)}, timer=graph_ms)
+    bp_ms, bp_by = bound(io + kv_bytes + 4 * sum(need), flops)
+    bd_ms, bd_by = bound(io + kv_bytes, flops)
+    log(f"timing decode G=7 B={Bd} S={max_len} lens={lens_list}, device "
+        f"(CUDA graph): paged {med['paged']:.4f} ms, dense "
+        f"{med['dense']:.4f} ms, SDPA (masked) {med['library']:.4f} ms "
+        f"(medians of {TURNS} turns: paged {fmt(rounds['paged'])}, dense "
+        f"{fmt(rounds['dense'])}); plain paged {plain_p:.4f} ms, dense "
+        f"{plain_d:.4f} ms; bound paged {bp_ms:.4f} ms ({bp_by}), dense "
+        f"{bd_ms:.4f} ms ({bd_by}) [{CARD}]")
+    shape = f"B={Bd} H={H7} K={K7} D={D} lens={lens_list} bf16"
+    out["paged_decode_attention"] = dict(
+        shape=f"bl={bl} {shape}", ms=med["paged"], library_ms=None,
+        plain_ms=plain_p, bound_ms=bp_ms, bound_by=bp_by, max_abs_err=err,
+        row_rel_err=rel, control_row_rel_err=ctl_p,
+        turns_ms=rounds["paged"])
+    out["decode_attention"] = dict(
+        shape=f"S={max_len} {shape}", ms=med["dense"],
+        library_ms=med["library"], plain_ms=plain_d, bound_ms=bd_ms,
+        bound_by=bd_by, max_abs_err=errd, row_rel_err=reld,
+        control_row_rel_err=ctl_d, turns_ms=rounds["dense"],
+        library_turns_ms=rounds["library"])
     return out
 
 
@@ -816,7 +1017,8 @@ def _recording_engine(ServeEngine):
             self.first, self.margins, self._rids = {}, {}, []
 
         def _admit_group(self, group, *args):
-            self._rids = [r.rid for r in group]
+            # a resumed request's prefill draws no sample
+            self._rids = [r.rid for r in group if not r.out_tokens]
             super()._admit_group(group, *args)
 
         def _ensure_writable(self):
@@ -1042,6 +1244,267 @@ def shared_prefix_phase(torch, dev, arch, plan, params):
     return res, ctl_res
 
 
+def ssm_park_check(torch, dev, arch, plan, params):
+    """mamba2 parks with its state: an engine from the plan with a host
+    tier (``kv_host_blocks`` turns on parks with state for a dense
+    engine, as in the JAX engine) serves 3 greedy requests twice, once
+    untouched and once with ``preempt(rid)`` of the request with the
+    most output at its third tick.  The victim's SSM state and conv
+    window go to the host and come back: no prefill call across the park
+    and resume, and every request's tokens identical to the untouched
+    run."""
+    import numpy as np
+
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(0, arch.vocab_size, 64 * k).astype(np.int32)
+               for k in (1, 2, 3)]
+    runs = []
+    for park in (False, True):
+        eng = ServeEngine.from_plan(plan, params, arch=arch, seed=SEED,
+                                    kv_host_blocks=8)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=16)
+        for _ in range(3):
+            eng.step()
+        calls = eng.prefill_calls
+        if park:
+            victim = max(eng.active.values(), key=lambda r: len(r.out_tokens))
+            at = len(victim.out_tokens)
+            eng.preempt(victim.rid)
+            check(eng.preempted and eng.preempted[0].parked_state is not None,
+                  "ssm park: the victim did not park with its state")
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        runs.append(({r.rid: r.out_tokens for r in eng.finished},
+                     eng.prefill_calls - calls, eng.pressure_stats()))
+        del eng
+    (want, _, _), (got, extra, ps) = runs
+    same = got == want
+    log(f"check mamba2 park: preempt(rid={victim.rid}) after {at} tokens, "
+        f"parks_with_state={ps['parks_with_state']} resumes={ps['resumes']} "
+        f"prefill calls across the park and resume: {extra}; tokens "
+        f"identical to the untouched run: {same} [{CARD}]")
+    check(ps["parks_with_state"] == ps["resumes"] == 1 and extra == 0,
+          f"ssm park: {ps} with {extra} prefill calls after the park")
+    check(same, f"ssm park: tokens differ from the untouched run: {got} vs "
+          f"{want}")
+    torch.cuda.empty_cache()
+    return {"victim_tokens_at_park": at, "prefill_calls_after_park": extra,
+            "tokens_identical": same}
+
+
+def grant_phase(torch, dev):
+    """Full-width, full-depth deepseek-coder-33b (62 layers, d_model
+    7168, 56 / 8 heads of 128: a GQA group of 7) on one card from its
+    frozen ``h100-sxm`` plan at decode 2048 x 8, whose 66.7 GB of bf16
+    weights leave an 8-block pool (one 2048-token sequence) behind
+    grant admission, 64 host blocks, prefix reuse and prefetch.
+
+    ``from_plan(plan, params)`` with no keyword serves 12 greedy
+    requests of 64k tokens (k seeded in 2..10) and 48 new tokens, all
+    submitted at t = 0: decode ticks cross block boundaries, grants
+    fail, and the ladder spills cold blocks, preempts victims that park
+    their KV on the host, and resumes them by promote (staged one tick
+    ahead through the pinned buffer).  Then a reserve control on the
+    same weights (64 blocks, reuse and host tier off).
+
+    Checks: the plan's decisions and its G = 7 tiles; every request
+    finishes, none shed; >= 1 preemption, park with state, resume by
+    promote and consumed prefetch; no request prefilled twice (every
+    park kept its state); 62 flash launches a prefill call and 62 paged
+    decode launches a decode tick; greedy tokens equal the control's
+    until a step whose control top-2 margin is <= :data:`FULL_TOL` of
+    its largest logit.  Reported: first-token logits rms-relative against
+    the control's, beside the noise floor of the full prefill re-tiled.
+    Then the full-depth consistency check at G = 7 (top-1 under the
+    margin rule)."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.core.passes.lowering import build_run_cfg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    free, total = torch.cuda.mem_get_info()
+    log(f"33b-grant: device memory before the weights: {free} of {total} "
+        f"bytes free (torch.cuda.mem_get_info) [{CARD}]")
+    arch = get_arch("deepseek-coder-33b")
+    G = arch.n_heads // arch.n_kv_heads
+    plan = specialize(arch, ShapeConfig("serve_h100", "decode", 2048, 8),
+                      mesh_shape=(1, 1), target="h100-sxm",
+                      plan_dir=PLAN_DIR)
+    est = plan.estimates
+    pplan = specialize(arch, ShapeConfig("prefill_h100", "prefill", 2048, 8),
+                       mesh_shape=(1, 1), target="h100-sxm",
+                       plan_dir=PLAN_DIR)
+    dec_tile = dict(plan.partitions["decode_attention"].blocks)
+    fl_tile = dict(pplan.partitions["flash_attention"].blocks)
+    log(f"33b-grant plan {plan.content_hash()[:16]}: kv_admission="
+        f"{est.get('kv_admission')} kv_n_blocks={est.get('kv_n_blocks')} "
+        f"kv_block_len={est.get('kv_block_len')} kv_host_blocks="
+        f"{est.get('kv_host_blocks')} kv_prefix_reuse="
+        f"{est.get('kv_prefix_reuse')} kv_prefetch={est.get('kv_prefetch')} "
+        f"persistent_bytes={est.get('persistent_bytes_per_dev')} "
+        f"kv_decode_tick_us={est.get('kv_decode_tick_us')}; decode tile "
+        f"{dec_tile}; prefill plan {pplan.content_hash()[:16]} flash tile "
+        f"{fl_tile} (G={G}) [{CARD}]")
+    check(G == 7 and est.get("kv_admission") == "grant"
+          and int(est.get("kv_n_blocks", 0)) == 8
+          and int(est.get("kv_block_len", 0)) == 256,
+          f"33b plan: G={G} {est}")
+    check(dec_tile.get("block_kv") == 256
+          and fl_tile.get("block_q") == 128 // G
+          and fa.kernel_tiles(G, fl_tile["block_q"], fl_tile["block_kv"])
+          == (128, 128),
+          f"33b plans: decode tile {dec_tile}, flash tile {fl_tile}")
+    t0 = time.perf_counter()
+    params = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                            *plan.padded_sizes())
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    free, total = torch.cuda.mem_get_info()
+    log(f"weights: deepseek-coder-33b layers={arch.n_layers} "
+        f"d_model={arch.d_model} heads={arch.n_heads}/{arch.n_kv_heads} "
+        f"d_ff={arch.d_ff} vocab={arch.vocab_size} params={n_params} "
+        f"({2 * n_params} bytes bf16) random (seed {SEED}) in "
+        f"{time.perf_counter() - t0:.1f} s; {free} bytes free after "
+        f"[{CARD}]")
+
+    Rec = _recording_engine(ServeEngine)
+    rng = np.random.default_rng(SEED + 7)
+    V = arch.vocab_size
+    prompts = [rng.integers(0, V, 64 * int(k)).astype(np.int32)
+               for k in rng.integers(2, 11, 12)]
+
+    def run(name, make):
+        eng = make()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ticks = [0]
+        step = eng.step
+
+        def counted():                 # decode ticks: the ones with slots
+            n = step()
+            ticks[0] += bool(eng.active) or n > 0
+            return n
+
+        eng.step = counted
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.submit(p, max_new_tokens=48)
+        done = eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(len(done) == len(prompts)
+              and all(len(r.out_tokens) == 48 for r in done),
+              f"33b-grant[{name}]: {len(done)} of {len(prompts)} requests "
+              "finished")
+        ttft = np.array([(r.t_first - r.t_submit) * 1e3 for r in done])
+        n = sum(len(r.out_tokens) for r in done)
+        ps = eng.pressure_stats()
+        res = {"prefill_calls": eng.prefill_calls,
+               "prefill_batches": list(eng.prefill_batches),
+               "prefilled_requests": sum(eng.prefill_batches),
+               "ticks": eng.tick, "decode_ticks": ticks[0], "tokens": n,
+               "wall_s": wall, "tok_per_s": n / wall,
+               "ttft_ms_p50": float(np.percentile(ttft, 50)),
+               "ttft_ms_p95": float(np.percentile(ttft, 95)),
+               "launches": counts, "tier_ms": dict(eng.tier_ms),
+               "pressure": {k: ps[k] for k in (
+                   "preemptions", "migrations", "grant_denials", "shed",
+                   "parks_with_state", "resumes", "resumes_by_promote",
+                   "prefetch_staged", "prefetch_consumed", "spills",
+                   "promotes", "prefix_hits", "cached_blocks")},
+               "kv_admission": eng.kv_admission, "n_blocks": eng.n_blocks,
+               "host_blocks": eng.host_blocks, "card": CARD}
+        log(f"serve[33b-grant {name}] kv_admission={eng.kv_admission} "
+            f"n_blocks={eng.n_blocks} host_blocks={eng.host_blocks} "
+            f"kv_prefetch={eng.kv_prefetch} prompt_lens="
+            f"{[len(p) for p in prompts]} prefill_calls={eng.prefill_calls} "
+            f"prefill_batches={res['prefill_batches']} ticks={eng.tick} "
+            f"decode_ticks={ticks[0]} tokens={n} wall_s={wall:.3f} "
+            f"tok_per_s={n / wall:.2f} ttft_ms_p50={res['ttft_ms_p50']:.1f} "
+            f"ttft_ms_p95={res['ttft_ms_p95']:.1f} launches={counts} "
+            f"pressure={res['pressure']} tier_ms={res['tier_ms']} "
+            f"[{CARD}]")
+        eng.drop_block_cache()
+        st = eng.block_stats()
+        check(st["free"] == st["total"] and st["host_free"] == st["host_total"],
+              f"33b-grant[{name}]: blocks not all returned: {st}")
+        check(counts["flash_attention"] == arch.n_layers * eng.prefill_calls
+              and counts["paged_decode_attention"]
+              == arch.n_layers * ticks[0] > 0,
+              f"33b-grant[{name}]: {counts} for {eng.prefill_calls} prefill "
+              f"calls and {ticks[0]} decode ticks of {arch.n_layers} layers")
+        toks = {r.rid: r.out_tokens for r in done}
+        first, margins = eng.first, eng.margins
+        del eng
+        torch.cuda.empty_cache()
+        return toks, first, margins, res
+
+    toks, first, _, res = run("plan", lambda: Rec.from_plan(plan, params))
+    ps = res["pressure"]
+    check(ps["shed"] == 0 and ps["preemptions"] >= 1
+          and ps["parks_with_state"] >= 1 and ps["resumes_by_promote"] >= 1
+          and ps["prefetch_consumed"] >= 1,
+          f"33b-grant: the traffic did not walk the ladder: {ps}")
+    check(res["prefilled_requests"] == len(prompts),
+          f"33b-grant: {res['prefilled_requests']} prefilled requests for "
+          f"{len(prompts)} (a park lost its state and re-prefilled)")
+    cfg = build_run_cfg(plan, arch)
+    ctl_toks, ctl_first, ctl_margins, ctl = run("reserve control", lambda: Rec(
+        arch, params, cfg, max_batch=8, max_len=2048,
+        kv_heads=cfg.kv_heads_padded, seed=SEED, kv_residency="paged",
+        kv_block_len=256, kv_n_blocks=64, kv_admission="reserve",
+        kv_prefix_reuse="off", kv_host_blocks=0))
+    check(ctl["pressure"]["preemptions"] == 0
+          and ctl["pressure"]["grant_denials"] == 0,
+          f"33b control walked the ladder: {ctl['pressure']}")
+    errs = {rid: _rms_rel(torch, first[rid], ctl_first[rid])
+            for rid in ctl_first}
+    toks1 = torch.from_numpy(prompts[0][None]).to(dev)
+    want = lm.prefill(arch, params, {"tokens": toks1}, cfg)[0][:, :V]
+    other = lm.prefill(arch, params, {"tokens": toks1}, dataclasses.replace(
+        cfg, flash_tiles=(64 // G, 64)))[0][:, :V]
+    floor = _rms_rel(torch, other.float(), want.float())
+    worst = max(errs.values())
+    # reported beside the noise floor; the tokens are held below
+    log(f"report 33b-grant first-token logits vs the reserve control: "
+        f"worst rms_rel={worst:.3e} (the full prefill re-tiled to "
+        f"{64 // G} x 64 against itself {floor:.3e}); "
+        f"{sum(e == 0.0 for e in errs.values())} of {len(errs)} bitwise "
+        f"equal; per request { {r: round(e, 5) for r, e in errs.items()} } "
+        f"[{CARD}]")
+    compared = same = 0
+    for rid, want_toks in ctl_toks.items():
+        for i, (a, b) in enumerate(zip(toks[rid], want_toks)):
+            compared += 1
+            if a != b:
+                m = ctl_margins[rid][i]
+                check(m <= FULL_TOL, f"33b-grant: request {rid} token {i} "
+                      f"differs ({a} vs {b}) at a control margin {m} > "
+                      f"{FULL_TOL}")
+                break
+            same += 1
+    log(f"check 33b-grant greedy tokens vs the reserve control: {same} "
+        f"identical of {compared} compared (a request is compared up to its "
+        f"first difference, allowed only where the control's top-2 margin "
+        f"is <= {FULL_TOL} of its largest logit) [{CARD}]")
+    res.update(first_logits_rms_rel=worst, noise_floor=floor,
+               tokens_compared=compared, tokens_identical=same)
+    consistency_check(torch, dev, arch, params, cfg,
+                      int(est["kv_block_len"]), top1_margin=FULL_TOL)
+    del params
+    torch.cuda.empty_cache()
+    return res, ctl
+
+
 # ---------------------------------------------------------------------
 # phases 5 and 7: outputs against references
 # ---------------------------------------------------------------------
@@ -1050,14 +1513,16 @@ def _rms_rel(torch, got, want) -> float:
     return float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
 
 
-def consistency_check(torch, dev, arch, params, cfg, bl):
+def consistency_check(torch, dev, arch, params, cfg, bl,
+                      top1_margin: float = 0.0):
     """Full width: the logits of one decode step after a prefill of
     ``P`` tokens against the flash prefill's last-token logits over the
     same ``P + 1`` tokens — once through the dense decode kernel and
     once through the paged one (the prefill cache laid out as pool
     blocks, in reverse order, behind a table).
 
-    Through 36 bf16 layers the model amplifies the kernels' rounding:
+    Through its bf16 layers (36 in qwen3-8b, 62 in deepseek-coder-33b)
+    the model amplifies the kernels' rounding:
     the flash prefill against itself under another kv tile (64 keys
     where the plan's has 128: only the order of its online-softmax
     rescales and where P rounds to bf16 change; a row's arithmetic does
@@ -1065,11 +1530,16 @@ def consistency_check(torch, dev, arch, params, cfg, bl):
     rms of the logits, and a wrong input token by more than 1.  So the
     check is rms-relative, at :data:`FULL_TOL`, with that noise floor
     printed beside it and a wrong-token control that must fail it; top-1
-    tokens must agree.  The kernels' own tolerance
-    is held row by row in the kernel phase, and :data:`LOGIT_TOL` by
-    :func:`small_model_check`.
+    tokens must agree — with ``top1_margin`` > 0, only where the flash
+    prefill's top-2 margin exceeds that share of its largest logit (the
+    margin rule; deepseek-coder-33b's 62 layers put the two right paths
+    ~9e-2 rms apart, as far apart as a near-tie).  The kernels' own
+    tolerance is held row by row in the kernel phase, and
+    :data:`LOGIT_TOL` by :func:`small_model_check`.
     """
     from repro_torch.models import lm
+
+    from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator(dev).manual_seed(SEED + 1)
     P, max_len = 300, 2 * bl
@@ -1077,7 +1547,11 @@ def consistency_check(torch, dev, arch, params, cfg, bl):
                          device=dev, dtype=torch.int32)
     V = arch.vocab_size
     want = lm.prefill(arch, params, {"tokens": toks}, cfg)[0][:, :V].float()
-    retiled = dataclasses.replace(cfg, flash_tiles=(16, 64))
+    # the 64-row, 64-kv tile: 64 // G positions a CTA
+    G = arch.n_heads // arch.n_kv_heads
+    retiled = dataclasses.replace(cfg, flash_tiles=(64 // G, 64))
+    check(fa.kernel_tiles(G, 64 // G, 64) == (64, 64),
+          f"consistency: no 64-row tile at G={G}")
     other = lm.prefill(arch, params, {"tokens": toks}, retiled)[0]
     floor = _rms_rel(torch, other[:, :V].float(), want)
     for residency in ("dense", "paged"):
@@ -1107,12 +1581,18 @@ def consistency_check(torch, dev, arch, params, cfg, bl):
             results[name] = got[:, :V].float()
         rms = _rms_rel(torch, results["right"], want)
         control = _rms_rel(torch, results["wrong"], want)
-        top1 = bool((results["right"].argmax(-1) == want.argmax(-1)).all())
-        log(f"check full-width decode[{residency}] vs flash prefill logits: "
+        top2 = want.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]) / want.abs().amax(-1)
+        agree = results["right"].argmax(-1) == want.argmax(-1)
+        top1 = bool((agree | (margin <= top1_margin)).all())
+        log(f"check full-width {arch.name} decode[{residency}] vs flash "
+            f"prefill logits (G={G}): "
             f"rms_rel={rms:.3e} (tol {FULL_TOL}; flash re-tiled against "
             f"itself {floor:.3e}; wrong-token control {control:.3e}) "
-            f"top1_agree={top1} scale={float(want.abs().max()):.3f} "
-            f"[{CARD}]")
+            f"top1_agree={agree.tolist()} at top-2 margins "
+            f"{[round(m, 5) for m in margin.tolist()]} (a disagreement "
+            f"allowed at a margin <= {top1_margin}) "
+            f"scale={float(want.abs().max()):.3f} [{CARD}]")
         check(rms <= FULL_TOL and top1,
               f"consistency[{residency}] rms_rel {rms} > {FULL_TOL} "
               f"or top-1 differs")
@@ -1425,6 +1905,7 @@ def main() -> int:
         print(f"chip_smoke: no port package at {SRC / 'repro_torch'}; run "
               "from a checkout of the repository", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1554,14 +2035,21 @@ def main() -> int:
         f"{march.n_layers} per prefill call x {calls} calls [{CARD}]")
     ssm_consistency_check(torch, dev, march, mparams,
                           build_run_cfg(mplan, march))
+    ssm_park = ssm_park_check(torch, dev, march, mplan, mparams)
     del mparams
     torch.cuda.empty_cache()
     small_ssm_check(torch, dev)
+
+    # ---- phase 9: deepseek-coder-33b, grant admission, every earlier
+    # phase's weights freed ----
+    grant, grant_ctl = grant_phase(torch, dev)
     ops.reset_launch_counts()
 
-    # ---- phase 9: the plan-driven matmul path ----
+    # ---- phase 10: the plan-driven matmul path ----
     serve_mm = {n: c["tiled_matmul"] for n, c in (
-        ("paged", paged_counts), ("dense", dense_counts), ("ssm", ssm_counts))}
+        ("paged", paged_counts), ("dense", dense_counts), ("ssm", ssm_counts),
+        ("33b-grant", grant["launches"]),
+        ("33b-control", grant_ctl["launches"]))}
     check(not any(serve_mm.values()),
           f"a serving path launched tiled_matmul: {serve_mm}")
     t0 = time.perf_counter()
@@ -1572,10 +2060,13 @@ def main() -> int:
     log(f"matmul path: {mm_launches} launches, phase took "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
 
-    # ---- phase 10: results ----
+    # ---- phase 11: results ----
     runs = (paged_counts, dense_counts, ssm_counts, shared["launches"],
-            shared_ctl["launches"])
+            shared_ctl["launches"], grant["launches"], grant_ctl["launches"])
     launches = {k: sum(c[k] for c in runs) for k in paged_counts}
+    for name in ("flash_attention", "paged_decode_attention"):
+        kern[name]["g7"]["launches"] = (grant["launches"][name]
+                                        + grant_ctl["launches"][name])
     kern["flash_attention"]["tail_launches"] = sum(
         c.get("flash_tail", 0) for c in runs)
     launches["tiled_matmul"] = mm_launches
@@ -1596,17 +2087,25 @@ def main() -> int:
                                  "bound_per_head_scores_ms",
                                  "shape",
                                  "shapes", "library_call", "launched_by",
-                                 "offset", "tail_launches")
+                                 "offset", "tail_launches", "g7")
                if k in r},
             "ptxas": [[kernel, regs, spills] for kernel, regs, spills
                       in ptxas.get(Path(r["source"]).stem, [])],
             "card": CARD})
     log(json.dumps({"serve": {"paged": paged, "dense": dense,
-                              "ssm": ssm_serve, "shared_prefix": shared,
+                              "ssm": ssm_serve, "ssm_park": ssm_park,
+                              "33b_grant": grant,
+                              "33b_reserve_control": grant_ctl,
+                              "shared_prefix": shared,
                               "shared_prefix_control": shared_ctl,
                               "launches": {"paged": paged_counts,
                                            "dense": dense_counts,
-                                           "ssm": ssm_counts}}}))
+                                           "ssm": ssm_counts,
+                                           "33b_grant": grant["launches"],
+                                           "33b_reserve_control":
+                                           grant_ctl["launches"]}}}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
+        f"the results [{CARD}]")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ from repro_torch.hw.tpu import TpuTarget
 
 @dataclasses.dataclass(frozen=True)
 class MeshModel:
-    """Static view of the device mesh (no jax imports — usable pre-init)."""
+    """Static view of the device mesh (no framework imports)."""
 
     axes: Tuple[str, ...]
     shape: Tuple[int, ...]

@@ -113,29 +113,29 @@ class LocalPartitioningPass(Pass):
         Its CTA holds ``rows = block_q * G`` query rows (``block_q``
         positions times the ``G`` query heads of one kv head) and streams
         ``block_kv`` K/V rows a tile: the most rows, then the widest kv
-        tile, whose rows hold whole GQA groups and whose shared memory (Q
-        plus the K/V ring) fits the budget.  S, P and the O accumulator
-        live in registers, so only those tiles are charged.  An arch the
-        kernel is not built for (another head_dim, or a GQA group that
-        divides no tile's rows) gets no tile, and the kernel's wrapper
-        raises on it at launch."""
+        tile, whose shared memory (Q plus the K/V ring) fits the budget.
+        The rows hold ``block_q = rows // G`` whole positions, the
+        kernel's own rule (G = 7: 18 positions in 128 rows, 2 of them
+        pad).  S, P and the O accumulator live in registers, so only
+        those tiles are charged.  An arch the kernel is not built for
+        (another head_dim, or a GQA group outside ``fa.GROUPS``) gets no
+        tile, and the kernel's wrapper raises on it at launch."""
         from repro_torch.kernels import flash_attention as fa
 
         arch, est = ctx.arch, ctx.plan.estimates
         G = (int(est.get("heads_padded", arch.n_heads))
              // int(est.get("kv_heads_padded", arch.n_kv_heads)))
-        fits = [t for t in fa.KERNEL_TILES
-                if t[0] % G == 0 and fa.smem_bytes(*t) <= budget]
-        if arch.hd != fa.HEAD_DIM or not fits:
+        fits = [t for t in fa.KERNEL_TILES if fa.smem_bytes(*t) <= budget]
+        if arch.hd != fa.HEAD_DIM or G not in fa.GROUPS or not fits:
             self.record(ctx, "flash_attention", "no kernel tile",
                         f"the CUDA kernel is built for head_dim "
-                        f"{fa.HEAD_DIM} and rows in "
-                        f"{sorted({r for r, _ in fa.KERNEL_TILES})} holding "
-                        f"whole GQA groups; this arch has head_dim {arch.hd} "
-                        f"and G={G}")
+                        f"{fa.HEAD_DIM} and GQA groups {fa.GROUPS}; this "
+                        f"arch has head_dim {arch.hd} and G={G}")
             return
         rows, block_kv = max(fits)
         block_q = rows // G
+        # a group that divides no tile leaves pad rows (G = 7: 126 of 128)
+        held = "=" if block_q * G == rows else "hold"
         smem = fa.smem_bytes(rows, block_kv)
         bp = BlockPlan(
             kernel="flash_attention",
@@ -144,7 +144,7 @@ class LocalPartitioningPass(Pass):
             n_buffers=fa.STAGES,
             vmem_bytes=smem,
             grid_note=(f"grid=(batch x kv_heads, ceil(seq/{block_q})) CTAs, "
-                       f"longest q tiles first; {rows} query rows = "
+                       f"longest q tiles first; {rows} query rows {held} "
                        f"{block_q} positions x G={G}; K/V in a "
                        f"{fa.STAGES}-stage TMA ring of {block_kv}-row tiles; "
                        "S, P and the O accumulator in registers"),
@@ -154,7 +154,7 @@ class LocalPartitioningPass(Pass):
             self.name, **bp.blocks, n_buffers=fa.STAGES, vmem_bytes=smem)
         self.record(ctx, "flash_attention",
                     f"block_q={block_q} block_kv={block_kv}",
-                    f"{rows} query rows = {block_q} x G={G}; Q plus a "
+                    f"{rows} query rows {held} {block_q} x G={G}; Q plus a "
                     f"{fa.STAGES}-stage K/V TMA ring, {smem} B of shared "
                     f"memory <= budget {budget} B; S, P and the O "
                     "accumulator in registers; a tile the CUDA kernel is "
@@ -192,21 +192,19 @@ class LocalPartitioningPass(Pass):
         the plan's batch, kv heads and cache length, else the narrowest.
         The shared memory charged is the kernel's: the warps' cp.async K/V
         rings, which do not depend on the tile.  An arch the kernel is not
-        built for (another head_dim, or a GQA group that is not a power of
-        two up to 8) gets no tile and a logged reason."""
+        built for (another head_dim, or a GQA group without an instance,
+        ``dec.takes_group``) gets no tile and a logged reason."""
         from repro_torch.kernels import decode_attention as dec
 
         arch, est = ctx.arch, ctx.plan.estimates
         K = int(est.get("kv_heads_padded", arch.n_kv_heads))
         G = int(est.get("heads_padded", arch.n_heads)) // K
         smem = dec.smem_bytes(G, dec.DEFAULT_BLOCK_KV)
-        if arch.hd != dec.HEAD_DIM or G > dec.MAX_GROUP or G & (G - 1) \
-                or smem > budget:
+        if not dec.takes_group(G, arch.hd) or smem > budget:
             self.record(ctx, "decode_attention", "no kernel tile",
                         f"the CUDA kernel is built for head_dim "
-                        f"{dec.HEAD_DIM} and a power-of-two GQA group <= "
-                        f"{dec.MAX_GROUP}; this arch has head_dim {arch.hd} "
-                        f"and G={G}")
+                        f"{dec.HEAD_DIM} and GQA groups {dec.GROUPS}; this "
+                        f"arch has head_dim {arch.hd} and G={G}")
             return
         B, cap = ctx.shape.global_batch, ctx.shape.seq_len
 

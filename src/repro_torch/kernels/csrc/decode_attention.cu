@@ -44,7 +44,8 @@
 //     loads there cost more than the whole row loop.  Empty partials
 //     merge as absent; a slot with no live row outputs 0.
 // fp32 softmax statistics and accumulation; the math stays on the CUDA
-// cores (bytes bound it).  D is a template parameter, built at 128.
+// cores (bytes bound it).  D is a template parameter, built at 128; G is
+// read only as a loop bound and an array size, built at 1, 2, 4, 7 and 8.
 
 #include "common.cuh"
 
@@ -392,6 +393,7 @@ int dispatch(const void* q, const void* k, const void* v, const int* tbl,
   REPRO_DECODE_CASE(1, 128)
   REPRO_DECODE_CASE(2, 128)
   REPRO_DECODE_CASE(4, 128)
+  REPRO_DECODE_CASE(7, 128)  // deepseek-coder-33b: 56 query heads over 8
   REPRO_DECODE_CASE(8, 128)
 #undef REPRO_DECODE_CASE
   return int(cudaErrorInvalidValue);

@@ -14,11 +14,18 @@
 // card's ~295 FLOP/byte balance, so both products run on wgmma (bf16 in,
 // fp32 accumulate), fed by TMA (csrc/hopper.cuh):
 //   * one CTA per (batch x kv head, q tile).  The tile's rows are
-//     (position, head) pairs: rows/G positions times the G = H/K query
-//     heads that share a kv head, so every K/V tile in shared memory serves
-//     all G heads.  A 4-D TMA box (64 of D, G heads, rows/G positions) over
-//     q (B, S, H, D) lands in exactly that row order; D = 128 is two
-//     64-wide, 128-byte-swizzled boxes;
+//     (position, head) pairs: BQ = rows/G whole positions times the G = H/K
+//     query heads that share a kv head, so every K/V tile in shared memory
+//     serves all G heads.  A 4-D TMA box (64 of D, G heads, BQ positions)
+//     over q (B, S, H, D) lands in exactly that row order; D = 128 is two
+//     64-wide, 128-byte-swizzled boxes, each on the rows-row stride so it
+//     starts on a 1024-byte swizzle atom;
+//   * a group that divides no tile (G = 7: 18 positions = 126 of 128 rows)
+//     leaves rows - BQ*G pad rows at the bottom of the tile.  The Q barrier
+//     expects the bytes the boxes deliver (BQ*G rows, not rows), the pad
+//     rows are zeroed once before the first product (their scores stay in
+//     their own rows, so they touch no real row) and the epilogue never
+//     writes them: pad row r maps to position q0 + BQ, the next CTA's;
 //   * one producer warpgroup, of which one thread issues every copy: Q
 //     once, then K and V tiles into a ring of two stages, each on its own
 //     "full" mbarrier, a stage refilled only after every consumer thread
@@ -47,8 +54,8 @@
 //     Sq == Skv (q_off = 0) is the whole-prompt launch.
 // Tiles (rows, block_kv) in {(64, 64), (64, 128), (128, 64), (128, 128)}
 // (rows = 64 per consumer warpgroup), head_dim a template parameter
-// instantiated at 128; rows must hold whole GQA groups (G = 1, 2, 4, 8,
-// 16 ...).  The wrapper raises on anything else.  Shared memory at
+// instantiated at 128; a tile holds at least one whole GQA group.  The
+// wrapper admits G in {1, 2, 4, 7, 8, 16} and raises on anything else.  Shared memory at
 // (128, 128): Q 32 KB + 2 stages x (K + V) 128 KB = 160 KB, one CTA an SM.
 // Not done yet (later work): overlapping one tile's softmax with the next
 // tile's S product (in a warpgroup or ping-pong across the two), a
@@ -82,6 +89,11 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// generic-proxy stores to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -124,7 +136,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* empty = v_full + kStages;
 
   const int G = H / K;
-  const int BQ = kRows / G;  // query positions per CTA
+  const int BQ = kRows / G;       // whole query positions per CTA
+  const int q_rows = BQ * G;      // rows the Q boxes deliver; the rest pad
   const int b = blockIdx.x / K, kvh = blockIdx.x % K;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
   // query row i sits at absolute position q_off + i of the key stream (the
@@ -137,6 +150,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int n_tiles = (kv_end + BKV - 1) / BKV - t_begin;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
+  // pad rows (q_rows..kRows-1 of each 64-wide Q atom) start zeroed: the
+  // boxes never write them (a 128-byte swizzle permutes chunks within a
+  // row, so a row's 128 bytes stay at r * 128)
+  for (int i = threadIdx.x; i < (kRows - q_rows) * kAtoms * 8;
+       i += blockDim.x) {
+    const int a = i / ((kRows - q_rows) * 8), j = i % ((kRows - q_rows) * 8);
+    reinterpret_cast<uint4*>(q_s + a * kRows * 128 + q_rows * 128)[j] =
+        make_uint4(0, 0, 0, 0);
+  }
+  fence_proxy_async_shared();
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -152,7 +175,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- producer: Q once, then the K/V ring
     if constexpr (NWG == 2) sm90::setmaxnreg_dec<24>();
     if (tid == 0) {
-      sm90::mbar_expect_tx(q_full, L::kQ);
+      // the bytes the boxes deliver: BQ*G rows of D, not kRows
+      sm90::mbar_expect_tx(q_full, q_rows * D * 2);
 #pragma unroll
       for (int a = 0; a < kAtoms; ++a)
         sm90::tma_load_4d(q_s + a * kRows * 128, &map_q, q_full, a * 64,
@@ -182,7 +206,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   if constexpr (NWG == 2) sm90::setmaxnreg_inc<240>();
   const int warp = tid / 32, lane = tid % 32;
   const int r_lo = wg * 64 + warp * 16 + lane / 4, r_hi = r_lo + 8;
-  const int qrow_lo = q0 + r_lo / G, qrow_hi = q0 + r_hi / G;
+  // a pad row (r >= q_rows) takes the row index Sq, which the epilogue
+  // skips: it would land on the next CTA's first position (no register
+  // stays live through the kv loop for it)
+  const int qrow_lo = r_lo < q_rows ? q0 + r_lo / G : Sq;
+  const int qrow_hi = r_hi < q_rows ? q0 + r_hi / G : Sq;
   const int qpos_lo = q_off + qrow_lo, qpos_hi = q_off + qrow_hi;
   float o[D / 2];
 #pragma unroll
@@ -290,7 +318,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     sm90::mbar_arrive(&empty[s]);
   }
 
-  // ---- epilogue: normalise, write query rows < Sq
+  // ---- epilogue: normalise, write query rows < Sq (never a pad row: its
+  // qrow is Sq)
   const float lsum_lo = quad_sum(l_lo), lsum_hi = quad_sum(l_hi);
   const float inv_lo = lsum_lo > 0.f ? 1.f / lsum_lo : 0.f;
   const float inv_hi = lsum_hi > 0.f ? 1.f / lsum_hi : 0.f;
@@ -363,7 +392,7 @@ bool takes(const void* q, const void* k, const void* v, const void* out,
                          reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) |
                          reinterpret_cast<uintptr_t>(out);
-  return D == 128 && K > 0 && H % K == 0 && rows % (H / K) == 0 && Sq > 0 &&
+  return D == 128 && K > 0 && H % K == 0 && H / K <= rows && Sq > 0 &&
          Skv >= Sq && q_off >= 0 && q_off <= Skv - Sq && ptrs % 16 == 0;
 }
 
@@ -372,10 +401,11 @@ bool takes(const void* q, const void* k, const void* v, const void* out,
 extern "C" {
 
 // q (B, Sq, H, D), k/v (B, Skv, K, D), out (B, Sq, H, D), all bf16,
-// contiguous and 16-byte aligned, Sq <= Skv.  Query row i sits at absolute
+// contiguous and 16-byte aligned, Sq <= Skv, G = H / K <= rows.  Query row i sits at absolute
 // position q_off + i of the key stream (the wrapper passes Skv - Sq: the
 // queries are the stream's last Sq positions; q_off = 0 with Sq == Skv is
-// a whole prompt).  rows = query rows per CTA (positions x G), block_kv =
+// a whole prompt).  rows = query rows per CTA (64 or 128; it holds rows / G
+// whole positions, and the rows past them are pad), block_kv =
 // K/V rows per tile.  Returns 0 when launched, a cudaError_t, or a negative
 // CUresult of the tensor-map encoder.
 int flash_attention_fwd(const void* q, const void* k, const void* v,

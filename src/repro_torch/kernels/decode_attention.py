@@ -47,7 +47,12 @@ from repro_torch.kernels import build
 KERNEL_TILES = (64, 128, 256)
 DEFAULT_BLOCK_KV = 256
 HEAD_DIM = 128
-MAX_GROUP = 8
+#: GQA groups the kernels are instantiated for (``csrc``
+#: ``REPRO_DECODE_CASE``): the powers of two up to 8 and
+#: deepseek-coder-33b's 7.  The template reads G only as a loop bound and
+#: an array size, so a group is one more instance
+GROUPS = (1, 2, 4, 7, 8)
+MAX_GROUP = max(GROUPS)
 #: the card's SMs; the split rule aims at two CTAs for each
 SMS = 132
 SPLIT_CTAS = 2 * SMS
@@ -213,9 +218,9 @@ def _workspace(q: torch.Tensor, K: int, splits: int) -> torch.Tensor:
 
 def takes_group(G: int, D: int = HEAD_DIM) -> bool:
     """The decode kernels' admission rule for ``G`` query heads per kv
-    head at head_dim ``D``: ``D`` is :data:`HEAD_DIM` and ``G`` a power
-    of two up to :data:`MAX_GROUP` (one template instance each)."""
-    return D == HEAD_DIM and 1 <= G <= MAX_GROUP and not G & (G - 1)
+    head at head_dim ``D``: ``D`` is :data:`HEAD_DIM` and ``G`` one of
+    :data:`GROUPS` (one template instance each)."""
+    return D == HEAD_DIM and G in GROUPS
 
 
 def _check(name: str, q, caches, ints) -> None:
@@ -236,8 +241,7 @@ def _check(name: str, q, caches, ints) -> None:
     K = caches[1][1].shape[2]
     if H % K or not takes_group(H // K, D):
         raise ValueError(f"{name}: kernel takes head_dim {HEAD_DIM} and a "
-                         f"power-of-two GQA group <= {MAX_GROUP}, got D={D} "
-                         f"H={H} K={K}")
+                         f"GQA group in {GROUPS}, got D={D} H={H} K={K}")
 
 
 def _on_card(name: str, q: torch.Tensor) -> None:

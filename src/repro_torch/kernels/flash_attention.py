@@ -19,12 +19,14 @@ on any other device;
 :mod:`repro_torch.kernels.ops` sends a CPU tensor to
 :func:`flash_attention_plain` (one masked softmax in fp32, no tiles).
 
-Tiles: the kernel's CTA holds ``rows = block_q * G`` query rows
-(``block_q`` positions times the ``G = H/K`` heads sharing a kv head),
-64 rows to each consumer warpgroup, and streams ``block_kv`` K/V rows a
-tile through a TMA ring of :data:`STAGES` stages.  It is built for
-``(rows, block_kv)`` in :data:`KERNEL_TILES`; :func:`kernel_tiles`
-raises on any other plan tile.  A plan without a ``flash_attention``
+Tiles: the kernel's CTA holds ``rows`` = 64 or 128 query rows, 64 to
+each consumer warpgroup: ``block_q = rows // G`` whole positions times
+the ``G = H/K`` heads sharing a kv head, and streams ``block_kv`` K/V
+rows a tile through a TMA ring of :data:`STAGES` stages.  A group that
+divides no tile leaves pad rows (G = 7: 18 positions = 126 of 128 rows)
+that the kernel never writes.  It is built for ``(rows, block_kv)`` in
+:data:`KERNEL_TILES` and the groups in :data:`GROUPS`;
+:func:`kernel_tiles` raises on any other plan tile or group.  A plan without a ``flash_attention``
 BlockPlan (decode shapes have none) gets :data:`DEFAULT_ROWS` x
 :data:`DEFAULT_BLOCK_KV`, 164,920 B of shared memory, one CTA to an SM.
 TMA reads q, k and v in place, so each must start on a 16-byte boundary.
@@ -44,6 +46,10 @@ KERNEL_TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
 DEFAULT_ROWS = 128
 DEFAULT_BLOCK_KV = 128
 HEAD_DIM = 128
+#: GQA groups (query heads per kv head) the kernel is checked at: the
+#: powers of two and deepseek-coder-33b's 7.  G = 5 (hymba, llama4) waits
+#: for ROADMAP §2 K2, with head_dim 64 (K1)
+GROUPS = (1, 2, 4, 7, 8, 16)
 #: K/V stages of the TMA ring in shared memory
 STAGES = 2
 
@@ -65,26 +71,26 @@ def smem_bytes(rows: int, block_kv: int) -> int:
 
 def kernel_tiles(G: int, block_q: Optional[int] = None,
                  block_kv: Optional[int] = None) -> Tuple[int, int]:
-    """``(rows, block_kv)`` for a GQA group of ``G`` heads: the plan's
-    ``block_q`` positions x ``G``, or the documented default.  Raises
-    on a tile the kernel cannot run — never substitutes another."""
+    """``(rows, block_kv)`` for a GQA group of ``G`` heads: the CTA's
+    rows whose ``rows // G`` whole positions are the plan's ``block_q``,
+    or the documented default.  Raises on a group or a tile the kernel
+    cannot run — never substitutes another."""
+    if G not in GROUPS:
+        raise ValueError(
+            f"flash_attention: GQA group G = {G} is not one the kernel is "
+            f"checked at {GROUPS} (G = 5, hymba's and llama4's, waits for "
+            "ROADMAP §2 K2)")
     if block_q is None and block_kv is None:
-        rows, bkv = DEFAULT_ROWS, DEFAULT_BLOCK_KV
-        if rows % G:
-            raise ValueError(
-                f"flash_attention: default tile of {rows} query rows does "
-                f"not hold whole GQA groups of {G} heads (the kernel's "
-                "64-row warpgroups take G = 1, 2, 4, 8, 16, ...; G = 5, "
-                "hymba's, is not taken)")
-        return rows, bkv
+        return DEFAULT_ROWS, DEFAULT_BLOCK_KV
     if block_q is None or block_kv is None:
         raise ValueError("flash_attention: give both block_q and block_kv")
-    rows = block_q * G
-    if (rows, block_kv) not in KERNEL_TILES:
+    rows = next((r for r, bkv in KERNEL_TILES
+                 if r // G == block_q and bkv == block_kv), None)
+    if rows is None:
         raise ValueError(
-            f"flash_attention: tile block_q={block_q} x G={G} = {rows} rows, "
+            f"flash_attention: tile block_q={block_q} positions x G={G}, "
             f"block_kv={block_kv} is not one the kernel is built for "
-            f"{KERNEL_TILES}")
+            f"{KERNEL_TILES} (block_q = rows // G)")
     return rows, block_kv
 
 

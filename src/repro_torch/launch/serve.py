@@ -7,14 +7,20 @@ Two modes, as in the JAX package's launcher, on one card:
 * plan mode (``--from-plan``) — run the specialization flow for a
   decode shape on the ``h100-sxm`` target, build the engine with
   :meth:`ServeEngine.from_plan`, and serve through the KV residency the
-  plan chose, its prefix reuse and its host spill tier as frozen (the
-plan's host pool is allocated, untouched, in host memory: at the
-full-width qwen3-8b decode 2048 x 8 plan, 512 blocks of 37.7 MB).
+  plan chose, its admission, its prefix reuse and its host spill tier as
+  frozen (the plan's host pool is allocated, untouched, in host memory:
+  at the full-width qwen3-8b decode 2048 x 8 plan, 512 blocks of 37.7
+  MB).  Full-width deepseek-coder-33b's plan at the same shape picks
+  grant admission over an 8-block pool (its 66.7 GB of bf16 weights
+  leave room for one 2048-token sequence), so its run walks the grant →
+  migrate → preempt ladder, parking victims with their KV in the 64
+  host blocks.
 
 The model is the arch's reduced config, with its published head_dim
 (the attention kernels are built for 128), unless ``--full`` asks for
 its published widths and depth; weights are random, from ``--seed``.
-``--arch`` takes the dense decoders and ``mamba2-2.7b``.
+``--arch`` takes the dense decoders (qwen3-8b, deepseek-7b,
+deepseek-coder-33b) and ``mamba2-2.7b``.
 Entry points run on ``cuda``; ``--device cpu`` runs the kernels' plain
 versions.  ``--profile`` traces the run with ``torch.profiler`` and
 prints the device time by kernel and by group.
@@ -22,6 +28,9 @@ prints the device time by kernel and by group.
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve --from-plan
       PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
           --from-plan --full --max-len 2048 --max-batch 8
+      PYTHONPATH=src python -m repro_torch.launch.serve \
+          --arch deepseek-coder-33b --from-plan --full --max-len 2048 \
+          --max-batch 8
 """
 
 from __future__ import annotations
@@ -76,6 +85,7 @@ def main(argv=None) -> None:
                                        seed=args.seed)
         print(f"plan {plan.content_hash()[:12]} target={plan.target} "
               f"kv_residency={engine.kv_residency} "
+              f"kv_admission={engine.kv_admission} "
               f"block_len={engine.block_len} n_blocks={engine.n_blocks} "
               f"kv_prefix_reuse={engine.kv_prefix_reuse} "
               f"kv_host_blocks={engine.host_blocks} "
@@ -109,8 +119,11 @@ def main(argv=None) -> None:
         prof.__exit__(None, None, None)
         _report(prof, dt)
     toks = sum(len(r.out_tokens) for r in done)
+    ttft = np.array([(r.t_first - r.t_submit) * 1e3 for r in done])
     print(f"served {len(done)} requests, {toks} tokens in {dt:.2f}s "
-          f"({toks / dt:.1f} tok/s) on {engine.device}")
+          f"({toks / dt:.1f} tok/s, ttft p50 {np.percentile(ttft, 50):.0f} "
+          f"ms p95 {np.percentile(ttft, 95):.0f} ms, {engine.tick} ticks, "
+          f"{engine.prefill_calls} prefill calls) on {engine.device}")
     for r in done[:3]:
         print(f"  rid={r.rid} ttft={(r.t_first - r.t_submit) * 1e3:.0f}ms "
               f"total={(r.t_done - r.t_submit) * 1e3:.0f}ms "

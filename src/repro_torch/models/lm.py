@@ -71,7 +71,8 @@ def check_supported(arch: ArchConfig) -> None:
     ssm = arch.family == "ssm"
     if arch.has_ssm and not ssm:
         why = ("hybrid attention + SSM mixers (attention kernels at "
-               "head_dim 64 with a GQA group of 5, sliding windows)")
+               "head_dim 64 with a GQA group of 5, ROADMAP §2 K1 and K2; "
+               "sliding windows)")
     elif arch.is_moe:
         why = "MoE FFNs"
     elif arch.mrope_sections is not None:
@@ -117,14 +118,14 @@ def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
         refused.append(f"flash_attention ({e})")
     if not dec.takes_group(G, arch.hd):
         refused.append(f"decode_attention (head_dim {dec.HEAD_DIM} and a "
-                       f"power-of-two GQA group <= {dec.MAX_GROUP})")
+                       f"GQA group in {dec.GROUPS})")
     if refused:
         raise NotImplementedError(
             f"{arch.name}: GQA group G = {G} ({H} query heads over {K} kv "
             f"heads, head_dim {arch.hd}) is refused on CUDA by "
-            + "; ".join(refused) + ". Groups that are not powers of two "
-            "wait for ROADMAP §2 K2 (and head_dim 64 for K1); the plain "
-            "versions serve it on the CPU")
+            + "; ".join(refused) + ". Other groups (G = 5) wait for "
+            "ROADMAP §2 K2, head_dim 64 for K1; the plain versions serve "
+            "them on the CPU")
 
 
 # =====================================================================
@@ -383,6 +384,23 @@ def init_host_pool(arch: ArchConfig, n_host_blocks: int, block_len: int,
     shape = (L, n_host_blocks, block_len, K, hd)
     return {"k": torch.empty(shape, dtype=dtype, device="cpu"),
             "v": torch.empty(shape, dtype=dtype, device="cpu")}
+
+
+def init_staging(arch: ArchConfig, n_blocks: int, block_len: int,
+                 dtype=torch.bfloat16, kv_heads: int = 0, pin: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+    """The staging buffer of the resume prefetch: flat ``k``/``v`` CPU
+    tensors with room for ``n_blocks`` blocks of every layer (one
+    sequence's blocks, the most one resume promotes; 520 MB for
+    deepseek-coder-33b at 2048 rows), viewed as ``(L, n, block_len, K,
+    hd)`` for ``n <= n_blocks``.  ``pin`` page-locks it (the engine on a
+    card), so its host → device copy runs asynchronously on a side
+    stream; the host pool itself (:func:`init_host_pool`) stays
+    pageable."""
+    L, K, hd = _kv_geometry(arch, kv_heads)
+    n = L * n_blocks * block_len * K * hd
+    return {"k": torch.empty(n, dtype=dtype, pin_memory=pin),
+            "v": torch.empty(n, dtype=dtype, pin_memory=pin)}
 
 
 def gather_blocks(pool: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -13,39 +13,57 @@ their output is discarded.
 
 KV residency is the plan's ``kv_residency``: ``dense`` per-slot
 ``max_len`` stripes, or ``paged`` — a block pool whose geometry the
-data-organization pass chose, with every admitted request reserving its
-worst-case block budget (``kv_admission="reserve"``) and returning it
-on finish.  On the card, prefill runs the port's flash-attention kernel
-and every decode tick its paged (or dense) decode kernel.  An
-attention-free (mamba2) model has no KV to page: it is dense whatever
-is asked, each slot holding its SSM state and conv window; its prefill
-runs the SSD-scan kernel and its decode ticks the recurrence.
+data-organization pass chose.  On the card, prefill runs the port's
+flash-attention kernel and every decode tick its paged (or dense) decode
+kernel.  An attention-free (mamba2) model has no KV to page: it is dense
+whatever is asked, each slot holding its SSM state and conv window; its
+prefill runs the SSD-scan kernel and its decode ticks the recurrence.
+
+Admission is the plan's ``kv_admission``.  Under ``reserve`` every
+admitted request holds its worst-case block budget until it finishes.
+Under ``grant`` it holds only the blocks of its (re-)prefill rows, and
+a decode tick that crosses a block boundary asks for one more: when the
+slot's sub-pool has none, the engine walks the JAX engine's ladder —
+spill a cold cached block to the host tier, else migrate the slot to an
+idler sub-pool (``kv_pool_groups`` > 1), else preempt a victim
+(:class:`PreemptionPolicy`: fewest tokens generated first, deadline'd
+requests spared).  With a host tier the victim **parks with state**:
+its KV blocks spill to the host pool (dense stripes and SSM/conv rows
+are copied to the host), and its resume promotes them into a free
+slot's sub-pool with no prefill call.  One tick before a parked
+request's backoff ends its rows are staged: copied from the host pool
+into a pinned staging buffer (:func:`repro_torch.models.lm
+.init_staging`) and from there onto the card on a side stream, ordered
+by an event before the tick that consumes them (the twin of the JAX
+engine's asynchronous device put).  Without a host tier (or
+when the victim shares blocks) the victim releases everything and
+re-prefills its prompt plus the tokens generated so far.  Past its
+retry budget or a missed deadline a request is shed
+(``Request.error``), and past the preemption-rate threshold ``submit``
+raises :class:`OverloadError`.
 
 A paged engine serves the plan's **cross-request prefix reuse**
 (``kv_prefix_reuse``) and **host spill tier** (``kv_host_blocks``) as
-the JAX engine does (``src/repro/serve/engine.py``, one sub-pool):
-every full ``block_len`` chunk of an admitted prompt is chain-hashed
-(:mod:`repro_torch.serve.prefix_cache`) and matched against a radix
-trie of resident blocks.  Matched blocks are aliased into the new
-request's table with a refcount bump instead of re-prefilled: only the
-tail runs, through :func:`repro_torch.models.lm.prefill_tail` (the
-flash kernel at a query offset on the card), and a request whose whole
-prompt but its last token is resident skips prefill entirely (a
-"ride": its first decode tick feeds that token).  A copy-on-write
-barrier before each decode tick copies any shared append block into a
-fresh one.  With a host tier, blocks a finished request would free but
-the trie still indexes stay engine-cached; under pool pressure the
-spill scheduler moves the oldest to a host-DRAM pool
+the JAX engine does: every full ``block_len`` chunk of an admitted
+prompt is chain-hashed (:mod:`repro_torch.serve.prefix_cache`) and
+matched against a radix trie of resident blocks, one trie per sub-pool.
+Matched blocks are aliased into the new request's table with a refcount
+bump instead of re-prefilled: only the tail runs, through
+:func:`repro_torch.models.lm.prefill_tail` (the flash kernel at a query
+offset on the card), and a request whose whole prompt but its last
+token is resident skips prefill entirely (a "ride": its first decode
+tick feeds that token).  A copy-on-write barrier before each decode tick
+copies any shared append block into a fresh one (preempting a victim
+when the pool has none).  With a host tier, blocks a finished request
+would free but the trie still indexes stay engine-cached; under pool
+pressure the spill scheduler moves the oldest to a host-DRAM pool
 (:func:`repro_torch.models.lm.init_host_pool`), and a later prefix hit
-on a spilled block promotes it back.  Spill and promote are
-synchronous copies: a spill reads rows from ids already back on the
-free list, safe because the copy ends before any next tenant writes.
+on a spilled block promotes it back.  Spill and promote are synchronous
+copies: a spill reads rows from ids already back on the free list, safe
+because the copy ends before any next tenant writes.
 
-What the port does not have yet, and refuses loudly: grow-on-demand
-grants with migration and preemption (``kv_admission="grant"``, with
-the prefetch staging that only a parked request uses: ``kv_prefetch``
-is recorded and reported), disaggregated prefill workers (a plan that
-says ``disagg`` with no workers stays inline, as in the JAX engine),
+What the port does not have yet: disaggregated prefill workers (a plan
+that says ``disagg`` with no workers stays inline, as in the JAX engine)
 and meshes.
 
 State lives in torch tensors on the device of the parameters; the
@@ -60,7 +78,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,9 +88,16 @@ from repro_torch.core.costmodel import kv_block_len as default_block_len
 from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.models.lm import RunCfg
+from repro_torch.runtime.fault import RestartPolicy
 from repro_torch.runtime.straggler import StepTimer
 from repro_torch.serve.allocator import BlockAllocator
 from repro_torch.serve.prefix_cache import PrefixCache, chain_hashes
+
+
+class OverloadError(RuntimeError):
+    """The engine is shedding load: the recent preemption rate crossed
+    the policy threshold, so new admissions would only thrash the pool.
+    Callers back off and retry, or route to another replica."""
 
 
 @dataclasses.dataclass
@@ -88,16 +113,71 @@ class Request:
     t_submit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
+    deadline: Optional[float] = None   # absolute wall-clock deadline
+    preemptions: int = 0               # times evicted mid-decode
+    error: str = ""                    # set when shed (never finished)
+    # chain hashes of the feed's full blocks at last (re-)admission:
+    # migration and resume re-register the moved blocks under these
+    prefix_hashes: List[str] = dataclasses.field(default_factory=list)
 
     @property
     def feed_tokens(self) -> np.ndarray:
-        """The tokens prefill builds KV for (the prompt: the port has
-        no preemption, so nothing is ever re-fed)."""
-        return self.prompt
+        """The tokens a (re-)prefill builds KV for: the prompt, plus,
+        after a preemption, every generated token but the last (whose KV
+        row does not exist yet; the next decode tick feeds it)."""
+        if not self.out_tokens:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.out_tokens[:-1], np.int32)])
+
+
+@dataclasses.dataclass
+class PreemptionPolicy:
+    """How the engine degrades when a mid-decode block grant fails.
+
+    Victims go fewest-tokens-generated first (least work thrown away);
+    requests with a deadline are spared while any deadline-free victim
+    exists, and among them the latest deadline goes first.  Backoff and
+    retry budget are a :class:`RestartPolicy` measured in engine ticks.
+    """
+
+    max_preemptions: int = 4          # per-request retry budget
+    backoff_base_ticks: int = 1       # first re-admission delay
+    backoff_cap_ticks: int = 32       # exponential backoff ceiling
+    shed_window_ticks: int = 64       # sliding window for the rate
+    shed_rate: float = 0.5            # preemptions/tick that means overload
+
+    def restart_policy(self) -> RestartPolicy:
+        return RestartPolicy(max_restarts=self.max_preemptions,
+                             backoff_base_s=float(self.backoff_base_ticks),
+                             backoff_cap_s=float(self.backoff_cap_ticks))
+
+    def pick_victim(self, candidates: List[Request],
+                    now: float) -> Request:
+        def key(r: Request):
+            if r.deadline is None:
+                return (0, len(r.out_tokens), 0.0, r.rid)
+            return (1, len(r.out_tokens), -(r.deadline - now), r.rid)
+        return min(candidates, key=key)
+
+
+@dataclasses.dataclass
+class PreemptedRequest:
+    """A parked eviction.  Its generated tokens stay on the request.
+    Without ``parked_state`` it re-prefills at ``not_before_tick``; with
+    it (a park with state) its KV lives on in the host tier (ids in
+    ``request.blocks``) or as host copies of its dense stripe, with its
+    SSM/conv rows beside them, and the resume copies them back."""
+
+    request: Request
+    not_before_tick: int
+    # {"slot_len": int, "kv_host": [host ids]} for paged KV,
+    # {"kv_rows": (k, v)} for dense stripes, plus "ssm"/"conv" host copies
+    parked_state: Optional[Dict[str, Any]] = None
 
 
 #: a request's prefix-match state for one admission pass: the feed's
-#: chain hashes and the memo of its trie match (``None`` until asked)
+#: chain hashes and a per-sub-pool memo of its trie matches
 MatchInfo = Dict[str, Any]
 
 
@@ -111,12 +191,13 @@ class ServeEngine:
                  max_batch: int = 8, max_len: int = 512, kv_heads: int = 0,
                  seed: int = 0, kv_residency: str = "dense",
                  kv_block_len: int = 0, kv_n_blocks: int = 0,
-                 kv_admission: str = "reserve",
+                 kv_admission: str = "reserve", kv_pool_groups: int = 0,
                  kv_prefix_reuse: str = "on", kv_host_blocks: int = 0,
-                 kv_prefetch: str = "on"):
-        if kv_admission != "reserve":
-            raise _unsupported("kv_admission", kv_admission,
-                               "use kv_admission='reserve'")
+                 kv_prefetch: str = "on",
+                 preemption: Optional[PreemptionPolicy] = None):
+        if kv_admission not in ("reserve", "grant"):
+            raise ValueError(f"kv_admission must be 'reserve' or 'grant', "
+                             f"got {kv_admission!r}")
         if kv_prefix_reuse not in ("on", "off"):
             raise ValueError(f"kv_prefix_reuse must be 'on' or 'off', "
                              f"got {kv_prefix_reuse!r}")
@@ -137,13 +218,16 @@ class ServeEngine:
         self.plan = None               # set by from_plan()
         self.max_batch, self.max_len = max_batch, max_len
         self.kv_admission = kv_admission
+        self.preemption = preemption or PreemptionPolicy()
         self.kv_prefill_mode = "inline"
         # an SSM-only arch has no KV stripes to page (its state is O(1)
         # in the sequence), as in the JAX engine
         self.kv_residency = ("paged" if kv_residency == "paged"
                              and arch.has_attention else "dense")
         self.host_blocks = 0
+        self.pool_groups = 1
         self._host: Optional[Dict[str, torch.Tensor]] = None
+        self._staging: Optional[Dict[str, torch.Tensor]] = None
         self._prefix: Optional[PrefixCache] = None
         if self.kv_residency == "paged":
             self.block_len = kv_block_len or default_block_len(max_len)
@@ -152,6 +236,16 @@ class ServeEngine:
             # plan-shrunk (budget-capped) pool stays shrunk
             cap = max_batch * per_seq
             self.n_blocks = min(kv_n_blocks, cap) if kv_n_blocks else cap
+            if kv_pool_groups:
+                # explicit sub-pools (single-card emulation of the JAX
+                # engine's 2-D pool contract): equal slot ranges per group
+                if self.n_blocks % kv_pool_groups \
+                        or max_batch % kv_pool_groups:
+                    raise ValueError(
+                        f"kv_pool_groups={kv_pool_groups} must divide both "
+                        f"n_blocks={self.n_blocks} and "
+                        f"max_batch={max_batch}")
+                self.pool_groups = kv_pool_groups
             self.cache = lm.init_paged_cache(
                 arch, max_batch, max_len, self.block_len, self.n_blocks,
                 kv_heads=kv_heads, device=self.device)
@@ -164,7 +258,7 @@ class ServeEngine:
                     arch, self.host_blocks, self.block_len,
                     kv_heads=kv_heads)
             if kv_prefix_reuse == "on":
-                self._prefix = PrefixCache(1)
+                self._prefix = PrefixCache(self.pool_groups)
         else:
             self.block_len = 0
             self.n_blocks = 0
@@ -172,15 +266,22 @@ class ServeEngine:
                 arch, max_batch, max_len, kv_heads=kv_heads,
                 ssm_heads=lm.cache_heads(arch, params["blocks"]).get(
                     "ssm_heads", 0), device=self.device)
-        self._alloc = BlockAllocator(self.n_blocks, 1,
+        self._alloc = BlockAllocator(self.n_blocks, self.pool_groups,
                                      host_blocks=self.host_blocks)
         self.kv_prefix_reuse = self._prefix is not None
-        self.kv_tiering = self.host_blocks > 0
+        # parks with state: paged blocks need the host pool, dense and
+        # SSM slots copy their rows to the host without one
+        self.kv_tiering = kv_host_blocks > 0
         self.kv_prefetch = kv_prefetch == "on"
         # engine-held cold blocks: ones a release would have freed but the
         # trie still indexes (refcount 1, held here), oldest first; only
         # populated with the host tier on
         self._cached: Dict[int, None] = {}
+        # prefetch staging: rid -> (host ids, k rows, v rows, event), put
+        # on the device one tick before the parked request's resume
+        self._staged: Dict[int, Tuple] = {}
+        self._stage_stream = None      # side stream of the staging copies
+        self._stage_event = None       # the last copy out of the buffer
         # per admission pass: promoted host id -> its new pool id, so a
         # second request matching a just-promoted block follows it
         self._promo_map: Dict[int, int] = {}
@@ -192,8 +293,30 @@ class ServeEngine:
         self.active: Dict[int, Request] = {}
         self.pending: List[Request] = []
         self.finished: List[Request] = []
+        # overload state: parked evictions, shed requests (never finished;
+        # Request.error says why), per-request backoff budgets and the
+        # sliding window of preemption ticks
+        self.preempted: List[PreemptedRequest] = []
+        self.shed: List[Request] = []
+        self._backoff: Dict[int, RestartPolicy] = {}
+        self._preempt_ticks: Deque[int] = deque(maxlen=4096)
         self._rid = 0
         self.tick = 0
+        self.preemptions = 0
+        self.migrations = 0
+        self.grant_denials = 0
+        # the ladder's outcomes beyond the JAX engine's counters: parks
+        # with state, their resumes (by a promote of host blocks, or of
+        # host copies of dense/SSM rows), staged prefetches and those a
+        # resume consumed
+        self.parks_with_state = 0
+        self.resumes = 0
+        self.resumes_by_promote = 0
+        self.prefetch_staged = 0
+        self.prefetch_consumed = 0
+        # chaos/test hook: return True to deny one mid-decode grant even
+        # when blocks are free (drives the ladder like a hot sub-pool)
+        self.grant_fault: Optional[Callable[[], bool]] = None
         self.tick_timer = StepTimer()
         self.straggler_ticks = 0
         # per-slot valid lengths; mirrored into cache["pos"] every tick
@@ -207,8 +330,9 @@ class ServeEngine:
         self.cow_copies = 0
         self.prefix_rides = 0          # admissions with zero prefill calls
         # host ms spent in the tier copies (spill: device -> host, waited
-        # for; promote: host -> device, enqueued behind its copy)
-        self.tier_ms = {"spill": 0.0, "promote": 0.0}
+        # for; promote: host -> device, enqueued behind its copy; stage:
+        # host pool -> pinned buffer, and the side stream's copy enqueued)
+        self.tier_ms = {"spill": 0.0, "promote": 0.0, "stage": 0.0}
 
     # ------------------------------------------------------------------
     @classmethod
@@ -219,18 +343,18 @@ class ServeEngine:
                   kv_prefix_reuse: Optional[str] = None,
                   kv_host_blocks: Optional[int] = None,
                   kv_prefetch: Optional[str] = None,
+                  preemption: Optional[PreemptionPolicy] = None,
                   kv_prefill_mode: Optional[str] = None) -> "ServeEngine":
         """Build an engine from the frozen plan artifact.
 
         The plan supplies the RunCfg (padded sizes, kernel tiles, kernel
-        mode), the KV residency and pool geometry, the admission mode and
-        the batching limits (the workload dims carried in the artifact),
-        prefix reuse and the host spill tier; ``max_batch``/``max_len``
-        may lower the limits, never raise them, and the ``kv_*`` keywords
-        override plan decisions as in the JAX engine.  A decision the
-        port cannot honour yet (``kv_admission="grant"``, a mesh), with
-        no override that changes it, raises :class:`NotImplementedError`
-        naming it.
+        mode), the KV residency and pool geometry, the admission mode
+        (``grant`` walks the grant → migrate → preempt ladder), the
+        batching limits (the workload dims carried in the artifact),
+        prefix reuse, the host spill tier and the prefetch;
+        ``max_batch``/``max_len`` may lower the limits, never raise them,
+        and the ``kv_*`` keywords override plan decisions as in the JAX
+        engine.  A mesh raises :class:`NotImplementedError`.
         """
         from repro_torch.core.passes.lowering import build_run_cfg
         if mesh is not None or any(int(n) > 1 for n in plan.mesh_shape):
@@ -257,20 +381,10 @@ class ServeEngine:
                     f"{plan.global_batch} this plan was specialized for; "
                     "respecialize instead")
         est = plan.estimates
-        admission = (kv_admission if kv_admission is not None
-                     else str(est.get("kv_admission", "reserve")))
-        prefix = (kv_prefix_reuse if kv_prefix_reuse is not None
-                  else str(est.get("kv_prefix_reuse", "on")))
-        host = (kv_host_blocks if kv_host_blocks is not None
-                else int(est.get("kv_host_blocks", 0)))
-        prefetch = (kv_prefetch if kv_prefetch is not None
-                    else str(est.get("kv_prefetch", "on")))
-        residency = str(est.get("kv_residency", "dense"))
-        if residency != "paged":
-            prefix, host = "off", 0    # dense engines have no pool to share
-        if admission != "reserve":
-            raise _unsupported("kv_admission", admission,
-                               "pass kv_admission='reserve'")
+
+        def pick(override, key, default):
+            return override if override is not None else est.get(key, default)
+
         cfg = build_run_cfg(plan, arch)
         if max_batch is None:
             max_batch = (plan.global_batch
@@ -280,11 +394,17 @@ class ServeEngine:
             max_len = plan.seq_len or 512
         eng = cls(arch, params, cfg, max_batch=max_batch, max_len=max_len,
                   kv_heads=cfg.kv_heads_padded, seed=seed,
-                  kv_residency=residency,
+                  kv_residency=str(est.get("kv_residency", "dense")),
                   kv_block_len=int(est.get("kv_block_len", 0)),
                   kv_n_blocks=int(est.get("kv_n_blocks", 0)),
-                  kv_admission=admission, kv_prefix_reuse=prefix,
-                  kv_host_blocks=host, kv_prefetch=prefetch)
+                  kv_admission=str(pick(kv_admission, "kv_admission",
+                                        "reserve")),
+                  kv_prefix_reuse=str(pick(kv_prefix_reuse,
+                                           "kv_prefix_reuse", "on")),
+                  kv_host_blocks=int(pick(kv_host_blocks, "kv_host_blocks",
+                                          0)),
+                  kv_prefetch=str(pick(kv_prefetch, "kv_prefetch", "on")),
+                  preemption=preemption)
         eng.plan = plan
         # kv_prefill_mode: a plan (or override) that says disagg has no
         # worker fleet here, so prefill stays inline — exactly what the
@@ -293,8 +413,13 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
-               temperature: float = 0.0) -> int:
-        """Queue a request; refuses one that can never fit the cache."""
+               temperature: float = 0.0,
+               deadline_s: Optional[float] = None) -> int:
+        """Queue a request; refuses one that can never fit the cache.
+        ``deadline_s`` (seconds from now) sheds it if still pending past
+        that, and spares it as a victim while a deadline-free one exists.
+        Raises :class:`OverloadError` while the engine is past its
+        preemption-rate threshold."""
         prompt = np.asarray(prompt, np.int32)
         if len(prompt) + max_new_tokens > self.max_len:
             raise ValueError(
@@ -303,13 +428,24 @@ class ServeEngine:
                 "or lower max_new_tokens")
         if self.kv_residency == "paged":
             need = self._blocks_needed(len(prompt), max_new_tokens)
-            if need > self.n_blocks:
+            sub = self.n_blocks // self.pool_groups
+            if need > sub:
                 raise ValueError(
                     f"request needs {need} blocks of {self.block_len} rows "
-                    f"but the pool holds only {self.n_blocks}; raise "
+                    f"but each sub-pool holds only {sub} ({self.n_blocks} "
+                    f"blocks over {self.pool_groups} sub-pool(s)); raise "
                     "kv_n_blocks or lower max_new_tokens")
+        if self.overloaded():
+            raise OverloadError(
+                f"engine is shedding load: {self._recent_preemptions()} "
+                f"preemption(s) in the last "
+                f"{self.preemption.shed_window_ticks} ticks exceeds the "
+                f"shed rate {self.preemption.shed_rate}/tick; back off "
+                "and retry, or route to another replica")
         r = Request(self._rid, prompt, max_new_tokens, temperature,
                     t_submit=time.time())
+        if deadline_s is not None:
+            r.deadline = r.t_submit + deadline_s
         self._rid += 1
         self.pending.append(r)
         return r.rid
@@ -322,9 +458,15 @@ class ServeEngine:
         return -(-(plen + max_new) // self.block_len)
 
     def _admission_blocks(self, r: Request) -> int:
-        """The full worst-case budget (reserve admission), 0 if dense."""
+        """Blocks admission secures before prefilling ``r``: the full
+        worst-case budget under ``reserve``, just the (re-)prefill rows'
+        blocks under ``grant``; 0 if dense."""
         if self.kv_residency != "paged":
             return 0
+        if r.max_new_tokens <= 1 and not r.out_tokens:
+            return 0                   # satisfied by the prefill sample
+        if self.kv_admission == "grant":
+            return -(-len(r.feed_tokens) // self.block_len)
         return self._blocks_needed(len(r.prompt), r.max_new_tokens)
 
     def block_stats(self) -> Dict[str, int]:
@@ -341,21 +483,21 @@ class ServeEngine:
         return st
 
     def pressure_stats(self) -> Dict[str, Any]:
-        """The JAX engine's pressure telemetry, key for key: the prefix
-        counters (hits, aliased tokens, rides, CoW copies), the tier's
-        spills and promotes, and the grant → migrate → preempt ladder
-        and disagg counters, which stay 0 / ``None`` on a
-        reserve-admission, inline engine."""
+        """The JAX engine's pressure telemetry, key for key (the ladder,
+        the prefix counters, the tier's spills and promotes; the disagg
+        counters stay 0 / ``None`` on an inline engine), and the port's
+        ladder outcomes: parks with state, resumes (by promote), and the
+        prefetches staged and consumed."""
         pc = self._prefix
         on = pc is not None            # (an empty trie is falsy)
         return {"tick": self.tick,
-                "preemptions": 0,
-                "migrations": 0,
-                "grant_denials": 0,
-                "shed": 0,
-                "parked": 0,
+                "preemptions": self.preemptions,
+                "migrations": self.migrations,
+                "grant_denials": self.grant_denials,
+                "shed": len(self.shed),
+                "parked": len(self.preempted),
                 "straggler_ticks": self.straggler_ticks,
-                "overloaded": False,
+                "overloaded": self.overloaded(),
                 "shared_blocks": self._alloc.shared_blocks,
                 "prefix_hits": pc.hits if on else 0,
                 "prefix_hit_tokens": pc.hit_tokens if on else 0,
@@ -370,7 +512,12 @@ class ServeEngine:
                 "disagg_dispatches": 0,
                 "disagg_chunks": 0,
                 "disagg_resumes": 0,
-                "disagg_inflight": 0}
+                "disagg_inflight": 0,
+                "parks_with_state": self.parks_with_state,
+                "resumes": self.resumes,
+                "resumes_by_promote": self.resumes_by_promote,
+                "prefetch_staged": self.prefetch_staged,
+                "prefetch_consumed": self.prefetch_consumed}
 
     @property
     def decode_path(self) -> str:
@@ -394,7 +541,9 @@ class ServeEngine:
             "prefill_mode": self.kv_prefill_mode,
             "requests": {"pending": len(self.pending),
                          "active": len(self.active),
-                         "finished": len(self.finished)},
+                         "finished": len(self.finished),
+                         "shed": len(self.shed),
+                         "parked": len(self.preempted)},
             "kv_prefix_reuse": self.kv_prefix_reuse,
             "kv_host_blocks": self.host_blocks,
             "kv_prefetch": self.kv_prefetch,
@@ -409,6 +558,22 @@ class ServeEngine:
             "kernel_launches": ops.launch_counts(),
         }
 
+    def _recent_preemptions(self) -> int:
+        lo = self.tick - self.preemption.shed_window_ticks
+        return sum(1 for t in self._preempt_ticks if t > lo)
+
+    def overloaded(self) -> bool:
+        """True while the recent preemption rate says new admissions
+        would only thrash (the load-shedding trigger)."""
+        return (self._recent_preemptions()
+                > self.preemption.shed_rate
+                * self.preemption.shed_window_ticks)
+
+    def _slot_group(self, slot: int) -> int:
+        """The sub-pool that hosts a slot: contiguous slot ranges map 1:1
+        onto the sub-pools."""
+        return slot * self.pool_groups // self.max_batch
+
     # ---------------- prefix matching at admission --------------------
     def _match_info(self, r: Request) -> Optional[MatchInfo]:
         """``r``'s match state for one admission pass (``None`` with
@@ -416,18 +581,22 @@ class ServeEngine:
         if self._prefix is None:
             return None
         return {"hashes": chain_hashes(r.feed_tokens, self.block_len),
-                "matched": None}
+                "matches": {}}
 
-    def _match_for(self, r: Request, info: Optional[MatchInfo]) -> List[int]:
-        """The block ids of ``r``'s longest resident prefix, capped one
-        token short of the whole feed: the last feed token's compute
-        always runs here (its logits seed the first sample)."""
+    def _match_for(self, r: Request, info: Optional[MatchInfo],
+                   group: int) -> List[int]:
+        """The block ids of ``r``'s longest resident prefix in
+        ``group``'s trie, capped one token short of the whole feed: the
+        last feed token's compute always runs here (its logits seed the
+        first sample; a resumed request's next tick appends its row)."""
         if info is None:
             return []
-        if info["matched"] is None:
-            got = self._prefix.match(info["hashes"])
-            info["matched"] = got[:(len(r.feed_tokens) - 1) // self.block_len]
-        return info["matched"]
+        got = info["matches"].get(group)
+        if got is None:
+            got = self._prefix.match(info["hashes"], group)
+            got = got[:(len(r.feed_tokens) - 1) // self.block_len]
+            info["matches"][group] = got
+        return got
 
     def _bucket_key(self, r: Request, matched: List[int]):
         """Admission bucket identity ``(matched_tokens, tail_tokens)``:
@@ -440,23 +609,24 @@ class ServeEngine:
         return (0, flen)
 
     def _can_ride(self, r: Request, matched: List[int]) -> bool:
-        """True when admission skips prefill entirely: the whole feed but
-        its last token is aliased.  The first decode tick feeds that
-        token and samples the first output."""
+        """True when admission skips prefill entirely: a fresh request
+        whose whole feed but its last token is aliased.  The first decode
+        tick feeds that token and samples the first output."""
         if not (self._skip_prefix and matched and not r.out_tokens):
             return False
         if r.max_new_tokens <= 1:
             return False      # satisfied by the sample; never holds blocks
         return len(matched) * self.block_len == len(r.feed_tokens) - 1
 
-    def _register_prefix(self, r: Request,
-                         info: Optional[MatchInfo]) -> None:
-        """Index ``r``'s full feed blocks in the trie (first writer
-        wins)."""
+    def _register_prefix(self, r: Request, info: Optional[MatchInfo],
+                         group: int) -> None:
+        """Index ``r``'s full feed blocks in its sub-pool's trie (first
+        writer wins) and keep the hashes for migration and resume."""
         if self._prefix is None or info is None or not r.blocks:
             return
         hashes = info["hashes"]
-        self._prefix.insert(hashes, r.blocks[:len(hashes)])
+        r.prefix_hashes = list(hashes)
+        self._prefix.insert(hashes, r.blocks[:len(hashes)], group)
 
     def _release_blocks(self, blocks: List[int]) -> None:
         """A holder lets go of ``blocks`` (:meth:`_free`).  With the host
@@ -501,29 +671,36 @@ class ServeEngine:
                 self.cache[key], old).cpu()
         self.tier_ms["spill"] += (time.perf_counter() - t0) * 1e3
 
-    def _promote_rows(self, pairs: List[Tuple[int, int]]) -> None:
-        """Copy spilled k/v rows back into the pool at the pairs' new
-        ids (a host → device copy, then one scatter per tensor)."""
+    def _promote_rows(self, pairs: List[Tuple[int, int]],
+                      k_rows: Optional[torch.Tensor] = None,
+                      v_rows: Optional[torch.Tensor] = None) -> None:
+        """Copy spilled k/v rows back into the pool at the pairs' new ids:
+        from the staged device rows when a prefetch landed them (the
+        caller ordered this stream after their copy), else a host →
+        device copy of the host pool's rows; then one scatter per
+        tensor."""
         t0 = time.perf_counter()
         new = self._ids([b for _, b in pairs])
-        idx = [h - self.n_blocks for h, _ in pairs]
-        for key in ("k", "v"):
-            lm.scatter_blocks(self.cache[key], new, self._host[key][:, idx])
+        if k_rows is None:
+            idx = [h - self.n_blocks for h, _ in pairs]
+            k_rows, v_rows = self._host["k"][:, idx], self._host["v"][:, idx]
+        lm.scatter_blocks(self.cache["k"], new, k_rows)
+        lm.scatter_blocks(self.cache["v"], new, v_rows)
         self.tier_ms["promote"] += (time.perf_counter() - t0) * 1e3
 
-    def _promote_matched(self, matched: List[int]) -> List[int]:
+    def _promote_matched(self, matched: List[int], group: int) -> List[int]:
         """Resolve a matched block list to pool ids (hit-after-spill):
         ids promoted earlier in this admission pass are followed through
-        ``_promo_map``; host-tier blocks are promoted now, their rows
-        copied back and trie and cold-cache entries re-keyed.  Placement
-        budgeted the draws (:meth:`_hbm_matched`)."""
+        ``_promo_map``; host-tier blocks are promoted into ``group`` now,
+        their rows copied back and trie and cold-cache entries re-keyed.
+        Placement budgeted the draws (:meth:`_hbm_matched`)."""
         if not self.kv_tiering or not matched:
             return list(matched)
         out = [self._promo_map.get(b, b) for b in matched]
         host_ids = [b for b in out if self._alloc.tier_of(b) == "host"]
         if not host_ids:
             return out
-        pairs = self._alloc.promote(host_ids, 0)
+        pairs = self._alloc.promote(host_ids, group)
         assert pairs is not None, "placement budgeted the promote draw"
         self._promote_rows(pairs)
         self._prefix.rekey(pairs, "hbm")
@@ -545,16 +722,18 @@ class ServeEngine:
             self._free([b])
         return len(victims)
 
-    def _spill_cold(self, need: int) -> int:
-        """Free up to ``need`` pool blocks by moving the oldest unpinned
-        cold cached blocks to the host tier (evicting the oldest cached
-        host block when the host pool is full, dropping the cold block
-        when there is no host room at all).  Returns the blocks freed."""
+    def _spill_cold(self, group: int, need: int) -> int:
+        """The rung before the ladder: free up to ``need`` pool blocks of
+        ``group`` by moving the oldest unpinned cold cached blocks to the
+        host tier (evicting the oldest cached host block when the host
+        pool is full, dropping the cold block when there is no host room
+        at all).  Returns the blocks freed."""
         if not self.kv_tiering:
             return 0
         freed = 0
         while freed < need:
             cand = next((b for b in self._cached if b < self.n_blocks
+                         and self._alloc.group_of(b) == group
                          and self._alloc.refcount(b) == 1), None)
             if cand is None:
                 break
@@ -573,13 +752,17 @@ class ServeEngine:
             freed += 1
         return freed
 
-    def spill_cached(self) -> int:
+    def spill_cached(self, group: Optional[int] = None) -> int:
         """Force-spill every unpinned cached pool block to the host tier
         (the ops/test hook that drives hit-after-spill without real pool
         pressure).  Returns the number of blocks spilled."""
-        n = sum(1 for b in self._cached
-                if b < self.n_blocks and self._alloc.refcount(b) == 1)
-        return self._spill_cold(n)
+        total = 0
+        for g in (range(self.pool_groups) if group is None else [group]):
+            n = sum(1 for b in self._cached
+                    if b < self.n_blocks and self._alloc.group_of(b) == g
+                    and self._alloc.refcount(b) == 1)
+            total += self._spill_cold(g, n)
+        return total
 
     def drop_block_cache(self) -> int:
         """Release every engine-cached cold block (both tiers) and prune
@@ -597,33 +780,58 @@ class ServeEngine:
             return len(matched)
         return sum(1 for b in matched if self._alloc.tier_of(b) == "hbm")
 
-    def _place(self, r: Request, info: Optional[MatchInfo], avail: List[int],
-               free: List[int], key=None) -> Optional[int]:
-        """Reserve the first free slot for ``r`` if the pool covers its
-        admission need net of aliased pool blocks (and, given a bucket
-        ``key``, its match keeps it in that bucket); ``free[0]`` is the
-        pass's running free count."""
-        if not avail:
-            return None
-        matched = self._match_for(r, info)
-        if key is not None and self._bucket_key(r, matched) != key:
-            return None
-        need = max(0, self._admission_blocks(r) - self._hbm_matched(matched))
-        if need > free[0]:
-            return None
-        free[0] -= need
-        return avail.pop(0)
+    def _place(self, r: Request, avail: List[int],
+               free_by_group: Dict[int, int],
+               info: Optional[MatchInfo] = None) -> Optional[int]:
+        """Reserve a free slot whose sub-pool covers ``r``'s admission
+        need net of aliased pool blocks; both accounting structures are
+        updated.  With several sub-pools the slots are tried longest
+        match first, else first free first."""
+        need_full = self._admission_blocks(r)
+        order = list(range(len(avail)))
+        if info is not None and self.pool_groups > 1:
+            order.sort(key=lambda i: (
+                -len(self._match_for(r, info, self._slot_group(avail[i]))),
+                avail[i]))
+        for i in order:
+            g = self._slot_group(avail[i])
+            matched = self._match_for(r, info, g) if info is not None else []
+            need = max(0, need_full - self._hbm_matched(matched))
+            if need <= free_by_group[g]:
+                free_by_group[g] -= need
+                return avail.pop(i)
+        return None
+
+    def _place_bucket(self, r: Request, info: Optional[MatchInfo], key,
+                      avail: List[int],
+                      free_by_group: Dict[int, int]) -> Optional[int]:
+        """Like :meth:`_place`, but only into a slot whose sub-pool's
+        match keeps ``r`` in the head request's admission bucket."""
+        need_full = self._admission_blocks(r)
+        for i, s in enumerate(avail):
+            g = self._slot_group(s)
+            matched = self._match_for(r, info, g) if info is not None else []
+            if self._bucket_key(r, matched) != key:
+                continue
+            need = max(0, need_full - self._hbm_matched(matched))
+            if need <= free_by_group[g]:
+                free_by_group[g] -= need
+                return avail.pop(i)
+        return None
+
+    def _free_by_group(self) -> Dict[int, int]:
+        return {g: self._alloc.free_in(g) for g in range(self.pool_groups)}
 
     # ------------------------------------------------------------------
     def _admit(self) -> None:
         """Bucketed batched admission: every pending prompt sharing the
         head-of-line's bucket — feed length, plus the matched-prefix
         length when prefix reuse aliases resident blocks — that fits a
-        free slot and the pool is prefilled in one call (tail-only when a
+        (slot, sub-pool) pair is prefilled in one call (tail-only when a
         prefix is aliased).  A request whose whole feed but its last
-        token is resident rides straight to decode.  When the pool cannot
-        cover the head request, cold cached blocks spill to the host tier
-        and the placement is retried once; then admission waits for a
+        token is resident rides straight to decode.  When no pair covers
+        the head request, cold cached blocks spill to the host tier and
+        the placement is retried once; then admission waits for a
         finisher (head-of-line blocking, so exhaustion delays rather than
         starves)."""
         self._promo_map.clear()        # the promoted-id map is per pass
@@ -631,68 +839,78 @@ class ServeEngine:
             head = self.pending[0]
             info0 = self._match_info(head)
             avail = list(self.free_slots)
-            free = [self._alloc.free_in(0)]
-            s0 = self._place(head, info0, avail, free)
+            fbg = self._free_by_group()
+            s0 = self._place(head, avail, fbg, info0)
             if s0 is None:
                 if not (self.kv_tiering and self._cached):
                     return             # pool exhausted: wait for frees
-                short = self._admission_blocks(head) - self._alloc.free_in(0)
-                if short > 0:
-                    self._spill_cold(short)
+                need0 = self._admission_blocks(head)
+                for g in range(self.pool_groups):
+                    short = need0 - self._alloc.free_in(g)
+                    if short > 0:
+                        self._spill_cold(g, short)
                 # the match memo is stale after a rekey
                 info0 = self._match_info(head)
                 avail = list(self.free_slots)
-                free = [self._alloc.free_in(0)]
-                s0 = self._place(head, info0, avail, free)
+                fbg = self._free_by_group()
+                s0 = self._place(head, avail, fbg, info0)
                 if s0 is None:
                     return             # truly exhausted: wait for frees
-            m0 = self._match_for(head, info0)
+            m0 = self._match_for(head, info0, self._slot_group(s0))
             if self._can_ride(head, m0):
                 self.pending.pop(0)
                 self.free_slots.remove(s0)
                 self._admit_ride(head, s0, info0)
                 continue
             key0 = self._bucket_key(head, m0)
-            group, slots, infos, rest = [head], [s0], [info0], []
+            group, slots, matches = [head], [s0], [m0]
+            infos, rest = [info0], []
             for r in self.pending[1:]:
                 s, info = None, None
                 if len(r.feed_tokens) == len(head.feed_tokens):
                     info = self._match_info(r)
-                    s = self._place(r, info, avail, free, key0)
+                    s = self._place_bucket(r, info, key0, avail, fbg)
                 if s is None:
                     rest.append(r)
                 else:
                     group.append(r)
                     slots.append(s)
+                    matches.append(
+                        self._match_for(r, info, self._slot_group(s)))
                     infos.append(info)
             self.pending = rest
             for s in slots:
                 self.free_slots.remove(s)
             # hit-after-spill: matches may name host-tier (or just
             # promoted) blocks; resolve them before any read of the pool
-            matches = [self._promote_matched(self._match_for(r, i))
-                       for r, i in zip(group, infos)]
+            matches = [self._promote_matched(m, self._slot_group(s))
+                       for m, s in zip(matches, slots)]
             self._admit_group(group, slots, matches, infos, key0)
+
+    def _table_row(self, slot: int, blocks: List[int]) -> None:
+        """Install one slot's table row (-1 past its blocks)."""
+        row = torch.full((self.cache["block_tbl"].shape[1],), -1,
+                         dtype=torch.int32)
+        row[:len(blocks)] = torch.as_tensor(blocks, dtype=torch.int32)
+        self.cache["block_tbl"][slot] = row.to(self.device)
 
     def _admit_ride(self, r: Request, slot: int, info: MatchInfo) -> None:
         """Zero-prefill admission: alias the matched blocks, draw the
         fresh ones the budget calls for, install the table row, and hand
         the request to decode at position ``matched_tokens``."""
-        matched = self._promote_matched(self._match_for(r, info))
+        g = self._slot_group(slot)
+        matched = self._promote_matched(self._match_for(r, info, g), g)
         need = self._admission_blocks(r)
         self._alloc.retain(matched)
-        fresh = self._alloc.allocate(need - len(matched), 0)
+        fresh = self._alloc.allocate(need - len(matched), g)
         assert fresh is not None, "placement checked the free count"
         r.blocks = list(matched) + fresh
-        row = torch.full((self.cache["block_tbl"].shape[1],), -1,
-                         dtype=torch.int32)
-        row[:len(r.blocks)] = torch.as_tensor(r.blocks, dtype=torch.int32)
-        self.cache["block_tbl"][slot] = row.to(self.device)
+        self._table_row(slot, r.blocks)
         r.slot = int(slot)
         m_tok = len(matched) * self.block_len
         self.slot_len[slot] = m_tok
         self.active[slot] = r
-        self._register_prefix(r, info)
+        self._register_prefix(r, info, g)
         self._prefix.hits += 1
         self._prefix.hit_tokens += m_tok
         self.prefix_rides += 1
@@ -701,11 +919,15 @@ class ServeEngine:
                      matches: List[List[int]],
                      infos: List[Optional[MatchInfo]], bucket) -> None:
         """One prefill call for a bucket of requests, each with a
-        pre-reserved slot.  With a matched-prefix bucket, only the tails
-        run (:func:`repro_torch.models.lm.prefill_tail`, reading the
-        aliased rows from the pool); the matched blocks are aliased, not
-        rewritten.  The batch is padded to the next power of two (dummy
-        rows repeat the first request and are discarded)."""
+        pre-reserved slot (its sub-pool is the one its blocks come
+        from).  A resumed (preempted, stateless) request's feed is its
+        prompt plus the tokens generated but the last: the prefill
+        rebuilds its KV rows and its sample is not drawn (the request
+        already holds the token).  With a matched-prefix bucket, only the
+        tails run (:func:`repro_torch.models.lm.prefill_tail`, reading
+        the aliased rows from the pool); the matched blocks are aliased,
+        not rewritten.  The batch is padded to the next power of two
+        (dummy rows repeat the first request and are discarded)."""
         m_tok = bucket[0]
         toks = np.stack([r.feed_tokens[m_tok:] for r in group])
         padded = 1
@@ -729,14 +951,18 @@ class ServeEngine:
                                         self.cfg, max_len=toks.shape[1])
         self.prefill_calls += 1
         self.prefill_batches.append(len(group))
-        first = self._sample(logits[:len(group)],
-                             [r.temperature for r in group])
+        fresh = [i for i, r in enumerate(group) if not r.out_tokens]
+        first = (self._sample(logits[fresh],
+                              [group[i].temperature for i in fresh])
+                 if fresh else [])
         t_first = time.time()
         live: List[Request] = []
         idxs: List[int] = []
-        for i, (r, tok) in enumerate(zip(group, first)):
+        for i, tok in zip(fresh, first):
+            r = group[i]
             r.out_tokens.append(tok)
             r.t_first = t_first
+        for i, r in enumerate(group):
             if len(r.out_tokens) >= r.max_new_tokens:
                 # the prefill sample met the budget: no decode tick, no
                 # blocks, and the reserved slot goes back
@@ -773,7 +999,8 @@ class ServeEngine:
             self.slot_len[slot] = plen
             self.active[int(slot)] = r
         for i, r in enumerate(live):
-            self._register_prefix(r, infos[idxs[i]])
+            self._register_prefix(r, infos[idxs[i]],
+                                  self._slot_group(int(live_slots[i])))
             if self._prefix is not None:
                 if live_matches[i]:
                     self._prefix.hits += 1
@@ -782,14 +1009,15 @@ class ServeEngine:
                 else:
                     self._prefix.misses += 1
 
-    def _draw_blocks(self, r: Request, matched: List[int]) -> List[int]:
-        """``r``'s admission budget: the matched blocks aliased (refcount
-        bump), the rest drawn fresh (reserved at placement, so the draw
-        cannot fail)."""
+    def _draw_blocks(self, r: Request, matched: List[int],
+                     slot: int) -> List[int]:
+        """``r``'s admission budget from its slot's sub-pool: the matched
+        blocks aliased (refcount bump), the rest drawn fresh (reserved
+        at placement, so the draw cannot fail)."""
         if matched:
             self._alloc.retain(matched)
         fresh = self._alloc.allocate(
-            self._admission_blocks(r) - len(matched), 0)
+            self._admission_blocks(r) - len(matched), self._slot_group(slot))
         assert fresh is not None, "admission reserved these blocks"
         r.blocks = list(matched) + fresh
         return r.blocks
@@ -817,7 +1045,7 @@ class ServeEngine:
         ent_col: List[int] = []            # feed block column per block
         ent_blk: List[int] = []            # destination pool block
         for i, r in enumerate(live):
-            blocks = self._draw_blocks(r, matches[i])
+            blocks = self._draw_blocks(r, matches[i], int(slots[i]))
             assert len(blocks) >= nbp >= len(matches[i]), \
                 (len(blocks), nbp, len(matches[i]))
             for c in range(len(matches[i]), nbp):
@@ -851,7 +1079,7 @@ class ServeEngine:
         tail_blocks: List[int] = []
         for i, r in enumerate(live):
             assert len(matches[i]) == nbm, (len(matches[i]), nbm)
-            blocks = self._draw_blocks(r, matches[i])
+            blocks = self._draw_blocks(r, matches[i], int(slots[i]))
             assert len(blocks) >= nbp > nbm, (len(blocks), nbp, nbm)
             tail_blocks.extend(blocks[nbm:nbp])
         ntb, T = nbp - nbm, plen - m_tok
@@ -866,6 +1094,53 @@ class ServeEngine:
             self.cache[key][:, blk_ids] = upd
         self._install_rows(live, slots)
 
+    # ---------------- grow-on-demand grants + the ladder --------------
+    def _needs_block(self, r: Request) -> bool:
+        """True when this tick's append row falls past the blocks the
+        slot holds (decode crossed a block boundary)."""
+        return len(r.blocks) < int(self.slot_len[r.slot]) \
+            // self.block_len + 1
+
+    def _grant(self, group: int) -> Optional[int]:
+        """One-block grant from a sub-pool, through the chaos hook."""
+        if self.grant_fault is not None and self.grant_fault():
+            self.grant_denials += 1
+            return None
+        blk = self._alloc.allocate_one(group)
+        if blk is None:
+            self.grant_denials += 1
+        return blk
+
+    def _install_block(self, r: Request, blk: int) -> None:
+        r.blocks.append(blk)
+        self.cache["block_tbl"][r.slot, len(r.blocks) - 1] = blk
+
+    def _ensure_grants(self) -> None:
+        """Grant admission: before a decode tick every active slot must
+        hold the block its append row lands in (a -1 entry would drop the
+        append and corrupt the request).  A failed grant walks the
+        ladder: spill a cold cached block to the host tier, else migrate
+        the slot to an idler sub-pool, else preempt a victim (maybe the
+        needy request itself) and retry.  After this returns, every
+        remaining active slot can decode."""
+        if self.kv_residency != "paged" or self.kv_admission != "grant":
+            return
+        for r in sorted(self.active.values(), key=lambda x: x.rid):
+            guard = 0
+            while self.active.get(r.slot) is r and self._needs_block(r):
+                guard += 1
+                assert guard <= self.max_batch + 2 * self.n_blocks + 2, \
+                    "grant ladder did not converge"
+                blk = self._grant(self._slot_group(r.slot))
+                if blk is not None:
+                    self._install_block(r, blk)
+                    continue
+                if self._spill_cold(self._slot_group(r.slot), 1):
+                    continue
+                if self._try_migrate(r):
+                    continue
+                self._preempt_for(r)
+
     # ---------------- copy-on-write barrier ---------------------------
     def _ensure_writable(self) -> None:
         """Before a decode tick no slot may append into a block with more
@@ -873,24 +1148,28 @@ class ServeEngine:
         first.  Natural admission never shares an append block (only
         full feed chunks are aliased, one token short of the feed);
         this barrier is the structural guarantee.  Without a free block
-        it spills a cold one; the port has no preemption to fall back on
-        (ROADMAP §1 item 3), so it raises past that."""
+        it spills a cold one, else preempts a victim from the slot's
+        sub-pool, as a failed grant does (migration refuses shared
+        blocks)."""
         if self._prefix is None or self._alloc.shared_blocks == 0:
             return
         for r in sorted(self.active.values(), key=lambda x: x.rid):
-            col = int(self.slot_len[r.slot]) // self.block_len
-            if col >= len(r.blocks) \
-                    or self._alloc.refcount(r.blocks[col]) <= 1:
-                continue
-            fresh = self._alloc.allocate_one(0)
-            if fresh is None and self._spill_cold(1):
-                fresh = self._alloc.allocate_one(0)
-            if fresh is None:
-                raise RuntimeError(
-                    f"request {r.rid}: copy-on-write needs a free block "
-                    "and the pool has none (reserve admission has no "
-                    "preemption to fall back on)")
-            self._cow_copy(r, col, fresh)
+            guard = 0
+            while self.active.get(r.slot) is r:
+                col = int(self.slot_len[r.slot]) // self.block_len
+                if col >= len(r.blocks) \
+                        or self._alloc.refcount(r.blocks[col]) <= 1:
+                    break          # the grant ladder owns missing blocks
+                guard += 1
+                assert guard <= self.max_batch + 2 * self.n_blocks + 2, \
+                    "CoW ladder did not converge"
+                fresh = self._grant(self._slot_group(r.slot))
+                if fresh is not None:
+                    self._cow_copy(r, col, fresh)
+                    break
+                if self._spill_cold(self._slot_group(r.slot), 1):
+                    continue
+                self._preempt_for(r)
 
     def _cow_copy(self, r: Request, col: int, fresh: int) -> None:
         """Copy ``r``'s shared append block into ``fresh`` (k/v rows in
@@ -903,6 +1182,359 @@ class ServeEngine:
         r.blocks[col] = fresh
         self._release_blocks([old])
         self.cow_copies += 1
+
+    def _try_migrate(self, r: Request) -> bool:
+        """Rung 2: move ``r`` — blocks, table row, per-slot states — to a
+        free slot of an idler sub-pool that covers its holding plus the
+        block it asks for (the idlest wins).  A slot holding a shared
+        block stays put: the sharers' tables point at the original
+        ids."""
+        if self.pool_groups <= 1:
+            return False
+        if any(self._alloc.refcount(b) > 1 for b in r.blocks):
+            return False
+        src = self._slot_group(r.slot)
+        need_now = len(r.blocks) + 1
+        best = None
+        for s2 in sorted(self.free_slots):
+            g2 = self._slot_group(s2)
+            if g2 == src or self._alloc.free_in(g2) < need_now:
+                continue
+            if best is None or self._alloc.free_in(g2) \
+                    > self._alloc.free_in(self._slot_group(best)):
+                best = s2
+        if best is None:
+            return False
+        s1, s2 = r.slot, best
+        g2 = self._slot_group(s2)
+        new_blocks = self._alloc.allocate(need_now, g2)
+        assert new_blocks is not None, "donor free count was just checked"
+        old = list(r.blocks)
+        if old:
+            old_ids = self._ids(old)
+            new_ids = self._ids(new_blocks[:len(old)])
+            for key in ("k", "v"):
+                self.cache[key][:, new_ids] = self.cache[key][:, old_ids]
+        for key in ("ssm", "conv"):
+            if key in self.cache:
+                self.cache[key][:, s2] = self.cache[key][:, s1]
+        self._table_row(s2, new_blocks)
+        self.cache["block_tbl"][s1] = -1
+        self._release_blocks(old)
+        r.blocks = list(new_blocks)
+        if self._prefix is not None and r.prefix_hashes:
+            # the moved blocks hold the same content: index them in the
+            # donor sub-pool (first writer wins)
+            self._prefix.insert(r.prefix_hashes,
+                                r.blocks[:len(r.prefix_hashes)], g2)
+        del self.active[s1]
+        self.active[s2] = r
+        r.slot = int(s2)
+        self.free_slots.remove(s2)
+        self.free_slots.append(s1)
+        self.slot_len[s2] = self.slot_len[s1]
+        self.slot_len[s1] = 0
+        self.migrations += 1
+        return True
+
+    def _preempt_for(self, r: Request) -> None:
+        """Rung 3: evict a victim from the needy slot's sub-pool (maybe
+        the needy request itself).  With prefix reuse, candidates holding
+        the fewest shared blocks go first: evicting a sharer frees at
+        most its private blocks."""
+        group = self._slot_group(r.slot)
+        cands = [a for a in self.active.values()
+                 if self._slot_group(a.slot) == group]
+        if self._prefix is not None and len(cands) > 1:
+            def shared(a: Request) -> int:
+                return sum(1 for b in a.blocks
+                           if self._alloc.refcount(b) > 1)
+            lo = min(shared(a) for a in cands)
+            cands = [a for a in cands if shared(a) == lo]
+        self._preempt(self.preemption.pick_victim(cands, time.time()))
+
+    def _preempt(self, r: Request) -> None:
+        """Evict an active request to the host side.  With tiering on it
+        parks with state (:meth:`_park_state`), so its resume skips the
+        prefill; without tiering, or when it pins shared blocks, its
+        blocks are released and its resume re-prefills prompt plus
+        generated tokens.  Past its retry budget or an already-missed
+        deadline it is shed instead."""
+        slot = r.slot
+        del self.active[slot]
+        r.slot = -1
+        r.preemptions += 1
+        self.preemptions += 1
+        self._preempt_ticks.append(self.tick)
+        shed_why = ""
+        delay = 0
+        if r.deadline is not None and time.time() > r.deadline:
+            shed_why = ("deadline missed at preemption: a re-prefill "
+                        "could not finish in time")
+        else:
+            pol = self._backoff.setdefault(
+                r.rid, self.preemption.restart_policy())
+            try:
+                delay = int(pol.next_delay())
+            except RuntimeError:
+                shed_why = ("preemption retry budget exhausted "
+                            f"({self.preemption.max_preemptions})")
+        state = (self._park_state(r, slot)
+                 if not shed_why and self.kv_tiering else None)
+        if state is not None:
+            self.free_slots.append(slot)
+            self.slot_len[slot] = 0
+            self.preempted.append(
+                PreemptedRequest(r, self.tick + delay, state))
+            self.parks_with_state += 1
+            return
+        self._release_slot(slot, r)
+        if shed_why:
+            self._shed(r, shed_why)
+            return
+        self.preempted.append(PreemptedRequest(r, self.tick + delay))
+
+    def _host_copy(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy that owns its memory (``.cpu()`` of a CPU tensor
+        would alias the cache row a next tenant overwrites)."""
+        return t.to("cpu", copy=True)
+
+    def _park_state(self, r: Request, slot: int) -> Optional[Dict[str, Any]]:
+        """Capture a victim's per-slot state on the host so its resume
+        needs no prefill: paged KV blocks spill to the host tier (ids
+        stay on ``r.blocks``), dense stripes copy their valid rows,
+        SSM/conv states their slot rows.  Returns ``None`` when it cannot
+        park with state — it pins shared blocks, or the host pool cannot
+        hold its blocks even after evicting cold host entries — and the
+        caller falls back to the release + re-prefill park."""
+        st: Dict[str, Any] = {"slot_len": int(self.slot_len[slot])}
+        if self.kv_residency == "paged" and r.blocks:
+            if self._host is None:
+                return None
+            if any(self._alloc.refcount(b) > 1 for b in r.blocks):
+                return None
+            short = len(r.blocks) - self._alloc.host_free
+            if short > 0:
+                self._evict_cached_host(short)
+            if len(r.blocks) > self._alloc.host_free:
+                return None
+            # the spilled blocks are private copies of this sequence: a
+            # trie match against them would alias state the resume owns
+            if self._prefix is not None:
+                self._prefix.evict(list(r.blocks))
+            pairs = self._alloc.spill(list(r.blocks))
+            assert pairs is not None, "host headroom was just checked"
+            self._spill_rows(pairs)
+            r.blocks = [h for _, h in pairs]
+            st["kv_host"] = list(r.blocks)
+            self.cache["block_tbl"][slot] = -1
+        elif self.arch.has_attention and self.kv_residency == "dense":
+            n = st["slot_len"]
+            st["kv_rows"] = (self._host_copy(self.cache["k"][:, slot, :n]),
+                             self._host_copy(self.cache["v"][:, slot, :n]))
+        for key in ("ssm", "conv"):
+            if key in self.cache:
+                st[key] = self._host_copy(self.cache[key][:, slot])
+        return st
+
+    def preempt(self, rid: int) -> None:
+        """Evict an active request (chaos/test hook and ops escape hatch;
+        the engine preempts on its own when a grant fails)."""
+        for r in self.active.values():
+            if r.rid == rid:
+                self._preempt(r)
+                return
+        raise KeyError(f"request {rid} is not active")
+
+    def _shed(self, r: Request, why: str) -> None:
+        assert not r.blocks, "shed request still holds blocks"
+        r.error = why
+        self.shed.append(r)
+        self._backoff.pop(r.rid, None)
+
+    def _shed_expired_pending(self) -> None:
+        if not any(r.deadline is not None for r in self.pending):
+            return
+        now = time.time()
+        keep: List[Request] = []
+        for r in self.pending:
+            if r.deadline is not None and now > r.deadline:
+                self._shed(r, f"deadline missed while pending "
+                              f"(tick {self.tick})")
+            else:
+                keep.append(r)
+        self.pending = keep
+
+    # ---------------- resume ------------------------------------------
+    def _readmit_preempted(self) -> None:
+        """Parked evictions whose backoff ended rejoin service.  Stateless
+        parks go to the front of the pending queue (oldest rid first) and
+        re-prefill; parks with state skip the queue: :meth:`_admit_resume`
+        copies their state into a free slot and decode continues where
+        the eviction cut in, with no prefill call.  A resume that does
+        not fit this tick stays parked and retries next tick."""
+        if not self.preempted:
+            return
+        ready = [p for p in self.preempted if p.not_before_tick <= self.tick]
+        if not ready:
+            return
+        keep = [p for p in self.preempted if p.not_before_tick > self.tick]
+        for p in sorted(ready, key=lambda p: p.request.rid, reverse=True):
+            if p.parked_state is None:
+                self.pending.insert(0, p.request)
+                continue
+            r = p.request
+            if r.deadline is not None and time.time() > r.deadline:
+                self._drop_parked(p)
+                self._shed(r, f"deadline missed while parked "
+                              f"(tick {self.tick})")
+                continue
+            if not self._admit_resume(p):
+                keep.append(p)
+        self.preempted = keep
+
+    def _admit_resume(self, p: PreemptedRequest) -> bool:
+        """Resume a park with state: promote its host KV blocks into a
+        free slot's sub-pool (from the staged rows when the prefetch
+        landed them), restore dense/SSM/conv rows, and hand the request
+        back to decode.  No prefill call: the next tick feeds the last
+        generated token at the parked position."""
+        r, st = p.request, p.parked_state
+        if not self.free_slots:
+            return False
+        host_ids = st.get("kv_host", [])
+        if host_ids:
+            # the free slot whose sub-pool covers the promote wins
+            # (emptiest first); spill cold cached blocks to make room
+            slot = None
+            for s in sorted(self.free_slots,
+                            key=lambda s: (-self._alloc.free_in(
+                                self._slot_group(s)), s)):
+                g = self._slot_group(s)
+                short = len(host_ids) - self._alloc.free_in(g)
+                if short > 0:
+                    self._spill_cold(g, short)
+                if self._alloc.free_in(g) >= len(host_ids):
+                    slot = s
+                    break
+            if slot is None:
+                return False
+            g = self._slot_group(slot)
+            staged = self._staged.pop(r.rid, None)
+            pairs = self._alloc.promote(host_ids, g)
+            assert pairs is not None, "free count was just checked"
+            if staged is not None and staged[0] == tuple(host_ids):
+                if staged[3] is not None:
+                    torch.cuda.current_stream(self.device).wait_event(
+                        staged[3])
+                self._promote_rows(pairs, staged[1], staged[2])
+                self.prefetch_consumed += 1
+            else:
+                self._promote_rows(pairs)
+            r.blocks = [b for _, b in pairs]
+            self._table_row(slot, r.blocks)
+            if self._prefix is not None and r.prefix_hashes:
+                # back in the pool, the prefix blocks are shareable again
+                self._prefix.insert(r.prefix_hashes,
+                                    r.blocks[:len(r.prefix_hashes)], g)
+            self.resumes_by_promote += 1
+        else:
+            slot = min(self.free_slots)
+            if "kv_rows" in st:
+                n = st["slot_len"]
+                k_rows, v_rows = st["kv_rows"]
+                self.cache["k"][:, slot, :n] = k_rows.to(self.device)
+                self.cache["v"][:, slot, :n] = v_rows.to(self.device)
+        for key in ("ssm", "conv"):
+            if key in st:
+                self.cache[key][:, slot] = st[key].to(self.device)
+        self.free_slots.remove(slot)
+        self.slot_len[slot] = st["slot_len"]
+        r.slot = int(slot)
+        self.active[slot] = r
+        self.resumes += 1
+        return True
+
+    def _drop_parked(self, p: PreemptedRequest) -> None:
+        """Release a parked eviction's host-side holdings (shed or
+        abandoned): its host blocks go back to the host free list and any
+        staged prefetch is discarded."""
+        r = p.request
+        self._staged.pop(r.rid, None)
+        if p.parked_state and p.parked_state.get("kv_host"):
+            self._free(r.blocks)
+            r.blocks = []
+
+    def _stage_prefetch(self) -> None:
+        """For every park with state whose backoff ends by the next tick,
+        start the host → device copy of its spilled rows now, so that
+        this tick's decode runs while they stream in and the resume finds
+        them on the card (``kv_prefetch="off"`` turns it off: the resume
+        copies synchronously)."""
+        if not (self.kv_prefetch and self.kv_tiering
+                and self._host is not None):
+            return
+        for p in self.preempted:
+            st = p.parked_state
+            if st is None or not st.get("kv_host"):
+                continue
+            if p.not_before_tick > self.tick + 1:
+                continue
+            rid = p.request.rid
+            ids = tuple(st["kv_host"])
+            got = self._staged.get(rid)
+            if got is not None and got[0] == ids:
+                continue
+            self._staged[rid] = (ids, *self._stage_rows(ids))
+            self.prefetch_staged += 1
+
+    def _stage_rows(self, ids: Tuple[int, ...]):
+        """``(k rows, v rows, event)`` of host blocks ``ids`` on the
+        engine's device.  The rows are gathered from the host pool into
+        the staging buffer; on the card (pinned buffer) a side stream
+        copies them to device tensors allocated on the current stream,
+        after the work already queued there, and records the event the
+        consumer waits for.  The buffer is reused only once the previous
+        copy out of it has ended.  On the CPU the staged rows are the
+        buffer's copy and the event is ``None``."""
+        t0 = time.perf_counter()
+        on_card = self.device.type == "cuda"
+        if self._staging is None:
+            # one sequence's blocks: the most one resume promotes; made at
+            # the first staging, so an engine that never parks pins nothing
+            self._staging = lm.init_staging(
+                self.arch, -(-self.max_len // self.block_len),
+                self.block_len, kv_heads=self._host["k"].shape[3],
+                pin=on_card)
+        idx = torch.as_tensor([h - self.n_blocks for h in ids],
+                              dtype=torch.long)
+        shape = (self._host["k"].shape[0], len(ids),
+                 *self._host["k"].shape[2:])
+        numel = int(np.prod(shape))
+        if on_card and self._stage_event is not None:
+            self._stage_event.synchronize()
+        bufs = []
+        for key in ("k", "v"):
+            buf = self._staging[key][:numel].view(shape)
+            torch.index_select(self._host[key], 1, idx, out=buf)
+            bufs.append(buf)
+        if not on_card:
+            self.tier_ms["stage"] += (time.perf_counter() - t0) * 1e3
+            return bufs[0].clone(), bufs[1].clone(), None
+        main = torch.cuda.current_stream(self.device)
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(self.device)
+        rows = [torch.empty(shape, dtype=b.dtype, device=self.device)
+                for b in bufs]
+        self._stage_stream.wait_stream(main)
+        with torch.cuda.stream(self._stage_stream):
+            for dst, src in zip(rows, bufs):
+                dst.copy_(src, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._stage_stream)
+        self._stage_event = ev
+        self.tier_ms["stage"] += (time.perf_counter() - t0) * 1e3
+        return rows[0], rows[1], ev
 
     # ------------------------------------------------------------------
     def _sample(self, logits: torch.Tensor, temperatures: List[float]
@@ -928,12 +1560,23 @@ class ServeEngine:
             self.device)
 
     def step(self) -> int:
-        """One engine tick: admit, then decode one token for every slot.
-        Returns the number of requests that finished."""
+        """One engine tick: shed expired pending requests, resume parked
+        evictions, admit, secure grants, the copy-on-write barrier, stage
+        the next tick's resume rows, then decode one token for every
+        active slot.  Returns the number of requests that finished."""
         t0 = time.perf_counter()
         self.tick += 1
+        if self.kv_residency == "paged" and \
+                self.tick % self.preemption.shed_window_ticks == 0:
+            # a new low-water epoch once a window: one transient dip must
+            # not read as a hot sub-pool forever
+            self._alloc.reset_low_water()
+        self._shed_expired_pending()
+        self._readmit_preempted()
         self._admit()
+        self._ensure_grants()
         self._ensure_writable()
+        self._stage_prefetch()
         if not self.active:
             self._observe_tick(t0)
             return 0
@@ -963,6 +1606,7 @@ class ServeEngine:
                 self.finished.append(r)
                 del self.active[slot]
                 self._release_slot(slot, r)
+                self._backoff.pop(r.rid, None)
                 finished += 1
         self._observe_tick(t0)
         return finished
@@ -986,17 +1630,20 @@ class ServeEngine:
             self.cache["block_tbl"][slot] = -1
 
     def run_until_idle(self, max_ticks: int = 1000) -> List[Request]:
-        """Tick until no live work remains; raises :class:`TimeoutError`
-        naming the stuck request ids past ``max_ticks``."""
+        """Tick until no live work remains (parked evictions count as
+        live); raises :class:`TimeoutError` naming the stuck request ids
+        past ``max_ticks``."""
         ticks = 0
-        while self.pending or self.active:
+        while self.pending or self.active or self.preempted:
             if ticks >= max_ticks:
                 stuck = sorted([r.rid for r in self.pending]
-                               + [r.rid for r in self.active.values()])
+                               + [r.rid for r in self.active.values()]
+                               + [p.request.rid for p in self.preempted])
                 raise TimeoutError(
                     f"run_until_idle: {len(stuck)} request(s) still live "
                     f"after {max_ticks} ticks (pending={len(self.pending)} "
-                    f"active={len(self.active)}): rids {stuck}")
+                    f"active={len(self.active)} "
+                    f"preempted={len(self.preempted)}): rids {stuck}")
             self.step()
             ticks += 1
         return self.finished

@@ -197,6 +197,94 @@ def test_flash_kernel_query_block_at_an_offset(dev, M, T, window, tiles,
     assert _rel_err(got, full[:, M:]) < FLASH_TOL
 
 
+# ---------------------------------------------------------------------
+# GQA groups of 7 (deepseek-coder-33b: 56 query heads over 8 kv heads)
+# ---------------------------------------------------------------------
+
+H7, K7 = 56, 8
+
+
+def _boundary_rows(S: int, rows: int, G: int) -> torch.Tensor:
+    """The query positions at the start of every CTA but the first
+    (``q0 + BQ`` of the one before it, where a pad row would land)."""
+    return torch.tensor(list(range(rows // G, S, rows // G)),
+                        dtype=torch.long)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 18, 19, 300, 1024])
+@pytest.mark.parametrize("tiles", [None, (9, 64), (9, 128), (18, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_group_7_matches_plain(dev, S, tiles, causal):
+    """G = 7 holds 18 positions in a 128-row tile (9 in 64), two or one
+    rows of pad: every row against the plain version, and the rows of
+    each CTA's first position (where a pad row written by the CTA before
+    would land) on their own."""
+    g = torch.Generator(dev).manual_seed(S)
+    q, k, v = _rnd(g, 2, S, H7, D), _rnd(g, 2, S, K7, D), _rnd(g, 2, S, K7, D)
+    bq, bkv = tiles or (None, None)
+    rows, _ = tfa.kernel_tiles(7, bq, bkv)
+    got = tfa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                              block_kv=bkv)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) < FLASH_TOL
+    edge = _boundary_rows(S, rows, 7).to(dev)
+    if edge.numel():
+        assert _rel_err(got[:, edge], want[:, edge]) < FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T", [(1024, 256), (64, 1), (100, 37)])
+def test_flash_kernel_group_7_at_an_offset(dev, M, T):
+    """A tail at G = 7 over a resident prefix: against the plain version,
+    the full launch's tail rows, and the planted fault (the offset
+    ignored) failing the same check."""
+    g = torch.Generator(dev).manual_seed(M + T)
+    q = _rnd(g, 2, M + T, H7, D)
+    k, v = _rnd(g, 2, M + T, K7, D), _rnd(g, 2, M + T, K7, D)
+    tail = q[:, M:].contiguous()
+    got = tfa.flash_attention(tail, k, v)
+    full = tfa.flash_attention(q, k, v)
+    want = tfa.flash_attention_plain(tail, k, v)
+    bad = tfa.flash_attention(tail, k, v, ignore_offset=True)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) < FLASH_TOL
+    assert _rel_err(got, full[:, M:]) < FLASH_TOL
+    assert _rel_err(bad, want) > 5 * FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [64, 256])
+@pytest.mark.parametrize("window", [0, 100])
+def test_decode_kernels_group_7_match_plain(dev, tile, window):
+    """Paged and dense decode at G = 7 (the ``decode_kernel<7, 128, *>``
+    instances) against their plain versions, beside a planted split
+    dropped from the merge that must fail the same check."""
+    g = torch.Generator(dev).manual_seed(tile + window)
+    bl, B, max_len = 256, 8, 2048
+    lens = torch.tensor([1, 64, 300, 777, 1024, 1500, 1999, 2048],
+                        dtype=torch.int32, device=dev)
+    nb = max_len // bl
+    perm = torch.randperm(B * nb, generator=g, device=dev).int()
+    tbl = perm.reshape(B, nb).contiguous()
+    q = _rnd(g, B, H7, D)
+    kp, vp = _rnd(g, B * nb, bl, K7, D), _rnd(g, B * nb, bl, K7, D)
+    kd, vd = tref.paged_gather_ref(kp, tbl), tref.paged_gather_ref(vp, tbl)
+    kw = dict(cache_len=lens, window=window)
+    paged = tdec.paged_decode_attention(q, kp, vp, tbl, block_kv=tile, **kw)
+    dense = tdec.decode_attention(q, kd.contiguous(), vd.contiguous(),
+                                  block_kv=tile, **kw)
+    want = tdec.decode_attention_plain(q, kd, vd, **kw)
+    bad = tdec.paged_decode_attention(q, kp, vp, tbl, block_kv=tile,
+                                      drop_split=0, **kw)
+    torch.cuda.synchronize()
+    assert _rel_err(paged, want) < DECODE_TOL
+    assert _rel_err(dense, want) < DECODE_TOL
+    if window == 0:                    # split 0 holds live rows of every slot
+        assert _rel_err(bad, want) > 5 * DECODE_TOL
+
+
 def _misaligned(t: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``t`` whose data starts 2 bytes past a
     16-byte boundary."""
@@ -503,10 +591,11 @@ class _FirstLogits(ServeEngine):
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        self.first, self._rids = {}, []
+        self.first, self.rows, self._rids = {}, {}, []
 
     def _admit_group(self, group, *args):
-        self._rids = [r.rid for r in group]
+        # a resumed request's prefill draws no sample
+        self._rids = [r.rid for r in group if not r.out_tokens]
         super()._admit_group(group, *args)
 
     def _ensure_writable(self):
@@ -516,6 +605,7 @@ class _FirstLogits(ServeEngine):
     def _sample(self, logits, temperatures):
         for rid, row in zip(self._rids, logits.float().cpu()):
             self.first.setdefault(rid, row)
+            self.rows.setdefault(rid, []).append(row)
         return super()._sample(logits, temperatures)
 
 
@@ -581,13 +671,88 @@ def test_shared_prefix_and_spill_promote_on_card(dev):
     assert st["free"] == st["total"] and st["host_free"] == st["host_total"]
 
 
+@pytest.mark.cuda
+def test_grant_engine_on_card_matches_cpu(dev):
+    """A grant engine at G = 7 (14 query heads over 2 kv heads of 128,
+    two layers) on the card against the same engine on the CPU: 4
+    requests into a 10-block pool of 16 rows with 16 host blocks, one
+    forced preemption at the third tick and the natural ones after it.
+    The ladder's counters are equal (they read block counts only), the
+    victims park with state and resume by promote from rows staged
+    through the pinned buffer on a side stream, the card launches the
+    flash and paged decode kernels at G = 7, and greedy tokens are the
+    CPU's wherever the CPU's top-2 margin exceeds 2e-2 of its largest
+    logit, first-token logits within 2e-2."""
+    from repro_torch.serve.engine import PreemptionPolicy
+
+    arch = dataclasses.replace(get_arch("deepseek-coder-33b").reduced(),
+                               n_heads=14, n_kv_heads=2, head_dim=128)
+    params = lm.init_params(arch, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(0, arch.vocab_size, (n,), generator=gen)
+               .numpy().astype("int32") for n in (40, 57, 33, 70)]
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        eng = _FirstLogits(arch, _to(params, d), lm.RunCfg(), max_batch=4,
+                           max_len=128, kv_residency="paged",
+                           kv_block_len=16, kv_n_blocks=12,
+                           kv_admission="grant", kv_host_blocks=16,
+                           preemption=PreemptionPolicy(max_preemptions=8,
+                                                       backoff_base_ticks=2))
+        ops.reset_launch_counts()
+        for p in prompts:
+            eng.submit(p, max_new_tokens=24)
+        for t in range(400):
+            if not (eng.pending or eng.active or eng.preempted):
+                break
+            if t == 3:
+                eng.preempt(max(eng.active.values(),
+                                key=lambda r: len(r.out_tokens)).rid)
+            eng.step()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        runs[d.type] = (eng, ops.launch_counts())
+    (cpu, _), (card, counts) = runs["cpu"], runs["cuda"]
+    pc, pg = cpu.pressure_stats(), card.pressure_stats()
+    for k in ("preemptions", "grant_denials", "spills", "promotes", "shed",
+              "parks_with_state", "resumes_by_promote", "prefetch_staged",
+              "prefetch_consumed"):
+        assert pg[k] == pc[k], (k, pg[k], pc[k])
+    assert pg["parks_with_state"] >= 1 and pg["prefetch_consumed"] >= 1
+    assert pg["shed"] == 0 and len(card.finished) == 4
+    assert counts["flash_attention"] == arch.n_layers * card.prefill_calls
+    assert counts["paged_decode_attention"] > 0
+    want = {r.rid: r.out_tokens for r in cpu.finished}
+    got = {r.rid: r.out_tokens for r in card.finished}
+    for rid, w in want.items():
+        f = cpu.first[rid]
+        assert float((card.first[rid] - f).abs().max()
+                     / f.abs().max()) < LOGIT_TOL
+        for i, (a, b) in enumerate(zip(got[rid], w)):
+            if a != b:
+                row = cpu.rows[rid][i]
+                top = row.topk(2).values
+                assert float((top[0] - top[1]) / row.abs().max()) \
+                    <= LOGIT_TOL, (rid, i)
+                break
+    card.drop_block_cache()
+    st = card.block_stats()
+    assert st["free"] == st["total"] and st["host_free"] == st["host_total"]
+
+
 def test_device_check_names_the_group_and_k2():
-    """deepseek-coder-33b (G = 7) is refused for a CUDA device before any
-    weight is built, on any machine; qwen3-8b and mamba2 are admitted."""
-    with pytest.raises(NotImplementedError, match=r"G = 7.*K2"):
-        lm.check_on_device(get_arch("deepseek-coder-33b"), "cuda")
-    for name in ("qwen3-8b", "mamba2-2.7b"):
+    """deepseek-coder-33b (G = 7), qwen3-8b and mamba2 are admitted for a
+    CUDA device; a GQA group of 5 (hymba's, llama4's) or head_dim 64 is
+    refused before any weight is built, on any machine, naming K2 / K1."""
+    for name in ("deepseek-coder-33b", "qwen3-8b", "mamba2-2.7b"):
         lm.check_on_device(get_arch(name), "cuda")
+    with pytest.raises(NotImplementedError, match=r"K1 and K2"):
+        lm.check_on_device(get_arch("hymba-1.5b"), "cuda")
+    qwen = get_arch("qwen3-8b")
+    with pytest.raises(NotImplementedError, match=r"G = 5.*K2"):
+        lm.check_on_device(dataclasses.replace(qwen, n_heads=40), "cuda")
+    with pytest.raises(NotImplementedError, match=r"head_dim 64.*K1"):
+        lm.check_on_device(dataclasses.replace(qwen, head_dim=64), "cuda")
 
 
 # ---------------------------------------------------------------------

@@ -103,11 +103,17 @@ def test_flash_kernel_tiles_raise_instead_of_substituting():
     assert tfa.kernel_tiles(4, 32, 128) == (128, 128)  # h100 prefill plan
     assert tfa.kernel_tiles(8, 16, 128) == (128, 128)
     assert tfa.kernel_tiles(1, 64, 64) == (64, 64)
+    # G = 7 (deepseek-coder-33b): 18 positions in 128 rows, 9 in 64
+    assert tfa.kernel_tiles(7) == (128, 128)
+    assert tfa.kernel_tiles(7, 18, 128) == (128, 128)
+    assert tfa.kernel_tiles(7, 9, 64) == (64, 64)
+    with pytest.raises(ValueError, match="not one the kernel is built for"):
+        tfa.kernel_tiles(7, 16, 128)
     with pytest.raises(ValueError, match="not one the kernel is built for"):
         tfa.kernel_tiles(4, 128, 128)         # 512 rows: the tpu-v5e tile
     with pytest.raises(ValueError, match="not one the kernel is built for"):
         tfa.kernel_tiles(4, 32, 256)
-    with pytest.raises(ValueError, match="whole GQA groups"):
+    with pytest.raises(ValueError, match="GQA group G = 3"):
         tfa.kernel_tiles(3)
     with pytest.raises(ValueError, match="hymba"):
         tfa.kernel_tiles(5)

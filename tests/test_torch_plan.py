@@ -110,7 +110,8 @@ def test_h100_matmul_tile_is_a_kernel_tile_that_fits(arch, shape):
                          ids=[f"{a}@{s}" for a, s in RUNNABLE])
 def test_h100_flash_tile_is_a_kernel_tile_that_fits(arch, shape):
     """On the card the flash tile is one the CUDA kernel is built for:
-    ``block_q * G`` rows and ``block_kv`` in its tile set, Q plus the
+    ``block_q = rows // G`` whole positions of a tile's rows (G = 7: 18
+    positions in 128 rows) and ``block_kv`` in its tile set, Q plus the
     K/V ring within the pass's share of shared memory, and the log says
     so.  An arch the kernel is not built for gets no tile and a logged
     reason; a cell without a prefill attention op gets neither."""
@@ -124,12 +125,11 @@ def test_h100_flash_tile_is_a_kernel_tile_that_fits(arch, shape):
     if bp is None:
         if logged:
             assert [d for d, _ in logged] == ["no kernel tile"]
-            assert a.hd != tfa.HEAD_DIM or all(
-                r % G for r, _ in tfa.KERNEL_TILES)
+            assert a.hd != tfa.HEAD_DIM or G not in tfa.GROUPS
         return
     bq, bkv = bp.blocks["block_q"], bp.blocks["block_kv"]
-    rows = bq * G
-    assert tfa.kernel_tiles(G, bq, bkv) == (rows, bkv)
+    rows, _ = tfa.kernel_tiles(G, bq, bkv)
+    assert bq == rows // G and bq * G > rows - G
     assert bp.blocks["head_dim"] == a.hd == tfa.HEAD_DIM
     assert bp.n_buffers == tfa.STAGES
     budget = 0.75 * SMEM_PER_BLOCK
@@ -139,8 +139,8 @@ def test_h100_flash_tile_is_a_kernel_tile_that_fits(arch, shape):
     assert "accumulator in registers" in bp.grid_note
     assert [d for d, _ in logged] == [f"block_q={bq} block_kv={bkv}"]
     assert "accumulator in registers" in logged[0][1]
-    # the largest tile that fits: two 64-row warpgroups where G allows
-    assert rows == max(r for r, _ in tfa.KERNEL_TILES if r % G == 0)
+    # the largest tile that fits: two 64-row warpgroups
+    assert rows == max(r for r, _ in tfa.KERNEL_TILES)
 
 
 @pytest.mark.parametrize("arch,shape", RUNNABLE,
@@ -160,8 +160,7 @@ def test_h100_decode_tile_is_a_split_kv_kernel_tile(arch, shape):
     if bp is None:
         if logged:
             assert [d for d, _ in logged] == ["no kernel tile"]
-            assert a.hd != tdec.HEAD_DIM or G > tdec.MAX_GROUP \
-                or G & (G - 1)
+            assert not tdec.takes_group(G, a.hd)
         return
     tile = bp.blocks["block_kv"]
     assert tdec.kernel_tile("x", tile) == tile

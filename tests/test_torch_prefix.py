@@ -50,6 +50,9 @@ RCFG = RRunCfg(block_q=16, ssd_chunk=16)
 TCFG = TRunCfg()
 PAGED = dict(max_batch=4, max_len=32, kv_residency="paged",
              kv_block_len=16)
+#: ``pressure_stats()`` keys the port adds to the reference's
+PORT_PRESSURE_KEYS = ("parks_with_state", "resumes", "resumes_by_promote",
+                      "prefetch_staged", "prefetch_consumed")
 
 
 def _rel(got, want) -> float:
@@ -310,7 +313,8 @@ def _assert_like(qwen, reng, teng, prompts, want, got):
     assert _counters(teng) == _counters(reng)
     assert teng.block_stats() == reng.block_stats()
     rps, tps = reng.pressure_stats(), teng.pressure_stats()
-    assert sorted(tps) == sorted(rps)
+    # every reference key, and the port's ladder outcomes beside them
+    assert sorted(tps) == sorted([*rps, *PORT_PRESSURE_KEYS])
     for k in ("preemptions", "migrations", "grant_denials", "shed", "parked",
               "overloaded", "degraded", "prefill_mode", "disagg_inflight"):
         assert tps[k] == rps[k], k
@@ -493,16 +497,24 @@ def test_serve_batch_flow_runs_the_plan_as_frozen(qwen):
 # ---------------------------------------------------------------------
 
 def test_device_check_refuses_group_7_on_cuda_before_any_weights():
+    """The F1 check, now that the kernels take G = 7: deepseek-coder-33b
+    is admitted on CUDA, and what the kernels still refuse — hymba-1.5b
+    (head_dim 64, G = 5) and a G = 5 group at head_dim 128 — is refused
+    before any weights load, naming K1 / K2, by the device check and by
+    the launcher (on a CPU-only torch a CUDA generator would raise
+    RuntimeError, not NotImplementedError)."""
     coder = tget_arch("deepseek-coder-33b")
-    with pytest.raises(NotImplementedError, match=r"G = 7.*K2"):
-        tlm.check_on_device(coder, "cuda")
-    with pytest.raises(NotImplementedError, match=r"G = 7.*K2"):
-        tlm.check_on_device(coder, torch.device("cuda", 0))
-    # the launcher refuses it before it builds a generator or a weight
-    # (on a CPU-only torch a CUDA generator would raise RuntimeError)
-    with pytest.raises(NotImplementedError, match=r"G = 7.*K2"):
-        tserve.main(["--arch", "deepseek-coder-33b", "--full",
-                     "--device", "cuda", "--from-plan"])
+    assert coder.n_heads // coder.n_kv_heads == 7
+    tlm.check_on_device(coder, "cuda")
+    tlm.check_on_device(coder, torch.device("cuda", 0))
+    with pytest.raises(NotImplementedError, match=r"K1 and K2"):
+        tlm.check_on_device(tget_arch("hymba-1.5b"), "cuda")
+    five = dataclasses.replace(coder, n_heads=40)
+    with pytest.raises(NotImplementedError, match=r"G = 5.*K2"):
+        tlm.check_on_device(five, torch.device("cuda", 0))
+    with pytest.raises(NotImplementedError, match=r"K1 and K2"):
+        tserve.main(["--arch", "hymba-1.5b", "--full", "--device", "cuda",
+                     "--from-plan"])
 
 
 @pytest.mark.parametrize("name", ["qwen3-8b", "mamba2-2.7b"])

@@ -117,23 +117,27 @@ def test_pool_accounting_and_prefill_batching_match(served):
 
 
 def test_from_plan_refuses_what_the_port_cannot_honour(served):
-    """Grant admission and meshes still raise, naming the decision; a
-    plan that asks for prefix reuse and a host tier is served as it is
-    (those halves were refusals until the port had both)."""
+    """Meshes still raise, naming the decision; a plan that asks for
+    grant admission, prefix reuse and a host tier is served as it is
+    (those were refusals until the port had them), and ``kv_admission``
+    overrides the plan's admission as in the JAX engine."""
     arch = tget_arch("qwen3-8b")
     grant = tspecialize(arch, TShape("serve_h100", "decode", 2048, 8),
                         mesh_shape=(1, 1), target="tpu-v5e")
     assert grant.estimates["kv_admission"] == "grant"
-    with pytest.raises(NotImplementedError, match="kv_admission"):
-        TServeEngine.from_plan(grant, {}, kv_prefix_reuse="off",
-                               kv_host_blocks=0)
-    with pytest.raises(NotImplementedError, match="kv_admission"):
-        TServeEngine.from_plan(grant, {})
     demo = tspecialize(arch.reduced(), TShape("serve_demo", "decode", 128, 4),
                        mesh_shape=(1, 1), target="tpu-v5e")
     assert demo.estimates["kv_prefix_reuse"] == "on"
     assert int(demo.estimates["kv_host_blocks"]) > 0
     params = served["teng"].params
+    assert demo.estimates["kv_admission"] == "reserve"
+    for admission in ("grant", "reserve"):
+        eng = TServeEngine.from_plan(demo, params, arch=arch.reduced(),
+                                     kv_admission=admission)
+        assert eng.kv_admission == admission
+    with pytest.raises(ValueError, match="kv_admission"):
+        TServeEngine.from_plan(demo, params, arch=arch.reduced(),
+                               kv_admission="lazy")
     for over in ({"kv_host_blocks": 0}, {"kv_prefix_reuse": "off"}, {}):
         eng = TServeEngine.from_plan(demo, params, arch=arch.reduced(),
                                      **over)
