@@ -4,10 +4,12 @@
 Drives the port's main paths — ``specialize(target="h100-sxm")`` ->
 ``ServeEngine.from_plan`` -> bucketed prefill -> decode -> tokens — for
 full-width, full-depth qwen3-8b (paged-KV decode), mamba2-2.7b (SSD
-prefill, recurrent decode) and deepseek-coder-33b (a GQA group of 7,
-grant admission and the preemption ladder), random weights from a seed,
-and holds each of the paths' hand-written kernels against its plain
-PyTorch version on the card.
+prefill, recurrent decode), deepseek-coder-33b (a GQA group of 7, grant
+admission and the preemption ladder), hymba-1.5b (attention at head_dim
+64 and a GQA group of 5, global and through a 1024-token window, beside
+an SSD mixer in every layer) and minitron-8b (a squared-ReLU FFN),
+random weights from a seed, and holds each of the paths' hand-written
+kernels against its plain PyTorch version on the card.
 
 Phases (any failure exits non-zero before the last line):
 
@@ -35,7 +37,13 @@ Phases (any failure exits non-zero before the last line):
    ignored), and timed beside the full-length launch of the same rows.
    Flash (whole and at an offset) and decode (paged and dense) are held
    and timed again at deepseek-coder-33b's 56 / 8 heads (G = 7), with
-   each flash CTA's boundary rows checked on their own;
+   each flash CTA's boundary rows checked on their own, and at hymba's
+   25 / 5 heads of 64 (G = 5), whole, through its 1024 window and at an
+   offset, beside planted faults (a dropped tile, pad rows written over
+   the next CTA's first position, the window or the offset ignored, a
+   swapped table entry, a dropped split); the SSD scan again at hymba's
+   50 heads of 64, state 16, and at both widths against an fp64 plain
+   version on ten draws;
 3. qwen3-8b serve, paged: the plan as frozen (paged pool, prefix reuse,
    512 host blocks), 16 requests; both tiers whole after the engine's
    block cache is dropped;
@@ -61,7 +69,18 @@ Phases (any failure exits non-zero before the last line):
    grant -> migrate -> preempt ladder, parks with state and resumes by
    promote, against a reserve control on the same weights; then its
    full-depth consistency check at G = 7;
-10. the plan-driven matmul path: the serve phases' ``h100-sxm`` plans
+10. hymba-1.5b (every earlier weight freed): ``from_plan(plan, params)``
+   with no keyword serves 16 requests whose prompts cross the window (32
+   flash, 32 SSD-scan launches a prefill call, 32 paged-decode launches
+   a tick); 4 requests behind one 1,024-token prompt alias its blocks
+   but are prefilled whole (no ride, no tail prefill), their aliased K/V
+   rows and first decode step held against a reuse-off control; a park
+   with state (blocks and SSM rows) resumes to the untouched run's
+   tokens; the full-depth consistency check past the window;
+11. minitron-8b (hymba's weights freed): the paged phase's 16 requests
+   from ``from_plan(plan, params)``, then its full-depth consistency
+   check;
+12. the plan-driven matmul path: the serve phases' ``h100-sxm`` plans
    stored, reloaded by hash prefix and shown with the plan-store CLI
    (``launch.plan show --log``), then ``kernels.ops.matmul`` on each
    plan's tiles at five full-width GEMM shapes of the two models, each
@@ -69,7 +88,7 @@ Phases (any failure exits non-zero before the last line):
    and timed beside its bound, the plain version and ``torch.matmul``.
    No serving path launches this kernel: the models' projections stay
    ``torch.matmul``;
-11. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+13. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
 name and power limit.
@@ -94,14 +113,18 @@ PLAN_DIR = ROOT / "build" / "plans"     # the plan store of this run
 
 PEAK_BF16 = 989e12          # H100 SXM data sheet, dense bf16 tensor core
 PEAK_FP32 = 67e12           # H100 SXM data sheet, fp32 on the CUDA cores
-PEAK_TF32 = 495e12          # H100 SXM data sheet, dense TF32 tensor core
 HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
 # worst row's rms |kernel - plain| / rms |plain|, a few times the error
 # measured on an H100 (flash 4.1e-3: it rounds P to bf16 for its MMAs;
 # decode 6.7e-4 paged, 2.8e-4 dense: fp32 P); see row_err.  The SSD scan
-# is fp32 on both sides: only the order of its sums differs.
+# is fp32 on both sides, but for the sums: fp64 in the kernel.
 TOL = {"flash_attention": 1e-2, "paged_decode_attention": 3e-3,
        "decode_attention": 3e-3, "ssd_scan": 1e-3}
+# The SSD scan's rows are also held at TOL against an fp64 plain version,
+# on the checked draws and on SSD_DRAWS more: the fp32 plain version errs
+# up to ~1e-3 of a row whose terms cancel, so it alone cannot tell a
+# kernel at fp32's accuracy from one that is worse.
+SSD_DRAWS = 8
 # tiled matmul, worst output row rms-relative and max/max: the JAX
 # tests' tolerances (bf16: both sides sum exact bf16 products in fp32
 # and round once; fp32: only the order of the sums differs, no TF32)
@@ -110,7 +133,10 @@ LOGIT_TOL = 2e-2            # small model: max |card - cpu| / max |cpu| logits
 FULL_TOL = 0.1              # rms-relative logits, full depth (see below)
 H, K, D = 32, 8, 128        # qwen3-8b attention widths
 H7, K7 = 56, 8              # deepseek-coder-33b: a GQA group of 7
+H5, K5, D64 = 25, 5, 64     # hymba-1.5b: a GQA group of 5 at head_dim 64
+W5 = 1024                   # hymba-1.5b's sliding window
 SSD_H, SSD_P, SSD_N, SSD_G = 80, 64, 128, 1   # mamba2-2.7b SSD widths
+HSSD_H, HSSD_N = 50, 16     # hymba-1.5b SSD widths (P = 64, one group)
 SEED = 0
 CARD = ""                   # nvidia-smi name, power limit (set in main)
 # prefill buckets of 2048 prompt tokens (the serve phases' power-of-two
@@ -525,7 +551,11 @@ def kernel_phase(torch, dev):
         library_call="F.scaled_dot_product_attention(attn_mask, enable_gqa)")
     for name, r in g7_kernel_check(torch, F, fa, dec, rnd, dev, g).items():
         res[name]["g7"] = r
+    for name, r in g5_kernel_check(torch, F, fa, dec, rnd, dev, g).items():
+        res[name]["g5"] = r
     res["ssd_scan"] = ssd_kernel_check(torch, dev, g)
+    res["ssd_scan"]["hymba"] = ssd_kernel_check(
+        torch, dev, g, H=HSSD_H, N=HSSD_N, name=" hymba")
     mm_worst = matmul_kernel_check(torch, dev, g)
     for name, r in res.items():
         log(f"timing {name}: kernel {r['ms']:.4f} ms, plain "
@@ -789,6 +819,213 @@ def g7_kernel_check(torch, F, fa, dec, rnd, dev, g):
     return out
 
 
+def g5_kernel_check(torch, F, fa, dec, rnd, dev, g):
+    """The attention kernels at hymba-1.5b's widths: 25 query heads over
+    5 kv heads of 64 (G = 5: 25 positions fill 125 of the flash CTA's
+    128 rows), global and through its 1024-token window.  Flash at B=2
+    S=1024 causal, at B=1 S=2048 with window 1024, and at a query offset
+    (M=1024, T=256); decode, paged and dense, at 8 slots of 1 to 2048
+    rows with window 1024 and 0.  Each is held row by row against its
+    plain version at :data:`TOL`, the rows of every flash CTA's first
+    position (``q0 + BQ``) among them and on their own; beside each,
+    planted faults must fail the same check: a dropped kv tile, the pad
+    rows written over those first positions, the window ignored, the
+    offset ignored, one table entry swapped, a split dropped from the
+    merge.  Each is timed in turns with SDPA (``enable_gqa``; a boolean
+    window mask; the bottom-right mask at the offset; the masked dense
+    call for decode, as device time of a CUDA graph), beside its
+    bound."""
+    out = {}
+    tol = TOL["flash_attention"]
+    rows, bkv = fa.kernel_tiles(H5 // K5)
+    bq = rows // (H5 // K5)
+
+    def flash_case(label, B, S, window, M=0):
+        """One flash shape: checked (whole, boundary rows), its faults,
+        timed against SDPA; ``M`` > 0 puts the queries at an offset."""
+        qf = rnd(B, M + S, H5, D64)
+        k, v = rnd(B, M + S, K5, D64), rnd(B, M + S, K5, D64)
+        q = qf[:, M:].contiguous()
+        want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        err, rel = row_err(torch, got, want)
+        edge = torch.arange(bq, S, bq, device=dev)
+        _, rel_edge = row_err(torch, got[:, edge], want[:, edge])
+        log(f"kernel flash_attention G=5 D=64 {label}: tile {rows} rows = "
+            f"{bq} positions x 5 + {rows - bq * 5} pad: max_abs_err="
+            f"{err:.3e} worst row rel={rel:.3e}, worst row at the "
+            f"{edge.numel()} CTA-boundary positions rel={rel_edge:.3e} "
+            f"(tol {tol}) [{CARD}]")
+        check(rel <= tol and rel_edge <= tol,
+              f"flash_attention G=5 {label} row rel err {rel} / {rel_edge}")
+        pad = fa.flash_attention(q, k, v, causal=True, window=window,
+                                 pad_fault=True)
+        # the rows the fault's pad rows cover: heads 0..npad-1 of every
+        # boundary position, each written by them alone
+        npad = rows - bq * 5
+        e = (pad[:, edge, :npad].float() - want[:, edge, :npad].float())
+        w = want[:, edge, :npad].float()
+        flipped = int((e.pow(2).mean(-1).sqrt()
+                       > tol * w.pow(2).mean(-1).sqrt()).sum())
+        log(f"control flash_attention G=5 {label} pad fault: {flipped} of "
+            f"the {e[..., 0].numel()} boundary rows it covers beyond tol "
+            f"{tol} [{CARD}]")
+        faults = {"pad rows over the next CTA's first position": pad}
+        if M:
+            faults["offset ignored"] = fa.flash_attention(
+                q, k, v, causal=True, window=window, ignore_offset=True)
+        elif window:
+            faults["window ignored"] = fa.flash_attention(q, k, v,
+                                                          causal=True)
+        else:
+            faults["drops one kv tile"] = fa.flash_attention(
+                q, k, v, causal=True, window=S - 64)
+        ctl = min(control("flash_attention", f"G=5 {label} {f}", torch, bad,
+                          want) for f, bad in faults.items())
+        Sk = M + S
+        qpos = torch.arange(M, Sk, device=dev)[:, None]
+        kpos = torch.arange(Sk, device=dev)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= qpos - kpos < window
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # SDPA's own causal path where the mask is plain causal, else the
+        # boolean mask
+        lib = dict(is_causal=True) if not (M or window) else \
+            dict(attn_mask=mask)
+        med, rounds = in_turns(torch, {
+            "kernel": lambda: fa.flash_attention(q, k, v, causal=True,
+                                                 window=window),
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True, **lib)})
+        pairs = B * float(mask.sum())
+        b_ms, b_by = bound(2 * (2 * B * S * H5 * D64 + 2 * B * Sk * K5 * D64),
+                           4 * D64 * H5 * pairs)
+        plain = time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, window=window), iters=5)
+        log(f"timing flash_attention G=5 D=64 {label}: kernel "
+            f"{med['kernel']:.4f} ms, SDPA ({'/'.join(lib)}) "
+            f"{med['library']:.4f} ms (medians of {TURNS} turns: kernel "
+            f"{fmt(rounds['kernel'])}, SDPA {fmt(rounds['library'])}), plain "
+            f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{CARD}]")
+        return dict(
+            shape=f"B={B} M={M} S={S} H={H5} K={K5} D={D64} causal, window "
+                  f"{window}, bf16, tile {rows} rows ({bq} positions x 5)",
+            ms=med["kernel"], library_ms=med["library"], plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, row_rel_err=rel,
+            boundary_row_rel_err=rel_edge, control_row_rel_err=ctl,
+            pad_fault_rows_flipped=[flipped, e[..., 0].numel()],
+            kernel_turns_ms=rounds["kernel"],
+            library_turns_ms=rounds["library"])
+
+    out["flash_attention"] = flash_case("B=2 S=1024", 2, 1024, 0)
+    out["flash_attention"]["window"] = flash_case(
+        f"B=1 S=2048 window {W5}", 1, 2048, W5)
+    out["flash_attention"]["offset"] = flash_case(
+        f"offset B=2 M=1024 T=256 window {W5}", 2, 256, W5, M=1024)
+
+    # ---- decode, paged and dense: 8 slots, 1..2048 rows
+    lens_list = [1, 64, 300, 777, 1024, 1500, 1999, 2048]
+    Bd, max_len, bl = len(lens_list), 2048, 256
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    nb = max_len // bl
+    need = [-(-n // bl) for n in lens_list]
+    perm = torch.randperm(nb * Bd, generator=g, device=dev).int()
+    tbl = torch.full((Bd, nb), -1, dtype=torch.int32, device=dev)
+    at = 0
+    for b, n in enumerate(need):
+        tbl[b, :n] = perm[at:at + n]
+        at += n
+    qd = rnd(Bd, H5, D64)
+    kp, vp = rnd(nb * Bd, bl, K5, D64), rnd(nb * Bd, bl, K5, D64)
+    kd, vd = rnd(Bd, max_len, K5, D64), rnd(Bd, max_len, K5, D64)
+    swapped = tbl.clone()
+    swapped[-1, -1] = tbl[-2, -1]
+    dtol = TOL["paged_decode_attention"]
+    kpos = torch.arange(max_len, device=dev)[None, :]
+    q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+    for window in (W5, 0):
+        kw = dict(cache_len=lens, window=window)
+        want = dec.paged_decode_attention_plain(qd, kp, vp, tbl, **kw)
+        err, rel = row_err(torch, dec.paged_decode_attention(
+            qd, kp, vp, tbl, **kw), want)
+        wantd = dec.decode_attention_plain(qd, kd, vd, **kw)
+        errd, reld = row_err(torch, dec.decode_attention(qd, kd, vd, **kw),
+                             wantd)
+        log(f"kernel decode G=5 D=64 window {window} lens={lens_list}: "
+            f"paged max_abs_err={err:.3e} worst row rel={rel:.3e}, dense "
+            f"max_abs_err={errd:.3e} worst row rel={reld:.3e} (tol {dtol}) "
+            f"[{CARD}]")
+        check(rel <= dtol and reld <= TOL["decode_attention"],
+              f"decode G=5 window {window} row rel err {rel} / {reld}")
+        # split 0 holds live rows only without a window; the window drops
+        # the early rows of the long slots
+        faults = {"one table entry swapped": dec.paged_decode_attention(
+            qd, kp, vp, swapped, **kw)}
+        if window:
+            faults["window ignored"] = dec.paged_decode_attention(
+                qd, kp, vp, tbl, cache_len=lens)
+            dfaults = {"window ignored": dec.decode_attention(
+                qd, kd, vd, cache_len=lens)}
+        else:
+            faults["split 0 dropped"] = dec.paged_decode_attention(
+                qd, kp, vp, tbl, drop_split=0, **kw)
+            dfaults = {"split 0 dropped": dec.decode_attention(
+                qd, kd, vd, drop_split=0, **kw)}
+        ctl_p = min(control("paged_decode_attention",
+                            f"G=5 window {window} {f}", torch, bad, want)
+                    for f, bad in faults.items())
+        ctl_d = min(control("decode_attention", f"G=5 window {window} {f}",
+                            torch, bad, wantd) for f, bad in dfaults.items())
+        mask = kpos < lens[:, None]
+        if window:
+            mask &= kpos >= lens[:, None] - window
+        mask = mask[:, None, None, :]
+        med, rounds = in_turns(torch, {
+            "paged": lambda: dec.paged_decode_attention(qd, kp, vp, tbl, **kw),
+            "dense": lambda: dec.decode_attention(qd, kd, vd, **kw),
+            "library": lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, enable_gqa=True)},
+            timer=graph_ms)
+        plain_p = time_ms(torch, lambda: dec.paged_decode_attention_plain(
+            qd, kp, vp, tbl, **kw), iters=5)
+        plain_d = time_ms(torch, lambda: dec.decode_attention_plain(
+            qd, kd, vd, **kw), iters=5)
+        live = int(mask.sum())
+        flops = 4 * D64 * H5 * live
+        io = 2 * (2 * Bd * H5 * D64) + 4 * Bd
+        kv_bytes = 2 * 2 * live * K5 * D64
+        rows_read = [min(n, window) if window else n for n in lens_list]
+        blocks_read = sum(-(-n // bl) for n in rows_read)
+        bp_ms, bp_by = bound(io + kv_bytes + 4 * blocks_read, flops)
+        bd_ms, bd_by = bound(io + kv_bytes, flops)
+        log(f"timing decode G=5 D=64 window {window} B={Bd} S={max_len}, "
+            f"device (CUDA graph): paged {med['paged']:.4f} ms, dense "
+            f"{med['dense']:.4f} ms, SDPA (masked) {med['library']:.4f} ms "
+            f"(medians of {TURNS} turns: paged {fmt(rounds['paged'])}, dense "
+            f"{fmt(rounds['dense'])}); plain paged {plain_p:.4f} ms, dense "
+            f"{plain_d:.4f} ms; bound paged {bp_ms:.4f} ms ({bp_by}), dense "
+            f"{bd_ms:.4f} ms ({bd_by}) [{CARD}]")
+        shape = (f"B={Bd} H={H5} K={K5} D={D64} lens={lens_list} window "
+                 f"{window} bf16")
+        rp = dict(shape=f"bl={bl} {shape}", ms=med["paged"], library_ms=None,
+                  plain_ms=plain_p, bound_ms=bp_ms, bound_by=bp_by,
+                  max_abs_err=err, row_rel_err=rel, control_row_rel_err=ctl_p,
+                  turns_ms=rounds["paged"])
+        rd = dict(shape=f"S={max_len} {shape}", ms=med["dense"],
+                  library_ms=med["library"], plain_ms=plain_d,
+                  bound_ms=bd_ms, bound_by=bd_by, max_abs_err=errd,
+                  row_rel_err=reld, control_row_rel_err=ctl_d,
+                  turns_ms=rounds["dense"],
+                  library_turns_ms=rounds["library"])
+        if window:                       # the headline: 29 of 32 layers
+            out["paged_decode_attention"], out["decode_attention"] = rp, rd
+        else:
+            out["paged_decode_attention"]["global"] = rp
+            out["decode_attention"]["global"] = rd
+    return out
+
+
 def matmul_kernel_check(torch, dev, g):
     """The tiled matmul at every tile it is built for, bf16 and fp32, on
     a ragged shape (300, 584, 1000) and a decode tick's (8, 4096, 2048),
@@ -815,12 +1052,17 @@ def matmul_kernel_check(torch, dev, g):
     return worst
 
 
-def ssd_kernel_check(torch, dev, g):
+def ssd_kernel_check(torch, dev, g, H=SSD_H, P=SSD_P, N=SSD_N, G=SSD_G,
+                     name=""):
     """The SSD scan at mamba2-2.7b's widths (batch 1, 80 heads of 64,
-    state 128, one group, the plan's chunk 256): S = 2048 and a ragged
-    S = 1000, against the plain version.  A row is one (batch, position,
-    head)'s 64 outputs; the final state is held per head, as its
-    (64, 128) block.  Two planted faults must fail that check by 10x:
+    state 128, one group, the plan's chunk 256) or, given ``H, P, N,
+    G``, another model's (hymba-1.5b: 50 heads of 64, state 16; ``name``
+    tags its lines): S = 2048 and a ragged S = 1000, against the plain
+    version in fp32 and in fp64, and on :data:`SSD_DRAWS` more draws at
+    S = 2048 against the fp64 one.  A row is one (batch, position,
+    head)'s P outputs; the final state is held per head, as its (P, N)
+    block.  Two planted faults
+    must fail that check by 10x:
     the carry into the second chunk dropped (the kernel run on the
     positions from the second chunk on, against the plain rows there),
     and the final state one chunk short."""
@@ -830,57 +1072,81 @@ def ssd_kernel_check(torch, dev, g):
 
     chunk, tol = 256, TOL["ssd_scan"]
 
-    def inputs(S):
-        x = F.silu(torch.randn((1, S, SSD_H, SSD_P), generator=g,
-                               device=dev))
-        dt = F.softplus(torch.randn((1, S, SSD_H), generator=g,
-                                    device=dev) - 2.0)
-        A = -torch.linspace(1.0, 16.0, SSD_H, device=dev)
-        Bm = F.silu(torch.randn((1, S, SSD_G, SSD_N), generator=g,
-                                device=dev))
-        Cm = F.silu(torch.randn((1, S, SSD_G, SSD_N), generator=g,
-                                device=dev))
+    def inputs(S, gen=g):
+        x = F.silu(torch.randn((1, S, H, P), generator=gen, device=dev))
+        dt = F.softplus(torch.randn((1, S, H), generator=gen, device=dev)
+                        - 2.0)
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        Bm = F.silu(torch.randn((1, S, G, N), generator=gen, device=dev))
+        Cm = F.silu(torch.randn((1, S, G, N), generator=gen, device=dev))
         return x, dt, A, Bm, Cm
 
-    worst = worst_rel = worst_state = 0.0
+    def fp64_rows(ins, y, y_want):
+        """The worst row of the kernel and of the fp32 plain version,
+        each against the plain version run in fp64."""
+        y64, _ = ssd.ssd_scan_plain(*(t.double() for t in ins), chunk=chunk)
+        return row_err(torch, y, y64)[1], row_err(torch, y_want, y64)[1]
+
+    worst = worst_rel = worst_state = worst64 = 0.0
     for S in (2048, 1000):
         ins = inputs(S)
         y, fin = ssd.ssd_scan(*ins, chunk=chunk, heads_block=1)
         y_want, fin_want = ssd.ssd_scan_plain(*ins, chunk=chunk)
         err, rel = row_err(torch, y, y_want)
         _, srel = row_err(torch, fin.flatten(-2), fin_want.flatten(-2))
-        log(f"kernel ssd_scan S={S}: max_abs_err={err:.3e} worst row "
-            f"rel={rel:.3e} final state worst head rel={srel:.3e} "
-            f"(tol {tol}) [{CARD}]")
-        check(rel <= tol and srel <= tol,
-              f"ssd_scan S={S} row rel err {rel} / state {srel} > {tol}")
+        rel64, plain64 = fp64_rows(ins, y, y_want)
+        log(f"kernel ssd_scan{name} S={S}: max_abs_err={err:.3e} worst row "
+            f"rel={rel:.3e}, against fp64 {rel64:.3e} (the fp32 plain "
+            f"version against fp64 {plain64:.3e}) final state worst head "
+            f"rel={srel:.3e} (tol {tol}) [{CARD}]")
+        check(rel <= tol and rel64 <= tol and srel <= tol,
+              f"ssd_scan{name} S={S} row rel err {rel} (fp64 {rel64}) / "
+              f"state {srel} > {tol}")
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
-        worst_state = max(worst_state, srel)
+        worst_state, worst64 = max(worst_state, srel), max(worst64, rel64)
+    # more draws, each against fp64, from a generator of their own (the
+    # draws of the checks after this one stay as they were)
+    gd = torch.Generator(dev).manual_seed(SEED + 100)
+    draws = []
+    for _ in range(SSD_DRAWS):
+        ins = inputs(2048, gd)
+        y, _ = ssd.ssd_scan(*ins, chunk=chunk)
+        draws.append(fp64_rows(ins, y, ssd.ssd_scan_plain(*ins,
+                                                          chunk=chunk)[0]))
+    log(f"kernel ssd_scan{name} S=2048, {SSD_DRAWS} more draws, worst row "
+        f"against fp64: kernel {[f'{d[0]:.3e}' for d in draws]}, fp32 "
+        f"plain version {[f'{d[1]:.3e}' for d in draws]} (tol {tol}) "
+        f"[{CARD}]")
+    worst64 = max([worst64] + [d[0] for d in draws])
+    check(worst64 <= tol, f"ssd_scan{name}: a draw's row against fp64 "
+          f"{worst64} > {tol}")
     ins = inputs(2048)                       # timed, and the faults
     y_want, fin_want = ssd.ssd_scan_plain(*ins, chunk=chunk)
     tail = [t[:, chunk:].contiguous() if t.dim() > 1 else t for t in ins]
     head = [t[:, :-chunk].contiguous() if t.dim() > 1 else t for t in ins]
     ctl = min(
-        control("ssd_scan", "carry into the second chunk dropped", torch,
-                ssd.ssd_scan(*tail, chunk=chunk)[0], y_want[:, chunk:],
-                factor=10),
-        control("ssd_scan", "final state one chunk short", torch,
+        control("ssd_scan", f"carry into the second chunk dropped{name}",
+                torch, ssd.ssd_scan(*tail, chunk=chunk)[0],
+                y_want[:, chunk:], factor=10),
+        control("ssd_scan", f"final state one chunk short{name}", torch,
                 ssd.ssd_scan(*head, chunk=chunk)[1].flatten(-2),
                 fin_want.flatten(-2), factor=10),
-        control("ssd_scan", "state not passed between chunks", torch,
-                ssd.ssd_scan(*ins, chunk=chunk, no_carry=True)[0], y_want,
-                factor=10))
-    grid = ssd.grid_ctas(1, 2048, SSD_H, SSD_P, SSD_N, chunk)
-    log(f"grid ssd_scan S=2048: chunk states {grid[0]} CTAs, state passing "
-        f"{grid[1]} CTAs, chunk scan {grid[2]} CTAs; 3 launches per call "
-        f"(a one-CTA-per-head scan would have {SSD_H}) [{CARD}]")
+        control("ssd_scan", f"state not passed between chunks{name}",
+                torch, ssd.ssd_scan(*ins, chunk=chunk, no_carry=True)[0],
+                y_want, factor=10))
+    grid = ssd.grid_ctas(1, 2048, H, P, N, chunk)
+    log(f"grid ssd_scan{name} S=2048: chunk states {grid[0]} CTAs, state "
+        f"passing {grid[1]} CTAs, chunk scan {grid[2]} CTAs; 3 launches "
+        f"per call "
+        f"(a one-CTA-per-head scan would have {H}) [{CARD}]")
     med, rounds = in_turns(torch, {
         "kernel": lambda: ssd.ssd_scan(*ins, chunk=chunk)})
     ms = med["kernel"]
     passes = device_ms_by_kernel(
         torch, lambda: ssd.ssd_scan(*ins, chunk=chunk))
-    log(f"timing ssd_scan S=2048: kernel {ms:.4f} ms (median of {TURNS} "
-        f"turns: {fmt(rounds['kernel'])}); device time per call by pass "
+    log(f"timing ssd_scan{name} S=2048: kernel {ms:.4f} ms (median of "
+        f"{TURNS} turns: {fmt(rounds['kernel'])}); device time per call by "
+        f"pass "
         f"(torch.profiler): "
         + ", ".join(f"{re.search(r'(\w+)(<[^>]*>)?\(', k).group(1)} "
                     f"{v:.4f} ms" for k, v in passes.items()) + f" [{CARD}]")
@@ -891,23 +1157,22 @@ def ssd_kernel_check(torch, dev, g):
         by_chunk[q] = {re.search(r"(\w+)(<[^>]*>)?\(", k).group(1): v
                        for k, v in device_ms_by_kernel(
                            torch, lambda: ssd.ssd_scan(*ins, chunk=q)).items()}
-        log(f"timing ssd_scan S=2048 chunk={q}: device time per call by pass "
-            f"{by_chunk[q]}, sum {sum(by_chunk[q].values()):.4f} ms [{CARD}]")
+        log(f"timing ssd_scan{name} S=2048 chunk={q}: device time per call "
+            f"by pass {by_chunk[q]}, sum {sum(by_chunk[q].values()):.4f} ms "
+            f"[{CARD}]")
     S, Q = 2048, chunk
     nc = -(-S // Q)
     # causal half only: the k <= q entries of C.B^T (once per group: its
     # heads share B and C) and of scores.x (per head), plus C.state^T and
     # the state update (per head)
-    flops = nc * (SSD_G * Q * (Q + 1) * SSD_N
-                  + SSD_H * (Q * (Q + 1) * SSD_P + 4 * Q * SSD_P * SSD_N))
+    flops = nc * (G * Q * (Q + 1) * N
+                  + H * (Q * (Q + 1) * P + 4 * Q * P * N))
     # the count with C.B^T per head, for comparison with a per-head scan
-    flops_per_head = SSD_H * nc * (Q * (Q + 1) * (SSD_N + SSD_P)
-                                   + 4 * Q * SSD_P * SSD_N)
-    nbytes = 4 * (2 * S * SSD_H * SSD_P + S * SSD_H + SSD_H
-                  + 2 * S * SSD_G * SSD_N + SSD_H * SSD_P * SSD_N)
+    flops_per_head = H * nc * (Q * (Q + 1) * (N + P) + 4 * Q * P * N)
+    nbytes = 4 * (2 * S * H * P + S * H + H + 2 * S * G * N + H * P * N)
+    # the products run in fp64 on the tensor cores: 67 TFLOP/s, the data
+    # sheet's fp32 CUDA-core rate too
     b_ms, b_by = bound(nbytes, flops, PEAK_FP32)
-    # the chunk scan's products run in 3xTF32: three TF32 products each
-    b3_ms, b3_by = bound(nbytes, flops, PEAK_TF32 / 3)
     b_head_ms, _ = bound(nbytes, flops_per_head, PEAK_FP32)
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -916,15 +1181,14 @@ def ssd_kernel_check(torch, dev, g):
         state_rel_err=worst_state, control_row_rel_err=ctl, tolerance=tol,
         ms=ms, turns_ms=rounds["kernel"], plain_ms=plain, library_ms=None,
         passes_ms=passes, chunks_ms=by_chunk,
-        bound_ms=b_ms, bound_by=b_by, bound_3xtf32_ms=b3_ms,
-        bound_3xtf32_by=b3_by, bound_per_head_scores_ms=b_head_ms,
+        row_rel_err_fp64=worst64, draws_row_rel_err_fp64=draws,
+        bound_ms=b_ms, bound_by=b_by, bound_per_head_scores_ms=b_head_ms,
         grid=dict(zip(("chunk_state", "state_pass", "chunk_scan"), grid),
                   launches_per_call=3),
-        shape=f"B=1 S={S} H={SSD_H} P={SSD_P} N={SSD_N} G={SSD_G} "
-              f"chunk={chunk} fp32; bound_ms at the fp32 CUDA-core rate, "
-              "bound_3xtf32_ms at a third of the TF32 tensor-core rate, "
-              "both with C.B^T once per group; bound_per_head_scores_ms is "
-              "the count with C.B^T per head, at the fp32 rate",
+        shape=f"B=1 S={S} H={H} P={P} N={N} G={G} chunk={chunk} fp32; "
+              "bound_ms at the fp64 tensor-core rate, with C.B^T once per "
+              "group; bound_per_head_scores_ms is the count with C.B^T per "
+              "head, at the fp32 rate",
         library_call="none: no single PyTorch call computes the SSD scan")
 
 
@@ -952,6 +1216,15 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
     vocab = eng.arch.vocab_size
     prompts = [rng.integers(0, vocab, (int(rng.integers(1, 25)) * 64,))
                for _ in range(n_requests)]
+    ticks = [0]
+    step = eng.step
+
+    def counted():                     # decode ticks: the ones with slots
+        n = step()
+        ticks[0] += bool(eng.active) or n > 0
+        return n
+
+    eng.step = counted
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -961,6 +1234,7 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
     done = eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    del eng.step            # the wrapper's closure would keep eng alive
     counts = ops.launch_counts()
     toks = sum(len(r.out_tokens) for r in done)
     ttft = np.array([(r.t_first - r.t_submit) * 1e3 for r in done])
@@ -985,7 +1259,7 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
         f"prompt_lens={[len(p) for p in prompts]} "
         f"prefill_calls={eng.prefill_calls} "
         f"prefill_batches={list(eng.prefill_batches)} ticks={eng.tick} "
-        f"[{CARD}]")
+        f"decode_ticks={ticks[0]} [{CARD}]")
     log(f"serve[{name}] kv_prefix_reuse={eng.kv_prefix_reuse} "
         f"kv_host_blocks={eng.host_blocks} kv_prefetch={eng.kv_prefetch} "
         f"cached_at_idle={cached} block_stats={st} launches={counts} "
@@ -996,25 +1270,32 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
         log(f"serve[{name}]   rid={r.rid} prompt={len(r.prompt)} "
             f"t={r.temperature} -> {r.out_tokens[:8]}...")
     calls = eng.prefill_calls
-    del eng
+    del eng, step, counted
     torch.cuda.empty_cache()
     return counts, {"requests": len(done), "tokens": toks, "wall_s": wall,
                     "tok_per_s": toks / wall,
                     "ttft_ms_p50": float(np.percentile(ttft, 50)),
                     "ttft_ms_p95": float(np.percentile(ttft, 95)),
-                    "prefill_calls": calls, "card": CARD}
+                    "prefill_calls": calls, "decode_ticks": ticks[0],
+                    "card": CARD}
 
 
-def _recording_engine(ServeEngine):
+def _recording_engine(ServeEngine, prefix_blocks: int = 0):
     """A ServeEngine that keeps, per request, the fp32 logits its first
-    token was sampled from and, at every sampled token, the top-2 margin
+    and second tokens were sampled from (the prefill's and the first
+    decode step's) and, at every sampled token, the top-2 margin
     relative to the logits' largest magnitude (the margin rule of
-    ``tests/test_torch_serve.py``)."""
+    ``tests/test_torch_serve.py``).  With ``prefix_blocks`` > 0 it also
+    keeps, at the first decode step, the K/V rows of the first
+    ``prefix_blocks`` blocks of the request's table (paged), as
+    ``(2, L, prefix_blocks, block_len, K, hd)``."""
+    import torch
 
     class Recording(ServeEngine):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
-            self.first, self.margins, self._rids = {}, {}, []
+            self.first, self.second, self.margins = {}, {}, {}
+            self.prefix_rows, self._rids = {}, []
 
         def _admit_group(self, group, *args):
             # a resumed request's prefill draws no sample
@@ -1031,6 +1312,15 @@ def _recording_engine(ServeEngine):
             top = lf.topk(2, dim=-1).values
             rel = ((top[:, 0] - top[:, 1]) / lf.abs().amax(-1)).tolist()
             for rid, row, m in zip(self._rids, lf, rel):
+                if rid in self.first and rid not in self.second:
+                    self.second[rid] = row.cpu()
+                    if prefix_blocks:
+                        slot = next(s for s, r in self.active.items()
+                                    if r.rid == rid)
+                        blk = self.cache["block_tbl"][
+                            slot, :prefix_blocks].long()
+                        self.prefix_rows[rid] = torch.stack(
+                            [self.cache[n][:, blk] for n in ("k", "v")])
                 self.first.setdefault(rid, row.cpu())
                 self.margins.setdefault(rid, []).append(m)
             return super()._sample(logits, temperatures)
@@ -1244,15 +1534,17 @@ def shared_prefix_phase(torch, dev, arch, plan, params):
     return res, ctl_res
 
 
-def ssm_park_check(torch, dev, arch, plan, params):
-    """mamba2 parks with its state: an engine from the plan with a host
-    tier (``kv_host_blocks`` turns on parks with state for a dense
-    engine, as in the JAX engine) serves 3 greedy requests twice, once
-    untouched and once with ``preempt(rid)`` of the request with the
-    most output at its third tick.  The victim's SSM state and conv
-    window go to the host and come back: no prefill call across the park
-    and resume, and every request's tokens identical to the untouched
-    run."""
+def ssm_park_check(torch, dev, arch, plan, params, name="mamba2", **over):
+    """A model with an SSM parks with its state: an engine from the plan
+    with a host tier (mamba2: ``kv_host_blocks=8`` in ``over`` turns on
+    parks with state for a dense engine, as in the JAX engine; hymba's
+    paged plan has its own 512 host blocks, and ``over`` is empty)
+    serves 3 greedy requests twice, once untouched and once with
+    ``preempt(rid)`` of the request with the most output at its third
+    tick.  The victim's SSM state and conv window (and a paged engine's
+    KV blocks, through the host pool) go to the host and come back: no
+    prefill call across the park and resume, and every request's tokens
+    identical to the untouched run."""
     import numpy as np
 
     from repro_torch.serve.engine import ServeEngine
@@ -1263,7 +1555,7 @@ def ssm_park_check(torch, dev, arch, plan, params):
     runs = []
     for park in (False, True):
         eng = ServeEngine.from_plan(plan, params, arch=arch, seed=SEED,
-                                    kv_host_blocks=8)
+                                    **over)
         for p in prompts:
             eng.submit(p, max_new_tokens=16)
         for _ in range(3):
@@ -1273,8 +1565,10 @@ def ssm_park_check(torch, dev, arch, plan, params):
             victim = max(eng.active.values(), key=lambda r: len(r.out_tokens))
             at = len(victim.out_tokens)
             eng.preempt(victim.rid)
-            check(eng.preempted and eng.preempted[0].parked_state is not None,
-                  "ssm park: the victim did not park with its state")
+            st = eng.preempted[0].parked_state if eng.preempted else None
+            check(st is not None and "ssm" in st and "conv" in st
+                  and (eng.kv_residency != "paged" or st.get("kv_host")),
+                  f"{name} park: the victim did not park with its state")
         eng.run_until_idle()
         torch.cuda.synchronize()
         runs.append(({r.rid: r.out_tokens for r in eng.finished},
@@ -1282,17 +1576,19 @@ def ssm_park_check(torch, dev, arch, plan, params):
         del eng
     (want, _, _), (got, extra, ps) = runs
     same = got == want
-    log(f"check mamba2 park: preempt(rid={victim.rid}) after {at} tokens, "
+    log(f"check {name} park: preempt(rid={victim.rid}) after {at} tokens, "
         f"parks_with_state={ps['parks_with_state']} resumes={ps['resumes']} "
-        f"prefill calls across the park and resume: {extra}; tokens "
-        f"identical to the untouched run: {same} [{CARD}]")
+        f"resumes_by_promote={ps['resumes_by_promote']} prefill calls "
+        f"across the park and resume: {extra}; tokens identical to the "
+        f"untouched run: {same} [{CARD}]")
     check(ps["parks_with_state"] == ps["resumes"] == 1 and extra == 0,
-          f"ssm park: {ps} with {extra} prefill calls after the park")
-    check(same, f"ssm park: tokens differ from the untouched run: {got} vs "
-          f"{want}")
+          f"{name} park: {ps} with {extra} prefill calls after the park")
+    check(same, f"{name} park: tokens differ from the untouched run: {got} "
+          f"vs {want}")
     torch.cuda.empty_cache()
     return {"victim_tokens_at_park": at, "prefill_calls_after_park": extra,
-            "tokens_identical": same}
+            "tokens_identical": same,
+            "resumes_by_promote": ps["resumes_by_promote"]}
 
 
 def grant_phase(torch, dev):
@@ -1400,6 +1696,7 @@ def grant_phase(torch, dev):
         done = eng.run_until_idle()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        del eng.step        # the wrapper's closure would keep eng alive
         counts = ops.launch_counts()
         check(len(done) == len(prompts)
               and all(len(r.out_tokens) == 48 for r in done),
@@ -1444,7 +1741,7 @@ def grant_phase(torch, dev):
               f"calls and {ticks[0]} decode ticks of {arch.n_layers} layers")
         toks = {r.rid: r.out_tokens for r in done}
         first, margins = eng.first, eng.margins
-        del eng
+        del eng, step, counted
         torch.cuda.empty_cache()
         return toks, first, margins, res
 
@@ -1505,6 +1802,315 @@ def grant_phase(torch, dev):
     return res, ctl
 
 
+def _new_arch_plan(torch, dev, name):
+    """The full-width arch, its ``h100-sxm`` decode 2048 x 8 plan and
+    prefill plan (stored), and random weights from :data:`SEED`, with
+    the device memory logged before and after the weights."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.models import lm
+
+    free, total = torch.cuda.mem_get_info()
+    log(f"{name}: device memory before the weights: {free} of {total} bytes "
+        f"free (torch.cuda.mem_get_info) [{CARD}]")
+    arch = get_arch(name)
+    plan = specialize(arch, ShapeConfig("serve_h100", "decode", 2048, 8),
+                      mesh_shape=(1, 1), target="h100-sxm",
+                      plan_dir=PLAN_DIR)
+    pplan = specialize(arch, ShapeConfig("prefill_h100", "prefill", 2048, 8),
+                       mesh_shape=(1, 1), target="h100-sxm",
+                       plan_dir=PLAN_DIR)
+    t0 = time.perf_counter()
+    params = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                            *plan.padded_sizes())
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    free, total = torch.cuda.mem_get_info()
+    log(f"weights: {name} layers={arch.n_layers} d_model={arch.d_model} "
+        f"heads={arch.n_heads}/{arch.n_kv_heads} of {arch.hd} "
+        f"d_ff={arch.d_ff} gated_mlp={arch.gated_mlp} ssm_heads="
+        f"{arch.ssm_heads if arch.has_ssm else 0} vocab={arch.vocab_size} "
+        f"params={n_params} random (seed {SEED}) in "
+        f"{time.perf_counter() - t0:.1f} s; {free} bytes free after "
+        f"[{CARD}]")
+    est = plan.estimates
+    tiles = {k: dict(v.blocks) for k, v in plan.partitions.items()}
+    ptiles = {k: dict(v.blocks) for k, v in pplan.partitions.items()}
+    log(f"{name} plan {plan.content_hash()[:16]}: kv_residency="
+        f"{est.get('kv_residency')} kv_admission={est.get('kv_admission')} "
+        f"kv_n_blocks={est.get('kv_n_blocks')} kv_block_len="
+        f"{est.get('kv_block_len')} kv_host_blocks="
+        f"{est.get('kv_host_blocks')} kv_prefix_reuse="
+        f"{est.get('kv_prefix_reuse')} tiles {tiles}; prefill plan "
+        f"{pplan.content_hash()[:16]} tiles {ptiles} [{CARD}]")
+    check(est.get("kv_residency") == "paged"
+          and est.get("kv_admission") == "reserve"
+          and int(est.get("kv_n_blocks", 0)) == 64
+          and int(est.get("kv_block_len", 0)) == 256
+          and int(est.get("kv_host_blocks", 0)) == 512
+          and est.get("kv_prefix_reuse") == "on",
+          f"{name} plan: {est}")
+    G = arch.n_heads // arch.n_kv_heads
+    check(tiles.get("decode_attention") == {"block_kv": 256,
+                                             "head_dim": arch.hd}
+          and ptiles.get("flash_attention", {}).get("block_q") == 128 // G,
+          f"{name} plans: decode {tiles.get('decode_attention')}, flash "
+          f"{ptiles.get('flash_attention')}")
+    return arch, plan, params
+
+
+def _check_layer_launches(name, arch, counts, res):
+    """Each prefill call launches flash (and, with an SSM, the SSD scan)
+    once a layer, each decode tick the paged decode kernel once a
+    layer."""
+    calls, ticks = res["prefill_calls"], res["decode_ticks"]
+    L = arch.n_layers
+    want = {"flash_attention": L * calls, "paged_decode_attention": L * ticks,
+            "ssd_scan": L * calls if arch.has_ssm else 0}
+    log(f"serve[{name}] launches {counts}: {L} layers x {calls} prefill calls"
+        f" and x {ticks} decode ticks [{CARD}]")
+    check(calls > 0 and ticks > 0
+          and all(counts[k] == v for k, v in want.items()),
+          f"serve[{name}]: launches {counts}, want {want}")
+
+
+def hymba_shared_prefix_check(torch, dev, arch, plan, params):
+    """hymba on its plan as frozen (prefix reuse on): 4 greedy requests
+    open with one 1,024-token system prompt and a tail of 64k tokens (k
+    seeded in 1..8); the first is submitted, then the rest a tick later.
+    The trie aliases the system prompt's blocks (``prefix_hits`` > 0),
+    but a hybrid's SSM state needs every token: every request is
+    prefilled whole (no flash launch at a query offset, no ride, 4
+    prefilled requests).  Against a control with reuse and the host tier
+    off, per hit request at its first decode step (the first read of
+    the aliased blocks: a whole prefill never reads them), within the
+    full-depth rms-relative bound (:data:`FULL_TOL`) of the control's:
+    the K/V rows its table maps for the system prompt, block by block,
+    and the step's logits.  Beside each, the noise floor of two right
+    paths (the dense prefill and step under another flash tile) and one
+    system-prompt block's rows replaced by another block's, as a wrong
+    table entry would read them: the rows' check must fail that, by
+    :data:`FULL_TOL`; the logits' is only reported (random weights
+    attend nearly evenly, so one block of ~1,500 moves them little).
+    Greedy tokens are reported up to a request's first difference,
+    which is allowed only where the control's top-2 margin is <=
+    :data:`FULL_TOL` of its largest logit."""
+    import numpy as np
+
+    from repro_torch.core.passes.lowering import build_run_cfg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    bl = int(plan.estimates["kv_block_len"])
+    nsys = 1024 // bl                    # the system prompt's blocks
+    Rec = _recording_engine(ServeEngine, prefix_blocks=nsys)
+    rng = np.random.default_rng(SEED + 9)
+    V = arch.vocab_size
+    system = rng.integers(0, V, 1024).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(0, V, 64 * int(k))
+                               .astype(np.int32)])
+               for k in rng.integers(1, 9, 4)]
+    out = {}
+    for reuse in (False, True):
+        over = {} if reuse else {"kv_prefix_reuse": "off",
+                                 "kv_host_blocks": 0}
+        eng = Rec.from_plan(plan, params, arch=arch, seed=SEED, **over)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        eng.submit(prompts[0], max_new_tokens=32)
+        eng.step()
+        for p in prompts[1:]:
+            eng.submit(p, max_new_tokens=32)
+        done = eng.run_until_idle()
+        torch.cuda.synchronize()
+        ps = eng.pressure_stats()
+        counts = dict(ops.launch_counts(), flash_tail=fa.tail_launches)
+        out[reuse] = dict(
+            toks={r.rid: r.out_tokens for r in done}, margins=eng.margins,
+            second=eng.second, rows=eng.prefix_rows,
+            prefill_calls=eng.prefill_calls,
+            prefilled=sum(eng.prefill_batches), launches=counts,
+            pressure={k: ps[k] for k in ("prefix_hits", "prefix_hit_tokens",
+                                         "prefix_rides", "shared_blocks",
+                                         "cached_blocks")})
+        log(f"serve[hymba shared-prefix {'reuse' if reuse else 'control'}] "
+            f"prompt_lens={[len(p) for p in prompts]} prefill_calls="
+            f"{eng.prefill_calls} prefill_batches={list(eng.prefill_batches)}"
+            f" launches={counts} pressure={out[reuse]['pressure']} [{CARD}]")
+        check(len(done) == 4 and all(len(r.out_tokens) == 32 for r in done),
+              f"hymba shared-prefix: {len(done)} of 4 requests finished")
+        eng.drop_block_cache()
+        del eng
+        torch.cuda.empty_cache()
+    got, ctl = out[True], out[False]
+    check(got["pressure"]["prefix_hits"] > 0
+          and got["pressure"]["prefix_rides"] == 0
+          and got["launches"]["flash_tail"] == 0
+          and got["prefilled"] == ctl["prefilled"] == 4
+          and got["launches"]["flash_attention"]
+          == arch.n_layers * got["prefill_calls"],
+          f"hymba shared-prefix: the hybrid skipped prefix compute or rode: "
+          f"{got['pressure']} {got['launches']}")
+
+    # ---- the first decode step of every hit request (requests 1..3,
+    # behind request 0's blocks) against the control's: the system
+    # prompt's K/V rows always, the logits where both runs sampled the
+    # same first token
+
+    def block_errs(a, b):
+        """rms-relative error of each of the system prompt's blocks,
+        ``(2, L, nsys, bl, K, hd)`` rows (or dense ``(2, L, 1, S, K,
+        hd)``, cut into blocks)."""
+        a, b = (t[:, :, :, :nsys * bl].reshape(*t.shape[:2], nsys, bl,
+                                                 *t.shape[-2:])
+                if t.shape[2] == 1 else t for t in (a, b))
+        return [_rms_rel(torch, a[:, :, i].float(), b[:, :, i].float())
+                for i in range(nsys)]
+
+    rows_err, errs = {}, {}
+    for rid in range(1, 4):
+        rows_err[rid] = max(block_errs(got["rows"][rid], ctl["rows"][rid]))
+        a, b = got["toks"][rid][0], ctl["toks"][rid][0]
+        if a != b:
+            m = ctl["margins"][rid][0]
+            check(m <= FULL_TOL, f"hymba shared-prefix: request {rid}'s "
+                  f"first token differs ({a} vs {b}) at a control margin "
+                  f"{m} > {FULL_TOL}")
+            continue
+        errs[rid] = _rms_rel(torch, got["second"][rid],
+                             ctl["second"][rid])
+    check(bool(errs), "hymba shared-prefix: no hit request sampled the "
+          "control's first token")
+    # the wrong-block control on the rows: block nsys - 1 read as block 0
+    rid = min(errs)
+    bad = got["rows"][rid].clone()
+    bad[:, :, nsys - 1] = bad[:, :, 0]
+    wrong_rows = max(block_errs(bad, ctl["rows"][rid]))
+    # the noise floors and the logits' wrong-block number, on the dense
+    # path at the first compared request
+    cfg = build_run_cfg(plan, arch)
+    G = arch.n_heads // arch.n_kv_heads
+    toks = torch.from_numpy(prompts[rid][None]).to(dev)
+    tok0 = torch.tensor([[got["toks"][rid][0]]], dtype=torch.int32,
+                        device=dev)
+    max_len = -(-(toks.shape[1] + 1) // bl) * bl
+
+    def step(run_cfg, wrong_block=False):
+        """The dense prefill's system-prompt rows, ``(2, L, 1, S, K,
+        hd)``, and the logits of the decode step after it."""
+        _, cache = lm.prefill(arch, params, {"tokens": toks}, run_cfg,
+                              max_len=max_len)
+        if wrong_block:
+            for name in ("k", "v"):
+                cache[name][:, :, (nsys - 1) * bl:nsys * bl] = \
+                    cache[name][:, :, :bl]
+        rows = torch.stack([cache[n][:, :1, :nsys * bl] for n in ("k", "v")])
+        logits = lm.decode_step(arch, params, cache, {"tokens": tok0},
+                                run_cfg)[0][:, :V].float()
+        return rows, logits
+
+    rows, right = step(cfg)
+    rows2, other = step(dataclasses.replace(cfg, flash_tiles=(64 // G, 64)))
+    floor, rows_floor = _rms_rel(torch, other, right), max(block_errs(rows2,
+                                                                      rows))
+    wrong = _rms_rel(torch, step(cfg, wrong_block=True)[1], right)
+    worst, worst_rows = max(errs.values()), max(rows_err.values())
+    log(f"check hymba shared-prefix first decode step vs the control's, "
+        f"system-prompt K/V rows ({nsys} blocks) of 3 hit requests: worst "
+        f"block rms_rel={worst_rows:.3e} (tol {FULL_TOL}; dense prefill "
+        f"re-tiled against itself {rows_floor:.3e}; block {nsys - 1} read "
+        f"as block 0 {wrong_rows:.3e}) per request "
+        f"{ {r: round(e, 5) for r, e in rows_err.items()} }; logits of "
+        f"{len(errs)} requests with the control's first token: worst "
+        f"rms_rel={worst:.3e} (tol {FULL_TOL}; dense prefill and step "
+        f"re-tiled against themselves {floor:.3e}; block {nsys - 1} read as "
+        f"block 0, reported only, {wrong:.3e}) per request "
+        f"{ {r: round(e, 5) for r, e in errs.items()} } [{CARD}]")
+    check(worst_rows <= FULL_TOL and worst <= FULL_TOL,
+          f"hymba shared-prefix: first decode step rows {worst_rows} / "
+          f"logits {worst} rms_rel > {FULL_TOL}")
+    check(wrong_rows > FULL_TOL, f"hymba shared-prefix: the wrong-block "
+          f"control passed the rows' check ({wrong_rows})")
+    compared = same = 0
+    for rid, want_toks in ctl["toks"].items():
+        for i, (a, b) in enumerate(zip(got["toks"][rid], want_toks)):
+            compared += 1
+            if a != b:
+                m = ctl["margins"][rid][i]
+                check(m <= FULL_TOL, f"hymba shared-prefix: request {rid} "
+                      f"token {i} differs ({a} vs {b}) at a control margin "
+                      f"{m} > {FULL_TOL}")
+                break
+            same += 1
+    log(f"check hymba shared-prefix: prefix_hits="
+        f"{got['pressure']['prefix_hits']} rides=0, flash at an offset 0, "
+        f"4 of 4 requests prefilled whole; greedy tokens vs the control: "
+        f"{same} identical of {compared} compared [{CARD}]")
+    drop = ("toks", "margins", "second", "rows")
+    return {"reuse": {k: v for k, v in got.items() if k not in drop},
+            "control": {k: v for k, v in ctl.items() if k not in drop},
+            "prefix_rows_rms_rel": worst_rows, "rows_noise_floor": rows_floor,
+            "rows_wrong_block_rms_rel": wrong_rows,
+            "decode1_logits_rms_rel": worst, "noise_floor": floor,
+            "logits_wrong_block_rms_rel": wrong,
+            "tokens_compared": compared, "tokens_identical": same}
+
+
+def hymba_phase(torch, dev):
+    """Full-width, full-depth hymba-1.5b (32 layers, d_model 1600, 25 / 5
+    heads of 64 and 50 SSM heads of 64 with state 16 in parallel in every
+    layer; layers 0, 16 and 31 global, the rest through a 1024-token
+    window) from its frozen ``h100-sxm`` plan: ``from_plan(plan,
+    params)`` with no keyword serves 16 requests of 64k tokens (k seeded
+    in 1..24, so prompts cross the window), 32 new tokens, temperature
+    alternating 0 and 0.8: 32 flash, 32 SSD-scan launches a prefill call
+    and 32 paged-decode launches a tick.  Then the shared-prefix check
+    (blocks aliased, compute never skipped), a park with state (blocks
+    and SSM rows) and the full-depth consistency check past the
+    window."""
+    from repro_torch.core.passes.lowering import build_run_cfg
+
+    arch, plan, params = _new_arch_plan(torch, dev, "hymba-1.5b")
+    counts, res = serve_phase(torch, dev, "hymba", arch, plan, params,
+                              n_requests=16, new_tokens=32)
+    _check_layer_launches("hymba", arch, counts, res)
+    res["shared_prefix"] = hymba_shared_prefix_check(torch, dev, arch, plan,
+                                                     params)
+    res["park"] = ssm_park_check(torch, dev, arch, plan, params,
+                                 name="hymba")
+    check(res["park"]["resumes_by_promote"] == 1,
+          f"hymba park: {res['park']}")
+    consistency_check(torch, dev, arch, params, build_run_cfg(plan, arch),
+                      int(plan.estimates["kv_block_len"]),
+                      top1_margin=FULL_TOL, P=1100)
+    del params
+    torch.cuda.empty_cache()
+    return counts, res, plan
+
+
+def minitron_phase(torch, dev):
+    """Full-width, full-depth minitron-8b (32 layers, d_model 4096, 32 /
+    8 heads of 128, a squared-ReLU FFN of 16384, vocab 256000) from its
+    frozen ``h100-sxm`` plan: ``from_plan(plan, params)`` with no
+    keyword serves the paged phase's 16 requests (32 flash launches a
+    prefill call, 32 paged-decode launches a tick), then the full-depth
+    consistency check."""
+    from repro_torch.core.passes.lowering import build_run_cfg
+
+    arch, plan, params = _new_arch_plan(torch, dev, "minitron-8b")
+    counts, res = serve_phase(torch, dev, "minitron", arch, plan, params,
+                              n_requests=16, new_tokens=32)
+    _check_layer_launches("minitron", arch, counts, res)
+    consistency_check(torch, dev, arch, params, build_run_cfg(plan, arch),
+                      int(plan.estimates["kv_block_len"]),
+                      top1_margin=FULL_TOL)
+    del params
+    torch.cuda.empty_cache()
+    return counts, res, plan
+
+
 # ---------------------------------------------------------------------
 # phases 5 and 7: outputs against references
 # ---------------------------------------------------------------------
@@ -1514,7 +2120,7 @@ def _rms_rel(torch, got, want) -> float:
 
 
 def consistency_check(torch, dev, arch, params, cfg, bl,
-                      top1_margin: float = 0.0):
+                      top1_margin: float = 0.0, P: int = 300):
     """Full width: the logits of one decode step after a prefill of
     ``P`` tokens against the flash prefill's last-token logits over the
     same ``P + 1`` tokens — once through the dense decode kernel and
@@ -1533,7 +2139,10 @@ def consistency_check(torch, dev, arch, params, cfg, bl,
     tokens must agree — with ``top1_margin`` > 0, only where the flash
     prefill's top-2 margin exceeds that share of its largest logit (the
     margin rule; deepseek-coder-33b's 62 layers put the two right paths
-    ~9e-2 rms apart, as far apart as a near-tie).  The kernels' own
+    ~9e-2 rms apart, as far apart as a near-tie).  A hybrid's SSM state
+    and conv window ride beside the pool as the prefill left them; ``P``
+    past its window (hymba: 1100 of 1024) sends the windowed layers'
+    decode through a window that starts mid-cache.  The kernels' own
     tolerance is held row by row in the kernel phase, and
     :data:`LOGIT_TOL` by :func:`small_model_check`.
     """
@@ -1542,7 +2151,7 @@ def consistency_check(torch, dev, arch, params, cfg, bl,
     from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator(dev).manual_seed(SEED + 1)
-    P, max_len = 300, 2 * bl
+    max_len = -(-(P + 1) // bl) * bl
     toks = torch.randint(0, arch.vocab_size, (2, P + 1), generator=g,
                          device=dev, dtype=torch.int32)
     V = arch.vocab_size
@@ -1567,11 +2176,10 @@ def consistency_check(torch, dev, arch, params, cfg, bl,
                     return t.reshape(t.shape[0], 2 * nb, bl,
                                      *t.shape[3:]).flip(1).contiguous()
 
-                cache = {"pos": cache["pos"], "k": pool(cache["k"]),
-                         "v": pool(cache["v"]),
-                         "block_tbl": (2 * nb - 1 - torch.arange(
-                             2 * nb, device=dev, dtype=torch.int32)
-                         ).reshape(2, nb).contiguous()}
+                cache = dict(cache, k=pool(cache["k"]), v=pool(cache["v"]),
+                             block_tbl=(2 * nb - 1 - torch.arange(
+                                 2 * nb, device=dev, dtype=torch.int32)
+                             ).reshape(2, nb).contiguous())
             got, _ = lm.decode_step(arch, params, cache, {"tokens": last},
                                     cfg)
             check(tuple(got.shape) == (2, params["embed"].shape[0])
@@ -1607,9 +2215,11 @@ def ssm_consistency_check(torch, dev, arch, params, cfg):
     prefill of the same ``P + 1`` tokens.  rms-relative at
     :data:`FULL_TOL`, beside the noise floor of two right paths (the
     prefill against itself under chunk 128) and a wrong-token control
-    that must fail; top-1 tokens must agree.  The two paths round
-    differently by design (the prefill conv sums bf16 taps one by one,
-    the decode conv reduces its window in fp32)."""
+    that must fail; top-1 tokens must agree, but for a row whose top-2
+    margin (relative to its largest logit) is within that noise floor,
+    where two right paths may rank the pair either way.  The two paths
+    round differently by design (the prefill conv sums bf16 taps one by
+    one, the decode conv reduces its window in fp32)."""
     from repro_torch.models import lm
 
     g = torch.Generator(dev).manual_seed(SEED + 2)
@@ -1633,11 +2243,17 @@ def ssm_consistency_check(torch, dev, arch, params, cfg):
         results[name] = got[:, :V].float()
     rms = _rms_rel(torch, results["right"], want)
     control = _rms_rel(torch, results["wrong"], want)
-    top1 = bool((results["right"].argmax(-1) == want.argmax(-1)).all())
+    top2 = want.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]) / want.abs().amax(-1)
+    agree = results["right"].argmax(-1) == want.argmax(-1)
+    top1 = bool((agree | (margin <= floor)).all())
     log(f"check full-depth mamba2 decode vs SSD-kernel prefill logits: "
         f"rms_rel={rms:.3e} (tol {FULL_TOL}; prefill re-chunked against "
         f"itself {floor:.3e}; wrong-token control {control:.3e}) "
-        f"top1_agree={top1} scale={float(want.abs().max()):.3f} [{CARD}]")
+        f"top1_agree={agree.tolist()} at top-2 margins "
+        f"{[round(m, 5) for m in margin.tolist()]} (a disagreement allowed "
+        f"at a margin <= the noise floor) "
+        f"scale={float(want.abs().max()):.3f} [{CARD}]")
     check(rms <= FULL_TOL and top1,
           f"ssm consistency rms_rel {rms} > {FULL_TOL} or top-1 differs")
     check(control > FULL_TOL,
@@ -2035,7 +2651,8 @@ def main() -> int:
         f"{march.n_layers} per prefill call x {calls} calls [{CARD}]")
     ssm_consistency_check(torch, dev, march, mparams,
                           build_run_cfg(mplan, march))
-    ssm_park = ssm_park_check(torch, dev, march, mplan, mparams)
+    ssm_park = ssm_park_check(torch, dev, march, mplan, mparams,
+                              kv_host_blocks=8)
     del mparams
     torch.cuda.empty_cache()
     small_ssm_check(torch, dev)
@@ -2045,28 +2662,39 @@ def main() -> int:
     grant, grant_ctl = grant_phase(torch, dev)
     ops.reset_launch_counts()
 
-    # ---- phase 10: the plan-driven matmul path ----
+    # ---- phases 10-11: hymba-1.5b and minitron-8b, each after every
+    # earlier phase's weights were freed ----
+    hymba_counts, hymba, hplan = hymba_phase(torch, dev)
+    minitron_counts, minitron, tplan = minitron_phase(torch, dev)
+    ops.reset_launch_counts()
+
+    # ---- phase 12: the plan-driven matmul path ----
     serve_mm = {n: c["tiled_matmul"] for n, c in (
         ("paged", paged_counts), ("dense", dense_counts), ("ssm", ssm_counts),
         ("33b-grant", grant["launches"]),
-        ("33b-control", grant_ctl["launches"]))}
+        ("33b-control", grant_ctl["launches"]), ("hymba", hymba_counts),
+        ("minitron", minitron_counts))}
     check(not any(serve_mm.values()),
           f"a serving path launched tiled_matmul: {serve_mm}")
     t0 = time.perf_counter()
     mm_launches, kern["tiled_matmul"] = matmul_path_phase(
         torch, dev, {"qwen3-8b paged": plan, "qwen3-8b dense": dplan,
-                     "mamba2-2.7b": mplan}, matmul_shapes(arch, march))
+                     "mamba2-2.7b": mplan, "hymba-1.5b": hplan,
+                     "minitron-8b": tplan}, matmul_shapes(arch, march))
     kern["tiled_matmul"]["kernel_check_row_rel_err"] = mm_worst
     log(f"matmul path: {mm_launches} launches, phase took "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
 
-    # ---- phase 11: results ----
+    # ---- phase 13: results ----
     runs = (paged_counts, dense_counts, ssm_counts, shared["launches"],
-            shared_ctl["launches"], grant["launches"], grant_ctl["launches"])
+            shared_ctl["launches"], grant["launches"], grant_ctl["launches"],
+            hymba_counts, minitron_counts)
     launches = {k: sum(c[k] for c in runs) for k in paged_counts}
     for name in ("flash_attention", "paged_decode_attention"):
         kern[name]["g7"]["launches"] = (grant["launches"][name]
                                         + grant_ctl["launches"][name])
+        kern[name]["g5"]["launches"] = hymba_counts[name]
+    kern["ssd_scan"]["hymba"]["launches"] = hymba_counts["ssd_scan"]
     kern["flash_attention"]["tail_launches"] = sum(
         c.get("flash_tail", 0) for c in runs)
     launches["tiled_matmul"] = mm_launches
@@ -2083,11 +2711,12 @@ def main() -> int:
                                  "map_encode_us", "tiles_ms", "grid",
                                  "turns_ms", "library_turns_ms", "eager_ms",
                                  "library_eager_ms", "host_us", "timing",
-                                 "passes_ms", "chunks_ms", "bound_3xtf32_ms",
+                                 "passes_ms", "chunks_ms", "row_rel_err_fp64",
                                  "bound_per_head_scores_ms",
                                  "shape",
                                  "shapes", "library_call", "launched_by",
-                                 "offset", "tail_launches", "g7")
+                                 "offset", "tail_launches", "g7", "g5",
+                                 "hymba")
                if k in r},
             "ptxas": [[kernel, regs, spills] for kernel, regs, spills
                       in ptxas.get(Path(r["source"]).stem, [])],
@@ -2098,12 +2727,15 @@ def main() -> int:
                               "33b_reserve_control": grant_ctl,
                               "shared_prefix": shared,
                               "shared_prefix_control": shared_ctl,
+                              "hymba": hymba, "minitron": minitron,
                               "launches": {"paged": paged_counts,
                                            "dense": dense_counts,
                                            "ssm": ssm_counts,
                                            "33b_grant": grant["launches"],
                                            "33b_reserve_control":
-                                           grant_ctl["launches"]}}}))
+                                           grant_ctl["launches"],
+                                           "hymba": hymba_counts,
+                                           "minitron": minitron_counts}}}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")
     log(smi)

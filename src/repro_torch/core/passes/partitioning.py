@@ -116,27 +116,29 @@ class LocalPartitioningPass(Pass):
         tile, whose shared memory (Q plus the K/V ring) fits the budget.
         The rows hold ``block_q = rows // G`` whole positions, the
         kernel's own rule (G = 7: 18 positions in 128 rows, 2 of them
-        pad).  S, P and the O accumulator live in registers, so only
-        those tiles are charged.  An arch the kernel is not built for
-        (another head_dim, or a GQA group outside ``fa.GROUPS``) gets no
-        tile, and the kernel's wrapper raises on it at launch."""
+        pad; G = 5: 25 positions, 3 pad).  S, P and the O accumulator
+        live in registers, so only those tiles are charged, at the arch's
+        head_dim.  An arch the kernel is not built for (a head_dim
+        outside ``fa.HEAD_DIMS``, or a GQA group outside ``fa.GROUPS``)
+        gets no tile, and the kernel's wrapper raises on it at launch."""
         from repro_torch.kernels import flash_attention as fa
 
         arch, est = ctx.arch, ctx.plan.estimates
         G = (int(est.get("heads_padded", arch.n_heads))
              // int(est.get("kv_heads_padded", arch.n_kv_heads)))
-        fits = [t for t in fa.KERNEL_TILES if fa.smem_bytes(*t) <= budget]
-        if arch.hd != fa.HEAD_DIM or G not in fa.GROUPS or not fits:
+        fits = [t for t in fa.KERNEL_TILES
+                if fa.smem_bytes(*t, arch.hd) <= budget]
+        if arch.hd not in fa.HEAD_DIMS or G not in fa.GROUPS or not fits:
             self.record(ctx, "flash_attention", "no kernel tile",
-                        f"the CUDA kernel is built for head_dim "
-                        f"{fa.HEAD_DIM} and GQA groups {fa.GROUPS}; this "
+                        f"the CUDA kernel is built for head_dim in "
+                        f"{fa.HEAD_DIMS} and GQA groups {fa.GROUPS}; this "
                         f"arch has head_dim {arch.hd} and G={G}")
             return
         rows, block_kv = max(fits)
         block_q = rows // G
         # a group that divides no tile leaves pad rows (G = 7: 126 of 128)
         held = "=" if block_q * G == rows else "hold"
-        smem = fa.smem_bytes(rows, block_kv)
+        smem = fa.smem_bytes(rows, block_kv, arch.hd)
         bp = BlockPlan(
             kernel="flash_attention",
             blocks={"block_q": block_q, "block_kv": block_kv,
@@ -192,19 +194,19 @@ class LocalPartitioningPass(Pass):
         the plan's batch, kv heads and cache length, else the narrowest.
         The shared memory charged is the kernel's: the warps' cp.async K/V
         rings, which do not depend on the tile.  An arch the kernel is not
-        built for (another head_dim, or a GQA group without an instance,
+        built for (a (GQA group, head_dim) pair without an instance,
         ``dec.takes_group``) gets no tile and a logged reason."""
         from repro_torch.kernels import decode_attention as dec
 
         arch, est = ctx.arch, ctx.plan.estimates
         K = int(est.get("kv_heads_padded", arch.n_kv_heads))
         G = int(est.get("heads_padded", arch.n_heads)) // K
-        smem = dec.smem_bytes(G, dec.DEFAULT_BLOCK_KV)
+        smem = dec.smem_bytes(G, dec.DEFAULT_BLOCK_KV, arch.hd)
         if not dec.takes_group(G, arch.hd) or smem > budget:
             self.record(ctx, "decode_attention", "no kernel tile",
-                        f"the CUDA kernel is built for head_dim "
-                        f"{dec.HEAD_DIM} and GQA groups {dec.GROUPS}; this "
-                        f"arch has head_dim {arch.hd} and G={G}")
+                        f"the CUDA kernel is built for (GQA group, head_dim) "
+                        f"in {dec.INSTANCES}; this arch has head_dim "
+                        f"{arch.hd} and G={G}")
             return
         B, cap = ctx.shape.global_batch, ctx.shape.seq_len
 

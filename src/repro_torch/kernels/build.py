@@ -164,9 +164,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_attention": {
         # q, k, v, out, B, Sq, Skv, q_off, H, K, D, causal, window, rows,
-        # block_kv, scale, stream
+        # block_kv, scale, pad_fault, stream
         "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _F, _P],
+                                _I, _I, _I, _I, _F, _I, _P],
         # q, k, v, B, S, H, K, D, rows, block_kv, iters -> us (double)
         "flash_attention_map_encode_us": [_P, _P, _P, _I, _I, _I, _I, _I,
                                           _I, _I, _I],

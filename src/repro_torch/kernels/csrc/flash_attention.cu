@@ -19,9 +19,11 @@
 //     serves all G heads.  A 4-D TMA box (64 of D, G heads, BQ positions)
 //     over q (B, S, H, D) lands in exactly that row order; D = 128 is two
 //     64-wide, 128-byte-swizzled boxes, each on the rows-row stride so it
-//     starts on a 1024-byte swizzle atom;
-//   * a group that divides no tile (G = 7: 18 positions = 126 of 128 rows)
-//     leaves rows - BQ*G pad rows at the bottom of the tile.  The Q barrier
+//     starts on a 1024-byte swizzle atom, and D = 64 is one box: a row of
+//     64 bf16 is one 128-byte swizzle row;
+//   * a group that divides no tile (G = 7: 18 positions = 126 of 128 rows;
+//     G = 5: 25 positions = 125 of 128, 12 = 60 of 64) leaves rows - BQ*G
+//     pad rows at the bottom of the tile.  The Q barrier
 //     expects the bytes the boxes deliver (BQ*G rows, not rows), the pad
 //     rows are zeroed once before the first product (their scores stay in
 //     their own rows, so they touch no real row) and the epilogue never
@@ -39,7 +41,7 @@
 //     (causal, window, the S edge) are applied only on the tiles that
 //     straddle a boundary; tiles wholly above the diagonal or outside the
 //     window are never loaded;
-//   * O += P V is wgmma RS m64n128k16: P rounded to bf16 in registers is
+//   * O += P V is wgmma RS m64n{D}k16: P rounded to bf16 in registers is
 //     the A operand as it stands (the accumulator layout is the A fragment
 //     layout), V (block_kv, D) the MN-major B in its transposed form.  O
 //     stays in registers for the whole kv loop: S, P and O never touch
@@ -54,9 +56,10 @@
 //     Sq == Skv (q_off = 0) is the whole-prompt launch.
 // Tiles (rows, block_kv) in {(64, 64), (64, 128), (128, 64), (128, 128)}
 // (rows = 64 per consumer warpgroup), head_dim a template parameter
-// instantiated at 128; a tile holds at least one whole GQA group.  The
-// wrapper admits G in {1, 2, 4, 7, 8, 16} and raises on anything else.  Shared memory at
-// (128, 128): Q 32 KB + 2 stages x (K + V) 128 KB = 160 KB, one CTA an SM.
+// instantiated at 64 (hymba-1.5b) and 128; a tile holds at least one whole
+// GQA group.  The wrapper admits G in {1, 2, 4, 5, 7, 8, 16} and raises on
+// anything else.  Shared memory at (128, 128): Q 32 KB + 2 stages x (K + V)
+// 128 KB = 160 KB at D = 128, half that at D = 64; one CTA an SM.
 // Not done yet (later work): overlapping one tile's softmax with the next
 // tile's S product (in a warpgroup or ping-pong across the two), a
 // TMA-store epilogue, a persistent grid.
@@ -119,11 +122,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  bf16* __restrict__ out, int Sq, int Skv, int q_off, int H,
-                 int K, int causal, int window, float scale_log2) {
+                 int K, int causal, int window, float scale_log2,
+                 int pad_fault) {
   using L = Smem<D, BKV, NWG>;
   constexpr int kRows = L::kRows;
   constexpr int kAtoms = D / 64;  // 128-byte swizzle atoms along D
-  static_assert(D == 128, "the P V product is built for head_dim 128");
+  static_assert(D == 64 || D == 128, "head_dim is one or two swizzle atoms");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -310,7 +314,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int kk = 0; kk < BKV / 16; ++kk) {
       const uint64_t db =
           sm90::desc_sw128(v_s + kk * 2048, BKV * 128, 1024);
-      sm90::wgmma_m64n128k16_rs<1>(o, pa[kk], db, 1);
+      sm90::wgmma_rs<D, 1>(o, pa[kk], db, 1);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -319,7 +323,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // ---- epilogue: normalise, write query rows < Sq (never a pad row: its
-  // qrow is Sq)
+  // qrow is Sq, unless pad_fault plants the fault the checks must catch:
+  // pad rows written over the next CTA's first position, pad row i on its
+  // head i, which that CTA then leaves to them, so what lands there does
+  // not depend on which of the two CTAs writes last)
   const float lsum_lo = quad_sum(l_lo), lsum_hi = quad_sum(l_hi);
   const float inv_lo = lsum_lo > 0.f ? 1.f / lsum_lo : 0.f;
   const float inv_hi = lsum_hi > 0.f ? 1.f / lsum_hi : 0.f;
@@ -327,9 +334,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = h ? r_hi : r_lo;
-    const int qrow = h ? qrow_hi : qrow_lo;
+    const int qrow = pad_fault && r >= q_rows ? q0 + BQ
+                                              : (h ? qrow_hi : qrow_lo);
     const float inv = h ? inv_hi : inv_lo;
-    if (qrow >= Sq) continue;
+    if (qrow >= Sq || (pad_fault && q0 > 0 && r < kRows - q_rows)) continue;
     bf16* dst = out + (size_t(b_row + qrow) * H + kvh * G + r % G) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -365,7 +373,7 @@ int encode_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
 template <int D, int BKV, int NWG>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Skv, int q_off, int H, int K, int causal, int window,
-           float scale, cudaStream_t stream) {
+           float scale, int pad_fault, cudaStream_t stream) {
   constexpr int kRows = NWG * 64;
   CUtensorMap mq, mk, mv;
   int err = encode_maps(&mq, &mk, &mv, q, k, v, B, Sq, Skv, H, K, D, kRows,
@@ -382,7 +390,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const float kLog2e = 1.4426950408889634f;
   kern<<<dim3(B * K, q_tiles), (NWG + 1) * 128, smem, stream>>>(
       mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, q_off, H, K, causal,
-      window, scale * kLog2e);
+      window, scale * kLog2e, pad_fault);
   return int(cudaGetLastError());
 }
 
@@ -392,8 +400,9 @@ bool takes(const void* q, const void* k, const void* v, const void* out,
                          reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) |
                          reinterpret_cast<uintptr_t>(out);
-  return D == 128 && K > 0 && H % K == 0 && H / K <= rows && Sq > 0 &&
-         Skv >= Sq && q_off >= 0 && q_off <= Skv - Sq && ptrs % 16 == 0;
+  return (D == 64 || D == 128) && K > 0 && H % K == 0 && H / K <= rows &&
+         Sq > 0 && Skv >= Sq && q_off >= 0 && q_off <= Skv - Sq &&
+         ptrs % 16 == 0;
 }
 
 }  // namespace
@@ -401,32 +410,36 @@ bool takes(const void* q, const void* k, const void* v, const void* out,
 extern "C" {
 
 // q (B, Sq, H, D), k/v (B, Skv, K, D), out (B, Sq, H, D), all bf16,
-// contiguous and 16-byte aligned, Sq <= Skv, G = H / K <= rows.  Query row i sits at absolute
-// position q_off + i of the key stream (the wrapper passes Skv - Sq: the
+// contiguous and 16-byte aligned, D in {64, 128}, Sq <= Skv, G = H / K <=
+// rows.  Query row i sits at absolute position q_off + i of the key stream (the wrapper passes Skv - Sq: the
 // queries are the stream's last Sq positions; q_off = 0 with Sq == Skv is
 // a whole prompt).  rows = query rows per CTA (64 or 128; it holds rows / G
 // whole positions, and the rows past them are pad), block_kv =
-// K/V rows per tile.  Returns 0 when launched, a cudaError_t, or a negative
-// CUresult of the tensor-map encoder.
+// K/V rows per tile.  pad_fault: 0, or a planted fault for the checks (the
+// pad rows written over the next CTA's first position, in place of that
+// CTA's own rows there).  Returns 0 when
+// launched, a cudaError_t, or a negative CUresult of the tensor-map encoder.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, int B, int Sq, int Skv, int q_off, int H,
                         int K, int D, int causal, int window, int rows,
-                        int block_kv, float scale, void* stream) {
+                        int block_kv, float scale, int pad_fault,
+                        void* stream) {
   if (!takes(q, k, v, out, Sq, Skv, q_off, H, K, D, rows))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows == 64 && block_kv == 64)
-    return launch<128, 64, 1>(q, k, v, out, B, Sq, Skv, q_off, H, K, causal,
-                              window, scale, s);
-  if (rows == 64 && block_kv == 128)
-    return launch<128, 128, 1>(q, k, v, out, B, Sq, Skv, q_off, H, K, causal,
-                               window, scale, s);
-  if (rows == 128 && block_kv == 64)
-    return launch<128, 64, 2>(q, k, v, out, B, Sq, Skv, q_off, H, K, causal,
-                              window, scale, s);
-  if (rows == 128 && block_kv == 128)
-    return launch<128, 128, 2>(q, k, v, out, B, Sq, Skv, q_off, H, K, causal,
-                               window, scale, s);
+#define REPRO_FLASH_CASE(DD, ROWS, BKV)                                     \
+  if (D == DD && rows == ROWS && block_kv == BKV)                           \
+    return launch<DD, BKV, ROWS / 64>(q, k, v, out, B, Sq, Skv, q_off, H, K, \
+                                      causal, window, scale, pad_fault, s);
+  REPRO_FLASH_CASE(128, 64, 64)
+  REPRO_FLASH_CASE(128, 64, 128)
+  REPRO_FLASH_CASE(128, 128, 64)
+  REPRO_FLASH_CASE(128, 128, 128)
+  REPRO_FLASH_CASE(64, 64, 64)    // hymba-1.5b: 25 / 5 heads of 64
+  REPRO_FLASH_CASE(64, 64, 128)
+  REPRO_FLASH_CASE(64, 128, 64)
+  REPRO_FLASH_CASE(64, 128, 128)
+#undef REPRO_FLASH_CASE
   return int(cudaErrorInvalidValue);
 }
 

@@ -11,7 +11,8 @@
 //   y[q]  = sum_{k<=q} (C[q].B[k]) exp(cs[q]-cs[k]) dt[k] x[k]
 //         + exp(cs[q]) C[q].state^T                         (carried in)
 //   state = exp(cs[Q-1]) state + sum_k (x[k] dt[k] exp(cs[Q-1]-cs[k]))^T B[k]
-// in fp32 on the CUDA cores.  Every decay is exp of a difference <= 0
+// from fp32 inputs, decays and workspaces, every product summed in fp64
+// on the tensor cores (below).  Every decay is exp of a difference <= 0
 // (A < 0, dt >= 0): never exp(cs[q]) * exp(-cs[k]), which overflows once cs
 // reaches -88 (A down to -16 at dt ~ 0.13 gets there within one chunk).
 //
@@ -27,7 +28,8 @@
 // and of scores.x, then the carried-state term and the state update)
 // against (2P + 1) Q * 4 bytes of its own x, dt and y (B and C are shared
 // by a group's heads): ~160 flops a byte at Q = 256, P = 64, N = 128, far
-// above the ~20 the card's fp32 CUDA-core rate needs.
+// above the ~20 that the card's fp64 tensor-core rate (the same 67
+// TFLOP/s as its fp32 CUDA cores) needs.
 //
 // The design runs the chunks of one (batch, head) on different SMs, in the
 // three passes of the SSD formulation, each its own kernel on the stream:
@@ -37,7 +39,7 @@
 //      x), and its total decay log cs[Q-1] to (B, H, nc).  The chunk's
 //      raw causal score tiles C.B^T depend on the group, not the head, so
 //      the group's heads share them out and each is computed once, in
-//      3xTF32 (below), to (B, G, nc, pairs, 64, 64);
+//      fp64 (below), to (B, G, nc, pairs, 64, 64);
 //   2. state passing, one thread per (batch, head, p, n), serial over the
 //      nc chunks only: overwrites each chunk's local state with the state
 //      carried into it, and writes the final state;
@@ -45,18 +47,19 @@
 //      tile (the tiles with the most key tiles launch first): this head's
 //      causal mask and decay applied to each raw score tile, the
 //      intra-chunk term scores.x, then the carried-in term C.state^T.
-//      Both products run on the tensor cores in 3xTF32: each operand
-//      split into a big and a small TF32 part, three mma.sync m16n8k8
-//      products summed in fp32 (small.small, ~2^-22 of a product,
-//      dropped).  Plain TF32 would keep about three digits against the
-//      1e-3 row tolerance; 3xTF32 keeps about fp32's.
+//      Both products run on the tensor cores in fp64 (mma.sync m8n8k4).
+//      An fp32 accumulation on the tensor cores (TF32, or 3xTF32's
+//      three split products) keeps the largest term's exponent: on an
+//      H100 it erred 2.6e-3 of a row whose terms cancel, against an
+//      fp64 reference and the 1e-3 row tolerance, where the fp32 plain
+//      version erred 8.2e-4 and fp64 products 1.1e-4.
 // Operand tiles are staged by cp.async, double-buffered (the next key
 // tile's B and x, or scores and x, or the carried state, load while this
 // one is used), with row pitches that make every fragment read
 // conflict-free (C, and B where it is read transposed, padded by 4
 // floats; x, the state, and B where it is read row-wise, by 8); passes 1
 // and 3 each fit two CTAs an SM.  Every product, pass 1's state sum
-// included, runs in 3xTF32 (below).  Causal tiles above the diagonal are
+// included, runs in fp64 (below).  Causal tiles above the diagonal are
 // never computed, and query tiles wholly past S exit at once.
 // heads_block (the plan's heads per CTA on the TPU grid) is still taken
 // and validated, but the grid no longer uses it: every CTA owns one
@@ -113,61 +116,44 @@ __device__ __forceinline__ void stage_async(float* dst, int pitch,
 }
 
 // ---------------------------------------------------------------------
-// 3xTF32 on the tensor cores: x = big + small, both TF32 (big keeps 11
-// bits of mantissa, small the next 11), and a.b ~ as.bb + ab.bs + ab.bb
-// (small.small, ~2^-22 of the product, dropped), summed in fp32 by
-// mma.sync m16n8k8.  Lane (g, t) = (lane / 4, lane % 4) holds A (16 x 8)
-// at (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8) at (t, g),
-// (t + 4, g); C (16 x 8) at (g, 2t), (g, 2t + 1), (g + 8, 2t),
-// (g + 8, 2t + 1).
+// fp64 on the tensor cores: mma.sync m8n8k4 (DMMA) on fp64 operands, each
+// widened exactly from its fp32 value, so every product is exact and the
+// sum rounds in fp64.  A row whose terms cancel to ~1e-4 of their size
+// thus keeps its digits, where the tensor cores' fp32 accumulation
+// (TF32 or 3xTF32 products) keeps those of the largest term only.  Lane
+// (g, t) = (lane / 4, lane % 4) holds A (8 x 4) at (g, t), B (4 x 8) at
+// (t, g), and C (8 x 8) at (g, 2t), (g, 2t + 1).  A warp's 16 x 8 output
+// tile is two of them: acc[0..1] at row g, acc[2..3] at row g + 8.
 // ---------------------------------------------------------------------
 
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  const float rest = x - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a,
+                                        double b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
 }
 
 // One warp: acc[j] (16 rows x 8 columns, j < NT) += A . B over K (a
-// multiple of 8), in 3xTF32.  A is row-major (rows, K) at `a` (pitch ap,
+// multiple of 4), in fp64.  A is row-major (rows, K) at `a` (pitch ap,
 // the warp's first row), or with AT the (K, rows) transpose of that; B is
 // row-major (K, n) at `b` (pitch bp, the warp's first column), or with BT
 // the (n, K) transpose of that.
 template <int NT, bool BT, bool AT = false>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a,
+__device__ __forceinline__ void warp_mma(double (&acc)[NT][4], const float* a,
                                          int ap, const float* b, int bp,
                                          int K) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   auto at = [&](int i, int k) { return AT ? a[k * ap + i] : a[i * ap + k]; };
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    uint32_t ab[4], as[4];
-    split_tf32(at(g, k0 + t), ab[0], as[0]);
-    split_tf32(at(g + 8, k0 + t), ab[1], as[1]);
-    split_tf32(at(g, k0 + t + 4), ab[2], as[2]);
-    split_tf32(at(g + 8, k0 + t + 4), ab[3], as[3]);
+#pragma unroll 4
+  for (int k = t; k < K; k += 4) {
+    const double a0 = at(g, k), a1 = at(g + 8, k);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const float b0 = BT ? b[(8 * j + g) * bp + k0 + t]
-                          : b[(k0 + t) * bp + 8 * j + g];
-      const float b1 = BT ? b[(8 * j + g) * bp + k0 + t + 4]
-                          : b[(k0 + t + 4) * bp + 8 * j + g];
-      uint32_t bb[2], bs[2];
-      split_tf32(b0, bb[0], bs[0]);
-      split_tf32(b1, bb[1], bs[1]);
-      mma_tf32(acc[j], as, bb);
-      mma_tf32(acc[j], ab, bs);
-      mma_tf32(acc[j], ab, bb);
+      const double bv = BT ? b[(8 * j + g) * bp + k] : b[k * bp + 8 * j + g];
+      mma_f64(acc[j][0], acc[j][1], a0, bv);
+      mma_f64(acc[j][2], acc[j][3], a1, bv);
     }
   }
 }
@@ -247,18 +233,18 @@ ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
     dts[r] *= expf(cum_last - cum[r]);
   __syncthreads();
 
-  // state (P, N) = (x w)^T B over the chunk's rows, in 3xTF32: warp w owns
+  // state (P, N) = (x w)^T B over the chunk's rows, in fp64: warp w owns
   // the 16 state rows of m-tile w % MT and NTW n-tiles of 8 columns
   constexpr int MT = P / 16, NTT = N / 8, WPM = 8 / MT;
   constexpr int NTW = NTT / WPM > 0 ? NTT / WPM : 1;
   const int warp = tid / 32, lane = tid % 32;
   const int lg = lane / 4, lt = lane % 4;
   const int mt = warp % MT, nt0 = warp / MT * NTW;
-  float sacc[NTW][4];
+  double sacc[NTW][4];
 #pragma unroll
   for (int j = 0; j < NTW; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) sacc[j][e] = 0.0;
 
   for (int kj = 0; kj < ntiles; ++kj) {
     if (kj + 1 < ntiles) {
@@ -288,13 +274,13 @@ ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         out[((nt0 + j) * 8 + 2 * lt + e % 2) * P + mt * 16 + lg +
-            8 * (e / 2)] = sacc[j][e];
+            8 * (e / 2)] = float(sacc[j][e]);
   }
   if (tid == 0) cs_last[size_t(bh) * nc + c] = cum_last;
 
   // The raw score tiles C.B^T of this chunk depend on its group only, not
   // the head: the group's heads share them out, each CTA computing pairs
-  // r, r + H / G, ... (r its head's rank in the group), in 3xTF32.
+  // r, r + H / G, ... (r its head's rank in the group), in fp64.
   const int heads = H / G;
   const int m0 = 16 * (warp % 4), n0 = 32 * (warp / 4);
   const float* cb = Cm + (size_t(b) * S + c0) * brow + size_t(g) * N;
@@ -312,11 +298,11 @@ ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
     repro::cp_async_commit();
     repro::cp_async_wait<0>();
     __syncthreads();
-    float sc[4][4];
+    double sc[4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.0;
     warp_mma<4, true>(sc, smem + m0 * NP, NP, smem + (kT + n0) * NP, NP, N);
     float* o = sc_out + size_t(pi) * kT * kT;
 #pragma unroll
@@ -325,7 +311,7 @@ ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
       for (int hf = 0; hf < 2; ++hf)
         *reinterpret_cast<float2*>(o + (m0 + lg + 8 * hf) * kT + n0 + 8 * j +
                                    2 * lt) =
-            make_float2(sc[j][2 * hf], sc[j][2 * hf + 1]);
+            make_float2(float(sc[j][2 * hf]), float(sc[j][2 * hf + 1]));
   }
 }
 
@@ -369,7 +355,7 @@ ssd_state_pass(float* __restrict__ states, const float* __restrict__ cs_last,
 }
 
 // Pass 3: y of query tile qi of chunk c of (b, h), its products in
-// 3xTF32 on the tensor cores.  Each key tile's raw scores come from pass 1;
+// fp64 on the tensor cores.  Each key tile's raw scores come from pass 1;
 // the CTA applies this head's causal mask and decay to them in shared
 // memory.  Warp w owns rows m0 = 16 (w % 4) of the tile and columns
 // P/2 (w / 4) of y.
@@ -420,11 +406,11 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
   chunk_cumsum(cum, dts, dt + (size_t(b) * S + c0) * H + h, H, A[h], chunk,
                rows);
 
-  float yacc[YT][4];
+  double yacc[YT][4];
 #pragma unroll
   for (int j = 0; j < YT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) yacc[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) yacc[j][e] = 0.0;
 
   for (int kj = 0; kj <= qi; ++kj) {
     if (kj < qi) {
@@ -454,11 +440,11 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
   __syncthreads();
 
   // carried-in state: y += exp(cs[q]) C[q] . state^T
-  float cst[YT][4];
+  double cst[YT][4];
 #pragma unroll
   for (int j = 0; j < YT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) cst[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) cst[j][e] = 0.0;
   warp_mma<YT, false>(cst, cs + m0 * NP, NP,
                       stg + ((qi + 1) & 1) * L::kScanStage + p0, XP, N);
   float* yb = y + (size_t(b) * S + c0) * xrow + size_t(h) * P;
@@ -466,13 +452,13 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
   for (int hf = 0; hf < 2; ++hf) {
     const int q = qi * kT + m0 + lg + 8 * hf;
     if (q < rows) {
-      const float d = expf(cum[q]);
+      const double d = expf(cum[q]);
 #pragma unroll
       for (int j = 0; j < YT; ++j)
         *reinterpret_cast<float2*>(yb + size_t(q) * xrow + p0 + 8 * j +
                                    2 * lt) =
-            make_float2(fmaf(d, cst[j][2 * hf], yacc[j][2 * hf]),
-                        fmaf(d, cst[j][2 * hf + 1], yacc[j][2 * hf + 1]));
+            make_float2(float(fma(d, cst[j][2 * hf], yacc[j][2 * hf])),
+                        float(fma(d, cst[j][2 * hf + 1], yacc[j][2 * hf + 1])));
     }
   }
 }

@@ -46,13 +46,12 @@ from repro_torch.kernels import build
 
 KERNEL_TILES = (64, 128, 256)
 DEFAULT_BLOCK_KV = 256
-HEAD_DIM = 128
-#: GQA groups the kernels are instantiated for (``csrc``
+#: (GQA group, head_dim) pairs the kernels are instantiated for (``csrc``
 #: ``REPRO_DECODE_CASE``): the powers of two up to 8 and
-#: deepseek-coder-33b's 7.  The template reads G only as a loop bound and
-#: an array size, so a group is one more instance
-GROUPS = (1, 2, 4, 7, 8)
-MAX_GROUP = max(GROUPS)
+#: deepseek-coder-33b's 7 at head_dim 128, hymba-1.5b's 5 at 64.  The
+#: template reads G only as a loop bound and an array size, so a pair is
+#: one more instance
+INSTANCES = ((1, 128), (2, 128), (4, 128), (7, 128), (8, 128), (5, 64))
 #: the card's SMs; the split rule aims at two CTAs for each
 SMS = 132
 SPLIT_CTAS = 2 * SMS
@@ -85,14 +84,15 @@ def kernel_tile(name: str, block_kv: Optional[int]) -> int:
     return tile
 
 
-def smem_bytes(G: int, tile: int) -> int:
+def smem_bytes(G: int, tile: int, head_dim: int = 128) -> int:
     """Shared memory one CTA uses (``csrc`` ``Smem<G, D>::kBytes``): the
     warps' K/V rings (K rows padded by 16 bytes), reused after the row
     loop to merge the warps' partials, then the scaled q and each warp's
     probabilities.  The tile sets only the split size, not the ring."""
-    ring = WARPS * STAGES * WARP_ROWS * (2 * HEAD_DIM + 8) * 2
-    merge = WARPS * G * (HEAD_DIM + 2) * 4
-    return max(ring, merge) + G * HEAD_DIM * 4 + WARPS * WARP_ROWS * G * 4
+    D = head_dim
+    ring = WARPS * STAGES * WARP_ROWS * (2 * D + 8) * 2
+    merge = WARPS * G * (D + 2) * 4
+    return max(ring, merge) + G * D * 4 + WARPS * WARP_ROWS * G * 4
 
 
 def decode_split(B: int, K: int, capacity: int, tile: int
@@ -216,11 +216,11 @@ def _workspace(q: torch.Tensor, K: int, splits: int) -> torch.Tensor:
                        dtype=torch.float32, device=q.device)
 
 
-def takes_group(G: int, D: int = HEAD_DIM) -> bool:
+def takes_group(G: int, D: int) -> bool:
     """The decode kernels' admission rule for ``G`` query heads per kv
-    head at head_dim ``D``: ``D`` is :data:`HEAD_DIM` and ``G`` one of
-    :data:`GROUPS` (one template instance each)."""
-    return D == HEAD_DIM and G in GROUPS
+    head at head_dim ``D``: ``(G, D)`` is one of :data:`INSTANCES` (one
+    template instance each)."""
+    return (G, D) in INSTANCES
 
 
 def _check(name: str, q, caches, ints) -> None:
@@ -240,8 +240,8 @@ def _check(name: str, q, caches, ints) -> None:
     B, H, D = q.shape
     K = caches[1][1].shape[2]
     if H % K or not takes_group(H // K, D):
-        raise ValueError(f"{name}: kernel takes head_dim {HEAD_DIM} and a "
-                         f"GQA group in {GROUPS}, got D={D} H={H} K={K}")
+        raise ValueError(f"{name}: kernel takes (GQA group, head_dim) in "
+                         f"{INSTANCES}, got D={D} H={H} K={K}")
 
 
 def _on_card(name: str, q: torch.Tensor) -> None:

@@ -24,11 +24,13 @@ each consumer warpgroup: ``block_q = rows // G`` whole positions times
 the ``G = H/K`` heads sharing a kv head, and streams ``block_kv`` K/V
 rows a tile through a TMA ring of :data:`STAGES` stages.  A group that
 divides no tile leaves pad rows (G = 7: 18 positions = 126 of 128 rows)
-that the kernel never writes.  It is built for ``(rows, block_kv)`` in
-:data:`KERNEL_TILES` and the groups in :data:`GROUPS`;
+that the kernel never writes (G = 5: 25 positions = 125 of 128 rows).
+It is built for ``(rows, block_kv)`` in :data:`KERNEL_TILES`, the head
+dims in :data:`HEAD_DIMS` and the groups in :data:`GROUPS`;
 :func:`kernel_tiles` raises on any other plan tile or group.  A plan without a ``flash_attention``
 BlockPlan (decode shapes have none) gets :data:`DEFAULT_ROWS` x
-:data:`DEFAULT_BLOCK_KV`, 164,920 B of shared memory, one CTA to an SM.
+:data:`DEFAULT_BLOCK_KV`, 164,920 B of shared memory at head_dim 128
+(83,000 B at 64), one CTA to an SM.
 TMA reads q, k and v in place, so each must start on a 16-byte boundary.
 """
 
@@ -45,11 +47,12 @@ from repro_torch.kernels import build
 KERNEL_TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
 DEFAULT_ROWS = 128
 DEFAULT_BLOCK_KV = 128
-HEAD_DIM = 128
+#: head dims the kernel is instantiated at: one 128-byte swizzle row of
+#: bf16 (hymba-1.5b's 64) or two (128)
+HEAD_DIMS = (64, 128)
 #: GQA groups (query heads per kv head) the kernel is checked at: the
-#: powers of two and deepseek-coder-33b's 7.  G = 5 (hymba, llama4) waits
-#: for ROADMAP §2 K2, with head_dim 64 (K1)
-GROUPS = (1, 2, 4, 7, 8, 16)
+#: powers of two, hymba-1.5b's 5 and deepseek-coder-33b's 7
+GROUPS = (1, 2, 4, 5, 7, 8, 16)
 #: K/V stages of the TMA ring in shared memory
 STAGES = 2
 
@@ -59,13 +62,13 @@ launches = 0
 tail_launches = 0
 
 
-def smem_bytes(rows: int, block_kv: int) -> int:
+def smem_bytes(rows: int, block_kv: int, head_dim: int = 128) -> int:
     """Dynamic shared memory one CTA asks for (``csrc`` ``Smem::kBytes``):
     the Q tile, :data:`STAGES` K and V tiles, the ring's mbarriers and
     1 KB to align the tiles to the 128-byte swizzle's 1024-byte atom.
     S, P and the O accumulator live in registers."""
     bars = (1 + 3 * STAGES) * 8
-    return (rows * HEAD_DIM * 2 + STAGES * 2 * block_kv * HEAD_DIM * 2
+    return (rows * head_dim * 2 + STAGES * 2 * block_kv * head_dim * 2
             + bars + 1024)
 
 
@@ -78,8 +81,7 @@ def kernel_tiles(G: int, block_q: Optional[int] = None,
     if G not in GROUPS:
         raise ValueError(
             f"flash_attention: GQA group G = {G} is not one the kernel is "
-            f"checked at {GROUPS} (G = 5, hymba's and llama4's, waits for "
-            "ROADMAP §2 K2)")
+            f"checked at {GROUPS}")
     if block_q is None and block_kv is None:
         return DEFAULT_ROWS, DEFAULT_BLOCK_KV
     if block_q is None or block_kv is None:
@@ -138,9 +140,9 @@ def _check(q, k, v) -> None:
     if k.shape[0] != B or k.shape[1] < Sq or k.shape[3] != D:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
                          f"match q {tuple(q.shape)} (Sq <= Skv)")
-    if D != HEAD_DIM or H % k.shape[2]:
-        raise ValueError(f"flash_attention: kernel takes head_dim "
-                         f"{HEAD_DIM} and H % K == 0, got D={D} H={H} "
+    if D not in HEAD_DIMS or H % k.shape[2]:
+        raise ValueError(f"flash_attention: kernel takes head_dim in "
+                         f"{HEAD_DIMS} and H % K == 0, got D={D} H={H} "
                          f"K={k.shape[2]}")
 
 
@@ -148,11 +150,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     block_q: Optional[int] = None,
                     block_kv: Optional[int] = None,
-                    ignore_offset: bool = False) -> torch.Tensor:
+                    ignore_offset: bool = False,
+                    pad_fault: bool = False) -> torch.Tensor:
     """Launch the GQA flash kernel on CUDA tensors (raises on any other
     device or on inputs the kernel does not take).  ``ignore_offset``
-    plants a fault for the checks (tests and ``chip_smoke.py`` only): a
-    tail's queries are taken as positions ``0..Sq-1``."""
+    and ``pad_fault`` plant faults for the checks (tests and
+    ``chip_smoke.py`` only): a tail's queries taken as positions
+    ``0..Sq-1``; a tile's pad rows written over the next CTA's first
+    position, in place of that CTA's own rows there (so the fault shows
+    whichever CTA writes last)."""
     global launches, tail_launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: the kernel runs on CUDA tensors, "
@@ -166,7 +172,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = build.library("flash_attention").flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Skv, 0 if ignore_offset else Skv - Sq, H, K, D, int(causal),
-        int(window), rows, bkv, float(D ** -0.5),
+        int(window), rows, bkv, float(D ** -0.5), int(pad_fault),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd: launch failed with "

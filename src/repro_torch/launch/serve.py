@@ -14,13 +14,16 @@ Two modes, as in the JAX package's launcher, on one card:
   grant admission over an 8-block pool (its 66.7 GB of bf16 weights
   leave room for one 2048-token sequence), so its run walks the grant →
   migrate → preempt ladder, parking victims with their KV in the 64
-  host blocks.
+  host blocks.  Full-width hymba-1.5b's plan is paged too: its flash and
+  decode kernels run at head_dim 64 and a GQA group of 5, its SSD scan in
+  every layer, and each slot's SSM state rides beside its blocks.
 
-The model is the arch's reduced config, with its published head_dim
-(the attention kernels are built for 128), unless ``--full`` asks for
-its published widths and depth; weights are random, from ``--seed``.
-``--arch`` takes the dense decoders (qwen3-8b, deepseek-7b,
-deepseek-coder-33b) and ``mamba2-2.7b``.
+The model is the arch's reduced config, with its published head_dim and
+GQA group (the attention kernels are instantiated for those), unless
+``--full`` asks for its published widths and depth; weights are random,
+from ``--seed``.  ``--arch`` takes the dense decoders (qwen3-8b,
+deepseek-7b, deepseek-coder-33b, minitron-8b with its squared-ReLU FFN),
+``mamba2-2.7b`` and the hybrid ``hymba-1.5b``.
 Entry points run on ``cuda``; ``--device cpu`` runs the kernels' plain
 versions.  ``--profile`` traces the run with ``torch.profiler`` and
 prints the device time by kernel and by group.
@@ -31,6 +34,10 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve --from-plan
       PYTHONPATH=src python -m repro_torch.launch.serve \
           --arch deepseek-coder-33b --from-plan --full --max-len 2048 \
           --max-batch 8
+      PYTHONPATH=src python -m repro_torch.launch.serve \
+          --arch hymba-1.5b --from-plan --full --max-len 2048 --max-batch 8
+      PYTHONPATH=src python -m repro_torch.launch.serve \
+          --arch minitron-8b --from-plan --full --max-len 2048 --max-batch 8
 """
 
 from __future__ import annotations
@@ -71,7 +78,10 @@ def main(argv=None) -> None:
 
     arch = get_arch(args.arch)
     if not args.full:
-        arch = dataclasses.replace(arch.reduced(), head_dim=arch.head_dim)
+        small = arch.reduced()
+        group = arch.n_heads // arch.n_kv_heads if arch.n_kv_heads else 1
+        arch = dataclasses.replace(small, head_dim=arch.head_dim,
+                                   n_heads=small.n_kv_heads * group)
     if args.from_plan:
         shape = ShapeConfig("serve", "decode", args.max_len, args.max_batch)
         plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm")

@@ -2,13 +2,15 @@
 
 The port of ``repro/models/lm.py``'s serving path for dense GQA
 decoders with a SiLU-gated FFN (qwen3-8b, deepseek-7b,
-deepseek-coder-33b) and attention-free mamba2 SSM decoders
-(mamba2-2.7b).  Parameters are the JAX package's nested dicts, stacked
-over layers (``params["blocks"]["attn"]["wq"]`` is ``(L, d, H*hd)``), so
-:mod:`repro_torch.models.convert` carries a reference parameter tree
-across unchanged; layers run as a Python loop over that stack.  Hybrid,
-MoE, M-RoPE and audio architectures raise :class:`NotImplementedError`
-naming the arch.
+deepseek-coder-33b) or a squared-ReLU FFN (minitron-8b), attention-free
+mamba2 SSM decoders (mamba2-2.7b) and the hybrid hymba-1.5b, whose
+layers run attention (global or a sliding window, per layer) and a
+mamba2 mixer in parallel.  Parameters are the JAX package's nested
+dicts, stacked over layers (``params["blocks"]["attn"]["wq"]`` is ``(L,
+d, H*hd)``), so :mod:`repro_torch.models.convert` carries a reference
+parameter tree across unchanged; layers run as a Python loop over that
+stack.  MoE, M-RoPE and audio architectures raise
+:class:`NotImplementedError` naming the arch.
 
 Attention and the SSD scan run through :mod:`repro_torch.kernels.ops`:
 the port's hand-written kernels on the card, their plain versions on
@@ -68,26 +70,17 @@ class RunCfg:
 def check_supported(arch: ArchConfig) -> None:
     """Raise for an architecture the port cannot run yet."""
     why = None
-    ssm = arch.family == "ssm"
-    if arch.has_ssm and not ssm:
-        why = ("hybrid attention + SSM mixers (attention kernels at "
-               "head_dim 64 with a GQA group of 5, ROADMAP §2 K1 and K2; "
-               "sliding windows)")
-    elif arch.is_moe:
+    if arch.is_moe:
         why = "MoE FFNs"
     elif arch.mrope_sections is not None:
         why = "M-RoPE"
     elif arch.modality != "text" or arch.is_encoder:
         why = f"{arch.modality} {arch.family} models"
-    elif not arch.has_attention and not ssm:
-        why = "attention-free models other than mamba2"
-    elif not arch.gated_mlp:
-        why = "non-gated FFNs"
     if why is not None:
         raise NotImplementedError(
-            f"{arch.name}: the port serves dense GQA decoders with a "
-            f"SiLU-gated FFN and mamba2 SSM decoders; {why} are not "
-            "ported yet")
+            f"{arch.name}: the port serves dense GQA decoders (SiLU-gated "
+            "or squared-ReLU FFN), mamba2 SSM decoders and hybrid "
+            f"attention + SSM decoders; {why} are not ported yet")
 
 
 def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
@@ -96,11 +89,12 @@ def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
     """Raise, before any weights are built, for an architecture whose
     attention the port's CUDA kernels do not take on ``device``: the
     rules are the kernels' own (:func:`repro_torch.kernels
-    .flash_attention.kernel_tiles` at the plan's flash tiles, and
-    :func:`repro_torch.kernels.decode_attention.takes_group`).  On the
-    CPU every arch :func:`check_supported` admits runs (the plain
-    versions take any GQA group).  ``heads``/``kv_heads`` are the
-    layout pass's padded counts (0: the arch's own)."""
+    .flash_attention.kernel_tiles` at the plan's flash tiles and its
+    ``HEAD_DIMS``, and :func:`repro_torch.kernels.decode_attention
+    .takes_group`).  On the CPU every arch :func:`check_supported`
+    admits runs (the plain versions take any GQA group and head_dim).
+    ``heads``/``kv_heads`` are the layout pass's padded counts (0: the
+    arch's own)."""
     check_supported(arch)
     if torch.device(device).type != "cuda" or not arch.has_attention:
         return
@@ -109,23 +103,22 @@ def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
     H, K = heads or arch.n_heads, kv_heads or arch.n_kv_heads
     G = H // K
     refused = []
-    if arch.hd != fa.HEAD_DIM:
-        refused.append(f"flash_attention (built for head_dim "
-                       f"{fa.HEAD_DIM}, got {arch.hd})")
+    if arch.hd not in fa.HEAD_DIMS:
+        refused.append(f"flash_attention (built for head_dim in "
+                       f"{fa.HEAD_DIMS}, got {arch.hd})")
     try:
         fa.kernel_tiles(G, *(flash_tiles or (None, None)))
     except ValueError as e:
         refused.append(f"flash_attention ({e})")
     if not dec.takes_group(G, arch.hd):
-        refused.append(f"decode_attention (head_dim {dec.HEAD_DIM} and a "
-                       f"GQA group in {dec.GROUPS})")
+        refused.append(f"decode_attention (built for (GQA group, head_dim) "
+                       f"in {dec.INSTANCES})")
     if refused:
         raise NotImplementedError(
             f"{arch.name}: GQA group G = {G} ({H} query heads over {K} kv "
-            f"heads, head_dim {arch.hd}) is refused on CUDA by "
-            + "; ".join(refused) + ". Other groups (G = 5) wait for "
-            "ROADMAP §2 K2, head_dim 64 for K1; the plain versions serve "
-            "them on the CPU")
+            f"heads) at head_dim {arch.hd} is refused on CUDA by "
+            + "; ".join(refused) + "; the plain versions serve it on the "
+            "CPU")
 
 
 # =====================================================================
@@ -185,8 +178,11 @@ def leaf_specs(arch: ArchConfig, vocab_padded: int = 0,
     if arch.has_ssm:
         blocks["ssm"] = _ssm_specs(arch, L, d, ssm_heads_padded)
     if arch.family != "ssm":
+        # SwiGLU fuses gate and up into one (d, 2 ff) matrix; the
+        # squared-ReLU FFN has one (d, ff) (``_mlp_specs``)
+        n_in = 2 if arch.gated_mlp else 1
         blocks["mlp_norm"] = LeafSpec((L, d), f32, 0.0)
-        blocks["mlp"] = {"wi": LeafSpec((L, d, 2 * ff), bf),
+        blocks["mlp"] = {"wi": LeafSpec((L, d, n_in * ff), bf),
                          "wo": LeafSpec((L, ff, d), bf, out_scale)}
     specs: Dict[str, Any] = {
         "embed": LeafSpec((V, d), bf),
@@ -308,10 +304,15 @@ def _residual(x: torch.Tensor, outs: List[torch.Tensor]) -> torch.Tensor:
 
 
 def _ffn_fwd(arch: ArchConfig, grp, x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm SiLU-gated FFN."""
+    """Pre-norm FFN: SiLU-gated, or a squared ReLU of one matrix
+    (minitron-8b; ``src/repro/models/lm.py:382-400``)."""
     h = rms_norm(x, grp["mlp_norm"], arch.norm_eps)
-    g, u = (h @ grp["mlp"]["wi"]).chunk(2, dim=-1)
-    z = F.silu(g.float()).to(x.dtype) * u
+    z = h @ grp["mlp"]["wi"]
+    if arch.gated_mlp:
+        g, u = z.chunk(2, dim=-1)
+        z = F.silu(g.float()).to(x.dtype) * u
+    else:
+        z = torch.square(F.relu(z.float())).to(x.dtype)
     return x + z @ grp["mlp"]["wo"]
 
 
@@ -338,34 +339,47 @@ def init_cache(arch: ArchConfig, batch_size: int, max_len: int,
         shape = (L, batch_size, max_len, K, hd)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
-    if arch.has_ssm:
-        H, P = ssm_heads or arch.ssm_heads, arch.ssm_head_dim
-        G, N = arch.ssm_n_groups, arch.ssm_state
-        cache["ssm"] = torch.zeros((L, batch_size, H, P, N),
-                                   dtype=torch.float32, device=device)
-        cache["conv"] = torch.zeros(
-            (L, batch_size, arch.ssm_conv, H * P + 2 * G * N),
-            dtype=torch.bfloat16, device=device)
+    cache.update(_ssm_cache(arch, batch_size, ssm_heads, device))
     return cache
+
+
+def _ssm_cache(arch: ArchConfig, batch_size: int, ssm_heads: int,
+               device) -> Dict[str, torch.Tensor]:
+    """The per-slot SSM state and conv window (none without an SSM)."""
+    if not arch.has_ssm:
+        return {}
+    L = arch.n_layers
+    H, P = ssm_heads or arch.ssm_heads, arch.ssm_head_dim
+    G, N = arch.ssm_n_groups, arch.ssm_state
+    return {"ssm": torch.zeros((L, batch_size, H, P, N),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros(
+                (L, batch_size, arch.ssm_conv, H * P + 2 * G * N),
+                dtype=torch.bfloat16, device=device)}
 
 
 def init_paged_cache(arch: ArchConfig, batch_size: int, max_len: int,
                      block_len: int, n_blocks: int, dtype=torch.bfloat16,
-                     kv_heads: int = 0, device="cuda"
+                     kv_heads: int = 0, ssm_heads: int = 0, device="cuda"
                      ) -> Dict[str, torch.Tensor]:
     """Paged session state: ``k``/``v`` block pools ``(L, n_blocks,
     block_len, K, hd)`` shared by all slots (one block id addresses the
     same block in every layer), ``block_tbl`` ``(B, ceil(max_len /
-    block_len))`` int32 with -1 = unassigned, and ``pos`` ``(B,)``."""
+    block_len))`` int32 with -1 = unassigned, and ``pos`` ``(B,)``.  A
+    hybrid's SSM state and conv window stay dense per slot beside the
+    pools (O(1) in the sequence), as :func:`init_cache` lays them out
+    (``src/repro/models/lm.py:528-565``)."""
     L, K, hd = _kv_geometry(arch, kv_heads)
     nb = -(-max_len // block_len)
     shape = (L, n_blocks, block_len, K, hd)
-    return {"pos": torch.zeros((batch_size,), dtype=torch.int32,
-                               device=device),
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "block_tbl": torch.full((batch_size, nb), -1, dtype=torch.int32,
-                                    device=device)}
+    cache = {"pos": torch.zeros((batch_size,), dtype=torch.int32,
+                                device=device),
+             "k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device),
+             "block_tbl": torch.full((batch_size, nb), -1,
+                                     dtype=torch.int32, device=device)}
+    cache.update(_ssm_cache(arch, batch_size, ssm_heads, device))
+    return cache
 
 
 def init_host_pool(arch: ArchConfig, n_host_blocks: int, block_len: int,

@@ -17,7 +17,10 @@ data-organization pass chose.  On the card, prefill runs the port's
 flash-attention kernel and every decode tick its paged (or dense) decode
 kernel.  An attention-free (mamba2) model has no KV to page: it is dense
 whatever is asked, each slot holding its SSM state and conv window; its
-prefill runs the SSD-scan kernel and its decode ticks the recurrence.
+prefill runs the SSD-scan kernel and its decode ticks the recurrence.  A
+hybrid (hymba-1.5b) pages its KV and keeps each slot's SSM state and conv
+window dense beside the pool: its rows move with the slot through
+prefill, migration, park and resume.
 
 Admission is the plan's ``kv_admission``.  Under ``reserve`` every
 admitted request holds its worst-case block budget until it finishes.
@@ -52,9 +55,11 @@ bump instead of re-prefilled: only the tail runs, through
 :func:`repro_torch.models.lm.prefill_tail` (the flash kernel at a query
 offset on the card), and a request whose whole prompt but its last
 token is resident skips prefill entirely (a "ride": its first decode
-tick feeds that token).  A copy-on-write barrier before each decode tick
-copies any shared append block into a fresh one (preempting a victim
-when the pool has none).  With a host tier, blocks a finished request
+tick feeds that token).  A hybrid's SSM state at the split point
+depends on every earlier token, so there matched blocks are aliased but
+the whole feed is prefilled and nothing rides.  A copy-on-write barrier
+before each decode tick copies any shared append block into a fresh one
+(preempting a victim when the pool has none).  With a host tier, blocks a finished request
 would free but the trie still indexes stay engine-cached; under pool
 pressure the spill scheduler moves the oldest to a host-DRAM pool
 (:func:`repro_torch.models.lm.init_host_pool`), and a later prefix hit
@@ -248,7 +253,9 @@ class ServeEngine:
                 self.pool_groups = kv_pool_groups
             self.cache = lm.init_paged_cache(
                 arch, max_batch, max_len, self.block_len, self.n_blocks,
-                kv_heads=kv_heads, device=self.device)
+                kv_heads=kv_heads, ssm_heads=lm.cache_heads(
+                    arch, params["blocks"]).get("ssm_heads", 0),
+                device=self.device)
             # the host spill tier, clamped like the pool (to a park depth
             # of 8 full worst-case batches, as in the JAX engine)
             self.host_blocks = (min(kv_host_blocks, 8 * cap)

@@ -285,6 +285,113 @@ def test_decode_kernels_group_7_match_plain(dev, tile, window):
         assert _rel_err(bad, want) > 5 * DECODE_TOL
 
 
+# ---------------------------------------------------------------------
+# hymba-1.5b: GQA groups of 5 at head_dim 64 (25 query heads over 5)
+# ---------------------------------------------------------------------
+
+H5, K5, D64 = 25, 5, 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 25, 26, 300, 2048])
+@pytest.mark.parametrize("tiles", [None, (12, 64), (12, 128), (25, 64)])
+@pytest.mark.parametrize("window", [0, 1024])
+def test_flash_kernel_group_5_head_dim_64_matches_plain(dev, S, tiles,
+                                                        window):
+    """``flash_fwd_kernel<64, *, *>`` at G = 5: 25 positions in a 128-row
+    tile (12 in 64), three or four rows of pad, causal, whole and with
+    hymba's 1024 window: every row against the plain version, the rows
+    of each CTA's first position on their own, and the planted faults
+    (pad rows written over those positions; the window ignored) failing
+    the same check."""
+    g = torch.Generator(dev).manual_seed(S + window)
+    q = _rnd(g, 2, S, H5, D64)
+    k, v = _rnd(g, 2, S, K5, D64), _rnd(g, 2, S, K5, D64)
+    bq, bkv = tiles or (None, None)
+    rows, _ = tfa.kernel_tiles(5, bq, bkv)
+    kw = dict(causal=True, block_q=bq, block_kv=bkv)
+    got = tfa.flash_attention(q, k, v, window=window, **kw)
+    pad = tfa.flash_attention(q, k, v, window=window, pad_fault=True, **kw)
+    want = tfa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) < FLASH_TOL
+    edge = _boundary_rows(S, rows, 5).to(dev)
+    if edge.numel():
+        assert _rel_err(got[:, edge], want[:, edge]) < FLASH_TOL
+    if edge.numel():
+        # the fault's pad rows alone write their heads of each boundary
+        # position, so every boundary shows it, whichever CTA runs last
+        assert _rel_err(pad[:, edge], want[:, edge]) > 5 * FLASH_TOL
+        rest = torch.ones(S, dtype=torch.bool, device=dev)
+        rest[edge] = False
+        assert _rel_err(pad[:, rest], want[:, rest]) < FLASH_TOL
+    if S >= 300 and not window:      # the longest rows' first tile dropped
+        dropped = tfa.flash_attention(q, k, v, window=S - 64, **kw)
+        assert _rel_err(dropped, want) > 5 * FLASH_TOL
+    if window and S > window + rows:
+        ignored = tfa.flash_attention(q, k, v, window=0, **kw)
+        assert _rel_err(ignored, want) > 5 * FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T", [(1024, 256), (64, 1), (100, 37),
+                                 (1500, 600)])
+@pytest.mark.parametrize("window", [0, 1024])
+def test_flash_kernel_group_5_at_an_offset(dev, M, T, window):
+    """A hymba tail over a resident prefix at G = 5, head_dim 64, whole
+    and windowed: against the plain version and the full launch's tail
+    rows, with the offset ignored failing the same check."""
+    g = torch.Generator(dev).manual_seed(M + T + window)
+    q = _rnd(g, 2, M + T, H5, D64)
+    k, v = _rnd(g, 2, M + T, K5, D64), _rnd(g, 2, M + T, K5, D64)
+    tail = q[:, M:].contiguous()
+    got = tfa.flash_attention(tail, k, v, window=window)
+    full = tfa.flash_attention(q, k, v, window=window)
+    want = tfa.flash_attention_plain(tail, k, v, window=window)
+    bad = tfa.flash_attention(tail, k, v, window=window, ignore_offset=True)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) < FLASH_TOL
+    assert _rel_err(got, full[:, M:]) < FLASH_TOL
+    assert _rel_err(bad, want) > 5 * FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [64, 256])
+@pytest.mark.parametrize("window", [0, 1024])
+def test_decode_kernels_group_5_head_dim_64_match_plain(dev, tile, window):
+    """Paged and dense decode at (G = 5, D = 64), the
+    ``decode_kernel<5, 64, *>`` instances, over lengths on both sides of
+    hymba's 1024 window, against their plain versions, beside a split
+    dropped from the merge and the window ignored, which must fail the
+    same check."""
+    g = torch.Generator(dev).manual_seed(tile + window + 5)
+    bl, B, max_len = 256, 8, 2048
+    lens = torch.tensor([1, 64, 300, 1023, 1024, 1025, 1999, 2048],
+                        dtype=torch.int32, device=dev)
+    nb = max_len // bl
+    perm = torch.randperm(B * nb, generator=g, device=dev).int()
+    tbl = perm.reshape(B, nb).contiguous()
+    q = _rnd(g, B, H5, D64)
+    kp, vp = _rnd(g, B * nb, bl, K5, D64), _rnd(g, B * nb, bl, K5, D64)
+    kd, vd = tref.paged_gather_ref(kp, tbl), tref.paged_gather_ref(vp, tbl)
+    kw = dict(cache_len=lens, window=window)
+    paged = tdec.paged_decode_attention(q, kp, vp, tbl, block_kv=tile, **kw)
+    dense = tdec.decode_attention(q, kd.contiguous(), vd.contiguous(),
+                                  block_kv=tile, **kw)
+    want = tdec.decode_attention_plain(q, kd, vd, **kw)
+    bad = tdec.paged_decode_attention(q, kp, vp, tbl, block_kv=tile,
+                                      drop_split=0, **kw)
+    torch.cuda.synchronize()
+    assert _rel_err(paged, want) < DECODE_TOL
+    assert _rel_err(dense, want) < DECODE_TOL
+    if window == 0:                    # split 0 holds live rows of every slot
+        assert _rel_err(bad, want) > 5 * DECODE_TOL
+    else:
+        ignored = tdec.paged_decode_attention(q, kp, vp, tbl, block_kv=tile,
+                                              cache_len=lens)
+        assert _rel_err(ignored, want) > 5 * DECODE_TOL
+
+
 def _misaligned(t: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``t`` whose data starts 2 bytes past a
     16-byte boundary."""
@@ -514,19 +621,27 @@ def test_row_check_rejects_planted_faults(where, fault):
     assert _rel_err(got, want) > 5 * FLASH_TOL
 
 
-def _card_arch():
+def _card_arch(name: str = "qwen3-8b"):
     """qwen3-8b reduced in depth and width, with its published head_dim
-    (the kernels are built for 128)."""
-    return dataclasses.replace(get_arch("qwen3-8b").reduced(), head_dim=128)
+    (the kernels are built for 128); or hymba-1.5b at 3 layers (global,
+    windowed, global), 5 / 1 heads of 64 and a 16-token window."""
+    if name == "hymba-1.5b":
+        return dataclasses.replace(
+            get_arch(name), n_layers=3, d_model=128, n_heads=5,
+            n_kv_heads=1, head_dim=64, d_ff=256, vocab_size=512, window=16,
+            ssm_head_dim=32)
+    return dataclasses.replace(get_arch(name).reduced(), head_dim=128)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen3-8b", "hymba-1.5b"])
 @pytest.mark.parametrize("residency", ["paged", "dense"])
-def test_model_on_card_matches_cpu(dev, residency):
+def test_model_on_card_matches_cpu(dev, residency, name):
     """Prefill and four decode steps through the kernels on the card
     against the plain versions on the CPU, same weights: logits within
-    2e-2 of the CPU logits' scale."""
-    arch = _card_arch()
+    2e-2 of the CPU logits' scale (hymba: 100-token prompts past its
+    window, its SSM rows beside the paged cache)."""
+    arch = _card_arch(name)
     plan = specialize(arch, ShapeConfig("t", "decode", 512, 4),
                       mesh_shape=(1, 1), kv_residency=residency, cache=False)
     cfg = build_run_cfg(plan, arch)
@@ -545,15 +660,16 @@ def test_model_on_card_matches_cpu(dev, residency):
         cache = dense
         if residency == "paged":
             bl = int(plan.estimates["kv_block_len"])
-            cache = lm.init_paged_cache(arch, 4, 512, bl, 4 * (512 // bl),
-                                        kv_heads=cfg.kv_heads_padded,
-                                        device=d)
+            cache = lm.init_paged_cache(
+                arch, 4, 512, bl, 4 * (512 // bl), device=d,
+                **lm.cache_heads(arch, params["blocks"]))
             nb = 512 // bl
             cache["block_tbl"].copy_(torch.arange(4 * nb, device=d,
                                                   dtype=torch.int32
                                                   ).reshape(4, nb))
-            for key in ("k", "v"):
-                cache[key].copy_(dense[key].reshape(cache[key].shape))
+            for key in ("k", "v", "ssm", "conv"):
+                if key in dense:
+                    cache[key].copy_(dense[key].reshape(cache[key].shape))
             cache["pos"] = dense["pos"]
         for _ in range(4):
             nxt = steps[-1].float().argmax(-1).to(torch.int32)[:, None]
@@ -571,6 +687,7 @@ def test_model_on_card_matches_cpu(dev, residency):
             kernel = ("paged_decode_attention" if residency == "paged"
                       else "decode_attention")
             assert counts[kernel] == 4 * arch.n_layers
+            assert counts["ssd_scan"] == arch.n_layers * arch.has_ssm
     for c, gpu in zip(out["cpu"], out["gpu"]):
         assert float((gpu - c).abs().max() / c.abs().max()) < LOGIT_TOL
 
@@ -741,18 +858,23 @@ def test_grant_engine_on_card_matches_cpu(dev):
 
 
 def test_device_check_names_the_group_and_k2():
-    """deepseek-coder-33b (G = 7), qwen3-8b and mamba2 are admitted for a
-    CUDA device; a GQA group of 5 (hymba's, llama4's) or head_dim 64 is
-    refused before any weight is built, on any machine, naming K2 / K1."""
-    for name in ("deepseek-coder-33b", "qwen3-8b", "mamba2-2.7b"):
+    """deepseek-coder-33b (G = 7), qwen3-8b, mamba2, minitron-8b and
+    hymba-1.5b (G = 5 at head_dim 64) are admitted for a CUDA device; a
+    (group, head_dim) pair no kernel instance takes — G = 5 at head_dim
+    128 (llama4's), G = 4 at 64, head_dim 80 — is refused before any
+    weight is built, on any machine, naming the kernels."""
+    for name in ("deepseek-coder-33b", "qwen3-8b", "mamba2-2.7b",
+                 "minitron-8b", "hymba-1.5b"):
         lm.check_on_device(get_arch(name), "cuda")
-    with pytest.raises(NotImplementedError, match=r"K1 and K2"):
-        lm.check_on_device(get_arch("hymba-1.5b"), "cuda")
     qwen = get_arch("qwen3-8b")
-    with pytest.raises(NotImplementedError, match=r"G = 5.*K2"):
+    with pytest.raises(NotImplementedError, match=r"G = 5.*decode_attention"):
         lm.check_on_device(dataclasses.replace(qwen, n_heads=40), "cuda")
-    with pytest.raises(NotImplementedError, match=r"head_dim 64.*K1"):
+    with pytest.raises(NotImplementedError,
+                       match=r"head_dim 64.*decode_attention"):
         lm.check_on_device(dataclasses.replace(qwen, head_dim=64), "cuda")
+    with pytest.raises(NotImplementedError,
+                       match=r"head_dim 80.*flash_attention"):
+        lm.check_on_device(dataclasses.replace(qwen, head_dim=80), "cuda")
 
 
 # ---------------------------------------------------------------------

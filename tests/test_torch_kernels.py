@@ -113,15 +113,22 @@ def test_flash_kernel_tiles_raise_instead_of_substituting():
         tfa.kernel_tiles(4, 128, 128)         # 512 rows: the tpu-v5e tile
     with pytest.raises(ValueError, match="not one the kernel is built for"):
         tfa.kernel_tiles(4, 32, 256)
+    # G = 5 (hymba-1.5b): 25 positions in 128 rows, 12 in 64
+    assert tfa.kernel_tiles(5) == (128, 128)
+    assert tfa.kernel_tiles(5, 25, 128) == (128, 128)
+    assert tfa.kernel_tiles(5, 12, 64) == (64, 64)
+    with pytest.raises(ValueError, match="not one the kernel is built for"):
+        tfa.kernel_tiles(5, 32, 128)
     with pytest.raises(ValueError, match="GQA group G = 3"):
         tfa.kernel_tiles(3)
-    with pytest.raises(ValueError, match="hymba"):
-        tfa.kernel_tiles(5)
     for rows, bkv in tfa.KERNEL_TILES:
-        assert tfa.smem_bytes(rows, bkv) <= 232_448
+        for d in tfa.HEAD_DIMS:
+            assert tfa.smem_bytes(rows, bkv, d) <= 232_448
     # Q plus two stages of K and V, their mbarriers, 1 KB of alignment
     assert tfa.smem_bytes(128, 128) == 128 * 256 + 2 * 2 * 128 * 256 + 7 * 8 \
         + 1024
+    assert tfa.smem_bytes(128, 128, 64) == 128 * 128 + 2 * 2 * 128 * 128 \
+        + 7 * 8 + 1024
 
 
 # ---------------------------------------------------------------------
@@ -205,8 +212,10 @@ def test_decode_tile_contract():
     for t in (16, 96, 512):
         with pytest.raises(ValueError, match="not one of the kernel's tiles"):
             tdec.kernel_tile("x", t)
-    for g in (1, 2, 4, 8):
-        assert tdec.smem_bytes(g, max(tdec.KERNEL_TILES)) <= 232_448
+    for g, d in tdec.INSTANCES:
+        assert tdec.smem_bytes(g, max(tdec.KERNEL_TILES), d) <= 232_448
+    assert tdec.takes_group(5, 64) and not tdec.takes_group(5, 128)
+    assert tdec.takes_group(4, 128) and not tdec.takes_group(4, 64)
 
 
 @pytest.mark.parametrize("B,K,capacity", [(8, 8, 2048), (1, 8, 2048),

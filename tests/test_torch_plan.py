@@ -125,16 +125,16 @@ def test_h100_flash_tile_is_a_kernel_tile_that_fits(arch, shape):
     if bp is None:
         if logged:
             assert [d for d, _ in logged] == ["no kernel tile"]
-            assert a.hd != tfa.HEAD_DIM or G not in tfa.GROUPS
+            assert a.hd not in tfa.HEAD_DIMS or G not in tfa.GROUPS
         return
     bq, bkv = bp.blocks["block_q"], bp.blocks["block_kv"]
     rows, _ = tfa.kernel_tiles(G, bq, bkv)
     assert bq == rows // G and bq * G > rows - G
-    assert bp.blocks["head_dim"] == a.hd == tfa.HEAD_DIM
+    assert bp.blocks["head_dim"] == a.hd and a.hd in tfa.HEAD_DIMS
     assert bp.n_buffers == tfa.STAGES
     budget = 0.75 * SMEM_PER_BLOCK
     assert rows * a.hd * 2 + bp.n_buffers * 2 * bkv * a.hd * 2 <= budget
-    assert bp.vmem_bytes == tfa.smem_bytes(rows, bkv) <= budget
+    assert bp.vmem_bytes == tfa.smem_bytes(rows, bkv, a.hd) <= budget
     assert "TMA ring" in bp.grid_note
     assert "accumulator in registers" in bp.grid_note
     assert [d for d, _ in logged] == [f"block_q={bq} block_kv={bkv}"]
@@ -165,7 +165,8 @@ def test_h100_decode_tile_is_a_split_kv_kernel_tile(arch, shape):
     tile = bp.blocks["block_kv"]
     assert tdec.kernel_tile("x", tile) == tile
     assert bp.n_buffers == tdec.STAGES
-    assert bp.vmem_bytes == tdec.smem_bytes(G, tile) <= 0.75 * SMEM_PER_BLOCK
+    assert bp.vmem_bytes == tdec.smem_bytes(G, tile, a.hd) \
+        <= 0.75 * SMEM_PER_BLOCK
     sc = tcfg.SHAPES[shape]
     B, cap = sc.global_batch, sc.seq_len
     ctas = {t: B * K * tdec.decode_split(B, K, cap, t)[0]
@@ -229,3 +230,71 @@ def test_tpu_v5e_plans_a_one_sequence_grant_pool_for_full_qwen3():
                             mesh_shape=(1, 1), target="tpu-v5e")
     assert plan.estimates["kv_admission"] == "grant"
     assert plan.estimates["kv_n_blocks"] == 8
+
+
+def _h100(name, kind):
+    return tcore.specialize(tcfg.get_arch(name),
+                            tcfg.ShapeConfig("s", kind, 2048, 8),
+                            mesh_shape=(1, 1), target="h100-sxm", cache=False)
+
+
+def test_h100_plans_record_hymba_tiles_at_group_5_head_dim_64():
+    """hymba-1.5b on ``h100-sxm`` (25 / 5 heads of 64, kept unpadded on
+    one card): the decode plan records the split-KV decode tile at
+    head_dim 64 beside its SSD chunk, the prefill plan the flash tile of
+    25 positions (125 of 128 rows), both tiles the kernels take, with
+    their shared memory at head_dim 64; the decode plan is paged with
+    reserve admission, 64 blocks of 256 rows, 512 host blocks and prefix
+    reuse on."""
+    arch = tcfg.get_arch("hymba-1.5b")
+    dplan = _h100("hymba-1.5b", "decode")
+    est = dplan.estimates
+    assert est["heads_padded"] == 25 and est["kv_heads_padded"] == 5
+    assert (est["kv_residency"], est["kv_admission"], est["kv_n_blocks"],
+            est["kv_block_len"], est["kv_host_blocks"],
+            est["kv_prefix_reuse"]) == ("paged", "reserve", 64, 256, 512,
+                                        "on")
+    dec = dplan.partitions["decode_attention"]
+    assert dict(dec.blocks) == {"block_kv": 256, "head_dim": 64}
+    assert dec.vmem_bytes == tdec.smem_bytes(5, 256, 64)
+    assert tdec.takes_group(5, arch.hd)
+    assert dict(dplan.partitions["ssd_scan"].blocks) == {
+        "chunk": 256, "heads_block": 1, "head_dim": 64, "state": 16}
+    pplan = _h100("hymba-1.5b", "prefill")
+    fl = pplan.partitions["flash_attention"]
+    assert dict(fl.blocks) == {"block_q": 25, "block_kv": 128,
+                               "head_dim": 64}
+    assert fl.vmem_bytes == tfa.smem_bytes(128, 128, 64)
+    assert tfa.kernel_tiles(5, 25, 128) == (128, 128)
+    assert "128 query rows hold 25 positions x G=5" in fl.grid_note
+
+
+# the parent's H100 plans of the archs served before hymba: content hash
+# prefixes, which the head_dim 64 / G = 5 branches leave as they were
+H100_HASHES = {
+    ("qwen3-8b", "decode"): "2ca1ad027c737728",
+    ("qwen3-8b", "prefill"): "231de874015dc3de",
+    ("mamba2-2.7b", "decode"): "47f25c4ac4e84938",
+    ("mamba2-2.7b", "prefill"): "cdc59b59788748a6",
+    ("deepseek-coder-33b", "decode"): "155dc37ab09a0ed3",
+    ("deepseek-coder-33b", "prefill"): "579a03790b8693f3",
+    ("minitron-8b", "decode"): "51584680a69d1a5a",
+    ("minitron-8b", "prefill"): "473a3a54330bece0",
+}
+
+
+@pytest.mark.parametrize("name,kind", sorted(H100_HASHES))
+def test_h100_plans_of_the_other_archs_are_unchanged(name, kind):
+    assert _h100(name, kind).content_hash()[:16] == H100_HASHES[name, kind]
+
+
+def test_h100_minitron_plans_record_the_g4_tiles():
+    """minitron-8b takes every kernel as built (32 / 8 heads of 128):
+    decode tile 256, flash 32 positions x 128 kv rows."""
+    dplan = _h100("minitron-8b", "decode")
+    assert dict(dplan.partitions["decode_attention"].blocks) == {
+        "block_kv": 256, "head_dim": 128}
+    assert dplan.estimates["kv_residency"] == "paged"
+    fl = _h100("minitron-8b", "prefill").partitions["flash_attention"]
+    assert dict(fl.blocks) == {"block_q": 32, "block_kv": 128,
+                               "head_dim": 128}

@@ -5,8 +5,9 @@ Each scenario of ``tests/test_preemption.py`` (and the tiered park of
 ``tests/test_serve_mixed.py``) runs on both engines in one process, on
 the same prompts and the reference's own parameters
 (``repro_torch.models.convert``), for reduced qwen3-8b, reduced
-mamba2-2.7b and a reduced deepseek-coder-33b at 14 query heads over 2 kv
-heads (its GQA group of 7).  The port runs its kernels' plain versions
+mamba2-2.7b, reduced hymba-1.5b (the reference's hybrid cell: paged KV
+with dense SSM/conv rows per slot) and a reduced deepseek-coder-33b at
+14 query heads over 2 kv heads (its GQA group of 7).  The port runs its kernels' plain versions
 (CPU tensors).
 
 Tolerances: greedy tokens must be identical wherever the reference's
@@ -59,7 +60,7 @@ from repro_torch.serve.engine import ServeEngine as TServeEngine
 MARGIN_TOL = 2e-2
 RCFG = RRunCfg(block_q=16, ssd_chunk=16)
 TCFG = TRunCfg()
-ARCHS = ["qwen3-8b", "mamba2-2.7b", "coder-g7"]
+ARCHS = ["qwen3-8b", "mamba2-2.7b", "hymba-1.5b", "coder-g7"]
 ATTN = ["qwen3-8b", "coder-g7"]
 LADDER = ("preemptions", "migrations", "grant_denials", "shed", "parked",
           "spills", "promotes", "prefix_hits", "prefix_rides", "cow_copies",
@@ -256,6 +257,8 @@ def test_preempted_request_state_is_host_side():
 
 @pytest.mark.parametrize("name,residency", [("qwen3-8b", "paged"),
                                             ("coder-g7", "paged"),
+                                            ("hymba-1.5b", "paged"),
+                                            ("hymba-1.5b", "dense"),
                                             ("qwen3-8b", "dense"),
                                             ("mamba2-2.7b", "dense")])
 def test_tiered_park_resumes_without_reprefill(name, residency):
@@ -263,7 +266,8 @@ def test_tiered_park_resumes_without_reprefill(name, residency):
     blocks spill to the host pool; dense: its stripe and SSM/conv rows
     are copied to the host) and resumes with no prefill call: tokens
     exactly the port's own unparked run, counters and pools as the
-    reference's, no leak in either tier."""
+    reference's, no leak in either tier.  A hybrid parks both: its
+    blocks (or stripe) and its SSM/conv rows."""
     prompts = _prompts(_model(name)[0].vocab_size)
     kw = dict(kv_residency="paged", kv_block_len=8, kv_n_blocks=9,
               kv_admission="grant") if residency == "paged" else {}
@@ -284,6 +288,9 @@ def test_tiered_park_resumes_without_reprefill(name, residency):
                 eng.preempt(victim.rid)
                 (parked,) = eng.preempted
                 assert parked.parked_state is not None
+                if eng.arch.has_ssm:
+                    assert "ssm" in parked.parked_state
+                    assert "conv" in parked.parked_state
                 if eng.kv_residency == "paged":
                     assert parked.parked_state["kv_host"]
                     assert all(b >= eng.n_blocks

@@ -497,27 +497,33 @@ def test_serve_batch_flow_runs_the_plan_as_frozen(qwen):
 # ---------------------------------------------------------------------
 
 def test_device_check_refuses_group_7_on_cuda_before_any_weights():
-    """The F1 check, now that the kernels take G = 7: deepseek-coder-33b
-    is admitted on CUDA, and what the kernels still refuse — hymba-1.5b
-    (head_dim 64, G = 5) and a G = 5 group at head_dim 128 — is refused
-    before any weights load, naming K1 / K2, by the device check and by
-    the launcher (on a CPU-only torch a CUDA generator would raise
-    RuntimeError, not NotImplementedError)."""
+    """The F1 check, now that the kernels take G = 7 and hymba-1.5b's
+    (G = 5, head_dim 64): deepseek-coder-33b and hymba-1.5b are admitted
+    on CUDA, and what the kernels still refuse — G = 3, and G = 5 at
+    head_dim 128 (no decode instance) — is refused before any weights
+    load, naming the kernels, by the device check; the launcher refuses
+    an arch the port does not serve before any weights too (on a
+    CPU-only torch a CUDA generator would raise RuntimeError, not
+    NotImplementedError)."""
     coder = tget_arch("deepseek-coder-33b")
     assert coder.n_heads // coder.n_kv_heads == 7
     tlm.check_on_device(coder, "cuda")
     tlm.check_on_device(coder, torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match=r"K1 and K2"):
-        tlm.check_on_device(tget_arch("hymba-1.5b"), "cuda")
+    tlm.check_on_device(tget_arch("hymba-1.5b"), "cuda")
+    three = dataclasses.replace(coder, n_heads=24)
+    with pytest.raises(NotImplementedError,
+                       match=r"G = 3.*flash_attention.*decode_attention"):
+        tlm.check_on_device(three, "cuda")
     five = dataclasses.replace(coder, n_heads=40)
-    with pytest.raises(NotImplementedError, match=r"G = 5.*K2"):
+    with pytest.raises(NotImplementedError, match=r"G = 5.*decode_attention"):
         tlm.check_on_device(five, torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match=r"K1 and K2"):
-        tserve.main(["--arch", "hymba-1.5b", "--full", "--device", "cuda",
-                     "--from-plan"])
+    with pytest.raises(NotImplementedError, match=r"MoE"):
+        tserve.main(["--arch", "granite-moe-1b-a400m", "--full", "--device",
+                     "cuda", "--from-plan"])
 
 
-@pytest.mark.parametrize("name", ["qwen3-8b", "mamba2-2.7b"])
+@pytest.mark.parametrize("name", ["qwen3-8b", "mamba2-2.7b", "hymba-1.5b",
+                                  "minitron-8b"])
 def test_device_check_admits_what_the_kernels_take(name):
     tlm.check_on_device(tget_arch(name), "cuda")
     tlm.check_on_device(tget_arch(name), "cpu")
