@@ -7,8 +7,12 @@ full-width, full-depth qwen3-8b (paged-KV decode), mamba2-2.7b (SSD
 prefill, recurrent decode), deepseek-coder-33b (a GQA group of 7, grant
 admission and the preemption ladder), hymba-1.5b (attention at head_dim
 64 and a GQA group of 5, global and through a 1024-token window, beside
-an SSD mixer in every layer) and minitron-8b (a squared-ReLU FFN),
-random weights from a seed, and holds each of the paths' hand-written
+an SSD mixer in every layer), minitron-8b (a squared-ReLU FFN),
+granite-moe-1b-a400m (32 experts top-8 in every layer, both MoE paths,
+attention at head_dim 64 and a GQA group of 2) and llama4-maverick's
+[dense, MoE] super-block at full width (128 experts top-1 beside a
+shared expert, a GQA group of 5 at head_dim 128), random weights from a
+seed, and holds each of the paths' hand-written
 kernels against its plain PyTorch version on the card.
 
 Phases (any failure exits non-zero before the last line):
@@ -43,7 +47,10 @@ Phases (any failure exits non-zero before the last line):
    the next CTA's first position, the window or the offset ignored, a
    swapped table entry, a dropped split); the SSD scan again at hymba's
    50 heads of 64, state 16, and at both widths against an fp64 plain
-   version on ten draws;
+   version on ten draws; flash (whole and at an offset) and decode
+   (paged and dense) again at granite's 16 / 8 heads of 64 and llama4's
+   40 / 8 heads of 128, on a generator of their own, beside the same
+   planted faults (G = 2 fills its flash tile: no pad row to plant);
 3. qwen3-8b serve, paged: the plan as frozen (paged pool, prefix reuse,
    512 host blocks), 16 requests; both tiers whole after the engine's
    block cache is dropped;
@@ -80,7 +87,24 @@ Phases (any failure exits non-zero before the last line):
 11. minitron-8b (hymba's weights freed): the paged phase's 16 requests
    from ``from_plan(plan, params)``, then its full-depth consistency
    check;
-12. the plan-driven matmul path: the serve phases' ``h100-sxm`` plans
+12. granite-moe-1b-a400m (minitron's weights freed): the decode 2048 x 8
+   plan (``dense_einsum``) serves 16 requests (24 flash launches a
+   prefill call, 24 paged-decode launches a tick), 4 requests behind one
+   1,024-token prompt against reuse off, the full-depth consistency
+   check; the 1024 x 8 plan (``gshard_einsum``) on the same weights
+   serves 16 requests with each prefill call's routing drops printed
+   (counted here from ``moe.route``'s output), and a prefill batch is
+   held under ``gshard_einsum`` against ``dense_einsum`` on its rows
+   with no drop;
+13. llama4-maverick-400b-a17b cut to one super-block (the only cut,
+   37.4 GB of weights, granite's freed): its 2048 x 8 plan
+   (``gshard_einsum``, the shared expert) serves 8 requests (2 flash, 2
+   paged-decode launches a call / tick), drops printed, then the
+   consistency check;
+14. reduced granite (both paths) and reduced llama4 on the card against
+   the CPU: logits, and ``route`` re-run on the card on the CPU's inputs
+   with identical slots;
+15. the plan-driven matmul path: the serve phases' ``h100-sxm`` plans
    stored, reloaded by hash prefix and shown with the plan-store CLI
    (``launch.plan show --log``), then ``kernels.ops.matmul`` on each
    plan's tiles at five full-width GEMM shapes of the two models, each
@@ -88,7 +112,7 @@ Phases (any failure exits non-zero before the last line):
    and timed beside its bound, the plain version and ``torch.matmul``.
    No serving path launches this kernel: the models' projections stay
    ``torch.matmul``;
-13. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+16. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
 name and power limit.
@@ -135,6 +159,10 @@ H, K, D = 32, 8, 128        # qwen3-8b attention widths
 H7, K7 = 56, 8              # deepseek-coder-33b: a GQA group of 7
 H5, K5, D64 = 25, 5, 64     # hymba-1.5b: a GQA group of 5 at head_dim 64
 W5 = 1024                   # hymba-1.5b's sliding window
+# (query heads, kv heads, head_dim) of the MoE archs: granite-moe-1b-a400m
+# (G = 2 at 64) and llama4-maverick-400b-a17b (G = 5 at 128)
+MOE_PAIRS = {"granite": (16, 8, 64), "llama4": (40, 8, 128)}
+GRANITE, LLAMA4 = "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"
 SSD_H, SSD_P, SSD_N, SSD_G = 80, 64, 128, 1   # mamba2-2.7b SSD widths
 HSSD_H, HSSD_N = 50, 16     # hymba-1.5b SSD widths (P = 64, one group)
 SEED = 0
@@ -551,12 +579,23 @@ def kernel_phase(torch, dev):
         library_call="F.scaled_dot_product_attention(attn_mask, enable_gqa)")
     for name, r in g7_kernel_check(torch, F, fa, dec, rnd, dev, g).items():
         res[name]["g7"] = r
-    for name, r in g5_kernel_check(torch, F, fa, dec, rnd, dev, g).items():
+    for name, r in gqa_kernel_check(torch, F, fa, dec, rnd, dev, g).items():
         res[name]["g5"] = r
     res["ssd_scan"] = ssd_kernel_check(torch, dev, g)
     res["ssd_scan"]["hymba"] = ssd_kernel_check(
         torch, dev, g, H=HSSD_H, N=HSSD_N, name=" hymba")
     mm_worst = matmul_kernel_check(torch, dev, g)
+    # the MoE archs' pairs, on a generator of their own: the draws above
+    # stay as they were
+    gm = torch.Generator(dev).manual_seed(SEED + 19)
+
+    def rnd_moe(*shape):
+        return torch.randn(shape, generator=gm, device=dev).to(torch.bfloat16)
+
+    for key, (hq, kv, dh) in MOE_PAIRS.items():
+        for name, r in gqa_kernel_check(torch, F, fa, dec, rnd_moe, dev, gm,
+                                        Hq=hq, Kv=kv, Dh=dh, W=0).items():
+            res[name][key] = r
     for name, r in res.items():
         log(f"timing {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
@@ -819,58 +858,65 @@ def g7_kernel_check(torch, F, fa, dec, rnd, dev, g):
     return out
 
 
-def g5_kernel_check(torch, F, fa, dec, rnd, dev, g):
-    """The attention kernels at hymba-1.5b's widths: 25 query heads over
-    5 kv heads of 64 (G = 5: 25 positions fill 125 of the flash CTA's
-    128 rows), global and through its 1024-token window.  Flash at B=2
-    S=1024 causal, at B=1 S=2048 with window 1024, and at a query offset
-    (M=1024, T=256); decode, paged and dense, at 8 slots of 1 to 2048
-    rows with window 1024 and 0.  Each is held row by row against its
-    plain version at :data:`TOL`, the rows of every flash CTA's first
-    position (``q0 + BQ``) among them and on their own; beside each,
-    planted faults must fail the same check: a dropped kv tile, the pad
-    rows written over those first positions, the window ignored, the
-    offset ignored, one table entry swapped, a split dropped from the
-    merge.  Each is timed in turns with SDPA (``enable_gqa``; a boolean
+def gqa_kernel_check(torch, F, fa, dec, rnd, dev, g, Hq=H5, Kv=K5, Dh=D64,
+                     W=W5):
+    """The attention kernels at ``Hq`` query heads over ``Kv`` kv heads
+    of ``Dh``, global and, with a window ``W`` > 0, through it: by
+    default hymba-1.5b's 25 / 5 heads of 64 (G = 5: 25 positions fill
+    125 of the flash CTA's 128 rows) and its 1024-token window; granite's
+    16 / 8 of 64 and llama4's 40 / 8 of 128 with no window.  Flash at
+    B=2 S=1024 causal, at B=1 S=2048 with the window, and at a query
+    offset (M=1024, T=256); decode, paged and dense, at 8 slots of 1 to
+    2048 rows with the window and without.  Each is held row by row
+    against its plain version at :data:`TOL`, the rows of every flash
+    CTA's first position (``q0 + BQ``) among them and on their own;
+    beside each, planted faults must fail the same check: a dropped kv
+    tile, the pad rows written over those first positions (where the
+    tile has pad rows: G = 2 fills it), the window ignored, the offset
+    ignored, one table entry swapped, a split dropped from the merge.  Each is timed in turns with SDPA (``enable_gqa``; a boolean
     window mask; the bottom-right mask at the offset; the masked dense
     call for decode, as device time of a CUDA graph), beside its
     bound."""
     out = {}
     tol = TOL["flash_attention"]
-    rows, bkv = fa.kernel_tiles(H5 // K5)
-    bq = rows // (H5 // K5)
+    G = Hq // Kv
+    rows, bkv = fa.kernel_tiles(G)
+    bq = rows // G
 
     def flash_case(label, B, S, window, M=0):
         """One flash shape: checked (whole, boundary rows), its faults,
         timed against SDPA; ``M`` > 0 puts the queries at an offset."""
-        qf = rnd(B, M + S, H5, D64)
-        k, v = rnd(B, M + S, K5, D64), rnd(B, M + S, K5, D64)
+        qf = rnd(B, M + S, Hq, Dh)
+        k, v = rnd(B, M + S, Kv, Dh), rnd(B, M + S, Kv, Dh)
         q = qf[:, M:].contiguous()
         want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
         got = fa.flash_attention(q, k, v, causal=True, window=window)
         err, rel = row_err(torch, got, want)
         edge = torch.arange(bq, S, bq, device=dev)
         _, rel_edge = row_err(torch, got[:, edge], want[:, edge])
-        log(f"kernel flash_attention G=5 D=64 {label}: tile {rows} rows = "
-            f"{bq} positions x 5 + {rows - bq * 5} pad: max_abs_err="
+        log(f"kernel flash_attention G={G} D={Dh} {label}: tile {rows} rows "
+            f"= {bq} positions x {G} + {rows - bq * G} pad: max_abs_err="
             f"{err:.3e} worst row rel={rel:.3e}, worst row at the "
             f"{edge.numel()} CTA-boundary positions rel={rel_edge:.3e} "
             f"(tol {tol}) [{CARD}]")
         check(rel <= tol and rel_edge <= tol,
-              f"flash_attention G=5 {label} row rel err {rel} / {rel_edge}")
-        pad = fa.flash_attention(q, k, v, causal=True, window=window,
-                                 pad_fault=True)
-        # the rows the fault's pad rows cover: heads 0..npad-1 of every
-        # boundary position, each written by them alone
-        npad = rows - bq * 5
-        e = (pad[:, edge, :npad].float() - want[:, edge, :npad].float())
-        w = want[:, edge, :npad].float()
-        flipped = int((e.pow(2).mean(-1).sqrt()
-                       > tol * w.pow(2).mean(-1).sqrt()).sum())
-        log(f"control flash_attention G=5 {label} pad fault: {flipped} of "
-            f"the {e[..., 0].numel()} boundary rows it covers beyond tol "
-            f"{tol} [{CARD}]")
-        faults = {"pad rows over the next CTA's first position": pad}
+              f"flash_attention G={G} {label} row rel err {rel} / {rel_edge}")
+        faults, flipped = {}, None
+        npad = rows - bq * G
+        if npad:
+            pad = fa.flash_attention(q, k, v, causal=True, window=window,
+                                     pad_fault=True)
+            # the rows the fault's pad rows cover: heads 0..npad-1 of
+            # every boundary position, each written by them alone
+            e = (pad[:, edge, :npad].float() - want[:, edge, :npad].float())
+            w = want[:, edge, :npad].float()
+            flipped = [int((e.pow(2).mean(-1).sqrt()
+                            > tol * w.pow(2).mean(-1).sqrt()).sum()),
+                       e[..., 0].numel()]
+            log(f"control flash_attention G={G} {label} pad fault: "
+                f"{flipped[0]} of the {flipped[1]} boundary rows it covers "
+                f"beyond tol {tol} [{CARD}]")
+            faults["pad rows over the next CTA's first position"] = pad
         if M:
             faults["offset ignored"] = fa.flash_attention(
                 q, k, v, causal=True, window=window, ignore_offset=True)
@@ -880,7 +926,7 @@ def g5_kernel_check(torch, F, fa, dec, rnd, dev, g):
         else:
             faults["drops one kv tile"] = fa.flash_attention(
                 q, k, v, causal=True, window=S - 64)
-        ctl = min(control("flash_attention", f"G=5 {label} {f}", torch, bad,
+        ctl = min(control("flash_attention", f"G={G} {label} {f}", torch, bad,
                           want) for f, bad in faults.items())
         Sk = M + S
         qpos = torch.arange(M, Sk, device=dev)[:, None]
@@ -899,30 +945,31 @@ def g5_kernel_check(torch, F, fa, dec, rnd, dev, g):
             "library": lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True, **lib)})
         pairs = B * float(mask.sum())
-        b_ms, b_by = bound(2 * (2 * B * S * H5 * D64 + 2 * B * Sk * K5 * D64),
-                           4 * D64 * H5 * pairs)
+        b_ms, b_by = bound(2 * (2 * B * S * Hq * Dh + 2 * B * Sk * Kv * Dh),
+                           4 * Dh * Hq * pairs)
         plain = time_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, causal=True, window=window), iters=5)
-        log(f"timing flash_attention G=5 D=64 {label}: kernel "
+        log(f"timing flash_attention G={G} D={Dh} {label}: kernel "
             f"{med['kernel']:.4f} ms, SDPA ({'/'.join(lib)}) "
             f"{med['library']:.4f} ms (medians of {TURNS} turns: kernel "
             f"{fmt(rounds['kernel'])}, SDPA {fmt(rounds['library'])}), plain "
             f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{CARD}]")
         return dict(
-            shape=f"B={B} M={M} S={S} H={H5} K={K5} D={D64} causal, window "
-                  f"{window}, bf16, tile {rows} rows ({bq} positions x 5)",
+            shape=f"B={B} M={M} S={S} H={Hq} K={Kv} D={Dh} causal, window "
+                  f"{window}, bf16, tile {rows} rows ({bq} positions x {G})",
             ms=med["kernel"], library_ms=med["library"], plain_ms=plain,
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, row_rel_err=rel,
             boundary_row_rel_err=rel_edge, control_row_rel_err=ctl,
-            pad_fault_rows_flipped=[flipped, e[..., 0].numel()],
+            pad_fault_rows_flipped=flipped,
             kernel_turns_ms=rounds["kernel"],
             library_turns_ms=rounds["library"])
 
     out["flash_attention"] = flash_case("B=2 S=1024", 2, 1024, 0)
-    out["flash_attention"]["window"] = flash_case(
-        f"B=1 S=2048 window {W5}", 1, 2048, W5)
+    if W:
+        out["flash_attention"]["window"] = flash_case(
+            f"B=1 S=2048 window {W}", 1, 2048, W)
     out["flash_attention"]["offset"] = flash_case(
-        f"offset B=2 M=1024 T=256 window {W5}", 2, 256, W5, M=1024)
+        f"offset B=2 M=1024 T=256 window {W}", 2, 256, W, M=1024)
 
     # ---- decode, paged and dense: 8 slots, 1..2048 rows
     lens_list = [1, 64, 300, 777, 1024, 1500, 1999, 2048]
@@ -936,15 +983,15 @@ def g5_kernel_check(torch, F, fa, dec, rnd, dev, g):
     for b, n in enumerate(need):
         tbl[b, :n] = perm[at:at + n]
         at += n
-    qd = rnd(Bd, H5, D64)
-    kp, vp = rnd(nb * Bd, bl, K5, D64), rnd(nb * Bd, bl, K5, D64)
-    kd, vd = rnd(Bd, max_len, K5, D64), rnd(Bd, max_len, K5, D64)
+    qd = rnd(Bd, Hq, Dh)
+    kp, vp = rnd(nb * Bd, bl, Kv, Dh), rnd(nb * Bd, bl, Kv, Dh)
+    kd, vd = rnd(Bd, max_len, Kv, Dh), rnd(Bd, max_len, Kv, Dh)
     swapped = tbl.clone()
     swapped[-1, -1] = tbl[-2, -1]
     dtol = TOL["paged_decode_attention"]
     kpos = torch.arange(max_len, device=dev)[None, :]
     q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
-    for window in (W5, 0):
+    for window in ((W, 0) if W else (0,)):
         kw = dict(cache_len=lens, window=window)
         want = dec.paged_decode_attention_plain(qd, kp, vp, tbl, **kw)
         err, rel = row_err(torch, dec.paged_decode_attention(
@@ -952,12 +999,12 @@ def g5_kernel_check(torch, F, fa, dec, rnd, dev, g):
         wantd = dec.decode_attention_plain(qd, kd, vd, **kw)
         errd, reld = row_err(torch, dec.decode_attention(qd, kd, vd, **kw),
                              wantd)
-        log(f"kernel decode G=5 D=64 window {window} lens={lens_list}: "
+        log(f"kernel decode G={G} D={Dh} window {window} lens={lens_list}: "
             f"paged max_abs_err={err:.3e} worst row rel={rel:.3e}, dense "
             f"max_abs_err={errd:.3e} worst row rel={reld:.3e} (tol {dtol}) "
             f"[{CARD}]")
         check(rel <= dtol and reld <= TOL["decode_attention"],
-              f"decode G=5 window {window} row rel err {rel} / {reld}")
+              f"decode G={G} window {window} row rel err {rel} / {reld}")
         # split 0 holds live rows only without a window; the window drops
         # the early rows of the long slots
         faults = {"one table entry swapped": dec.paged_decode_attention(
@@ -973,9 +1020,9 @@ def g5_kernel_check(torch, F, fa, dec, rnd, dev, g):
             dfaults = {"split 0 dropped": dec.decode_attention(
                 qd, kd, vd, drop_split=0, **kw)}
         ctl_p = min(control("paged_decode_attention",
-                            f"G=5 window {window} {f}", torch, bad, want)
+                            f"G={G} window {window} {f}", torch, bad, want)
                     for f, bad in faults.items())
-        ctl_d = min(control("decode_attention", f"G=5 window {window} {f}",
+        ctl_d = min(control("decode_attention", f"G={G} window {window} {f}",
                             torch, bad, wantd) for f, bad in dfaults.items())
         mask = kpos < lens[:, None]
         if window:
@@ -992,21 +1039,21 @@ def g5_kernel_check(torch, F, fa, dec, rnd, dev, g):
         plain_d = time_ms(torch, lambda: dec.decode_attention_plain(
             qd, kd, vd, **kw), iters=5)
         live = int(mask.sum())
-        flops = 4 * D64 * H5 * live
-        io = 2 * (2 * Bd * H5 * D64) + 4 * Bd
-        kv_bytes = 2 * 2 * live * K5 * D64
+        flops = 4 * Dh * Hq * live
+        io = 2 * (2 * Bd * Hq * Dh) + 4 * Bd
+        kv_bytes = 2 * 2 * live * Kv * Dh
         rows_read = [min(n, window) if window else n for n in lens_list]
         blocks_read = sum(-(-n // bl) for n in rows_read)
         bp_ms, bp_by = bound(io + kv_bytes + 4 * blocks_read, flops)
         bd_ms, bd_by = bound(io + kv_bytes, flops)
-        log(f"timing decode G=5 D=64 window {window} B={Bd} S={max_len}, "
+        log(f"timing decode G={G} D={Dh} window {window} B={Bd} S={max_len}, "
             f"device (CUDA graph): paged {med['paged']:.4f} ms, dense "
             f"{med['dense']:.4f} ms, SDPA (masked) {med['library']:.4f} ms "
             f"(medians of {TURNS} turns: paged {fmt(rounds['paged'])}, dense "
             f"{fmt(rounds['dense'])}); plain paged {plain_p:.4f} ms, dense "
             f"{plain_d:.4f} ms; bound paged {bp_ms:.4f} ms ({bp_by}), dense "
             f"{bd_ms:.4f} ms ({bd_by}) [{CARD}]")
-        shape = (f"B={Bd} H={H5} K={K5} D={D64} lens={lens_list} window "
+        shape = (f"B={Bd} H={Hq} K={Kv} D={Dh} lens={lens_list} window "
                  f"{window} bf16")
         rp = dict(shape=f"bl={bl} {shape}", ms=med["paged"], library_ms=None,
                   plain_ms=plain_p, bound_ms=bp_ms, bound_by=bp_by,
@@ -1018,7 +1065,7 @@ def g5_kernel_check(torch, F, fa, dec, rnd, dev, g):
                   row_rel_err=reld, control_row_rel_err=ctl_d,
                   turns_ms=rounds["dense"],
                   library_turns_ms=rounds["library"])
-        if window:                       # the headline: 29 of 32 layers
+        if window or not W:     # the headline: hymba's 29 of 32 layers
             out["paged_decode_attention"], out["decode_attention"] = rp, rd
         else:
             out["paged_decode_attention"]["global"] = rp
@@ -1197,7 +1244,10 @@ def ssd_kernel_check(torch, dev, g, H=SSD_H, P=SSD_P, N=SSD_N, G=SSD_G,
 # ---------------------------------------------------------------------
 
 def serve_phase(torch, dev, name, arch, plan, params, n_requests,
-                new_tokens):
+                new_tokens, max_k: int = 24):
+    """Serve ``n_requests`` prompts of 64k tokens (k seeded in 1..max_k)
+    from ``from_plan(plan, params)``; returns the launch counts and the
+    run's numbers."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1214,7 +1264,8 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
     eng = ServeEngine.from_plan(plan, params, arch=arch, seed=SEED)
     rng = np.random.default_rng(SEED)
     vocab = eng.arch.vocab_size
-    prompts = [rng.integers(0, vocab, (int(rng.integers(1, 25)) * 64,))
+    prompts = [rng.integers(0, vocab,
+                            (int(rng.integers(1, max_k + 1)) * 64,))
                for _ in range(n_requests)]
     ticks = [0]
     step = eng.step
@@ -1802,10 +1853,11 @@ def grant_phase(torch, dev):
     return res, ctl
 
 
-def _new_arch_plan(torch, dev, name):
-    """The full-width arch, its ``h100-sxm`` decode 2048 x 8 plan and
-    prefill plan (stored), and random weights from :data:`SEED`, with
-    the device memory logged before and after the weights."""
+def _new_arch_plan(torch, dev, name, arch=None):
+    """The full-width arch (``arch``, where given, cut from it), its
+    ``h100-sxm`` decode 2048 x 8 plan and prefill plan (stored), and
+    random weights from :data:`SEED`, with the device memory logged
+    before and after the weights."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core import specialize
     from repro_torch.models import lm
@@ -1813,7 +1865,7 @@ def _new_arch_plan(torch, dev, name):
     free, total = torch.cuda.mem_get_info()
     log(f"{name}: device memory before the weights: {free} of {total} bytes "
         f"free (torch.cuda.mem_get_info) [{CARD}]")
-    arch = get_arch(name)
+    arch = arch or get_arch(name)
     plan = specialize(arch, ShapeConfig("serve_h100", "decode", 2048, 8),
                       mesh_shape=(1, 1), target="h100-sxm",
                       plan_dir=PLAN_DIR)
@@ -2109,6 +2161,455 @@ def minitron_phase(torch, dev):
     del params
     torch.cuda.empty_cache()
     return counts, res, plan
+
+
+class RouteDrops:
+    """Counts MoE routing drops on the card from ``moe.route``'s own
+    output, without touching the engine or the model: while active,
+    ``moe.route`` is wrapped, and each call keeps its group length T,
+    its top-k and, on the device, the choices of each group (row) that
+    got a slot (``dispatch`` holds one 1 for each choice within
+    capacity: the sum of ``route``'s ``within`` masks).  Read after a
+    synchronise."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.real, self.calls = torch, moe, moe.route, []
+
+    def __enter__(self):
+        real, calls, f32 = self.real, self.calls, self.torch.float32
+
+        def counting(x, router_w, top_k, capacity):
+            out = real(x, router_w, top_k, capacity)
+            calls.append((x.shape[1], top_k,
+                          out[0].sum((1, 2, 3), dtype=f32)))
+            return out
+
+        self.moe.route = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+    def row_drops(self, prefill: bool = True):
+        """Drops of each call, per group: ``[(T, [drops of row b])]``
+        (prefill calls T > 1, or the decode calls T = 1)."""
+        return [(T, [T * k - int(n) for n in kept.tolist()])
+                for T, k, kept in self.calls if (T > 1) == prefill]
+
+    def per_prefill_call(self, moe_layers: int):
+        """Drops of each prefill call, summed over its rows (dummy rows
+        of a padded batch included) and its ``moe_layers`` route calls."""
+        d = [sum(rows) for _, rows in self.row_drops()]
+        return [sum(d[i:i + moe_layers]) for i in range(0, len(d), moe_layers)]
+
+
+
+def _moe_layers(arch) -> int:
+    return arch.n_layers // max(arch.moe_interleave, 1)
+
+
+def _log_moe_weights(name, arch, params):
+    moe = _moe_leaves(params)
+    log(f"weights: {name} experts={arch.n_experts} top_k="
+        f"{arch.experts_per_token} moe_d_ff={arch.moe_d_ff} shared_experts="
+        f"{arch.n_shared_experts} moe_interleave={arch.moe_interleave} "
+        f"capacity_factor={arch.capacity_factor}; MoE leaves "
+        f"{ {k: tuple(v.shape) for k, v in moe.items()} } [{CARD}]")
+
+
+def _moe_leaves(params):
+    """The stacked MoE leaves (``blocks["moe"]`` of a per-layer MoE tree,
+    ``blocks["moe"]["moe"]`` of a super-block tree)."""
+    blocks = params["blocks"]
+    return blocks["moe"]["moe"] if "dense" in blocks else blocks["moe"]
+
+
+def granite_phase(torch, dev):
+    """Full-width, full-depth granite-moe-1b-a400m (24 layers, d_model
+    1024, 16 / 8 heads of 64, 32 experts top-8 of ff 512 in every layer,
+    tied vocab 49155): ``from_plan(plan, params)`` on its ``h100-sxm``
+    decode 2048 x 8 plan (``dense_einsum``) serves the paged phase's 16
+    requests (24 flash launches a prefill call, 24 paged-decode launches
+    a tick), then the shared-prefix check and the full-depth consistency
+    check; then the decode 1024 x 8 plan (``gshard_einsum``) on the same
+    weights serves 16 requests of 64k tokens (k seeded in 1..12), with
+    the routing drops of each prefill call printed, and a prefill batch
+    held under ``gshard_einsum`` against ``dense_einsum`` on its rows
+    with no drop."""
+    import gc
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import specialize
+    from repro_torch.core.passes.lowering import build_run_cfg
+
+    arch, plan, params = _new_arch_plan(torch, dev, GRANITE)
+    _log_moe_weights("granite", arch, params)
+    check(plan.estimates.get("moe_impl") == "dense_einsum",
+          f"granite 2048 plan: moe_impl {plan.estimates.get('moe_impl')}")
+    with RouteDrops(torch) as routes:
+        counts, res = serve_phase(torch, dev, "granite", arch, plan, params,
+                                  n_requests=16, new_tokens=32)
+    check(not routes.calls, "granite dense_einsum: route() was called")
+    _check_layer_launches("granite", arch, counts, res)
+    res["shared_prefix"] = moe_shared_prefix_check(torch, dev, arch, plan,
+                                                   params)
+    consistency_check(torch, dev, arch, params, build_run_cfg(plan, arch),
+                      int(plan.estimates["kv_block_len"]),
+                      top1_margin=FULL_TOL)
+
+    gplan = specialize(arch, ShapeConfig("serve_h100_1024", "decode", 1024,
+                                         8),
+                       mesh_shape=(1, 1), target="h100-sxm",
+                       plan_dir=PLAN_DIR)
+    est = gplan.estimates
+    tiles = {k: dict(v.blocks) for k, v in gplan.partitions.items()}
+    log(f"granite plan 1024 x 8 {gplan.content_hash()[:16]}: moe_impl="
+        f"{est.get('moe_impl')} kv_residency={est.get('kv_residency')} "
+        f"kv_n_blocks={est.get('kv_n_blocks')} kv_block_len="
+        f"{est.get('kv_block_len')} tiles {tiles} [{CARD}]")
+    check(est.get("moe_impl") == "gshard_einsum"
+          and est.get("kv_residency") == "paged"
+          and int(est.get("kv_block_len", 0)) == 128
+          and tiles.get("decode_attention") == {"block_kv": 128,
+                                                 "head_dim": 64},
+          f"granite 1024 plan: {est} {tiles}")
+    with RouteDrops(torch) as routes:
+        gcounts, gres = serve_phase(torch, dev, "granite-gshard", arch,
+                                    gplan, params, n_requests=16,
+                                    new_tokens=32, max_k=12)
+        torch.cuda.synchronize()
+        drops = routes.per_prefill_call(_moe_layers(arch))
+        dec_drops = sum(sum(r) for _, r in routes.row_drops(prefill=False))
+    _check_layer_launches("granite-gshard", arch, gcounts, gres)
+    log(f"serve[granite-gshard] routing drops per prefill call (choices "
+        f"past capacity, summed over the call's rows and 24 layers; C = "
+        f"_capacity(S, 32, 8, 1.25)): {drops}; decode ticks: {dec_drops} "
+        f"(C = 4 for one token) [{CARD}]")
+    check(len(drops) == gres["prefill_calls"] and dec_drops == 0,
+          f"granite gshard: {len(drops)} prefill calls routed of "
+          f"{gres['prefill_calls']}, {dec_drops} decode drops")
+    gres["drops_per_prefill_call"] = drops
+    res["gshard"] = gres
+    res["gshard_vs_dense"] = gshard_vs_dense_check(
+        torch, dev, arch, params, build_run_cfg(gplan, arch))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, gcounts, res, plan, gplan
+
+
+def gshard_vs_dense_check(torch, dev, arch, params, cfg):
+    """Full width and depth granite: the prefill logits of 8 rows of S
+    tokens under ``gshard_einsum`` (each row its routing group, C =
+    ``_capacity(S, 32, 8, 1.25)``) against ``dense_einsum`` on the same
+    weights.  The two paths compute the same function on a row where no
+    layer drops a choice: S is the longest of 1024, 256, 64, 16 and 4
+    with such a row (every row's drops printed; at S = 4 no expert can
+    take more than its C = 4 tokens), and those rows are held at
+    :data:`FULL_TOL`, rms-relative, with top-1 tokens equal where the
+    top-2 margin exceeds it, beside the noise floor of two right paths
+    (the dense path under another flash tile) and a wrong-token control
+    that must fail."""
+    from repro_torch.models import lm
+
+    V = arch.vocab_size
+    dense = dataclasses.replace(cfg, moe_impl="dense_einsum")
+    tried = {}
+    for S in (1024, 256, 64, 16, 4):
+        g = torch.Generator(dev).manual_seed(SEED + 20)
+        toks = torch.randint(0, V, (8, S), generator=g, device=dev,
+                             dtype=torch.int32)
+        with RouteDrops(torch) as routes:
+            got = lm.prefill(arch, params, {"tokens": toks}, cfg)[0][:, :V]
+            torch.cuda.synchronize()
+            per_row = [sum(rows[b] for _, rows in routes.row_drops())
+                       for b in range(8)]
+        tried[S] = per_row
+        rows = [b for b, n in enumerate(per_row) if n == 0]
+        log(f"check granite gshard vs dense: S={S}, routing drops per row "
+            f"over {_moe_layers(arch)} layers {per_row}; {len(rows)} rows "
+            f"without a drop {rows} [{CARD}]")
+        if rows:
+            break
+    check(bool(rows), "granite gshard vs dense: every row dropped a choice "
+          f"at every length tried: {tried}")
+    got = got.float()[rows]
+    want = lm.prefill(arch, params, {"tokens": toks}, dense)[0][:, :V]
+    want = want.float()[rows]
+    G = arch.n_heads // arch.n_kv_heads
+    other = lm.prefill(arch, params, {"tokens": toks}, dataclasses.replace(
+        dense, flash_tiles=(64 // G, 64)))[0][:, :V].float()[rows]
+    wrong_toks = toks.clone()
+    wrong_toks[:, -1] = (toks[:, -1] + 1) % V
+    wrong = lm.prefill(arch, params, {"tokens": wrong_toks}, cfg)[0][:, :V]
+    rms = _rms_rel(torch, got, want)
+    floor = _rms_rel(torch, other, want)
+    control = _rms_rel(torch, wrong.float()[rows], want)
+    top2 = want.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]) / want.abs().amax(-1)
+    agree = got.argmax(-1) == want.argmax(-1)
+    top1 = bool((agree | (margin <= FULL_TOL)).all())
+    log(f"check granite gshard vs dense prefill logits on {len(rows)} "
+        f"drop-free rows of S={S}: rms_rel={rms:.3e} (tol {FULL_TOL}; dense "
+        f"under "
+        f"another flash tile {floor:.3e}; wrong-token control "
+        f"{control:.3e}) top1_agree={agree.tolist()} [{CARD}]")
+    check(rms <= FULL_TOL and top1,
+          f"granite gshard vs dense: rms_rel {rms} or top-1 differs")
+    check(control > FULL_TOL,
+          f"granite gshard vs dense: the wrong-token control passed "
+          f"({control})")
+    return {"S": S, "drops_per_row": tried, "rows_compared": rows,
+            "rms_rel": rms, "noise_floor": floor, "control": control}
+
+
+def moe_shared_prefix_check(torch, dev, arch, plan, params):
+    """granite on its 2048 x 8 plan as frozen (``dense_einsum``, prefix
+    reuse on): 4 greedy requests open with one 1,024-token system prompt
+    and a tail of 64k tokens (k seeded in 1..8); the first is submitted,
+    then the rest a tick later, against a control with reuse and the
+    host tier off.  Under ``dense_einsum`` a token's experts depend on
+    that token alone, so the tail prefill computes what the full prefill
+    does: the hit requests run flash at an offset, their first-token
+    logits are held within :data:`FULL_TOL` of the control's (the noise
+    floor of the full prefill under another flash tile printed beside)
+    and greedy tokens are compared under the margin rule.  Both tiers
+    are whole after ``drop_block_cache()``."""
+    import numpy as np
+
+    from repro_torch.core.passes.lowering import build_run_cfg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    Rec = _recording_engine(ServeEngine)
+    rng = np.random.default_rng(SEED + 11)
+    V = arch.vocab_size
+    system = rng.integers(0, V, 1024).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(0, V, 64 * int(k))
+                               .astype(np.int32)])
+               for k in rng.integers(1, 9, 4)]
+    out = {}
+    for reuse in (False, True):
+        over = {} if reuse else {"kv_prefix_reuse": "off",
+                                 "kv_host_blocks": 0}
+        eng = Rec.from_plan(plan, params, arch=arch, seed=SEED, **over)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        eng.submit(prompts[0], max_new_tokens=32)
+        eng.step()
+        for p in prompts[1:]:
+            eng.submit(p, max_new_tokens=32)
+        done = eng.run_until_idle()
+        torch.cuda.synchronize()
+        ps = eng.pressure_stats()
+        counts = dict(ops.launch_counts(), flash_tail=fa.tail_launches)
+        out[reuse] = dict(
+            toks={r.rid: r.out_tokens for r in done}, margins=eng.margins,
+            first=eng.first, prefill_calls=eng.prefill_calls,
+            launches=counts,
+            pressure={k: ps[k] for k in ("prefix_hits", "prefix_hit_tokens",
+                                         "prefix_rides", "shared_blocks",
+                                         "cached_blocks")})
+        log(f"serve[granite shared-prefix {'reuse' if reuse else 'control'}]"
+            f" prompt_lens={[len(p) for p in prompts]} prefill_calls="
+            f"{eng.prefill_calls} prefill_batches={list(eng.prefill_batches)}"
+            f" launches={counts} pressure={out[reuse]['pressure']} [{CARD}]")
+        check(len(done) == 4 and all(len(r.out_tokens) == 32 for r in done),
+              f"granite shared-prefix: {len(done)} of 4 requests finished")
+        eng.drop_block_cache()
+        st = eng.block_stats()
+        check(st["free"] == st["total"]
+              and st["host_free"] == st["host_total"],
+              f"granite shared-prefix: blocks not all returned: {st}")
+        del eng
+        torch.cuda.empty_cache()
+    got, ctl = out[True], out[False]
+    check(got["pressure"]["prefix_hits"] >= 3
+          and got["launches"]["flash_tail"] > 0
+          and ctl["launches"]["flash_tail"] == 0,
+          f"granite shared-prefix: no tail prefill: {got['pressure']} "
+          f"{got['launches']} / control {ctl['launches']}")
+    errs = {rid: _rms_rel(torch, got["first"][rid], ctl["first"][rid])
+            for rid in range(1, 4)}
+    cfg = build_run_cfg(plan, arch)
+    G = arch.n_heads // arch.n_kv_heads
+    toks1 = torch.from_numpy(prompts[1][None]).to(dev)
+    want = lm.prefill(arch, params, {"tokens": toks1}, cfg)[0][:, :V]
+    other = lm.prefill(arch, params, {"tokens": toks1}, dataclasses.replace(
+        cfg, flash_tiles=(64 // G, 64)))[0][:, :V]
+    floor = _rms_rel(torch, other.float(), want.float())
+    worst = max(errs.values())
+    log(f"check granite shared-prefix first-token logits, tail prefill vs "
+        f"the control's full prefill, 3 hit requests: worst rms_rel="
+        f"{worst:.3e} (tol {FULL_TOL}; full prefill re-tiled against itself "
+        f"{floor:.3e}) per request "
+        f"{ {r: round(e, 5) for r, e in errs.items()} }"
+        f" [{CARD}]")
+    check(worst <= FULL_TOL, f"granite shared-prefix: first-token logits "
+          f"rms_rel {worst} > {FULL_TOL}")
+    compared = same = 0
+    for rid, want_toks in ctl["toks"].items():
+        for i, (a, b) in enumerate(zip(got["toks"][rid], want_toks)):
+            compared += 1
+            if a != b:
+                m = ctl["margins"][rid][i]
+                check(m <= FULL_TOL, f"granite shared-prefix: request {rid} "
+                      f"token {i} differs ({a} vs {b}) at a control margin "
+                      f"{m} > {FULL_TOL}")
+                break
+            same += 1
+    log(f"check granite shared-prefix greedy tokens vs control: {same} "
+        f"identical of {compared} compared [{CARD}]")
+    drop = ("toks", "margins", "first")
+    return {"reuse": {k: v for k, v in got.items() if k not in drop},
+            "control": {k: v for k, v in ctl.items() if k not in drop},
+            "first_logits_rms_rel": worst, "noise_floor": floor,
+            "tokens_compared": compared, "tokens_identical": same}
+
+
+def llama4_phase(torch, dev):
+    """llama4-maverick-400b-a17b at full width cut to one [dense, MoE]
+    super-block (``n_layers`` 48 -> 2, 37.4 GB of bf16 weights; the only
+    cut): d_model 5120, 40 / 8 heads of 128 (G = 5), a dense SwiGLU FFN
+    of 16384, then 128 experts top-1 of ff 8192 beside one shared
+    expert, untied vocab 202048.  ``from_plan(plan, params)`` on the cut
+    arch's decode 2048 x 8 plan (``gshard_einsum``) serves 8 requests (2
+    flash launches a prefill call, 2 paged-decode launches a tick), the
+    routing drops of each prefill call printed; then the full-depth
+    consistency check under ``dense_einsum`` on the same weights: a
+    decode step (one token, C = 4) never drops a choice where a
+    ``gshard_einsum`` prefill of 301 tokens over 128 experts (C = 4) may
+    drop the last token's, so only the dense path makes the two compute
+    the same function (the gshard path is held on the serve phase, by
+    the small MoE check and against the JAX package on the CPU)."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.passes.lowering import build_run_cfg
+
+    full = get_arch(LLAMA4)
+    cut = dataclasses.replace(full, n_layers=2)
+    log(f"cut: {LLAMA4} n_layers {full.n_layers} -> {cut.n_layers} (one "
+        f"[dense, MoE] super-block at full width; {full.param_count()} "
+        f"parameters whole, {cut.param_count()} cut) [{CARD}]")
+    arch, plan, params = _new_arch_plan(torch, dev, LLAMA4, arch=cut)
+    _log_moe_weights("llama4", arch, params)
+    check(plan.estimates.get("moe_impl") == "gshard_einsum"
+          and "shared_wi" in _moe_leaves(params),
+          f"llama4 plan: moe_impl {plan.estimates.get('moe_impl')}")
+    with RouteDrops(torch) as routes:
+        counts, res = serve_phase(torch, dev, "llama4", arch, plan, params,
+                                  n_requests=8, new_tokens=32)
+        torch.cuda.synchronize()
+        drops = routes.per_prefill_call(_moe_layers(arch))
+    _check_layer_launches("llama4", arch, counts, res)
+    log(f"serve[llama4] routing drops per prefill call (choices past "
+        f"capacity in its MoE layer, C = _capacity(S, 128, 1, 1.25)): "
+        f"{drops} [{CARD}]")
+    check(len(drops) == res["prefill_calls"],
+          f"llama4: {len(drops)} prefill calls routed of "
+          f"{res['prefill_calls']}")
+    res["drops_per_prefill_call"] = drops
+    log(f"consistency llama4: under dense_einsum (the decode step's routing "
+        f"never drops; a gshard prefill's may) [{CARD}]")
+    consistency_check(torch, dev, arch, params, dataclasses.replace(
+        build_run_cfg(plan, arch), moe_impl="dense_einsum"),
+        int(plan.estimates["kv_block_len"]), top1_margin=FULL_TOL)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, res, plan
+
+
+def small_moe_check(torch, dev):
+    """Reduced granite (2 layers, 8 experts top-2, 4 / 2 heads of 64)
+    under both MoE paths and reduced llama4 (two super-blocks, 8 experts
+    top-1 and a shared expert, 10 / 2 heads of 128): prefill and four
+    paged decode steps through the kernels on the card against the plain
+    versions on the CPU, same weights, logits within :data:`LOGIT_TOL`;
+    and every ``route`` call of the CPU run routed again on the card
+    from the same inputs: ``dispatch`` (the integer slots) identical
+    wherever no top router probability is within 1e-6 of the next."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.core.passes.lowering import build_run_cfg
+    from repro_torch.models import lm, moe
+
+    cases = (("granite", "gshard_einsum"), ("granite", "dense_einsum"),
+             ("llama4", "gshard_einsum"))
+    for which, impl in cases:
+        name = GRANITE if which == "granite" else LLAMA4
+        arch = get_arch(name).reduced()
+        arch = dataclasses.replace(arch, head_dim=64) if which == "granite" \
+            else dataclasses.replace(arch, n_heads=10, n_kv_heads=2,
+                                     head_dim=128)
+        plan = specialize(arch, ShapeConfig("small", "decode", 512, 4),
+                          mesh_shape=(1, 1), cache=False)
+        cfg = dataclasses.replace(build_run_cfg(plan, arch), moe_impl=impl)
+        params = lm.init_params(arch, torch.Generator().manual_seed(SEED),
+                                *plan.padded_sizes())
+        toks = torch.randint(0, arch.vocab_size, (4, 100),
+                             generator=torch.Generator().manual_seed(SEED),
+                             dtype=torch.int32)
+        bl = int(plan.estimates["kv_block_len"])
+        nb = 512 // bl
+        outs, calls = {}, []
+        real = moe.route
+
+        def recording(x, router_w, top_k, capacity):
+            if x.device.type == "cpu":
+                calls.append((x, router_w, top_k, capacity))
+            return real(x, router_w, top_k, capacity)
+
+        moe.route = recording
+        try:
+            for d in (torch.device("cpu"), dev):
+                p = _to(torch, params, d)
+                logits, cache = lm.prefill(arch, p, {"tokens": toks.to(d)},
+                                           cfg, max_len=512)
+                cache = dict(
+                    cache, k=cache["k"].reshape(arch.n_layers, 4 * nb, bl,
+                                                *cache["k"].shape[3:]),
+                    v=cache["v"].reshape(arch.n_layers, 4 * nb, bl,
+                                         *cache["v"].shape[3:]),
+                    block_tbl=torch.arange(4 * nb, dtype=torch.int32,
+                                           device=d).reshape(4, nb))
+                steps = [logits.float().cpu()]
+                for i in range(4):
+                    logits, cache = lm.decode_step(
+                        arch, p, cache, {"tokens": toks[:, i:i + 1].to(d)},
+                        cfg)
+                    steps.append(logits.float().cpu())
+                outs[d.type] = torch.stack(steps)
+        finally:
+            moe.route = real
+        rel = float((outs["cuda"] - outs["cpu"]).abs().max()
+                    / outs["cpu"].abs().max())
+        compared = near = 0
+        for x, router_w, top_k, capacity in calls:
+            probs = torch.softmax(x.double() @ router_w.double(), -1).float()
+            top = probs.topk(min(top_k + 1, probs.shape[-1]), -1).values
+            if float((top[..., :-1] - top[..., 1:]).min()) <= 1e-6:
+                near += 1
+                continue
+            want = real(x, router_w, top_k, capacity)[0]
+            got = real(x.to(dev), router_w.to(dev), top_k, capacity)[0]
+            check(torch.equal(got.cpu(), want),
+                  f"small {which} {impl}: route on the card differs from "
+                  "the CPU on the same inputs")
+            compared += 1
+        log(f"check small {which} ({impl}) card vs cpu logits: rel={rel:.3e} "
+            f"(tol {LOGIT_TOL}); route calls re-routed on the card: "
+            f"{compared} identical, {near} skipped for a near-tie within "
+            f"1e-6 [{CARD}]")
+        check(rel <= LOGIT_TOL, f"small {which} {impl}: rel {rel} > "
+              f"{LOGIT_TOL}")
+        check(compared >= (len(calls) + 1) // 2,
+              f"small {which} {impl}: {compared} of {len(calls)} route "
+              "calls compared")
 
 
 # ---------------------------------------------------------------------
@@ -2668,12 +3169,25 @@ def main() -> int:
     minitron_counts, minitron, tplan = minitron_phase(torch, dev)
     ops.reset_launch_counts()
 
-    # ---- phase 12: the plan-driven matmul path ----
+    # ---- phases 12-14: granite-moe-1b-a400m (both MoE paths), llama4's
+    # super-block, the small MoE models, each after every earlier
+    # phase's weights were freed ----
+    granite_counts, granite_g_counts, granite, _, _ = granite_phase(torch,
+                                                                    dev)
+    llama4_counts, llama4, _ = llama4_phase(torch, dev)
+    small_moe_check(torch, dev)
+    ops.reset_launch_counts()
+    granite_runs = (granite_counts, granite_g_counts,
+                    granite["shared_prefix"]["reuse"]["launches"],
+                    granite["shared_prefix"]["control"]["launches"])
+
+    # ---- phase 15: the plan-driven matmul path ----
     serve_mm = {n: c["tiled_matmul"] for n, c in (
         ("paged", paged_counts), ("dense", dense_counts), ("ssm", ssm_counts),
         ("33b-grant", grant["launches"]),
         ("33b-control", grant_ctl["launches"]), ("hymba", hymba_counts),
-        ("minitron", minitron_counts))}
+        ("minitron", minitron_counts), ("granite", granite_counts),
+        ("granite-gshard", granite_g_counts), ("llama4", llama4_counts))}
     check(not any(serve_mm.values()),
           f"a serving path launched tiled_matmul: {serve_mm}")
     t0 = time.perf_counter()
@@ -2685,16 +3199,23 @@ def main() -> int:
     log(f"matmul path: {mm_launches} launches, phase took "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
 
-    # ---- phase 13: results ----
+    # ---- phase 16: results ----
     runs = (paged_counts, dense_counts, ssm_counts, shared["launches"],
             shared_ctl["launches"], grant["launches"], grant_ctl["launches"],
-            hymba_counts, minitron_counts)
+            hymba_counts, minitron_counts, *granite_runs, llama4_counts)
     launches = {k: sum(c[k] for c in runs) for k in paged_counts}
     for name in ("flash_attention", "paged_decode_attention"):
         kern[name]["g7"]["launches"] = (grant["launches"][name]
                                         + grant_ctl["launches"][name])
         kern[name]["g5"]["launches"] = hymba_counts[name]
     kern["ssd_scan"]["hymba"]["launches"] = hymba_counts["ssd_scan"]
+    # the MoE archs' pairs: both plans are paged, so their dense decode
+    # instances run in the kernel phase only (0 on the main path)
+    for name in ("flash_attention", "paged_decode_attention",
+                 "decode_attention"):
+        kern[name]["granite"]["launches"] = sum(c[name]
+                                                for c in granite_runs)
+        kern[name]["llama4"]["launches"] = llama4_counts[name]
     kern["flash_attention"]["tail_launches"] = sum(
         c.get("flash_tail", 0) for c in runs)
     launches["tiled_matmul"] = mm_launches
@@ -2716,7 +3237,7 @@ def main() -> int:
                                  "shape",
                                  "shapes", "library_call", "launched_by",
                                  "offset", "tail_launches", "g7", "g5",
-                                 "hymba")
+                                 "hymba", "granite", "llama4")
                if k in r},
             "ptxas": [[kernel, regs, spills] for kernel, regs, spills
                       in ptxas.get(Path(r["source"]).stem, [])],
@@ -2728,6 +3249,7 @@ def main() -> int:
                               "shared_prefix": shared,
                               "shared_prefix_control": shared_ctl,
                               "hymba": hymba, "minitron": minitron,
+                              "granite": granite, "llama4": llama4,
                               "launches": {"paged": paged_counts,
                                            "dense": dense_counts,
                                            "ssm": ssm_counts,
@@ -2735,7 +3257,11 @@ def main() -> int:
                                            "33b_reserve_control":
                                            grant_ctl["launches"],
                                            "hymba": hymba_counts,
-                                           "minitron": minitron_counts}}}))
+                                           "minitron": minitron_counts,
+                                           "granite": granite_counts,
+                                           "granite_gshard":
+                                           granite_g_counts,
+                                           "llama4": llama4_counts}}}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")
     log(smi)

@@ -19,7 +19,9 @@ def build_run_cfg(plan, arch: ArchConfig):
     """The model-side knobs of a plan: the padded kv-head count, the
     attention and SSD-scan tiles of its ``BlockPlan``s (``chunk`` and
     ``heads_block``, as ``src/repro/core/passes/lowering.py:74,91``
-    reads the chunk) and the kernel mode (``plan.use_pallas``:
+    reads the chunk), the MoE path (``moe_impl``, default
+    ``gshard_einsum``, as ``src/repro/core/passes/lowering.py:75,93``)
+    and the kernel mode (``plan.use_pallas``:
     ``auto``/``on`` run the port's kernels on the card; ``off`` makes the
     card path raise)."""
     from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK
@@ -27,6 +29,7 @@ def build_run_cfg(plan, arch: ArchConfig):
     fa = plan.partitions.get("flash_attention")
     dec = plan.partitions.get("decode_attention")
     ssd = plan.partitions.get("ssd_scan")
+    moe_impl = plan.estimates.get("moe_impl", "gshard_einsum")
     return RunCfg(
         kv_heads_padded=int(plan.estimates.get("kv_heads_padded", 0)),
         flash_tiles=((int(fa.blocks["block_q"]), int(fa.blocks["block_kv"]))
@@ -34,6 +37,7 @@ def build_run_cfg(plan, arch: ArchConfig):
         decode_block_kv=int(dec.blocks["block_kv"]) if dec else None,
         ssd_chunk=int(ssd.blocks["chunk"]) if ssd else DEFAULT_CHUNK,
         ssd_heads_block=int(ssd.blocks["heads_block"]) if ssd else 1,
+        moe_impl=moe_impl if isinstance(moe_impl, str) else "gshard_einsum",
         kernels=str(plan.use_pallas),
     )
 

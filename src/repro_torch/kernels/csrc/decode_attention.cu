@@ -45,10 +45,10 @@
 //     merge as absent; a slot with no live row outputs 0.
 // fp32 softmax statistics and accumulation; the math stays on the CUDA
 // cores (bytes bound it).  D is a template parameter, built at 128 and, for
-// hymba-1.5b, 64 (a row is 8 chunks of 16 bytes, a lane pair's 4 each, and
-// each lane accumulates D / 32 = 2 dims of P.V); G is read only as a loop
-// bound and an array size, built at 1, 2, 4, 7 and 8 (D = 128) and 5
-// (D = 64).
+// hymba-1.5b and granite-moe-1b-a400m, 64 (a row is 8 chunks of 16 bytes,
+// a lane pair's 4 each, and each lane accumulates D / 32 = 2 dims of P.V);
+// G is read only as a loop bound and an array size, built at 1, 2, 4, 5, 7
+// and 8 (D = 128) and 2 and 5 (D = 64).
 
 #include "common.cuh"
 
@@ -399,6 +399,8 @@ int dispatch(const void* q, const void* k, const void* v, const int* tbl,
   REPRO_DECODE_CASE(7, 128)  // deepseek-coder-33b: 56 query heads over 8
   REPRO_DECODE_CASE(8, 128)
   REPRO_DECODE_CASE(5, 64)   // hymba-1.5b: 25 query heads of 64 over 5
+  REPRO_DECODE_CASE(2, 64)   // granite-moe-1b-a400m: 16 heads of 64 over 8
+  REPRO_DECODE_CASE(5, 128)  // llama4-maverick: 40 heads of 128 over 8
 #undef REPRO_DECODE_CASE
   return int(cudaErrorInvalidValue);
 }

@@ -47,11 +47,12 @@ from repro_torch.kernels import build
 KERNEL_TILES = (64, 128, 256)
 DEFAULT_BLOCK_KV = 256
 #: (GQA group, head_dim) pairs the kernels are instantiated for (``csrc``
-#: ``REPRO_DECODE_CASE``): the powers of two up to 8 and
-#: deepseek-coder-33b's 7 at head_dim 128, hymba-1.5b's 5 at 64.  The
-#: template reads G only as a loop bound and an array size, so a pair is
-#: one more instance
-INSTANCES = ((1, 128), (2, 128), (4, 128), (7, 128), (8, 128), (5, 64))
+#: ``REPRO_DECODE_CASE``): the powers of two up to 8, deepseek-coder-33b's
+#: 7 and llama4-maverick's 5 at head_dim 128, hymba-1.5b's 5 and
+#: granite-moe-1b-a400m's 2 at 64.  The template reads G only as a loop
+#: bound and an array size, so a pair is one more instance
+INSTANCES = ((1, 128), (2, 128), (4, 128), (7, 128), (8, 128), (5, 64),
+             (2, 64), (5, 128))
 #: the card's SMs; the split rule aims at two CTAs for each
 SMS = 132
 SPLIT_CTAS = 2 * SMS

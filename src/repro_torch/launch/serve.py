@@ -17,13 +17,19 @@ Two modes, as in the JAX package's launcher, on one card:
   host blocks.  Full-width hymba-1.5b's plan is paged too: its flash and
   decode kernels run at head_dim 64 and a GQA group of 5, its SSD scan in
   every layer, and each slot's SSM state rides beside its blocks.
+  granite-moe-1b-a400m's plan picks its MoE path by the sequence length
+  (``dense_einsum`` at 2048, ``gshard_einsum`` at 1024).  Full-width
+  llama4-maverick-400b-a17b (~800 GB of weights) is refused before any
+  weight is built: one card cannot hold it; ``--n-layers 2`` serves one
+  [dense, MoE] super-block of it at full width (37.4 GB).
 
 The model is the arch's reduced config, with its published head_dim and
 GQA group (the attention kernels are instantiated for those), unless
 ``--full`` asks for its published widths and depth; weights are random,
 from ``--seed``.  ``--arch`` takes the dense decoders (qwen3-8b,
 deepseek-7b, deepseek-coder-33b, minitron-8b with its squared-ReLU FFN),
-``mamba2-2.7b`` and the hybrid ``hymba-1.5b``.
+``mamba2-2.7b``, the hybrid ``hymba-1.5b`` and the MoE decoders
+``granite-moe-1b-a400m`` and (reduced) ``llama4-maverick-400b-a17b``.
 Entry points run on ``cuda``; ``--device cpu`` runs the kernels' plain
 versions.  ``--profile`` traces the run with ``torch.profiler`` and
 prints the device time by kernel and by group.
@@ -38,12 +44,20 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve --from-plan
           --arch hymba-1.5b --from-plan --full --max-len 2048 --max-batch 8
       PYTHONPATH=src python -m repro_torch.launch.serve \
           --arch minitron-8b --from-plan --full --max-len 2048 --max-batch 8
+      PYTHONPATH=src python -m repro_torch.launch.serve \
+          --arch granite-moe-1b-a400m --from-plan --full --max-len 2048 \
+          --max-batch 8
+      PYTHONPATH=src python -m repro_torch.launch.serve \
+          --arch llama4-maverick-400b-a17b --from-plan --full --n-layers 2 \
+          --max-len 2048 --max-batch 8
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
+import os
 import time
 
 import numpy as np
@@ -56,6 +70,9 @@ def main(argv=None) -> None:
     ap.add_argument("--full", action="store_true",
                     help="the arch's published widths and depth (default: "
                          "its reduced config)")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the depth to the first N layers (a whole "
+                         "number of super-blocks), widths as chosen")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
@@ -73,7 +90,8 @@ def main(argv=None) -> None:
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.core.passes.lowering import build_run_cfg
     from repro_torch.core.pipeline import specialize
-    from repro_torch.models.lm import RunCfg, check_on_device, init_params
+    from repro_torch.models import lm
+    from repro_torch.models.lm import RunCfg, check_on_device
     from repro_torch.serve.engine import ServeEngine
 
     arch = get_arch(args.arch)
@@ -82,6 +100,9 @@ def main(argv=None) -> None:
         group = arch.n_heads // arch.n_kv_heads if arch.n_kv_heads else 1
         arch = dataclasses.replace(small, head_dim=arch.head_dim,
                                    n_heads=small.n_kv_heads * group)
+    if args.n_layers:
+        print(f"cut: {arch.name} n_layers {arch.n_layers} -> {args.n_layers}")
+        arch = dataclasses.replace(arch, n_layers=args.n_layers)
     if args.from_plan:
         shape = ShapeConfig("serve", "decode", args.max_len, args.max_batch)
         plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm")
@@ -89,8 +110,9 @@ def main(argv=None) -> None:
         # refuse an arch the card's kernels cannot take before any weight
         check_on_device(arch, args.device, heads=heads, kv_heads=kv_heads,
                         flash_tiles=build_run_cfg(plan, arch).flash_tiles)
+        check_fits(arch, plan.padded_sizes(), args.device)
         gen = torch.Generator(args.device).manual_seed(args.seed)
-        params = init_params(arch, gen, *plan.padded_sizes())
+        params = lm.init_params(arch, gen, *plan.padded_sizes())
         engine = ServeEngine.from_plan(plan, params, arch=arch,
                                        seed=args.seed)
         print(f"plan {plan.content_hash()[:12]} target={plan.target} "
@@ -103,8 +125,9 @@ def main(argv=None) -> None:
               f"-> decode_path={engine.decode_path}")
     else:
         check_on_device(arch, args.device)
+        check_fits(arch, (), args.device)
         gen = torch.Generator(args.device).manual_seed(args.seed)
-        params = init_params(arch, gen)
+        params = lm.init_params(arch, gen)
         engine = ServeEngine(arch, params, RunCfg(),
                              max_batch=args.max_batch, max_len=args.max_len,
                              seed=args.seed)
@@ -140,6 +163,37 @@ def main(argv=None) -> None:
               f"tokens={r.out_tokens[:8]}...")
     print(f"telemetry {engine.telemetry()}")
     print(f"pressure {engine.pressure_stats()}")
+
+
+def check_fits(arch, padded_sizes, device) -> None:
+    """Raise, before any weight is built, for a model whose weights
+    (``lm.leaf_specs`` at the plan's padded sizes) exceed the free
+    memory of ``device``: the card's (``torch.cuda.mem_get_info``) or
+    the host's available RAM."""
+    from repro_torch.models import lm
+    need = sum(math.prod(s.shape) * s.dtype.itemsize
+               for s in _spec_leaves(lm.leaf_specs(arch, *padded_sizes)))
+    device = torch.device(device)
+    if device.type == "cuda":
+        free, where = torch.cuda.mem_get_info(device)[0], "the card"
+    else:
+        free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+        where = "the host"
+    if need > free:
+        raise NotImplementedError(
+            f"{arch.name}: {need} weight bytes (bf16 matrices, fp32 norms "
+            f"and routers) at {arch.n_layers} layers, {free} bytes free on "
+            f"{where}: one device cannot hold it, and serving it across "
+            "cards waits for the port's multi-GPU work (ROADMAP item 10); "
+            "--n-layers cuts the depth")
+
+
+def _spec_leaves(specs):
+    if isinstance(specs, dict):
+        for v in specs.values():
+            yield from _spec_leaves(v)
+    else:
+        yield specs
 
 
 def _profiler(device):

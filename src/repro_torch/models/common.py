@@ -50,16 +50,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+#: elements of the fp32 staging buffer :func:`truncated_normal_` draws into
+STAGING = 1 << 26
+
+
 def truncated_normal_(t: torch.Tensor, scale: float,
                       generator: torch.Generator) -> torch.Tensor:
     """Fill ``t`` in place with ``scale * N(0, 1)`` truncated to two
     standard deviations (the JAX package's ``truncated_normal_init``
     distribution), drawn in fp32 from ``generator`` and cast to
-    ``t``'s dtype.  Large tensors are filled in slices along dim 0 so
-    the fp32 staging buffer stays bounded."""
-    rows = t.shape[0] if t.dim() else 1
+    ``t``'s dtype.  Large tensors are filled in slices of whole rows,
+    a row spanning the fewest leading dims whose rows hold at most
+    :data:`STAGING` elements, so the fp32 staging buffer stays at or
+    under that bound (an expert stack ``(1, E, d, 2 ff)`` is sliced
+    over ``E`` and ``d``).  A tensor whose dim-0 rows fit is sliced
+    along dim 0 alone."""
+    lead, rows = 1, (t.shape[0] if t.dim() else 1)
+    while lead < t.dim() and t.numel() // max(rows, 1) > STAGING:
+        lead += 1
+        rows *= t.shape[lead - 1]
     per_row = max(1, t.numel() // max(rows, 1))
-    step = max(1, (1 << 26) // per_row)
+    step = max(1, STAGING // per_row)
     flat = t.view(rows, -1) if t.dim() else t.view(1, 1)
     for i in range(0, rows, step):
         buf = torch.empty(flat[i:i + step].shape, dtype=torch.float32,

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.lm import LeafSpec, leaf_specs
+from repro_torch.models.lm import LeafSpec, layer_params, leaf_specs
 
 
 def tensor_from_numpy(arr: np.ndarray, device="cuda") -> torch.Tensor:
@@ -55,11 +55,13 @@ def params_from_numpy(arch: ArchConfig, tree: Mapping[str, Any],
                       device="cuda") -> dict:
     """The port's parameters from a JAX parameter tree of numpy arrays,
     checked leaf by leaf against :func:`leaf_specs` (padded sizes are
-    read off the tree's own shapes)."""
+    read off the tree's own shapes, at layer 0: through
+    ``blocks["dense"]`` in a super-block tree).  MoE leaves and the
+    super-block tree cross like any other."""
     params = _convert(tree, device)
     hd = arch.hd
-    attn = params["blocks"].get("attn")
-    ssm = params["blocks"].get("ssm")
+    grp = layer_params(params["blocks"], 0)
+    attn, ssm = grp.get("attn"), grp.get("ssm")
     specs = leaf_specs(
         arch, vocab_padded=params["embed"].shape[0],
         heads_padded=attn["wq"].shape[-1] // hd if attn else 0,

@@ -3,19 +3,25 @@
 The port of ``repro/models/lm.py``'s serving path for dense GQA
 decoders with a SiLU-gated FFN (qwen3-8b, deepseek-7b,
 deepseek-coder-33b) or a squared-ReLU FFN (minitron-8b), attention-free
-mamba2 SSM decoders (mamba2-2.7b) and the hybrid hymba-1.5b, whose
-layers run attention (global or a sliding window, per layer) and a
-mamba2 mixer in parallel.  Parameters are the JAX package's nested
-dicts, stacked over layers (``params["blocks"]["attn"]["wq"]`` is ``(L,
-d, H*hd)``), so :mod:`repro_torch.models.convert` carries a reference
-parameter tree across unchanged; layers run as a Python loop over that
-stack.  MoE, M-RoPE and audio architectures raise
-:class:`NotImplementedError` naming the arch.
+mamba2 SSM decoders (mamba2-2.7b), the hybrid hymba-1.5b, whose layers
+run attention (global or a sliding window, per layer) and a mamba2
+mixer in parallel, and MoE decoders: an MoE FFN in every layer
+(granite-moe-1b-a400m) or super-blocks of a dense and an MoE layer
+(llama4-maverick-400b-a17b, ``moe_interleave = 2``, with a shared
+expert).  Parameters are the JAX package's nested dicts, stacked over
+layers (``params["blocks"]["attn"]["wq"]`` is ``(L, d, H*hd)``; a
+super-block tree stacks ``blocks["dense"]`` and ``blocks["moe"]`` over
+the ``L / 2`` super-blocks), so :mod:`repro_torch.models.convert`
+carries a reference parameter tree across unchanged; layers run as a
+Python loop, each reading its slice through :func:`layer_params`.
+M-RoPE and audio architectures raise :class:`NotImplementedError`
+naming the arch.
 
 Attention and the SSD scan run through :mod:`repro_torch.kernels.ops`:
 the port's hand-written kernels on the card, their plain versions on
-the CPU.  Projections and the FFN are ``torch.matmul`` in bf16, as the
-JAX package left them to XLA.
+the CPU.  Projections, the FFN and the MoE products
+(:mod:`repro_torch.models.moe`) are ``torch.matmul`` / ``torch.bmm``
+in bf16, as the JAX package left them to XLA.
 
 Unlike the JAX functions, which returned new arrays, the session cache
 is updated **in place**: :func:`append_kv`, :func:`append_kv_paged` and
@@ -36,9 +42,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.describe import global_layer_mask
 from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.common import rms_norm, truncated_normal_
+from repro_torch.models.moe import MoEParams
 from repro_torch.models.ssm import SSMDims, SSMParams
 
 
@@ -53,7 +61,9 @@ class RunCfg:
     none and the kernel module's documented default applies.
     ``ssd_chunk`` and ``ssd_heads_block`` are the plan's ``ssd_scan``
     BlockPlan (the kernel module's ``DEFAULT_CHUNK`` and one head
-    without one).
+    without one).  ``moe_impl`` is the communication pass's MoE path
+    (:data:`repro_torch.models.moe.IMPLS`; any other raises when an MoE
+    layer runs).
     ``kernels`` is the plan's ``use_pallas`` mode.  The JAX package's
     mesh and sharding fields are gone (the port runs on one card), and
     so are the knobs of paths the port does not have yet.
@@ -64,23 +74,22 @@ class RunCfg:
     decode_block_kv: Optional[int] = None
     ssd_chunk: int = DEFAULT_CHUNK
     ssd_heads_block: int = 1
+    moe_impl: str = "gshard_einsum"
     kernels: str = "auto"
 
 
 def check_supported(arch: ArchConfig) -> None:
     """Raise for an architecture the port cannot run yet."""
     why = None
-    if arch.is_moe:
-        why = "MoE FFNs"
-    elif arch.mrope_sections is not None:
+    if arch.mrope_sections is not None:
         why = "M-RoPE"
     elif arch.modality != "text" or arch.is_encoder:
         why = f"{arch.modality} {arch.family} models"
     if why is not None:
         raise NotImplementedError(
             f"{arch.name}: the port serves dense GQA decoders (SiLU-gated "
-            "or squared-ReLU FFN), mamba2 SSM decoders and hybrid "
-            f"attention + SSM decoders; {why} are not ported yet")
+            "or squared-ReLU FFN), MoE decoders, mamba2 SSM decoders and "
+            f"hybrid attention + SSM decoders; {why} are not ported yet")
 
 
 def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
@@ -151,11 +160,31 @@ def _ssm_specs(arch: ArchConfig, L: int, d: int,
     }
 
 
+def _moe_specs(arch: ArchConfig, Lg: int, d: int) -> Dict[str, LeafSpec]:
+    """The MoE FFN's leaves (``src/repro/models/lm.py:137-155``): the
+    fp32 router, the gate||up and down expert stacks, and the shared
+    expert's two matrices where the arch has one."""
+    bf, f32 = torch.bfloat16, torch.float32
+    ff, E = arch.moe_d_ff or arch.d_ff, arch.n_experts
+    out_scale = 0.02 / math.sqrt(2 * arch.n_layers)
+    specs = {"router": LeafSpec((Lg, d, E), f32),
+             "wi": LeafSpec((Lg, E, d, 2 * ff), bf),
+             "wo": LeafSpec((Lg, E, ff, d), bf, out_scale)}
+    if arch.n_shared_experts:
+        sf = ff * arch.n_shared_experts
+        specs["shared_wi"] = LeafSpec((Lg, d, 2 * sf), bf)
+        specs["shared_wo"] = LeafSpec((Lg, sf, d), bf, out_scale)
+    return specs
+
+
 def leaf_specs(arch: ArchConfig, vocab_padded: int = 0,
                heads_padded: int = 0, ssm_heads_padded: int = 0,
                kv_heads_padded: int = 0) -> Dict[str, Any]:
     """The parameter-spec tree (same keys, shapes and argument order as
-    the JAX one).  A mamba2 block holds only ``pre_norm`` and ``ssm``."""
+    the JAX one).  A mamba2 block holds only ``pre_norm`` and ``ssm``;
+    an MoE block ``moe`` where a dense one holds ``mlp``; an interleaved
+    MoE arch ``blocks = {"dense": {...}, "moe": {...}}``, each stacked
+    over the ``L / 2`` super-blocks (``src/repro/models/lm.py:212-221``)."""
     check_supported(arch)
     bf, f32 = torch.bfloat16, torch.float32
     d, L, hd, ff = arch.d_model, arch.n_layers, arch.hd, arch.d_ff
@@ -163,27 +192,50 @@ def leaf_specs(arch: ArchConfig, vocab_padded: int = 0,
     H = heads_padded or arch.n_heads
     K = kv_heads_padded or arch.n_kv_heads
     out_scale = 0.02 / math.sqrt(2 * L)
-    blocks: Dict[str, Any] = {"pre_norm": LeafSpec((L, d), f32, 0.0)}
-    if arch.has_attention:
-        attn = {
-            "wq": LeafSpec((L, d, H * hd), bf),
-            "wk": LeafSpec((L, d, K * hd), bf),
-            "wv": LeafSpec((L, d, K * hd), bf),
-            "wo": LeafSpec((L, H * hd, d), bf, out_scale),
-        }
-        if arch.qk_norm:
-            attn["q_norm"] = LeafSpec((L, hd), f32, 0.0)
-            attn["k_norm"] = LeafSpec((L, hd), f32, 0.0)
-        blocks["attn"] = attn
-    if arch.has_ssm:
-        blocks["ssm"] = _ssm_specs(arch, L, d, ssm_heads_padded)
-    if arch.family != "ssm":
+    # layers a super-block: llama4's [dense, MoE] pair, else 1
+    g = arch.moe_interleave if arch.is_moe and arch.moe_interleave > 1 \
+        else 1
+    Lg = L // g
+
+    def mixer(Lh: int) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"pre_norm": LeafSpec((Lh, d), f32, 0.0)}
+        if arch.has_attention:
+            attn = {
+                "wq": LeafSpec((Lh, d, H * hd), bf),
+                "wk": LeafSpec((Lh, d, K * hd), bf),
+                "wv": LeafSpec((Lh, d, K * hd), bf),
+                "wo": LeafSpec((Lh, H * hd, d), bf, out_scale),
+            }
+            if arch.qk_norm:
+                attn["q_norm"] = LeafSpec((Lh, hd), f32, 0.0)
+                attn["k_norm"] = LeafSpec((Lh, hd), f32, 0.0)
+            out["attn"] = attn
+        if arch.has_ssm:
+            out["ssm"] = _ssm_specs(arch, Lh, d, ssm_heads_padded)
+        return out
+
+    def mlp(Lh: int) -> Dict[str, LeafSpec]:
         # SwiGLU fuses gate and up into one (d, 2 ff) matrix; the
         # squared-ReLU FFN has one (d, ff) (``_mlp_specs``)
         n_in = 2 if arch.gated_mlp else 1
-        blocks["mlp_norm"] = LeafSpec((L, d), f32, 0.0)
-        blocks["mlp"] = {"wi": LeafSpec((L, d, n_in * ff), bf),
-                         "wo": LeafSpec((L, ff, d), bf, out_scale)}
+        return {"wi": LeafSpec((Lh, d, n_in * ff), bf),
+                "wo": LeafSpec((Lh, ff, d), bf, out_scale)}
+
+    if arch.family == "ssm":
+        blocks = mixer(L)
+    elif g > 1:
+        blocks = {"dense": {**mixer(Lg),
+                            "mlp_norm": LeafSpec((Lg, d), f32, 0.0),
+                            "mlp": mlp(Lg)},
+                  "moe": {**mixer(Lg),
+                          "mlp_norm": LeafSpec((Lg, d), f32, 0.0),
+                          "moe": _moe_specs(arch, Lg, d)}}
+    else:
+        blocks = {**mixer(L), "mlp_norm": LeafSpec((L, d), f32, 0.0)}
+        if arch.is_moe:
+            blocks["moe"] = _moe_specs(arch, L, d)
+        else:
+            blocks["mlp"] = mlp(L)
     specs: Dict[str, Any] = {
         "embed": LeafSpec((V, d), bf),
         "final_norm": LeafSpec((d,), f32, 0.0),
@@ -220,29 +272,49 @@ def init_params(arch: ArchConfig, generator: torch.Generator,
 
     params = _map_specs(leaf_specs(arch, vocab_padded, heads_padded,
                                    ssm_heads_padded, kv_heads_padded), leaf)
-    attn = params["blocks"].get("attn")
-    if attn is not None and heads_padded and heads_padded != arch.n_heads:
-        cut = arch.n_heads * arch.hd
-        attn["wq"][..., cut:] = 0
-        attn["wo"][:, cut:, :] = 0
-    if attn is not None and kv_heads_padded \
-            and kv_heads_padded != arch.n_kv_heads:
-        cut = arch.n_kv_heads * arch.hd
-        attn["wk"][..., cut:] = 0
-        attn["wv"][..., cut:] = 0
-    ssm = params["blocks"].get("ssm")
-    if ssm is not None:
-        H = ssm["A_log"].shape[-1]
-        ssm["A_log"].copy_(torch.log(torch.linspace(1.0, 16.0, H)))
-        ssm["D"].fill_(1.0)
-        ssm["dt_bias"].fill_(-2.0)
+    for grp in _mixer_groups(params["blocks"]):
+        attn = grp.get("attn")
+        if attn is not None and heads_padded and heads_padded != arch.n_heads:
+            cut = arch.n_heads * arch.hd
+            attn["wq"][..., cut:] = 0
+            attn["wo"][:, cut:, :] = 0
+        if attn is not None and kv_heads_padded \
+                and kv_heads_padded != arch.n_kv_heads:
+            cut = arch.n_kv_heads * arch.hd
+            attn["wk"][..., cut:] = 0
+            attn["wv"][..., cut:] = 0
+        ssm = grp.get("ssm")
+        if ssm is not None:
+            H = ssm["A_log"].shape[-1]
+            ssm["A_log"].copy_(torch.log(torch.linspace(1.0, 16.0, H)))
+            ssm["D"].fill_(1.0)
+            ssm["dt_bias"].fill_(-2.0)
     return params
 
 
-def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i``'s slice of the stacked block parameters (views)."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+def _mixer_groups(blocks: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """The stacks holding mixer leaves: a super-block tree's dense and
+    MoE halves, else the block tree itself."""
+    return [blocks["dense"], blocks["moe"]] if "dense" in blocks \
+        else [blocks]
+
+
+def _slice(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
+    return {k: (_slice(v, i) if isinstance(v, dict) else v[i])
             for k, v in blocks.items()}
+
+
+def layer_params(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s parameters, as views of the stacked block tree.  In
+    a super-block tree layer ``2j`` is ``blocks["dense"]`` row ``j`` and
+    layer ``2j + 1`` is ``blocks["moe"]`` row ``j``: the cache's layer
+    order of the reference's ``reshape(Lg, g)`` (``src/repro/models
+    /lm.py:741-770``)."""
+    if "dense" in blocks:
+        j, r = divmod(i, 2)
+        return _slice(blocks["moe" if r else "dense"], j)
+    return _slice(blocks, i)
+
 
 
 def _window_schedule(arch: ArchConfig) -> List[int]:
@@ -303,10 +375,21 @@ def _residual(x: torch.Tensor, outs: List[torch.Tensor]) -> torch.Tensor:
     return x + (out if len(outs) == 1 else out / len(outs))
 
 
-def _ffn_fwd(arch: ArchConfig, grp, x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm FFN: SiLU-gated, or a squared ReLU of one matrix
-    (minitron-8b; ``src/repro/models/lm.py:382-400``)."""
+def _ffn_fwd(arch: ArchConfig, grp, x: torch.Tensor,
+             moe_impl: str = "gshard_einsum") -> torch.Tensor:
+    """Pre-norm FFN: SiLU-gated, a squared ReLU of one matrix
+    (minitron-8b), or, in a layer holding ``moe``, the MoE FFN on the
+    path ``moe_impl`` (``src/repro/models/lm.py:382-415``; its aux loss
+    is a training term, dropped here)."""
     h = rms_norm(x, grp["mlp_norm"], arch.norm_eps)
+    if "moe" in grp:
+        m = grp["moe"]
+        y, _ = moe_mod.moe_forward(
+            moe_impl, h, MoEParams(m["router"], m["wi"], m["wo"],
+                                   m.get("shared_wi"), m.get("shared_wo")),
+            top_k=arch.experts_per_token,
+            capacity_factor=arch.capacity_factor)
+        return x + y
     z = h @ grp["mlp"]["wi"]
     if arch.gated_mlp:
         g, u = z.chunk(2, dim=-1)
@@ -489,12 +572,14 @@ def _ssm_prefill(h: torch.Tensor, sp: SSMParams, arch: ArchConfig,
 
 
 def cache_heads(arch: ArchConfig, blocks) -> Dict[str, int]:
-    """Cache head counts read off the (possibly padded) parameters."""
+    """Cache head counts read off the (possibly padded) parameters of
+    layer 0 (every layer has the same)."""
+    grp = layer_params(blocks, 0)
     out = {}
-    if "attn" in blocks:
-        out["kv_heads"] = blocks["attn"]["wk"].shape[-1] // arch.hd
-    if "ssm" in blocks:
-        out["ssm_heads"] = blocks["ssm"]["A_log"].shape[-1]
+    if "attn" in grp:
+        out["kv_heads"] = grp["attn"]["wk"].shape[-1] // arch.hd
+    if "ssm" in grp:
+        out["ssm_heads"] = grp["ssm"]["A_log"].shape[-1]
     return out
 
 
@@ -514,7 +599,7 @@ def prefill(arch: ArchConfig, params, batch, cfg: RunCfg,
     positions = torch.arange(S, device=x.device).expand(B, S)
     windows = _window_schedule(arch)
     for i in range(arch.n_layers):
-        grp = _layer(blocks, i)
+        grp = layer_params(blocks, i)
         h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
         outs = []
         if arch.has_attention:
@@ -531,7 +616,7 @@ def prefill(arch: ArchConfig, params, batch, cfg: RunCfg,
             outs.append(y)
         x = _residual(x, outs)
         if arch.family != "ssm":
-            x = _ffn_fwd(arch, grp, x)
+            x = _ffn_fwd(arch, grp, x, cfg.moe_impl)
     x = rms_norm(x[:, -1:], params["final_norm"], arch.norm_eps)
     cache["pos"].fill_(S)
     return _logits(arch, params, x)[:, 0], cache
@@ -570,12 +655,12 @@ def prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg,
     positions = (M + torch.arange(T, device=x.device)).expand(B, T)
     blocks = params["blocks"]
     windows = _window_schedule(arch)
-    K = blocks["attn"]["wk"].shape[-1] // arch.hd
+    K = cache_heads(arch, blocks)["kv_heads"]
     tail_k = torch.empty((arch.n_layers, B, T, K, arch.hd), dtype=x.dtype,
                          device=x.device)
     tail_v = torch.empty_like(tail_k)
     for i in range(arch.n_layers):
-        grp = _layer(blocks, i)
+        grp = layer_params(blocks, i)
         h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
         ap, (q, k, v) = _qkv(arch, grp, h, positions)
         pk = k_pool[i][ids].reshape(B, M, K, arch.hd)
@@ -585,7 +670,7 @@ def prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg,
             torch.cat([pv.to(v.dtype), v], 1), causal=arch.causal,
             window=windows[i], tiles=cfg.flash_tiles, mode=cfg.kernels)
         x = x + ctx.reshape(B, T, -1) @ ap.wo
-        x = _ffn_fwd(arch, grp, x)
+        x = _ffn_fwd(arch, grp, x, cfg.moe_impl)
         tail_k[i] = k
         tail_v[i] = v
     x = rms_norm(x[:, -1:], params["final_norm"], arch.norm_eps)
@@ -613,7 +698,7 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
     blocks = params["blocks"]
     windows = _window_schedule(arch)
     for i in range(arch.n_layers):
-        grp = _layer(blocks, i)
+        grp = layer_params(blocks, i)
         h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
         outs = []
         if arch.has_attention:
@@ -642,7 +727,7 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
             outs.append(y)
         x = _residual(x, outs)
         if arch.family != "ssm":
-            x = _ffn_fwd(arch, grp, x)
+            x = _ffn_fwd(arch, grp, x, cfg.moe_impl)
     x = rms_norm(x, params["final_norm"], arch.norm_eps)
     cache["pos"] = cache_len
     return _logits(arch, params, x)[:, 0], cache

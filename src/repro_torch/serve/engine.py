@@ -213,7 +213,7 @@ class ServeEngine:
             raise ValueError(
                 f"kv_host_blocks must be >= 0, got {kv_host_blocks}")
         self.device = params["embed"].device
-        attn = params["blocks"].get("attn")
+        attn = lm.layer_params(params["blocks"], 0).get("attn")
         lm.check_on_device(
             arch, self.device,
             heads=attn["wq"].shape[-1] // arch.hd if attn else 0,

@@ -858,17 +858,20 @@ def test_grant_engine_on_card_matches_cpu(dev):
 
 
 def test_device_check_names_the_group_and_k2():
-    """deepseek-coder-33b (G = 7), qwen3-8b, mamba2, minitron-8b and
-    hymba-1.5b (G = 5 at head_dim 64) are admitted for a CUDA device; a
-    (group, head_dim) pair no kernel instance takes — G = 5 at head_dim
-    128 (llama4's), G = 4 at 64, head_dim 80 — is refused before any
+    """deepseek-coder-33b (G = 7), qwen3-8b, mamba2, minitron-8b,
+    hymba-1.5b (G = 5 at head_dim 64), granite-moe-1b-a400m (G = 2 at
+    64) and llama4-maverick (G = 5 at 128) are admitted for a CUDA
+    device; a (group, head_dim) pair no kernel instance takes — G = 3 at
+    head_dim 128, G = 4 at 64, head_dim 80 — is refused before any
     weight is built, on any machine, naming the kernels."""
     for name in ("deepseek-coder-33b", "qwen3-8b", "mamba2-2.7b",
-                 "minitron-8b", "hymba-1.5b"):
+                 "minitron-8b", "hymba-1.5b", "granite-moe-1b-a400m",
+                 "llama4-maverick-400b-a17b"):
         lm.check_on_device(get_arch(name), "cuda")
     qwen = get_arch("qwen3-8b")
-    with pytest.raises(NotImplementedError, match=r"G = 5.*decode_attention"):
-        lm.check_on_device(dataclasses.replace(qwen, n_heads=40), "cuda")
+    with pytest.raises(NotImplementedError,
+                       match=r"G = 3.*flash_attention.*decode_attention"):
+        lm.check_on_device(dataclasses.replace(qwen, n_heads=24), "cuda")
     with pytest.raises(NotImplementedError,
                        match=r"head_dim 64.*decode_attention"):
         lm.check_on_device(dataclasses.replace(qwen, head_dim=64), "cuda")
@@ -1161,3 +1164,195 @@ def test_matmul_check_rejects_planted_faults(where, fault):
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     got, want = mm_faulted(fault, torch.device(where))
     assert _rel_err(got, want) > 5 * MM_TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------
+# the MoE slice: decode at (G = 2, head_dim 64) for granite-moe-1b-a400m
+# and (G = 5, head_dim 128) for llama4-maverick; the MoE layer on the card
+# ---------------------------------------------------------------------
+
+MOE_PAIRS = {"granite": (16, 8, 64), "llama4": (40, 8, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", sorted(MOE_PAIRS))
+@pytest.mark.parametrize("tile", [64, 256])
+def test_decode_kernels_at_the_moe_pairs_match_plain(dev, pair, tile):
+    """Paged and dense decode at granite's 16 / 8 heads of 64 and
+    llama4's 40 / 8 heads of 128 (the ``decode_kernel<2, 64, *>`` and
+    ``<5, 128, *>`` instances) against their plain versions, beside a
+    split dropped from the merge and a swapped table entry, which must
+    fail the same check."""
+    Hq, Kv, Dh = MOE_PAIRS[pair]
+    g = torch.Generator(dev).manual_seed(tile + Dh)
+    bl, B, max_len = 256, 8, 2048
+    lens = torch.tensor([1, 64, 300, 777, 1024, 1500, 1999, 2048],
+                        dtype=torch.int32, device=dev)
+    nb = max_len // bl
+    tbl = torch.randperm(B * nb, generator=g, device=dev).int().reshape(
+        B, nb).contiguous()
+    q = _rnd(g, B, Hq, Dh)
+    kp, vp = _rnd(g, B * nb, bl, Kv, Dh), _rnd(g, B * nb, bl, Kv, Dh)
+    kd, vd = tref.paged_gather_ref(kp, tbl), tref.paged_gather_ref(vp, tbl)
+    kw = dict(cache_len=lens)
+    paged = tdec.paged_decode_attention(q, kp, vp, tbl, block_kv=tile, **kw)
+    dense = tdec.decode_attention(q, kd.contiguous(), vd.contiguous(),
+                                  block_kv=tile, **kw)
+    want = tdec.decode_attention_plain(q, kd, vd, **kw)
+    swapped = tbl.clone()
+    swapped[-1, 0] = tbl[-2, 0]
+    faults = [tdec.paged_decode_attention(q, kp, vp, tbl, block_kv=tile,
+                                          drop_split=0, **kw),
+              tdec.decode_attention(q, kd.contiguous(), vd.contiguous(),
+                                    block_kv=tile, drop_split=0, **kw),
+              tdec.paged_decode_attention(q, kp, vp, swapped, block_kv=tile,
+                                          **kw)]
+    torch.cuda.synchronize()
+    assert _rel_err(paged, want) < DECODE_TOL
+    assert _rel_err(dense, want) < DECODE_TOL
+    for bad in faults:
+        assert _rel_err(bad, want) > 5 * DECODE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", sorted(MOE_PAIRS))
+@pytest.mark.parametrize("S", [1, 64, 300, 1024])
+def test_flash_kernel_at_the_moe_pairs_matches_plain(dev, pair, S):
+    """Causal flash at granite's (2, 64) and llama4's (5, 128), whole
+    (64 and 25 positions in a 128-row tile), against the plain version,
+    the rows of each CTA's first position on their own, with the planted
+    faults failing the same check: at G = 5 the pad rows written over
+    those positions (G = 2 fills its tile and has no pad row), at both
+    the longest rows' first kv tile dropped."""
+    Hq, Kv, Dh = MOE_PAIRS[pair]
+    G = Hq // Kv
+    g = torch.Generator(dev).manual_seed(S + Dh)
+    q = _rnd(g, 2, S, Hq, Dh)
+    k, v = _rnd(g, 2, S, Kv, Dh), _rnd(g, 2, S, Kv, Dh)
+    rows, _ = tfa.kernel_tiles(G)
+    got = tfa.flash_attention(q, k, v, causal=True)
+    pad = tfa.flash_attention(q, k, v, causal=True, pad_fault=True)
+    want = tfa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) < FLASH_TOL
+    edge = _boundary_rows(S, rows, G).to(dev)
+    if edge.numel():
+        assert _rel_err(got[:, edge], want[:, edge]) < FLASH_TOL
+    if edge.numel() and rows % G:    # G = 5: three pad rows a CTA
+        assert _rel_err(pad[:, edge], want[:, edge]) > 5 * FLASH_TOL
+    if S >= 300:
+        dropped = tfa.flash_attention(q, k, v, causal=True, window=S - 64)
+        assert _rel_err(dropped, want) > 5 * FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", sorted(MOE_PAIRS))
+@pytest.mark.parametrize("M,T", [(1024, 256), (64, 1), (100, 37)])
+def test_flash_kernel_at_the_moe_pairs_at_an_offset(dev, pair, M, T):
+    """A tail over a resident prefix at both MoE pairs: against the
+    plain version and the full launch's tail rows, with the offset
+    ignored failing the same check."""
+    Hq, Kv, Dh = MOE_PAIRS[pair]
+    g = torch.Generator(dev).manual_seed(M + T + Dh)
+    q = _rnd(g, 2, M + T, Hq, Dh)
+    k, v = _rnd(g, 2, M + T, Kv, Dh), _rnd(g, 2, M + T, Kv, Dh)
+    tail = q[:, M:].contiguous()
+    got = tfa.flash_attention(tail, k, v)
+    full = tfa.flash_attention(q, k, v)
+    want = tfa.flash_attention_plain(tail, k, v)
+    bad = tfa.flash_attention(tail, k, v, ignore_offset=True)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) < FLASH_TOL
+    assert _rel_err(got, full[:, M:]) < FLASH_TOL
+    assert _rel_err(bad, want) > 5 * FLASH_TOL
+
+
+def _moe_card_arch(name: str):
+    """The reduced MoE arch at a pair the card's kernels take: granite
+    (8 experts top-2, one MoE FFN a layer) with its head_dim 64 and G =
+    2; llama4 (two [dense, MoE] super-blocks, 8 experts top-1, a shared
+    expert) with its head_dim 128 and G = 5."""
+    arch = get_arch(name).reduced()
+    if name.startswith("llama4"):
+        return dataclasses.replace(arch, n_heads=10, n_kv_heads=2,
+                                   head_dim=128)
+    return dataclasses.replace(arch, head_dim=64)
+
+
+def _top_gap(x, router, k) -> float:
+    """The smallest gap between consecutive ones of each token's top
+    ``k + 1`` router probabilities (fp32 on the CPU): a routing decision
+    is defined only where it is not within 1e-6."""
+    probs = torch.softmax(x.double() @ router.double(), -1).float()
+    top = probs.topk(min(k + 1, probs.shape[-1]), -1).values
+    return float((top[..., :-1] - top[..., 1:]).min())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,impl", [
+    ("granite-moe-1b-a400m", "gshard_einsum"),
+    ("granite-moe-1b-a400m", "dense_einsum"),
+    ("llama4-maverick-400b-a17b", "gshard_einsum")])
+def test_moe_model_on_card_matches_cpu(dev, name, impl, monkeypatch):
+    """Prefill and four paged decode steps of a reduced MoE model through
+    the kernels on the card against the plain versions on the CPU, same
+    weights: logits within 2e-2 of the CPU logits' scale; and every
+    ``route`` call's inputs from the CPU run routed again on the card:
+    ``dispatch`` (the integer slots) identical wherever no top
+    probability is within 1e-6 of the next."""
+    from repro_torch.models import moe
+
+    arch = _moe_card_arch(name)
+    plan = specialize(arch, ShapeConfig("t", "decode", 512, 4),
+                      mesh_shape=(1, 1), cache=False)
+    cfg = dataclasses.replace(build_run_cfg(plan, arch), moe_impl=impl)
+    params_cpu = lm.init_params(arch, torch.Generator().manual_seed(0),
+                                *plan.padded_sizes())
+    calls = []
+    route = moe.route
+
+    def recording(x, router_w, top_k, capacity):
+        if x.device.type == "cpu":
+            calls.append((x, router_w, top_k, capacity))
+        return route(x, router_w, top_k, capacity)
+
+    monkeypatch.setattr(moe, "route", recording)
+    toks = torch.randint(0, arch.vocab_size, (4, 100),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        params = _to(params_cpu, d)
+        ops.reset_launch_counts()
+        logits, cache = lm.prefill(arch, params, {"tokens": toks.to(d)}, cfg,
+                                   max_len=512)
+        bl = int(plan.estimates["kv_block_len"])
+        nb = 512 // bl
+        cache = dict(cache, k=cache["k"].reshape(arch.n_layers, 4 * nb, bl,
+                                                 *cache["k"].shape[3:]),
+                     v=cache["v"].reshape(arch.n_layers, 4 * nb, bl,
+                                          *cache["v"].shape[3:]),
+                     block_tbl=torch.arange(4 * nb, dtype=torch.int32,
+                                            device=d).reshape(4, nb))
+        steps = [logits.float().cpu()]
+        for i in range(4):
+            logits, cache = lm.decode_step(
+                arch, params, cache, {"tokens": toks[:, i:i + 1].to(d)}, cfg)
+            steps.append(logits.float().cpu())
+        out[d.type] = steps
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert counts["flash_attention"] == arch.n_layers
+            assert counts["paged_decode_attention"] == 4 * arch.n_layers
+    for c, gpu in zip(out["cpu"], out["cuda"]):
+        assert float((gpu - c).abs().max() / c.abs().max()) < LOGIT_TOL
+    assert bool(calls) == (impl == "gshard_einsum")
+    compared = 0
+    for x, router_w, top_k, capacity in calls:
+        if _top_gap(x, router_w, top_k) <= 1e-6:
+            continue
+        want = route(x, router_w, top_k, capacity)[0]
+        got = route(x.to(dev), router_w.to(dev), top_k, capacity)[0]
+        assert torch.equal(got.cpu(), want)
+        compared += 1
+    assert compared >= len(calls) // 2

@@ -214,7 +214,8 @@ def test_decode_tile_contract():
             tdec.kernel_tile("x", t)
     for g, d in tdec.INSTANCES:
         assert tdec.smem_bytes(g, max(tdec.KERNEL_TILES), d) <= 232_448
-    assert tdec.takes_group(5, 64) and not tdec.takes_group(5, 128)
+    assert tdec.takes_group(5, 64) and tdec.takes_group(5, 128)
+    assert tdec.takes_group(2, 64) and not tdec.takes_group(3, 128)
     assert tdec.takes_group(4, 128) and not tdec.takes_group(4, 64)
 
 

@@ -497,13 +497,14 @@ def test_serve_batch_flow_runs_the_plan_as_frozen(qwen):
 # ---------------------------------------------------------------------
 
 def test_device_check_refuses_group_7_on_cuda_before_any_weights():
-    """The F1 check, now that the kernels take G = 7 and hymba-1.5b's
-    (G = 5, head_dim 64): deepseek-coder-33b and hymba-1.5b are admitted
-    on CUDA, and what the kernels still refuse — G = 3, and G = 5 at
-    head_dim 128 (no decode instance) — is refused before any weights
-    load, naming the kernels, by the device check; the launcher refuses
-    an arch the port does not serve before any weights too (on a
-    CPU-only torch a CUDA generator would raise RuntimeError, not
+    """The F1 check, now that the kernels take G = 7, hymba-1.5b's (G =
+    5, head_dim 64), granite's (2, 64) and llama4's (5, 128):
+    deepseek-coder-33b and hymba-1.5b are admitted on CUDA, and what the
+    kernels still refuse — G = 3, and G = 4 at head_dim 64 (no decode
+    instance) — is refused before any weights load, naming the kernels,
+    by the device check; the launcher refuses an arch the port does not
+    serve (qwen2-vl-72b, M-RoPE) before any weights too (on a CPU-only
+    torch a CUDA generator would raise RuntimeError, not
     NotImplementedError)."""
     coder = tget_arch("deepseek-coder-33b")
     assert coder.n_heads // coder.n_kv_heads == 7
@@ -514,11 +515,11 @@ def test_device_check_refuses_group_7_on_cuda_before_any_weights():
     with pytest.raises(NotImplementedError,
                        match=r"G = 3.*flash_attention.*decode_attention"):
         tlm.check_on_device(three, "cuda")
-    five = dataclasses.replace(coder, n_heads=40)
-    with pytest.raises(NotImplementedError, match=r"G = 5.*decode_attention"):
-        tlm.check_on_device(five, torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match=r"MoE"):
-        tserve.main(["--arch", "granite-moe-1b-a400m", "--full", "--device",
+    four = dataclasses.replace(coder, n_heads=32, head_dim=64)
+    with pytest.raises(NotImplementedError, match=r"G = 4.*decode_attention"):
+        tlm.check_on_device(four, torch.device("cuda", 0))
+    with pytest.raises(NotImplementedError, match=r"M-RoPE"):
+        tserve.main(["--arch", "qwen2-vl-72b", "--full", "--device",
                      "cuda", "--from-plan"])
 
 
