@@ -13,7 +13,10 @@ attention at head_dim 64 and a GQA group of 2) and llama4-maverick's
 [dense, MoE] super-block at full width (128 experts top-1 beside a
 shared expert, a GQA group of 5 at head_dim 128), random weights from a
 seed, and holds each of the paths' hand-written
-kernels against its plain PyTorch version on the card.
+kernels against its plain PyTorch version on the card.  It also drives
+the training path — ``specialize(target="h100-sxm")`` ->
+``lower_train_step`` -> ``Trainer.fit`` — for full-width qwen3-8b cut to
+24 of its 36 layers, through the flash forward and backward kernels.
 
 Phases (any failure exits non-zero before the last line):
 
@@ -51,6 +54,13 @@ Phases (any failure exits non-zero before the last line):
    (paged and dense) again at granite's 16 / 8 heads of 64 and llama4's
    40 / 8 heads of 128, on a generator of their own, beside the same
    planted faults (G = 2 fills its flash tile: no pad row to plant);
+   the flash backward (dq, dk, dv) at the train shape (B=1 S=2048,
+   32 / 8 heads of 128, causal), at B=2 S=1024 and at hymba's 25 / 5
+   heads of 64 through a 1024 window, row by row against the plain
+   backward beside two planted faults (a q tile dropped from the dK/dV
+   loop; one head of the group summed), timed in turns with SDPA's
+   backward, with the forward kernel's time with and without the
+   log-sum-exp it writes for the backward;
 3. qwen3-8b serve, paged: the plan as frozen (paged pool, prefix reuse,
    512 host blocks), 16 requests; both tiers whole after the engine's
    block cache is dropped;
@@ -112,7 +122,21 @@ Phases (any failure exits non-zero before the last line):
    and timed beside its bound, the plain version and ``torch.matmul``.
    No serving path launches this kernel: the models' projections stay
    ``torch.matmul``;
-16. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+16. training (every earlier weight freed): full-width qwen3-8b at 24
+   layers from the unmodified ``h100-sxm`` plan for a 2048 x 1 train
+   shape (bf16 moments, no master copy: stochastic rounding; remat none)
+   through ``Trainer.fit`` for 6 steps: the last layer's gradients and
+   the step-0 loss through the kernels against ``flash_attention_plain``
+   under autograd (noise floor, wrong-target control), 24 forward and
+   24 backward flash calls a step, every loss and grad norm finite,
+   every bf16 parameter element of the last step on one of the two bf16
+   neighbours of its fp32 update, the peak memory beside the plan's
+   estimates;
+17. a small qwen3 (head_dim 128, master weights) trained 4 steps on the
+   card against the CPU, then saved at step 2 and resumed by a fresh
+   trainer: steps 3-4 and the final state bitwise equal to the
+   uninterrupted run;
+18. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
 name and power limit.
@@ -122,8 +146,11 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -143,7 +170,13 @@ HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
 # decode 6.7e-4 paged, 2.8e-4 dense: fp32 P); see row_err.  The SSD scan
 # is fp32 on both sides, but for the sums: fp64 in the kernel.
 TOL = {"flash_attention": 1e-2, "paged_decode_attention": 3e-3,
-       "decode_attention": 3e-3, "ssd_scan": 1e-3}
+       "decode_attention": 3e-3, "ssd_scan": 1e-3,
+       "flash_attention_bwd": 2e-2}
+# The flash backward's rows (dq, dk, dv) erred at most 5.15e-3 on an H100
+# (it rounds P and dS to bf16 for its products); a gradient row that
+# vanishes (the first query's dq) is measured against GRAD_FLOOR x its
+# tensor's rms (grad_row_err)
+GRAD_FLOOR = 0.05
 # The SSD scan's rows are also held at TOL against an fp64 plain version,
 # on the checked draws and on SSD_DRAWS more: the fp32 plain version errs
 # up to ~1e-3 of a row whose terms cancel, so it alone cannot tell a
@@ -165,6 +198,22 @@ MOE_PAIRS = {"granite": (16, 8, 64), "llama4": (40, 8, 128)}
 GRANITE, LLAMA4 = "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"
 SSD_H, SSD_P, SSD_N, SSD_G = 80, 64, 128, 1   # mamba2-2.7b SSD widths
 HSSD_H, HSSD_N = 50, 16     # hymba-1.5b SSD widths (P = 64, one group)
+# training: full-width qwen3-8b cut to 24 of its 36 layers (its state,
+# gradients and eager activations at 36 layers exceed the card), steps
+TRAIN_LAYERS, TRAIN_STEPS = 24, 6
+# small model, card vs CPU, each bound ten times its worst reading on
+# an H100 at 700 W: |loss difference| a step (losses ~6.27; read
+# 3.0e-5) and the grad norm's relative difference a step (read 1.75e-4;
+# the drop_tile backward moves it by 7.6e-2)
+SMALL_TRAIN_TOL = 3e-4
+SMALL_GRAD_NORM_TOL = 2e-3
+# the train phase's last-layer gradients, kernels against the plain
+# attention, rms-relative per tensor: the kernels against themselves
+# under another forward tile already differ by up to 6.2e-2 (the q / k
+# norm scales, sums over 2048 x 32 rows that cancel; an H100), so the
+# bound is about three times that floor; the wrong-target control sits
+# at 1.4, seven times above it
+TRAIN_GRAD_TOL = 0.2
 SEED = 0
 CARD = ""                   # nvidia-smi name, power limit (set in main)
 # prefill buckets of 2048 prompt tokens (the serve phases' power-of-two
@@ -596,6 +645,7 @@ def kernel_phase(torch, dev):
         for name, r in gqa_kernel_check(torch, F, fa, dec, rnd_moe, dev, gm,
                                         Hq=hq, Kv=kv, Dh=dh, W=0).items():
             res[name][key] = r
+    res["flash_attention_bwd"] = flash_bwd_check(torch, F, fa, dev)
     for name, r in res.items():
         log(f"timing {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
@@ -2856,6 +2906,502 @@ def _to(torch, tree, dev):
 
 
 # ---------------------------------------------------------------------
+# the flash backward (phase 2) and training (phases 15-16)
+# ---------------------------------------------------------------------
+
+def grad_row_err(torch, got, want):
+    """:func:`row_err` for a gradient: ``max |got - want|`` and the worst
+    row's rms |got - want| over ``max(rms |want row|, GRAD_FLOOR x rms
+    |want|)``.  A gradient row can vanish where the output row does
+    not: the first query of a causal sequence sees one key, so P = 1,
+    dS = dP - Delta = 0 and its dq row is 0 up to the order of two fp32
+    sums — relative to itself, noise.  The floor measures such a row
+    against the tensor's scale; every other row against its own."""
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), "kernel gradient is not finite")
+    e = (got - want).reshape(-1, got.shape[-1])
+    w = want.reshape(-1, want.shape[-1])
+    floor = GRAD_FLOOR * float(w.pow(2).mean().sqrt())
+    rel = e.pow(2).mean(1).sqrt() / w.pow(2).mean(1).sqrt().clamp_min(
+        max(floor, 1e-12))
+    return float(e.abs().max()), float(rel.max())
+
+
+def _causal_pairs(S: int, window: int) -> int:
+    """Live (query, key) pairs of one causal sequence of ``S``, under a
+    window counted back from each query (0: none)."""
+    return sum(min(i + 1, window) if window else i + 1 for i in range(S))
+
+
+def flash_bwd_check(torch, F, fa, dev):
+    """The flash backward at the training shape, qwen3-8b's widths (32 /
+    8 heads of 128) at B=1 S=2048 causal, also at B=2 S=1024, and at
+    hymba's (25 / 5 heads of 64) through a 1024 window at B=1 S=2048.
+    dq, dk and dv are held row by row (:func:`grad_row_err`) against the
+    plain backward on the same q, k, v, o, lse and dO (o and lse from the
+    forward kernel), beside two planted faults on dk / dv that must fail
+    the same check; then timed in turns with the library yardstick (the
+    backward of SDPA, ``is_causal`` and ``enable_gqa``, with a boolean
+    mask for the window: ``torch.autograd.grad`` alone, the forward
+    outside the timing), beside the plain version and the forward kernel
+    with and without its log-sum-exp.  Bound: 2.5x the forward's causal
+    multiply-adds at the bf16 peak, or the bytes (q, k, v, o, dO, lse in;
+    dq, dk, dv out) at the memory rate, whichever is larger.  On a
+    generator of its own: the kernel phase's shared draws stay as they
+    were."""
+    g = torch.Generator(dev).manual_seed(SEED + 20)
+    tol = TOL["flash_attention_bwd"]
+    out = {"shapes": []}
+    for B, S, Hq, Kv, Dh, W in ((1, 2048, H, K, D, 0),
+                                (2, 1024, H, K, D, 0),
+                                (1, 2048, H5, K5, D64, W5)):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+
+        q, k, v, do = (rnd(B, S, Hq, Dh), rnd(B, S, Kv, Dh),
+                       rnd(B, S, Kv, Dh), rnd(B, S, Hq, Dh))
+        o, lse = fa.flash_attention(q, k, v, causal=True, window=W,
+                                    return_lse=True)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                            causal=True, window=W)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                     window=W)
+        errs = [grad_row_err(torch, a, b) for a, b in zip(got, want)]
+        err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+        tag = f"G={Hq // Kv} D={Dh} B={B} S={S}" + (f" window {W}" if W
+                                                    else "")
+        log(f"kernel flash_attention_bwd {tag}: max_abs_err={err:.3e} worst "
+            f"row rel dq/dk/dv={[round(r, 6) for _, r in errs]} (tol {tol}, "
+            f"rows floored at {GRAD_FLOOR} x the tensor's rms) [{CARD}]")
+        check(rel <= tol, f"flash_attention_bwd {tag} row rel err {rel} > "
+              f"{tol}")
+        controls = {}
+        for fault in ("drop_tile", "group_fault"):
+            bad = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                         window=W, **{fault: True})
+            c = min(grad_row_err(torch, a, b)[1]
+                    for a, b in zip(bad[1:], want[1:]))
+            log(f"control flash_attention_bwd {tag} {fault}: worst row rel "
+                f"of dk, dv >= {c:.3e} (must exceed tol {tol}) [{CARD}]")
+            check(c > tol, f"control flash_attention_bwd {fault} passed the "
+                  f"check ({c} <= {tol})")
+            controls[fault] = c
+        # the yardstick: SDPA's backward on the same tensors
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        mask = None
+        if W:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[:, None] - pos[None, :] < W)
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=not W, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        med, rounds = in_turns(torch, {
+            "kernel": lambda: fa.flash_attention_bwd(
+                q, k, v, o, lse, do, causal=True, window=W),
+            "library": lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dot, retain_graph=True)})
+        fwd, _ = in_turns(torch, {
+            "with_lse": lambda: fa.flash_attention(
+                q, k, v, causal=True, window=W, return_lse=True),
+            "without": lambda: fa.flash_attention(q, k, v, causal=True,
+                                                  window=W)})
+        pairs = B * _causal_pairs(S, W)
+        nbytes = 2 * (3 * B * S * Hq * Dh + 2 * B * S * Kv * Dh) \
+            + 4 * B * Hq * S + 2 * (B * S * Hq * Dh + 2 * B * S * Kv * Dh)
+        b_ms, b_by = bound(nbytes, 2.5 * 4 * Dh * Hq * pairs)
+        row = dict(B=B, S=S, H=Hq, K=Kv, D=Dh, window=W, ms=med["kernel"],
+                   library_ms=med["library"], turns_ms=rounds["kernel"],
+                   library_turns_ms=rounds["library"], bound_ms=b_ms,
+                   bound_by=b_by, row_rel_err=rel, max_abs_err=err,
+                   control_row_rel_err=controls,
+                   fwd_with_lse_ms=fwd["with_lse"],
+                   fwd_without_lse_ms=fwd["without"])
+        log(f"timing flash_attention_bwd {tag}: kernel {med['kernel']:.4f} "
+            f"ms, SDPA backward {med['library']:.4f} ms (medians of {TURNS} "
+            f"turns: kernel {fmt(rounds['kernel'])}, SDPA "
+            f"{fmt(rounds['library'])}), bound {b_ms:.4f} ms ({b_by}); "
+            f"forward kernel with lse {fwd['with_lse']:.4f} ms, without "
+            f"{fwd['without']:.4f} ms [{CARD}]")
+        if not out["shapes"]:            # the headline: the train shape
+            row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
+            out.update(
+                route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/attention.py:74",
+                max_abs_err=err, row_rel_err=rel, tolerance=tol,
+                control_row_rel_err=controls, ms=med["kernel"],
+                plain_ms=row["plain_ms"], library_ms=med["library"],
+                bound_ms=b_ms, bound_by=b_by,
+                fwd_with_lse_ms=fwd["with_lse"],
+                fwd_without_lse_ms=fwd["without"],
+                shape=f"B={B} S={S} H={Hq} K={Kv} D={Dh} causal bf16, three "
+                      f"launches a call; kernel and library: medians of "
+                      f"{TURNS} turns",
+                library_call="torch.autograd.grad of "
+                             "F.scaled_dot_product_attention(is_causal, "
+                             "enable_gqa)")
+        out["shapes"].append(row)
+        del qt, kt, vt, lib_out
+    return out
+
+
+def _last_layer_grads(torch, arch, params, batch, cfg, plain: bool):
+    """The training loss of ``batch`` and the gradients of the last layer
+    (its leaves and its input): the first ``L - 1`` layers run without
+    autograd, the last with it, then the final norm, the logits and the
+    loss, as ``lm.train_loss`` computes them.  ``plain`` sends attention
+    through ``flash_attention_plain`` under torch autograd instead of the
+    kernels' autograd function."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import lm
+    from repro_torch.models.common import cross_entropy_loss, rms_norm
+
+    routed = attn_mod.attention_chunked
+    if plain:
+        attn_mod.attention_chunked = (
+            lambda q, k, v, *, causal, window, tiles, mode:
+            fa.flash_attention_plain(q, k, v, causal=causal, window=window))
+    try:
+        L = arch.n_layers
+        layers = lm._unbind_layers(params["blocks"], L)
+        windows = lm._window_schedule(arch)
+        with torch.no_grad():
+            x = lm._embed_in(arch, params, batch)
+            B, S = x.shape[:2]
+            positions = torch.arange(S, device=x.device).expand(B, S)
+            for i in range(L - 1):
+                x = lm._block_fwd(arch, cfg, layers[i], x, positions,
+                                  windows[i])
+        x = x.detach().requires_grad_()
+        last = _map_tree(layers[-1], lambda t: t.detach().requires_grad_())
+        y = lm._block_fwd(arch, cfg, last, x, positions, windows[-1])
+        y = rms_norm(y, params["final_norm"], arch.norm_eps)
+        loss, _ = cross_entropy_loss(lm._logits(arch, params, y),
+                                     batch["targets"],
+                                     vocab_size=arch.vocab_size)
+        named = [("input", x)] + _named(last)
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+        return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
+    finally:
+        attn_mod.attention_chunked = routed
+
+
+@contextlib.contextmanager
+def planted_bwd(fault: str):
+    """Send the flash autograd function's backward through the kernel
+    with one planted fault (``drop_tile`` / ``group_fault``): a control
+    that the check around it must catch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kernel = fa.flash_attention_bwd
+    fa.flash_attention_bwd = functools.partial(kernel, **{fault: True})
+    try:
+        yield
+    finally:
+        fa.flash_attention_bwd = kernel
+
+
+def train_grad_check(torch, dev, arch, cfg, params, batch):
+    """(b) of the train phase: the step-0 loss and the last layer's
+    gradients through the kernels (forward and backward) against the same
+    layer and loss through ``flash_attention_plain`` under autograd, on
+    the same card.  rms-relative per gradient tensor at
+    :data:`TRAIN_GRAD_TOL`,
+    beside its noise floor (the kernels against themselves under another
+    forward tile, 64 rows x 64 keys) and two controls that must fail it:
+    a wrong input (the targets shifted by one) and a wrong backward (the
+    kernel with ``drop_tile`` planted, through the autograd route)."""
+    loss_k, gk = _last_layer_grads(torch, arch, params, batch, cfg, False)
+    loss_p, gp = _last_layer_grads(torch, arch, params, batch, cfg, True)
+    G = arch.n_heads // arch.n_kv_heads
+    retiled = dataclasses.replace(cfg, flash_tiles=(64 // G, 64))
+    _, gr = _last_layer_grads(torch, arch, params, batch, retiled, False)
+    wrong = dict(batch, targets=(batch["targets"] + 1) % arch.vocab_size)
+    _, gw = _last_layer_grads(torch, arch, params, wrong, cfg, False)
+    with planted_bwd("drop_tile"):
+        _, gd = _last_layer_grads(torch, arch, params, batch, cfg, False)
+    rel = {n: _rms_rel(torch, gk[n].float(), gp[n].float()) for n in gp}
+    floor = max(_rms_rel(torch, gr[n].float(), gk[n].float()) for n in gk)
+    ctl = min(_rms_rel(torch, gw[n].float(), gp[n].float()) for n in gp)
+    dropped = {n: _rms_rel(torch, gd[n].float(), gp[n].float()) for n in gp}
+    planted = max(dropped.values())
+    worst = max(rel.values())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"check train step-0 loss kernels {loss_k:.6f} vs plain "
+        f"{loss_p:.6f} (rel {loss_rel:.3e}); last layer's gradients "
+        f"rms_rel worst {worst:.3e} ({max(rel, key=rel.get)}; tol "
+        f"{TRAIN_GRAD_TOL};"
+        f" kernels re-tiled against themselves {floor:.3e}; wrong-target "
+        f"control >= {ctl:.3e}; drop_tile backward control worst "
+        f"{planted:.3e} ({max(dropped, key=dropped.get)})) "
+        f"{dict((n, round(r, 6)) for n, r in rel.items())} [{CARD}]")
+    check(all(math.isfinite(x) for x in (loss_k, loss_p)),
+          "train check: loss not finite")
+    check(worst <= TRAIN_GRAD_TOL and loss_rel <= LOGIT_TOL,
+          f"train check: gradients rms_rel {worst} > {TRAIN_GRAD_TOL} or "
+          f"loss rel {loss_rel} > {LOGIT_TOL}")
+    check(ctl > TRAIN_GRAD_TOL, f"train check: the wrong-target control "
+          f"passed ({ctl})")
+    check(planted > TRAIN_GRAD_TOL, f"train check: the drop_tile backward "
+          f"control passed ({planted})")
+    return dict(loss_kernels=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
+                grad_rms_rel=rel, floor=floor, control=ctl,
+                drop_tile_control=dropped, tol=TRAIN_GRAD_TOL)
+
+
+class RoundingCheck:
+    """Wraps ``adamw._stochastic_round_bf16`` for (c) of the train phase:
+    every element it rounds must come out as one of the two bf16
+    neighbours of its fp32 value (the truncated bits, or those plus one
+    bf16 ulp), and the count rounded up must match the expected count,
+    the sum of the truncated fractions, within six standard deviations."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn = torch, fn
+        self.elements = self.off_pair = self.up = 0
+        self.expect_up = self.var = 0.0
+
+    def __call__(self, x, generator):
+        torch = self.torch
+        out = self.fn(x, generator)
+        bits = x.float().contiguous().view(torch.int32)
+        lo = bits & -65536
+        got = out.float().view(torch.int32)
+        up = got == lo + 65536
+        frac = (bits & 0xFFFF).double() / 65536
+        self.off_pair += int((~(up | (got == lo))).sum())
+        self.up += int(up.sum())
+        self.expect_up += float(frac.sum())
+        self.var += float((frac * (1 - frac)).sum())
+        self.elements += x.numel()
+        return out
+
+
+def train_phase(torch, dev):
+    """Full-width qwen3-8b cut to :data:`TRAIN_LAYERS` layers (the only
+    cut), trained from the unmodified ``h100-sxm`` plan for
+    ``ShapeConfig("train_2k", "train", 2048, 1)`` — bf16 moments, no
+    master copy (stochastic rounding), remat and microbatches as planned
+    — through ``Trainer.fit`` for :data:`TRAIN_STEPS` steps on the
+    synthetic pipeline, every earlier weight freed first.  Before the
+    fit, the kernels' gradient check (:func:`train_grad_check`); the
+    last step runs with :class:`RoundingCheck` on the optimizer's
+    rounding, the steps before it are timed clean."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.core.passes.lowering import build_run_cfg
+    from repro_torch.data import SyntheticSource, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import plan_memory
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+
+    arch = dataclasses.replace(get_arch("qwen3-8b"), n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train_2k", "train", 2048, 1)
+    plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
+                      plan_dir=PLAN_DIR)
+    est = plan_memory(plan)
+    decisions = {"opt": dict(plan.opt), "remat": plan.comm.remat_policy,
+                 "microbatches": plan.comm.microbatches,
+                 "flash": dict(plan.partitions["flash_attention"].blocks)}
+    log(f"train plan {plan.content_hash()[:12]}: {decisions}; state "
+        f"{est['state_bytes'] / 2**30:.2f} GiB, activations "
+        f"{est['activation_gib']} GiB (the plan's estimates)")
+    for entry in plan.log:
+        if entry[0] in ("data_organization", "communication"):
+            log("  train plan: " + " | ".join(entry))
+    check(plan.opt == {"moment_dtype": "bfloat16", "master_weights": False},
+          f"the train plan's optimizer decisions moved: {plan.opt}")
+    cfg = build_run_cfg(plan, arch)
+    trainer = Trainer(plan, None, TrainerConfig(
+        n_steps=TRAIN_STEPS, ckpt_every=0, log_every=1, seed=SEED,
+        ckpt_dir=str(ROOT / "build" / "ckpt_train")), arch=arch,
+        shape=shape, device=dev)
+    t0 = time.perf_counter()
+    state = trainer.init_state(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    log(f"weights: qwen3-8b layers={arch.n_layers} (of 36) d_model="
+        f"{arch.d_model} heads={arch.n_heads}/{arch.n_kv_heads} d_ff="
+        f"{arch.d_ff} vocab={arch.vocab_size} params={n_params} random "
+        f"(seed {SEED}) with the optimizer state in "
+        f"{time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{CARD}]")
+    batch0 = to_device(dev)(SyntheticSource(arch, shape,
+                                            seed=SEED).batch_at(0))
+    grad = train_grad_check(torch, dev, arch, cfg, state["params"], batch0)
+    del batch0
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = trainer.fit(state, n_steps=TRAIN_STEPS - 1)
+    sr = RoundingCheck(torch, adamw._stochastic_round_bf16)
+    adamw._stochastic_round_bf16 = sr
+    try:
+        state, metrics = trainer.fit(state, n_steps=TRAIN_STEPS,
+                                     start_step=TRAIN_STEPS - 1)
+    finally:
+        adamw._stochastic_round_bf16 = sr.fn
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    for h in hist:
+        log(f"train step {h['step']}: loss {h['loss']:.6f} grad_norm "
+            f"{h['grad_norm']:.6f} lr {h['lr']:.4e} {h['dt_s'] * 1e3:.1f} ms"
+            f"{' (with the rounding check)' if h is hist[-1] else ''} "
+            f"[{CARD}]")
+    timed = hist[1:-1]
+    step_ms = sorted(h["dt_s"] * 1e3 for h in timed)[len(timed) // 2]
+    tok_s = shape.tokens / (step_ms / 1e3)
+    bf16_elems = sum(t.numel() for _, t in _named(state["params"])
+                     if t.dtype == torch.bfloat16)
+    L = arch.n_layers
+    log(f"train: {len(hist)} steps, median step {step_ms:.1f} ms over steps "
+        f"1..{len(hist) - 2} ({tok_s:.1f} tokens/s); launches "
+        f"flash_attention {counts['flash_attention']}, flash_attention_bwd "
+        f"{counts['flash_attention_bwd']} ({L} / {L} a step expected); peak "
+        f"allocated {peak / 2**30:.2f} GiB against the plan's state "
+        f"{est['state_bytes'] / 2**30:.2f} GiB + activations "
+        f"{est['activation_gib']} GiB [{CARD}]")
+    log(f"train rounding check: {sr.elements} bf16 elements rounded of "
+        f"{bf16_elems}, {sr.off_pair} off their neighbour pair, {sr.up} up "
+        f"against {sr.expect_up:.1f} expected (sd "
+        f"{math.sqrt(sr.var):.1f}) [{CARD}]")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), "train: a loss or grad norm is not finite")
+    check(len(hist) == TRAIN_STEPS, f"train: {len(hist)} steps")
+    check(counts["flash_attention"] == L * TRAIN_STEPS
+          and counts["flash_attention_bwd"] == L * TRAIN_STEPS,
+          f"train: launches {counts}, expected {L} forward and {L} backward "
+          "flash calls a step")
+    check(abs(hist[0]["loss"] - grad["loss_kernels"])
+          <= 1e-3 * abs(grad["loss_kernels"]),
+          f"train: step-0 loss {hist[0]['loss']} against the checked "
+          f"{grad['loss_kernels']}")
+    check(sr.elements == bf16_elems and sr.off_pair == 0
+          and abs(sr.up - sr.expect_up) <= 6 * math.sqrt(sr.var) + 1,
+          "train: stochastic rounding left the neighbour pair or is biased")
+    res = dict(plan=plan.content_hash(), decisions=decisions,
+               n_layers=L, n_params=n_params, steps=hist, step_ms=step_ms,
+               tokens_per_s=tok_s, peak_bytes=peak,
+               plan_state_bytes=est["state_bytes"],
+               plan_activation_gib=est["activation_gib"], launches=counts,
+               grad_check=grad,
+               rounding=dict(elements=sr.elements, off_pair=sr.off_pair,
+                             up=sr.up, expect_up=sr.expect_up),
+               final={k: float(v) for k, v in metrics.items()})
+    del state, trainer, metrics
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _named(tree, prefix=""):
+    """``(path, leaf)`` pairs of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named(tree[k],
+                                                        f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _clone(torch, tree):
+    return _map_tree(tree, lambda t: t.detach().clone())
+
+
+def small_train_check(torch, dev):
+    """The reduced qwen3 at head_dim 128 (as :func:`small_model_check`
+    builds it), its ``h100-sxm`` plan (fp32 moments and master weights at
+    this size), 4 steps of 256 x 4 tokens on the card (the kernels)
+    against the CPU (the plain versions) from the same init and batches,
+    each step's loss within :data:`SMALL_TRAIN_TOL` and its grad norm
+    within :data:`SMALL_GRAD_NORM_TOL` (a run with the ``drop_tile``
+    backward planted must fail one of the two); then a run saved
+    through ``Checkpointer`` at step 2 and resumed by a fresh trainer's
+    ``resume()``, whose steps 3-4 and final state must equal the
+    uninterrupted card run's bitwise."""
+    import shutil as _shutil
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+
+    arch = dataclasses.replace(get_arch("qwen3-8b").reduced(), head_dim=128)
+    shape = ShapeConfig("small_train", "train", 256, 4)
+    plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
+                      cache=False)
+    check(plan.opt["master_weights"], f"small train plan: {plan.opt}")
+    opt = adamw.OptConfig.from_plan(plan, warmup_steps=1, total_steps=8)
+    root = ROOT / "build" / "ckpt_small"
+    _shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(device, name, **kw):
+        cfg = TrainerConfig(n_steps=4, ckpt_every=0, log_every=100,
+                            seed=SEED, ckpt_dir=str(root / name))
+        return Trainer(plan, None, dataclasses.replace(cfg, **kw), opt,
+                       arch=arch, shape=shape, device=device)
+
+    cpu = trainer("cpu", "cpu")
+    init = cpu.init_state(SEED)
+    cpu.fit(_clone(torch, init))
+    whole = trainer(dev, "whole")
+    end, _ = whole.fit(_clone(torch, init))
+    first = trainer(dev, "run", n_steps=2, ckpt_every=2)
+    first.fit(_clone(torch, init))
+    again = trainer(dev, "run")
+    state, step = again.resume()
+    state, _ = again.fit(state, start_step=step)
+    with planted_bwd("drop_tile"):
+        faulty = trainer(dev, "faulty")
+        faulty.fit(_clone(torch, init))
+    torch.cuda.synchronize()
+    l_cpu = [h["loss"] for h in cpu.history]
+    l_dev = [h["loss"] for h in whole.history]
+    l_res = [h["loss"] for h in again.history]
+    l_bad = [h["loss"] for h in faulty.history]
+    worst = max(abs(a - b) for a, b in zip(l_dev, l_cpu))
+    ctl = max(abs(a - b) for a, b in zip(l_bad, l_cpu))
+    gn_cpu = [h["grad_norm"] for h in cpu.history]
+    gn_rel = max(abs(h["grad_norm"] - g) / g
+                 for h, g in zip(whole.history, gn_cpu))
+    gn_ctl = max(abs(h["grad_norm"] - g) / g
+                 for h, g in zip(faulty.history, gn_cpu))
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(_named(state),
+                                                           _named(end)))
+    log(f"check small train (4 steps, head_dim 128, master weights) card "
+        f"losses {[round(x, 6) for x in l_dev]} vs cpu "
+        f"{[round(x, 6) for x in l_cpu]}: worst |diff| {worst:.3e} (tol "
+        f"{SMALL_TRAIN_TOL}; drop_tile backward control {ctl:.3e}); grad "
+        f"norm rel card vs cpu {gn_rel:.3e} (tol {SMALL_GRAD_NORM_TOL}; "
+        f"drop_tile backward control {gn_ctl:.3e}); resumed "
+        f"at step {step}: steps 3-4 {l_res} vs {l_dev[2:]}, final state "
+        f"bitwise equal {same} [{CARD}]")
+    check(worst <= SMALL_TRAIN_TOL and gn_rel <= SMALL_GRAD_NORM_TOL,
+          f"small train: card vs cpu loss {worst}, grad norm rel {gn_rel}")
+    check(ctl > SMALL_TRAIN_TOL or gn_ctl > SMALL_GRAD_NORM_TOL,
+          f"small train: the drop_tile backward control passed (loss {ctl}, "
+          f"grad norm rel {gn_ctl})")
+    check(step == 2 and l_res == l_dev[2:] and same,
+          "small train: the resumed run differs from the uninterrupted one")
+    _shutil.rmtree(root, ignore_errors=True)
+    return dict(losses_card=l_dev, losses_cpu=l_cpu, worst=worst,
+                drop_tile_control=ctl, grad_norm_rel=gn_rel,
+                grad_norm_control=gn_ctl, resumed_losses=l_res,
+                bitwise=same)
+
+
+# ---------------------------------------------------------------------
 # phase 8: the plan-driven matmul path
 # ---------------------------------------------------------------------
 
@@ -3182,14 +3728,18 @@ def main() -> int:
                     granite["shared_prefix"]["control"]["launches"])
 
     # ---- phase 15: the plan-driven matmul path ----
-    serve_mm = {n: c["tiled_matmul"] for n, c in (
-        ("paged", paged_counts), ("dense", dense_counts), ("ssm", ssm_counts),
-        ("33b-grant", grant["launches"]),
-        ("33b-control", grant_ctl["launches"]), ("hymba", hymba_counts),
-        ("minitron", minitron_counts), ("granite", granite_counts),
-        ("granite-gshard", granite_g_counts), ("llama4", llama4_counts))}
-    check(not any(serve_mm.values()),
-          f"a serving path launched tiled_matmul: {serve_mm}")
+    serve_runs = {
+        "paged": paged_counts, "dense": dense_counts, "ssm": ssm_counts,
+        "shared": shared["launches"], "shared-control": shared_ctl["launches"],
+        "33b-grant": grant["launches"], "33b-control": grant_ctl["launches"],
+        "hymba": hymba_counts, "minitron": minitron_counts,
+        "granite": granite_counts, "granite-gshard": granite_g_counts,
+        "granite-shared": granite_runs[2],
+        "granite-shared-control": granite_runs[3], "llama4": llama4_counts}
+    for name in ("tiled_matmul", "flash_attention_bwd"):
+        served = {n: c[name] for n, c in serve_runs.items()}
+        check(not any(served.values()),
+              f"a serving path launched {name}: {served}")
     t0 = time.perf_counter()
     mm_launches, kern["tiled_matmul"] = matmul_path_phase(
         torch, dev, {"qwen3-8b paged": plan, "qwen3-8b dense": dplan,
@@ -3199,16 +3749,23 @@ def main() -> int:
     log(f"matmul path: {mm_launches} launches, phase took "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
 
-    # ---- phase 16: results ----
-    runs = (paged_counts, dense_counts, ssm_counts, shared["launches"],
-            shared_ctl["launches"], grant["launches"], grant_ctl["launches"],
-            hymba_counts, minitron_counts, *granite_runs, llama4_counts)
+    # ---- phases 16-17: training, every earlier weight freed ----
+    t0 = time.perf_counter()
+    train_counts, train = train_phase(torch, dev)
+    small_train = small_train_check(torch, dev)
+    ops.reset_launch_counts()
+    log(f"train phases took {time.perf_counter() - t0:.1f} s [{CARD}]")
+
+    # ---- phase 18: results ----
+    runs = (*serve_runs.values(), train_counts)
     launches = {k: sum(c[k] for c in runs) for k in paged_counts}
     for name in ("flash_attention", "paged_decode_attention"):
         kern[name]["g7"]["launches"] = (grant["launches"][name]
                                         + grant_ctl["launches"][name])
         kern[name]["g5"]["launches"] = hymba_counts[name]
     kern["ssd_scan"]["hymba"]["launches"] = hymba_counts["ssd_scan"]
+    kern["flash_attention"]["train"] = {
+        "launches": train_counts["flash_attention"]}
     # the MoE archs' pairs: both plans are paged, so their dense decode
     # instances run in the kernel phase only (0 on the main path)
     for name in ("flash_attention", "paged_decode_attention",
@@ -3237,7 +3794,8 @@ def main() -> int:
                                  "shape",
                                  "shapes", "library_call", "launched_by",
                                  "offset", "tail_launches", "g7", "g5",
-                                 "hymba", "granite", "llama4")
+                                 "hymba", "granite", "llama4", "train",
+                                 "fwd_with_lse_ms", "fwd_without_lse_ms")
                if k in r},
             "ptxas": [[kernel, regs, spills] for kernel, regs, spills
                       in ptxas.get(Path(r["source"]).stem, [])],
@@ -3261,7 +3819,8 @@ def main() -> int:
                                            "granite": granite_counts,
                                            "granite_gshard":
                                            granite_g_counts,
-                                           "llama4": llama4_counts}}}))
+                                           "llama4": llama4_counts}},
+                    "train": train, "small_train": small_train}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")
     log(smi)

@@ -1,18 +1,23 @@
-"""Lowering: the plan's knobs the model and serving code consume.
+"""Lowering: the paper's "HLS" phase, on one card.
 
-The JAX package's lowering pass (``repro/core/passes/lowering.py``)
-also builds sharded train and decode steps; the port's single-card
-serving slice needs only :func:`build_run_cfg` (plan -> :class:`RunCfg`)
-and :func:`wire_compression`, the gradient-compression predicate the
-communication pass records its verdict through.  Neither imports
-torch: ``RunCfg`` is a plain dataclass, imported where it is built.
+The port of ``repro/core/passes/lowering.py``: :func:`build_run_cfg`
+(plan -> :class:`RunCfg`, the knobs the model and serving code read),
+:func:`wire_compression` (the gradient-compression predicate the
+communication pass records its verdict through) and
+:func:`lower_train_step`, the train step the plan asks for — forward,
+backward, microbatch accumulation, AdamW — on one card, eagerly (no
+jit: :class:`LoweredStep` carries the step function as it is).  The
+JAX package's sharded steps, donation and the int8 gradient wire wait
+for the multi-GPU slice; a plan that compresses gradients is refused.
+Torch is imported where a step is built, not at import.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Callable, Optional
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 
 
 def build_run_cfg(plan, arch: ArchConfig):
@@ -21,9 +26,10 @@ def build_run_cfg(plan, arch: ArchConfig):
     ``heads_block``, as ``src/repro/core/passes/lowering.py:74,91``
     reads the chunk), the MoE path (``moe_impl``, default
     ``gshard_einsum``, as ``src/repro/core/passes/lowering.py:75,93``)
-    and the kernel mode (``plan.use_pallas``:
+    the kernel mode (``plan.use_pallas``:
     ``auto``/``on`` run the port's kernels on the card; ``off`` makes the
-    card path raise)."""
+    card path raise), the remat policy (``comm.remat_policy``) and the
+    padded vocab (``src/repro/core/passes/lowering.py:71-101``)."""
     from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK
     from repro_torch.models.lm import RunCfg
     fa = plan.partitions.get("flash_attention")
@@ -39,6 +45,7 @@ def build_run_cfg(plan, arch: ArchConfig):
         ssd_heads_block=int(ssd.blocks["heads_block"]) if ssd else 1,
         moe_impl=moe_impl if isinstance(moe_impl, str) else "gshard_einsum",
         kernels=str(plan.use_pallas),
+        remat=plan.comm.remat_policy,
     )
 
 
@@ -74,3 +81,87 @@ def wire_compression(plan, mesh=None,
             str(plan.estimates.get("moe_impl", "")) == "shard_map_alltoall":
         return 0
     return dp
+
+
+@dataclasses.dataclass
+class LoweredStep:
+    """A lowered train step: ``fn(state, batch) -> (state, metrics)``, run
+    as it is (the port has no jit), and the plan it came from."""
+
+    fn: Callable
+    plan: Any
+
+
+def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
+                     mesh=None, opt_cfg=None) -> LoweredStep:
+    """The plan's train step on one card
+    (``src/repro/core/passes/lowering.py:213-425``): the loss and its
+    gradients, accumulated over ``comm.microbatches`` microbatches (each
+    taking every ``microbatches``-th row of the batch, the reference's
+    interleaved split, the gradients summed in fp32 and averaged), then
+    :func:`repro_torch.optim.adamw.apply_updates` in place.  The state is
+    ``{"params": ..., "opt": ...}``; float parameters must require grad.
+
+    Raises :class:`NotImplementedError` for a mesh, and for a plan that
+    compresses gradients (the int8 + error-feedback reduction, on the
+    wire or modelled: ROADMAP item 10), before any weight exists."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "lower_train_step: the port trains on one card; a mesh waits "
+            "for the multi-GPU slice (ROADMAP item 10)")
+    if plan.comm.compresses_gradients or wire_compression(plan, None, arch):
+        raise NotImplementedError(
+            "lower_train_step: the plan compresses gradients (int8 + error "
+            "feedback); the port's compressed reduction waits for the "
+            "multi-GPU slice (ROADMAP item 10)")
+    lm.check_trainable(arch)
+    cfg = build_run_cfg(plan, arch)
+    opt_cfg = opt_cfg or adamw.OptConfig.from_plan(plan)
+    nmicro = max(plan.comm.microbatches, 1)
+
+    def grads_of(params, batch):
+        leaves = list(adamw.leaves(params))
+        loss, metrics = lm.train_loss(arch, params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), metrics, grads
+
+    def train_step(state, batch):
+        params = state["params"]
+        if nmicro > 1:
+            gsum, lsum = None, 0.0
+            for j in range(nmicro):
+                mb = {k: v[j::nmicro] for k, v in batch.items()}
+                loss, _, grads = grads_of(params, mb)
+                g32 = [g.float() for g in grads]
+                gsum = g32 if gsum is None else [
+                    a.add_(b) for a, b in zip(gsum, g32)]
+                lsum = lsum + loss
+            flat = [g / nmicro for g in gsum]
+            loss = lsum / nmicro
+            metrics = {"ce_loss": loss,
+                       "aux_loss": torch.zeros((), device=loss.device),
+                       "tokens": torch.tensor(float(shape.tokens),
+                                              device=loss.device)}
+        else:
+            loss, metrics, flat = grads_of(params, batch)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        it = iter(flat)
+        grads = _like(params, it)
+        params, opt, opt_metrics = adamw.apply_updates(
+            params, grads, state["opt"], opt_cfg)
+        metrics = {**metrics, **opt_metrics, "loss": loss}
+        return {"params": params, "opt": opt}, metrics
+
+    return LoweredStep(fn=train_step, plan=plan)
+
+
+def _like(tree, it):
+    """``tree``'s structure filled from ``it`` in sorted-key order."""
+    if isinstance(tree, dict):
+        return {k: _like(tree[k], it) for k in sorted(tree)}
+    return next(it)

@@ -24,8 +24,8 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES: Tuple[str, ...] = ("flash_attention", "decode_attention", "ssd_scan",
-                            "tiled_matmul")
+SOURCES: Tuple[str, ...] = ("flash_attention", "flash_attention_bwd",
+                            "decode_attention", "ssd_scan", "tiled_matmul")
 HEADERS: Tuple[str, ...] = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -163,13 +163,20 @@ def ptxas_entries(log: str) -> List[Tuple[str, int, int]]:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_attention": {
-        # q, k, v, out, B, Sq, Skv, q_off, H, K, D, causal, window, rows,
-        # block_kv, scale, pad_fault, stream
-        "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _F, _I, _P],
+        # q, k, v, out, lse, B, Sq, Skv, q_off, H, K, D, causal, window,
+        # rows, block_kv, scale, pad_fault, stream
+        "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _F, _I, _P],
         # q, k, v, B, S, H, K, D, rows, block_kv, iters -> us (double)
         "flash_attention_map_encode_us": [_P, _P, _P, _I, _I, _I, _I, _I,
                                           _I, _I, _I],
+    },
+    "flash_attention_bwd": {
+        # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, q_off, H,
+        # K, D, causal, window, scale, drop_tile, group_fault, stream
+        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                _P],
     },
     "decode_attention": {
         # q, k_pool, v_pool, tbl, cache_len, out, ws, counters, B, H, K,

@@ -53,7 +53,12 @@
 //     positions of the key stream (a prompt's tail prefilled over a resident
 //     prefix).  Row i sits at absolute position q_off + i; the kv range,
 //     the edge-tile test and the masks all compare absolute positions, so
-//     Sq == Skv (q_off = 0) is the whole-prompt launch.
+//     Sq == Skv (q_off = 0) is the whole-prompt launch;
+//   * the log-sum-exp for the backward (csrc/flash_attention_bwd.cu): with
+//     a non-null lse pointer the epilogue also writes each row's
+//     m + log(l) of the scaled scores, fp32 (B, H, Sq), natural log (+inf
+//     for a row with no live key, so the backward's P is 0 there).  The
+//     serve path passes null and does no extra work.
 // Tiles (rows, block_kv) in {(64, 64), (64, 128), (128, 64), (128, 128)}
 // (rows = 64 per consumer warpgroup), head_dim a template parameter
 // instantiated at 64 (hymba-1.5b) and 128; a tile holds at least one whole
@@ -121,9 +126,9 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
-                 bf16* __restrict__ out, int Sq, int Skv, int q_off, int H,
-                 int K, int causal, int window, float scale_log2,
-                 int pad_fault) {
+                 bf16* __restrict__ out, float* __restrict__ lse, int Sq,
+                 int Skv, int q_off, int H, int K, int causal, int window,
+                 float scale_log2, int pad_fault) {
   using L = Smem<D, BKV, NWG>;
   constexpr int kRows = L::kRows;
   constexpr int kAtoms = D / 64;  // 128-byte swizzle atoms along D
@@ -338,6 +343,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                                               : (h ? qrow_hi : qrow_lo);
     const float inv = h ? inv_hi : inv_lo;
     if (qrow >= Sq || (pad_fault && q0 > 0 && r < kRows - q_rows)) continue;
+    if (lse != nullptr && r < q_rows && lane % 4 == 0) {
+      // m is in log2 units of the scaled score: lse = (m + log2 l) ln 2
+      const float m = h ? m_hi : m_lo, l = h ? lsum_hi : lsum_lo;
+      lse[(size_t(b) * H + kvh * G + r % G) * Sq + qrow] =
+          l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : INFINITY;
+    }
     bf16* dst = out + (size_t(b_row + qrow) * H + kvh * G + r % G) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -371,9 +382,10 @@ int encode_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
 }
 
 template <int D, int BKV, int NWG>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int q_off, int H, int K, int causal, int window,
-           float scale, int pad_fault, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           void* lse, int B, int Sq, int Skv, int q_off, int H, int K,
+           int causal, int window, float scale, int pad_fault,
+           cudaStream_t stream) {
   constexpr int kRows = NWG * 64;
   CUtensorMap mq, mk, mv;
   int err = encode_maps(&mq, &mk, &mv, q, k, v, B, Sq, Skv, H, K, D, kRows,
@@ -389,8 +401,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (q_tiles > 65535) return int(cudaErrorInvalidValue);
   const float kLog2e = 1.4426950408889634f;
   kern<<<dim3(B * K, q_tiles), (NWG + 1) * 128, smem, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, q_off, H, K, causal,
-      window, scale * kLog2e, pad_fault);
+      mq, mk, mv, static_cast<bf16*>(out), static_cast<float*>(lse), Sq, Skv,
+      q_off, H, K, causal, window, scale * kLog2e, pad_fault);
   return int(cudaGetLastError());
 }
 
@@ -417,20 +429,22 @@ extern "C" {
 // whole positions, and the rows past them are pad), block_kv =
 // K/V rows per tile.  pad_fault: 0, or a planted fault for the checks (the
 // pad rows written over the next CTA's first position, in place of that
-// CTA's own rows there).  Returns 0 when
+// CTA's own rows there).  lse: null, or fp32 (B, H, Sq) for each row's
+// log-sum-exp of the scaled scores (the backward's input).  Returns 0 when
 // launched, a cudaError_t, or a negative CUresult of the tensor-map encoder.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* out, int B, int Sq, int Skv, int q_off, int H,
-                        int K, int D, int causal, int window, int rows,
-                        int block_kv, float scale, int pad_fault,
-                        void* stream) {
+                        void* out, void* lse, int B, int Sq, int Skv,
+                        int q_off, int H, int K, int D, int causal,
+                        int window, int rows, int block_kv, float scale,
+                        int pad_fault, void* stream) {
   if (!takes(q, k, v, out, Sq, Skv, q_off, H, K, D, rows))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_CASE(DD, ROWS, BKV)                                     \
   if (D == DD && rows == ROWS && block_kv == BKV)                           \
-    return launch<DD, BKV, ROWS / 64>(q, k, v, out, B, Sq, Skv, q_off, H, K, \
-                                      causal, window, scale, pad_fault, s);
+    return launch<DD, BKV, ROWS / 64>(q, k, v, out, lse, B, Sq, Skv, q_off, \
+                                      H, K, causal, window, scale, pad_fault, \
+                                      s);
   REPRO_FLASH_CASE(128, 64, 64)
   REPRO_FLASH_CASE(128, 64, 128)
   REPRO_FLASH_CASE(128, 128, 64)

@@ -1,4 +1,5 @@
-"""Flash attention (forward): the Hopper kernel and its plain version.
+"""Flash attention, forward and backward: the Hopper kernels and their
+plain versions, and the autograd function that joins them.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``, body ``_flash_kernel``, and the packed-causal grid
@@ -32,6 +33,19 @@ BlockPlan (decode shapes have none) gets :data:`DEFAULT_ROWS` x
 :data:`DEFAULT_BLOCK_KV`, 164,920 B of shared memory at head_dim 128
 (83,000 B at 64), one CTA to an SM.
 TMA reads q, k and v in place, so each must start on a 16-byte boundary.
+
+Backward: ``csrc/flash_attention_bwd.cu`` (FlashAttention-2's, three
+launches: Delta, then dK/dV per kv tile, then dQ per q tile; its header
+says what bounds it).  The JAX package has no backward kernel (it
+differentiates its XLA mirror), and its plan has no backward
+``BlockPlan``; the backward's tiles are fixed in the source and
+documented here: :data:`BWD_TILE_KV` keys a dK/dV CTA,
+:data:`BWD_TILE_Q` queries a pass of that loop by head_dim, and
+:data:`BWD_TILE_Q3` queries a dQ CTA.  :class:`FlashAttention` is the
+gradient route: its forward keeps q, k, v, the output and the
+log-sum-exp the kernel writes, and its backward runs
+:func:`flash_attention_bwd` on CUDA tensors or
+:func:`flash_attention_bwd_plain` on the CPU.
 """
 
 from __future__ import annotations
@@ -56,10 +70,18 @@ GROUPS = (1, 2, 4, 5, 7, 8, 16)
 #: K/V stages of the TMA ring in shared memory
 STAGES = 2
 
-#: launches of the CUDA kernel in this process (reset by the caller), and
-#: how many of them ran a query block at an offset (``Sq < Skv``)
+#: backward tiles (``csrc/flash_attention_bwd.cu``): keys per dK/dV CTA,
+#: queries per step of its loop (by head_dim), queries per dQ CTA
+BWD_TILE_KV = 64
+BWD_TILE_Q = {64: 64, 128: 32}
+BWD_TILE_Q3 = 64
+
+#: launches of the CUDA kernels in this process (reset by the caller):
+#: forward calls, how many of them ran a query block at an offset (``Sq <
+#: Skv``), and backward calls (one call is the backward's three launches)
 launches = 0
 tail_launches = 0
+bwd_launches = 0
 
 
 def smem_bytes(rows: int, block_kv: int, head_dim: int = 128) -> int:
@@ -96,30 +118,82 @@ def kernel_tiles(G: int, block_q: Optional[int] = None,
     return rows, block_kv
 
 
+def _mask(Sq: int, Skv: int, causal: bool, window: int,
+          device) -> torch.Tensor:
+    """``(Sq, Skv)`` live (query, key) pairs: queries at the key stream's
+    last ``Sq`` positions, causal bottom-right aligned, the window
+    counted back from each query."""
+    qpos = torch.arange(Skv - Sq, Skv, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= (qpos - kpos) < window
+    return ok
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Scaled fp32 scores ``(B, K, G, Sq, Skv)``."""
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    return torch.einsum("bqkgd,bskd->bkgqs",
+                        q.reshape(B, Sq, K, H // K, D).float(),
+                        k.float()) * (D ** -0.5)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
-                          window: int = 0) -> torch.Tensor:
+                          window: int = 0, return_lse: bool = False):
     """The kernel's function in plain PyTorch: one masked softmax over
     all key positions in fp32, the same superset contract (any lengths,
-    queries the last ``Sq`` of ``Skv`` positions).  Runs on any device."""
+    queries the last ``Sq`` of ``Skv`` positions).  Runs on any device.
+    ``return_lse`` also returns each row's log-sum-exp of the scaled
+    scores, fp32 ``(B, H, Sq)``, as the kernel writes it for the
+    backward."""
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     if Sq > Skv:
         raise ValueError(f"flash_attention: {Sq} queries over {Skv} keys; "
                          "the queries are the key stream's last positions")
-    qpos = torch.arange(Skv - Sq, Skv, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kpos <= qpos
-    if window > 0:
-        ok &= (qpos - kpos) < window
-    s = torch.einsum("bqkgd,bskd->bkgqs",
-                     q.reshape(B, Sq, K, H // K, D).float(),
-                     k.float()) * (D ** -0.5)
-    p = torch.softmax(torch.where(ok, s, float("-inf")), dim=-1)
+    s = torch.where(_mask(Sq, Skv, causal, window, q.device), _scores(q, k),
+                    float("-inf"))
+    p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, H, D).to(q.dtype)
+    o = o.reshape(B, Sq, H, D).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True, window: int = 0):
+    """The backward kernel's function in plain PyTorch, in fp32, step by
+    step: P from the scores and the forward's log-sum-exp, ``Delta =
+    rowsum(dO o O)``, ``dS = P o (dP - Delta)``, ``dQ = scale dS K``,
+    ``dK = scale dS^T Q`` and ``dV = P^T dO`` summed over the G query
+    heads of each kv head.  Returns ``(dq, dk, dv)`` in the inputs'
+    dtype.  Runs on any device."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    ok = _mask(Sq, Skv, causal, window, q.device)
+    lse5 = lse.float().reshape(B, K, G, Sq, 1)
+    p = torch.where(ok, torch.exp(_scores(q, k) - lse5), 0.0)
+    do5 = do.reshape(B, Sq, K, G, D).float()
+    o5 = o.reshape(B, Sq, K, G, D).float()
+    delta = (do5 * o5).sum(-1).permute(0, 2, 3, 1)[..., None]  # (B,K,G,Sq,1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do5, v.float())
+    ds = p * (dp - delta)
+    scale = D ** -0.5
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.reshape(B, Sq, K, G, D).float()) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do5)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _check(q, k, v) -> None:
@@ -151,9 +225,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: Optional[int] = None,
                     block_kv: Optional[int] = None,
                     ignore_offset: bool = False,
-                    pad_fault: bool = False) -> torch.Tensor:
+                    pad_fault: bool = False, return_lse: bool = False):
     """Launch the GQA flash kernel on CUDA tensors (raises on any other
-    device or on inputs the kernel does not take).  ``ignore_offset``
+    device or on inputs the kernel does not take).  ``return_lse`` also
+    returns the log-sum-exp the kernel writes for the backward, fp32
+    ``(B, H, Sq)`` (the serve path asks for none and the kernel writes
+    none).  ``ignore_offset``
     and ``pad_fault`` plant faults for the checks (tests and
     ``chip_smoke.py`` only): a tail's queries taken as positions
     ``0..Sq-1``; a tile's pad rows written over the next CTA's first
@@ -169,9 +246,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Skv, K = k.shape[1], k.shape[2]
     rows, bkv = kernel_tiles(H // K, block_q, block_kv)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     err = build.library("flash_attention").flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Skv, 0 if ignore_offset else Skv - Sq, H, K, D, int(causal),
+        lse.data_ptr() if return_lse else None, B, Sq, Skv, 0 if ignore_offset else Skv - Sq, H, K, D, int(causal),
         int(window), rows, bkv, float(D ** -0.5), int(pad_fault),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
@@ -179,4 +258,81 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{build.describe_error(err)}")
     launches += 1
     tail_launches += Sq < Skv
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, drop_tile: bool = False,
+                        group_fault: bool = False):
+    """Launch the backward kernel on CUDA tensors: ``(dq, dk, dv)`` of
+    the forward ``o = flash_attention(q, k, v)`` with its log-sum-exp
+    ``lse`` and the output gradient ``do`` (raises on any other device
+    or on inputs the kernel does not take).  ``drop_tile`` and
+    ``group_fault`` plant faults for the checks (tests and
+    ``chip_smoke.py`` only): each kv tile's first q tile skipped in the
+    dK/dV loop; only a group's first query head summed into dK/dV."""
+    global bwd_launches
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: the kernel runs on CUDA "
+                         f"tensors, got {q.device} (kernels.ops routes CPU "
+                         "tensors to the plain version)")
+    _check(q, k, v)
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    for name, t, dtype, shape in (("o", o, torch.bfloat16, q.shape),
+                                  ("do", do, torch.bfloat16, q.shape),
+                                  ("lse", lse, torch.float32, (B, H, Sq))):
+        if (t.device != q.device or t.dtype != dtype
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"flash_attention_bwd: {name} must be a contiguous, 16-byte "
+                f"aligned {dtype} {tuple(shape)} on {q.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = build.library("flash_attention_bwd").flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Skv - Sq, H, K, D,
+        int(causal), int(window), float(D ** -0.5), int(drop_tile),
+        int(group_fault), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd: launch failed with "
+                           f"{build.describe_error(err)}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the kernels on CUDA tensors
+    (forward and backward), the plain versions on the CPU, never one
+    for the other.  The forward keeps q, k, v, the output and the
+    log-sum-exp for the backward (O(S) beside the inputs: no score
+    matrix is kept)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int,
+                tiles: Optional[Tuple[int, int]]):
+        if q.device.type == "cuda":
+            bq, bkv = tiles if tiles is not None else (None, None)
+            o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                     block_q=bq, block_kv=bkv,
+                                     return_lse=True)
+        else:
+            o, lse = flash_attention_plain(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = (flash_attention_bwd if q.device.type == "cuda"
+               else flash_attention_bwd_plain)
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(),
+                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None

@@ -48,8 +48,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     the queries are the key stream's last ``Sq`` positions (``Sq ==
     Skv``: a whole prompt; ``Sq < Skv``: a tail over a resident prefix).
     ``tiles`` is the plan's ``(block_q, block_kv)`` (the plain version has
-    no tiles)."""
-    if not _use_kernel("flash_attention", q, mode):
+    no tiles).  Where autograd records (grad mode on and q, k or v
+    requiring grad: the training path) the call goes through
+    :class:`repro_torch.kernels.flash_attention.FlashAttention`: the
+    forward and backward kernels on a CUDA tensor, the plain forward and
+    plain backward on a CPU one; otherwise (serving, under
+    ``torch.no_grad``) the forward alone, as before."""
+    kernel = _use_kernel("flash_attention", q, mode)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _fa.FlashAttention.apply(q, k, v, causal, window, tiles)
+    if not kernel:
         return _fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
     bq, bkv = tiles if tiles is not None else (None, None)
@@ -120,6 +128,7 @@ def matmul(a, b, *, tiles: Optional[Tuple[int, int, int]] = None,
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"flash_attention": _fa.launches,
+            "flash_attention_bwd": _fa.bwd_launches,
             "paged_decode_attention": _dec.paged_launches,
             "decode_attention": _dec.dense_launches,
             "ssd_scan": _ssd.launches,
@@ -129,6 +138,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     _fa.launches = 0
     _fa.tail_launches = 0
+    _fa.bwd_launches = 0
     _dec.paged_launches = 0
     _dec.dense_launches = 0
     _ssd.launches = 0

@@ -1,0 +1,141 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch qwen3-8b``
+
+The port of ``repro/launch/train.py``: specialize (the paper's
+compilation passes, on the ``h100-sxm`` target) → lower → train with
+checkpointing, on one card.  Prints the plan's decisions, each step's
+loss, grad norm, lr and time, the tokens a second, and the card's peak
+allocated memory beside the plan's estimates of its state and
+activations.
+
+The model is the arch's reduced config, with its published head_dim
+and GQA group (the attention kernels are instantiated for those),
+unless ``--full`` asks for its published widths and depth;
+``--n-layers`` cuts the depth.  Weights are random, from ``--seed``.
+Entry points run on ``cuda``; ``--device cpu`` runs the kernels' plain
+versions.  ``--profile`` traces the steps after the first with
+``torch.profiler`` and prints the device time by kernel and by group
+(the serve launcher's report).
+
+Run:  PYTHONPATH=src python -m repro_torch.launch.train
+      PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
+          --full --n-layers 24 --seq-len 2048 --batch 1 --steps 6
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import re
+import time
+
+import torch
+
+
+def plan_memory(plan) -> dict:
+    """The plan's memory estimates for a train step: its persistent
+    state in bytes (parameters, moments, master copy:
+    ``persistent_bytes_per_dev``) and the activation estimate its remat
+    decision read (GiB, from the decision log; ``None`` if absent)."""
+    act = None
+    for pass_name, subject, _, reason in plan.log:
+        m = re.search(r"activations ([0-9.]+) GiB", reason)
+        if pass_name == "communication" and subject == "remat" and m:
+            act = float(m.group(1))
+    return {"state_bytes": float(plan.estimates["persistent_bytes_per_dev"]),
+            "activation_gib": act}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--shape", default="cli",
+                    help="the shape config's name (recorded in the plan "
+                         "and the checkpoints)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--reduced", action="store_true", default=True,
+                    help="the reduced config (the default, as the "
+                         "reference's launcher has it; --full overrides)")
+    ap.add_argument("--full", action="store_true",
+                    help="the arch's published widths and depth")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the depth to the first N layers")
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default="build/ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the steps after the first with "
+                         "torch.profiler and print device time by kernel")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core.passes.lowering import build_run_cfg
+    from repro_torch.core.pipeline import specialize
+    from repro_torch.models.lm import check_on_device
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    if args.model_parallel != 1:
+        raise NotImplementedError(
+            "--model-parallel: the port trains on one card (the multi-GPU "
+            "slice is ROADMAP item 10)")
+    arch = get_arch(args.arch)
+    if not args.full:
+        small = arch.reduced()
+        group = arch.n_heads // arch.n_kv_heads if arch.n_kv_heads else 1
+        arch = dataclasses.replace(small, head_dim=arch.head_dim,
+                                   n_heads=small.n_kv_heads * group)
+    if args.n_layers:
+        print(f"cut: {arch.name} n_layers {arch.n_layers} -> {args.n_layers}")
+        arch = dataclasses.replace(arch, n_layers=args.n_layers)
+    shape = ShapeConfig(args.shape, "train", args.seq_len, args.batch)
+    plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm")
+    _, heads, _, kv_heads = plan.padded_sizes()
+    check_on_device(arch, args.device, heads=heads, kv_heads=kv_heads,
+                    flash_tiles=build_run_cfg(plan, arch).flash_tiles)
+    print(f"plan {plan.content_hash()[:12]} target={plan.target} "
+          f"moments={plan.opt['moment_dtype']} "
+          f"master_weights={plan.opt['master_weights']} "
+          f"remat={plan.comm.remat_policy} "
+          f"microbatches={plan.comm.microbatches}")
+    print("plan decisions:")
+    for entry in plan.log:
+        print("  ", " | ".join(entry))
+    trainer = Trainer(plan, None, TrainerConfig(
+        n_steps=args.steps, ckpt_every=args.ckpt_every,
+        ckpt_dir=args.ckpt_dir, log_every=1, seed=args.seed),
+        arch=arch, shape=shape, device=args.device)
+    cuda = trainer.device.type == "cuda"
+    if cuda:
+        from repro_torch.kernels import build
+        build.build_all()               # compile before the timed steps
+        torch.cuda.reset_peak_memory_stats(trainer.device)
+    t0 = time.perf_counter()
+    state, metrics = trainer.fit(n_steps=1 if args.profile else None)
+    if args.profile:                    # the first step warms up, untraced
+        from repro_torch.launch.serve import _profiler, _report
+        prof = _profiler(trainer.device)
+        t1 = time.perf_counter()
+        with prof:
+            state, metrics = trainer.fit(state, start_step=1)
+        _report(prof, time.perf_counter() - t1)
+    wall = time.perf_counter() - t0
+    steady = trainer.history[1:] or trainer.history
+    step_s = sum(h["dt_s"] for h in steady) / len(steady)
+    print(f"trained {len(trainer.history)} steps in {wall:.2f} s: "
+          f"{shape.tokens / step_s:.1f} tokens/s over steps "
+          f"{steady[0]['step']}..{steady[-1]['step']} "
+          f"({step_s * 1e3:.1f} ms a step) on {trainer.device}")
+    est = plan_memory(plan)
+    if cuda:
+        print(f"memory: peak allocated "
+              f"{torch.cuda.max_memory_allocated(trainer.device) / 2**30:.2f}"
+              f" GiB; the plan's state {est['state_bytes'] / 2**30:.2f} GiB,"
+              f" activations {est['activation_gib']} GiB")
+    print("final:", {k: float(v) for k, v in metrics.items()})
+
+
+if __name__ == "__main__":
+    main()

@@ -9,6 +9,8 @@ second halves of head_dim are the rotated pair), not interleaved.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 
@@ -80,3 +82,30 @@ def truncated_normal_(t: torch.Tensor, scale: float,
                                     generator=generator)
         flat[i:i + step].copy_(buf)
     return t
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       z_loss: float = 1e-4,
+                       vocab_size: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean cross-entropy with z-loss, in fp32
+    (``repro/models/common.py:82``): ``(loss, n)``, ``n`` the count of
+    tokens averaged over.  Logits past ``vocab_size`` (the layout pass's
+    padded vocab) are masked to -1e30 before the log-sum-exp, as the
+    reference masks them."""
+    v = logits.shape[-1]
+    logits = logits.float()
+    if vocab_size is not None and vocab_size < v:
+        slot = torch.arange(v, device=logits.device)
+        logits = torch.where(slot < vocab_size, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    if mask is not None:
+        mask = mask.float()
+        n = mask.sum().clamp_min(1.0)
+        return (nll * mask).sum() / n, n
+    return nll.mean(), torch.tensor(float(nll.numel()), device=nll.device)

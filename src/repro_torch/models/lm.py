@@ -1,4 +1,5 @@
-"""Language model: parameters, prefill and decode.
+"""Language model: parameters, training forward and loss, prefill and
+decode.
 
 The port of ``repro/models/lm.py``'s serving path for dense GQA
 decoders with a SiLU-gated FFN (qwen3-8b, deepseek-7b,
@@ -23,6 +24,15 @@ the CPU.  Projections, the FFN and the MoE products
 (:mod:`repro_torch.models.moe`) are ``torch.matmul`` / ``torch.bmm``
 in bf16, as the JAX package left them to XLA.
 
+Training (:func:`forward`, :func:`train_loss`) runs the dense GQA
+decoders: the same layer pieces as prefill (``_qkv``, ``_ffn_fwd``,
+``_residual``), attention through the flash kernels' autograd function
+(forward and backward kernels on the card), each layer wrapped in the
+plan's remat policy (:func:`_remat`).  The stacked parameter leaves are
+split into layers by one ``unbind`` each, so the backward stacks each
+leaf's gradient once (a per-layer ``leaf[i]`` would allocate a whole
+zero-filled stack per layer in its backward).
+
 Unlike the JAX functions, which returned new arrays, the session cache
 is updated **in place**: :func:`append_kv`, :func:`append_kv_paged` and
 :func:`decode_step` write into the cache tensors they are given (and
@@ -32,6 +42,7 @@ is updated **in place**: :func:`append_kv`, :func:`append_kv_paged` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -45,7 +56,11 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnParams
-from repro_torch.models.common import rms_norm, truncated_normal_
+from repro_torch.models.common import (
+    cross_entropy_loss,
+    rms_norm,
+    truncated_normal_,
+)
 from repro_torch.models.moe import MoEParams
 from repro_torch.models.ssm import SSMDims, SSMParams
 
@@ -64,9 +79,14 @@ class RunCfg:
     without one).  ``moe_impl`` is the communication pass's MoE path
     (:data:`repro_torch.models.moe.IMPLS`; any other raises when an MoE
     layer runs).
-    ``kernels`` is the plan's ``use_pallas`` mode.  The JAX package's
-    mesh and sharding fields are gone (the port runs on one card), and
-    so are the knobs of paths the port does not have yet.
+    ``kernels`` is the plan's ``use_pallas`` mode.  ``remat`` is the
+    communication pass's remat policy (``none``, ``dots`` /
+    ``dots_saveable``, ``full``).  The JAX package's mesh and sharding
+    fields are gone (the port runs on one card), and so are the knobs
+    of paths the port does not have yet (the MoE aux-loss weight waits
+    for MoE training).  The padded vocab needs no field: the logits
+    take their width from ``lm_head`` and the loss masks past
+    ``arch.vocab_size``.
     """
 
     kv_heads_padded: int = 0       # 0 -> arch.n_kv_heads
@@ -76,6 +96,7 @@ class RunCfg:
     ssd_heads_block: int = 1
     moe_impl: str = "gshard_einsum"
     kernels: str = "auto"
+    remat: str = "none"
 
 
 def check_supported(arch: ArchConfig) -> None:
@@ -397,6 +418,118 @@ def _ffn_fwd(arch: ArchConfig, grp, x: torch.Tensor,
     else:
         z = torch.square(F.relu(z.float())).to(x.dtype)
     return x + z @ grp["mlp"]["wo"]
+
+
+# =====================================================================
+# Training: full-sequence forward and loss
+# =====================================================================
+
+REMAT_POLICIES = ("none", "dots", "dots_saveable", "full")
+
+
+def check_trainable(arch: ArchConfig) -> None:
+    """Raise for an architecture the port cannot train yet: training
+    runs the dense GQA decoders.  An SSM's training needs a backward of
+    the SSD scan, an MoE's its router aux loss and expert gradients (both
+    open in ROADMAP)."""
+    check_supported(arch)
+    if arch.has_ssm or arch.is_moe:
+        raise NotImplementedError(
+            f"{arch.name}: the port trains dense GQA decoders; "
+            f"{'SSM' if arch.has_ssm else 'MoE'} training is not ported yet")
+
+
+def _unbind_layers(blocks: Dict[str, Any], n_layers: int
+                   ) -> List[Dict[str, Any]]:
+    """The stacked block tree as one dict a layer, each leaf split by a
+    single ``unbind``."""
+    layers: List[Dict[str, Any]] = [{} for _ in range(n_layers)]
+    for k, v in blocks.items():
+        parts = (_unbind_layers(v, n_layers) if isinstance(v, dict)
+                 else v.unbind(0))
+        for i in range(n_layers):
+            layers[i][k] = parts[i]
+    return layers
+
+
+def _block_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
+               positions: torch.Tensor, window: int) -> torch.Tensor:
+    """One layer of the training forward: attention over the whole
+    sequence, then the FFN (``src/repro/models/lm.py:418-422``)."""
+    h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
+    ap, (q, k, v) = _qkv(arch, grp, h, positions)
+    ctx = attn_mod.attention_chunked(q, k, v, causal=arch.causal,
+                                     window=window, tiles=cfg.flash_tiles,
+                                     mode=cfg.kernels)
+    x = _residual(x, [ctx.reshape(*x.shape[:2], -1) @ ap.wo])
+    return _ffn_fwd(arch, grp, x, cfg.moe_impl)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's rule for ``dots``: keep the outputs of
+    the 2-D products (``aten.mm``: the projections and the FFN, which
+    the reference's ``dots_with_no_batch_dims_saveable`` keeps) and
+    recompute everything else in the backward."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the plan's remat policy (``src/repro/models/lm.py
+    :425-432``): ``none`` as it is, ``full`` recomputed whole in the
+    backward (non-reentrant ``torch.utils.checkpoint``), ``dots`` /
+    ``dots_saveable`` with the 2-D products' outputs kept
+    (:func:`_dots_policy`)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r} not in {REMAT_POLICIES}")
+    if policy == "none":
+        return fn
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+    kw = {}
+    if policy != "full":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
+def forward(arch: ArchConfig, params, batch, cfg: RunCfg
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: ``(hidden (B, S, d), aux_loss)``, the aux
+    loss 0 (dense layers) as the reference returns it
+    (``src/repro/models/lm.py:441-484``).  Each layer runs under the
+    plan's remat policy, with its window from the per-layer schedule."""
+    check_trainable(arch)
+    x = _embed_in(arch, params, batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    windows = _window_schedule(arch)
+    block = _remat(functools.partial(_block_fwd, arch, cfg), cfg.remat)
+    for i, grp in enumerate(_unbind_layers(params["blocks"],
+                                           arch.n_layers)):
+        x = block(grp, x, positions, windows[i])
+    x = rms_norm(x, params["final_norm"], arch.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def train_loss(arch: ArchConfig, params, batch, cfg: RunCfg):
+    """Scalar loss of one batch (``tokens``, ``targets``, optional
+    ``mask``) and its metrics ``ce_loss``, ``aux_loss``, ``tokens``
+    (``src/repro/models/lm.py:487-497``).  The aux loss of the dense
+    layers the port trains is 0, so the loss is the cross-entropy."""
+    x, aux = forward(arch, params, batch, cfg)
+    logits = _logits(arch, params, x)
+    loss, n = cross_entropy_loss(logits, batch["targets"], batch.get("mask"),
+                                 vocab_size=arch.vocab_size)
+    metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": n}
+    return loss, metrics
 
 
 # =====================================================================

@@ -1,4 +1,4 @@
 from repro_torch.runtime.fault import RestartPolicy
-from repro_torch.runtime.straggler import StepTimer
+from repro_torch.runtime.straggler import DeadlineSkipper, StepTimer
 
-__all__ = ["RestartPolicy", "StepTimer"]
+__all__ = ["DeadlineSkipper", "RestartPolicy", "StepTimer"]

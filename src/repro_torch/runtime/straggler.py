@@ -1,13 +1,18 @@
-"""Straggler detection at the serving engine's edge.
+"""Straggler detection at the edges of the step (``repro/runtime
+/straggler.py``, pure Python).
 
-:class:`StepTimer` keeps an EWMA of tick times and their deviation; the
-engine counts a tick as a straggler when it runs far past the mean
-(a pure-Python copy of the JAX package's timer).
+* :class:`StepTimer` keeps an EWMA of step (or tick) times and their
+  deviation; the engine counts a tick as a straggler when it runs far
+  past the mean.
+* :class:`DeadlineSkipper`: if a host's batch misses its deadline, the
+  step runs with the previous prefetched batch (data reordering, not a
+  stall), at most ``max_skips`` times.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import List
 
 
 @dataclasses.dataclass
@@ -30,3 +35,21 @@ class StepTimer:
             return False
         return dt > self.mean_s + k * max(self.var_s ** 0.5,
                                           0.05 * self.mean_s)
+
+
+@dataclasses.dataclass
+class DeadlineSkipper:
+    deadline_factor: float = 2.0     # x mean step time
+    max_skips: int = 10
+    skips: int = 0
+    skipped_steps: List[int] = dataclasses.field(default_factory=list)
+
+    def should_skip(self, step: int, waited_s: float,
+                    timer: StepTimer) -> bool:
+        if timer.n < 8 or self.skips >= self.max_skips:
+            return False
+        if waited_s > self.deadline_factor * timer.mean_s:
+            self.skips += 1
+            self.skipped_steps.append(step)
+            return True
+        return False

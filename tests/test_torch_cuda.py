@@ -32,6 +32,15 @@ split-KV merge is held at split edges, for repeatability (bitwise-equal
 repeated launches, counters back at zero), and against a planted split
 dropped from the merge.
 
+The flash backward (dq, dk, dv) is held per gradient row at 2e-2,
+rms-relative, each row measured against at least 5% of its tensor's rms
+(the first query's dq is exactly 0, so its own scale is two fp32 sums'
+noise); its planted faults (a q tile dropped from the dK/dV loop, one
+head of the group summed) must fail that check by 5x, and repeated
+launches are bitwise equal (no atomics).  One train step of the small
+model on the card is held against the CPU: loss, grad norm and every
+leaf's gradient within 2e-2.
+
 The tiled matmul (bf16 on the tensor cores, fp32 on the CUDA cores) is
 held per output row, rms-relative, at the JAX tests' tolerances: 2e-2 in
 bf16 (both sides sum exact bf16 products in fp32 and round once to bf16)
@@ -547,6 +556,7 @@ def test_wrappers_count_launches_and_refuse_what_the_kernels_do_not_take(dev):
     ops.paged_decode_attention(qd, kd, kd, tbl, cache_len=lens)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 1,
+                                   "flash_attention_bwd": 0,
                                    "paged_decode_attention": 1,
                                    "decode_attention": 1, "ssd_scan": 0,
                                    "tiled_matmul": 0}
@@ -1356,3 +1366,127 @@ def test_moe_model_on_card_matches_cpu(dev, name, impl, monkeypatch):
         assert torch.equal(got.cpu(), want)
         compared += 1
     assert compared >= len(calls) // 2
+
+
+# ---------------------------------------------------------------------
+# the flash backward and training
+# ---------------------------------------------------------------------
+
+BWD_TOL = 2e-2              # worst gradient row, rms-relative, floored:
+GRAD_FLOOR = 0.05           # a row is measured against at least this share
+                            # of its tensor's rms (the first query's dq is 0)
+
+
+def _grad_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    e = (got - want).reshape(-1, got.shape[-1])
+    w = want.reshape(-1, want.shape[-1])
+    floor = GRAD_FLOOR * float(w.pow(2).mean().sqrt())
+    return float((e.pow(2).mean(1).sqrt()
+                  / w.pow(2).mean(1).sqrt().clamp_min(floor)).max())
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _bwd_case(dev, seed, B, S, Hq, Kv, Dh, causal, window):
+    g = torch.Generator(dev).manual_seed(seed)
+    q, k, v = _rnd(g, B, S, Hq, Dh), _rnd(g, B, S, Kv, Dh), \
+        _rnd(g, B, S, Kv, Dh)
+    do = _rnd(g, B, S, Hq, Dh)
+    o, lse = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Kv,Dh,causal,window", [
+    (1, 2048, H, K, D, True, 0),           # the train shape
+    (2, 1000, H, K, D, True, 0),           # ragged S
+    (1, 700, H, K, D, False, 0),
+    (1, 1100, 25, 5, 64, True, 1024),      # hymba: G = 5 at 64, a window
+    (2, 333, 56, 8, 128, True, 100),       # G = 7
+    (1, 130, 8, 8, 64, True, 0),           # G = 1
+])
+def test_flash_bwd_kernel_matches_plain(dev, B, S, Hq, Kv, Dh, causal,
+                                        window):
+    q, k, v, o, lse, do = _bwd_case(dev, S + Hq, B, S, Hq, Kv, Dh, causal,
+                                    window)
+    _, lse_plain = tfa.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+    assert float((lse - lse_plain).abs().max()) < 1e-3
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _grad_rel_err(a, b) <= BWD_TOL
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["drop_tile", "group_fault"])
+def test_flash_bwd_check_rejects_planted_faults(dev, fault):
+    q, k, v, o, lse, do = _bwd_case(dev, 3, 1, 1024, H, K, D, True, 0)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    bad = tfa.flash_attention_bwd(q, k, v, o, lse, do, **{fault: True})
+    assert min(_grad_rel_err(a, b) for a, b in zip(bad[1:], want[1:])) \
+        > 5 * BWD_TOL
+
+
+@pytest.mark.cuda
+def test_flash_autograd_counts_and_refuses_plain_on_card(dev):
+    q, k, v, _, _, do = _bwd_case(dev, 5, 1, 256, H, K, D, True, 0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.flash_attention(*leaves)
+    torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    with pytest.raises(RuntimeError, match="use_pallas='off'"):
+        ops.flash_attention(*leaves, mode="off")
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(dev, tmp_path):
+    """One train step of the small qwen3 (head_dim 128) through the
+    kernels on the card against the plain versions on the CPU, from the
+    same init and batch: loss, grad norm and every leaf's gradient
+    within 2e-2, one flash forward and one backward call a layer."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+    arch = _card_arch()
+    shape = ShapeConfig("t", "train", 256, 2)
+    plan = specialize(arch, shape, mesh_shape=(1, 1), cache=False)
+    runs = {}
+    init = None
+    for d in (torch.device("cpu"), dev):
+        tr = Trainer(plan, None, TrainerConfig(
+            n_steps=1, ckpt_every=0, ckpt_dir=str(tmp_path / d.type)),
+            arch=arch, shape=shape, device=d)
+        if init is None:
+            init = tr.init_state(0)
+        ops.reset_launch_counts()
+        state, _ = tr.fit(_clone(init))     # fit updates in place
+        runs[d.type] = (tr.history[0], state, ops.launch_counts())
+    (hc, sc, _), (hg, sg, counts) = runs["cpu"], runs["cuda"]
+    assert counts["flash_attention"] == arch.n_layers
+    assert counts["flash_attention_bwd"] == arch.n_layers
+    for key in ("loss", "grad_norm"):
+        assert abs(hg[key] - hc[key]) <= 2e-2 * abs(hc[key])
+    # the first moment after one step is (1 - b1) g: the gradients, leaf
+    # by leaf (the parameters after Adam's first step are lr * g / |g|,
+    # whose sign flips where g is near 0, so they are no measure)
+    for a, b in zip(adamw.leaves(sg["opt"]["m"]), adamw.leaves(sc["opt"]["m"])):
+        a, b = a.float().cpu(), b.float()
+        assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())

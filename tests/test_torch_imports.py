@@ -16,7 +16,10 @@ FORBIDDEN = re.compile(r"\bimport jax\b|\bfrom jax\b|\bimport ml_dtypes\b"
 def test_port_imports_without_jax_or_reference():
     code = ("import sys\n"
             "import repro_torch, repro_torch.serve.engine, "
-            "repro_torch.kernels.ops, repro_torch.launch.serve\n"
+            "repro_torch.kernels.ops, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.train.trainer, "
+            "repro_torch.optim.adamw, repro_torch.data.pipeline, "
+            "repro_torch.ckpt.checkpointer\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.') or m == 'ml_dtypes')\n"
