@@ -15,8 +15,10 @@ shared expert, a GQA group of 5 at head_dim 128), random weights from a
 seed, and holds each of the paths' hand-written
 kernels against its plain PyTorch version on the card.  It also drives
 the training path — ``specialize(target="h100-sxm")`` ->
-``lower_train_step`` -> ``Trainer.fit`` — for full-width qwen3-8b cut to
-24 of its 36 layers, through the flash forward and backward kernels.
+``lower_train_step`` -> ``Trainer.fit`` — for full-width qwen3-8b at the
+depth and remat its ``h100-sxm`` train plan admits (all 36 layers when
+the plan's step-peak estimate fits the card), through the flash forward
+and backward kernels.
 
 Phases (any failure exits non-zero before the last line):
 
@@ -24,8 +26,8 @@ Phases (any failure exits non-zero before the last line):
    (``nvcc`` for ``sm_90a``, one process per source, all at once), each
    kernel's registers and spills from ``ptxas -v``, and the count of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in each library's SASS
-   (``cuobjdump --dump-sass``): the flash and matmul libraries must have
-   both;
+   (``cuobjdump --dump-sass``): the flash, flash backward and matmul
+   libraries must have both;
 2. kernels: each kernel against its plain version at its path's widths
    (attention: 32 q heads, 8 kv heads, head_dim 128, bf16; SSD scan: 80
    heads of 64, state 128, one group, chunk 256, fp32; tiled matmul:
@@ -55,10 +57,11 @@ Phases (any failure exits non-zero before the last line):
    40 / 8 heads of 128, on a generator of their own, beside the same
    planted faults (G = 2 fills its flash tile: no pad row to plant);
    the flash backward (dq, dk, dv) at the train shape (B=1 S=2048,
-   32 / 8 heads of 128, causal), at B=2 S=1024 and at hymba's 25 / 5
-   heads of 64 through a 1024 window, row by row against the plain
-   backward beside two planted faults (a q tile dropped from the dK/dV
-   loop; one head of the group summed), timed in turns with SDPA's
+   32 / 8 heads of 128, causal), at B=2 S=1024, at hymba's 25 / 5
+   heads of 64 through a 1024 window and at granite's 16 / 8 heads of
+   64, row by row against the plain backward beside two planted faults
+   (a Q tile dropped from each dK/dV job; one head of the group summed),
+   timed in turns with SDPA's
    backward, with the forward kernel's time with and without the
    log-sum-exp it writes for the backward;
 3. qwen3-8b serve, paged: the plan as frozen (paged pool, prefix reuse,
@@ -122,16 +125,20 @@ Phases (any failure exits non-zero before the last line):
    and timed beside its bound, the plain version and ``torch.matmul``.
    No serving path launches this kernel: the models' projections stay
    ``torch.matmul``;
-16. training (every earlier weight freed): full-width qwen3-8b at 24
-   layers from the unmodified ``h100-sxm`` plan for a 2048 x 1 train
-   shape (bf16 moments, no master copy: stochastic rounding; remat none)
-   through ``Trainer.fit`` for 6 steps: the last layer's gradients and
-   the step-0 loss through the kernels against ``flash_attention_plain``
-   under autograd (noise floor, wrong-target control), 24 forward and
-   24 backward flash calls a step, every loss and grad norm finite,
-   every bf16 parameter element of the last step on one of the two bf16
-   neighbours of its fp32 update, the peak memory beside the plan's
-   estimates;
+16. training (every earlier weight freed): full-width qwen3-8b at the
+   largest depth up to 36 layers whose unmodified ``h100-sxm`` plan for a
+   2048 x 1 train shape says the eager step fits (bf16 moments, no master
+   copy: stochastic rounding; the remat the plan picks from its step-peak
+   estimate) through ``Trainer.fit`` for 6 steps: the last layer's
+   gradients and the step-0 loss through the kernels against
+   ``flash_attention_plain`` under autograd, both under the plan's remat
+   (noise floor, wrong-target and ``drop_tile`` controls), L forward
+   flash calls a step (2 L under remat, which runs each layer's forward
+   again in the backward) and L backward calls,
+   every loss and grad norm finite, every bf16 parameter element of the
+   last step on one of the two bf16 neighbours of its fp32 update, the
+   measured peak memory at or under the plan's step-peak estimate and
+   the estimate at most 15% above it;
 17. a small qwen3 (head_dim 128, master weights) trained 4 steps on the
    card against the CPU, then saved at step 2 and resumed by a fresh
    trainer: steps 3-4 and the final state bitwise equal to the
@@ -142,10 +149,18 @@ Every line with a measured number carries the card's ``nvidia-smi``
 name and power limit.
 
 Run from the repository root:  python3 chip_smoke.py
+
+``--only flash_bwd`` runs the flash backward's check and timings alone
+(:func:`flash_bwd_check`) and prints its result as one JSON line.
+``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
+as a parent commit's unpacked with ``git archive``: run two trees in
+alternating processes (parent, change, change, parent) to compare them
+on one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import functools
@@ -198,9 +213,11 @@ MOE_PAIRS = {"granite": (16, 8, 64), "llama4": (40, 8, 128)}
 GRANITE, LLAMA4 = "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"
 SSD_H, SSD_P, SSD_N, SSD_G = 80, 64, 128, 1   # mamba2-2.7b SSD widths
 HSSD_H, HSSD_N = 50, 16     # hymba-1.5b SSD widths (P = 64, one group)
-# training: full-width qwen3-8b cut to 24 of its 36 layers (its state,
-# gradients and eager activations at 36 layers exceed the card), steps
-TRAIN_LAYERS, TRAIN_STEPS = 24, 6
+# training: full-width qwen3-8b at the depth its plan admits, steps
+TRAIN_STEPS = 6
+# the plan's step-peak estimate against the card's measured peak: never
+# below it, at most this factor above it
+STEP_PEAK_OVER = 1.15
 # small model, card vs CPU, each bound ten times its worst reading on
 # an H100 at 700 W: |loss difference| a step (losses ~6.27; read
 # 3.0e-5) and the grad norm's relative difference a step (read 1.75e-4;
@@ -221,7 +238,7 @@ CARD = ""                   # nvidia-smi name, power limit (set in main)
 FLASH_BUCKETS = ((1, 2048), (2, 1024), (4, 512), (8, 256))
 TURNS = 5                   # rounds of kernel / library taken in turns
 # the kernels built on wgmma fed by TMA: phase 1 finds both in their SASS
-HOPPER_SOURCES = ("flash_attention", "tiled_matmul")
+HOPPER_SOURCES = ("flash_attention", "flash_attention_bwd", "tiled_matmul")
 
 
 def log(msg: str) -> None:
@@ -2935,8 +2952,10 @@ def _causal_pairs(S: int, window: int) -> int:
 
 def flash_bwd_check(torch, F, fa, dev):
     """The flash backward at the training shape, qwen3-8b's widths (32 /
-    8 heads of 128) at B=1 S=2048 causal, also at B=2 S=1024, and at
-    hymba's (25 / 5 heads of 64) through a 1024 window at B=1 S=2048.
+    8 heads of 128) at B=1 S=2048 causal, also at B=2 S=1024, at hymba's
+    (25 / 5 heads of 64) through a 1024 window at B=1 S=2048, and at
+    granite's (16 / 8 heads of 64) at B=1 S=2048 causal (the MoE train
+    shape ROADMAP item 8a queues).
     dq, dk and dv are held row by row (:func:`grad_row_err`) against the
     plain backward on the same q, k, v, o, lse and dO (o and lse from the
     forward kernel), beside two planted faults on dk / dv that must fail
@@ -2954,7 +2973,8 @@ def flash_bwd_check(torch, F, fa, dev):
     out = {"shapes": []}
     for B, S, Hq, Kv, Dh, W in ((1, 2048, H, K, D, 0),
                                 (2, 1024, H, K, D, 0),
-                                (1, 2048, H5, K5, D64, W5)):
+                                (1, 2048, H5, K5, D64, W5),
+                                (1, 2048, *MOE_PAIRS["granite"], 0)):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device=dev).to(
                 torch.bfloat16)
@@ -3052,8 +3072,10 @@ def flash_bwd_check(torch, F, fa, dev):
 def _last_layer_grads(torch, arch, params, batch, cfg, plain: bool):
     """The training loss of ``batch`` and the gradients of the last layer
     (its leaves and its input): the first ``L - 1`` layers run without
-    autograd, the last with it, then the final norm, the logits and the
-    loss, as ``lm.train_loss`` computes them.  ``plain`` sends attention
+    autograd, the last with it under ``cfg.remat`` (so its backward
+    recomputes the forward as the plan's step does), then the final
+    norm, the logits and the loss, as ``lm.train_loss`` computes them.
+    ``plain`` sends attention
     through ``flash_attention_plain`` under torch autograd instead of the
     kernels' autograd function."""
     from repro_torch.kernels import flash_attention as fa
@@ -3079,7 +3101,9 @@ def _last_layer_grads(torch, arch, params, batch, cfg, plain: bool):
                                   windows[i])
         x = x.detach().requires_grad_()
         last = _map_tree(layers[-1], lambda t: t.detach().requires_grad_())
-        y = lm._block_fwd(arch, cfg, last, x, positions, windows[-1])
+        block = lm._remat(functools.partial(lm._block_fwd, arch, cfg),
+                          cfg.remat)
+        y = block(last, x, positions, windows[-1])
         y = rms_norm(y, params["final_norm"], arch.norm_eps)
         loss, _ = cross_entropy_loss(lm._logits(arch, params, y),
                                      batch["targets"],
@@ -3182,36 +3206,57 @@ class RoundingCheck:
         return out
 
 
+def train_plan(specialize, arch, shape):
+    """``arch`` at its full depth and its ``h100-sxm`` plan for
+    ``shape``, or, if that plan's step-peak estimate does not fit the
+    card (``step_fits`` 0 at every remat), the deepest cut whose plan
+    fits."""
+    for n in range(arch.n_layers, 0, -1):
+        cut = dataclasses.replace(arch, n_layers=n)
+        plan = specialize(cut, shape, mesh_shape=(1, 1), target="h100-sxm",
+                          plan_dir=PLAN_DIR)
+        if plan.estimates.get("step_fits"):
+            return cut, plan
+    fail(f"train: no depth of {arch.name} fits the card by its plan")
+
+
 def train_phase(torch, dev):
-    """Full-width qwen3-8b cut to :data:`TRAIN_LAYERS` layers (the only
-    cut), trained from the unmodified ``h100-sxm`` plan for
-    ``ShapeConfig("train_2k", "train", 2048, 1)`` — bf16 moments, no
-    master copy (stochastic rounding), remat and microbatches as planned
-    — through ``Trainer.fit`` for :data:`TRAIN_STEPS` steps on the
-    synthetic pipeline, every earlier weight freed first.  Before the
-    fit, the kernels' gradient check (:func:`train_grad_check`); the
-    last step runs with :class:`RoundingCheck` on the optimizer's
-    rounding, the steps before it are timed clean."""
+    """Full-width qwen3-8b at the depth its plan admits
+    (:func:`train_plan`: all 36 layers when the step fits), trained from
+    the unmodified ``h100-sxm`` plan for ``ShapeConfig("train_2k",
+    "train", 2048, 1)`` — bf16 moments, no master copy (stochastic
+    rounding), remat and microbatches as planned — through
+    ``Trainer.fit`` for :data:`TRAIN_STEPS` steps on the synthetic
+    pipeline, every earlier weight freed first.  Before the fit, the
+    kernels' gradient check (:func:`train_grad_check`); the last step
+    runs with :class:`RoundingCheck` on the optimizer's rounding, the
+    steps before it are timed clean.  The fit's peak allocated memory is
+    held against the plan's step-peak estimate: ``peak <= estimate <=``
+    :data:`STEP_PEAK_OVER` ``x peak``."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core import specialize
     from repro_torch.core.passes.lowering import build_run_cfg
     from repro_torch.data import SyntheticSource, to_device
     from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
     from repro_torch.launch.train import plan_memory
     from repro_torch.optim import adamw
     from repro_torch.train import Trainer, TrainerConfig
 
-    arch = dataclasses.replace(get_arch("qwen3-8b"), n_layers=TRAIN_LAYERS)
     shape = ShapeConfig("train_2k", "train", 2048, 1)
-    plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
-                      plan_dir=PLAN_DIR)
+    arch, plan = train_plan(specialize, get_arch("qwen3-8b"), shape)
     est = plan_memory(plan)
-    decisions = {"opt": dict(plan.opt), "remat": plan.comm.remat_policy,
+    remat = plan.comm.remat_policy
+    decisions = {"opt": dict(plan.opt), "remat": remat,
                  "microbatches": plan.comm.microbatches,
                  "flash": dict(plan.partitions["flash_attention"].blocks)}
-    log(f"train plan {plan.content_hash()[:12]}: {decisions}; state "
-        f"{est['state_bytes'] / 2**30:.2f} GiB, activations "
-        f"{est['activation_gib']} GiB (the plan's estimates)")
+    log(f"train plan {plan.content_hash()[:12]} at {arch.n_layers} of 36 "
+        f"layers: {decisions}; step peak estimate {est['peak'] / 2**30:.2f} "
+        f"GiB (state {est['state'] / 2**30:.2f}, gradients "
+        f"{est['grads'] / 2**30:.2f}, saved activations "
+        f"{est['saved'] / 2**30:.2f}, largest transient "
+        f"{est['transient'] / 2**30:.2f}) against a budget of "
+        f"{est['budget'] / 2**30:.2f} GiB (the plan's estimates)")
     for entry in plan.log:
         if entry[0] in ("data_organization", "communication"):
             log("  train plan: " + " | ".join(entry))
@@ -3262,13 +3307,14 @@ def train_phase(torch, dev):
     bf16_elems = sum(t.numel() for _, t in _named(state["params"])
                      if t.dtype == torch.bfloat16)
     L = arch.n_layers
-    log(f"train: {len(hist)} steps, median step {step_ms:.1f} ms over steps "
-        f"1..{len(hist) - 2} ({tok_s:.1f} tokens/s); launches "
-        f"flash_attention {counts['flash_attention']}, flash_attention_bwd "
-        f"{counts['flash_attention_bwd']} ({L} / {L} a step expected); peak "
-        f"allocated {peak / 2**30:.2f} GiB against the plan's state "
-        f"{est['state_bytes'] / 2**30:.2f} GiB + activations "
-        f"{est['activation_gib']} GiB [{CARD}]")
+    fwd = L * (1 if remat == "none" else 2)    # remat runs forwards again
+    log(f"train: {len(hist)} steps at {L} layers, remat {remat}, median "
+        f"step {step_ms:.1f} ms over steps 1..{len(hist) - 2} ({tok_s:.1f} "
+        f"tokens/s); launches flash_attention {counts['flash_attention']}, "
+        f"flash_attention_bwd {counts['flash_attention_bwd']} ({fwd} / {L} "
+        f"a step expected) [{CARD}]")
+    log(f"train {launch_train.memory_line(plan, peak)} (tol: estimate "
+        f"within [1, {STEP_PEAK_OVER}] x the measured peak) [{CARD}]")
     log(f"train rounding check: {sr.elements} bf16 elements rounded of "
         f"{bf16_elems}, {sr.off_pair} off their neighbour pair, {sr.up} up "
         f"against {sr.expect_up:.1f} expected (sd "
@@ -3276,10 +3322,13 @@ def train_phase(torch, dev):
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
               for h in hist), "train: a loss or grad norm is not finite")
     check(len(hist) == TRAIN_STEPS, f"train: {len(hist)} steps")
-    check(counts["flash_attention"] == L * TRAIN_STEPS
+    check(counts["flash_attention"] == fwd * TRAIN_STEPS
           and counts["flash_attention_bwd"] == L * TRAIN_STEPS,
-          f"train: launches {counts}, expected {L} forward and {L} backward "
-          "flash calls a step")
+          f"train: launches {counts}, expected {fwd} forward and {L} "
+          f"backward flash calls a step under remat {remat}")
+    check(peak <= est["peak"] <= STEP_PEAK_OVER * peak,
+          f"train: the plan's step peak estimate {est['peak']} B is not "
+          f"within [1, {STEP_PEAK_OVER}] x the measured peak {peak} B")
     check(abs(hist[0]["loss"] - grad["loss_kernels"])
           <= 1e-3 * abs(grad["loss_kernels"]),
           f"train: step-0 loss {hist[0]['loss']} against the checked "
@@ -3290,8 +3339,8 @@ def train_phase(torch, dev):
     res = dict(plan=plan.content_hash(), decisions=decisions,
                n_layers=L, n_params=n_params, steps=hist, step_ms=step_ms,
                tokens_per_s=tok_s, peak_bytes=peak,
-               plan_state_bytes=est["state_bytes"],
-               plan_activation_gib=est["activation_gib"], launches=counts,
+               plan_memory=est, estimate_over_peak=est["peak"] / peak,
+               launches=counts,
                grad_check=grad,
                rounding=dict(elements=sr.elements, off_pair=sr.off_pair,
                              up=sr.up, expect_up=sr.expect_up),
@@ -3563,10 +3612,16 @@ def matmul_path_phase(torch, dev, plans, shapes):
 
 # ---------------------------------------------------------------------
 
-def main() -> int:
-    if not (SRC / "repro_torch" / "__init__.py").exists():
-        print(f"chip_smoke: no port package at {SRC / 'repro_torch'}; run "
-              "from a checkout of the repository", file=sys.stderr)
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="the port on one NVIDIA card")
+    ap.add_argument("--only", choices=("flash_bwd",),
+                    help="run this phase alone and print its result")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the src directory whose repro_torch runs")
+    args = ap.parse_args(argv)
+    if not (args.src / "repro_torch" / "__init__.py").exists():
+        print(f"chip_smoke: no port package at {args.src / 'repro_torch'}; "
+              "run from a checkout of the repository", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     import torch
@@ -3574,7 +3629,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test runs only on an NVIDIA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(args.src))
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3590,6 +3645,13 @@ def main() -> int:
     log(f"device {torch.cuda.get_device_name(0)} count "
         f"{torch.cuda.device_count()} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    if args.only == "flash_bwd":
+        import torch.nn.functional as F
+        from repro_torch.kernels import flash_attention as fa
+        log(json.dumps({"src": str(args.src), "card": CARD,
+                        "flash_attention_bwd":
+                            flash_bwd_check(torch, F, fa, dev)}))
+        return 0
     from repro_torch.kernels import build, ops
     t0 = time.perf_counter()
     build.build_all()

@@ -17,6 +17,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 from repro_torch.core.ir import ProgramIR, Role, TensorDecl
 from repro_torch.hw.tpu import TpuTarget
+from repro_torch.optim.adamw import CHUNK as OPT_CHUNK
 
 
 @dataclasses.dataclass(frozen=True)
@@ -605,3 +606,111 @@ def attention_tile_bytes(
 
 def matmul_tile_bytes(bm: int, bk: int, bn: int, dtype_bytes: int = 2) -> int:
     return (bm * bk + bk * bn) * dtype_bytes + bm * bn * 4  # fp32 acc
+
+
+# ---------------------------------------------------------------------------
+# eager train step memory (CUDA targets)
+# ---------------------------------------------------------------------------
+
+#: remat policies in the order a CUDA plan tries them: the least
+#: recomputation that fits comes first.  ``dots_saveable`` is not a rung:
+#: it never fits where ``full`` does not, and on the eager step its
+#: selective checkpoint, a policy call on every op of the forward and the
+#: recompute, made the 36-layer qwen3-8b step 13% slower than ``full``
+#: at the same peak (``scripts/remat_turns.py``, PERF.md §6)
+REMAT_LADDER = ("none", "full")
+
+#: bytes a train step holds beside its state that no term of
+#: :func:`eager_train_step_memory` lists: cuBLAS and cuBLASLt workspaces,
+#: the batch, scalars, gradients in flight between two layers
+STEP_RUNTIME_BYTES = 512 << 20
+
+#: fp32 / int32 temporaries an AdamW update keeps of one chunk
+#: (:data:`OPT_CHUNK` elements) at once
+OPT_CHUNK_TEMPS = 10
+
+
+def eager_layer_saved_bytes(arch, tokens: float, heads: int, kv_heads: int,
+                            remat: str) -> float:
+    """Bytes eager autograd keeps for one dense GQA layer between its
+    forward and its backward, under ``remat`` (the port's
+    ``models.lm._block_fwd`` as PyTorch records it, T = ``tokens``):
+
+    * ``none``: each fp32 RMS norm keeps its fp32 input and normalised
+      output and its fp32 reciprocal rms (8 T d + 4 T, pre-attention and
+      pre-FFN, and the scale 1 + w in fp32), the bf16 normed input of the
+      projections (2 T d each); the q/k norms the same over (H + K) hd;
+      RoPE its fp32 sin and cos (T x hd/2 each, for q and for k); flash
+      q, k, v, o (bf16) and the fp32 log-sum-exp (4 T H); the gated FFN
+      its bf16 gate/up product (4 T F), the fp32 gate (4 T F), the bf16
+      SiLU (2 T F) and the bf16 product (2 T F);
+    * ``full``: the layer's input alone (2 T d).
+    """
+    T, d, hd = tokens, arch.d_model, arch.hd
+    F = arch.d_ff or arch.d_inner
+    if remat == "full":
+        return 2 * T * d
+    if remat != "none":
+        raise ValueError(f"remat policy {remat!r} not in {REMAT_LADDER}")
+    norm = 10 * T * d + 4 * T + 4 * d          # fp32 in and out, rsqrt,
+    qk_norm = (8 * T * (heads + kv_heads) * hd  # scale; bf16 normed input
+               + 4 * T * (heads + kv_heads) + 8 * hd) if arch.qk_norm else 0
+    rope = 8 * T * hd if arch.rope_theta > 0 else 0
+    flash = 4 * T * (heads + kv_heads) * hd + 4 * T * heads
+    ffn = 12 * T * F
+    return 2 * norm + qk_norm + rope + flash + ffn
+
+
+def eager_train_step_memory(arch, *, tokens: float, heads: int,
+                            kv_heads: int, vocab: int, state_bytes: float,
+                            param_bytes: float, largest_stacked_bytes: float,
+                            embed_bytes: float, remat: str,
+                            microbatches: int = 1) -> Dict[str, float]:
+    """The peak bytes of one eager train step on one card
+    (``core.passes.lowering.lower_train_step``: autograd through
+    ``models.lm.train_loss``, then AdamW in place), by part:
+
+    * ``state``: parameters, moments and the master copy (the data
+      organisation pass's persistent bytes);
+    * ``runtime``: :data:`STEP_RUNTIME_BYTES` beside them (cuBLAS
+      workspaces, the batch, small tensors no other term lists);
+    * ``grads``: the gradient buffer ``torch.autograd.grad`` returns, in
+      the parameters' dtype; with microbatches the fp32 sum besides
+      (4 bytes a parameter on top of a microbatch's);
+    * ``saved``: what the layers keep for the backward
+      (:func:`eager_layer_saved_bytes` per layer, ``T = tokens /
+      microbatches``), plus, under remat, the one layer recomputed in the
+      backward, and the final norm's 10 T d;
+    * ``loss``: the logits' region as the backward starts: the fp32
+      logits the log-sum-exp keeps and four fp32 T x V temporaries of the
+      loss's backward (its exp, the product, the gather's scatter and
+      their sum): 20 T V;
+    * ``tail``: the end of the backward, where each stacked ``(L, ...)``
+      leaf's gradient is stacked from its per-layer pieces: the largest
+      leaf once more, beside every gradient but the embedding's (made
+      after the stacks) and the input's gradient on its way to it
+      (2 T d); or the optimizer's fp32 chunk temporaries beside all the
+      gradients, whichever is larger.
+
+    The peak is ``state + runtime`` plus the larger of the turn from
+    forward to backward (``saved + loss``, with the fp32 sum of earlier
+    microbatches) and the end (``grads`` and ``tail``)."""
+    nmicro = max(microbatches, 1)
+    T = tokens / nmicro
+    layer = eager_layer_saved_bytes(arch, T, heads, kv_heads, remat)
+    saved = arch.n_layers * layer
+    if remat != "none":
+        saved += eager_layer_saved_bytes(arch, T, heads, kv_heads, "none")
+    saved += 10 * T * arch.d_model
+    loss = 20 * T * vocab
+    sum32 = 2 * param_bytes if nmicro > 1 else 0.0
+    grads = param_bytes + sum32
+    stacking = largest_stacked_bytes - embed_bytes + 2 * T * arch.d_model
+    tail = max(stacking, OPT_CHUNK_TEMPS * OPT_CHUNK * 4)
+    turn = saved + loss + sum32
+    end = grads + tail
+    return {"state": float(state_bytes), "runtime": float(STEP_RUNTIME_BYTES),
+            "grads": float(grads), "saved": float(saved),
+            "loss": float(loss), "tail": float(tail),
+            "peak": float(state_bytes + STEP_RUNTIME_BYTES
+                          + max(turn, end))}

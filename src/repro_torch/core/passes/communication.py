@@ -17,7 +17,9 @@ TPU re-targeting — everything that moves bytes between memories/chips:
 
 from __future__ import annotations
 
-from repro_torch.core.costmodel import compressed_ratio, estimate_step
+from repro_torch.core.costmodel import (REMAT_LADDER, compressed_ratio,
+                                        eager_train_step_memory,
+                                        estimate_step)
 from repro_torch.core.ir import Role
 from repro_torch.core.passes import Pass, PassContext
 
@@ -26,6 +28,10 @@ class CommunicationPass(Pass):
     name = "communication"
 
     act_budget_frac: float = 0.25     # activations may use this HBM share
+    #: the share of a CUDA card the whole eager train step may peak at:
+    #: the persistent share (``DataOrganizationPass.hbm_budget_frac``,
+    #: 0.70) and the activation share together
+    step_budget_frac: float = 0.95
 
     def run(self, ctx: PassContext) -> None:
         plan, mesh, tgt = ctx.plan, ctx.mesh, ctx.target
@@ -173,8 +179,11 @@ class CommunicationPass(Pass):
                 carry_bytes_per_dev=carry / nmicro)
 
             # ---- remat policy ---------------------------------------------
+            from repro_torch.core.passes.partitioning import CUDA_TARGETS
             act_bytes = self._activation_bytes(ctx)
-            if carry / nmicro + act_bytes / nmicro > budget:
+            if ctx.target.name in CUDA_TARGETS:
+                self._remat_by_step_peak(ctx, nmicro)
+            elif carry / nmicro + act_bytes / nmicro > budget:
                 comm.remat_policy = "full"
                 self.record(ctx, "remat", "full",
                             f"intra-layer activations {act_bytes/nmicro/2**30:.1f}"
@@ -278,6 +287,60 @@ class CommunicationPass(Pass):
         comm.overlap_collectives = True
 
     # ------------------------------------------------------------------
+    def _remat_by_step_peak(self, ctx: PassContext, nmicro: int) -> None:
+        """Remat on a CUDA target: the least recomputation
+        (:data:`REMAT_LADDER`) whose whole eager step, state, gradients,
+        saved activations and the largest transient
+        (:func:`eager_train_step_memory`), stays under
+        :attr:`step_budget_frac` of the card; ``full`` when none does,
+        with ``step_fits`` 0.  The TPU path holds persistent state and
+        fused activations to two shares apart; the eager step's gradient
+        buffer and saved tensors belong to neither, so the two shares are
+        held together."""
+        plan, arch = ctx.plan, ctx.arch
+        budget = self.step_budget_frac * ctx.target.hbm_bytes
+        _, heads, _, kv_heads = plan.padded_sizes()
+        heads, kv_heads = heads or arch.n_heads, kv_heads or arch.n_kv_heads
+        params = ctx.ir.by_role(Role.PARAM, Role.EXPERT_PARAM)
+        stacked = [t.nbytes for t in params
+                   if t.logical_axes and t.logical_axes[0] == "layers"]
+        tried = {}
+        for policy in REMAT_LADDER:
+            tried[policy] = eager_train_step_memory(
+                arch, tokens=ctx.shape.tokens / self._dp(ctx),
+                heads=heads, kv_heads=kv_heads,
+                vocab=plan.padded_sizes()[0] or arch.vocab_size,
+                state_bytes=plan.estimates["persistent_bytes_per_dev"],
+                param_bytes=sum(t.nbytes for t in params),
+                largest_stacked_bytes=max(stacked, default=0),
+                embed_bytes=sum(t.nbytes for t in params
+                                if t.name == "embed"),
+                remat=policy, microbatches=nmicro)
+            if tried[policy]["peak"] <= budget:
+                break
+        est = tried[policy]
+        fits = est["peak"] <= budget
+        plan.comm.remat_policy = policy
+        plan.estimates.update(
+            step_peak_bytes=est["peak"], step_grad_bytes=est["grads"],
+            step_saved_bytes=est["saved"],
+            step_transient_bytes=max(est["loss"], est["tail"]),
+            step_runtime_bytes=est["runtime"],
+            step_budget_bytes=float(budget), step_fits=float(fits))
+        gib = 2 ** 30
+        self.record(
+            ctx, "remat", policy,
+            "eager step peak " + ", ".join(
+                f"{p} {e['peak'] / gib:.2f}" for p, e in tried.items())
+            + f" GiB against {self.step_budget_frac:.2f} of the card "
+            f"({budget / gib:.2f} GiB): state {est['state'] / gib:.2f}, "
+            f"runtime {est['runtime'] / gib:.2f}, "
+            f"gradients {est['grads'] / gib:.2f}, saved activations "
+            f"{est['saved'] / gib:.2f}, the loss's backward "
+            f"{est['loss'] / gib:.2f}, stacking / optimizer tail "
+            f"{est['tail'] / gib:.2f} GiB"
+            + ("" if fits else "; no remat fits: the step does not fit"))
+
     def _dp_axes(self, ctx: PassContext) -> tuple:
         """Mesh axes the batch rule actually uses (the DP reduction set)."""
         assign = ctx.plan.axis_rules.get("batch", "data")

@@ -98,7 +98,9 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
     (``src/repro/core/passes/lowering.py:213-425``): the loss and its
     gradients, accumulated over ``comm.microbatches`` microbatches (each
     taking every ``microbatches``-th row of the batch, the reference's
-    interleaved split, the gradients summed in fp32 and averaged), then
+    interleaved split, the gradients summed in fp32 and averaged: the
+    bf16 gradients of one microbatch beside the fp32 sum, which the
+    planner's step-peak estimate counts), then
     :func:`repro_torch.optim.adamw.apply_updates` in place.  The state is
     ``{"params": ..., "opt": ...}``; float parameters must require grad.
 
@@ -137,11 +139,13 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
             for j in range(nmicro):
                 mb = {k: v[j::nmicro] for k, v in batch.items()}
                 loss, _, grads = grads_of(params, mb)
-                g32 = [g.float() for g in grads]
-                gsum = g32 if gsum is None else [
-                    a.add_(b) for a, b in zip(gsum, g32)]
+                # the fp32 sum takes each microbatch's gradients as they
+                # are (no fp32 copy of a whole microbatch's set)
+                gsum = [g.float() for g in grads] if gsum is None else [
+                    a.add_(b) for a, b in zip(gsum, grads)]
+                del grads
                 lsum = lsum + loss
-            flat = [g / nmicro for g in gsum]
+            flat = [g.div_(nmicro) for g in gsum]
             loss = lsum / nmicro
             metrics = {"ce_loss": loss,
                        "aux_loss": torch.zeros((), device=loss.device),

@@ -172,11 +172,12 @@ _SIGNATURES = {
                                           _I, _I, _I],
     },
     "flash_attention_bwd": {
-        # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, q_off, H,
-        # K, D, causal, window, scale, drop_tile, group_fault, stream
-        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                                _P],
+        # q, k, v, o, dout, lse, delta, table, dq, dk, dv, B, Sq, Skv,
+        # q_off, H, K, D, causal, window, scale, drop_tile, group_fault,
+        # stream
+        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                _I, _P],
     },
     "decode_attention": {
         # q, k_pool, v_pool, tbl, cache_len, out, ws, counters, B, H, K,

@@ -99,11 +99,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// generic-proxy stores to shared memory made visible to wgmma's reads
-__device__ __forceinline__ void fence_proxy_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -168,7 +163,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     reinterpret_cast<uint4*>(q_s + a * kRows * 128 + q_rows * 128)[j] =
         make_uint4(0, 0, 0, 0);
   }
-  fence_proxy_async_shared();
+  sm90::fence_proxy_async_shared();
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -439,6 +434,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         int pad_fault, void* stream) {
   if (!takes(q, k, v, out, Sq, Skv, q_off, H, K, D, rows))
     return int(cudaErrorInvalidValue);
+  // cuTensorMapEncodeTiled needs a current context, which a
+  // thread that has made no runtime call yet (autograd's device thread,
+  // recomputing a forward under remat) may not have
+  const cudaError_t e = cudaFree(nullptr);
+  if (e != cudaSuccess) return int(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_CASE(DD, ROWS, BKV)                                     \
   if (D == DD && rows == ROWS && block_kv == BKV)                           \

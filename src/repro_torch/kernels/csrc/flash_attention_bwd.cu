@@ -1,5 +1,5 @@
-// GQA flash attention, backward (FlashAttention-2), with causal and
-// sliding-window masks.
+// GQA flash attention, backward (FlashAttention-2's arithmetic), with causal
+// and sliding-window masks, on wgmma fed by TMA.
 //
 // Replaces no Pallas kernel: the JAX package trains through
 // attention_chunked (src/repro/models/attention.py:74), the XLA mirror of
@@ -11,465 +11,755 @@
 // From q, k, v, the forward's output o, its log-sum-exp lse (fp32
 // (B, H, Sq), natural log of the scaled scores) and dO it computes, with
 // P recomputed in fp32 from the scores and lse:
-//   Delta = rowsum(dO o O)                      (pass 1)
+//   Delta = rowsum(dO o O)
 //   dP = dO V^T,  dS = P o (dP - Delta)
-//   dK = scale dS^T Q,  dV = P^T dO             (pass 2, per kv tile)
-//   dQ = scale dS K                             (pass 3, per q tile)
+//   dK = scale dS^T Q,  dV = P^T dO,  dQ = scale dS K
 // dK and dV of a kv head sum the G query heads that share it.
 //
-// What bounds it on the H100: operations.  The backward is five products
-// of the scores' size (S recomputed, dP, dV, dK, dQ: 2.5x the forward's
-// multiply-adds; this design computes S and dP in both passes 2 and 3,
-// seven in all) against reads of q, k, v, o, dO — far above the card's
-// ~295 FLOP/byte balance.  This first design is simple and right, not
-// fast:
-//   * every product is mma.sync m16n8k16 (bf16 operands, fp32
-//     accumulation) from operand tiles in shared memory, rows padded by
-//     8 bf16 so every fragment read is conflict-free; P and dS are
-//     rounded to bf16 as the A operand straight from the accumulator
-//     registers (the m16n8 C layout of two n-blocks is the m16k16 A
-//     layout), as the forward rounds P for P.V;
-//   * pass 2: one CTA per (b, kv head, 64-key tile), four warps of 16
-//     keys.  It loops over the G heads of its group and the q tiles that
-//     can see its keys (causal: from the diagonal on; a window: up to
-//     window - 1 positions past its last key), computing S^T = K Q^T and
-//     dP^T = V dO^T with keys as rows, so P^T and dS^T are A operands in
-//     place, and accumulates dK and dV for its 16 x D rows in fp32
-//     registers: no atomics, the output is deterministic;
-//   * pass 3: one CTA per (b, head, 64-query tile), four warps of 16
-//     queries, looping over the kv tiles the queries see, dQ in fp32
-//     registers;
-//   * masks are the forward's (key_ok: the S edge, causal bottom-right
-//     alignment at q_off, the window), applied on every element; rows
-//     past Sq and keys past Skv load as zeros and are masked;
-//   * no cp.async pipeline, no wgmma, no TMA yet: each tile is loaded
-//     with 16-byte loads and a __syncthreads.  Overlapping the loads,
-//     wgmma and a persistent grid are later work.
-// Tiles: 64 keys x (32 queries at D = 128, 64 at D = 64) in pass 2,
-// 64 queries x 64 keys in pass 3; head_dim 64 and 128.
+// What bounds it on the H100: operations.  Five products of the scores'
+// size (S, dP, dV, dK, dQ: 2.5x the forward's multiply-adds; S and dP are
+// computed twice, once in each of the two main kernels, seven in all)
+// against reads of q, k, v, o, dO: far above the card's ~295 FLOP/byte
+// balance.  So every product is wgmma (bf16 in, fp32 accumulate) from tiles
+// that TMA brings into shared memory (csrc/hopper.cuh), as in the forward.
+// Three launches:
+//   * prep: one warp a row computes Delta into (B, H, Sq) for the dQ kernel
+//     and fills the dK/dV kernel's row table: for each (b, kv head, Q tile)
+//     the 64 rows' log-sum-exp (times log2 e) and Delta in the tile's row
+//     order, +inf and 0 on pad rows and rows past Sq, so the dK/dV kernel
+//     fetches a tile's 512 bytes with one bulk copy beside the tile's TMA
+//     boxes instead of gathering them;
+//   * dK/dV: keys are wgmma's 64-row side.  A CTA is one producer warpgroup
+//     (one thread issues every copy) and two consumer warpgroups that own
+//     the same 64 keys: K and V stay in shared memory for the job, and Q /
+//     dO tiles of 64 rows stream through a ring of four stages.  Rows are
+//     (position, head) pairs, the forward's 4-D box (64 of D, G heads, 64/G
+//     positions), so one tile serves all G heads of the kv head: the sum
+//     over the group is the sum over the tile's rows.  Per Q tile
+//       S^T = K Q^T, dP^T = V dO^T    wgmma SS m64n64k16 (both K-major),
+//           two groups, so P^T's arithmetic overlaps the dP^T product,
+//       P^T, dS^T in fp32 registers, from the row table in shared memory,
+//       dV += P^T dO and dK += dS^T Q   wgmma RS m64n{D}k16: P^T and dS^T
+//           rounded to bf16 are A fragments as they stand, dO and Q the
+//           MN-major B (as the forward's V in P V);
+//     dK and dV stay in fp32 registers for the whole job (64 + 64 a thread
+//     at D = 128; setmaxnreg gives the consumers 240).  At D = 128 that
+//     is tight: ptxas spills some registers and serialises the wgmma
+//     (C7512); an order with S^T and dP^T never live together spilled
+//     more and ran slower.  The descriptors are built where each wgmma
+//     issues (opaque bases), or the compiler hoists one 64-bit descriptor
+//     a k-step out of the loop.  The two warpgroups
+//     take the job's Q tiles alternately, so each holds a partial sum;
+//     at the end warpgroup 1 hands its partials through the K/V tiles'
+//     shared memory (both are done with them) and warpgroup 0 adds them
+//     to its own, in that fixed order, and writes: no atomics, the output
+//     is bitwise the same on every call;
+//   * causal balance: key tile j sees the queries from its own position on,
+//     so its work falls linearly with j.  A causal CTA without a window
+//     takes two jobs, key tiles c and n - 1 - c (the pairing of the TPU's
+//     packed causal grid, src/repro/kernels/flash_attention.py:118-181):
+//     every CTA does the same work, n/2 CTAs per (b, kv head), one wave
+//     (128 CTAs at the train shape on 132 SMs).  A window or causal=False
+//     takes one key tile a CTA;
+//   * dQ: the forward's skeleton plus one product.  A CTA holds 128 query
+//     rows (two consumer warpgroups of 64) with their Q and dO tiles, and
+//     streams 64-key K and V tiles through a ring of two stages.  Per tile
+//       S = Q K^T and dP = dO V^T        wgmma SS m64n64k16,
+//       dS = P o (dP - Delta) in registers (P from the row's lse),
+//       dQ += dS K                       wgmma RS m64n{D}k16, K MN-major;
+//     dQ stays in registers across the kv loop; longest query tiles first.
+// Masks are the forward's (key_ok: the S edge, causal bottom-right
+// alignment at q_off, the window), applied only on tiles that straddle a
+// boundary.  Ragged S: TMA zero-fills rows past S; a zero-filled query row
+// has lse +inf in the tables (P = 0), a zero-filled key is masked in dQ
+// and its dK/dV rows are never written.  Sq <= Skv with q_off = Skv - Sq.
+// Group pad rows (G = 5, 7: 60 or 63 of 64 rows) are zeroed once in every
+// ring stage and have lse +inf.  head_dim 64 and 128; any G up to 64.
+// Planted faults for the checks: drop_tile skips each dK/dV job's first Q
+// tile; group_fault gives every head but a group's first lse +inf in the
+// dK/dV row table (only the first head summed into dK/dV).
+// Not done yet (later work): overlapping one tile's element-wise step with
+// the next tile's products, a persistent grid, folding Delta into a
+// kernel's prologue.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using repro::bf16;
+namespace sm90 = repro::sm90;
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileK = 64;   // keys per pass-2 CTA, per pass-3 kv tile
-constexpr int kTileQ3 = 64;  // queries per pass-3 CTA
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kKeys = 64;       // keys a dK/dV job; keys a step of the dQ loop
+constexpr int kRowsKV = 64;     // Q-tile rows a step of the dK/dV loop
+constexpr int kStagesKV = 4;    // Q / dO ring of the dK/dV kernel
+constexpr int kRowsQ = 128;     // query rows a dQ CTA
+constexpr int kStagesQ = 2;     // K / V ring of the dQ kernel
+constexpr int kThreads = 384;   // producer + two consumer warpgroups
 
-template <int D>
-struct Tiles {
-  static constexpr int kLd = D + 8;  // padded row pitch, bf16
-  static constexpr int kTileQ2 = D == 128 ? 32 : 64;  // pass-2 q tile
-};
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
+// qpos is the query's absolute position in the key stream (row + q_off)
 __device__ __forceinline__ bool key_ok(int kpos, int qpos, int Skv,
                                        int causal, int window) {
   return kpos < Skv && (!causal || kpos <= qpos) &&
          (window <= 0 || qpos - kpos < window);
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// A tile's shared-memory address, opaque to the compiler: the loops take
+// their tiles' bases through it each iteration, so each k-step's wgmma
+// descriptor is built where the wgmma issues instead of hoisted out of the
+// loop (one 64-bit descriptor a k-step, all held in registers).
+__device__ __forceinline__ uint32_t opaque(const void* p) {
+  uint32_t a = sm90::smem_u32(p);
+  asm volatile("" : "+r"(a));
+  return a;
 }
 
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) |
-         (uint32_t(__bfloat16_as_ushort(hi)) << 16);
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, fp32 accumulate.  Lane
-// (g, t) = (lane / 4, lane % 4) holds A at rows g, g + 8 and columns 2t,
-// 2t + 1, 2t + 8, 2t + 9; B at rows 2t, 2t + 1, 2t + 8, 2t + 9 of column
-// g; C at rows g (c0, c1) and g + 8 (c2, c3), columns 2t, 2t + 1.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The pad rows (q_rows..rows-1 of each 64-wide atom) of a tile the boxes
+// never write: zeroed once, then left alone (a 128-byte swizzle permutes
+// chunks within a row, so a row's 128 bytes stay at r * 128).
+__device__ __forceinline__ void zero_pad_rows(unsigned char* tile, int rows,
+                                              int q_rows, int atoms) {
+  const int n = (rows - q_rows) * 8;  // 16-byte chunks of one atom's pad
+  for (int i = threadIdx.x; i < n * atoms; i += blockDim.x)
+    reinterpret_cast<uint4*>(tile + (i / n) * rows * 128 +
+                             q_rows * 128)[i % n] = make_uint4(0, 0, 0, 0);
 }
 
-// A fragment of rows r0.., columns k0.. of a row-major tile (k contiguous).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s,
-                                       int ld, int r0, int k0, int lane) {
-  const int g = lane / 4, t = lane % 4;
-  const bf16* p = s + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// B fragment (k0.. x n0..) of a tile stored with n as rows and k
-// contiguous: B = Y^T for a row-major Y (n, k).
-__device__ __forceinline__ void load_b_nk(uint32_t& b0, uint32_t& b1,
-                                          const bf16* s, int ld, int n0,
-                                          int k0, int lane) {
-  const int g = lane / 4, t = lane % 4;
-  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b0 = *reinterpret_cast<const uint32_t*>(p);
-  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment (k0.. x n0..) of a row-major tile Z (k, n): two 16-bit reads
-// a register.
-__device__ __forceinline__ void load_b_kn(uint32_t& b0, uint32_t& b1,
-                                          const bf16* s, int ld, int k0,
-                                          int n0, int lane) {
-  const int g = lane / 4, t = lane % 4;
-  const bf16* p = s + (k0 + 2 * t) * ld + n0 + g;
-  b0 = pack_raw(p[0], p[ld]);
-  b1 = pack_raw(p[8 * ld], p[9 * ld]);
-}
-
-// rows [r0, r0 + n) of a (rows, stride) bf16 matrix, D wide, into a padded
-// shared tile; rows at or past `limit` are zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          size_t stride, int r0, int n,
-                                          int limit) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < n * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < limit)
-      v = *reinterpret_cast<const uint4*>(src + size_t(r0 + r) * stride +
-                                          c * 8);
-    *reinterpret_cast<uint4*>(dst + r * Tiles<D>::kLd + c * 8) = v;
-  }
-}
-
-// ---- pass 1: Delta = rowsum(dO o O), one warp a (b, q, h) row ----------
+// ---- pass 1: Delta and the dK/dV row table -----------------------------
+// One warp a slot of the table, (b, kv head, Q tile, row); a real row also
+// writes its Delta into (B, H, Sq).
 template <int D>
 __global__ void __launch_bounds__(256)
-flash_bwd_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                float* __restrict__ delta, int B, int Sq, int H) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32;  // (b, q, h) row
+flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, float* __restrict__ delta,
+               float* __restrict__ table, int B, int Sq, int H, int K,
+               int n_t, int group_fault) {
+  const long long slot = blockIdx.x * 8ll + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= B * Sq * H) return;
-  const bf16* po = o + size_t(row) * D;
-  const bf16* pd = dout + size_t(row) * D;
+  if (slot >= (long long)B * K * n_t * kRowsKV) return;
+  const int G = H / K, BQ = kRowsKV / G;
+  const int r = int(slot % kRowsKV);
+  const long long tile = slot / kRowsKV;  // ((b * K + kvh) * n_t + t)
+  const int t = int(tile % n_t), bk = int(tile / n_t);
+  const int b = bk / K, kvh = bk % K;
+  const int qi = t * BQ + r / G, h = kvh * G + r % G;
+  float* row = table + tile * 2 * kRowsKV;
+  if (r >= BQ * G || qi >= Sq) {
+    if (lane == 0) {
+      row[r] = INFINITY;
+      row[kRowsKV + r] = 0.f;
+    }
+    return;
+  }
+  const size_t at = ((size_t(b) * Sq + qi) * H + h) * D;
   float acc = 0.f;
 #pragma unroll
   for (int j = lane * 2; j < D; j += 64) {
     const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(po + j));
+        *reinterpret_cast<const __nv_bfloat162*>(o + at + j));
     const float2 d = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(pd + j));
+        *reinterpret_cast<const __nv_bfloat162*>(dout + at + j));
     acc += a.x * d.x + a.y * d.y;
   }
   acc = repro::warp_sum(acc);
   if (lane == 0) {
-    const int h = row % H, q = (row / H) % Sq, b = row / (H * Sq);
-    delta[(size_t(b) * H + h) * Sq + q] = acc;
+    const size_t lrow = (size_t(b) * H + h) * Sq + qi;
+    delta[lrow] = acc;
+    row[r] = group_fault && r % G ? INFINITY : lse[lrow] * kLog2e;
+    row[kRowsKV + r] = acc;
   }
 }
 
-// ---- pass 2: dK, dV for one (b, kv head, 64-key tile) ------------------
+// ---- pass 2: dK, dV ------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta, bf16* __restrict__ dk,
+struct KvSmem {
+  static constexpr int kTile = 64 * D * 2;       // K, V, Q or dO: 64 rows
+  static constexpr int kStage = 2 * kTile;       // Q then dO
+  static constexpr int kTable = 2 * kRowsKV * 4;  // lse (log2) and Delta
+  static constexpr int kBars = (2 + 2 * kStagesKV) * 8;
+  // + 1024: the dynamic shared memory is re-aligned to a swizzle atom
+  static constexpr size_t kBytes = size_t(2) * kTile +
+                                   size_t(kStagesKV) * (kStage + kTable) +
+                                   kBars + 1024;
+};
+
+// The Q tiles [t0, t1) (64/G positions each) whose queries see a key of
+// key tile kt.
+__device__ __forceinline__ void q_tiles(int kt, int Sq, int Skv, int q_off,
+                                        int causal, int window, int BQ,
+                                        int& t0, int& t1) {
+  const int kv0 = kt * kKeys;
+  const int kv_last = min(kv0 + kKeys, Skv) - 1;
+  const int r0 = causal ? max(0, kv0 - q_off) : 0;
+  const int r1 = window > 0 ? min(Sq, kv_last + window - q_off) : Sq;
+  t0 = r0 / BQ;
+  t1 = r1 > r0 ? (r1 + BQ - 1) / BQ : t0;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_do,
+               const float* __restrict__ table, bf16* __restrict__ dk,
                bf16* __restrict__ dv, int Sq, int Skv, int q_off, int H,
-               int K, int causal, int window, float scale, int drop_tile,
-               int group_fault) {
-  constexpr int kLd = Tiles<D>::kLd;
-  constexpr int BQ = Tiles<D>::kTileQ2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kTileK * kLd;
-  bf16* sQ = sV + kTileK * kLd;
-  bf16* sO = sQ + BQ * kLd;  // dO
-  float* sL = reinterpret_cast<float*>(sO + BQ * kLd);  // lse * log2(e)
-  float* sD = sL + BQ;                                   // Delta
+               int K, int causal, int window, float scale, int paired,
+               int drop_tile) {
+  using L = KvSmem<D>;
+  constexpr int kAtoms = D / 64;  // 128-byte swizzle atoms along D
+  static_assert(D == 64 || D == 128, "head_dim is one or two swizzle atoms");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* k_s = smem;
+  unsigned char* v_s = smem + L::kTile;
+  unsigned char* ring = smem + 2 * L::kTile;
+  float* tables = reinterpret_cast<float*>(ring + kStagesKV * L::kStage);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(tables) + kStagesKV * L::kTable);
+  uint64_t* kv_full = bars;
+  uint64_t* kv_empty = bars + 1;
+  uint64_t* full = bars + 2;
+  uint64_t* empty = full + kStagesKV;
 
   const int G = H / K;
+  const int BQ = kRowsKV / G;   // query positions a Q tile
+  const int q_rows = BQ * G;    // rows the boxes deliver; the rest pad
   const int b = blockIdx.y / K, kvh = blockIdx.y % K;
-  const int kv0 = blockIdx.x * kTileK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g_ = lane / 4, t = lane % 4;
-  const size_t kv_stride = size_t(K) * D, q_stride = size_t(H) * D;
-  const bf16* kb = k + (size_t(b) * Skv * K + kvh) * D;
-  const bf16* vb = v + (size_t(b) * Skv * K + kvh) * D;
-  load_tile<D>(sK, kb, kv_stride, kv0, kTileK, Skv);
-  load_tile<D>(sV, vb, kv_stride, kv0, kTileK, Skv);
+  const int n_kt = (Skv + kKeys - 1) / kKeys;
+  const int n_t = (Sq + BQ - 1) / BQ;
+  const int c = blockIdx.x;
+  const int n_jobs = paired && n_kt - 1 - c != c ? 2 : 1;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  // the q rows that see a key of this tile
-  const int kv_last = min(kv0 + kTileK, Skv) - 1;
-  const int row_begin = causal ? max(0, kv0 - q_off) : 0;
-  const int row_end =
-      window > 0 ? min(Sq, kv_last + window - q_off) : Sq;
-  const int t_begin = row_begin / BQ;
-  const int t_end = row_end > row_begin ? (row_end + BQ - 1) / BQ : t_begin;
-  const float scale_log2 = scale * kLog2e;
+  for (int s = 0; s < kStagesKV; ++s) {
+    zero_pad_rows(ring + s * L::kStage, kRowsKV, q_rows, kAtoms);
+    zero_pad_rows(ring + s * L::kStage + L::kTile, kRowsKV, q_rows, kAtoms);
+  }
+  sm90::fence_proxy_async_shared();
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    sm90::mbar_init(kv_empty, 256);
+    for (int s = 0; s < kStagesKV; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
 
-  float acc_k[D / 8][4], acc_v[D / 8][4];
+  if (wg == 2) {
+    // ---- producer: per job K and V, then the job's Q / dO tiles
+    sm90::setmaxnreg_dec<24>();
+    if (tid == 0) {
+      int item = 0;
+      for (int j = 0; j < n_jobs; ++j) {
+        const int kt = j == 0 ? c : n_kt - 1 - c;
+        sm90::mbar_wait(kv_empty, (j & 1) ^ 1);
+        sm90::mbar_expect_tx(kv_full, 2 * L::kTile);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
-
-  const int key_lo = kv0 + warp * 16 + g_, key_hi = key_lo + 8;
-  for (int qt = t_begin; qt < t_end; ++qt) {
-    if (drop_tile && qt == t_begin) continue;  // planted fault
-    const int q0 = qt * BQ;
-    for (int gi = 0; gi < G; ++gi) {
-      if (group_fault && gi > 0) break;  // planted fault
-      const int h = kvh * G + gi;
-      __syncthreads();  // the previous tiles are consumed
-      const size_t qoff = (size_t(b) * Sq * H + h) * D;
-      load_tile<D>(sQ, q + qoff, q_stride, q0, BQ, Sq);
-      load_tile<D>(sO, dout + qoff, q_stride, q0, BQ, Sq);
-      for (int i = threadIdx.x; i < BQ; i += kThreads) {
-        const bool in = q0 + i < Sq;
-        const size_t at = (size_t(b) * H + h) * Sq + q0 + i;
-        sL[i] = in ? lse[at] * kLog2e : INFINITY;
-        sD[i] = in ? delta[at] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
-      float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, sK, kLd, warp * 16, kk * 16, lane);
-        load_a(av, sV, kLd, warp * 16, kk * 16, lane);
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-          uint32_t b0, b1;
-          load_b_nk(b0, b1, sQ, kLd, j * 8, kk * 16, lane);
-          mma(s[j], ak, b0, b1);
-          load_b_nk(b0, b1, sO, kLd, j * 8, kk * 16, lane);
-          mma(dp[j], av, b0, b1);
+        for (int a = 0; a < kAtoms; ++a) {
+          sm90::tma_load_4d(k_s + a * kKeys * 128, &map_k, kv_full, a * 64,
+                            kvh, kt * kKeys, b);
+          sm90::tma_load_4d(v_s + a * kKeys * 128, &map_v, kv_full, a * 64,
+                            kvh, kt * kKeys, b);
         }
-      }
-      // P^T (fp32, recomputed) and dS^T = P^T o (dP^T - Delta)
+        int t0, t1;
+        q_tiles(kt, Sq, Skv, q_off, causal, window, BQ, t0, t1);
+        for (int t = t0; t < t1; ++t, ++item) {
+          const int s = item % kStagesKV;
+          unsigned char* q_st = ring + s * L::kStage;
+          sm90::mbar_wait(&empty[s], ((item / kStagesKV) & 1) ^ 1);
+          // the bytes the boxes deliver (q_rows rows, not 64) and the table
+          sm90::mbar_expect_tx(&full[s], 2 * q_rows * D * 2 + L::kTable);
 #pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = j * 8 + 2 * t + (e & 1);
-          const int key = e < 2 ? key_lo : key_hi;
-          const bool ok = q0 + qi < Sq &&
-                          key_ok(key, q_off + q0 + qi, Skv, causal, window);
-          const float p =
-              ok ? exp2f(fmaf(s[j][e], scale_log2, -sL[qi])) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - sD[qi]);
-        }
-      // dV += P^T dO and dK += dS^T Q, the k dimension over queries
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        const uint32_t ap[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                                pack(s[2 * kk][2], s[2 * kk][3]),
-                                pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const uint32_t ad[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
-                                pack(dp[2 * kk][2], dp[2 * kk][3]),
-                                pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                                pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          uint32_t b0, b1;
-          load_b_kn(b0, b1, sO, kLd, kk * 16, j * 8, lane);
-          mma(acc_v[j], ap, b0, b1);
-          load_b_kn(b0, b1, sQ, kLd, kk * 16, j * 8, lane);
-          mma(acc_k[j], ad, b0, b1);
+          for (int a = 0; a < kAtoms; ++a) {
+            sm90::tma_load_4d(q_st + a * kRowsKV * 128, &map_q, &full[s],
+                              a * 64, kvh * G, t * BQ, b);
+            sm90::tma_load_4d(q_st + L::kTile + a * kRowsKV * 128, &map_do,
+                              &full[s], a * 64, kvh * G, t * BQ, b);
+          }
+          sm90::bulk_load(tables + s * 2 * kRowsKV,
+                          table + (size_t(blockIdx.y) * n_t + t) * 2 * kRowsKV,
+                          L::kTable, &full[s]);
         }
       }
     }
+    return;
   }
 
-  // epilogue: keys < Skv; dK takes the softmax scale
+  // ---- consumers: both own the job's 64 keys; this thread holds keys
+  // key_lo and key_lo + 8 of the tile, and 16 of the Q tile's 64 rows
+  sm90::setmaxnreg_inc<240>();
+  const int warp = tid / 32, lane = tid % 32;
+  const int key_lo = warp * 16 + lane / 4;
+  const float scale_log2 = scale * kLog2e;
+  const float inv_g = 1.f / G;
+  float dk_acc[D / 2], dv_acc[D / 2];
+  int item_base = 0;
+  for (int j = 0; j < n_jobs; ++j) {
+    const int kt = j == 0 ? c : n_kt - 1 - c;
+    const int kv0 = kt * kKeys;
+    int t0, t1;
+    q_tiles(kt, Sq, Skv, q_off, causal, window, BQ, t0, t1);
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = half ? key_hi : key_lo;
-    if (key >= Skv) continue;
-    const size_t at = (size_t(b) * Skv + key) * K * D + size_t(kvh) * D;
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    sm90::mbar_wait(kv_full, j & 1);
+
+    for (int i = wg; i < t1 - t0; i += 2) {
+      const int item = item_base + i;
+      const int s = item % kStagesKV;
+      const unsigned char* q_st = ring + s * L::kStage;
+      const unsigned char* do_st = q_st + L::kTile;
+      const float* tab = tables + s * 2 * kRowsKV;
+      sm90::mbar_wait(&full[s], (item / kStagesKV) & 1);
+      if (drop_tile && i == 0) {  // planted fault
+        sm90::mbar_arrive(&empty[s]);
+        continue;
+      }
+
+      // S^T = K Q^T, then dP^T = V dO^T (its own group, so P^T's
+      // arithmetic overlaps it): 64 keys x 64 rows, fp32
+      const uint32_t k_a = opaque(k_s), v_a = opaque(v_s);
+      const uint32_t q_a = opaque(q_st), do_a = opaque(do_st);
+      float st[32], dpt[32];
+      sm90::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = j * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
-          __floats2bfloat162_rn(acc_k[j][2 * half] * scale,
-                                acc_k[j][2 * half + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
-          __floats2bfloat162_rn(acc_v[j][2 * half], acc_v[j][2 * half + 1]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+        sm90::wgmma_ss<64, 0>(st, sm90::desc_sw128(k_a + off, 16, 1024),
+                              sm90::desc_sw128(q_a + off, 16, 1024), kk > 0);
+      }
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+        sm90::wgmma_ss<64, 0>(dpt, sm90::desc_sw128(v_a + off, 16, 1024),
+                              sm90::desc_sw128(do_a + off, 16, 1024), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(st);
+
+      // P^T; column col is the tile's row, at position q0 + col / G
+      const int q0 = (t0 + i) * BQ;
+      const bool edge =
+          (causal && q_off + q0 < kv0 + kKeys - 1) ||
+          (window > 0 && q_off + min(q0 + BQ, Sq) - 1 - kv0 >= window);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 8 * jj + 2 * (lane % 4);
+        const float2 ls = *reinterpret_cast<const float2*>(tab + col);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float l = e ? ls.y : ls.x;
+          float p_lo = ex2(fmaf(st[4 * jj + e], scale_log2, -l));
+          float p_hi = ex2(fmaf(st[4 * jj + 2 + e], scale_log2, -l));
+          if (edge) {
+            // (col + e) / G, exact for col < 64: (c + 1/2) / G is at least
+            // 1 / (2 G) from an integer
+            const int qpos =
+                q_off + q0 + __float2int_rz((col + e + 0.5f) * inv_g);
+            if (!key_ok(kv0 + key_lo, qpos, Skv, causal, window)) p_lo = 0.f;
+            if (!key_ok(kv0 + key_lo + 8, qpos, Skv, causal, window))
+              p_hi = 0.f;
+          }
+          st[4 * jj + e] = p_lo;
+          st[4 * jj + 2 + e] = p_hi;
+        }
+      }
+      // dS^T = P^T o (dP^T - Delta)
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dpt);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 8 * jj + 2 * (lane % 4);
+        const float2 dl =
+            *reinterpret_cast<const float2*>(tab + kRowsKV + col);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float d = e ? dl.y : dl.x;
+          dpt[4 * jj + e] = st[4 * jj + e] * (dpt[4 * jj + e] - d);
+          dpt[4 * jj + 2 + e] =
+              st[4 * jj + 2 + e] * (dpt[4 * jj + 2 + e] - d);
+        }
+      }
+      // P^T and dS^T in bf16 as A operands: k16 slice kk (rows 16 kk ..)
+      // is accumulator blocks 2 kk and 2 kk + 1
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] =
+              sm90::pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+          da[kk][r] =
+              sm90::pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+        }
+
+      // dV += P^T dO and dK += dS^T Q: dO and Q are the MN-major B
+      sm90::fence_regs(dv_acc);
+      sm90::fence_regs(dk_acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs<D, 1>(
+            dv_acc, pa[kk],
+            sm90::desc_sw128(do_a + kk * 2048, kRowsKV * 128, 1024), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs<D, 1>(
+            dk_acc, da[kk],
+            sm90::desc_sw128(q_a + kk * 2048, kRowsKV * 128, 1024), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dv_acc);
+      sm90::fence_regs(dk_acc);
+      sm90::mbar_arrive(&empty[s]);
+    }
+    item_base += t1 - t0;
+
+    // warpgroup 1's partial sums to warpgroup 0 through the K/V tiles
+    // (thread t of one holds the same elements as thread t of the other),
+    // added in a fixed order: dV, then dK
+    float* scratch = reinterpret_cast<float*>(k_s);
+    sm90::named_bar_sync(1, 256);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) scratch[i * 128 + tid] = dv_acc[i];
+    }
+    sm90::named_bar_sync(1, 256);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dv_acc[i] += scratch[i * 128 + tid];
+    }
+    sm90::named_bar_sync(1, 256);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) scratch[i * 128 + tid] = dk_acc[i];
+    }
+    sm90::named_bar_sync(1, 256);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk_acc[i] += scratch[i * 128 + tid];
+    }
+    // the K/V tiles are free for the next job's TMA once every consumer
+    // thread is done with them
+    sm90::fence_proxy_async_shared();
+    sm90::mbar_arrive(kv_empty);
+
+    // ---- epilogue (warpgroup 0): keys < Skv; dK takes the softmax scale
+    if (wg == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int key = kv0 + key_lo + 8 * half;
+        if (key >= Skv) continue;
+        const size_t at = (size_t(b) * Skv + key) * K * D + size_t(kvh) * D;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          const int col = jj * 8 + 2 * (lane % 4);
+          *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
+              __floats2bfloat162_rn(dk_acc[4 * jj + 2 * half] * scale,
+                                    dk_acc[4 * jj + 2 * half + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
+              __floats2bfloat162_rn(dv_acc[4 * jj + 2 * half],
+                                    dv_acc[4 * jj + 2 * half + 1]);
+        }
+      }
     }
   }
 }
 
-// ---- pass 3: dQ for one (b, head, 64-query tile) -----------------------
+// ---- pass 3: dQ ----------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+struct QSmem {
+  static constexpr int kQ = kRowsQ * D * 2;   // Q or dO: 128 rows
+  static constexpr int kKV = kKeys * D * 2;   // K or V: 64 keys
+  static constexpr int kStage = 2 * kKV;      // K then V
+  static constexpr int kBars = (1 + 3 * kStagesQ) * 8;
+  static constexpr size_t kBytes =
+      size_t(2) * kQ + size_t(kStagesQ) * kStage + kBars + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
+             const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v,
+             const __grid_constant__ CUtensorMap map_do,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dq, int Sq, int Skv, int q_off, int H, int K,
              int causal, int window, float scale) {
-  constexpr int kLd = Tiles<D>::kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + kTileQ3 * kLd;  // dO
-  bf16* sK = sO + kTileQ3 * kLd;
-  bf16* sV = sK + kTileK * kLd;
+  using L = QSmem<D>;
+  constexpr int kAtoms = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* q_s = smem;
+  unsigned char* do_s = smem + L::kQ;
+  unsigned char* ring = smem + 2 * L::kQ;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(ring + kStagesQ * L::kStage);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + kStagesQ;
+  uint64_t* empty = v_full + kStagesQ;
 
   const int G = H / K;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
-  const int q0 = blockIdx.x * kTileQ3;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g_ = lane / 4, t = lane % 4;
-  const size_t q_stride = size_t(H) * D, kv_stride = size_t(K) * D;
-  const size_t qoff = (size_t(b) * Sq * H + h) * D;
-  load_tile<D>(sQ, q + qoff, q_stride, q0, kTileQ3, Sq);
-  load_tile<D>(sO, dout + qoff, q_stride, q0, kTileQ3, Sq);
-
-  const int row_lo = q0 + warp * 16 + g_, row_hi = row_lo + 8;
-  const float scale_log2 = scale * kLog2e;
-  const size_t lrow = (size_t(b) * H + h) * Sq;
-  const float l_lo = row_lo < Sq ? lse[lrow + row_lo] * kLog2e : INFINITY;
-  const float l_hi = row_hi < Sq ? lse[lrow + row_hi] * kLog2e : INFINITY;
-  const float d_lo = row_lo < Sq ? delta[lrow + row_lo] : 0.f;
-  const float d_hi = row_hi < Sq ? delta[lrow + row_hi] : 0.f;
-
-  // the keys these queries see
+  const int BQ = kRowsQ / G;      // whole query positions a CTA
+  const int q_rows = BQ * G;
+  const int b = blockIdx.x / K, kvh = blockIdx.x % K;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
   const int p0 = q_off + q0;
-  const int p_last = q_off + min(q0 + kTileQ3, Sq) - 1;
-  const int kv_end = causal ? min(Skv, p_last + 1) : Skv;
+  const int p_last = q_off + min(q0 + BQ, Sq) - 1;
+  const int kv_end = causal ? p_last + 1 : Skv;
   const int kv_begin = window > 0 ? max(0, p0 - window + 1) : 0;
+  const int t_begin = kv_begin / kKeys;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys - t_begin;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  zero_pad_rows(q_s, kRowsQ, q_rows, kAtoms);
+  zero_pad_rows(do_s, kRowsQ, q_rows, kAtoms);
+  sm90::fence_proxy_async_shared();
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStagesQ; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&empty[s], 256);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
 
-  const bf16* kb = k + (size_t(b) * Skv * K + kvh) * D;
-  const bf16* vb = v + (size_t(b) * Skv * K + kvh) * D;
-  for (int kv0 = (kv_begin / kTileK) * kTileK; kv0 < kv_end;
-       kv0 += kTileK) {
-    __syncthreads();  // the previous K/V tile is consumed
-    load_tile<D>(sK, kb, kv_stride, kv0, kTileK, Skv);
-    load_tile<D>(sV, vb, kv_stride, kv0, kTileK, Skv);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-    float s[kTileK / 8][4], dp[kTileK / 8][4];
+  if (wg == 2) {
+    // ---- producer: Q and dO once, then the K/V ring
+    sm90::setmaxnreg_dec<24>();
+    if (tid == 0) {
+      sm90::mbar_expect_tx(q_full, 2 * q_rows * D * 2);
 #pragma unroll
-    for (int j = 0; j < kTileK / 8; ++j)
+      for (int a = 0; a < kAtoms; ++a) {
+        sm90::tma_load_4d(q_s + a * kRowsQ * 128, &map_q, q_full, a * 64,
+                          kvh * G, q0, b);
+        sm90::tma_load_4d(do_s + a * kRowsQ * 128, &map_do, q_full, a * 64,
+                          kvh * G, q0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStagesQ;
+        const int kv0 = (t_begin + i) * kKeys;
+        unsigned char* k_st = ring + s * L::kStage;
+        unsigned char* v_st = k_st + L::kKV;
+        sm90::mbar_wait(&empty[s], ((i / kStagesQ) & 1) ^ 1);
+        sm90::mbar_expect_tx(&k_full[s], L::kKV);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        for (int a = 0; a < kAtoms; ++a)
+          sm90::tma_load_4d(k_st + a * kKeys * 128, &map_k, &k_full[s],
+                            a * 64, kvh, kv0, b);
+        sm90::mbar_expect_tx(&v_full[s], L::kKV);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, sQ, kLd, warp * 16, kk * 16, lane);
-      load_a(ao, sO, kLd, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < kTileK / 8; ++j) {
-        uint32_t b0, b1;
-        load_b_nk(b0, b1, sK, kLd, j * 8, kk * 16, lane);
-        mma(s[j], aq, b0, b1);
-        load_b_nk(b0, b1, sV, kLd, j * 8, kk * 16, lane);
-        mma(dp[j], ao, b0, b1);
+        for (int a = 0; a < kAtoms; ++a)
+          sm90::tma_load_4d(v_st + a * kKeys * 128, &map_v, &v_full[s],
+                            a * 64, kvh, kv0, b);
       }
     }
-    // dS = P o (dP - Delta), P recomputed in fp32
-#pragma unroll
-    for (int j = 0; j < kTileK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + j * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row_lo : row_hi;
-        const bool ok =
-            row < Sq && key_ok(key, q_off + row, Skv, causal, window);
-        const float p = ok ? exp2f(fmaf(s[j][e], scale_log2,
-                                        -(e < 2 ? l_lo : l_hi)))
-                           : 0.f;
-        s[j][e] = p * (dp[j][e] - (e < 2 ? d_lo : d_hi));
-      }
-    // dQ += dS K, the k dimension over keys
-#pragma unroll
-    for (int kk = 0; kk < kTileK / 16; ++kk) {
-      const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                             pack(s[2 * kk][2], s[2 * kk][3]),
-                             pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        uint32_t b0, b1;
-        load_b_kn(b0, b1, sK, kLd, kk * 16, j * 8, lane);
-        mma(acc[j], a, b0, b1);
-      }
-    }
+    return;
   }
 
+  // ---- consumers: 64 rows each; this thread holds rows r and r + 8
+  sm90::setmaxnreg_inc<240>();
+  const int warp = tid / 32, lane = tid % 32;
+  const int r_lo = wg * 64 + warp * 16 + lane / 4, r_hi = r_lo + 8;
+  // a pad row (r >= q_rows) takes the row index Sq, which the epilogue skips
+  const int qrow_lo = r_lo < q_rows ? q0 + r_lo / G : Sq;
+  const int qrow_hi = r_hi < q_rows ? q0 + r_hi / G : Sq;
+  const int qpos_lo = q_off + qrow_lo, qpos_hi = q_off + qrow_hi;
+  const size_t lrow_lo = (size_t(b) * H + kvh * G + r_lo % G) * Sq + qrow_lo;
+  const size_t lrow_hi = (size_t(b) * H + kvh * G + r_hi % G) * Sq + qrow_hi;
+  const float l_lo = qrow_lo < Sq ? lse[lrow_lo] * kLog2e : INFINITY;
+  const float l_hi = qrow_hi < Sq ? lse[lrow_hi] * kLog2e : INFINITY;
+  const float d_lo = qrow_lo < Sq ? delta[lrow_lo] : 0.f;
+  const float d_hi = qrow_hi < Sq ? delta[lrow_hi] : 0.f;
+  const float scale_log2 = scale * kLog2e;
+  float acc[D / 2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = half ? row_hi : row_lo;
-    if (row >= Sq) continue;
-    bf16* dst = dq + qoff + size_t(row) * q_stride;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const int a_off = wg * 64 * 128;  // this warpgroup's rows of each atom
+  sm90::mbar_wait(q_full, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStagesQ;
+    const uint32_t phase = (i / kStagesQ) & 1;
+    const int kv0 = (t_begin + i) * kKeys;
+    const unsigned char* k_st = ring + s * L::kStage;
+    const unsigned char* v_st = k_st + L::kKV;
+
+    // S = Q K^T, then dP = dO V^T (its own group, so P's arithmetic
+    // overlaps it): 64 rows x 64 keys, fp32
+    const uint32_t q_a = opaque(q_s) + a_off, do_a = opaque(do_s) + a_off;
+    const uint32_t k_a = opaque(k_st), v_a = opaque(v_st);
+    float sc[32], dp[32];
+    sm90::mbar_wait(&k_full[s], phase);
+    sm90::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * half] * scale,
-                                acc[j][2 * half + 1] * scale);
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss<64, 0>(
+          sc,
+          sm90::desc_sw128(q_a + (kk / 4) * kRowsQ * 128 + (kk % 4) * 32, 16,
+                           1024),
+          sm90::desc_sw128(k_a + (kk / 4) * kKeys * 128 + (kk % 4) * 32, 16,
+                           1024),
+          kk > 0);
+    sm90::wgmma_commit();
+    sm90::mbar_wait(&v_full[s], phase);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss<64, 0>(
+          dp,
+          sm90::desc_sw128(do_a + (kk / 4) * kRowsQ * 128 + (kk % 4) * 32, 16,
+                           1024),
+          sm90::desc_sw128(v_a + (kk / 4) * kKeys * 128 + (kk % 4) * 32, 16,
+                           1024),
+          kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(sc);
+
+    // P, masks only on a tile that straddles a boundary
+    const bool edge = kv0 + kKeys > Skv ||
+                      (causal && kv0 + kKeys - 1 > p0) ||
+                      (window > 0 && p_last - kv0 >= window);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p_lo = ex2(fmaf(sc[4 * jj + e], scale_log2, -l_lo));
+        float p_hi = ex2(fmaf(sc[4 * jj + 2 + e], scale_log2, -l_hi));
+        if (edge) {
+          const int kpos = kv0 + 8 * jj + 2 * (lane % 4) + e;
+          if (!key_ok(kpos, qpos_lo, Skv, causal, window)) p_lo = 0.f;
+          if (!key_ok(kpos, qpos_hi, Skv, causal, window)) p_hi = 0.f;
+        }
+        sc[4 * jj + e] = p_lo;
+        sc[4 * jj + 2 + e] = p_hi;
+      }
+    // dS = P o (dP - Delta), in bf16 as the A operand
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dp);
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i0 = 8 * kk + 2 * r, hi = r % 2;  // registers 2,3 of a
+        const float d = hi ? d_hi : d_lo;           // block: row r + 8
+        da[kk][r] = sm90::pack_bf16(sc[i0] * (dp[i0] - d),
+                                    sc[i0 + 1] * (dp[i0 + 1] - d));
+      }
+
+    // dQ += dS K: K (keys, D) is the MN-major B
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_rs<D, 1>(
+          acc, da[kk], sm90::desc_sw128(k_a + kk * 2048, kKeys * 128, 1024),
+          1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::mbar_arrive(&empty[s]);
   }
+
+  // ---- epilogue: rows < Sq (a pad row's qrow is Sq)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = h ? r_hi : r_lo;
+    const int qrow = h ? qrow_hi : qrow_lo;
+    if (qrow >= Sq) continue;
+    bf16* dst = dq + ((size_t(b) * Sq + qrow) * H + kvh * G + r % G) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[4 * jj + 2 * h] * scale,
+                                acc[4 * jj + 2 * h + 1] * scale);
+  }
+}
+
+// A bf16 (B, S, N, D) tensor in boxes of (64 of D, n heads, rows/n
+// positions, 1).
+int encode_rows(CUtensorMap* map, const void* ptr, int B, int S, int N,
+                int D, int n, int rows) {
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(N), cuuint64_t(S),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(N) * D * 2,
+                                 cuuint64_t(S) * N * D * 2};
+  const cuuint32_t box[4] = {64, cuuint32_t(n), cuuint32_t(rows / n), 1};
+  return sm90::encode_bf16_sw128(map, ptr, 4, dims, strides, box);
+}
+
+template <typename Kern>
+cudaError_t set_smem(Kern kern, size_t bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              int(bytes));
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* delta, void* dq,
-           void* dk, void* dv, int B, int Sq, int Skv, int q_off, int H,
-           int K, int causal, int window, float scale, int drop_tile,
+           const void* dout, const void* lse, void* delta, void* table,
+           void* dq, void* dk, void* dv, int B, int Sq, int Skv, int q_off,
+           int H, int K, int causal, int window, float scale, int drop_tile,
            int group_fault, cudaStream_t stream) {
-  constexpr int kLd = Tiles<D>::kLd;
-  constexpr int BQ = Tiles<D>::kTileQ2;
-  const bf16* q_ = static_cast<const bf16*>(q);
-  const bf16* k_ = static_cast<const bf16*>(k);
-  const bf16* v_ = static_cast<const bf16*>(v);
-  const bf16* o_ = static_cast<const bf16*>(o);
-  const bf16* d_ = static_cast<const bf16*>(dout);
-  const float* l_ = static_cast<const float*>(lse);
-  float* delta_ = static_cast<float*>(delta);
+  const int G = H / K;
+  CUtensorMap mq64, mdo64, mq128, mdo128, mk, mv;
+  int err = encode_rows(&mq64, q, B, Sq, H, D, G, kRowsKV);
+  if (!err) err = encode_rows(&mdo64, dout, B, Sq, H, D, G, kRowsKV);
+  if (!err) err = encode_rows(&mq128, q, B, Sq, H, D, G, kRowsQ);
+  if (!err) err = encode_rows(&mdo128, dout, B, Sq, H, D, G, kRowsQ);
+  if (!err) err = encode_rows(&mk, k, B, Skv, K, D, 1, kKeys);
+  if (!err) err = encode_rows(&mv, v, B, Skv, K, D, 1, kKeys);
+  if (err) return err;
 
-  const int rows = B * Sq * H;
-  flash_bwd_delta<D><<<(rows + 7) / 8, 256, 0, stream>>>(o_, d_, delta_, B,
-                                                         Sq, H);
+  const int n_t = (Sq + kRowsKV / G - 1) / (kRowsKV / G);
+  const long long slots = (long long)B * K * n_t * kRowsKV;
+  flash_bwd_prep<D><<<unsigned((slots + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(delta),
+      static_cast<float*>(table), B, Sq, H, K, n_t, group_fault);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
 
-  const size_t smem2 = size_t(2 * kTileK + 2 * BQ) * kLd * 2 + 2 * BQ * 4;
+  const int n_kt = (Skv + kKeys - 1) / kKeys;
+  const int paired = causal && window <= 0;
   auto k2 = flash_bwd_dkdv<D>;
-  e = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           int(smem2));
+  e = set_smem(k2, KvSmem<D>::kBytes);
   if (e != cudaSuccess) return int(e);
-  k2<<<dim3((Skv + kTileK - 1) / kTileK, B * K), kThreads, smem2, stream>>>(
-      q_, k_, v_, d_, l_, delta_, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Sq, Skv, q_off, H, K, causal, window, scale,
-      drop_tile, group_fault);
+  k2<<<dim3(paired ? (n_kt + 1) / 2 : n_kt, B * K), kThreads,
+       KvSmem<D>::kBytes, stream>>>(
+      mq64, mk, mv, mdo64, static_cast<const float*>(table),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, q_off, H, K,
+      causal, window, scale, paired, drop_tile);
   e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
 
-  const size_t smem3 = size_t(2 * kTileQ3 + 2 * kTileK) * kLd * 2;
   auto k3 = flash_bwd_dq<D>;
-  e = cudaFuncSetAttribute(k3, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           int(smem3));
+  e = set_smem(k3, QSmem<D>::kBytes);
   if (e != cudaSuccess) return int(e);
-  k3<<<dim3((Sq + kTileQ3 - 1) / kTileQ3, B * H), kThreads, smem3, stream>>>(
-      q_, k_, v_, d_, l_, delta_, static_cast<bf16*>(dq), Sq, Skv, q_off, H,
-      K, causal, window, scale);
+  const int q_tiles = (Sq + kRowsQ / G - 1) / (kRowsQ / G);
+  k3<<<dim3(B * K, q_tiles), kThreads, QSmem<D>::kBytes, stream>>>(
+      mq128, mk, mv, mdo128, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Skv,
+      q_off, H, K, causal, window, scale);
   return int(cudaGetLastError());
 }
 
@@ -477,36 +767,45 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Skv, K, D), all bf16 and
-// contiguous, D in {64, 128}, H % K == 0, Sq <= Skv, query row i at
-// absolute position q_off + i.  lse (B, H, Sq) fp32 from the forward;
-// delta (B, H, Sq) fp32 workspace.  drop_tile / group_fault: 0, or a
-// planted fault for the checks (each kv tile's first q tile skipped in the
-// dK/dV loop; only the group's first head summed into dK/dV).  Three
-// launches on `stream`; returns 0 when launched, else a cudaError_t.
+// q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Skv, K, D), all bf16,
+// contiguous and 16-byte aligned, D in {64, 128}, H % K == 0, G = H / K <=
+// 64, Sq <= Skv, query row i at absolute position q_off + i.  lse (B, H,
+// Sq) fp32 from the forward.  Workspaces, fp32: delta (B, H, Sq) and table
+// (B, K, ceil(Sq / (64 / G)), 2, 64), 16-byte aligned.  drop_tile /
+// group_fault: 0, or a planted fault for the checks (each dK/dV job's first
+// Q tile skipped; only a group's first head summed into dK/dV).  Three
+// launches on `stream`; returns 0 when launched, a cudaError_t, or a
+// negative CUresult of the tensor-map encoder.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,
-                        void* delta, void* dq, void* dk, void* dv, int B,
-                        int Sq, int Skv, int q_off, int H, int K, int D,
-                        int causal, int window, float scale, int drop_tile,
-                        int group_fault, void* stream) {
+                        void* delta, void* table, void* dq, void* dk,
+                        void* dv, int B, int Sq, int Skv, int q_off, int H,
+                        int K, int D, int causal, int window, float scale,
+                        int drop_tile, int group_fault, void* stream) {
   const uintptr_t ptrs =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
-      reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
-  if (K <= 0 || H % K != 0 || Sq <= 0 || Skv < Sq || q_off < 0 ||
-      q_off > Skv - Sq || ptrs % 16 != 0 || B <= 0 || B * K > 65535 ||
-      B * H > 65535)
+      reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
+      reinterpret_cast<uintptr_t>(table);
+  if (K <= 0 || H % K != 0 || H / K > kRowsKV || Sq <= 0 || Skv < Sq ||
+      q_off < 0 || q_off > Skv - Sq || ptrs % 16 != 0 || B <= 0 ||
+      B * K > 65535 ||
+      (Sq + kRowsQ / (H / K) - 1) / (kRowsQ / (H / K)) > 65535)
     return int(cudaErrorInvalidValue);
+  // cuTensorMapEncodeTiled needs a current context, which a
+  // thread that has made no runtime call yet (autograd's device thread,
+  // when this backward is its first CUDA work) does not have
+  cudaError_t e = cudaFree(nullptr);
+  if (e != cudaSuccess) return int(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
-                       q_off, H, K, causal, window, scale, drop_tile,
+    return launch<128>(q, k, v, o, dout, lse, delta, table, dq, dk, dv, B,
+                       Sq, Skv, q_off, H, K, causal, window, scale, drop_tile,
                        group_fault, s);
   if (D == 64)
-    return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
-                      q_off, H, K, causal, window, scale, drop_tile,
+    return launch<64>(q, k, v, o, dout, lse, delta, table, dq, dk, dv, B, Sq,
+                      Skv, q_off, H, K, causal, window, scale, drop_tile,
                       group_fault, s);
   return int(cudaErrorInvalidValue);
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma + TMA kernels
-// (csrc/tiled_matmul.cu, csrc/flash_attention.cu).
+// (csrc/tiled_matmul.cu, csrc/flash_attention.cu,
+// csrc/flash_attention_bwd.cu).
 //
 // * Tensor maps.  The host encodes one CUtensorMap per operand with the
 //   driver's cuTensorMapEncodeTiled, reached through the runtime's
@@ -12,7 +13,8 @@
 //   credited with the whole box.  The kernels take their maps as
 //   `const __grid_constant__ CUtensorMap` parameters.
 // * mbarriers: init, arrive, arrive.expect_tx, try_wait.parity, and TMA
-//   loads (cp.async.bulk.tensor) that complete on an mbarrier.
+//   loads (cp.async.bulk.tensor, and the 1-D cp.async.bulk) that complete
+//   on an mbarrier; the proxy fence and named barriers.
 // * wgmma: SW128 shared-memory descriptors for K-major and MN-major
 //   operands, fence / commit_group / wait_group, and the m64nNk16 bf16 ->
 //   fp32 instructions the kernels use (SS: both operands in shared memory;
@@ -164,6 +166,30 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A 1-D bulk copy (no tensor map) of `bytes` from global memory, completing
+// on an mbarrier like a TMA tile: both addresses 16-byte aligned, `bytes` a
+// multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Generic-proxy accesses of shared memory ordered before later async-proxy
+// (wgmma, TMA) accesses of the same bytes.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A named barrier over `threads` threads (a multiple of 32); id 0 is
+// __syncthreads'.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------------
 // device: registers
 // ---------------------------------------------------------------------
@@ -190,11 +216,16 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 //  MN-major (rows of K, each 64 elements of M or N): lbo = the step between
 //    64-wide M/N blocks (one TMA box), sbo = 1024, the step between 8-row
 //    groups of K.  One k16 step is +2048 bytes (16 rows).
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
-  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) |
+  return uint64_t((addr & 0x3FFFF) >> 4) |
          (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
          (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return desc_sw128(smem_u32(p), lbo, sbo);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -34,14 +34,17 @@ BlockPlan (decode shapes have none) gets :data:`DEFAULT_ROWS` x
 (83,000 B at 64), one CTA to an SM.
 TMA reads q, k and v in place, so each must start on a 16-byte boundary.
 
-Backward: ``csrc/flash_attention_bwd.cu`` (FlashAttention-2's, three
-launches: Delta, then dK/dV per kv tile, then dQ per q tile; its header
-says what bounds it).  The JAX package has no backward kernel (it
+Backward: ``csrc/flash_attention_bwd.cu`` (FlashAttention-2's
+arithmetic on ``wgmma`` fed by TMA, three launches: Delta and the dK/dV
+row table, then dK/dV with keys as the 64-row side, causal key tiles
+paired ``c`` with ``n - 1 - c`` a CTA, then dQ per 128 query rows; its
+header says what bounds it).  The JAX package has no backward kernel (it
 differentiates its XLA mirror), and its plan has no backward
 ``BlockPlan``; the backward's tiles are fixed in the source and
-documented here: :data:`BWD_TILE_KV` keys a dK/dV CTA,
-:data:`BWD_TILE_Q` queries a pass of that loop by head_dim, and
-:data:`BWD_TILE_Q3` queries a dQ CTA.  :class:`FlashAttention` is the
+documented here: :data:`BWD_TILE_KV` keys a dK/dV job and a step of the
+dQ loop, :data:`BWD_ROWS_KV` Q-tile rows a step of the dK/dV loop
+(``64 // G`` positions times the G heads), :data:`BWD_ROWS_Q` query
+rows a dQ CTA.  :class:`FlashAttention` is the
 gradient route: its forward keeps q, k, v, the output and the
 log-sum-exp the kernel writes, and its backward runs
 :func:`flash_attention_bwd` on CUDA tensors or
@@ -70,11 +73,12 @@ GROUPS = (1, 2, 4, 5, 7, 8, 16)
 #: K/V stages of the TMA ring in shared memory
 STAGES = 2
 
-#: backward tiles (``csrc/flash_attention_bwd.cu``): keys per dK/dV CTA,
-#: queries per step of its loop (by head_dim), queries per dQ CTA
+#: backward tiles (``csrc/flash_attention_bwd.cu``): keys a dK/dV job
+#: and a step of the dQ loop, (position, head) rows a step of the dK/dV
+#: loop, query rows a dQ CTA
 BWD_TILE_KV = 64
-BWD_TILE_Q = {64: 64, 128: 32}
-BWD_TILE_Q3 = 64
+BWD_ROWS_KV = 64
+BWD_ROWS_Q = 128
 
 #: launches of the CUDA kernels in this process (reset by the caller):
 #: forward calls, how many of them ran a query block at an offset (``Sq <
@@ -92,6 +96,14 @@ def smem_bytes(rows: int, block_kv: int, head_dim: int = 128) -> int:
     bars = (1 + 3 * STAGES) * 8
     return (rows * head_dim * 2 + STAGES * 2 * block_kv * head_dim * 2
             + bars + 1024)
+
+
+def bwd_table_floats(B: int, Sq: int, H: int, K: int) -> int:
+    """fp32 elements of the backward's dK/dV row table: for each
+    ``(b, kv head, Q tile)`` of :data:`BWD_ROWS_KV` rows, their
+    log-sum-exp and Delta (``csrc/flash_attention_bwd.cu`` pass 1)."""
+    per_tile = BWD_ROWS_KV // (H // K)
+    return B * K * -(-Sq // per_tile) * 2 * BWD_ROWS_KV
 
 
 def kernel_tiles(G: int, block_q: Optional[int] = None,
@@ -271,8 +283,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse`` and the output gradient ``do`` (raises on any other device
     or on inputs the kernel does not take).  ``drop_tile`` and
     ``group_fault`` plant faults for the checks (tests and
-    ``chip_smoke.py`` only): each kv tile's first q tile skipped in the
-    dK/dV loop; only a group's first query head summed into dK/dV."""
+    ``chip_smoke.py`` only): each dK/dV job's first Q tile skipped; only
+    a group's first query head summed into dK/dV."""
     global bwd_launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: the kernel runs on CUDA "
@@ -291,12 +303,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"flash_attention_bwd: {name} must be a contiguous, 16-byte "
                 f"aligned {dtype} {tuple(shape)} on {q.device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if H // K > BWD_ROWS_KV:
+        raise ValueError(f"flash_attention_bwd: GQA group {H // K} > "
+                         f"{BWD_ROWS_KV} rows of a dK/dV step")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    table = torch.empty(bwd_table_floats(B, Sq, H, K), dtype=torch.float32,
+                        device=q.device)
     err = build.library("flash_attention_bwd").flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Skv - Sq, H, K, D,
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), table.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Skv - Sq,
+        H, K, D,
         int(causal), int(window), float(D ** -0.5), int(drop_tile),
         int(group_fault), torch.cuda.current_stream(q.device).cuda_stream)
     if err:

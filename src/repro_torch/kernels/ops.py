@@ -41,6 +41,22 @@ def _use_kernel(name: str, t: torch.Tensor, mode: str) -> bool:
     return True
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a call of a kernel that has no
+    backward yet: grad mode on and a tensor input that requires grad.
+    The kernel writes its CUDA output through ctypes, so that output
+    carries no ``grad_fn`` and a loss through it would train nothing
+    upstream, silently; the plain version would differentiate, so both
+    devices raise alike.  Serving calls these with grad mode on but with
+    parameters that do not require grad, and is unaffected."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward yet (ROADMAP item 8b / "
+            "K6), so its output would carry no gradient; call it under "
+            "torch.no_grad() or with inputs that do not require grad")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     tiles: Optional[Tuple[int, int]] = None,
                     mode: str = "auto") -> torch.Tensor:
@@ -68,7 +84,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def decode_attention(q, k, v, *, cache_len, window: int = 0,
                      block_kv: Optional[int] = None,
                      mode: str = "auto") -> torch.Tensor:
-    """q ``(B, H, D)`` against a dense ``(B, S, K, D)`` cache."""
+    """q ``(B, H, D)`` against a dense ``(B, S, K, D)`` cache.  Raises
+    under autograd (:func:`_refuse_grad`)."""
+    _refuse_grad("decode_attention", q, k, v)
     if not _use_kernel("decode_attention", q, mode):
         return _dec.decode_attention_plain(q, k, v, cache_len=cache_len,
                                            window=window)
@@ -79,7 +97,9 @@ def decode_attention(q, k, v, *, cache_len, window: int = 0,
 def paged_decode_attention(q, k_pool, v_pool, block_tbl, *, cache_len,
                            window: int = 0, block_kv: Optional[int] = None,
                            mode: str = "auto") -> torch.Tensor:
-    """q ``(B, H, D)`` against ``(N, bl, K, D)`` pools via the table."""
+    """q ``(B, H, D)`` against ``(N, bl, K, D)`` pools via the table.
+    Raises under autograd (:func:`_refuse_grad`)."""
+    _refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     if not _use_kernel("paged_decode_attention", q, mode):
         return _dec.paged_decode_attention_plain(
             q, k_pool, v_pool, block_tbl, cache_len=cache_len, window=window)
@@ -94,7 +114,9 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: Optional[int] = None,
     """Mamba2 SSD scan over x ``(B, S, H, P)`` with B/C ``(B, S, G,
     N)``: ``(y, final_state)``.  ``chunk``/``heads_block`` are the
     plan's ``ssd_scan`` BlockPlan (the plain version takes the chunk
-    only: heads are one batched product there)."""
+    only: heads are one batched product there).  Raises under autograd
+    (:func:`_refuse_grad`)."""
+    _refuse_grad("ssd_scan", x, dt, A, Bm, Cm, initial_state)
     if not _use_kernel("ssd_scan", x, mode):
         return _ssd.ssd_scan_plain(
             x, dt, A, Bm, Cm, chunk=chunk or _ssd.DEFAULT_CHUNK,
@@ -118,7 +140,9 @@ def matmul(a, b, *, tiles: Optional[Tuple[int, int, int]] = None,
     """a ``(M, K)`` @ b ``(K, N)`` summed in fp32, in a's dtype, on the
     plan's ``(bm, bk, bn)`` (:func:`matmul_tiles`).  The tile is checked
     on either device, so a plan the kernel cannot run fails on the CPU
-    too; the plain version has no tiles."""
+    too; the plain version has no tiles.  Raises under autograd
+    (:func:`_refuse_grad`)."""
+    _refuse_grad("tiled_matmul", a, b)
     _mm.kernel_tiles(tiles)
     if not _use_kernel("tiled_matmul", a, mode):
         return _mm.tiled_matmul_plain(a, b)

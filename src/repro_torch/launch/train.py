@@ -4,8 +4,9 @@ The port of ``repro/launch/train.py``: specialize (the paper's
 compilation passes, on the ``h100-sxm`` target) → lower → train with
 checkpointing, on one card.  Prints the plan's decisions, each step's
 loss, grad norm, lr and time, the tokens a second, and the card's peak
-allocated memory beside the plan's estimates of its state and
-activations.
+allocated memory beside the plan's estimate of the step's peak (its
+``step_peak_bytes``: state, gradients, saved activations, transients),
+with their ratio.
 
 The model is the arch's reduced config, with its published head_dim
 and GQA group (the attention kernels are instantiated for those),
@@ -18,31 +19,54 @@ versions.  ``--profile`` traces the steps after the first with
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.train
       PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
-          --full --n-layers 24 --seq-len 2048 --batch 1 --steps 6
+          --full --seq-len 2048 --batch 1 --steps 6
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import re
 import time
 
 import torch
 
 
+#: the plan's train-step memory estimates (bytes) :func:`plan_memory`
+#: reads, by the name it gives them
+STEP_ESTIMATES = {"peak": "step_peak_bytes", "grads": "step_grad_bytes",
+                  "saved": "step_saved_bytes",
+                  "transient": "step_transient_bytes",
+                  "budget": "step_budget_bytes"}
+
+
 def plan_memory(plan) -> dict:
-    """The plan's memory estimates for a train step: its persistent
-    state in bytes (parameters, moments, master copy:
-    ``persistent_bytes_per_dev``) and the activation estimate its remat
-    decision read (GiB, from the decision log; ``None`` if absent)."""
-    act = None
-    for pass_name, subject, _, reason in plan.log:
-        m = re.search(r"activations ([0-9.]+) GiB", reason)
-        if pass_name == "communication" and subject == "remat" and m:
-            act = float(m.group(1))
-    return {"state_bytes": float(plan.estimates["persistent_bytes_per_dev"]),
-            "activation_gib": act}
+    """The plan's memory estimates for a train step, in bytes: its
+    persistent state (parameters, moments, master copy:
+    ``persistent_bytes_per_dev``) and, on a CUDA target, the eager
+    step's peak and its parts (:data:`STEP_ESTIMATES`; ``None`` where the
+    plan has none) and whether it fits."""
+    est = plan.estimates
+    out = {"state": float(est["persistent_bytes_per_dev"])}
+    for name, key in STEP_ESTIMATES.items():
+        out[name] = float(est[key]) if key in est else None
+    out["fits"] = bool(est.get("step_fits", 1))
+    return out
+
+
+def memory_line(plan, peak: float) -> str:
+    """The card's measured peak beside the plan's estimate of it."""
+    est = plan_memory(plan)
+    gib = 2 ** 30
+    line = (f"memory: peak allocated {peak / gib:.2f} GiB; the plan's "
+            f"state {est['state'] / gib:.2f} GiB")
+    if est["peak"] is not None:
+        line += (f", step peak estimate {est['peak'] / gib:.2f} GiB "
+                 f"(gradients {est['grads'] / gib:.2f}, saved activations "
+                 f"{est['saved'] / gib:.2f}, largest transient "
+                 f"{est['transient'] / gib:.2f}; budget "
+                 f"{est['budget'] / gib:.2f}) = {est['peak'] / peak:.4f} x "
+                 "the measured peak")
+    return line
 
 
 def main(argv=None) -> None:
@@ -128,12 +152,9 @@ def main(argv=None) -> None:
           f"{shape.tokens / step_s:.1f} tokens/s over steps "
           f"{steady[0]['step']}..{steady[-1]['step']} "
           f"({step_s * 1e3:.1f} ms a step) on {trainer.device}")
-    est = plan_memory(plan)
     if cuda:
-        print(f"memory: peak allocated "
-              f"{torch.cuda.max_memory_allocated(trainer.device) / 2**30:.2f}"
-              f" GiB; the plan's state {est['state_bytes'] / 2**30:.2f} GiB,"
-              f" activations {est['activation_gib']} GiB")
+        print(memory_line(plan,
+                          torch.cuda.max_memory_allocated(trainer.device)))
     print("final:", {k: float(v) for k, v in metrics.items()})
 
 

@@ -1411,7 +1411,9 @@ def _bwd_case(dev, seed, B, S, Hq, Kv, Dh, causal, window):
     (1, 1100, 25, 5, 64, True, 1024),      # hymba: G = 5 at 64, a window
     (2, 333, 56, 8, 128, True, 100),       # G = 7
     (1, 130, 8, 8, 64, True, 0),           # G = 1
-])
+    (1, 2048, 16, 8, 64, True, 0),         # granite: G = 2 at 64
+    (1, 777, 40, 8, 128, True, 0),         # G = 5 at 128; S ragged in
+])                                         # every tile (64 keys, 12 / 25 q)
 def test_flash_bwd_kernel_matches_plain(dev, B, S, Hq, Kv, Dh, causal,
                                         window):
     q, k, v, o, lse, do = _bwd_case(dev, S + Hq, B, S, Hq, Kv, Dh, causal,

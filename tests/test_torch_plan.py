@@ -7,6 +7,7 @@ for one card.
 """
 
 import dataclasses
+import re
 
 import pytest
 
@@ -14,6 +15,8 @@ import repro.configs as rcfg
 import repro.core as rcore
 import repro_torch.configs as tcfg
 import repro_torch.core as tcore
+from repro_torch.core import costmodel as tcm
+from repro_torch.core.describe import describe_program
 from repro_torch.hw import get_target
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
@@ -298,3 +301,151 @@ def test_h100_minitron_plans_record_the_g4_tiles():
     fl = _h100("minitron-8b", "prefill").partitions["flash_attention"]
     assert dict(fl.blocks) == {"block_q": 32, "block_kv": 128,
                                "head_dim": 128}
+
+
+# ---------------------------------------------------------------------
+# the CUDA train plan's step-peak estimate (ROADMAP §3, F2)
+# ---------------------------------------------------------------------
+
+TRAIN_2K = tcfg.ShapeConfig("train_2k", "train", 2048, 1)
+LADDER = ("none", "full")
+GIB = 2 ** 30
+
+
+def _train_plan(n_layers=0, arch=None, shape=TRAIN_2K):
+    arch = arch or tcfg.get_arch("qwen3-8b")
+    if n_layers:
+        arch = dataclasses.replace(arch, n_layers=n_layers)
+    return tcore.specialize(arch, shape, mesh_shape=(1, 1),
+                            target="h100-sxm", cache=False)
+
+
+def _rungs_tried(plan):
+    """The remat decision's log entry and the step-peak estimate (GiB) of
+    each rung the pass tried, in order."""
+    log = [e for e in plan.log if e[:2] == ("communication", "remat")]
+    assert len(log) == 1
+    tried = re.search(r"eager step peak (.*?) GiB against", log[0][3])
+    return log[0], [(p, float(g)) for p, g in
+                    (r.split(" ") for r in tried.group(1).split(", "))]
+
+
+def test_h100_train_plan_picks_the_least_remat_its_step_peak_admits():
+    """Full-width, full-depth qwen3-8b at 2048 x 1: the plan records the
+    eager step's peak (state, the bf16 gradient buffer, saved
+    activations, transients) under its own keys, and its remat is the
+    first of none -> full whose estimate is under 0.95 of the card:
+    ``full``, since none's estimate exceeds the budget."""
+    plan = _train_plan()
+    est = plan.estimates
+    budget = est["step_budget_bytes"]
+    assert budget == 0.95 * get_target("h100-sxm").hbm_bytes
+    assert est["step_fits"] == 1.0 and est["step_peak_bytes"] <= budget
+    params = sum(t.nbytes for t in describe_program(
+        tcfg.get_arch("qwen3-8b"), TRAIN_2K).by_role(tcore.Role.PARAM))
+    assert est["step_grad_bytes"] == params          # bf16, one microbatch
+    assert est["step_peak_bytes"] > (est["persistent_bytes_per_dev"]
+                                     + est["step_grad_bytes"])
+    chosen = plan.comm.remat_policy
+    assert chosen == "full"
+    entry, tried = _rungs_tried(plan)
+    assert entry[2] == chosen
+    assert [p for p, _ in tried] == list(LADDER[:LADDER.index(chosen) + 1])
+    assert all(gib > budget / GIB for _, gib in tried[:-1])
+    assert tried[-1][1] == round(est["step_peak_bytes"] / GIB, 2)
+
+
+@pytest.mark.parametrize("n_layers", [1, 12, 24, 30, 36])
+def test_h100_train_plan_runs_no_remat_until_it_must(n_layers):
+    """qwen3-8b cut to ``n_layers``: the plan runs without remat while no
+    remat's estimate fits, and with ``full`` beyond; never
+    ``dots_saveable``, which ties with ``full``'s peak and ran slower on
+    the card (PERF.md §6)."""
+    plan = _train_plan(n_layers)
+    est = plan.estimates
+    _, tried = _rungs_tried(plan)
+    none_fits = tried[0][1] <= est["step_budget_bytes"] / GIB
+    assert tried[0][0] == "none"
+    assert plan.comm.remat_policy == ("none" if none_fits else "full")
+    assert len(tried) == (1 if none_fits else 2)
+    assert est["step_fits"] == 1.0
+
+
+def test_h100_train_plan_at_24_layers_covers_the_measured_peak():
+    """At 24 layers the eager step peaked at 52.15 GiB on the card (remat
+    none; PERF.md §6): the estimate is not below it, and no remat is
+    needed."""
+    plan = _train_plan(24)
+    assert plan.comm.remat_policy == "none"
+    assert plan.estimates["step_peak_bytes"] >= 52.15 * GIB
+    assert plan.estimates["step_peak_bytes"] <= 1.15 * 52.15 * GIB
+
+
+def test_step_peak_rises_without_remat_and_with_microbatches():
+    """A tiny arch at 32k tokens a step (so its activations, not the
+    optimizer's chunk, set the peak): the estimate rises as the remat
+    policy drops from full to none, and microbatches > 1 add the fp32
+    gradient sum (4 bytes a parameter on top of a microbatch's bf16)."""
+    arch = tcfg.get_arch("qwen3-8b").reduced()
+    shape = tcfg.ShapeConfig("t", "train", 2048, 16)
+    plan = _train_plan(arch=arch, shape=shape)
+    assert plan.comm.remat_policy == "none"          # a tiny step fits
+    _, heads, _, kv = plan.padded_sizes()
+    kw = dict(tokens=shape.tokens, heads=heads or arch.n_heads,
+              kv_heads=kv or arch.n_kv_heads, vocab=arch.vocab_size,
+              state_bytes=1e6, param_bytes=4e6, largest_stacked_bytes=1e6,
+              embed_bytes=1e5)
+    peaks = [tcm.eager_train_step_memory(arch, remat=r, **kw)["peak"]
+             for r in LADDER]
+    assert peaks == sorted(peaks, reverse=True) and peaks[0] > peaks[-1]
+    one = tcm.eager_train_step_memory(arch, microbatches=1, remat="none",
+                                      **kw)
+    two = tcm.eager_train_step_memory(arch, microbatches=2, remat="none",
+                                      **kw)
+    assert two["grads"] == 3 * one["grads"]          # bf16 + the fp32 sum
+    assert two["saved"] < one["saved"]               # half the tokens
+
+
+def _saved_bytes(arch, remat, tokens_shape=(2, 64)):
+    """Bytes autograd keeps for one layer of ``arch`` on the CPU under
+    ``remat``: the storages the saved-tensor hooks see (parameters
+    excluded)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    params = lm.init_params(arch, torch.Generator().manual_seed(0))
+    owned = set()
+    for leaf in adamw.leaves(params):
+        leaf.requires_grad_(leaf.is_floating_point())
+        owned.add(leaf.untyped_storage().data_ptr())
+    B, S = tokens_shape
+    x = torch.randn(B, S, arch.d_model).to(torch.bfloat16).requires_grad_()
+    positions = torch.arange(S).expand(B, S)
+    owned.add(positions.untyped_storage().data_ptr())
+    layer = lm._unbind_layers(params["blocks"], arch.n_layers)[0]
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in owned:
+            seen[st.data_ptr()] = st.nbytes()
+        return t
+
+    block = lm._remat(lambda *a: lm._block_fwd(arch, lm.RunCfg(), *a), remat)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        block(layer, x, positions, 0)
+    return sum(seen.values()), B * S
+
+
+@pytest.mark.parametrize("remat", LADDER)
+def test_layer_estimate_is_what_autograd_keeps(remat):
+    """The per-layer term of the estimate against what PyTorch keeps for
+    one layer of the reduced qwen3 (qk-norm, RoPE, gated FFN) at its
+    published head_dim, byte for byte."""
+    arch = dataclasses.replace(tcfg.get_arch("qwen3-8b").reduced(),
+                               head_dim=128)
+    got, tokens = _saved_bytes(arch, remat)
+    want = tcm.eager_layer_saved_bytes(arch, tokens, arch.n_heads,
+                                       arch.n_kv_heads, remat)
+    assert got == want
