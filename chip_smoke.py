@@ -15,10 +15,11 @@ shared expert, a GQA group of 5 at head_dim 128), random weights from a
 seed, and holds each of the paths' hand-written
 kernels against its plain PyTorch version on the card.  It also drives
 the training path — ``specialize(target="h100-sxm")`` ->
-``lower_train_step`` -> ``Trainer.fit`` — for full-width qwen3-8b at the
-depth and remat its ``h100-sxm`` train plan admits (all 36 layers when
-the plan's step-peak estimate fits the card), through the flash forward
-and backward kernels.
+``lower_train_step`` -> ``Trainer.fit`` — for full-width qwen3-8b,
+granite-moe-1b-a400m (its router's aux loss in the loss), mamba2-2.7b and
+hymba-1.5b, each at the depth and remat its ``h100-sxm`` train plan
+admits (every layer when the plan's step-peak estimate fits the card),
+through the flash and SSD-scan forward and backward kernels.
 
 Phases (any failure exits non-zero before the last line):
 
@@ -63,7 +64,12 @@ Phases (any failure exits non-zero before the last line):
    (a Q tile dropped from each dK/dV job; one head of the group summed),
    timed in turns with SDPA's
    backward, with the forward kernel's time with and without the
-   log-sum-exp it writes for the backward;
+   log-sum-exp it writes for the backward; the SSD scan's backward at
+   mamba2's and hymba's widths (S = 2048, chunk 256) and a reduced width
+   with initial and final state gradients, every gradient row against
+   the plain backward in fp64 beside two planted faults (a skipped tile,
+   no carry between chunks), timed in turns with torch autograd of the
+   plain forward, with each of its six passes' device time;
 3. qwen3-8b serve, paged: the plan as frozen (paged pool, prefix reuse,
    512 host blocks), 16 requests; both tiers whole after the engine's
    block cache is dropped;
@@ -140,18 +146,29 @@ Phases (any failure exits non-zero before the last line):
    measured peak memory at or under the plan's step-peak estimate and
    the estimate at most 15% above it;
 17. a small qwen3 (head_dim 128, master weights) trained 4 steps on the
-   card against the CPU, then saved at step 2 and resumed by a fresh
-   trainer: steps 3-4 and the final state bitwise equal to the
-   uninterrupted run;
-18. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   card against the CPU (losses, grad norms, step-0 gradients), then
+   saved at step 2 and resumed by a fresh trainer: steps 3-4 and the
+   final state bitwise equal to the uninterrupted run;
+18. training granite-moe-1b-a400m (``dense_einsum``, no remat),
+   mamba2-2.7b (remat ``full``: 2 SSD-scan forwards and 1 backward a
+   layer a step) and hymba-1.5b (flash and SSD scan in every layer), each
+   at full width and depth from its unmodified 2048 x 1 plan, every
+   earlier weight freed first: phase 16's checks (the gradient check's
+   controls: the flash backward's dropped tile, the SSD backward's
+   skipped tile), launches a step as the plan's remat implies, the
+   measured peak within [1, 1.15] of the estimate;
+19. reduced mamba2 trained 4 steps of 1024 x 2 on the card against the
+   CPU and resumed, as phase 17;
+20. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
 name and power limit.
 
 Run from the repository root:  python3 chip_smoke.py
 
-``--only flash_bwd`` runs the flash backward's check and timings alone
-(:func:`flash_bwd_check`) and prints its result as one JSON line.
+``--only flash_bwd`` (``ssd_bwd``) runs the flash (SSD scan) backward's
+check and timings alone (:func:`flash_bwd_check`, :func:`ssd_bwd_check`)
+and prints its result as one JSON line.
 ``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
 as a parent commit's unpacked with ``git archive``: run two trees in
 alternating processes (parent, change, change, parent) to compare them
@@ -186,7 +203,7 @@ HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
 # is fp32 on both sides, but for the sums: fp64 in the kernel.
 TOL = {"flash_attention": 1e-2, "paged_decode_attention": 3e-3,
        "decode_attention": 3e-3, "ssd_scan": 1e-3,
-       "flash_attention_bwd": 2e-2}
+       "flash_attention_bwd": 2e-2, "ssd_scan_bwd": 1e-3}
 # The flash backward's rows (dq, dk, dv) erred at most 5.15e-3 on an H100
 # (it rounds P and dS to bf16 for its products); a gradient row that
 # vanishes (the first query's dq) is measured against GRAD_FLOOR x its
@@ -213,8 +230,10 @@ MOE_PAIRS = {"granite": (16, 8, 64), "llama4": (40, 8, 128)}
 GRANITE, LLAMA4 = "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"
 SSD_H, SSD_P, SSD_N, SSD_G = 80, 64, 128, 1   # mamba2-2.7b SSD widths
 HSSD_H, HSSD_N = 50, 16     # hymba-1.5b SSD widths (P = 64, one group)
-# training: full-width qwen3-8b at the depth its plan admits, steps
+# training: full-width qwen3-8b at the depth its plan admits, steps;
+# then the MoE, SSM and hybrid archs likewise
 TRAIN_STEPS = 6
+TRAIN_FAMILIES = ("granite-moe-1b-a400m", "mamba2-2.7b", "hymba-1.5b")
 # the plan's step-peak estimate against the card's measured peak: never
 # below it, at most this factor above it
 STEP_PEAK_OVER = 1.15
@@ -224,13 +243,21 @@ STEP_PEAK_OVER = 1.15
 # the drop_tile backward moves it by 7.6e-2)
 SMALL_TRAIN_TOL = 3e-4
 SMALL_GRAD_NORM_TOL = 2e-3
-# the train phase's last-layer gradients, kernels against the plain
-# attention, rms-relative per tensor: the kernels against themselves
-# under another forward tile already differ by up to 6.2e-2 (the q / k
-# norm scales, sums over 2048 x 32 rows that cancel; an H100), so the
-# bound is about three times that floor; the wrong-target control sits
-# at 1.4, seven times above it
-TRAIN_GRAD_TOL = 0.2
+# the train phases' last-layer gradients, kernels against the plain
+# versions, rms-relative per tensor, by arch: about three times the
+# floor measured on an H100 at 700 W, the kernels against themselves
+# under another tile: qwen3-8b 6.2e-2 (the q / k norm scales, sums over
+# 2048 x 32 rows that cancel), granite 1.15e-2 outside its MoE FFN
+# (attn/wq), mamba2 7.7e-2 and hymba 1.10e-1 (ssm/dt_bias); the
+# wrong-target control sits at 1.18-1.46, at least four times above
+# each bound.  An MoE layer's FFN leaves (its norm, router and experts)
+# are not held: their gradients pass a routing decision, which bf16 noise
+# flips on near-ties (the floor: 9.0e-2 on granite's moe/wo), and the
+# router's is mostly the aux loss's, which no control can move (the
+# wrong target moves it by 2.0e-2); tests/test_torch_train_families.py
+# holds them against the reference in fp32
+TRAIN_GRAD_TOL = {"qwen3-8b": 0.2, GRANITE: 0.05, "mamba2-2.7b": 0.2,
+                  "hymba-1.5b": 0.3}
 SEED = 0
 CARD = ""                   # nvidia-smi name, power limit (set in main)
 # prefill buckets of 2048 prompt tokens (the serve phases' power-of-two
@@ -663,6 +690,7 @@ def kernel_phase(torch, dev):
                                         Hq=hq, Kv=kv, Dh=dh, W=0).items():
             res[name][key] = r
     res["flash_attention_bwd"] = flash_bwd_check(torch, F, fa, dev)
+    res["ssd_scan_bwd"] = ssd_bwd_check(torch, dev)
     for name, r in res.items():
         log(f"timing {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
@@ -3069,113 +3097,338 @@ def flash_bwd_check(torch, F, fa, dev):
     return out
 
 
+#: the SSD backward's shapes (B, S, H, P, N, G, chunk, with an initial
+#: state and a gradient of the final state): mamba2-2.7b's and
+#: hymba-1.5b's at the train shape as training calls it (neither), then
+#: a reduced width with both, a ragged S, G < H and a smaller chunk
+SSD_BWD_SHAPES = ((1, 2048, SSD_H, SSD_P, SSD_N, SSD_G, 256, False),
+                  (1, 2048, HSSD_H, SSD_P, HSSD_N, SSD_G, 256, False),
+                  (2, 1000, 8, 32, 16, 2, 64, True))
+SSD_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+#: the SSD backward's planted faults: the key side's diagonal query
+#: tile left out; no gradient passed between chunks
+SSD_BWD_FAULTS = ("skip_tile", "no_carry")
+
+
+def ssd_bwd_flops(B, S, H, P, N, chunk):
+    """The SSD backward's operations (``csrc/ssd_scan_bwd.cu``'s header):
+    per (batch, head, chunk) the causal halves of C.B^T and dy.xdt^T (the
+    one decayed tile gives dB over the queries and dC over the keys) and
+    the three products that apply them, and four state products.  The
+    kernel's second dy.xdt^T, on the query side, is not counted: the
+    function does not need it."""
+    nc = -(-S // chunk)
+    Q = chunk
+    return B * H * nc * (Q * (Q + 1) * (3 * N + 2 * P) + 8 * Q * P * N)
+
+
+def ssd_bwd_check(torch, dev):
+    """The SSD scan's backward kernel at :data:`SSD_BWD_SHAPES`: every
+    gradient (dx, ddt, dA, dB, dC and, with an initial state, its
+    gradient) held row by row (:func:`grad_row_err`: a row is one
+    (batch, position, head)'s P values of dx, one position's H values of
+    ddt, dA whole, one (position, group)'s N values of dB / dC) against
+    ``ssd_scan_bwd_plain`` in fp64 on the fp64 forward's y and states, at
+    the forward's bound :data:`TOL` ``["ssd_scan"]``; beside the planted
+    faults (:data:`SSD_BWD_FAULTS`) that must each fail the same check.
+    At mamba2's shape, timed in turns against torch autograd of the fp32
+    plain forward, beside the plain backward, the device time of
+    each of the six passes, and the bound: the operations the gradient
+    needs (:func:`ssd_bwd_flops`) at 67 TFLOP/s (fp64 tensor cores), or
+    its bytes.  On a generator of its own."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    g = torch.Generator(dev).manual_seed(SEED + 30)
+    tol = TOL["ssd_scan_bwd"]
+    out = {"shapes": []}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    for B, S, H, P, N, G, chunk, ends in SSD_BWD_SHAPES:
+        ins = (F.silu(rnd(B, S, H, P)), F.softplus(rnd(B, S, H) - 2.0),
+               -torch.linspace(1.0, 16.0, H, device=dev),
+               F.silu(rnd(B, S, G, N)), F.silu(rnd(B, S, G, N)))
+        s0 = rnd(B, H, P, N) if ends else None
+        dy = rnd(B, S, H, P)
+        dfin = rnd(B, H, P, N) if ends else None
+        y, fin, states = ssd.ssd_scan(*ins, chunk=chunk, initial_state=s0,
+                                      return_states=True)
+
+        def kernel(**fault):
+            return ssd.ssd_scan_bwd(*ins, y, states, fin, dy, dfin,
+                                    chunk=chunk, initial_grad=ends, **fault)
+
+        def f64(t):
+            return None if t is None else t.double()
+
+        y64, fin64, st64 = ssd.ssd_scan_plain(
+            *map(f64, ins), chunk=chunk, initial_state=f64(s0),
+            return_states=True)
+        want = ssd.ssd_scan_bwd_plain(*map(f64, ins), y64, st64, fin64,
+                                      f64(dy), f64(dfin), chunk=chunk,
+                                      initial_grad=ends)
+        y32, fin32, st32 = ssd.ssd_scan_plain(*ins, chunk=chunk,
+                                              initial_state=s0,
+                                              return_states=True)
+        plain = ssd.ssd_scan_bwd_plain(*ins, y32, st32, fin32, dy, dfin,
+                                       chunk=chunk, initial_grad=ends)
+
+        def rows(got):
+            """(max abs err, worst row rel) of each gradient, by name."""
+            return {n: grad_row_err(torch, a.reshape(-1, a.shape[-1]) if
+                                    n != "dA" else a[None],
+                                    b.reshape(-1, b.shape[-1]) if n != "dA"
+                                    else b[None])
+                    for n, a, b in zip(SSD_BWD_GRADS, got, want)
+                    if b is not None}
+
+        got = rows(kernel())
+        rel = max(r for _, r in got.values())
+        err = max(e for e, _ in got.values())
+        plain_rel = max(r for _, r in rows(plain).values())
+        ctls = {f: max(r for _, r in rows(kernel(**{f: True})).values())
+                for f in SSD_BWD_FAULTS}
+        ctl = min(ctls.values())
+        tag = (f"B={B} S={S} H={H} P={P} N={N} G={G} chunk={chunk}"
+               + (" with initial and final state gradients" if ends else ""))
+        log(f"kernel ssd_scan_bwd {tag}: max_abs_err={err:.3e} worst row "
+            f"rel against fp64 "
+            f"{dict((n, round(r, 7)) for n, (_, r) in got.items())} (the "
+            f"fp32 plain backward against fp64 {plain_rel:.3e}; tol {tol}, "
+            f"rows floored at {GRAD_FLOOR} x the tensor's rms) [{CARD}]")
+        for fault, c in ctls.items():
+            log(f"control ssd_scan_bwd {tag} {fault}: worst row rel "
+                f"{c:.3e} (must exceed tol {tol}) [{CARD}]")
+            check(c > tol, f"control ssd_scan_bwd {fault} passed the check "
+                  f"({c} <= {tol})")
+        check(rel <= tol, f"ssd_scan_bwd {tag} row rel err {rel} > {tol}")
+        row = dict(B=B, S=S, H=H, P=P, N=N, G=G, chunk=chunk, ends=ends,
+                   row_rel_err={n: r for n, (_, r) in got.items()},
+                   max_abs_err=err, plain_row_rel_err_fp64=plain_rel,
+                   control_row_rel_err=ctl, controls=ctls)
+        if not out["shapes"]:            # the headline: mamba2's shape
+            leaves = [t.detach().clone().requires_grad_() for t in ins]
+            y_auto, _ = ssd.ssd_scan_plain(*leaves, chunk=chunk)
+            med, rounds = in_turns(torch, {
+                "kernel": lambda: kernel(),
+                "autograd_plain": lambda: torch.autograd.grad(
+                    y_auto, leaves, dy, retain_graph=True)})
+            plain_ms = time_ms(torch, lambda: ssd.ssd_scan_bwd_plain(
+                *ins, y32, st32, fin32, dy, chunk=chunk), iters=3, warmup=1)
+            passes = {re.search(r"(\w+)(<[^>]*>)?\(", k).group(1): v
+                      for k, v in device_ms_by_kernel(
+                          torch, lambda: kernel()).items()}
+            nc = -(-S // chunk)
+            nbytes = 4 * (4 * B * S * H * P + 2 * B * S * H + 2 * H
+                          + 4 * B * S * G * N + B * (nc + 1) * H * P * N)
+            b_ms, b_by = bound(nbytes, ssd_bwd_flops(B, S, H, P, N, chunk),
+                               PEAK_FP32)
+            log(f"timing ssd_scan_bwd {tag}: kernel {med['kernel']:.4f} ms, "
+                f"autograd of the plain forward "
+                f"{med['autograd_plain']:.4f} ms (medians of {TURNS} turns: "
+                f"kernel {fmt(rounds['kernel'])}, autograd "
+                f"{fmt(rounds['autograd_plain'])}), plain backward "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); device "
+                f"time per call by pass (torch.profiler) "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items())
+                + f" [{CARD}]")
+            out.update(
+                route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                replaces="src/repro/models/ssm.py:53",
+                max_abs_err=err, row_rel_err=rel, tolerance=tol,
+                control_row_rel_err=ctl, ms=med["kernel"],
+                turns_ms=rounds["kernel"], plain_ms=plain_ms,
+                autograd_plain_ms=med["autograd_plain"],
+                autograd_plain_turns_ms=rounds["autograd_plain"],
+                library_ms=None, passes_ms=passes, bound_ms=b_ms,
+                bound_by=b_by,
+                shape=f"B={B} S={S} H={H} P={P} N={N} G={G} chunk={chunk} "
+                      f"fp32, six launches a call; bound at the fp64 "
+                      f"tensor-core rate",
+                library_call="none: no PyTorch call computes the SSD scan's "
+                             "backward (the reference differentiates its "
+                             "jnp mirror with XLA)")
+        out["shapes"].append(row)
+    out["row_rel_err"] = max(max(r["row_rel_err"].values())
+                             for r in out["shapes"])
+    out["control_row_rel_err"] = min(r["control_row_rel_err"]
+                                     for r in out["shapes"])
+    return out
+
+
 def _last_layer_grads(torch, arch, params, batch, cfg, plain: bool):
-    """The training loss of ``batch`` and the gradients of the last layer
-    (its leaves and its input): the first ``L - 1`` layers run without
-    autograd, the last with it under ``cfg.remat`` (so its backward
-    recomputes the forward as the plan's step does), then the final
-    norm, the logits and the loss, as ``lm.train_loss`` computes them.
-    ``plain`` sends attention
-    through ``flash_attention_plain`` under torch autograd instead of the
-    kernels' autograd function."""
+    """The training loss of ``batch`` and the gradients of the last step
+    of the layer loop (a layer: its leaves and its input): the steps
+    before it run without autograd, the last with it under ``cfg.remat``
+    (so its backward recomputes the forward as the plan's step does),
+    then the final norm, the logits and the loss with the MoE layers' aux
+    losses, as ``lm.train_loss`` computes them.  ``plain`` sends
+    attention through ``flash_attention_plain`` and the SSD scan through
+    ``ssd_scan_plain`` under torch autograd instead of the kernels'
+    autograd functions."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import lm
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.common import cross_entropy_loss, rms_norm
 
-    routed = attn_mod.attention_chunked
+    routed = attn_mod.attention_chunked, ssm_mod.ssd_chunked
     if plain:
         attn_mod.attention_chunked = (
             lambda q, k, v, *, causal, window, tiles, mode:
             fa.flash_attention_plain(q, k, v, causal=causal, window=window))
+        ssm_mod.ssd_chunked = (
+            lambda x, dt, A, Bm, Cm, chunk, initial_state=None, *,
+            heads_block=None, mode="auto": ssd.ssd_scan_plain(
+                x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state))
     try:
-        L = arch.n_layers
-        layers = lm._unbind_layers(params["blocks"], L)
+        groups = lm.layer_groups(arch, params["blocks"])
+        g = arch.n_layers // len(groups)
         windows = lm._window_schedule(arch)
+
+        def win(j):
+            return tuple(windows[j * g:(j + 1) * g])
+
+        aux = 0.0
         with torch.no_grad():
             x = lm._embed_in(arch, params, batch)
             B, S = x.shape[:2]
             positions = torch.arange(S, device=x.device).expand(B, S)
-            for i in range(L - 1):
-                x = lm._block_fwd(arch, cfg, layers[i], x, positions,
-                                  windows[i])
+            for j in range(len(groups) - 1):
+                x, a = lm._group_fwd(arch, cfg, groups[j], x, positions,
+                                     win(j))
+                aux = aux if a is None else aux + a
         x = x.detach().requires_grad_()
-        last = _map_tree(layers[-1], lambda t: t.detach().requires_grad_())
-        block = lm._remat(functools.partial(lm._block_fwd, arch, cfg),
+        last = _map_tree(groups[-1], lambda t: t.detach().requires_grad_())
+        block = lm._remat(functools.partial(lm._group_fwd, arch, cfg),
                           cfg.remat)
-        y = block(last, x, positions, windows[-1])
+        y, a = block(last, x, positions, win(len(groups) - 1))
+        aux = aux if a is None else aux + a
         y = rms_norm(y, params["final_norm"], arch.norm_eps)
         loss, _ = cross_entropy_loss(lm._logits(arch, params, y),
                                      batch["targets"],
                                      vocab_size=arch.vocab_size)
+        loss = loss + lm.AUX_LOSS_WEIGHT * aux
         named = [("input", x)] + _named(last)
         grads = torch.autograd.grad(loss, [t for _, t in named])
         return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
     finally:
-        attn_mod.attention_chunked = routed
+        attn_mod.attention_chunked, ssm_mod.ssd_chunked = routed
 
 
 @contextlib.contextmanager
 def planted_bwd(fault: str):
-    """Send the flash autograd function's backward through the kernel
-    with one planted fault (``drop_tile`` / ``group_fault``): a control
-    that the check around it must catch."""
+    """Send a kernels' autograd function's backward through its kernel
+    with one planted fault: the flash backward's ``drop_tile`` /
+    ``group_fault``, or the SSD backward's (:data:`SSD_BWD_FAULTS`): a
+    control that the check around it must catch."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
 
-    kernel = fa.flash_attention_bwd
-    fa.flash_attention_bwd = functools.partial(kernel, **{fault: True})
+    mod, name = (ssd, "ssd_scan_bwd") if fault in SSD_BWD_FAULTS \
+        else (fa, "flash_attention_bwd")
+    kernel = getattr(mod, name)
+    setattr(mod, name, functools.partial(kernel, **{fault: True}))
     try:
         yield
     finally:
-        fa.flash_attention_bwd = kernel
+        setattr(mod, name, kernel)
+
+
+def backward_faults(arch):
+    """The planted backward faults a train check of ``arch`` must catch:
+    the flash backward's dropped tile where it has attention, the SSD
+    backward's skipped tile where it has an SSM.  (The SSD backward's
+    missing carry is held by the kernel check, row by row: the model's
+    decays, e^(dt A) per row with A from -1 to -16, leave little of a
+    state to carry 256 rows on, so a parameter's gradient, summed over
+    every row, barely moves.)"""
+    return (("drop_tile",) if arch.has_attention else ()) + \
+        (("skip_tile",) if arch.has_ssm else ())
+
+
+def routed_leaf(arch, name: str) -> bool:
+    """Whether the last layer's leaf ``name`` (a :func:`_named` path) is
+    an MoE FFN's: its norm, router or experts."""
+    if not arch.is_moe:
+        return False
+    if arch.moe_interleave > 1:          # a super-block: its MoE half
+        if not name.startswith("moe/"):
+            return False
+        name = name[len("moe/"):]
+    return name == "mlp_norm" or name.startswith("moe/")
 
 
 def train_grad_check(torch, dev, arch, cfg, params, batch):
     """(b) of the train phase: the step-0 loss and the last layer's
     gradients through the kernels (forward and backward) against the same
-    layer and loss through ``flash_attention_plain`` under autograd, on
-    the same card.  rms-relative per gradient tensor at
-    :data:`TRAIN_GRAD_TOL`,
-    beside its noise floor (the kernels against themselves under another
-    forward tile, 64 rows x 64 keys) and two controls that must fail it:
-    a wrong input (the targets shifted by one) and a wrong backward (the
-    kernel with ``drop_tile`` planted, through the autograd route)."""
+    layer and loss through the plain attention and SSD scan under
+    autograd, on the same card.  rms-relative per gradient tensor at the
+    arch's :data:`TRAIN_GRAD_TOL`, an MoE FFN's leaves left out
+    (:func:`routed_leaf`), beside its noise floor (the kernels against
+    themselves under another tile: flash 64 rows x 64 keys, the SSD
+    chunk 128) and controls that must fail it: a wrong input (the targets
+    shifted by one) on every leaf held, and a wrong backward for each
+    kernel pair the layer runs (:func:`backward_faults`, through the
+    autograd route) on one."""
     loss_k, gk = _last_layer_grads(torch, arch, params, batch, cfg, False)
     loss_p, gp = _last_layer_grads(torch, arch, params, batch, cfg, True)
-    G = arch.n_heads // arch.n_kv_heads
-    retiled = dataclasses.replace(cfg, flash_tiles=(64 // G, 64))
-    _, gr = _last_layer_grads(torch, arch, params, batch, retiled, False)
+    gp = {n: g for n, g in gp.items() if not routed_leaf(arch, n)}
+    retile = {}
+    if arch.has_attention:
+        retile["flash_tiles"] = (64 // (arch.n_heads // arch.n_kv_heads), 64)
+    if arch.has_ssm:
+        retile["ssd_chunk"] = 128
+    _, gr = _last_layer_grads(torch, arch, params, batch,
+                              dataclasses.replace(cfg, **retile), False)
     wrong = dict(batch, targets=(batch["targets"] + 1) % arch.vocab_size)
     _, gw = _last_layer_grads(torch, arch, params, wrong, cfg, False)
-    with planted_bwd("drop_tile"):
-        _, gd = _last_layer_grads(torch, arch, params, batch, cfg, False)
-    rel = {n: _rms_rel(torch, gk[n].float(), gp[n].float()) for n in gp}
-    floor = max(_rms_rel(torch, gr[n].float(), gk[n].float()) for n in gk)
-    ctl = min(_rms_rel(torch, gw[n].float(), gp[n].float()) for n in gp)
-    dropped = {n: _rms_rel(torch, gd[n].float(), gp[n].float()) for n in gp}
-    planted = max(dropped.values())
+    dropped = {}
+    for fault in backward_faults(arch):
+        with planted_bwd(fault):
+            _, gd = _last_layer_grads(torch, arch, params, batch, cfg, False)
+        dropped[fault] = {n: _rms_rel(torch, gd[n].float(), gp[n].float())
+                          for n in gp}
+    tol = TRAIN_GRAD_TOL[arch.name]
+
+    def rels(g, want):                   # over the leaves held
+        return {n: round(_rms_rel(torch, g[n].float(), want[n].float()), 6)
+                for n in gp}
+
+    rel, floors, wrong_rel = rels(gk, gp), rels(gr, gk), rels(gw, gp)
+    ctl = min(wrong_rel.values())
+    planted = {f: max(d.values()) for f, d in dropped.items()}
     worst = max(rel.values())
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"check train step-0 loss kernels {loss_k:.6f} vs plain "
+    log(f"check train {arch.name} step-0 loss kernels {loss_k:.6f} vs plain "
         f"{loss_p:.6f} (rel {loss_rel:.3e}); last layer's gradients "
-        f"rms_rel worst {worst:.3e} ({max(rel, key=rel.get)}; tol "
-        f"{TRAIN_GRAD_TOL};"
-        f" kernels re-tiled against themselves {floor:.3e}; wrong-target "
-        f"control >= {ctl:.3e}; drop_tile backward control worst "
-        f"{planted:.3e} ({max(dropped, key=dropped.get)})) "
-        f"{dict((n, round(r, 6)) for n, r in rel.items())} [{CARD}]")
+        f"rms_rel worst {worst:.3e} ({max(rel, key=rel.get)}; tol {tol}"
+        + (", an MoE FFN's leaves not held" if arch.is_moe else "")
+        + f"; kernels re-tiled {retile} "
+        f"against themselves {max(floors.values()):.3e}; wrong-target "
+        f"control >= {ctl:.3e}; planted backward controls worst "
+        + ", ".join(f"{f} {v:.3e}" for f, v in planted.items())
+        + f") {rel}; floors {floors}; wrong target {wrong_rel}; "
+        + "; ".join(f"{f} {dict((n, round(v, 6)) for n, v in d.items())}"
+                    for f, d in dropped.items()) + f" [{CARD}]")
     check(all(math.isfinite(x) for x in (loss_k, loss_p)),
           "train check: loss not finite")
-    check(worst <= TRAIN_GRAD_TOL and loss_rel <= LOGIT_TOL,
-          f"train check: gradients rms_rel {worst} > {TRAIN_GRAD_TOL} or "
-          f"loss rel {loss_rel} > {LOGIT_TOL}")
-    check(ctl > TRAIN_GRAD_TOL, f"train check: the wrong-target control "
-          f"passed ({ctl})")
-    check(planted > TRAIN_GRAD_TOL, f"train check: the drop_tile backward "
-          f"control passed ({planted})")
+    check(worst <= tol and loss_rel <= LOGIT_TOL,
+          f"train check: gradients rms_rel {rel} over {tol} or loss rel "
+          f"{loss_rel} > {LOGIT_TOL}")
+    check(ctl > tol, f"train check: the wrong-target control passed ({ctl})")
+    for fault, v in planted.items():
+        check(v > tol, f"train check: the {fault} backward control passed "
+              f"({v})")
     return dict(loss_kernels=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
-                grad_rms_rel=rel, floor=floor, control=ctl,
-                drop_tile_control=dropped, tol=TRAIN_GRAD_TOL)
+                grad_rms_rel=rel, floors=floors, retile=retile,
+                wrong_target=wrong_rel, control=ctl,
+                planted_controls=dropped, tol=tol)
 
 
 class RoundingCheck:
@@ -3220,18 +3473,32 @@ def train_plan(specialize, arch, shape):
     fail(f"train: no depth of {arch.name} fits the card by its plan")
 
 
-def train_phase(torch, dev):
-    """Full-width qwen3-8b at the depth its plan admits
-    (:func:`train_plan`: all 36 layers when the step fits), trained from
+def expected_train_launches(arch, remat: str):
+    """Kernel launches of one train step: each attention layer's flash
+    forward and each SSM layer's SSD-scan forward once, twice under remat
+    (the backward runs the layer's forward again), and each one's
+    backward once; nothing else."""
+    L_attn = arch.n_layers if arch.has_attention else 0
+    L_ssm = arch.n_layers if arch.has_ssm else 0
+    again = 1 if remat == "none" else 2
+    return {"flash_attention": again * L_attn, "flash_attention_bwd": L_attn,
+            "ssd_scan": again * L_ssm, "ssd_scan_bwd": L_ssm}
+
+
+def train_phase(torch, dev, name="qwen3-8b"):
+    """Full-width ``name`` at the depth its plan admits
+    (:func:`train_plan`: every layer when the step fits), trained from
     the unmodified ``h100-sxm`` plan for ``ShapeConfig("train_2k",
-    "train", 2048, 1)`` — bf16 moments, no master copy (stochastic
-    rounding), remat and microbatches as planned — through
-    ``Trainer.fit`` for :data:`TRAIN_STEPS` steps on the synthetic
-    pipeline, every earlier weight freed first.  Before the fit, the
-    kernels' gradient check (:func:`train_grad_check`); the last step
-    runs with :class:`RoundingCheck` on the optimizer's rounding, the
-    steps before it are timed clean.  The fit's peak allocated memory is
-    held against the plan's step-peak estimate: ``peak <= estimate <=``
+    "train", 2048, 1)`` — optimizer state, remat, microbatches and the
+    MoE path as planned — through ``Trainer.fit`` for
+    :data:`TRAIN_STEPS` steps on the synthetic pipeline, every earlier
+    weight freed first.  Before the fit, the kernels' gradient check
+    (:func:`train_grad_check`); where the plan keeps no master copy
+    (bf16 parameters updated by stochastic rounding) the last step runs
+    with :class:`RoundingCheck` on the optimizer's rounding; the steps
+    before it are timed clean.  The launches are held to
+    :func:`expected_train_launches` a step, and the fit's peak allocated
+    memory against the plan's step-peak estimate: ``peak <= estimate <=``
     :data:`STEP_PEAK_OVER` ``x peak``."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core import specialize
@@ -3244,24 +3511,31 @@ def train_phase(torch, dev):
     from repro_torch.train import Trainer, TrainerConfig
 
     shape = ShapeConfig("train_2k", "train", 2048, 1)
-    arch, plan = train_plan(specialize, get_arch("qwen3-8b"), shape)
+    full = get_arch(name)
+    arch, plan = train_plan(specialize, full, shape)
     est = plan_memory(plan)
     remat = plan.comm.remat_policy
     decisions = {"opt": dict(plan.opt), "remat": remat,
                  "microbatches": plan.comm.microbatches,
-                 "flash": dict(plan.partitions["flash_attention"].blocks)}
-    log(f"train plan {plan.content_hash()[:12]} at {arch.n_layers} of 36 "
-        f"layers: {decisions}; step peak estimate {est['peak'] / 2**30:.2f} "
-        f"GiB (state {est['state'] / 2**30:.2f}, gradients "
-        f"{est['grads'] / 2**30:.2f}, saved activations "
+                 **{k: dict(plan.partitions[k].blocks)
+                    for k in ("flash_attention", "ssd_scan")
+                    if k in plan.partitions}}
+    if arch.is_moe:
+        decisions["moe_impl"] = plan.estimates["moe_impl"]
+    log(f"train plan {name} {plan.content_hash()[:12]} at {arch.n_layers} "
+        f"of {full.n_layers} layers: {decisions}; step peak estimate "
+        f"{est['peak'] / 2**30:.2f} GiB (state {est['state'] / 2**30:.2f}, "
+        f"gradients {est['grads'] / 2**30:.2f}, saved activations "
         f"{est['saved'] / 2**30:.2f}, largest transient "
         f"{est['transient'] / 2**30:.2f}) against a budget of "
         f"{est['budget'] / 2**30:.2f} GiB (the plan's estimates)")
     for entry in plan.log:
         if entry[0] in ("data_organization", "communication"):
             log("  train plan: " + " | ".join(entry))
-    check(plan.opt == {"moment_dtype": "bfloat16", "master_weights": False},
-          f"the train plan's optimizer decisions moved: {plan.opt}")
+    if name == "qwen3-8b":
+        check(plan.opt == {"moment_dtype": "bfloat16",
+                           "master_weights": False},
+              f"the train plan's optimizer decisions moved: {plan.opt}")
     cfg = build_run_cfg(plan, arch)
     trainer = Trainer(plan, None, TrainerConfig(
         n_steps=TRAIN_STEPS, ckpt_every=0, log_every=1, seed=SEED,
@@ -3271,11 +3545,12 @@ def train_phase(torch, dev):
     state = trainer.init_state(SEED)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(state["params"]))
-    log(f"weights: qwen3-8b layers={arch.n_layers} (of 36) d_model="
-        f"{arch.d_model} heads={arch.n_heads}/{arch.n_kv_heads} d_ff="
-        f"{arch.d_ff} vocab={arch.vocab_size} params={n_params} random "
-        f"(seed {SEED}) with the optimizer state in "
-        f"{time.perf_counter() - t0:.1f} s; allocated "
+    log(f"weights: {name} layers={arch.n_layers} (of {full.n_layers}) "
+        f"d_model={arch.d_model} heads={arch.n_heads}/{arch.n_kv_heads} "
+        f"ssm_heads={arch.ssm_heads if arch.has_ssm else 0} d_ff="
+        f"{arch.d_ff} experts={arch.n_experts} vocab={arch.vocab_size} "
+        f"params={n_params} random (seed {SEED}) with the optimizer state "
+        f"in {time.perf_counter() - t0:.1f} s; allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{CARD}]")
     batch0 = to_device(dev)(SyntheticSource(arch, shape,
                                             seed=SEED).batch_at(0))
@@ -3285,8 +3560,10 @@ def train_phase(torch, dev):
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     state, _ = trainer.fit(state, n_steps=TRAIN_STEPS - 1)
+    stochastic = not plan.opt["master_weights"]
     sr = RoundingCheck(torch, adamw._stochastic_round_bf16)
-    adamw._stochastic_round_bf16 = sr
+    if stochastic:
+        adamw._stochastic_round_bf16 = sr
     try:
         state, metrics = trainer.fit(state, n_steps=TRAIN_STEPS,
                                      start_step=TRAIN_STEPS - 1)
@@ -3297,54 +3574,59 @@ def train_phase(torch, dev):
     peak = torch.cuda.max_memory_allocated()
     hist = trainer.history
     for h in hist:
-        log(f"train step {h['step']}: loss {h['loss']:.6f} grad_norm "
+        note = (" (with the rounding check)"
+                if stochastic and h is hist[-1] else "")
+        log(f"train {name} step {h['step']}: loss {h['loss']:.6f} grad_norm "
             f"{h['grad_norm']:.6f} lr {h['lr']:.4e} {h['dt_s'] * 1e3:.1f} ms"
-            f"{' (with the rounding check)' if h is hist[-1] else ''} "
-            f"[{CARD}]")
+            f"{note} [{CARD}]")
     timed = hist[1:-1]
     step_ms = sorted(h["dt_s"] * 1e3 for h in timed)[len(timed) // 2]
     tok_s = shape.tokens / (step_ms / 1e3)
     bf16_elems = sum(t.numel() for _, t in _named(state["params"])
                      if t.dtype == torch.bfloat16)
     L = arch.n_layers
-    fwd = L * (1 if remat == "none" else 2)    # remat runs forwards again
-    log(f"train: {len(hist)} steps at {L} layers, remat {remat}, median "
-        f"step {step_ms:.1f} ms over steps 1..{len(hist) - 2} ({tok_s:.1f} "
-        f"tokens/s); launches flash_attention {counts['flash_attention']}, "
-        f"flash_attention_bwd {counts['flash_attention_bwd']} ({fwd} / {L} "
-        f"a step expected) [{CARD}]")
-    log(f"train {launch_train.memory_line(plan, peak)} (tol: estimate "
-        f"within [1, {STEP_PEAK_OVER}] x the measured peak) [{CARD}]")
-    log(f"train rounding check: {sr.elements} bf16 elements rounded of "
-        f"{bf16_elems}, {sr.off_pair} off their neighbour pair, {sr.up} up "
-        f"against {sr.expect_up:.1f} expected (sd "
-        f"{math.sqrt(sr.var):.1f}) [{CARD}]")
+    per_step = expected_train_launches(arch, remat)
+    log(f"train {name}: {len(hist)} steps at {L} layers, remat {remat}, "
+        f"median step {step_ms:.1f} ms over steps 1..{len(hist) - 2} "
+        f"({tok_s:.1f} tokens/s); launches {counts} ({per_step} a step "
+        f"expected) [{CARD}]")
+    log(f"train {name} {launch_train.memory_line(plan, peak)} (tol: "
+        f"estimate within [1, {STEP_PEAK_OVER}] x the measured peak) "
+        f"[{CARD}]")
+    if stochastic:
+        log(f"train {name} rounding check: {sr.elements} bf16 elements "
+            f"rounded of {bf16_elems}, {sr.off_pair} off their neighbour "
+            f"pair, {sr.up} up against {sr.expect_up:.1f} expected (sd "
+            f"{math.sqrt(sr.var):.1f}) [{CARD}]")
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-              for h in hist), "train: a loss or grad norm is not finite")
-    check(len(hist) == TRAIN_STEPS, f"train: {len(hist)} steps")
-    check(counts["flash_attention"] == fwd * TRAIN_STEPS
-          and counts["flash_attention_bwd"] == L * TRAIN_STEPS,
-          f"train: launches {counts}, expected {fwd} forward and {L} "
-          f"backward flash calls a step under remat {remat}")
+              for h in hist), f"train {name}: a loss or grad norm is not "
+          "finite")
+    check(len(hist) == TRAIN_STEPS, f"train {name}: {len(hist)} steps")
+    check(all(counts[k] == per_step.get(k, 0) * TRAIN_STEPS for k in counts),
+          f"train {name}: launches {counts}, expected {per_step} a step "
+          f"under remat {remat}")
     check(peak <= est["peak"] <= STEP_PEAK_OVER * peak,
-          f"train: the plan's step peak estimate {est['peak']} B is not "
-          f"within [1, {STEP_PEAK_OVER}] x the measured peak {peak} B")
+          f"train {name}: the plan's step peak estimate {est['peak']} B is "
+          f"not within [1, {STEP_PEAK_OVER}] x the measured peak {peak} B")
     check(abs(hist[0]["loss"] - grad["loss_kernels"])
           <= 1e-3 * abs(grad["loss_kernels"]),
-          f"train: step-0 loss {hist[0]['loss']} against the checked "
+          f"train {name}: step-0 loss {hist[0]['loss']} against the checked "
           f"{grad['loss_kernels']}")
-    check(sr.elements == bf16_elems and sr.off_pair == 0
-          and abs(sr.up - sr.expect_up) <= 6 * math.sqrt(sr.var) + 1,
-          "train: stochastic rounding left the neighbour pair or is biased")
+    check(not stochastic or (
+        sr.elements == bf16_elems and sr.off_pair == 0
+        and abs(sr.up - sr.expect_up) <= 6 * math.sqrt(sr.var) + 1),
+        f"train {name}: stochastic rounding left the neighbour pair or is "
+        "biased")
     res = dict(plan=plan.content_hash(), decisions=decisions,
                n_layers=L, n_params=n_params, steps=hist, step_ms=step_ms,
                tokens_per_s=tok_s, peak_bytes=peak,
                plan_memory=est, estimate_over_peak=est["peak"] / peak,
-               launches=counts,
+               launches=counts, launches_per_step=per_step,
                grad_check=grad,
-               rounding=dict(elements=sr.elements, off_pair=sr.off_pair,
-                             up=sr.up, expect_up=sr.expect_up),
                final={k: float(v) for k, v in metrics.items()})
+    if stochastic:
+        res["rounding"] = dict(elements=sr.elements, off_pair=sr.off_pair,
+                               up=sr.up, expect_up=sr.expect_up)
     del state, trainer, metrics
     torch.cuda.empty_cache()
     return counts, res
@@ -3368,26 +3650,38 @@ def _clone(torch, tree):
     return _map_tree(tree, lambda t: t.detach().clone())
 
 
-def small_train_check(torch, dev):
-    """The reduced qwen3 at head_dim 128 (as :func:`small_model_check`
-    builds it), its ``h100-sxm`` plan (fp32 moments and master weights at
-    this size), 4 steps of 256 x 4 tokens on the card (the kernels)
-    against the CPU (the plain versions) from the same init and batches,
-    each step's loss within :data:`SMALL_TRAIN_TOL` and its grad norm
-    within :data:`SMALL_GRAD_NORM_TOL` (a run with the ``drop_tile``
-    backward planted must fail one of the two); then a run saved
-    through ``Checkpointer`` at step 2 and resumed by a fresh trainer's
-    ``resume()``, whose steps 3-4 and final state must equal the
-    uninterrupted card run's bitwise."""
+def small_train_check(torch, dev, name="qwen3-8b"):
+    """A small model, its ``h100-sxm`` plan (fp32 moments and master
+    weights at this size), 4 steps of 256 x 4 tokens (an SSM's: 1024 x 2,
+    four of the plan's 256-row chunks, so that a gradient lost between
+    chunks shows) on the card (the kernels) against the CPU (the plain
+    versions) from the same init and batches, each step's loss within
+    :data:`SMALL_TRAIN_TOL` and its grad norm within
+    :data:`SMALL_GRAD_NORM_TOL`, and the step-0 gradient of every leaf
+    within the arch's :data:`TRAIN_GRAD_TOL` (rms-relative; at this size
+    an SSM's scan carries too little of the loss for the first two to see
+    its backward); a run with a planted backward fault
+    (:func:`backward_faults`) must fail one of the three;
+    then a run saved through ``Checkpointer`` at step 2 and resumed by a
+    fresh trainer's ``resume()``, whose steps 3-4 and final state must
+    equal the uninterrupted card run's bitwise.  The model: the reduced
+    qwen3 at head_dim 128 (as :func:`small_model_check` builds it), or
+    reduced mamba2 (2 layers, 8 SSD heads of 32, state 16)."""
     import shutil as _shutil
 
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core import specialize
+    from repro_torch.core.passes.lowering import build_run_cfg
+    from repro_torch.data import SyntheticSource, to_device
+    from repro_torch.models import lm
     from repro_torch.optim import adamw
     from repro_torch.train import Trainer, TrainerConfig
 
-    arch = dataclasses.replace(get_arch("qwen3-8b").reduced(), head_dim=128)
-    shape = ShapeConfig("small_train", "train", 256, 4)
+    arch = get_arch(name).reduced()
+    if arch.has_attention:
+        arch = dataclasses.replace(arch, head_dim=128)
+    shape = ShapeConfig("small_train", "train",
+                        *((1024, 2) if arch.has_ssm else (256, 4)))
     plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
                       cache=False)
     check(plan.opt["master_weights"], f"small train plan: {plan.opt}")
@@ -3395,14 +3689,28 @@ def small_train_check(torch, dev):
     root = ROOT / "build" / "ckpt_small"
     _shutil.rmtree(root, ignore_errors=True)
 
-    def trainer(device, name, **kw):
+    def trainer(device, run, **kw):
         cfg = TrainerConfig(n_steps=4, ckpt_every=0, log_every=100,
-                            seed=SEED, ckpt_dir=str(root / name))
+                            seed=SEED, ckpt_dir=str(root / run))
         return Trainer(plan, None, dataclasses.replace(cfg, **kw), opt,
                        arch=arch, shape=shape, device=device)
 
     cpu = trainer("cpu", "cpu")
     init = cpu.init_state(SEED)
+    cfg = build_run_cfg(plan, arch)
+    batch0 = SyntheticSource(arch, shape, seed=SEED).batch_at(0)
+
+    def step0_grads(device):
+        """Every leaf's gradient of the step-0 loss on ``device``."""
+        params = _map_tree(init["params"], lambda t: t.detach().to(
+            device).requires_grad_(t.is_floating_point()))
+        loss, _ = lm.train_loss(arch, params, to_device(device)(batch0), cfg)
+        names = [n for n, _ in _named(params)]
+        grads = torch.autograd.grad(loss, [t for _, t in _named(params)])
+        return {n: g.float().cpu() for n, g in zip(names, grads)}
+
+    g_cpu = step0_grads("cpu")
+    g_dev = step0_grads(dev)
     cpu.fit(_clone(torch, init))
     whole = trainer(dev, "whole")
     end, _ = whole.fit(_clone(torch, init))
@@ -3411,10 +3719,15 @@ def small_train_check(torch, dev):
     again = trainer(dev, "run")
     state, step = again.resume()
     state, _ = again.fit(state, start_step=step)
-    with planted_bwd("drop_tile"):
+    fault = backward_faults(arch)[0]
+    with planted_bwd(fault):
         faulty = trainer(dev, "faulty")
         faulty.fit(_clone(torch, init))
+        g_bad = step0_grads(dev)
     torch.cuda.synchronize()
+    gtol = TRAIN_GRAD_TOL[name]
+    g_rel = {n: _rms_rel(torch, g_dev[n], g) for n, g in g_cpu.items()}
+    g_ctl = max(_rms_rel(torch, g_bad[n], g) for n, g in g_cpu.items())
     l_cpu = [h["loss"] for h in cpu.history]
     l_dev = [h["loss"] for h in whole.history]
     l_res = [h["loss"] for h in again.history]
@@ -3428,25 +3741,34 @@ def small_train_check(torch, dev):
                  for h, g in zip(faulty.history, gn_cpu))
     same = all(torch.equal(a, b) for (_, a), (_, b) in zip(_named(state),
                                                            _named(end)))
-    log(f"check small train (4 steps, head_dim 128, master weights) card "
-        f"losses {[round(x, 6) for x in l_dev]} vs cpu "
+    log(f"check small train {name} (4 steps of {shape.seq_len} x "
+        f"{shape.global_batch}, master weights) "
+        f"card losses {[round(x, 6) for x in l_dev]} vs cpu "
         f"{[round(x, 6) for x in l_cpu]}: worst |diff| {worst:.3e} (tol "
-        f"{SMALL_TRAIN_TOL}; drop_tile backward control {ctl:.3e}); grad "
+        f"{SMALL_TRAIN_TOL}; {fault} backward control {ctl:.3e}); grad "
         f"norm rel card vs cpu {gn_rel:.3e} (tol {SMALL_GRAD_NORM_TOL}; "
-        f"drop_tile backward control {gn_ctl:.3e}); resumed "
+        f"{fault} backward control {gn_ctl:.3e}); step-0 gradients card vs "
+        f"cpu worst rms_rel {max(g_rel.values()):.3e} "
+        f"({max(g_rel, key=g_rel.get)}; tol {gtol}; {fault} "
+        f"backward control {g_ctl:.3e}); resumed "
         f"at step {step}: steps 3-4 {l_res} vs {l_dev[2:]}, final state "
         f"bitwise equal {same} [{CARD}]")
-    check(worst <= SMALL_TRAIN_TOL and gn_rel <= SMALL_GRAD_NORM_TOL,
-          f"small train: card vs cpu loss {worst}, grad norm rel {gn_rel}")
-    check(ctl > SMALL_TRAIN_TOL or gn_ctl > SMALL_GRAD_NORM_TOL,
-          f"small train: the drop_tile backward control passed (loss {ctl}, "
-          f"grad norm rel {gn_ctl})")
+    check(worst <= SMALL_TRAIN_TOL and gn_rel <= SMALL_GRAD_NORM_TOL
+          and max(g_rel.values()) <= gtol,
+          f"small train {name}: card vs cpu loss {worst}, grad norm rel "
+          f"{gn_rel}, step-0 gradients {max(g_rel.values())}")
+    check(ctl > SMALL_TRAIN_TOL or gn_ctl > SMALL_GRAD_NORM_TOL
+          or g_ctl > gtol,
+          f"small train {name}: the {fault} backward control passed (loss "
+          f"{ctl}, grad norm rel {gn_ctl}, step-0 gradients {g_ctl})")
     check(step == 2 and l_res == l_dev[2:] and same,
-          "small train: the resumed run differs from the uninterrupted one")
+          f"small train {name}: the resumed run differs from the "
+          "uninterrupted one")
     _shutil.rmtree(root, ignore_errors=True)
     return dict(losses_card=l_dev, losses_cpu=l_cpu, worst=worst,
-                drop_tile_control=ctl, grad_norm_rel=gn_rel,
-                grad_norm_control=gn_ctl, resumed_losses=l_res,
+                fault=fault, fault_control=ctl, grad_norm_rel=gn_rel,
+                grad_norm_control=gn_ctl, step0_grad_rms_rel=g_rel,
+                step0_grad_control=g_ctl, resumed_losses=l_res,
                 bitwise=same)
 
 
@@ -3614,8 +3936,9 @@ def matmul_path_phase(torch, dev, plans, shapes):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port on one NVIDIA card")
-    ap.add_argument("--only", choices=("flash_bwd",),
-                    help="run this phase alone and print its result")
+    ap.add_argument("--only", choices=("flash_bwd", "ssd_bwd"),
+                    help="run this kernel's check alone and print its "
+                         "result")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch runs")
     args = ap.parse_args(argv)
@@ -3651,6 +3974,16 @@ def main(argv=None) -> int:
         log(json.dumps({"src": str(args.src), "card": CARD,
                         "flash_attention_bwd":
                             flash_bwd_check(torch, F, fa, dev)}))
+        return 0
+    if args.only == "ssd_bwd":
+        from repro_torch.kernels import build
+        res = ssd_bwd_check(torch, dev)
+        for name, text in build.PTXAS_LOG.items():
+            for kernel, regs, spills in build.ptxas_entries(text):
+                log(f"ptxas {name}: {kernel}: {regs} registers at entry, "
+                    f"{spills} bytes of spills [{CARD}]")
+        log(json.dumps({"src": str(args.src), "card": CARD,
+                        "ssd_scan_bwd": res}))
         return 0
     from repro_torch.kernels import build, ops
     t0 = time.perf_counter()
@@ -3798,7 +4131,7 @@ def main(argv=None) -> int:
         "granite": granite_counts, "granite-gshard": granite_g_counts,
         "granite-shared": granite_runs[2],
         "granite-shared-control": granite_runs[3], "llama4": llama4_counts}
-    for name in ("tiled_matmul", "flash_attention_bwd"):
+    for name in ("tiled_matmul", "flash_attention_bwd", "ssd_scan_bwd"):
         served = {n: c[name] for n, c in serve_runs.items()}
         check(not any(served.values()),
               f"a serving path launched {name}: {served}")
@@ -3818,16 +4151,30 @@ def main(argv=None) -> int:
     ops.reset_launch_counts()
     log(f"train phases took {time.perf_counter() - t0:.1f} s [{CARD}]")
 
-    # ---- phase 18: results ----
-    runs = (*serve_runs.values(), train_counts)
+    # ---- phases 18-19: training the MoE, SSM and hybrid families, each
+    # after every earlier weight was freed; a small mamba2 card vs CPU ----
+    t0 = time.perf_counter()
+    families = {name: train_phase(torch, dev, name) for name in TRAIN_FAMILIES}
+    small_train_ssm = small_train_check(torch, dev, "mamba2-2.7b")
+    ops.reset_launch_counts()
+    log(f"family train phases took {time.perf_counter() - t0:.1f} s "
+        f"[{CARD}]")
+
+    # ---- phase 20: results ----
+    family_counts = [c for c, _ in families.values()]
+    runs = (*serve_runs.values(), train_counts, *family_counts)
     launches = {k: sum(c[k] for c in runs) for k in paged_counts}
     for name in ("flash_attention", "paged_decode_attention"):
         kern[name]["g7"]["launches"] = (grant["launches"][name]
                                         + grant_ctl["launches"][name])
         kern[name]["g5"]["launches"] = hymba_counts[name]
     kern["ssd_scan"]["hymba"]["launches"] = hymba_counts["ssd_scan"]
-    kern["flash_attention"]["train"] = {
-        "launches": train_counts["flash_attention"]}
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                 "ssd_scan_bwd"):
+        kern[name]["train"] = {"launches": {
+            n: c[name] for n, c in (("qwen3-8b", train_counts),
+                                    *((f, c) for f, (c, _) in
+                                      families.items()))}}
     # the MoE archs' pairs: both plans are paged, so their dense decode
     # instances run in the kernel phase only (0 on the main path)
     for name in ("flash_attention", "paged_decode_attention",
@@ -3857,7 +4204,9 @@ def main(argv=None) -> int:
                                  "shapes", "library_call", "launched_by",
                                  "offset", "tail_launches", "g7", "g5",
                                  "hymba", "granite", "llama4", "train",
-                                 "fwd_with_lse_ms", "fwd_without_lse_ms")
+                                 "fwd_with_lse_ms", "fwd_without_lse_ms",
+                                 "autograd_plain_ms",
+                                 "autograd_plain_turns_ms")
                if k in r},
             "ptxas": [[kernel, regs, spills] for kernel, regs, spills
                       in ptxas.get(Path(r["source"]).stem, [])],
@@ -3882,7 +4231,10 @@ def main(argv=None) -> int:
                                            "granite_gshard":
                                            granite_g_counts,
                                            "llama4": llama4_counts}},
-                    "train": train, "small_train": small_train}))
+                    "train": train, "small_train": small_train,
+                    "train_families": {n: r for n, (_, r) in
+                                       families.items()},
+                    "small_train_mamba2": small_train_ssm}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")
     log(smi)

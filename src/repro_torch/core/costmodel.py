@@ -630,42 +630,138 @@ STEP_RUNTIME_BYTES = 512 << 20
 OPT_CHUNK_TEMPS = 10
 
 
-def eager_layer_saved_bytes(arch, tokens: float, heads: int, kv_heads: int,
-                            remat: str) -> float:
-    """Bytes eager autograd keeps for one dense GQA layer between its
-    forward and its backward, under ``remat`` (the port's
-    ``models.lm._block_fwd`` as PyTorch records it, T = ``tokens``):
+def _norm_bytes(T: float, width: float) -> float:
+    """An fp32 RMS norm over ``width``: its fp32 input and normalised
+    output, the reciprocal rms and the scale 1 + w (the bf16 normed
+    output is counted where a product keeps it)."""
+    return 8 * T * width + 4 * T + 4 * width
 
-    * ``none``: each fp32 RMS norm keeps its fp32 input and normalised
-      output and its fp32 reciprocal rms (8 T d + 4 T, pre-attention and
-      pre-FFN, and the scale 1 + w in fp32), the bf16 normed input of the
-      projections (2 T d each); the q/k norms the same over (H + K) hd;
-      RoPE its fp32 sin and cos (T x hd/2 each, for q and for k); flash
-      q, k, v, o (bf16) and the fp32 log-sum-exp (4 T H); the gated FFN
-      its bf16 gate/up product (4 T F), the fp32 gate (4 T F), the bf16
-      SiLU (2 T F) and the bf16 product (2 T F);
+
+def _ssm_saved_bytes(arch, T: float, seqs: float, chunk: int) -> float:
+    """The mamba2 mixer after its pre-norm (``models.ssm.mixer`` and
+    :class:`repro_torch.kernels.ssd_scan.SSDScan` as PyTorch records
+    them): the conv's zero-padded bf16 input (k - 1 rows more a
+    sequence) and the fp32 input of its SiLU over the ``C = d_inner + 2
+    G N`` channels, the fp32 inputs of the dt softplus and of ``-exp``'s
+    output; the scan's fp32 x, dt, A, B, C, y, final state and the state
+    carried into each chunk; the SiLU's output (the D skip keeps a view
+    of it); the gated norm's z, y, SiLU(z), its input, rsqrt, scale and
+    normed output, and the fp32 ``out_proj`` copy."""
+    H, P, N, G = arch.ssm_heads, arch.ssm_head_dim, arch.ssm_state, \
+        arch.ssm_n_groups
+    di, d, k = H * P, arch.d_model, arch.ssm_conv
+    C = di + 2 * G * N
+    S = T / seqs
+    nc = math.ceil(S / min(chunk, S))
+    conv = 2 * seqs * (S + k - 1) * C + 4 * T * C + 4 * T * H + 4 * H
+    scan = (8 * T * di + 4 * T * H + 4 * H + 8 * T * G * N
+            + 4 * seqs * (nc + 1) * H * P * N)
+    skip = 4 * T * C
+    gated = 12 * T * di + _norm_bytes(T, di) + 4 * T * di + 4 * di * d
+    return conv + scan + skip + gated
+
+
+def _moe_saved_bytes(arch, T: float, seqs: float, impl: str) -> float:
+    """The MoE FFN after its norm (``models.moe``), by path: the router's
+    fp64 operands and softmax; the aux loss's token fractions; then for
+    ``dense_einsum`` the threshold mask, the bf16 normed input, the
+    expert stack ``wi`` as the broadcast product copies it, the (E, T,
+    2 ff) product, its fp32 gate and bf16 SiLU, the SwiGLU output, the
+    gates and the fp32 (E, T, d) outputs of the combine; for
+    ``gshard_einsum`` (C slots an expert a sequence, R = seqs C) each of
+    the k routing steps' indices, remaining probabilities and mask (the
+    last step's mask dies with its unused product) and (B, S, E, C) slot
+    one-hots, the dispatch one-hots, the (E, R, d) expert input, the
+    (E, R, 2 ff) product's SwiGLU terms and the fp64 combine operands; and
+    a shared expert's gated FFN."""
+    from repro_torch.models.moe import _capacity
+
+    d, E, k = arch.d_model, arch.n_experts, arch.experts_per_token
+    ff = arch.moe_d_ff or arch.d_ff
+    router = 8 * T * d + 8 * d * E + 4 * T * E
+    if impl == "dense_einsum":
+        out = (router + 4 * E + T * E + 2 * T * d + 4 * E * d * ff
+               + 12 * E * T * ff + 4 * T * E + 4 * E * T * d)
+        normed_kept = True
+    elif impl == "gshard_einsum":
+        S = T / seqs
+        C = _capacity(int(S), E, k, arch.capacity_factor)
+        R = seqs * C
+        route = k * 8 * T + 8 * (k - 1) * T * E + 4 * k * T * E * C
+        out = (router + 4 * seqs * E + route + 2 * T * E * C + 2 * E * R * d
+               + 12 * E * R * ff + 8 * T * E * C + 8 * E * R * d)
+        normed_kept = False
+    else:
+        raise ValueError(f"moe_impl {impl!r} has no saved-bytes model")
+    if arch.n_shared_experts:
+        out += 12 * T * ff * arch.n_shared_experts \
+            + (0 if normed_kept else 2 * T * d)
+    return out
+
+
+def eager_layer_saved_bytes(arch, tokens: float, heads: int, kv_heads: int,
+                            remat: str, *, seqs: float = 1, ffn: str = "mlp",
+                            ssd_chunk: int = 256) -> float:
+    """Bytes eager autograd keeps for one layer between its forward and
+    its backward, under ``remat`` (the port's ``models.lm._block_fwd`` as
+    PyTorch records it, T = ``tokens`` over ``seqs`` sequences); ``ffn``
+    is the layer's FFN: ``mlp`` (dense), ``none`` (the SSM family) or the
+    MoE path ``dense_einsum`` / ``gshard_einsum``:
+
+    * ``none``: the pre-mixer fp32 RMS norm (:func:`_norm_bytes`) and
+      its bf16 normed output (2 T d, which the projections keep); with
+      attention, the q/k norms over (H + K) hd and their normed outputs,
+      RoPE's fp32 sin and cos (T x hd/2 each, for q and for k), flash q,
+      k, v, o (bf16) and the fp32 log-sum-exp (4 T H); with an SSM, the
+      mamba2 mixer (:func:`_ssm_saved_bytes`; a hybrid keeps both
+      paths); then the FFN's norm and, for the gated FFN, its normed
+      input, bf16 gate/up product (4 T F), the fp32 gate (4 T F), the
+      bf16 SiLU (2 T F) and the bf16 product (2 T F), or the MoE FFN
+      (:func:`_moe_saved_bytes`);
     * ``full``: the layer's input alone (2 T d).
     """
     T, d, hd = tokens, arch.d_model, arch.hd
-    F = arch.d_ff or arch.d_inner
     if remat == "full":
         return 2 * T * d
     if remat != "none":
         raise ValueError(f"remat policy {remat!r} not in {REMAT_LADDER}")
-    norm = 10 * T * d + 4 * T + 4 * d          # fp32 in and out, rsqrt,
-    qk_norm = (8 * T * (heads + kv_heads) * hd  # scale; bf16 normed input
-               + 4 * T * (heads + kv_heads) + 8 * hd) if arch.qk_norm else 0
-    rope = 8 * T * hd if arch.rope_theta > 0 else 0
-    flash = 4 * T * (heads + kv_heads) * hd + 4 * T * heads
-    ffn = 12 * T * F
-    return 2 * norm + qk_norm + rope + flash + ffn
+    out = _norm_bytes(T, d) + 2 * T * d
+    if arch.has_attention:
+        if arch.qk_norm:                       # fp32 in and out, rsqrt,
+            out += (8 * T * (heads + kv_heads) * hd   # scale; normed out
+                    + 4 * T * (heads + kv_heads) + 8 * hd)
+        if arch.rope_theta > 0:
+            out += 8 * T * hd
+        out += 4 * T * (heads + kv_heads) * hd + 4 * T * heads
+    if arch.has_ssm:
+        out += _ssm_saved_bytes(arch, T, seqs, ssd_chunk)
+    if ffn == "mlp":
+        out += _norm_bytes(T, d) + 2 * T * d + 12 * T * (arch.d_ff
+                                                         or arch.d_inner)
+    elif ffn != "none":
+        out += _norm_bytes(T, d) + _moe_saved_bytes(arch, T, seqs, ffn)
+    return out
+
+
+def layer_group_ffns(arch, moe_impl: str = "") -> Tuple[str, ...]:
+    """The FFN of each layer in one step of the training loop
+    (``models.lm.layer_groups``): a super-block's dense and MoE layer,
+    else one layer's (``none`` in the SSM family, ``moe_impl`` in an MoE
+    arch, ``mlp`` otherwise)."""
+    if arch.is_moe and arch.moe_interleave > 1:
+        return ("mlp", moe_impl)
+    if arch.family == "ssm":
+        return ("none",)
+    return (moe_impl,) if arch.is_moe else ("mlp",)
 
 
 def eager_train_step_memory(arch, *, tokens: float, heads: int,
                             kv_heads: int, vocab: int, state_bytes: float,
                             param_bytes: float, largest_stacked_bytes: float,
                             embed_bytes: float, remat: str,
-                            microbatches: int = 1) -> Dict[str, float]:
+                            microbatches: int = 1, seqs: float = 1,
+                            moe_impl: str = "", ssd_chunk: int = 256
+                            ) -> Dict[str, float]:
     """The peak bytes of one eager train step on one card
     (``core.passes.lowering.lower_train_step``: autograd through
     ``models.lm.train_loss``, then AdamW in place), by part:
@@ -679,8 +775,11 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
       (4 bytes a parameter on top of a microbatch's);
     * ``saved``: what the layers keep for the backward
       (:func:`eager_layer_saved_bytes` per layer, ``T = tokens /
-      microbatches``), plus, under remat, the one layer recomputed in the
-      backward, and the final norm's 10 T d;
+      microbatches`` over ``seqs / microbatches`` sequences, each layer's
+      FFN by :func:`layer_group_ffns`; under remat the layer input of
+      each step of the loop, a super-block's for both its layers), plus,
+      under remat, the one step recomputed in the backward, and the
+      final norm's 10 T d;
     * ``loss``: the logits' region as the backward starts: the fp32
       logits the log-sum-exp keeps and four fp32 T x V temporaries of the
       loss's backward (its exp, the product, the gather's scatter and
@@ -697,10 +796,16 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
     microbatches) and the end (``grads`` and ``tail``)."""
     nmicro = max(microbatches, 1)
     T = tokens / nmicro
-    layer = eager_layer_saved_bytes(arch, T, heads, kv_heads, remat)
-    saved = arch.n_layers * layer
-    if remat != "none":
-        saved += eager_layer_saved_bytes(arch, T, heads, kv_heads, "none")
+    ffns = layer_group_ffns(arch, moe_impl)
+    group = sum(eager_layer_saved_bytes(
+        arch, T, heads, kv_heads, "none", seqs=seqs / nmicro, ffn=f,
+        ssd_chunk=ssd_chunk) for f in ffns)
+    steps = arch.n_layers // len(ffns)
+    if remat == "none":
+        saved = steps * group
+    else:
+        saved = steps * eager_layer_saved_bytes(arch, T, heads, kv_heads,
+                                                remat) + group
     saved += 10 * T * arch.d_model
     loss = 20 * T * vocab
     sum32 = 2 * param_bytes if nmicro > 1 else 0.0

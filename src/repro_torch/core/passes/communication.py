@@ -17,12 +17,27 @@ TPU re-targeting — everything that moves bytes between memories/chips:
 
 from __future__ import annotations
 
+from typing import Tuple
+
 from repro_torch.core.costmodel import (REMAT_LADDER, compressed_ratio,
                                         eager_train_step_memory,
                                         estimate_step)
 from repro_torch.core.ir import Role
 from repro_torch.core.passes import Pass, PassContext
 
+
+def moe_costs(arch, shape) -> Tuple[str, float, float]:
+    """The MoE path of a plan and the per-token-per-d FLOPs it weighs:
+    ``(impl, dense, dispatch)``.  Dense runs every expert's FFN (6 E ff);
+    dispatch the routed FFN (6 k ff) plus the two one-hot dispatch /
+    combine matmuls at 4 k cf T_group, quadratic in the routing group
+    (``route()`` groups per sequence)."""
+    ff = arch.moe_d_ff or arch.d_ff
+    k, cf, E = arch.experts_per_token, arch.capacity_factor, arch.n_experts
+    dense_cost = 6.0 * E * ff
+    disp_cost = 6.0 * k * ff + 4.0 * k * cf * shape.seq_len
+    impl = "dense_einsum" if dense_cost <= disp_cost else "gshard_einsum"
+    return impl, dense_cost, disp_cost
 
 class CommunicationPass(Pass):
     name = "communication"
@@ -260,19 +275,7 @@ class CommunicationPass(Pass):
 
         # ---- MoE execution strategy ---------------------------------------
         if ctx.arch.is_moe:
-            a = ctx.arch
-            ff = a.moe_d_ff or a.d_ff
-            k, cf, E = a.experts_per_token, a.capacity_factor, a.n_experts
-            # per-token-per-d FLOPs:
-            #   dense:    every expert's FFN                6*E*ff
-            #   dispatch: routed FFN 6*k*ff + two one-hot dispatch/combine
-            #             matmuls at 4*k*cf*T_group (quadratic in the
-            #             routing group size!)
-            t_group = ctx.shape.seq_len     # route() groups per sequence
-            dense_cost = 6.0 * E * ff
-            disp_cost = 6.0 * k * ff + 4.0 * k * cf * t_group
-            impl = ("dense_einsum" if dense_cost <= disp_cost
-                    else "gshard_einsum")
+            impl, dense_cost, disp_cost = moe_costs(ctx.arch, ctx.shape)
             plan.estimates["moe_impl"] = impl
             self.record(
                 ctx, "moe_impl", impl,
@@ -297,6 +300,8 @@ class CommunicationPass(Pass):
         fused activations to two shares apart; the eager step's gradient
         buffer and saved tensors belong to neither, so the two shares are
         held together."""
+        from repro_torch.kernels import ssd_scan as ssd
+
         plan, arch = ctx.plan, ctx.arch
         budget = self.step_budget_frac * ctx.target.hbm_bytes
         _, heads, _, kv_heads = plan.padded_sizes()
@@ -304,10 +309,15 @@ class CommunicationPass(Pass):
         params = ctx.ir.by_role(Role.PARAM, Role.EXPERT_PARAM)
         stacked = [t.nbytes for t in params
                    if t.logical_axes and t.logical_axes[0] == "layers"]
+        tokens = ctx.shape.tokens / self._dp(ctx)
         tried = {}
         for policy in REMAT_LADDER:
             tried[policy] = eager_train_step_memory(
-                arch, tokens=ctx.shape.tokens / self._dp(ctx),
+                arch, tokens=tokens, seqs=tokens / ctx.shape.seq_len,
+                moe_impl=(moe_costs(arch, ctx.shape)[0] if arch.is_moe
+                          else ""),
+                ssd_chunk=(ssd.cuda_chunk(arch.ssm_head_dim, arch.ssm_state)
+                           or ssd.DEFAULT_CHUNK),
                 heads=heads, kv_heads=kv_heads,
                 vocab=plan.padded_sizes()[0] or arch.vocab_size,
                 state_bytes=plan.estimates["persistent_bytes_per_dev"],

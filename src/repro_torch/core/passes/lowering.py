@@ -121,7 +121,7 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
             "lower_train_step: the plan compresses gradients (int8 + error "
             "feedback); the port's compressed reduction waits for the "
             "multi-GPU slice (ROADMAP item 10)")
-    lm.check_trainable(arch)
+    lm.check_supported(arch)
     cfg = build_run_cfg(plan, arch)
     opt_cfg = opt_cfg or adamw.OptConfig.from_plan(plan)
     nmicro = max(plan.comm.microbatches, 1)

@@ -264,9 +264,9 @@ class LocalPartitioningPass(Pass):
                     "recurrence (VPU) with state resident in VMEM")
 
     def _ssd_cuda(self, ctx: PassContext, budget: int) -> None:
-        """On a CUDA card the chunk is one the three-pass kernel is built
-        for: the largest whose chunk-scan pass (C, two cp.async B/x
-        stages, the score tile) fits the budget.  ``heads_block`` stays 1:
+        """On a CUDA card the chunk is :func:`ssd_scan.cuda_chunk`'s, where
+        the three-pass kernel's shared memory (C, two cp.async B/x stages,
+        the score tile) fits the budget.  ``heads_block`` stays 1:
         the kernel validates it but its grid gives every (batch, head,
         chunk) its own CTAs.  Widths the kernel is not built for get no
         tile and a logged reason."""
@@ -274,13 +274,12 @@ class LocalPartitioningPass(Pass):
 
         arch = ctx.arch
         P, N = arch.ssm_head_dim, arch.ssm_state
-        smem = ssd.smem_bytes(P, N)
-        if (P, N) not in ssd.KERNEL_WIDTHS or smem > budget:
+        smem, chunk = ssd.smem_bytes(P, N), ssd.cuda_chunk(P, N)
+        if chunk is None or smem > budget:
             self.record(ctx, "ssd_scan", "no kernel tile",
                         f"the CUDA kernel is built for (head_dim, state) in "
                         f"{ssd.KERNEL_WIDTHS}; this arch has ({P}, {N})")
             return
-        chunk = max(ssd.KERNEL_CHUNKS)
         bp = BlockPlan(
             kernel="ssd_scan",
             blocks={"chunk": chunk, "heads_block": 1, "head_dim": P,

@@ -25,8 +25,9 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES: Tuple[str, ...] = ("flash_attention", "flash_attention_bwd",
-                            "decode_attention", "ssd_scan", "tiled_matmul")
-HEADERS: Tuple[str, ...] = ("common.cuh", "hopper.cuh")
+                            "decode_attention", "ssd_scan", "ssd_scan_bwd",
+                            "tiled_matmul")
+HEADERS: Tuple[str, ...] = ("common.cuh", "hopper.cuh", "ssd_common.cuh")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
@@ -190,10 +191,14 @@ _SIGNATURES = {
                              _I, _I, _I, _F, _I, _P],
     },
     "ssd_scan": {
-        # x, dt, A, Bm, Cm, init, y, fin, ws, B, S, H, P, G, N, chunk,
-        # heads_block, no_carry, stream
-        "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _P],
+        # x, dt, A, Bm, Cm, init, y, fin, states, ws, B, S, H, P, G, N,
+        # chunk, heads_block, no_carry, stream
+        "ssd_scan": [_P] * 10 + [_I] * 9 + [_P],
+    },
+    "ssd_scan_bwd": {
+        # x, dt, A, Bm, Cm, y, states, fin, dy, dfin, dx, ddt, dA, dB, dC,
+        # dinit, ws, B, S, H, P, G, N, chunk, no_carry, skip_tile, stream
+        "ssd_scan_bwd": [_P] * 17 + [_I] * 9 + [_P],
     },
     "tiled_matmul": {
         # a, b, out, M, K, N, bm, bk, bn, fp32, stream

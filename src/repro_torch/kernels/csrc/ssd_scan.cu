@@ -12,9 +12,10 @@
 //         + exp(cs[q]) C[q].state^T                         (carried in)
 //   state = exp(cs[Q-1]) state + sum_k (x[k] dt[k] exp(cs[Q-1]-cs[k]))^T B[k]
 // from fp32 inputs, decays and workspaces, every product summed in fp64
-// on the tensor cores (below).  Every decay is exp of a difference <= 0
-// (A < 0, dt >= 0): never exp(cs[q]) * exp(-cs[k]), which overflows once cs
-// reaches -88 (A down to -16 at dt ~ 0.13 gets there within one chunk).
+// on the tensor cores (ssd_common.cuh).  Every decay is exp of a
+// difference <= 0 (A < 0, dt >= 0): never exp(cs[q]) * exp(-cs[k]), which
+// overflows once cs reaches -88 (A down to -16 at dt ~ 0.13 gets there
+// within one chunk).
 //
 // Supersets of the Pallas contract: any S (rows past S read as dt = 0,
 // x = 0, which is exactly the reference's zero padding, and write
@@ -34,12 +35,13 @@
 // The design runs the chunks of one (batch, head) on different SMs, in the
 // three passes of the SSD formulation, each its own kernel on the stream:
 //   1. chunk state, grid B * H * nc: the chunk's cumsum and its local end
-//      state sum_k (x dt exp(cs[Q-1] - cs))^T B, to an fp32 workspace
+//      state sum_k (x dt exp(cs[Q-1] - cs))^T B, to the fp32 chunk states
 //      (B, nc, H, N, P) (transposed, so that pass 3 reads it as it reads
-//      x), and its total decay log cs[Q-1] to (B, H, nc).  The chunk's
-//      raw causal score tiles C.B^T depend on the group, not the head, so
-//      the group's heads share them out and each is computed once, in
-//      fp64 (below), to (B, G, nc, pairs, 64, 64);
+//      x; the caller keeps them for the backward), and its total decay
+//      log cs[Q-1] to (B, H, nc).  The chunk's raw causal score tiles
+//      C.B^T depend on the group, not the head, so the group's heads
+//      share them out and each is computed once, in fp64, to (B, G, nc,
+//      pairs, 64, 64);
 //   2. state passing, one thread per (batch, head, p, n), serial over the
 //      nc chunks only: overwrites each chunk's local state with the state
 //      carried into it, and writes the final state;
@@ -59,19 +61,17 @@
 // conflict-free (C, and B where it is read transposed, padded by 4
 // floats; x, the state, and B where it is read row-wise, by 8); passes 1
 // and 3 each fit two CTAs an SM.  Every product, pass 1's state sum
-// included, runs in fp64 (below).  Causal tiles above the diagonal are
+// included, runs in fp64.  Causal tiles above the diagonal are
 // never computed, and query tiles wholly past S exit at once.
 // heads_block (the plan's heads per CTA on the TPU grid) is still taken
 // and validated, but the grid no longer uses it: every CTA owns one
 // (batch, head, chunk).
 
-#include "common.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
-constexpr int kT = 64;           // rows per staged sub-tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kMaxChunk = 256;
+using namespace repro::ssd;
 
 template <int P, int N>
 struct Layout {
@@ -96,98 +96,6 @@ struct Layout {
 // pair (qi, kj), kj <= qi, is number qi (qi + 1) / 2 + kj.
 __host__ __device__ __forceinline__ int n_pairs(int chunk) {
   return (chunk / kT) * (chunk / kT + 1) / 2;
-}
-
-// Start copying rows [0, valid) of a (ROWS, W) tile whose rows lie
-// `stride` floats apart in global memory into shared memory of row pitch
-// `pitch`; rows at or past `valid` are zero-filled (never read).
-// W % 4 == 0.
-template <int W, int ROWS = kT>
-__device__ __forceinline__ void stage_async(float* dst, int pitch,
-                                            const float* src, size_t stride,
-                                            int valid) {
-  constexpr int kV = W / 4;
-  for (int i = threadIdx.x; i < ROWS * kV; i += kThreads) {
-    const int r = i / kV, c = (i % kV) * 4;
-    const bool ok = r < valid;
-    repro::cp_async16(dst + r * pitch + c, ok ? src + r * stride + c : src,
-                      ok);
-  }
-}
-
-// ---------------------------------------------------------------------
-// fp64 on the tensor cores: mma.sync m8n8k4 (DMMA) on fp64 operands, each
-// widened exactly from its fp32 value, so every product is exact and the
-// sum rounds in fp64.  A row whose terms cancel to ~1e-4 of their size
-// thus keeps its digits, where the tensor cores' fp32 accumulation
-// (TF32 or 3xTF32 products) keeps those of the largest term only.  Lane
-// (g, t) = (lane / 4, lane % 4) holds A (8 x 4) at (g, t), B (4 x 8) at
-// (t, g), and C (8 x 8) at (g, 2t), (g, 2t + 1).  A warp's 16 x 8 output
-// tile is two of them: acc[0..1] at row g, acc[2..3] at row g + 8.
-// ---------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a,
-                                        double b) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d0), "+d"(d1)
-      : "d"(a), "d"(b));
-}
-
-// One warp: acc[j] (16 rows x 8 columns, j < NT) += A . B over K (a
-// multiple of 4), in fp64.  A is row-major (rows, K) at `a` (pitch ap,
-// the warp's first row), or with AT the (K, rows) transpose of that; B is
-// row-major (K, n) at `b` (pitch bp, the warp's first column), or with BT
-// the (n, K) transpose of that.
-template <int NT, bool BT, bool AT = false>
-__device__ __forceinline__ void warp_mma(double (&acc)[NT][4], const float* a,
-                                         int ap, const float* b, int bp,
-                                         int K) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  auto at = [&](int i, int k) { return AT ? a[k * ap + i] : a[i * ap + k]; };
-#pragma unroll 4
-  for (int k = t; k < K; k += 4) {
-    const double a0 = at(g, k), a1 = at(g + 8, k);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const double bv = BT ? b[(8 * j + g) * bp + k] : b[k * bp + 8 * j + g];
-      mma_f64(acc[j][0], acc[j][1], a0, bv);
-      mma_f64(acc[j][2], acc[j][3], a1, bv);
-    }
-  }
-}
-
-// dt of the chunk's rows and its inclusive cumsum of dt * a, by warp 0;
-// rows at or past `rows` read dt = 0, so cum stays at the last live row.
-__device__ __forceinline__ void chunk_cumsum(float* cum, float* dts,
-                                             const float* dtb, size_t dstride,
-                                             float a, int chunk, int rows) {
-  const int tid = threadIdx.x;
-  if (tid >= 32) return;
-  const int per = chunk / 32;
-  float v[kMaxChunk / 32];
-  float run = 0.f;
-#pragma unroll
-  for (int e = 0; e < kMaxChunk / 32; ++e) {
-    if (e < per) {
-      const int r = tid * per + e;
-      const float d = r < rows ? dtb[size_t(r) * dstride] : 0.f;
-      dts[r] = d;
-      run += d * a;
-      v[e] = run;
-    }
-  }
-  float tot = run;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, tot, o);
-    if (tid >= o) tot += t;
-  }
-  const float before = tot - run;
-#pragma unroll
-  for (int e = 0; e < kMaxChunk / 32; ++e)
-    if (e < per) cum[tid * per + e] = v[e] + before;
 }
 
 // Pass 1: the local end state of chunk c of (b, h), and its decay log.
@@ -316,8 +224,8 @@ ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
 }
 
 // Pass 2: one thread per (b, h, n, p) element walks the chunks in order,
-// replacing each chunk's local state with the state carried into it.  The
-// workspace holds states as (N, P); init and fin are (P, N).  Loads run
+// replacing each chunk's local state with the state carried into it.
+// states are (N, P); init and fin are (P, N).  Loads run
 // kBatch chunks ahead of the dependent chain.  no_carry is a planted fault
 // for the checks: each chunk after the first starts from a zero state.
 constexpr int kBatch = 8;
@@ -463,21 +371,14 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, size_t bytes) {
-  return cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-}
-
 template <int P, int N>
 int launch(const float* x, const float* dt, const float* A, const float* Bm,
            const float* Cm, const float* init, float* y, float* fin,
-           float* ws, int Bt, int S, int H, int G, int chunk, int no_carry,
-           cudaStream_t stream) {
+           float* states, float* ws, int Bt, int S, int H, int G, int chunk,
+           int no_carry, cudaStream_t stream) {
   using L = Layout<P, N>;
   const int nc = (S + chunk - 1) / chunk;
-  float* states = ws;                                 // (B, nc, H, N, P)
-  float* cs_last = states + size_t(Bt) * nc * H * P * N;  // (B, H, nc)
+  float* cs_last = ws;                                // (B, H, nc)
   // (B, G, nc, pairs, 64, 64), 16-byte aligned for cp.async
   float* scores = cs_last + ((size_t(Bt) * H * nc + 3) & ~size_t(3));
   cudaError_t err = allow_smem(ssd_chunk_state<P, N>, L::kStateBytes);
@@ -503,17 +404,19 @@ extern "C" {
 
 // x (B, S, H, P); dt (B, S, H); A (H,); Bm, Cm (B, S, G, N); init
 // (B, H, P, N) or null for a zero state; y (B, S, H, P); fin (B, H, P, N);
-// ws: fp32 workspace, nc = ceil(S / chunk): B * nc * H * P * N floats
-// of chunk states, B * H * nc decay logs rounded up to a multiple of 4,
-// then B * G * nc * T (T + 1) / 2 score tiles of 64 x 64, T = chunk / 64.  All fp32, contiguous, 16-byte aligned.  chunk in {64,
-// 128, 256}; heads_block divides H (validated, not used by the grid); G
-// divides H.  no_carry: 0, or a planted fault (no state passed between
-// chunks).  Three launches on `stream`.  Returns a cudaError_t (0 =
-// launched).
+// states (B, nc, H, N, P), nc = ceil(S / chunk): the state carried into
+// each chunk, transposed (the backward reads them); ws: fp32 workspace,
+// B * H * nc decay logs rounded up to a multiple of 4, then B * G * nc *
+// T (T + 1) / 2 score tiles of 64 x 64, T = chunk / 64.  All fp32,
+// contiguous, 16-byte aligned.  chunk in {64, 128, 256}; heads_block
+// divides H (validated, not used by the grid); G divides H.  no_carry:
+// 0, or a planted fault (no state passed between chunks).  Three
+// launches on `stream`.  Returns a cudaError_t (0 = launched).
 int ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
-             const void* Cm, const void* init, void* y, void* fin, void* ws,
-             int B, int S, int H, int P, int G, int N, int chunk,
-             int heads_block, int no_carry, void* stream) {
+             const void* Cm, const void* init, void* y, void* fin,
+             void* states, void* ws, int B, int S, int H, int P, int G,
+             int N, int chunk, int heads_block, int no_carry,
+             void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G || heads_block <= 0 ||
       H % heads_block || chunk % kT || chunk > kMaxChunk)
     return int(cudaErrorInvalidValue);
@@ -525,12 +428,13 @@ int ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
   const auto* inf = static_cast<const float*>(init);
   auto* yf = static_cast<float*>(y);
   auto* ff = static_cast<float*>(fin);
+  auto* sf = static_cast<float*>(states);
   auto* wf = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_SSD_CASE(PP, NN)                                              \
   if (P == PP && N == NN)                                                   \
-    return launch<PP, NN>(xf, df, af, bf, cf, inf, yf, ff, wf, B, S, H, G,  \
-                          chunk, no_carry, s);
+    return launch<PP, NN>(xf, df, af, bf, cf, inf, yf, ff, sf, wf, B, S, H, \
+                          G, chunk, no_carry, s);
   REPRO_SSD_CASE(64, 128)          // mamba2-2.7b
   REPRO_SSD_CASE(32, 16)           // mamba2, reduced
   REPRO_SSD_CASE(64, 16)           // hymba-1.5b

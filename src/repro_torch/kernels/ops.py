@@ -43,7 +43,7 @@ def _use_kernel(name: str, t: torch.Tensor, mode: str) -> bool:
 
 def _refuse_grad(name: str, *tensors) -> None:
     """Raise where autograd would record a call of a kernel that has no
-    backward yet: grad mode on and a tensor input that requires grad.
+    backward: grad mode on and a tensor input that requires grad.
     The kernel writes its CUDA output through ctypes, so that output
     carries no ``grad_fn`` and a loss through it would train nothing
     upstream, silently; the plain version would differentiate, so both
@@ -52,9 +52,10 @@ def _refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the kernel has no backward yet (ROADMAP item 8b / "
-            "K6), so its output would carry no gradient; call it under "
-            "torch.no_grad() or with inputs that do not require grad")
+            f"{name}: the kernel has no backward (serving and the "
+            "plan-driven matmul path need none), so its output would carry "
+            "no gradient; call it under torch.no_grad() or with inputs that "
+            "do not require grad")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -114,10 +115,19 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: Optional[int] = None,
     """Mamba2 SSD scan over x ``(B, S, H, P)`` with B/C ``(B, S, G,
     N)``: ``(y, final_state)``.  ``chunk``/``heads_block`` are the
     plan's ``ssd_scan`` BlockPlan (the plain version takes the chunk
-    only: heads are one batched product there).  Raises under autograd
-    (:func:`_refuse_grad`)."""
-    _refuse_grad("ssd_scan", x, dt, A, Bm, Cm, initial_state)
-    if not _use_kernel("ssd_scan", x, mode):
+    only: heads are one batched product there).  Where autograd records
+    (grad mode on and an input requiring grad: the training path) the
+    call goes through :class:`repro_torch.kernels.ssd_scan.SSDScan`: the
+    forward and backward kernels on a CUDA tensor, the plain forward and
+    plain backward on a CPU one; otherwise (serving) the forward
+    alone."""
+    kernel = _use_kernel("ssd_scan", x, mode)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, initial_state)):
+        return _ssd.SSDScan.apply(x, dt, A, Bm, Cm, initial_state, chunk,
+                                  heads_block)
+    if not kernel:
         return _ssd.ssd_scan_plain(
             x, dt, A, Bm, Cm, chunk=chunk or _ssd.DEFAULT_CHUNK,
             initial_state=initial_state)
@@ -156,6 +166,7 @@ def launch_counts() -> Dict[str, int]:
             "paged_decode_attention": _dec.paged_launches,
             "decode_attention": _dec.dense_launches,
             "ssd_scan": _ssd.launches,
+            "ssd_scan_bwd": _ssd.bwd_launches,
             "tiled_matmul": _mm.launches}
 
 
@@ -166,4 +177,5 @@ def reset_launch_counts() -> None:
     _dec.paged_launches = 0
     _dec.dense_launches = 0
     _ssd.launches = 0
+    _ssd.bwd_launches = 0
     _mm.launches = 0

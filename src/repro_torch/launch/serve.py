@@ -208,7 +208,8 @@ def _profiler(device):
 #: kernel-name fragments of each group in the device-time breakdown
 _GROUPS = (("port kernels (attention, SSD scan)",
             ("flash_fwd_kernel", "flash_bwd_", "decode_kernel",
-             "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")),
+             "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan",
+             "ssd_bwd_")),
            ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "splitK")),
            ("copy", ("Memcpy", "Memset")))
 

@@ -8,18 +8,22 @@ allocated memory beside the plan's estimate of the step's peak (its
 ``step_peak_bytes``: state, gradients, saved activations, transients),
 with their ratio.
 
-The model is the arch's reduced config, with its published head_dim
-and GQA group (the attention kernels are instantiated for those),
-unless ``--full`` asks for its published widths and depth;
-``--n-layers`` cuts the depth.  Weights are random, from ``--seed``.
-Entry points run on ``cuda``; ``--device cpu`` runs the kernels' plain
-versions.  ``--profile`` traces the steps after the first with
-``torch.profiler`` and prints the device time by kernel and by group
-(the serve launcher's report).
+``--arch`` takes every family the port serves: dense GQA decoders
+(qwen3-8b), MoE (granite-moe-1b-a400m, its router's aux loss in the
+loss), SSM (mamba2-2.7b) and hybrid (hymba-1.5b), the SSD scan through
+its forward and backward kernels.  The model is the arch's reduced
+config, with its published head_dim and GQA group (the attention
+kernels are instantiated for those), unless ``--full`` asks for its
+published widths and depth; ``--n-layers`` cuts the depth.  Weights are
+random, from ``--seed``.  Entry points run on ``cuda``; ``--device
+cpu`` runs the kernels' plain versions.  ``--profile`` traces the
+steps after the first with ``torch.profiler`` and prints the device
+time by kernel and by group (the serve launcher's report).
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.train
       PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
           --full --seq-len 2048 --batch 1 --steps 6
+      (--arch granite-moe-1b-a400m | mamba2-2.7b | hymba-1.5b likewise)
 """
 
 from __future__ import annotations

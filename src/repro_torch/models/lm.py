@@ -24,13 +24,15 @@ the CPU.  Projections, the FFN and the MoE products
 (:mod:`repro_torch.models.moe`) are ``torch.matmul`` / ``torch.bmm``
 in bf16, as the JAX package left them to XLA.
 
-Training (:func:`forward`, :func:`train_loss`) runs the dense GQA
-decoders: the same layer pieces as prefill (``_qkv``, ``_ffn_fwd``,
+Training (:func:`forward`, :func:`train_loss`) runs every family
+prefill serves: the same layer pieces (``_qkv``, ``_ffn``,
 ``_residual``), attention through the flash kernels' autograd function
-(forward and backward kernels on the card), each layer wrapped in the
-plan's remat policy (:func:`_remat`).  The stacked parameter leaves are
-split into layers by one ``unbind`` each, so the backward stacks each
-leaf's gradient once (a per-layer ``leaf[i]`` would allocate a whole
+and the SSD scan through the scan kernels' (forward and backward kernels
+on the card), the MoE FFN's router aux loss summed over layers, each
+layer (a super-block: both its layers) wrapped in the plan's remat
+policy (:func:`_remat`).  The stacked parameter leaves are split into
+layers by one ``unbind`` each, so the backward stacks each leaf's
+gradient once (a per-layer ``leaf[i]`` would allocate a whole
 zero-filled stack per layer in its backward).
 
 Unlike the JAX functions, which returned new arrays, the session cache
@@ -82,11 +84,9 @@ class RunCfg:
     ``kernels`` is the plan's ``use_pallas`` mode.  ``remat`` is the
     communication pass's remat policy (``none``, ``dots`` /
     ``dots_saveable``, ``full``).  The JAX package's mesh and sharding
-    fields are gone (the port runs on one card), and so are the knobs
-    of paths the port does not have yet (the MoE aux-loss weight waits
-    for MoE training).  The padded vocab needs no field: the logits
-    take their width from ``lm_head`` and the loss masks past
-    ``arch.vocab_size``.
+    fields are gone (the port runs on one card).  The padded vocab needs
+    no field: the logits take their width from ``lm_head`` and the loss
+    masks past ``arch.vocab_size``.
     """
 
     kv_heads_padded: int = 0       # 0 -> arch.n_kv_heads
@@ -339,8 +339,10 @@ def layer_params(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 
 def _window_schedule(arch: ArchConfig) -> List[int]:
-    """Per-layer attention window (0 = global)."""
-    return [0 if g else arch.window for g in global_layer_mask(arch)]
+    """Per-layer attention window (0 = global; 0 in every layer of an
+    arch without attention)."""
+    mask = global_layer_mask(arch) or (True,) * arch.n_layers
+    return [0 if g else arch.window for g in mask]
 
 
 def _ssm_dims(arch: ArchConfig, sp: SSMParams) -> SSMDims:
@@ -397,27 +399,29 @@ def _residual(x: torch.Tensor, outs: List[torch.Tensor]) -> torch.Tensor:
 
 
 def _ffn_fwd(arch: ArchConfig, grp, x: torch.Tensor,
-             moe_impl: str = "gshard_einsum") -> torch.Tensor:
+             moe_impl: str = "gshard_einsum"
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Pre-norm FFN: SiLU-gated, a squared ReLU of one matrix
     (minitron-8b), or, in a layer holding ``moe``, the MoE FFN on the
-    path ``moe_impl`` (``src/repro/models/lm.py:382-415``; its aux loss
-    is a training term, dropped here)."""
+    path ``moe_impl`` (``src/repro/models/lm.py:382-415``).  Returns
+    ``(x + FFN(x), aux)``, ``aux`` the router's load-balance loss (fp32)
+    of an MoE FFN, ``None`` for a dense one."""
     h = rms_norm(x, grp["mlp_norm"], arch.norm_eps)
     if "moe" in grp:
         m = grp["moe"]
-        y, _ = moe_mod.moe_forward(
+        y, aux = moe_mod.moe_forward(
             moe_impl, h, MoEParams(m["router"], m["wi"], m["wo"],
                                    m.get("shared_wi"), m.get("shared_wo")),
             top_k=arch.experts_per_token,
             capacity_factor=arch.capacity_factor)
-        return x + y
+        return x + y, aux
     z = h @ grp["mlp"]["wi"]
     if arch.gated_mlp:
         g, u = z.chunk(2, dim=-1)
         z = F.silu(g.float()).to(x.dtype) * u
     else:
         z = torch.square(F.relu(z.float())).to(x.dtype)
-    return x + z @ grp["mlp"]["wo"]
+    return x + z @ grp["mlp"]["wo"], None
 
 
 # =====================================================================
@@ -425,18 +429,8 @@ def _ffn_fwd(arch: ArchConfig, grp, x: torch.Tensor,
 # =====================================================================
 
 REMAT_POLICIES = ("none", "dots", "dots_saveable", "full")
-
-
-def check_trainable(arch: ArchConfig) -> None:
-    """Raise for an architecture the port cannot train yet: training
-    runs the dense GQA decoders.  An SSM's training needs a backward of
-    the SSD scan, an MoE's its router aux loss and expert gradients (both
-    open in ROADMAP)."""
-    check_supported(arch)
-    if arch.has_ssm or arch.is_moe:
-        raise NotImplementedError(
-            f"{arch.name}: the port trains dense GQA decoders; "
-            f"{'SSM' if arch.has_ssm else 'MoE'} training is not ported yet")
+#: the MoE router's load-balance loss's weight in :func:`train_loss`
+AUX_LOSS_WEIGHT = 0.01   # src/repro/models/lm.py:72
 
 
 def _unbind_layers(blocks: Dict[str, Any], n_layers: int
@@ -453,16 +447,43 @@ def _unbind_layers(blocks: Dict[str, Any], n_layers: int
 
 
 def _block_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
-               positions: torch.Tensor, window: int) -> torch.Tensor:
-    """One layer of the training forward: attention over the whole
-    sequence, then the FFN (``src/repro/models/lm.py:418-422``)."""
+               positions: torch.Tensor, window: int
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer of the training forward (``src/repro/models/lm.py
+    :353-422``): the mixer, attention over the whole sequence and/or the
+    SSD mixer, their mean added to the residual, then the FFN (none in
+    the SSM family).  Returns ``(x, aux)``, ``aux`` the MoE router's
+    loss or ``None``."""
     h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
-    ap, (q, k, v) = _qkv(arch, grp, h, positions)
-    ctx = attn_mod.attention_chunked(q, k, v, causal=arch.causal,
-                                     window=window, tiles=cfg.flash_tiles,
-                                     mode=cfg.kernels)
-    x = _residual(x, [ctx.reshape(*x.shape[:2], -1) @ ap.wo])
+    outs = []
+    if "attn" in grp:
+        ap, (q, k, v) = _qkv(arch, grp, h, positions)
+        ctx = attn_mod.attention_chunked(q, k, v, causal=arch.causal,
+                                         window=window,
+                                         tiles=cfg.flash_tiles,
+                                         mode=cfg.kernels)
+        outs.append(ctx.reshape(*x.shape[:2], -1) @ ap.wo)
+    if "ssm" in grp:
+        sp = SSMParams(**grp["ssm"])
+        outs.append(ssm_mod.ssm_forward(
+            h, sp, _ssm_dims(arch, sp), cfg.ssd_chunk,
+            heads_block=cfg.ssd_heads_block, mode=cfg.kernels))
+    x = _residual(x, outs)
+    if arch.family == "ssm":
+        return x, None
     return _ffn_fwd(arch, grp, x, cfg.moe_impl)
+
+
+def _group_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
+               positions: torch.Tensor, windows: Tuple[int, ...]
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One step of the layer loop: a layer, or a super-block's dense
+    then MoE layer (``src/repro/models/lm.py:455-466``); their aux
+    losses summed."""
+    if "dense" not in grp:
+        return _block_fwd(arch, cfg, grp, x, positions, windows[0])
+    x, _ = _block_fwd(arch, cfg, grp["dense"], x, positions, windows[0])
+    return _block_fwd(arch, cfg, grp["moe"], x, positions, windows[1])
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -500,36 +521,54 @@ def _remat(fn, policy: str):
     return wrapped
 
 
+def layer_groups(arch: ArchConfig, blocks: Dict[str, Any]
+                 ) -> List[Dict[str, Any]]:
+    """The training loop's steps: one layer's dict each, or, in a
+    super-block tree, ``{"dense": ..., "moe": ...}`` a super-block,
+    every stacked leaf split by one ``unbind``."""
+    if "dense" not in blocks:
+        return _unbind_layers(blocks, arch.n_layers)
+    Lg = arch.n_layers // 2
+    return [{"dense": d, "moe": m} for d, m in zip(
+        _unbind_layers(blocks["dense"], Lg),
+        _unbind_layers(blocks["moe"], Lg))]
+
+
 def forward(arch: ArchConfig, params, batch, cfg: RunCfg
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward: ``(hidden (B, S, d), aux_loss)``, the aux
-    loss 0 (dense layers) as the reference returns it
-    (``src/repro/models/lm.py:441-484``).  Each layer runs under the
-    plan's remat policy, with its window from the per-layer schedule."""
-    check_trainable(arch)
+    """Full-sequence forward: ``(hidden (B, S, d), aux_loss)``, the
+    aux loss the MoE layers' router losses summed (0 without one), as
+    the reference returns it (``src/repro/models/lm.py:441-484``).  Each
+    step of :func:`layer_groups` runs under the plan's remat policy, with
+    its windows from the per-layer schedule."""
+    check_supported(arch)
     x = _embed_in(arch, params, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     windows = _window_schedule(arch)
-    block = _remat(functools.partial(_block_fwd, arch, cfg), cfg.remat)
-    for i, grp in enumerate(_unbind_layers(params["blocks"],
-                                           arch.n_layers)):
-        x = block(grp, x, positions, windows[i])
+    groups = layer_groups(arch, params["blocks"])
+    g = arch.n_layers // len(groups)
+    block = _remat(functools.partial(_group_fwd, arch, cfg), cfg.remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j, grp in enumerate(groups):
+        x, a = block(grp, x, positions, tuple(windows[j * g:(j + 1) * g]))
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], arch.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def train_loss(arch: ArchConfig, params, batch, cfg: RunCfg):
     """Scalar loss of one batch (``tokens``, ``targets``, optional
-    ``mask``) and its metrics ``ce_loss``, ``aux_loss``, ``tokens``
-    (``src/repro/models/lm.py:487-497``).  The aux loss of the dense
-    layers the port trains is 0, so the loss is the cross-entropy."""
+    ``mask``), ``ce + AUX_LOSS_WEIGHT * aux``, and its metrics
+    ``ce_loss``, ``aux_loss``, ``tokens`` (``src/repro/models/lm.py
+    :487-497``)."""
     x, aux = forward(arch, params, batch, cfg)
     logits = _logits(arch, params, x)
     loss, n = cross_entropy_loss(logits, batch["targets"], batch.get("mask"),
                                  vocab_size=arch.vocab_size)
     metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": n}
-    return loss, metrics
+    return loss + AUX_LOSS_WEIGHT * aux, metrics
 
 
 # =====================================================================
@@ -749,7 +788,7 @@ def prefill(arch: ArchConfig, params, batch, cfg: RunCfg,
             outs.append(y)
         x = _residual(x, outs)
         if arch.family != "ssm":
-            x = _ffn_fwd(arch, grp, x, cfg.moe_impl)
+            x, _ = _ffn_fwd(arch, grp, x, cfg.moe_impl)
     x = rms_norm(x[:, -1:], params["final_norm"], arch.norm_eps)
     cache["pos"].fill_(S)
     return _logits(arch, params, x)[:, 0], cache
@@ -803,7 +842,7 @@ def prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg,
             torch.cat([pv.to(v.dtype), v], 1), causal=arch.causal,
             window=windows[i], tiles=cfg.flash_tiles, mode=cfg.kernels)
         x = x + ctx.reshape(B, T, -1) @ ap.wo
-        x = _ffn_fwd(arch, grp, x, cfg.moe_impl)
+        x, _ = _ffn_fwd(arch, grp, x, cfg.moe_impl)
         tail_k[i] = k
         tail_v[i] = v
     x = rms_norm(x[:, -1:], params["final_norm"], arch.norm_eps)
@@ -860,7 +899,7 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
             outs.append(y)
         x = _residual(x, outs)
         if arch.family != "ssm":
-            x = _ffn_fwd(arch, grp, x, cfg.moe_impl)
+            x, _ = _ffn_fwd(arch, grp, x, cfg.moe_impl)
     x = rms_norm(x, params["final_norm"], arch.norm_eps)
     cache["pos"] = cache_len
     return _logits(arch, params, x)[:, 0], cache

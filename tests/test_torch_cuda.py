@@ -41,6 +41,15 @@ launches are bitwise equal (no atomics).  One train step of the small
 model on the card is held against the CPU: loss, grad norm and every
 leaf's gradient within 2e-2.
 
+The SSD scan's backward (dx, ddt, dA, dB, dC and the initial state's
+gradient) is held per gradient row against the plain backward in fp64 at
+the forward's 1e-3, floored as the flash backward's rows are; its planted
+faults (the key side's diagonal query tile left out; no
+gradient passed between chunks) must fail that check by 5x, repeated
+launches are bitwise equal, and one train step of reduced mamba2, hymba
+and granite on the card is held against the CPU (loss and grad norm
+within 2e-2, one forward and one backward launch a layer).
+
 The tiled matmul (bf16 on the tensor cores, fp32 on the CUDA cores) is
 held per output row, rms-relative, at the JAX tests' tolerances: 2e-2 in
 bf16 (both sides sum exact bf16 products in fp32 and round once to bf16)
@@ -559,7 +568,7 @@ def test_wrappers_count_launches_and_refuse_what_the_kernels_do_not_take(dev):
                                    "flash_attention_bwd": 0,
                                    "paged_decode_attention": 1,
                                    "decode_attention": 1, "ssd_scan": 0,
-                                   "tiled_matmul": 0}
+                                   "ssd_scan_bwd": 0, "tiled_matmul": 0}
     with pytest.raises(RuntimeError, match="use_pallas='off'"):
         ops.flash_attention(q, k, k, mode="off")
     with pytest.raises(TypeError, match="bfloat16"):
@@ -1492,3 +1501,134 @@ def test_train_step_on_card_matches_cpu(dev, tmp_path):
     for a, b in zip(adamw.leaves(sg["opt"]["m"]), adamw.leaves(sc["opt"]["m"])):
         a, b = a.float().cpu(), b.float()
         assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+
+
+def _ssd_bwd_case(dev, seed, B, S, H, P, N, G, chunk, ends):
+    """The forward kernel's y, final state and chunk states on seeded
+    inputs, with gradients of y and (``ends``) of the final state and an
+    initial state."""
+    g = torch.Generator(dev).manual_seed(seed)
+    ins = ssd_inputs(g, B, S, H, P, G, N)
+    s0 = torch.randn((B, H, P, N), generator=g, device=dev) if ends else None
+    dy = torch.randn((B, S, H, P), generator=g, device=dev)
+    dfin = torch.randn((B, H, P, N), generator=g, device=dev) if ends \
+        else None
+    y, fin, states = tssd.ssd_scan(*ins, chunk=chunk, initial_state=s0,
+                                   return_states=True)
+    return ins, s0, dy, dfin, y, fin, states
+
+
+def _ssd_bwd_want(ins, s0, dy, dfin, chunk):
+    """The plain backward in fp64 on the fp64 forward."""
+    def f64(t):
+        return None if t is None else t.double()
+    y, fin, states = tssd.ssd_scan_plain(*map(f64, ins), chunk=chunk,
+                                         initial_state=f64(s0),
+                                         return_states=True)
+    return tssd.ssd_scan_bwd_plain(*map(f64, ins), y, states, fin, f64(dy),
+                                   f64(dfin), chunk=chunk,
+                                   initial_grad=s0 is not None)
+
+
+def _ssd_grad_err(got, want) -> float:
+    """The worst row of any gradient (dA as one row), floored as the
+    flash backward's rows are."""
+    return max(_grad_rel_err(a.reshape(-1, a.shape[-1]) if a.dim() > 1
+                             else a[None], b.reshape(-1, b.shape[-1])
+                             if b.dim() > 1 else b[None])
+               for a, b in zip(got, want) if b is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,chunk", [(2048, 256), (1000, 128), (321, 64),
+                                     (50, 64)])
+@pytest.mark.parametrize("P,N,H,G,ends", [(64, 128, 8, 1, False),
+                                          (32, 16, 8, 2, True),
+                                          (64, 16, 10, 1, True)])
+def test_ssd_bwd_kernel_matches_plain(dev, S, chunk, P, N, H, G, ends):
+    """Every gradient of the SSD backward kernel (x, dt, A, B, C and, with
+    an initial state, its gradient; from a gradient of the final state
+    or none) against the plain backward in fp64, row by row at the
+    forward's 1e-3: ragged S, one chunk or many, grouped B/C, each
+    (head_dim, state) the kernel is built for; repeated launches are
+    bitwise equal (no atomics)."""
+    ins, s0, dy, dfin, y, fin, states = _ssd_bwd_case(
+        dev, S + chunk + P + N, 2, S, H, P, N, G, chunk, ends)
+    want = _ssd_bwd_want(ins, s0, dy, dfin, chunk)
+    got = tssd.ssd_scan_bwd(*ins, y, states, fin, dy, dfin, chunk=chunk,
+                            initial_grad=ends)
+    again = tssd.ssd_scan_bwd(*ins, y, states, fin, dy, dfin, chunk=chunk,
+                              initial_grad=ends)
+    torch.cuda.synchronize()
+    assert (got[-1] is not None) == ends
+    assert _ssd_grad_err(got, want) <= SSD_TOL
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["skip_tile", "no_carry"])
+def test_ssd_bwd_check_rejects_planted_faults(dev, fault):
+    ins, s0, dy, dfin, y, fin, states = _ssd_bwd_case(
+        dev, 7, 1, 1024, 8, 64, 128, 1, 256, False)
+    want = _ssd_bwd_want(ins, s0, dy, dfin, 256)
+    bad = tssd.ssd_scan_bwd(*ins, y, states, fin, dy, chunk=256,
+                            **{fault: True})
+    assert _ssd_grad_err(bad, want) > 5 * SSD_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_autograd_counts_and_matches_the_plain_pair(dev):
+    """``ops.ssd_scan`` under autograd on the card: one forward and one
+    backward launch, the gradients those of the plain backward."""
+    g = torch.Generator(dev).manual_seed(9)
+    ins = ssd_inputs(g, 1, 600, 8, 32, 1, 16)
+    dy = torch.randn((1, 600, 8, 32), generator=g, device=dev)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    ops.reset_launch_counts()
+    y, _ = ops.ssd_scan(*leaves, chunk=256)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["ssd_scan"] == 1 and counts["ssd_scan_bwd"] == 1
+    assert _ssd_grad_err(got, _ssd_bwd_want(ins, None, dy, None, 256)) \
+        <= SSD_TOL
+    with pytest.raises(ValueError, match="runs on CUDA tensors"):
+        tssd.ssd_scan_bwd(*(t.cpu() for t in ins), y.cpu(), y.cpu(),
+                          y.cpu(), dy.cpu(), chunk=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "hymba-1.5b",
+                                  "granite-moe-1b-a400m"])
+def test_family_train_step_on_card_matches_cpu(dev, tmp_path, name):
+    """One train step of the reduced ``name`` through the kernels on the
+    card (the SSD scan's and flash's forward and backward) against the
+    plain versions on the CPU, from the same init and batch: loss and
+    grad norm within 2e-2, one forward and one backward launch a layer
+    of each kernel its layers run."""
+    from repro_torch.train import Trainer, TrainerConfig
+    arch = get_arch(name).reduced()
+    if arch.has_attention:
+        arch = dataclasses.replace(arch, head_dim=64)
+    shape = ShapeConfig("t", "train", 512, 2)
+    plan = specialize(arch, shape, mesh_shape=(1, 1), cache=False)
+    runs = {}
+    init = None
+    for d in (torch.device("cpu"), dev):
+        tr = Trainer(plan, None, TrainerConfig(
+            n_steps=1, ckpt_every=0, ckpt_dir=str(tmp_path / d.type)),
+            arch=arch, shape=shape, device=d)
+        if init is None:
+            init = tr.init_state(0)
+        ops.reset_launch_counts()
+        tr.fit(_clone(init))
+        runs[d.type] = (tr.history[0], ops.launch_counts())
+    (hc, _), (hg, counts) = runs["cpu"], runs["cuda"]
+    L_attn = arch.n_layers if arch.has_attention else 0
+    L_ssm = arch.n_layers if arch.has_ssm else 0
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == \
+        L_attn
+    assert counts["ssd_scan"] == counts["ssd_scan_bwd"] == L_ssm
+    for key in ("loss", "grad_norm"):
+        assert abs(hg[key] - hc[key]) <= 2e-2 * abs(hc[key])

@@ -1,14 +1,16 @@
 """The kernels without a backward refuse autograd, and serving still runs.
 
-``ops.decode_attention``, ``ops.paged_decode_attention``, ``ops.ssd_scan``
-and ``ops.matmul`` write their CUDA outputs through ctypes, so under
-autograd those outputs would carry no ``grad_fn`` and a loss through them
-would train nothing upstream (ROADMAP §3, F3).  Each entry raises when
-grad mode is on and a tensor input requires grad, on the CPU as on the
-card, and runs under ``torch.no_grad()``.  Serving calls them with grad
-mode on and parameters that do not require grad: the reduced qwen3 and
-mamba2 still prefill and decode, dense and paged, with every output
-free of autograd history.  All on the CPU (the plain versions).
+``ops.decode_attention``, ``ops.paged_decode_attention`` and
+``ops.matmul`` write their CUDA outputs through ctypes, so under autograd
+those outputs would carry no ``grad_fn`` and a loss through them would
+train nothing upstream (ROADMAP §3, F3).  Each entry raises when grad
+mode is on and a tensor input requires grad, on the CPU as on the card,
+and runs under ``torch.no_grad()``.  ``ops.ssd_scan`` has its backward
+(``SSDScan``): its case holds that gradients take that route.  Serving
+calls them with grad mode on and parameters that do not require grad:
+the reduced qwen3 and mamba2 still prefill and decode, dense and paged,
+with every output free of autograd history.  All on the CPU (the plain
+versions).
 """
 
 import dataclasses
@@ -58,11 +60,37 @@ ENTRIES = ["decode_attention", "paged_decode_attention", "ssd_scan",
            "matmul"]
 
 
+def _ssd_scan_routes_gradients_through_ssdscan():
+    """The SSD scan under autograd: its outputs carry ``SSDScan``'s
+    backward, whose gradient is the plain backward's; under
+    ``torch.no_grad()`` the forward alone."""
+    from repro_torch.kernels import ssd_scan as tssd
+    rng = np.random.default_rng(0)
+    ins = [_rnd(rng, 1, 16, 4, 8), _rnd(rng, 1, 16, 4).abs(),
+           -_rnd(rng, 4).abs(), _rnd(rng, 1, 16, 1, 4),
+           _rnd(rng, 1, 16, 1, 4)]
+    x = ins[0].clone().requires_grad_()
+    y, fin = ops.ssd_scan(x, *ins[1:], chunk=8)
+    assert type(y.grad_fn).__name__ == "SSDScanBackward"
+    assert fin.grad_fn is y.grad_fn
+    (dx,) = torch.autograd.grad(y.sum(), [x])
+    yp, finp, states = tssd.ssd_scan_plain(*ins, chunk=8, return_states=True)
+    want = tssd.ssd_scan_bwd_plain(*ins, yp, states, finp,
+                                   torch.ones_like(yp), chunk=8)
+    assert torch.equal(dx, want[0])
+    with torch.no_grad():
+        for t in ops.ssd_scan(x, *ins[1:], chunk=8):
+            assert torch.isfinite(t).all() and t.grad_fn is None
+
+
 @pytest.mark.parametrize("name", ENTRIES)
 def test_entries_without_backward_refuse_autograd(name):
+    if name == "ssd_scan":
+        _ssd_scan_routes_gradients_through_ssdscan()
+        return
     kernel = "tiled_matmul" if name == "matmul" else name
     with pytest.raises(RuntimeError, match=rf"{kernel}: the kernel has no "
-                       r"backward yet \(ROADMAP item 8b / K6\)"):
+                       r"backward \(serving and the plan-driven matmul"):
         _call(name, grad=True)
     with torch.no_grad():
         out = _call(name, grad=True)
@@ -131,7 +159,7 @@ def test_trainable_leaves_through_the_guarded_entries_raise():
     for leaf in params["blocks"]["attn"].values():
         leaf.requires_grad_(leaf.is_floating_point())
     with pytest.raises(RuntimeError, match="decode_attention: the kernel "
-                       "has no backward yet"):
+                       "has no backward"):
         lm.decode_step(arch, params, cache,
                        {"tokens": torch.zeros((2, 1), dtype=torch.int32)},
                        cfg)

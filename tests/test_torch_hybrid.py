@@ -254,8 +254,8 @@ def test_squared_relu_ffn_matches_jax():
         rgrp = jax.tree.map(lambda a: a[i], rparams["blocks"])
         want, _ = rlm._ffn_fwd(rarch, RCFG, rgrp,
                                jnp.asarray(x, jnp.bfloat16))
-        got = tlm._ffn_fwd(tarch, tlm.layer_params(tparams["blocks"], i),
-                           torch.from_numpy(x).to(torch.bfloat16))
+        got, _ = tlm._ffn_fwd(tarch, tlm.layer_params(tparams["blocks"], i),
+                              torch.from_numpy(x).to(torch.bfloat16))
         assert got.dtype == torch.bfloat16
         assert _rel(_np(got), want) < TOL["bfloat16"]
 

@@ -406,10 +406,14 @@ def test_step_peak_rises_without_remat_and_with_microbatches():
     assert two["saved"] < one["saved"]               # half the tokens
 
 
-def _saved_bytes(arch, remat, tokens_shape=(2, 64)):
-    """Bytes autograd keeps for one layer of ``arch`` on the CPU under
-    ``remat``: the storages the saved-tensor hooks see (parameters
-    excluded)."""
+def _saved_bytes(arch, remat, tokens_shape=(2, 64), cfg=None):
+    """Bytes autograd keeps for one step of ``arch``'s training loop (a
+    layer, or a super-block) on the CPU under ``remat``: the storages the
+    saved-tensor hooks see that are still alive while the step's output
+    is (parameters excluded; a saved tensor whose node died, such as that
+    of an unused product, is freed)."""
+    import weakref
+
     import torch
 
     from repro_torch.models import lm
@@ -423,19 +427,22 @@ def _saved_bytes(arch, remat, tokens_shape=(2, 64)):
     x = torch.randn(B, S, arch.d_model).to(torch.bfloat16).requires_grad_()
     positions = torch.arange(S).expand(B, S)
     owned.add(positions.untyped_storage().data_ptr())
-    layer = lm._unbind_layers(params["blocks"], arch.n_layers)[0]
-    seen = {}
+    step = lm.layer_groups(arch, params["blocks"])[0]
+    seen = []
 
     def pack(t):
         st = t.untyped_storage()
         if st.data_ptr() not in owned:
-            seen[st.data_ptr()] = st.nbytes()
+            seen.append((st.data_ptr(), st.nbytes(), weakref.ref(t)))
         return t
 
-    block = lm._remat(lambda *a: lm._block_fwd(arch, lm.RunCfg(), *a), remat)
+    cfg = cfg or lm.RunCfg()
+    block = lm._remat(lambda *a: lm._group_fwd(arch, cfg, *a), remat)
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        block(layer, x, positions, 0)
-    return sum(seen.values()), B * S
+        out = block(step, x, positions, (0, 0))
+    alive = {p: n for p, n, ref in seen if ref() is not None}
+    del out
+    return sum(alive.values()), B * S
 
 
 @pytest.mark.parametrize("remat", LADDER)
@@ -449,3 +456,60 @@ def test_layer_estimate_is_what_autograd_keeps(remat):
     want = tcm.eager_layer_saved_bytes(arch, tokens, arch.n_heads,
                                        arch.n_kv_heads, remat)
     assert got == want
+
+
+#: (arch, MoE path): the families training reaches beyond the dense
+#: decoders; llama4's step is a [dense, MoE] super-block
+FAMILIES = [("mamba2-2.7b", ""), ("hymba-1.5b", ""),
+            ("granite-moe-1b-a400m", "dense_einsum"),
+            ("granite-moe-1b-a400m", "gshard_einsum"),
+            ("llama4-maverick-400b-a17b", "dense_einsum"),
+            ("llama4-maverick-400b-a17b", "gshard_einsum")]
+
+
+@pytest.mark.parametrize("remat", LADDER)
+@pytest.mark.parametrize("name,impl", FAMILIES,
+                         ids=[f"{n}-{i}" if i else n for n, i in FAMILIES])
+def test_family_step_estimate_is_what_autograd_keeps(name, impl, remat):
+    """The estimate's per-step term for the SSM mixer (the scan's
+    inputs, ``y``, final and chunk states kept by ``SSDScan``), the
+    hybrid's two paths and each MoE path (with llama4's shared expert),
+    against what PyTorch keeps on the CPU, byte for byte: 2 x 64 tokens,
+    the SSD chunk 16 (four chunks a sequence)."""
+    from repro_torch.models import lm
+    arch = tcfg.get_arch(name).reduced()
+    cfg = lm.RunCfg(moe_impl=impl or "gshard_einsum", ssd_chunk=16)
+    got, tokens = _saved_bytes(arch, remat, cfg=cfg)
+    want = sum(tcm.eager_layer_saved_bytes(
+        arch, tokens, arch.n_heads, arch.n_kv_heads, remat, seqs=2, ffn=f,
+        ssd_chunk=16) for f in tcm.layer_group_ffns(arch, impl)) \
+        if remat == "none" else tcm.eager_layer_saved_bytes(
+            arch, tokens, arch.n_heads, arch.n_kv_heads, remat)
+    assert got == want
+
+
+#: content hash prefixes of the plans whose estimate the families' terms
+#: leave as they were: qwen3-8b's h100-sxm train plan (2048 x 1)
+H100_TRAIN_HASHES = {"qwen3-8b": "0d26648d7bf6d690"}
+
+
+@pytest.mark.parametrize("name", sorted(H100_TRAIN_HASHES))
+def test_h100_dense_train_plan_is_unchanged(name):
+    assert _train_plan(arch=tcfg.get_arch(name)).content_hash()[:16] == \
+        H100_TRAIN_HASHES[name]
+
+
+@pytest.mark.parametrize("name,remat,estimate_gib", [
+    ("granite-moe-1b-a400m", "none", 37.94), ("mamba2-2.7b", "full", 43.76),
+    ("hymba-1.5b", "none", 38.56)])
+def test_h100_family_train_plans_fit_the_card(name, remat, estimate_gib):
+    """The three families' full-width, full-depth train plans (2048 x 1):
+    granite's picks ``dense_einsum`` and, like hymba's, no remat;
+    mamba2's estimate without remat (72.13 GiB) is over the budget, so
+    ``full``.  Each fits; the estimate is the one the plan logs."""
+    plan = _train_plan(arch=tcfg.get_arch(name))
+    est = plan.estimates
+    assert plan.comm.remat_policy == remat and est["step_fits"] == 1.0
+    assert round(est["step_peak_bytes"] / GIB, 2) == estimate_gib
+    if name.startswith("granite"):
+        assert est["moe_impl"] == "dense_einsum"

@@ -130,6 +130,89 @@ def test_ssd_on_cpu_tensors_launches_no_kernel():
 
 
 # ---------------------------------------------------------------------
+# the scan's backward
+# ---------------------------------------------------------------------
+
+def _rms_rel(got, want) -> float:
+    """rms |got - want| / rms |want| over the whole tensor."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.sqrt(((got - want) ** 2).mean() / (want ** 2).mean()))
+
+
+#: (B, S, H, P, N, G, chunk, initial state): ragged S, G < H, a
+#: carried-in state or none, one chunk or several
+BWD_CASES = [(1, 37, 4, 8, 4, 2, 16, True), (2, 64, 4, 16, 8, 1, 16, False),
+             (1, 50, 6, 8, 16, 3, 64, True), (1, 100, 4, 32, 16, 1, 32, True),
+             (2, 7, 2, 8, 4, 1, 32, False)]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_ssd_bwd_plain_matches_jax_vjp_and_torch_autograd(case):
+    """``ssd_scan_bwd_plain`` (the backward kernel's passes in plain
+    PyTorch) against ``jax.vjp`` of the reference's ``ssd_chunked`` and
+    against torch autograd of ``ssd_scan_plain``, every gradient (x, dt,
+    A, B, C and the initial state) from gradients of y and of the final
+    state, rms-relative within 1e-5 in fp32."""
+    B, S, H, P, N, G, chunk, init = case
+    ins = _scan_inputs(S + H, B, S, H, P, G, N)
+    rng = np.random.default_rng(S)
+    s0 = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    dy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dfin = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    tins = [torch.from_numpy(a) for a in ins]
+    ts0 = torch.from_numpy(s0) if init else None
+    y, fin, states = tssd.ssd_scan_plain(*tins, chunk=chunk,
+                                         initial_state=ts0,
+                                         return_states=True)
+    got = tssd.ssd_scan_bwd_plain(*tins, y, states, fin,
+                                  torch.from_numpy(dy),
+                                  torch.from_numpy(dfin), chunk=chunk,
+                                  initial_grad=init)
+    assert (got[-1] is not None) == init
+
+    def ref(x, dt, A, Bm, Cm, s):
+        return rssm.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk,
+                                initial_state=s if init else None)
+
+    _, vjp = jax.vjp(ref, *map(jnp.asarray, ins), jnp.asarray(s0))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dfin)))
+    leaves = [t.clone().requires_grad_() for t in tins] + \
+        ([ts0.clone().requires_grad_()] if init else [])
+    ya, fa = tssd.ssd_scan_plain(*leaves[:5], chunk=chunk,
+                                 initial_state=leaves[5] if init else None)
+    auto = torch.autograd.grad((ya, fa), leaves,
+                               (torch.from_numpy(dy), torch.from_numpy(dfin)))
+    names = ["x", "dt", "A", "B", "C", "initial state"][:len(leaves)]
+    for name, g, w, a in zip(names, got, want, auto):
+        assert tuple(g.shape) == w.shape
+        assert _rms_rel(_np(g), w) < FP32_TOL, name
+        assert _rms_rel(_np(g), _np(a)) < FP32_TOL, name
+
+
+def test_ssdscan_routes_both_devices_and_launches_no_kernel_on_the_cpu():
+    """``ops.ssd_scan`` under autograd goes through ``SSDScan``: on CPU
+    tensors the plain forward and plain backward (no kernel launch), the
+    gradients those of ``ssd_scan_bwd_plain``; with no gradient of the
+    final state as with one; the backward wrapper refuses CPU tensors."""
+    ins = [torch.from_numpy(a) for a in _scan_inputs(5, 1, 70, 4, 32, 1, 16)]
+    dy = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, 70, 4, 32)).astype(np.float32))
+    y, fin, states = tssd.ssd_scan_plain(*ins, chunk=32, return_states=True)
+    want = tssd.ssd_scan_bwd_plain(*ins, y, states, fin, dy, chunk=32)
+    ops.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in ins]
+    yk, fk = ops.ssd_scan(*leaves, chunk=32)
+    got = torch.autograd.grad(yk, leaves, dy)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(yk.detach(), y) and torch.equal(fk.detach(), fin)
+    assert ops.launch_counts()["ssd_scan"] == 0
+    assert ops.launch_counts()["ssd_scan_bwd"] == 0
+    with pytest.raises(ValueError, match="runs on CUDA tensors"):
+        tssd.ssd_scan_bwd(*ins, y, states, fin, dy, chunk=32)
+
+
+# ---------------------------------------------------------------------
 # the mamba2 mixer
 # ---------------------------------------------------------------------
 
