@@ -328,6 +328,24 @@ def graph_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sass_by_kernel(sass: str, ops=("DMMA", "F2F.F64.F32")):
+    """The count of each of ``ops`` (SASS mnemonics, any suffix) in each
+    kernel of a ``cuobjdump --dump-sass`` listing, by kernel name with
+    its template arguments."""
+    from repro_torch.kernels import build
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(build._demangle(m.group(1)),
+                                 dict.fromkeys(ops, 0))
+        elif cur is not None:
+            for op in ops:
+                cur[op] += len(re.findall(r"\b" + re.escape(op) + r"\b",
+                                          line))
+    return out
+
+
 def host_us(torch, fn, iters: int = 200) -> float:
     """Host time of one call of ``fn`` (the enqueue, not the device),
     mean of ``iters`` calls after a synchronise."""
@@ -3113,10 +3131,10 @@ SSD_BWD_FAULTS = ("skip_tile", "no_carry")
 def ssd_bwd_flops(B, S, H, P, N, chunk):
     """The SSD backward's operations (``csrc/ssd_scan_bwd.cu``'s header):
     per (batch, head, chunk) the causal halves of C.B^T and dy.xdt^T (the
-    one decayed tile gives dB over the queries and dC over the keys) and
+    one decayed tile gives dB over the keys and dC over the queries) and
     the three products that apply them, and four state products.  The
-    kernel's second dy.xdt^T, on the query side, is not counted: the
-    function does not need it."""
+    kernel computes its diagonal tile pairs whole, which this count
+    leaves out: the function does not need them."""
     nc = -(-S // chunk)
     Q = chunk
     return B * H * nc * (Q * (Q + 1) * (3 * N + 2 * P) + 8 * Q * P * N)
@@ -3131,11 +3149,13 @@ def ssd_bwd_check(torch, dev):
     ``ssd_scan_bwd_plain`` in fp64 on the fp64 forward's y and states, at
     the forward's bound :data:`TOL` ``["ssd_scan"]``; beside the planted
     faults (:data:`SSD_BWD_FAULTS`) that must each fail the same check.
-    At mamba2's shape, timed in turns against torch autograd of the fp32
-    plain forward, beside the plain backward, the device time of
-    each of the six passes, and the bound: the operations the gradient
-    needs (:func:`ssd_bwd_flops`) at 67 TFLOP/s (fp64 tensor cores), or
-    its bytes.  On a generator of its own."""
+    At mamba2's and hymba's shapes (the first two), timed in turns
+    against torch autograd of the fp32 plain forward, beside the plain
+    backward, the device time of each pass, and the bound: the
+    operations the gradient needs (:func:`ssd_bwd_flops`) at 67 TFLOP/s
+    (fp64 tensor cores), or its bytes.  The result's top-level keys are
+    mamba2's; each shape's row holds its own.  On a generator of its
+    own."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ssd_scan as ssd
@@ -3209,7 +3229,7 @@ def ssd_bwd_check(torch, dev):
                    row_rel_err={n: r for n, (_, r) in got.items()},
                    max_abs_err=err, plain_row_rel_err_fp64=plain_rel,
                    control_row_rel_err=ctl, controls=ctls)
-        if not out["shapes"]:            # the headline: mamba2's shape
+        if len(out["shapes"]) < 2:       # mamba2's and hymba's shapes
             leaves = [t.detach().clone().requires_grad_() for t in ins]
             y_auto, _ = ssd.ssd_scan_plain(*leaves, chunk=chunk)
             med, rounds = in_turns(torch, {
@@ -3235,19 +3255,25 @@ def ssd_bwd_check(torch, dev):
                 f"time per call by pass (torch.profiler) "
                 + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items())
                 + f" [{CARD}]")
+            row.update(ms=med["kernel"], turns_ms=rounds["kernel"],
+                       plain_ms=plain_ms,
+                       autograd_plain_ms=med["autograd_plain"],
+                       autograd_plain_turns_ms=rounds["autograd_plain"],
+                       passes_ms=passes, bound_ms=b_ms, bound_by=b_by)
+        if not out["shapes"]:            # the headline: mamba2's shape
             out.update(
                 route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                 replaces="src/repro/models/ssm.py:53",
                 max_abs_err=err, row_rel_err=rel, tolerance=tol,
-                control_row_rel_err=ctl, ms=med["kernel"],
-                turns_ms=rounds["kernel"], plain_ms=plain_ms,
-                autograd_plain_ms=med["autograd_plain"],
-                autograd_plain_turns_ms=rounds["autograd_plain"],
-                library_ms=None, passes_ms=passes, bound_ms=b_ms,
-                bound_by=b_by,
+                control_row_rel_err=ctl, ms=row["ms"],
+                turns_ms=row["turns_ms"], plain_ms=row["plain_ms"],
+                autograd_plain_ms=row["autograd_plain_ms"],
+                autograd_plain_turns_ms=row["autograd_plain_turns_ms"],
+                library_ms=None, passes_ms=row["passes_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 shape=f"B={B} S={S} H={H} P={P} N={N} G={G} chunk={chunk} "
-                      f"fp32, six launches a call; bound at the fp64 "
+                      f"fp32, five launches a call; bound at the fp64 "
                       f"tensor-core rate",
                 library_call="none: no PyTorch call computes the SSD scan's "
                              "backward (the reference differentiates its "
@@ -3982,6 +4008,11 @@ def main(argv=None) -> int:
             for kernel, regs, spills in build.ptxas_entries(text):
                 log(f"ptxas {name}: {kernel}: {regs} registers at entry, "
                     f"{spills} bytes of spills [{CARD}]")
+        res["sass"] = sass_by_kernel(build.sass("ssd_scan_bwd"))
+        for kernel, counts in res["sass"].items():
+            log(f"sass ssd_scan_bwd: {kernel}: " + ", ".join(
+                f"{n} {op}" for op, n in counts.items()) + " instructions "
+                "(cuobjdump --dump-sass)")
         log(json.dumps({"src": str(args.src), "card": CARD,
                         "ssd_scan_bwd": res}))
         return 0
@@ -4004,7 +4035,9 @@ def main(argv=None) -> int:
         sass = build.sass(name)
         hgmma = len(re.findall(r"\bHGMMA\b", sass))
         utmaldg = len(re.findall(r"\bUTMALDG\b", sass))
-        log(f"sass {name}: {hgmma} HGMMA, {utmaldg} UTMALDG instructions "
+        dmma = len(re.findall(r"\bDMMA\b", sass))
+        log(f"sass {name}: {hgmma} HGMMA, {utmaldg} UTMALDG, {dmma} DMMA "
+            f"instructions "
             f"(cuobjdump --dump-sass) [{CARD}]")
         if name in HOPPER_SOURCES:
             check(hgmma > 0 and utmaldg > 0,

@@ -784,6 +784,10 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
       logits the log-sum-exp keeps and four fp32 T x V temporaries of the
       loss's backward (its exp, the product, the gather's scatter and
       their sum): 20 T V;
+    * ``ssd_workspace``: with an SSM, the SSD backward's workspace
+      (``kernels.ssd_scan.bwd_workspace_floats``, fp32) while one layer's
+      backward runs, after the loss's region is freed: the turn holds
+      the larger of the two;
     * ``tail``: the end of the backward, where each stacked ``(L, ...)``
       leaf's gradient is stacked from its per-layer pieces: the largest
       leaf once more, beside every gradient but the embedding's (made
@@ -792,8 +796,9 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
       gradients, whichever is larger.
 
     The peak is ``state + runtime`` plus the larger of the turn from
-    forward to backward (``saved + loss``, with the fp32 sum of earlier
-    microbatches) and the end (``grads`` and ``tail``)."""
+    forward to backward (``saved`` and the larger of ``loss`` and
+    ``ssd_workspace``, with the fp32 sum of earlier microbatches) and the
+    end (``grads`` and ``tail``)."""
     nmicro = max(microbatches, 1)
     T = tokens / nmicro
     ffns = layer_group_ffns(arch, moe_impl)
@@ -808,14 +813,22 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
                                                 remat) + group
     saved += 10 * T * arch.d_model
     loss = 20 * T * vocab
+    ssd_ws = 0.0
+    if arch.has_ssm:
+        from repro_torch.kernels.ssd_scan import bwd_workspace_floats
+        ssd_ws = 4.0 * bwd_workspace_floats(
+            math.ceil(seqs / nmicro), round(T * nmicro / seqs),
+            arch.ssm_heads, arch.ssm_head_dim, arch.ssm_state,
+            arch.ssm_n_groups, ssd_chunk)
     sum32 = 2 * param_bytes if nmicro > 1 else 0.0
     grads = param_bytes + sum32
     stacking = largest_stacked_bytes - embed_bytes + 2 * T * arch.d_model
     tail = max(stacking, OPT_CHUNK_TEMPS * OPT_CHUNK * 4)
-    turn = saved + loss + sum32
+    turn = saved + max(loss, ssd_ws) + sum32
     end = grads + tail
     return {"state": float(state_bytes), "runtime": float(STEP_RUNTIME_BYTES),
             "grads": float(grads), "saved": float(saved),
-            "loss": float(loss), "tail": float(tail),
+            "loss": float(loss), "ssd_workspace": ssd_ws,
+            "tail": float(tail),
             "peak": float(state_bytes + STEP_RUNTIME_BYTES
                           + max(turn, end))}

@@ -13,14 +13,14 @@ constexpr int kMaxChunk = 256;
 
 // Start copying rows [0, valid) of a (ROWS, W) tile whose rows lie
 // `stride` floats apart in global memory into shared memory of row pitch
-// `pitch`; rows at or past `valid` are zero-filled (never read).
-// W % 4 == 0.
-template <int W, int ROWS = kT>
+// `pitch`, with a CTA of NTH threads; rows at or past `valid` are
+// zero-filled (never read).  W % 4 == 0.
+template <int W, int ROWS = kT, int NTH = kThreads>
 __device__ __forceinline__ void stage_async(float* dst, int pitch,
                                             const float* src, size_t stride,
                                             int valid) {
   constexpr int kV = W / 4;
-  for (int i = threadIdx.x; i < ROWS * kV; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * kV; i += NTH) {
     const int r = i / kV, c = (i % kV) * 4;
     const bool ok = r < valid;
     repro::cp_async16(dst + r * pitch + c, ok ? src + r * stride + c : src,

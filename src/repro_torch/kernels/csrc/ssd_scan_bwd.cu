@@ -29,19 +29,34 @@
 // -xdt.dxdt, and the chunk's total decay <dS_out, S_out>.  B and C are
 // shared by a group's heads, so dB and dC sum over them.  As in the
 // forward, every decay is exp of a difference <= 0 and every product is
-// summed in fp64 on the tensor cores (ssd_common.cuh).
+// summed in fp64 on the tensor cores.
 //
-// What bounds it on the H100: operations, as the forward.  Per (head,
-// chunk) the gradient needs Q(Q+1)(3N + 2P) + 8QPN flops (the causal
-// halves of C.B^T and of dy.xdt^T, whose one decayed tile gives dB over
-// the queries and dC over the keys, and the three products that apply
-// them; four state products) against 4 (3P + 2) Q bytes of its own x, y,
-// dy, dx, dt and ddt: ~250 flops a byte at Q = 256, P = 64, N = 128.
-// This kernel forms dy.xdt^T a second time on the query side (pass 4),
-// Q(Q+1)P flops more than the bound counts.
+// What bounds it on the H100: operations.  Per (head, chunk) the gradient
+// needs Q(Q+1)(3N + 2P) + 8QPN flops (the causal halves of C.B^T and of
+// dy.xdt^T, whose one decayed tile gives dB over the keys and dC over the
+// queries, and the three products that apply them; four state products)
+// against 4 (3P + 2) Q bytes of its own x, y, dy, dx, dt and ddt: ~250
+// flops a byte at Q = 256, P = 64, N = 128.  This kernel does
+// 4096 T(T+1)(3N + 2P) + 8QPN (T = Q / 64 tiles; the diagonal tile
+// pairs are computed whole): 1.16x the bound's count at mamba2's widths.
 //
-// The design: six launches on the stream, none with atomics (a resumed
-// run stays bitwise equal), every reduction in a fixed order.
+// The card's fp64 tensor-core rate (67 TFLOP/s) is reached only by
+// mma.sync.m16n8k4.f64: measured on an H100 (scripts/dmma_mix.py), a
+// stream of m8n8k4 (the shape ssd_common.cuh issues, two per 16 x 8
+// tile) runs at 50% of it and m16n8k4 at 95%, and two operand fetches a
+// product (a 32-bit shared load and a conversion to fp64, or a 64-bit
+// load) keep it above 85%.  So every product here is m16n8k4 on fp32
+// tiles widened at each fragment read (mma_tile), or on fp64 tiles where
+// they come out of the tensor cores.
+//
+// What it costs against the bound (chip_smoke.py --only ssd_bwd on an
+// H100): the pair pass takes most of the call and runs its products at
+// about half the fp64 rate; one CTA an SM leaves the copies a key needs
+// before its first products, and the syncs between a tile pair's two
+// halves, with nothing to overlap them.
+//
+// The design: five launches on the stream, none with atomics (two calls
+// and a resumed run are bitwise equal), every reduction in a fixed order.
 //   1. chunk dstate, grid B * H * nc: the chunk's cumsum, its decay log
 //      cs[Q-1] to (B, H, nc), and its local sum_q exp(cs[q]) dy[q] (x) C[q]
 //      to the workspace's (B, nc, H, N, P);
@@ -50,25 +65,36 @@
 //      the chunk's dS_out, and writes the initial state's gradient.  This is
 //      the twin of the forward's pass 2; no_carry plants a fault (no
 //      gradient passes between chunks);
-//   3. key side, grid B * H * nc * (Q / 64), one CTA per 64 key rows: the
-//      state terms of dxdt and dB first, then for each query tile q >= k
-//      the raw tiles C.B^T and dy.xdt^T (fp64), masked and decayed in fp32
-//      in shared memory, and their products with dy and C.  Writes dx, the
-//      head's dB rows, and the rows' dy.y - xdt.dxdt and x.dxdt (fp64);
-//      skip_tile plants a fault (the diagonal query tile is left out);
-//   4. query side, grid B * H * nc * (Q / 64), one CTA per 64 query rows:
-//      the carried-in state's term of dC, then for each key tile k <= q
-//      dy.xdt^T, masked and decayed, times B.  Writes the head's dC rows;
-//   5. dt, grid B * H * nc: <dS_out, S_out> (S_out the next chunk's
-//      incoming state, or the final state), the reverse cumsum of dcs in
-//      fp64, ddt, and the chunk's share of dA;
-//   6. reduce: dB and dC summed over the group's heads and dA over batch
-//      and chunks, in fp64, in a fixed order.
+//   3. pairs, grid B * H * nc * ceil(T / 2), one CTA of 16 warps (one a
+//      SM: 225 KB of shared memory at N = 128) for key tiles j and
+//      T - 1 - j, so that every CTA takes T + 1 (key, query) tile pairs
+//      (T = 4 at chunk 256).  For each tile pair it forms the raw tiles
+//      C.B^T and dy.xdt^T once, in one loop, weighs both by the same
+//      exp(cs[q] - cs[k]) (one expf an element), keeps them in fp64 in
+//      shared memory, and applies them on both sides: dxdt and dB of the
+//      key rows accumulate in registers over the key's query tiles (from
+//      the dS_out state terms), dC of the query rows goes to a slot of
+//      its own for (this CTA, query tile) (the CTA's second key tile adds
+//      to the slot its first wrote; the carried-in state's term
+//      exp(cs[q]) S_in^T dy[q] of query tiles j and T - 1 - j opens it).
+//      The query tiles stream through two cp.async stages: the next
+//      tile's copy runs under this tile's products; the copies a key
+//      needs first (S_in and dy, or the key tile and dS_out) wait alone,
+//      the rest land under the first products.  Writes dxdt (to dx), the
+//      head's dB rows and the dC slots; skip_tile plants a fault (the
+//      diagonal query tile is left out of the key side);
+//   4. dt, grid B * H * nc: each row's r = dy.y - xdt.dxdt and u = x.dxdt
+//      (fp64) from the dxdt pass 3 left in dx, which becomes dx = dxdt dt;
+//      <dS_out, S_out> (S_out the next chunk's incoming state, or the
+//      final state), the reverse cumsum of dcs in fp64, ddt, and the
+//      chunk's share of dA;
+//   5. reduce: dB summed over the group's heads, dC over the heads and
+//      the slots of its query tile, dA over batch and chunks, in fp64, in
+//      a fixed order.
 // The chunk states S_in come from the forward (its pass 2 writes them; the
 // autograd function keeps them: B * nc * H * P * N floats a call, 21 MB for
 // a mamba2-2.7b layer at S = 2048), so nothing of the forward is
-// recomputed.  A simple kernel: one staged tile at a time (no double
-// buffering), one CTA per tile of rows.
+// recomputed.
 
 #include "ssd_common.cuh"
 
@@ -76,33 +102,99 @@ namespace {
 
 using namespace repro::ssd;
 
-// Row pitches: a tile read as the A operand or as B^T (rows of K) takes
-// width + 4, one read as B (K down the rows) width + 8, so that the
-// fragment reads of warp_mma are conflict-free; a tile read both ways
-// keeps width + 4 (two-way conflicts on the other reads).
+constexpr int kPairThreads = 512;     // pass 3: 16 warps
+constexpr int kSP = kT + 4;           // pitch (doubles) of a weighted tile
+
+// One fp64 product on the tensor cores: d (16 x 8) += a (16 x 4) b (4 x 8);
+// lane (g, t) holds a at (g, t) and (g + 8, t), b at (t, g), d at rows g
+// and g + 8, columns 2t and 2t + 1 (the layout of two m8n8k4 tiles).
+__device__ __forceinline__ void mma16(double (&d)[4], double a0, double a1,
+                                      double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// One warp: acc[j] (16 rows x 8 columns, j < NT) += A . B over K (a
+// multiple of 4), in fp64, with warp_mma's operands and layout: A
+// row-major (rows, K) at `a` (pitch ap, the warp's first row), or with AT
+// the (K, rows) transpose of that; B row-major (K, n) at `b` (pitch bp,
+// the warp's first column), or with BT the (n, K) transpose of that.
+// Either operand fp32 (widened at the fragment read) or fp64.
+template <int NT, bool BT, bool AT, typename TA, typename TB>
+__device__ __forceinline__ void mma_step(double (&acc)[NT][4], const TA* a,
+                                         int ap, const TB* b, int bp, int g,
+                                         int k) {
+  const double a0 = AT ? a[k * ap + g] : a[g * ap + k];
+  const double a1 = AT ? a[k * ap + g + 8] : a[(g + 8) * ap + k];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    mma16(acc[j], a0, a1, BT ? b[(8 * j + g) * bp + k]
+                             : b[k * bp + 8 * j + g]);
+}
+
+template <int NT, bool BT, bool AT = false, typename TA, typename TB>
+__device__ __forceinline__ void mma_tile(double (&acc)[NT][4], const TA* a,
+                                         int ap, const TB* b, int bp,
+                                         int K) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll 2
+  for (int k = t; k < K; k += 4)
+    mma_step<NT, BT, AT>(acc, a, ap, b, bp, g, k);
+}
+
+// Two warp products over the same K in one loop (mma_tile's forms each),
+// so that twice the independent accumulators are in flight.
+template <int N1, bool BT1, bool AT1, int N2, bool BT2, bool AT2,
+          typename TA1, typename TB1, typename TA2, typename TB2>
+__device__ __forceinline__ void mma_dual(double (&acc1)[N1][4],
+                                         const TA1* a1, int ap1,
+                                         const TB1* b1, int bp1,
+                                         double (&acc2)[N2][4],
+                                         const TA2* a2, int ap2,
+                                         const TB2* b2, int bp2, int K) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll 2
+  for (int k = t; k < K; k += 4) {
+    mma_step<N1, BT1, AT1>(acc1, a1, ap1, b1, bp1, g, k);
+    mma_step<N2, BT2, AT2>(acc2, a2, ap2, b2, bp2, g, k);
+  }
+}
+
 template <int P, int N>
 struct Bwd {
-  static constexpr int kNA = N + 4;
+  static constexpr int kNA = N + 4;   // fp32 tile pitches: every A-form and
+  static constexpr int kPA = P + 4;   // B^T-form fragment read conflict-free
   static constexpr int kNB = N + 8;
-  static constexpr int kPA = P + 4;
   static constexpr int kPB = P + 8;
-  static constexpr int kSP = kT + 4;
   // pass 1: dy (kT, P + 8) read transposed, C (kT, N + 8), cum, dt
   static constexpr size_t kDstateBytes =
       (size_t(kT) * kPB + size_t(kT) * kNB + 2 * kMaxChunk) * sizeof(float);
-  // pass 3: B, xdt (key rows), C, dy (query rows), two weighted 64 x 64
-  // tiles, cum, dt; dS_out (N, P + 8) first, where C and dy go later
-  static constexpr int kKeyFloats = kT * kNA + kT * kPA + kT * kNA +
-                                    kT * kPA + 2 * kT * kSP + 2 * kMaxChunk;
-  static_assert(N * kPB <= kT * kNA + kT * kPA, "dS_out fits C + dy");
-  static constexpr size_t kKeyBytes = size_t(kKeyFloats) * sizeof(float);
-  // pass 4: dy (query rows), xdt, B (key rows), the weighted tile, cum,
-  // dt; S_in (N, P + 4) first, where xdt and B go later
-  static constexpr int kQueryFloats =
-      kT * kPA + kT * kPA + kT * kNB + kT * kSP + 2 * kMaxChunk;
-  static_assert(N * kPA <= kT * kPA + kT * kNB, "S_in fits xdt + B");
-  static constexpr size_t kQueryBytes = size_t(kQueryFloats) * sizeof(float);
+  // pass 3: the key tile (B, xdt), two stages of a query tile (C, dy),
+  // the weighted C.B^T and dy.xdt^T (fp64), cum, dt; S_in and dS_out,
+  // (N, P + 4) each, in the weighted tiles' room before the tile pairs
+  static constexpr int kTileFloats = kT * kNA + kT * kPA;
+  static constexpr int kPairFloats =
+      3 * kTileFloats + 2 * 2 * kT * kSP + 2 * kMaxChunk;
+  static_assert(N * kPA <= 2 * kT * kSP, "S_in, dS_out fit the weighted");
+  static constexpr size_t kPairBytes = size_t(kPairFloats) * sizeof(float);
+  // pass 3's warp (m, c): rows 16 m; columns of each product in quarters
+  // c.  dxdt: P / 32 n-tiles of 8.  dB and dC: N / 32 n-tiles each, or at
+  // N = 16 one n-tile of dB (c < 2) or of dC (c >= 2)
+  static constexpr int kNX = P / 32;
+  static constexpr int kNBC = N >= 32 ? N / 32 : 1;
+  static_assert(P % 32 == 0 && (N % 32 == 0 || N == 16), "pass 3 widths");
 };
+
+// The dC slots of a chunk: pair p (key tiles p and T - 1 - p) writes one
+// for each query tile qi >= p, at p T - p (p - 1) / 2 + qi - p.
+__host__ __device__ __forceinline__ int slot_of(int p, int qi, int T) {
+  return p * T - p * (p - 1) / 2 + qi - p;
+}
+__host__ __device__ __forceinline__ int n_slots(int T) {
+  return slot_of((T + 1) / 2, (T + 1) / 2, T);
+}
 
 __device__ __forceinline__ double warp_sum_d(double v) {
 #pragma unroll
@@ -110,7 +202,7 @@ __device__ __forceinline__ double warp_sum_d(double v) {
   return v;
 }
 
-// Scale the rows of a warp's accumulator tile (warp_mma's layout): its
+// Scale the rows of a warp's accumulator tile (mma_tile's layout): its
 // row g by f0, its row g + 8 by f1.
 template <int NT>
 __device__ __forceinline__ void scale_rows(double (&acc)[NT][4], float f0,
@@ -124,24 +216,22 @@ __device__ __forceinline__ void scale_rows(double (&acc)[NT][4], float f0,
   }
 }
 
-// A warp's 16 x 32 slice of a 64 x 64 raw tile, masked to k <= q and
-// decayed by exp(cs[q] - cs[k]) in fp32, to shared memory (pitch kSP).
-// `rows_are_q`: the tile's rows are queries (pass 4) or keys (pass 3).
-__device__ __forceinline__ void store_weighted(float* dst, const double (&t)[4][4],
-                                               const float* cum, int m0,
-                                               int s0, int row0, int col0,
-                                               bool rows_are_q) {
-  const int lane = threadIdx.x % 32, lg = lane / 4, lt = lane % 4;
+// Rows [r0, r0 + 16) of a warp's accumulator tile (columns 8 j + c0) to
+// `dst` (row pitch `pitch`) as fp32 for rows below `valid`.
+template <int NT>
+__device__ __forceinline__ void store_rows(float* dst, size_t pitch,
+                                           const double (&acc)[NT][4],
+                                           int r0, int c0, int valid) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + g + 8 * hf;
+    if (r >= valid) continue;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = m0 + lg + 8 * (e / 2), col = s0 + 8 * j + 2 * lt + e % 2;
-      const int q = rows_are_q ? row0 + r : col0 + col;
-      const int k = rows_are_q ? col0 + col : row0 + r;
-      const float w = k <= q ? expf(cum[q] - cum[k]) : 0.f;
-      dst[r * (kT + 4) + col] = float(t[j][e] * double(w));
-    }
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<float2*>(dst + r * pitch + c0 + 8 * j + 2 * t) =
+          make_float2(float(acc[j][2 * hf]), float(acc[j][2 * hf + 1]));
+  }
 }
 
 // Pass 1: the chunk's decay log and its local sum_q exp(cs[q]) dy[q] (x) C[q],
@@ -190,7 +280,7 @@ ssd_bwd_dstate(const float* __restrict__ dy, const float* __restrict__ dt,
       ds[(i / P) * DP + i % P] *= expf(cum[qi * kT + i / P]);
     __syncthreads();
     if (nt0 < NTT)
-      warp_mma<NTW, false, true>(acc, ds + mt * 16, DP, ct + nt0 * 8, CP, kT);
+      mma_tile<NTW, false, true>(acc, ds + mt * 16, DP, ct + nt0 * 8, CP, kT);
   }
   float* out = dstates + ((size_t(b) * nc + c) * H + h) * P * N;
   if (nt0 < NTT) {
@@ -218,243 +308,268 @@ ssd_bwd_state_pass(float* __restrict__ dstates,
   const size_t b = bh / H, h = bh % H;
   const size_t pn = (np % P) * N + np / P;
   float g = dfin ? dfin[bh * PN + pn] : 0.f;
-  for (int c = nc - 1; c >= 0; --c) {
-    float* at = dstates + ((b * nc + c) * H + h) * PN + np;
-    const float local = *at;
-    if (no_carry && c < nc - 1) g = 0.f;
-    *at = g;
-    g = fmaf(g, expf(cs_last[bh * nc + c]), local);
+  constexpr int kBatch = 8;      // loads in flight before the serial walk
+  for (int c1 = nc - 1; c1 >= 0; c1 -= kBatch) {
+    float local[kBatch], decay[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int c = c1 - i;
+      if (c >= 0) {
+        local[i] = dstates[((b * nc + c) * H + h) * PN + np];
+        decay[i] = cs_last[bh * nc + c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int c = c1 - i;
+      if (c >= 0) {
+        if (no_carry && c < nc - 1) g = 0.f;
+        dstates[((b * nc + c) * H + h) * PN + np] = g;
+        g = fmaf(g, expf(decay[i]), local[i]);
+      }
+    }
   }
   if (dinit) dinit[bh * PN + pn] = g;
 }
 
-// Pass 3: the 64 key rows kj of chunk c of (b, h): dxdt (to dx), the
-// head's dB rows, and the rows' terms of dcs (r = dy.y - xdt.dxdt) and of
-// ddt (u = x.dxdt), fp64, to (B, H, S).  Warp w owns rows m0 = 16 (w % 4)
-// and the half w / 4 of each product's columns.
-template <int P, int N>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_key(const float* __restrict__ x, const float* __restrict__ dt,
-            const float* __restrict__ A, const float* __restrict__ Bm,
-            const float* __restrict__ Cm, const float* __restrict__ y,
-            const float* __restrict__ dy, const float* __restrict__ dstates,
-            float* __restrict__ dx, float* __restrict__ dBh,
-            double* __restrict__ r_out, double* __restrict__ u_out, int S,
-            int H, int G, int chunk, int nc, int skip_tile) {
-  using L = Bwd<P, N>;
-  constexpr int NA = L::kNA, PA = L::kPA, PB = L::kPB, SP = L::kSP;
-  constexpr int NTX = P / 16, NTB = N / 16;   // n-tiles of dxdt, dB a warp
-  extern __shared__ __align__(16) float smem[];
-  float* bk = smem;                // (kT, NA) B of the key rows
-  float* xk = bk + kT * NA;        // (kT, PA) xdt of the key rows
-  float* cq = xk + kT * PA;        // (kT, NA) C of a query tile
-  float* dq = cq + kT * NA;        // (kT, PA) dy of a query tile
-  float* sw = dq + kT * PA;        // (kT, SP) weighted C.B^T, rows k
-  float* dw = sw + kT * SP;        // (kT, SP) weighted dy.xdt^T, rows k
-  float* cum = dw + kT * SP;
-  float* dts = cum + kMaxChunk;
-  float* ds = cq;                  // (N, PB) dS_out, before the query tiles
 
-  const int nt = chunk / kT, n_bhc = gridDim.x / nt;
-  const int kj = blockIdx.x / n_bhc;         // key tile 0 has most to do
-  const int bhc = blockIdx.x % n_bhc, c = bhc % nc, bh = bhc / nc;
+// Pass 3: key tiles j = p and T - 1 - j of chunk c of (b, h), with every
+// query tile at or after each.  Writes dxdt (to dx; pass 4 scales it),
+// the head's dB rows and the CTA's dC slots (B, nc, H, slots, kT, N).
+template <int P, int N>
+__global__ void __launch_bounds__(kPairThreads, 1)
+ssd_bwd_pair(const float* __restrict__ x, const float* __restrict__ dt,
+             const float* __restrict__ A, const float* __restrict__ Bm,
+             const float* __restrict__ Cm, const float* __restrict__ dy,
+             const float* __restrict__ states,
+             const float* __restrict__ dstates, float* __restrict__ dx,
+             float* __restrict__ dBh, float* __restrict__ dCs, int S, int H,
+             int G, int chunk, int nc, int skip_tile) {
+  using L = Bwd<P, N>;
+  constexpr int NA = L::kNA, PA = L::kPA, NX = L::kNX, NBC = L::kNBC;
+  constexpr int NTH = kPairThreads;
+  extern __shared__ __align__(16) float smem[];
+  float* bk = smem;                          // (kT, NA) B of the key rows
+  float* xk = bk + kT * NA;                  // (kT, PA) xdt of the key rows
+  float* ring = xk + kT * PA;                // two (C, dy) query stages
+  double* sw = reinterpret_cast<double*>(ring + 2 * L::kTileFloats);
+  double* dw = sw + kT * kSP;                // (kT, kSP) weighted, rows k
+  float* cum = reinterpret_cast<float*>(dw + kT * kSP);
+  float* dts = cum + kMaxChunk;
+  float* sin = reinterpret_cast<float*>(sw); // (N, PA) S_in, dS_out
+  float* dso = sin + N * PA;                 //   before the tile pairs
+  auto cq = [&](int st) { return ring + st * L::kTileFloats; };
+  auto dq = [&](int st) { return ring + st * L::kTileFloats + kT * NA; };
+
+  const int T = chunk / kT, npair = (T + 1) / 2, nsl = n_slots(T);
+  const int p = blockIdx.x % npair, bhc = blockIdx.x / npair;
+  const int c = bhc % nc, bh = bhc / nc;
   const int b = bh / H, h = bh % H, g = h / (H / G);
   const int c0 = c * chunk, rows = min(chunk, S - c0);
-  if (kj * kT >= rows) return;
+  const int ntv = (rows + kT - 1) / kT;      // query / key tiles with rows
+  const int j1 = p, j2 = T - 1 - p;
+  if (j1 >= ntv) return;
+  const bool two = j2 != j1 && j2 < ntv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int lg = lane / 4, lt = lane % 4;
-  const int m0 = 16 * (warp % 4), half = warp / 4;
-  const int p0 = P / 2 * half, n0 = N / 2 * half, s0 = 32 * half;
+  const int lg = lane / 4;
+  const int m0 = 16 * (warp % 4), qc = warp / 4;
+  const int px0 = 8 * NX * qc;               // the warp's dxdt columns
+  const bool has_b = N >= 32 || qc < 2, has_c = N >= 32 || qc >= 2;
+  const int nb0 = 8 * (N >= 32 ? NBC * qc : qc);        // dB columns
+  const int nc0 = 8 * (N >= 32 ? NBC * qc : qc - 2);    // dC columns
   const size_t xrow = size_t(H) * P, brow = size_t(G) * N;
   const size_t xoff = (size_t(b) * S + c0) * xrow + size_t(h) * P;
   const float* bb = Bm + (size_t(b) * S + c0) * brow + size_t(g) * N;
   const float* cb = Cm + (size_t(b) * S + c0) * brow + size_t(g) * N;
-  const int k0 = kj * kT;
+  const size_t PN = size_t(P) * N, bhcs = (size_t(b) * nc + c) * H + h;
+  float* slots = dCs + bhcs * nsl * kT * N;
+  auto slot = [&](int qi) {
+    return slots + size_t(slot_of(p, qi, T)) * kT * N;
+  };
+  auto stage_query = [&](int st, int qi) {
+    stage_async<N, kT, NTH>(cq(st), NA, cb + size_t(qi) * kT * brow, brow,
+                            rows - qi * kT);
+    stage_async<P, kT, NTH>(dq(st), PA, dy + xoff + size_t(qi) * kT * xrow,
+                            xrow, rows - qi * kT);
+  };
 
-  stage_async<N>(bk, NA, bb + size_t(k0) * brow, brow, rows - k0);
-  stage_async<P>(xk, PA, x + xoff + size_t(k0) * xrow, xrow, rows - k0);
-  stage_async<P, N>(ds, PB, dstates + ((size_t(b) * nc + c) * H + h) * P * N,
-                    P, N);
-  repro::cp_async_commit();
-  chunk_cumsum(cum, dts, dt + (size_t(b) * S + c0) * H + h, H, A[h], chunk,
-               rows);
-  repro::cp_async_wait<0>();
-  __syncthreads();
-  for (int i = tid; i < kT * P; i += kThreads)
-    xk[(i / P) * PA + i % P] *= dts[k0 + i / P];
-  __syncthreads();
-
-  // the state terms: B dS_out^T and xdt dS_out, each row decayed by
-  // exp(cs[Q-1] - cs[k])
-  double dxa[NTX][4] = {}, dba[NTB][4] = {};
-  warp_mma<NTX, false>(dxa, bk + m0 * NA, NA, ds + p0, PB, N);
-  warp_mma<NTB, true>(dba, xk + m0 * PA, PA, ds + n0 * PB, PB, P);
-  {
-    const float last = cum[chunk - 1];
-    const float f0 = expf(last - cum[k0 + m0 + lg]);
-    const float f1 = expf(last - cum[k0 + m0 + lg + 8]);
-    scale_rows(dxa, f0, f1);
-    scale_rows(dba, f0, f1);
-  }
-  __syncthreads();               // C and dy overwrite dS_out
-
-  for (int qi = kj; qi * kT < rows; ++qi) {
-    if (skip_tile && qi == kj) continue;
-    const int q0 = qi * kT;
-    stage_async<N>(cq, NA, cb + size_t(q0) * brow, brow, rows - q0);
-    stage_async<P>(dq, PA, dy + xoff + size_t(q0) * xrow, xrow, rows - q0);
+  for (int kk = 0; kk < (two ? 2 : 1); ++kk) {
+    const int kj = kk ? j2 : j1, k0 = kj * kT;
+    // two groups of copies: first what the first products need (before
+    // the first key S_in and the dy rows of query tiles j1 and j2, else
+    // the key tile and dS_out), then the rest, which lands under them
+    if (kk == 0) {
+      // warp 0's cumsum first: its dt loads queue behind no copy
+      chunk_cumsum(cum, dts, dt + (size_t(b) * S + c0) * H + h, H, A[h],
+                   chunk, rows);
+      stage_async<P, N, NTH>(sin, PA, states + bhcs * PN, P, N);
+      stage_async<P, kT, NTH>(dq(0), PA,
+                              dy + xoff + size_t(j1) * kT * xrow, xrow,
+                              rows - j1 * kT);
+      if (two)
+        stage_async<P, kT, NTH>(dq(1), PA,
+                                dy + xoff + size_t(j2) * kT * xrow, xrow,
+                                rows - j2 * kT);
+      repro::cp_async_commit();
+    }
+    stage_async<N, kT, NTH>(bk, NA, bb + size_t(k0) * brow, brow,
+                            rows - k0);
+    stage_async<P, kT, NTH>(xk, PA, x + xoff + size_t(k0) * xrow, xrow,
+                            rows - k0);
+    stage_async<P, N, NTH>(dso, PA, dstates + bhcs * PN, P, N);
     repro::cp_async_commit();
-    repro::cp_async_wait<0>();
-    __syncthreads();
-    {
-      double sc[4][4] = {}, dd[4][4] = {};
-      warp_mma<4, true>(sc, bk + m0 * NA, NA, cq + s0 * NA, NA, N);
-      warp_mma<4, true>(dd, xk + m0 * PA, PA, dq + s0 * PA, PA, P);
-      store_weighted(sw, sc, cum, m0, s0, k0, q0, false);
-      store_weighted(dw, dd, cum, m0, s0, k0, q0, false);
+    if (kk == 0) {
+      stage_async<N, kT, NTH>(cq(0), NA, cb + size_t(k0) * brow, brow,
+                              rows - k0);
+      repro::cp_async_commit();
+      repro::cp_async_wait<2>();
+      __syncthreads();
+      if (has_c) {
+        // the carried-in state's term of dC, exp(cs[q]) S_in^T dy[q],
+        // opens the slots of query tiles j1 and j2
+        for (int s = 0; s < (two ? 2 : 1); ++s) {
+          const int q0 = (s ? j2 : j1) * kT;
+          double acc[NBC][4] = {};
+          mma_tile<NBC, true>(acc, dq(s) + m0 * PA, PA, sin + nc0 * PA, PA,
+                              P);
+          scale_rows(acc, expf(cum[q0 + m0 + lg]),
+                     expf(cum[q0 + m0 + lg + 8]));
+          store_rows(slot(q0 / kT), N, acc, m0, nc0, kT);
+        }
+      }
+      repro::cp_async_wait<1>();
+    } else {
+      stage_query(0, kj);
+      repro::cp_async_commit();
+      repro::cp_async_wait<1>();
     }
     __syncthreads();
-    warp_mma<NTX, false>(dxa, sw + m0 * SP, SP, dq + p0, PA, kT);
-    warp_mma<NTB, false>(dba, dw + m0 * SP, SP, cq + n0, NA, kT);
-    __syncthreads();             // the stages are free
-  }
-
-  // this head's dB rows
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int k = k0 + m0 + lg + 8 * hf;
-    if (k < rows) {
-#pragma unroll
-      for (int j = 0; j < NTB; ++j)
-        *reinterpret_cast<float2*>(
-            dBh + ((size_t(b) * S + c0 + k) * H + h) * N + n0 + 8 * j +
-            2 * lt) = make_float2(float(dba[j][2 * hf]),
-                                  float(dba[j][2 * hf + 1]));
-    }
-  }
-  // dxdt through shared memory (sw is free), then dx and the row terms
-  float* gx = sw;
-#pragma unroll
-  for (int j = 0; j < NTX; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      gx[(m0 + lg + 8 * (e / 2)) * SP + p0 + 8 * j + 2 * lt + e % 2] =
-          float(dxa[j][e]);
-  __syncthreads();
-  for (int r = warp; r < kT && k0 + r < rows; r += kThreads / 32) {
-    const int t = k0 + r;
-    const size_t at = xoff + size_t(t) * xrow;
-    double u = 0.0, v = 0.0;
-    for (int p = lane; p < P; p += 32) {
-      const float gp = gx[r * SP + p];
-      dx[at + p] = gp * dts[t];
-      u += double(x[at + p]) * gp;
-      v += double(dy[at + p]) * y[at + p];
-    }
-    u = warp_sum_d(u);
-    v = warp_sum_d(v);
-    if (lane == 0) {
-      const size_t o = size_t(bh) * S + c0 + t;
-      u_out[o] = u;
-      r_out[o] = v - double(dts[t]) * u;
-    }
-  }
-}
-
-// Pass 4: the 64 query rows qi of chunk c of (b, h): the head's dC rows.
-template <int P, int N>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_query(const float* __restrict__ x, const float* __restrict__ dt,
-              const float* __restrict__ A, const float* __restrict__ Bm,
-              const float* __restrict__ dy, const float* __restrict__ states,
-              float* __restrict__ dCh, int S, int H, int G, int chunk,
-              int nc) {
-  using L = Bwd<P, N>;
-  constexpr int PA = L::kPA, NB = L::kNB, SP = L::kSP;
-  constexpr int NTB = N / 16;     // n-tiles of dC a warp
-  extern __shared__ __align__(16) float smem[];
-  float* dq = smem;                // (kT, PA) dy of the query rows
-  float* xk = dq + kT * PA;        // (kT, PA) xdt of a key tile
-  float* bk = xk + kT * PA;        // (kT, NB) B of a key tile
-  float* dw = bk + kT * NB;        // (kT, SP) weighted dy.xdt^T, rows q
-  float* cum = dw + kT * SP;
-  float* dts = cum + kMaxChunk;
-  float* sin = xk;                 // (N, PA) S_in, before the key tiles
-
-  const int nt = chunk / kT, n_bhc = gridDim.x / nt;
-  const int qi = nt - 1 - blockIdx.x / n_bhc;   // longest first
-  const int bhc = blockIdx.x % n_bhc, c = bhc % nc, bh = bhc / nc;
-  const int b = bh / H, h = bh % H, g = h / (H / G);
-  const int c0 = c * chunk, rows = min(chunk, S - c0);
-  const int q0 = qi * kT;
-  if (q0 >= rows) return;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int lg = lane / 4, lt = lane % 4;
-  const int m0 = 16 * (warp % 4), half = warp / 4;
-  const int n0 = N / 2 * half, s0 = 32 * half;
-  const size_t xrow = size_t(H) * P, brow = size_t(G) * N;
-  const size_t xoff = (size_t(b) * S + c0) * xrow + size_t(h) * P;
-  const float* bb = Bm + (size_t(b) * S + c0) * brow + size_t(g) * N;
-
-  stage_async<P>(dq, PA, dy + xoff + size_t(q0) * xrow, xrow, rows - q0);
-  stage_async<P, N>(sin, PA, states + ((size_t(b) * nc + c) * H + h) * P * N,
-                    P, N);
-  repro::cp_async_commit();
-  chunk_cumsum(cum, dts, dt + (size_t(b) * S + c0) * H + h, H, A[h], chunk,
-               rows);
-  repro::cp_async_wait<0>();
-  __syncthreads();
-
-  // the carried-in state's term: exp(cs[q]) S_in^T dy[q]
-  double dca[NTB][4] = {};
-  warp_mma<NTB, true>(dca, dq + m0 * PA, PA, sin + n0 * PA, PA, P);
-  scale_rows(dca, expf(cum[q0 + m0 + lg]), expf(cum[q0 + m0 + lg + 8]));
-  __syncthreads();               // xdt and B overwrite S_in
-
-  for (int kj = 0; kj <= qi; ++kj) {
-    const int k0 = kj * kT;
-    stage_async<P>(xk, PA, x + xoff + size_t(k0) * xrow, xrow, rows - k0);
-    stage_async<N>(bk, NB, bb + size_t(k0) * brow, brow, rows - k0);
-    repro::cp_async_commit();
-    repro::cp_async_wait<0>();
-    __syncthreads();
-    for (int i = tid; i < kT * P; i += kThreads)
+    for (int i = tid; i < kT * P; i += NTH)
       xk[(i / P) * PA + i % P] *= dts[k0 + i / P];
     __syncthreads();
+
+    // the state terms: B dS_out^T and xdt dS_out, each row decayed by
+    // exp(cs[Q-1] - cs[k])
+    double dxa[NX][4] = {}, dba[NBC][4] = {};
+    mma_tile<NX, false>(dxa, bk + m0 * NA, NA, dso + px0, PA, N);
+    if (has_b)
+      mma_tile<NBC, true>(dba, xk + m0 * PA, PA, dso + nb0 * PA, PA, P);
     {
-      double dd[4][4] = {};
-      warp_mma<4, true>(dd, dq + m0 * PA, PA, xk + s0 * PA, PA, P);
-      store_weighted(dw, dd, cum, m0, s0, q0, k0, true);
+      const float last = cum[chunk - 1];
+      const float f0 = expf(last - cum[k0 + m0 + lg]);
+      const float f1 = expf(last - cum[k0 + m0 + lg + 8]);
+      scale_rows(dxa, f0, f1);
+      scale_rows(dba, f0, f1);
     }
-    __syncthreads();
-    warp_mma<NTB, false>(dca, dw + m0 * SP, SP, bk + n0, NB, kT);
-    __syncthreads();             // the stages are free
-  }
+
+    const int nq = ntv - kj;
+    for (int i = 0; i < nq; ++i) {
+      const int qi = kj + i, q0 = qi * kT, st = i & 1;
+      __syncthreads();           // tile pair i - 1 is done with its stage
+      if (i + 1 < nq) stage_query(st ^ 1, qi + 1);
+      repro::cp_async_commit();
+      repro::cp_async_wait<1>();
+      __syncthreads();
+      const float* cqs = cq(st);
+      const float* dqs = dq(st);
+      {
+        // warp (m, qc): rows 16 m (keys), columns 16 qc (queries) of the
+        // raw C.B^T and dy.xdt^T in one loop, both weighed by one
+        // exp(cs[q] - cs[k])
+        constexpr int KSD = N < P ? N : P;
+        double sa[2][4] = {}, da[2][4] = {};
+        const float* ba = bk + m0 * NA;
+        const float* xa = xk + m0 * PA;
+        const float* cbt = cqs + 16 * qc * NA;
+        const float* dbt = dqs + 16 * qc * PA;
+        mma_dual<2, true, false, 2, true, false>(sa, ba, NA, cbt, NA, da, xa,
+                                                 PA, dbt, PA, KSD);
+        if constexpr (N > KSD)
+          mma_tile<2, true>(sa, ba + KSD, NA, cbt + KSD, NA, N - KSD);
+        if constexpr (P > KSD)
+          mma_tile<2, true>(da, xa + KSD, PA, dbt + KSD, PA, P - KSD);
+        const int t = lane % 4;
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int q = q0 + m0 + lg + 8 * hf;
-    if (q < rows) {
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = m0 + lg + 8 * hf;
+          const float ck = cum[k0 + r];
 #pragma unroll
-      for (int j = 0; j < NTB; ++j)
-        *reinterpret_cast<float2*>(
-            dCh + ((size_t(b) * S + c0 + q) * H + h) * N + n0 + 8 * j +
-            2 * lt) = make_float2(float(dca[j][2 * hf]),
-                                  float(dca[j][2 * hf + 1]));
+          for (int j = 0; j < 2; ++j) {
+            const int col = 16 * qc + 8 * j + 2 * t;
+            const double w0 = k0 + r <= q0 + col
+                                  ? double(expf(cum[q0 + col] - ck)) : 0.0;
+            const double w1 = k0 + r <= q0 + col + 1
+                                  ? double(expf(cum[q0 + col + 1] - ck))
+                                  : 0.0;
+            *reinterpret_cast<double2*>(sw + r * kSP + col) =
+                make_double2(sa[j][2 * hf] * w0, sa[j][2 * hf + 1] * w1);
+            *reinterpret_cast<double2*>(dw + r * kSP + col) =
+                make_double2(da[j][2 * hf] * w0, da[j][2 * hf + 1] * w1);
+          }
+        }
+      }
+      __syncthreads();
+      // the key side (dxdt, dB), unless skip_tile drops the diagonal
+      // tile, and the query side (dC) from the same weighted tiles
+      const bool keys = !(skip_tile && qi == kj);
+      const bool add = kk == 1 || qi == j1 || (two && qi == j2);
+      // an open slot's rows load under the dxdt products
+      float2 was[NBC][2];
+#pragma unroll
+      for (int j = 0; j < NBC; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          was[j][hf] = has_c && add
+                           ? *reinterpret_cast<const float2*>(
+                                 slot(qi) + (m0 + lg + 8 * hf) * N + nc0 +
+                                 8 * j + 2 * (lane % 4))
+                           : make_float2(0.f, 0.f);
+      if (keys)
+        mma_tile<NX, false>(dxa, sw + m0 * kSP, kSP, dqs + px0, PA, kT);
+      double acc[NBC][4];
+#pragma unroll
+      for (int j = 0; j < NBC; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          acc[j][2 * hf] = was[j][hf].x;
+          acc[j][2 * hf + 1] = was[j][hf].y;
+        }
+      if (N >= 32 && keys)
+        mma_dual<NBC, false, false, NBC, false, true>(
+            dba, dw + m0 * kSP, kSP, cqs + nb0, NA, acc, dw + m0, kSP,
+            bk + nc0, NA, kT);
+      else if (has_b && keys)
+        mma_tile<NBC, false>(dba, dw + m0 * kSP, kSP, cqs + nb0, NA, kT);
+      else if (has_c)
+        mma_tile<NBC, false, true>(acc, dw + m0, kSP, bk + nc0, NA, kT);
+      if (has_c) store_rows(slot(qi), N, acc, m0, nc0, kT);
     }
+
+    // this head's dB rows
+    if (has_b)
+      store_rows(dBh + ((size_t(b) * S + c0 + k0) * H + h) * N,
+                 size_t(H) * N, dba, m0, nb0, rows - k0);
+    // and its dxdt rows, which pass 4 turns into dx and the rows' terms
+    store_rows(dx + xoff + size_t(k0) * xrow, xrow, dxa, m0, px0, rows - k0);
+    __syncthreads();             // the key tile, stages and S_in's room
   }
 }
 
-// Pass 5: chunk c of (b, h): <dS_out, S_out>, the reverse cumsum of dcs
-// to d(dt A), ddt, and the chunk's share of dA (fp64).  S_out is the next
+// Pass 4: chunk c of (b, h): the rows' terms of dcs (r = dy.y - xdt.dxdt)
+// and of ddt (u = x.dxdt) from the dxdt rows pass 3 left in dx (P <= 64),
+// which become dx = dxdt dt; <dS_out, S_out>; the reverse cumsum of dcs to
+// d(dt A), ddt, and the chunk's share of dA (fp64).  S_out is the next
 // chunk's incoming state (N, P) or, for the last chunk, fin (P, N).
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_dt(const float* __restrict__ dt, const float* __restrict__ A,
+ssd_bwd_dt(const float* __restrict__ x, const float* __restrict__ y,
+           const float* __restrict__ dy, float* __restrict__ dx,
+           const float* __restrict__ dt, const float* __restrict__ A,
            const float* __restrict__ states, const float* __restrict__ fin,
-           const float* __restrict__ dstates, const double* __restrict__ r_in,
-           const double* __restrict__ u_in, float* __restrict__ ddt,
+           const float* __restrict__ dstates, float* __restrict__ ddt,
            double* __restrict__ dA_part, int S, int H, int P, int N,
            int chunk, int nc) {
   __shared__ double red[kThreads / 32];
+  __shared__ double rs[kMaxChunk], us[kMaxChunk];
   const int c = blockIdx.x % nc, bh = blockIdx.x / nc;
   const int b = bh / H, h = bh % H;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -469,6 +584,45 @@ ssd_bwd_dt(const float* __restrict__ dt, const float* __restrict__ A,
     e += double(dso[i]) * (last ? so[(i % P) * N + i / P] : so[i]);
   e = warp_sum_d(e);
   if (lane == 0) red[warp] = e;
+  // warp w: rows w, w + 8, ..., kR of them loaded at once (P <= 64)
+  constexpr int kW = kThreads / 32, kR = 4;
+  for (int t0 = warp; t0 < rows; t0 += kR * kW) {
+    float xv[kR][2], gv[kR][2], dyv[kR][2], yv[kR][2], dv[kR];
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int t = t0 + i * kW;
+      const size_t row = size_t(b) * S + c0 + t, at = (row * H + h) * P;
+      dv[i] = t < rows ? dt[row * H + h] : 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = lane + 32 * e;
+        const bool in = t < rows && q < P;
+        xv[i][e] = in ? x[at + q] : 0.f;
+        gv[i][e] = in ? dx[at + q] : 0.f;
+        dyv[i][e] = in ? dy[at + q] : 0.f;
+        yv[i][e] = in ? y[at + q] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int t = t0 + i * kW;
+      const size_t row = size_t(b) * S + c0 + t, at = (row * H + h) * P;
+      double u = 0.0, v = 0.0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        u += double(xv[i][e]) * gv[i][e];
+        v += double(dyv[i][e]) * yv[i][e];
+        if (t < rows && lane + 32 * e < P)
+          dx[at + lane + 32 * e] = gv[i][e] * dv[i];
+      }
+      u = warp_sum_d(u);
+      v = warp_sum_d(v);
+      if (lane == 0 && t < rows) {
+        us[t] = u;
+        rs[t] = v - double(dv[i]) * u;
+      }
+    }
+  }
   __syncthreads();
   if (warp) return;
   e = lane < kThreads / 32 ? red[lane] : 0.0;
@@ -476,14 +630,13 @@ ssd_bwd_dt(const float* __restrict__ dt, const float* __restrict__ A,
 
   // warp 0: lane l owns rows [l per, (l + 1) per); suffix sums in fp64
   const int per = chunk / 32;
-  const size_t o = size_t(bh) * S + c0;
   double suf[kMaxChunk / 32];
   double run = 0.0;
 #pragma unroll
   for (int i = kMaxChunk / 32 - 1; i >= 0; --i) {
     if (i < per) {
       const int t = lane * per + i;
-      run += t < rows ? r_in[o + t] : 0.0;
+      run += t < rows ? rs[t] : 0.0;
       suf[i] = run;
     }
   }
@@ -502,7 +655,7 @@ ssd_bwd_dt(const float* __restrict__ dt, const float* __restrict__ A,
     if (i < per && t < rows) {
       const double da = suf[i] + after + e;
       const size_t row = size_t(b) * S + c0 + t;
-      ddt[row * H + h] = float(double(a) * da + u_in[o + t]);
+      ddt[row * H + h] = float(double(a) * da + us[t]);
       part += double(dt[row * H + h]) * da;
     }
   }
@@ -510,25 +663,41 @@ ssd_bwd_dt(const float* __restrict__ dt, const float* __restrict__ A,
   if (lane == 0) dA_part[size_t(bh) * nc + c] = part;
 }
 
-// Pass 6: dB and dC, (B, S, G, N), summed over the group's heads from
-// (B, S, H, N); dA (H,) over batch and chunks; fp64, in order.
+// Pass 5: dB (B, S, G, N) summed over the group's heads from (B, S, H, N);
+// dC, for a row of query tile qi, over the slots of pairs 0..min(qi,
+// pairs - 1) and in each over the group's heads; dA (H,) over batch and
+// chunks; fp64, in order.
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_reduce(const float* __restrict__ dBh, const float* __restrict__ dCh,
+ssd_bwd_reduce(const float* __restrict__ dBh, const float* __restrict__ dCs,
                const double* __restrict__ dA_part, float* __restrict__ dB,
                float* __restrict__ dC, float* __restrict__ dA, int Bt, int S,
-               int H, int G, int N, int nc) {
+               int H, int G, int N, int chunk, int nc) {
   const size_t per = size_t(Bt) * S * G * N;
   const size_t e = size_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (e < 2 * per) {
-    const float* src = e < per ? dBh : dCh;
-    float* dst = e < per ? dB : dC;
-    const size_t i = e % per;
-    const size_t bs = i / (size_t(G) * N), g = i / N % G, n = i % N;
-    const int rep = H / G;
+  const int rep = H / G;
+  if (e < per) {
+    const size_t bs = e / (size_t(G) * N), g = e / N % G, n = e % N;
     double s = 0.0;
+#pragma unroll 8
     for (int k = 0; k < rep; ++k)
-      s += src[(bs * H + g * rep + k) * N + n];
-    dst[i] = float(s);
+      s += dBh[(bs * H + g * rep + k) * N + n];
+    dB[e] = float(s);
+  } else if (e < 2 * per) {
+    const size_t i = e - per;
+    const size_t bs = i / (size_t(G) * N), g = i / N % G, n = i % N;
+    const int b = int(bs / S), t = int(bs % S), c = t / chunk;
+    const int qi = t % chunk / kT, r = t % kT, T = chunk / kT;
+    const int last = min(qi, (T + 1) / 2 - 1), nsl = n_slots(T);
+    const size_t head = size_t(nsl) * kT * N;
+    const float* sl = dCs + ((size_t(b) * nc + c) * H + g * rep) * head +
+                      size_t(r) * N + n;
+    double s = 0.0;
+    for (int p = 0; p <= last; ++p) {
+      const float* at = sl + size_t(slot_of(p, qi, T)) * kT * N;
+#pragma unroll 8
+      for (int k = 0; k < rep; ++k) s += at[k * head];
+    }
+    dC[i] = float(s);
   } else if (e < 2 * per + H) {
     const int h = int(e - 2 * per);
     double s = 0.0;
@@ -548,22 +717,18 @@ int launch(const float* x, const float* dt, const float* A, const float* Bm,
            float* ws, int Bt, int S, int H, int G, int chunk, int no_carry,
            int skip_tile, cudaStream_t stream) {
   using L = Bwd<P, N>;
-  const int nc = (S + chunk - 1) / chunk;
-  const size_t BHS = size_t(Bt) * H * S;
-  // fp64 rows first, then fp32 (every part a multiple of 16 bytes)
-  double* r = reinterpret_cast<double*>(ws);      // (B, H, S)
-  double* u = r + align4(BHS);                    // (B, H, S)
-  double* part = u + align4(BHS);                 // (B, H, nc)
+  const int nc = (S + chunk - 1) / chunk, T = chunk / kT;
+  // fp64 first, then fp32 (every part a multiple of 16 bytes)
+  double* part = reinterpret_cast<double*>(ws);   // (B, H, nc)
   float* dstates = reinterpret_cast<float*>(part + align4(size_t(Bt) * H * nc));
   float* cs_last = dstates + size_t(Bt) * nc * H * P * N;   // (B, H, nc)
   float* dBh = cs_last + align4(size_t(Bt) * H * nc);       // (B, S, H, N)
-  float* dCh = dBh + size_t(Bt) * S * H * N;                // (B, S, H, N)
+  float* dCs = dBh + size_t(Bt) * S * H * N;   // (B, nc, H, slots, kT, N)
   cudaError_t err = allow_smem(ssd_bwd_dstate<P, N>, L::kDstateBytes);
-  if (err == cudaSuccess) err = allow_smem(ssd_bwd_key<P, N>, L::kKeyBytes);
   if (err == cudaSuccess)
-    err = allow_smem(ssd_bwd_query<P, N>, L::kQueryBytes);
+    err = allow_smem(ssd_bwd_pair<P, N>, L::kPairBytes);
   if (err != cudaSuccess) return int(err);
-  const unsigned bhc = unsigned(Bt * H * nc), tiles = unsigned(chunk / kT);
+  const unsigned bhc = unsigned(Bt * H * nc);
   ssd_bwd_dstate<P, N><<<bhc, kThreads, L::kDstateBytes, stream>>>(
       dy, dt, A, Cm, dstates, cs_last, S, H, G, chunk, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
@@ -572,19 +737,19 @@ int launch(const float* x, const float* dt, const float* A, const float* Bm,
                        0, stream>>>(dstates, cs_last, dfin, dinit, Bt, H, P,
                                     N, nc, no_carry);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  ssd_bwd_key<P, N><<<bhc * tiles, kThreads, L::kKeyBytes, stream>>>(
-      x, dt, A, Bm, Cm, y, dy, dstates, dx, dBh, r, u, S, H, G, chunk, nc,
-      skip_tile);
+  ssd_bwd_pair<P, N><<<bhc * unsigned((T + 1) / 2), kPairThreads,
+                       L::kPairBytes, stream>>>(
+      x, dt, A, Bm, Cm, dy, states, dstates, dx, dBh, dCs, S, H, G, chunk,
+      nc, skip_tile);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  ssd_bwd_query<P, N><<<bhc * tiles, kThreads, L::kQueryBytes, stream>>>(
-      x, dt, A, Bm, dy, states, dCh, S, H, G, chunk, nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  ssd_bwd_dt<<<bhc, kThreads, 0, stream>>>(dt, A, states, fin, dstates, r, u,
-                                           ddt, part, S, H, P, N, chunk, nc);
+  ssd_bwd_dt<<<bhc, kThreads, 0, stream>>>(x, y, dy, dx, dt, A, states, fin,
+                                           dstates, ddt, part, S, H, P, N,
+                                           chunk, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   const size_t red = 2 * size_t(Bt) * S * G * N + H;
   ssd_bwd_reduce<<<unsigned((red + kThreads - 1) / kThreads), kThreads, 0,
-                   stream>>>(dBh, dCh, part, dB, dC, dA, Bt, S, H, G, N, nc);
+                   stream>>>(dBh, dCs, part, dB, dC, dA, Bt, S, H, G, N,
+                             chunk, nc);
   return int(cudaGetLastError());
 }
 
@@ -598,14 +763,14 @@ extern "C" {
 // (B, H, P, N); the gradients dy (B, S, H, P) and dfin (B, H, P, N) or
 // null (no gradient of the final state).  Writes dx, ddt, dA (H,), dB,
 // dC, and dinit (B, H, P, N) unless null.  ws: the fp32 workspace of
-// ssd_scan.bwd_workspace_floats (nc = ceil(S / chunk)): 2 B H S + B H nc
-// doubles (each part rounded up to 16 bytes), then B nc H N P + B H nc
-// (rounded) + 2 B S H N floats.  All fp32, contiguous, 16-byte aligned;
-// chunk in {64, 128, 256}; G divides H; no_carry, skip_tile: 0, or
-// planted faults (no gradient passed between chunks; the diagonal query
-// tile left out of the key side).  Six launches on
-// `stream`.  Returns
-// a cudaError_t (0 = launched).
+// ssd_scan.bwd_workspace_floats (nc = ceil(S / chunk), T = chunk / 64,
+// slots = n_slots(T): 1, 2, 7 at T = 1, 2, 4): B H nc doubles (rounded
+// up to 16 bytes), then B nc H N P + B H nc (rounded) + B S H N + B nc H
+// slots 64 N floats.  All fp32, contiguous, 16-byte
+// aligned; chunk in {64, 128, 256}; G divides H; no_carry, skip_tile: 0,
+// or planted faults (no gradient passed between chunks; the diagonal
+// query tile left out of the key side).  Five launches on `stream`.
+// Returns a cudaError_t (0 = launched).
 int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* Bm,
                  const void* Cm, const void* y, const void* states,
                  const void* fin, const void* dy, const void* dfin, void* dx,

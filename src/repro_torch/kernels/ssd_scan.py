@@ -25,10 +25,11 @@ chunk to a tensor of its own (``return_states`` hands it to the caller).
 
 Backward: the Pallas kernel has none (the JAX package differentiates
 its jnp mirror ``ssd_chunked`` with XLA).  ``csrc/ssd_scan_bwd.cu`` is
-the chunked backward (six launches: each chunk's term of the incoming
+the chunked backward (five launches: each chunk's term of the incoming
 state's gradient, the state gradients passed back over the chunks, the
-key-side and query-side intra-chunk products, dt and dA, the sums over
-a group's heads; its header has the formulas and the bound), and
+intra-chunk products of each pair of key tiles, whose one decayed tile
+gives both the key side and the query side, dt and dA, the sums over a
+group's heads; its header has the formulas and the bound), and
 :func:`ssd_scan_bwd_plain` the same passes in plain PyTorch.
 :class:`SSDScan` is the gradient route: its forward keeps the inputs,
 ``y``, the final state and the chunk states, and its backward runs
@@ -253,17 +254,29 @@ def workspace_floats(B: int, S: int, H: int, P: int, N: int, G: int,
     return _align4(B * H * nc) + B * G * nc * T * (T + 1) // 2 * 64 * 64
 
 
+def bwd_slots(chunk: int) -> int:
+    """dC slots of one (batch, chunk, head) in the backward (``csrc``
+    ``n_slots``): pair p of the ``ceil(T / 2)`` (key tiles p and T - 1 -
+    p, ``T = chunk / 64``) writes one for each query tile at or after p:
+    1, 2 and 7 at chunk 64, 128 and 256."""
+    T = chunk // 64
+    pairs = (T + 1) // 2
+    return pairs * T - pairs * (pairs - 1) // 2
+
+
 def bwd_workspace_floats(B: int, S: int, H: int, P: int, N: int, G: int,
                          chunk: int) -> int:
     """fp32 workspace of one backward call (``csrc`` ``ssd_scan_bwd``):
-    fp64 rows ``r`` and ``u`` ``(B, H, S)`` and each chunk's share of dA
-    ``(B, H, nc)``; then fp32 state gradients ``(B, nc, H, N, P)``, decay
-    logs ``(B, H, nc)`` and each head's dB and dC rows ``(B, S, H, N)``;
-    every part rounded up to 16 bytes."""
+    each chunk's share of dA ``(B, H, nc)`` in fp64; then fp32 state
+    gradients ``(B, nc, H, N, P)``, decay logs ``(B, H, nc)``, each
+    head's dB rows ``(B, S, H, N)`` and each head's dC slots ``(B, nc, H,
+    slots, 64, N)`` (:func:`bwd_slots`: at chunk 256, 7 tiles of 64 rows
+    for a chunk's 4, so 1.75 x a head's dC rows); every part rounded up
+    to 16 bytes."""
     nc = -(-S // chunk)
-    doubles = 2 * _align4(B * H * S) + _align4(B * H * nc)
-    return (2 * doubles + B * nc * H * N * P + _align4(B * H * nc)
-            + 2 * B * S * H * N)
+    return (2 * _align4(B * H * nc) + B * nc * H * N * P
+            + _align4(B * H * nc) + B * S * H * N
+            + B * nc * H * bwd_slots(chunk) * 64 * N)
 
 
 def grid_ctas(B: int, S: int, H: int, P: int, N: int, chunk: int

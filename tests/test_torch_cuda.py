@@ -1541,7 +1541,7 @@ def _ssd_grad_err(got, want) -> float:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,chunk", [(2048, 256), (1000, 128), (321, 64),
-                                     (50, 64)])
+                                     (50, 64), (898, 256), (193, 128)])
 @pytest.mark.parametrize("P,N,H,G,ends", [(64, 128, 8, 1, False),
                                           (32, 16, 8, 2, True),
                                           (64, 16, 10, 1, True)])
@@ -1550,8 +1550,10 @@ def test_ssd_bwd_kernel_matches_plain(dev, S, chunk, P, N, H, G, ends):
     an initial state, its gradient; from a gradient of the final state
     or none) against the plain backward in fp64, row by row at the
     forward's 1e-3: ragged S, one chunk or many, grouped B/C, each
-    (head_dim, state) the kernel is built for; repeated launches are
-    bitwise equal (no atomics)."""
+    (head_dim, state) the kernel is built for, and last chunks where a
+    CTA's second key tile is partial or empty (898 at chunk 256: tile 2
+    holds 2 rows, tile 3 none; 193 at 128: tile 1 holds one row);
+    repeated launches are bitwise equal (no atomics)."""
     ins, s0, dy, dfin, y, fin, states = _ssd_bwd_case(
         dev, S + chunk + P + N, 2, S, H, P, N, G, chunk, ends)
     want = _ssd_bwd_want(ins, s0, dy, dfin, chunk)
@@ -1567,10 +1569,13 @@ def test_ssd_bwd_kernel_matches_plain(dev, S, chunk, P, N, H, G, ends):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,N", [(8, 128), (10, 16)])
 @pytest.mark.parametrize("fault", ["skip_tile", "no_carry"])
-def test_ssd_bwd_check_rejects_planted_faults(dev, fault):
+def test_ssd_bwd_check_rejects_planted_faults(dev, fault, H, N):
+    """Each planted fault fails the row check at mamba2's and hymba's
+    (head_dim, state)."""
     ins, s0, dy, dfin, y, fin, states = _ssd_bwd_case(
-        dev, 7, 1, 1024, 8, 64, 128, 1, 256, False)
+        dev, 7, 1, 1024, H, 64, N, 1, 256, False)
     want = _ssd_bwd_want(ins, s0, dy, dfin, 256)
     bad = tssd.ssd_scan_bwd(*ins, y, states, fin, dy, chunk=256,
                             **{fault: True})

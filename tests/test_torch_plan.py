@@ -488,6 +488,33 @@ def test_family_step_estimate_is_what_autograd_keeps(name, impl, remat):
     assert got == want
 
 
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "hymba-1.5b"])
+def test_family_step_estimate_counts_the_ssd_workspace(name):
+    """With an SSM the turn holds the larger of the loss's region and the
+    SSD backward's workspace (``bwd_workspace_floats``, fp32, at the
+    plan's chunk 256; its dC slots are 7 row tiles a chunk for 4):
+    byte for byte at the full width, 2048 x 1.  At the real vocab the
+    loss's region is larger; with a vocab of 8 the workspace sets the
+    turn."""
+    from repro_torch.kernels import ssd_scan as tssd
+    arch = tcfg.get_arch(name)
+    kw = dict(tokens=2048, heads=arch.n_heads or 1,
+              kv_heads=arch.n_kv_heads or 1, state_bytes=0.0,
+              param_bytes=0.0, largest_stacked_bytes=0.0, embed_bytes=0.0,
+              remat="full")
+    est = tcm.eager_train_step_memory(arch, vocab=arch.vocab_size, **kw)
+    ws = 4 * tssd.bwd_workspace_floats(
+        1, 2048, arch.ssm_heads, arch.ssm_head_dim, arch.ssm_state,
+        arch.ssm_n_groups, 256)
+    assert est["ssd_workspace"] == ws
+    assert tssd.bwd_slots(256) == 7
+    assert est["loss"] > ws
+    small = tcm.eager_train_step_memory(arch, vocab=8, **kw)
+    assert small["peak"] == (small["state"] + small["runtime"]
+                             + max(small["saved"] + ws,
+                                   small["grads"] + small["tail"]))
+
+
 #: content hash prefixes of the plans whose estimate the families' terms
 #: leave as they were: qwen3-8b's h100-sxm train plan (2048 x 1)
 H100_TRAIN_HASHES = {"qwen3-8b": "0d26648d7bf6d690"}
