@@ -32,7 +32,9 @@ Phases (any failure exits non-zero before the last line):
 2. kernels: each kernel against its plain version at its path's widths
    (attention: 32 q heads, 8 kv heads, head_dim 128, bf16; SSD scan: 80
    heads of 64, state 128, one group, chunk 256, fp32; tiled matmul:
-   every tile it is built for, bf16 and fp32, ragged shapes), with planted
+   every tile it is built for, bf16 and fp32, ragged shapes; fp32 also
+   against fp64, at mamba2's out_proj shapes with a TF32 control and a
+   bitwise repeat), with planted
    faults that must fail the same check, then its time, the plain
    version's, one library call's where one exists (a yardstick the port
    never calls) and the bound (bytes at 3.35 TB/s or operations at the
@@ -166,9 +168,10 @@ name and power limit.
 
 Run from the repository root:  python3 chip_smoke.py
 
-``--only flash_bwd`` (``ssd_bwd``) runs the flash (SSD scan) backward's
-check and timings alone (:func:`flash_bwd_check`, :func:`ssd_bwd_check`)
-and prints its result as one JSON line.
+``--only flash_bwd`` (``ssd_bwd``, ``matmul_fp32``) runs the flash
+(SSD scan) backward's or the fp32 tiled matmul's check and timings alone
+(:func:`flash_bwd_check`, :func:`ssd_bwd_check`,
+:func:`matmul_fp32_check`) and prints its result as one JSON line.
 ``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
 as a parent commit's unpacked with ``git archive``: run two trees in
 alternating processes (parent, change, change, parent) to compare them
@@ -196,6 +199,7 @@ PLAN_DIR = ROOT / "build" / "plans"     # the plan store of this run
 
 PEAK_BF16 = 989e12          # H100 SXM data sheet, dense bf16 tensor core
 PEAK_FP32 = 67e12           # H100 SXM data sheet, fp32 on the CUDA cores
+PEAK_TF32 = 495e12          # H100 SXM data sheet, dense TF32 tensor core
 HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
 # worst row's rms |kernel - plain| / rms |plain|, a few times the error
 # measured on an H100 (flash 4.1e-3: it rounds P to bf16 for its MMAs;
@@ -216,8 +220,16 @@ GRAD_FLOOR = 0.05
 SSD_DRAWS = 8
 # tiled matmul, worst output row rms-relative and max/max: the JAX
 # tests' tolerances (bf16: both sides sum exact bf16 products in fp32
-# and round once; fp32: only the order of the sums differs, no TF32)
+# and round once; fp32: the kernel's 3xTF32 products miss fp32's by
+# ~2^-22 of a term and its sums run in another order; one TF32 product,
+# ~2^-11 of a term, fails it: the TF32-on control)
 MM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# mamba2-2.7b's fp32 y @ out_proj on a 1000-token prefill (the matmul
+# phase's) and on a 2048-token prefill or training forward
+MM_FP32_SHAPES = ((1000, 5120, 2560), (2048, 5120, 2560))
+# SASS the fp32 matmul's kernels are counted by (tensor-core products, TMA
+# loads, CUDA-core fp32 FMAs and adds, shared-memory loads and stores)
+MM_SASS_OPS = ("HGMMA", "UTMALDG", "FFMA", "FADD", "LDS", "STS")
 LOGIT_TOL = 2e-2            # small model: max |card - cpu| / max |cpu| logits
 FULL_TOL = 0.1              # rms-relative logits, full depth (see below)
 H, K, D = 32, 8, 128        # qwen3-8b attention widths
@@ -695,7 +707,8 @@ def kernel_phase(torch, dev):
     res["ssd_scan"] = ssd_kernel_check(torch, dev, g)
     res["ssd_scan"]["hymba"] = ssd_kernel_check(
         torch, dev, g, H=HSSD_H, N=HSSD_N, name=" hymba")
-    mm_worst = matmul_kernel_check(torch, dev, g)
+    mm = {"kernel_check_row_rel_err": matmul_kernel_check(torch, dev, g),
+          "fp32": matmul_fp32_check(torch, dev)}
     # the MoE archs' pairs, on a generator of their own: the draws above
     # stay as they were
     gm = torch.Generator(dev).manual_seed(SEED + 19)
@@ -715,7 +728,7 @@ def kernel_phase(torch, dev):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) at {r['shape']} "
             f"[{CARD}]")
     ops.reset_launch_counts()       # comparison launches do not count
-    return res, mm_worst
+    return res, mm
 
 
 def flash_offset_check(torch, F, fa, rnd):
@@ -1210,6 +1223,120 @@ def matmul_kernel_check(torch, dev, g):
                       f"{N}) row rel err {rel} > {tol}")
                 worst[name] = max(worst.get(name, 0.0), rel)
     return worst
+
+
+def mm_fp32_bound(M, K, N):
+    """``(bound ms, by, FFMA ms)`` of an fp32 (M, K) @ (K, N): the larger
+    of its bytes at 3.35 TB/s and the kernel's three TF32 products (3 x
+    2 MKN) at :data:`PEAK_TF32`, and beside it the 2 MKN at the CUDA
+    cores' :data:`PEAK_FP32` (the FFMA design's bound)."""
+    b_ms, by = bound(4 * (M * K + K * N + M * N), 3 * 2 * M * K * N,
+                     PEAK_TF32)
+    return b_ms, by, 2 * M * K * N / PEAK_FP32 * 1e3
+
+
+def rows64(torch, got, want):
+    """The worst row's rms-relative error and max |error| / max |want|,
+    in fp64."""
+    got, want = got.double(), want.double()
+    check(bool(torch.isfinite(got).all()), "kernel output is not finite")
+    e = got - want
+    rel = e.pow(2).mean(1).sqrt() / want.pow(2).mean(1).sqrt().clamp_min(
+        1e-30)
+    return float(rel.max()), float(e.abs().max() / want.abs().max())
+
+
+def matmul_fp32_check(torch, dev):
+    """The fp32 tiled matmul on its own generator: every tile at ragged
+    shapes (one row, K = 8, K = 0) against the fp32 plain version and an
+    fp64 product (the worst row and max/max at 1e-5); at
+    :data:`MM_FP32_SHAPES` the same against fp64 beside ``torch.matmul``'s
+    own fp32 error, a control (``torch.matmul`` with TF32 on, which the
+    check must fail), a repeated call bitwise equal; then each shape timed
+    in turns with ``torch.matmul`` (TF32 off), beside its bound and the
+    FFMA bound.  Only ``tiled_matmul(a, b, tiles=...)`` is called, so
+    ``--src`` can run a parent tree; a tree whose wrapper takes
+    ``splits`` also times each split count."""
+    import inspect
+
+    from repro_torch.kernels import tiled_matmul as mm
+
+    g = torch.Generator(dev).manual_seed(SEED + 23)
+    tol = MM_TOL["float32"]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def held(label, got, a, b):
+        r32 = rows64(torch, got, mm.tiled_matmul_plain(a, b))
+        r64 = rows64(torch, got, a.double() @ b.double())
+        log(f"kernel tiled_matmul fp32 {label}: worst row rel / max/max "
+            f"{r32[0]:.3e} / {r32[1]:.3e} against fp32, {r64[0]:.3e} / "
+            f"{r64[1]:.3e} against fp64 (tol {tol}) [{CARD}]")
+        check(max(*r32, *r64) <= tol, f"tiled_matmul fp32 {label}: "
+              f"{r32} against fp32, {r64} against fp64 > {tol}")
+        return max(r64)
+
+    out = {"ragged_fp64_rel_err": 0.0, "shapes": []}
+    for tiles in mm.KERNEL_TILES:
+        for M, K, N in ((1, 64, 8), (130, 8, 136), (300, 584, 1000),
+                        (4, 0, 64)):
+            a, b = rnd(M, K), rnd(K, N)
+            got = mm.tiled_matmul(a, b, tiles=tiles)
+            if K == 0:
+                check(bool((got == 0).all()) and got.shape == (M, N),
+                      f"tiled_matmul fp32 {tiles} K=0 is not zeros")
+                continue
+            out["ragged_fp64_rel_err"] = max(out["ragged_fp64_rel_err"], held(
+                f"tiles={tiles} ({M}, {K}, {N})", got, a, b))
+    t = mm.DEFAULT_TILES
+    split_param = "splits" in inspect.signature(mm.tiled_matmul).parameters
+    for M, K, N in MM_FP32_SHAPES:
+        a, b = rnd(M, K), rnd(K, N)
+        got = mm.tiled_matmul(a, b, tiles=t)
+        err64 = held(f"tiles={t} ({M}, {K}, {N})", got, a, b)
+        want64 = a.double() @ b.double()
+        lib64 = rows64(torch, torch.matmul(a, b), want64)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = rows64(torch, torch.matmul(a, b), want64)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        log(f"control tiled_matmul fp32 ({M}, {K}, {N}): torch.matmul with "
+            f"TF32 on errs {tf32[0]:.3e} / {tf32[1]:.3e} against fp64 (must "
+            f"exceed tol {tol}); TF32 off {lib64[0]:.3e} / {lib64[1]:.3e} "
+            f"[{CARD}]")
+        check(max(tf32) > tol, f"the TF32-on control passed the fp32 check "
+              f"({tf32} <= {tol})")
+        again = mm.tiled_matmul(a, b, tiles=t)
+        check(torch.equal(got, again), f"tiled_matmul fp32 ({M}, {K}, {N}): "
+              "a repeated call is not bitwise equal")
+        del got, again, want64
+        fns = {"kernel": lambda: mm.tiled_matmul(a, b, tiles=t),
+               "library": lambda: torch.matmul(a, b)}
+        if split_param:
+            for s in range(1, mm.MAX_SPLITS + 1):
+                fns[f"splits={s}"] = (
+                    lambda s=s: mm.tiled_matmul(a, b, tiles=t, splits=s))
+        med, rounds = in_turns(torch, fns)
+        plain = time_ms(torch, lambda: mm.tiled_matmul_plain(a, b), iters=5)
+        b_ms, b_by, ffma_ms = mm_fp32_bound(M, K, N)
+        splits = (mm.fp32_splits(M, K, N, t, torch.cuda.get_device_properties(
+            dev).multi_processor_count) if split_param else None)
+        log(f"timing tiled_matmul fp32 ({M}, {K}, {N}) tiles={t} splits="
+            f"{splits}: kernel {med['kernel']:.4f} ms, torch.matmul "
+            f"{med['library']:.4f} ms, plain {plain:.4f} ms (medians of "
+            f"{TURNS} turns: " + ", ".join(
+                f"{n} {fmt(r)}" for n, r in rounds.items()) + f"), bound "
+            f"{b_ms:.4f} ms ({b_by}; operations: 3 TF32 products at 495 "
+            f"TFLOP/s), FFMA bound {ffma_ms:.4f} ms (67 TFLOP/s) [{CARD}]")
+        out["shapes"].append(dict(
+            M=M, K=K, N=N, tiles=list(t), splits=splits, ms=med["kernel"],
+            library_ms=med["library"], plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, ffma_bound_ms=ffma_ms, turns_ms=rounds,
+            fp64_rel_err=err64, library_fp64_rel_err=max(lib64),
+            tf32_control_rel_err=max(tf32)))
+    return out
 
 
 def ssd_kernel_check(torch, dev, g, H=SSD_H, P=SSD_P, N=SSD_N, G=SSD_G,
@@ -3892,6 +4019,25 @@ def matmul_path_phase(torch, dev, plans, shapes):
             f"rel={maxrel:.3e} (tol {tol}) [{CARD}]")
         check(rel <= tol and maxrel <= tol, f"matmul {name}: row rel {rel}, "
               f"max/max {maxrel} > {tol}")
+        extra = {}
+        if dt == "float32":     # against fp64, beside the TF32-on control
+            want64 = a.double() @ b.double()
+            r64 = rows64(torch, out, want64)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = rows64(torch, torch.matmul(a, b), want64)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            del want64
+            log(f"check matmul {name}: against fp64 worst row rel "
+                f"{r64[0]:.3e} max/max {r64[1]:.3e}; control torch.matmul "
+                f"with TF32 on {tf32[0]:.3e} / {tf32[1]:.3e} (must exceed "
+                f"tol {tol}) [{CARD}]")
+            check(max(r64) <= tol, f"matmul {name}: {r64} against fp64 > "
+                  f"{tol}")
+            check(max(tf32) > tol, f"matmul {name}: the TF32-on control "
+                  f"passed the check ({tf32} <= {tol})")
+            extra = dict(fp64_rel_err=max(r64), tf32_control_rel_err=max(tf32))
         idx = torch.arange(N, device=dev)
         idx[:2 * bn] = idx[:2 * bn].roll(bn)
         ctl = []
@@ -3914,21 +4060,24 @@ def matmul_path_phase(torch, dev, plans, shapes):
         ms, lib = med["kernel"], med["library"]
         plain = time_ms(torch, lambda: mm.tiled_matmul_plain(a, b), iters=5)
         e = a.element_size()
-        b_ms, b_by = bound(e * (M * K + K * N + M * N), 2 * M * K * N,
-                           PEAK_FP32 if dt == "float32" else PEAK_BF16)
+        if dt == "float32":
+            b_ms, b_by, extra["ffma_bound_ms"] = mm_fp32_bound(M, K, N)
+        else:
+            b_ms, b_by = bound(e * (M * K + K * N + M * N), 2 * M * K * N)
         log(f"timing tiled_matmul {name} ({M}, {K}, {N}) {dt} tiles={t}: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
             f"{lib:.4f} ms (medians of {TURNS} turns: kernel "
             f"{fmt(rounds['kernel'])}, torch.matmul {fmt(rounds['library'])}"
             f"), {2 * M * K * N / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms "
-            f"({b_by}) [{CARD}]")
+            f"({b_by})" + (f", FFMA bound {extra['ffma_bound_ms']:.4f} ms"
+                           if "ffma_bound_ms" in extra else "") + f" [{CARD}]")
         per.append(dict(name=name, M=M, K=K, N=N, dtype=dt, tiles=list(t),
                         ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                         bound_by=b_by, kernel_turns_ms=rounds["kernel"],
                         library_turns_ms=rounds["library"],
                         max_abs_err=err, row_rel_err=rel,
                         max_rel_err=maxrel, tolerance=tol,
-                        control_row_rel_err=min(ctl)))
+                        control_row_rel_err=min(ctl), **extra))
         if dt == "bfloat16" and "map_encode_us" not in per[0]:
             enc = build.library("tiled_matmul").tiled_matmul_map_encode_us(
                 a.data_ptr(), b.data_ptr(), M, K, N, t[0], t[1], 1000)
@@ -3962,7 +4111,7 @@ def matmul_path_phase(torch, dev, plans, shapes):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port on one NVIDIA card")
-    ap.add_argument("--only", choices=("flash_bwd", "ssd_bwd"),
+    ap.add_argument("--only", choices=("flash_bwd", "ssd_bwd", "matmul_fp32"),
                     help="run this kernel's check alone and print its "
                          "result")
     ap.add_argument("--src", type=Path, default=SRC,
@@ -4016,6 +4165,21 @@ def main(argv=None) -> int:
         log(json.dumps({"src": str(args.src), "card": CARD,
                         "ssd_scan_bwd": res}))
         return 0
+    if args.only == "matmul_fp32":
+        from repro_torch.kernels import build
+        res = matmul_fp32_check(torch, dev)
+        for kernel, regs, spills in build.ptxas_entries(
+                build.PTXAS_LOG.get("tiled_matmul", "")):
+            log(f"ptxas tiled_matmul: {kernel}: {regs} registers at entry, "
+                f"{spills} bytes of spills [{CARD}]")
+        res["sass"] = sass_by_kernel(build.sass("tiled_matmul"), MM_SASS_OPS)
+        for kernel, counts in res["sass"].items():
+            log(f"sass tiled_matmul: {kernel}: " + ", ".join(
+                f"{n} {op}" for op, n in counts.items()) + " instructions "
+                "(cuobjdump --dump-sass)")
+        log(json.dumps({"src": str(args.src), "card": CARD,
+                        "tiled_matmul_fp32": res}))
+        return 0
     from repro_torch.kernels import build, ops
     t0 = time.perf_counter()
     build.build_all()
@@ -4046,7 +4210,7 @@ def main(argv=None) -> int:
                   "by TMA")
 
     # ---- phase 2: kernels ----
-    kern, mm_worst = kernel_phase(torch, dev)
+    kern, mm_checks = kernel_phase(torch, dev)
 
     # ---- phases 3-4: serve ----
     from repro_torch.configs import ShapeConfig, get_arch
@@ -4173,7 +4337,7 @@ def main(argv=None) -> int:
         torch, dev, {"qwen3-8b paged": plan, "qwen3-8b dense": dplan,
                      "mamba2-2.7b": mplan, "hymba-1.5b": hplan,
                      "minitron-8b": tplan}, matmul_shapes(arch, march))
-    kern["tiled_matmul"]["kernel_check_row_rel_err"] = mm_worst
+    kern["tiled_matmul"].update(mm_checks)
     log(f"matmul path: {mm_launches} launches, phase took "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
 
@@ -4227,7 +4391,7 @@ def main(argv=None) -> int:
                                  "row_rel_err", "state_rel_err",
                                  "max_rel_err", "tolerance",
                                  "control_row_rel_err",
-                                 "kernel_check_row_rel_err",
+                                 "kernel_check_row_rel_err", "fp32",
                                  "map_encode_us", "tiles_ms", "grid",
                                  "turns_ms", "library_turns_ms", "eager_ms",
                                  "library_eager_ms", "host_us", "timing",

@@ -201,8 +201,8 @@ _SIGNATURES = {
         "ssd_scan_bwd": [_P] * 17 + [_I] * 9 + [_P],
     },
     "tiled_matmul": {
-        # a, b, out, M, K, N, bm, bk, bn, fp32, stream
-        "tiled_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # a, b, out, ws, M, K, N, bm, bk, bn, fp32, splits, stream
+        "tiled_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         # a, b, M, K, N, bm, bk, iters -> us (double)
         "tiled_matmul_map_encode_us": [_P, _P, _I, _I, _I, _I, _I, _I],
     },

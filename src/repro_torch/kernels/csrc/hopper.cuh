@@ -5,10 +5,11 @@
 // * Tensor maps.  The host encodes one CUtensorMap per operand with the
 //   driver's cuTensorMapEncodeTiled, reached through the runtime's
 //   cudaGetDriverEntryPoint, so the libraries need no -lcuda (<cuda.h> is
-//   read for its types only).  Every map is bf16 with a 128-byte swizzle:
-//   the inner box is 64 elements (128 bytes), and a box lands in shared
-//   memory as dense 128-byte rows whose 16-byte chunks are XOR-ed with the
-//   row index mod 8, the layout wgmma reads with a SW128 descriptor.
+//   read for its types only).  Every map has a 128-byte swizzle: the inner
+//   box is 128 bytes (64 bf16 or 32 fp32 elements), and a box lands in
+//   shared memory as dense 128-byte rows whose 16-byte chunks are XOR-ed
+//   with the row index mod 8, the layout wgmma reads with a SW128
+//   descriptor.
 //   Elements outside the tensor are zero-filled, and the barrier is still
 //   credited with the whole box.  The kernels take their maps as
 //   `const __grid_constant__ CUtensorMap` parameters.
@@ -19,7 +20,10 @@
 //   operands, fence / commit_group / wait_group, and the m64nNk16 bf16 ->
 //   fp32 instructions the kernels use (SS: both operands in shared memory;
 //   RS: A in registers).  kTransB = 1 reads an MN-major B (a (K, N)
-//   row-major tile) without transposing it in memory.
+//   row-major tile) without transposing it in memory.  The m64nNk8 TF32
+//   RS form, and the split of an fp32 value into two TF32 parts, for the
+//   fp32 matmul's 3xTF32 products (TF32 has no transposed form: its
+//   shared-memory operand is K-major).
 // * setmaxnreg, so a producer warpgroup hands its registers to the
 //   consumers.
 //
@@ -64,22 +68,30 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map with the 128-byte swizzle.  dims and box are innermost
-// first; strides (bytes, multiples of 16) are those of dims 1..rank-1.
-// Returns 0, or a negative CUresult (-999 when the driver has no encoder).
+// A tensor map of element type `type` with the 128-byte swizzle (the inner
+// box is 128 bytes).  dims and box are innermost first; strides (bytes,
+// multiples of 16) are those of dims 1..rank-1.  Returns 0, or a negative
+// CUresult (-999 when the driver has no encoder).
+inline int encode_sw128(CUtensorMap* map, CUtensorMapDataType type,
+                        const void* ptr, int rank, const cuuint64_t* dims,
+                        const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return -999;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  CUresult r = fn(map, type, cuuint32_t(rank), const_cast<void*>(ptr), dims,
+                  strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -int(r);
+}
+
 inline int encode_bf16_sw128(CUtensorMap* map, const void* ptr, int rank,
                              const cuuint64_t* dims,
                              const cuuint64_t* strides,
                              const cuuint32_t* box) {
-  EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return -999;
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(rank),
-                  const_cast<void*>(ptr), dims, strides, box, ones,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -int(r);
+  return encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims,
+                      strides, box);
 }
 
 // ---------------------------------------------------------------------
@@ -387,6 +399,103 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
     wgmma_m64n64k16_rs<kTransB>(d, a, b, scale_d);
   else
     wgmma_m64n128k16_rs<kTransB>(d, a, b, scale_d);
+}
+
+// ---------------------------------------------------------------------
+// device: TF32
+// ---------------------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero:
+// the bits of an fp32 value whose low 13 bits are 0.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo: hi is x rounded to TF32, lo = x - hi (exact in fp32, at most
+// 2^-11 |x|) with its low 13 bits cleared, the TF32 value the tensor core
+// would read from it.  hi.hi + hi.lo + lo.hi then misses x y by the lo.lo
+// term and lo's truncation, each ~2^-22 of |x y|.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xFFFFE000u;
+}
+
+// The m64nNk8 TF32 RS form: A (64 rows, 8 of K) in four registers of
+// TF32 bits, per warp the mma.m16n8k8 layout: a[0] (row lane / 4, k lane %
+// 4), a[1] (row + 8, k), a[2] (row, k + 4), a[3] (row + 8, k + 4); B a
+// K-major SW128 descriptor (a k8 step is +32 bytes in the 128-byte row);
+// the accumulator as in the bf16 forms.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d += a b with A (one k8 slice of 64 rows, TF32) in registers; N = 64 or
+// 128.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_tf32_rs: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_m64n64k8_tf32_rs(d, a, b, scale_d);
+  else
+    wgmma_m64n128k8_tf32_rs(d, a, b, scale_d);
 }
 
 // Two fp32 values to one register of bf16 (the lower index in the low half).

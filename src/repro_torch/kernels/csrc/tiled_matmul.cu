@@ -44,15 +44,48 @@
 //   64 (a decode tick's logits: bytes-bound, all of B streamed once) the
 //   128-row tile runs as a 64-row one with a 7-stage ring (24 KB a stage,
 //   168 KB), so more of B is in flight; the grid is the same.
-// fp32: FMAs on the CUDA cores, each thread an 8-column by TM-row block, fed
-//   by two cp.async stages (16 B a thread) with rows padded by 16 bytes.
-//   No TF32: the reference's fp32 tolerance is 1e-5 and TF32 keeps about
-//   three decimal digits.  Rows and columns past the edge are zero-filled
-//   on load (cp.async with a source size of 0) and never written.
+// fp32: 3xTF32 on wgmma fed by TMA.  The H100's CUDA cores give 67 TFLOP/s
+//   in fp32; its tensor cores 495 in TF32 (dense), whose 10-bit mantissa
+//   keeps about three decimal digits: one TF32 product misses the fp32
+//   one by ~2^-11 of each term, and a K = 5120 row then errs ~1e-4 of its
+//   size, ten times the reference's fp32 tolerance of 1e-5.  3xTF32
+//   splits each operand x = hi + lo, hi = x rounded to TF32 (cvt.rna,
+//   formed explicitly: the tensor core reads a raw fp32 word by dropping
+//   its low 13 bits) and lo = x - hi (exact in fp32, then cut to TF32),
+//   and sums hi.hi + hi.lo + lo.hi: each term's error falls to ~2^-22
+//   (the lo.lo term and lo's cut), the size of fp32's own rounding.  A
+//   TPU's matrix unit has no fp32 multiplier either: XLA forms an fp32
+//   product from several bf16 passes.  The tensor cores sum with the
+//   largest term's exponent and cut the bits below, so a long sum there
+//   drifts toward zero: each K step's products (bk deep) sum on the tensor
+//   cores from zero, and the step's sum joins the accumulator on the CUDA
+//   cores (one fp32 add, round to nearest), as the Pallas kernel adds each
+//   K step's dot to its VMEM accumulator.
+//   * TF32 wgmma reads its shared-memory operand K-major only (the
+//     transpose immediates exist for 16-bit types).  A (M, K) row-major is
+//     K-major; B (K, N) row-major is not.  So a CTA computes its tile
+//     transposed, C^T = B^T A^T: wgmma's A operand is B^T from registers
+//     (each consumer thread loads its fragment from the TMA tile and
+//     splits it), and its B operand is A's tile as TMA lays it down.
+//   * A CTA is one producer warpgroup and bn / 64 consumer warpgroups (64
+//     of the tile's columns each, m64n{bm}k8).  The producer's first
+//     thread issues the TMA loads of each 32-deep sub-stage (A (bm, 32):
+//     one 128-byte swizzle row of fp32 a row; B (32, bn): bn / 32 boxes)
+//     into a ring of kStages; its other three warps split A's tile into
+//     hi (in place) and lo parts and release the sub-stage to the
+//     consumers on a second mbarrier.  A bk step is bk / 32 sub-stages,
+//     so the ring fits the pass's 174,336-byte budget at every tile:
+//     (128, 64, 128) is 48 KB a sub-stage, 3 in the ring.
+//   * K splits: the tile's K runs in `splits` CTAs (the wrapper picks the
+//     count from the card's SM count so the last wave of CTAs is not left
+//     mostly empty); split 0 writes C, the others a workspace, and a
+//     second launch adds them to C in split order.  No atomics: a
+//     repeated call is bitwise equal.
+//   What bounds it: the tensor cores' three TF32 products (3 x 2 MKN at
+//   495 TFLOP/s) for prefill-sized M, the bytes for a decode tick's M.
 // Every element offset is computed in 64 bits (qwen3-8b's unembedding is
 // 622 M elements, 2.5 GB in fp32).  The wrapper raises on any other tile.
-// Not done yet (later work): a persistent grid, a TMA-store epilogue,
-// split-K for small M, fewer registers for the fp32 path (217 a thread).
+// Not done yet (later work): a persistent grid, a TMA-store epilogue.
 
 #include <chrono>
 
@@ -228,173 +261,240 @@ int launch_wgmma(const void* a, const void* b, void* c, int M, int K, int N,
 }
 
 // ---------------------------------------------------------------------
-// fp32: FMAs fed by cp.async
+// fp32: 3xTF32 on wgmma fed by TMA
 // ---------------------------------------------------------------------
 
-constexpr int kFp32Stages = 2;
+// K rows of one fp32 sub-stage: one 128-byte swizzle row of fp32.
+constexpr int kDepth = 32;
 
-template <int BM, int BK, int BN, typename T>
-struct Layout {
-  static constexpr int kVec = 16 / int(sizeof(T));  // elements per cp.async
-  static constexpr int AP = BK + kVec;              // padded pitch, A tile
-  static constexpr int BP = BN + kVec;              // padded pitch, B tile
-  static constexpr int kA = BM * AP;                // elements, one A stage
-  static constexpr int kStage = kA + BK * BP;       // elements, one stage
-  static constexpr size_t kBytes = size_t(kFp32Stages) * kStage * sizeof(T);
+template <int BM, int BN, int STAGES>
+struct Fp32Ring {
+  static constexpr int kA = BM * kDepth * 4;  // bytes of one A box
+  static constexpr int kB = kDepth * BN * 4;  // BN / 32 B boxes of 32 x 32
+  // A (its hi parts written over it), A's lo parts, B
+  static constexpr int kStage = 2 * kA + kB;
+  static constexpr int kBars = 3 * STAGES * 8;
+  static constexpr size_t kBytes = size_t(STAGES) * kStage + kBars + 1024;
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; a false predicate writes 16 zero bytes.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Stage the A (BM, BK) and B (BK, BN) tiles at (m0, k0) and (k0, n0).
-template <int BM, int BK, int BN, int THREADS, typename T>
-__device__ __forceinline__ void load_stage(T* sa, const T* __restrict__ A,
-                                           const T* __restrict__ B, int M,
-                                           int K, int N, int m0, int n0,
-                                           int k0, int tid) {
-  using L = Layout<BM, BK, BN, T>;
-  constexpr int V = L::kVec;
-  constexpr int kARow = BK / V, kBRow = BN / V;  // 16-byte chunks per row
-  static_assert((BM * kARow) % THREADS == 0 && (BK * kBRow) % THREADS == 0,
-                "tile chunks must split evenly over the threads");
-  T* sb = sa + L::kA;
+// The B fragment of one k8 step: this thread's (row, k) of the RS operand
+// are B's (k, column) (the tile runs transposed), read two adjacent columns
+// at a time.  Column c of a 32-column box sits in 16-byte chunk c / 4 of
+// its 128-byte row, XOR-ed with the row mod 8.
+__device__ __forceinline__ void load_b_frag(const unsigned char* box, int c,
+                                            int t, int kk, uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
 #pragma unroll
-  for (int i = 0; i < BM * kARow / THREADS; ++i) {
-    const int c = tid + i * THREADS;
-    const int r = c / kARow, col = (c % kARow) * V;
-    const int gm = m0 + r, gk = k0 + col;
-    const bool ok = gm < M && gk < K;
-    cp_async16(sa + r * L::AP + col, ok ? A + (size_t(gm) * K + gk) : A, ok);
-  }
-#pragma unroll
-  for (int i = 0; i < BK * kBRow / THREADS; ++i) {
-    const int c = tid + i * THREADS;
-    const int r = c / kBRow, col = (c % kBRow) * V;
-    const int gk = k0 + r, gn = n0 + col;
-    const bool ok = gk < K && gn < N;
-    cp_async16(sb + r * L::BP + col, ok ? B + (size_t(gk) * N + gn) : B, ok);
+  for (int h = 0; h < 2; ++h) {
+    const int k = 8 * kk + t + 4 * h;  // k mod 8 == t + 4 h
+    const float2 v = *reinterpret_cast<const float2*>(
+        box + k * 128 + (((c >> 2) ^ (t + 4 * h)) << 4) + (c & 3) * 4);
+    sm90::tf32_split(v.x, hi[2 * h], lo[2 * h]);
+    sm90::tf32_split(v.y, hi[2 * h + 1], lo[2 * h + 1]);
   }
 }
 
-// fp32 on the CUDA cores.  Thread (tx, ty) owns rows ty + i * TY and the
-// columns tx * 4 + {0..3} and BN / 2 + tx * 4 + {0..3} of the tile.
-template <int BM, int BK, int BN, int THREADS>
-struct FmaTile {
-  using L = Layout<BM, BK, BN, float>;
-  static constexpr int TX = BN / 8, TY = THREADS / TX, TM = BM / TY;
-  static_assert(TX * TY == THREADS && TM * TY == BM, "thread tile");
-  float acc[TM][8];
+// One CTA computes one (BM, BN) output tile over one split's share of K,
+// as C^T = B^T A^T: wgmma's 64-row A operand is 64 columns of B, in
+// registers (TF32 has no transposed shared-memory form, and a register
+// operand has no major-ness), and its N = BM operand is A's tile as TMA
+// lays it down, K-major.  Warp w's rows 16 w + g and 16 w + g + 8 (g =
+// lane / 4) of a warpgroup's 64 are B's columns 16 w + 2 g and + 1, so a
+// thread reads both with one 8-byte load and stores both with one.
+template <int BM, int BK, int BN, int STAGES>
+__global__ void __launch_bounds__((BN / 64 + 1) * 128, 1)
+mm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b,
+                 float* __restrict__ C, float* __restrict__ ws, int M, int K,
+                 int N, int splits) {
+  using R = Fp32Ring<BM, BN, STAGES>;
+  constexpr int kWG = BN / 64;        // consumer warpgroups
+  constexpr int kSub = BK / kDepth;   // sub-stages of one K step
+  constexpr int kTransform = 96;      // producer warps 1-3
+  static_assert(BK % kDepth == 0 && BN % 64 == 0 && (BM == 64 || BM == 128),
+                "tile");
+  extern __shared__ unsigned char smem_raw[];
+  // aligned by an offset, so the compiler still sees shared memory (LDS
+  // and STS, not generic loads) in the transform and the fragment loads
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * R::kStage);
+  uint64_t* ready = full + STAGES;
+  uint64_t* empty = ready + STAGES;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int split = blockIdx.x / tiles;
+  int m0, n0;
+  tile_origin(blockIdx.x % tiles, M, N, BM, BN, m0, n0);
+  // this split's sub-stages of K: [first, first + n)
+  const int total = (K + kDepth - 1) / kDepth;
+  const int first = int((long long)total * split / splits);
+  const int n = int((long long)total * (split + 1) / splits) - first;
 
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  __device__ __forceinline__ void compute(const float* sa, int tid) {
-    const float* sb = sa + L::kA;
-    const int tx = tid % TX, ty = tid / TX;
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = sa[(ty + i * TY) * L::AP + k];
-      const float4 b0 =
-          *reinterpret_cast<const float4*>(sb + k * L::BP + tx * 4);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(sb + k * L::BP + BN / 2 + tx * 4);
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&ready[s], kTransform);
+      sm90::mbar_init(&empty[s], kWG * 128);
     }
+    sm90::fence_barrier_init();
   }
+  __syncthreads();
 
-  __device__ __forceinline__ void store(float* __restrict__ C, int M, int N,
-                                        int m0, int n0, int tid) const {
-    const int tx = tid % TX, ty = tid / TX;
+  if (wg == kWG) {
+    if constexpr (kWG == 2) sm90::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      // ---- producer: one thread keeps the ring full
+      for (int it = 0; it < n; ++it) {
+        const int s = it % STAGES;
+        sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        sm90::mbar_expect_tx(&full[s], R::kA + R::kB);
+        unsigned char* st = smem + s * R::kStage;
+        const int k = (first + it) * kDepth;
+        sm90::tma_load_2d(st, &map_a, &full[s], k, m0);
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = m0 + ty + i * TY;
-      if (row >= M) continue;
+        for (int j = 0; j < BN / 32; ++j)
+          sm90::tma_load_2d(st + 2 * R::kA + j * 4096, &map_b, &full[s],
+                            n0 + 32 * j, k);
+      }
+    } else if (tid >= 32) {
+      // ---- transform: A's tile into hi (in place) and lo parts, 16 bytes
+      // at a time; the swizzle moves whole 16-byte chunks, so lo keeps it
+      for (int it = 0; it < n; ++it) {
+        const int s = it % STAGES;
+        sm90::mbar_wait(&full[s], (it / STAGES) & 1);
+        float4* a = reinterpret_cast<float4*>(smem + s * R::kStage);
+        uint4* lo = reinterpret_cast<uint4*>(smem + s * R::kStage + R::kA);
+#pragma unroll 4
+        for (int c = tid - 32; c < R::kA / 16; c += kTransform) {
+          const float4 x = a[c];
+          uint4 h, l;
+          sm90::tf32_split(x.x, h.x, l.x);
+          sm90::tf32_split(x.y, h.y, l.y);
+          sm90::tf32_split(x.z, h.z, l.z);
+          sm90::tf32_split(x.w, h.w, l.w);
+          reinterpret_cast<uint4*>(a)[c] = h;
+          lo[c] = l;
+        }
+        sm90::fence_proxy_async_shared();  // wgmma reads them next
+        sm90::mbar_arrive(&ready[s]);
+      }
+    }
+  } else {
+    // ---- consumers: 64 of the tile's columns each, all BM rows
+    if constexpr (kWG == 2) sm90::setmaxnreg_inc<232>();
+    float acc[BM / 2], part[BM / 2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = n0 + h * (BN / 2) + tx * 4;
-        if (col < N)  // N % 4 == 0: the four columns are all inside
-          *reinterpret_cast<float4*>(C + size_t(row) * N + col) =
-              make_float4(acc[i][4 * h], acc[i][4 * h + 1],
-                          acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    for (int i = 0; i < BM / 2; ++i) acc[i] = part[i] = 0.f;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int col = wg * 64 + 16 * warp + 2 * g;  // this thread's columns
+    for (int it = 0; it < n; ++it) {
+      const int s = it % STAGES;
+      sm90::mbar_wait(&full[s], (it / STAGES) & 1);
+      sm90::mbar_wait(&ready[s], (it / STAGES) & 1);
+      const unsigned char* st = smem + s * R::kStage;
+      const unsigned char* box = st + 2 * R::kA + (col / 32) * 4096;
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        load_b_frag(box, col % 32, t, kk, hi[kk], lo[kk]);
+      sm90::fence_regs(part);
+      sm90::wgmma_fence();
+      // a K step's products sum on the tensor cores from 0 (scale_d 0);
+      // the small terms first
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da_hi = sm90::desc_sw128(st + kk * 32, 16, 1024);
+        const uint64_t da_lo =
+            sm90::desc_sw128(st + R::kA + kk * 32, 16, 1024);
+        sm90::wgmma_tf32_rs<BM>(part, hi[kk], da_lo,
+                                kk > 0 || it % kSub != 0);
+        sm90::wgmma_tf32_rs<BM>(part, lo[kk], da_hi, 1);
+        sm90::wgmma_tf32_rs<BM>(part, hi[kk], da_hi, 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(part);
+      sm90::mbar_arrive(&empty[s]);
+      // each K step's sum joins the accumulator on the CUDA cores
+      // (round to nearest), so no tensor-core sum runs longer than bk
+      if (it % kSub == kSub - 1 || it == n - 1) {
+#pragma unroll
+        for (int i = 0; i < BM / 2; ++i) acc[i] += part[i];
+      }
+    }
+
+    // ---- epilogue: register 4 j + 2 h + e holds row 8 j + 2 t + e,
+    // column col + h; rows < M, columns < N (N % 4 == 0: pairs are whole)
+    float* out = split == 0 ? C : ws + size_t(split - 1) * M * N;
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = m0 + 8 * j + 2 * t + e, c = n0 + col;
+        if (r < M && c < N)
+          *reinterpret_cast<float2*>(out + size_t(r) * N + c) =
+              make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
       }
     }
   }
-};
-
-template <int BM, int BK, int BN, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-mm_fp32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-               float* __restrict__ C, int M, int K, int N) {
-  using L = Layout<BM, BK, BN, float>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  const int tid = threadIdx.x;
-  int m0, n0;
-  tile_origin(blockIdx.x, M, N, BM, BN, m0, n0);
-  const int nk = (K + BK - 1) / BK;
-
-  FmaTile<BM, BK, BN, THREADS> tile;
-  tile.zero();
-  if (nk > 0)
-    load_stage<BM, BK, BN, THREADS>(smem, A, B, M, K, N, m0, n0, 0, tid);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk)  // fill the other bank while this one is read
-      load_stage<BM, BK, BN, THREADS>(smem + ((kt + 1) & 1) * L::kStage, A,
-                                      B, M, K, N, m0, n0, (kt + 1) * BK, tid);
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest: bank kt & 1 is in
-    __syncthreads();
-    tile.compute(smem + (kt & 1) * L::kStage, tid);
-    __syncthreads();  // bank kt & 1 is refilled at step kt + 1
-  }
-  tile.store(C, M, N, m0, n0, tid);
 }
 
-template <int BM, int BK, int BN, int WM, int WN>
-int launch_fp32(const void* a, const void* b, void* c, int M, int K, int N,
-                cudaStream_t stream) {
-  constexpr int kThreads = (BM / WM) * (BN / WN) * 32;
-  const size_t smem = Layout<BM, BK, BN, float>::kBytes;
-  auto kern = mm_fp32_kernel<BM, BK, BN, kThreads>;
-  cudaError_t err = cudaFuncSetAttribute(
+// C += the other splits' partial tiles, in split order (a fixed order: a
+// repeated call is bitwise equal).  n4 float4s of C; ws holds `parts`
+// (M, N) partials one after another, mn4 float4s each.
+__global__ void mm_split_reduce(float4* __restrict__ C,
+                                const float4* __restrict__ ws, size_t n4,
+                                size_t mn4, int parts) {
+  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < n4;
+       i += size_t(gridDim.x) * blockDim.x) {
+    float4 c = C[i];
+    for (int p = 0; p < parts; ++p) {
+      const float4 w = ws[p * mn4 + i];
+      c.x += w.x;
+      c.y += w.y;
+      c.z += w.z;
+      c.w += w.w;
+    }
+    C[i] = c;
+  }
+}
+
+template <int BM, int BK, int BN, int STAGES>
+int launch_tf32x3(const void* a, const void* b, void* c, void* ws, int M,
+                  int K, int N, int splits, cudaStream_t stream) {
+  CUtensorMap ma = {}, mb = {};
+  if (K > 0) {  // K == 0: no map; the kernel loads nothing, writes zeros
+    const cuuint64_t da[2] = {cuuint64_t(K), cuuint64_t(M)};
+    const cuuint64_t sa[1] = {cuuint64_t(K) * 4};
+    const cuuint32_t ba[2] = {kDepth, cuuint32_t(BM)};
+    int err = sm90::encode_sw128(&ma, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a, 2,
+                                 da, sa, ba);
+    if (err) return err;
+    const cuuint64_t db[2] = {cuuint64_t(N), cuuint64_t(K)};
+    const cuuint64_t sb[1] = {cuuint64_t(N) * 4};
+    const cuuint32_t bb[2] = {32, kDepth};
+    err = sm90::encode_sw128(&mb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, b, 2, db,
+                             sb, bb);
+    if (err) return err;
+  }
+  const size_t smem = Fp32Ring<BM, BN, STAGES>::kBytes;
+  auto kern = mm_tf32x3_kernel<BM, BK, BN, STAGES>;
+  cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
+  if (e != cudaSuccess) return int(e);
   const long long ctas =
-      (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+      (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN) * splits;
   if (ctas > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  kern<<<dim3(unsigned(ctas)), kThreads, smem, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(c), M, K, N);
+  kern<<<dim3(unsigned(ctas)), (BN / 64 + 1) * 128, smem, stream>>>(
+      ma, mb, static_cast<float*>(c), static_cast<float*>(ws), M, K, N,
+      splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return int(e);
+  const size_t mn4 = size_t(M) * N / 4;
+  mm_split_reduce<<<1024, 256, 0, stream>>>(
+      static_cast<float4*>(c), static_cast<const float4*>(ws), mn4, mn4,
+      splits - 1);
   return int(cudaGetLastError());
 }
 
@@ -404,25 +504,32 @@ extern "C" {
 
 // a (M, K), b (K, N), out (M, N), contiguous and 16-byte aligned, all bf16
 // (fp32 == 0) or all fp32 (fp32 == 1); K and N multiples of 16 bytes of
-// elements.  (bm, bk, bn) is the plan's tile.  Returns 0 when launched, a
-// cudaError_t, or a negative CUresult of the tensor-map encoder.
-int tiled_matmul(const void* a, const void* b, void* out, int M, int K,
-                 int N, int bm, int bk, int bn, int fp32, void* stream) {
+// elements.  (bm, bk, bn) is the plan's tile.  fp32 splits K over `splits`
+// CTAs a tile (1 to 8); splits > 1 takes ws, (splits - 1) M N floats.
+// Returns 0 when launched, a cudaError_t, or a negative CUresult of the
+// tensor-map encoder.
+int tiled_matmul(const void* a, const void* b, void* out, void* ws, int M,
+                 int K, int N, int bm, int bk, int bn, int fp32, int splits,
+                 void* stream) {
   const int vec = fp32 ? 4 : 8;
   if (M <= 0 || N <= 0 || K < 0 || K % vec || N % vec)
     return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fp32) {
-    if (bm == 128 && bk == 64 && bn == 128)
-      return launch_fp32<128, 64, 128, 64, 32>(a, b, out, M, K, N, s);
-    if (bm == 64 && bk == 128 && bn == 64)
-      return launch_fp32<64, 128, 64, 32, 32>(a, b, out, M, K, N, s);
-    if (bm == 64 && bk == 64 && bn == 64)
-      return launch_fp32<64, 64, 64, 32, 32>(a, b, out, M, K, N, s);
-    return int(cudaErrorInvalidValue);
-  }
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16)
     return int(cudaErrorMisalignedAddress);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fp32) {
+    if (splits < 1 || splits > 8 || (splits > 1 && ws == nullptr))
+      return int(cudaErrorInvalidValue);
+    if (bm == 128 && bk == 64 && bn == 128)
+      return launch_tf32x3<128, 64, 128, 3>(a, b, out, ws, M, K, N, splits,
+                                            s);
+    if (bm == 64 && bk == 128 && bn == 64)
+      return launch_tf32x3<64, 128, 64, 4>(a, b, out, ws, M, K, N, splits, s);
+    if (bm == 64 && bk == 64 && bn == 64)
+      return launch_tf32x3<64, 64, 64, 4>(a, b, out, ws, M, K, N, splits, s);
+    return int(cudaErrorInvalidValue);
+  }
+  if (splits != 1) return int(cudaErrorInvalidValue);
   if (bm == 128 && bk == 64 && bn == 128)
     return M <= 64 ? launch_wgmma<64, 64, 128, kSmallMStages>(a, b, out, M,
                                                               K, N, s)

@@ -11,22 +11,26 @@ Contract (a superset of the Pallas one): a ``(M, K)`` @ b ``(K, N)``,
 both contiguous, 16-byte aligned and of one dtype, bf16 or fp32; the
 product is summed in fp32 and written in the input dtype.  Any M, K and
 N (the Pallas kernel asserted that the clamped tiles divide them): the
-ragged edges are zero-filled on load and never written.  bf16 loads its
-tiles with TMA and fp32 with 16-byte ``cp.async`` rows; both need ``K``
-and ``N`` to be multiples of 16 bytes' worth of elements (8 in bf16, 4
-in fp32) and raise otherwise.
+ragged edges are zero-filled on load and never written.  Both dtypes
+load their tiles with TMA, whose row pitch must be a multiple of 16
+bytes: ``K`` and ``N`` are multiples of 8 in bf16 and of 4 in fp32,
+and the wrapper raises otherwise.
 
 Tiles: the kernel is built for the ``(bm, bk, bn)`` of
 :data:`KERNEL_TILES`; :func:`kernel_tiles` raises on any other and
 never substitutes one.  A plan without a ``tiled_matmul`` BlockPlan
 gets :data:`DEFAULT_TILES`.  bf16 runs ``wgmma`` on a ring of
-:data:`STAGES` TMA stages; fp32 runs FMAs on :data:`FP32_STAGES`
-``cp.async`` stages.  No model path calls this kernel: the model's
-projections stay ``torch.matmul``, as the JAX model left them to XLA.
+:data:`STAGES` TMA stages.  fp32 runs 3xTF32 products on ``wgmma``
+(each operand split into a TF32 high and low part, three products) on a
+ring of :data:`FP32_STAGES` TMA sub-stages, each :data:`FP32_DEPTH`
+deep, with K split over :func:`fp32_splits` CTAs a tile.  No model path
+calls this kernel: the model's projections stay ``torch.matmul``, as
+the JAX model left them to XLA.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -43,8 +47,19 @@ STAGES = 4
 #: the ring's stages when a 128-row tile meets M <= 64 (a decode tick):
 #: the kernel runs it as a 64-row tile on a deeper ring
 SMALL_M_STAGES = 7
-#: fp32 operand stages (cp.async, the paper's 2-bank PLM)
-FP32_STAGES = 2
+#: K rows of one fp32 sub-stage: one 128-byte swizzle row of fp32 (a
+#: plan's K step bk is bk / FP32_DEPTH sub-stages)
+FP32_DEPTH = 32
+#: fp32 sub-stages in the ring, by tile (``csrc`` ``launch_tf32x3``)
+FP32_STAGES = {(128, 64, 128): 3, (64, 128, 64): 4, (64, 64, 64): 4}
+#: the most CTAs one fp32 tile's K is split over
+MAX_SPLITS = 4
+#: :func:`fp32_splits`' model: a CTA's sub-stages of pipeline fill and
+#: epilogue, and the share of the tensor cores' rate a CTA keeps (fitted
+#: to the kernel's times at each split count on an H100 SXM, 700 W, at
+#: (1000 | 2048, 5120, 2560): ``chip_smoke.py --only matmul_fp32``)
+SPLIT_FILL = 2
+SPLIT_EFFICIENCY = 0.7
 DTYPES = (torch.bfloat16, torch.float32)
 
 #: launches of the CUDA kernel in this process (reset by the caller)
@@ -57,17 +72,43 @@ def smem_bytes(bm: int, bk: int, bn: int, dtype=torch.bfloat16) -> int:
     ``(bk, bn)`` tiles, their mbarriers and 1 KB to align the tiles to
     the 128-byte swizzle's 1024-byte atom; a 128-row tile at M <= 64
     runs :data:`SMALL_M_STAGES` stages of a 64-row A tile instead, and
-    the larger of the two counts.  fp32 (``csrc`` ``Layout::kBytes``):
-    :data:`FP32_STAGES` copies of the two tiles, each row padded by 16
-    bytes.  The fp32 accumulator is in registers on both paths."""
+    the larger of the two counts.  fp32 (``csrc`` ``Fp32Ring::kBytes``):
+    :data:`FP32_STAGES` sub-stages of an A ``(bm, FP32_DEPTH)`` tile, its
+    TF32 low parts and a B ``(FP32_DEPTH, bn)`` tile, three mbarriers
+    each and the 1 KB.  The fp32 accumulator is in registers on both
+    paths."""
     if dtype == torch.bfloat16:
         def ring(rows, stages):
             return stages * (rows * bk + bk * bn) * 2 + 2 * stages * 8
         small = ring(64, SMALL_M_STAGES) if bm == 128 else 0
         return max(ring(bm, STAGES), small) + 1024
-    e = dtype.itemsize
-    pad = 16 // e
-    return FP32_STAGES * (bm * (bk + pad) + bk * (bn + pad)) * e
+    stages = FP32_STAGES[(bm, bk, bn)]
+    return stages * ((2 * bm + bn) * FP32_DEPTH * 4 + 3 * 8) + 1024
+
+
+def fp32_splits(M: int, K: int, N: int, tiles: Sequence[int],
+                sms: int) -> int:
+    """How many CTAs the fp32 kernel splits one tile's K over on a card
+    with ``sms`` SMs: the count (up to :data:`MAX_SPLITS`) that
+    minimises the CTA waves times a CTA's sub-stages (plus
+    :data:`SPLIT_FILL` for its pipeline fill and epilogue), plus the
+    split partials' bytes and the launch that sums them.  One CTA of the
+    128-row tile fills an SM (registers, shared memory); two of a 64-row
+    tile fit."""
+    bm, _, bn = tiles
+    subs = -(-K // FP32_DEPTH)
+    ctas = -(-M // bm) * -(-N // bn)
+    sms *= 1 if bm == 128 else 2
+    # one sub-stage of one CTA, s: three TF32 products at the tensor
+    # cores' per-SM share of 495 TFLOP/s, at SPLIT_EFFICIENCY of it
+    sub_s = 6 * bm * bn * FP32_DEPTH / (495e12 / 132 * SPLIT_EFFICIENCY)
+
+    def cost(s):
+        waves = -(-ctas * s // sms)
+        partials = 2 * s * M * N * 4 / 3.35e12 + 4e-6 if s > 1 else 0.0
+        return waves * (-(-subs // s) + SPLIT_FILL) * sub_s + partials
+
+    return min(range(1, min(MAX_SPLITS, max(subs, 1)) + 1), key=cost)
 
 
 def kernel_tiles(tiles: Optional[Sequence[int]]) -> Tuple[int, int, int]:
@@ -113,10 +154,19 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
                          f"got K={K} N={N}")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
-                 tiles: Optional[Sequence[int]] = None) -> torch.Tensor:
+                 tiles: Optional[Sequence[int]] = None,
+                 splits: Optional[int] = None) -> torch.Tensor:
     """Launch the tiled matmul kernel on CUDA tensors (raises on any
-    other device or on inputs the kernel does not take)."""
+    other device or on inputs the kernel does not take).  fp32 splits
+    each tile's K over ``splits`` CTAs, by default :func:`fp32_splits`'
+    count for the shape and the card (a count is passed to test or time
+    one); bf16 takes only 1."""
     global launches
     if a.device.type != "cuda":
         raise ValueError(f"tiled_matmul: the kernel runs on CUDA tensors, got "
@@ -126,13 +176,21 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
     bm, bk, bn = kernel_tiles(tiles)
     M, K = a.shape
     N = b.shape[1]
+    fp32 = a.dtype == torch.float32
+    if splits is None:
+        splits = (fp32_splits(M, K, N, (bm, bk, bn),
+                              _sm_count(a.device.index or 0)) if fp32 else 1)
+    if not 1 <= splits <= (MAX_SPLITS if fp32 else 1):
+        raise ValueError(f"tiled_matmul: splits={splits} in {a.dtype}")
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0 or N == 0:
         return out
+    ws = (torch.empty((splits - 1) * M * N, dtype=torch.float32,
+                      device=a.device) if splits > 1 else None)
     err = build.library("tiled_matmul").tiled_matmul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, bm, bk, bn,
-        int(a.dtype == torch.float32),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), M, K, N, bm, bk, bn,
+        int(fp32), splits, torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"tiled_matmul: launch failed with "
                            f"{build.describe_error(err)}")

@@ -50,12 +50,15 @@ launches are bitwise equal, and one train step of reduced mamba2, hymba
 and granite on the card is held against the CPU (loss and grad norm
 within 2e-2, one forward and one backward launch a layer).
 
-The tiled matmul (bf16 on the tensor cores, fp32 on the CUDA cores) is
-held per output row, rms-relative, at the JAX tests' tolerances: 2e-2 in
-bf16 (both sides sum exact bf16 products in fp32 and round once to bf16)
-and 1e-5 in fp32 (only the order of the fp32 sums differs).  Its planted
-faults (the last K tile dropped; two N tiles swapped) must fail that
-check by 5x.
+The tiled matmul (bf16 products on the tensor cores; fp32 as 3xTF32
+products there) is held per output row, rms-relative, at the JAX tests'
+tolerances: 2e-2 in bf16 (both sides sum exact bf16 products in fp32 and
+round once to bf16) and 1e-5 in fp32 (the split products miss fp32's by
+~2^-22 of each term, and the sums run in another order).  fp32 is also
+held against an fp64 product, at every tile and at mamba2's out_proj
+shape, where ``torch.matmul`` with TF32 on must fail the same check, and
+a repeated call is bitwise equal.  Its planted faults (the last K tile
+dropped; two N tiles swapped) must fail that check by 5x.
 """
 
 import dataclasses
@@ -1133,6 +1136,57 @@ def test_matmul_kernel_at_mamba2_in_proj_width(dev, tiles, M):
         MM_TOL[torch.bfloat16]
 
 
+def _rel_err64(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The larger of the worst row's rms-relative error and max |error| /
+    max |want|, in fp64."""
+    e = got.double() - want.double()
+    w = want.double()
+    return max(float((e.pow(2).mean(1).sqrt()
+                      / w.pow(2).mean(1).sqrt().clamp_min(1e-30)).max()),
+               float(e.abs().max() / w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", tmm.KERNEL_TILES)
+@pytest.mark.parametrize("M,K,N", [(1, 64, 8), (130, 8, 136), (4, 0, 64),
+                                   (300, 584, 1000), (37, 4100, 72)])
+def test_matmul_fp32_every_tile_against_fp64(dev, tiles, M, K, N):
+    """fp32 (3xTF32) at each tile on ragged shapes: one row, K = 8, an
+    empty K (zeros), K not a multiple of the 32-deep sub-stage; against
+    the fp32 plain version and an fp64 product at 1e-5, at every K split
+    count."""
+    g = torch.Generator(dev).manual_seed(M * 3 + K)
+    a, b = _mm_inputs(g, M, K, N, torch.float32)
+    for splits in range(1, tmm.MAX_SPLITS + 1):
+        got = tmm.tiled_matmul(a, b, tiles=tiles, splits=splits)
+        if K == 0:
+            assert torch.equal(got, torch.zeros_like(got))
+            continue
+        assert _rel_err(got, tmm.tiled_matmul_plain(a, b)) < \
+            MM_TOL[torch.float32]
+        assert _rel_err64(got, a.double() @ b.double()) < \
+            MM_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_matmul_fp32_out_proj_shape_fp64_repeat_and_tf32_control(dev):
+    """mamba2's fp32 y @ out_proj on a 1000-token prefill, on the H100
+    plan's tile: within 1e-5 of fp64, bitwise equal when repeated; the
+    same check fails ``torch.matmul`` with TF32 on."""
+    g = torch.Generator(dev).manual_seed(5120)
+    a, b = _mm_inputs(g, 1000, 5120, 2560, torch.float32)
+    want = a.double() @ b.double()
+    got = ops.matmul(a, b, tiles=_h100_tiles())
+    assert _rel_err64(got, want) < MM_TOL[torch.float32]
+    assert torch.equal(got, ops.matmul(a, b, tiles=_h100_tiles()))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert _rel_err64(tf32, want) > 5 * MM_TOL[torch.float32]
+
+
 @pytest.mark.cuda
 def test_matmul_wrapper_counts_launches_and_refuses_what_it_does_not_take(dev):
     g = torch.Generator(dev).manual_seed(0)
@@ -1153,6 +1207,10 @@ def test_matmul_wrapper_counts_launches_and_refuses_what_it_does_not_take(dev):
         ops.matmul(a[:, :60].contiguous(), b[:60].contiguous())
     with pytest.raises(ValueError, match="not one the kernel is built for"):
         ops.matmul(a, b, tiles=(128, 128, 128))
+    with pytest.raises(ValueError, match="splits=2"):
+        tmm.tiled_matmul(a, b, splits=2)
+    with pytest.raises(ValueError, match="splits=0"):
+        tmm.tiled_matmul(a.float(), b.float(), splits=0)
     assert ops.launch_counts()["tiled_matmul"] == 1
 
 

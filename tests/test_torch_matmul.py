@@ -14,6 +14,11 @@ ragged shapes a plan-driven caller meets — a decode tick's M = 8, a
 prefill bucket's M = 1000, mamba2's ``in_proj`` width N = 10576 — are
 held against ``jnp.dot``.  The CUDA kernel itself runs only on the
 card (``tests/test_torch_cuda.py``).
+
+The fp32 kernel forms its products as 3xTF32 on the tensor cores; a
+plain mirror of that arithmetic here (:func:`_mm_3xtf32`, tests only)
+is held against the Pallas kernel, ``ref.tiled_matmul_ref`` and an fp64
+product at 1e-5, and the hi-only product (1xTF32) is shown to miss it.
 """
 
 import jax.numpy as jnp
@@ -58,6 +63,37 @@ def _inputs(seed: int, M: int, K: int, N: int, dtype: str):
                       tensor_from_numpy(np.asarray(jb), "cpu"))
 
 
+def _from_bits(u: torch.Tensor) -> torch.Tensor:
+    """fp32 values from their bits, held as int64 in [0, 2^32)."""
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32).view(
+        torch.float32)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: x to a 10-bit mantissa, to nearest with ties
+    away from zero (half of the 13 dropped bits added to the magnitude,
+    then the field cleared; the sign bit is untouched)."""
+    return _from_bits(((_bits(x) + 0x1000) & 0xFFFFE000) & 0xFFFFFFFF)
+
+
+def _tf32_cut(x: torch.Tensor) -> torch.Tensor:
+    """x's low 13 bits cleared: the TF32 value the tensor core reads."""
+    return _from_bits(_bits(x) & 0xFFFFE000)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel's arithmetic in plain PyTorch: each operand split
+    x = hi + lo (hi rounded to TF32, lo = x - hi cut to TF32), then
+    hi.lo + lo.hi + hi.hi, each product of TF32 values exact in fp32."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_cut(a - a_hi), _tf32_cut(b - b_hi)
+    return (a_hi @ b_lo + a_lo @ b_hi) + a_hi @ b_hi
+
+
 def _h100_plan():
     return specialize(get_arch("qwen3-8b"),
                       ShapeConfig("serve_h100", "decode", 2048, 8),
@@ -100,6 +136,54 @@ def test_matmul_ragged_shapes_match_jnp_dot(M, K, N, dtype):
     assert _rel_err(_np(got), want) < TOL[dtype]
 
 
+def test_tf32_split_rounds_as_the_kernel_does():
+    """hi: nearest, ties away from zero; hi + lo == x exactly; lo at most
+    2^-11 of x, itself a TF32 value once cut."""
+    one_ulp = 2.0 ** -23
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11),
+                      1 + 2.0 ** -11 - one_ulp, 1 + 3 * 2.0 ** -11, 3.0, 0.0],
+                     dtype=torch.float32)
+    want = torch.tensor([1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0,
+                         1 + 4 * 2.0 ** -11, 3.0, 0.0], dtype=torch.float32)
+    assert torch.equal(_tf32_rna(x), want)
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        100_000).astype(np.float32))
+    hi = _tf32_rna(r)
+    assert bool((_bits(hi) & 0x1FFF == 0).all())
+    lo = r - hi
+    assert torch.equal(hi.double() + lo.double(), r.double())
+    assert bool((lo.abs() <= 2.0 ** -11 * r.abs()).all())
+    assert torch.equal(_tf32_cut(_tf32_cut(lo)), _tf32_cut(lo))
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk,bn", CASES + [(300, 5120, 256, 300,
+                                                       1024, 256)])
+def test_3xtf32_mirror_matches_pallas_and_ref(M, K, N, bm, bk, bn):
+    """The kernel's fp32 arithmetic at the JAX test's tolerance, against
+    the Pallas kernel (interpret) and its oracle, at the JAX test's
+    shapes and at mamba2's out_proj K = 5120 cut to 300 x 256."""
+    (ja, jb), (ta, tb) = _inputs(M + 5 * N, M, K, N, "float32")
+    got = _np(_mm_3xtf32(ta, tb))
+    assert _rel_err(got, jref.tiled_matmul_ref(ja, jb)) < TOL["float32"]
+    assert _rel_err(got, pallas_mm(ja, jb, bm=bm, bk=bk, bn=bn,
+                                   interpret=True)) < TOL["float32"]
+
+
+@pytest.mark.parametrize("M,K,N", [(300, 5120, 256), (37, 1000, 72)])
+def test_3xtf32_mirror_matches_fp64_where_1xtf32_does_not(M, K, N):
+    """Against an fp64 product: 3xTF32 within 1e-5 (max error over max
+    magnitude, and the worst row's rms), the hi-only product (1xTF32)
+    past it."""
+    (_, _), (ta, tb) = _inputs(M * 11 + N, M, K, N, "float32")
+    want = (ta.double() @ tb.double()).numpy()
+    got = _mm_3xtf32(ta, tb).double().numpy()
+    assert _rel_err(got, want) < TOL["float32"]
+    row = np.sqrt(((got - want) ** 2).mean(1) / (want ** 2).mean(1))
+    assert row.max() < TOL["float32"]
+    one = (_tf32_rna(ta) @ _tf32_rna(tb)).numpy()
+    assert _rel_err(one, want) > 3 * TOL["float32"]
+
+
 def test_kernel_tiles_cover_the_plan_the_default_and_the_jax_cases():
     assert tmm.kernel_tiles(None) == tmm.DEFAULT_TILES
     assert tmm.DEFAULT_TILES in tmm.KERNEL_TILES
@@ -120,23 +204,50 @@ def test_kernel_tiles_refuse_a_tile_the_kernel_lacks(tiles):
 
 
 def test_smem_bytes_matches_the_plan_and_the_kernel_layout():
-    bp = _h100_plan().partitions["tiled_matmul"]
+    plan = _h100_plan()
+    bp = plan.partitions["tiled_matmul"]
     tiles = (bp.blocks["bm"], bp.blocks["bk"], bp.blocks["bn"])
     assert bp.vmem_bytes == tmm.smem_bytes(*tiles) <= SMEM_BUDGET
     assert bp.n_buffers == tmm.STAGES
+    # the plan records the bf16 ring only: its tile and hash are the
+    # parent's, whatever the fp32 layout
+    assert tiles == (128, 64, 128) and bp.vmem_bytes == 173_168
+    assert plan.content_hash()[:16] == "8b3a96c18fd2bf9d"
     # bf16: four TMA stages of A (bm, bk) and B (bk, bn), their
     # mbarriers and 1 KB of alignment, or, for the 128-row tile, the
     # seven stages of a 64-row A tile it runs at M <= 64, the larger;
-    # fp32: two cp.async stages, rows padded by 16 bytes
+    # fp32: 32-deep TMA sub-stages of A (bm, 32), its TF32 low parts and
+    # B (32, bn), three mbarriers each, and the 1 KB
     assert tmm.smem_bytes(128, 64, 128) == \
         7 * (64 * 64 + 64 * 128) * 2 + 2 * 7 * 8 + 1024
     assert tmm.smem_bytes(64, 64, 64) == \
         4 * (64 * 64 + 64 * 64) * 2 + 2 * 4 * 8 + 1024
+    assert tmm.smem_bytes(128, 64, 128, torch.float32) == \
+        3 * ((2 * 128 * 32 + 32 * 128) * 4 + 3 * 8) + 1024
     assert tmm.smem_bytes(64, 64, 64, torch.float32) == \
-        2 * (64 * 68 + 64 * 68) * 4
+        4 * ((2 * 64 * 32 + 32 * 64) * 4 + 3 * 8) + 1024
     for t in tmm.KERNEL_TILES:
+        # the fp32 ring fits the pass's budget too, so the plan's choice
+        # of tile (made on the bf16 ring) holds for fp32
+        assert tmm.smem_bytes(*t, torch.float32) <= SMEM_BUDGET, t
         for dt in tmm.DTYPES:
             assert tmm.smem_bytes(*t, dt) <= 232_448, (t, dt)
+
+
+@pytest.mark.parametrize("M,K,N,sms,want", [
+    (1000, 5120, 2560, 132, None), (2048, 5120, 2560, 132, None),
+    (4, 0, 64, 132, 1), (1, 64, 8, 132, 1), (8192, 4096, 8192, 132, 1)])
+def test_fp32_splits_fill_the_last_wave(M, K, N, sms, want):
+    """K splits only where the tiles leave the last wave of CTAs short,
+    never past MAX_SPLITS or the sub-stages K has."""
+    t = tmm.DEFAULT_TILES
+    s = tmm.fp32_splits(M, K, N, t, sms)
+    assert 1 <= s <= min(tmm.MAX_SPLITS, max(1, -(-K // tmm.FP32_DEPTH)))
+    if want is not None:
+        assert s == want
+    else:
+        ctas = -(-M // t[0]) * -(-N // t[2])
+        assert s > 1 and ctas % sms != 0
 
 
 def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
