@@ -11,15 +11,18 @@ an SSD mixer in every layer), minitron-8b (a squared-ReLU FFN),
 granite-moe-1b-a400m (32 experts top-8 in every layer, both MoE paths,
 attention at head_dim 64 and a GQA group of 2) and llama4-maverick's
 [dense, MoE] super-block at full width (128 experts top-1 beside a
-shared expert, a GQA group of 5 at head_dim 128), random weights from a
-seed, and holds each of the paths' hand-written
+shared expert, a GQA group of 5 at head_dim 128) and qwen2-vl-72b at
+full width cut to 16 layers (M-RoPE, a GQA group of 8), random weights
+from a seed, and holds each of the paths' hand-written
 kernels against its plain PyTorch version on the card.  It also drives
 the training path — ``specialize(target="h100-sxm")`` ->
 ``lower_train_step`` -> ``Trainer.fit`` — for full-width qwen3-8b,
-granite-moe-1b-a400m (its router's aux loss in the loss), mamba2-2.7b and
-hymba-1.5b, each at the depth and remat its ``h100-sxm`` train plan
-admits (every layer when the plan's step-peak estimate fits the card),
-through the flash and SSD-scan forward and backward kernels.
+granite-moe-1b-a400m (its router's aux loss in the loss), mamba2-2.7b,
+hymba-1.5b, qwen2-vl-72b (patch embeddings and M-RoPE positions) and
+hubert-xlarge (a non-causal encoder at head_dim 80, frames and an audio
+mask), each at the depth and remat its ``h100-sxm`` train plan admits
+(every layer when the plan's step-peak estimate fits the card), through
+the flash and SSD-scan forward and backward kernels.
 
 Phases (any failure exits non-zero before the last line):
 
@@ -59,11 +62,17 @@ Phases (any failure exits non-zero before the last line):
    (paged and dense) again at granite's 16 / 8 heads of 64 and llama4's
    40 / 8 heads of 128, on a generator of their own, beside the same
    planted faults (G = 2 fills its flash tile: no pad row to plant);
+   flash and decode at qwen2-vl's 64 / 8 heads of 128 (G = 8, its own
+   generator), flash ``causal=False`` at hubert's 16 heads of 80 (the
+   kernel pads the rows to 128 columns) and at 32 / 8 heads of 128, B=1
+   S=2048, beside a planted fault that drops the upper triangle;
    the flash backward (dq, dk, dv) at the train shape (B=1 S=2048,
    32 / 8 heads of 128, causal), at B=2 S=1024, at hymba's 25 / 5
-   heads of 64 through a 1024 window and at granite's 16 / 8 heads of
-   64, row by row against the plain backward beside two planted faults
-   (a Q tile dropped from each dK/dV job; one head of the group summed),
+   heads of 64 through a 1024 window, at granite's 16 / 8 heads of
+   64, at qwen2-vl's 64 / 8 of 128 and at hubert's 16 / 16 of 80
+   non-causal, row by row against the plain backward beside two planted
+   faults (a Q tile dropped from each dK/dV job; one head of the group
+   summed, or at G = 1 the upper triangle dropped),
    timed in turns with SDPA's
    backward, with the forward kernel's time with and without the
    log-sum-exp it writes for the backward; the SSD scan's backward at
@@ -161,15 +170,33 @@ Phases (any failure exits non-zero before the last line):
    measured peak within [1, 1.15] of the estimate;
 19. reduced mamba2 trained 4 steps of 1024 x 2 on the card against the
    CPU and resumed, as phase 17;
-20. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+20. qwen2-vl-72b at full width cut to 16 of 80 layers (33.1 GB, every
+   earlier weight freed): its decode 2048 x 8 plan serves 16 token
+   requests (16 flash launches a prefill call, 16 paged-decode launches
+   a tick), the full-depth consistency check, and the M-RoPE check (a
+   prefill of patch embeddings with a patch grid in the height and width
+   streams, the kernels against the plain attention, beside a control
+   with the three streams collapsed that must differ);
+21. qwen2-vl-72b trained at full width at the largest depth its
+   unmodified 2048 x 1 train plan admits, on the synthetic source's
+   patch embeddings and positions: phase 16's checks;
+22. hubert-xlarge trained at full width and depth (48 layers) from its
+   own plan on frames, targets and the audio mask: phase 16's checks,
+   48 non-causal flash forwards at head_dim 80 a step (96 under remat)
+   and 48 backwards;
+23. a small qwen2-vl (published head_dim and M-RoPE sections) and a
+   small hubert (head_dim 80) trained on the card against the CPU and
+   resumed, as phase 17;
+24. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
 name and power limit.
 
 Run from the repository root:  python3 chip_smoke.py
 
-``--only flash_bwd`` (``ssd_bwd``, ``matmul_fp32``) runs the flash
-(SSD scan) backward's or the fp32 tiled matmul's check and timings alone
+``--only flash_bwd`` (``ssd_bwd``, ``matmul_fp32``)
+runs the flash (SSD scan) backward's or the fp32 tiled matmul's check
+and timings alone
 (:func:`flash_bwd_check`, :func:`ssd_bwd_check`,
 :func:`matmul_fp32_check`) and prints its result as one JSON line.
 ``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
@@ -239,6 +266,11 @@ W5 = 1024                   # hymba-1.5b's sliding window
 # (query heads, kv heads, head_dim) of the MoE archs: granite-moe-1b-a400m
 # (G = 2 at 64) and llama4-maverick-400b-a17b (G = 5 at 128)
 MOE_PAIRS = {"granite": (16, 8, 64), "llama4": (40, 8, 128)}
+# (query heads, kv heads, head_dim) of the frontends' archs: qwen2-vl-72b
+# (G = 8 at 128) and hubert-xlarge (G = 1 at 80, non-causal)
+VLM_PAIR, ENC_PAIR = (64, 8, 128), (16, 16, 80)
+QWEN2VL, HUBERT = "qwen2-vl-72b", "hubert-xlarge"
+QWEN2VL_SERVE_LAYERS = 16   # 16 x 1.756 GB + 4.98 GB: ~33.1 GB of bf16
 GRANITE, LLAMA4 = "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"
 SSD_H, SSD_P, SSD_N, SSD_G = 80, 64, 128, 1   # mamba2-2.7b SSD widths
 HSSD_H, HSSD_N = 50, 16     # hymba-1.5b SSD widths (P = 64, one group)
@@ -260,8 +292,11 @@ SMALL_GRAD_NORM_TOL = 2e-3
 # floor measured on an H100 at 700 W, the kernels against themselves
 # under another tile: qwen3-8b 6.2e-2 (the q / k norm scales, sums over
 # 2048 x 32 rows that cancel), granite 1.15e-2 outside its MoE FFN
-# (attn/wq), mamba2 7.7e-2 and hymba 1.10e-1 (ssm/dt_bias); the
-# wrong-target control sits at 1.18-1.46, at least four times above
+# (attn/wq), mamba2 7.7e-2 and hymba 1.10e-1 (ssm/dt_bias), qwen2-vl
+# 4.5e-2 (attn/wq; its bound is 2.7 times that floor: the dropped-tile
+# backward moves attn/wv by 0.162, a Q tile being 8 positions at G = 8)
+# and hubert 1.0e-2 (attn/wk);
+# the wrong-target control sits at 1.18-1.46, at least four times above
 # each bound.  An MoE layer's FFN leaves (its norm, router and experts)
 # are not held: their gradients pass a routing decision, which bf16 noise
 # flips on near-ties (the floor: 9.0e-2 on granite's moe/wo), and the
@@ -269,7 +304,8 @@ SMALL_GRAD_NORM_TOL = 2e-3
 # wrong target moves it by 2.0e-2); tests/test_torch_train_families.py
 # holds them against the reference in fp32
 TRAIN_GRAD_TOL = {"qwen3-8b": 0.2, GRANITE: 0.05, "mamba2-2.7b": 0.2,
-                  "hymba-1.5b": 0.3}
+                  "hymba-1.5b": 0.3, "qwen2-vl-72b": 0.12,
+                  "hubert-xlarge": 0.03}
 SEED = 0
 CARD = ""                   # nvidia-smi name, power limit (set in main)
 # prefill buckets of 2048 prompt tokens (the serve phases' power-of-two
@@ -720,6 +756,8 @@ def kernel_phase(torch, dev):
         for name, r in gqa_kernel_check(torch, F, fa, dec, rnd_moe, dev, gm,
                                         Hq=hq, Kv=kv, Dh=dh, W=0).items():
             res[name][key] = r
+    for name, rows in frontend_kernel_check(torch, F, fa, dec, dev).items():
+        res[name].update(rows)
     res["flash_attention_bwd"] = flash_bwd_check(torch, F, fa, dev)
     res["ssd_scan_bwd"] = ssd_bwd_check(torch, dev)
     for name, r in res.items():
@@ -1196,6 +1234,77 @@ def gqa_kernel_check(torch, F, fa, dec, rnd, dev, g, Hq=H5, Kv=K5, Dh=D64,
         else:
             out["paged_decode_attention"]["global"] = rp
             out["decode_attention"]["global"] = rd
+    return out
+
+
+def noncausal_flash_case(torch, F, fa, rnd, B, S, Hq, Kv, Dh):
+    """Flash with ``causal=False`` (the encoder's attention) at ``Hq`` /
+    ``Kv`` heads of ``Dh``: held row by row against the plain version,
+    beside two planted faults that must fail the same check (the upper
+    triangle dropped: the kernel run causal; the first kv tile dropped
+    from the last rows: a window of S - 64), then timed in turns with
+    SDPA (no mask, ``enable_gqa``) beside its bound (every (query, key)
+    pair; head_dim 80 counted at 80, though the kernel pads it to
+    128)."""
+    tol = TOL["flash_attention"]
+    q, k, v = rnd(B, S, Hq, Dh), rnd(B, S, Kv, Dh), rnd(B, S, Kv, Dh)
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    got = fa.flash_attention(q, k, v, causal=False)
+    err, rel = row_err(torch, got, want)
+    G = Hq // Kv
+    label = f"G={G} D={Dh} B={B} S={S} non-causal"
+    log(f"kernel flash_attention {label}: max_abs_err={err:.3e} worst row "
+        f"rel={rel:.3e} (tol {tol}) [{CARD}]")
+    check(rel <= tol, f"flash_attention {label} row rel err {rel}")
+    ctl = min(control("flash_attention", f"{label} upper triangle dropped",
+                      torch, fa.flash_attention(q, k, v, causal=True), want),
+              control("flash_attention", f"{label} drops one kv tile", torch,
+                      fa.flash_attention(q, k, v, causal=False,
+                                         window=S - 64), want))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    med, rounds = in_turns(torch, {
+        "kernel": lambda: fa.flash_attention(q, k, v, causal=False),
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True)})
+    plain = time_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal=False), iters=5)
+    b_ms, b_by = bound(2 * (2 * B * S * Hq * Dh + 2 * B * S * Kv * Dh),
+                       4 * Dh * Hq * B * S * S)
+    log(f"timing flash_attention {label}: kernel {med['kernel']:.4f} ms, "
+        f"SDPA {med['library']:.4f} ms (medians of {TURNS} turns: kernel "
+        f"{fmt(rounds['kernel'])}, SDPA {fmt(rounds['library'])}), plain "
+        f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{CARD}]")
+    return dict(shape=f"B={B} S={S} H={Hq} K={Kv} D={Dh} non-causal bf16, "
+                      f"tile {fa.kernel_tiles(G)}",
+                ms=med["kernel"], library_ms=med["library"], plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                row_rel_err=rel, control_row_rel_err=ctl,
+                kernel_turns_ms=rounds["kernel"],
+                library_turns_ms=rounds["library"])
+
+
+def frontend_kernel_check(torch, F, fa, dec, dev):
+    """The attention kernels at the frontends' widths, on a generator of
+    their own (the draws of the earlier checks stay as they were):
+    qwen2-vl-72b's 64 / 8 heads of 128 (G = 8 fills the flash tile: 16
+    positions x 8, no pad row) through :func:`gqa_kernel_check` (flash
+    whole and at a query offset, paged and dense decode, their planted
+    faults and SDPA timings), then ``causal=False`` at hubert-xlarge's 16
+    / 16 heads of 80 and at qwen3-8b's 32 / 8 heads of 128, B=1 S=2048
+    (:func:`noncausal_flash_case`).  Returns rows by kernel name, each
+    keyed ``qwen2vl`` / ``hubert`` / ``noncausal128``."""
+    gf = torch.Generator(dev).manual_seed(SEED + 25)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gf, device=dev).to(torch.bfloat16)
+
+    hq, kv, dh = VLM_PAIR
+    out = {name: {"qwen2vl": r} for name, r in gqa_kernel_check(
+        torch, F, fa, dec, rnd, dev, gf, Hq=hq, Kv=kv, Dh=dh, W=0).items()}
+    out["flash_attention"]["hubert"] = noncausal_flash_case(
+        torch, F, fa, rnd, 1, 2048, *ENC_PAIR)
+    out["flash_attention"]["noncausal128"] = noncausal_flash_case(
+        torch, F, fa, rnd, 1, 2048, H, K, D)
     return out
 
 
@@ -2764,6 +2873,89 @@ def llama4_phase(torch, dev):
     return counts, res, plan
 
 
+def qwen2vl_phase(torch, dev):
+    """qwen2-vl-72b at full width cut to :data:`QWEN2VL_SERVE_LAYERS` of
+    its 80 layers (d_model 8192, 64 / 8 heads of 128: G = 8, d_ff 29568,
+    vocab 152064; about 33.1 GB of bf16 weights, every earlier weight
+    freed; the whole arch, about 145 GB, is refused before any weight by
+    the launcher's ``check_fits``).  ``from_plan(plan, params)`` on the
+    cut arch's decode 2048 x 8 plan serves 16 token requests (the
+    engine's input, as the reference's: M-RoPE's three streams are each
+    row's position), 16 flash launches a prefill call and 16 paged
+    decode launches a tick; then the full-depth consistency check and
+    the M-RoPE check (:func:`mrope_check`)."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.passes.lowering import build_run_cfg
+
+    full = get_arch(QWEN2VL)
+    cut = dataclasses.replace(full, n_layers=QWEN2VL_SERVE_LAYERS)
+    log(f"cut: {QWEN2VL} n_layers {full.n_layers} -> {cut.n_layers} (full "
+        f"width; {full.param_count()} parameters whole, "
+        f"{cut.param_count()} cut) [{CARD}]")
+    arch, plan, params = _new_arch_plan(torch, dev, QWEN2VL, arch=cut)
+    counts, res = serve_phase(torch, dev, "qwen2-vl", arch, plan, params,
+                              n_requests=16, new_tokens=32)
+    _check_layer_launches("qwen2-vl", arch, counts, res)
+    cfg = build_run_cfg(plan, arch)
+    consistency_check(torch, dev, arch, params, cfg,
+                      int(plan.estimates["kv_block_len"]),
+                      top1_margin=FULL_TOL)
+    res["mrope"] = mrope_check(torch, dev, arch, params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, res, plan
+
+
+def mrope_check(torch, dev, arch, params, cfg, B: int = 2, S: int = 1024,
+                grid: int = 32):
+    """M-RoPE on the card: a prefill of ``B`` x ``S`` random patch
+    embeddings with ``(3, B, S)`` positions, the temporal stream each
+    row's index (the mask the flash kernel applies), height and width a
+    ``grid``-wide patch grid.  The last-token logits through the flash
+    kernel against the same prefill through the plain attention
+    (:func:`plain_kernels`) with the positions as given: rms-relative at
+    :data:`FULL_TOL`.  The control collapses the three streams into the
+    temporal one (plain RoPE over every slot): it must differ from the
+    plain prefill by over :data:`FULL_TOL` and ten times the kernel's
+    own difference, which shows that the sections take their streams."""
+    from repro_torch.models import lm
+
+    g = torch.Generator(dev).manual_seed(SEED + 3)
+    emb = torch.randn((B, S, arch.d_model), generator=g,
+                      device=dev).to(torch.bfloat16)
+    rows = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+    pos = torch.stack([rows, rows // grid, rows % grid]).contiguous()
+    V = arch.vocab_size
+
+    def logits(positions, plain):
+        with plain_kernels(plain):
+            out, _ = lm.prefill(arch, params, {"embeds": emb,
+                                               "positions": positions}, cfg)
+        return out[:, :V].float()
+
+    want = logits(pos, True)
+    got = logits(pos, False)
+    collapsed = logits(rows.expand(3, B, S).contiguous(), True)
+    check(bool(torch.isfinite(got).all()), "M-RoPE: logits not finite")
+    noise = _rms_rel(torch, got, want)
+    control = _rms_rel(torch, collapsed, want)
+    log(f"check M-RoPE {arch.name} prefill of {B} x {S} patch embeddings, "
+        f"sections {arch.mrope_sections}, temporal stream = row, height / "
+        f"width a {grid}-wide grid: kernels vs plain attention rms_rel="
+        f"{noise:.3e} (tol {FULL_TOL}); streams collapsed to the temporal "
+        f"one rms_rel={control:.3e} (must exceed {FULL_TOL} and 10 x the "
+        f"kernels') [{CARD}]")
+    check(noise <= FULL_TOL, f"M-RoPE: kernels vs plain rms_rel {noise}")
+    check(control > max(FULL_TOL, 10 * noise),
+          f"M-RoPE: the collapsed-streams control ({control}) is not far "
+          f"from the sections' result (kernels {noise})")
+    return dict(B=B, S=S, grid=grid, rms_rel=noise,
+                collapsed_control=control, tol=FULL_TOL)
+
+
 def small_moe_check(torch, dev):
     """Reduced granite (2 layers, 8 experts top-2, 4 / 2 heads of 64)
     under both MoE paths and reduced llama4 (two super-blocks, 8 experts
@@ -3123,16 +3315,31 @@ def _causal_pairs(S: int, window: int) -> int:
     return sum(min(i + 1, window) if window else i + 1 for i in range(S))
 
 
+#: the flash backward's shapes (B, S, H, K, D, window, causal): qwen3-8b's
+#: train shape and B=2 S=1024, hymba's through its window, granite's,
+#: qwen2-vl-72b's (G = 8) and hubert-xlarge's (16 heads of 80, non-causal)
+FLASH_BWD_SHAPES = ((1, 2048, H, K, D, 0, True), (2, 1024, H, K, D, 0, True),
+                    (1, 2048, H5, K5, D64, W5, True),
+                    (1, 2048, *MOE_PAIRS["granite"], 0, True),
+                    (1, 2048, *VLM_PAIR, 0, True),
+                    (1, 2048, *ENC_PAIR, 0, False))
+
+
 def flash_bwd_check(torch, F, fa, dev):
     """The flash backward at the training shape, qwen3-8b's widths (32 /
     8 heads of 128) at B=1 S=2048 causal, also at B=2 S=1024, at hymba's
-    (25 / 5 heads of 64) through a 1024 window at B=1 S=2048, and at
+    (25 / 5 heads of 64) through a 1024 window at B=1 S=2048, at
     granite's (16 / 8 heads of 64) at B=1 S=2048 causal (the MoE train
-    shape ROADMAP item 8a queues).
+    shape ROADMAP item 8a queues), at qwen2-vl-72b's (64 / 8 heads of
+    128, causal) and at hubert-xlarge's (16 / 16 heads of 80, non-causal:
+    the kernel pads 80 to 128 columns) (:data:`FLASH_BWD_SHAPES`).
     dq, dk and dv are held row by row (:func:`grad_row_err`) against the
     plain backward on the same q, k, v, o, lse and dO (o and lse from the
     forward kernel), beside two planted faults on dk / dv that must fail
-    the same check; then timed in turns with the library yardstick (the
+    the same check (a Q tile dropped; one head of the group summed, or,
+    at G = 1 where that is no fault, the non-causal upper triangle
+    dropped: the backward run causal); then timed in turns with the
+    library yardstick (the
     backward of SDPA, ``is_causal`` and ``enable_gqa``, with a boolean
     mask for the window: ``torch.autograd.grad`` alone, the forward
     outside the timing), beside the plain version and the forward kernel
@@ -3144,35 +3351,36 @@ def flash_bwd_check(torch, F, fa, dev):
     g = torch.Generator(dev).manual_seed(SEED + 20)
     tol = TOL["flash_attention_bwd"]
     out = {"shapes": []}
-    for B, S, Hq, Kv, Dh, W in ((1, 2048, H, K, D, 0),
-                                (2, 1024, H, K, D, 0),
-                                (1, 2048, H5, K5, D64, W5),
-                                (1, 2048, *MOE_PAIRS["granite"], 0)):
+    for B, S, Hq, Kv, Dh, W, C in FLASH_BWD_SHAPES:
         def rnd(*shape):
             return torch.randn(shape, generator=g, device=dev).to(
                 torch.bfloat16)
 
         q, k, v, do = (rnd(B, S, Hq, Dh), rnd(B, S, Kv, Dh),
                        rnd(B, S, Kv, Dh), rnd(B, S, Hq, Dh))
-        o, lse = fa.flash_attention(q, k, v, causal=True, window=W,
+        o, lse = fa.flash_attention(q, k, v, causal=C, window=W,
                                     return_lse=True)
         want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                            causal=True, window=W)
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                            causal=C, window=W)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=C,
                                      window=W)
         errs = [grad_row_err(torch, a, b) for a, b in zip(got, want)]
         err, rel = max(e for e, _ in errs), max(r for _, r in errs)
-        tag = f"G={Hq // Kv} D={Dh} B={B} S={S}" + (f" window {W}" if W
-                                                    else "")
+        tag = f"G={Hq // Kv} D={Dh} B={B} S={S}" + (
+            f" window {W}" if W else "") + ("" if C else " non-causal")
         log(f"kernel flash_attention_bwd {tag}: max_abs_err={err:.3e} worst "
             f"row rel dq/dk/dv={[round(r, 6) for _, r in errs]} (tol {tol}, "
             f"rows floored at {GRAD_FLOOR} x the tensor's rms) [{CARD}]")
         check(rel <= tol, f"flash_attention_bwd {tag} row rel err {rel} > "
               f"{tol}")
         controls = {}
-        for fault in ("drop_tile", "group_fault"):
-            bad = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
-                                         window=W, **{fault: True})
+        faults = {"drop_tile": dict(causal=C, drop_tile=True)}
+        if Hq > Kv:
+            faults["group_fault"] = dict(causal=C, group_fault=True)
+        else:                 # G = 1: no other head of a group to drop
+            faults["upper triangle dropped"] = dict(causal=True)
+        for fault, kw in faults.items():
+            bad = fa.flash_attention_bwd(q, k, v, o, lse, do, window=W, **kw)
             c = min(grad_row_err(torch, a, b)[1]
                     for a, b in zip(bad[1:], want[1:]))
             log(f"control flash_attention_bwd {tag} {fault}: worst row rel "
@@ -3189,23 +3397,25 @@ def flash_bwd_check(torch, F, fa, dev):
             mask = (pos[None, :] <= pos[:, None]) & \
                 (pos[:, None] - pos[None, :] < W)
         lib_out = F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=not W, enable_gqa=True)
+            qt, kt, vt, attn_mask=mask, is_causal=C and not W,
+            enable_gqa=True)
         dot = do.transpose(1, 2)
         med, rounds = in_turns(torch, {
             "kernel": lambda: fa.flash_attention_bwd(
-                q, k, v, o, lse, do, causal=True, window=W),
+                q, k, v, o, lse, do, causal=C, window=W),
             "library": lambda: torch.autograd.grad(
                 lib_out, (qt, kt, vt), dot, retain_graph=True)})
         fwd, _ = in_turns(torch, {
             "with_lse": lambda: fa.flash_attention(
-                q, k, v, causal=True, window=W, return_lse=True),
-            "without": lambda: fa.flash_attention(q, k, v, causal=True,
+                q, k, v, causal=C, window=W, return_lse=True),
+            "without": lambda: fa.flash_attention(q, k, v, causal=C,
                                                   window=W)})
-        pairs = B * _causal_pairs(S, W)
+        pairs = B * (_causal_pairs(S, W) if C else S * S)
         nbytes = 2 * (3 * B * S * Hq * Dh + 2 * B * S * Kv * Dh) \
             + 4 * B * Hq * S + 2 * (B * S * Hq * Dh + 2 * B * S * Kv * Dh)
         b_ms, b_by = bound(nbytes, 2.5 * 4 * Dh * Hq * pairs)
-        row = dict(B=B, S=S, H=Hq, K=Kv, D=Dh, window=W, ms=med["kernel"],
+        row = dict(B=B, S=S, H=Hq, K=Kv, D=Dh, window=W, causal=C,
+                   ms=med["kernel"],
                    library_ms=med["library"], turns_ms=rounds["kernel"],
                    library_turns_ms=rounds["library"], bound_ms=b_ms,
                    bound_by=b_by, row_rel_err=rel, max_abs_err=err,
@@ -3218,6 +3428,11 @@ def flash_bwd_check(torch, F, fa, dev):
             f"{fmt(rounds['library'])}), bound {b_ms:.4f} ms ({b_by}); "
             f"forward kernel with lse {fwd['with_lse']:.4f} ms, without "
             f"{fwd['without']:.4f} ms [{CARD}]")
+        if (Hq, Kv, Dh) in (VLM_PAIR, ENC_PAIR):
+            row["plain_ms"] = time_ms(
+                torch, lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, o, lse, do, causal=C, window=W),
+                iters=3, warmup=1)
         if not out["shapes"]:            # the headline: the train shape
             row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
                 q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
@@ -3413,6 +3628,32 @@ def ssd_bwd_check(torch, dev):
     return out
 
 
+@contextlib.contextmanager
+def plain_kernels(on: bool = True):
+    """While ``on``, the model's attention runs ``flash_attention_plain``
+    and its SSD scan ``ssd_scan_plain`` (both differentiable by torch
+    autograd) on the card, in place of the kernels: the reference the
+    train and M-RoPE checks hold the kernels against."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+
+    routed = attn_mod.attention_chunked, ssm_mod.ssd_chunked
+    if on:
+        attn_mod.attention_chunked = (
+            lambda q, k, v, *, causal, window, tiles, mode, mask_pos=None:
+            fa.flash_attention_plain(q, k, v, causal=causal, window=window))
+        ssm_mod.ssd_chunked = (
+            lambda x, dt, A, Bm, Cm, chunk, initial_state=None, *,
+            heads_block=None, mode="auto": ssd.ssd_scan_plain(
+                x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state))
+    try:
+        yield
+    finally:
+        attn_mod.attention_chunked, ssm_mod.ssd_chunked = routed
+
+
 def _last_layer_grads(torch, arch, params, batch, cfg, plain: bool):
     """The training loss of ``batch`` and the gradients of the last step
     of the layer loop (a layer: its leaves and its input): the steps
@@ -3422,24 +3663,13 @@ def _last_layer_grads(torch, arch, params, batch, cfg, plain: bool):
     losses, as ``lm.train_loss`` computes them.  ``plain`` sends
     attention through ``flash_attention_plain`` and the SSD scan through
     ``ssd_scan_plain`` under torch autograd instead of the kernels'
-    autograd functions."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.models import attention as attn_mod
+    autograd functions (:func:`plain_kernels`).  A batch of ``embeds``
+    (and M-RoPE ``positions``, an audio ``mask``) enters as
+    ``lm.train_loss`` takes it."""
     from repro_torch.models import lm
-    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.common import cross_entropy_loss, rms_norm
 
-    routed = attn_mod.attention_chunked, ssm_mod.ssd_chunked
-    if plain:
-        attn_mod.attention_chunked = (
-            lambda q, k, v, *, causal, window, tiles, mode:
-            fa.flash_attention_plain(q, k, v, causal=causal, window=window))
-        ssm_mod.ssd_chunked = (
-            lambda x, dt, A, Bm, Cm, chunk, initial_state=None, *,
-            heads_block=None, mode="auto": ssd.ssd_scan_plain(
-                x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state))
-    try:
+    with plain_kernels(plain):
         groups = lm.layer_groups(arch, params["blocks"])
         g = arch.n_layers // len(groups)
         windows = lm._window_schedule(arch)
@@ -3449,29 +3679,25 @@ def _last_layer_grads(torch, arch, params, batch, cfg, plain: bool):
 
         aux = 0.0
         with torch.no_grad():
-            x = lm._embed_in(arch, params, batch)
-            B, S = x.shape[:2]
-            positions = torch.arange(S, device=x.device).expand(B, S)
+            x, positions, mask_pos = lm._embed_in(arch, params, batch)
             for j in range(len(groups) - 1):
                 x, a = lm._group_fwd(arch, cfg, groups[j], x, positions,
-                                     win(j))
+                                     win(j), mask_pos)
                 aux = aux if a is None else aux + a
         x = x.detach().requires_grad_()
         last = _map_tree(groups[-1], lambda t: t.detach().requires_grad_())
         block = lm._remat(functools.partial(lm._group_fwd, arch, cfg),
                           cfg.remat)
-        y, a = block(last, x, positions, win(len(groups) - 1))
+        y, a = block(last, x, positions, win(len(groups) - 1), mask_pos)
         aux = aux if a is None else aux + a
         y = rms_norm(y, params["final_norm"], arch.norm_eps)
         loss, _ = cross_entropy_loss(lm._logits(arch, params, y),
-                                     batch["targets"],
+                                     batch["targets"], batch.get("mask"),
                                      vocab_size=arch.vocab_size)
         loss = loss + lm.AUX_LOSS_WEIGHT * aux
         named = [("input", x)] + _named(last)
         grads = torch.autograd.grad(loss, [t for _, t in named])
         return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
-    finally:
-        attn_mod.attention_chunked, ssm_mod.ssd_chunked = routed
 
 
 @contextlib.contextmanager
@@ -3785,6 +4011,35 @@ def train_phase(torch, dev, name="qwen3-8b"):
     return counts, res
 
 
+def frontend_phases(torch, dev):
+    """Phases 20-23, each after every earlier weight was freed:
+    qwen2-vl-72b served at full width cut to 16 layers
+    (:func:`qwen2vl_phase`, with its consistency and M-RoPE checks), then
+    trained at full width at the depth its ``h100-sxm`` 2048 x 1 train
+    plan admits, on the synthetic source's patch embeddings and
+    positions; hubert-xlarge trained at full width and depth (48 layers)
+    from its own plan, on frames, targets and the audio mask, its
+    attention through the non-causal flash forward and backward at
+    head_dim 80 (:func:`train_phase` for both); then a small qwen2-vl and
+    a small hubert on the card against the CPU
+    (:func:`small_train_check`).  Returns the launch counts by run and
+    the results."""
+    from repro_torch.kernels import ops
+
+    serve_counts, serve, _ = qwen2vl_phase(torch, dev)
+    ops.reset_launch_counts()
+    vl_counts, vl = train_phase(torch, dev, QWEN2VL)
+    hu_counts, hu = train_phase(torch, dev, HUBERT)
+    small = {name: small_train_check(torch, dev, name)
+             for name in (QWEN2VL, HUBERT)}
+    ops.reset_launch_counts()
+    counts = {"qwen2-vl serve": serve_counts, "qwen2-vl train": vl_counts,
+              "hubert train": hu_counts}
+    return counts, {"qwen2-vl serve": serve, "qwen2-vl train": vl,
+                    "hubert train": hu, "small_train": small,
+                    "launches": counts}
+
+
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
@@ -3830,9 +4085,11 @@ def small_train_check(torch, dev, name="qwen3-8b"):
     from repro_torch.optim import adamw
     from repro_torch.train import Trainer, TrainerConfig
 
-    arch = get_arch(name).reduced()
-    if arch.has_attention:
-        arch = dataclasses.replace(arch, head_dim=128)
+    full = get_arch(name)
+    arch = full.reduced()
+    if arch.has_attention:           # the published head_dim (M-RoPE's
+        arch = dataclasses.replace(  # sections cover its half)
+            arch, head_dim=full.hd, mrope_sections=full.mrope_sections)
     shape = ShapeConfig("small_train", "train",
                         *((1024, 2) if arch.has_ssm else (256, 4)))
     plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
@@ -3859,7 +4116,9 @@ def small_train_check(torch, dev, name="qwen3-8b"):
             device).requires_grad_(t.is_floating_point()))
         loss, _ = lm.train_loss(arch, params, to_device(device)(batch0), cfg)
         names = [n for n, _ in _named(params)]
-        grads = torch.autograd.grad(loss, [t for _, t in _named(params)])
+        grads = torch.autograd.grad(loss, [t for _, t in _named(params)],
+                                    allow_unused=True,
+                                    materialize_grads=True)
         return {n: g.float().cpu() for n, g in zip(names, grads)}
 
     g_cpu = step0_grads("cpu")
@@ -4357,9 +4616,17 @@ def main(argv=None) -> int:
     log(f"family train phases took {time.perf_counter() - t0:.1f} s "
         f"[{CARD}]")
 
-    # ---- phase 20: results ----
+    # ---- phases 20-23: the frontends (qwen2-vl-72b serve and train,
+    # hubert-xlarge train, the small models), each after every earlier
+    # weight was freed ----
+    t0 = time.perf_counter()
+    front_counts, front = frontend_phases(torch, dev)
+    log(f"frontend phases took {time.perf_counter() - t0:.1f} s [{CARD}]")
+
+    # ---- phase 24: results ----
     family_counts = [c for c, _ in families.values()]
-    runs = (*serve_runs.values(), train_counts, *family_counts)
+    runs = (*serve_runs.values(), train_counts, *family_counts,
+            *front_counts.values())
     launches = {k: sum(c[k] for c in runs) for k in paged_counts}
     for name in ("flash_attention", "paged_decode_attention"):
         kern[name]["g7"]["launches"] = (grant["launches"][name]
@@ -4371,7 +4638,18 @@ def main(argv=None) -> int:
         kern[name]["train"] = {"launches": {
             n: c[name] for n, c in (("qwen3-8b", train_counts),
                                     *((f, c) for f, (c, _) in
-                                      families.items()))}}
+                                      families.items()),
+                                    (QWEN2VL, front_counts["qwen2-vl train"]),
+                                    (HUBERT, front_counts["hubert train"]))}}
+    # the frontends' pairs: qwen2-vl's plan is paged, so its dense decode
+    # instance runs in the kernel phase only (0 on the main path)
+    for name in ("flash_attention", "paged_decode_attention",
+                 "decode_attention"):
+        kern[name]["qwen2vl"]["launches"] = (
+            front_counts["qwen2-vl serve"][name]
+            + front_counts["qwen2-vl train"][name])
+    kern["flash_attention"]["hubert"]["launches"] = \
+        front_counts["hubert train"]["flash_attention"]
     # the MoE archs' pairs: both plans are paged, so their dense decode
     # instances run in the kernel phase only (0 on the main path)
     for name in ("flash_attention", "paged_decode_attention",
@@ -4401,6 +4679,7 @@ def main(argv=None) -> int:
                                  "shapes", "library_call", "launched_by",
                                  "offset", "tail_launches", "g7", "g5",
                                  "hymba", "granite", "llama4", "train",
+                                 "qwen2vl", "hubert", "noncausal128",
                                  "fwd_with_lse_ms", "fwd_without_lse_ms",
                                  "autograd_plain_ms",
                                  "autograd_plain_turns_ms")
@@ -4431,7 +4710,8 @@ def main(argv=None) -> int:
                     "train": train, "small_train": small_train,
                     "train_families": {n: r for n, (_, r) in
                                        families.items()},
-                    "small_train_mamba2": small_train_ssm}))
+                    "small_train_mamba2": small_train_ssm,
+                    "frontends": front}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")
     log(smi)

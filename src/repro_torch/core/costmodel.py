@@ -716,8 +716,11 @@ def eager_layer_saved_bytes(arch, tokens: float, heads: int, kv_heads: int,
       mamba2 mixer (:func:`_ssm_saved_bytes`; a hybrid keeps both
       paths); then the FFN's norm and, for the gated FFN, its normed
       input, bf16 gate/up product (4 T F), the fp32 gate (4 T F), the
-      bf16 SiLU (2 T F) and the bf16 product (2 T F), or the MoE FFN
-      (:func:`_moe_saved_bytes`);
+      bf16 SiLU (2 T F) and the bf16 product (2 T F); for the encoder's
+      GELU FFN, its normed input, the fp32 input of the GELU (4 T F) and
+      its bf16 output (2 T F); or the MoE FFN (:func:`_moe_saved_bytes`).
+      Attention keeps the same tensors causal or not (the encoder's is
+      not), and no RoPE terms where the arch has none;
     * ``full``: the layer's input alone (2 T d).
     """
     T, d, hd = tokens, arch.d_model, arch.hd
@@ -736,8 +739,9 @@ def eager_layer_saved_bytes(arch, tokens: float, heads: int, kv_heads: int,
     if arch.has_ssm:
         out += _ssm_saved_bytes(arch, T, seqs, ssd_chunk)
     if ffn == "mlp":
-        out += _norm_bytes(T, d) + 2 * T * d + 12 * T * (arch.d_ff
-                                                         or arch.d_inner)
+        per_ff = 6 if arch.family == "encoder" else 12
+        out += _norm_bytes(T, d) + 2 * T * d + per_ff * T * (arch.d_ff
+                                                             or arch.d_inner)
     elif ffn != "none":
         out += _norm_bytes(T, d) + _moe_saved_bytes(arch, T, seqs, ffn)
     return out

@@ -98,7 +98,9 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
     (``src/repro/core/passes/lowering.py:213-425``): the loss and its
     gradients, accumulated over ``comm.microbatches`` microbatches (each
     taking every ``microbatches``-th row of the batch, the reference's
-    interleaved split, the gradients summed in fp32 and averaged: the
+    interleaved split, each input sliced on its batch dim from
+    :func:`repro_torch.models.frontends.batch_dims`: M-RoPE's ``(3, B,
+    S)`` positions on dim 1; the gradients summed in fp32 and averaged: the
     bf16 gradients of one microbatch beside the fp32 sum, which the
     planner's step-peak estimate counts), then
     :func:`repro_torch.optim.adamw.apply_updates` in place.  The state is
@@ -109,7 +111,7 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
     wire or modelled: ROADMAP item 10), before any weight exists."""
     import torch
 
-    from repro_torch.models import lm
+    from repro_torch.models import frontends, lm
     from repro_torch.optim import adamw
 
     if mesh is not None:
@@ -125,11 +127,15 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
     cfg = build_run_cfg(plan, arch)
     opt_cfg = opt_cfg or adamw.OptConfig.from_plan(plan)
     nmicro = max(plan.comm.microbatches, 1)
+    bdims = frontends.batch_dims(arch, shape)
 
     def grads_of(params, batch):
         leaves = list(adamw.leaves(params))
         loss, metrics = lm.train_loss(arch, params, batch, cfg)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (the embedding table of a model
+        # fed ``embeds``) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), metrics, grads
 
     def train_step(state, batch):
@@ -137,7 +143,8 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
         if nmicro > 1:
             gsum, lsum = None, 0.0
             for j in range(nmicro):
-                mb = {k: v[j::nmicro] for k, v in batch.items()}
+                mb = {k: _rows(v, bdims.get(k, 0), j, nmicro)
+                      for k, v in batch.items()}
                 loss, _, grads = grads_of(params, mb)
                 # the fp32 sum takes each microbatch's gradients as they
                 # are (no fp32 copy of a whole microbatch's set)
@@ -162,6 +169,12 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
         return {"params": params, "opt": opt}, metrics
 
     return LoweredStep(fn=train_step, plan=plan)
+
+
+def _rows(t, dim: int, j: int, n: int):
+    """Every ``n``-th row of ``t`` along its batch dim ``dim``, from
+    ``j``."""
+    return t[(slice(None),) * dim + (slice(j, None, n),)]
 
 
 def _like(tree, it):

@@ -11,6 +11,7 @@ pinned host memory, with asynchronous copies, from the prefetch thread.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from typing import Callable, Dict, Iterator, Optional
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.models.frontends import input_specs
 
 
 class SyntheticSource:
@@ -35,29 +37,27 @@ class SyntheticSource:
         self.host_batch = shape.global_batch // n_hosts
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """The host's batch of ``step``: the inputs
+        :func:`repro_torch.models.frontends.input_specs` names for this
+        host's rows, drawn in that order (embeddings fp32, the audio
+        mask fp32, ids int32; positions the default ``0..S-1`` in each
+        of M-RoPE's three streams)."""
         rng = np.random.default_rng(
             (self.seed * 1_000_003 + step) * 65_537 + self.host_id)
-        B, S = self.host_batch, self.shape.seq_len
-        arch = self.arch
+        shape = dataclasses.replace(self.shape, global_batch=self.host_batch)
         out: Dict[str, np.ndarray] = {}
-        if arch.modality in ("audio", "vlm") and self.shape.kind != "decode":
-            out["embeds"] = rng.standard_normal(
-                (B, S, arch.d_model), dtype=np.float32)
-            if arch.mrope_sections is not None:
-                pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
-                out["positions"] = np.broadcast_to(pos, (3, B, S)).copy()
-            if self.shape.kind == "train":
-                out["targets"] = rng.integers(
-                    0, arch.vocab_size, (B, S), dtype=np.int32)
-            if arch.modality == "audio" and self.shape.kind == "train":
-                out["mask"] = (rng.random((B, S)) < 0.5).astype(np.float32)
-        else:
-            S_eff = 1 if self.shape.kind == "decode" else S
-            out["tokens"] = rng.integers(
-                0, arch.vocab_size, (B, S_eff), dtype=np.int32)
-            if self.shape.kind == "train":
-                out["targets"] = rng.integers(
-                    0, arch.vocab_size, (B, S), dtype=np.int32)
+        for name, spec in input_specs(self.arch, shape).items():
+            if name == "embeds":
+                out[name] = rng.standard_normal(spec.shape, dtype=np.float32)
+            elif name == "positions":
+                out[name] = np.broadcast_to(
+                    np.arange(spec.shape[-1], dtype=np.int32),
+                    spec.shape).copy()
+            elif name == "mask":
+                out[name] = (rng.random(spec.shape) < 0.5).astype(np.float32)
+            else:                              # tokens, targets
+                out[name] = rng.integers(0, self.arch.vocab_size,
+                                         spec.shape, dtype=np.int32)
         return out
 
 

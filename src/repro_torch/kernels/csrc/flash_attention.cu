@@ -59,12 +59,25 @@
 //     m + log(l) of the scaled scores, fp32 (B, H, Sq), natural log (+inf
 //     for a row with no live key, so the backward's P is 0 there).  The
 //     serve path passes null and does no extra work.
+//   * head_dim 80 (hubert-xlarge): a row of 80 bf16 is 160 bytes, not a
+//     whole number of 128-byte swizzle atoms.  The kernel pads it to two
+//     atoms in shared memory: the tensor maps keep D = 80 as the tensor's
+//     own innermost extent (a 160-byte row stride, a multiple of 16 as TMA
+//     asks), the second 64-wide box starts at column 64 and TMA zero-fills
+//     its columns 80..127 (the barrier is credited with the whole box).
+//     The products then run at the padded width of 128, where the zero
+//     columns add nothing to Q K^T and give zero columns of P V, and the
+//     epilogue writes the 80 real columns.  1.6x the multiply-adds of an
+//     exact fit, for one code path: the template's D is the row's width,
+//     its padded width kD the products' (a 64 + 16 split with a 32-byte
+//     swizzled box would do no extra work, later work if it is the limit);
 // Tiles (rows, block_kv) in {(64, 64), (64, 128), (128, 64), (128, 128)}
 // (rows = 64 per consumer warpgroup), head_dim a template parameter
-// instantiated at 64 (hymba-1.5b) and 128; a tile holds at least one whole
-// GQA group.  The wrapper admits G in {1, 2, 4, 5, 7, 8, 16} and raises on
+// instantiated at 64 (hymba-1.5b), 80 (hubert-xlarge, padded to 128) and
+// 128; a tile holds at least one whole GQA group.  The wrapper admits G in {1, 2, 4, 5, 7, 8, 16} and raises on
 // anything else.  Shared memory at (128, 128): Q 32 KB + 2 stages x (K + V)
-// 128 KB = 160 KB at D = 128, half that at D = 64; one CTA an SM.
+// 128 KB = 160 KB at D = 128 and at D = 80 (padded), half that at D = 64;
+// one CTA an SM.
 // Not done yet (later work): overlapping one tile's softmax with the next
 // tile's S product (in a warpgroup or ping-pong across the two), a
 // TMA-store epilogue, a persistent grid.
@@ -80,6 +93,12 @@ namespace sm90 = repro::sm90;
 namespace {
 
 constexpr int kStages = 2;
+
+// head_dim padded to whole 128-byte swizzle atoms of bf16 (64 columns)
+template <int D>
+__host__ __device__ constexpr int padded_dim() {
+  return (D + 63) / 64 * 64;
+}
 
 template <int D, int BKV, int NWG>
 struct Smem {
@@ -124,10 +143,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  bf16* __restrict__ out, float* __restrict__ lse, int Sq,
                  int Skv, int q_off, int H, int K, int causal, int window,
                  float scale_log2, int pad_fault) {
-  using L = Smem<D, BKV, NWG>;
+  constexpr int kD = padded_dim<D>();  // the products' width
+  using L = Smem<kD, BKV, NWG>;
   constexpr int kRows = L::kRows;
-  constexpr int kAtoms = D / 64;  // 128-byte swizzle atoms along D
-  static_assert(D == 64 || D == 128, "head_dim is one or two swizzle atoms");
+  constexpr int kAtoms = kD / 64;  // 128-byte swizzle atoms along D
+  static_assert(D % 8 == 0 && (kD == 64 || kD == 128),
+                "head_dim is padded to one or two swizzle atoms");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -179,8 +200,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- producer: Q once, then the K/V ring
     if constexpr (NWG == 2) sm90::setmaxnreg_dec<24>();
     if (tid == 0) {
-      // the bytes the boxes deliver: BQ*G rows of D, not kRows
-      sm90::mbar_expect_tx(q_full, q_rows * D * 2);
+      // the bytes the boxes deliver: BQ*G rows of kD (a zero-filled
+      // column is credited like a loaded one), not kRows
+      sm90::mbar_expect_tx(q_full, q_rows * kD * 2);
 #pragma unroll
       for (int a = 0; a < kAtoms; ++a)
         sm90::tma_load_4d(q_s + a * kRows * 128, &map_q, q_full, a * 64,
@@ -216,9 +238,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int qrow_lo = r_lo < q_rows ? q0 + r_lo / G : Sq;
   const int qrow_hi = r_hi < q_rows ? q0 + r_hi / G : Sq;
   const int qpos_lo = q_off + qrow_lo, qpos_hi = q_off + qrow_hi;
-  float o[D / 2];
+  float o[kD / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
   const unsigned char* q_wg = q_s + wg * 64 * 128;
   sm90::mbar_wait(q_full, 0);
@@ -235,7 +257,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     sm90::mbar_wait(&k_full[s], phase);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < kD / 16; ++kk) {
       const uint64_t da = sm90::desc_sw128(
           q_wg + (kk / 4) * kRows * 128 + (kk % 4) * 32, 16, 1024);
       const uint64_t db = sm90::desc_sw128(
@@ -291,7 +313,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     l_lo = l_lo * alpha_lo + sum_lo;
     l_hi = l_hi * alpha_hi + sum_hi;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < kD / 8; ++j) {
       o[4 * j] *= alpha_lo;
       o[4 * j + 1] *= alpha_lo;
       o[4 * j + 2] *= alpha_hi;
@@ -314,7 +336,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int kk = 0; kk < BKV / 16; ++kk) {
       const uint64_t db =
           sm90::desc_sw128(v_s + kk * 2048, BKV * 128, 1024);
-      sm90::wgmma_rs<D, 1>(o, pa[kk], db, 1);
+      sm90::wgmma_rs<kD, 1>(o, pa[kk], db, 1);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -346,7 +368,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     bf16* dst = out + (size_t(b_row + qrow) * H + kvh * G + r % G) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < D / 8; ++j)  // the real columns only
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * (lane % 4)) =
           __floats2bfloat162_rn(o[4 * j + 2 * h] * inv,
                                 o[4 * j + 2 * h + 1] * inv);
@@ -386,7 +408,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   int err = encode_maps(&mq, &mk, &mv, q, k, v, B, Sq, Skv, H, K, D, kRows,
                         BKV);
   if (err) return err;
-  const size_t smem = Smem<D, BKV, NWG>::kBytes;
+  const size_t smem = Smem<padded_dim<D>(), BKV, NWG>::kBytes;
   auto kern = flash_fwd_kernel<D, BKV, NWG>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -407,7 +429,7 @@ bool takes(const void* q, const void* k, const void* v, const void* out,
                          reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) |
                          reinterpret_cast<uintptr_t>(out);
-  return (D == 64 || D == 128) && K > 0 && H % K == 0 && H / K <= rows &&
+  return (D == 64 || D == 80 || D == 128) && K > 0 && H % K == 0 && H / K <= rows &&
          Sq > 0 && Skv >= Sq && q_off >= 0 && q_off <= Skv - Sq &&
          ptrs % 16 == 0;
 }
@@ -417,7 +439,7 @@ bool takes(const void* q, const void* k, const void* v, const void* out,
 extern "C" {
 
 // q (B, Sq, H, D), k/v (B, Skv, K, D), out (B, Sq, H, D), all bf16,
-// contiguous and 16-byte aligned, D in {64, 128}, Sq <= Skv, G = H / K <=
+// contiguous and 16-byte aligned, D in {64, 80, 128}, Sq <= Skv, G = H / K <=
 // rows.  Query row i sits at absolute position q_off + i of the key stream (the wrapper passes Skv - Sq: the
 // queries are the stream's last Sq positions; q_off = 0 with Sq == Skv is
 // a whole prompt).  rows = query rows per CTA (64 or 128; it holds rows / G
@@ -453,6 +475,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   REPRO_FLASH_CASE(64, 64, 128)
   REPRO_FLASH_CASE(64, 128, 64)
   REPRO_FLASH_CASE(64, 128, 128)
+  REPRO_FLASH_CASE(80, 64, 64)    // hubert-xlarge: 16 / 16 heads of 80
+  REPRO_FLASH_CASE(80, 64, 128)
+  REPRO_FLASH_CASE(80, 128, 64)
+  REPRO_FLASH_CASE(80, 128, 128)
 #undef REPRO_FLASH_CASE
   return int(cudaErrorInvalidValue);
 }

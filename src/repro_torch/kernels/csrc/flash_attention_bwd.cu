@@ -74,7 +74,14 @@
 // has lse +inf in the tables (P = 0), a zero-filled key is masked in dQ
 // and its dK/dV rows are never written.  Sq <= Skv with q_off = Skv - Sq.
 // Group pad rows (G = 5, 7: 60 or 63 of 64 rows) are zeroed once in every
-// ring stage and have lse +inf.  head_dim 64 and 128; any G up to 64.
+// ring stage and have lse +inf.  head_dim 64, 80 and 128; any G up to 64.
+// head_dim 80 (hubert-xlarge) runs as the forward runs it
+// (csrc/flash_attention.cu): the tensor maps keep the 160-byte rows, the
+// box at column 64 comes back with columns 80..127 zero-filled by TMA, the
+// products run at the padded 128 (zero columns add nothing to S or dP and
+// give zero columns of dQ, dK and dV) and the epilogues write the 80 real
+// columns.  causal=False (the encoder) takes one key tile a CTA: every key
+// tile sees every query, so there is no work to balance by pairing.
 // Planted faults for the checks: drop_tile skips each dK/dV job's first Q
 // tile; group_fault gives every head but a group's first lse +inf in the
 // dK/dV row table (only the first head summed into dK/dV).
@@ -140,6 +147,12 @@ __device__ __forceinline__ void zero_pad_rows(unsigned char* tile, int rows,
 // ---- pass 1: Delta and the dK/dV row table -----------------------------
 // One warp a slot of the table, (b, kv head, Q tile, row); a real row also
 // writes its Delta into (B, H, Sq).
+// head_dim padded to whole 128-byte swizzle atoms of bf16 (64 columns)
+template <int D>
+__host__ __device__ constexpr int padded_dim() {
+  return (D + 63) / 64 * 64;
+}
+
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -218,9 +231,11 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
                bf16* __restrict__ dv, int Sq, int Skv, int q_off, int H,
                int K, int causal, int window, float scale, int paired,
                int drop_tile) {
-  using L = KvSmem<D>;
-  constexpr int kAtoms = D / 64;  // 128-byte swizzle atoms along D
-  static_assert(D == 64 || D == 128, "head_dim is one or two swizzle atoms");
+  constexpr int kD = padded_dim<D>();  // the products' width
+  using L = KvSmem<kD>;
+  constexpr int kAtoms = kD / 64;  // 128-byte swizzle atoms along D
+  static_assert(D % 8 == 0 && (kD == 64 || kD == 128),
+                "head_dim is padded to one or two swizzle atoms");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* k_s = smem;
@@ -282,8 +297,9 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
           const int s = item % kStagesKV;
           unsigned char* q_st = ring + s * L::kStage;
           sm90::mbar_wait(&empty[s], ((item / kStagesKV) & 1) ^ 1);
-          // the bytes the boxes deliver (q_rows rows, not 64) and the table
-          sm90::mbar_expect_tx(&full[s], 2 * q_rows * D * 2 + L::kTable);
+          // the bytes the boxes deliver (q_rows rows of kD, not 64: a
+          // zero-filled column is credited like a loaded one) and the table
+          sm90::mbar_expect_tx(&full[s], 2 * q_rows * kD * 2 + L::kTable);
 #pragma unroll
           for (int a = 0; a < kAtoms; ++a) {
             sm90::tma_load_4d(q_st + a * kRowsKV * 128, &map_q, &full[s],
@@ -307,7 +323,7 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
   const int key_lo = warp * 16 + lane / 4;
   const float scale_log2 = scale * kLog2e;
   const float inv_g = 1.f / G;
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[kD / 2], dv_acc[kD / 2];
   int item_base = 0;
   for (int j = 0; j < n_jobs; ++j) {
     const int kt = j == 0 ? c : n_kt - 1 - c;
@@ -315,7 +331,7 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
     int t0, t1;
     q_tiles(kt, Sq, Skv, q_off, causal, window, BQ, t0, t1);
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     sm90::mbar_wait(kv_full, j & 1);
 
     for (int i = wg; i < t1 - t0; i += 2) {
@@ -337,14 +353,14 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
       float st[32], dpt[32];
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < kD / 16; ++kk) {
         const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
         sm90::wgmma_ss<64, 0>(st, sm90::desc_sw128(k_a + off, 16, 1024),
                               sm90::desc_sw128(q_a + off, 16, 1024), kk > 0);
       }
       sm90::wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < kD / 16; ++kk) {
         const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
         sm90::wgmma_ss<64, 0>(dpt, sm90::desc_sw128(v_a + off, 16, 1024),
                               sm90::desc_sw128(do_a + off, 16, 1024), kk > 0);
@@ -415,12 +431,12 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        sm90::wgmma_rs<D, 1>(
+        sm90::wgmma_rs<kD, 1>(
             dv_acc, pa[kk],
             sm90::desc_sw128(do_a + kk * 2048, kRowsKV * 128, 1024), 1);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        sm90::wgmma_rs<D, 1>(
+        sm90::wgmma_rs<kD, 1>(
             dk_acc, da[kk],
             sm90::desc_sw128(q_a + kk * 2048, kRowsKV * 128, 1024), 1);
       sm90::wgmma_commit();
@@ -438,22 +454,22 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
     sm90::named_bar_sync(1, 256);
     if (wg == 1) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) scratch[i * 128 + tid] = dv_acc[i];
+      for (int i = 0; i < kD / 2; ++i) scratch[i * 128 + tid] = dv_acc[i];
     }
     sm90::named_bar_sync(1, 256);
     if (wg == 0) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dv_acc[i] += scratch[i * 128 + tid];
+      for (int i = 0; i < kD / 2; ++i) dv_acc[i] += scratch[i * 128 + tid];
     }
     sm90::named_bar_sync(1, 256);
     if (wg == 1) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) scratch[i * 128 + tid] = dk_acc[i];
+      for (int i = 0; i < kD / 2; ++i) scratch[i * 128 + tid] = dk_acc[i];
     }
     sm90::named_bar_sync(1, 256);
     if (wg == 0) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dk_acc[i] += scratch[i * 128 + tid];
+      for (int i = 0; i < kD / 2; ++i) dk_acc[i] += scratch[i * 128 + tid];
     }
     // the K/V tiles are free for the next job's TMA once every consumer
     // thread is done with them
@@ -468,7 +484,7 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
         if (key >= Skv) continue;
         const size_t at = (size_t(b) * Skv + key) * K * D + size_t(kvh) * D;
 #pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj) {
+        for (int jj = 0; jj < D / 8; ++jj) {  // the real columns only
           const int col = jj * 8 + 2 * (lane % 4);
           *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
               __floats2bfloat162_rn(dk_acc[4 * jj + 2 * half] * scale,
@@ -502,8 +518,9 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dq, int Sq, int Skv, int q_off, int H, int K,
              int causal, int window, float scale) {
-  using L = QSmem<D>;
-  constexpr int kAtoms = D / 64;
+  constexpr int kD = padded_dim<D>();  // the products' width
+  using L = QSmem<kD>;
+  constexpr int kAtoms = kD / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* q_s = smem;
@@ -547,7 +564,7 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
     // ---- producer: Q and dO once, then the K/V ring
     sm90::setmaxnreg_dec<24>();
     if (tid == 0) {
-      sm90::mbar_expect_tx(q_full, 2 * q_rows * D * 2);
+      sm90::mbar_expect_tx(q_full, 2 * q_rows * kD * 2);
 #pragma unroll
       for (int a = 0; a < kAtoms; ++a) {
         sm90::tma_load_4d(q_s + a * kRowsQ * 128, &map_q, q_full, a * 64,
@@ -591,9 +608,9 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
   const float d_lo = qrow_lo < Sq ? delta[lrow_lo] : 0.f;
   const float d_hi = qrow_hi < Sq ? delta[lrow_hi] : 0.f;
   const float scale_log2 = scale * kLog2e;
-  float acc[D / 2];
+  float acc[kD / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
   const int a_off = wg * 64 * 128;  // this warpgroup's rows of each atom
   sm90::mbar_wait(q_full, 0);
 
@@ -612,7 +629,7 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
     sm90::mbar_wait(&k_full[s], phase);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < kD / 16; ++kk)
       sm90::wgmma_ss<64, 0>(
           sc,
           sm90::desc_sw128(q_a + (kk / 4) * kRowsQ * 128 + (kk % 4) * 32, 16,
@@ -623,7 +640,7 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
     sm90::wgmma_commit();
     sm90::mbar_wait(&v_full[s], phase);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < kD / 16; ++kk)
       sm90::wgmma_ss<64, 0>(
           dp,
           sm90::desc_sw128(do_a + (kk / 4) * kRowsQ * 128 + (kk % 4) * 32, 16,
@@ -672,7 +689,7 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      sm90::wgmma_rs<D, 1>(
+      sm90::wgmma_rs<kD, 1>(
           acc, da[kk], sm90::desc_sw128(k_a + kk * 2048, kKeys * 128, 1024),
           1);
     sm90::wgmma_commit();
@@ -689,7 +706,7 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
     if (qrow >= Sq) continue;
     bf16* dst = dq + ((size_t(b) * Sq + qrow) * H + kvh * G + r % G) * D;
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj)
+    for (int jj = 0; jj < D / 8; ++jj)  // the real columns only
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj + 2 * (lane % 4)) =
           __floats2bfloat162_rn(acc[4 * jj + 2 * h] * scale,
                                 acc[4 * jj + 2 * h + 1] * scale);
@@ -742,10 +759,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int n_kt = (Skv + kKeys - 1) / kKeys;
   const int paired = causal && window <= 0;
   auto k2 = flash_bwd_dkdv<D>;
-  e = set_smem(k2, KvSmem<D>::kBytes);
+  constexpr size_t kv_smem = KvSmem<padded_dim<D>()>::kBytes;
+  e = set_smem(k2, kv_smem);
   if (e != cudaSuccess) return int(e);
-  k2<<<dim3(paired ? (n_kt + 1) / 2 : n_kt, B * K), kThreads,
-       KvSmem<D>::kBytes, stream>>>(
+  k2<<<dim3(paired ? (n_kt + 1) / 2 : n_kt, B * K), kThreads, kv_smem,
+       stream>>>(
       mq64, mk, mv, mdo64, static_cast<const float*>(table),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, q_off, H, K,
       causal, window, scale, paired, drop_tile);
@@ -753,10 +771,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (e != cudaSuccess) return int(e);
 
   auto k3 = flash_bwd_dq<D>;
-  e = set_smem(k3, QSmem<D>::kBytes);
+  constexpr size_t q_smem = QSmem<padded_dim<D>()>::kBytes;
+  e = set_smem(k3, q_smem);
   if (e != cudaSuccess) return int(e);
   const int q_tiles = (Sq + kRowsQ / G - 1) / (kRowsQ / G);
-  k3<<<dim3(B * K, q_tiles), kThreads, QSmem<D>::kBytes, stream>>>(
+  k3<<<dim3(B * K, q_tiles), kThreads, q_smem, stream>>>(
       mq128, mk, mv, mdo128, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Skv,
       q_off, H, K, causal, window, scale);
@@ -768,7 +787,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 extern "C" {
 
 // q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Skv, K, D), all bf16,
-// contiguous and 16-byte aligned, D in {64, 128}, H % K == 0, G = H / K <=
+// contiguous and 16-byte aligned, D in {64, 80, 128}, H % K == 0, G = H / K <=
 // 64, Sq <= Skv, query row i at absolute position q_off + i.  lse (B, H,
 // Sq) fp32 from the forward.  Workspaces, fp32: delta (B, H, Sq) and table
 // (B, K, ceil(Sq / (64 / G)), 2, 64), 16-byte aligned.  drop_tile /
@@ -805,6 +824,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                        group_fault, s);
   if (D == 64)
     return launch<64>(q, k, v, o, dout, lse, delta, table, dq, dk, dv, B, Sq,
+                      Skv, q_off, H, K, causal, window, scale, drop_tile,
+                      group_fault, s);
+  if (D == 80)  // hubert-xlarge, padded to 128 in shared memory
+    return launch<80>(q, k, v, o, dout, lse, delta, table, dq, dk, dv, B, Sq,
                       Skv, q_off, H, K, causal, window, scale, drop_tile,
                       group_fault, s);
   return int(cudaErrorInvalidValue);

@@ -31,7 +31,8 @@ dims in :data:`HEAD_DIMS` and the groups in :data:`GROUPS`;
 :func:`kernel_tiles` raises on any other plan tile or group.  A plan without a ``flash_attention``
 BlockPlan (decode shapes have none) gets :data:`DEFAULT_ROWS` x
 :data:`DEFAULT_BLOCK_KV`, 164,920 B of shared memory at head_dim 128
-(83,000 B at 64), one CTA to an SM.
+(83,000 B at 64; at 80 as at 128: the tiles are padded to 128 columns),
+one CTA to an SM.
 TMA reads q, k and v in place, so each must start on a 16-byte boundary.
 
 Backward: ``csrc/flash_attention_bwd.cu`` (FlashAttention-2's
@@ -65,8 +66,9 @@ KERNEL_TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
 DEFAULT_ROWS = 128
 DEFAULT_BLOCK_KV = 128
 #: head dims the kernel is instantiated at: one 128-byte swizzle row of
-#: bf16 (hymba-1.5b's 64) or two (128)
-HEAD_DIMS = (64, 128)
+#: bf16 (hymba-1.5b's 64) or two (128); hubert-xlarge's 80 is padded to
+#: two in shared memory (TMA zero-fills columns 80..127)
+HEAD_DIMS = (64, 80, 128)
 #: GQA groups (query heads per kv head) the kernel is checked at: the
 #: powers of two, hymba-1.5b's 5 and deepseek-coder-33b's 7
 GROUPS = (1, 2, 4, 5, 7, 8, 16)
@@ -88,14 +90,22 @@ tail_launches = 0
 bwd_launches = 0
 
 
+def padded_dim(head_dim: int) -> int:
+    """The width the kernels' tiles and products have: ``head_dim``
+    rounded up to whole 64-column (128-byte) swizzle atoms, 128 at 80
+    (``csrc`` ``padded_dim``)."""
+    return -(-head_dim // 64) * 64
+
+
 def smem_bytes(rows: int, block_kv: int, head_dim: int = 128) -> int:
     """Dynamic shared memory one CTA asks for (``csrc`` ``Smem::kBytes``):
-    the Q tile, :data:`STAGES` K and V tiles, the ring's mbarriers and
-    1 KB to align the tiles to the 128-byte swizzle's 1024-byte atom.
-    S, P and the O accumulator live in registers."""
+    the Q tile, :data:`STAGES` K and V tiles at the padded width
+    (:func:`padded_dim`), the ring's mbarriers and 1 KB to align the
+    tiles to the 128-byte swizzle's 1024-byte atom.  S, P and the O
+    accumulator live in registers."""
     bars = (1 + 3 * STAGES) * 8
-    return (rows * head_dim * 2 + STAGES * 2 * block_kv * head_dim * 2
-            + bars + 1024)
+    d = padded_dim(head_dim)
+    return rows * d * 2 + STAGES * 2 * block_kv * d * 2 + bars + 1024
 
 
 def bwd_table_floats(B: int, Sq: int, H: int, K: int) -> int:

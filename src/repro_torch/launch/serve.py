@@ -21,7 +21,12 @@ Two modes, as in the JAX package's launcher, on one card:
   (``dense_einsum`` at 2048, ``gshard_einsum`` at 1024).  Full-width
   llama4-maverick-400b-a17b (~800 GB of weights) is refused before any
   weight is built: one card cannot hold it; ``--n-layers 2`` serves one
-  [dense, MoE] super-block of it at full width (37.4 GB).
+  [dense, MoE] super-block of it at full width (37.4 GB).  qwen2-vl-72b
+  (~145 GB) likewise: ``--n-layers 16`` serves 16 of its 80 layers at
+  full width (33.1 GB), from token ids (its M-RoPE streams each row's
+  position), as the JAX package's engine takes them.  The encoder
+  hubert-xlarge has no decode step and is refused before any plan or
+  weight.
 
 The model is the arch's reduced config, with its published head_dim and
 GQA group (the attention kernels are instantiated for those), unless
@@ -29,7 +34,8 @@ GQA group (the attention kernels are instantiated for those), unless
 from ``--seed``.  ``--arch`` takes the dense decoders (qwen3-8b,
 deepseek-7b, deepseek-coder-33b, minitron-8b with its squared-ReLU FFN),
 ``mamba2-2.7b``, the hybrid ``hymba-1.5b`` and the MoE decoders
-``granite-moe-1b-a400m`` and (reduced) ``llama4-maverick-400b-a17b``.
+``granite-moe-1b-a400m`` and (reduced) ``llama4-maverick-400b-a17b``,
+and ``qwen2-vl-72b``.
 Entry points run on ``cuda``; ``--device cpu`` runs the kernels' plain
 versions.  ``--profile`` traces the run with ``torch.profiler`` and
 prints the device time by kernel and by group.
@@ -49,6 +55,9 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve --from-plan
           --max-batch 8
       PYTHONPATH=src python -m repro_torch.launch.serve \
           --arch llama4-maverick-400b-a17b --from-plan --full --n-layers 2 \
+          --max-len 2048 --max-batch 8
+      PYTHONPATH=src python -m repro_torch.launch.serve \
+          --arch qwen2-vl-72b --from-plan --full --n-layers 16 \
           --max-len 2048 --max-batch 8
 """
 
@@ -95,11 +104,17 @@ def main(argv=None) -> None:
     from repro_torch.serve.engine import ServeEngine
 
     arch = get_arch(args.arch)
+    lm.check_serves(arch)              # before any plan or weight
     if not args.full:
         small = arch.reduced()
         group = arch.n_heads // arch.n_kv_heads if arch.n_kv_heads else 1
-        arch = dataclasses.replace(small, head_dim=arch.head_dim,
-                                   n_heads=small.n_kv_heads * group)
+        # M-RoPE's sections cover the published head_dim / 2, and the
+        # encoder's flash path is held at its published 80
+        keep = arch.mrope_sections is not None or arch.is_encoder
+        arch = dataclasses.replace(
+            small, head_dim=arch.hd if keep else arch.head_dim,
+            n_heads=small.n_kv_heads * group,
+            mrope_sections=arch.mrope_sections)
     if args.n_layers:
         print(f"cut: {arch.name} n_layers {arch.n_layers} -> {args.n_layers}")
         arch = dataclasses.replace(arch, n_layers=args.n_layers)

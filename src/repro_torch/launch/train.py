@@ -8,12 +8,16 @@ allocated memory beside the plan's estimate of the step's peak (its
 ``step_peak_bytes``: state, gradients, saved activations, transients),
 with their ratio.
 
-``--arch`` takes every family the port serves: dense GQA decoders
-(qwen3-8b), MoE (granite-moe-1b-a400m, its router's aux loss in the
-loss), SSM (mamba2-2.7b) and hybrid (hymba-1.5b), the SSD scan through
-its forward and backward kernels.  The model is the arch's reduced
-config, with its published head_dim and GQA group (the attention
-kernels are instantiated for those), unless ``--full`` asks for its
+``--arch`` takes every family: dense GQA decoders (qwen3-8b), MoE
+(granite-moe-1b-a400m, its router's aux loss in the loss), SSM
+(mamba2-2.7b) and hybrid (hymba-1.5b), the SSD scan through its forward
+and backward kernels, the vlm qwen2-vl-72b (patch embeddings and M-RoPE
+positions from the synthetic source; ``--n-layers`` cuts it to a depth
+one card holds) and the encoder hubert-xlarge (frames, an audio mask in
+the loss, non-causal attention at head_dim 80).  The model is the
+arch's reduced config, with its published head_dim and GQA group (the
+attention kernels are instantiated for those; qwen2-vl's M-RoPE
+sections too), unless ``--full`` asks for its
 published widths and depth; ``--n-layers`` cuts the depth.  Weights are
 random, from ``--seed``.  Entry points run on ``cuda``; ``--device
 cpu`` runs the kernels' plain versions.  ``--profile`` traces the
@@ -23,7 +27,8 @@ time by kernel and by group (the serve launcher's report).
 Run:  PYTHONPATH=src python -m repro_torch.launch.train
       PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
           --full --seq-len 2048 --batch 1 --steps 6
-      (--arch granite-moe-1b-a400m | mamba2-2.7b | hymba-1.5b likewise)
+      (--arch granite-moe-1b-a400m | mamba2-2.7b | hymba-1.5b |
+       hubert-xlarge likewise; qwen2-vl-72b with --n-layers 6)
 """
 
 from __future__ import annotations
@@ -113,8 +118,13 @@ def main(argv=None) -> None:
     if not args.full:
         small = arch.reduced()
         group = arch.n_heads // arch.n_kv_heads if arch.n_kv_heads else 1
-        arch = dataclasses.replace(small, head_dim=arch.head_dim,
-                                   n_heads=small.n_kv_heads * group)
+        # M-RoPE's sections cover the published head_dim / 2, and the
+        # encoder's flash path is held at its published 80
+        keep = arch.mrope_sections is not None or arch.is_encoder
+        arch = dataclasses.replace(
+            small, head_dim=arch.hd if keep else arch.head_dim,
+            n_heads=small.n_kv_heads * group,
+            mrope_sections=arch.mrope_sections)
     if args.n_layers:
         print(f"cut: {arch.name} n_layers {arch.n_layers} -> {args.n_layers}")
         arch = dataclasses.replace(arch, n_layers=args.n_layers)

@@ -31,25 +31,54 @@ def rope_frequencies(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Half-split rotary embedding.
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Optional[Tuple[int, int, int]] = None
+               ) -> torch.Tensor:
+    """Half-split rotary embedding; qwen2-vl's M-RoPE through three
+    position streams.
 
     ``x`` is ``(..., seq, heads, head_dim)``, ``positions`` ``(..., seq)``
-    integer positions.  Angles, sin and cos are fp32; the result is cast
-    back to ``x``'s dtype.
+    integer positions, or, with ``mrope_sections``, ``(3, ..., seq)``:
+    temporal, height and width ids.  The ``head_dim / 2`` frequency
+    slots are split into the sections, each rotated by its own stream
+    (``src/repro/models/common.py:31-66``).  Angles, sin and cos are
+    fp32; the result is cast back to ``x``'s dtype.
     """
     if theta <= 0:
         return x
     hd = x.shape[-1]
     half = hd // 2
     inv = rope_frequencies(hd, theta, device=x.device)
-    angles = positions.float()[..., None] * inv              # (..., seq, half)
+    if mrope_sections is not None:
+        if sum(mrope_sections) != half:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not "
+                             f"cover head_dim / 2 = {half}")
+        # which of the three streams drives each frequency slot
+        sel = torch.repeat_interleave(
+            torch.arange(3, device=x.device),
+            torch.tensor(mrope_sections, device=x.device))
+        pos = positions.float().movedim(0, -1)               # (..., seq, 3)
+        angles = pos[..., sel] * inv                         # (..., seq, half)
+    else:
+        angles = positions.float()[..., None] * inv          # (..., seq, half)
     angles = angles[..., None, :]                            # (..., seq, 1, half)
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """The fixed sinusoidal position table ``(seq, dim)``, fp32, that
+    the audio frontend stub adds to hubert's frame embeddings
+    (``src/repro/models/common.py:68-74``): computed in fp64 on
+    ``device``, as numpy computes the reference's, then cast."""
+    pos = torch.arange(seq, dtype=torch.float64, device=device)[:, None]
+    i = torch.arange(dim, dtype=torch.float64, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * torch.div(i, 2, rounding_mode="floor")
+                            / dim)
+    table = torch.where(i % 2 == 0, torch.sin(angle), torch.cos(angle))
+    return table.float()
 
 
 #: elements of the fp32 staging buffer :func:`truncated_normal_` draws into

@@ -9,14 +9,22 @@ run attention (global or a sliding window, per layer) and a mamba2
 mixer in parallel, and MoE decoders: an MoE FFN in every layer
 (granite-moe-1b-a400m) or super-blocks of a dense and an MoE layer
 (llama4-maverick-400b-a17b, ``moe_interleave = 2``, with a shared
-expert).  Parameters are the JAX package's nested dicts, stacked over
-layers (``params["blocks"]["attn"]["wq"]`` is ``(L, d, H*hd)``; a
+expert), qwen2-vl-72b (a dense decoder whose rotary embedding is M-RoPE
+over three position streams, fed precomputed patch embeddings) and the
+encoder hubert-xlarge (non-causal attention without RoPE, a one-matrix
+GELU FFN, precomputed frame embeddings plus a sinusoidal position
+table; no decode step).  Parameters are the JAX package's nested
+dicts, stacked over layers (``params["blocks"]["attn"]["wq"]`` is ``(L, d, H*hd)``; a
 super-block tree stacks ``blocks["dense"]`` and ``blocks["moe"]`` over
 the ``L / 2`` super-blocks), so :mod:`repro_torch.models.convert`
 carries a reference parameter tree across unchanged; layers run as a
 Python loop, each reading its slice through :func:`layer_params`.
-M-RoPE and audio architectures raise :class:`NotImplementedError`
-naming the arch.
+A batch holds ``tokens`` or ``embeds`` (the frontend stubs':
+:mod:`repro_torch.models.frontends`) and optional ``positions``; the
+reference masks attention by the positions' temporal stream, which the
+flash kernel does only where it is each row's index
+(:func:`_embed_in`, :func:`repro_torch.models.attention
+.attention_chunked`).
 
 Attention and the SSD scan run through :mod:`repro_torch.kernels.ops`:
 the port's hand-written kernels on the card, their plain versions on
@@ -61,6 +69,7 @@ from repro_torch.models.attention import AttnParams
 from repro_torch.models.common import (
     cross_entropy_loss,
     rms_norm,
+    sinusoidal_positions,
     truncated_normal_,
 )
 from repro_torch.models.moe import MoEParams
@@ -99,18 +108,27 @@ class RunCfg:
     remat: str = "none"
 
 
+#: the families and modalities the port runs (every arch of ``configs``)
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder")
+MODALITIES = ("text", "audio", "vlm")
+
+
 def check_supported(arch: ArchConfig) -> None:
-    """Raise for an architecture the port cannot run yet."""
-    why = None
-    if arch.mrope_sections is not None:
-        why = "M-RoPE"
-    elif arch.modality != "text" or arch.is_encoder:
-        why = f"{arch.modality} {arch.family} models"
-    if why is not None:
+    """Raise for an architecture the port cannot run: a family or a
+    modality the JAX package does not have."""
+    if arch.family not in FAMILIES or arch.modality not in MODALITIES:
         raise NotImplementedError(
-            f"{arch.name}: the port serves dense GQA decoders (SiLU-gated "
-            "or squared-ReLU FFN), MoE decoders, mamba2 SSM decoders and "
-            f"hybrid attention + SSM decoders; {why} are not ported yet")
+            f"{arch.name}: the port runs the families {FAMILIES} in the "
+            f"modalities {MODALITIES}, not {arch.family} / {arch.modality}")
+
+
+def check_serves(arch: ArchConfig) -> None:
+    """Raise for an arch that cannot be served: an encoder has no decode
+    step (the reference's reason, ``src/repro/configs/base.py:194-195``)."""
+    check_supported(arch)
+    if arch.is_encoder:
+        raise NotImplementedError(
+            f"{arch.name}: encoder-only arch has no decode step")
 
 
 def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
@@ -121,7 +139,8 @@ def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
     rules are the kernels' own (:func:`repro_torch.kernels
     .flash_attention.kernel_tiles` at the plan's flash tiles and its
     ``HEAD_DIMS``, and :func:`repro_torch.kernels.decode_attention
-    .takes_group`).  On the CPU every arch :func:`check_supported`
+    .takes_group`; an encoder, which has no decode step, needs no decode
+    instance).  On the CPU every arch :func:`check_supported`
     admits runs (the plain versions take any GQA group and head_dim).
     ``heads``/``kv_heads`` are the layout pass's padded counts (0: the
     arch's own)."""
@@ -140,7 +159,7 @@ def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
         fa.kernel_tiles(G, *(flash_tiles or (None, None)))
     except ValueError as e:
         refused.append(f"flash_attention ({e})")
-    if not dec.takes_group(G, arch.hd):
+    if not arch.is_encoder and not dec.takes_group(G, arch.hd):
         refused.append(f"decode_attention (built for (GQA group, head_dim) "
                        f"in {dec.INSTANCES})")
     if refused:
@@ -237,8 +256,9 @@ def leaf_specs(arch: ArchConfig, vocab_padded: int = 0,
 
     def mlp(Lh: int) -> Dict[str, LeafSpec]:
         # SwiGLU fuses gate and up into one (d, 2 ff) matrix; the
-        # squared-ReLU FFN has one (d, ff) (``_mlp_specs``)
-        n_in = 2 if arch.gated_mlp else 1
+        # squared-ReLU and the encoder's GELU FFN have one (d, ff)
+        # (``_mlp_specs``)
+        n_in = 2 if _gated(arch) else 1
         return {"wi": LeafSpec((Lh, d, n_in * ff), bf),
                 "wo": LeafSpec((Lh, ff, d), bf, out_scale)}
 
@@ -359,14 +379,42 @@ def _ssm_dims(arch: ArchConfig, sp: SSMParams) -> SSMDims:
 # Forward pieces
 # =====================================================================
 
-def _embed_in(arch: ArchConfig, params, batch) -> torch.Tensor:
-    """Token embeddings ``(B, S, d)`` bf16.  The port takes token ids
-    at positions ``0..S-1`` only (no precomputed embeddings or custom
-    position streams)."""
-    if "embeds" in batch or "positions" in batch:
-        raise NotImplementedError(
-            f"{arch.name}: the port takes token ids at default positions")
-    return params["embed"][batch["tokens"].long()]
+def _gated(arch: ArchConfig) -> bool:
+    """The SiLU-gated FFN (``src/repro/models/lm.py:128``): the
+    encoder's is GELU whatever ``gated_mlp`` says."""
+    return arch.gated_mlp and arch.family != "encoder"
+
+
+def _embed_in(arch: ArchConfig, params, batch):
+    """``(x, positions, mask_pos)`` (``src/repro/models/lm.py:311-332``):
+    ``x`` ``(B, S, d)`` bf16, the token embeddings or the batch's
+    ``embeds`` (plus the sinusoidal table for audio); ``positions`` the
+    batch's (``(3, B, S)`` under M-RoPE) or ``0..S-1``, broadcast to
+    three streams under M-RoPE; ``mask_pos`` the positions attention is
+    masked by, the temporal stream, or ``None`` where that is each
+    row's index (the mask the flash kernel applies)."""
+    if "embeds" in batch:
+        x = batch["embeds"].to(torch.bfloat16)
+        B, S = x.shape[:2]
+        if arch.modality == "audio":
+            x = x + sinusoidal_positions(S, arch.d_model,
+                                         x.device)[None].to(x.dtype)
+    else:
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = params["embed"][tokens.long()]
+    rows = torch.arange(S, device=x.device)
+    mask_pos = None
+    if "positions" in batch:
+        positions = batch["positions"].to(x.device)
+        pos0 = positions[0] if positions.dim() == 3 else positions
+        if not bool((pos0 == rows).all()):
+            mask_pos = pos0
+    else:
+        positions = rows.expand(B, S)
+        if arch.mrope_sections is not None:
+            positions = positions.expand(3, B, S)
+    return x, positions, mask_pos
 
 
 def _logits(arch: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -385,7 +433,8 @@ def _qkv(arch: ArchConfig, grp, h: torch.Tensor, positions: torch.Tensor):
     ap = _attn_params(grp)
     return ap, attn_mod.project_qkv(
         h, ap, ap.wq.shape[-1] // arch.hd, ap.wk.shape[-1] // arch.hd,
-        arch.hd, positions, arch.rope_theta, arch.norm_eps)
+        arch.hd, positions, arch.rope_theta, arch.mrope_sections,
+        arch.norm_eps)
 
 
 def _residual(x: torch.Tensor, outs: List[torch.Tensor]) -> torch.Tensor:
@@ -402,7 +451,9 @@ def _ffn_fwd(arch: ArchConfig, grp, x: torch.Tensor,
              moe_impl: str = "gshard_einsum"
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Pre-norm FFN: SiLU-gated, a squared ReLU of one matrix
-    (minitron-8b), or, in a layer holding ``moe``, the MoE FFN on the
+    (minitron-8b), the encoder's GELU (tanh form, ``jax.nn.gelu``'s
+    default) of one matrix in fp32, or, in a layer holding ``moe``, the
+    MoE FFN on the
     path ``moe_impl`` (``src/repro/models/lm.py:382-415``).  Returns
     ``(x + FFN(x), aux)``, ``aux`` the router's load-balance loss (fp32)
     of an MoE FFN, ``None`` for a dense one."""
@@ -416,9 +467,11 @@ def _ffn_fwd(arch: ArchConfig, grp, x: torch.Tensor,
             capacity_factor=arch.capacity_factor)
         return x + y, aux
     z = h @ grp["mlp"]["wi"]
-    if arch.gated_mlp:
+    if _gated(arch):
         g, u = z.chunk(2, dim=-1)
         z = F.silu(g.float()).to(x.dtype) * u
+    elif arch.family == "encoder":
+        z = F.gelu(z.float(), approximate="tanh").to(x.dtype)
     else:
         z = torch.square(F.relu(z.float())).to(x.dtype)
     return x + z @ grp["mlp"]["wo"], None
@@ -447,13 +500,14 @@ def _unbind_layers(blocks: Dict[str, Any], n_layers: int
 
 
 def _block_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
-               positions: torch.Tensor, window: int
+               positions: torch.Tensor, window: int,
+               mask_pos: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer of the training forward (``src/repro/models/lm.py
     :353-422``): the mixer, attention over the whole sequence and/or the
     SSD mixer, their mean added to the residual, then the FFN (none in
-    the SSM family).  Returns ``(x, aux)``, ``aux`` the MoE router's
-    loss or ``None``."""
+    the SSM family).  ``mask_pos`` as :func:`_embed_in` returns it.
+    Returns ``(x, aux)``, ``aux`` the MoE router's loss or ``None``."""
     h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
     outs = []
     if "attn" in grp:
@@ -461,7 +515,7 @@ def _block_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
         ctx = attn_mod.attention_chunked(q, k, v, causal=arch.causal,
                                          window=window,
                                          tiles=cfg.flash_tiles,
-                                         mode=cfg.kernels)
+                                         mode=cfg.kernels, mask_pos=mask_pos)
         outs.append(ctx.reshape(*x.shape[:2], -1) @ ap.wo)
     if "ssm" in grp:
         sp = SSMParams(**grp["ssm"])
@@ -475,15 +529,18 @@ def _block_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
 
 
 def _group_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
-               positions: torch.Tensor, windows: Tuple[int, ...]
+               positions: torch.Tensor, windows: Tuple[int, ...],
+               mask_pos: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One step of the layer loop: a layer, or a super-block's dense
     then MoE layer (``src/repro/models/lm.py:455-466``); their aux
     losses summed."""
     if "dense" not in grp:
-        return _block_fwd(arch, cfg, grp, x, positions, windows[0])
-    x, _ = _block_fwd(arch, cfg, grp["dense"], x, positions, windows[0])
-    return _block_fwd(arch, cfg, grp["moe"], x, positions, windows[1])
+        return _block_fwd(arch, cfg, grp, x, positions, windows[0], mask_pos)
+    x, _ = _block_fwd(arch, cfg, grp["dense"], x, positions, windows[0],
+                      mask_pos)
+    return _block_fwd(arch, cfg, grp["moe"], x, positions, windows[1],
+                      mask_pos)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -542,16 +599,15 @@ def forward(arch: ArchConfig, params, batch, cfg: RunCfg
     step of :func:`layer_groups` runs under the plan's remat policy, with
     its windows from the per-layer schedule."""
     check_supported(arch)
-    x = _embed_in(arch, params, batch)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    x, positions, mask_pos = _embed_in(arch, params, batch)
     windows = _window_schedule(arch)
     groups = layer_groups(arch, params["blocks"])
     g = arch.n_layers // len(groups)
     block = _remat(functools.partial(_group_fwd, arch, cfg), cfg.remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, grp in enumerate(groups):
-        x, a = block(grp, x, positions, tuple(windows[j * g:(j + 1) * g]))
+        x, a = block(grp, x, positions, tuple(windows[j * g:(j + 1) * g]),
+                     mask_pos)
         if a is not None:
             aux = aux + a
     x = rms_norm(x, params["final_norm"], arch.norm_eps)
@@ -559,8 +615,9 @@ def forward(arch: ArchConfig, params, batch, cfg: RunCfg
 
 
 def train_loss(arch: ArchConfig, params, batch, cfg: RunCfg):
-    """Scalar loss of one batch (``tokens``, ``targets``, optional
-    ``mask``), ``ce + AUX_LOSS_WEIGHT * aux``, and its metrics
+    """Scalar loss of one batch (``tokens`` or ``embeds``, optional
+    ``positions``, ``targets``, optional ``mask``: the audio frames the
+    loss counts), ``ce + AUX_LOSS_WEIGHT * aux``, and its metrics
     ``ce_loss``, ``aux_loss``, ``tokens`` (``src/repro/models/lm.py
     :487-497``)."""
     x, aux = forward(arch, params, batch, cfg)
@@ -757,18 +814,19 @@ def cache_heads(arch: ArchConfig, blocks) -> Dict[str, int]:
 
 def prefill(arch: ArchConfig, params, batch, cfg: RunCfg,
             max_len: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Process prompts ``batch["tokens"]`` ``(B, S)``: returns the
-    last-token logits ``(B, V)`` and a dense cache with ``pos = S``:
+    """Process prompts ``batch["tokens"]`` ``(B, S)`` (or ``embeds``,
+    with optional ``positions``, as :func:`_embed_in` takes them):
+    returns the last-token logits ``(B, V)`` and a dense cache with
+    ``pos = S``:
     with attention, ``max_len`` rows (default ``S``) of every layer's
     post-RoPE K/V for rows ``0..S-1`` (zeros past them); with an SSM,
     every layer's final state and conv tail."""
-    x = _embed_in(arch, params, batch)
+    x, positions, mask_pos = _embed_in(arch, params, batch)
     B, S = x.shape[:2]
     max_len = max_len or S
     blocks = params["blocks"]
     cache = init_cache(arch, B, max_len, **cache_heads(arch, blocks),
                        device=x.device)
-    positions = torch.arange(S, device=x.device).expand(B, S)
     windows = _window_schedule(arch)
     for i in range(arch.n_layers):
         grp = layer_params(blocks, i)
@@ -778,7 +836,7 @@ def prefill(arch: ArchConfig, params, batch, cfg: RunCfg,
             ap, (q, k, v) = _qkv(arch, grp, h, positions)
             ctx = attn_mod.attention_chunked(
                 q, k, v, causal=arch.causal, window=windows[i],
-                tiles=cfg.flash_tiles, mode=cfg.kernels)
+                tiles=cfg.flash_tiles, mode=cfg.kernels, mask_pos=mask_pos)
             outs.append(ctx.reshape(B, S, -1) @ ap.wo)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
@@ -806,7 +864,8 @@ def prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg,
     ``(B, nbm)`` names each prompt's matched blocks in the
     ``(L, N, bl, K, hd)`` pools (``M = nbm * bl`` rows, post-RoPE at
     positions ``0..M-1``, as the donor's prefill wrote them).  The tail
-    is embedded at positions ``M..M+T-1``; each layer gathers its own
+    is embedded at positions ``M..M+T-1`` (in all three streams under
+    M-RoPE, ``src/repro/models/lm.py:914-916``); each layer gathers its own
     prefix rows from the pool (one layer's share, never the whole
     ``(L, B, M, K, hd)`` stack), appends the tail's K/V and attends
     through :func:`repro_torch.models.attention.attention_tail` — the
@@ -820,11 +879,13 @@ def prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg,
         raise ValueError(
             f"prefill_tail cannot skip prefix compute for {arch.name}: "
             "SSM state at the split point depends on the whole prefix")
-    x = _embed_in(arch, params, batch)
+    x, _, _ = _embed_in(arch, params, batch)
     B, T = x.shape[:2]
     ids = prefix_blocks.long().to(x.device)
     M = ids.shape[1] * k_pool.shape[2]
     positions = (M + torch.arange(T, device=x.device)).expand(B, T)
+    if arch.mrope_sections is not None:
+        positions = positions.expand(3, B, T)
     blocks = params["blocks"]
     windows = _window_schedule(arch)
     K = cache_heads(arch, blocks)["kv_heads"]
@@ -857,12 +918,18 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
     sets ``cache["pos"] = pos + 1``.  A ``block_tbl`` in the cache
     selects paged residency.  A mamba2 model instead steps each layer's
     SSM state and conv window (in place); freed slots step too, on stale
-    state, as in the JAX engine.  Returns ``(logits (B, V), cache)``."""
-    x = _embed_in(arch, params, batch)                      # (B, 1, d)
+    state, as in the JAX engine.  Rotary positions: the batch's
+    ``positions`` where it has them, else each slot's ``pos`` (in all
+    three streams under M-RoPE, ``src/repro/models/lm.py:655-658``).
+    Returns ``(logits (B, V), cache)``."""
+    x, positions, _ = _embed_in(arch, params, batch)        # (B, 1, d)
     B = x.shape[0]
     pos = torch.as_tensor(cache["pos"], dtype=torch.int32, device=x.device)
     pos = pos.reshape(-1).expand(B).contiguous()
-    positions = pos[:, None]
+    if "positions" not in batch:
+        positions = pos[:, None]
+        if arch.mrope_sections is not None:
+            positions = positions.expand(3, B, 1)
     cache_len = pos + 1
     tbl = cache.get("block_tbl")
     targets = (paged_targets(pos, tbl, cache["k"].shape[2])

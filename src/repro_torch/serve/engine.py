@@ -212,6 +212,7 @@ class ServeEngine:
         if kv_host_blocks < 0:
             raise ValueError(
                 f"kv_host_blocks must be >= 0, got {kv_host_blocks}")
+        lm.check_serves(arch)
         self.device = params["embed"].device
         attn = lm.layer_params(params["blocks"], 0).get("attn")
         lm.check_on_device(

@@ -140,6 +140,26 @@ def test_flash_kernel_gqa_groups(dev, heads, kv, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [65, 1000, 2048])
+@pytest.mark.parametrize("rows,block_kv", tfa.KERNEL_TILES)
+def test_flash_kernel_at_head_dim_80(dev, causal, S, rows, block_kv):
+    """hubert-xlarge's head_dim 80 (16 / 16 heads; rows padded to 128
+    columns in shared memory, 80 written back) at every tile, non-causal
+    and causal, ragged S; a head's columns past 80 would show as a wrong
+    row."""
+    g = torch.Generator(dev).manual_seed(S + rows + block_kv + causal)
+    q, k, v = (_rnd(g, 1, S, 16, 80), _rnd(g, 1, S, 16, 80),
+               _rnd(g, 1, S, 16, 80))
+    got = tfa.flash_attention(q, k, v, causal=causal, block_q=rows,
+                              block_kv=block_kv)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert _rel_err(got, want) < FLASH_TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
 @pytest.mark.parametrize("rows,block_kv", tfa.KERNEL_TILES)
 def test_flash_kernel_every_tile_at_every_gqa_group(dev, G, rows, block_kv):
@@ -882,13 +902,16 @@ def test_grant_engine_on_card_matches_cpu(dev):
 def test_device_check_names_the_group_and_k2():
     """deepseek-coder-33b (G = 7), qwen3-8b, mamba2, minitron-8b,
     hymba-1.5b (G = 5 at head_dim 64), granite-moe-1b-a400m (G = 2 at
-    64) and llama4-maverick (G = 5 at 128) are admitted for a CUDA
-    device; a (group, head_dim) pair no kernel instance takes — G = 3 at
-    head_dim 128, G = 4 at 64, head_dim 80 — is refused before any
-    weight is built, on any machine, naming the kernels."""
+    64), llama4-maverick (G = 5 at 128), qwen2-vl-72b (G = 8 at 128) and
+    hubert-xlarge (G = 1 at head_dim 80, flash only: an encoder has no
+    decode step) are admitted for a CUDA device; a (group, head_dim)
+    pair no kernel instance takes — G = 3 at head_dim 128, G = 4 at 64,
+    head_dim 80 beside a decode step, head_dim 96 — is refused before
+    any weight is built, on any machine, naming the kernels."""
     for name in ("deepseek-coder-33b", "qwen3-8b", "mamba2-2.7b",
                  "minitron-8b", "hymba-1.5b", "granite-moe-1b-a400m",
-                 "llama4-maverick-400b-a17b"):
+                 "llama4-maverick-400b-a17b", "qwen2-vl-72b",
+                 "hubert-xlarge"):
         lm.check_on_device(get_arch(name), "cuda")
     qwen = get_arch("qwen3-8b")
     with pytest.raises(NotImplementedError,
@@ -898,8 +921,12 @@ def test_device_check_names_the_group_and_k2():
                        match=r"head_dim 64.*decode_attention"):
         lm.check_on_device(dataclasses.replace(qwen, head_dim=64), "cuda")
     with pytest.raises(NotImplementedError,
-                       match=r"head_dim 80.*flash_attention"):
+                       match=r"head_dim 80.*decode_attention"):
         lm.check_on_device(dataclasses.replace(qwen, head_dim=80), "cuda")
+    hubert = get_arch("hubert-xlarge")
+    with pytest.raises(NotImplementedError,
+                       match=r"head_dim 96.*flash_attention"):
+        lm.check_on_device(dataclasses.replace(hubert, head_dim=96), "cuda")
 
 
 # ---------------------------------------------------------------------
@@ -1249,18 +1276,21 @@ def test_matmul_check_rejects_planted_faults(where, fault):
 # ---------------------------------------------------------------------
 
 MOE_PAIRS = {"granite": (16, 8, 64), "llama4": (40, 8, 128)}
+#: the decode pairs held below: the MoE archs' and qwen2-vl-72b's (G = 8
+#: at 128, ``decode_kernel<8, 128, *>``)
+DECODE_PAIRS = {**MOE_PAIRS, "qwen2vl": (64, 8, 128)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pair", sorted(MOE_PAIRS))
+@pytest.mark.parametrize("pair", sorted(DECODE_PAIRS))
 @pytest.mark.parametrize("tile", [64, 256])
 def test_decode_kernels_at_the_moe_pairs_match_plain(dev, pair, tile):
     """Paged and dense decode at granite's 16 / 8 heads of 64 and
     llama4's 40 / 8 heads of 128 (the ``decode_kernel<2, 64, *>`` and
     ``<5, 128, *>`` instances) against their plain versions, beside a
     split dropped from the merge and a swapped table entry, which must
-    fail the same check."""
-    Hq, Kv, Dh = MOE_PAIRS[pair]
+    fail the same check; and at qwen2-vl's 64 / 8 heads of 128."""
+    Hq, Kv, Dh = DECODE_PAIRS[pair]
     g = torch.Generator(dev).manual_seed(tile + Dh)
     bl, B, max_len = 256, 8, 2048
     lens = torch.tensor([1, 64, 300, 777, 1024, 1500, 1999, 2048],
@@ -1480,7 +1510,11 @@ def _bwd_case(dev, seed, B, S, Hq, Kv, Dh, causal, window):
     (1, 130, 8, 8, 64, True, 0),           # G = 1
     (1, 2048, 16, 8, 64, True, 0),         # granite: G = 2 at 64
     (1, 777, 40, 8, 128, True, 0),         # G = 5 at 128; S ragged in
-])                                         # every tile (64 keys, 12 / 25 q)
+                                           # every tile (64 keys, 12 / 25 q)
+    (1, 2048, 64, 8, 128, True, 0),        # qwen2-vl: G = 8 at 128
+    (1, 2048, 16, 16, 80, False, 0),       # hubert: head_dim 80, non-causal
+    (2, 333, 8, 4, 80, True, 0),           # head_dim 80 causal, ragged
+])
 def test_flash_bwd_kernel_matches_plain(dev, B, S, Hq, Kv, Dh, causal,
                                         window):
     q, k, v, o, lse, do = _bwd_case(dev, S + Hq, B, S, Hq, Kv, Dh, causal,

@@ -15,6 +15,8 @@ logits, SSM state and conv window, whose bf16 projections round at
 other places too.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -155,10 +157,42 @@ def test_decode_steps_match(model, residency):
 
 
 def test_unported_archs_raise_naming_the_arch():
-    for name in ("qwen2-vl-72b", "hubert-xlarge"):
-        arch = tget_arch(name).reduced()
-        with pytest.raises(NotImplementedError, match=name):
-            tlm.leaf_specs(arch)
+    """Every arch of ``configs`` is admitted now (qwen2-vl-72b's M-RoPE
+    and hubert-xlarge's encoder were the last two refused): each gets
+    ``leaf_specs`` equal in shape and dtype to the reference's
+    ``param_shapes``, full size and reduced.  A family the JAX package
+    lacks is still refused, naming the arch."""
+    from repro.configs import all_archs
+    archs = all_archs()
+    assert len(archs) == 10 and {"qwen2-vl-72b", "hubert-xlarge"} <= set(
+        archs)
+    for name in archs:
+        for size in ("full", "reduced"):
+            rarch, tarch = rget_arch(name), tget_arch(name)
+            if size == "reduced":
+                rarch, tarch = rarch.reduced(), tarch.reduced()
+            tlm.check_supported(tarch)
+            want = jax.tree_util.tree_flatten_with_path(
+                rlm.param_shapes(rarch))[0]
+            got = tlm.leaf_specs(tarch)
+            assert len(want) == len(list(_spec_paths(got))), (name, size)
+            for path, spec in want:
+                leaf = got
+                for k in path:
+                    leaf = leaf[k.key]
+                assert leaf.shape == tuple(spec.shape), (name, size, path)
+                assert str(leaf.dtype).split(".")[-1] == str(spec.dtype)
+    with pytest.raises(NotImplementedError, match="qwen3-8b"):
+        tlm.leaf_specs(dataclasses.replace(tget_arch("qwen3-8b"),
+                                           family="diffusion"))
+
+
+def _spec_paths(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _spec_paths(v)
+    else:
+        yield tree
 
 
 # ---------------------------------------------------------------------

@@ -426,6 +426,8 @@ def _saved_bytes(arch, remat, tokens_shape=(2, 64), cfg=None):
     B, S = tokens_shape
     x = torch.randn(B, S, arch.d_model).to(torch.bfloat16).requires_grad_()
     positions = torch.arange(S).expand(B, S)
+    if arch.mrope_sections is not None:         # M-RoPE: three streams
+        positions = positions.expand(3, B, S)
     owned.add(positions.untyped_storage().data_ptr())
     step = lm.layer_groups(arch, params["blocks"])[0]
     seen = []
@@ -464,7 +466,8 @@ FAMILIES = [("mamba2-2.7b", ""), ("hymba-1.5b", ""),
             ("granite-moe-1b-a400m", "dense_einsum"),
             ("granite-moe-1b-a400m", "gshard_einsum"),
             ("llama4-maverick-400b-a17b", "dense_einsum"),
-            ("llama4-maverick-400b-a17b", "gshard_einsum")]
+            ("llama4-maverick-400b-a17b", "gshard_einsum"),
+            ("qwen2-vl-72b", ""), ("hubert-xlarge", "")]
 
 
 @pytest.mark.parametrize("remat", LADDER)
@@ -473,7 +476,9 @@ FAMILIES = [("mamba2-2.7b", ""), ("hymba-1.5b", ""),
 def test_family_step_estimate_is_what_autograd_keeps(name, impl, remat):
     """The estimate's per-step term for the SSM mixer (the scan's
     inputs, ``y``, final and chunk states kept by ``SSDScan``), the
-    hybrid's two paths and each MoE path (with llama4's shared expert),
+    hybrid's two paths, each MoE path (with llama4's shared expert),
+    qwen2-vl's M-RoPE layer and hubert's encoder layer (non-causal
+    attention without RoPE, the GELU FFN),
     against what PyTorch keeps on the CPU, byte for byte: 2 x 64 tokens,
     the SSD chunk 16 (four chunks a sequence)."""
     from repro_torch.models import lm

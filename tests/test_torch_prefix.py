@@ -503,9 +503,9 @@ def test_device_check_refuses_group_7_on_cuda_before_any_weights():
     kernels still refuse — G = 3, and G = 4 at head_dim 64 (no decode
     instance) — is refused before any weights load, naming the kernels,
     by the device check; the launcher refuses an arch the port does not
-    serve (qwen2-vl-72b, M-RoPE) before any weights too (on a CPU-only
-    torch a CUDA generator would raise RuntimeError, not
-    NotImplementedError)."""
+    serve (hubert-xlarge: an encoder has no decode step) before any plan
+    or weight too (on a CPU-only torch a CUDA generator would raise
+    RuntimeError, not NotImplementedError)."""
     coder = tget_arch("deepseek-coder-33b")
     assert coder.n_heads // coder.n_kv_heads == 7
     tlm.check_on_device(coder, "cuda")
@@ -518,8 +518,9 @@ def test_device_check_refuses_group_7_on_cuda_before_any_weights():
     four = dataclasses.replace(coder, n_heads=32, head_dim=64)
     with pytest.raises(NotImplementedError, match=r"G = 4.*decode_attention"):
         tlm.check_on_device(four, torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match=r"M-RoPE"):
-        tserve.main(["--arch", "qwen2-vl-72b", "--full", "--device",
+    with pytest.raises(NotImplementedError,
+                       match=r"hubert-xlarge.*no decode step"):
+        tserve.main(["--arch", "hubert-xlarge", "--full", "--device",
                      "cuda", "--from-plan"])
 
 
