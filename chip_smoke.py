@@ -81,6 +81,14 @@ Phases (any failure exits non-zero before the last line):
    the plain backward in fp64 beside two planted faults (a skipped tile,
    no carry between chunks), timed in turns with torch autograd of the
    plain forward, with each of its six passes' device time;
+   the flash forward and backward masked by positions (their positions
+   variant, at qwen2-vl's 64 / 8 heads of 128, prompts laid out as
+   ``get_rope_index`` lays them out: an image's patches share one
+   temporal id), row by row against the plain versions with the
+   positions (whole, a tail at an offset, permuted positions) beside the
+   planted fault that masks by row index, positions equal to the index
+   bitwise the index path, timed in turns with SDPA given the boolean
+   mask and with the index path, bounds over the live pairs;
 3. qwen3-8b serve, paged: the plan as frozen (paged pool, prefix reuse,
    512 host blocks), 16 requests; both tiers whole after the engine's
    block cache is dropped;
@@ -93,7 +101,16 @@ Phases (any failure exits non-zero before the last line):
    bitwise;
 6. qwen3-8b checks: a full-width consistency check (decode-step logits
    against the flash prefill of the same tokens, under both decode
-   kernels) and a small model on the card against the CPU;
+   kernels); then, on the same weights, disaggregated prefill (6b):
+   the unmodified decode 4096 x 8 plan (``kv_prefill_mode: disagg``,
+   chunk 512) with one spawned prefill worker (the weights mapped by
+   CUDA IPC), the handshake refusing a wrong plan hash, 8 requests of
+   1,500-4,000 prompt tokens against an inline control (tokens by the
+   margin rule, the journaled K/V rows rms-relative beside their noise
+   floor and a wrong-token control, TTFT and tok/s), the worker
+   SIGKILLed mid-prompt and the run resumed from the journal bitwise the
+   un-killed run, and ``max_restarts=0`` degrading to inline prefill;
+   then a small model on the card against the CPU;
 7. mamba2-2.7b serve (qwen's weights freed first): 16 requests, 64
    SSD-scan launches per prefill call;
 8. mamba2-2.7b checks: the full-depth consistency check (prefill + one
@@ -159,7 +176,10 @@ Phases (any failure exits non-zero before the last line):
 17. a small qwen3 (head_dim 128, master weights) trained 4 steps on the
    card against the CPU (losses, grad norms, step-0 gradients), then
    saved at step 2 and resumed by a fresh trainer: steps 3-4 and the
-   final state bitwise equal to the uninterrupted run;
+   final state bitwise equal to the uninterrupted run; then the same
+   small model's step under ``StepGuard`` (:func:`guarded_run`): a
+   RuntimeError injected at step 3, the step-2 checkpoint restored and
+   replayed, the final state bitwise the never-failed run's;
 18. training granite-moe-1b-a400m (``dense_einsum``, no remat),
    mamba2-2.7b (remat ``full``: 2 SSD-scan forwards and 1 backward a
    layer a step) and hymba-1.5b (flash and SSD scan in every layer), each
@@ -176,10 +196,16 @@ Phases (any failure exits non-zero before the last line):
    a tick), the full-depth consistency check, and the M-RoPE check (a
    prefill of patch embeddings with a patch grid in the height and width
    streams, the kernels against the plain attention, beside a control
-   with the three streams collapsed that must differ);
+   with the three streams collapsed that must differ; and again with
+   repeated temporal ids, through the positions variant in every layer,
+   beside the positions-ignored control);
 21. qwen2-vl-72b trained at full width at the largest depth its
    unmodified 2048 x 1 train plan admits, on the synthetic source's
-   patch embeddings and positions: phase 16's checks;
+   patch embeddings and positions: phase 16's checks; the gradient
+   check again on a batch with two images' repeated temporal ids (the
+   positions variant forward and backward, its controls); after the
+   fit, one more step of the trainer's step function on such a batch,
+   whose launches of the positions variant are the kernels line's;
 22. hubert-xlarge trained at full width and depth (48 layers) from its
    own plan on frames, targets and the audio mask: phase 16's checks,
    48 non-causal flash forwards at head_dim 80 a step (96 under remat)
@@ -194,10 +220,10 @@ name and power limit.
 
 Run from the repository root:  python3 chip_smoke.py
 
-``--only flash_bwd`` (``ssd_bwd``, ``matmul_fp32``)
-runs the flash (SSD scan) backward's or the fp32 tiled matmul's check
-and timings alone
-(:func:`flash_bwd_check`, :func:`ssd_bwd_check`,
+``--only flash_bwd`` (``flash_pos``, ``ssd_bwd``, ``matmul_fp32``)
+runs the flash backward's (the positions variant's, the SSD scan
+backward's, the fp32 tiled matmul's) check and timings alone
+(:func:`flash_bwd_check`, :func:`flash_pos_check`, :func:`ssd_bwd_check`,
 :func:`matmul_fp32_check`) and prints its result as one JSON line.
 ``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
 as a parent commit's unpacked with ``git archive``: run two trees in
@@ -759,6 +785,19 @@ def kernel_phase(torch, dev):
     for name, rows in frontend_kernel_check(torch, F, fa, dec, dev).items():
         res[name].update(rows)
     res["flash_attention_bwd"] = flash_bwd_check(torch, F, fa, dev)
+    pos = flash_pos_check(torch, F, fa, dev)
+    for name, src, replaces in (
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/models/attention.py:41"),
+            ("flash_attention_bwd", "flash_attention_bwd.cu",
+             "src/repro/models/attention.py:74")):
+        res[f"{name}_positions"] = dict(
+            pos[name], route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
+            tolerance=TOL[name],
+            launched_by="a step of qwen2-vl-72b's trainer (Trainer"
+                        ".step_fn, after its fit) on a batch with two "
+                        "images' repeated temporal ids")
     res["ssd_scan_bwd"] = ssd_bwd_check(torch, dev)
     for name, r in res.items():
         log(f"timing {name}: kernel {r['ms']:.4f} ms, plain "
@@ -2902,7 +2941,8 @@ def qwen2vl_phase(torch, dev):
     consistency_check(torch, dev, arch, params, cfg,
                       int(plan.estimates["kv_block_len"]),
                       top1_margin=FULL_TOL)
-    res["mrope"] = mrope_check(torch, dev, arch, params, cfg)
+    res["mrope"], res["positions_launches"] = mrope_check(
+        torch, dev, arch, params, cfg)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2913,14 +2953,24 @@ def mrope_check(torch, dev, arch, params, cfg, B: int = 2, S: int = 1024,
                 grid: int = 32):
     """M-RoPE on the card: a prefill of ``B`` x ``S`` random patch
     embeddings with ``(3, B, S)`` positions, the temporal stream each
-    row's index (the mask the flash kernel applies), height and width a
+    row's index (the mask by index), height and width a
     ``grid``-wide patch grid.  The last-token logits through the flash
     kernel against the same prefill through the plain attention
     (:func:`plain_kernels`) with the positions as given: rms-relative at
     :data:`FULL_TOL`.  The control collapses the three streams into the
     temporal one (plain RoPE over every slot): it must differ from the
     plain prefill by over :data:`FULL_TOL` and ten times the kernel's
-    own difference, which shows that the sections take their streams."""
+    own difference, which shows that the sections take their streams.
+
+    Then the same with repeated temporal ids, as ``get_rope_index`` lays
+    a prompt out (:data:`VL_FWD_LAYOUT`: 896 patches of one image share
+    one temporal id): the kernels' positions variant runs in every layer
+    (its launches counted from a reset to the read after the prefill),
+    held against the plain attention with the positions at
+    :data:`FULL_TOL`, beside the positions-ignored control (the kernels
+    masking by row index, :func:`positions_ignored`) that must fail it.
+    Returns the numbers and the launch counts of that prefill."""
+    from repro_torch.kernels import ops
     from repro_torch.models import lm
 
     g = torch.Generator(dev).manual_seed(SEED + 3)
@@ -2952,8 +3002,38 @@ def mrope_check(torch, dev, arch, params, cfg, B: int = 2, S: int = 1024,
     check(control > max(FULL_TOL, 10 * noise),
           f"M-RoPE: the collapsed-streams control ({control}) is not far "
           f"from the sections' result (kernels {noise})")
+    # ---- repeated temporal ids: the mask by positions
+    vpos = vl_positions(torch, dev, B, VL_FWD_LAYOUT)
+    check(vpos.shape[-1] == S, f"M-RoPE: layout of {vpos.shape[-1]} rows")
+    want_v = logits(vpos, True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got_v = logits(vpos, False)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    with positions_ignored():
+        by_index = logits(vpos, False)
+    check(bool(torch.isfinite(got_v).all()), "M-RoPE: logits not finite")
+    noise_v = _rms_rel(torch, got_v, want_v)
+    control_v = _rms_rel(torch, by_index, want_v)
+    log(f"check M-RoPE {arch.name} prefill of {B} x {S} patch embeddings, "
+        f"repeated temporal ids ({VL_FWD_LAYOUT}): kernels (positions "
+        f"variant, {counts['flash_attention_positions']} launches for "
+        f"{arch.n_layers} layers) vs plain attention rms_rel={noise_v:.3e} "
+        f"(tol {FULL_TOL}); positions ignored (masked by index) rms_rel="
+        f"{control_v:.3e} (must exceed {FULL_TOL}) [{CARD}]")
+    check(counts["flash_attention_positions"] == arch.n_layers,
+          f"M-RoPE: {counts['flash_attention_positions']} positions-variant "
+          f"launches for {arch.n_layers} layers")
+    check(noise_v <= FULL_TOL,
+          f"M-RoPE repeated ids: kernels vs plain rms_rel {noise_v}")
+    check(control_v > FULL_TOL, f"M-RoPE repeated ids: the positions-"
+          f"ignored control passed ({control_v})")
     return dict(B=B, S=S, grid=grid, rms_rel=noise,
-                collapsed_control=control, tol=FULL_TOL)
+                collapsed_control=control, tol=FULL_TOL,
+                repeated_ids=dict(layout=str(VL_FWD_LAYOUT), rms_rel=noise_v,
+                                  positions_ignored_control=control_v,
+                                  launches=counts)), counts
 
 
 def small_moe_check(torch, dev):
@@ -3230,6 +3310,447 @@ def small_ssm_check(torch, dev):
     check(rel <= LOGIT_TOL, f"small mamba2: rel {rel} > {LOGIT_TOL}")
 
 
+#: the disagg phase: full-width qwen3-8b's unmodified h100-sxm decode
+#: 4096 x 8 plan (kv_prefill_mode disagg, chunk 512), one worker, 8
+#: greedy requests of 1,500-4,000 prompt tokens, new tokens each
+DISAGG_SHAPE = (4096, 8)
+DISAGG_REQUESTS, DISAGG_NEW = 8, 16
+DISAGG_LENS = (1500, 4000)
+
+
+def disagg_phase(torch, dev, arch, params):
+    """Disaggregated prefill (phase 6b), on qwen3-8b's weights as phase 6
+    left them (no second load).  The plan is the unmodified ``h100-sxm``
+    decode 4096 x 8 plan, which records ``kv_prefill_mode: disagg``
+    (chunk 512); ``from_plan(plan, params, disagg_workers=1)`` spawns one
+    prefill worker, which maps the weights by CUDA IPC.  Five runs, one
+    engine (and its 38.6 GB pool) at a time:
+
+    * the handshake: a fleet told to expect a wrong plan hash raises
+      :class:`PlanHandshakeError` before any weight or KV crosses;
+    * disagg: 8 greedy requests of 1,500-4,000 prompt tokens
+      (:data:`DISAGG_LENS`), each crossing several 512-token chunks; the
+      worker's flash launches (reported with each finished prompt) must
+      be the model's layers times the chunks it computed;
+    * inline: the same requests on the same weights with the prefill in
+      the engine (the control): tokens held under the margin rule (equal
+      up to a first difference, allowed only where the control's top-2
+      margin is within :data:`FULL_TOL` of its largest logit), and every
+      request's journaled K/V rows against the inline prefill's,
+      rms-relative at :data:`FULL_TOL`, beside their noise floor (the
+      inline rows against a prefill re-tiled to 64 x 64) and a wrong-token
+      control (every prompt token shifted by one) that must fail it;
+    * SIGKILL: the disagg run again, its worker killed once a prompt has
+      at least one journaled chunk (and more to come); the resumed run's
+      tokens and journaled rows must equal the un-killed run's bitwise
+      (the same chunks through the same deterministic kernels), with a
+      death and a resume counted;
+    * degraded: the same kill under ``max_restarts=0``: the fleet retires,
+      the engine degrades to inline prefill (``DegradedMode`` in
+      ``pressure_stats()``), and every request finishes.
+
+    Each line carries the card; TTFT p50 / p95 and tok/s of disagg
+    against inline, the worker's seconds from spawn to weights taken, and
+    the chunks with their host milliseconds (the worker's copy out, this
+    side's read of the pipe, the scatter into the pool)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import specialize
+    from repro_torch.core.passes.lowering import build_run_cfg
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.disagg import PlanHandshakeError, PrefillFleet
+    from repro_torch.serve.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    max_len, batch = DISAGG_SHAPE
+    plan = specialize(arch, ShapeConfig("serve_h100_4k", "decode", max_len,
+                                        batch),
+                      mesh_shape=(1, 1), target="h100-sxm",
+                      plan_dir=PLAN_DIR)
+    est = plan.estimates
+    cfg = build_run_cfg(plan, arch)
+    bl = int(est["kv_block_len"])
+    log(f"disagg plan {plan.content_hash()[:16]} {max_len} x {batch}: "
+        f"kv_prefill_mode={est.get('kv_prefill_mode')} "
+        f"kv_prefill_chunk={est.get('kv_prefill_chunk')} "
+        f"kv_prefill_stall_ticks={est.get('kv_prefill_stall_ticks')} "
+        f"kv_residency={est.get('kv_residency')} kv_block_len={bl} "
+        f"kv_n_blocks={est.get('kv_n_blocks')} "
+        f"kv_admission={est.get('kv_admission')} [{CARD}]")
+    check(est.get("kv_prefill_mode") == "disagg"
+          and int(est.get("kv_prefill_chunk", 0)) == 512 == bl
+          and est.get("kv_residency") == "paged",
+          f"disagg: the {max_len} x {batch} plan does not record disagg "
+          f"prefill in 512-token chunks: {est}")
+    check(tuple(plan.padded_sizes()) == (params["embed"].shape[0],
+                                         *plan.padded_sizes()[1:])
+          and lm.cache_heads(arch, params["blocks"])["kv_heads"]
+          == cfg.kv_heads_padded,
+          "disagg: the plan's padded sizes are not the loaded weights'")
+    rng = np.random.default_rng(SEED + 26)
+    V = arch.vocab_size
+    lens = [int(n) for n in rng.integers(DISAGG_LENS[0], DISAGG_LENS[1] + 1,
+                                         DISAGG_REQUESTS)]
+    prompts = [rng.integers(0, V, (n,)).astype(np.int32) for n in lens]
+    out = {"plan": plan.content_hash(), "prompt_lens": lens,
+           "new_tokens": DISAGG_NEW, "card": CARD}
+
+    # ---- the handshake: a wrong hash is refused before anything crosses
+    t0 = time.perf_counter()
+    fleet = None
+    try:
+        fleet = PrefillFleet(plan, arch, params, 1, block_len=bl,
+                             kv_heads=cfg.kv_heads_padded,
+                             _expect_hash="0" * 64)
+        refused = ""
+    except PlanHandshakeError as e:
+        refused = str(e)
+    finally:
+        if fleet is not None:
+            fleet.shutdown()
+    log(f"check disagg handshake: a fleet expecting a wrong plan hash "
+        f"raised PlanHandshakeError in {time.perf_counter() - t0:.1f} s: "
+        f"{refused[:90]!r} [{CARD}]")
+    check(bool(refused), "disagg: a wrong plan hash was accepted")
+    out["handshake_refused"] = refused
+
+    Base = _recording_engine(ServeEngine)
+
+    class Recording(Base):
+        """Keeps each request's prompt K/V rows from its pool blocks once
+        its prefill is in (journaled chunks, or the inline scatter), on
+        the card until the run ends."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.rows = {}
+
+        def _keep(self, r):
+            if r.rid in self.rows or not r.blocks:
+                return
+            ids = torch.as_tensor(r.blocks, device=self.device)
+            self.rows[r.rid] = [
+                lm.gather_blocks(self.cache[n], ids).flatten(1, 2)
+                [:, :len(r.prompt)].clone() for n in ("k", "v")]
+
+        def _admit_group(self, group, *args):
+            super()._admit_group(group, *args)
+            for r in group:
+                self._keep(r)
+
+        def _complete_prefill(self, fl, logits):
+            r = fl.request
+            self._rids = [] if r.out_tokens else [r.rid]
+            super()._complete_prefill(fl, logits)
+            self._keep(r)
+
+    def run(label, inline=False, kill=False, max_restarts=4):
+        opts = dict(heartbeat_s=0.5, heartbeat_timeout_s=120.0,
+                    hello_timeout_s=300.0, max_restarts=max_restarts)
+        kw = (dict(kv_prefill_mode="inline") if inline
+              else dict(disagg_workers=1, disagg_opts=opts))
+        t0 = time.perf_counter()
+        eng = Recording.from_plan(plan, params, arch=arch, seed=SEED, **kw)
+        t_build = time.perf_counter() - t0
+        try:
+            check(eng.prefill_mode == ("inline" if inline else "disagg"),
+                  f"disagg[{label}]: prefill mode {eng.prefill_mode}")
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            for p in prompts:
+                eng.submit(p, max_new_tokens=DISAGG_NEW)
+            killed, deadline = None, time.time() + 600
+            while (eng.pending or eng.active or eng._disagg) \
+                    and time.time() < deadline:
+                eng.step()
+                if kill and killed is None:
+                    fl = next((f for f in eng._disagg.values()
+                               if 1 <= f.acked < f.nb_feed), None)
+                    if fl is not None \
+                            and eng._fleet.kill_worker(rid=fl.request.rid):
+                        killed = (fl.request.rid, fl.acked, fl.nb_feed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            check(not (eng.pending or eng.active or eng._disagg),
+                  f"disagg[{label}]: not idle after 600 s")
+            check(not kill or killed is not None,
+                  f"disagg[{label}]: the kill window never opened")
+            done = sorted(eng.finished, key=lambda r: r.rid)
+            check(len(done) == DISAGG_REQUESTS and all(
+                len(r.out_tokens) == DISAGG_NEW for r in done),
+                f"disagg[{label}]: {len(done)} of {DISAGG_REQUESTS} "
+                "requests finished whole")
+            ttft = np.array([(r.t_first - r.t_submit) * 1e3 for r in done])
+            n_tok = sum(len(r.out_tokens) for r in done)
+            ps = eng.pressure_stats()
+            fl_stats = eng.telemetry()["prefill"]["disagg"]["fleet"]
+            res = dict(
+                wall_s=wall, build_s=t_build, tokens=n_tok,
+                tok_per_s=n_tok / wall,
+                ttft_ms_p50=float(np.percentile(ttft, 50)),
+                ttft_ms_p95=float(np.percentile(ttft, 95)),
+                prefill_mode=eng.prefill_mode, launches=counts,
+                killed=killed, fleet=fl_stats,
+                chunk_scatter_ms=eng.tier_ms["disagg_chunk"],
+                pressure={k: ps[k] for k in (
+                    "prefill_mode", "degraded", "disagg_dispatches",
+                    "disagg_chunks", "disagg_resumes", "disagg_inflight")})
+            tokens = {r.rid: list(r.out_tokens) for r in done}
+            rows = {rid: [t.cpu() for t in kv]
+                    for rid, kv in eng.rows.items()}
+            margins = dict(eng.margins)
+        finally:
+            eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"serve[disagg {label}] requests={DISAGG_REQUESTS} "
+            f"tokens={n_tok} "
+            f"wall_s={wall:.3f} tok_per_s={res['tok_per_s']:.1f} "
+            f"ttft_ms_p50={res['ttft_ms_p50']:.1f} "
+            f"ttft_ms_p95={res['ttft_ms_p95']:.1f} prefill_mode="
+            f"{res['prefill_mode']} engine built in {t_build:.1f} s "
+            f"killed={killed} pressure={res['pressure']} launches={counts} "
+            f"fleet={fl_stats} [{CARD}]")
+        return res, tokens, rows, margins
+
+    dis, dis_tok, dis_rows, _ = run("disagg")
+    fl = dis["fleet"]
+    n_chunks = sum(-(-n // bl) for n in lens)
+    check(fl["chunks"] == n_chunks == dis["pressure"]["disagg_chunks"],
+          f"disagg: {fl['chunks']} chunks received for {n_chunks}")
+    wl = fl["worker_launches"]
+    check(wl.get("flash_attention", 0) == arch.n_layers * n_chunks
+          and wl.get("flash_attention_positions", 0) == 0
+          and dis["launches"]["paged_decode_attention"] > 0
+          and dis["launches"]["flash_attention"] == 0,
+          f"disagg: worker launches {wl} for {n_chunks} chunks of "
+          f"{arch.n_layers} layers; engine {dis['launches']}")
+    per_chunk = dict(worker_ring_ms=fl["chunk_host_ms"] / n_chunks,
+                     engine_read_ms=fl["recv_ms"] / n_chunks,
+                     engine_scatter_ms=dis["chunk_scatter_ms"] / n_chunks)
+    per_chunk["host_ms"] = sum(per_chunk.values())
+    dis["per_chunk"] = per_chunk
+    chunk_mb = 2 * arch.n_layers * bl * cfg.kv_heads_padded * arch.hd * 2 / 1e6
+    log(f"disagg chunks: {n_chunks} of {bl} rows ({arch.n_layers} layers of "
+        f"K and V, {chunk_mb:.1f} MB a chunk) through the engine's ring on the card (CUDA IPC); host "
+        f"ms a chunk: worker into its slot, synchronised "
+        f"{per_chunk['worker_ring_ms']:.2f}, engine reading the pipe and "
+        f"copying the slot out {per_chunk['engine_read_ms']:.2f}, scatter "
+        f"into the pool "
+        f"{per_chunk['engine_scatter_ms']:.2f}, total "
+        f"{per_chunk['host_ms']:.2f}; spawn to weights taken "
+        f"{fl['spawn_to_ready_s']} s; worker flash launches "
+        f"{wl.get('flash_attention')} = {arch.n_layers} layers x "
+        f"{n_chunks} chunks [{CARD}]")
+
+    inl, inl_tok, inl_rows, inl_margins = run("inline", inline=True)
+    compared = same = 0
+    for rid, want in inl_tok.items():
+        for i, (a, b) in enumerate(zip(dis_tok[rid], want)):
+            compared += 1
+            if a != b:
+                m = inl_margins[rid][i]
+                check(m <= FULL_TOL, f"disagg: request {rid} token {i} "
+                      f"differs ({a} vs {b}) at an inline margin {m} > "
+                      f"{FULL_TOL}")
+                break
+            same += 1
+    kv_rel = {rid: max(_rms_rel(torch, a.float(), b.float())
+                       for a, b in zip(dis_rows[rid], inl_rows[rid]))
+              for rid in inl_rows}
+    # the noise floor and the wrong-token control, on request 0's prompt
+    toks0 = torch.from_numpy(prompts[0][None]).to(dev)
+    retiled = dataclasses.replace(
+        cfg, flash_tiles=(64 // (arch.n_heads // arch.n_kv_heads), 64))
+    n0 = lens[0]
+    _, c_re = lm.prefill(arch, params, {"tokens": toks0}, retiled)
+    floor = max(_rms_rel(torch, c_re[n][:, 0, :n0].float().cpu(),
+                         inl_rows[0][i].float())
+                for i, n in enumerate(("k", "v")))
+    del c_re
+    _, c_wr = lm.prefill(arch, params, {"tokens": (toks0 + 1) % V}, cfg)
+    wrong = min(_rms_rel(torch, c_wr[n][:, 0, :n0].float().cpu(),
+                         inl_rows[0][i].float())
+                for i, n in enumerate(("k", "v")))
+    del c_wr
+    torch.cuda.empty_cache()
+    worst = max(kv_rel.values())
+    log(f"check disagg vs inline: greedy tokens {same} identical of "
+        f"{compared} compared (a request compared up to its first "
+        f"difference, allowed only where the inline top-2 margin is <= "
+        f"{FULL_TOL}); journaled K/V rows vs the inline prefill's worst "
+        f"rms_rel={worst:.3e} (tol {FULL_TOL}; inline re-tiled against "
+        f"itself {floor:.3e}; wrong-token control {wrong:.3e}) per request "
+        f"{ {r: round(e, 6) for r, e in kv_rel.items()} } [{CARD}]")
+    check(worst <= FULL_TOL, f"disagg: journaled rows rms_rel {worst}")
+    check(wrong > FULL_TOL, f"disagg: the wrong-token control passed "
+          f"({wrong})")
+    log(f"serve[disagg vs inline] TTFT p50 {dis['ttft_ms_p50']:.1f} ms vs "
+        f"{inl['ttft_ms_p50']:.1f} ms, p95 {dis['ttft_ms_p95']:.1f} ms vs "
+        f"{inl['ttft_ms_p95']:.1f} ms, tok/s {dis['tok_per_s']:.1f} vs "
+        f"{inl['tok_per_s']:.1f} ({DISAGG_REQUESTS} requests, prompts "
+        f"{lens}, {DISAGG_NEW} new tokens each, one worker) [{CARD}]")
+    out.update(disagg=dis, inline=inl, tokens_compared=compared,
+               tokens_identical=same, kv_rms_rel=kv_rel, kv_noise_floor=floor,
+               kv_wrong_token_control=wrong, tol=FULL_TOL)
+    del inl_rows
+
+    # ---- SIGKILL: resumed from the journal, bitwise the un-killed run
+    kil, kil_tok, kil_rows, _ = run("sigkill", kill=True)
+    check(kil["fleet"]["deaths"] >= 1
+          and kil["pressure"]["disagg_resumes"] >= 1,
+          f"disagg sigkill: deaths {kil['fleet']['deaths']} resumes "
+          f"{kil['pressure']['disagg_resumes']}")
+    tok_same = all(kil_tok[r] == dis_tok[r] for r in dis_tok)
+    rows_same = all(torch.equal(a, b) for r in dis_rows
+                    for a, b in zip(kil_rows[r], dis_rows[r]))
+    log(f"check disagg SIGKILL: worker killed at (rid, acked, blocks) "
+        f"{kil['killed']}; disagg_resumes={kil['pressure']['disagg_resumes']}"
+        f" deaths={kil['fleet']['deaths']} restarts="
+        f"{kil['fleet']['restarts']}; tokens bitwise the un-killed run's: "
+        f"{tok_same}; journaled K/V rows bitwise: {rows_same} [{CARD}]")
+    check(tok_same and rows_same, "disagg sigkill: the resumed run differs "
+          "from the un-killed one")
+    out.update(sigkill=kil, sigkill_tokens_bitwise=tok_same,
+               sigkill_rows_bitwise=rows_same)
+    del kil_rows, dis_rows
+
+    # ---- degraded: no restart budget, one kill
+    deg, deg_tok, _, _ = run("degraded", kill=True, max_restarts=0)
+    press = deg["pressure"]
+    check(deg["prefill_mode"] == "degraded" and press["degraded"] is not None
+          and press["prefill_mode"] == "degraded",
+          f"disagg degraded: {press}")
+    as_before = sum(deg_tok[r] in (inl_tok[r], dis_tok[r]) for r in deg_tok)
+    log(f"check disagg degraded (max_restarts=0, one kill): prefill_mode="
+        f"{press['prefill_mode']} degraded={press['degraded']}; every "
+        f"request finished; {as_before} of {len(deg_tok)} with the inline "
+        f"or the disagg run's tokens exactly [{CARD}]")
+    out.update(degraded=deg, degraded_same_tokens=as_before)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"disagg phase took {out['phase_s']:.1f} s [{CARD}]")
+    # the un-killed run's launches: the engine's decode and the worker's
+    # prefill
+    counts = {k: n + wl.get(k, 0) for k, n in dis["launches"].items()}
+    return out, counts
+
+
+def guarded_run(trainer, fail_injector=None):
+    """The trainer's step under :class:`repro_torch.runtime.fault
+    .StepGuard`, wired as the reference's tests wire the guard: batches
+    drawn from the synthetic source by step (a replay sees the same
+    batches), the starting state and every ``ckpt_every`` steps saved
+    through the trainer's checkpointer, a failure restored through
+    ``trainer.resume()``.  Returns ``(state, step, guard, history)``,
+    ``history`` the ``(step, loss)`` of every step run."""
+    from repro_torch.data import SyntheticSource, to_device
+    from repro_torch.runtime import StepGuard
+
+    source = SyntheticSource(trainer.arch, trainer.shape,
+                             seed=trainer.cfg.seed)
+    put = to_device(trainer.device)
+    every, history, at = trainer.cfg.ckpt_every, [], {}
+
+    def batches(step):
+        at["step"] = step
+        return put(source.batch_at(step))
+
+    def make_step(mesh):
+        def step_fn(state, batch):
+            state, metrics = trainer.step_fn(state, batch)
+            history.append((at["step"], float(metrics["loss"])))
+            if (at["step"] + 1) % every == 0:
+                trainer.ckpt.save(at["step"] + 1, state, blocking=True)
+            return state, metrics
+        return step_fn
+
+    state = trainer.init_state(trainer.cfg.seed)
+    trainer.ckpt.save(0, state, blocking=True)
+    guard = StepGuard(make_step, lambda mesh: trainer.resume())
+    state, step, _ = guard.run(state, batches, trainer.cfg.n_steps,
+                               fail_injector=fail_injector)
+    return state, step, guard, history
+
+
+def step_guard_phase(torch, dev):
+    """Training under :class:`repro_torch.runtime.fault.StepGuard` on the
+    card: the small qwen3 (reduced, head_dim 128, its ``h100-sxm`` plan)
+    trains 6 steps of 256 x 4 through the flash kernels, checkpointed
+    every 2 steps through ``ckpt/checkpointer.py``; a RuntimeError is
+    injected at step 3, the guard restores the step-2 checkpoint and
+    replays; the final state (parameters, moments, master copy) must be
+    bitwise that of a run that never failed, as must the replayed steps'
+    losses."""
+    import shutil as _shutil
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    full = get_arch("qwen3-8b")
+    arch = dataclasses.replace(full.reduced(), head_dim=full.hd)
+    shape = ShapeConfig("guard_train", "train", 256, 4)
+    plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
+                      cache=False)
+    opt = adamw.OptConfig.from_plan(plan, warmup_steps=1, total_steps=8)
+    root = ROOT / "build" / "ckpt_guard"
+    _shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(run):
+        cfg = TrainerConfig(n_steps=6, ckpt_every=2, log_every=100,
+                            seed=SEED, ckpt_dir=str(root / run))
+        return Trainer(plan, None, cfg, opt, arch=arch, shape=shape,
+                       device=dev)
+
+    want, step, guard, calm = guarded_run(trainer("calm"))
+    check(step == 6 and not guard.events, f"guard calm run: {guard.events}")
+    fired = []
+
+    def injector(step):
+        if step == 3 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected device failure at step 3")
+
+    ops.reset_launch_counts()
+    got, step, guard, hist = guarded_run(trainer("hit"), injector)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    steps = [h for h, _ in hist]
+    same_losses = [x for _, x in hist[3:]] == [x for _, x in calm[2:]]
+    same = all(torch.equal(a.detach(), b.detach())
+               for a, b in zip(adamw.leaves(got), adamw.leaves(want)))
+    log(f"check StepGuard on the card: a RuntimeError at step 3, events "
+        f"{guard.events}; restored step {steps[3]} from "
+        f"{root / 'hit'} and replayed: steps {steps}; replayed losses bitwise "
+        f"{same_losses}; final state bitwise the never-failed run's: {same}; "
+        f"flash launches {counts['flash_attention']} forward, "
+        f"{counts['flash_attention_bwd']} backward; "
+        f"{time.perf_counter() - t0:.1f} s [{CARD}]")
+    check(step == 6 and len(guard.events) == 1
+          and steps == [0, 1, 2, 2, 3, 4, 5],
+          f"StepGuard: steps {steps}, events "
+          f"{guard.events}")
+    check(same and same_losses, "StepGuard: the replayed run differs from "
+          "the never-failed one")
+    check(counts["flash_attention"] > 0 and counts["flash_attention_bwd"] > 0,
+          f"StepGuard: the flash kernels did not launch ({counts})")
+    _shutil.rmtree(root, ignore_errors=True)
+    return dict(events=guard.events, steps=steps,
+                final_state_bitwise=same, losses_bitwise=same_losses,
+                launches=counts, seconds=time.perf_counter() - t0,
+                card=CARD), counts
+
+
 def small_model_check(torch, dev):
     """A small qwen3 (2 layers, d_model 128, head_dim 128) through the
     kernels on the card against the plain versions on the CPU."""
@@ -3457,6 +3978,223 @@ def flash_bwd_check(torch, F, fa, dev):
     return out
 
 
+#: qwen2-vl-72b prompts as Qwen2-VL's ``get_rope_index`` lays them out:
+#: 64 text rows, a 32 x 28 image (896 patches sharing one temporal id),
+#: text resuming at the largest id + 1; the forward's B = 2 x S = 1024 has
+#: one image a prompt, the backward's B = 1 x S = 2048 two
+VL_TEXT, VL_GRID = 64, (32, 28)
+VL_FWD_LAYOUT = (("text", VL_TEXT), ("image", *VL_GRID), ("text", VL_TEXT))
+VL_BWD_LAYOUT = (("text", VL_TEXT), ("image", *VL_GRID), ("text", VL_TEXT),
+                 ("image", *VL_GRID), ("text", 2 * VL_TEXT))
+
+
+def vl_positions(torch, dev, B, layout):
+    """``(3, B, S)`` int32 M-RoPE positions of ``B`` prompts laid out by
+    ``layout`` (``("text", n)`` or ``("image", grid_h, grid_w)``
+    segments), as ``get_rope_index`` (HF transformers,
+    ``modeling_qwen2_vl.py``) computes them for images: a text row's
+    three streams are one running id; an image's patches share one
+    temporal id (the next id), their height and width streams that id
+    plus the patch's row and column; the next segment starts at the
+    largest id so far + 1.  The temporal stream (index 0) is the one the
+    attention mask compares."""
+    streams, nxt = [[], [], []], 0
+    for seg in layout:
+        if seg[0] == "text":
+            ids = list(range(nxt, nxt + seg[1]))
+            for st in streams:
+                st.extend(ids)
+            nxt += seg[1]
+        else:
+            gh, gw = seg[1], seg[2]
+            streams[0].extend([nxt] * (gh * gw))
+            streams[1].extend(nxt + i for i in range(gh) for _ in range(gw))
+            streams[2].extend(nxt + j for _ in range(gh) for j in range(gw))
+            nxt += max(gh, gw)
+    pos = torch.tensor(streams, dtype=torch.int32, device=dev)
+    return pos[:, None, :].expand(3, B, pos.shape[1]).contiguous()
+
+
+def _live_pairs(torch, pos, Sq=None, causal=True):
+    """Live (query, key) pairs of ``pos`` ``(B, Skv)`` (queries the last
+    ``Sq`` rows), and the ``(B, 1, Sq, Skv)`` boolean mask SDPA takes
+    for them (True: live)."""
+    Sq = Sq or pos.shape[1]
+    qp, kp = pos[:, -Sq:, None].long(), pos[:, None, :].long()
+    mask = (kp <= qp) if causal else torch.ones_like(qp - kp, dtype=torch.bool)
+    return int(mask.sum()), mask[:, None]
+
+
+def flash_pos_check(torch, F, fa, dev):
+    """The flash kernels' positions variant (K7), at qwen2-vl-72b's 64 /
+    8 heads of 128 on prompts laid out as ``get_rope_index`` lays them
+    out (:func:`vl_positions`), on a generator of its own:
+
+    * forward, B = 2 x S = 1024 (one image a prompt), and a 512-row tail
+      at an offset over those keys, each row against the plain version
+      with the positions, beside the planted fault (the positions
+      dropped: the kernel masks by row index) that must fail the same
+      check; and a 512-row prompt whose positions are a random
+      permutation (rows in any order);
+    * backward (dq, dk, dv), B = 1 x S = 2048 (two images), against the
+      plain backward with the positions, beside the same planted fault;
+    * positions equal to the row index give the index path's output,
+      bitwise, forward and backward;
+    * times, in turns with SDPA given the equivalent boolean mask (its
+      backward through ``torch.autograd.grad``), beside the plain
+      versions; the bounds count operations over the live pairs only."""
+    g = torch.Generator(dev).manual_seed(SEED + 26)
+    hq, kv, dh = VLM_PAIR
+    tol, btol = TOL["flash_attention"], TOL["flash_attention_bwd"]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    out = {}
+    # ---- forward ----
+    B, S = 2, 1024
+    pos = vl_positions(torch, dev, B, VL_FWD_LAYOUT)[0]
+    q, k, v = rnd(B, S, hq, dh), rnd(B, S, kv, dh), rnd(B, S, kv, dh)
+    want = fa.flash_attention_plain(q, k, v, causal=True, positions=pos)
+    err, rel = row_err(torch, fa.flash_attention(q, k, v, causal=True,
+                                                 positions=pos), want)
+    log(f"kernel flash_attention positions B={B} S={S} G={hq // kv}: "
+        f"max_abs_err={err:.3e} worst row rel={rel:.3e} (tol {tol}) [{CARD}]")
+    check(rel <= tol, f"flash_attention positions row rel err {rel} > {tol}")
+    ctl = control("flash_attention", "positions ignored (masked by index)",
+                  torch, fa.flash_attention(q, k, v, causal=True,
+                                            positions=pos,
+                                            ignore_positions=True), want)
+    T = 512                          # a tail from inside the image on
+    want_t = fa.flash_attention_plain(q[:, -T:], k, v, causal=True,
+                                      positions=pos)
+    terr, trel = row_err(torch, fa.flash_attention(
+        q[:, -T:].contiguous(), k, v, causal=True, positions=pos), want_t)
+    log(f"kernel flash_attention positions tail {T} over {S}: max_abs_err="
+        f"{terr:.3e} worst row rel={trel:.3e} (tol {tol}) [{CARD}]")
+    check(trel <= tol, f"flash_attention positions tail row rel {trel}")
+    tctl = control("flash_attention", "tail, positions ignored", torch,
+                   fa.flash_attention(q[:, -T:].contiguous(), k, v,
+                                      causal=True, positions=pos,
+                                      ignore_positions=True), want_t)
+    perm = torch.randperm(T, generator=g, device=dev).to(torch.int32)
+    pq, pk, pv = q[:1, :T].contiguous(), k[:1, :T].contiguous(), \
+        v[:1, :T].contiguous()
+    perr, prel = row_err(torch, fa.flash_attention(
+        pq, pk, pv, causal=True, positions=perm[None]),
+        fa.flash_attention_plain(pq, pk, pv, causal=True,
+                                 positions=perm[None]))
+    log(f"kernel flash_attention positions permuted 1 x {T}: max_abs_err="
+        f"{perr:.3e} worst row rel={prel:.3e} (tol {tol}) [{CARD}]")
+    check(prel <= tol, f"flash_attention permuted positions row rel {prel}")
+    rows = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+    same = torch.equal(fa.flash_attention(q, k, v, causal=True,
+                                          positions=rows),
+                       fa.flash_attention(q, k, v, causal=True))
+    log(f"check flash_attention positions 0..S-1 == the index path, "
+        f"bitwise: {same} [{CARD}]")
+    check(same, "flash_attention: positions 0..S-1 differ from the index "
+          "path")
+    live, mask = _live_pairs(torch, pos)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    med, rounds = in_turns(torch, {
+        "kernel": lambda: fa.flash_attention(q, k, v, causal=True,
+                                             positions=pos),
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True),
+        "index": lambda: fa.flash_attention(q, k, v, causal=True)})
+    plain = time_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal=True, positions=pos), iters=5)
+    b_ms, b_by = bound(2 * (2 * B * S * hq * dh + 2 * B * S * kv * dh)
+                       + 4 * B * S, 4 * dh * hq * live)
+    log(f"timing flash_attention positions B={B} S={S}: kernel "
+        f"{med['kernel']:.4f} ms, SDPA with the mask {med['library']:.4f} ms, "
+        f"index path {med['index']:.4f} ms (medians of {TURNS} turns: kernel "
+        f"{fmt(rounds['kernel'])}, SDPA {fmt(rounds['library'])}), plain "
+        f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {live} live pairs of "
+        f"{B * S * S}) [{CARD}]")
+    out["flash_attention"] = dict(
+        shape=f"B={B} S={S} H={hq} K={kv} D={dh} causal bf16, temporal "
+              f"positions of {VL_FWD_LAYOUT}", ms=med["kernel"],
+        library_ms=med["library"], index_ms=med["index"], plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, live_pairs=live, max_abs_err=max(
+            err, terr, perr), row_rel_err=max(rel, trel, prel),
+        control_row_rel_err=min(ctl, tctl), index_bitwise=same,
+        turns_ms=rounds["kernel"], library_turns_ms=rounds["library"],
+        library_call="F.scaled_dot_product_attention(attn_mask, enable_gqa)")
+    # ---- backward ----
+    B, S = 1, 2048
+    pos = vl_positions(torch, dev, B, VL_BWD_LAYOUT)[0]
+    q, k, v, do = rnd(B, S, hq, dh), rnd(B, S, kv, dh), rnd(B, S, kv, dh), \
+        rnd(B, S, hq, dh)
+    o, lse = fa.flash_attention(q, k, v, causal=True, positions=pos,
+                                return_lse=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                        positions=pos)
+    errs = [grad_row_err(torch, a, b) for a, b in zip(
+        fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                               positions=pos), want)]
+    err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+    log(f"kernel flash_attention_bwd positions B={B} S={S} G={hq // kv}: "
+        f"max_abs_err={err:.3e} worst row rel dq/dk/dv="
+        f"{[round(r, 6) for _, r in errs]} (tol {btol}) [{CARD}]")
+    check(rel <= btol, f"flash_attention_bwd positions row rel {rel}")
+    bad = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                 positions=pos, ignore_positions=True)
+    bctl = max(grad_row_err(torch, a, b)[1] for a, b in zip(bad, want))
+    log(f"control flash_attention_bwd positions ignored (masked by index): "
+        f"worst row rel of dq, dk, dv {bctl:.3e} (must exceed tol {btol}) "
+        f"[{CARD}]")
+    check(bctl > btol, f"control flash_attention_bwd positions ignored "
+          f"passed the check ({bctl} <= {btol})")
+    rows = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+    oi, li = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    same = all(torch.equal(a, b) for a, b in zip(
+        fa.flash_attention_bwd(q, k, v, oi, li, do, causal=True,
+                               positions=rows),
+        fa.flash_attention_bwd(q, k, v, oi, li, do, causal=True)))
+    log(f"check flash_attention_bwd positions 0..S-1 == the index path, "
+        f"bitwise: {same} [{CARD}]")
+    check(same, "flash_attention_bwd: positions 0..S-1 differ from the "
+          "index path")
+    live, mask = _live_pairs(torch, pos)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                             enable_gqa=True)
+    dot = do.transpose(1, 2)
+    med, rounds = in_turns(torch, {
+        "kernel": lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=True, positions=pos),
+        "library": lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                               retain_graph=True),
+        "index": lambda: fa.flash_attention_bwd(q, k, v, oi, li, do,
+                                                causal=True)})
+    plain = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=True, positions=pos), iters=3, warmup=1)
+    nbytes = 2 * (3 * B * S * hq * dh + 2 * B * S * kv * dh) \
+        + 4 * B * hq * S + 4 * B * S \
+        + 2 * (B * S * hq * dh + 2 * B * S * kv * dh)
+    b_ms, b_by = bound(nbytes, 2.5 * 4 * dh * hq * live)
+    log(f"timing flash_attention_bwd positions B={B} S={S}: kernel "
+        f"{med['kernel']:.4f} ms, SDPA backward with the mask "
+        f"{med['library']:.4f} ms, index path {med['index']:.4f} ms "
+        f"(medians of {TURNS} turns: kernel {fmt(rounds['kernel'])}, SDPA "
+        f"{fmt(rounds['library'])}), plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {live} live pairs of {B * S * S}) [{CARD}]")
+    out["flash_attention_bwd"] = dict(
+        shape=f"B={B} S={S} H={hq} K={kv} D={dh} causal bf16, temporal "
+              f"positions of {VL_BWD_LAYOUT}", ms=med["kernel"],
+        library_ms=med["library"], index_ms=med["index"], plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, live_pairs=live, max_abs_err=err,
+        row_rel_err=rel, control_row_rel_err=bctl, index_bitwise=same,
+        turns_ms=rounds["kernel"], library_turns_ms=rounds["library"],
+        library_call="torch.autograd.grad of "
+                     "F.scaled_dot_product_attention(attn_mask, enable_gqa)")
+    del qt, kt, vt, lib_out
+    return out
+
+
 #: the SSD backward's shapes (B, S, H, P, N, G, chunk, with an initial
 #: state and a gradient of the final state): mamba2-2.7b's and
 #: hymba-1.5b's at the train shape as training calls it (neither), then
@@ -3643,7 +4381,8 @@ def plain_kernels(on: bool = True):
     if on:
         attn_mod.attention_chunked = (
             lambda q, k, v, *, causal, window, tiles, mode, mask_pos=None:
-            fa.flash_attention_plain(q, k, v, causal=causal, window=window))
+            fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     positions=mask_pos))
         ssm_mod.ssd_chunked = (
             lambda x, dt, A, Bm, Cm, chunk, initial_state=None, *,
             heads_block=None, mode="auto": ssd.ssd_scan_plain(
@@ -3698,6 +4437,23 @@ def _last_layer_grads(torch, arch, params, batch, cfg, plain: bool):
         named = [("input", x)] + _named(last)
         grads = torch.autograd.grad(loss, [t for _, t in named])
         return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
+
+
+@contextlib.contextmanager
+def positions_ignored():
+    """Send the flash kernels (forward and backward) positions' masks
+    through their planted fault: the positions dropped, so the kernels
+    mask by row index — a control the model-level checks must catch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kernels = fa.flash_attention, fa.flash_attention_bwd
+    fa.flash_attention = functools.partial(kernels[0], ignore_positions=True)
+    fa.flash_attention_bwd = functools.partial(kernels[1],
+                                               ignore_positions=True)
+    try:
+        yield
+    finally:
+        fa.flash_attention, fa.flash_attention_bwd = kernels
 
 
 @contextlib.contextmanager
@@ -3872,13 +4628,20 @@ def train_phase(torch, dev, name="qwen3-8b"):
     MoE path as planned — through ``Trainer.fit`` for
     :data:`TRAIN_STEPS` steps on the synthetic pipeline, every earlier
     weight freed first.  Before the fit, the kernels' gradient check
-    (:func:`train_grad_check`); where the plan keeps no master copy
+    (:func:`train_grad_check`; for an M-RoPE arch first on a batch with
+    two images' repeated temporal ids, the positions variant, before the
+    optimizer state is allocated); where the plan keeps no master copy
     (bf16 parameters updated by stochastic rounding) the last step runs
     with :class:`RoundingCheck` on the optimizer's rounding; the steps
     before it are timed clean.  The launches are held to
     :func:`expected_train_launches` a step, and the fit's peak allocated
     memory against the plan's step-peak estimate: ``peak <= estimate <=``
-    :data:`STEP_PEAK_OVER` ``x peak``."""
+    :data:`STEP_PEAK_OVER` ``x peak``.  For an M-RoPE arch, one more step
+    of ``trainer.step_fn`` after the fit, on a batch with two images'
+    repeated temporal ids: finite, and its launches those of a step with
+    the flash forward and backward taken by the positions variant."""
+    import gc
+
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core import specialize
     from repro_torch.core.passes.lowering import build_run_cfg
@@ -3886,6 +4649,7 @@ def train_phase(torch, dev, name="qwen3-8b"):
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.train import plan_memory
+    from repro_torch.models import lm
     from repro_torch.optim import adamw
     from repro_torch.train import Trainer, TrainerConfig
 
@@ -3920,6 +4684,38 @@ def train_phase(torch, dev, name="qwen3-8b"):
         n_steps=TRAIN_STEPS, ckpt_every=0, log_every=1, seed=SEED,
         ckpt_dir=str(ROOT / "build" / "ckpt_train")), arch=arch,
         shape=shape, device=dev)
+    grad_pos = None
+    if arch.mrope_sections is not None:
+        # the gradient check with repeated temporal ids (the positions
+        # variant of the flash forward and backward, its launches
+        # counted) on the parameters init_state draws (the same
+        # generator), before the optimizer state exists, then freed: the
+        # fit's memory is as it was without it (qwen2-vl's plan fills the
+        # card)
+        params0 = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                                 *plan.padded_sizes())
+        vpos = vl_positions(torch, dev, shape.global_batch, VL_BWD_LAYOUT)
+        check(vpos.shape[-1] == shape.seq_len,
+              f"train {name}: layout of {vpos.shape[-1]} rows")
+        batch0 = dict(to_device(dev)(SyntheticSource(
+            arch, shape, seed=SEED).batch_at(0)), positions=vpos)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        grad_pos = train_grad_check(torch, dev, arch, cfg, params0, batch0)
+        torch.cuda.synchronize()
+        pos_counts = ops.launch_counts()
+        del params0, batch0
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(pos_counts["flash_attention_positions"] > 0
+              and pos_counts["flash_attention_bwd_positions"] > 0,
+              f"train {name}: the positions variant did not launch "
+              f"({pos_counts})")
+        grad_pos["launches"] = pos_counts
+        log(f"check train {name} with repeated temporal ids "
+            f"({VL_BWD_LAYOUT}): positions-variant launches forward "
+            f"{pos_counts['flash_attention_positions']}, backward "
+            f"{pos_counts['flash_attention_bwd_positions']} [{CARD}]")
     t0 = time.perf_counter()
     state = trainer.init_state(SEED)
     torch.cuda.synchronize()
@@ -3996,12 +4792,45 @@ def train_phase(torch, dev, name="qwen3-8b"):
         and abs(sr.up - sr.expect_up) <= 6 * math.sqrt(sr.var) + 1),
         f"train {name}: stochastic rounding left the neighbour pair or is "
         "biased")
+    fit_pos = None
+    if arch.mrope_sections is not None:
+        # one more step of the trainer's own step function on a batch
+        # laid out as get_rope_index lays out two images: the positions
+        # variant on the training path, its launches from this step alone
+        vbatch = dict(to_device(dev)(SyntheticSource(
+            arch, shape, seed=SEED).batch_at(TRAIN_STEPS)),
+            positions=vl_positions(torch, dev, shape.global_batch,
+                                   VL_BWD_LAYOUT))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        state, vm = trainer.step_fn(state, vbatch)
+        vloss = float(vm["loss"])
+        torch.cuda.synchronize()
+        fit_pos = dict(launches=ops.launch_counts(), loss=vloss,
+                       grad_norm=float(vm["grad_norm"]))
+        del vbatch, vm
+        # a launch of the positions variant counts as a flash launch too
+        want = {k: per_step.get(k, 0) for k in fit_pos["launches"]}
+        want.update(flash_attention_positions=per_step["flash_attention"],
+                    flash_attention_bwd_positions=per_step[
+                        "flash_attention_bwd"])
+        log(f"train {name} step {TRAIN_STEPS} on two images' repeated "
+            f"temporal ids ({VL_BWD_LAYOUT}): loss {vloss:.6f} grad_norm "
+            f"{fit_pos['grad_norm']:.6f}; launches {fit_pos['launches']} "
+            f"[{CARD}]")
+        check(math.isfinite(vloss) and math.isfinite(fit_pos["grad_norm"]),
+              f"train {name}: the step with repeated temporal ids is not "
+              "finite")
+        check(fit_pos["launches"] == want,
+              f"train {name}: the step with repeated temporal ids launched "
+              f"{fit_pos['launches']}, expected {want}")
     res = dict(plan=plan.content_hash(), decisions=decisions,
                n_layers=L, n_params=n_params, steps=hist, step_ms=step_ms,
                tokens_per_s=tok_s, peak_bytes=peak,
                plan_memory=est, estimate_over_peak=est["peak"] / peak,
                launches=counts, launches_per_step=per_step,
-               grad_check=grad,
+               grad_check=grad, grad_check_positions=grad_pos,
+               step_positions=fit_pos,
                final={k: float(v) for k, v in metrics.items()})
     if stochastic:
         res["rounding"] = dict(elements=sr.elements, off_pair=sr.off_pair,
@@ -4033,8 +4862,12 @@ def frontend_phases(torch, dev):
     small = {name: small_train_check(torch, dev, name)
              for name in (QWEN2VL, HUBERT)}
     ops.reset_launch_counts()
+    # the positions variant on the main path: the trainer's step on a
+    # batch with repeated temporal ids (the M-RoPE prefill check's and
+    # the gradient check's launches are logged with those checks)
     counts = {"qwen2-vl serve": serve_counts, "qwen2-vl train": vl_counts,
-              "hubert train": hu_counts}
+              "hubert train": hu_counts,
+              "qwen2-vl positions": vl["step_positions"]["launches"]}
     return counts, {"qwen2-vl serve": serve, "qwen2-vl train": vl,
                     "hubert train": hu, "small_train": small,
                     "launches": counts}
@@ -4370,7 +5203,8 @@ def matmul_path_phase(torch, dev, plans, shapes):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port on one NVIDIA card")
-    ap.add_argument("--only", choices=("flash_bwd", "ssd_bwd", "matmul_fp32"),
+    ap.add_argument("--only", choices=("flash_bwd", "flash_pos", "ssd_bwd",
+                                       "matmul_fp32"),
                     help="run this kernel's check alone and print its "
                          "result")
     ap.add_argument("--src", type=Path, default=SRC,
@@ -4408,6 +5242,19 @@ def main(argv=None) -> int:
         log(json.dumps({"src": str(args.src), "card": CARD,
                         "flash_attention_bwd":
                             flash_bwd_check(torch, F, fa, dev)}))
+        return 0
+    if args.only == "flash_pos":
+        import torch.nn.functional as F
+        from repro_torch.kernels import build
+        from repro_torch.kernels import flash_attention as fa
+        res = flash_pos_check(torch, F, fa, dev)
+        for name in ("flash_attention", "flash_attention_bwd"):
+            for kernel, regs, spills in build.ptxas_entries(
+                    build.PTXAS_LOG.get(name, "")):
+                log(f"ptxas {name}: {kernel}: {regs} registers at entry, "
+                    f"{spills} bytes of spills [{CARD}]")
+        log(json.dumps({"src": str(args.src), "card": CARD,
+                        "flash_positions": res}))
         return 0
     if args.only == "ssd_bwd":
         from repro_torch.kernels import build
@@ -4514,6 +5361,10 @@ def main(argv=None) -> int:
     # ---- phase 6: outputs against references ----
     consistency_check(torch, dev, arch, params, build_run_cfg(plan, arch),
                       int(plan.estimates["kv_block_len"]))
+
+    # ---- phase 6b: disaggregated prefill on the same weights ----
+    disagg_res, disagg_counts = disagg_phase(torch, dev, arch, params)
+    ops.reset_launch_counts()
     del params
     torch.cuda.empty_cache()
     small_model_check(torch, dev)
@@ -4604,6 +5455,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     train_counts, train = train_phase(torch, dev)
     small_train = small_train_check(torch, dev)
+    guard, guard_counts = step_guard_phase(torch, dev)
     ops.reset_launch_counts()
     log(f"train phases took {time.perf_counter() - t0:.1f} s [{CARD}]")
 
@@ -4626,7 +5478,11 @@ def main(argv=None) -> int:
     # ---- phase 24: results ----
     family_counts = [c for c, _ in families.values()]
     runs = (*serve_runs.values(), train_counts, *family_counts,
-            *front_counts.values())
+            *front_counts.values(), guard_counts, disagg_counts)
+    for name in ("flash_attention_positions",
+                 "flash_attention_bwd_positions"):
+        check(front_counts["qwen2-vl positions"][name] > 0,
+              f"the positions variant's runs launched {name} no time")
     launches = {k: sum(c[k] for c in runs) for k in paged_counts}
     for name in ("flash_attention", "paged_decode_attention"):
         kern[name]["g7"]["launches"] = (grant["launches"][name]
@@ -4711,7 +5567,8 @@ def main(argv=None) -> int:
                     "train_families": {n: r for n, (_, r) in
                                        families.items()},
                     "small_train_mamba2": small_train_ssm,
-                    "frontends": front}))
+                    "frontends": front, "disagg": disagg_res,
+                    "step_guard": guard}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")
     log(smi)

@@ -27,7 +27,8 @@ CSRC = Path(__file__).parent / "csrc"
 SOURCES: Tuple[str, ...] = ("flash_attention", "flash_attention_bwd",
                             "decode_attention", "ssd_scan", "ssd_scan_bwd",
                             "tiled_matmul")
-HEADERS: Tuple[str, ...] = ("common.cuh", "hopper.cuh", "ssd_common.cuh")
+HEADERS: Tuple[str, ...] = ("common.cuh", "hopper.cuh", "ssd_common.cuh",
+                            "positions.cuh")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
@@ -164,21 +165,19 @@ def ptxas_entries(log: str) -> List[Tuple[str, int, int]]:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_attention": {
-        # q, k, v, out, lse, B, Sq, Skv, q_off, H, K, D, causal, window,
-        # rows, block_kv, scale, pad_fault, stream
-        "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _F, _I, _P],
+        # q, k, v, out, lse, pos, ranges, B, Sq, Skv, q_off, H, K, D,
+        # causal, window, rows, block_kv, scale, pad_fault, stream
+        "flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         # q, k, v, B, S, H, K, D, rows, block_kv, iters -> us (double)
         "flash_attention_map_encode_us": [_P, _P, _P, _I, _I, _I, _I, _I,
                                           _I, _I, _I],
     },
     "flash_attention_bwd": {
-        # q, k, v, o, dout, lse, delta, table, dq, dk, dv, B, Sq, Skv,
-        # q_off, H, K, D, causal, window, scale, drop_tile, group_fault,
-        # stream
-        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                _I, _P],
+        # q, k, v, o, dout, lse, delta, table, dq, dk, dv, pos, ranges, B,
+        # Sq, Skv, q_off, H, K, D, causal, window, scale, drop_tile,
+        # group_fault, stream
+        "flash_attention_bwd": [_P] * 13 + [_I] * 9 + [_F, _I, _I, _P],
     },
     "decode_attention": {
         # q, k_pool, v_pool, tbl, cache_len, out, ws, counters, B, H, K,

@@ -71,6 +71,16 @@
 //     exact fit, for one code path: the template's D is the row's width,
 //     its padded width kD the products' (a 64 + 16 split with a 32-byte
 //     swizzled box would do no extra work, later work if it is the limit);
+//   * masks by positions (the POS instances, head_dim 128: qwen2-vl-72b,
+//     whose M-RoPE temporal stream gives every patch of an image one id):
+//     an int32 (B, Skv) positions operand, query row i at pos[q_off + i],
+//     rows in any order.  A prep pass (csrc/positions.cuh) writes each Q
+//     tile's and each key tile's [min, max] position; a CTA walks every key
+//     tile and loads only those where a pair can be live, and masks element
+//     by element (kpos <= qpos, qpos - kpos < window, the S edge by index)
+//     only on a tile not every pair of which is live.  Positions 0..S-1
+//     give the index path's tiles, masks and so its output, bitwise; the
+//     index instances (POS false) are the code they were;
 // Tiles (rows, block_kv) in {(64, 64), (64, 128), (128, 64), (128, 128)}
 // (rows = 64 per consumer warpgroup), head_dim a template parameter
 // instantiated at 64 (hymba-1.5b), 80 (hubert-xlarge, padded to 128) and
@@ -86,6 +96,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "positions.cuh"
 
 using repro::bf16;
 namespace sm90 = repro::sm90;
@@ -135,12 +146,19 @@ __device__ __forceinline__ bool key_ok(int kpos, int qpos, int Skv,
          (window <= 0 || qpos - kpos < window);
 }
 
-template <int D, int BKV, int NWG>
+// POS: mask by positions (csrc/positions.cuh): pos (B, Skv) int32, query
+// row i at pos[q_off + i]; ranges holds the [min, max] of each Q tile's
+// positions (B, n_qt), then of each key tile's (B, n_kt).  A key tile no
+// pair of which can be live is skipped, one every pair of which is live is
+// not masked element by element.  Without POS both are null and unread.
+template <int D, int BKV, int NWG, bool POS>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
-                 bf16* __restrict__ out, float* __restrict__ lse, int Sq,
+                 bf16* __restrict__ out, float* __restrict__ lse,
+                 const int* __restrict__ pos,
+                 const int2* __restrict__ ranges, int Sq,
                  int Skv, int q_off, int H, int K, int causal, int window,
                  float scale_log2, int pad_fault) {
   constexpr int kD = padded_dim<D>();  // the products' width
@@ -172,8 +190,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int kv_end = causal ? p_last + 1 : Skv;
   const int kv_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   const int t_begin = kv_begin / BKV;
-  const int n_tiles = (kv_end + BKV - 1) / BKV - t_begin;
+  int n_tiles = (kv_end + BKV - 1) / BKV - t_begin;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  // POS: this tile's range of query positions and the key tiles' ranges;
+  // the live key tiles, in order, replace [t_begin, t_begin + n_tiles)
+  const int n_kt = (Skv + BKV - 1) / BKV;
+  int2 q_rng = make_int2(0, 0);
+  const int2* k_rng = nullptr;
+  if constexpr (POS) {
+    const int B = gridDim.x / K;
+    q_rng = ranges[b * gridDim.y + q0 / BQ];
+    k_rng = ranges + size_t(B) * gridDim.y + size_t(b) * n_kt;
+    n_tiles = 0;
+    for (int t = 0; t < n_kt; ++t)
+      n_tiles += repro::range_live(q_rng, k_rng[t], causal, window);
+  }
 
   // pad rows (q_rows..kRows-1 of each 64-wide Q atom) start zeroed: the
   // boxes never write them (a 128-byte swizzle permutes chunks within a
@@ -207,9 +238,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int a = 0; a < kAtoms; ++a)
         sm90::tma_load_4d(q_s + a * kRows * 128, &map_q, q_full, a * 64,
                           kvh * G, q0, b);
+      int t_pos = -1;  // POS: the key tile of item i
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
-        const int kv0 = (t_begin + i) * BKV;
+        int kv0;
+        if constexpr (POS) {
+          do ++t_pos;
+          while (!repro::range_live(q_rng, k_rng[t_pos], causal, window));
+          kv0 = t_pos * BKV;
+        } else {
+          kv0 = (t_begin + i) * BKV;
+        }
         unsigned char* k_s = smem + L::kQ + s * L::kStage;
         unsigned char* v_s = k_s + L::kKV;
         sm90::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
@@ -237,7 +276,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   // stays live through the kv loop for it)
   const int qrow_lo = r_lo < q_rows ? q0 + r_lo / G : Sq;
   const int qrow_hi = r_hi < q_rows ? q0 + r_hi / G : Sq;
-  const int qpos_lo = q_off + qrow_lo, qpos_hi = q_off + qrow_hi;
+  // POS: a real row's position from pos; a pad row's is never used
+  const int* kp = POS ? pos + size_t(b) * Skv : nullptr;
+  const int qpos_lo = POS ? (qrow_lo < Sq ? kp[q_off + qrow_lo] : 0)
+                          : q_off + qrow_lo;
+  const int qpos_hi = POS ? (qrow_hi < Sq ? kp[q_off + qrow_hi] : 0)
+                          : q_off + qrow_hi;
   float o[kD / 2];
 #pragma unroll
   for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
@@ -245,10 +289,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const unsigned char* q_wg = q_s + wg * 64 * 128;
   sm90::mbar_wait(q_full, 0);
 
+  int t_pos = -1;  // POS: the key tile of item i
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % kStages;
     const uint32_t phase = (i / kStages) & 1;
-    const int kv0 = (t_begin + i) * BKV;
+    int kv0;
+    bool pos_masked = false;  // POS: the tile is not wholly live
+    if constexpr (POS) {
+      do ++t_pos;
+      while (!repro::range_live(q_rng, k_rng[t_pos], causal, window));
+      kv0 = t_pos * BKV;
+      pos_masked = kv0 + BKV > Skv ||
+                   !repro::range_full(q_rng, k_rng[t_pos], causal, window);
+    } else {
+      kv0 = (t_begin + i) * BKV;
+    }
     const unsigned char* k_s = smem + L::kQ + s * L::kStage;
     const unsigned char* v_s = k_s + L::kKV;
 
@@ -269,17 +324,25 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     sm90::fence_regs(sc);
 
     // masks, only on a tile that straddles a boundary
-    if (kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > p0) ||
-        (window > 0 && p_last - kv0 >= window)) {
+    if (POS ? pos_masked
+            : (kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > p0) ||
+               (window > 0 && p_last - kv0 >= window))) {
 #pragma unroll
       for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int kpos = kv0 + 8 * j + 2 * (lane % 4) + e;
-          if (!key_ok(kpos, qpos_lo, Skv, causal, window))
-            sc[4 * j + e] = -INFINITY;
-          if (!key_ok(kpos, qpos_hi, Skv, causal, window))
-            sc[4 * j + 2 + e] = -INFINITY;
+          const int kidx = kv0 + 8 * j + 2 * (lane % 4) + e;
+          bool ok_lo, ok_hi;
+          if constexpr (POS) {
+            const int kpos = kidx < Skv ? kp[kidx] : 0;
+            ok_lo = kidx < Skv && repro::pos_ok(kpos, qpos_lo, causal, window);
+            ok_hi = kidx < Skv && repro::pos_ok(kpos, qpos_hi, causal, window);
+          } else {
+            ok_lo = key_ok(kidx, qpos_lo, Skv, causal, window);
+            ok_hi = key_ok(kidx, qpos_hi, Skv, causal, window);
+          }
+          if (!ok_lo) sc[4 * j + e] = -INFINITY;
+          if (!ok_hi) sc[4 * j + 2 + e] = -INFINITY;
         }
     }
 
@@ -398,28 +461,39 @@ int encode_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
   return sm90::encode_bf16_sw128(mv, v, 4, dk, sk, bk);
 }
 
-template <int D, int BKV, int NWG>
+template <int D, int BKV, int NWG, bool POS>
 int launch(const void* q, const void* k, const void* v, void* out,
-           void* lse, int B, int Sq, int Skv, int q_off, int H, int K,
-           int causal, int window, float scale, int pad_fault,
-           cudaStream_t stream) {
+           void* lse, const void* pos, void* ranges, int B, int Sq, int Skv,
+           int q_off, int H, int K, int causal, int window, float scale,
+           int pad_fault, cudaStream_t stream) {
   constexpr int kRows = NWG * 64;
   CUtensorMap mq, mk, mv;
   int err = encode_maps(&mq, &mk, &mv, q, k, v, B, Sq, Skv, H, K, D, kRows,
                         BKV);
   if (err) return err;
   const size_t smem = Smem<padded_dim<D>(), BKV, NWG>::kBytes;
-  auto kern = flash_fwd_kernel<D, BKV, NWG>;
+  auto kern = flash_fwd_kernel<D, BKV, NWG, POS>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
   const int BQ = kRows / (H / K);
   const int q_tiles = (Sq + BQ - 1) / BQ;
   if (q_tiles > 65535) return int(cudaErrorInvalidValue);
+  if constexpr (POS) {
+    // the Q tiles' ranges (from q_off), then the key tiles'
+    const int* p = static_cast<const int*>(pos);
+    int2* r = static_cast<int2*>(ranges);
+    e = repro::launch_ranges(p, B, Skv, q_off, Sq, BQ, r, stream);
+    if (e == cudaSuccess)
+      e = repro::launch_ranges(p, B, Skv, 0, Skv, BKV,
+                               r + size_t(B) * q_tiles, stream);
+    if (e != cudaSuccess) return int(e);
+  }
   const float kLog2e = 1.4426950408889634f;
   kern<<<dim3(B * K, q_tiles), (NWG + 1) * 128, smem, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(out), static_cast<float*>(lse), Sq, Skv,
-      q_off, H, K, causal, window, scale * kLog2e, pad_fault);
+      mq, mk, mv, static_cast<bf16*>(out), static_cast<float*>(lse),
+      static_cast<const int*>(pos), static_cast<const int2*>(ranges), Sq,
+      Skv, q_off, H, K, causal, window, scale * kLog2e, pad_fault);
   return int(cudaGetLastError());
 }
 
@@ -447,14 +521,21 @@ extern "C" {
 // K/V rows per tile.  pad_fault: 0, or a planted fault for the checks (the
 // pad rows written over the next CTA's first position, in place of that
 // CTA's own rows there).  lse: null, or fp32 (B, H, Sq) for each row's
-// log-sum-exp of the scaled scores (the backward's input).  Returns 0 when
-// launched, a cudaError_t, or a negative CUresult of the tensor-map encoder.
+// log-sum-exp of the scaled scores (the backward's input).  pos: null (the
+// mask by index), or int32 (B, Skv) positions to mask by (query row i at
+// pos[q_off + i]; head_dim 128 only) with ranges, an int2 workspace of
+// B * (ceil(Sq / (rows / G)) + ceil(Skv / block_kv)) entries, 8-byte
+// aligned.  Returns 0 when launched, a cudaError_t, or a negative CUresult
+// of the tensor-map encoder.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* out, void* lse, int B, int Sq, int Skv,
-                        int q_off, int H, int K, int D, int causal,
-                        int window, int rows, int block_kv, float scale,
-                        int pad_fault, void* stream) {
-  if (!takes(q, k, v, out, Sq, Skv, q_off, H, K, D, rows))
+                        void* out, void* lse, const void* pos, void* ranges,
+                        int B, int Sq, int Skv, int q_off, int H, int K,
+                        int D, int causal, int window, int rows,
+                        int block_kv, float scale, int pad_fault,
+                        void* stream) {
+  if (!takes(q, k, v, out, Sq, Skv, q_off, H, K, D, rows) ||
+      (pos != nullptr && (ranges == nullptr ||
+                          reinterpret_cast<uintptr_t>(ranges) % 8 != 0)))
     return int(cudaErrorInvalidValue);
   // cuTensorMapEncodeTiled needs a current context, which a
   // thread that has made no runtime call yet (autograd's device thread,
@@ -463,10 +544,21 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return int(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_CASE(DD, ROWS, BKV)                                     \
-  if (D == DD && rows == ROWS && block_kv == BKV)                           \
-    return launch<DD, BKV, ROWS / 64>(q, k, v, out, lse, B, Sq, Skv, q_off, \
-                                      H, K, causal, window, scale, pad_fault, \
-                                      s);
+  if (D == DD && rows == ROWS && block_kv == BKV && pos == nullptr)         \
+    return launch<DD, BKV, ROWS / 64, false>(q, k, v, out, lse, pos, ranges, \
+                                             B, Sq, Skv, q_off, H, K, causal, \
+                                             window, scale, pad_fault, s);
+// the positions variant, at head_dim 128 (qwen2-vl-72b's M-RoPE)
+#define REPRO_FLASH_POS_CASE(DD, ROWS, BKV)                                 \
+  if (D == DD && rows == ROWS && block_kv == BKV && pos != nullptr)         \
+    return launch<DD, BKV, ROWS / 64, true>(q, k, v, out, lse, pos, ranges, \
+                                            B, Sq, Skv, q_off, H, K, causal, \
+                                            window, scale, pad_fault, s);
+  REPRO_FLASH_POS_CASE(128, 64, 64)
+  REPRO_FLASH_POS_CASE(128, 64, 128)
+  REPRO_FLASH_POS_CASE(128, 128, 64)
+  REPRO_FLASH_POS_CASE(128, 128, 128)
+#undef REPRO_FLASH_POS_CASE
   REPRO_FLASH_CASE(128, 64, 64)
   REPRO_FLASH_CASE(128, 64, 128)
   REPRO_FLASH_CASE(128, 128, 64)

@@ -82,6 +82,16 @@
 // give zero columns of dQ, dK and dV) and the epilogues write the 80 real
 // columns.  causal=False (the encoder) takes one key tile a CTA: every key
 // tile sees every query, so there is no work to balance by pairing.
+// Masks by positions (the POS instances, head_dim 128, as the forward's):
+// an int32 (B, Skv) positions operand, query row i at pos[q_off + i].  The
+// prep launches of csrc/positions.cuh write the [min, max] position of each
+// dK/dV Q tile (64 / G positions), each dQ Q tile (128 / G) and each key
+// tile (64); a dK/dV job walks every Q tile and takes those where a pair
+// with its keys can be live (the causal pairing of key tiles c and n-1-c
+// stays: each job's Q tiles come from positions), the dQ loop every key
+// tile likewise, and the element masks compare positions only on a pair of
+// tiles not every pair of which is live.  Positions 0..S-1 give the index
+// path's tiles and masks, so its output, bitwise.
 // Planted faults for the checks: drop_tile skips each dK/dV job's first Q
 // tile; group_fault gives every head but a group's first lse +inf in the
 // dK/dV row table (only the first head summed into dK/dV).
@@ -91,6 +101,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "positions.cuh"
 
 using repro::bf16;
 namespace sm90 = repro::sm90;
@@ -221,15 +232,19 @@ __device__ __forceinline__ void q_tiles(int kt, int Sq, int Skv, int q_off,
   t1 = r1 > r0 ? (r1 + BQ - 1) / BQ : t0;
 }
 
-template <int D>
+// POS: pos (B, Skv), q_rng (B, n_t) the Q tiles' ranges, k_rng (B, n_kt)
+// the key tiles'; null and unread without POS
+template <int D, bool POS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                const __grid_constant__ CUtensorMap map_do,
                const float* __restrict__ table, bf16* __restrict__ dk,
-               bf16* __restrict__ dv, int Sq, int Skv, int q_off, int H,
-               int K, int causal, int window, float scale, int paired,
+               bf16* __restrict__ dv, const int* __restrict__ pos,
+               const int2* __restrict__ q_rng,
+               const int2* __restrict__ k_rng, int Sq, int Skv, int q_off,
+               int H, int K, int causal, int window, float scale, int paired,
                int drop_tile) {
   constexpr int kD = padded_dim<D>();  // the products' width
   using L = KvSmem<kD>;
@@ -258,6 +273,8 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
   const int c = blockIdx.x;
   const int n_jobs = paired && n_kt - 1 - c != c ? 2 : 1;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int* kp = POS ? pos + size_t(b) * Skv : nullptr;
+  const int2* qr = POS ? q_rng + size_t(b) * n_t : nullptr;
 
   for (int s = 0; s < kStagesKV; ++s) {
     zero_pad_rows(ring + s * L::kStage, kRowsKV, q_rows, kAtoms);
@@ -291,9 +308,15 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
           sm90::tma_load_4d(v_s + a * kKeys * 128, &map_v, kv_full, a * 64,
                             kvh, kt * kKeys, b);
         }
-        int t0, t1;
-        q_tiles(kt, Sq, Skv, q_off, causal, window, BQ, t0, t1);
-        for (int t = t0; t < t1; ++t, ++item) {
+        int t0 = 0, t1 = n_t;
+        int2 kr = make_int2(0, 0);
+        if constexpr (POS)
+          kr = k_rng[size_t(b) * n_kt + kt];
+        else
+          q_tiles(kt, Sq, Skv, q_off, causal, window, BQ, t0, t1);
+        for (int t = t0; t < t1; ++t) {
+          if constexpr (POS)
+            if (!repro::range_live(qr[t], kr, causal, window)) continue;
           const int s = item % kStagesKV;
           unsigned char* q_st = ring + s * L::kStage;
           sm90::mbar_wait(&empty[s], ((item / kStagesKV) & 1) ^ 1);
@@ -310,6 +333,7 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
           sm90::bulk_load(tables + s * 2 * kRowsKV,
                           table + (size_t(blockIdx.y) * n_t + t) * 2 * kRowsKV,
                           L::kTable, &full[s]);
+          ++item;
         }
       }
     }
@@ -328,13 +352,26 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
   for (int j = 0; j < n_jobs; ++j) {
     const int kt = j == 0 ? c : n_kt - 1 - c;
     const int kv0 = kt * kKeys;
-    int t0, t1;
-    q_tiles(kt, Sq, Skv, q_off, causal, window, BQ, t0, t1);
+    int t0 = 0, t1 = 0, n_items;
+    int2 kr = make_int2(0, 0);
+    int kpos_lo = 0, kpos_hi = 0;  // POS: this thread's two keys
+    if constexpr (POS) {
+      kr = k_rng[size_t(b) * n_kt + kt];
+      n_items = 0;
+      for (int t = 0; t < n_t; ++t)
+        n_items += repro::range_live(qr[t], kr, causal, window);
+      if (kv0 + key_lo < Skv) kpos_lo = kp[kv0 + key_lo];
+      if (kv0 + key_lo + 8 < Skv) kpos_hi = kp[kv0 + key_lo + 8];
+    } else {
+      q_tiles(kt, Sq, Skv, q_off, causal, window, BQ, t0, t1);
+      n_items = t1 - t0;
+    }
 #pragma unroll
     for (int i = 0; i < kD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     sm90::mbar_wait(kv_full, j & 1);
 
-    for (int i = wg; i < t1 - t0; i += 2) {
+    int t_pos = -1, i_pos = -1;  // POS: the Q tile of item i
+    for (int i = wg; i < n_items; i += 2) {
       const int item = item_base + i;
       const int s = item % kStagesKV;
       const unsigned char* q_st = ring + s * L::kStage;
@@ -370,10 +407,20 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
       sm90::fence_regs(st);
 
       // P^T; column col is the tile's row, at position q0 + col / G
-      const int q0 = (t0 + i) * BQ;
+      int tq;
+      if constexpr (POS) {
+        while (i_pos < i)
+          if (repro::range_live(qr[++t_pos], kr, causal, window)) ++i_pos;
+        tq = t_pos;
+      } else {
+        tq = t0 + i;
+      }
+      const int q0 = tq * BQ;
       const bool edge =
-          (causal && q_off + q0 < kv0 + kKeys - 1) ||
-          (window > 0 && q_off + min(q0 + BQ, Sq) - 1 - kv0 >= window);
+          POS ? !repro::range_full(qr[tq], kr, causal, window)
+              : ((causal && q_off + q0 < kv0 + kKeys - 1) ||
+                 (window > 0 &&
+                  q_off + min(q0 + BQ, Sq) - 1 - kv0 >= window));
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const int col = 8 * jj + 2 * (lane % 4);
@@ -386,11 +433,23 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
           if (edge) {
             // (col + e) / G, exact for col < 64: (c + 1/2) / G is at least
             // 1 / (2 G) from an integer
-            const int qpos =
-                q_off + q0 + __float2int_rz((col + e + 0.5f) * inv_g);
-            if (!key_ok(kv0 + key_lo, qpos, Skv, causal, window)) p_lo = 0.f;
-            if (!key_ok(kv0 + key_lo + 8, qpos, Skv, causal, window))
-              p_hi = 0.f;
+            const int qi = q0 + __float2int_rz((col + e + 0.5f) * inv_g);
+            if constexpr (POS) {
+              // a row past Sq has lse +inf (P = 0) whatever its position
+              const int qpos = qi < Sq ? kp[q_off + qi] : 0;
+              if (!(kv0 + key_lo < Skv &&
+                    repro::pos_ok(kpos_lo, qpos, causal, window)))
+                p_lo = 0.f;
+              if (!(kv0 + key_lo + 8 < Skv &&
+                    repro::pos_ok(kpos_hi, qpos, causal, window)))
+                p_hi = 0.f;
+            } else {
+              const int qpos = q_off + qi;
+              if (!key_ok(kv0 + key_lo, qpos, Skv, causal, window))
+                p_lo = 0.f;
+              if (!key_ok(kv0 + key_lo + 8, qpos, Skv, causal, window))
+                p_hi = 0.f;
+            }
           }
           st[4 * jj + e] = p_lo;
           st[4 * jj + 2 + e] = p_hi;
@@ -445,7 +504,7 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_q,
       sm90::fence_regs(dk_acc);
       sm90::mbar_arrive(&empty[s]);
     }
-    item_base += t1 - t0;
+    item_base += n_items;
 
     // warpgroup 1's partial sums to warpgroup 0 through the K/V tiles
     // (thread t of one holds the same elements as thread t of the other),
@@ -509,15 +568,19 @@ struct QSmem {
       size_t(2) * kQ + size_t(kStagesQ) * kStage + kBars + 1024;
 };
 
-template <int D>
+// POS: pos (B, Skv), q_rng (B, gridDim.y) the CTAs' Q tiles' ranges,
+// k_rng (B, n_kt) the key tiles'; null and unread without POS
+template <int D, bool POS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_k,
              const __grid_constant__ CUtensorMap map_v,
              const __grid_constant__ CUtensorMap map_do,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             bf16* __restrict__ dq, int Sq, int Skv, int q_off, int H, int K,
-             int causal, int window, float scale) {
+             bf16* __restrict__ dq, const int* __restrict__ pos,
+             const int2* __restrict__ q_rng,
+             const int2* __restrict__ k_rng, int Sq, int Skv, int q_off,
+             int H, int K, int causal, int window, float scale) {
   constexpr int kD = padded_dim<D>();  // the products' width
   using L = QSmem<kD>;
   constexpr int kAtoms = kD / 64;
@@ -543,8 +606,19 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
   const int kv_end = causal ? p_last + 1 : Skv;
   const int kv_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   const int t_begin = kv_begin / kKeys;
-  const int n_tiles = (kv_end + kKeys - 1) / kKeys - t_begin;
+  int n_tiles = (kv_end + kKeys - 1) / kKeys - t_begin;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  // POS: the live key tiles, in order, replace [t_begin, t_begin + n_tiles)
+  const int n_kt = (Skv + kKeys - 1) / kKeys;
+  int2 q_r = make_int2(0, 0);
+  const int2* kr = nullptr;
+  if constexpr (POS) {
+    q_r = q_rng[b * gridDim.y + q0 / BQ];
+    kr = k_rng + size_t(b) * n_kt;
+    n_tiles = 0;
+    for (int t = 0; t < n_kt; ++t)
+      n_tiles += repro::range_live(q_r, kr[t], causal, window);
+  }
 
   zero_pad_rows(q_s, kRowsQ, q_rows, kAtoms);
   zero_pad_rows(do_s, kRowsQ, q_rows, kAtoms);
@@ -572,9 +646,17 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
         sm90::tma_load_4d(do_s + a * kRowsQ * 128, &map_do, q_full, a * 64,
                           kvh * G, q0, b);
       }
+      int t_pos = -1;  // POS: the key tile of item i
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStagesQ;
-        const int kv0 = (t_begin + i) * kKeys;
+        int kv0;
+        if constexpr (POS) {
+          do ++t_pos;
+          while (!repro::range_live(q_r, kr[t_pos], causal, window));
+          kv0 = t_pos * kKeys;
+        } else {
+          kv0 = (t_begin + i) * kKeys;
+        }
         unsigned char* k_st = ring + s * L::kStage;
         unsigned char* v_st = k_st + L::kKV;
         sm90::mbar_wait(&empty[s], ((i / kStagesQ) & 1) ^ 1);
@@ -600,7 +682,12 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
   // a pad row (r >= q_rows) takes the row index Sq, which the epilogue skips
   const int qrow_lo = r_lo < q_rows ? q0 + r_lo / G : Sq;
   const int qrow_hi = r_hi < q_rows ? q0 + r_hi / G : Sq;
-  const int qpos_lo = q_off + qrow_lo, qpos_hi = q_off + qrow_hi;
+  // POS: a real row's position from pos; a pad row's is never used
+  const int* kp = POS ? pos + size_t(b) * Skv : nullptr;
+  const int qpos_lo = POS ? (qrow_lo < Sq ? kp[q_off + qrow_lo] : 0)
+                          : q_off + qrow_lo;
+  const int qpos_hi = POS ? (qrow_hi < Sq ? kp[q_off + qrow_hi] : 0)
+                          : q_off + qrow_hi;
   const size_t lrow_lo = (size_t(b) * H + kvh * G + r_lo % G) * Sq + qrow_lo;
   const size_t lrow_hi = (size_t(b) * H + kvh * G + r_hi % G) * Sq + qrow_hi;
   const float l_lo = qrow_lo < Sq ? lse[lrow_lo] * kLog2e : INFINITY;
@@ -614,10 +701,21 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
   const int a_off = wg * 64 * 128;  // this warpgroup's rows of each atom
   sm90::mbar_wait(q_full, 0);
 
+  int t_pos = -1;  // POS: the key tile of item i
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % kStagesQ;
     const uint32_t phase = (i / kStagesQ) & 1;
-    const int kv0 = (t_begin + i) * kKeys;
+    int kv0;
+    bool pos_edge = false;  // POS: the tile is not wholly live
+    if constexpr (POS) {
+      do ++t_pos;
+      while (!repro::range_live(q_r, kr[t_pos], causal, window));
+      kv0 = t_pos * kKeys;
+      pos_edge = kv0 + kKeys > Skv ||
+                 !repro::range_full(q_r, kr[t_pos], causal, window);
+    } else {
+      kv0 = (t_begin + i) * kKeys;
+    }
     const unsigned char* k_st = ring + s * L::kStage;
     const unsigned char* v_st = k_st + L::kKV;
 
@@ -653,9 +751,10 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
     sm90::fence_regs(sc);
 
     // P, masks only on a tile that straddles a boundary
-    const bool edge = kv0 + kKeys > Skv ||
-                      (causal && kv0 + kKeys - 1 > p0) ||
-                      (window > 0 && p_last - kv0 >= window);
+    const bool edge = POS ? pos_edge
+                          : (kv0 + kKeys > Skv ||
+                             (causal && kv0 + kKeys - 1 > p0) ||
+                             (window > 0 && p_last - kv0 >= window));
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
@@ -663,9 +762,17 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
         float p_lo = ex2(fmaf(sc[4 * jj + e], scale_log2, -l_lo));
         float p_hi = ex2(fmaf(sc[4 * jj + 2 + e], scale_log2, -l_hi));
         if (edge) {
-          const int kpos = kv0 + 8 * jj + 2 * (lane % 4) + e;
-          if (!key_ok(kpos, qpos_lo, Skv, causal, window)) p_lo = 0.f;
-          if (!key_ok(kpos, qpos_hi, Skv, causal, window)) p_hi = 0.f;
+          const int kidx = kv0 + 8 * jj + 2 * (lane % 4) + e;
+          if constexpr (POS) {
+            const int kpos = kidx < Skv ? kp[kidx] : 0;
+            if (!(kidx < Skv && repro::pos_ok(kpos, qpos_lo, causal, window)))
+              p_lo = 0.f;
+            if (!(kidx < Skv && repro::pos_ok(kpos, qpos_hi, causal, window)))
+              p_hi = 0.f;
+          } else {
+            if (!key_ok(kidx, qpos_lo, Skv, causal, window)) p_lo = 0.f;
+            if (!key_ok(kidx, qpos_hi, Skv, causal, window)) p_hi = 0.f;
+          }
         }
         sc[4 * jj + e] = p_lo;
         sc[4 * jj + 2 + e] = p_hi;
@@ -731,12 +838,13 @@ cudaError_t set_smem(Kern kern, size_t bytes) {
                               int(bytes));
 }
 
-template <int D>
+template <int D, bool POS>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* table,
-           void* dq, void* dk, void* dv, int B, int Sq, int Skv, int q_off,
-           int H, int K, int causal, int window, float scale, int drop_tile,
-           int group_fault, cudaStream_t stream) {
+           void* dq, void* dk, void* dv, const void* pos, void* ranges,
+           int B, int Sq, int Skv, int q_off, int H, int K, int causal,
+           int window, float scale, int drop_tile, int group_fault,
+           cudaStream_t stream) {
   const int G = H / K;
   CUtensorMap mq64, mdo64, mq128, mdo128, mk, mv;
   int err = encode_rows(&mq64, q, B, Sq, H, D, G, kRowsKV);
@@ -757,28 +865,41 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (e != cudaSuccess) return int(e);
 
   const int n_kt = (Skv + kKeys - 1) / kKeys;
+  const int q_tiles = (Sq + kRowsQ / G - 1) / (kRowsQ / G);
+  // POS: the ranges of the dK/dV Q tiles, the dQ Q tiles, the key tiles
+  const int* p = static_cast<const int*>(pos);
+  int2* r_kv = static_cast<int2*>(ranges);
+  int2* r_q = POS ? r_kv + size_t(B) * n_t : nullptr;
+  int2* r_k = POS ? r_q + size_t(B) * q_tiles : nullptr;
+  if constexpr (POS) {
+    e = repro::launch_ranges(p, B, Skv, q_off, Sq, kRowsKV / G, r_kv, stream);
+    if (e == cudaSuccess)
+      e = repro::launch_ranges(p, B, Skv, q_off, Sq, kRowsQ / G, r_q, stream);
+    if (e == cudaSuccess)
+      e = repro::launch_ranges(p, B, Skv, 0, Skv, kKeys, r_k, stream);
+    if (e != cudaSuccess) return int(e);
+  }
   const int paired = causal && window <= 0;
-  auto k2 = flash_bwd_dkdv<D>;
+  auto k2 = flash_bwd_dkdv<D, POS>;
   constexpr size_t kv_smem = KvSmem<padded_dim<D>()>::kBytes;
   e = set_smem(k2, kv_smem);
   if (e != cudaSuccess) return int(e);
   k2<<<dim3(paired ? (n_kt + 1) / 2 : n_kt, B * K), kThreads, kv_smem,
        stream>>>(
       mq64, mk, mv, mdo64, static_cast<const float*>(table),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, q_off, H, K,
-      causal, window, scale, paired, drop_tile);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), p, r_kv, r_k, Sq, Skv,
+      q_off, H, K, causal, window, scale, paired, drop_tile);
   e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
 
-  auto k3 = flash_bwd_dq<D>;
+  auto k3 = flash_bwd_dq<D, POS>;
   constexpr size_t q_smem = QSmem<padded_dim<D>()>::kBytes;
   e = set_smem(k3, q_smem);
   if (e != cudaSuccess) return int(e);
-  const int q_tiles = (Sq + kRowsQ / G - 1) / (kRowsQ / G);
   k3<<<dim3(B * K, q_tiles), kThreads, q_smem, stream>>>(
       mq128, mk, mv, mdo128, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Skv,
-      q_off, H, K, causal, window, scale);
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), p, r_q, r_k,
+      Sq, Skv, q_off, H, K, causal, window, scale);
   return int(cudaGetLastError());
 }
 
@@ -790,7 +911,10 @@ extern "C" {
 // contiguous and 16-byte aligned, D in {64, 80, 128}, H % K == 0, G = H / K <=
 // 64, Sq <= Skv, query row i at absolute position q_off + i.  lse (B, H,
 // Sq) fp32 from the forward.  Workspaces, fp32: delta (B, H, Sq) and table
-// (B, K, ceil(Sq / (64 / G)), 2, 64), 16-byte aligned.  drop_tile /
+// (B, K, ceil(Sq / (64 / G)), 2, 64), 16-byte aligned.  pos: null (the mask
+// by index) or int32 (B, Skv) positions to mask by (head_dim 128 only),
+// with ranges, an int2 workspace of B * (ceil(Sq / (64 / G)) +
+// ceil(Sq / (128 / G)) + ceil(Skv / 64)) entries, 8-byte aligned.  drop_tile /
 // group_fault: 0, or a planted fault for the checks (each dK/dV job's first
 // Q tile skipped; only a group's first head summed into dK/dV).  Three
 // launches on `stream`; returns 0 when launched, a cudaError_t, or a
@@ -798,9 +922,10 @@ extern "C" {
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,
                         void* delta, void* table, void* dq, void* dk,
-                        void* dv, int B, int Sq, int Skv, int q_off, int H,
-                        int K, int D, int causal, int window, float scale,
-                        int drop_tile, int group_fault, void* stream) {
+                        void* dv, const void* pos, void* ranges, int B,
+                        int Sq, int Skv, int q_off, int H, int K, int D,
+                        int causal, int window, float scale, int drop_tile,
+                        int group_fault, void* stream) {
   const uintptr_t ptrs =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
@@ -810,7 +935,9 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (K <= 0 || H % K != 0 || H / K > kRowsKV || Sq <= 0 || Skv < Sq ||
       q_off < 0 || q_off > Skv - Sq || ptrs % 16 != 0 || B <= 0 ||
       B * K > 65535 ||
-      (Sq + kRowsQ / (H / K) - 1) / (kRowsQ / (H / K)) > 65535)
+      (Sq + kRowsQ / (H / K) - 1) / (kRowsQ / (H / K)) > 65535 ||
+      (pos != nullptr && (D != 128 || ranges == nullptr ||
+                          reinterpret_cast<uintptr_t>(ranges) % 8 != 0)))
     return int(cudaErrorInvalidValue);
   // cuTensorMapEncodeTiled needs a current context, which a
   // thread that has made no runtime call yet (autograd's device thread,
@@ -818,18 +945,23 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   cudaError_t e = cudaFree(nullptr);
   if (e != cudaSuccess) return int(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128 && pos != nullptr)  // the positions variant
+    return launch<128, true>(q, k, v, o, dout, lse, delta, table, dq, dk, dv,
+                             pos, ranges, B, Sq, Skv, q_off, H, K, causal,
+                             window, scale, drop_tile, group_fault, s);
   if (D == 128)
-    return launch<128>(q, k, v, o, dout, lse, delta, table, dq, dk, dv, B,
-                       Sq, Skv, q_off, H, K, causal, window, scale, drop_tile,
-                       group_fault, s);
+    return launch<128, false>(q, k, v, o, dout, lse, delta, table, dq, dk,
+                              dv, pos, ranges, B, Sq, Skv, q_off, H, K,
+                              causal, window, scale, drop_tile, group_fault,
+                              s);
   if (D == 64)
-    return launch<64>(q, k, v, o, dout, lse, delta, table, dq, dk, dv, B, Sq,
-                      Skv, q_off, H, K, causal, window, scale, drop_tile,
-                      group_fault, s);
+    return launch<64, false>(q, k, v, o, dout, lse, delta, table, dq, dk, dv,
+                             pos, ranges, B, Sq, Skv, q_off, H, K, causal,
+                             window, scale, drop_tile, group_fault, s);
   if (D == 80)  // hubert-xlarge, padded to 128 in shared memory
-    return launch<80>(q, k, v, o, dout, lse, delta, table, dq, dk, dv, B, Sq,
-                      Skv, q_off, H, K, causal, window, scale, drop_tile,
-                      group_fault, s);
+    return launch<80, false>(q, k, v, o, dout, lse, delta, table, dq, dk, dv,
+                             pos, ranges, B, Sq, Skv, q_off, H, K, causal,
+                             window, scale, drop_tile, group_fault, s);
   return int(cudaErrorInvalidValue);
 }
 

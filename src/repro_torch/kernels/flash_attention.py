@@ -50,6 +50,17 @@ gradient route: its forward keeps q, k, v, the output and the
 log-sum-exp the kernel writes, and its backward runs
 :func:`flash_attention_bwd` on CUDA tensors or
 :func:`flash_attention_bwd_plain` on the CPU.
+
+Masks by positions: every function here takes an optional int32
+``positions`` ``(B, Skv)``, one position per key row, query row ``i``
+at ``positions[:, Skv - Sq + i]``; the masks then compare positions
+(causal ``kpos <= qpos``, the window ``qpos - kpos < window``), as the
+JAX package masks by M-RoPE's temporal stream
+(``src/repro/models/attention.py:41-55``), where every patch of an
+image shares one id.  Positions need not rise with the row.  The
+kernels' positions variant (``POS``, built at head_dim
+:data:`POS_HEAD_DIM`) skips and masks tiles by each tile's range of
+positions; without ``positions`` they run the index path unchanged.
 """
 
 from __future__ import annotations
@@ -74,6 +85,9 @@ HEAD_DIMS = (64, 80, 128)
 GROUPS = (1, 2, 4, 5, 7, 8, 16)
 #: K/V stages of the TMA ring in shared memory
 STAGES = 2
+#: the head dim the kernels' positions variant is built at (qwen2-vl-72b,
+#: the one arch whose mask positions are not the row index)
+POS_HEAD_DIM = 128
 
 #: backward tiles (``csrc/flash_attention_bwd.cu``): keys a dK/dV job
 #: and a step of the dQ loop, (position, head) rows a step of the dK/dV
@@ -84,10 +98,13 @@ BWD_ROWS_Q = 128
 
 #: launches of the CUDA kernels in this process (reset by the caller):
 #: forward calls, how many of them ran a query block at an offset (``Sq <
-#: Skv``), and backward calls (one call is the backward's three launches)
+#: Skv``), backward calls (one call is the backward's three launches),
+#: and the forward and backward calls that masked by positions
 launches = 0
 tail_launches = 0
 bwd_launches = 0
+pos_launches = 0
+pos_bwd_launches = 0
 
 
 def padded_dim(head_dim: int) -> int:
@@ -116,6 +133,13 @@ def bwd_table_floats(B: int, Sq: int, H: int, K: int) -> int:
     return B * K * -(-Sq // per_tile) * 2 * BWD_ROWS_KV
 
 
+def pos_ranges_ints(B: int, Sq: int, Skv: int, tiles) -> int:
+    """int32 elements of the positions variant's range workspace: a
+    ``[min, max]`` pair per ``(b, tile)`` of each ``(start, length,
+    rows)`` table in ``tiles`` (``csrc/positions.cuh``)."""
+    return 2 * B * sum(-(-n // t) for n, t in tiles)
+
+
 def kernel_tiles(G: int, block_q: Optional[int] = None,
                  block_kv: Optional[int] = None) -> Tuple[int, int]:
     """``(rows, block_kv)`` for a GQA group of ``G`` heads: the CTA's
@@ -140,19 +164,27 @@ def kernel_tiles(G: int, block_q: Optional[int] = None,
     return rows, block_kv
 
 
-def _mask(Sq: int, Skv: int, causal: bool, window: int,
-          device) -> torch.Tensor:
-    """``(Sq, Skv)`` live (query, key) pairs: queries at the key stream's
-    last ``Sq`` positions, causal bottom-right aligned, the window
-    counted back from each query."""
-    qpos = torch.arange(Skv - Sq, Skv, device=device)[:, None]
-    kpos = torch.arange(Skv, device=device)[None, :]
-    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+def _mask(Sq: int, Skv: int, causal: bool, window: int, device,
+          positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Live (query, key) pairs: queries at the key stream's last ``Sq``
+    rows, causal bottom-right aligned, the window counted back from each
+    query; ``(Sq, Skv)`` by row index, or ``(B, 1, 1, Sq, Skv)`` by
+    ``positions`` ``(B, Skv)`` (query row ``i`` at ``positions[:, Skv -
+    Sq + i]``), broadcast against ``(B, K, G, Sq, Skv)`` scores."""
+    if positions is None:
+        qpos = torch.arange(Skv - Sq, Skv, device=device)[:, None]
+        kpos = torch.arange(Skv, device=device)[None, :]
+    else:
+        pos = positions.to(device=device, dtype=torch.int64)
+        qpos = pos[:, Skv - Sq:, None]
+        kpos = pos[:, None, :]
+    ok = torch.ones(torch.broadcast_shapes(qpos.shape, kpos.shape),
+                    dtype=torch.bool, device=device)
     if causal:
         ok &= kpos <= qpos
     if window > 0:
         ok &= (qpos - kpos) < window
-    return ok
+    return ok if positions is None else ok[:, None, None]
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -166,10 +198,12 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
-                          window: int = 0, return_lse: bool = False):
+                          window: int = 0, return_lse: bool = False,
+                          positions: Optional[torch.Tensor] = None):
     """The kernel's function in plain PyTorch: one masked softmax over
     all key positions in fp32, the same superset contract (any lengths,
-    queries the last ``Sq`` of ``Skv`` positions).  Runs on any device.
+    queries the last ``Sq`` of ``Skv`` rows, masked by row index or by
+    ``positions`` ``(B, Skv)``).  Runs on any device.
     ``return_lse`` also returns each row's log-sum-exp of the scaled
     scores, fp32 ``(B, H, Sq)``, as the kernel writes it for the
     backward."""
@@ -178,8 +212,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     if Sq > Skv:
         raise ValueError(f"flash_attention: {Sq} queries over {Skv} keys; "
                          "the queries are the key stream's last positions")
-    s = torch.where(_mask(Sq, Skv, causal, window, q.device), _scores(q, k),
-                    float("-inf"))
+    _check_positions(positions, B, Skv)
+    s = torch.where(_mask(Sq, Skv, causal, window, q.device, positions),
+                    _scores(q, k), float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     o = o.reshape(B, Sq, H, D).to(q.dtype)
@@ -191,17 +226,19 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               lse: torch.Tensor, do: torch.Tensor, *,
-                              causal: bool = True, window: int = 0):
+                              causal: bool = True, window: int = 0,
+                              positions: Optional[torch.Tensor] = None):
     """The backward kernel's function in plain PyTorch, in fp32, step by
     step: P from the scores and the forward's log-sum-exp, ``Delta =
     rowsum(dO o O)``, ``dS = P o (dP - Delta)``, ``dQ = scale dS K``,
     ``dK = scale dS^T Q`` and ``dV = P^T dO`` summed over the G query
-    heads of each kv head.  Returns ``(dq, dk, dv)`` in the inputs'
-    dtype.  Runs on any device."""
+    heads of each kv head, masked by row index or by ``positions``.
+    Returns ``(dq, dk, dv)`` in the inputs' dtype.  Runs on any device."""
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
-    ok = _mask(Sq, Skv, causal, window, q.device)
+    _check_positions(positions, B, Skv)
+    ok = _mask(Sq, Skv, causal, window, q.device, positions)
     lse5 = lse.float().reshape(B, K, G, Sq, 1)
     p = torch.where(ok, torch.exp(_scores(q, k) - lse5), 0.0)
     do5 = do.reshape(B, Sq, K, G, D).float()
@@ -216,6 +253,29 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, do5)
     return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def _check_positions(positions: Optional[torch.Tensor], B: int,
+                     Skv: int) -> None:
+    if positions is not None and tuple(positions.shape) != (B, Skv):
+        raise ValueError(f"flash_attention: positions "
+                         f"{tuple(positions.shape)}, want (B, Skv) = "
+                         f"{(B, Skv)}: one position per key row")
+
+
+def _kernel_positions(positions: Optional[torch.Tensor], q: torch.Tensor,
+                      Skv: int) -> Optional[torch.Tensor]:
+    """``positions`` as the kernels read them: int32, contiguous, on q's
+    device; raises at a head dim the positions variant is not built at."""
+    if positions is None:
+        return None
+    B, _, _, D = q.shape
+    _check_positions(positions, B, Skv)
+    if D != POS_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention: the positions variant is built at head_dim "
+            f"{POS_HEAD_DIM} (qwen2-vl-72b's M-RoPE), got {D}")
+    return positions.to(device=q.device, dtype=torch.int32).contiguous()
 
 
 def _check(q, k, v) -> None:
@@ -247,18 +307,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: Optional[int] = None,
                     block_kv: Optional[int] = None,
                     ignore_offset: bool = False,
-                    pad_fault: bool = False, return_lse: bool = False):
+                    pad_fault: bool = False, return_lse: bool = False,
+                    positions: Optional[torch.Tensor] = None,
+                    ignore_positions: bool = False):
     """Launch the GQA flash kernel on CUDA tensors (raises on any other
     device or on inputs the kernel does not take).  ``return_lse`` also
     returns the log-sum-exp the kernel writes for the backward, fp32
     ``(B, H, Sq)`` (the serve path asks for none and the kernel writes
-    none).  ``ignore_offset``
-    and ``pad_fault`` plant faults for the checks (tests and
+    none).  ``positions`` ``(B, Skv)`` masks by positions (the kernel's
+    positions variant).  ``ignore_offset``, ``pad_fault`` and
+    ``ignore_positions`` plant faults for the checks (tests and
     ``chip_smoke.py`` only): a tail's queries taken as positions
     ``0..Sq-1``; a tile's pad rows written over the next CTA's first
     position, in place of that CTA's own rows there (so the fault shows
-    whichever CTA writes last)."""
-    global launches, tail_launches
+    whichever CTA writes last); the positions dropped, so the kernel
+    masks by row index."""
+    global launches, tail_launches, pos_launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: the kernel runs on CUDA tensors, "
                          f"got {q.device} (kernels.ops routes CPU tensors to "
@@ -267,12 +331,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     rows, bkv = kernel_tiles(H // K, block_q, block_kv)
+    pos = None if ignore_positions else _kernel_positions(positions, q, Skv)
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    ranges = None
+    if pos is not None:
+        ranges = torch.empty(
+            pos_ranges_ints(B, Sq, Skv, ((Sq, rows // (H // K)),
+                                         (Skv, bkv))),
+            dtype=torch.int32, device=q.device)
     err = build.library("flash_attention").flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if return_lse else None, B, Sq, Skv, 0 if ignore_offset else Skv - Sq, H, K, D, int(causal),
+        lse.data_ptr() if return_lse else None,
+        pos.data_ptr() if pos is not None else None,
+        ranges.data_ptr() if pos is not None else None, B, Sq, Skv,
+        0 if ignore_offset else Skv - Sq, H, K, D, int(causal),
         int(window), rows, bkv, float(D ** -0.5), int(pad_fault),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
@@ -280,6 +354,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{build.describe_error(err)}")
     launches += 1
     tail_launches += Sq < Skv
+    pos_launches += pos is not None
     return (out, lse) if return_lse else out
 
 
@@ -287,15 +362,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
                         window: int = 0, drop_tile: bool = False,
-                        group_fault: bool = False):
+                        group_fault: bool = False,
+                        positions: Optional[torch.Tensor] = None,
+                        ignore_positions: bool = False):
     """Launch the backward kernel on CUDA tensors: ``(dq, dk, dv)`` of
     the forward ``o = flash_attention(q, k, v)`` with its log-sum-exp
     ``lse`` and the output gradient ``do`` (raises on any other device
-    or on inputs the kernel does not take).  ``drop_tile`` and
-    ``group_fault`` plant faults for the checks (tests and
+    or on inputs the kernel does not take), masked by ``positions``
+    ``(B, Skv)`` when given.  ``drop_tile``, ``group_fault`` and
+    ``ignore_positions`` plant faults for the checks (tests and
     ``chip_smoke.py`` only): each dK/dV job's first Q tile skipped; only
-    a group's first query head summed into dK/dV."""
-    global bwd_launches
+    a group's first query head summed into dK/dV; the positions dropped
+    (the mask by row index)."""
+    global bwd_launches, pos_bwd_launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: the kernel runs on CUDA "
                          f"tensors, got {q.device} (kernels.ops routes CPU "
@@ -316,51 +395,66 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if H // K > BWD_ROWS_KV:
         raise ValueError(f"flash_attention_bwd: GQA group {H // K} > "
                          f"{BWD_ROWS_KV} rows of a dK/dV step")
+    pos = None if ignore_positions else _kernel_positions(positions, q, Skv)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     table = torch.empty(bwd_table_floats(B, Sq, H, K), dtype=torch.float32,
                         device=q.device)
+    ranges = None
+    if pos is not None:
+        G = H // K
+        ranges = torch.empty(
+            pos_ranges_ints(B, Sq, Skv, ((Sq, BWD_ROWS_KV // G),
+                                         (Sq, BWD_ROWS_Q // G),
+                                         (Skv, BWD_TILE_KV))),
+            dtype=torch.int32, device=q.device)
     err = build.library("flash_attention_bwd").flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), table.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Skv - Sq,
-        H, K, D,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        pos.data_ptr() if pos is not None else None,
+        ranges.data_ptr() if pos is not None else None, B, Sq, Skv,
+        Skv - Sq, H, K, D,
         int(causal), int(window), float(D ** -0.5), int(drop_tile),
         int(group_fault), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd: launch failed with "
                            f"{build.describe_error(err)}")
     bwd_launches += 1
+    pos_bwd_launches += pos is not None
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: the kernels on CUDA tensors
     (forward and backward), the plain versions on the CPU, never one
-    for the other.  The forward keeps q, k, v, the output and the
-    log-sum-exp for the backward (O(S) beside the inputs: no score
-    matrix is kept)."""
+    for the other.  The forward keeps q, k, v, the output, the
+    log-sum-exp and the mask's ``positions`` (or ``None``) for the
+    backward (O(S) beside the inputs: no score matrix is kept)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int,
-                tiles: Optional[Tuple[int, int]]):
+                tiles: Optional[Tuple[int, int]],
+                positions: Optional[torch.Tensor] = None):
         if q.device.type == "cuda":
             bq, bkv = tiles if tiles is not None else (None, None)
             o, lse = flash_attention(q, k, v, causal=causal, window=window,
                                      block_q=bq, block_kv=bkv,
-                                     return_lse=True)
+                                     return_lse=True, positions=positions)
         else:
             o, lse = flash_attention_plain(q, k, v, causal=causal,
-                                           window=window, return_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
+                                           window=window, return_lse=True,
+                                           positions=positions)
+        ctx.save_for_backward(q, k, v, o, lse, positions)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, positions = ctx.saved_tensors
         bwd = (flash_attention_bwd if q.device.type == "cuda"
                else flash_attention_bwd_plain)
         dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(),
-                         causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None, None
+                         causal=ctx.causal, window=ctx.window,
+                         positions=positions)
+        return dq, dk, dv, None, None, None, None

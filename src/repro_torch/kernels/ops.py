@@ -60,12 +60,16 @@ def _refuse_grad(name: str, *tensors) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     tiles: Optional[Tuple[int, int]] = None,
-                    mode: str = "auto") -> torch.Tensor:
+                    mode: str = "auto",
+                    positions: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """q ``(B, Sq, H, D)``, k/v ``(B, Skv, K, D)`` with ``Sq <= Skv``:
-    the queries are the key stream's last ``Sq`` positions (``Sq ==
+    the queries are the key stream's last ``Sq`` rows (``Sq ==
     Skv``: a whole prompt; ``Sq < Skv``: a tail over a resident prefix).
     ``tiles`` is the plan's ``(block_q, block_kv)`` (the plain version has
-    no tiles).  Where autograd records (grad mode on and q, k or v
+    no tiles).  ``positions`` ``(B, Skv)`` masks by those positions
+    instead of the row index (the kernels' positions variant on a CUDA
+    tensor).  Where autograd records (grad mode on and q, k or v
     requiring grad: the training path) the call goes through
     :class:`repro_torch.kernels.flash_attention.FlashAttention`: the
     forward and backward kernels on a CUDA tensor, the plain forward and
@@ -73,13 +77,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``torch.no_grad``) the forward alone, as before."""
     kernel = _use_kernel("flash_attention", q, mode)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _fa.FlashAttention.apply(q, k, v, causal, window, tiles)
+        return _fa.FlashAttention.apply(q, k, v, causal, window, tiles,
+                                        positions)
     if not kernel:
         return _fa.flash_attention_plain(q, k, v, causal=causal,
-                                         window=window)
+                                         window=window, positions=positions)
     bq, bkv = tiles if tiles is not None else (None, None)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               block_q=bq, block_kv=bkv)
+                               block_q=bq, block_kv=bkv, positions=positions)
 
 
 def decode_attention(q, k, v, *, cache_len, window: int = 0,
@@ -163,6 +168,8 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"flash_attention": _fa.launches,
             "flash_attention_bwd": _fa.bwd_launches,
+            "flash_attention_positions": _fa.pos_launches,
+            "flash_attention_bwd_positions": _fa.pos_bwd_launches,
             "paged_decode_attention": _dec.paged_launches,
             "decode_attention": _dec.dense_launches,
             "ssd_scan": _ssd.launches,
@@ -174,6 +181,8 @@ def reset_launch_counts() -> None:
     _fa.launches = 0
     _fa.tail_launches = 0
     _fa.bwd_launches = 0
+    _fa.pos_launches = 0
+    _fa.pos_bwd_launches = 0
     _dec.paged_launches = 0
     _dec.dense_launches = 0
     _ssd.launches = 0

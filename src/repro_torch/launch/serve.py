@@ -26,7 +26,15 @@ Two modes, as in the JAX package's launcher, on one card:
   full width (33.1 GB), from token ids (its M-RoPE streams each row's
   position), as the JAX package's engine takes them.  The encoder
   hubert-xlarge has no decode step and is refused before any plan or
-  weight.
+  weight;
+* disaggregated prefill (``--disagg N``, implies ``--from-plan``) —
+  the same plan with ``kv_prefill_mode=disagg`` forced: prefill runs on
+  N spawned worker processes behind the engine
+  (:mod:`repro_torch.serve.disagg`; the weights cross to them by CUDA
+  IPC, no second copy), chunk by chunk into the pool, with the fleet's
+  supervision counters in the telemetry printed at the end.  The
+  full-width qwen3-8b plan at ``--max-len 4096 --max-batch 8`` records
+  ``disagg`` on its own.
 
 The model is the arch's reduced config, with its published head_dim and
 GQA group (the attention kernels are instantiated for those), unless
@@ -59,6 +67,8 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve --from-plan
       PYTHONPATH=src python -m repro_torch.launch.serve \
           --arch qwen2-vl-72b --from-plan --full --n-layers 16 \
           --max-len 2048 --max-batch 8
+      PYTHONPATH=src python -m repro_torch.launch.serve --full \
+          --max-len 4096 --max-batch 8 --disagg 1
 """
 
 from __future__ import annotations
@@ -94,6 +104,10 @@ def main(argv=None) -> None:
     ap.add_argument("--profile", action="store_true",
                     help="trace the serving run with torch.profiler and "
                          "print device time by kernel and the busy share")
+    ap.add_argument("--disagg", type=int, default=0, metavar="N",
+                    help="run prefill on N supervised worker processes "
+                         "(disaggregated prefill; implies --from-plan and "
+                         "forces kv_prefill_mode=disagg)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs.base import ShapeConfig, get_arch
@@ -118,7 +132,7 @@ def main(argv=None) -> None:
     if args.n_layers:
         print(f"cut: {arch.name} n_layers {arch.n_layers} -> {args.n_layers}")
         arch = dataclasses.replace(arch, n_layers=args.n_layers)
-    if args.from_plan:
+    if args.from_plan or args.disagg:
         shape = ShapeConfig("serve", "decode", args.max_len, args.max_batch)
         plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm")
         _, heads, _, kv_heads = plan.padded_sizes()
@@ -128,8 +142,10 @@ def main(argv=None) -> None:
         check_fits(arch, plan.padded_sizes(), args.device)
         gen = torch.Generator(args.device).manual_seed(args.seed)
         params = lm.init_params(arch, gen, *plan.padded_sizes())
-        engine = ServeEngine.from_plan(plan, params, arch=arch,
-                                       seed=args.seed)
+        engine = ServeEngine.from_plan(
+            plan, params, arch=arch, seed=args.seed,
+            kv_prefill_mode="disagg" if args.disagg else None,
+            disagg_workers=args.disagg)
         print(f"plan {plan.content_hash()[:12]} target={plan.target} "
               f"kv_residency={engine.kv_residency} "
               f"kv_admission={engine.kv_admission} "
@@ -137,6 +153,7 @@ def main(argv=None) -> None:
               f"kv_prefix_reuse={engine.kv_prefix_reuse} "
               f"kv_host_blocks={engine.host_blocks} "
               f"kv_prefetch={engine.kv_prefetch} "
+              f"prefill_mode={engine.prefill_mode} "
               f"-> decode_path={engine.decode_path}")
     else:
         check_on_device(arch, args.device)
@@ -155,13 +172,18 @@ def main(argv=None) -> None:
     t0 = time.time()
     if prof is not None:
         prof.__enter__()
-    for _ in range(args.requests):
-        plen = int(rng.integers(8, args.max_len - args.new_tokens - 1))
-        engine.submit(rng.integers(0, arch.vocab_size, (plen,)),
-                      max_new_tokens=args.new_tokens)
-    done = engine.run_until_idle()
-    if engine.device.type == "cuda":
-        torch.cuda.synchronize(engine.device)
+    try:
+        for _ in range(args.requests):
+            plen = int(rng.integers(8, args.max_len - args.new_tokens - 1))
+            engine.submit(rng.integers(0, arch.vocab_size, (plen,)),
+                          max_new_tokens=args.new_tokens)
+        # disagg ticks mostly wait while the workers prefill out of
+        # process: a far larger budget than inline's deadlock watchdog
+        done = engine.run_until_idle(60000 if args.disagg else 1000)
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+    finally:
+        engine.shutdown()
     dt = time.time() - t0
     if prof is not None:
         prof.__exit__(None, None, None)

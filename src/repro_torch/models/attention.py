@@ -29,56 +29,19 @@ class AttnParams(NamedTuple):
     k_norm: Optional[torch.Tensor] = None
 
 
-#: the reference's masked score (``src/repro/models/attention.py:22``)
-NEG_INF = -1e30
-
-
 def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, mask_pos: Optional[torch.Tensor] = None,
                       **kw) -> torch.Tensor:
-    """Prefill attention (post-RoPE q/k).  Without ``mask_pos`` the
-    mask is by row index, rows ``0..S-1``:
+    """Prefill attention (post-RoPE q/k) through
     :func:`repro_torch.kernels.ops.flash_attention`, keywords and all.
+    Without ``mask_pos`` the mask is by row index, rows ``0..S-1``;
     ``mask_pos`` ``(B, S)`` masks by those positions instead, as the
     reference masks by M-RoPE's temporal stream
     (``src/repro/models/attention.py:41-55``): two rows with one id see
-    each other whatever their order.  The flash kernel masks by row
-    index only, so that mask runs the plain version
-    (:func:`attention_at_positions`) on the CPU and raises on the card
-    (the model passes ``mask_pos`` only where it is not the row index)."""
-    if mask_pos is None:
-        return ops.flash_attention(q, k, v, **kw)
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "flash_attention: the kernel masks by row index; positions whose "
-            "temporal stream is not each row's index need the position mask, "
-            "which only the plain version on the CPU takes")
-    return attention_at_positions(q, k, v, mask_pos,
-                                  causal=kw.get("causal", True),
-                                  window=kw.get("window", 0))
-
-
-def attention_at_positions(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, positions: torch.Tensor, *,
-                           causal: bool, window: int = 0) -> torch.Tensor:
-    """Attention masked by ``positions`` ``(B, S)`` (query and key ids
-    alike), in plain PyTorch: the reference's ``attention_chunked`` with
-    ``positions`` (fp32 scores and softmax, masked scores at
-    :data:`NEG_INF`), differentiable by autograd."""
-    B, S, H, D = q.shape
-    K = k.shape[2]
-    s = torch.einsum("bqkgd,bskd->bkgqs",
-                     q.reshape(B, S, K, H // K, D).float(),
-                     k.float()) * (D ** -0.5)
-    diff = positions[:, :, None] - positions[:, None, :]   # (B, S, S)
-    ok = torch.ones_like(diff, dtype=torch.bool)
-    if causal:
-        ok &= diff >= 0
-    if window > 0:
-        ok &= diff < window
-    p = torch.softmax(torch.where(ok[:, None, None], s, NEG_INF), dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, S, H, D).to(q.dtype)
+    each other whatever their order.  On the card that is the flash
+    kernels' positions variant (the model passes ``mask_pos`` only where
+    it is not the row index, so the index path runs as it did)."""
+    return ops.flash_attention(q, k, v, positions=mask_pos, **kw)
 
 
 def attention_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -875,14 +875,39 @@ def prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg,
     K/V ``(L, B, T, K, hd)`` for the caller to scatter into fresh blocks.
     Raises for an arch with an SSM: its state at position ``M`` depends
     on every earlier token, so the prefix compute cannot be skipped."""
+    ids = prefix_blocks.long().to(k_pool.device)
+    B, nbm = ids.shape
+    M, K = nbm * k_pool.shape[2], k_pool.shape[3]
+
+    def rows(i):
+        return (k_pool[i][ids].reshape(B, M, K, arch.hd),
+                v_pool[i][ids].reshape(B, M, K, arch.hd))
+
+    return _prefill_tail(arch, params, batch, cfg, M, rows)
+
+
+def prefill_tail_rows(arch: ArchConfig, params, batch, cfg: RunCfg,
+                      prefix_k: torch.Tensor, prefix_v: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`prefill_tail` with the prefix rows given as they are,
+    ``prefix_k`` / ``prefix_v`` ``(L, B, M, K, hd)`` (the reference's
+    ``prefill_tail`` signature, ``src/repro/models/lm.py:882``), not
+    gathered from a pool."""
+    return _prefill_tail(arch, params, batch, cfg, prefix_k.shape[2],
+                         lambda i: (prefix_k[i], prefix_v[i]))
+
+
+def _prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg, M: int,
+                  prefix_rows) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The tail prefill over ``M`` prefix rows, layer ``i``'s ``(B, M, K,
+    hd)`` k and v from ``prefix_rows(i)``."""
     if arch.has_ssm:
         raise ValueError(
             f"prefill_tail cannot skip prefix compute for {arch.name}: "
             "SSM state at the split point depends on the whole prefix")
     x, _, _ = _embed_in(arch, params, batch)
     B, T = x.shape[:2]
-    ids = prefix_blocks.long().to(x.device)
-    M = ids.shape[1] * k_pool.shape[2]
     positions = (M + torch.arange(T, device=x.device)).expand(B, T)
     if arch.mrope_sections is not None:
         positions = positions.expand(3, B, T)
@@ -896,8 +921,7 @@ def prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg,
         grp = layer_params(blocks, i)
         h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
         ap, (q, k, v) = _qkv(arch, grp, h, positions)
-        pk = k_pool[i][ids].reshape(B, M, K, arch.hd)
-        pv = v_pool[i][ids].reshape(B, M, K, arch.hd)
+        pk, pv = prefix_rows(i)
         ctx = attn_mod.attention_tail(
             q, torch.cat([pk.to(k.dtype), k], 1),
             torch.cat([pv.to(v.dtype), v], 1), causal=arch.causal,
@@ -908,6 +932,76 @@ def prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg,
         tail_v[i] = v
     x = rms_norm(x[:, -1:], params["final_norm"], arch.norm_eps)
     return _logits(arch, params, x)[:, 0], tail_k, tail_v
+
+
+def prefill_chunked(arch: ArchConfig, params, tokens, chunk: int,
+                    cfg: RunCfg, kv_heads: int = 0,
+                    prefix_k: Optional[torch.Tensor] = None,
+                    prefix_v: Optional[torch.Tensor] = None,
+                    on_chunk=None
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                               List[torch.Tensor]]:
+    """Block-native chunked prefill of ONE prompt
+    (``src/repro/models/lm.py:970``): no dense ``(B, plen)`` prefill.
+
+    ``tokens`` ``(T,)`` is the feed past any prefix already in hand;
+    ``prefix_k`` / ``prefix_v`` ``(L, M, K, hd)`` are the rows of its
+    first ``M`` tokens (``None``: a fresh prompt).  The tail runs in
+    ``chunk``-sized slices, each a :func:`prefill_tail_rows` call over
+    the rows so far (on the card, the flash kernel at a query offset),
+    so every slice comes out pool-block-shaped.  ``on_chunk(block_idx,
+    k_c, v_c)`` fires after each slice with its ``(L, t, K, hd)`` rows
+    (``block_idx`` counts from the start of the feed, prefix included):
+    the disaggregated-prefill worker streams them home between
+    heartbeats.
+
+    Returns ``(last-token logits (V,), ks, vs)``, the per-chunk row
+    lists.  Refused as the reference refuses: an arch with an SSM (its
+    state is sequential across the whole prompt), ``chunk < 1``, an
+    empty tail, a prefix that is not a whole number of chunks."""
+    if arch.has_ssm:
+        raise ValueError(
+            f"prefill_chunked needs pure-attention KV for {arch.name}: "
+            "SSM state is sequential across the whole prompt")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    device = params["embed"].device
+    tokens = torch.as_tensor(tokens).to(device=device, dtype=torch.int32)
+    (T,) = tokens.shape
+    if T < 1:
+        raise ValueError("prefill_chunked needs at least one tail token")
+    L = arch.n_layers
+    K = kv_heads or cache_heads(arch, params["blocks"])["kv_heads"]
+    M = 0 if prefix_k is None else prefix_k.shape[1]
+    if M % chunk:
+        raise ValueError(f"prefix length {M} not block-aligned to {chunk}")
+    # the rows so far, prefix then each slice's, in one buffer: a slice
+    # attends over a view of its first rows (no re-concatenation a chunk)
+    bufs = []
+    for pre in (prefix_k, prefix_v):
+        buf = torch.empty((L, 1, M + T, K, arch.hd), dtype=torch.bfloat16,
+                          device=device)
+        if M:
+            buf[:, 0, :M] = pre.to(device=device, dtype=torch.bfloat16)
+        bufs.append(buf)
+    kbuf, vbuf = bufs
+    ks: List[torch.Tensor] = []
+    vs: List[torch.Tensor] = []
+    logits = None
+    for i in range(0, T, chunk):
+        tok = tokens[None, i:i + chunk]                     # (1, t)
+        n = M + i
+        logits, tk, tv = prefill_tail_rows(
+            arch, params, {"tokens": tok}, cfg, kbuf[:, :, :n],
+            vbuf[:, :, :n])
+        t = tk.shape[2]
+        kbuf[:, :, n:n + t] = tk
+        vbuf[:, :, n:n + t] = tv
+        ks.append(kbuf[:, 0, n:n + t])                      # (L, t, K, hd)
+        vs.append(vbuf[:, 0, n:n + t])
+        if on_chunk is not None:
+            on_chunk(n // chunk, ks[-1], vs[-1])
+    return logits[0], ks, vs
 
 
 def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],

@@ -1,4 +1,7 @@
-from repro_torch.runtime.fault import RestartPolicy
+from repro_torch.runtime.fault import (DeviceGrid, HealthMonitor,
+                                       RestartPolicy, StepGuard,
+                                       elastic_mesh)
 from repro_torch.runtime.straggler import DeadlineSkipper, StepTimer
 
-__all__ = ["DeadlineSkipper", "RestartPolicy", "StepTimer"]
+__all__ = ["DeadlineSkipper", "DeviceGrid", "HealthMonitor", "RestartPolicy",
+           "StepGuard", "StepTimer", "elastic_mesh"]

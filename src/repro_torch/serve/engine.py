@@ -67,9 +67,22 @@ on a spilled block promotes it back.  Spill and promote are synchronous
 copies: a spill reads rows from ids already back on the free list, safe
 because the copy ends before any next tenant writes.
 
-What the port does not have yet: disaggregated prefill workers (a plan
-that says ``disagg`` with no workers stays inline, as in the JAX engine)
-and meshes.
+When the plan says ``kv_prefill_mode: disagg`` and the caller asks for
+workers (``from_plan(..., disagg_workers=N)``), prefill runs out of
+process, in a supervised fleet of spawned workers
+(:mod:`repro_torch.serve.disagg`): admission reserves a slot and its
+blocks and dispatches the feed; each ``block_len`` chunk the worker
+streams home is scattered into its pool block, and the count of whole
+chunks scattered in order is the request's **journal**
+(:class:`_DisaggFlight`); when the worker's last-token logits arrive the
+table row is installed and the first token sampled, as an inline
+prefill would.  A worker death re-dispatches the request from its last
+journaled block (the journaled rows gathered back out of the pool are
+the resume prefix); when every worker slot has spent its restart
+budget the engine degrades to in-process prefill under a typed
+:class:`~repro_torch.serve.disagg.DegradedMode`.  Disagg needs paged
+residency and a pure-attention arch; otherwise, and with no workers,
+prefill stays inline, as in the JAX engine.  The port has no meshes.
 
 State lives in torch tensors on the device of the parameters; the
 cache, the block table and ``pos`` are updated in place.  Sampling
@@ -134,6 +147,22 @@ class Request:
             return self.prompt
         return np.concatenate(
             [self.prompt, np.asarray(self.out_tokens[:-1], np.int32)])
+
+
+@dataclasses.dataclass
+class _DisaggFlight:
+    """A request whose prefill is out at the worker fleet.  It owns a
+    slot and its admission blocks, but its table row stays -1 until
+    completion (the freed-slot dummy decode must never append into a
+    half-written block).  ``acked`` counts the whole blocks scattered
+    into the pool in order: the idempotent journal a re-dispatch resumes
+    from after a worker death."""
+
+    request: Request
+    slot: int
+    group: int
+    nb_feed: int                   # ceil(feed length / block_len)
+    acked: int = 0
 
 
 @dataclasses.dataclass
@@ -340,7 +369,18 @@ class ServeEngine:
         # host ms spent in the tier copies (spill: device -> host, waited
         # for; promote: host -> device, enqueued behind its copy; stage:
         # host pool -> pinned buffer, and the side stream's copy enqueued)
-        self.tier_ms = {"spill": 0.0, "promote": 0.0, "stage": 0.0}
+        # and in the disagg chunks' scatter (host rows -> pool blocks)
+        self.tier_ms = {"spill": 0.0, "promote": 0.0, "stage": 0.0,
+                        "disagg_chunk": 0.0}
+        # disaggregated prefill (attach_fleet() turns it on)
+        self._fleet = None
+        self._disagg: Dict[int, _DisaggFlight] = {}
+        self._redispatch: List[int] = []
+        self._inline_poison: set = set()   # rids whose worker prefill raised
+        self.degraded = None               # disagg.DegradedMode once degraded
+        self.disagg_dispatches = 0
+        self.disagg_chunks = 0
+        self.disagg_resumes = 0
 
     # ------------------------------------------------------------------
     @classmethod
@@ -352,17 +392,25 @@ class ServeEngine:
                   kv_host_blocks: Optional[int] = None,
                   kv_prefetch: Optional[str] = None,
                   preemption: Optional[PreemptionPolicy] = None,
-                  kv_prefill_mode: Optional[str] = None) -> "ServeEngine":
+                  kv_prefill_mode: Optional[str] = None,
+                  disagg_workers: int = 0,
+                  disagg_opts: Optional[Dict[str, Any]] = None,
+                  fleet=None) -> "ServeEngine":
         """Build an engine from the frozen plan artifact.
 
         The plan supplies the RunCfg (padded sizes, kernel tiles, kernel
         mode), the KV residency and pool geometry, the admission mode
         (``grant`` walks the grant → migrate → preempt ladder), the
         batching limits (the workload dims carried in the artifact),
-        prefix reuse, the host spill tier and the prefetch;
-        ``max_batch``/``max_len`` may lower the limits, never raise them,
-        and the ``kv_*`` keywords override plan decisions as in the JAX
-        engine.  A mesh raises :class:`NotImplementedError`.
+        prefix reuse, the host spill tier, the prefetch and the prefill
+        mode; ``max_batch``/``max_len`` may lower the limits, never raise
+        them, and the ``kv_*`` keywords override plan decisions as in the
+        JAX engine.  Where the prefill mode is ``disagg`` and the engine
+        is paged over a pure-attention arch, ``disagg_workers`` > 0
+        spawns a :class:`repro_torch.serve.disagg.PrefillFleet` of that
+        many workers (keywords ``disagg_opts``), or ``fleet`` attaches a
+        given one; otherwise prefill stays inline.  A mesh raises
+        :class:`NotImplementedError`.
         """
         from repro_torch.core.passes.lowering import build_run_cfg
         if mesh is not None or any(int(n) > 1 for n in plan.mesh_shape):
@@ -414,10 +462,56 @@ class ServeEngine:
                   kv_prefetch=str(pick(kv_prefetch, "kv_prefetch", "on")),
                   preemption=preemption)
         eng.plan = plan
-        # kv_prefill_mode: a plan (or override) that says disagg has no
-        # worker fleet here, so prefill stays inline — exactly what the
-        # JAX engine does when it is given no workers
+        # disaggregated prefill: the plan's kv_prefill_mode (or the
+        # override), a fleet when workers are asked for; anything else
+        # keeps the inline path, as the pass's own fallback does
+        if str(pick(kv_prefill_mode, "kv_prefill_mode", "inline")) \
+                == "disagg":
+            if fleet is None and disagg_workers > 0 \
+                    and eng.kv_residency == "paged" \
+                    and arch.has_attention and not arch.has_ssm:
+                from repro_torch.serve.disagg import PrefillFleet
+                fleet = PrefillFleet(
+                    plan, arch, params, disagg_workers,
+                    block_len=eng.block_len, kv_heads=cfg.kv_heads_padded,
+                    **(disagg_opts or {}))
+            if fleet is not None:
+                eng.attach_fleet(fleet)
         return eng
+
+    # ---------------- disaggregated prefill ---------------------------
+    @property
+    def prefill_mode(self) -> str:
+        """``"disagg"`` while a fleet serves, ``"degraded"`` after it
+        spent its restart budget (prefill back in-process), ``"inline"``
+        otherwise."""
+        if self.degraded is not None:
+            return "degraded"
+        return self.kv_prefill_mode
+
+    def attach_fleet(self, fleet) -> None:
+        """Switch prefill to disaggregated mode through ``fleet`` (a
+        :class:`repro_torch.serve.disagg.PrefillFleet`).  Refused as the
+        JAX engine refuses: chunked prefill needs the paged pool to
+        scatter into and pure-attention KV to chunk."""
+        if self.kv_residency != "paged":
+            raise ValueError(
+                "disaggregated prefill streams pool-block-shaped KV "
+                "chunks — a dense-residency engine has no block pool "
+                "to scatter them into")
+        if not self.arch.has_attention or self.arch.has_ssm:
+            raise ValueError(
+                f"disaggregated prefill needs pure-attention KV; "
+                f"{self.arch.name} carries SSM state that is sequential "
+                "across the whole prompt")
+        self._fleet = fleet
+        self.kv_prefill_mode = "disagg"
+
+    def shutdown(self) -> None:
+        """Stop the prefill fleet (if any) and reap its workers.
+        Idempotent."""
+        if self._fleet is not None:
+            self._fleet.shutdown()
 
     # ------------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
@@ -492,8 +586,8 @@ class ServeEngine:
 
     def pressure_stats(self) -> Dict[str, Any]:
         """The JAX engine's pressure telemetry, key for key (the ladder,
-        the prefix counters, the tier's spills and promotes; the disagg
-        counters stay 0 / ``None`` on an inline engine), and the port's
+        the prefix counters, the tier's spills and promotes, the prefill
+        mode and the disagg counters and degraded record), and the port's
         ladder outcomes: parks with state, resumes (by promote), and the
         prefetches staged and consumed."""
         pc = self._prefix
@@ -515,12 +609,13 @@ class ServeEngine:
                 "spills": self._alloc.spills,
                 "promotes": self._alloc.promotes,
                 "cached_blocks": len(self._cached),
-                "prefill_mode": self.kv_prefill_mode,
-                "degraded": None,
-                "disagg_dispatches": 0,
-                "disagg_chunks": 0,
-                "disagg_resumes": 0,
-                "disagg_inflight": 0,
+                "prefill_mode": self.prefill_mode,
+                "degraded": (self.degraded.to_json()
+                             if self.degraded is not None else None),
+                "disagg_dispatches": self.disagg_dispatches,
+                "disagg_chunks": self.disagg_chunks,
+                "disagg_resumes": self.disagg_resumes,
+                "disagg_inflight": len(self._disagg),
                 "parks_with_state": self.parks_with_state,
                 "resumes": self.resumes,
                 "resumes_by_promote": self.resumes_by_promote,
@@ -540,25 +635,32 @@ class ServeEngine:
         return f"{kernel}:{'cuda' if on_card else 'plain'}"
 
     def telemetry(self) -> Dict[str, Any]:
-        """One JSON-serializable snapshot of the engine."""
+        """One JSON-serializable snapshot of the engine (in disagg mode
+        with the fleet's supervision counters)."""
+        fleet = self._fleet.stats() if self._fleet is not None else None
         return {
             "tick": self.tick,
             "decode_path": self.decode_path,
             "kv_residency": self.kv_residency,
             "kv_admission": self.kv_admission,
-            "prefill_mode": self.kv_prefill_mode,
+            "prefill_mode": self.prefill_mode,
             "requests": {"pending": len(self.pending),
                          "active": len(self.active),
                          "finished": len(self.finished),
                          "shed": len(self.shed),
-                         "parked": len(self.preempted)},
+                         "parked": len(self.preempted),
+                         "disagg_inflight": len(self._disagg)},
             "kv_prefix_reuse": self.kv_prefix_reuse,
             "kv_host_blocks": self.host_blocks,
             "kv_prefetch": self.kv_prefetch,
             "prefill": {"calls": self.prefill_calls,
                         "batches": [int(b) for b in
                                     list(self.prefill_batches)[-32:]],
-                        "rides": self.prefix_rides},
+                        "rides": self.prefix_rides,
+                        "disagg": {"dispatches": self.disagg_dispatches,
+                                   "chunks": self.disagg_chunks,
+                                   "resumes": self.disagg_resumes,
+                                   "fleet": fleet}},
             "blocks": {k: int(v) for k, v in self.block_stats().items()},
             "pressure": self.pressure_stats(),
             "tier_ms": dict(self.tier_ms),
@@ -841,7 +943,11 @@ class ServeEngine:
         the head request, cold cached blocks spill to the host tier and
         the placement is retried once; then admission waits for a
         finisher (head-of-line blocking, so exhaustion delays rather than
-        starves)."""
+        starves).  In disagg mode admission goes through
+        :meth:`_admit_disagg` instead."""
+        if self._fleet is not None and self.prefill_mode == "disagg":
+            self._admit_disagg()
+            return
         self._promo_map.clear()        # the promoted-id map is per pass
         while self.pending and self.free_slots:
             head = self.pending[0]
@@ -894,6 +1000,250 @@ class ServeEngine:
             matches = [self._promote_matched(m, self._slot_group(s))
                        for m, s in zip(matches, slots)]
             self._admit_group(group, slots, matches, infos, key0)
+
+    # ---------------- disaggregated prefill paths ---------------------
+    def _admit_disagg(self) -> None:
+        """Head-of-line admission in disagg mode
+        (``src/repro/serve/engine.py:1173``): a feed that rides still
+        rides inline (no prefill either way); every other reserves a slot
+        and its whole admission budget and is dispatched to the fleet.
+        A partial prefix match is not aliased on this path: the worker
+        computes the whole feed and the trie indexes the finished blocks
+        at completion."""
+        self._promo_map.clear()
+        while self.pending and self.free_slots:
+            head = self.pending[0]
+            info = self._match_info(head)
+            avail = list(self.free_slots)
+            s_alias = self._place(head, avail, self._free_by_group(), info)
+            if s_alias is not None and self._can_ride(
+                    head, self._match_for(head, info,
+                                          self._slot_group(s_alias))):
+                self.pending.pop(0)
+                self.free_slots.remove(s_alias)
+                self._admit_ride(head, s_alias, info)
+                continue
+            s0 = self._place(head, list(self.free_slots),
+                             self._free_by_group(), None)
+            if s0 is None and self.kv_tiering and self._cached:
+                # the tier rung: spill cold cached blocks, retry once
+                need0 = self._admission_blocks(head)
+                for g in range(self.pool_groups):
+                    short = need0 - self._alloc.free_in(g)
+                    if short > 0:
+                        self._spill_cold(g, short)
+                s0 = self._place(head, list(self.free_slots),
+                                 self._free_by_group(), None)
+            if s0 is None:
+                return             # pool exhausted: wait for frees
+            if head.rid in self._inline_poison:
+                # this rid's worker prefill raised: run it in-process
+                self.pending.pop(0)
+                self.free_slots.remove(s0)
+                self._admit_group([head], [s0], [[]], [None],
+                                  (0, len(head.feed_tokens)))
+                continue
+            if not self._dispatch_prefill(head, s0):
+                return             # no live worker (a respawn in flight)
+            self.pending.pop(0)
+            self.free_slots.remove(s0)
+
+    def _dispatch_prefill(self, r: Request, slot: int,
+                          start_block: int = 0,
+                          flight: Optional[_DisaggFlight] = None) -> bool:
+        """Ship ``r``'s feed to the fleet.  A fresh dispatch draws the
+        admission blocks first (the journal's scatter target); a
+        re-dispatch (``flight`` set) keeps them and gathers the journaled
+        blocks' rows back out of the pool as the worker's resume prefix
+        (the rows a whole prefill would have computed)."""
+        g = self._slot_group(slot)
+        fresh = flight is None
+        if fresh:
+            blocks = self._alloc.allocate(self._admission_blocks(r), g)
+            if blocks is None:
+                return False       # placement said yes; lost the race
+            r.blocks = blocks
+        pk = pv = None
+        if start_block:
+            ids = self._ids(r.blocks[:start_block])
+            m = start_block * self.block_len
+            pk, pv = (lm.gather_blocks(self.cache[key], ids).reshape(
+                self.cache[key].shape[0], m, *self.cache[key].shape[3:])
+                for key in ("k", "v"))
+        feed = r.feed_tokens
+        ok = self._fleet.dispatch(r.rid, feed[start_block * self.block_len:],
+                                  prefix_k=pk, prefix_v=pv)
+        if not ok:
+            if fresh and r.blocks:
+                self._release_blocks(r.blocks)
+                r.blocks = []
+            return False
+        if fresh:
+            r.slot = int(slot)
+            self._disagg[r.rid] = _DisaggFlight(
+                request=r, slot=slot, group=g,
+                nb_feed=-(-len(feed) // self.block_len))
+        elif start_block:
+            self.disagg_resumes += 1
+        self.disagg_dispatches += 1
+        return True
+
+    def _on_chunk(self, fl: _DisaggFlight, idx: int, k_rows: torch.Tensor,
+                  v_rows: torch.Tensor) -> None:
+        """Scatter one streamed pool-block-shaped slab (host ``(L, t, K,
+        hd)`` rows) into its pool block and advance the journal.  A chunk
+        re-sent after a re-dispatch overwrites equal rows (same chunks,
+        same deterministic kernels): idempotent.  A request with no
+        blocks (satisfied by the prefill sample) needs only the logits,
+        so its chunks drop."""
+        r = fl.request
+        if not r.blocks or idx >= len(r.blocks) or idx > fl.acked:
+            return
+        t0 = time.perf_counter()
+        t = k_rows.shape[1]
+        bid = self._ids([r.blocks[idx]])
+        for key, rows in (("k", k_rows), ("v", v_rows)):
+            rows = rows.to(self.device, non_blocking=True)
+            if t < self.block_len:
+                # a partial last block: zero rows past the feed (slot_len
+                # masks them, as the inline scatter's clamped rows)
+                rows = torch.nn.functional.pad(
+                    rows, (0, 0, 0, 0, 0, self.block_len - t))
+            lm.scatter_blocks(self.cache[key], bid, rows[:, None])
+        self.tier_ms["disagg_chunk"] += (time.perf_counter() - t0) * 1e3
+        self.disagg_chunks += 1
+        if t == self.block_len and idx == fl.acked:
+            fl.acked = idx + 1
+
+    def _complete_prefill(self, fl: _DisaggFlight,
+                          logits: torch.Tensor) -> None:
+        """A worker finished a prompt: install the table row, activate the
+        slot, and (for a fresh request) sample the first token from the
+        streamed logits, as the inline prefill would."""
+        r, slot = fl.request, fl.slot
+        del self._disagg[r.rid]
+        if r.rid in self._redispatch:
+            self._redispatch.remove(r.rid)
+        self.prefill_calls += 1
+        self.prefill_batches.append(1)
+        if r.blocks:
+            self._table_row(slot, r.blocks)
+        if not r.out_tokens:
+            tok = self._sample(logits.to(self.device)[None],
+                               [r.temperature])[0]
+            r.out_tokens.append(tok)
+            r.t_first = time.time()
+            if len(r.out_tokens) >= r.max_new_tokens:
+                r.done = True
+                r.t_done = r.t_first
+                self.finished.append(r)
+                self._release_slot(slot, r)
+                return
+        # a resumed re-prefill keeps its tokens: the sample these logits
+        # would give is already on the request
+        self.slot_len[slot] = len(r.feed_tokens)
+        r.slot = int(slot)
+        self.active[slot] = r
+        if self._prefix is not None and r.blocks:
+            hashes = chain_hashes(r.feed_tokens, self.block_len)
+            r.prefix_hashes = list(hashes)
+            self._prefix.insert(hashes, r.blocks[:len(hashes)], fl.group)
+            self._prefix.misses += 1
+
+    def _abort_flight(self, fl: _DisaggFlight) -> None:
+        """Retire a flight: journal dropped, blocks released, slot
+        returned; the fleet-side cancel drops any late chunk of a worker
+        still running it."""
+        r = fl.request
+        self._disagg.pop(r.rid, None)
+        if r.rid in self._redispatch:
+            self._redispatch.remove(r.rid)
+        if self._fleet is not None:
+            self._fleet.cancel(r.rid)
+        if r.blocks:
+            self._release_blocks(r.blocks)
+            r.blocks = []
+        r.slot = -1
+        self.free_slots.append(fl.slot)
+        self.slot_len[fl.slot] = 0
+        fl.acked = 0
+
+    def _on_worker_error(self, rid: int, err: str) -> None:
+        """A worker's prefill *raised* for this request (a poison input,
+        not a death): re-dispatching would loop, so the flight aborts and
+        the request re-queues marked inline-only."""
+        fl = self._disagg.get(rid)
+        if fl is None:
+            return
+        self._abort_flight(fl)
+        self._inline_poison.add(rid)
+        self.pending.insert(0, fl.request)
+
+    def _shed_expired_flights(self) -> None:
+        """A request whose deadline passes mid-prefill sheds as a pending
+        one does: blocks released, ``Request.error`` set."""
+        if not any(fl.request.deadline is not None
+                   for fl in self._disagg.values()):
+            return
+        now = time.time()
+        for fl in list(self._disagg.values()):
+            r = fl.request
+            if r.deadline is not None and now > r.deadline:
+                self._abort_flight(fl)
+                self._shed(r, f"deadline missed during disagg prefill "
+                              f"(tick {self.tick})")
+
+    def _enter_degraded(self) -> None:
+        """Every fleet slot retired past its restart budget: prefill goes
+        back in-process under a typed ``DegradedMode``, and the orphaned
+        flights re-queue at the front of the pending queue, oldest first
+        (greedy decoding gives the same tokens: the inline prefill
+        rebuilds the KV the workers would have streamed)."""
+        if self.degraded is not None:
+            return
+        self.degraded = dataclasses.replace(self._fleet.degraded,
+                                            at_tick=self.tick)
+        for rid in sorted(self._disagg, reverse=True):
+            fl = self._disagg[rid]
+            self._abort_flight(fl)
+            self.pending.insert(0, fl.request)
+        self._redispatch = []
+        self._fleet.shutdown()
+
+    def _poll_disagg(self) -> None:
+        """Drain the fleet's events: scatter chunks, complete prefills,
+        queue re-dispatches for the rids a death orphaned, degrade when
+        the whole fleet has retired; then retry the queued re-dispatches,
+        each resuming at its last journaled block (never past the feed's
+        last block, so the worker has a tail token to take the logits
+        from)."""
+        if self._fleet is None or self.degraded is not None:
+            return
+        for ev in self._fleet.poll():
+            kind, fl = ev[0], self._disagg.get(ev[1])
+            if kind == "chunk" and fl is not None:
+                self._on_chunk(fl, ev[2], ev[3], ev[4])
+            elif kind == "done" and fl is not None:
+                self._complete_prefill(fl, ev[2])
+            elif kind == "dead" and fl is not None \
+                    and ev[1] not in self._redispatch:
+                self._redispatch.append(ev[1])
+            elif kind == "error":
+                self._on_worker_error(ev[1], ev[2])
+        if self._fleet.degraded is not None:
+            self._enter_degraded()
+            return
+        still: List[int] = []
+        for rid in self._redispatch:
+            fl = self._disagg.get(rid)
+            if fl is None:
+                continue
+            start = (min(fl.acked, fl.nb_feed - 1) if fl.request.blocks
+                     else 0)
+            if not self._dispatch_prefill(fl.request, fl.slot,
+                                          start_block=start, flight=fl):
+                still.append(rid)
+        self._redispatch = still
 
     def _table_row(self, slot: int, blocks: List[int]) -> None:
         """Install one slot's table row (-1 past its blocks)."""
@@ -1579,13 +1929,19 @@ class ServeEngine:
             # a new low-water epoch once a window: one transient dip must
             # not read as a hot sub-pool forever
             self._alloc.reset_low_water()
+        self._poll_disagg()
         self._shed_expired_pending()
+        self._shed_expired_flights()
         self._readmit_preempted()
         self._admit()
         self._ensure_grants()
         self._ensure_writable()
         self._stage_prefetch()
         if not self.active:
+            if self._disagg:
+                # only flights in play: the workers compute out of
+                # process; do not spin the tick counter meanwhile
+                time.sleep(0.01)
             self._observe_tick(t0)
             return 0
         self._sync_pos()
@@ -1638,20 +1994,22 @@ class ServeEngine:
             self.cache["block_tbl"][slot] = -1
 
     def run_until_idle(self, max_ticks: int = 1000) -> List[Request]:
-        """Tick until no live work remains (parked evictions count as
-        live); raises :class:`TimeoutError` naming the stuck request ids
-        past ``max_ticks``."""
+        """Tick until no live work remains (parked evictions and flights
+        at the prefill fleet count as live); raises :class:`TimeoutError`
+        naming the stuck request ids past ``max_ticks``."""
         ticks = 0
-        while self.pending or self.active or self.preempted:
+        while self.pending or self.active or self.preempted or self._disagg:
             if ticks >= max_ticks:
                 stuck = sorted([r.rid for r in self.pending]
                                + [r.rid for r in self.active.values()]
-                               + [p.request.rid for p in self.preempted])
+                               + [p.request.rid for p in self.preempted]
+                               + list(self._disagg))
                 raise TimeoutError(
                     f"run_until_idle: {len(stuck)} request(s) still live "
                     f"after {max_ticks} ticks (pending={len(self.pending)} "
                     f"active={len(self.active)} "
-                    f"preempted={len(self.preempted)}): rids {stuck}")
+                    f"preempted={len(self.preempted)} "
+                    f"disagg={len(self._disagg)}): rids {stuck}")
             self.step()
             ticks += 1
         return self.finished

@@ -62,6 +62,7 @@ dropped; two N tiles swapped) must fail that check by 5x.
 """
 
 import dataclasses
+import time
 
 import pytest
 import torch
@@ -589,6 +590,8 @@ def test_wrappers_count_launches_and_refuse_what_the_kernels_do_not_take(dev):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 1,
                                    "flash_attention_bwd": 0,
+                                   "flash_attention_positions": 0,
+                                   "flash_attention_bwd_positions": 0,
                                    "paged_decode_attention": 1,
                                    "decode_attention": 1, "ssd_scan": 0,
                                    "ssd_scan_bwd": 0, "tiled_matmul": 0}
@@ -1729,3 +1732,139 @@ def test_family_train_step_on_card_matches_cpu(dev, tmp_path, name):
     assert counts["ssd_scan"] == counts["ssd_scan_bwd"] == L_ssm
     for key in ("loss", "grad_norm"):
         assert abs(hg[key] - hc[key]) <= 2e-2 * abs(hc[key])
+
+
+# ---------------------------------------------------------------------
+# masks by positions (the flash kernels' positions variant)
+# ---------------------------------------------------------------------
+
+def _vl_positions(dev, B, S, image=(64, 200)):
+    """Temporal positions laid out as Qwen2-VL's ``get_rope_index`` lays
+    out a prompt with one image: text, ``image[1]`` patches sharing one
+    id from row ``image[0]``, text resuming past the grid's extent."""
+    start, n = image
+    pos = torch.arange(S, dtype=torch.int32)
+    pos[start:start + n] = start
+    pos[start + n:] = start + 16 + torch.arange(S - start - n,
+                                                dtype=torch.int32)
+    return pos.expand(B, S).contiguous().to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Sq,Hq,Kv,window", [
+    (2, 512, 512, 64, 8, 0),       # qwen2-vl's heads: G = 8
+    (1, 700, 700, H, K, 0),        # ragged, G = 4
+    (2, 600, 450, H, K, 0),        # a tail at an offset, from inside
+                                   # the image
+    (1, 512, 512, H, K, 100),      # with a window
+])
+def test_flash_positions_match_plain_and_the_index_fault_fails(
+        dev, B, S, Sq, Hq, Kv, window):
+    g = torch.Generator(dev).manual_seed(S + Sq)
+    q, k, v = _rnd(g, B, Sq, Hq, D), _rnd(g, B, S, Kv, D), _rnd(g, B, S, Kv, D)
+    pos = _vl_positions(dev, B, S)
+    want = tfa.flash_attention_plain(q, k, v, window=window, positions=pos)
+    got = tfa.flash_attention(q, k, v, window=window, positions=pos)
+    assert _rel_err(got, want) <= FLASH_TOL
+    bad = tfa.flash_attention(q, k, v, window=window, positions=pos,
+                              ignore_positions=True)
+    assert _rel_err(bad, want) > 10 * FLASH_TOL
+    rows = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    assert torch.equal(tfa.flash_attention(q, k, v, window=window,
+                                           positions=rows),
+                       tfa.flash_attention(q, k, v, window=window))
+    # rows in any order: a permutation of the positions
+    perm = torch.randperm(S, generator=g, device=dev).to(torch.int32)
+    perm = perm.expand(B, S).contiguous()
+    assert _rel_err(
+        tfa.flash_attention(q, k, v, window=window, positions=perm),
+        tfa.flash_attention_plain(q, k, v, window=window,
+                                  positions=perm)) <= FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Kv", [(1, 1024, 64, 8), (2, 333, H, K)])
+def test_flash_bwd_positions_match_plain_and_the_index_fault_fails(
+        dev, B, S, Hq, Kv):
+    g = torch.Generator(dev).manual_seed(S)
+    q, k, v, do = (_rnd(g, B, S, Hq, D), _rnd(g, B, S, Kv, D),
+                   _rnd(g, B, S, Kv, D), _rnd(g, B, S, Hq, D))
+    pos = _vl_positions(dev, B, S)
+    o, lse = tfa.flash_attention(q, k, v, positions=pos, return_lse=True)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, positions=pos)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, positions=pos)
+    for a, b in zip(got, want):
+        assert _grad_rel_err(a, b) <= BWD_TOL
+    bad = tfa.flash_attention_bwd(q, k, v, o, lse, do, positions=pos,
+                                  ignore_positions=True)
+    assert max(_grad_rel_err(a, b) for a, b in zip(bad, want)) > 5 * BWD_TOL
+    rows = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    oi, li = tfa.flash_attention(q, k, v, return_lse=True)
+    assert all(torch.equal(a, b) for a, b in zip(
+        tfa.flash_attention_bwd(q, k, v, oi, li, do, positions=rows),
+        tfa.flash_attention_bwd(q, k, v, oi, li, do)))
+    ops.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, positions=pos)
+    torch.autograd.grad(out, leaves, do)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_positions"] == 1
+    assert counts["flash_attention_bwd_positions"] == 1
+
+
+# ---------------------------------------------------------------------
+# disaggregated prefill on the card
+# ---------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_disagg_fleet_kill_resumes_bitwise(dev):
+    """A one-worker fleet on reduced qwen3-8b (the weights mapped by
+    CUDA IPC): a run whose worker is SIGKILLed after a journaled chunk
+    resumes from the journal and gives the un-killed run's tokens and
+    prompt rows bitwise; every worker is reaped."""
+    import numpy as np
+
+    full = get_arch("qwen3-8b")     # reduced, at the kernels' head_dim
+    arch = dataclasses.replace(full.reduced(), head_dim=full.hd)
+    plan = specialize(arch, ShapeConfig("serve_disagg_t", "decode", 256, 2),
+                      mesh_shape=(1, 1))
+    params = lm.init_params(arch, torch.Generator(dev).manual_seed(0),
+                            *plan.padded_sizes())
+    bl = int(plan.estimates["kv_block_len"])
+    p = (np.arange(5 * bl + 3, dtype=np.int32) * 7 + 3) % arch.vocab_size
+    opts = dict(heartbeat_s=0.2, backoff_base_s=0.05, backoff_cap_s=0.2,
+                chunk_delay_s=0.2, hello_timeout_s=300.0)
+
+    def run(kill):
+        eng = ServeEngine.from_plan(plan, params, arch=arch,
+                                    kv_prefill_mode="disagg",
+                                    disagg_workers=1, disagg_opts=opts)
+        rows = {}
+        try:
+            rid = eng.submit(p, max_new_tokens=6)
+            killed, t0 = False, time.time()
+            while (eng.pending or eng.active or eng._disagg) \
+                    and time.time() - t0 < 300:
+                eng.step()
+                fl = eng._disagg.get(rid)
+                if kill and not killed and fl is not None \
+                        and 1 <= fl.acked < fl.nb_feed:
+                    killed = eng._fleet.kill_worker(rid=rid)
+                r = next((a for a in eng.active.values() if a.rid == rid),
+                         None)
+                if r is not None and not rows:
+                    ids = torch.as_tensor(r.blocks, device=dev)
+                    rows = {n: lm.gather_blocks(eng.cache[n], ids)
+                            .flatten(1, 2)[:, :len(p)].clone()
+                            for n in ("k", "v")}
+            assert killed == kill
+            [r] = eng.finished
+            return list(r.out_tokens), rows, eng.pressure_stats()
+        finally:
+            eng.shutdown()
+
+    want, want_rows, _ = run(False)
+    got, got_rows, stats = run(True)
+    assert got == want
+    assert all(torch.equal(got_rows[n], want_rows[n]) for n in ("k", "v"))
+    assert stats["disagg_resumes"] >= 1

@@ -392,6 +392,8 @@ def test_ops_on_cpu_tensors_launch_no_kernel():
                                cache_len=torch.tensor([5, 70]))
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_bwd": 0,
+                                   "flash_attention_positions": 0,
+                                   "flash_attention_bwd_positions": 0,
                                    "paged_decode_attention": 0,
                                    "decode_attention": 0, "ssd_scan": 0,
                                    "ssd_scan_bwd": 0, "tiled_matmul": 0}

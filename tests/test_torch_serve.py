@@ -112,6 +112,8 @@ def test_pool_accounting_and_prefill_batching_match(served):
     assert tel["decode_path"] == "paged_decode_attention:plain"
     assert tel["kernel_launches"] == {"flash_attention": 0,
                                       "flash_attention_bwd": 0,
+                                      "flash_attention_positions": 0,
+                                      "flash_attention_bwd_positions": 0,
                                       "paged_decode_attention": 0,
                                       "decode_attention": 0, "ssd_scan": 0,
                                       "ssd_scan_bwd": 0, "tiled_matmul": 0}

@@ -380,9 +380,24 @@ def test_attention_masks_by_the_temporal_stream():
     assert _rel(_np(got), want) <= TOL["float32"]
     by_rows = tattn.attention_chunked(tq, tk, tv, causal=True)
     assert _rel(_np(by_rows), want) > 10 * TOL["bfloat16"]
+    # the positions reach the kernels' entry point (on the card, the
+    # flash kernels' positions variant), which routes by device alone
+    seen = {}
+    real = tattn.ops.flash_attention
+
+    def spy(*a, **kw):
+        seen.update(kw)
+        return real(*a, **kw)
+
+    tattn.ops.flash_attention = spy
+    try:
+        again = tattn.attention_chunked(tq, tk, tv, causal=True,
+                                        mask_pos=torch.from_numpy(pos[0]))
+    finally:
+        tattn.ops.flash_attention = real
+    assert seen["positions"] is not None and torch.equal(again, got)
     q = torch.zeros(1, 4, 2, 32, device="meta", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError,
-                       match="flash_attention.*mask"):
+    with pytest.raises(ValueError, match="no kernel for meta"):
         tattn.attention_chunked(q, q, q, causal=True,
                                 mask_pos=torch.zeros(1, 4, device="meta"))
 
