@@ -89,6 +89,18 @@ Phases (any failure exits non-zero before the last line):
    planted fault that masks by row index, positions equal to the index
    bitwise the index path, timed in turns with SDPA given the boolean
    mask and with the index path, bounds over the live pairs;
+2b. K8, the decode kernels' per-shard partial (``PARTIAL`` mode, what
+   each rank of a mesh computes over its rows in the sharded flash
+   decode): at qwen3-8b's 32 / 8 heads of 128, deepseek-coder-33b's
+   G = 7 and hymba's 25 / 5 of 64 through its 1024 window, B = 8, a
+   dense cache of 2048 rows and a pool of 64 blocks of 256 with lengths
+   1-2048, split into 2, 4 and 8 shards: every shard's ``(m, l, acc)``
+   against the plain partial (the live pattern exactly, ``acc / l``
+   row by row), the shards folded as the flat and the ring combines
+   fold them against the unsharded kernel, beside three planted faults
+   (a shard left out, the slice's start off by one block, an unowned
+   block counted as owned), each shard timed in turns with the
+   unsharded kernel beside the bytes of its live rows;
 3. qwen3-8b serve, paged: the plan as frozen (paged pool, prefix reuse,
    512 host blocks), 16 requests; both tiers whole after the engine's
    block cache is dropped;
@@ -213,16 +225,28 @@ Phases (any failure exits non-zero before the last line):
 23. a small qwen2-vl (published head_dim and M-RoPE sections) and a
    small hubert (head_dim 80) trained on the card against the CPU and
    resumed, as phase 17;
-24. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+24. two ranks on the one card over gloo (``torch.multiprocessing``
+   spawn; NCCL refuses two ranks on one card): the sharded flash decode
+   (``flash_decode`` and ``flash_decode_paged``, flat combine) at
+   qwen3-8b's widths with K8 on each rank against the unsharded kernel,
+   then full-width qwen3-8b served by ``ServeEngine.from_plan(mesh=)``
+   on its (1, 2) tensor-parallel plan, each rank holding half the
+   weights, 8 requests against the one-rank engine under the margin
+   rule (what gloo carries for CUDA tensors is
+   ``scripts/gloo_cuda_probe.py``'s finding, :data:`GLOO_CUDA`: the ring
+   combine's neighbour sends are not carried, and wait for a machine
+   with more than one card);
+25. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
 name and power limit.
 
 Run from the repository root:  python3 chip_smoke.py
 
-``--only flash_bwd`` (``flash_pos``, ``ssd_bwd``, ``matmul_fp32``)
-runs the flash backward's (the positions variant's, the SSD scan
-backward's, the fp32 tiled matmul's) check and timings alone
+``--only flash_bwd`` (``flash_pos``, ``ssd_bwd``, ``matmul_fp32``,
+``mesh``) runs the flash backward's (the positions variant's, the SSD
+scan backward's, the fp32 tiled matmul's, phases 2b and 24's) check and
+timings alone
 (:func:`flash_bwd_check`, :func:`flash_pos_check`, :func:`ssd_bwd_check`,
 :func:`matmul_fp32_check`) and prints its result as one JSON line.
 ``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
@@ -334,6 +358,7 @@ TRAIN_GRAD_TOL = {"qwen3-8b": 0.2, GRANITE: 0.05, "mamba2-2.7b": 0.2,
                   "hubert-xlarge": 0.03}
 SEED = 0
 CARD = ""                   # nvidia-smi name, power limit (set in main)
+SRC_IN_USE = SRC            # the src directory whose repro_torch runs
 # prefill buckets of 2048 prompt tokens (the serve phases' power-of-two
 # buckets), flash timed at each beside SDPA
 FLASH_BUCKETS = ((1, 2048), (2, 1024), (4, 512), (8, 256))
@@ -4594,6 +4619,45 @@ class RoundingCheck:
         return out
 
 
+def expandable_segments(torch) -> dict:
+    """Switch the caching allocator to segments that grow in place, for
+    the training phases, and check that a fresh allocation lands in one.
+    The train plans fill up to 0.95 of the card (qwen2-vl-72b's step
+    peaks at 68.6 GiB): under the classic segments, blocks split for
+    smaller requests left 13.31 GiB reserved but free when the fit asked
+    for 6.32 GiB in one piece, and the run ran out of memory at 62.27
+    GiB allocated in some runs of the same tree and not in others.
+    Before this point classic segments are kept: the disaggregated
+    prefill phase exports its weights as ``cuIpcGetMemHandle`` handles,
+    which a segment mapped through the virtual-memory API does not
+    give.  No later phase shares device memory across processes."""
+    import gc
+
+    settings = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (settings or torch.cuda.memory._set_allocator_settings)(
+        "expandable_segments:True")
+    gc.collect()
+    torch.cuda.empty_cache()
+    probe = torch.empty(2 << 30, dtype=torch.uint8, device="cuda")
+    ptr = probe.data_ptr()
+    seg = [s for s in torch.cuda.memory_snapshot()
+           if s["address"] <= ptr < s["address"] + s["total_size"]]
+    del probe
+    torch.cuda.empty_cache()
+    expandable = [x.get("is_expandable") for x in seg]
+    check(expandable == [True], "a 2 GiB allocation after switching to "
+          f"expandable segments sits in segments {expandable}")
+    res = dict(expandable_segments=True,
+               probe_segment_bytes=seg[0]["total_size"],
+               reserved_bytes=torch.cuda.memory_reserved(),
+               allocated_bytes=torch.cuda.memory_allocated())
+    log(f"allocator: expandable segments on for the training phases (a "
+        f"2 GiB probe in a segment of {res['probe_segment_bytes']} B); "
+        f"{res['allocated_bytes']} B allocated, {res['reserved_bytes']} B "
+        f"reserved [{CARD}]")
+    return res
+
+
 def train_plan(specialize, arch, shape):
     """``arch`` at its full depth and its ``h100-sxm`` plan for
     ``shape``, or, if that plan's step-peak estimate does not fit the
@@ -4747,6 +4811,7 @@ def train_phase(torch, dev, name="qwen3-8b"):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
     hist = trainer.history
     for h in hist:
         note = (" (with the rounding check)"
@@ -4766,8 +4831,8 @@ def train_phase(torch, dev, name="qwen3-8b"):
         f"({tok_s:.1f} tokens/s); launches {counts} ({per_step} a step "
         f"expected) [{CARD}]")
     log(f"train {name} {launch_train.memory_line(plan, peak)} (tol: "
-        f"estimate within [1, {STEP_PEAK_OVER}] x the measured peak) "
-        f"[{CARD}]")
+        f"estimate within [1, {STEP_PEAK_OVER}] x the measured peak); "
+        f"peak reserved {peak_reserved / 2**30:.2f} GiB [{CARD}]")
     if stochastic:
         log(f"train {name} rounding check: {sr.elements} bf16 elements "
             f"rounded of {bf16_elems}, {sr.off_pair} off their neighbour "
@@ -4827,6 +4892,7 @@ def train_phase(torch, dev, name="qwen3-8b"):
     res = dict(plan=plan.content_hash(), decisions=decisions,
                n_layers=L, n_params=n_params, steps=hist, step_ms=step_ms,
                tokens_per_s=tok_s, peak_bytes=peak,
+               peak_reserved_bytes=peak_reserved,
                plan_memory=est, estimate_over_peak=est["peak"] / peak,
                launches=counts, launches_per_step=per_step,
                grad_check=grad, grad_check_positions=grad_pos,
@@ -5201,15 +5267,606 @@ def matmul_path_phase(torch, dev, plans, shapes):
 
 # ---------------------------------------------------------------------
 
+# ---------------------------------------------------------------------
+# multi-GPU serving: K8 (the decode kernels' per-shard partial) and two
+# ranks on the card
+# ---------------------------------------------------------------------
+
+#: (label, query heads, kv heads, head_dim, window) of the K8 checks:
+#: qwen3-8b, deepseek-coder-33b's G = 7, hymba-1.5b through its window
+MESH_CASES = (("qwen3", H, K, D, 0), ("g7", 56, 8, 128, 0),
+              ("hymba", H5, K5, D64, 1024))
+MESH_SPLITS = (2, 4, 8)
+MESH_B, MESH_S, MESH_BL, MESH_N = 8, 2048, 256, 64
+#: what ``scripts/gloo_cuda_probe.py`` found gloo to carry for CUDA
+#: tensors, two ranks on one H100 80GB HBM3 under torch 2.11.0+cu128:
+#: every collective it tried but ``batch_isend_irecv`` (a transport
+#: error, "Connection closed by peer"), so the ring and bidir combines
+#: (neighbour sends) wait for a machine with more than one card, where
+#: NCCL carries them (NCCL refuses two ranks on one card: "invalid
+#: usage").  The engine's tensor-parallel step needs all_reduce and
+#: all_gather; the flat combine all_reduce only
+GLOO_CUDA = {"all_reduce": True, "broadcast": True, "all_gather": True,
+             "all_gather_into_tensor": True, "all_to_all_single": True,
+             "batch_isend_irecv": False, "device_mesh": True}
+TWO_RANK_ENGINE = GLOO_CUDA["all_reduce"] and GLOO_CUDA["all_gather"] \
+    and GLOO_CUDA["device_mesh"]
+
+
+def fold(torch, parts, ring: bool, drop: int = -1):
+    """The ranks' combine of partial ``(m, l, acc)`` terms, in one
+    process: ``flat`` as the all-reduces compute it (a max, then sums),
+    ``ring`` as the gathered buffer is folded, in source order; ``drop``
+    leaves a shard out (the planted fault).  Returns ``acc / l``."""
+    parts = [p for i, p in enumerate(parts) if i != drop]
+    ms = torch.stack([p[0] for p in parts])
+    if ring:
+        m_glob = ms[0]
+        for m in ms[1:]:
+            m_glob = torch.maximum(m_glob, m)
+    else:
+        m_glob = ms.amax(0)
+    coef = torch.where(ms == float("-inf"), 0.0, torch.exp(ms - m_glob))
+    lw = [p[1] * c for p, c in zip(parts, coef)]
+    aw = [p[2] * c[..., None] for p, c in zip(parts, coef)]
+    if ring:
+        lg, ag = lw[0], aw[0]
+        for a, b in zip(lw[1:], aw[1:]):
+            lg, ag = lg + a, ag + b
+    else:
+        lg, ag = torch.stack(lw).sum(0), torch.stack(aw).sum(0)
+    return ag / lg.clamp_min(1e-30)[..., None]
+
+
+def partial_err(torch, got, want):
+    """K8 against the plain partial on one shard: the live pattern (the
+    kernel's empty partial is ``m = -inf``, the plain one's ``NEG_INF``)
+    exactly, ``m`` where live, and ``acc / l`` per (slot, head)
+    rms-relative where live."""
+    m, l, acc = got
+    pm, pl, pa = want
+    live = pm > -1e29
+    check(torch.equal(live, m > float("-inf")),
+          "K8: the live (slot, head) pattern differs from the plain one")
+    if not bool(live.any()):
+        return 0.0, 0.0
+    dm = float((m - pm)[live].abs().max())
+    ctx = (acc / l.clamp_min(1e-30)[..., None])[live]
+    pctx = (pa / pl.clamp_min(1e-30)[..., None])[live]
+    rel = ((ctx - pctx).pow(2).mean(-1).sqrt()
+           / pctx.pow(2).mean(-1).sqrt().clamp_min(1e-6))
+    return dm, float(rel.max())
+
+
+def mesh_kernel_phase(torch, dev):
+    """K8 at full width: each case's slice split into 2, 4 and 8 shards,
+    every shard's partial held against the plain partial, the shards'
+    partials folded flat and ring held against the unsharded decode
+    kernel, beside three planted faults (a shard left out of the fold,
+    ``kv_start`` / ``block_start`` off by one block, an unowned block
+    counted as owned), and each shard's launch timed in turns with the
+    unsharded kernel beside the byte bound of its rows."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+    g = torch.Generator(dev).manual_seed(SEED + 27)
+    tol = TOL["decode_attention"]
+    B, S, bl, N = MESH_B, MESH_S, MESH_BL, MESH_N
+    nb = S // bl
+    res = {"decode_partial": {}, "paged_decode_partial": {}}
+    worst = {"decode_partial": [0.0, 0.0, 0.0],
+             "paged_decode_partial": [0.0, 0.0, 0.0]}
+    timing = {}
+    for label, Hq, Kv, Dh, W in MESH_CASES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+        q = rnd(B, Hq, Dh)
+        k, v = rnd(B, S, Kv, Dh), rnd(B, S, Kv, Dh)
+        kp, vp = rnd(N, bl, Kv, Dh), rnd(N, bl, Kv, Dh)
+        lens = torch.randint(1, S + 1, (B,), generator=g, device=dev,
+                             dtype=torch.int32)
+        lens[0], lens[1] = 1, S
+        pos = (lens - 1).contiguous()
+        tbl = torch.randperm(N, generator=g, device=dev).reshape(
+            B, nb).to(torch.int32)
+        # the first block of every split's second shard is live, inside
+        # any window (slot 1 holds all 2048 rows; its last columns), so
+        # an unowned block counted as owned shows in the fold
+        for j, n in enumerate(MESH_SPLITS):
+            r, col = (tbl == N // n).nonzero()[0].tolist()
+            tbl[r, col], tbl[1, nb - 1 - j] = tbl[1, nb - 1 - j].clone(), \
+                N // n
+        used = (torch.arange(nb, device=dev)[None] * bl < lens[:, None])
+        tbl = torch.where(used, tbl, -1).contiguous()
+        want_d = dec.decode_attention(q, k, v, cache_len=lens, window=W)
+        want_p = dec.paged_decode_attention(q, kp, vp, tbl, cache_len=lens,
+                                            window=W)
+        for n in MESH_SPLITS:
+            Sl, Nl = S // n, N // n
+            dense = [(k[:, i * Sl:(i + 1) * Sl].contiguous(),
+                      v[:, i * Sl:(i + 1) * Sl].contiguous(), i * Sl)
+                     for i in range(n)]
+            paged = [(kp[i * Nl:(i + 1) * Nl], vp[i * Nl:(i + 1) * Nl],
+                      i * Nl) for i in range(n)]
+            for name, shards, want in (("decode_partial", dense, want_d),
+                                       ("paged_decode_partial", paged,
+                                        want_p)):
+                def run(ks, vs, start):
+                    if name == "decode_partial":
+                        return dec.decode_partial(q, ks, vs, kv_start=start,
+                                                  pos=pos, window=W)
+                    return dec.paged_decode_partial(
+                        q, ks, vs, tbl, block_start=start, pos=pos,
+                        window=W)
+
+                def plain(ks, vs, start):
+                    if name == "decode_partial":
+                        return dec.decode_partial_plain(
+                            q, ks, vs, kv_start=start, pos=pos, window=W)
+                    return dec.paged_decode_partial_plain(
+                        q, ks, vs, tbl, block_start=start, pos=pos,
+                        window=W)
+
+                parts = []
+                for ks, vs, start in shards:
+                    got = run(ks, vs, start)
+                    dm, rel = partial_err(torch, got, plain(ks, vs, start))
+                    check(rel <= tol, f"{name} {label} {n} shards, shard "
+                          f"at {start}: acc/l row rel {rel} > {tol}")
+                    worst[name][0] = max(worst[name][0], dm)
+                    worst[name][1] = max(worst[name][1], rel)
+                    parts.append(got)
+                for ring in (False, True):
+                    e, rel = row_err(torch, fold(torch, parts, ring).to(
+                        torch.bfloat16), want)
+                    check(rel <= tol, f"{name} {label} {n} shards "
+                          f"{'ring' if ring else 'flat'} fold: row rel "
+                          f"{rel} > {tol}")
+                    worst[name][2] = max(worst[name][2], rel)
+                # planted faults, each must fail the fold's check
+                ks, vs, start = shards[1]
+                step = bl if name == "decode_partial" else 1
+                off = list(parts)
+                off[1] = run(ks, vs, start + step)
+                c1 = control("decode_attention", f"{name} {label} {n} "
+                             "shards: a shard left out", torch,
+                             fold(torch, parts, False, drop=1).to(
+                                 torch.bfloat16), want)
+                c2 = control("decode_attention", f"{name} {label} {n} "
+                             "shards: start off by one block", torch,
+                             fold(torch, off, False).to(torch.bfloat16),
+                             want)
+                ctl = [c1, c2]
+                if name == "paged_decode_partial":
+                    wide = list(parts)
+                    wide[0] = run(kp[:Nl + 1], vp[:Nl + 1], 0)
+                    ctl.append(control(
+                        "decode_attention", f"{name} {label} {n} shards: "
+                        "an unowned block counted as owned", torch,
+                        fold(torch, wide, False).to(torch.bfloat16), want))
+                res[name].setdefault("controls", []).append(min(ctl))
+                # timed at qwen3-8b's widths: each shard in turns with
+                # the unsharded kernel, beside the bytes of its live rows
+                if label != "qwen3":
+                    continue
+                lo = (lens - W).clamp_min(0) if W else torch.zeros_like(lens)
+                fns = {"unsharded": (
+                    (lambda: dec.decode_attention(q, k, v, cache_len=lens,
+                                                  window=W))
+                    if name == "decode_partial" else
+                    (lambda: dec.paged_decode_attention(
+                        q, kp, vp, tbl, cache_len=lens, window=W)))}
+                rows = []
+                for i, (ks, vs, start) in enumerate(shards):
+                    fns[f"shard{i}"] = functools.partial(run, ks, vs, start)
+                    if name == "decode_partial":
+                        r0 = torch.clamp(lo - start, 0, Sl)
+                        r1 = torch.clamp(lens - start, 0, Sl)
+                        rows.append(int((r1 - r0).sum()))
+                    else:
+                        own = (tbl >= start) & (tbl < start + Nl)
+                        col = torch.arange(nb, device=dev)[None] * bl
+                        live = (torch.clamp(lens[:, None] - col, 0, bl)
+                                * own).sum()
+                        rows.append(int(live))
+                med, rounds = in_turns(torch, fns, graph_ms)
+                plain_ms = [None] * n
+                if n == 2:              # the plain partial on each shard
+                    pm, _ = in_turns(torch, {
+                        i: functools.partial(plain, *sh)
+                        for i, sh in enumerate(shards)})
+                    plain_ms = [pm[i] for i in range(n)]
+                io = q.numel() * 2 + B * Hq * (Dh + 2) * 4 + B * 4
+                bounds = [bound(r * Kv * Dh * 2 * 2 + io,
+                                4 * r * Hq * Dh, PEAK_FP32)
+                          for r in rows]
+                timing[(name, n)] = {
+                    "unsharded_ms": med["unsharded"],
+                    "shards_ms": [med[f"shard{i}"] for i in range(n)],
+                    "shard_rows": rows,
+                    "bound_ms": [b for b, _ in bounds],
+                    "bound_by": bounds[0][1],
+                    "plain_ms": plain_ms}
+                log(f"timing {name} qwen3 {n} shards: unsharded "
+                    f"{med['unsharded']:.4f} ms, shards "
+                    f"{fmt([med[f'shard{i}'] for i in range(n)])} ms, "
+                    f"bounds {fmt([b for b, _ in bounds])} ms (rows "
+                    f"{rows}) in turns of {TURNS} [{CARD}]")
+        log(f"kernel K8 {label} ({Hq}/{Kv}x{Dh}, window {W}): shards "
+            f"{MESH_SPLITS} dense and paged, partials and folds held "
+            f"(tol {tol}) [{CARD}]")
+    out = {}
+    for name, src_line in (("decode_partial", 156),
+                           ("paged_decode_partial", 304)):
+        t2 = timing[(name, 2)]
+        i = max(range(2), key=lambda j: t2["shards_ms"][j])
+        out[name] = dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces=f"src/repro/dist/flash_decode.py:{src_line}",
+            max_abs_err=worst[name][0], row_rel_err=worst[name][1],
+            fold_row_rel_err=worst[name][2], tolerance=tol,
+            control_row_rel_err=min(res[name]["controls"]),
+            ms=t2["shards_ms"][i], bound_ms=t2["bound_ms"][i],
+            bound_by=t2["bound_by"], plain_ms=t2["plain_ms"][i],
+            library_ms=None,
+            shards_ms={str(n): timing[(name, n)] for n in MESH_SPLITS},
+            shape=f"B={B} {'S=' + str(S) if name == 'decode_partial' else f'{N} blocks of {bl}'} "
+                  f"H={H} K={K} D={D}, the slowest of 2 shards",
+            library_call="none: the reference's partial is jnp code in a "
+                         "shard_map")
+    for name in out:
+        r = out[name]
+        log(f"timing {name}: kernel {r['ms']:.4f} ms a shard of 2, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) [{CARD}]")
+    ops.reset_launch_counts()       # comparison launches do not count
+    return out
+
+
+def _two_rank(rank: int, tmp: str, src: str, engine: bool) -> None:
+    """One of the two ranks on ``cuda:0`` over gloo: the sharded flash
+    decode (flat combine) at full width against the unsharded kernel,
+    then, where :data:`TWO_RANK_ENGINE`, the (1, 2) tensor-parallel
+    engine on full-width qwen3-8b."""
+    import datetime
+    import os
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import flash_decode as fd
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    out = {}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=300))
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        g = torch.Generator(dev).manual_seed(SEED + 2)
+        B, S, bl, N = MESH_B, MESH_S, MESH_BL, MESH_N
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+        q, kn, vn = rnd(B, 1, H, D), rnd(B, 1, K, D), rnd(B, 1, K, D)
+        k, v = rnd(B, S, K, D), rnd(B, S, K, D)
+        kp, vp = rnd(N, bl, K, D), rnd(N, bl, K, D)
+        lens = torch.randint(1, S, (B,), generator=g, device=dev,
+                             dtype=torch.int32)
+        pos = lens.clone()                        # the appended row
+        tbl = torch.randperm(N, generator=g, device=dev).reshape(
+            B, S // bl).to(torch.int32)
+        # rank 1's first block is live (slot 1's first column), so that a
+        # rank 0 piece one block too wide counts it twice
+        r_, c_ = (tbl == N // 2).nonzero()[0].tolist()
+        tbl[r_, c_], tbl[1, 0] = tbl[1, 0].clone(), N // 2
+        used = torch.arange(S // bl, device=dev)[None] * bl <= pos[:, None]
+        tbl = torch.where(used, tbl, -1).contiguous()
+        # the unsharded kernels over the appended whole cache
+        kw, vw = k.clone(), v.clone()
+        kw[torch.arange(B), pos.long()] = kn[:, 0]
+        vw[torch.arange(B), pos.long()] = vn[:, 0]
+        want_d = dec.decode_attention(q[:, 0], kw, vw, cache_len=pos + 1)
+        kpw, vpw = kp.clone(), vp.clone()
+        from repro_torch.models.lm import append_kv_paged
+        append_kv_paged(kpw, kn, pos, tbl)
+        append_kv_paged(vpw, vn, pos, tbl)
+        want_p = dec.paged_decode_attention(q[:, 0], kpw, vpw, tbl,
+                                            cache_len=pos + 1)
+        m = mesh.get_local_rank("model")
+        kl = k[:, m * S // 2:(m + 1) * S // 2].contiguous()
+        vl = v[:, m * S // 2:(m + 1) * S // 2].contiguous()
+        kpl = kp[m * N // 2:(m + 1) * N // 2].contiguous()
+        vpl = vp[m * N // 2:(m + 1) * N // 2].contiguous()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ctx_d, kl, vl = fd.flash_decode(q, kn, vn, kl, vl, pos, 0,
+                                        mesh=mesh, combine="flat",
+                                        seq_len=S, batch=B)
+        ctx_p, kpl, vpl = fd.flash_decode_paged(q, kn, vn, kpl, vpl, tbl,
+                                                pos, 0, mesh=mesh,
+                                                combine="flat", n_blocks=N,
+                                                batch=B)
+        torch.cuda.synchronize()
+        out["decode_launches"] = ops.launch_counts()
+
+        def row_rel(got, want):
+            e = (got[:, 0].float() - want.float())
+            rel = (e.pow(2).mean(-1).sqrt()
+                   / want.float().pow(2).mean(-1).sqrt().clamp_min(1e-6))
+            return float(rel.max())
+        for name, got, want in (("dense", ctx_d, want_d),
+                                ("paged", ctx_p, want_p)):
+            out[f"{name}_row_rel"] = row_rel(got, want)
+        out["appended"] = bool(
+            torch.equal(kl, kw[:, m * S // 2:(m + 1) * S // 2])
+            and torch.equal(kpl, kpw[m * N // 2:(m + 1) * N // 2]))
+        # the engine's own partials and combine (fd._partial_attend*,
+        # fd._combine, fd._finish) over the appended pieces, exact and
+        # with planted faults, each against the unsharded kernel
+        grp = mesh.get_group("model")
+
+        def folded(paged, drop=False, shift=0, wide=False):
+            if paged:
+                lo = m * N // 2
+                hi = lo + N // 2 + (1 if wide and m == 0 else 0)
+                part = fd._partial_attend_paged(
+                    q, kpw[lo:hi], vpw[lo:hi], tbl, pos, 0,
+                    start=lo + shift)
+            else:
+                part = fd._partial_attend(q, kl, vl, m * S // 2 + shift,
+                                          pos, 0)
+            mm, ll, aa = part
+            if drop and m == 1:          # rank 1's partial left out
+                mm = torch.full_like(mm, float("-inf"))
+                ll, aa = torch.zeros_like(ll), torch.zeros_like(aa)
+            return fd._finish(q, *fd._combine(mm, ll, aa, grp, 2, "flat"))
+        out["engine_fold"] = {
+            "dense": row_rel(folded(False), want_d),
+            "paged": row_rel(folded(True), want_p),
+            "dense, rank 1 left out": row_rel(folded(False, drop=True),
+                                              want_d),
+            "dense, kv_start off by a block": row_rel(
+                folded(False, shift=bl), want_d),
+            "paged, rank 1 left out": row_rel(folded(True, drop=True),
+                                              want_p),
+            "paged, block_start off by one": row_rel(
+                folded(True, shift=1), want_p),
+            "paged, an unowned block counted as owned": row_rel(
+                folded(True, wide=True), want_p)}
+        # the combine's time: one flat combine of qwen3-8b's decode terms
+        ml = torch.randn(B, H, device=dev)
+        for _ in range(3):
+            fd._combine(ml, ml.abs(), torch.randn(B, H, D, device=dev),
+                        mesh.get_group("model"), 2, "flat")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fd._combine(ml, ml.abs(), torch.randn(B, H, D, device=dev),
+                        mesh.get_group("model"), 2, "flat")
+        torch.cuda.synchronize()
+        out["combine_host_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        if engine:
+            out.update(_two_rank_engine(torch, dev, mesh, tmp))
+    except Exception as e:           # a failed rank fails the run
+        import traceback
+        out["error"] = traceback.format_exc()[-3000:]
+    torch.save(out, os.path.join(tmp, f"r{rank}.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+TWO_RANK_REQUESTS, TWO_RANK_TOKENS = 8, 16
+
+
+def _two_rank_prompts(arch):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 3)
+    return [rng.integers(0, arch.vocab_size, int(n)).astype(np.int32)
+            for n in rng.integers(64, 1024, TWO_RANK_REQUESTS)]
+
+
+def _two_rank_engine(torch, dev, mesh, tmp):
+    """The (1, 2) tensor-parallel engine for full-width qwen3-8b: every
+    rank builds only its pieces of the weights the seed gives
+    (``param_pieces``, as the serve launcher does) and serves the same
+    requests; the counts of its kernels' launches, its tokens and its
+    peak memory come back."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sharded import param_pieces
+    arch = get_arch("qwen3-8b")
+    plan = specialize(arch, ShapeConfig("serve_h100", "decode", 2048, 8),
+                      mesh_axes=("data", "model"), mesh_shape=(1, 2),
+                      target="h100-sxm", cache=False)
+    params = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                            *plan.padded_sizes(),
+                            pieces=param_pieces(mesh, plan, arch))
+    eng = _recording_engine(ServeEngine).from_plan(plan, params, arch=arch,
+                                                   mesh=mesh)
+    del params
+    torch.cuda.empty_cache()
+    held = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
+    for p in _two_rank_prompts(arch):
+        eng.submit(p, max_new_tokens=TWO_RANK_TOKENS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_idle(max_ticks=4096)
+    torch.cuda.synchronize()
+    return {"engine_launches": ops.launch_counts(),
+            "engine_first": eng.first,
+            "engine_s": time.perf_counter() - t0,
+            "engine_path": eng.decode_path, "engine_split": eng.cfg.kv_split,
+            "engine_weight_bytes": held,
+            "engine_cache_k": tuple(eng.cache["k"].shape),
+            "engine_tokens": {r.rid: list(r.out_tokens) for r in done},
+            "engine_peak": torch.cuda.max_memory_allocated()}
+
+
+def two_rank_phase(torch, dev):
+    """Two ranks on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    card): the sharded flash decode with K8 on each rank against the
+    unsharded kernel, and, as far as :data:`GLOO_CUDA` admits, the (1, 2)
+    tensor-parallel engine on full-width qwen3-8b, its tokens against
+    the one-rank engine's under the full-depth margin rule (equal up to
+    the first step whose one-rank top-2 margin is within
+    :data:`FULL_TOL`: a 36-layer bf16 path sums its partial products in
+    another order).  A rank that fails fails the run."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    res = {"gloo_cuda": GLOO_CUDA, "engine": TWO_RANK_ENGINE}
+    one = None
+    if TWO_RANK_ENGINE:
+        arch = get_arch("qwen3-8b")
+        shape = ShapeConfig("serve_h100", "decode", 2048, 8)
+        plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
+                          plan_dir=PLAN_DIR)
+        # the ranks' weights: the (1, 2) plan pads the vocab for its split
+        # (152,064 rows), so both engines draw them at its padded sizes
+        tp_plan = specialize(arch, shape, mesh_axes=("data", "model"),
+                             mesh_shape=(1, 2), target="h100-sxm",
+                             cache=False)
+        params = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                                *tp_plan.padded_sizes())
+        eng = _recording_engine(ServeEngine).from_plan(
+            plan, params, kv_host_blocks=0, kv_prefix_reuse="off")
+        for p in _two_rank_prompts(arch):
+            eng.submit(p, max_new_tokens=TWO_RANK_TOKENS)
+        done = eng.run_until_idle(max_ticks=4096)
+        one = ({r.rid: list(r.out_tokens) for r in done}, eng.margins,
+               eng.first)
+        del eng, params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_two_rank,
+                             args=(r, tmp, str(SRC_IN_USE), TWO_RANK_ENGINE))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks = []
+        for r, p in enumerate(procs):
+            path = Path(tmp) / f"r{r}.pt"
+            check(path.exists(), f"two ranks: rank {r} left no result "
+                  f"(exit {p.exitcode})")
+            ranks.append(torch.load(path, weights_only=False))
+    for r, out in enumerate(ranks):
+        check("error" not in out, f"two ranks: rank {r} failed: "
+              f"{out.get('error')}")
+        for name in ("dense", "paged"):
+            rel = out[f"{name}_row_rel"]
+            log(f"two ranks: rank {r} flash_decode {name} (flat, K8 on "
+                f"each rank) vs the unsharded kernel: worst row rel "
+                f"{rel:.3e} (tol {TOL['decode_attention']}) [{CARD}]")
+            check(rel <= TOL["decode_attention"],
+                  f"two ranks: {name} row rel {rel}")
+        check(out["appended"], f"two ranks: rank {r}'s append differs")
+        for what, rel in out["engine_fold"].items():
+            planted = "," in what
+            log(f"two ranks: rank {r} fd._combine fold {what}: worst row "
+                f"rel {rel:.3e} ({'a planted fault, must exceed' if planted else 'tol'} "
+                f"{TOL['decode_attention']}) [{CARD}]")
+            check((rel > TOL["decode_attention"]) if planted
+                  else (rel <= TOL["decode_attention"]),
+                  f"two ranks: fold {what}: row rel {rel}")
+        c = out["decode_launches"]
+        check(c["decode_partial"] == 1 and c["paged_decode_partial"] == 1,
+              f"two ranks: rank {r}'s flash decode launched {c}")
+    res["partial_launches"] = {
+        k: sum(o["decode_launches"][k] for o in ranks)
+        for k in ("decode_partial", "paged_decode_partial")}
+    res["combine_host_ms"] = [o["combine_host_ms"] for o in ranks]
+    res["engine_fold_row_rel"] = [o["engine_fold"] for o in ranks]
+    if TWO_RANK_ENGINE:
+        want, margins, first = one
+        # the first token's logits, rms-relative, against the one-rank
+        # engine's (the full-depth bound), and a wrong-request control
+        rels = {rid: _rms_rel(torch, ranks[0]["engine_first"][rid], row)
+                for rid, row in first.items()}
+        wrong = _rms_rel(torch, ranks[0]["engine_first"][1], first[0])
+        log(f"two ranks: first-token logits against the one-rank engine, "
+            f"rms-relative by request {fmt(list(rels.values()))} (bound "
+            f"{FULL_TOL}; another request's: {wrong:.3f}) [{CARD}]")
+        check(max(rels.values()) <= FULL_TOL < wrong,
+              f"two ranks: first logits {rels}, control {wrong}")
+        res["first_logits_rms_rel"] = rels
+        res["first_logits_wrong_request"] = wrong
+        for r, out in enumerate(ranks):
+            check(out["engine_tokens"] == ranks[0]["engine_tokens"],
+                  "two ranks: the ranks' tokens differ")
+            check(out["engine_split"] == "heads",
+                  f"two ranks: split {out['engine_split']}")
+            c = out["engine_launches"]
+            check(c["flash_attention"] > 0
+                  and c["paged_decode_attention"] > 0,
+                  f"two ranks: the engine launched {c}")
+        compared, splits = 0, []
+        for rid, toks in want.items():
+            got = ranks[0]["engine_tokens"][rid]
+            check(len(got) == len(toks), "two ranks: token counts differ")
+            for i, (a, b) in enumerate(zip(got, toks)):
+                if a != b:
+                    splits.append((rid, i, margins[rid][i]))
+                    log(f"two ranks: request {rid} parts at token {i} "
+                        f"({a} vs {b}), one-rank margin "
+                        f"{margins[rid][i]:.4f} [{CARD}]")
+                    check(margins[rid][i] <= FULL_TOL,
+                          f"two ranks: request {rid} token {i}: {a} vs "
+                          f"{b} at margin {margins[rid][i]}")
+                    break
+                compared += 1
+        res.update(engine_tokens_compared=compared, engine_splits=splits,
+                   engine_tokens=sum(len(t) for t in want.values()),
+                   engine_launches=[o["engine_launches"] for o in ranks],
+                   engine_s=[o["engine_s"] for o in ranks],
+                   engine_path=ranks[0]["engine_path"],
+                   engine_weight_bytes=[o["engine_weight_bytes"]
+                                        for o in ranks],
+                   engine_cache_k=ranks[0]["engine_cache_k"],
+                   engine_peak=[o["engine_peak"] for o in ranks])
+        log(f"two ranks: (1, 2) tensor-parallel qwen3-8b, "
+            f"{TWO_RANK_REQUESTS} requests x {TWO_RANK_TOKENS} tokens in "
+            f"{fmt(res['engine_s'])} s a rank, {compared} of "
+            f"{res['engine_tokens']} tokens equal the one-rank engine's "
+            f"before the first margin-rule split, weights "
+            f"{res['engine_weight_bytes']} bytes a rank, peak allocated "
+            f"{res['engine_peak']} bytes a rank [{CARD}]")
+    log(f"two ranks: phase took {time.perf_counter() - t0:.1f} s [{CARD}]")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port on one NVIDIA card")
     ap.add_argument("--only", choices=("flash_bwd", "flash_pos", "ssd_bwd",
-                                       "matmul_fp32"),
+                                       "matmul_fp32", "mesh"),
                     help="run this kernel's check alone and print its "
                          "result")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src directory whose repro_torch runs")
     args = ap.parse_args(argv)
+    global SRC_IN_USE
+    SRC_IN_USE = args.src
     if not (args.src / "repro_torch" / "__init__.py").exists():
         print(f"chip_smoke: no port package at {args.src / 'repro_torch'}; "
               "run from a checkout of the repository", file=sys.stderr)
@@ -5289,6 +5946,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, ops
     t0 = time.perf_counter()
     build.build_all()
+    if args.only == "mesh":
+        log(f"build: {time.perf_counter() - t0:.1f} s [{CARD}]")
+        res = {"kernels": mesh_kernel_phase(torch, dev),
+               "two_ranks": two_rank_phase(torch, dev)}
+        log(json.dumps({"src": str(args.src), "card": CARD, "mesh": res}))
+        return 0
     log(f"build: {len(build.SOURCES)} sources with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
     ptxas = {name: build.ptxas_entries(text)
@@ -5317,6 +5980,10 @@ def main(argv=None) -> int:
 
     # ---- phase 2: kernels ----
     kern, mm_checks = kernel_phase(torch, dev)
+    # ---- phase 2b: K8, the decode kernels' per-shard partial ----
+    t0 = time.perf_counter()
+    kern.update(mesh_kernel_phase(torch, dev))
+    log(f"mesh kernel phase took {time.perf_counter() - t0:.1f} s [{CARD}]")
 
     # ---- phases 3-4: serve ----
     from repro_torch.configs import ShapeConfig, get_arch
@@ -5451,7 +6118,9 @@ def main(argv=None) -> int:
     log(f"matmul path: {mm_launches} launches, phase took "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
 
-    # ---- phases 16-17: training, every earlier weight freed ----
+    # ---- phases 16-17: training, every earlier weight freed, on
+    # segments that grow in place ----
+    allocator = expandable_segments(torch)
     t0 = time.perf_counter()
     train_counts, train = train_phase(torch, dev)
     small_train = small_train_check(torch, dev)
@@ -5475,10 +6144,14 @@ def main(argv=None) -> int:
     front_counts, front = frontend_phases(torch, dev)
     log(f"frontend phases took {time.perf_counter() - t0:.1f} s [{CARD}]")
 
-    # ---- phase 24: results ----
+    # ---- phase 24: two ranks on the card (multi-GPU serving) ----
+    two = two_rank_phase(torch, dev)
+
+    # ---- phase 25: results ----
     family_counts = [c for c, _ in families.values()]
     runs = (*serve_runs.values(), train_counts, *family_counts,
-            *front_counts.values(), guard_counts, disagg_counts)
+            *front_counts.values(), guard_counts, disagg_counts,
+            *two.get("engine_launches", []))
     for name in ("flash_attention_positions",
                  "flash_attention_bwd_positions"):
         check(front_counts["qwen2-vl positions"][name] > 0,
@@ -5516,6 +6189,13 @@ def main(argv=None) -> int:
     kern["flash_attention"]["tail_launches"] = sum(
         c.get("flash_tail", 0) for c in runs)
     launches["tiled_matmul"] = mm_launches
+    for name in ("decode_partial", "paged_decode_partial"):
+        launches[name] = two["partial_launches"][name]
+        check(launches[name] > 0, f"the two-rank run launched {name} no "
+              "time")
+        kern[name]["launched_by"] = (
+            "flash_decode / flash_decode_paged (flat combine) on each of "
+            "two ranks of a (1, 2) mesh on one card over gloo")
     kernels = []
     for name, r in kern.items():
         kernels.append({"name": name, **{k: r[k] for k in (
@@ -5537,7 +6217,8 @@ def main(argv=None) -> int:
                                  "hymba", "granite", "llama4", "train",
                                  "qwen2vl", "hubert", "noncausal128",
                                  "fwd_with_lse_ms", "fwd_without_lse_ms",
-                                 "autograd_plain_ms",
+                                 "autograd_plain_ms", "fold_row_rel_err",
+                                 "shards_ms",
                                  "autograd_plain_turns_ms")
                if k in r},
             "ptxas": [[kernel, regs, spills] for kernel, regs, spills
@@ -5568,7 +6249,8 @@ def main(argv=None) -> int:
                                        families.items()},
                     "small_train_mamba2": small_train_ssm,
                     "frontends": front, "disagg": disagg_res,
-                    "step_guard": guard}))
+                    "step_guard": guard, "two_ranks": two,
+                    "allocator": allocator}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")
     log(smi)

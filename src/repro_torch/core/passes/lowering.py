@@ -1,14 +1,17 @@
-"""Lowering: the paper's "HLS" phase, on one card.
+"""Lowering: the paper's "HLS" phase.
 
 The port of ``repro/core/passes/lowering.py``: :func:`build_run_cfg`
-(plan -> :class:`RunCfg`, the knobs the model and serving code read),
+(plan -> :class:`RunCfg`, the knobs the model and serving code read,
+with the serving mesh where there is one), :func:`param_pspecs` (the
+plan's axis rules over the parameter tree),
 :func:`wire_compression` (the gradient-compression predicate the
 communication pass records its verdict through) and
 :func:`lower_train_step`, the train step the plan asks for — forward,
 backward, microbatch accumulation, AdamW — on one card, eagerly (no
 jit: :class:`LoweredStep` carries the step function as it is).  The
-JAX package's sharded steps, donation and the int8 gradient wire wait
-for the multi-GPU slice; a plan that compresses gradients is refused.
+JAX package's sharded train steps, donation and the int8 gradient wire
+wait for ROADMAP item 10b; a plan that compresses gradients is
+refused.
 Torch is imported where a step is built, not at import.
 """
 
@@ -20,7 +23,7 @@ from typing import Any, Callable, Optional
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 
 
-def build_run_cfg(plan, arch: ArchConfig):
+def build_run_cfg(plan, arch: ArchConfig, mesh=None):
     """The model-side knobs of a plan: the padded kv-head count, the
     attention and SSD-scan tiles of its ``BlockPlan``s (``chunk`` and
     ``heads_block``, as ``src/repro/core/passes/lowering.py:74,91``
@@ -29,13 +32,18 @@ def build_run_cfg(plan, arch: ArchConfig):
     the kernel mode (``plan.use_pallas``:
     ``auto``/``on`` run the port's kernels on the card; ``off`` makes the
     card path raise), the remat policy (``comm.remat_policy``) and the
-    padded vocab (``src/repro/core/passes/lowering.py:71-101``)."""
+    padded vocab (``src/repro/core/passes/lowering.py:71-101``).  With a
+    ``mesh`` (a ``DeviceMesh``) the config carries it, the plan's data
+    axes and its decode decisions (``decode_impl``,
+    ``combine_topology``), and the padded head and vocab counts the
+    ranks' pieces are measured against."""
     from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK
     from repro_torch.models.lm import RunCfg
     fa = plan.partitions.get("flash_attention")
     dec = plan.partitions.get("decode_attention")
     ssd = plan.partitions.get("ssd_scan")
     moe_impl = plan.estimates.get("moe_impl", "gshard_einsum")
+    est = plan.estimates
     return RunCfg(
         kv_heads_padded=int(plan.estimates.get("kv_heads_padded", 0)),
         flash_tiles=((int(fa.blocks["block_q"]), int(fa.blocks["block_kv"]))
@@ -46,7 +54,37 @@ def build_run_cfg(plan, arch: ArchConfig):
         moe_impl=moe_impl if isinstance(moe_impl, str) else "gshard_einsum",
         kernels=str(plan.use_pallas),
         remat=plan.comm.remat_policy,
+        mesh=mesh,
+        data_axes=tuple(a for a in plan.mesh_axes if a != "model"),
+        model_axis="model",
+        decode_impl=str(est.get("decode_impl") or "xla"),
+        combine_topology=(str(est["combine_topology"])
+                          if est.get("combine_topology") else None),
+        heads_padded=int(est.get("heads_padded", 0)),
+        vocab_padded=int(est.get("vocab_padded", 0)),
     )
+
+
+def param_pspecs(plan, arch: ArchConfig, sizes, shapes: Any = None) -> Any:
+    """The plan's axis rules resolved over the parameter tree
+    (``src/repro/core/passes/lowering.py:180-196``): one
+    :class:`repro_torch.dist.sharding.P` a leaf.  ``shapes`` defaults to
+    the plan-padded shapes; pass the tree actually placed (tensors, or
+    shapes) to resolve against what will be placed."""
+    from repro_torch.dist.sharding import resolve_pspec
+    from repro_torch.models import lm
+    padded = plan.padded_sizes()
+    axes = lm.param_axes(arch, *padded)
+    if shapes is None:
+        shapes = lm.param_shapes(arch, *padded)
+
+    def walk(ax, sh):
+        if isinstance(ax, dict):
+            return {k: walk(ax[k], sh[k]) for k in ax}
+        return resolve_pspec(plan.axis_rules, tuple(getattr(sh, "shape", sh)),
+                             ax, sizes)
+
+    return walk(axes, shapes)
 
 
 def wire_compression(plan, mesh=None,
@@ -60,7 +98,8 @@ def wire_compression(plan, mesh=None,
     """
     if mesh is not None:
         raise NotImplementedError(
-            "wire_compression on a live mesh: the port has no mesh yet")
+            "wire_compression on a live mesh: the port trains on one card; "
+            "the compressed reduction on a mesh waits for ROADMAP item 10b")
     comm = plan.comm
     if not comm.compress_grads:
         return 0
@@ -108,7 +147,7 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
 
     Raises :class:`NotImplementedError` for a mesh, and for a plan that
     compresses gradients (the int8 + error-feedback reduction, on the
-    wire or modelled: ROADMAP item 10), before any weight exists."""
+    wire or modelled: ROADMAP item 10b), before any weight exists."""
     import torch
 
     from repro_torch.models import frontends, lm
@@ -116,13 +155,13 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
 
     if mesh is not None:
         raise NotImplementedError(
-            "lower_train_step: the port trains on one card; a mesh waits "
-            "for the multi-GPU slice (ROADMAP item 10)")
+            "lower_train_step: the port trains on one card; a mesh "
+            "(FSDP / data parallelism) waits for ROADMAP item 10b")
     if plan.comm.compresses_gradients or wire_compression(plan, None, arch):
         raise NotImplementedError(
             "lower_train_step: the plan compresses gradients (int8 + error "
-            "feedback); the port's compressed reduction waits for the "
-            "multi-GPU slice (ROADMAP item 10)")
+            "feedback); the compressed reduction in the train step waits "
+            "for ROADMAP item 10b")
     lm.check_supported(arch)
     cfg = build_run_cfg(plan, arch)
     opt_cfg = opt_cfg or adamw.OptConfig.from_plan(plan)

@@ -188,6 +188,13 @@ _SIGNATURES = {
         # splits, split_rows, scale, drop_split, stream
         "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _F, _I, _P],
+        # q, k, v, pos, pout, ws, counters, B, S, H, K, D, kv_start,
+        # window, splits, split_rows, scale, drop_split, stream
+        "decode_partial": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
+        # q, k_pool, v_pool, tbl, pos, pout, ws, counters, B, H, K, D, bl,
+        # nb, n_local, block_start, window, splits, split_rows, scale,
+        # drop_split, stream
+        "paged_decode_partial": [_P] * 8 + [_I] * 11 + [_F, _I, _P],
     },
     "ssd_scan": {
         # x, dt, A, Bm, Cm, init, y, fin, states, ws, B, S, H, P, G, N,

@@ -49,6 +49,20 @@
 // a lane pair's 4 each, and each lane accumulates D / 32 = 2 dims of P.V);
 // G is read only as a loop bound and an array size, built at 1, 2, 4, 5, 7
 // and 8 (D = 128) and 2 and 5 (D = 64).
+//
+// PARTIAL (the per-shard partial of a sharded decode, dist/flash_decode.py):
+// the same kernel over one shard's rows, where the last CTA of a (slot, kv
+// head) writes the merged fp32 (m, l, acc) -- unnormalised, acc[h][d] =
+// sum_r exp(s_r - m) v_r -- for the ranks to combine, instead of the bf16
+// output.  cache_len then holds each slot's global position pos, and a row
+// is live where its global position lies in [pos + 1 - window, pos] (from 0
+// without a window).  Dense: k/v are the shard's slice of the rows, whose
+// first row is the global row kv_start.  Paged: k/v are the shard's sub-pool
+// of n_local blocks, the first being the global block kv_start, read through
+// the global table; a row of a block outside [kv_start, kv_start + n_local)
+// or of a -1 entry is masked (not read as a zero row: that would add
+// exp(0 - m) to l) and never loaded, and a warp whose rows of a step are all
+// masked skips the step's arithmetic.  An empty partial is m = -inf, l = 0.
 
 #include "common.cuh"
 
@@ -96,14 +110,17 @@ __device__ __forceinline__ void load_row(const bf16* p, float (&f)[E]) {
 // ws: (B * K, splits, G, 2) floats (m, l), then (B * K, splits, G, D)
 // (acc).  counters: (B * K) ints, 0 between launches.  drop_split >= 0 is a
 // planted fault for the checks: that split is left out of the merge.
-template <int G, int D, bool PAGED>
+// PARTIAL: pout is (B, H) m, then (B, H) l, then (B, H, D) acc, fp32;
+// kv_start and n_local as in the header.
+template <int G, int D, bool PAGED, bool PARTIAL>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const int* __restrict__ tbl,
               const int* __restrict__ cache_len, bf16* __restrict__ out,
-              float* __restrict__ ws, int* __restrict__ counters, int seq,
-              int nb, int K, int window, int split_rows, float scale,
-              int drop_split) {
+              float* __restrict__ pout, float* __restrict__ ws,
+              int* __restrict__ counters, int seq, int nb, int K, int window,
+              int split_rows, float scale, int drop_split, int kv_start,
+              int n_local) {
   constexpr int C = D / 8;      // 16-byte chunks per row
   constexpr int CH = C / 2;     // chunks of K each lane of a pair reads
   constexpr int E = D / 32;     // head dims per lane in P.V
@@ -122,8 +139,18 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int H = K * G;
   const size_t row_stride = size_t(K) * D;
 
-  const int len = min(cache_len[b], PAGED ? nb * seq : seq);
-  const int lo = window > 0 ? max(0, len - window) : 0;
+  int len, lo;
+  if constexpr (PARTIAL) {
+    // rows are global dense-view positions (paged) or local rows whose
+    // global position is kv_start + r (dense)
+    const int p = cache_len[b];
+    const int base = PAGED ? 0 : kv_start;
+    len = min(max(p + 1 - base, 0), PAGED ? nb * seq : seq);
+    lo = max(0, (window > 0 ? p + 1 - window : 0) - base);
+  } else {
+    len = min(cache_len[b], PAGED ? nb * seq : seq);
+    lo = window > 0 ? max(0, len - window) : 0;
+  }
   const int r0 = max(split * split_rows, lo);
   const int r1 = min((split + 1) * split_rows, len);
 
@@ -159,8 +186,13 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         size_t off = 0;
         if (live) {
           if (PAGED) {
-            const int blk = tbl[size_t(b) * nb + j / seq];
-            live = blk >= 0;
+            int blk = tbl[size_t(b) * nb + j / seq];
+            if constexpr (PARTIAL) {
+              blk -= kv_start;
+              live = blk >= 0 && blk < n_local;
+            } else {
+              live = blk >= 0;
+            }
             off = (size_t(live ? blk : 0) * seq + j % seq) * row_stride;
           } else {
             off = (size_t(b) * seq + j) * row_stride;
@@ -189,6 +221,18 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       repro::cp_async_wait<kStages - 1>();
       __syncwarp();
       const bf16* st = ring + (it % kStages) * L::kStageElems;
+      bool owned = true;     // PARTIAL, paged: the row's block is this shard's
+      if constexpr (PARTIAL && PAGED) {
+        const int j = r0 + it * kStep + warp * kRows + pr;
+        if (j < r1) {
+          const int blk = tbl[size_t(b) * nb + j / seq] - kv_start;
+          owned = blk >= 0 && blk < n_local;
+        }
+        if (!__any_sync(0xffffffffu, j < r1 && owned)) {  // nothing live
+          __syncwarp();
+          continue;
+        }
+      }
 
       // scores: the lane pair of row pr splits its chunks; the halves walk
       // them in orders a quarter row apart, so that a quarter warp's
@@ -219,7 +263,7 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           s[g] = fmaf(qb.w, kf[7], d);
         }
       }
-      const bool ok = r0 + it * kStep + warp * kRows + pr < r1;
+      const bool ok = r0 + it * kStep + warp * kRows + pr < r1 && owned;
 
       // online softmax over the step's rows (each row is in two lanes)
       float a[G];
@@ -311,6 +355,8 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t first = size_t(bk) * splits;
   float* fw = reinterpret_cast<float*>(smem);         // (splits, G)
   float* linv = fw + splits * G;                       // (G)
+  float* mfin = linv + G;                              // (G), PARTIAL
+  float* lfin = mfin + G;                              // (G), PARTIAL
   for (int g = warp; g < G; g += kWarps) {
     float mx = -INFINITY;
     for (int s = lane; s < splits; s += 32)
@@ -327,7 +373,13 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         lsum = fmaf(f, __ldcg(ws_ml + ((first + s) * G + g) * 2 + 1), lsum);
     }
     lsum = repro::warp_sum(lsum);
-    if (lane == 0) linv[g] = lsum > 0.f ? 1.f / lsum : 0.f;
+    if (lane == 0) {
+      linv[g] = lsum > 0.f ? 1.f / lsum : 0.f;
+      if constexpr (PARTIAL) {
+        mfin[g] = mx;
+        lfin[g] = lsum;
+      }
+    }
   }
   __syncthreads();
   // each output sums its splits in split order; four loads in flight
@@ -350,38 +402,51 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float f = fw[s * G + g];
       if (f != 0.f) a = fmaf(f, __ldcg(src + size_t(s) * G * D), a);
     }
-    out[(size_t(b) * H + kvh * G + g) * D + d] = __float2bfloat16(a * linv[g]);
+    const size_t h = size_t(b) * H + kvh * G + g;
+    if constexpr (PARTIAL) {
+      const size_t BH = size_t(gridDim.x) * G;
+      pout[2 * BH + h * D + d] = a;
+      if (d == 0) {
+        pout[h] = mfin[g];
+        pout[BH + h] = lfin[g];
+      }
+    } else {
+      out[h * D + d] = __float2bfloat16(a * linv[g]);
+    }
   }
   if (tid == 0) counters[bk] = 0;
 }
 
-template <int G, int D, bool PAGED>
+template <int G, int D, bool PAGED, bool PARTIAL>
 int launch(const void* q, const void* k, const void* v, const int* tbl,
-           const int* cache_len, void* out, void* ws, void* counters, int B,
-           int seq, int nb, int K, int window, int splits, int split_rows,
-           float scale, int drop_split, cudaStream_t stream) {
+           const int* cache_len, void* out, void* pout, void* ws,
+           void* counters, int B, int seq, int nb, int K, int window,
+           int splits, int split_rows, float scale, int drop_split,
+           int kv_start, int n_local, cudaStream_t stream) {
   const size_t smem = Smem<G, D>::kBytes;
-  // the merge keeps one weight per (split, head) in shared memory
-  if ((size_t(splits) + 1) * G * sizeof(float) > Smem<G, D>::kMain)
+  // the merge keeps one weight per (split, head) in shared memory, and
+  // three more values a head
+  if ((size_t(splits) + 3) * G * sizeof(float) > Smem<G, D>::kMain)
     return int(cudaErrorInvalidValue);
-  auto kern = decode_kernel<G, D, PAGED>;
+  auto kern = decode_kernel<G, D, PAGED, PARTIAL>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   kern<<<dim3(B * K, splits), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), tbl, cache_len, static_cast<bf16*>(out),
-      static_cast<float*>(ws), static_cast<int*>(counters), seq, nb, K,
-      window, split_rows, scale, drop_split);
+      static_cast<float*>(pout), static_cast<float*>(ws),
+      static_cast<int*>(counters), seq, nb, K, window, split_rows, scale,
+      drop_split, kv_start, n_local);
   return int(cudaGetLastError());
 }
 
-template <bool PAGED>
+template <bool PAGED, bool PARTIAL>
 int dispatch(const void* q, const void* k, const void* v, const int* tbl,
-             const int* cache_len, void* out, void* ws, void* counters,
-             int B, int H, int K, int D, int seq, int nb, int window,
-             int splits, int split_rows, float scale, int drop_split,
-             void* stream) {
+             const int* cache_len, void* out, void* pout, void* ws,
+             void* counters, int B, int H, int K, int D, int seq, int nb,
+             int window, int splits, int split_rows, float scale,
+             int drop_split, int kv_start, int n_local, void* stream) {
   const long capacity = PAGED ? long(nb) * seq : long(seq);
   if (B <= 0 || K <= 0 || H % K || splits <= 0 || splits > 65535 ||
       split_rows <= 0 || long(splits) * split_rows < capacity)
@@ -390,9 +455,9 @@ int dispatch(const void* q, const void* k, const void* v, const int* tbl,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_DECODE_CASE(GG, DD)                                           \
   if (G == GG && D == DD)                                                   \
-    return launch<GG, DD, PAGED>(q, k, v, tbl, cache_len, out, ws, counters, \
-                                 B, seq, nb, K, window, splits, split_rows, \
-                                 scale, drop_split, s);
+    return launch<GG, DD, PAGED, PARTIAL>(                                  \
+        q, k, v, tbl, cache_len, out, pout, ws, counters, B, seq, nb, K,    \
+        window, splits, split_rows, scale, drop_split, kv_start, n_local, s);
   REPRO_DECODE_CASE(1, 128)
   REPRO_DECODE_CASE(2, 128)
   REPRO_DECODE_CASE(4, 128)
@@ -423,10 +488,10 @@ int paged_decode_attention(const void* q, const void* k_pool,
                            int nb, int window, int splits, int split_rows,
                            float scale, int drop_split, void* stream) {
   if (bl <= 0 || nb <= 0) return int(cudaErrorInvalidValue);
-  return dispatch<true>(q, k_pool, v_pool, static_cast<const int*>(tbl),
-                        static_cast<const int*>(cache_len), out, ws, counters,
-                        B, H, K, D, bl, nb, window, splits, split_rows, scale,
-                        drop_split, stream);
+  return dispatch<true, false>(
+      q, k_pool, v_pool, static_cast<const int*>(tbl),
+      static_cast<const int*>(cache_len), out, nullptr, ws, counters, B, H, K,
+      D, bl, nb, window, splits, split_rows, scale, drop_split, 0, 0, stream);
 }
 
 // q (B, H, D); k/v (B, S, K, D); cache_len (B,) int32; out (B, H, D); ws,
@@ -437,9 +502,43 @@ int decode_attention(const void* q, const void* k, const void* v,
                      int window, int splits, int split_rows, float scale,
                      int drop_split, void* stream) {
   if (S <= 0) return int(cudaErrorInvalidValue);
-  return dispatch<false>(q, k, v, nullptr, static_cast<const int*>(cache_len),
-                         out, ws, counters, B, H, K, D, S, 0, window, splits,
-                         split_rows, scale, drop_split, stream);
+  return dispatch<false, false>(
+      q, k, v, nullptr, static_cast<const int*>(cache_len), out, nullptr, ws,
+      counters, B, H, K, D, S, 0, window, splits, split_rows, scale,
+      drop_split, 0, 0, stream);
+}
+
+// The per-shard partials.  pos (B,) int32: each slot's global position
+// (its last live row).  pout: fp32 (B, H) m, (B, H) l, (B, H, D) acc.
+// Dense: k/v (B, S, K, D) are the rows [kv_start, kv_start + S) of the
+// cache.  Paged: k_pool/v_pool (n_local, bl, K, D) are the blocks
+// [block_start, block_start + n_local) of the pool; tbl (B, nb) holds
+// global block ids.  The rest as above.
+int decode_partial(const void* q, const void* k, const void* v,
+                   const void* pos, void* pout, void* ws, void* counters,
+                   int B, int S, int H, int K, int D, int kv_start,
+                   int window, int splits, int split_rows, float scale,
+                   int drop_split, void* stream) {
+  if (S <= 0) return int(cudaErrorInvalidValue);
+  return dispatch<false, true>(
+      q, k, v, nullptr, static_cast<const int*>(pos), nullptr, pout, ws,
+      counters, B, H, K, D, S, 0, window, splits, split_rows, scale,
+      drop_split, kv_start, 0, stream);
+}
+
+int paged_decode_partial(const void* q, const void* k_pool,
+                         const void* v_pool, const void* tbl, const void* pos,
+                         void* pout, void* ws, void* counters, int B, int H,
+                         int K, int D, int bl, int nb, int n_local,
+                         int block_start, int window, int splits,
+                         int split_rows, float scale, int drop_split,
+                         void* stream) {
+  if (bl <= 0 || nb <= 0 || n_local <= 0) return int(cudaErrorInvalidValue);
+  return dispatch<true, true>(
+      q, k_pool, v_pool, static_cast<const int*>(tbl),
+      static_cast<const int*>(pos), nullptr, pout, ws, counters, B, H, K, D,
+      bl, nb, window, splits, split_rows, scale, drop_split, block_start,
+      n_local, stream);
 }
 
 }  // extern "C"

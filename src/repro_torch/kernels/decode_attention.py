@@ -34,6 +34,26 @@ the pool's block length (the plan picks block lengths from 16 to 512).
 Tiles outside :data:`KERNEL_TILES` raise.  :func:`decode_attention_splits`
 mirrors the kernels' split-and-merge arithmetic in plain PyTorch for the
 tests; nothing on the main path calls it.
+
+Per-shard partials (K8): where a mesh shards the cache's rows over
+ranks (:mod:`repro_torch.dist.flash_decode`), each rank needs the
+unnormalised online-softmax terms ``(m, l, acc)`` of its own rows, and
+the ranks combine them.  :func:`decode_partial` (a dense slice whose
+first row is the global row ``kv_start``) and
+:func:`paged_decode_partial` (a sub-pool whose first block is the
+global block ``block_start``, read through the global table) launch the
+same kernels in their ``PARTIAL`` mode: the last CTA of a (slot, kv
+head) writes the merged fp32 ``m`` and ``l`` ``(B, H)`` and ``acc``
+``(B, H, D)`` instead of the bf16 output.  A row is live where its
+global position lies in ``[pos + 1 - window, pos]`` (from 0 without a
+window) and, paged, its block is owned and assigned; unowned blocks are
+never read.  Their plain versions, :func:`decode_partial_plain` and
+:func:`paged_decode_partial_plain`, are the JAX package's
+``_partial_attend`` and ``_partial_attend_paged``: a masked row scores
+:data:`NEG_INF`, so a shard without a live row gives ``m = NEG_INF``,
+``l`` = its row count, where the kernel gives ``m = -inf, l = 0``.  The
+combined context is the same wherever some shard of the slot has a
+live row.
 """
 
 from __future__ import annotations
@@ -64,6 +84,10 @@ WARPS, WARP_ROWS, STAGES = 4, 16, 2
 #: launches of each CUDA kernel in this process (reset by the caller)
 paged_launches = 0
 dense_launches = 0
+partial_launches = 0
+paged_partial_launches = 0
+#: the masked score of the plain partials (the JAX package's value)
+NEG_INF = -1e30
 
 IntOrTensor = Union[int, torch.Tensor]
 
@@ -195,6 +219,78 @@ def decode_attention_splits(q: torch.Tensor, k: torch.Tensor,
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def _partial_terms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kpos: torch.Tensor, pos: torch.Tensor, window: int,
+                   extra: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_partial_attend`` of the JAX package in fp32: q ``(B, H, D)``,
+    k/v ``(B, S, K, D)``, ``kpos`` the rows' global positions ``(S,)``
+    or ``(B, S)``, ``pos`` ``(B,)``; ``extra`` ``(B, S)`` masks more
+    rows.  Returns ``m``, ``l`` ``(B, H)`` and ``acc`` ``(B, H, D)``."""
+    B, H, D = q.shape
+    K = k.shape[2]
+    qh = q.reshape(B, K, H // K, D).float() * (D ** -0.5)
+    s = torch.einsum("bkgd,bskd->bkgs", qh, k.float())
+    kpos = kpos if kpos.dim() == 2 else kpos[None, :]
+    pos = pos.long()[:, None]
+    valid = kpos <= pos
+    if window > 0:
+        valid &= (pos - kpos) < window
+    if extra is not None:
+        valid &= extra
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return m.reshape(B, H), p.sum(-1).reshape(B, H), acc.reshape(B, H, D)
+
+
+def decode_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, kv_start: int, pos: torch.Tensor,
+                         window: int = 0
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense partial: a ``(B, Sl, K, D)`` slice of the cache whose
+    row ``r`` is the global row ``kv_start + r``, per-slot ``pos``."""
+    kpos = kv_start + torch.arange(k.shape[1], device=q.device)
+    return _partial_terms(q, k, v, kpos, pos, window)
+
+
+def paged_decode_partial_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, block_tbl: torch.Tensor,
+                               *, block_start: int, pos: torch.Tensor,
+                               window: int = 0
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """The paged partial over the blocks of a ``(Nl, bl, K, D)``
+    sub-pool whose first block is the global block ``block_start``,
+    through the global ``(B, nb)`` table.  As the JAX package's
+    ``_partial_attend_paged``, each slot's owned columns are first
+    moved to the front (stable), and only ``min(nb, Nl)`` of them are
+    gathered; a row keeps the position of its table column."""
+    Nl, bl = k_pool.shape[0], k_pool.shape[1]
+    B, nb = block_tbl.shape
+    tbl = block_tbl.long()
+    loc = tbl - block_start
+    owned = (tbl >= 0) & (loc >= 0) & (loc < Nl)
+    cols = min(nb, Nl)
+    if cols < nb:
+        order = torch.argsort((~owned).to(torch.int8), dim=1,
+                              stable=True)[:, :cols]
+        loc = torch.gather(loc, 1, order)
+        owned = torch.gather(owned, 1, order)
+        blk_pos = order
+    else:
+        blk_pos = torch.arange(nb, device=q.device).expand(B, nb)
+    safe = loc.clamp(0, Nl - 1)
+    kd = k_pool[safe].reshape(B, cols * bl, *k_pool.shape[2:])
+    vd = v_pool[safe].reshape(B, cols * bl, *v_pool.shape[2:])
+    kpos = (blk_pos[:, :, None] * bl
+            + torch.arange(bl, device=q.device)[None, None, :]
+            ).reshape(B, cols * bl)
+    extra = owned.repeat_interleave(bl, dim=1)
+    return _partial_terms(q, kd, vd, kpos, pos, window, extra)
+
+
 #: per-device arrival counters of the kernels' in-launch merge
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
@@ -324,3 +420,85 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _launch_error("decode_attention", err)
     dense_launches += 1
     return out
+
+
+def _partial_out(q: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """One fp32 buffer for a partial's ``m``, ``l`` ``(B, H)`` and
+    ``acc`` ``(B, H, D)``, and the three views of it."""
+    B, H, D = q.shape
+    buf = torch.empty(B * H * (D + 2), dtype=torch.float32, device=q.device)
+    return (buf, buf[:B * H].view(B, H), buf[B * H:2 * B * H].view(B, H),
+            buf[2 * B * H:].view(B, H, D))
+
+
+def decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   kv_start: int, pos: IntOrTensor, window: int = 0,
+                   block_kv: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the dense kernel's ``PARTIAL`` mode on CUDA tensors: the
+    ``(m, l, acc)`` of a ``(B, Sl, K, D)`` slice whose first row is the
+    global row ``kv_start``, per-slot global positions ``pos``.  Raises on
+    any other device or input the kernel does not take."""
+    global partial_launches
+    _on_card("decode_partial", q)
+    tile = kernel_tile("decode_partial", block_kv)
+    B, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    ps = _lengths(pos, B, q.device)
+    _check("decode_partial", q, [("q", q), ("k", k), ("v", v)],
+           [("pos", ps)])
+    if v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"decode_partial: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)}")
+    splits, rows = decode_split(B, K, S, tile)
+    buf, m, l, acc = _partial_out(q)
+    ws = _workspace(q, K, splits)
+    err = build.library("decode_attention").decode_partial(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ps.data_ptr(),
+        buf.data_ptr(), ws.data_ptr(), _counters(q.device, B * K).data_ptr(),
+        B, S, H, K, D, int(kv_start), int(window), splits, rows,
+        float(D ** -0.5), -1, torch.cuda.current_stream(q.device).cuda_stream)
+    _launch_error("decode_partial", err)
+    partial_launches += 1
+    return m, l, acc
+
+
+def paged_decode_partial(q: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, block_tbl: torch.Tensor, *,
+                         block_start: int, pos: IntOrTensor, window: int = 0,
+                         block_kv: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the paged kernel's ``PARTIAL`` mode on CUDA tensors: the
+    ``(m, l, acc)`` over the blocks of a ``(Nl, bl, K, D)`` sub-pool
+    whose first block is the global block ``block_start``, through the
+    global ``(B, nb)`` table.  Raises on any other device or input the
+    kernel does not take."""
+    global paged_partial_launches
+    _on_card("paged_decode_partial", q)
+    tile = kernel_tile("paged_decode_partial", block_kv)
+    B, H, D = q.shape
+    Nl, bl, K = k_pool.shape[:3]
+    ps = _lengths(pos, B, q.device)
+    _check("paged_decode_partial", q,
+           [("q", q), ("k_pool", k_pool), ("v_pool", v_pool)],
+           [("block_tbl", block_tbl), ("pos", ps)])
+    if v_pool.shape != k_pool.shape or k_pool.shape[3] != D \
+            or block_tbl.shape[0] != B:
+        raise ValueError(f"paged_decode_partial: shapes q {tuple(q.shape)} "
+                         f"pool {tuple(k_pool.shape)} "
+                         f"table {tuple(block_tbl.shape)}")
+    nb = block_tbl.shape[1]
+    splits, rows = decode_split(B, K, nb * bl, tile)
+    buf, m, l, acc = _partial_out(q)
+    ws = _workspace(q, K, splits)
+    err = build.library("decode_attention").paged_decode_partial(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tbl.data_ptr(), ps.data_ptr(), buf.data_ptr(), ws.data_ptr(),
+        _counters(q.device, B * K).data_ptr(), B, H, K, D, bl, nb, Nl,
+        int(block_start), int(window), splits, rows, float(D ** -0.5), -1,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _launch_error("paged_decode_partial", err)
+    paged_partial_launches += 1
+    return m, l, acc

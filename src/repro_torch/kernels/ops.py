@@ -114,6 +114,37 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, *, cache_len,
                                        block_kv=block_kv)
 
 
+def decode_partial(q, k, v, *, kv_start: int, pos, window: int = 0,
+                   block_kv: Optional[int] = None, mode: str = "auto"):
+    """The per-shard partial ``(m, l, acc)`` of q ``(B, H, D)`` over a
+    dense ``(B, Sl, K, D)`` slice whose first row is the global row
+    ``kv_start``, at per-slot global positions ``pos``: K8 on a CUDA
+    tensor, the plain version on a CPU one.  Raises under autograd."""
+    _refuse_grad("decode_partial", q, k, v)
+    if not _use_kernel("decode_partial", q, mode):
+        return _dec.decode_partial_plain(q, k, v, kv_start=kv_start, pos=pos,
+                                         window=window)
+    return _dec.decode_partial(q, k, v, kv_start=kv_start, pos=pos,
+                               window=window, block_kv=block_kv)
+
+
+def paged_decode_partial(q, k_pool, v_pool, block_tbl, *, block_start: int,
+                         pos, window: int = 0,
+                         block_kv: Optional[int] = None, mode: str = "auto"):
+    """The per-shard partial over the blocks of a ``(Nl, bl, K, D)``
+    sub-pool whose first block is the global block ``block_start``,
+    through the global table: K8 on a CUDA tensor, the plain version on
+    a CPU one.  Raises under autograd."""
+    _refuse_grad("paged_decode_partial", q, k_pool, v_pool)
+    if not _use_kernel("paged_decode_partial", q, mode):
+        return _dec.paged_decode_partial_plain(
+            q, k_pool, v_pool, block_tbl, block_start=block_start, pos=pos,
+            window=window)
+    return _dec.paged_decode_partial(q, k_pool, v_pool, block_tbl,
+                                     block_start=block_start, pos=pos,
+                                     window=window, block_kv=block_kv)
+
+
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: Optional[int] = None,
              heads_block: Optional[int] = None, initial_state=None,
              mode: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -172,6 +203,8 @@ def launch_counts() -> Dict[str, int]:
             "flash_attention_bwd_positions": _fa.pos_bwd_launches,
             "paged_decode_attention": _dec.paged_launches,
             "decode_attention": _dec.dense_launches,
+            "decode_partial": _dec.partial_launches,
+            "paged_decode_partial": _dec.paged_partial_launches,
             "ssd_scan": _ssd.launches,
             "ssd_scan_bwd": _ssd.bwd_launches,
             "tiled_matmul": _mm.launches}
@@ -185,6 +218,8 @@ def reset_launch_counts() -> None:
     _fa.pos_bwd_launches = 0
     _dec.paged_launches = 0
     _dec.dense_launches = 0
+    _dec.partial_launches = 0
+    _dec.paged_partial_launches = 0
     _ssd.launches = 0
     _ssd.bwd_launches = 0
     _mm.launches = 0

@@ -27,6 +27,15 @@ Two modes, as in the JAX package's launcher, on one card:
   position), as the JAX package's engine takes them.  The encoder
   hubert-xlarge has no decode step and is refused before any plan or
   weight;
+* mesh mode (``--mesh DxM``, implies ``--from-plan``) — one process a
+  rank under ``torchrun --nproc-per-node D*M`` (NCCL on the cards, one
+  card a rank; ``--device cpu`` runs the ranks on the CPU over gloo):
+  the plan is specialized for the ``(D, M)`` ``(data, model)`` mesh,
+  every rank builds the whole weights from ``--seed`` and keeps its
+  pieces (:meth:`ServeEngine.from_plan` with the ``DeviceMesh``), and
+  every rank serves the same requests; rank 0 reports.  ``check_fits``
+  then measures one rank's share of the weights, and a model one card
+  cannot hold is refused with the mesh it needs;
 * disaggregated prefill (``--disagg N``, implies ``--from-plan``) —
   the same plan with ``kv_prefill_mode=disagg`` forced: prefill runs on
   N spawned worker processes behind the engine
@@ -69,6 +78,8 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve --from-plan
           --max-len 2048 --max-batch 8
       PYTHONPATH=src python -m repro_torch.launch.serve --full \
           --max-len 4096 --max-batch 8 --disagg 1
+      PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+          -m repro_torch.launch.serve --mesh 1x2 --device cpu
 """
 
 from __future__ import annotations
@@ -77,6 +88,7 @@ import argparse
 import dataclasses
 import math
 import os
+import sys
 import time
 
 import numpy as np
@@ -108,7 +120,16 @@ def main(argv=None) -> None:
                     help="run prefill on N supervised worker processes "
                          "(disaggregated prefill; implies --from-plan and "
                          "forces kv_prefill_mode=disagg)")
+    ap.add_argument("--mesh", default="",
+                    help='"DxM": serve on a (data, model) mesh of D*M ranks '
+                         "(run under torchrun --nproc-per-node D*M); "
+                         "implies --from-plan")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        mesh, args.device = _init_mesh(args.mesh, args.device)
+        if torch.distributed.get_rank():
+            sys.stdout = open(os.devnull, "w")     # rank 0 reports
 
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.core.passes.lowering import build_run_cfg
@@ -132,21 +153,31 @@ def main(argv=None) -> None:
     if args.n_layers:
         print(f"cut: {arch.name} n_layers {arch.n_layers} -> {args.n_layers}")
         arch = dataclasses.replace(arch, n_layers=args.n_layers)
-    if args.from_plan or args.disagg:
+    if args.from_plan or args.disagg or mesh is not None:
         shape = ShapeConfig("serve", "decode", args.max_len, args.max_batch)
-        plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm")
+        mesh_shape = tuple(mesh.shape) if mesh is not None else (1, 1)
+        plan = specialize(arch, shape, mesh_axes=("data", "model"),
+                          mesh_shape=mesh_shape, target="h100-sxm")
         _, heads, _, kv_heads = plan.padded_sizes()
         # refuse an arch the card's kernels cannot take before any weight
         check_on_device(arch, args.device, heads=heads, kv_heads=kv_heads,
                         flash_tiles=build_run_cfg(plan, arch).flash_tiles)
-        check_fits(arch, plan.padded_sizes(), args.device)
+        check_fits(arch, plan.padded_sizes(), args.device, plan=plan)
         gen = torch.Generator(args.device).manual_seed(args.seed)
-        params = lm.init_params(arch, gen, *plan.padded_sizes())
+        pieces = None
+        if mesh is not None:
+            # each rank builds only its pieces of the weights
+            from repro_torch.serve.sharded import param_pieces
+            pieces = param_pieces(mesh, plan, arch)
+        params = lm.init_params(arch, gen, *plan.padded_sizes(),
+                                pieces=pieces)
         engine = ServeEngine.from_plan(
-            plan, params, arch=arch, seed=args.seed,
+            plan, params, arch=arch, seed=args.seed, mesh=mesh,
             kv_prefill_mode="disagg" if args.disagg else None,
             disagg_workers=args.disagg)
+        del params
         print(f"plan {plan.content_hash()[:12]} target={plan.target} "
+              f"mesh={mesh_shape} "
               f"kv_residency={engine.kv_residency} "
               f"kv_admission={engine.kv_admission} "
               f"block_len={engine.block_len} n_blocks={engine.n_blocks} "
@@ -200,16 +231,55 @@ def main(argv=None) -> None:
               f"tokens={r.out_tokens[:8]}...")
     print(f"telemetry {engine.telemetry()}")
     print(f"pressure {engine.pressure_stats()}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
-def check_fits(arch, padded_sizes, device) -> None:
+def _init_mesh(spec: str, device: str):
+    """The process group and ``(data, model)`` mesh of ``--mesh DxM``:
+    the rank, world and rendezvous come from ``torchrun``'s environment;
+    NCCL with one card a rank (``LOCAL_RANK``), gloo on the CPU."""
+    from repro_torch.launch.mesh import make_host_mesh
+    d, m = (int(x) for x in spec.lower().split("x"))
+    if "RANK" not in os.environ:
+        raise SystemExit(f"--mesh {spec}: run under torchrun "
+                         f"--nproc-per-node {d * m}")
+    if torch.device(device).type == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(torch.device(device))
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    torch.distributed.init_process_group(backend)
+    if torch.distributed.get_world_size() != d * m:
+        raise SystemExit(f"--mesh {spec} needs {d * m} ranks, torchrun "
+                         f"started {torch.distributed.get_world_size()}")
+    return make_host_mesh(model=m), device
+
+
+def check_fits(arch, padded_sizes, device, plan=None) -> None:
     """Raise, before any weight is built, for a model whose weights
     (``lm.leaf_specs`` at the plan's padded sizes) exceed the free
     memory of ``device``: the card's (``torch.cuda.mem_get_info``) or
-    the host's available RAM."""
+    the host's available RAM.  With a ``plan`` for a mesh, one rank's
+    share: each leaf's bytes over the ranks its spec splits it across
+    (``lowering.param_pspecs``), what the rank builds
+    (``serve.sharded.param_pieces``) and the engine keeps.  The refusal
+    names the smallest model axis whose share would fit."""
     from repro_torch.models import lm
-    need = sum(math.prod(s.shape) * s.dtype.itemsize
-               for s in _spec_leaves(lm.leaf_specs(arch, *padded_sizes)))
+    leaves = list(_spec_leaves(lm.leaf_specs(arch, *padded_sizes)))
+    split = [1] * len(leaves)
+    if plan is not None and any(int(n) > 1 for n in plan.mesh_shape):
+        from repro_torch.core.passes.lowering import param_pspecs
+        sizes = dict(zip(plan.mesh_axes, (int(n) for n in plan.mesh_shape)))
+        specs = list(_spec_leaves(param_pspecs(plan, arch, sizes),
+                                  leaf=lambda x: isinstance(x, tuple)))
+        split = [math.prod(sizes[a] for e in sp if e is not None
+                           for a in ((e,) if isinstance(e, str) else e))
+                 for sp in specs]
+    whole = sum(math.prod(s.shape) * s.dtype.itemsize for s in leaves)
+    need = sum(math.prod(s.shape) * s.dtype.itemsize // n
+               for s, n in zip(leaves, split))
     device = torch.device(device)
     if device.type == "cuda":
         free, where = torch.cuda.mem_get_info(device)[0], "the card"
@@ -217,20 +287,24 @@ def check_fits(arch, padded_sizes, device) -> None:
         free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
         where = "the host"
     if need > free:
+        m = 2
+        while whole / m > 0.9 * free and m < 4096:
+            m *= 2
         raise NotImplementedError(
-            f"{arch.name}: {need} weight bytes (bf16 matrices, fp32 norms "
-            f"and routers) at {arch.n_layers} layers, {free} bytes free on "
-            f"{where}: one device cannot hold it, and serving it across "
-            "cards waits for the port's multi-GPU work (ROADMAP item 10); "
-            "--n-layers cuts the depth")
+            f"{arch.name}: {need} weight bytes a rank (bf16 matrices, fp32 "
+            f"norms and routers) at {arch.n_layers} layers, {free} bytes "
+            f"free on {where}: one device cannot hold it; split over about "
+            f"{m} cards on the model axis (ROADMAP item 10: torchrun "
+            f"--nproc-per-node {m} -m repro_torch.launch.serve --mesh "
+            f"1x{m}), or --n-layers cuts the depth")
 
 
-def _spec_leaves(specs):
-    if isinstance(specs, dict):
-        for v in specs.values():
-            yield from _spec_leaves(v)
-    else:
+def _spec_leaves(specs, leaf=lambda x: not isinstance(x, dict)):
+    if leaf(specs):
         yield specs
+    else:
+        for v in specs.values():
+            yield from _spec_leaves(v, leaf)
 
 
 def _profiler(device):

@@ -112,8 +112,8 @@ def main(argv=None) -> None:
 
     if args.model_parallel != 1:
         raise NotImplementedError(
-            "--model-parallel: the port trains on one card (the multi-GPU "
-            "slice is ROADMAP item 10)")
+            "--model-parallel: the port trains on one card (training on a "
+            "mesh is ROADMAP item 10b)")
     arch = get_arch(args.arch)
     if not args.full:
         small = arch.reduced()

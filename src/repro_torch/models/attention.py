@@ -77,13 +77,16 @@ def attention_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
 def project_qkv(x: torch.Tensor, p: AttnParams, n_heads: int, n_kv: int,
                 hd: int, positions: torch.Tensor, theta: float,
                 mrope_sections: Optional[Tuple[int, int, int]] = None,
-                qk_norm_eps: float = 1e-6):
+                qk_norm_eps: float = 1e-6, proj=None):
     """q/k/v of ``x`` ``(B, S, d)``: projections, qk-norm, RoPE (M-RoPE
-    over ``(3, B, S)`` positions with ``mrope_sections``)."""
+    over ``(3, B, S)`` positions with ``mrope_sections``).  ``proj(x,
+    w)`` replaces the products ``x @ w`` (a mesh joins a split
+    projection's columns there)."""
     lead = x.shape[:-1]
-    q = (x @ p.wq).reshape(*lead, n_heads, hd)
-    k = (x @ p.wk).reshape(*lead, n_kv, hd)
-    v = (x @ p.wv).reshape(*lead, n_kv, hd)
+    proj = proj or torch.matmul
+    q = proj(x, p.wq).reshape(*lead, n_heads, hd)
+    k = proj(x, p.wk).reshape(*lead, n_kv, hd)
+    v = proj(x, p.wv).reshape(*lead, n_kv, hd)
     if p.q_norm is not None:
         q = rms_norm(q, p.q_norm, qk_norm_eps)
         k = rms_norm(k, p.k_norm, qk_norm_eps)

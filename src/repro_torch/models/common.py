@@ -9,8 +9,10 @@ second halves of head_dim are the rotated pair), not interleaved.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -86,7 +88,9 @@ STAGING = 1 << 26
 
 
 def truncated_normal_(t: torch.Tensor, scale: float,
-                      generator: torch.Generator) -> torch.Tensor:
+                      generator: torch.Generator,
+                      whole: Optional[Sequence[int]] = None,
+                      start: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Fill ``t`` in place with ``scale * N(0, 1)`` truncated to two
     standard deviations (the JAX package's ``truncated_normal_init``
     distribution), drawn in fp32 from ``generator`` and cast to
@@ -95,21 +99,49 @@ def truncated_normal_(t: torch.Tensor, scale: float,
     :data:`STAGING` elements, so the fp32 staging buffer stays at or
     under that bound (an expert stack ``(1, E, d, 2 ff)`` is sliced
     over ``E`` and ``d``).  A tensor whose dim-0 rows fit is sliced
-    along dim 0 alone."""
-    lead, rows = 1, (t.shape[0] if t.dim() else 1)
-    while lead < t.dim() and t.numel() // max(rows, 1) > STAGING:
+    along dim 0 alone.
+
+    With ``whole`` and ``start``, ``t`` is the piece from index
+    ``start`` (an offset a dim) of a ``whole``-shaped tensor: the whole
+    is drawn in the same slices and ``t`` keeps the entries that fall in
+    it, exactly those the whole would hold there, while no more than
+    the piece and one slice are ever allocated."""
+    shape = tuple(t.shape) if whole is None else tuple(whole)
+    dim, numel = len(shape), math.prod(shape)
+    lead, rows = 1, (shape[0] if dim else 1)
+    while lead < dim and numel // max(rows, 1) > STAGING:
         lead += 1
-        rows *= t.shape[lead - 1]
-    per_row = max(1, t.numel() // max(rows, 1))
+        rows *= shape[lead - 1]
+    per_row = max(1, numel // max(rows, 1))
     step = max(1, STAGING // per_row)
-    flat = t.view(rows, -1) if t.dim() else t.view(1, 1)
+    if whole is None:
+        flat = t.view(rows, -1) if dim else t.view(1, 1)
+    else:
+        tail = (slice(None),) + tuple(slice(a, a + n) for a, n in
+                                      zip(start[lead:], t.shape[lead:]))
+        local = t.view(-1, *t.shape[lead:])
     for i in range(0, rows, step):
-        buf = torch.empty(flat[i:i + step].shape, dtype=torch.float32,
-                          device=t.device)
+        n = min(step, rows - i)
+        buf = torch.empty((n, per_row), dtype=torch.float32, device=t.device)
         torch.nn.init.trunc_normal_(buf, mean=0.0, std=scale,
                                     a=-2.0 * scale, b=2.0 * scale,
                                     generator=generator)
-        flat[i:i + step].copy_(buf)
+        if whole is None:
+            flat[i:i + n].copy_(buf)
+            continue
+        # the slice's rows that lie in the piece, and where they go
+        idx = np.unravel_index(np.arange(i, i + n), shape[:lead])
+        keep = np.ones(n, bool)
+        for d in range(lead):
+            keep &= (idx[d] >= start[d]) & (idx[d] < start[d] + t.shape[d])
+        if not keep.any():
+            continue
+        at = np.ravel_multi_index(
+            tuple(idx[d][keep] - start[d] for d in range(lead)),
+            t.shape[:lead])
+        mine = buf.view(n, *shape[lead:])[
+            torch.as_tensor(np.nonzero(keep)[0], device=t.device)][tail]
+        local[torch.as_tensor(at, device=t.device)] = mine.to(t.dtype)
     return t
 
 

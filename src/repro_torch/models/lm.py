@@ -65,6 +65,7 @@ from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import tp
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.common import (
     cross_entropy_loss,
@@ -92,10 +93,22 @@ class RunCfg:
     layer runs).
     ``kernels`` is the plan's ``use_pallas`` mode.  ``remat`` is the
     communication pass's remat policy (``none``, ``dots`` /
-    ``dots_saveable``, ``full``).  The JAX package's mesh and sharding
-    fields are gone (the port runs on one card).  The padded vocab needs
-    no field: the logits take their width from ``lm_head`` and the loss
+    ``dots_saveable``, ``full``).  The padded vocab needs no field on
+    one card: the logits take their width from ``lm_head`` and the loss
     masks past ``arch.vocab_size``.
+
+    On a mesh (serving only: ROADMAP item 10b trains on one), ``mesh``
+    is the :class:`torch.distributed.device_mesh.DeviceMesh` whose ranks
+    each hold their piece of the parameters and cache, ``data_axes`` and
+    ``model_axis`` name its axes, ``heads_padded`` / ``vocab_padded``
+    the whole sizes a piece is measured against (0: the arch's), and
+    ``decode_impl`` / ``combine_topology`` the plan's decode decisions.
+    The engine that placed the cache sets ``kv_split``: ``"heads"``
+    (the kv-head dim is split over the model axis: every rank decodes
+    its own heads), ``"rows"`` (the seq dim, or a paged cache's pool
+    dim, is split: :mod:`repro_torch.dist.flash_decode`), or ``"none"``;
+    and ``kv_whole``, the whole cache's ``(batch, seq_len or
+    n_blocks)``.
     """
 
     kv_heads_padded: int = 0       # 0 -> arch.n_kv_heads
@@ -106,6 +119,15 @@ class RunCfg:
     moe_impl: str = "gshard_einsum"
     kernels: str = "auto"
     remat: str = "none"
+    mesh: Any = None
+    data_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    decode_impl: str = "xla"
+    combine_topology: Optional[str] = None
+    heads_padded: int = 0
+    vocab_padded: int = 0
+    kv_split: str = "none"
+    kv_whole: Tuple[int, int] = (0, 0)
 
 
 #: the families and modalities the port runs (every arch of ``configs``)
@@ -293,44 +315,139 @@ def _map_specs(specs, fn):
     return {k: _map_specs(v, fn) for k, v in specs.items()}
 
 
+#: each leaf's logical axes by ``(parent key, leaf key)``, as the JAX
+#: package's ``LeafSpec.axes`` name them (``src/repro/models/lm.py
+#: :103-222``); a parent of ``None`` is a top-level or mixer leaf
+_AXES = {
+    (None, "embed"): ("vocab", "embed"),
+    (None, "final_norm"): ("embed",),
+    (None, "lm_head"): ("embed", "vocab"),
+    (None, "pre_norm"): ("layers", "embed"),
+    (None, "mlp_norm"): ("layers", "embed"),
+    ("attn", "wq"): ("layers", "embed", "heads"),
+    ("attn", "wk"): ("layers", "embed", "kv_heads"),
+    ("attn", "wv"): ("layers", "embed", "kv_heads"),
+    ("attn", "wo"): ("layers", "heads", "embed"),
+    ("attn", "q_norm"): ("layers", None),
+    ("attn", "k_norm"): ("layers", None),
+    ("mlp", "wi"): ("layers", "embed", "ff"),
+    ("mlp", "wo"): ("layers", "ff", "embed"),
+    ("moe", "router"): ("layers", "embed", None),
+    ("moe", "wi"): ("layers", "experts", "embed", "ff"),
+    ("moe", "wo"): ("layers", "experts", "ff", "embed"),
+    ("moe", "shared_wi"): ("layers", "embed", "ff"),
+    ("moe", "shared_wo"): ("layers", "ff", "embed"),
+    ("ssm", "in_proj"): ("layers", "embed", "ssm_inner"),
+    ("ssm", "conv_w"): ("layers", None, "ssm_inner"),
+    ("ssm", "conv_b"): ("layers", "ssm_inner"),
+    ("ssm", "A_log"): ("layers", "ssm_heads"),
+    ("ssm", "D"): ("layers", "ssm_heads"),
+    ("ssm", "dt_bias"): ("layers", "ssm_heads"),
+    ("ssm", "norm"): ("layers", "ssm_inner"),
+    ("ssm", "out_proj"): ("layers", "ssm_inner", "embed"),
+}
+
+
+def _axes_tree(specs, parent=None):
+    out = {}
+    for k, v in specs.items():
+        if isinstance(v, LeafSpec):
+            # llama4's super-block subtree is named "moe" too: its norms
+            # are mixer leaves
+            out[k] = _AXES.get((parent, k)) or _AXES[(None, k)]
+        else:
+            out[k] = _axes_tree(v, k)
+    return out
+
+
+def param_shapes(arch: ArchConfig, vocab_padded: int = 0,
+                 heads_padded: int = 0, ssm_heads_padded: int = 0,
+                 kv_heads_padded: int = 0) -> Dict[str, Any]:
+    """Each leaf's shape, in the tree of :func:`leaf_specs`."""
+    return _map_specs(leaf_specs(arch, vocab_padded, heads_padded,
+                                 ssm_heads_padded, kv_heads_padded),
+                      lambda s: s.shape)
+
+
+def param_axes(arch: ArchConfig, vocab_padded: int = 0,
+               heads_padded: int = 0, ssm_heads_padded: int = 0,
+               kv_heads_padded: int = 0) -> Dict[str, Any]:
+    """Each leaf's logical axes (``src/repro/models/lm.py:245-252``), in
+    the tree of :func:`leaf_specs`."""
+    return _axes_tree(leaf_specs(arch, vocab_padded, heads_padded,
+                                 ssm_heads_padded, kv_heads_padded))
+
+
 def init_params(arch: ArchConfig, generator: torch.Generator,
                 vocab_padded: int = 0, heads_padded: int = 0,
                 ssm_heads_padded: int = 0,
-                kv_heads_padded: int = 0) -> Dict[str, Any]:
+                kv_heads_padded: int = 0, pieces=None) -> Dict[str, Any]:
     """Random parameters on ``generator``'s device: truncated normal
     (two standard deviations) at each leaf's scale, zeros where the
     scale is 0 (norm weights — :func:`rms_norm` scales by ``1 + w``).
     Layout-padded heads get zero projections, and the SSM leaves the JAX
     package's fixed values (``A_log = log(linspace(1, 16, H))``, ``D =
-    1``, ``dt_bias = -2``)."""
-    dev = generator.device
+    1``, ``dt_bias = -2``).
 
-    def leaf(s: LeafSpec) -> torch.Tensor:
-        t = torch.zeros(s.shape, dtype=s.dtype, device=dev)
+    ``pieces``, a tree of :func:`leaf_specs`'s shape holding each
+    leaf's ``(start, shape)`` (an offset and a size a dim), builds only
+    those pieces: each leaf is drawn whole, slice by slice, as without
+    it, and keeps its piece (:func:`truncated_normal_`), so a rank of a
+    mesh holds exactly its pieces of the whole weights the same seed
+    gives, and never a whole leaf
+    (:func:`repro_torch.serve.sharded.param_pieces`)."""
+    dev = generator.device
+    specs = leaf_specs(arch, vocab_padded, heads_padded, ssm_heads_padded,
+                       kv_heads_padded)
+
+    def build(s, piece):
+        if isinstance(s, dict):
+            return {k: build(v, piece[k] if piece else None)
+                    for k, v in s.items()}
+        start, shape = piece if piece else (None, s.shape)
+        t = torch.zeros(shape, dtype=s.dtype, device=dev)
         if s.scale != 0.0:
-            truncated_normal_(t, s.scale, generator)
+            truncated_normal_(t, s.scale, generator,
+                              whole=s.shape if piece else None, start=start)
         return t
 
-    params = _map_specs(leaf_specs(arch, vocab_padded, heads_padded,
-                                   ssm_heads_padded, kv_heads_padded), leaf)
-    for grp in _mixer_groups(params["blocks"]):
+    def from_(t, at, dim, cut):
+        # zero ``t`` from the whole index ``cut`` on along ``dim``
+        k = min(max(cut - (at[dim] if at else 0), 0), t.shape[dim])
+        t.narrow(dim, k, t.shape[dim] - k).zero_()
+
+    params = build(specs, pieces)
+    starts = _map_specs(specs, lambda s: None) if pieces is None else \
+        _tree_map(lambda x: x[0], pieces)
+    for grp, at, sp in zip(_mixer_groups(params["blocks"]),
+                           _mixer_groups(starts["blocks"]),
+                           _mixer_groups(specs["blocks"])):
         attn = grp.get("attn")
         if attn is not None and heads_padded and heads_padded != arch.n_heads:
             cut = arch.n_heads * arch.hd
-            attn["wq"][..., cut:] = 0
-            attn["wo"][:, cut:, :] = 0
+            from_(attn["wq"], at["attn"]["wq"], 2, cut)
+            from_(attn["wo"], at["attn"]["wo"], 1, cut)
         if attn is not None and kv_heads_padded \
                 and kv_heads_padded != arch.n_kv_heads:
             cut = arch.n_kv_heads * arch.hd
-            attn["wk"][..., cut:] = 0
-            attn["wv"][..., cut:] = 0
+            from_(attn["wk"], at["attn"]["wk"], 2, cut)
+            from_(attn["wv"], at["attn"]["wv"], 2, cut)
         ssm = grp.get("ssm")
         if ssm is not None:
-            H = ssm["A_log"].shape[-1]
-            ssm["A_log"].copy_(torch.log(torch.linspace(1.0, 16.0, H)))
+            H = sp["ssm"]["A_log"].shape[-1]
+            a0 = at["ssm"]["A_log"][-1] if at["ssm"]["A_log"] else 0
+            n = ssm["A_log"].shape[-1]
+            ssm["A_log"].copy_(torch.log(torch.linspace(1.0, 16.0, H))
+                               [a0:a0 + n])
             ssm["D"].fill_(1.0)
             ssm["dt_bias"].fill_(-2.0)
     return params
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _mixer_groups(blocks: Dict[str, Any]) -> List[Dict[str, Any]]:
@@ -385,14 +502,15 @@ def _gated(arch: ArchConfig) -> bool:
     return arch.gated_mlp and arch.family != "encoder"
 
 
-def _embed_in(arch: ArchConfig, params, batch):
+def _embed_in(arch: ArchConfig, params, batch, cfg: Optional[RunCfg] = None):
     """``(x, positions, mask_pos)`` (``src/repro/models/lm.py:311-332``):
     ``x`` ``(B, S, d)`` bf16, the token embeddings or the batch's
     ``embeds`` (plus the sinusoidal table for audio); ``positions`` the
     batch's (``(3, B, S)`` under M-RoPE) or ``0..S-1``, broadcast to
     three streams under M-RoPE; ``mask_pos`` the positions attention is
     masked by, the temporal stream, or ``None`` where that is each
-    row's index (the mask the flash kernel applies)."""
+    row's index (the mask the flash kernel applies).  On a mesh the
+    table's rows may be split over the model ranks (:func:`tp.embed`)."""
     if "embeds" in batch:
         x = batch["embeds"].to(torch.bfloat16)
         B, S = x.shape[:2]
@@ -402,7 +520,7 @@ def _embed_in(arch: ArchConfig, params, batch):
     else:
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = params["embed"][tokens.long()]
+        x = tp.embed(params["embed"], tokens, _vocab(arch, cfg), tp.ctx(cfg))
     rows = torch.arange(S, device=x.device)
     mask_pos = None
     if "positions" in batch:
@@ -417,10 +535,83 @@ def _embed_in(arch: ArchConfig, params, batch):
     return x, positions, mask_pos
 
 
-def _logits(arch: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
-    """Logits stay bf16 (the sampler upcasts)."""
+def _logits(arch: ArchConfig, params, x: torch.Tensor,
+            cfg: Optional[RunCfg] = None) -> torch.Tensor:
+    """Logits stay bf16 (the sampler upcasts); on a mesh a vocab split
+    over the model ranks is gathered whole."""
     w = params["embed"].T if arch.tie_embeddings else params["lm_head"]
-    return x @ w
+    y = x @ w
+    c = tp.ctx(cfg)
+    if tp.split(_vocab(arch, cfg), w.shape[-1], c):
+        y = tp.gather_model(y, -1, c)
+    return y
+
+
+def _vocab(arch: ArchConfig, cfg: Optional[RunCfg]) -> int:
+    return (cfg.vocab_padded if cfg is not None else 0) or arch.vocab_size
+
+
+def _heads(arch: ArchConfig, cfg: RunCfg) -> Tuple[int, int]:
+    """The whole ``(query heads, kv heads)`` a rank's pieces are of."""
+    return (cfg.heads_padded or arch.n_heads,
+            cfg.kv_heads_padded or arch.n_kv_heads)
+
+
+def _attn_out(arch: ArchConfig, cfg: RunCfg, c, ap: AttnParams,
+              ctx: torch.Tensor, h0: int, hl: int) -> torch.Tensor:
+    """The attention output projection: ``ctx`` ``(B, S, Hc, hd)`` holds
+    the ``hl`` query heads from ``h0`` that this rank's rows of ``wo``
+    take, or on a mesh all heads (then cut to the rank's); where ``wo``
+    is split over the model ranks, their partials are summed."""
+    if ctx.shape[2] != hl:
+        ctx = ctx[:, :, h0:h0 + hl]
+    y = ctx.reshape(*ctx.shape[:2], -1) @ ap.wo
+    if tp.split(_heads(arch, cfg)[0] * arch.hd, ap.wo.shape[-2], c):
+        y = tp.reduce_sum(y, c)
+    return y
+
+
+def _attention(arch: ArchConfig, cfg: RunCfg, grp, h: torch.Tensor,
+               positions: torch.Tensor, window: int, mask_pos=None,
+               prefix=None):
+    """One layer's attention over the whole sequence (prefill, the
+    training forward), or with ``prefix`` ``(pk, pv)``, the rows before
+    these in the cache's head layout, a tail prefill's.  On a mesh each
+    rank attends with its own query heads over the kv heads they read
+    (tensor parallel, exact) and :func:`_attn_out` sums the output
+    projection's partials.  Returns ``(out, k, v)``, ``k``/``v`` in the
+    cache's head layout (on a mesh ``cfg.kv_split``'s: the rank's kv
+    heads, or all of them)."""
+    c = tp.ctx(cfg)
+    ap, (q, k, v) = _qkv(arch, grp, h, positions, cfg)
+    h0, hl = 0, q.shape[2]
+
+    def own(t):
+        return t
+    if c is not None:
+        H, K = _heads(arch, cfg)
+        h0, hl = tp.head_range(H, hl, c)
+        if tp.split(K, k.shape[2], c) and cfg.kv_split != "heads":
+            k, v = tp.gather_model(k, 2, c), tp.gather_model(v, 2, c)
+
+        def own(t):
+            # the kv heads this rank's query heads read, of rows that
+            # hold every kv head
+            return tp.kv_for_heads(t, h0, hl, H // K) if t.shape[2] == K \
+                else t
+    ks, vs = own(k), own(v)
+    if prefix is None:
+        ctx = attn_mod.attention_chunked(
+            q, ks.contiguous(), vs.contiguous(), causal=arch.causal,
+            window=window, tiles=cfg.flash_tiles, mode=cfg.kernels,
+            mask_pos=mask_pos)
+    else:
+        pk, pv = prefix
+        ctx = attn_mod.attention_tail(
+            q, torch.cat([own(pk).to(ks.dtype), ks], 1),
+            torch.cat([own(pv).to(vs.dtype), vs], 1), causal=arch.causal,
+            window=window, tiles=cfg.flash_tiles, mode=cfg.kernels)
+    return _attn_out(arch, cfg, c, ap, ctx, h0, hl), k, v
 
 
 def _attn_params(grp) -> AttnParams:
@@ -429,12 +620,29 @@ def _attn_params(grp) -> AttnParams:
                       a.get("k_norm"))
 
 
-def _qkv(arch: ArchConfig, grp, h: torch.Tensor, positions: torch.Tensor):
+def _qkv(arch: ArchConfig, grp, h: torch.Tensor, positions: torch.Tensor,
+         cfg: Optional[RunCfg] = None):
+    """q/k/v of ``h``.  On a mesh a projection whose columns are split
+    within a head (8 ranks over one kv head's 128 columns, as the plan's
+    divisibility rule allows) has its product's columns joined whole
+    before the heads are formed; one split at whole heads stays the
+    rank's heads."""
     ap = _attn_params(grp)
+    c = tp.ctx(cfg)
+    hd = arch.hd
+
+    def cols(w):
+        n = w.shape[-1]
+        return n * c.msize if c is not None and n % hd else n
+
+    def proj(x, w):
+        y = x @ w
+        return tp.gather_model(y, -1, c) if w.shape[-1] % hd else y
+
     return ap, attn_mod.project_qkv(
-        h, ap, ap.wq.shape[-1] // arch.hd, ap.wk.shape[-1] // arch.hd,
-        arch.hd, positions, arch.rope_theta, arch.mrope_sections,
-        arch.norm_eps)
+        h, ap, cols(ap.wq) // hd, cols(ap.wk) // hd, hd, positions,
+        arch.rope_theta, arch.mrope_sections, arch.norm_eps,
+        proj=proj if c is not None else None)
 
 
 def _residual(x: torch.Tensor, outs: List[torch.Tensor]) -> torch.Tensor:
@@ -448,7 +656,7 @@ def _residual(x: torch.Tensor, outs: List[torch.Tensor]) -> torch.Tensor:
 
 
 def _ffn_fwd(arch: ArchConfig, grp, x: torch.Tensor,
-             moe_impl: str = "gshard_einsum"
+             moe_impl: str = "gshard_einsum", cfg: Optional[RunCfg] = None
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Pre-norm FFN: SiLU-gated, a squared ReLU of one matrix
     (minitron-8b), the encoder's GELU (tanh form, ``jax.nn.gelu``'s
@@ -456,25 +664,94 @@ def _ffn_fwd(arch: ArchConfig, grp, x: torch.Tensor,
     MoE FFN on the
     path ``moe_impl`` (``src/repro/models/lm.py:382-415``).  Returns
     ``(x + FFN(x), aux)``, ``aux`` the router's load-balance loss (fp32)
-    of an MoE FFN, ``None`` for a dense one."""
+    of an MoE FFN, ``None`` for a dense one.  On a mesh (``cfg.mesh``)
+    the dense FFN's ff dims may be split (:func:`_mlp`) and an MoE FFN
+    is :func:`_mesh_moe`."""
     h = rms_norm(x, grp["mlp_norm"], arch.norm_eps)
-    if "moe" in grp:
-        m = grp["moe"]
-        y, aux = moe_mod.moe_forward(
-            moe_impl, h, MoEParams(m["router"], m["wi"], m["wo"],
-                                   m.get("shared_wi"), m.get("shared_wo")),
-            top_k=arch.experts_per_token,
-            capacity_factor=arch.capacity_factor)
-        return x + y, aux
-    z = h @ grp["mlp"]["wi"]
-    if _gated(arch):
+    c = tp.ctx(cfg)
+    if "moe" not in grp:
+        return x + _mlp(arch, c, grp["mlp"]["wi"], grp["mlp"]["wo"], h,
+                        _gated(arch), arch.d_ff), None
+    if c is not None:
+        return _mesh_moe(arch, cfg, c, grp, x, h)
+    m = grp["moe"]
+    y, aux = moe_mod.moe_forward(
+        moe_impl, h, MoEParams(m["router"], m["wi"], m["wo"],
+                               m.get("shared_wi"), m.get("shared_wo")),
+        top_k=arch.experts_per_token,
+        capacity_factor=arch.capacity_factor)
+    return x + y, aux
+
+
+def _mlp(arch: ArchConfig, c, wi: torch.Tensor, wo: torch.Tensor,
+         h: torch.Tensor, gated: bool, ff: int) -> torch.Tensor:
+    """A dense FFN of ``wi`` ``(d, n_in * ff)`` and ``wo`` ``(ff, d)``.
+    On a mesh its ff dims may be split over the model ranks: a gated
+    ``wi`` is gate||up, so a rank's columns are not a gate and its up,
+    and the product's pieces are joined whole before the split; the rank
+    keeps its ff piece of the activation for its rows of ``wo``, and
+    the ranks' partial products are summed."""
+    n_in = 2 if gated else 1
+    wi_split = tp.split(n_in * ff, wi.shape[-1], c)
+    wo_split = tp.split(ff, wo.shape[0], c)
+    z = h @ wi
+    if gated:
+        if wi_split:
+            z = tp.gather_model(z, -1, c)
         g, u = z.chunk(2, dim=-1)
-        z = F.silu(g.float()).to(x.dtype) * u
+        z = F.silu(g.float()).to(h.dtype) * u
+        if wo_split:
+            z = z[..., c.mrank * wo.shape[0]:(c.mrank + 1) * wo.shape[0]]
     elif arch.family == "encoder":
-        z = F.gelu(z.float(), approximate="tanh").to(x.dtype)
+        z = F.gelu(z.float(), approximate="tanh").to(h.dtype)
     else:
-        z = torch.square(F.relu(z.float())).to(x.dtype)
-    return x + z @ grp["mlp"]["wo"], None
+        z = torch.square(F.relu(z.float())).to(h.dtype)
+    y = z @ wo
+    return tp.reduce_sum(y, c) if wo_split else y
+
+
+def _mesh_moe(arch: ArchConfig, cfg: RunCfg, c, grp, x: torch.Tensor,
+              h: torch.Tensor
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """An MoE FFN on a mesh.  It routes over every expert (the router is
+    whole); with the expert stacks split over the model ranks,
+    ``gshard_einsum`` and ``dense_einsum`` run the rank's experts and
+    sum the fp32 partials, and ``shard_map_alltoall`` is
+    :func:`repro_torch.models.moe.moe_shard_map` over the sequence's
+    model pieces (whole where they do not divide it).  The shared expert
+    runs as a dense FFN (:func:`_mlp`), added in bf16 where
+    :func:`repro_torch.models.moe.moe_forward` adds it before rounding."""
+    m = grp["moe"]
+    E = m["router"].shape[-1]
+    p = MoEParams(m["router"], m["wi"], m["wo"])
+    kw = dict(top_k=arch.experts_per_token,
+              capacity_factor=arch.capacity_factor)
+    if cfg.moe_impl == "shard_map_alltoall":
+        S = h.shape[1]
+        seq = c.msize > 1 and S % c.msize == 0 and S >= c.msize
+        hs = h[:, c.mrank * (S // c.msize):(c.mrank + 1) * (S // c.msize)] \
+            if seq else h
+        y, aux = moe_mod.moe_shard_map(hs, p, mesh=cfg.mesh,
+                                       data_axes=cfg.data_axes,
+                                       model_axis=cfg.model_axis, **kw)
+        if seq:
+            y = tp.gather_model(y, 1, c)
+    else:
+        if cfg.moe_impl not in moe_mod.IMPLS:
+            raise ValueError(f"moe_impl={cfg.moe_impl!r} is not one of "
+                             f"{moe_mod.IMPLS + ('shard_map_alltoall',)}")
+        fn = (moe_mod.moe_dense_einsum if cfg.moe_impl == "dense_einsum"
+              else moe_mod.moe_gshard_einsum)
+        if tp.split(E, m["wi"].shape[0], c):
+            y, aux = fn(h, p, local_experts=c.mrank * m["wi"].shape[0],
+                        partial=True, **kw)
+            y = tp.reduce_sum(y, c).to(h.dtype)
+        else:
+            y, aux = fn(h, p, **kw)
+    if m.get("shared_wi") is not None:
+        y = y + _mlp(arch, c, m["shared_wi"], m["shared_wo"], h, True,
+                     (arch.moe_d_ff or arch.d_ff) * arch.n_shared_experts)
+    return x + y, aux
 
 
 # =====================================================================
@@ -511,12 +788,8 @@ def _block_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
     h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
     outs = []
     if "attn" in grp:
-        ap, (q, k, v) = _qkv(arch, grp, h, positions)
-        ctx = attn_mod.attention_chunked(q, k, v, causal=arch.causal,
-                                         window=window,
-                                         tiles=cfg.flash_tiles,
-                                         mode=cfg.kernels, mask_pos=mask_pos)
-        outs.append(ctx.reshape(*x.shape[:2], -1) @ ap.wo)
+        outs.append(_attention(arch, cfg, grp, h, positions, window,
+                               mask_pos)[0])
     if "ssm" in grp:
         sp = SSMParams(**grp["ssm"])
         outs.append(ssm_mod.ssm_forward(
@@ -755,28 +1028,34 @@ def append_kv(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
-def paged_targets(pos: torch.Tensor, tbl: torch.Tensor, block_len: int):
+def paged_targets(pos: torch.Tensor, tbl: torch.Tensor, block_len: int,
+                  start: int = 0, n_local: Optional[int] = None):
     """``(slot, block, row)`` of each slot's append whose owning table
     entry is assigned; slots whose entry is -1 (freed slots) are masked
     out here, before any write (torch has no scatter ``mode="drop"``).
-    On the card the boolean mask costs one host sync."""
+    On the card the boolean mask costs one host sync.  A sharded pool's
+    piece holds the ``n_local`` blocks from the global block ``start``:
+    ``block`` is then local, and entries outside it are masked too (only
+    the owner writes)."""
     pos = pos.long()
-    blk = tbl.long().gather(1, (pos // block_len)[:, None])[:, 0]
-    keep = blk >= 0
+    blk = tbl.long().gather(1, (pos // block_len)[:, None])[:, 0] - start
+    keep = (blk >= 0) if n_local is None else (blk >= 0) & (blk < n_local)
     b = torch.arange(pos.shape[0], device=pos.device)
     return b[keep], blk[keep], (pos % block_len)[keep]
 
 
 def append_kv_paged(pool: torch.Tensor, new: torch.Tensor,
                     pos: torch.Tensor, tbl: torch.Tensor,
-                    targets=None) -> torch.Tensor:
+                    targets=None, *, start: int = 0) -> torch.Tensor:
     """Paged append **in place**: write ``new[b, 0]`` into slot b's
     owning block, ``pool[tbl[b, pos[b] // bl], pos[b] % bl]``; a slot
     whose owning entry is -1 writes nothing (oracle:
     ``ref.paged_append_ref``).  ``targets`` reuses a
-    :func:`paged_targets` result across layers.  Returns ``pool``."""
+    :func:`paged_targets` result across layers.  ``start``: ``pool`` is
+    the piece of a sharded pool from that global block, and only blocks
+    in it are written.  Returns ``pool``."""
     b, blk, row = targets if targets is not None else \
-        paged_targets(pos, tbl, pool.shape[1])
+        paged_targets(pos, tbl, pool.shape[1], start, pool.shape[0])
     pool[blk, row] = new[b, 0].to(pool.dtype)
     return pool
 
@@ -820,12 +1099,14 @@ def prefill(arch: ArchConfig, params, batch, cfg: RunCfg,
     ``pos = S``:
     with attention, ``max_len`` rows (default ``S``) of every layer's
     post-RoPE K/V for rows ``0..S-1`` (zeros past them); with an SSM,
-    every layer's final state and conv tail."""
-    x, positions, mask_pos = _embed_in(arch, params, batch)
+    every layer's final state and conv tail.  On a mesh every rank
+    prefills the whole batch with its pieces of the weights, and the
+    cache holds the kv heads in the layout ``cfg.kv_split`` names."""
+    x, positions, mask_pos = _embed_in(arch, params, batch, cfg)
     B, S = x.shape[:2]
     max_len = max_len or S
     blocks = params["blocks"]
-    cache = init_cache(arch, B, max_len, **cache_heads(arch, blocks),
+    cache = init_cache(arch, B, max_len, **_cache_heads_on(arch, cfg, blocks),
                        device=x.device)
     windows = _window_schedule(arch)
     for i in range(arch.n_layers):
@@ -833,11 +1114,9 @@ def prefill(arch: ArchConfig, params, batch, cfg: RunCfg,
         h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
         outs = []
         if arch.has_attention:
-            ap, (q, k, v) = _qkv(arch, grp, h, positions)
-            ctx = attn_mod.attention_chunked(
-                q, k, v, causal=arch.causal, window=windows[i],
-                tiles=cfg.flash_tiles, mode=cfg.kernels, mask_pos=mask_pos)
-            outs.append(ctx.reshape(B, S, -1) @ ap.wo)
+            out, k, v = _attention(arch, cfg, grp, h, positions, windows[i],
+                                   mask_pos)
+            outs.append(out)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
         if arch.has_ssm:
@@ -846,10 +1125,20 @@ def prefill(arch: ArchConfig, params, batch, cfg: RunCfg,
             outs.append(y)
         x = _residual(x, outs)
         if arch.family != "ssm":
-            x, _ = _ffn_fwd(arch, grp, x, cfg.moe_impl)
+            x, _ = _ffn_fwd(arch, grp, x, cfg.moe_impl, cfg)
     x = rms_norm(x[:, -1:], params["final_norm"], arch.norm_eps)
     cache["pos"].fill_(S)
-    return _logits(arch, params, x)[:, 0], cache
+    return _logits(arch, params, x, cfg)[:, 0], cache
+
+
+def _cache_heads_on(arch: ArchConfig, cfg: RunCfg, blocks) -> Dict[str, int]:
+    """:func:`cache_heads`, with all kv heads where a mesh's cache holds
+    them whole (``cfg.kv_split`` other than ``"heads"``)."""
+    heads = cache_heads(arch, blocks)
+    if cfg.mesh is not None and cfg.kv_split != "heads" \
+            and "kv_heads" in heads:
+        heads["kv_heads"] = _heads(arch, cfg)[1]
+    return heads
 
 
 def prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg,
@@ -906,32 +1195,28 @@ def _prefill_tail(arch: ArchConfig, params, batch, cfg: RunCfg, M: int,
         raise ValueError(
             f"prefill_tail cannot skip prefix compute for {arch.name}: "
             "SSM state at the split point depends on the whole prefix")
-    x, _, _ = _embed_in(arch, params, batch)
+    x, _, _ = _embed_in(arch, params, batch, cfg)
     B, T = x.shape[:2]
     positions = (M + torch.arange(T, device=x.device)).expand(B, T)
     if arch.mrope_sections is not None:
         positions = positions.expand(3, B, T)
     blocks = params["blocks"]
     windows = _window_schedule(arch)
-    K = cache_heads(arch, blocks)["kv_heads"]
+    K = _cache_heads_on(arch, cfg, blocks)["kv_heads"]
     tail_k = torch.empty((arch.n_layers, B, T, K, arch.hd), dtype=x.dtype,
                          device=x.device)
     tail_v = torch.empty_like(tail_k)
     for i in range(arch.n_layers):
         grp = layer_params(blocks, i)
         h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
-        ap, (q, k, v) = _qkv(arch, grp, h, positions)
-        pk, pv = prefix_rows(i)
-        ctx = attn_mod.attention_tail(
-            q, torch.cat([pk.to(k.dtype), k], 1),
-            torch.cat([pv.to(v.dtype), v], 1), causal=arch.causal,
-            window=windows[i], tiles=cfg.flash_tiles, mode=cfg.kernels)
-        x = x + ctx.reshape(B, T, -1) @ ap.wo
-        x, _ = _ffn_fwd(arch, grp, x, cfg.moe_impl)
+        out, k, v = _attention(arch, cfg, grp, h, positions, windows[i],
+                               prefix=prefix_rows(i))
+        x = x + out
+        x, _ = _ffn_fwd(arch, grp, x, cfg.moe_impl, cfg)
         tail_k[i] = k
         tail_v[i] = v
     x = rms_norm(x[:, -1:], params["final_norm"], arch.norm_eps)
-    return _logits(arch, params, x)[:, 0], tail_k, tail_v
+    return _logits(arch, params, x, cfg)[:, 0], tail_k, tail_v
 
 
 def prefill_chunked(arch: ArchConfig, params, tokens, chunk: int,
@@ -1015,19 +1300,39 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
     state, as in the JAX engine.  Rotary positions: the batch's
     ``positions`` where it has them, else each slot's ``pos`` (in all
     three streams under M-RoPE, ``src/repro/models/lm.py:655-658``).
-    Returns ``(logits (B, V), cache)``."""
-    x, positions, _ = _embed_in(arch, params, batch)        # (B, 1, d)
+    Returns ``(logits (B, V), cache)``.
+
+    On a mesh (``cfg.mesh``) each rank decodes the batch rows its cache
+    piece holds (all of them unless the batch is split over the data
+    axis) and the logits are gathered whole on every rank.  Attention
+    follows ``cfg.kv_split``: ``"heads"``, the rank's own heads through
+    the decode kernels; ``"rows"``, the sharded flash decode
+    (:func:`repro_torch.dist.flash_decode.flash_decode`, paged
+    :func:`~repro_torch.dist.flash_decode.flash_decode_paged`: every
+    query head over the rank's rows, the partials combined over the
+    model ranks), as the reference's ``shard_map_flash`` branch
+    (``src/repro/models/lm.py:677-690``); ``"none"``, every head over
+    the whole cache.  ``cache["pos"]`` and ``block_tbl`` stay whole."""
+    c = tp.ctx(cfg)
+    rows = _mesh_rows(cfg, c, cache) if c is not None else None
+    if rows is not None:
+        batch = {k: v[rows[0]:rows[1]] for k, v in batch.items()}
+    x, positions, _ = _embed_in(arch, params, batch, cfg)   # (B, 1, d)
     B = x.shape[0]
-    pos = torch.as_tensor(cache["pos"], dtype=torch.int32, device=x.device)
-    pos = pos.reshape(-1).expand(B).contiguous()
+    pos_all = torch.as_tensor(cache["pos"], dtype=torch.int32,
+                              device=x.device).reshape(-1)
+    pos = pos_all if rows is None else pos_all[rows[0]:rows[1]]
+    pos = pos.expand(B).contiguous()
     if "positions" not in batch:
         positions = pos[:, None]
         if arch.mrope_sections is not None:
             positions = positions.expand(3, B, 1)
     cache_len = pos + 1
     tbl = cache.get("block_tbl")
+    if tbl is not None and rows is not None:
+        tbl = tbl[rows[0]:rows[1]]
     targets = (paged_targets(pos, tbl, cache["k"].shape[2])
-               if tbl is not None else None)
+               if tbl is not None and cfg.kv_split != "rows" else None)
     blocks = params["blocks"]
     windows = _window_schedule(arch)
     for i in range(arch.n_layers):
@@ -1035,21 +1340,9 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
         h = rms_norm(x, grp["pre_norm"], arch.norm_eps)
         outs = []
         if arch.has_attention:
-            ap, (q, k, v) = _qkv(arch, grp, h, positions)
-            kc, vc = cache["k"][i], cache["v"][i]
-            if tbl is not None:
-                append_kv_paged(kc, k, pos, tbl, targets)
-                append_kv_paged(vc, v, pos, tbl, targets)
-                ctx = attn_mod.attention_decode_paged(
-                    q, kc, vc, tbl, cache_len=cache_len, window=windows[i],
-                    block_kv=cfg.decode_block_kv, mode=cfg.kernels)
-            else:
-                append_kv(kc, k, pos)
-                append_kv(vc, v, pos)
-                ctx = attn_mod.attention_decode(
-                    q, kc, vc, cache_len=cache_len, window=windows[i],
-                    block_kv=cfg.decode_block_kv, mode=cfg.kernels)
-            outs.append(ctx.reshape(B, 1, -1) @ ap.wo)
+            outs.append(_decode_attn(arch, cfg, c, grp, h, positions,
+                                     cache["k"][i], cache["v"][i], tbl, pos,
+                                     cache_len, windows[i], targets))
         if arch.has_ssm:
             sp = SSMParams(**grp["ssm"])
             y, sc, cc = ssm_mod.ssm_decode_step(
@@ -1060,7 +1353,80 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
             outs.append(y)
         x = _residual(x, outs)
         if arch.family != "ssm":
-            x, _ = _ffn_fwd(arch, grp, x, cfg.moe_impl)
+            x, _ = _ffn_fwd(arch, grp, x, cfg.moe_impl, cfg)
     x = rms_norm(x, params["final_norm"], arch.norm_eps)
-    cache["pos"] = cache_len
-    return _logits(arch, params, x)[:, 0], cache
+    logits = _logits(arch, params, x, cfg)[:, 0]
+    if rows is not None:
+        if rows[1] - rows[0] < pos_all.shape[0]:
+            logits = tp.gather(logits, 0, c.dgroup, c.dsize)
+        cache["pos"] = pos_all + 1
+    else:
+        cache["pos"] = cache_len
+    return logits, cache
+
+
+def _mesh_rows(cfg: RunCfg, c, cache) -> Tuple[int, int]:
+    """The batch rows ``[r0, r1)`` this rank decodes: its data shard's
+    where the cache piece splits the batch (a dense cache's batch dim,
+    a paged pool split ``"2d"``), else all of them."""
+    from repro_torch.dist.flash_decode import pool_sharding_kind
+    B = cache["pos"].reshape(-1).shape[0]
+    if "block_tbl" in cache:
+        split = cfg.kv_split == "rows" and pool_sharding_kind(
+            cfg.mesh, cfg.kv_whole[1], cfg.kv_whole[0], cfg.data_axes,
+            cfg.model_axis) == "2d"
+        bl = B // c.dsize if split else B
+    else:
+        bl = cache["k"].shape[1]
+    if bl == B:
+        return 0, B
+    return c.drank * bl, (c.drank + 1) * bl
+
+
+def _decode_attn(arch: ArchConfig, cfg: RunCfg, c, grp, h: torch.Tensor,
+                 positions: torch.Tensor, kc: torch.Tensor,
+                 vc: torch.Tensor, tbl: Optional[torch.Tensor],
+                 pos: torch.Tensor, cache_len: torch.Tensor, window: int,
+                 targets=None) -> torch.Tensor:
+    """One layer's decode attention: each slot's new row appended at its
+    ``pos`` (in place), then ``cache_len = pos + 1`` rows attended through the dense
+    or paged decode kernel.  On a mesh whose cache holds every kv head
+    (``cfg.kv_split`` ``"rows"`` or ``"none"``) the rank's query and kv
+    heads are gathered whole and every head attends, through the sharded
+    flash decode over the rank's rows under ``"rows"``; the rank keeps
+    its heads for its rows of ``wo`` (:func:`_attn_out`)."""
+    ap, (q, k, v) = _qkv(arch, grp, h, positions, cfg)
+    h0, hl = 0, q.shape[2]
+    if c is not None and cfg.kv_split != "heads":
+        H, K = _heads(arch, cfg)
+        h0, hl = tp.head_range(H, hl, c)
+        if hl < H:
+            q = tp.gather_model(q, 2, c)
+        if tp.split(K, k.shape[2], c):
+            k, v = tp.gather_model(k, 2, c), tp.gather_model(v, 2, c)
+    if cfg.kv_split == "rows":
+        from repro_torch.dist import flash_decode as fd
+        kw = dict(mesh=cfg.mesh, data_axes=cfg.data_axes,
+                  model_axis=cfg.model_axis, combine=cfg.combine_topology,
+                  batch=cfg.kv_whole[0], block_kv=cfg.decode_block_kv)
+        if tbl is not None:
+            ctx, _, _ = fd.flash_decode_paged(q, k, v, kc, vc, tbl, pos,
+                                              window,
+                                              n_blocks=cfg.kv_whole[1], **kw)
+        else:
+            ctx, _, _ = fd.flash_decode(q, k, v, kc, vc, pos, window,
+                                        seq_len=cfg.kv_whole[1], **kw)
+    elif tbl is not None:
+        append_kv_paged(kc, k, pos, tbl, targets)
+        append_kv_paged(vc, v, pos, tbl, targets)
+        ctx = attn_mod.attention_decode_paged(
+            q, kc, vc, tbl, cache_len=cache_len, window=window,
+            block_kv=cfg.decode_block_kv, mode=cfg.kernels)
+    else:
+        append_kv(kc, k, pos)
+        append_kv(vc, v, pos)
+        ctx = attn_mod.attention_decode(
+            q, kc, vc, cache_len=cache_len, window=window,
+            block_kv=cfg.decode_block_kv, mode=cfg.kernels)
+    return _attn_out(arch, cfg, c, ap,
+                     ctx.reshape(q.shape[0], 1, -1, arch.hd), h0, hl)

@@ -9,8 +9,15 @@ communication pass and carried by ``RunCfg.moe_impl``:
 * ``dense_einsum`` — every expert runs on every token and the top-k
   router weights combine them (no capacity, no drops).
 
-``shard_map_alltoall`` (experts sharded over a mesh) waits for the
-port's multi-GPU work and raises.
+* ``shard_map_alltoall`` — :func:`moe_shard_map`: tokens split over
+  the mesh's ``(data, model)`` ranks, experts over ``model``, and two
+  ``all_to_all_single`` calls on the model group move the capacity
+  slots to the experts' ranks and back.
+
+On a mesh whose placement splits the expert stacks over ``model``, the
+two single-device paths run on the rank's own experts
+(``local_experts``) and the caller sums their partial outputs over the
+model group.
 
 The products are the JAX package's einsums, left to cuBLAS as it left
 them to XLA: the bf16 ones (tokens into slots, the expert FFN) are
@@ -116,38 +123,50 @@ def _shared(x: torch.Tensor, p: MoEParams, y: torch.Tensor) -> torch.Tensor:
 
 
 def moe_dense_einsum(x: torch.Tensor, p: MoEParams, *, top_k: int,
-                     capacity_factor: float = 0.0
+                     capacity_factor: float = 0.0, local_experts: int = 0,
+                     partial: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every expert on every token of ``x`` ``(B, S, d)``, combined by
     the top-k router weights (``src/repro/models/moe.py:86``).  The
     gates follow the reference's threshold rule, ``probs >=
     top_k(probs)[..., -1:]``, which admits more than k experts on a
-    tie.  ``capacity_factor`` is unused (signature parity).  Returns
-    ``(y (B, S, d), aux)``."""
+    tie.  ``capacity_factor`` is unused (signature parity).
+    ``local_experts`` = e0: ``p.wi`` / ``p.wo`` hold the experts from e0
+    on (a rank's piece), and ``partial`` returns their fp32 share of
+    ``y`` unrounded, for the caller to sum over ranks.  Returns ``(y
+    (B, S, d), aux)``."""
     B, S, d = x.shape
     probs = _router_probs(x, p.router)                      # (B,S,E)
     aux = _aux(probs, (0, 1))
     thresh = probs.topk(top_k, dim=-1).values[..., -1:]
     gates = torch.where(probs >= thresh, probs, torch.zeros_like(probs))
+    gates = gates[..., local_experts:local_experts + p.wi.shape[0]]
     xt = x.reshape(1, B * S, d)
     h = _swiglu(torch.matmul(xt, p.wi), x.dtype)            # (E,T,ff)
     out = torch.bmm(h, p.wo)                                # (E,T,d)
     g = gates.reshape(B * S, -1).t()[..., None]             # (E,T,1)
-    y = (out.float() * g).sum(0).reshape(B, S, d).to(x.dtype)
-    return _shared(x, p, y), aux
+    y = (out.float() * g).sum(0).reshape(B, S, d)
+    if partial:
+        return y, aux
+    return _shared(x, p, y.to(x.dtype)), aux
 
 
 def moe_gshard_einsum(x: torch.Tensor, p: MoEParams, *, top_k: int,
-                      capacity_factor: float
+                      capacity_factor: float, local_experts: int = 0,
+                      partial: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity dispatch with one batch row of ``x`` ``(B, S, d)`` as
     the routing group, ``C = _capacity(S, E, top_k, capacity_factor)``
     (``src/repro/models/moe.py:130``; at decode S = 1, so C = 4).
-    Returns ``(y (B, S, d), aux)``."""
+    ``local_experts`` and ``partial`` as in :func:`moe_dense_einsum`
+    (routing is over all ``E`` experts either way).  Returns ``(y (B,
+    S, d), aux)``."""
     B, S, d = x.shape
-    E = p.router.shape[-1]
-    C = _capacity(S, E, top_k, capacity_factor)
+    C = _capacity(S, p.router.shape[-1], top_k, capacity_factor)
     dispatch, combine, aux = route(x, p.router, top_k, C)   # (B,S,E,C)
+    E = p.wi.shape[0]
+    dispatch = dispatch[:, :, local_experts:local_experts + E].contiguous()
+    combine = combine[:, :, local_experts:local_experts + E].contiguous()
     # tokens into their slots: (B, E*C, d), then the experts' view
     slots = torch.bmm(dispatch.reshape(B, S, E * C).transpose(1, 2), x)
     expert_in = slots.reshape(B, E, C, d).transpose(0, 1).reshape(
@@ -157,12 +176,66 @@ def moe_gshard_einsum(x: torch.Tensor, p: MoEParams, *, top_k: int,
     back = expert_out.reshape(E, B, C, d).transpose(0, 1).reshape(
         B, E * C, d)
     y = _fp32_product(combine.reshape(B, S, E * C), back.float())
+    if partial:
+        return y, aux
     return _shared(x, p, y.to(x.dtype)), aux
+
+
+def moe_shard_map(x: torch.Tensor, p: MoEParams, *, top_k: int,
+                  capacity_factor: float, mesh,
+                  data_axes: Tuple[str, ...] = ("data",),
+                  model_axis: str = "model"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism with explicit all-to-alls
+    (``src/repro/models/moe.py:157-228``), run on every rank with what
+    the reference's ``shard_map`` hands it: ``x`` ``(B_l, S_l, d)`` the
+    rank's tokens (the batch split over the data axes and, where it
+    divides, the sequence over ``model_axis``), ``p.router`` whole,
+    ``p.wi`` / ``p.wo`` the rank's ``E / tp`` experts, the shared
+    expert's matrices (if any) whole.
+
+    The rank routes its tokens over all ``E`` experts into capacity
+    slots (``C`` from its own token count), one ``all_to_all_single``
+    sends each peer the slots of its experts, the experts run, and a
+    second sends the outputs home for the combine.  Returns ``(y (B_l,
+    S_l, d), aux)``, ``aux`` averaged over every rank of the mesh."""
+    import torch.distributed as dist
+    E = p.router.shape[-1]
+    group = mesh.get_group(model_axis)
+    tp = dist.get_world_size(group)
+    E_l = E // tp
+    if p.wi.shape[0] != E_l:
+        raise ValueError(f"moe_shard_map: wi holds {p.wi.shape[0]} experts; "
+                         f"this rank's piece of {E} over {tp} is {E_l}")
+    Bl, Sl, d = x.shape
+    toks = x.reshape(1, Bl * Sl, d)
+    C = _capacity(Bl * Sl, E, top_k, capacity_factor)
+    dispatch, combine, aux = route(toks, p.router, top_k, C)
+    send = torch.einsum("gtec,gtd->ecd", dispatch.float(),
+                        toks.float()).to(x.dtype)            # (E, C, d)
+    recv = torch.empty_like(send)        # (tp, E_l, C, d), by source
+    dist.all_to_all_single(recv, send.contiguous(), group=group)
+    expert_in = recv.reshape(tp, E_l, C, d).transpose(0, 1).reshape(
+        E_l, tp * C, d)
+    h = _swiglu(torch.bmm(expert_in, p.wi), x.dtype)
+    out = torch.bmm(h, p.wo)                                 # (E_l,tp*C,d)
+    out = out.reshape(E_l, tp, C, d).transpose(0, 1).contiguous()
+    back = torch.empty_like(out)         # (tp, E_l, C, d), by expert owner
+    dist.all_to_all_single(back, out, group=group)
+    back = back.reshape(E * C, d)
+    y = _fp32_product(combine.reshape(1, Bl * Sl, E * C),
+                      back.float())[0].reshape(Bl, Sl, d).to(x.dtype)
+    aux = aux.reshape(1).clone()
+    for axis in mesh.mesh_dim_names:
+        dist.all_reduce(aux, group=mesh.get_group(axis))
+    return _shared(x, p, y), aux[0] / mesh.size()
 
 
 def moe_forward(impl: str, x: torch.Tensor, p: MoEParams, *, top_k: int,
                 capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plan's MoE path by name; a path the port lacks raises."""
+    """The plan's single-device MoE path by name.  ``shard_map_alltoall``
+    raises: it runs on a mesh (:func:`moe_shard_map`, which the model
+    code calls there)."""
     if impl == "dense_einsum":
         return moe_dense_einsum(x, p, top_k=top_k)
     if impl == "gshard_einsum":
@@ -170,8 +243,8 @@ def moe_forward(impl: str, x: torch.Tensor, p: MoEParams, *, top_k: int,
                                  capacity_factor=capacity_factor)
     if impl == "shard_map_alltoall":
         raise NotImplementedError(
-            "moe_impl='shard_map_alltoall' shards experts over a mesh: it "
-            "waits for the port's multi-GPU serving (ROADMAP item 10); "
-            "specialize for one card, where the plan picks gshard_einsum "
-            "or dense_einsum")
+            "moe_impl='shard_map_alltoall' shards experts over a mesh "
+            "(ROADMAP item 10): serve it on one with "
+            "ServeEngine.from_plan(mesh=...), or specialize for one card, "
+            "where the plan picks gshard_einsum or dense_einsum")
     raise ValueError(f"moe_impl={impl!r} is not one of {IMPLS}")

@@ -7,10 +7,10 @@ JAX):
 * :class:`RestartPolicy`   — exponential backoff, max-restarts budget
   (the serving engine's :class:`repro_torch.serve.engine
   .PreemptionPolicy` measures its backoff in engine ticks through it).
-* :func:`elastic_mesh`     — the largest ``(data, model)`` grid of
-  ``torch.device``s the surviving devices hold, the model axis kept (a
-  plain grid: the multi-GPU slice, ROADMAP item 10, turns it into a
-  ``DeviceMesh``).
+* :func:`elastic_mesh`     — the largest ``(data, model)``
+  ``DeviceMesh`` the surviving ranks of the process group hold, the
+  model axis kept (in one process without a process group, the grid of
+  this process's devices).
 * :class:`StepGuard`       — wraps the train step: on a device error it
   restores the last checkpoint and replays the data stream (the
   pipeline is seeded per step, so the replay is bit-exact).
@@ -113,21 +113,37 @@ def visible_devices() -> List[torch.device]:
 
 
 def elastic_mesh(n_devices: int, model_parallel: int,
-                 axis_names: Tuple[str, ...] = ("data", "model")
-                 ) -> DeviceGrid:
-    """Largest ``(data', model)`` grid on the surviving devices.
+                 axis_names: Tuple[str, ...] = ("data", "model")):
+    """Largest ``(data', model)`` mesh on the ``n_devices`` survivors.
 
     The model axis is kept (the memory plan's sharding of the weights
     holds only at that width); whole model groups that lost a member are
-    dropped, so data parallelism absorbs the failure.  Typed errors as
-    the reference's: too few survivors for one model group, and a
-    survivor count above what this process can see."""
+    dropped, so data parallelism absorbs the failure.  Under an
+    initialized process group the survivors are its first ranks and the
+    result is a :class:`torch.distributed.device_mesh.DeviceMesh` over
+    the first ``data' * model`` of them (every rank calls this: a rank
+    left out holds a mesh it is no member of).  Without one, it is the
+    :class:`DeviceGrid` of this process's devices.  Typed errors as the
+    reference's: too few survivors for one model group, and more
+    survivors than there are ranks (devices) to see."""
+    import torch.distributed as dist
     data = n_devices // model_parallel
     if data < 1:
         raise RuntimeError(
             f"{n_devices} devices cannot host model_parallel="
             f"{model_parallel}")
     usable = data * model_parallel
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if world < usable:
+            raise RuntimeError(
+                f"only {world} rank(s) visible; need {usable} "
+                f"(data={data} x model_parallel={model_parallel}) — "
+                f"shrink n_devices to what actually survived")
+        from torch.distributed.device_mesh import DeviceMesh
+        kind = "cuda" if torch.cuda.is_available() else "cpu"
+        return DeviceMesh(kind, torch.arange(usable).reshape(
+            data, model_parallel), mesh_dim_names=tuple(axis_names))
     devices = visible_devices()[:usable]
     if len(devices) < usable:
         raise RuntimeError(

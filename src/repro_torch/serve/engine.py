@@ -82,7 +82,15 @@ the resume prefix); when every worker slot has spent its restart
 budget the engine degrades to in-process prefill under a typed
 :class:`~repro_torch.serve.disagg.DegradedMode`.  Disagg needs paged
 residency and a pure-attention arch; otherwise, and with no workers,
-prefill stays inline, as in the JAX engine.  The port has no meshes.
+prefill stays inline, as in the JAX engine.
+
+On a mesh (``from_plan(mesh=...)``, a ``DeviceMesh``) every rank runs
+this engine on the same requests with its pieces of the weights and the
+cache (:mod:`repro_torch.serve.sharded`); the decode runs each rank's
+heads, or the sharded flash decode (:mod:`repro_torch.dist
+.flash_decode`), as the placement says.  SSM and hybrid archs, the host
+tier, disaggregated prefill and migration between sub-pools wait for
+ROADMAP item 10b there.
 
 State lives in torch tensors on the device of the parameters; the
 cache, the block table and ``pos`` are updated in place.  Sampling
@@ -94,6 +102,7 @@ token-comparable across the two).
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
@@ -220,6 +229,19 @@ def _unsupported(decision: str, value, hint: str) -> NotImplementedError:
         f"{decision}={value!r} is not ported yet; {hint}")
 
 
+def _mesh_refusals(arch: ArchConfig, kv_host_blocks: int) -> None:
+    """What a mesh does not serve yet (ROADMAP item 10b): SSM and hybrid
+    archs (their states split over ``ssm_heads``), and the host tier."""
+    if arch.has_ssm:
+        raise NotImplementedError(
+            f"{arch.name} on a mesh: SSM and hybrid archs wait for ROADMAP "
+            "item 10b; serve it on one card")
+    if kv_host_blocks > 0:
+        raise NotImplementedError(
+            "kv_host_blocks > 0 on a mesh: the host tier waits for ROADMAP "
+            "item 10b; pass kv_host_blocks=0")
+
+
 class ServeEngine:
     def __init__(self, arch: ArchConfig, params, cfg: RunCfg,
                  max_batch: int = 8, max_len: int = 512, kv_heads: int = 0,
@@ -242,6 +264,8 @@ class ServeEngine:
             raise ValueError(
                 f"kv_host_blocks must be >= 0, got {kv_host_blocks}")
         lm.check_serves(arch)
+        if cfg.mesh is not None:
+            _mesh_refusals(arch, kv_host_blocks)
         self.device = params["embed"].device
         attn = lm.layer_params(params["blocks"], 0).get("attn")
         lm.check_on_device(
@@ -251,6 +275,7 @@ class ServeEngine:
             flash_tiles=cfg.flash_tiles)
         self.arch, self.params, self.cfg = arch, params, cfg
         self.plan = None               # set by from_plan()
+        self.pieces = None             # a mesh's MeshPieces (from_plan)
         self.max_batch, self.max_len = max_batch, max_len
         self.kv_admission = kv_admission
         self.preemption = preemption or PreemptionPolicy()
@@ -264,6 +289,9 @@ class ServeEngine:
         self._host: Optional[Dict[str, torch.Tensor]] = None
         self._staging: Optional[Dict[str, torch.Tensor]] = None
         self._prefix: Optional[PrefixCache] = None
+        # on a mesh the cache is sized here (its whole shapes, no memory)
+        # and from_plan allocates the rank's pieces (_place_on_mesh)
+        cache_dev = "meta" if cfg.mesh is not None else self.device
         if self.kv_residency == "paged":
             self.block_len = kv_block_len or default_block_len(max_len)
             per_seq = -(-max_len // self.block_len)
@@ -271,6 +299,8 @@ class ServeEngine:
             # plan-shrunk (budget-capped) pool stays shrunk
             cap = max_batch * per_seq
             self.n_blocks = min(kv_n_blocks, cap) if kv_n_blocks else cap
+            if cfg.mesh is not None:
+                self._mesh_pool(cfg, max_batch, kv_n_blocks)
             if kv_pool_groups:
                 # explicit sub-pools (single-card emulation of the JAX
                 # engine's 2-D pool contract): equal slot ranges per group
@@ -285,7 +315,7 @@ class ServeEngine:
                 arch, max_batch, max_len, self.block_len, self.n_blocks,
                 kv_heads=kv_heads, ssm_heads=lm.cache_heads(
                     arch, params["blocks"]).get("ssm_heads", 0),
-                device=self.device)
+                device=cache_dev)
             # the host spill tier, clamped like the pool (to a park depth
             # of 8 full worst-case batches, as in the JAX engine)
             self.host_blocks = (min(kv_host_blocks, 8 * cap)
@@ -302,7 +332,7 @@ class ServeEngine:
             self.cache = lm.init_cache(
                 arch, max_batch, max_len, kv_heads=kv_heads,
                 ssm_heads=lm.cache_heads(arch, params["blocks"]).get(
-                    "ssm_heads", 0), device=self.device)
+                    "ssm_heads", 0), device=cache_dev)
         self._alloc = BlockAllocator(self.n_blocks, self.pool_groups,
                                      host_blocks=self.host_blocks)
         self.kv_prefix_reuse = self._prefix is not None
@@ -382,6 +412,40 @@ class ServeEngine:
         self.disagg_chunks = 0
         self.disagg_resumes = 0
 
+    def _mesh_pool(self, cfg: RunCfg, max_batch: int,
+                   kv_n_blocks: int) -> None:
+        """On a mesh: keep the pool divisible by the mesh through the
+        clamp (a clamp that broke it would downgrade the pool-sharded
+        decode, 2-D -> 1-D -> single shard, and replicate the pool on
+        the broken axis), and where the pool is split 2-D, one sub-pool
+        a data shard, so every slot's blocks lie in its data shard's
+        piece (``src/repro/serve/engine.py:318-350``).  The JAX engine
+        groups only for ``shard_map_flash``; here the 2-D placement
+        itself runs the sharded decode, so it groups whenever that
+        placement holds."""
+        from repro_torch.dist.flash_decode import pool_sharding_kind
+        from repro_torch.dist.sharding import mesh_sizes
+        sizes = mesh_sizes(cfg.mesh)
+        msize = sizes.get(cfg.model_axis, 1)
+        dsize = math.prod(sizes.get(a, 1) for a in cfg.data_axes)
+        n = self.n_blocks
+        aligns = []
+        if dsize > 1 and max_batch % dsize == 0:
+            aligns.append(dsize * msize)
+        if msize > 1:
+            aligns.append(msize)
+        for align in aligns:
+            if align > 1 and n % align and \
+                    (not kv_n_blocks or kv_n_blocks % align == 0):
+                n = align * (-(-n // align))
+                if kv_n_blocks:
+                    n = min(kv_n_blocks, n)
+                break
+        self.n_blocks = n
+        if pool_sharding_kind(cfg.mesh, n, max_batch, cfg.data_axes,
+                              cfg.model_axis) == "2d":
+            self.pool_groups = dsize
+
     # ------------------------------------------------------------------
     @classmethod
     def from_plan(cls, plan, params, *, arch: Optional[ArchConfig] = None,
@@ -391,6 +455,7 @@ class ServeEngine:
                   kv_prefix_reuse: Optional[str] = None,
                   kv_host_blocks: Optional[int] = None,
                   kv_prefetch: Optional[str] = None,
+                  combine_topology: Optional[str] = None,
                   preemption: Optional[PreemptionPolicy] = None,
                   kv_prefill_mode: Optional[str] = None,
                   disagg_workers: int = 0,
@@ -409,14 +474,30 @@ class ServeEngine:
         is paged over a pure-attention arch, ``disagg_workers`` > 0
         spawns a :class:`repro_torch.serve.disagg.PrefillFleet` of that
         many workers (keywords ``disagg_opts``), or ``fleet`` attaches a
-        given one; otherwise prefill stays inline.  A mesh raises
-        :class:`NotImplementedError`.
+        given one; otherwise prefill stays inline.
+
+        With ``mesh``, a :class:`torch.distributed.device_mesh.DeviceMesh`
+        of the plan's axes and sizes, every rank builds the engine from
+        the same plan, params (whole, or the rank's pieces) and requests,
+        and keeps only its pieces (:meth:`_place_on_mesh`); the decode
+        follows the placement (``RunCfg.kv_split``: the rank's heads, or
+        the sharded flash decode with the plan's ``combine_topology``,
+        which ``combine_topology`` overrides).  A plan specialized for a
+        mesh wants one: without it raises :class:`NotImplementedError`.
         """
         from repro_torch.core.passes.lowering import build_run_cfg
-        if mesh is not None or any(int(n) > 1 for n in plan.mesh_shape):
+        from repro_torch.dist.sharding import mesh_sizes
+        if mesh is None and any(int(n) > 1 for n in plan.mesh_shape):
             raise _unsupported(
-                "mesh", mesh if mesh is not None else tuple(plan.mesh_shape),
-                "specialize with mesh_shape=(1, 1) for one card")
+                "mesh", tuple(plan.mesh_shape),
+                "this plan shards over a mesh: pass its DeviceMesh "
+                "(mesh=...), or specialize with mesh_shape=(1, 1) for one "
+                "card")
+        if mesh is not None and mesh_sizes(mesh) != dict(
+                zip(plan.mesh_axes, (int(n) for n in plan.mesh_shape))):
+            raise ValueError(
+                f"mesh {mesh_sizes(mesh)} is not the plan's "
+                f"{dict(zip(plan.mesh_axes, plan.mesh_shape))}")
         arch = arch if arch is not None else get_arch(plan.arch)
         if plan.shape_kind != "decode":
             if max_batch is None or max_len is None:
@@ -441,7 +522,14 @@ class ServeEngine:
         def pick(override, key, default):
             return override if override is not None else est.get(key, default)
 
-        cfg = build_run_cfg(plan, arch)
+        if mesh is not None and kv_host_blocks is None:
+            # the plan's host tier waits for ROADMAP item 10b on a mesh:
+            # served without one, as the pass falls back to inline
+            # prefill (an explicit kv_host_blocks > 0 raises)
+            kv_host_blocks = 0
+        cfg = build_run_cfg(plan, arch, mesh)
+        if combine_topology is not None:
+            cfg = dataclasses.replace(cfg, combine_topology=combine_topology)
         if max_batch is None:
             max_batch = (plan.global_batch
                          if plan.shape_kind == "decode" and plan.global_batch
@@ -462,11 +550,17 @@ class ServeEngine:
                   kv_prefetch=str(pick(kv_prefetch, "kv_prefetch", "on")),
                   preemption=preemption)
         eng.plan = plan
+        if mesh is not None:
+            eng._place_on_mesh(mesh)
         # disaggregated prefill: the plan's kv_prefill_mode (or the
         # override), a fleet when workers are asked for; anything else
         # keeps the inline path, as the pass's own fallback does
         if str(pick(kv_prefill_mode, "kv_prefill_mode", "inline")) \
                 == "disagg":
+            if mesh is not None and (fleet is not None or disagg_workers):
+                raise NotImplementedError(
+                    "disaggregated prefill on a mesh waits for ROADMAP "
+                    "item 10b; serve it inline (no workers, no fleet)")
             if fleet is None and disagg_workers > 0 \
                     and eng.kv_residency == "paged" \
                     and arch.has_attention and not arch.has_ssm:
@@ -622,17 +716,65 @@ class ServeEngine:
                 "prefetch_staged": self.prefetch_staged,
                 "prefetch_consumed": self.prefetch_consumed}
 
+    def _place_on_mesh(self, mesh) -> None:
+        """Keep this rank's pieces of the params (the plan's axis rules,
+        :func:`repro_torch.core.passes.lowering.param_pspecs`) and of the
+        session cache (:func:`repro_torch.dist.sharding.cache_pspecs`;
+        ``pos`` and ``block_tbl`` stay whole), and tell the model code
+        where the kv rows lie (``RunCfg.kv_split``, ``kv_whole``)."""
+        from repro_torch.serve.sharded import MeshPieces
+        pieces = MeshPieces(mesh, self.plan, self.arch, self.params,
+                            self.cache)
+        self.params = pieces.place_params(self.params)
+        self.cache = pieces.place_cache(self.cache, self.device)
+        self.pieces = pieces
+        whole = self.n_blocks if self.kv_residency == "paged" \
+            else self.max_len
+        self.cfg = dataclasses.replace(
+            self.cfg, kv_split=pieces.kv_split,
+            kv_whole=(self.max_batch, whole))
+
     @property
     def decode_path(self) -> str:
-        """What the decode ticks run: the paged or dense decode kernel on
-        the card, its plain version on the CPU; for an attention-free
-        arch the SSM recurrence (plain PyTorch on either device)."""
+        """What the decode ticks run.  On one card: the paged or dense
+        decode kernel on the card, its plain version on the CPU; for an
+        attention-free arch the SSM recurrence (plain PyTorch on either
+        device).  On a mesh, the JAX engine's names where its
+        ``shard_map_flash`` runs: ``shard_map_flash_paged_2d`` (the pool
+        split 2-D), ``shard_map_flash`` (the seq dim or the pool split
+        over the model axis), ``flash`` (the plan's ``shard_map_flash``
+        on a placement that does not split the rows); and where the
+        kv heads split, the kernel names, each rank decoding its heads."""
+        if self.pieces is not None and self.cfg.kv_split == "rows":
+            from repro_torch.dist.flash_decode import pool_sharding_kind
+            if self.kv_residency == "paged" and pool_sharding_kind(
+                    self.cfg.mesh, self.n_blocks, self.max_batch,
+                    self.cfg.data_axes, self.cfg.model_axis) == "2d":
+                return "shard_map_flash_paged_2d"
+            return "shard_map_flash"
+        if self.pieces is not None and \
+                self.cfg.decode_impl == "shard_map_flash":
+            return "flash"
         on_card = self.device.type == "cuda"
         if not self.arch.has_attention:
             return f"ssm_recurrence:{'cuda' if on_card else 'cpu'}"
         kernel = ("paged_decode_attention" if self.kv_residency == "paged"
                   else "decode_attention")
         return f"{kernel}:{'cuda' if on_card else 'plain'}"
+
+    @property
+    def combine_topology(self) -> str:
+        """The model-axis combine the decode ticks run
+        (:func:`repro_torch.dist.flash_decode.combine_topology` with the
+        config's override); ``"flat"`` on paths with no cross-rank
+        combine."""
+        if self.decode_path not in ("shard_map_flash",
+                                    "shard_map_flash_paged_2d"):
+            return "flat"
+        from repro_torch.dist.flash_decode import combine_topology
+        return combine_topology(self.cfg.mesh,
+                                model_axis=self.cfg.model_axis,
+                                override=self.cfg.combine_topology)
 
     def telemetry(self) -> Dict[str, Any]:
         """One JSON-serializable snapshot of the engine (in disagg mode
@@ -641,6 +783,7 @@ class ServeEngine:
         return {
             "tick": self.tick,
             "decode_path": self.decode_path,
+            "combine_topology": self.combine_topology,
             "kv_residency": self.kv_residency,
             "kv_admission": self.kv_admission,
             "prefill_mode": self.prefill_mode,
@@ -1301,9 +1444,19 @@ class ServeEngine:
             blk = np.asarray(matches, np.int64)            # (Bs, nbm)
             if extra:
                 blk = np.concatenate([blk, np.repeat(blk[:1], extra, 0)])
-            logits, tail_k, tail_v = lm.prefill_tail(
-                self.arch, self.params, batch, self.cfg, self.cache["k"],
-                self.cache["v"], torch.from_numpy(blk))
+            if self.pieces is not None:
+                # the prefix rows from the pool's ranks, (L, B, M, K, hd)
+                pk, pv = (self._read_blocks(key, blk.reshape(-1).tolist())
+                          .reshape(self.cache[key].shape[0], blk.shape[0],
+                                   blk.shape[1] * self.block_len,
+                                   *self.cache[key].shape[3:])
+                          for key in ("k", "v"))
+                logits, tail_k, tail_v = lm.prefill_tail_rows(
+                    self.arch, self.params, batch, self.cfg, pk, pv)
+            else:
+                logits, tail_k, tail_v = lm.prefill_tail(
+                    self.arch, self.params, batch, self.cfg,
+                    self.cache["k"], self.cache["v"], torch.from_numpy(blk))
         else:
             logits, cacheg = lm.prefill(self.arch, self.params, batch,
                                         self.cfg, max_len=toks.shape[1])
@@ -1346,6 +1499,10 @@ class ServeEngine:
             else:
                 self._scatter_paged_prefill(live, live_slots, gidx, cacheg,
                                             plen, live_matches)
+        elif self.arch.has_attention and self.pieces is not None:
+            for key in ("k", "v"):
+                self.pieces.write_slots(self.cache[key], live_slots,
+                                        cacheg[key][:, gi], plen)
         elif self.arch.has_attention:
             for key in ("k", "v"):
                 self.cache[key][:, st, :plen] = cacheg[key][:, gi]
@@ -1420,9 +1577,8 @@ class ServeEngine:
             ridx = np.minimum(np.asarray(ent_col)[:, None] * bl
                               + np.arange(bl)[None, :], S - 1)
             ridx = torch.from_numpy(ridx).to(dev)
-            blk_ids = self._ids(ent_blk)
             for key in ("k", "v"):
-                self.cache[key][:, blk_ids] = cacheg[key][:, req, ridx]
+                self._write_blocks(key, ent_blk, cacheg[key][:, req, ridx])
         self._install_rows(live, slots)
 
     def _scatter_tail(self, live: List[Request], slots: np.ndarray,
@@ -1441,7 +1597,6 @@ class ServeEngine:
             assert len(blocks) >= nbp > nbm, (len(blocks), nbp, nbm)
             tail_blocks.extend(blocks[nbm:nbp])
         ntb, T = nbp - nbm, plen - m_tok
-        blk_ids = self._ids(tail_blocks)
         for key, src in (("k", tail_k), ("v", tail_v)):
             upd = src[:, gi]                           # (L, Bs, T, K, hd)
             if T < ntb * bl:
@@ -1449,8 +1604,24 @@ class ServeEngine:
                     upd, (0, 0, 0, 0, 0, ntb * bl - T))
             upd = upd.reshape(upd.shape[0], len(live) * ntb, bl,
                               *upd.shape[3:])
-            self.cache[key][:, blk_ids] = upd
+            self._write_blocks(key, tail_blocks, upd)
         self._install_rows(live, slots)
+
+    def _write_blocks(self, key: str, ids: List[int],
+                      rows: torch.Tensor) -> None:
+        """``cache[key][:, ids] = rows``; on a mesh, into the blocks this
+        rank's pool piece holds."""
+        if self.pieces is not None:
+            self.pieces.write_blocks(self.cache[key], ids, rows)
+        else:
+            self.cache[key][:, self._ids(ids)] = rows
+
+    def _read_blocks(self, key: str, ids: List[int]) -> torch.Tensor:
+        """``cache[key][:, ids]``; on a mesh, gathered from the pool's
+        ranks where the pool is split by blocks."""
+        if self.pieces is not None:
+            return self.pieces.read_blocks(self.cache[key], ids)
+        return self.cache[key][:, self._ids(ids)]
 
     # ---------------- grow-on-demand grants + the ladder --------------
     def _needs_block(self, r: Request) -> bool:
@@ -1535,7 +1706,7 @@ class ServeEngine:
         the original; the sharers keep it, trie entry and all."""
         old = r.blocks[col]
         for key in ("k", "v"):
-            self.cache[key][:, fresh] = self.cache[key][:, old]
+            self._write_blocks(key, [fresh], self._read_blocks(key, [old]))
         self.cache["block_tbl"][r.slot, col] = fresh
         r.blocks[col] = fresh
         self._release_blocks([old])
@@ -1547,7 +1718,9 @@ class ServeEngine:
         block it asks for (the idlest wins).  A slot holding a shared
         block stays put: the sharers' tables point at the original
         ids."""
-        if self.pool_groups <= 1:
+        if self.pool_groups <= 1 or self.pieces is not None:
+            # on a mesh another sub-pool is another data shard's piece:
+            # moving rows there waits for ROADMAP item 10b
             return False
         if any(self._alloc.refcount(b) > 1 for b in r.blocks):
             return False

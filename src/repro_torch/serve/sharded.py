@@ -1,0 +1,224 @@
+"""Where each rank's pieces of a serving engine lie on a DeviceMesh.
+
+``ServeEngine.from_plan(mesh=...)`` places the weights through
+:func:`repro_torch.core.passes.lowering.param_pspecs` and the session
+cache through :func:`repro_torch.dist.sharding.cache_pspecs`
+(``src/repro/serve/engine.py:697-715`` ``_place_on_mesh``): every rank
+keeps only its piece of a split leaf, as a plain tensor the model code
+runs on.  :class:`MeshPieces` records the layout and does the engine's
+cache writes and block reads through it:
+
+* a dense cache piece holds the slots of the rank's data shard (where
+  the batch splits) and the rows of its model shard (where the seq dim
+  splits) or its kv heads (where those split);
+* a pool piece holds the blocks of the rank's shard (1-D over the model
+  axis, or 2-D data-major over ``(data, model)``) or its kv heads;
+* ``pos`` and ``block_tbl`` stay whole on every rank: they are the
+  host's per-slot state, rewritten every tick, and the decode step cuts
+  the rows it needs (``cache_pspecs`` splits them over data, and the
+  JAX package's partitioner moves them where its ``shard_map`` wants
+  them).
+
+Every rank runs the same engine loop on the same requests; the host
+decisions are the same on every rank, so the collectives in the model
+code and in :meth:`MeshPieces.read_blocks` line up.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import P
+
+#: cache keys the engine keeps whole on every rank
+WHOLE = ("pos", "block_tbl")
+#: the value a cache key starts at where it is not 0 (as
+#: ``lm.init_paged_cache`` allocates it: no block assigned)
+FILL = {"block_tbl": -1}
+
+
+def _tree(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _piece(mesh, shape: Sequence[int], spec: Sequence[Any]
+           ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """``(start, shape)`` of this rank's piece of a ``shape`` tensor laid
+    out by ``spec``."""
+    start, size = [], []
+    for d, n_d in enumerate(shape):
+        e = spec[d] if d < len(spec) else None
+        i, n = sharding.shard_index(mesh, e) if e else (0, 1)
+        start.append(i * (n_d // n))
+        size.append(n_d // n)
+    return tuple(start), tuple(size)
+
+
+def param_pieces(mesh, plan, arch) -> Dict[str, Any]:
+    """Each parameter leaf's ``(start, shape)`` on this rank of ``mesh``
+    under the plan's placement
+    (:func:`repro_torch.core.passes.lowering.param_pspecs`): what
+    ``lm.init_params(..., pieces=)`` builds, so that a rank never holds
+    the whole weights."""
+    from repro_torch.core.passes.lowering import param_pspecs
+    from repro_torch.models import lm
+    whole = lm.param_shapes(arch, *plan.padded_sizes())
+    specs = param_pspecs(plan, arch, sharding.mesh_sizes(mesh), shapes=whole)
+    return _tree(lambda w, sp: _piece(mesh, w, sp), whole, specs)
+
+
+class MeshPieces:
+    """The layout of one engine's pieces on ``mesh``.
+
+    ``param_specs`` / ``cache_specs`` are the resolved specs (a
+    :class:`~repro_torch.dist.sharding.P` a leaf), ``param_shapes`` /
+    ``cache_shapes`` the whole shapes.  ``kv_split`` is ``"heads"``,
+    ``"rows"`` or ``"none"`` (:class:`repro_torch.models.lm.RunCfg`)."""
+
+    def __init__(self, mesh, plan, arch, params, cache: Dict[str, Any]):
+        from repro_torch.core.passes.lowering import param_pspecs
+        from repro_torch.models import lm
+        self.mesh = mesh
+        self.sizes = sharding.mesh_sizes(mesh)
+        whole = lm.param_shapes(arch, *plan.padded_sizes())
+        specs = param_pspecs(plan, arch, self.sizes, shapes=whole)
+
+        def shape_of(w, t, spec):
+            # a leaf handed whole or as the rank's piece is measured
+            # against the plan's whole shape; any other shape is resolved
+            # as handed (the reference resolves against the arrays given)
+            w, got = tuple(w), tuple(t.shape)
+            return w if got in (w, self.piece_shape(w, spec)) else got
+
+        self.param_shapes = _tree(shape_of, whole, params, specs)
+        self.param_specs = param_pspecs(plan, arch, self.sizes,
+                                        shapes=self.param_shapes)
+        self.cache_shapes = {k: tuple(v.shape) for k, v in cache.items()}
+        self.cache_specs = sharding.cache_pspecs(plan, arch, cache,
+                                                 self.sizes)
+        for k in WHOLE:
+            if k in self.cache_specs:
+                self.cache_specs[k] = P(*(None,) * len(self.cache_shapes[k]))
+        self.paged = "block_tbl" in cache
+        spec = self.cache_specs.get("k")
+        self.kv_split = "none"
+        if spec is not None:
+            if spec[3] is not None:
+                self.kv_split = "heads"
+            elif spec[1 if self.paged else 2] is not None:
+                self.kv_split = "rows"
+            if spec[4] is not None:
+                raise NotImplementedError(
+                    f"a cache split on head_dim ({spec}) is not ported; "
+                    "ROADMAP item 10b")
+        # the rank's ranges: dense (batch, seq); paged pool blocks
+        self.b0 = self.s0 = self.start = 0
+        if spec is not None and self.paged:
+            i, n = sharding.shard_index(mesh, spec[1]) if spec[1] \
+                else (0, 1)
+            self.n_local = self.cache_shapes["k"][1] // n
+            self.start = i * self.n_local
+            self.pool_axes = sharding._names(spec[1])
+        elif spec is not None:
+            B, S = self.cache_shapes["k"][1:3]
+            i, n = sharding.shard_index(mesh, spec[1]) if spec[1] \
+                else (0, 1)
+            self.b0, self.bn = i * (B // n), B // n
+            i, n = sharding.shard_index(mesh, spec[2]) if spec[2] \
+                else (0, 1)
+            self.s0, self.sn = i * (S // n), S // n
+
+    def piece_shape(self, shape: Sequence[int], spec: Sequence[Any]
+                    ) -> Tuple[int, ...]:
+        out = []
+        for d, e in zip(shape, spec):
+            n = 1
+            for a in sharding._names(e):
+                n *= self.sizes[a]
+            out.append(d // n)
+        return tuple(out)
+
+    # ------------------------------------------------------------------
+    def place_params(self, params):
+        """The rank's pieces of ``params`` (leaves whole, or pieces
+        already)."""
+        def cut(t, spec, whole):
+            if tuple(t.shape) == tuple(whole):
+                return sharding.local_shard(t, self.mesh, spec)
+            return t
+        return _tree(cut, params, self.param_specs, self.param_shapes)
+
+    def place_cache(self, cache: Dict[str, torch.Tensor], device
+                    ) -> Dict[str, torch.Tensor]:
+        """The rank's pieces of ``cache`` on ``device``: cut from its
+        tensors, or, for a cache on the ``meta`` device (its shapes
+        alone), allocated at the pieces' shapes, so that the whole cache
+        is never allocated."""
+        out = {}
+        for k, v in cache.items():
+            _, shape = _piece(self.mesh, v.shape, self.cache_specs[k])
+            if v.is_meta:
+                out[k] = torch.full(shape, FILL.get(k, 0), dtype=v.dtype,
+                                    device=device)
+            else:
+                out[k] = sharding.local_shard(v, self.mesh,
+                                              self.cache_specs[k])
+        return out
+
+    # ------------------------------------------------------------------
+    def write_slots(self, t: torch.Tensor, slots: np.ndarray,
+                    rows: torch.Tensor, plen: int) -> None:
+        """Dense prefill: ``t[:, slot, :plen] = rows[:, i]`` for the
+        slots and rows this rank holds (``rows`` ``(L, n, >= plen, K,
+        hd)`` in the cache's head layout)."""
+        slots = np.asarray(slots)
+        mine = np.nonzero((slots >= self.b0)
+                          & (slots < self.b0 + self.bn))[0]
+        if not len(mine):
+            return
+        lo, hi = self.s0, min(plen, self.s0 + self.sn)
+        if hi <= lo:
+            return
+        dev = t.device
+        st = torch.as_tensor(slots[mine] - self.b0, device=dev)
+        src = rows[:, torch.as_tensor(mine, device=rows.device)]
+        t[:, st, :hi - lo] = src[:, :, lo:hi]
+
+    def write_blocks(self, t: torch.Tensor, ids: Sequence[int],
+                     rows: torch.Tensor) -> None:
+        """``t[:, id] = rows[:, i]`` for the blocks this rank's pool
+        piece holds (``rows`` ``(L, n, bl, K, hd)``)."""
+        ids = np.asarray(ids, np.int64)
+        loc = ids - self.start
+        mine = np.nonzero((loc >= 0) & (loc < t.shape[1]))[0]
+        if not len(mine):
+            return
+        dev = t.device
+        t[:, torch.as_tensor(loc[mine], device=dev)] = \
+            rows[:, torch.as_tensor(mine, device=rows.device)]
+
+    def read_blocks(self, t: torch.Tensor, ids: Sequence[int]
+                    ) -> torch.Tensor:
+        """The ``(L, n, bl, K, hd)`` rows of blocks ``ids`` on every
+        rank: each rank puts in the blocks its piece holds, and the
+        pool's ranks add them up (one all-reduce; none where the pool
+        is not split by blocks)."""
+        ids = np.asarray(ids, np.int64)
+        if self.kv_split != "rows":
+            return t[:, torch.as_tensor(ids, device=t.device)]
+        loc = ids - self.start
+        mine = (loc >= 0) & (loc < t.shape[1])
+        idx = torch.as_tensor(np.where(mine, loc, 0), device=t.device)
+        out = t[:, idx] * torch.as_tensor(mine, device=t.device).view(
+            1, -1, 1, 1, 1).to(t.dtype)
+        out = out.float()
+        for axis in self.pool_axes:
+            dist.all_reduce(out, group=self.mesh.get_group(axis))
+        return out.to(t.dtype)

@@ -14,8 +14,8 @@ warm-starts from the stored artifact (:meth:`Trainer.warm_start`)
 without re-running the compiler; if the hash moved, :meth:`Trainer
 .resume` prints the diff of the two decision logs.
 
-The port trains on one card: ``mesh`` must be ``None`` (the multi-GPU
-slice is ROADMAP item 10), and ``device`` names the card, or the CPU
+The port trains on one card: ``mesh`` must be ``None`` (training on a
+mesh is ROADMAP item 10b), and ``device`` names the card, or the CPU
 (the kernels' plain versions).
 """
 
@@ -56,7 +56,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "Trainer: the port trains on one card (mesh=None); a mesh "
-                "waits for the multi-GPU slice (ROADMAP item 10)")
+                "(FSDP / data parallelism) waits for ROADMAP item 10b")
         self.plan = plan
         self.cfg = cfg or TrainerConfig()
         self.device = torch.device(device)

@@ -593,7 +593,9 @@ def test_wrappers_count_launches_and_refuse_what_the_kernels_do_not_take(dev):
                                    "flash_attention_positions": 0,
                                    "flash_attention_bwd_positions": 0,
                                    "paged_decode_attention": 1,
-                                   "decode_attention": 1, "ssd_scan": 0,
+                                   "decode_attention": 1,
+                                   "decode_partial": 0,
+                                   "paged_decode_partial": 0, "ssd_scan": 0,
                                    "ssd_scan_bwd": 0, "tiled_matmul": 0}
     with pytest.raises(RuntimeError, match="use_pallas='off'"):
         ops.flash_attention(q, k, k, mode="off")
@@ -1868,3 +1870,110 @@ def test_disagg_fleet_kill_resumes_bitwise(dev):
     assert got == want
     assert all(torch.equal(got_rows[n], want_rows[n]) for n in ("k", "v"))
     assert stats["disagg_resumes"] >= 1
+
+
+# ---------------------------------------------------------------------
+# K8: the decode kernels' per-shard partial (PARTIAL mode)
+# ---------------------------------------------------------------------
+
+def _partial_rows(got, want):
+    """K8 against the plain partial: the live (slot, head) pattern
+    exactly (the kernel's empty partial is ``m = -inf, l = 0``, the
+    plain one's ``NEG_INF`` with ``l`` its row count), and ``m`` and
+    ``acc / l`` where live.  The triples are compared only where a row
+    is live; the combined context is compared for every slot."""
+    m, l, acc = got
+    pm, pl, pa = want
+    live = pm > -1e29
+    assert torch.equal(live, m > float("-inf"))
+    if not bool(live.any()):
+        return 0.0
+    assert float((m - pm)[live].abs().max()) < 1e-3
+    ctx = (acc / l[..., None])[live]
+    pctx = (pa / pl[..., None])[live]
+    return float(((ctx - pctx).pow(2).mean(-1).sqrt()
+                  / pctx.pow(2).mean(-1).sqrt().clamp_min(1e-6)).max())
+
+
+def _fold(parts):
+    ms = torch.stack([p[0] for p in parts])
+    mg = ms.amax(0)
+    c = torch.where(ms == float("-inf"), 0.0, torch.exp(ms - mg))
+    lg = sum(p[1] * w for p, w in zip(parts, c))
+    ag = sum(p[2] * w[..., None] for p, w in zip(parts, c))
+    return ag / lg.clamp_min(1e-30)[..., None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,Dh", tdec.INSTANCES)
+@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("window", [0, 300])
+def test_decode_partial_matches_plain_and_folds_to_the_kernel(dev, G, Dh, n,
+                                                              window):
+    g = torch.Generator(dev).manual_seed(G * 100 + n)
+    B, Kv, S = 4, 2, 1024
+    q = _rnd(g, B, G * Kv, Dh)
+    k, v = _rnd(g, B, S, Kv, Dh), _rnd(g, B, S, Kv, Dh)
+    pos = torch.tensor([0, 127, 700, S - 1], dtype=torch.int32, device=dev)
+    Sl = S // n
+    parts = []
+    for i in range(n):
+        ks = k[:, i * Sl:(i + 1) * Sl].contiguous()
+        vs = v[:, i * Sl:(i + 1) * Sl].contiguous()
+        got = tdec.decode_partial(q, ks, vs, kv_start=i * Sl, pos=pos,
+                                  window=window)
+        want = tdec.decode_partial_plain(q, ks, vs, kv_start=i * Sl,
+                                         pos=pos, window=window)
+        assert _partial_rows(got, want) < 3e-3
+        parts.append(got)
+    whole = tdec.decode_attention(q, k, v, cache_len=pos + 1, window=window)
+    assert _rel_err(_fold(parts).to(torch.bfloat16), whole) < 3e-3
+    # planted: a shard out of the fold
+    assert _rel_err(_fold(parts[1:]).to(torch.bfloat16), whole) > 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,Dh", [(4, 128), (7, 128), (5, 64)])
+@pytest.mark.parametrize("n", [2, 4])
+def test_paged_decode_partial_matches_plain_and_folds_to_the_kernel(dev, G,
+                                                                    Dh, n):
+    g = torch.Generator(dev).manual_seed(G * 10 + n)
+    B, Kv, bl, N = 4, 2, 64, 32
+    nb = 8
+    q = _rnd(g, B, G * Kv, Dh)
+    kp, vp = _rnd(g, N, bl, Kv, Dh), _rnd(g, N, bl, Kv, Dh)
+    tbl = torch.randperm(N, generator=g, device=dev)[:B * nb].reshape(
+        B, nb).to(torch.int32)
+    tbl[0, 2:] = -1
+    pos = torch.tensor([100, 511, 300, 0], dtype=torch.int32, device=dev)
+    Nl = N // n
+    parts = []
+    for i in range(n):
+        ks, vs = kp[i * Nl:(i + 1) * Nl], vp[i * Nl:(i + 1) * Nl]
+        got = tdec.paged_decode_partial(q, ks, vs, tbl, block_start=i * Nl,
+                                        pos=pos)
+        want = tdec.paged_decode_partial_plain(q, ks, vs, tbl,
+                                               block_start=i * Nl, pos=pos)
+        assert _partial_rows(got, want) < 3e-3
+        parts.append(got)
+    whole = tdec.paged_decode_attention(q, kp, vp, tbl, cache_len=pos + 1)
+    assert _rel_err(_fold(parts).to(torch.bfloat16), whole) < 3e-3
+    # planted: shard 0 reads one block past its sub-pool as its own
+    wide = [tdec.paged_decode_partial(q, kp[:Nl + 1], vp[:Nl + 1], tbl,
+                                      block_start=0, pos=pos)] + parts[1:]
+    assert _rel_err(_fold(wide).to(torch.bfloat16), whole) > 3e-2
+
+
+@pytest.mark.cuda
+def test_partial_wrappers_count_launches(dev):
+    g = torch.Generator(dev).manual_seed(0)
+    q, k = _rnd(g, 2, H, D), _rnd(g, 2, 256, K, D)
+    pos = torch.tensor([3, 255], dtype=torch.int32, device=dev)
+    tbl = torch.tensor([[0], [1]], dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    ops.decode_partial(q, k, k, kv_start=0, pos=pos)
+    ops.paged_decode_partial(q, k, k, tbl, block_start=0, pos=pos)
+    torch.cuda.synchronize()
+    c = ops.launch_counts()
+    assert c["decode_partial"] == 1 and c["paged_decode_partial"] == 1
+    assert sum(c.values()) == 2

@@ -19,7 +19,10 @@ def test_port_imports_without_jax_or_reference():
             "repro_torch.kernels.ops, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.train.trainer, "
             "repro_torch.optim.adamw, repro_torch.data.pipeline, "
-            "repro_torch.ckpt.checkpointer\n"
+            "repro_torch.ckpt.checkpointer, repro_torch.dist, "
+            "repro_torch.dist.sharding, repro_torch.dist.collectives, "
+            "repro_torch.dist.flash_decode, repro_torch.launch.mesh, "
+            "repro_torch.serve.sharded, repro_torch.models.tp\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.') or m == 'ml_dtypes')\n"

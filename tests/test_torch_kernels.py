@@ -395,7 +395,9 @@ def test_ops_on_cpu_tensors_launch_no_kernel():
                                    "flash_attention_positions": 0,
                                    "flash_attention_bwd_positions": 0,
                                    "paged_decode_attention": 0,
-                                   "decode_attention": 0, "ssd_scan": 0,
+                                   "decode_attention": 0,
+                                   "decode_partial": 0,
+                                   "paged_decode_partial": 0, "ssd_scan": 0,
                                    "ssd_scan_bwd": 0, "tiled_matmul": 0}
     with pytest.raises(ValueError, match="kernel mode"):
         ops.flash_attention(q, k, k, mode="maybe")

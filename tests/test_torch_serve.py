@@ -115,8 +115,11 @@ def test_pool_accounting_and_prefill_batching_match(served):
                                       "flash_attention_positions": 0,
                                       "flash_attention_bwd_positions": 0,
                                       "paged_decode_attention": 0,
-                                      "decode_attention": 0, "ssd_scan": 0,
-                                      "ssd_scan_bwd": 0, "tiled_matmul": 0}
+                                      "decode_attention": 0,
+                                      "decode_partial": 0,
+                                      "paged_decode_partial": 0,
+                                      "ssd_scan": 0, "ssd_scan_bwd": 0,
+                                      "tiled_matmul": 0}
 
 
 def test_from_plan_refuses_what_the_port_cannot_honour(served):
