@@ -236,6 +236,17 @@ Phases (any failure exits non-zero before the last line):
    ``scripts/gloo_cuda_probe.py``'s finding, :data:`GLOO_CUDA`: the ring
    combine's neighbour sends are not carried, and wait for a machine
    with more than one card);
+24b. two ranks training on the one card over gloo, each held to 0.46
+   of it (:func:`mesh_train_phase`): full-width qwen3-8b at the largest
+   depth whose per-rank step-peak estimates fit 0.44 of the card, 2048 x
+   2, through ``Trainer(plan, mesh).fit``: the (1, 2) tensor-parallel
+   plan, then the (2, 1) plan with the int8 + EF gradient wire and the
+   same plan without it, each against a one-rank run of the same plan
+   (losses, grad norms, the last layer's gradients with a wrong-target
+   control and ``copy_in`` without its backward all-reduce, the on / off
+   step-0 losses bitwise, the wire's identity on one leaf, the replicas'
+   checksums, each rank's peak against its estimate, one flash forward
+   and backward a layer a step on every rank);
 25. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
@@ -244,9 +255,9 @@ name and power limit.
 Run from the repository root:  python3 chip_smoke.py
 
 ``--only flash_bwd`` (``flash_pos``, ``ssd_bwd``, ``matmul_fp32``,
-``mesh``) runs the flash backward's (the positions variant's, the SSD
-scan backward's, the fp32 tiled matmul's, phases 2b and 24's) check and
-timings alone
+``mesh``, ``mesh_train``) runs the flash backward's (the positions
+variant's, the SSD scan backward's, the fp32 tiled matmul's, phases 2b
+and 24's, phase 24b's) check and timings alone
 (:func:`flash_bwd_check`, :func:`flash_pos_check`, :func:`ssd_bwd_check`,
 :func:`matmul_fp32_check`) and prints its result as one JSON line.
 ``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
@@ -2592,8 +2603,8 @@ class RouteDrops:
     def __enter__(self):
         real, calls, f32 = self.real, self.calls, self.torch.float32
 
-        def counting(x, router_w, top_k, capacity):
-            out = real(x, router_w, top_k, capacity)
+        def counting(x, router_w, top_k, capacity, **kw):
+            out = real(x, router_w, top_k, capacity, **kw)
             calls.append((x.shape[1], top_k,
                           out[0].sum((1, 2, 3), dtype=f32)))
             return out
@@ -3096,10 +3107,10 @@ def small_moe_check(torch, dev):
         outs, calls = {}, []
         real = moe.route
 
-        def recording(x, router_w, top_k, capacity):
+        def recording(x, router_w, top_k, capacity, **kw):
             if x.device.type == "cpu":
                 calls.append((x, router_w, top_k, capacity))
-            return real(x, router_w, top_k, capacity)
+            return real(x, router_w, top_k, capacity, **kw)
 
         moe.route = recording
         try:
@@ -5856,10 +5867,434 @@ def two_rank_phase(torch, dev):
     return res
 
 
+
+# ---------------------------------------------------------------------
+# phase 24b: two-rank training on the one card
+# ---------------------------------------------------------------------
+
+MESH_TRAIN_SHAPE = ("mesh_train", "train", 2048, 2)
+MESH_TRAIN_STEPS = 3
+#: the share of the card each plan's per-rank step-peak estimate must
+#: stay under (each rank may allocate 0.46 of it)
+MESH_TRAIN_SHARE, MESH_TRAIN_FRACTION = 0.44, 0.46
+#: a rank's measured peak allocated <= its estimate <= this x the peak
+MESH_PEAK_SLACK = 1.15
+#: mesh against one rank, the last layer's gradients row by row
+#: (grad_row_err), and the losses relative to the one-rank run's: at
+#: least this, and at least 4x the floor measured in the run (the one
+#: rank's kernels against the plain attention on the same step-0 batch)
+MESH_GRAD_TOL, MESH_LOSS_MIN = 0.05, 2e-4
+MESH_GNORM_TOL = 0.05
+
+
+def mesh_train_plans(torch):
+    """Full-width qwen3-8b on :data:`MESH_TRAIN_SHAPE` at the largest
+    depth <= 36 at which the ``h100-sxm`` (1, 2) plan's and the (2, 1)
+    ``grad_compression="on"`` plan's (the wire lowered,
+    ``grad_compress_lowered == 2``) per-rank step-peak estimates both
+    stay under :data:`MESH_TRAIN_SHARE` of the card; the same (2, 1)
+    plan specialized with ``"off"``."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    arch = get_arch("qwen3-8b")
+    shape = ShapeConfig(*MESH_TRAIN_SHAPE)
+    card = torch.cuda.get_device_properties(0).total_memory
+
+    def plans(n):
+        cut = dataclasses.replace(arch, n_layers=n)
+        kw = dict(mesh_axes=("data", "model"), target="h100-sxm",
+                  cache=False)
+        return cut, {"tp": specialize(cut, shape, mesh_shape=(1, 2), **kw),
+                     "on": specialize(cut, shape, mesh_shape=(2, 1),
+                                      grad_compression="on", **kw),
+                     "off": specialize(cut, shape, mesh_shape=(2, 1),
+                                       grad_compression="off", **kw)}
+
+    def fits(ps):
+        return (max(ps[k].estimates["step_peak_bytes"] for k in ("tp", "on"))
+                <= MESH_TRAIN_SHARE * card
+                and ps["on"].estimates.get("grad_compress_lowered") == 2.0)
+    lo, hi = 0, arch.n_layers            # fits(lo) by convention
+    while lo < hi:                       # estimates grow with depth
+        mid = (lo + hi + 1) // 2
+        if fits(plans(mid)[1]):
+            lo = mid
+        else:
+            hi = mid - 1
+    check(lo > 0, "mesh train: no depth of qwen3-8b fits two ranks")
+    cut, ps = plans(lo)
+    return cut, shape, ps, card
+
+
+def _layer_grads(torch, arch, params, batch, cfg, layout=None):
+    """The loss of ``batch`` and the gradients of the last layer's
+    leaves, whole (on a mesh gathered from the ranks' pieces), on the
+    host in fp32."""
+    from repro_torch.dist import fsdp
+    from repro_torch.models import lm
+    named = _named(params["blocks"])
+    loss, _ = lm.train_loss(arch, params, batch, cfg)
+    grads = torch.autograd.grad(loss, [t for _, t in named])
+    out = {}
+    for (n, _), g in zip(named, grads):
+        g = g[-1]
+        if layout is not None:
+            spec = _named(layout.specs["blocks"])
+            spec = dict(spec)[n][1:]
+            g = fsdp.whole(g.contiguous(), spec, layout.mesh)
+        out[n] = g.float().cpu()
+    return float(loss.detach()), out
+
+
+@contextlib.contextmanager
+def copy_in_dropped():
+    """The planted fault of phase 24b: ``tp.copy_in`` without its
+    backward all-reduce (a replicated activation entering a split
+    matrix keeps only the rank's share of its gradient)."""
+    from repro_torch.models import tp
+    keep = tp.copy_in
+    tp.copy_in = lambda t, c: t
+    try:
+        yield
+    finally:
+        tp.copy_in = keep
+
+
+def _mesh_batches(arch, shape):
+    """The synthetic source's global batches of the fit's steps."""
+    from repro_torch.data.pipeline import SyntheticSource
+    src = SyntheticSource(arch, shape, seed=SEED)
+    return [src.batch_at(t) for t in range(MESH_TRAIN_STEPS)]
+
+
+def _on_dev(torch, batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _checksums(torch, params):
+    """Two position-weighted sums of each bf16 leaf's 16-bit words
+    (int64): equal leaves give equal sums."""
+    out, step = {}, 1 << 24
+    for n, t in _named(params):
+        if t.dtype != torch.bfloat16:
+            continue
+        flat = t.detach().reshape(-1).view(torch.int16)
+        a = b = 0
+        for s0 in range(0, flat.numel(), step):
+            w = flat[s0:s0 + step].long()
+            i = torch.arange(s0, s0 + w.numel(), device=w.device)
+            a += int(w.sum())
+            b += int((w * (i % 65521 + 1)).sum())
+        out[n] = (a, b)
+    return out
+
+
+def _mesh_fit(torch, dev, plan, arch, shape, mesh, record=None):
+    """``Trainer(plan, mesh).fit`` for :data:`MESH_TRAIN_STEPS` steps from
+    the seed's weights: its losses and grad norms, the kernels' launches
+    and the rank's peak allocated during the fit."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tr = Trainer(plan, mesh, TrainerConfig(
+        n_steps=MESH_TRAIN_STEPS, ckpt_every=0, log_every=100, seed=SEED),
+        arch=arch, shape=shape, device=dev)
+    state = tr.init_state(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, _ = tr.fit(state)
+    torch.cuda.synchronize()
+    out = {"hist": [(h["loss"], h["grad_norm"]) for h in tr.history],
+           "launches": ops.launch_counts(), "s": time.perf_counter() - t0,
+           "peak": torch.cuda.max_memory_allocated(),
+           "estimate": plan.estimates["step_peak_bytes"],
+           "wire": tr.step_def.wire_dp, "ef": tr.step_def.ef}
+    return tr, state, out
+
+
+def _mesh_train_rank(rank: int, tmp: str, src: str, n_layers: int) -> None:
+    """One of the two ranks of phase 24b on ``cuda:0`` over gloo: (a)
+    the (1, 2) tensor-parallel plan (its last layer's gradients first,
+    with the planted fault, then the fit), (b) the (2, 1) plan with the
+    wire (one leaf's ``compressed_psum`` recorded; the replicas'
+    checksums after the fit) and without it."""
+    import datetime
+    import os
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import collectives
+    torch.cuda.set_device(0)
+    torch.cuda.set_per_process_memory_fraction(MESH_TRAIN_FRACTION, 0)
+    dev = torch.device("cuda", 0)
+    out = {}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=600))
+        arch, shape, ps, _ = mesh_train_plans(torch)
+        if arch.n_layers != n_layers:
+            raise RuntimeError(f"the ranks' depth {arch.n_layers} is not "
+                               f"the parent's {n_layers}")
+        batches = _mesh_batches(arch, shape)
+        # (a) the (1, 2) tensor-parallel plan
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        tr, state = _mesh_trainer(torch, dev, ps["tp"], arch, shape, mesh)
+        b0 = _on_dev(torch, batches[0], dev)
+        out["tp_grads"] = _layer_grads(torch, arch, state["params"], b0,
+                                       tr.step_def.cfg, tr.step_def.layout)
+        with copy_in_dropped():
+            out["tp_grads_dropped"] = _layer_grads(
+                torch, arch, state["params"], b0, tr.step_def.cfg,
+                tr.step_def.layout)
+        del tr, state
+        torch.cuda.empty_cache()
+        out["tp"] = _mesh_fit(torch, dev, ps["tp"], arch, shape, mesh)[2]
+        torch.cuda.empty_cache()
+        # (b) the (2, 1) plan with the wire, then without it
+        mesh = init_device_mesh("cuda", (2, 1),
+                                mesh_dim_names=("data", "model"))
+        orig, calls = collectives.compressed_psum, []
+
+        def recording(x, group=None):
+            mean, err = orig(x, group)
+            if not calls:
+                calls.append(tuple(t.detach().cpu() for t in (x, mean, err)))
+            return mean, err
+        collectives.compressed_psum = recording
+        try:
+            tr, state, out["on"] = _mesh_fit(torch, dev, ps["on"], arch,
+                                             shape, mesh)
+        finally:
+            collectives.compressed_psum = orig
+        out["on_leaf"] = calls[0]
+        out["on_checksums"] = _checksums(torch, state["params"])
+        del tr, state
+        torch.cuda.empty_cache()
+        out["off"] = _mesh_fit(torch, dev, ps["off"], arch, shape, mesh)[2]
+    except Exception:
+        import traceback
+        out["error"] = traceback.format_exc()[-4000:]
+    torch.save(out, os.path.join(tmp, f"r{rank}.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _mesh_trainer(torch, dev, plan, arch, shape, mesh):
+    """A trainer on ``mesh`` and its seed state, for the gradient check."""
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tr = Trainer(plan, mesh, TrainerConfig(ckpt_every=0, seed=SEED),
+                 arch=arch, shape=shape, device=dev)
+    return tr, tr.init_state(SEED)
+
+
+def _mesh_anchor(torch, dev, plan, arch, shape, batches):
+    """The one-rank run of ``plan`` on the card (the same cut, optimizer,
+    remat and global batches): its fit, the last layer's gradients on
+    the step-0 batch (with a wrong-target control) and its kernels' loss
+    against the plain attention's (the loss floor)."""
+    tr, state = _mesh_trainer(torch, dev, plan, arch, shape, None)
+    b0 = _on_dev(torch, batches[0], dev)
+    cfg = tr.step_def.cfg
+    grads = _layer_grads(torch, arch, state["params"], b0, cfg)
+    wrong = dict(b0, targets=(b0["targets"] + 1) % arch.vocab_size)
+    wrong_grads = _layer_grads(torch, arch, state["params"], wrong, cfg)
+    from repro_torch.models import lm
+    with torch.no_grad(), plain_kernels(True):
+        plain = float(lm.train_loss(arch, state["params"], b0, cfg)[0])
+    del tr, state
+    torch.cuda.empty_cache()
+    fit = _mesh_fit(torch, dev, plan, arch, shape, None)[2]
+    torch.cuda.empty_cache()
+    return {"grads": grads, "wrong_grads": wrong_grads, "plain_loss": plain,
+            "fit": fit}
+
+
+def mesh_train_phase(torch, dev):
+    """Phase 24b: two ranks spawned on ``cuda:0`` over gloo, each held to
+    0.46 of the card, train full-width qwen3-8b cut to the depth
+    :func:`mesh_train_plans` finds: (a) the (1, 2) tensor-parallel plan,
+    (b) the (2, 1) plan with the int8 + EF wire and the same plan with
+    ``"off"``, :data:`MESH_TRAIN_STEPS` steps each on the same weights and
+    global batches; then a one-rank run of each plan in this process.
+    Checks: (a)'s losses and grad norms against the one-rank run, its
+    last layer's gradients row by row with a wrong-target control and
+    the planted ``copy_in`` fault; (b)'s step-0 losses equal bit for bit
+    on and off, the wire's identity on one leaf, the replicas' bf16
+    leaves equal; each rank's peak allocated <= its plan's estimate <=
+    :data:`MESH_PEAK_SLACK` x that peak; the flash forward and backward
+    launched once a layer a step on every rank.  A rank that fails
+    fails the run."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    arch, shape, ps, card = mesh_train_plans(torch)
+    L = arch.n_layers
+    gib = 2 ** 30
+    log("mesh train: qwen3-8b full width at depth %d (the largest <= 36 "
+        "whose per-rank estimates fit %.2f of the card): (1, 2) %s %.3f "
+        "GiB, (2, 1) on %s %.3f GiB (wire %s), (2, 1) off %.3f GiB [%s]" % (
+            L, MESH_TRAIN_SHARE, ps["tp"].estimates["strategy"],
+            ps["tp"].estimates["step_peak_bytes"] / gib,
+            ps["on"].estimates["strategy"],
+            ps["on"].estimates["step_peak_bytes"] / gib,
+            ps["on"].estimates.get("grad_compress_lowered"),
+            ps["off"].estimates["step_peak_bytes"] / gib, CARD))
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_train_rank,
+                             args=(r, tmp, str(SRC_IN_USE), L))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=900)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks = []
+        for r, p in enumerate(procs):
+            path = Path(tmp) / f"r{r}.pt"
+            check(path.exists(), f"mesh train: rank {r} left no result "
+                  f"(exit {p.exitcode})")
+            ranks.append(torch.load(path, weights_only=False))
+    for r, out in enumerate(ranks):
+        check("error" not in out, f"mesh train: rank {r} failed: "
+              f"{out.get('error')}")
+    t_ranks = time.perf_counter() - t0
+    batches = _mesh_batches(arch, shape)
+    anchors = {"tp": _mesh_anchor(torch, dev, ps["tp"], arch, shape,
+                                  batches),
+               "off": _mesh_anchor(torch, dev, ps["off"], arch, shape,
+                                   batches)}
+    res = {"n_layers": L, "card_bytes": card, "ranks_s": t_ranks,
+           "estimates": {k: p.estimates["step_peak_bytes"]
+                         for k, p in ps.items()},
+           "strategy": {k: p.estimates["strategy"] for k, p in ps.items()}}
+    # the loss floor: one rank's kernels against the plain attention
+    fl = {k: abs(a["fit"]["hist"][0][0] - a["plain_loss"])
+          / abs(a["plain_loss"]) for k, a in anchors.items()}
+    loss_tol = max(MESH_LOSS_MIN, 4 * max(fl.values()))
+    res["loss_floor"], res["loss_tol"] = fl, loss_tol
+    log(f"mesh train: loss floor (one rank, kernels vs plain attention, "
+        f"step 0) {fl}; losses held at {loss_tol:.3e} relative [{CARD}]")
+    # (a)
+    one = anchors["tp"]
+    for r, out in enumerate(ranks):
+        _mesh_track(f"(a) rank {r}", out["tp"], one["fit"], loss_tol)
+    want = one["grads"][1]
+    errs = {n: grad_row_err(torch, g, want[n])[1]
+            for n, g in ranks[0]["tp_grads"][1].items()}
+    wrong = {n: grad_row_err(torch, one["wrong_grads"][1][n], want[n])[1]
+             for n in want}
+    dropped = {n: grad_row_err(torch, g, want[n])[1]
+               for n, g in ranks[0]["tp_grads_dropped"][1].items()}
+    log(f"mesh train: (a) last layer's gradients (1, 2) against one rank, "
+        f"worst row rel {max(errs.values()):.3e} (tol {MESH_GRAD_TOL}) "
+        f"{ {n: round(v, 5) for n, v in errs.items()} }; wrong-target "
+        f"control worst {max(wrong.values()):.3e}; copy_in without its "
+        f"backward all-reduce worst {max(dropped.values()):.3e} "
+        f"{ {n: round(v, 5) for n, v in dropped.items()} } [{CARD}]")
+    check(max(errs.values()) <= MESH_GRAD_TOL,
+          f"mesh train: (a) gradients {errs}")
+    check(max(wrong.values()) > MESH_GRAD_TOL,
+          f"mesh train: the wrong-target control passed {wrong}")
+    check(max(dropped.values()) > MESH_GRAD_TOL,
+          f"mesh train: the dropped-all-reduce control passed {dropped}")
+    check(ranks[0]["tp_grads"][1].keys() == ranks[1]["tp_grads"][1].keys()
+          and all(torch.equal(ranks[0]["tp_grads"][1][n],
+                              ranks[1]["tp_grads"][1][n])
+                  for n in ranks[0]["tp_grads"][1]),
+          "mesh train: the ranks' gathered gradients differ")
+    res["a"] = {"grad_row_rel": errs, "wrong_target": wrong,
+                "copy_in_dropped": dropped,
+                "hist": [o["tp"]["hist"] for o in ranks],
+                "one_rank": one["fit"]["hist"]}
+    # (b)
+    offa = anchors["off"]
+    for r, out in enumerate(ranks):
+        check(out["on"]["wire"] == 2 and out["on"]["ef"]
+              and out["off"]["wire"] == 0,
+              f"mesh train: (b) rank {r} wire {out['on']['wire']}")
+        on0, off0 = out["on"]["hist"][0][0], out["off"]["hist"][0][0]
+        check(on0 == off0, f"mesh train: (b) step-0 losses on {on0!r} off "
+              f"{off0!r} differ")
+        _mesh_track(f"(b) on rank {r}", out["on"], offa["fit"], loss_tol)
+        _mesh_track(f"(b) off rank {r}", out["off"], offa["fit"], loss_tol)
+    (xa, ma, ea), (xb, mb, eb) = (o["on_leaf"] for o in ranks)
+    lhs = ma.double() + (ea.double() + eb.double()) / 2
+    rhs = (xa.double() + xb.double()) / 2
+    ident = float((lhs - rhs).abs().max() / rhs.abs().max())
+    log(f"mesh train: (b) the wire on one leaf ({tuple(xa.shape)}): the "
+        f"ranks' delivered means equal: {torch.equal(ma, mb)}; mean + the "
+        f"residuals' mean - the accumulators' mean, max rel {ident:.3e} "
+        f"[{CARD}]")
+    check(torch.equal(ma, mb) and ident <= 4 * 2 ** -23,
+          f"mesh train: the wire's identity {ident}")
+    same = ranks[0]["on_checksums"] == ranks[1]["on_checksums"]
+    log(f"mesh train: (b) {len(ranks[0]['on_checksums'])} replicated bf16 "
+        f"leaves after the last step, checksums equal across the data "
+        f"ranks: {same} [{CARD}]")
+    check(same, "mesh train: the data ranks' replicas drifted apart")
+    res["b"] = {"identity_rel": ident, "replicas_equal": same,
+                "on": [o["on"]["hist"] for o in ranks],
+                "off": [o["off"]["hist"] for o in ranks],
+                "one_rank": offa["fit"]["hist"]}
+    # memory and launches
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    res["peaks"], res["launches"] = {}, {}
+    for r, out in enumerate(ranks):
+        for k in ("tp", "on", "off"):
+            o = out[k]
+            want_l = expected_train_launches(arch, ps[k].comm.remat_policy)
+            ratio = o["estimate"] / o["peak"]
+            log(f"mesh train: rank {r} {k}: peak allocated {o['peak']} "
+                f"bytes, estimate {o['estimate']:.0f} ({ratio:.4f} x the "
+                f"peak), {MESH_TRAIN_STEPS} steps in {o['s']:.2f} s, "
+                f"losses {[round(h[0], 5) for h in o['hist']]} [{CARD}]")
+            check(o["peak"] <= o["estimate"] <= MESH_PEAK_SLACK * o["peak"],
+                  f"mesh train: rank {r} {k} peak {o['peak']} against its "
+                  f"estimate {o['estimate']}")
+            res["peaks"][f"rank{r}/{k}"] = (o["peak"], o["estimate"])
+            c = o["launches"]
+            for name in launches:
+                check(c[name] == MESH_TRAIN_STEPS * want_l[name],
+                      f"mesh train: rank {r} {k} launched {name} "
+                      f"{c[name]} times, not {MESH_TRAIN_STEPS} x "
+                      f"{want_l[name]}")
+                launches[name] += c[name]
+            res["launches"][f"rank{r}/{k}"] = {n: c[n] for n in launches}
+    res["launch_totals"] = launches
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"mesh train: phase took {res['phase_s']:.1f} s (ranks "
+        f"{t_ranks:.1f} s) [{CARD}]")
+    return launches, res
+
+
+def _mesh_track(what, got, want, loss_tol):
+    """Every step's loss within ``loss_tol`` and grad norm within
+    :data:`MESH_GNORM_TOL` of the one-rank run's."""
+    for t, ((l, g), (lw, gw)) in enumerate(zip(got["hist"], want["hist"])):
+        lr, gr = abs(l - lw) / abs(lw), abs(g - gw) / abs(gw)
+        log(f"mesh train: {what} step {t}: loss {l:.6f} vs one rank "
+            f"{lw:.6f} (rel {lr:.3e}), grad norm {g:.5f} vs {gw:.5f} "
+            f"(rel {gr:.3e}) [{CARD}]")
+        check(math.isfinite(l) and lr <= loss_tol and gr <= MESH_GNORM_TOL,
+              f"mesh train: {what} step {t}: loss {l} vs {lw}, grad norm "
+              f"{g} vs {gw}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port on one NVIDIA card")
     ap.add_argument("--only", choices=("flash_bwd", "flash_pos", "ssd_bwd",
-                                       "matmul_fp32", "mesh"),
+                                       "matmul_fp32", "mesh", "mesh_train"),
                     help="run this kernel's check alone and print its "
                          "result")
     ap.add_argument("--src", type=Path, default=SRC,
@@ -5951,6 +6386,13 @@ def main(argv=None) -> int:
         res = {"kernels": mesh_kernel_phase(torch, dev),
                "two_ranks": two_rank_phase(torch, dev)}
         log(json.dumps({"src": str(args.src), "card": CARD, "mesh": res}))
+        return 0
+    if args.only == "mesh_train":
+        log(f"build: {time.perf_counter() - t0:.1f} s [{CARD}]")
+        expandable_segments(torch)
+        _, res = mesh_train_phase(torch, dev)
+        log(json.dumps({"src": str(args.src), "card": CARD,
+                        "mesh_train": res}))
         return 0
     log(f"build: {len(build.SOURCES)} sources with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
@@ -6147,6 +6589,9 @@ def main(argv=None) -> int:
     # ---- phase 24: two ranks on the card (multi-GPU serving) ----
     two = two_rank_phase(torch, dev)
 
+    # ---- phase 24b: two ranks training on the card ----
+    mesh_launches, mesh_train = mesh_train_phase(torch, dev)
+
     # ---- phase 25: results ----
     family_counts = [c for c, _ in families.values()]
     runs = (*serve_runs.values(), train_counts, *family_counts,
@@ -6157,6 +6602,8 @@ def main(argv=None) -> int:
         check(front_counts["qwen2-vl positions"][name] > 0,
               f"the positions variant's runs launched {name} no time")
     launches = {k: sum(c[k] for c in runs) for k in paged_counts}
+    for name, n in mesh_launches.items():
+        launches[name] += n
     for name in ("flash_attention", "paged_decode_attention"):
         kern[name]["g7"]["launches"] = (grant["launches"][name]
                                         + grant_ctl["launches"][name])
@@ -6170,6 +6617,10 @@ def main(argv=None) -> int:
                                       families.items()),
                                     (QWEN2VL, front_counts["qwen2-vl train"]),
                                     (HUBERT, front_counts["hubert train"]))}}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        kern[name]["train"]["launches"][
+            "qwen3-8b two ranks (1, 2) and (2, 1), both ranks"] = \
+            mesh_launches[name]
     # the frontends' pairs: qwen2-vl's plan is paged, so its dense decode
     # instance runs in the kernel phase only (0 on the main path)
     for name in ("flash_attention", "paged_decode_attention",
@@ -6250,6 +6701,7 @@ def main(argv=None) -> int:
                     "small_train_mamba2": small_train_ssm,
                     "frontends": front, "disagg": disagg_res,
                     "step_guard": guard, "two_ranks": two,
+                    "mesh_train": mesh_train,
                     "allocator": allocator}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")

@@ -11,7 +11,13 @@ temporary directory), runs each collective the port uses on CUDA
 tensors, checks the values, and prints one JSON object: for each
 operation ``"ok"`` or the error it raised.  It also records whether a
 ``DeviceMesh("cuda", ...)`` builds on that group, and whether NCCL
-accepts the two ranks.
+accepts the two ranks.  The training step's collectives are probed
+too: ``reduce_scatter_tensor`` (FSDP's gradient, else run as an
+all-reduce and a slice), ``all_reduce`` of fp32 and bf16 (gradients,
+partial products), of fp32 by MAX (the block amax, the logits' row
+max) and of int32 by SUM and MAX (the compressed wire's codes: gloo
+has no int16 reduction, ``all_reduce_int16`` records its refusal), and
+``all_gather`` of bf16 and int32 (the FSDP gather, the fallbacks).
 
 Run:  python3 scripts/gloo_cuda_probe.py [--out FILE]
 """
@@ -25,8 +31,13 @@ import os
 import sys
 import tempfile
 
+#: in the order they run: ``batch_isend_irecv`` last, since its failure
+#: on CUDA tensors closes the ranks' connection for every later one
 OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
-       "all_to_all_single", "batch_isend_irecv", "device_mesh")
+       "all_to_all_single", "device_mesh", "reduce_scatter_tensor",
+       "all_reduce_bf16", "all_reduce_fp32_max", "all_reduce_int32_sum",
+       "all_reduce_int32_max", "all_reduce_int16", "all_gather_bf16",
+       "all_gather_int32", "batch_isend_irecv")
 
 
 def _try(fn) -> str:
@@ -98,11 +109,41 @@ def _rank(rank: int, world: int, tmp: str, backend: str) -> None:
         dist.all_reduce(x, group=m.get_group("model"))
         return bool((x == 3).all())
 
+    def reduce_scatter_tensor():
+        x = torch.arange(2 * world, device=dev, dtype=torch.float32) * \
+            (rank + 1)
+        o = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(o, x)
+        want = torch.arange(2 * world, device=dev,
+                            dtype=torch.float32)[2 * rank:2 * rank + 2] * 3
+        return bool((o == want).all())
+
+    def reduced(dtype, op, want):
+        x = torch.full((4,), rank + 1, device=dev, dtype=dtype)
+        dist.all_reduce(x, op=op)
+        return bool((x == want).all())
+
+    def gathered(dtype):
+        parts = [torch.empty(3, device=dev, dtype=dtype)
+                 for _ in range(world)]
+        dist.all_gather(parts, torch.full((3,), rank, device=dev,
+                                          dtype=dtype))
+        return all(bool((p == i).all()) for i, p in enumerate(parts))
+
+    R = dist.ReduceOp
     fns = dict(all_reduce=all_reduce, broadcast=broadcast,
                all_gather=all_gather,
                all_gather_into_tensor=all_gather_into_tensor,
                all_to_all_single=all_to_all_single,
-               batch_isend_irecv=batch_isend_irecv, device_mesh=device_mesh)
+               batch_isend_irecv=batch_isend_irecv, device_mesh=device_mesh,
+               reduce_scatter_tensor=reduce_scatter_tensor,
+               all_reduce_bf16=lambda: reduced(torch.bfloat16, R.SUM, 3),
+               all_reduce_fp32_max=lambda: reduced(torch.float32, R.MAX, 2),
+               all_reduce_int32_sum=lambda: reduced(torch.int32, R.SUM, 3),
+               all_reduce_int32_max=lambda: reduced(torch.int32, R.MAX, 2),
+               all_reduce_int16=lambda: reduced(torch.int16, R.SUM, 3),
+               all_gather_bf16=lambda: gathered(torch.bfloat16),
+               all_gather_int32=lambda: gathered(torch.int32))
     for name in OPS:
         out[name] = _try(fns[name])
         if backend == "nccl":

@@ -17,7 +17,8 @@ Guarantees: a crash mid-write never corrupts the latest checkpoint (tmp
 + rename); a save snapshots the state to host memory synchronously
 (training may then overwrite it in place) and writes on a background
 thread, the next save joining the previous one; :meth:`restore` puts
-every leaf on the device it is asked for.
+every leaf on the device it is asked for, or hands each to a caller
+that keeps a piece of it.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import shutil
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -182,9 +183,13 @@ class Checkpointer:
             return None
         return step
 
-    def restore(self, step: Optional[int] = None, device="cpu"):
+    def restore(self, step: Optional[int] = None, device="cpu",
+                take: Optional[Callable] = None):
         """``(state, manifest)`` of a checkpoint (the latest by default),
-        every leaf a tensor on ``device``."""
+        every leaf a tensor on ``device``.  ``take(key, leaf)``, where
+        given, is applied to each leaf as it is read (``key`` its flat
+        ``a/b/c`` name) and its result is kept in its place (``None``
+        drops the leaf), so one whole leaf at a time is held."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -194,8 +199,12 @@ class Checkpointer:
         flat: Dict[str, Any] = {}
         with np.load(d / f"shard_{self.host_id}.npz") as z:
             for k in z.files:
-                flat[k] = _from_host(z[k], keys.get(k, {}).get("dtype", ""),
-                                     device)
+                t = _from_host(z[k], keys.get(k, {}).get("dtype", ""),
+                               device)
+                if take is not None:
+                    t = take(k, t)
+                if t is not None:
+                    flat[k] = t
         return _unflatten(flat), manifest
 
     def validate(self, step: int) -> bool:

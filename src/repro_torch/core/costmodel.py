@@ -60,6 +60,19 @@ def shard_factor(
     return f
 
 
+def spec_shards(spec: Sequence, mesh: MeshModel, dims=None) -> int:
+    """How many pieces a placement ``spec`` cuts a tensor into (over its
+    dims ``dims`` only, where given)."""
+    f = 1
+    for i, s in enumerate(spec):
+        if s is None or (dims is not None and i not in dims):
+            continue
+        for n in ((s,) if isinstance(s, str) else tuple(s)):
+            if n in mesh.axes:
+                f *= mesh.axis_size(n)
+    return f
+
+
 def bytes_per_device(
     decl: TensorDecl,
     axis_map: Mapping[str, Optional[str]],
@@ -701,7 +714,8 @@ def _moe_saved_bytes(arch, T: float, seqs: float, impl: str) -> float:
 
 def eager_layer_saved_bytes(arch, tokens: float, heads: int, kv_heads: int,
                             remat: str, *, seqs: float = 1, ffn: str = "mlp",
-                            ssd_chunk: int = 256) -> float:
+                            ssd_chunk: int = 256, ff_shards: int = 1
+                            ) -> float:
     """Bytes eager autograd keeps for one layer between its forward and
     its backward, under ``remat`` (the port's ``models.lm._block_fwd`` as
     PyTorch records it, T = ``tokens`` over ``seqs`` sequences); ``ffn``
@@ -722,6 +736,11 @@ def eager_layer_saved_bytes(arch, tokens: float, heads: int, kv_heads: int,
       Attention keeps the same tensors causal or not (the encoder's is
       not), and no RoPE terms where the arch has none;
     * ``full``: the layer's input alone (2 T d).
+
+    On a mesh ``heads`` / ``kv_heads`` are a rank's and ``ff_shards``
+    the model ranks the dense FFN's ff dims are cut over (each keeps
+    its ``1 / ff_shards`` of the FFN's tensors; the norms and the normed
+    input stay whole).
     """
     T, d, hd = tokens, arch.d_model, arch.hd
     if remat == "full":
@@ -740,8 +759,10 @@ def eager_layer_saved_bytes(arch, tokens: float, heads: int, kv_heads: int,
         out += _ssm_saved_bytes(arch, T, seqs, ssd_chunk)
     if ffn == "mlp":
         per_ff = 6 if arch.family == "encoder" else 12
-        out += _norm_bytes(T, d) + 2 * T * d + per_ff * T * (arch.d_ff
-                                                             or arch.d_inner)
+        ff = arch.d_ff or arch.d_inner
+        if ff_shards > 1:
+            ff = ff / ff_shards
+        out += _norm_bytes(T, d) + 2 * T * d + per_ff * T * ff
     elif ffn != "none":
         out += _norm_bytes(T, d) + _moe_saved_bytes(arch, T, seqs, ffn)
     return out
@@ -764,8 +785,10 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
                             param_bytes: float, largest_stacked_bytes: float,
                             embed_bytes: float, remat: str,
                             microbatches: int = 1, seqs: float = 1,
-                            moe_impl: str = "", ssd_chunk: int = 256
-                            ) -> Dict[str, float]:
+                            moe_impl: str = "", ssd_chunk: int = 256,
+                            ff_shards: int = 1, vocab_split: bool = False,
+                            gathered_layer_bytes: float = 0.0,
+                            ef_bytes: float = 0.0) -> Dict[str, float]:
     """The peak bytes of one eager train step on one card
     (``core.passes.lowering.lower_train_step``: autograd through
     ``models.lm.train_loss``, then AdamW in place), by part:
@@ -802,13 +825,28 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
     The peak is ``state + runtime`` plus the larger of the turn from
     forward to backward (``saved`` and the larger of ``loss`` and
     ``ssd_workspace``, with the fp32 sum of earlier microbatches) and the
-    end (``grads`` and ``tail``)."""
+    end (``grads`` and ``tail``).
+
+    On a mesh every term is one rank's (the caller's arguments): its
+    tokens, heads and vocab piece (``vocab``), its gradient bytes
+    (``param_bytes``, ``largest_stacked_bytes``, ``embed_bytes``: each
+    leaf over its shard factor), ``ff_shards`` as in
+    :func:`eager_layer_saved_bytes`; with ``vocab_split`` the loss's
+    region is the vocab-split cross-entropy's (``models.lm._split_ce``:
+    the fp32 exponentials it keeps, then, as its backward starts, their
+    product with the gradient, the padding mask's output and its bf16
+    cast: 14 T V of the rank's V); FSDP's gathered layer
+    (``gathered_layer_bytes``) is saved once more for each step the
+    backward holds it (every step without remat, the recomputed one
+    under it) with its fp32 gradient before the reduce-scatter; and a
+    plan that compresses gradients keeps ``ef_bytes`` of bf16 residuals
+    beside its state."""
     nmicro = max(microbatches, 1)
     T = tokens / nmicro
     ffns = layer_group_ffns(arch, moe_impl)
     group = sum(eager_layer_saved_bytes(
         arch, T, heads, kv_heads, "none", seqs=seqs / nmicro, ffn=f,
-        ssd_chunk=ssd_chunk) for f in ffns)
+        ssd_chunk=ssd_chunk, ff_shards=ff_shards) for f in ffns)
     steps = arch.n_layers // len(ffns)
     if remat == "none":
         saved = steps * group
@@ -816,7 +854,10 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
         saved = steps * eager_layer_saved_bytes(arch, T, heads, kv_heads,
                                                 remat) + group
     saved += 10 * T * arch.d_model
-    loss = 20 * T * vocab
+    if gathered_layer_bytes:
+        saved += gathered_layer_bytes * (
+            (steps if remat == "none" else 1) + 2)
+    loss = (14 if vocab_split else 20) * T * vocab
     ssd_ws = 0.0
     if arch.has_ssm:
         from repro_torch.kernels.ssd_scan import bwd_workspace_floats
@@ -830,6 +871,7 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
     tail = max(stacking, OPT_CHUNK_TEMPS * OPT_CHUNK * 4)
     turn = saved + max(loss, ssd_ws) + sum32
     end = grads + tail
+    state_bytes = state_bytes + ef_bytes
     return {"state": float(state_bytes), "runtime": float(STEP_RUNTIME_BYTES),
             "grads": float(grads), "saved": float(saved),
             "loss": float(loss), "ssd_workspace": ssd_ws,

@@ -307,9 +307,12 @@ class CommunicationPass(Pass):
         _, heads, _, kv_heads = plan.padded_sizes()
         heads, kv_heads = heads or arch.n_heads, kv_heads or arch.n_kv_heads
         params = ctx.ir.by_role(Role.PARAM, Role.EXPERT_PARAM)
-        stacked = [t.nbytes for t in params
+        share = _RankShare(plan, ctx.mesh, params)
+        heads, kv_heads = share.heads(heads, kv_heads)
+        stacked = [share.bytes(t) for t in params
                    if t.logical_axes and t.logical_axes[0] == "layers"]
         tokens = ctx.shape.tokens / self._dp(ctx)
+        vocab = plan.padded_sizes()[0] or arch.vocab_size
         tried = {}
         for policy in REMAT_LADDER:
             tried[policy] = eager_train_step_memory(
@@ -319,13 +322,19 @@ class CommunicationPass(Pass):
                 ssd_chunk=(ssd.cuda_chunk(arch.ssm_head_dim, arch.ssm_state)
                            or ssd.DEFAULT_CHUNK),
                 heads=heads, kv_heads=kv_heads,
-                vocab=plan.padded_sizes()[0] or arch.vocab_size,
+                vocab=share.vocab(vocab),
                 state_bytes=plan.estimates["persistent_bytes_per_dev"],
-                param_bytes=sum(t.nbytes for t in params),
+                param_bytes=sum(share.bytes(t) for t in params),
                 largest_stacked_bytes=max(stacked, default=0),
-                embed_bytes=sum(t.nbytes for t in params
+                embed_bytes=sum(share.bytes(t) for t in params
                                 if t.name == "embed"),
-                remat=policy, microbatches=nmicro)
+                remat=policy, microbatches=nmicro,
+                ff_shards=share.ff_shards(),
+                vocab_split=share.vocab(vocab) != vocab,
+                gathered_layer_bytes=share.gathered_layer(arch),
+                ef_bytes=(sum(2 * share.bytes(t) // t.dtype_bytes
+                              for t in params)
+                          if plan.comm.compresses_gradients else 0.0))
             if tried[policy]["peak"] <= budget:
                 break
         est = tried[policy]
@@ -398,3 +407,66 @@ class CommunicationPass(Pass):
             moe_bytes = tokens_local * E * max(cap, 4) * 6
             per_layer = per_layer + moe_bytes / max(arch.moe_interleave, 1)
         return per_layer * arch.n_layers
+
+
+class _RankShare:
+    """One rank's share of the parameters under the plan's placements
+    (``plan.placements``, divisibility repaired): what the eager step
+    estimate counts on a mesh.  On one device every share is the
+    whole, so a ``(1, 1)`` plan's estimate is the one-card formula's,
+    byte for byte."""
+
+    def __init__(self, plan, mesh, params):
+        from repro_torch.core.costmodel import spec_shards
+        self.plan, self.mesh, self._shards = plan, mesh, spec_shards
+        self.params = {t.name: t for t in params}
+
+    def _spec(self, name):
+        p = self.plan.placements.get(name)
+        return tuple(p.spec) if p is not None and p.spec else ()
+
+    def _dim(self, name, logical) -> int:
+        t = self.params.get(name)
+        if t is None or logical not in t.logical_axes:
+            return 1
+        return self._shards(self._spec(name), self.mesh,
+                            {t.logical_axes.index(logical)})
+
+    def bytes(self, t) -> int:
+        """``t``'s bytes over its shard factor."""
+        return t.nbytes // self._shards(self._spec(t.name), self.mesh)
+
+    def heads(self, heads: int, kv_heads: int):
+        """The query and kv heads a rank attends with (whole where a cut
+        does not fall on whole heads)."""
+        fq, fk = self._dim("attn.wq", "heads"), self._dim("attn.wk",
+                                                          "kv_heads")
+        return (heads // fq if heads % fq == 0 else heads,
+                kv_heads // fk if kv_heads % fk == 0 else kv_heads)
+
+    def vocab(self, vocab: int) -> int:
+        head = "lm_head" if "lm_head" in self.params else "embed"
+        f = self._dim(head, "vocab")
+        return vocab // f if vocab % f == 0 else vocab
+
+    def ff_shards(self) -> int:
+        fi, fo = self._dim("mlp.wi", "ff"), self._dim("mlp.wo", "ff")
+        return fi if fi == fo else 1
+
+    def gathered_layer(self, arch) -> float:
+        """One layer's stacked leaves gathered whole on their FSDP
+        (``embed``) dims, each still cut on its other dims (0.0 without
+        FSDP)."""
+        total = 0.0
+        for t in self.params.values():
+            ax = t.logical_axes
+            if not ax or ax[0] != "layers" or "embed" not in ax:
+                continue
+            e = ax.index("embed")
+            spec = self._spec(t.name)
+            if self._shards(spec, self.mesh, {e}) == 1:
+                continue
+            rest = set(range(len(spec))) - {e}
+            total += t.nbytes / self._shards(spec, self.mesh, rest) \
+                / t.shape[0]
+        return total

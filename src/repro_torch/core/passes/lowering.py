@@ -7,17 +7,17 @@ plan's axis rules over the parameter tree),
 :func:`wire_compression` (the gradient-compression predicate the
 communication pass records its verdict through) and
 :func:`lower_train_step`, the train step the plan asks for — forward,
-backward, microbatch accumulation, AdamW — on one card, eagerly (no
-jit: :class:`LoweredStep` carries the step function as it is).  The
-JAX package's sharded train steps, donation and the int8 gradient wire
-wait for ROADMAP item 10b; a plan that compresses gradients is
-refused.
+backward, microbatch accumulation, the gradients' reduction (the int8
++ error-feedback wire where the plan lowers it), AdamW — on one card
+or on each rank of a ``(data, model)`` mesh, eagerly (no jit:
+:class:`LoweredStep` carries the step function as it is).
 Torch is imported where a step is built, not at import.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
@@ -90,22 +90,23 @@ def param_pspecs(plan, arch: ArchConfig, sizes, shapes: Any = None) -> Any:
 def wire_compression(plan, mesh=None,
                      arch: Optional[ArchConfig] = None) -> int:
     """Data-parallel degree of the *lowered* compressed reduction, or 0
-    (the JAX package's predicate, on the plan's own mesh dims).
+    (the JAX package's predicate): on ``mesh``'s sizes (a
+    ``DeviceMesh`` or a mapping), else the plan's own mesh dims.
 
     Gates: the plan asked for full-DP compression; not an FSDP
     strategy; a data degree in ``(1, 256]`` that divides the global
     batch with ``dp * microbatches`` granularity; not shard_map MoE.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "wire_compression on a live mesh: the port trains on one card; "
-            "the compressed reduction on a mesh waits for ROADMAP item 10b")
     comm = plan.comm
     if not comm.compress_grads:
         return 0
     if str(plan.estimates.get("strategy", "")).startswith("fsdp"):
         return 0
-    sizes = dict(zip(plan.mesh_axes, plan.mesh_shape))
+    if mesh is not None:
+        from repro_torch.dist.sharding import mesh_sizes
+        sizes = mesh_sizes(mesh)
+    else:
+        sizes = dict(zip(plan.mesh_axes, plan.mesh_shape))
     ba = plan.axis_rules.get("batch")
     axes = (ba,) if isinstance(ba, str) else tuple(ba or ())
     dp = 1
@@ -125,48 +126,123 @@ def wire_compression(plan, mesh=None,
 @dataclasses.dataclass
 class LoweredStep:
     """A lowered train step: ``fn(state, batch) -> (state, metrics)``, run
-    as it is (the port has no jit), and the plan it came from."""
+    as it is (the port has no jit), and the plan it came from.  On a
+    mesh, ``layout`` is the rank's :class:`repro_torch.dist.fsdp
+    .MeshLayout` and ``wire_dp`` the data degree of the compressed wire
+    (0: none); ``ef`` whether the optimizer state carries error-feedback
+    residuals (one bf16 leaf a parameter piece: under the wire the
+    rank's row of the reference's stacked ``(dp, ...)`` leaf); ``cfg``
+    the :class:`repro_torch.models.lm.RunCfg` its loss runs under."""
 
     fn: Callable
     plan: Any
+    layout: Any = None
+    wire_dp: int = 0
+    ef: bool = False
+    cfg: Any = None
+
+
+def mesh_refusals(plan, arch: ArchConfig, mesh, layout=None,
+                  wire_dp: int = 0) -> None:
+    """Raise :class:`NotImplementedError`, naming ROADMAP item 10b, for
+    what training on a mesh does not do yet: several data axes, an SSM
+    or hybrid arch whose SSM leaves are split over ``model``; and, with
+    the reference's reason, the compressed wire over leaves FSDP splits
+    over the data axes (its stacked EF spec ``P(dp, *pspec)`` would name
+    a data axis twice, ``src/repro/core/passes/lowering.py:246-252``).
+    Returns the mesh's :class:`repro_torch.dist.fsdp.MeshLayout`."""
+    from repro_torch.dist.fsdp import MeshLayout
+    names = tuple(mesh.mesh_dim_names)
+    data = [a for a in names if a != "model" and mesh.size(
+        names.index(a)) > 1]
+    if len(data) > 1:
+        raise NotImplementedError(
+            f"training on data axes {tuple(data)}: one data axis is ported; "
+            "several wait for ROADMAP item 10b")
+    layout = layout or MeshLayout(plan, arch, mesh)
+    ssm = layout.places["blocks"]
+    ssm = [ssm.get("ssm")] if "dense" not in ssm else [
+        ssm[k].get("ssm") for k in ("dense", "moe")]
+    for tree in filter(None, ssm):
+        for pl in tree.values():
+            if any(a == "model" for a in pl.split_axes) and pl.gather is None:
+                raise NotImplementedError(
+                    f"{arch.name}: its SSM leaves split over the model axis "
+                    f"({pl.spec}); SSM and hybrid archs on a model axis wait "
+                    "for ROADMAP item 10b")
+    if wire_dp:
+        dp = set(layout.batch_axes)
+        for pl in layout.leaf_places():
+            if pl.gather is not None and dp & set(pl.split_axes):
+                raise NotImplementedError(
+                    f"the compressed gradient wire over a leaf FSDP splits "
+                    f"over {sorted(dp)} ({pl.spec}): the reference's stacked "
+                    f"error-feedback spec P(dp, *pspec) names that axis "
+                    "twice, so it cannot lower this plan either")
+    return layout
 
 
 def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
                      mesh=None, opt_cfg=None) -> LoweredStep:
-    """The plan's train step on one card
-    (``src/repro/core/passes/lowering.py:213-425``): the loss and its
-    gradients, accumulated over ``comm.microbatches`` microbatches (each
-    taking every ``microbatches``-th row of the batch, the reference's
-    interleaved split, each input sliced on its batch dim from
+    """The plan's train step (``src/repro/core/passes/lowering.py
+    :213-425``): the loss and its gradients, accumulated over
+    ``comm.microbatches`` microbatches (each taking every
+    ``microbatches``-th row of the batch, the reference's interleaved
+    split, each input sliced on its batch dim from
     :func:`repro_torch.models.frontends.batch_dims`: M-RoPE's ``(3, B,
-    S)`` positions on dim 1; the gradients summed in fp32 and averaged: the
-    bf16 gradients of one microbatch beside the fp32 sum, which the
+    S)`` positions on dim 1; the gradients summed in fp32 and averaged:
+    the bf16 gradients of one microbatch beside the fp32 sum, which the
     planner's step-peak estimate counts), then
     :func:`repro_torch.optim.adamw.apply_updates` in place.  The state is
     ``{"params": ..., "opt": ...}``; float parameters must require grad.
+    A plan that compresses gradients without lowering the wire runs
+    ``ef_compress`` on each reduced gradient with one bf16 residual a
+    leaf (``opt["ef"]``), on one card too.
 
-    Raises :class:`NotImplementedError` for a mesh, and for a plan that
-    compresses gradients (the int8 + error-feedback reduction, on the
-    wire or modelled: ROADMAP item 10b), before any weight exists."""
+    On a ``mesh`` every rank runs this step on the global batch it is
+    handed: it takes its contiguous rows (:class:`repro_torch.dist.fsdp
+    .MeshLayout`), its pieces of the parameters run the model's mesh
+    code, and:
+
+    * without the wire, the loss is the whole batch's token mean (each
+      rank's share), FSDP leaves' gradients are reduce-scattered in the
+      backward, the others summed over the batch axes in fp32;
+    * with the wire (``wire_compression > 0``), each data rank's slice
+      is differentiated alone (its own mean, as the reference's vmapped
+      slices are); each leaf's ``g + e`` is averaged by
+      :func:`repro_torch.dist.collectives.compressed_psum` over the data
+      group (one MAX of the block amax, one SUM of int32 codes) and the
+      rank's residual is its new EF leaf; the loss is the slices' mean.
+
+    Raises :class:`NotImplementedError` for what :func:`mesh_refusals`
+    names, before any weight exists."""
     import torch
 
+    from repro_torch.dist.collectives import axes_groups, sum_over_
     from repro_torch.models import frontends, lm
     from repro_torch.optim import adamw
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "lower_train_step: the port trains on one card; a mesh "
-            "(FSDP / data parallelism) waits for ROADMAP item 10b")
-    if plan.comm.compresses_gradients or wire_compression(plan, None, arch):
-        raise NotImplementedError(
-            "lower_train_step: the plan compresses gradients (int8 + error "
-            "feedback); the compressed reduction in the train step waits "
-            "for ROADMAP item 10b")
     lm.check_supported(arch)
-    cfg = build_run_cfg(plan, arch)
     opt_cfg = opt_cfg or adamw.OptConfig.from_plan(plan)
     nmicro = max(plan.comm.microbatches, 1)
     bdims = frontends.batch_dims(arch, shape)
+    compress = plan.comm.compresses_gradients
+    layout, wire_dp, pieces, places = None, 0, None, None
+    if mesh is None:
+        cfg = build_run_cfg(plan, arch)
+    else:
+        wire_dp = wire_compression(plan, mesh, arch)
+        layout = mesh_refusals(plan, arch, mesh, None, wire_dp)
+        cfg = dataclasses.replace(
+            build_run_cfg(plan, arch, mesh),
+            kv_split=_train_kv_split(arch, layout),
+            fsdp=layout.gathers if layout.fsdp else None,
+            batch_axes=() if wire_dp else layout.batch_axes)
+        places = layout.leaf_places()
+        pieces = [adamw.Piece(tuple(axes_groups(mesh, pl.split_axes)),
+                              pl.piece) for pl in places]
+        reduce = [axes_groups(mesh, pl.reduce_axes) for pl in places]
+        dgroups = axes_groups(mesh, layout.batch_axes)
 
     def grads_of(params, batch):
         leaves = list(adamw.leaves(params))
@@ -175,10 +251,27 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
         # fed ``embeds``) gets zeros, as jax.grad gives it
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        return loss.detach(), metrics, grads
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        # the whole batch's loss (``ce_loss`` is the whole batch's mean
+        # where the loss is summed over ``cfg.batch_axes``)
+        report = metrics["ce_loss"] + lm.AUX_LOSS_WEIGHT * metrics["aux_loss"]
+        if wire_dp:
+            # the slices' mean, each rank's share summed: a share is the
+            # off step's (its sum over the whole count) bit for bit where
+            # the slices count equal tokens and dp is a power of two
+            report = sum_over_((report.float() / wire_dp).reshape(1),
+                               dgroups)[0]
+        return report, metrics, grads
+
+    def local(batch):
+        if layout is None:
+            return batch
+        return {k: layout.batch_rows(v, bdims.get(k, 0))
+                for k, v in batch.items()}
 
     def train_step(state, batch):
         params = state["params"]
+        batch = local(batch)
         if nmicro > 1:
             gsum, lsum = None, 0.0
             for j in range(nmicro):
@@ -199,15 +292,141 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
                                               device=loss.device)}
         else:
             loss, metrics, flat = grads_of(params, batch)
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        it = iter(flat)
-        grads = _like(params, it)
+        opt = dict(state["opt"])
+        ef = opt.pop("ef", None)
+        if wire_dp:
+            flat, new_ef = _wire(flat, adamw.leaves(ef), dgroups, layout,
+                                 places)
+            metrics = {"ce_loss": loss,
+                       "aux_loss": torch.zeros((), device=loss.device),
+                       "tokens": torch.tensor(float(shape.tokens),
+                                              device=loss.device)}
+        else:
+            if layout is not None:
+                flat = [sum_over_(g.contiguous(), grp)
+                        for g, grp in zip(flat, reduce)]
+            if compress:
+                flat, new_ef = _ef_compress(flat, adamw.leaves(ef), layout,
+                                            places)
+        grads = _like(params, iter(flat))
         params, opt, opt_metrics = adamw.apply_updates(
-            params, grads, state["opt"], opt_cfg)
+            params, grads, opt, opt_cfg, pieces)
+        if compress:
+            opt["ef"] = _like(ef, iter(new_ef))
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return {"params": params, "opt": opt}, metrics
 
-    return LoweredStep(fn=train_step, plan=plan)
+    return LoweredStep(fn=train_step, plan=plan, layout=layout,
+                       wire_dp=wire_dp, ef=compress, cfg=cfg)
+
+
+def _train_kv_split(arch: ArchConfig, layout) -> str:
+    """``"heads"`` where a rank's query heads and kv heads are both cut
+    at whole heads over ``model`` (each rank attends with its own: the
+    kv heads stay unjoined), else ``"none"``."""
+    blocks = layout.places["blocks"]
+    attn = (blocks.get("dense", blocks)).get("attn")
+    if attn is None:
+        return "none"
+    sizes, hd = layout.sizes, arch.hd
+
+    def heads_cut(pl):
+        m = sizes.get("model", 1)
+        return ("model" in pl.split_axes and pl.gather is None
+                and (pl.whole[-1] // m) % hd == 0)
+    return "heads" if heads_cut(attn["wq"]) and heads_cut(attn["wk"]) \
+        else "none"
+
+
+def _row_chunks(t, elems: int):
+    """``t`` as ``(rows, last dim)`` (a scalar as one element), cut into
+    runs of whole rows of at most ``elems`` elements (at least a row)."""
+    flat = t.reshape(1) if t.dim() == 0 else t.reshape(-1, t.shape[-1])
+    step = max(elems // flat.shape[-1], 1)
+    return [flat[i:i + step] for i in range(0, flat.shape[0], step)]
+
+
+def _codes_span_pieces(layout, place, rows: bool) -> bool:
+    """Whether a piece's int8 blocks are not its whole leaf's.  The
+    blocks are 128 consecutive elements of the flattened leaf
+    (``ef_compress``), or of each row of its last dim (the wire,
+    ``rows``).  A piece is a set of runs of consecutive whole-leaf
+    elements, each from its innermost split dim to the end, starting at
+    a multiple of the run: the blocks agree where the run (for rows, the
+    piece's last dim where that dim is split) is a multiple of one."""
+    from repro_torch.dist.collectives import BLOCK
+    if layout is None or not place.split_axes:
+        return False
+    shape = layout.piece_shape(place)
+    split = [d for d, n in enumerate(shape) if n != place.whole[d]]
+    if rows:
+        return split[-1] == len(shape) - 1 and shape[-1] % BLOCK != 0
+    return math.prod(shape[split[-1]:]) % BLOCK != 0
+
+
+def _on_whole_blocks(fn, g, e, layout, place, rows: bool):
+    """``fn(g, e)`` (in place) with the whole leaf's int8 blocks: on the
+    pieces where their blocks are the whole leaf's, else on the whole
+    leaf gathered from the pieces, each rank then keeping its piece."""
+    if not _codes_span_pieces(layout, place, rows):
+        fn(g, e)
+        return
+    from repro_torch.dist.fsdp import whole
+    from repro_torch.dist.sharding import local_shard
+    gw, ew = (whole(t, place.spec, layout.mesh) for t in (g, e))
+    fn(gw, ew)
+    g.copy_(local_shard(gw, layout.mesh, place.spec))
+    e.copy_(local_shard(ew, layout.mesh, place.spec))
+
+
+def _wire(grads, efs, groups, layout=None, places=None):
+    """The compressed reduction of a rank's per-slice gradients, in
+    place: per leaf ``g + e`` in fp32 (a scalar leaf as one element,
+    the reference's ``(dp,) -> (dp, 1)``), its mean over the data group
+    by shared-scale int8 codes written over ``g``, and the rank's
+    residual over its bf16 EF leaf ``e``
+    (``src/repro/core/passes/lowering.py:327-341``).  Whole rows at a
+    time (the codes' blocks run along the last dim, so a run of rows
+    gives the whole leaf's codes), at most ``adamw.CHUNK`` elements; a
+    leaf whose model pieces cut those blocks is coded whole."""
+    from repro_torch.dist import collectives
+    from repro_torch.optim.adamw import CHUNK
+    (group, _), = groups
+
+    def code(g, e):
+        for gc, ec in zip(_row_chunks(g, CHUNK), _row_chunks(e, CHUNK)):
+            mean, err = collectives.compressed_psum(
+                gc.float() + ec.float(), group)
+            gc.copy_(mean)
+            ec.copy_(err)
+
+    grads, efs = [g.contiguous() for g in grads], list(efs)
+    for k, (g, e) in enumerate(zip(grads, efs)):
+        _on_whole_blocks(code, g, e, layout,
+                         places[k] if places else None, rows=True)
+    return grads, efs
+
+
+def _ef_compress(grads, efs, layout=None, places=None):
+    """The post-reduce error feedback in place, ``adamw.CHUNK`` elements
+    at a time (a multiple of the codes' 128-element blocks of the
+    flattened leaf, so the chunks give the whole leaf's codes); on a
+    mesh, a leaf whose pieces cut those blocks is coded whole."""
+    from repro_torch.dist.collectives import ef_compress
+    from repro_torch.optim.adamw import CHUNK
+
+    def code(g, e):
+        gf, ef = g.view(-1), e.view(-1)
+        for i in range(0, gf.numel(), CHUNK):
+            gh, eh = ef_compress(gf[i:i + CHUNK], ef[i:i + CHUNK])
+            gf[i:i + CHUNK].copy_(gh)
+            ef[i:i + CHUNK].copy_(eh)
+
+    grads, efs = [g.contiguous() for g in grads], list(efs)
+    for k, (g, e) in enumerate(zip(grads, efs)):
+        _on_whole_blocks(code, g, e, layout,
+                         places[k] if places else None, rows=False)
+    return grads, efs
 
 
 def _rows(t, dim: int, j: int, n: int):

@@ -7,6 +7,10 @@ stream, seeded per (seed, step, host) with the same numpy calls, so its
 batches are bit-identical to the reference's and a restart reproduces
 them exactly.  :func:`to_device` moves a batch to the card through
 pinned host memory, with asynchronous copies, from the prefetch thread.
+On a mesh every rank draws the global batch from the seed and its train
+step cuts the rank's contiguous rows
+(:meth:`repro_torch.dist.fsdp.MeshLayout.batch_rows`), so every mesh
+trains on the data one card sees.
 """
 
 from __future__ import annotations

@@ -9,7 +9,11 @@ The port of ``repro/dist``:
   on a ``DeviceMesh``;
 * :mod:`repro_torch.dist.flash_decode`: the sharded flash-decode over a
   seq- or pool-sharded KV cache (local append, per-rank partial softmax
-  through the decode kernels' ``PARTIAL`` mode, cross-rank combine).
+  through the decode kernels' ``PARTIAL`` mode, cross-rank combine);
+* :mod:`repro_torch.dist.fsdp`: training on a mesh, each leaf's place
+  (``MeshLayout``: the FSDP splits, the axes a gradient is summed over,
+  the rank's piece and batch rows) and the per-layer FSDP gather whose
+  backward reduce-scatters the gradient.
 
 The plan decides whether these paths run; this package implements how.
 The JAX package's ``compat`` shim (a ``jax.shard_map`` alias) has no

@@ -20,19 +20,66 @@ Rounding is half to even on both packages (``torch.round``,
 overflow int16 past ``127 * n > 32767``: callers gate these paths to
 reduction degrees <= 256.  The JAX package sums int16 codes on the wire;
 gloo has no int16 reduction, so :func:`compressed_psum` carries the
-codes as int32 there (twice the wire bytes, the same value).  Its
-wiring into the train step waits for ROADMAP item 10b.
+codes as int32 there (twice the wire bytes, the same value).  The train
+step's wire (``lowering.lower_train_step`` where ``wire_compression >
+0``) reduces each leaf's ``g + e`` through :func:`compressed_psum`; a
+plan that compresses without the wire runs :func:`ef_compress` on each
+reduced gradient.
+
+The mesh code's plain collectives live here too, over a list of
+``(group, size)`` (one a mesh axis, data-major, size-1 axes left out:
+:func:`axes_groups`), so several mesh axes act together one axis at a
+time and no flattened group is ever created: :func:`sum_over_` (an
+fp32 sum in place, a chunk at a time) and :func:`all_gather`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 #: quantization block: one fp32 scale per 128 values
 BLOCK = 128
+#: elements :func:`sum_over_` widens to fp32 at a time (64 MB)
+CHUNK = 1 << 24
+
+
+def axes_groups(mesh, axes) -> List[Tuple[object, int]]:
+    """``(group, size)`` of each of ``axes`` on ``mesh``, in the mesh's
+    (data-major) order, size-1 axes left out."""
+    names = tuple(mesh.mesh_dim_names)
+    return [(mesh.get_group(a), mesh.size(names.index(a)))
+            for a in names if a in axes and mesh.size(names.index(a)) > 1]
+
+
+def sum_over_(t: torch.Tensor, groups) -> torch.Tensor:
+    """``t`` (contiguous) summed over ``groups`` in place: each chunk
+    of :data:`CHUNK` elements widened to fp32, summed over each group in
+    turn and rounded once to ``t``'s dtype, so no second copy of ``t``
+    exists."""
+    if not groups:
+        return t
+    flat = t.view(-1)
+    for i in range(0, flat.numel(), CHUNK):
+        c = flat[i:i + CHUNK]
+        s = c if c.dtype == torch.float32 else c.float()
+        for g, _ in groups:
+            dist.all_reduce(s, group=g)
+        if s is not c:
+            c.copy_(s)
+    return t
+
+
+def all_gather(t: torch.Tensor, dim: int, groups) -> torch.Tensor:
+    """The pieces of ``groups`` (data-major) joined along ``dim``, in
+    rank order: the innermost axis first."""
+    for g, n in reversed(list(groups)):
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=g)
+        t = torch.cat(parts, dim=dim)
+    return t
 
 
 def quantize_int8(x: torch.Tensor, block: int = BLOCK

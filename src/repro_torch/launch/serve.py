@@ -127,7 +127,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     mesh = None
     if args.mesh:
-        mesh, args.device = _init_mesh(args.mesh, args.device)
+        from repro_torch.launch.mesh import init_mesh
+        mesh, args.device = init_mesh(args.mesh, args.device)
         if torch.distributed.get_rank():
             sys.stdout = open(os.devnull, "w")     # rank 0 reports
 
@@ -233,28 +234,6 @@ def main(argv=None) -> None:
     print(f"pressure {engine.pressure_stats()}")
     if mesh is not None:
         torch.distributed.destroy_process_group()
-
-
-def _init_mesh(spec: str, device: str):
-    """The process group and ``(data, model)`` mesh of ``--mesh DxM``:
-    the rank, world and rendezvous come from ``torchrun``'s environment;
-    NCCL with one card a rank (``LOCAL_RANK``), gloo on the CPU."""
-    from repro_torch.launch.mesh import make_host_mesh
-    d, m = (int(x) for x in spec.lower().split("x"))
-    if "RANK" not in os.environ:
-        raise SystemExit(f"--mesh {spec}: run under torchrun "
-                         f"--nproc-per-node {d * m}")
-    if torch.device(device).type == "cuda":
-        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
-        torch.cuda.set_device(torch.device(device))
-        backend = "nccl"
-    else:
-        backend = "gloo"
-    torch.distributed.init_process_group(backend)
-    if torch.distributed.get_world_size() != d * m:
-        raise SystemExit(f"--mesh {spec} needs {d * m} ranks, torchrun "
-                         f"started {torch.distributed.get_world_size()}")
-    return make_host_mesh(model=m), device
 
 
 def check_fits(arch, padded_sizes, device, plan=None) -> None:

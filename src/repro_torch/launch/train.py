@@ -2,7 +2,11 @@
 
 The port of ``repro/launch/train.py``: specialize (the paper's
 compilation passes, on the ``h100-sxm`` target) → lower → train with
-checkpointing, on one card.  Prints the plan's decisions, each step's
+checkpointing, on one card or, under ``torchrun``, on a ``(data,
+model)`` mesh: ``--mesh DxM`` names it, ``--model-parallel M`` takes
+the ``(world // M, M)`` mesh as the reference's launcher does (one
+process a rank; NCCL with a card a rank, gloo with ``--device cpu``;
+rank 0 reports).  Prints the plan's decisions, each step's
 loss, grad norm, lr and time, the tokens a second, and the card's peak
 allocated memory beside the plan's estimate of the step's peak (its
 ``step_peak_bytes``: state, gradients, saved activations, transients),
@@ -27,6 +31,8 @@ time by kernel and by group (the serve launcher's report).
 Run:  PYTHONPATH=src python -m repro_torch.launch.train
       PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
           --full --seq-len 2048 --batch 1 --steps 6
+      PYTHONPATH=src torchrun --nproc-per-node 2 -m \
+          repro_torch.launch.train --mesh 2x1 --device cpu
       (--arch granite-moe-1b-a400m | mamba2-2.7b | hymba-1.5b |
        hubert-xlarge likewise; qwen2-vl-72b with --n-layers 6)
 """
@@ -35,6 +41,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import sys
 import time
 
 import torch
@@ -94,7 +102,12 @@ def main(argv=None) -> None:
                     help="cut the depth to the first N layers")
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="train on the (world // M, M) (data, model) mesh "
+                         "of torchrun's ranks")
+    ap.add_argument("--mesh", default="",
+                    help='"DxM": train on a (data, model) mesh of D*M ranks '
+                         "(run under torchrun --nproc-per-node D*M)")
     ap.add_argument("--ckpt-dir", default="build/ckpt")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
@@ -110,10 +123,14 @@ def main(argv=None) -> None:
     from repro_torch.models.lm import check_on_device
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            "--model-parallel: the port trains on one card (training on a "
-            "mesh is ROADMAP item 10b)")
+    mesh = None
+    spec = args.mesh or (f"x{args.model_parallel}"
+                         if args.model_parallel != 1 else "")
+    if spec:
+        from repro_torch.launch.mesh import init_mesh
+        mesh, args.device = init_mesh(spec, args.device)
+        if torch.distributed.get_rank():
+            sys.stdout = open(os.devnull, "w")     # rank 0 reports
     arch = get_arch(args.arch)
     if not args.full:
         small = arch.reduced()
@@ -129,11 +146,16 @@ def main(argv=None) -> None:
         print(f"cut: {arch.name} n_layers {arch.n_layers} -> {args.n_layers}")
         arch = dataclasses.replace(arch, n_layers=args.n_layers)
     shape = ShapeConfig(args.shape, "train", args.seq_len, args.batch)
-    plan = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm")
+    plan = specialize(arch, shape, mesh_axes=("data", "model"),
+                      mesh_shape=(tuple(mesh.shape) if mesh is not None
+                                  else (1, 1)), target="h100-sxm")
     _, heads, _, kv_heads = plan.padded_sizes()
     check_on_device(arch, args.device, heads=heads, kv_heads=kv_heads,
                     flash_tiles=build_run_cfg(plan, arch).flash_tiles)
     print(f"plan {plan.content_hash()[:12]} target={plan.target} "
+          f"mesh={tuple(mesh.shape) if mesh is not None else (1, 1)} "
+          f"strategy={plan.estimates.get('strategy')} "
+          f"grad_compress={plan.comm.compresses_gradients} "
           f"moments={plan.opt['moment_dtype']} "
           f"master_weights={plan.opt['master_weights']} "
           f"remat={plan.comm.remat_policy} "
@@ -141,7 +163,7 @@ def main(argv=None) -> None:
     print("plan decisions:")
     for entry in plan.log:
         print("  ", " | ".join(entry))
-    trainer = Trainer(plan, None, TrainerConfig(
+    trainer = Trainer(plan, mesh, TrainerConfig(
         n_steps=args.steps, ckpt_every=args.ckpt_every,
         ckpt_dir=args.ckpt_dir, log_every=1, seed=args.seed),
         arch=arch, shape=shape, device=args.device)
@@ -170,6 +192,8 @@ def main(argv=None) -> None:
         print(memory_line(plan,
                           torch.cuda.max_memory_allocated(trainer.device)))
     print("final:", {k: float(v) for k, v in metrics.items()})
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -145,16 +145,15 @@ def truncated_normal_(t: torch.Tensor, scale: float,
     return t
 
 
-def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None,
-                       z_loss: float = 1e-4,
-                       vocab_size: Optional[int] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked mean cross-entropy with z-loss, in fp32
-    (``repro/models/common.py:82``): ``(loss, n)``, ``n`` the count of
-    tokens averaged over.  Logits past ``vocab_size`` (the layout pass's
-    padded vocab) are masked to -1e30 before the log-sum-exp, as the
-    reference masks them."""
+#: the z-loss weight of every cross-entropy (``repro/models/common.py``)
+Z_LOSS = 1e-4
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor,
+              vocab_size: Optional[int] = None, z_loss: float = Z_LOSS
+              ) -> torch.Tensor:
+    """Each token's cross-entropy with z-loss, fp32: the terms
+    :func:`cross_entropy_loss` averages."""
     v = logits.shape[-1]
     logits = logits.float()
     if vocab_size is not None and vocab_size < v:
@@ -165,6 +164,20 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * lse.square()
+    return nll
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       z_loss: float = Z_LOSS,
+                       vocab_size: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean cross-entropy with z-loss, in fp32
+    (``repro/models/common.py:82``): ``(loss, n)``, ``n`` the count of
+    tokens averaged over.  Logits past ``vocab_size`` (the layout pass's
+    padded vocab) are masked to -1e30 before the log-sum-exp, as the
+    reference masks them."""
+    nll = token_nll(logits, targets, vocab_size, z_loss)
     if mask is not None:
         mask = mask.float()
         n = mask.sum().clamp_min(1.0)

@@ -61,6 +61,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.describe import global_layer_mask
+from repro_torch.dist import fsdp
 from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -68,9 +69,10 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import tp
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.common import (
-    cross_entropy_loss,
+    Z_LOSS,
     rms_norm,
     sinusoidal_positions,
+    token_nll,
     truncated_normal_,
 )
 from repro_torch.models.moe import MoEParams
@@ -97,12 +99,17 @@ class RunCfg:
     one card: the logits take their width from ``lm_head`` and the loss
     masks past ``arch.vocab_size``.
 
-    On a mesh (serving only: ROADMAP item 10b trains on one), ``mesh``
+    On a mesh, ``mesh``
     is the :class:`torch.distributed.device_mesh.DeviceMesh` whose ranks
     each hold their piece of the parameters and cache, ``data_axes`` and
     ``model_axis`` name its axes, ``heads_padded`` / ``vocab_padded``
     the whole sizes a piece is measured against (0: the arch's), and
     ``decode_impl`` / ``combine_topology`` the plan's decode decisions.
+    Training on a mesh sets ``fsdp``, the tree of each leaf's FSDP
+    gather (:class:`repro_torch.dist.fsdp.MeshLayout`), and
+    ``batch_axes``, the axes the loss averages over: a rank's loss is
+    its share of the mean over the whole global batch (empty: over its
+    own tokens, as the compressed wire step's per-slice losses are).
     The engine that placed the cache sets ``kv_split``: ``"heads"``
     (the kv-head dim is split over the model axis: every rank decodes
     its own heads), ``"rows"`` (the seq dim, or a paged cache's pool
@@ -128,6 +135,8 @@ class RunCfg:
     vocab_padded: int = 0
     kv_split: str = "none"
     kv_whole: Tuple[int, int] = (0, 0)
+    fsdp: Any = None
+    batch_axes: Tuple[str, ...] = ()
 
 
 #: the families and modalities the port runs (every arch of ``configs``)
@@ -596,9 +605,13 @@ def _attention(arch: ArchConfig, cfg: RunCfg, grp, h: torch.Tensor,
 
         def own(t):
             # the kv heads this rank's query heads read, of rows that
-            # hold every kv head
-            return tp.kv_for_heads(t, h0, hl, H // K) if t.shape[2] == K \
-                else t
+            # hold every kv head (the same on every model rank: their
+            # gradients are summed where the heads part)
+            if t.shape[2] != K:
+                return t
+            if hl != H:
+                t = tp.copy_in(t, c)
+            return tp.kv_for_heads(t, h0, hl, H // K)
     ks, vs = own(k), own(v)
     if prefix is None:
         ctx = attn_mod.attention_chunked(
@@ -635,14 +648,31 @@ def _qkv(arch: ArchConfig, grp, h: torch.Tensor, positions: torch.Tensor,
         n = w.shape[-1]
         return n * c.msize if c is not None and n % hd else n
 
+    if c is None:
+        return ap, attn_mod.project_qkv(
+            h, ap, cols(ap.wq) // hd, cols(ap.wk) // hd, hd, positions,
+            arch.rope_theta, arch.mrope_sections, arch.norm_eps)
+    H, K = _heads(arch, cfg)
+    split = {id(w): tp.split(n * hd, w.shape[-1], c)
+             for w, n in ((ap.wq, H), (ap.wk, K), (ap.wv, K))}
+    every = all(split.values())
+    x = tp.copy_in(h, c) if every else h
+
     def proj(x, w):
-        y = x @ w
+        # a column-split product sums the ranks' input gradients
+        y = (x if every or not split[id(w)] else tp.copy_in(x, c)) @ w
         return tp.gather_model(y, -1, c) if w.shape[-1] % hd else y
 
+    # a norm over heads this rank alone holds: its gradient is summed
+    q_own = split[id(ap.wq)]
+    k_own = split[id(ap.wk)] and ap.wk.shape[-1] % hd == 0
+    if ap.q_norm is not None and (q_own or k_own):
+        ap = ap._replace(
+            q_norm=tp.copy_in(ap.q_norm, c) if q_own else ap.q_norm,
+            k_norm=tp.copy_in(ap.k_norm, c) if k_own else ap.k_norm)
     return ap, attn_mod.project_qkv(
-        h, ap, cols(ap.wq) // hd, cols(ap.wk) // hd, hd, positions,
-        arch.rope_theta, arch.mrope_sections, arch.norm_eps,
-        proj=proj if c is not None else None)
+        x, ap, cols(ap.wq) // hd, cols(ap.wk) // hd, hd, positions,
+        arch.rope_theta, arch.mrope_sections, arch.norm_eps, proj=proj)
 
 
 def _residual(x: torch.Tensor, outs: List[torch.Tensor]) -> torch.Tensor:
@@ -694,14 +724,19 @@ def _mlp(arch: ArchConfig, c, wi: torch.Tensor, wo: torch.Tensor,
     n_in = 2 if gated else 1
     wi_split = tp.split(n_in * ff, wi.shape[-1], c)
     wo_split = tp.split(ff, wo.shape[0], c)
+    if wi_split:
+        h = tp.copy_in(h, c)
     z = h @ wi
     if gated:
-        if wi_split:
+        if wi_split and wo_split:
+            z = tp.regroup_gated(z, c)
+        elif wi_split:
             z = tp.gather_model(z, -1, c)
         g, u = z.chunk(2, dim=-1)
         z = F.silu(g.float()).to(h.dtype) * u
-        if wo_split:
-            z = z[..., c.mrank * wo.shape[0]:(c.mrank + 1) * wo.shape[0]]
+        if wo_split and not wi_split:
+            z = tp.copy_in(z, c)[..., c.mrank * wo.shape[0]:
+                                 (c.mrank + 1) * wo.shape[0]]
     elif arch.family == "encoder":
         z = F.gelu(z.float(), approximate="tanh").to(h.dtype)
     else:
@@ -729,8 +764,11 @@ def _mesh_moe(arch: ArchConfig, cfg: RunCfg, c, grp, x: torch.Tensor,
     if cfg.moe_impl == "shard_map_alltoall":
         S = h.shape[1]
         seq = c.msize > 1 and S % c.msize == 0 and S >= c.msize
-        hs = h[:, c.mrank * (S // c.msize):(c.mrank + 1) * (S // c.msize)] \
+        hs = tp.copy_in(h, c)[:, c.mrank * (S // c.msize):
+                              (c.mrank + 1) * (S // c.msize)] \
             if seq else h
+        # the router routes this rank's tokens: its gradient is summed
+        p = p._replace(router=tp.copy_in(p.router, c) if seq else p.router)
         y, aux = moe_mod.moe_shard_map(hs, p, mesh=cfg.mesh,
                                        data_axes=cfg.data_axes,
                                        model_axis=cfg.model_axis, **kw)
@@ -742,9 +780,12 @@ def _mesh_moe(arch: ArchConfig, cfg: RunCfg, c, grp, x: torch.Tensor,
                              f"{moe_mod.IMPLS + ('shard_map_alltoall',)}")
         fn = (moe_mod.moe_dense_einsum if cfg.moe_impl == "dense_einsum"
               else moe_mod.moe_gshard_einsum)
+        # the aux loss's statistics over every rank the loss averages over
+        kw["stats"] = functools.partial(tp.batch_sum, c=c)
         if tp.split(E, m["wi"].shape[0], c):
             y, aux = fn(h, p, local_experts=c.mrank * m["wi"].shape[0],
-                        partial=True, **kw)
+                        partial=True, copy_in=functools.partial(
+                            tp.copy_in, c=c), **kw)
             y = tp.reduce_sum(y, c).to(h.dtype)
         else:
             y, aux = fn(h, p, **kw)
@@ -798,7 +839,7 @@ def _block_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
     x = _residual(x, outs)
     if arch.family == "ssm":
         return x, None
-    return _ffn_fwd(arch, grp, x, cfg.moe_impl)
+    return _ffn_fwd(arch, grp, x, cfg.moe_impl, cfg)
 
 
 def _group_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
@@ -807,7 +848,10 @@ def _group_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One step of the layer loop: a layer, or a super-block's dense
     then MoE layer (``src/repro/models/lm.py:455-466``); their aux
-    losses summed."""
+    losses summed.  On a mesh with FSDP leaves the step's slice of each
+    is gathered here, inside the remat region, so a recomputed step
+    gathers it again and no gathered layer outlives its step."""
+    grp = fsdp.gather_layer(grp, cfg.fsdp)
     if "dense" not in grp:
         return _block_fwd(arch, cfg, grp, x, positions, windows[0], mask_pos)
     x, _ = _block_fwd(arch, cfg, grp["dense"], x, positions, windows[0],
@@ -870,9 +914,18 @@ def forward(arch: ArchConfig, params, batch, cfg: RunCfg
     aux loss the MoE layers' router losses summed (0 without one), as
     the reference returns it (``src/repro/models/lm.py:441-484``).  Each
     step of :func:`layer_groups` runs under the plan's remat policy, with
-    its windows from the per-layer schedule."""
+    its windows from the per-layer schedule.  On a mesh with FSDP leaves
+    the embedding, final norm and head are gathered first, each layer's
+    stacks in its step of the loop."""
+    return _forward(arch, fsdp.gather_top(params, cfg.fsdp), batch, cfg)
+
+
+def _forward(arch: ArchConfig, params, batch, cfg: RunCfg
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`forward` of ``params`` whose leaves outside the stacks are
+    whole (gathered)."""
     check_supported(arch)
-    x, positions, mask_pos = _embed_in(arch, params, batch)
+    x, positions, mask_pos = _embed_in(arch, params, batch, cfg)
     windows = _window_schedule(arch)
     groups = layer_groups(arch, params["blocks"])
     g = arch.n_layers // len(groups)
@@ -892,13 +945,64 @@ def train_loss(arch: ArchConfig, params, batch, cfg: RunCfg):
     ``positions``, ``targets``, optional ``mask``: the audio frames the
     loss counts), ``ce + AUX_LOSS_WEIGHT * aux``, and its metrics
     ``ce_loss``, ``aux_loss``, ``tokens`` (``src/repro/models/lm.py
-    :487-497``)."""
-    x, aux = forward(arch, params, batch, cfg)
-    logits = _logits(arch, params, x)
-    loss, n = cross_entropy_loss(logits, batch["targets"], batch.get("mask"),
-                                 vocab_size=arch.vocab_size)
-    metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": n}
+    :487-497``): the masked mean of each token's cross-entropy with
+    z-loss, in fp32.
+
+    On a mesh the logits of a vocab split over the model ranks stay
+    split: the log-sum-exp is taken across the model group
+    (:func:`_split_ce`).  With ``cfg.batch_axes`` the loss is this
+    rank's share of the mean over every rank's tokens: its summed token
+    losses over the whole batch's token count (the ranks' counts
+    summed), so the ranks' losses add up to the whole batch's mean and
+    their gradients to its gradient; the MoE aux loss's statistics are
+    summed over those ranks before their product.  The metrics are then
+    the whole batch's (without ``cfg.batch_axes``, this rank's
+    tokens')."""
+    c = tp.ctx(cfg)
+    params = fsdp.gather_top(params, cfg.fsdp)
+    x, aux = _forward(arch, params, batch, cfg)
+    w = params["embed"].T if arch.tie_embeddings else params["lm_head"]
+    if c is not None and tp.split(_vocab(arch, cfg), w.shape[-1], c):
+        nll = _split_ce(tp.copy_in(x, c) @ w, batch["targets"],
+                        arch.vocab_size, c)
+    else:
+        nll = token_nll(x @ w, batch["targets"], arch.vocab_size)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask.float()
+        total, n = (nll * mask).sum(), mask.sum()
+    else:
+        total = nll.sum()
+        n = torch.tensor(float(nll.numel()), device=nll.device)
+    n = tp.batch_sum(n, c).clamp_min(1.0)
+    loss = total / n
+    metrics = {"ce_loss": tp.batch_sum(loss.detach(), c), "aux_loss": aux,
+               "tokens": n}
     return loss + AUX_LOSS_WEIGHT * aux, metrics
+
+
+def _split_ce(logits: torch.Tensor, targets: torch.Tensor, vocab_size: int,
+              c) -> torch.Tensor:
+    """Each token's cross-entropy with z-loss over a vocab whose
+    columns are split over the model ranks (``logits`` the rank's ``V /
+    msize``): the row max all-reduced (MAX, no gradient: the log-sum-exp
+    does not depend on it), the exponentials' sums and the target's
+    logit summed over the ranks; every rank gets the same values."""
+    import torch.distributed as dist
+    z = logits.float()
+    vl = z.shape[-1]
+    lo = c.mrank * vl
+    slot = lo + torch.arange(vl, device=z.device)
+    z = torch.where(slot < vocab_size, z, -1e30)
+    m = z.detach().amax(-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=c.mgroup)
+    s = tp.reduce_sum(torch.exp(z - m[..., None]).sum(-1), c)
+    lse = m + torch.log(s)
+    loc = targets.long() - lo
+    mine = (loc >= 0) & (loc < vl)
+    ll = z.gather(-1, loc.clamp(0, vl - 1)[..., None])[..., 0]
+    ll = tp.reduce_sum(torch.where(mine, ll, torch.zeros_like(ll)), c)
+    return lse - ll + Z_LOSS * lse.square()
 
 
 # =====================================================================

@@ -17,7 +17,11 @@ communication pass and carried by ``RunCfg.moe_impl``:
 On a mesh whose placement splits the expert stacks over ``model``, the
 two single-device paths run on the rank's own experts
 (``local_experts``) and the caller sums their partial outputs over the
-model group.
+model group; ``copy_in`` (:func:`repro_torch.models.tp.copy_in`) marks
+where the tokens and the routing weights, the same on every rank,
+enter that split work, so their gradients are summed.  ``stats`` sums
+the aux loss's statistics over the data ranks of a training step whose
+loss is the whole batch's mean (:func:`_aux`).
 
 The products are the JAX package's einsums, left to cuBLAS as it left
 them to XLA: the bf16 ones (tokens into slots, the expert FFN) are
@@ -33,6 +37,7 @@ reference.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -66,16 +71,31 @@ def _router_probs(x: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
     return torch.softmax(_fp32_product(x.float(), router_w.float()), dim=-1)
 
 
-def _aux(probs: torch.Tensor, dims) -> torch.Tensor:
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _aux(probs: torch.Tensor, dims, stats=_identity,
+         groups=1.0) -> torch.Tensor:
     """Switch load-balance loss terms: ``E * sum(f_e * p_e)`` with the
-    top-1 token fractions and mean probabilities over ``dims``."""
+    top-1 token fractions and mean probabilities over ``dims``, over
+    ``groups``.  ``stats`` sums a statistic over the ranks whose tokens
+    count too (the gradient passed through; by default this rank's
+    alone): the sums and counts are summed before the product.  The
+    fractions carry no gradient, so they take every divisor: autograd
+    keeps one ``(.., E)`` factor, as for ``f.mean() * p.mean()``."""
     E = probs.shape[-1]
     top1 = F.one_hot(probs.argmax(-1), E).float()
-    return E * (top1.mean(dims) * probs.mean(dims)).sum(-1)
+    dims = (dims,) if isinstance(dims, int) else tuple(dims)
+    n = stats(torch.tensor(float(math.prod(probs.shape[d] for d in dims)),
+                           device=probs.device))
+    f = stats(top1.sum(dims)) / (n.square() * groups)
+    return E * (f * stats(probs.sum(dims))).sum(-1)
 
 
 def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
-          capacity: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+          capacity: int, stats=_identity
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routing of ``x`` ``(G, T, d)`` (G groups of T tokens) with
     per-group capacity (``src/repro/models/moe.py:44``).
 
@@ -84,11 +104,14 @@ def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
     in its expert is the expert's fill plus the running count along T,
     so earlier tokens of a group win capacity, and a choice whose slot
     is past ``capacity`` is dropped.  Returns ``(dispatch (G, T, E, C)``
-    in x's dtype, ``combine (G, T, E, C)`` fp32, ``aux)``."""
+    in x's dtype, ``combine (G, T, E, C)`` fp32, ``aux)``, ``aux`` the
+    groups' mean of each group's load-balance terms, over the groups of
+    every rank ``stats`` sums over (:func:`_aux`)."""
     G, T, _ = x.shape
     E = router_w.shape[-1]
     probs = _router_probs(x, router_w)                      # (G,T,E)
-    aux = _aux(probs, 1).mean()
+    aux = stats(_aux(probs, 1, groups=stats(
+        torch.tensor(float(G), device=x.device))).sum())
     remaining = probs
     dispatch = torch.zeros((G, T, E, capacity), dtype=x.dtype,
                            device=x.device)
@@ -124,7 +147,8 @@ def _shared(x: torch.Tensor, p: MoEParams, y: torch.Tensor) -> torch.Tensor:
 
 def moe_dense_einsum(x: torch.Tensor, p: MoEParams, *, top_k: int,
                      capacity_factor: float = 0.0, local_experts: int = 0,
-                     partial: bool = False
+                     partial: bool = False, copy_in=None,
+                     stats=_identity
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every expert on every token of ``x`` ``(B, S, d)``, combined by
     the top-k router weights (``src/repro/models/moe.py:86``).  The
@@ -137,11 +161,14 @@ def moe_dense_einsum(x: torch.Tensor, p: MoEParams, *, top_k: int,
     (B, S, d), aux)``."""
     B, S, d = x.shape
     probs = _router_probs(x, p.router)                      # (B,S,E)
-    aux = _aux(probs, (0, 1))
+    aux = _aux(probs, (0, 1), stats)
     thresh = probs.topk(top_k, dim=-1).values[..., -1:]
     gates = torch.where(probs >= thresh, probs, torch.zeros_like(probs))
+    xe = x
+    if copy_in is not None:
+        gates, xe = copy_in(gates), copy_in(x)
     gates = gates[..., local_experts:local_experts + p.wi.shape[0]]
-    xt = x.reshape(1, B * S, d)
+    xt = xe.reshape(1, B * S, d)
     h = _swiglu(torch.matmul(xt, p.wi), x.dtype)            # (E,T,ff)
     out = torch.bmm(h, p.wo)                                # (E,T,d)
     g = gates.reshape(B * S, -1).t()[..., None]             # (E,T,1)
@@ -153,7 +180,8 @@ def moe_dense_einsum(x: torch.Tensor, p: MoEParams, *, top_k: int,
 
 def moe_gshard_einsum(x: torch.Tensor, p: MoEParams, *, top_k: int,
                       capacity_factor: float, local_experts: int = 0,
-                      partial: bool = False
+                      partial: bool = False, copy_in=None,
+                      stats=_identity
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity dispatch with one batch row of ``x`` ``(B, S, d)`` as
     the routing group, ``C = _capacity(S, E, top_k, capacity_factor)``
@@ -163,8 +191,11 @@ def moe_gshard_einsum(x: torch.Tensor, p: MoEParams, *, top_k: int,
     S, d), aux)``."""
     B, S, d = x.shape
     C = _capacity(S, p.router.shape[-1], top_k, capacity_factor)
-    dispatch, combine, aux = route(x, p.router, top_k, C)   # (B,S,E,C)
+    dispatch, combine, aux = route(x, p.router, top_k, C,
+                                   stats=stats)             # (B,S,E,C)
     E = p.wi.shape[0]
+    if copy_in is not None:
+        combine, x = copy_in(combine), copy_in(x)
     dispatch = dispatch[:, :, local_experts:local_experts + E].contiguous()
     combine = combine[:, :, local_experts:local_experts + E].contiguous()
     # tokens into their slots: (B, E*C, d), then the experts' view
@@ -198,8 +229,13 @@ def moe_shard_map(x: torch.Tensor, p: MoEParams, *, top_k: int,
     slots (``C`` from its own token count), one ``all_to_all_single``
     sends each peer the slots of its experts, the experts run, and a
     second sends the outputs home for the combine.  Returns ``(y (B_l,
-    S_l, d), aux)``, ``aux`` averaged over every rank of the mesh."""
+    S_l, d), aux)``, ``aux`` averaged over every rank of the mesh.
+    The exchanges and the aux loss's mean are differentiable (the
+    all-to-alls are their own adjoints; the mean's gradient passes
+    through, every rank using it alike)."""
     import torch.distributed as dist
+
+    from repro_torch.models import tp as tp_mod
     E = p.router.shape[-1]
     group = mesh.get_group(model_axis)
     tp = dist.get_world_size(group)
@@ -213,21 +249,18 @@ def moe_shard_map(x: torch.Tensor, p: MoEParams, *, top_k: int,
     dispatch, combine, aux = route(toks, p.router, top_k, C)
     send = torch.einsum("gtec,gtd->ecd", dispatch.float(),
                         toks.float()).to(x.dtype)            # (E, C, d)
-    recv = torch.empty_like(send)        # (tp, E_l, C, d), by source
-    dist.all_to_all_single(recv, send.contiguous(), group=group)
+    recv = tp_mod.all_to_all(send, group)    # (tp, E_l, C, d), by source
     expert_in = recv.reshape(tp, E_l, C, d).transpose(0, 1).reshape(
         E_l, tp * C, d)
     h = _swiglu(torch.bmm(expert_in, p.wi), x.dtype)
     out = torch.bmm(h, p.wo)                                 # (E_l,tp*C,d)
-    out = out.reshape(E_l, tp, C, d).transpose(0, 1).contiguous()
-    back = torch.empty_like(out)         # (tp, E_l, C, d), by expert owner
-    dist.all_to_all_single(back, out, group=group)
+    out = out.reshape(E_l, tp, C, d).transpose(0, 1)
+    back = tp_mod.all_to_all(out, group)   # (tp, E_l, C, d), by owner
     back = back.reshape(E * C, d)
     y = _fp32_product(combine.reshape(1, Bl * Sl, E * C),
                       back.float())[0].reshape(Bl, Sl, d).to(x.dtype)
-    aux = aux.reshape(1).clone()
-    for axis in mesh.mesh_dim_names:
-        dist.all_reduce(aux, group=mesh.get_group(axis))
+    aux = tp_mod.sum_over(aux.reshape(1),
+                          tp_mod.axes_groups(mesh, mesh.mesh_dim_names))
     return _shared(x, p, y), aux[0] / mesh.size()
 
 

@@ -20,20 +20,47 @@ Whether a leaf is split is read from its shape against the whole size
 (the arch's, or the plan's padded one in :class:`~repro_torch.models
 .lm.RunCfg`): the code adapts to the placement it is handed.  Partial
 products are summed in fp32 and rounded once.
+
+Training differentiates through these collectives, so each is an
+autograd function with its conjugate backward (the Megatron pairs):
+
+* :func:`copy_in` is the identity whose backward all-reduces over the
+  model group: it marks where a tensor every model rank computes alike
+  enters work split over the ranks (a column-split matrix, a rank's
+  heads, its experts), so each rank's share of the input gradient is
+  summed;
+* :func:`reduce_sum` all-reduces forward and passes the gradient
+  through: what follows it is the same on every rank;
+* :func:`gather` joins pieces forward and takes the rank's slice of the
+  gradient back (what follows is the same on every rank; a caller that
+  then cuts per-rank pieces puts :func:`copy_in` between);
+* :func:`regroup_gated` hands a rank the gate and up columns of its FFN
+  piece from the ``gate || up`` columns it computed (an all-gather each
+  way).
+
+Forwards are the serving code's values unchanged.  Several mesh axes
+act together through :func:`repro_torch.dist.collectives.axes_groups`
+(data-major, one collective an axis), so no flattened group is ever
+created.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.dist.collectives import all_gather, axes_groups, sum_over_
 
 
 class MeshCtx(NamedTuple):
     """This rank's place on the mesh: the model group (``msize`` ranks,
     this one ``mrank``) and the data group (``dsize``, ``drank``; a
-    size-1 group where the mesh has no data axis)."""
+    size-1 group where the mesh has no data axis); ``bgroups`` the
+    ``(group, size)`` of each mesh axis a training loss averages over
+    (:attr:`RunCfg.batch_axes`, data-major; empty: this rank's tokens
+    alone)."""
 
     model_axis: str
     mgroup: object
@@ -42,6 +69,7 @@ class MeshCtx(NamedTuple):
     dgroup: object
     dsize: int
     drank: int
+    bgroups: Tuple = ()
 
 
 def ctx(cfg) -> Optional[MeshCtx]:
@@ -55,7 +83,7 @@ def ctx(cfg) -> Optional[MeshCtx]:
     data = [a for a in cfg.data_axes if a in names]
     if len(data) > 1:
         raise NotImplementedError(
-            f"serving over data axes {tuple(data)}: one data axis is "
+            f"a mesh with data axes {tuple(data)}: one data axis is "
             "ported; several wait for ROADMAP item 10b")
     ma = cfg.model_axis
     if ma in names:
@@ -69,27 +97,145 @@ def ctx(cfg) -> Optional[MeshCtx]:
                                 mesh.get_local_rank(d))
     else:
         dgroup, dsize, drank = None, 1, 0
-    return MeshCtx(ma, mgroup, msize, mrank, dgroup, dsize, drank)
+    return MeshCtx(ma, mgroup, msize, mrank, dgroup, dsize, drank,
+                   tuple(axes_groups(mesh, getattr(cfg, "batch_axes", ()))))
+
+
+def _sum_fp32(t: torch.Tensor, groups) -> torch.Tensor:
+    """The sum of ``t`` over ``groups`` (a ``(group, size)`` list), in
+    fp32, rounded once to ``t``'s dtype, as a new tensor."""
+    return sum_over_(t.clone(memory_format=torch.contiguous_format), groups)
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, x, groups):
+        ctx_.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx_, g):
+        return _sum_fp32(g, ctx_.groups), None
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, x, groups):
+        return _sum_fp32(x, groups)
+
+    @staticmethod
+    def backward(ctx_, g):
+        return g, None
+
+
+def sum_over(t: torch.Tensor, groups) -> torch.Tensor:
+    """The sum of ``t`` over ``groups`` (fp32, rounded once); the
+    gradient passes through."""
+    return _ReduceSum.apply(t, list(groups))
+
+
+def copy_in(t: torch.Tensor, c: Optional[MeshCtx]) -> torch.Tensor:
+    """``t`` as it is; its gradient summed over the model ranks (fp32,
+    rounded once): where ``t``, the same on every model rank, enters
+    work split over them."""
+    if c is None or c.msize == 1:
+        return t
+    return _CopyIn.apply(t, [(c.mgroup, c.msize)])
 
 
 def reduce_sum(t: torch.Tensor, c: Optional[MeshCtx]) -> torch.Tensor:
     """The sum of every model rank's ``t`` (fp32, rounded once to
-    ``t``'s dtype)."""
+    ``t``'s dtype); the gradient passes through."""
     if c is None or c.msize == 1:
         return t
-    s = t.float()
-    dist.all_reduce(s, group=c.mgroup)
-    return s.to(t.dtype)
+    return sum_over(t, [(c.mgroup, c.msize)])
+
+
+def batch_sum(t: torch.Tensor, c: Optional[MeshCtx]) -> torch.Tensor:
+    """The sum of ``t`` over the ranks a training loss averages over
+    (``c.bgroups``); the gradient passes through, so each rank's share
+    of a statistic every rank then uses alike is differentiated once."""
+    if c is None or not c.bgroups:
+        return t
+    return sum_over(t, c.bgroups)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, t, dim, group, n):
+        ctx_.dim, ctx_.n = dim, n
+        ctx_.rank = dist.get_rank(group)
+        return all_gather(t, dim, [(group, n)])
+
+    @staticmethod
+    def backward(ctx_, g):
+        w = g.shape[ctx_.dim] // ctx_.n
+        return g.narrow(ctx_.dim, ctx_.rank * w, w).contiguous(), None, \
+            None, None
 
 
 def gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     """The ranks' ``t`` of ``group`` (``n`` of them) joined along
-    ``dim`` in rank order."""
+    ``dim`` in rank order; the gradient's slice of this rank comes
+    back."""
     if n == 1:
         return t
-    parts: List[torch.Tensor] = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+    return _Gather.apply(t, dim, group, n)
+
+
+class _RegroupGated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, z, group, n, rank):
+        ctx_.group, ctx_.n, ctx_.rank = group, n, rank
+        whole = all_gather(z, -1, [(group, n)])
+        ff = whole.shape[-1] // 2
+        w = ff // n
+        return torch.cat([whole[..., rank * w:(rank + 1) * w],
+                          whole[..., ff + rank * w:ff + (rank + 1) * w]], -1)
+
+    @staticmethod
+    def backward(ctx_, g):
+        n, rank = ctx_.n, ctx_.rank
+        parts = all_gather(g, -1, [(ctx_.group, n)])    # (.., n * 2w)
+        w = g.shape[-1] // 2
+        pieces = parts.unflatten(-1, (n, 2, w))
+        whole = torch.cat([pieces[..., 0, :].flatten(-2),
+                           pieces[..., 1, :].flatten(-2)], -1)
+        cols = whole.shape[-1] // n
+        return whole[..., rank * cols:(rank + 1) * cols].contiguous(), \
+            None, None, None
+
+
+def regroup_gated(z: torch.Tensor, c: MeshCtx) -> torch.Tensor:
+    """``z``, this rank's columns of a ``gate || up`` product (``2 ff /
+    msize`` of them), as the rank's FFN piece ``gate[:, piece] ||
+    up[:, piece]`` (``ff / msize`` each): every rank's columns gathered,
+    the rank's two pieces kept; backward, every rank's piece gradients
+    gathered and the rank's columns kept."""
+    return _RegroupGated.apply(z, c.mgroup, c.msize, c.mrank)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, t, group):
+        ctx_.group = group
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx_, g):
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g, group=ctx_.group)
+        return out, None
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all_single`` of equal splits on dim 0: chunk ``j`` goes
+    to rank ``j``; its own adjoint, so the gradient takes the way back."""
+    return _AllToAll.apply(t, group)
 
 
 def gather_model(t: torch.Tensor, dim: int, c: Optional[MeshCtx]

@@ -25,13 +25,21 @@ the leaf index; leaves go in the reference's flatten order (dict keys
 sorted).  The bits differ from JAX's (another generator); the rounding
 rule is the same: an fp32 value moves to one of its two bf16 neighbours,
 up with probability equal to its truncated fraction.
+
+On a mesh each rank updates its pieces (``pieces``: each leaf's
+:class:`Piece`).  The gradient norm is the whole tree's: each leaf's
+sum of squares is summed over the mesh axes that cut it, a replicated
+leaf counted once.  A piece of a split leaf draws its rounding bits
+from (step, leaf, piece index); a leaf replicated over the data ranks
+draws the same bits on each of them, so replicas never drift apart.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import (Any, Dict, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -81,11 +89,12 @@ def leaves(tree) -> Iterator[torch.Tensor]:
         yield tree
 
 
-def map_leaves(tree, fn):
-    """``tree`` with ``fn`` applied to every leaf."""
-    if isinstance(tree, dict):
-        return {k: map_leaves(v, fn) for k, v in tree.items()}
-    return fn(tree)
+def tree_map(fn, *trees):
+    """The first tree's structure, ``fn`` of the leaves the trees hold at
+    each of its leaves."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 def init_opt_state(params, cfg: OptConfig) -> Dict[str, Any]:
@@ -98,14 +107,23 @@ def init_opt_state(params, cfg: OptConfig) -> Dict[str, Any]:
         return torch.zeros(p.shape, dtype=mdt, device=p.device)
 
     state: Dict[str, Any] = {
-        "m": map_leaves(params, zeros),
-        "v": map_leaves(params, zeros),
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
         "step": torch.zeros((), dtype=torch.int32),
     }
     if cfg.master_weights:
-        state["master"] = map_leaves(params,
-                                     lambda p: p.detach().float().clone())
+        state["master"] = tree_map(lambda p: p.detach().float().clone(),
+                                   params)
     return state
+
+
+class Piece(NamedTuple):
+    """One leaf on a rank of a mesh: ``groups``, the ``(group, size)``
+    of each mesh axis that cuts it (empty: the rank holds it whole), and
+    the rank's piece index among its pieces (``-1``: whole)."""
+
+    groups: Tuple
+    index: int
 
 
 def _chunks(t: torch.Tensor) -> List[torch.Tensor]:
@@ -113,14 +131,30 @@ def _chunks(t: torch.Tensor) -> List[torch.Tensor]:
     return [flat[i:i + CHUNK] for i in range(0, flat.numel(), CHUNK)]
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, pieces: Optional[Sequence[Piece]] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor on
-    the leaves' device)."""
-    total = None
-    for leaf in leaves(tree):
+    the leaves' device).  With ``pieces`` the leaves are pieces: the
+    sums of the leaves cut over the same axes are summed over those
+    axes (one all-reduce a set of axes), then all are added."""
+    if pieces is None:
+        total = None
+        for leaf in leaves(tree):
+            for c in _chunks(leaf.detach()):
+                s = c.float().square().sum()
+                total = s if total is None else total + s
+        return total.sqrt()
+    from repro_torch.dist.collectives import sum_over_
+    sums: Dict[Tuple, torch.Tensor] = {}
+    for leaf, pc in zip(leaves(tree), pieces):
         for c in _chunks(leaf.detach()):
             s = c.float().square().sum()
-            total = s if total is None else total + s
+            key = tuple(pc.groups)
+            sums[key] = s if key not in sums else sums[key] + s
+    total = None
+    for key, s in sums.items():
+        s = sum_over_(s, key)
+        total = s if total is None else total + s
     return total.sqrt()
 
 
@@ -137,17 +171,24 @@ def _stochastic_round_bf16(x: torch.Tensor,
     return rounded.view(torch.float32).to(torch.bfloat16)
 
 
-def _sr_seed(step: int, index: int) -> int:
-    """The generator seed of leaf ``index`` at ``step``."""
-    return ((_SR_KEY * 1_000_003 + step) * 1_000_003 + index) % (1 << 63)
+def _sr_seed(step: int, index: int, piece: int = -1) -> int:
+    """The generator seed of leaf ``index`` at ``step`` (of its piece
+    ``piece`` where the leaf is cut)."""
+    seed = (_SR_KEY * 1_000_003 + step) * 1_000_003 + index
+    if piece >= 0:
+        seed = seed * 1_000_003 + piece
+    return seed % (1 << 63)
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: Dict[str, Any], cfg: OptConfig
+def apply_updates(params, grads, state: Dict[str, Any], cfg: OptConfig,
+                  pieces: Optional[Sequence[Piece]] = None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One AdamW step, **in place** on ``params`` and ``state``.  Returns
     ``(params, state, metrics)`` with metrics ``grad_norm`` (a 0-d
-    tensor) and ``lr``."""
+    tensor) and ``lr``.  ``pieces`` (one :class:`Piece` a leaf, in
+    :func:`leaves` order) when the leaves are a rank's pieces on a
+    mesh: the norm is the whole tree's and rounding draws by piece."""
     step = int(state["step"]) + 1
     lr = float(lr_schedule(cfg, step))
     b1, b2 = cfg.betas
@@ -155,7 +196,7 @@ def apply_updates(params, grads, state: Dict[str, Any], cfg: OptConfig
     bc1 = float(f32(1) - f32(b1) ** f32(step))
     bc2 = float(f32(1) - f32(b2) ** f32(step))
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, pieces)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip > 0 else 1.0)
     mdt = getattr(torch, cfg.moment_dtype)
@@ -165,7 +206,8 @@ def apply_updates(params, grads, state: Dict[str, Any], cfg: OptConfig
             leaves(state["v"]), leaves(master))):
         gen = None
         if not cfg.master_weights and p.dtype == torch.bfloat16:
-            gen = torch.Generator(p.device).manual_seed(_sr_seed(step, i))
+            gen = torch.Generator(p.device).manual_seed(_sr_seed(
+                step, i, pieces[i].index if pieces is not None else -1))
         for pc, gc, mc, vc, wc in zip(_chunks(p), _chunks(g), _chunks(m),
                                       _chunks(v), _chunks(w)):
             g32 = gc.float() * scale

@@ -14,9 +14,18 @@ warm-starts from the stored artifact (:meth:`Trainer.warm_start`)
 without re-running the compiler; if the hash moved, :meth:`Trainer
 .resume` prints the diff of the two decision logs.
 
-The port trains on one card: ``mesh`` must be ``None`` (training on a
-mesh is ROADMAP item 10b), and ``device`` names the card, or the CPU
-(the kernels' plain versions).
+``device`` names the card, or the CPU (the kernels' plain versions).
+With a ``mesh`` (a ``(data, model)`` ``DeviceMesh`` over the process
+group) every rank builds only its pieces of the state the seed gives
+(``lm.init_params(pieces=)``), runs the mesh step
+(:func:`repro_torch.core.passes.lowering.lower_train_step`) on the
+global batch the source draws (the step cuts the rank's rows, so every
+mesh sees the data one card sees), and checkpoints keep the reference's
+whole-leaf layout: :meth:`Trainer.save` gathers whole leaves to the
+mesh's first rank, which alone writes (the wire's EF residuals stacked
+``(dp, ...)`` as the reference keeps them), and :meth:`Trainer.resume`
+cuts this mesh's pieces from them, so a checkpoint of one mesh resumes
+on another.  A mesh built for one device type never runs on another.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from repro_torch.core.passes.lowering import LoweredStep, lower_train_step
 from repro_torch.core.plan import diff_decision_logs
 from repro_torch.data.pipeline import PrefetchPipeline, SyntheticSource, \
     to_device
+from repro_torch.dist.collectives import ef_state
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 from repro_torch.runtime.straggler import StepTimer
@@ -53,18 +63,19 @@ class Trainer:
     def __init__(self, plan, mesh=None, cfg: Optional[TrainerConfig] = None,
                  opt_cfg: Optional[adamw.OptConfig] = None,
                  arch=None, shape=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer: the port trains on one card (mesh=None); a mesh "
-                "(FSDP / data parallelism) waits for ROADMAP item 10b")
         self.plan = plan
+        self.mesh = mesh
         self.cfg = cfg or TrainerConfig()
         self.device = torch.device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"Trainer: a mesh built for {mesh.device_type!r} cannot "
+                f"train on {self.device}")
         # reduced/custom configs are passed explicitly; registry by default
         self.arch = arch if arch is not None else get_arch(plan.arch)
         self.shape = shape if shape is not None else get_shape(plan.shape)
         self.step_def: LoweredStep = lower_train_step(
-            plan, self.arch, self.shape, None, opt_cfg)
+            plan, self.arch, self.shape, mesh, opt_cfg)
         self.step_fn = self.step_def.fn
         self.opt_cfg = opt_cfg or adamw.OptConfig.from_plan(plan)
         self.ckpt = Checkpointer(self.cfg.ckpt_dir)
@@ -108,7 +119,10 @@ class Trainer:
                     f"pass arch=/shape= to recompile")
             print(f"warm_start: plan artifact missing in {ckpt_dir}/plans; "
                   f"re-running the specialization flow", flush=True)
-            plan = specialize(arch_src, shape_src, mesh_shape=(1, 1),
+            plan = specialize(arch_src, shape_src,
+                              mesh_axes=("data", "model"),
+                              mesh_shape=(tuple(mesh.shape) if mesh is not None
+                                          else (1, 1)),
                               target=meta.get("plan_target", "h100-sxm"),
                               use_pallas=meta.get("plan_use_pallas", "auto"))
         cfg = dataclasses.replace(cfg or TrainerConfig(),
@@ -119,13 +133,20 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> Dict[str, Any]:
         """Parameters from a generator on the trainer's device seeded
-        with ``seed``, at the plan's padded sizes, and the optimizer
-        state the plan asks for."""
+        with ``seed``, at the plan's padded sizes (on a mesh the rank's
+        pieces of them), and the optimizer state the plan asks for:
+        with gradient compression a zero bf16 residual a leaf."""
         gen = torch.Generator(self.device).manual_seed(seed)
-        params = lm.init_params(self.arch, gen, *self.plan.padded_sizes())
-        return self.place({"params": params,
-                           "opt": adamw.init_opt_state(params,
-                                                       self.opt_cfg)})
+        pieces = None
+        if self.mesh is not None:
+            from repro_torch.serve.sharded import param_pieces
+            pieces = param_pieces(self.mesh, self.plan, self.arch)
+        params = lm.init_params(self.arch, gen, *self.plan.padded_sizes(),
+                                pieces=pieces)
+        opt = adamw.init_opt_state(params, self.opt_cfg)
+        if self.step_def.ef:
+            opt["ef"] = ef_state(params)
+        return self.place({"params": params, "opt": opt})
 
     def place(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """``state`` on the trainer's device, its float parameters leaves
@@ -137,9 +158,9 @@ class Trainer:
 
         opt = dict(state["opt"])
         step = opt.pop("step")
-        opt = adamw.map_leaves(opt, lambda t: t.detach().to(self.device))
+        opt = adamw.tree_map(lambda t: t.detach().to(self.device), opt)
         opt["step"] = torch.as_tensor(step, dtype=torch.int32).cpu()
-        return {"params": adamw.map_leaves(state["params"], param), "opt": opt}
+        return {"params": adamw.tree_map(param, state["params"]), "opt": opt}
 
     def fit(self, state: Optional[Dict[str, Any]] = None,
             n_steps: Optional[int] = None, start_step: int = 0):
@@ -176,24 +197,50 @@ class Trainer:
                           f"lr {float(metrics['lr']):.3e}", flush=True)
                 if self.cfg.ckpt_every and \
                         (step + 1) % self.cfg.ckpt_every == 0:
-                    self.ckpt.save(step + 1, state,
-                                   meta={"arch": self.arch.name,
-                                         "shape": self.shape.name,
-                                         "plan_hash": self.plan_hash,
-                                         "plan_target": self.plan.target,
-                                         "plan_use_pallas":
-                                             self.plan.use_pallas})
+                    self.save(step + 1, state)
         finally:
             pipe.close()
             self.ckpt.wait()
         return state, metrics
 
+    def save(self, step: int, state: Dict[str, Any],
+             blocking: bool = False) -> None:
+        """Checkpoint ``state`` at ``step`` in the reference's layout: on
+        a mesh every rank joins the gathers of whole leaves and the
+        mesh's first rank writes them."""
+        meta = {"arch": self.arch.name, "shape": self.shape.name,
+                "plan_hash": self.plan_hash,
+                "plan_target": self.plan.target,
+                "plan_use_pallas": self.plan.use_pallas}
+        if self.mesh is None:
+            self.ckpt.save(step, state, meta=meta, blocking=blocking)
+            return
+        writer = all(c == 0 for c in self.mesh.get_coordinate())
+        whole = whole_state(state, self.step_def, keep=writer)
+        if writer:
+            self.ckpt.save(step, whole, meta=meta, blocking=blocking)
+
     def resume(self):
         """``(state, step)`` of the latest checkpoint, on the trainer's
-        device.  A checkpoint whose ``plan_hash`` differs from this
-        trainer's plan was lowered under other decisions: the diff of
-        the two decision logs is printed, and the restore proceeds."""
-        state, manifest = self.ckpt.restore(device=self.device)
+        device.  On a mesh each whole leaf is read to the host and only
+        this rank's piece of it goes to the device (:func:`cut_leaf`).
+        A checkpoint whose ``plan_hash`` differs from this trainer's
+        plan was lowered under other decisions: the diff of the two
+        decision logs is printed, and the restore proceeds."""
+        sd = self.step_def
+        if self.mesh is None:
+            state, manifest = self.ckpt.restore(device=self.device)
+            ef = state["opt"].pop("ef", None)
+            if sd.ef and ef is not None:
+                state["opt"]["ef"] = adamw.tree_map(
+                    lambda e, p: _residual(e, p.dim(), sd), ef,
+                    state["params"])
+        else:
+            state, manifest = self.ckpt.restore(
+                device="cpu",
+                take=lambda key, t: cut_leaf(key, t, sd, self.device))
+        if sd.ef and "ef" not in state["opt"]:
+            state["opt"]["ef"] = ef_state(state["params"])
         saved_hash = manifest.get("meta", {}).get("plan_hash", "")
         if saved_hash and saved_hash != self.plan_hash:
             print(f"resume: plan hash changed "
@@ -204,3 +251,66 @@ class Trainer:
                 for line in diff_decision_logs(old.log, self.plan.log):
                     print(f"  plan diff: {line}", flush=True)
         return self.place(state), manifest["step"]
+
+
+def whole_state(state: Dict[str, Any], step: LoweredStep,
+                keep: bool = True) -> Dict[str, Any]:
+    """The state's whole leaves from every rank's pieces, on the host
+    (each dim gathered over its spec's axes, data-major, one leaf at a
+    time, so a rank's device holds one whole leaf at most); the wire's
+    EF leaves stacked over the data ranks, ``(dp, ...)``.  Every rank
+    joins the gathers; with ``keep`` false it drops what it gathered
+    (``None`` leaves)."""
+    from repro_torch.dist import fsdp
+    from repro_torch.dist.collectives import all_gather, axes_groups
+    lay = step.layout
+
+    def whole(t, spec, stack=False):
+        t = fsdp.whole(t.detach(), spec, lay.mesh)
+        if stack:
+            t = all_gather(t[None], 0, axes_groups(lay.mesh, lay.batch_axes))
+        return t.cpu() if keep else None
+
+    out = {"params": adamw.tree_map(whole, state["params"], lay.specs),
+           "opt": {}}
+    for k, v in state["opt"].items():
+        out["opt"][k] = v if k == "step" else adamw.tree_map(
+            lambda t, spec: whole(t, spec, k == "ef" and step.wire_dp),
+            v, lay.specs)
+    return out
+
+
+def _residual(e: torch.Tensor, pdim: int, step: LoweredStep
+              ) -> torch.Tensor:
+    """A checkpoint's EF residual of a ``pdim``-dim leaf in the layout
+    ``step`` keeps: a stacked ``(r, ...)`` one (the reference's wire)
+    becomes this rank's row where ``step``'s wire has ``r`` data ranks,
+    else the rows' mean (what the ``r`` slices still owe: the
+    telescoping identity's term)."""
+    if e.dim() != pdim + 1:
+        return e
+    if step.wire_dp and e.shape[0] == step.wire_dp:
+        return e[step.layout.batch_index]
+    return e.float().mean(0).to(e.dtype)
+
+
+def cut_leaf(key: str, t: torch.Tensor, step: LoweredStep, device
+             ) -> Optional[torch.Tensor]:
+    """This rank's piece, on ``device``, of the checkpoint's whole leaf
+    ``key`` (its flat ``a/b/c`` name): the reference's "resharded for
+    this mesh".  An EF residual goes through :func:`_residual` first;
+    ``None`` where ``step`` keeps no residuals."""
+    from repro_torch.dist.sharding import local_shard
+    top, *path = key.split("/")
+    kind = path.pop(0) if top == "opt" else top
+    if kind == "step":
+        return t
+    if kind == "ef" and not step.ef:
+        return None
+    lay = step.layout
+    spec, whole = lay.specs, lay.whole
+    for k in path:
+        spec, whole = spec[k], whole[k]
+    if kind == "ef":
+        t = _residual(t, len(whole), step)
+    return local_shard(t, lay.mesh, spec).to(device)

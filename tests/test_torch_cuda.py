@@ -1423,10 +1423,10 @@ def test_moe_model_on_card_matches_cpu(dev, name, impl, monkeypatch):
     calls = []
     route = moe.route
 
-    def recording(x, router_w, top_k, capacity):
+    def recording(x, router_w, top_k, capacity, **kw):
         if x.device.type == "cpu":
             calls.append((x, router_w, top_k, capacity))
-        return route(x, router_w, top_k, capacity)
+        return route(x, router_w, top_k, capacity, **kw)
 
     monkeypatch.setattr(moe, "route", recording)
     toks = torch.randint(0, arch.vocab_size, (4, 100),

@@ -404,19 +404,299 @@ def test_lower_train_step_with_two_microbatches(reduced):
     assert int(tstate["opt"]["step"]) == 1
 
 
-def test_compressed_gradients_are_refused_before_any_weight(reduced):
+def test_post_reduce_error_feedback_on_one_card_matches_the_reference(
+        reduced):
+    """A plan that compresses gradients without lowering the wire (one
+    card: no data degree) runs ``ef_compress`` on each gradient with one
+    bf16 residual a leaf, as the reference's step does
+    (``src/repro/core/passes/lowering.py:391-405``)."""
+    from repro.dist.collectives import ef_state as ref_state
+
+    from repro_torch.dist.collectives import ef_state
     m = reduced
-    plan = dataclasses.replace(
-        m["tplan"], comm=dataclasses.replace(m["tplan"].comm,
-                                             compress_grads=True))
-    assert plan.comm.compresses_gradients
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        lower_train_step(plan, m["tarch"], m["tshape"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        Trainer(plan, arch=m["tarch"], shape=m["tshape"], device="cpu")
-    with pytest.raises(NotImplementedError, match="one card"):
-        Trainer(m["tplan"], mesh=object(), arch=m["tarch"],
-                shape=m["tshape"], device="cpu")
+    rplan = rspecialize(m["rarch"], m["rshape"], mesh_shape=(1, 1),
+                        grad_compression="on")
+    tplan = tspecialize(m["tarch"], m["tshape"], mesh_shape=(1, 1),
+                        target="tpu-v5e", grad_compression="on")
+    assert tplan.content_hash() == rplan.content_hash()
+    assert tplan.comm.compresses_gradients
+    assert "grad_compress_lowered" not in tplan.estimates
+    # eps = 1: an update about lr * m, linear in the gradients (at the
+    # default eps an element whose gradient changes sign between the two
+    # steps moves by a whole lr on a rounding-level difference)
+    kw = dict(total_steps=10, peak_lr=1e-2, warmup_steps=1, eps=1.0)
+    ropt = radamw.OptConfig.from_plan(rplan, **kw)
+    topt = adamw.OptConfig.from_plan(tplan, **kw)
+    rstep = jax.jit(rlower_train_step(rplan, m["rarch"], m["rshape"],
+                                      _mesh(), ropt).fn)
+    ropt_state = radamw.init_opt_state(m["rparams"], ropt)
+    ropt_state["ef"] = ref_state(m["rparams"])
+    rstate = {"params": m["rparams"], "opt": ropt_state}
+    tstep = lower_train_step(tplan, m["tarch"], m["tshape"], None, topt)
+    assert tstep.ef and not tstep.wire_dp
+    tparams = _trainable(_to_torch(_tree_np(m["rparams"])))
+    topt_state = adamw.init_opt_state(tparams, topt)
+    topt_state["ef"] = ef_state(tparams)
+    tstate = {"params": tparams, "opt": topt_state}
+    batch = {k: torch.from_numpy(v) for k, v in m["batch"].items()}
+    for _ in range(2):
+        rstate, rmet = rstep(rstate, m["batch"])
+        tstate, tmet = tstep.fn(tstate, batch)
+        for key in ("loss", "grad_norm"):
+            assert _rel(float(tmet[key]), float(rmet[key])) <= BF16_TOL, key
+    which = "master" if tplan.opt["master_weights"] else None
+    got = _flat(tstate["opt"][which] if which else tstate["params"])
+    want = _flat(_tree_np(rstate["opt"][which] if which
+                          else rstate["params"]))
+    init = _flat(_tree_np(m["rparams"]))
+    for key in want:
+        assert _rel(_np(got[key]), want[key]) <= BF16_TOL, key
+        # the update itself (the parameters move by about lr * m, far
+        # inside the bar above): its change against the reference's
+        dw = np.asarray(want[key], np.float64) - np.asarray(init[key],
+                                                            np.float64)
+        dg = _np(got[key]).astype(np.float64) - np.asarray(init[key],
+                                                           np.float64)
+        err = np.linalg.norm(dg - dw) / max(np.linalg.norm(dw), 1e-30)
+        assert err <= 5e-2, (key, err)
+    # the residuals: bf16, one a leaf, each under half its block's code
+    # step (a rounding-level difference in g moves a code by one step,
+    # so they are held by size, not element by element)
+    gef, wef = _flat(tstate["opt"]["ef"]), _flat(_tree_np(
+        rstate["opt"]["ef"]))
+    for key in wef:
+        assert gef[key].dtype == torch.bfloat16
+        assert tuple(gef[key].shape) == wef[key].shape
+        rms = float(gef[key].float().square().mean().sqrt())
+        wrms = float(np.sqrt(np.mean(np.asarray(wef[key], np.float32) ** 2)))
+        assert 0.5 * wrms <= rms <= 2 * wrms, (key, rms, wrms)
+
+
+def test_error_feedback_chunks_give_the_whole_leaf_codes(monkeypatch,
+                                                        tmp_path):
+    """The step's error feedback and wire run a leaf ``adamw.CHUNK``
+    elements at a time: bit for bit the whole leaf's ``ef_compress`` and
+    ``compressed_psum`` (here with a 256-element chunk, on a one-rank
+    gloo group)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.passes import lowering
+    from repro_torch.dist.collectives import compressed_psum, ef_compress
+    g = torch.Generator().manual_seed(3)
+    grads = [torch.randn(7, 300, generator=g).to(torch.bfloat16),
+             torch.randn(1000, generator=g), torch.randn((), generator=g)]
+    efs = [(torch.randn(t.shape, generator=g) * 1e-3).to(torch.bfloat16)
+           for t in grads]
+    want = [ef_compress(t, e) for t, e in zip(grads, efs)]
+    monkeypatch.setattr(adamw, "CHUNK", 256)
+    got_g, got_e = lowering._ef_compress([t.clone() for t in grads],
+                                         [e.clone() for e in efs])
+    for (wg, we), gg, ge in zip(want, got_g, got_e):
+        assert torch.equal(wg, gg) and torch.equal(we, ge)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/s",
+                            rank=0, world_size=1)
+    try:
+        group = dist.new_group([0])
+        want = []
+        for t, e in zip(grads, efs):
+            acc = t.float() + e.float()
+            mean, err = compressed_psum(acc.reshape(-1) if acc.dim() == 0
+                                        else acc, group)
+            want.append((mean.reshape(t.shape).to(t.dtype),
+                         err.reshape(e.shape).to(torch.bfloat16)))
+        got_g, got_e = lowering._wire([t.clone() for t in grads],
+                                      [e.clone() for e in efs],
+                                      [(group, 1)])
+    finally:
+        dist.destroy_process_group()
+    for (wg, we), gg, ge in zip(want, got_g, got_e):
+        assert torch.equal(wg, gg) and torch.equal(we, ge)
+
+
+class _Mesh:
+    """What ``MeshLayout`` and the refusals read of a DeviceMesh, for one
+    coordinate of a mesh without a process group."""
+
+    def __init__(self, shape, names=("data", "model"), coord=None,
+                 device_type="cpu"):
+        self.shape, self.mesh_dim_names = tuple(shape), tuple(names)
+        self._coord = list(coord or [0] * len(shape))
+        self.device_type = device_type
+
+    def size(self, i=None):
+        return self.shape[i] if i is not None else int(np.prod(self.shape))
+
+    def get_coordinate(self):
+        return self._coord
+
+    def get_group(self, axis):
+        return f"group:{axis}"
+
+
+def _mesh_plan(arch, mesh, **kw):
+    return tspecialize(arch, TShape(**dict(QUICK, seq_len=64,
+                                           global_batch=8)),
+                       mesh_axes=("data", "model"), mesh_shape=mesh,
+                       target="h100-sxm", cache=False, **kw)
+
+
+@pytest.mark.parametrize("case", ["ssm_on_model", "two_data_axes",
+                                  "wire_over_fsdp", "device_type"])
+def test_what_a_mesh_still_refuses(case):
+    """What training on a mesh does not do yet raises before any weight,
+    naming ROADMAP item 10b (the wire over an FSDP split with the
+    reference's own reason); a mesh built for CUDA never trains on the
+    CPU."""
+    from repro_torch.core.passes.lowering import mesh_refusals
+    qwen = tget_arch("qwen3-8b").reduced()
+    if case == "ssm_on_model":
+        mam = tget_arch("mamba2-2.7b").reduced()
+        plan = _mesh_plan(mam, (2, 2))
+        assert plan.estimates["strategy"] == "megatron_tp"
+        with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+            mesh_refusals(plan, mam, _Mesh((2, 2)))
+    elif case == "two_data_axes":
+        plan = tspecialize(qwen, TShape(**dict(QUICK, seq_len=64,
+                                               global_batch=8)),
+                           mesh_axes=("pod", "data", "model"),
+                           mesh_shape=(2, 2, 2), target="h100-sxm",
+                           cache=False)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+            mesh_refusals(plan, qwen, _Mesh((2, 2, 2),
+                                            ("pod", "data", "model")))
+    elif case == "wire_over_fsdp":
+        plan = _mesh_plan(qwen, (2, 1), grad_compression="on")
+        plan = dataclasses.replace(plan, axis_rules=dict(
+            plan.axis_rules, embed="data", flat_params=("data", "model")))
+        with pytest.raises(NotImplementedError, match=r"P\(dp, \*pspec\)"):
+            mesh_refusals(plan, qwen, _Mesh((2, 1)), wire_dp=2)
+    else:
+        plan = _mesh_plan(qwen, (1, 2))
+        with pytest.raises(ValueError, match="cannot train on cpu"):
+            Trainer(plan, _Mesh((1, 2), device_type="cuda"), arch=qwen,
+                    shape=TShape(**dict(QUICK, seq_len=64, global_batch=8)),
+                    device="cpu")
+
+
+@pytest.mark.parametrize("layout", ["megatron_2x2", "fsdp_dp_1x2",
+                                    "spill_2x1", "fsdp_dp_data_2x2",
+                                    "hybrid_2x2"])
+def test_mesh_layout_reads_the_placements(layout):
+    """``MeshLayout``: which dim of a leaf is an FSDP split (gathered at
+    use, its gradient reduce-scattered), which axes a gradient is summed
+    over, the rank's piece and batch rows, for each strategy's rules."""
+    from repro_torch.dist.fsdp import MeshLayout
+    qwen = tget_arch("qwen3-8b").reduced()
+    name, shape = layout.rsplit("_", 1)
+    mesh = tuple(int(x) for x in shape.split("x"))
+    plan = _mesh_plan(qwen, mesh)
+    rules = {"spill": dict(embed="data", flat_params=("data", "model")),
+             "fsdp_dp_data": dict(batch=("data", "model"), embed="data",
+                                  heads=None, kv_heads=None, ff=None,
+                                  vocab=None, experts=None),
+             "hybrid": dict(batch="data", embed=("data", "model"),
+                            heads=None, kv_heads=None, ff=None, vocab=None,
+                            experts=None)}.get(name)
+    if rules:
+        plan = dataclasses.replace(plan, axis_rules=dict(plan.axis_rules,
+                                                         **rules))
+    lay = MeshLayout(plan, qwen, _Mesh(mesh, coord=[mesh[0] - 1,
+                                                     mesh[1] - 1]))
+    wq = lay.places["blocks"]["attn"]["wq"]
+    qn = lay.places["blocks"]["attn"]["q_norm"]
+    if name == "megatron":
+        assert plan.estimates["strategy"] == "megatron_tp"
+        assert not lay.fsdp and wq.spec == (None, None, "model")
+        assert wq.reduce_axes == ("data",) and wq.piece == 1
+        assert qn.split_axes == () and qn.reduce_axes == ("data",)
+        assert lay.batch_axes == ("data",) and lay.batch_index == 1
+    elif name == "fsdp_dp":
+        assert plan.estimates["strategy"] == "fsdp_dp"
+        g = wq.gather
+        assert g.dim == 1 and g.rep == 1 and g.extra == ()
+        assert [n for _, n in g.groups] == [2] and wq.reduce_axes == ()
+        assert qn.reduce_axes == ("model",)
+        assert lay.batch_axes == ("model",) and lay.batch_count == 2
+    elif name == "spill":
+        g = wq.gather
+        assert wq.spec == (None, "data", "model")
+        assert g.dim == 1 and [n for _, n in g.groups] == [2]
+        assert wq.piece == 1 and wq.split_axes == ("data", "model") \
+            or wq.split_axes == ("data",)
+    elif name == "fsdp_dp_data":
+        g = wq.gather
+        assert [n for _, n in g.groups] == [2] and g.rep == 1
+        assert [n for _, n in g.extra] == [2]        # summed over model too
+        assert lay.batch_count == 4 and lay.batch_index == 3
+    else:
+        g = wq.gather
+        assert [n for _, n in g.groups] == [2, 2] and g.rep == 2
+        assert g.extra == () and lay.batch_count == 2
+    rows = torch.arange(8)[:, None].expand(8, 3)
+    got = lay.batch_rows(rows, 0)
+    n = 8 // lay.batch_count
+    assert torch.equal(got[:, 0], torch.arange(lay.batch_index * n,
+                                               (lay.batch_index + 1) * n))
+
+
+def test_wire_compression_takes_the_live_mesh():
+    qwen = tget_arch("qwen3-8b").reduced()
+    plan = _mesh_plan(qwen, (2, 1), grad_compression="on")
+    assert plan.estimates["grad_compress_lowered"] == 2.0
+    from repro_torch.core.passes.lowering import wire_compression
+    assert wire_compression(plan, _Mesh((2, 1)), qwen) == 2
+    assert wire_compression(plan, {"data": 4, "model": 1}, qwen) == 4
+    assert wire_compression(plan, _Mesh((1, 2)), qwen) == 0
+    assert wire_compression(_mesh_plan(qwen, (1, 2), grad_compression="on"),
+                            _Mesh((1, 2)), qwen) == 0          # fsdp_dp
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2)])
+def test_step_estimate_counts_each_rank_share(mesh):
+    """On a split plan the step-peak estimate's gradients are each
+    parameter's bytes over its shard factor (the IR's placements), with
+    the fp32 microbatch sum besides; the logits' region is the rank's
+    vocab piece."""
+    from repro_torch.core.costmodel import MeshModel, spec_shards
+    from repro_torch.core.describe import describe_program
+    from repro_torch.core.ir import Role
+    qwen = tget_arch("qwen3-8b").reduced()
+    shape = TShape(**dict(QUICK, seq_len=64, global_batch=8))
+    plan = _mesh_plan(qwen, mesh)
+    one = _mesh_plan(qwen, (1, 1))
+    mm = MeshModel(("data", "model"), mesh)
+    ir = describe_program(qwen, shape)
+    params = ir.by_role(Role.PARAM, Role.EXPERT_PARAM)
+    share = sum(t.nbytes // spec_shards(plan.placements[t.name].spec, mm)
+                for t in params)
+    whole = sum(t.nbytes for t in params)
+    micro = 3 if plan.comm.microbatches > 1 else 1
+    assert plan.estimates["step_grad_bytes"] == share * micro
+    assert one.estimates["step_grad_bytes"] == whole
+    if mesh[1] > 1:
+        assert share < whole
+
+
+def test_one_device_plans_keep_their_hashes_and_estimates():
+    """``tests/torch_one_device_plans.json``: each one-device h100-sxm
+    train plan's content hash and step-peak estimate as they were before
+    the per-rank estimate (six archs, full and reduced): a (1, 1) plan
+    keeps both bit for bit."""
+    import json
+    from pathlib import Path
+    pinned = json.loads((Path(__file__).parent
+                         / "torch_one_device_plans.json").read_text())
+    assert len(pinned) == 18
+    for key, (h, peak) in pinned.items():
+        name, cfg, size = key.split("/")
+        S, B = (int(x) for x in size.split("x"))
+        arch = tget_arch(name) if cfg == "full" else \
+            tget_arch(name).reduced()
+        plan = tspecialize(arch, TShape("t", "train", S, B),
+                           mesh_axes=("data", "model"), mesh_shape=(1, 1),
+                           target="h100-sxm", cache=False)
+        assert plan.content_hash() == h, key
+        assert plan.estimates.get("step_peak_bytes") == peak, key
 
 
 # ---------------------------------------------------------------------
@@ -580,5 +860,6 @@ def test_train_launcher_runs_reduced_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "plan decisions:" in out and "trained 2 steps" in out
     assert Checkpointer(tmp_path).latest_step() == 2
-    with pytest.raises(NotImplementedError, match="one card"):
+    # --model-parallel builds a mesh of torchrun's ranks
+    with pytest.raises(SystemExit, match="torchrun"):
         launch_train.main(["--device", "cpu", "--model-parallel", "2"])
