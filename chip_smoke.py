@@ -247,6 +247,26 @@ Phases (any failure exits non-zero before the last line):
    step-0 losses bitwise, the wire's identity on one leaf, the replicas'
    checksums, each rank's peak against its estimate, one flash forward
    and backward a layer a step on every rank);
+24c. SSM and hybrid archs on two ranks of the one card over gloo
+   (:func:`ssm_mesh_phase`): (a) full-width, full-depth mamba2-2.7b
+   served from its (1, 2) ``h100-sxm`` decode plan (the mixer's heads,
+   conv channels and ``in_proj`` columns split over ``model``), each
+   rank holding about half the weights, ``ssd_scan`` launched once a
+   layer a prefill call on each rank's 40 heads; (b) full-width,
+   full-depth hymba-1.5b from its (1, 2) plan (heads 26 / 13 padded,
+   the paged pool split over ``model``): the engine's
+   ``shard_map_flash`` path with K8 (``paged_decode_partial``) counted
+   inside the engine; both against the one-rank engine drawn at the
+   plan's padded sizes under the full-depth margin rule; (c) hymba
+   trained on its (1, 2) ``megatron_tp`` plan at the largest depth
+   whose per-rank estimate fits 0.44 of the card: losses, grad norms,
+   each rank's peak against its estimate, the SSD forward and backward
+   launches; at two layers, the last layer's SSM gradients against one
+   rank with three planted controls (the regroup's ``copy_in``
+   dropped, the gated norm's backward all-reduce dropped, a wrong
+   target); (d)
+   mamba2 trained on its (1, 2) ``fsdp_dp`` plan at the depth that fits,
+   losses against one rank;
 25. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
@@ -255,9 +275,9 @@ name and power limit.
 Run from the repository root:  python3 chip_smoke.py
 
 ``--only flash_bwd`` (``flash_pos``, ``ssd_bwd``, ``matmul_fp32``,
-``mesh``, ``mesh_train``) runs the flash backward's (the positions
-variant's, the SSD scan backward's, the fp32 tiled matmul's, phases 2b
-and 24's, phase 24b's) check and timings alone
+``mesh``, ``mesh_train``, ``ssm_mesh``) runs the flash backward's (the
+positions variant's, the SSD scan backward's, the fp32 tiled matmul's,
+phases 2b and 24's, phase 24b's, phase 24c's) check and timings alone
 (:func:`flash_bwd_check`, :func:`flash_pos_check`, :func:`ssd_bwd_check`,
 :func:`matmul_fp32_check`) and prints its result as one JSON line.
 ``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
@@ -5989,14 +6009,15 @@ def _checksums(torch, params):
     return out
 
 
-def _mesh_fit(torch, dev, plan, arch, shape, mesh, record=None):
-    """``Trainer(plan, mesh).fit`` for :data:`MESH_TRAIN_STEPS` steps from
-    the seed's weights: its losses and grad norms, the kernels' launches
-    and the rank's peak allocated during the fit."""
+def _mesh_fit(torch, dev, plan, arch, shape, mesh, record=None,
+              steps=MESH_TRAIN_STEPS):
+    """``Trainer(plan, mesh).fit`` for ``steps`` steps from the seed's
+    weights: its losses and grad norms, the kernels' launches and the
+    rank's peak allocated during the fit."""
     from repro_torch.kernels import ops
     from repro_torch.train.trainer import Trainer, TrainerConfig
     tr = Trainer(plan, mesh, TrainerConfig(
-        n_steps=MESH_TRAIN_STEPS, ckpt_every=0, log_every=100, seed=SEED),
+        n_steps=steps, ckpt_every=0, log_every=100, seed=SEED),
         arch=arch, shape=shape, device=dev)
     state = tr.init_state(SEED)
     torch.cuda.synchronize()
@@ -6092,26 +6113,32 @@ def _mesh_trainer(torch, dev, plan, arch, shape, mesh):
     return tr, tr.init_state(SEED)
 
 
-def _mesh_anchor(torch, dev, plan, arch, shape, batches):
+def _mesh_anchor(torch, dev, plan, arch, shape, batches, grads=True,
+                 fit=True):
     """The one-rank run of ``plan`` on the card (the same cut, optimizer,
     remat and global batches): its fit, the last layer's gradients on
     the step-0 batch (with a wrong-target control) and its kernels' loss
-    against the plain attention's (the loss floor)."""
+    against the plain attention's (the loss floor); ``grads`` / ``fit``
+    False leave those out."""
     tr, state = _mesh_trainer(torch, dev, plan, arch, shape, None)
     b0 = _on_dev(torch, batches[0], dev)
     cfg = tr.step_def.cfg
-    grads = _layer_grads(torch, arch, state["params"], b0, cfg)
-    wrong = dict(b0, targets=(b0["targets"] + 1) % arch.vocab_size)
-    wrong_grads = _layer_grads(torch, arch, state["params"], wrong, cfg)
+    out = {}
+    if grads:
+        out["grads"] = _layer_grads(torch, arch, state["params"], b0, cfg)
+        wrong = dict(b0, targets=(b0["targets"] + 1) % arch.vocab_size)
+        out["wrong_grads"] = _layer_grads(torch, arch, state["params"],
+                                          wrong, cfg)
     from repro_torch.models import lm
     with torch.no_grad(), plain_kernels(True):
-        plain = float(lm.train_loss(arch, state["params"], b0, cfg)[0])
+        out["plain_loss"] = float(lm.train_loss(arch, state["params"], b0,
+                                                cfg)[0])
     del tr, state
     torch.cuda.empty_cache()
-    fit = _mesh_fit(torch, dev, plan, arch, shape, None)[2]
-    torch.cuda.empty_cache()
-    return {"grads": grads, "wrong_grads": wrong_grads, "plain_loss": plain,
-            "fit": fit}
+    if fit:
+        out["fit"] = _mesh_fit(torch, dev, plan, arch, shape, None)[2]
+        torch.cuda.empty_cache()
+    return out
 
 
 def mesh_train_phase(torch, dev):
@@ -6291,10 +6318,465 @@ def _mesh_track(what, got, want, loss_tol):
               f"{g} vs {gw}")
 
 
+# ---------------------------------------------------------------------
+# phase 24c: SSM and hybrid archs on two ranks of the one card
+# ---------------------------------------------------------------------
+
+#: the serving shape of (a) and (b): the archs' decode plans' own
+SSM_MESH_SERVE = ("serve_h100", "decode", 2048, 8)
+#: prompt lengths (one past hymba's 1024 window) and tokens a request
+SSM_MESH_PROMPTS, SSM_MESH_TOKENS = (1100, 300, 160, 96), 8
+#: (c)'s gradient check runs hymba at full width cut to this depth: the
+#: last layer's gradients then hold the mixer's arithmetic, not 32
+#: layers of bf16 forward drift (0.08-0.12 of a row at depth 32 on an
+#: H100, as far as the norm control moved them: 0.13)
+SSM_GRAD_LAYERS = 2
+#: (d)'s steps (the fit of (c) takes :data:`MESH_TRAIN_STEPS`)
+SSM_MESH_FSDP_STEPS = 2
+#: the plan estimates a one-rank engine takes from the (1, 2) plan, so
+#: both draw the same weights and run the same dead heads
+PADDED_KEYS = ("vocab_padded", "heads_padded", "kv_heads_padded",
+               "ssm_heads_padded")
+#: the last layer's SSM leaves whose gradients (c) holds against one rank
+SSM_GRAD_LEAVES = ("ssm/in_proj", "ssm/conv_w", "ssm/A_log", "ssm/norm",
+                   "ssm/out_proj")
+
+
+def ssm_mesh_serve_plans(name):
+    """``(arch, (1, 2) plan, one-rank plan)`` for serving ``name`` at
+    :data:`SSM_MESH_SERVE` on ``h100-sxm``: the one-rank plan carries the
+    (1, 2) plan's padded sizes (hymba's 26 / 13 heads, the split vocab)."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    arch = get_arch(name)
+    shape = ShapeConfig(*SSM_MESH_SERVE)
+    tp_plan = specialize(arch, shape, mesh_axes=("data", "model"),
+                         mesh_shape=(1, 2), target="h100-sxm", cache=False)
+    one = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
+                     cache=False)
+    est = dict(one.estimates)
+    est.update({k: tp_plan.estimates[k] for k in PADDED_KEYS
+                if k in tp_plan.estimates})
+    return arch, tp_plan, dataclasses.replace(one, estimates=est)
+
+
+def _ssm_mesh_prompts(arch):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 7)
+    return [rng.integers(0, arch.vocab_size, n).astype(np.int32)
+            for n in SSM_MESH_PROMPTS]
+
+
+def _ssm_mesh_engine(torch, dev, mesh, name):
+    """(a) / (b) on one rank: the (1, 2) engine of ``name`` built from
+    the rank's pieces, the prompts served; its launches, tokens, first
+    logits, decode path, weight bytes and peak."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sharded import param_pieces
+    arch, plan, _ = ssm_mesh_serve_plans(name)
+    params = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                            *plan.padded_sizes(),
+                            pieces=param_pieces(mesh, plan, arch))
+    torch.cuda.reset_peak_memory_stats()
+    eng = _recording_engine(ServeEngine).from_plan(plan, params, arch=arch,
+                                                   mesh=mesh)
+    del params
+    held = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
+    for p in _ssm_mesh_prompts(arch):
+        eng.submit(p, max_new_tokens=SSM_MESH_TOKENS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_idle(max_ticks=4096)
+    torch.cuda.synchronize()
+    out = {"launches": ops.launch_counts(), "s": time.perf_counter() - t0,
+           "first": eng.first, "path": eng.decode_path,
+           "split": eng.cfg.kv_split, "weight_bytes": held,
+           "prefill_calls": eng.telemetry()["prefill"]["calls"],
+           "ticks": eng.tick,
+           "cache": {k: tuple(v.shape) for k, v in eng.cache.items()},
+           "tokens": {r.rid: list(r.out_tokens) for r in done},
+           "peak": torch.cuda.max_memory_allocated()}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_mesh_train_plans(torch):
+    """(c) and (d)'s plans: hymba-1.5b's and mamba2-2.7b's ``h100-sxm``
+    (1, 2) train plans on :data:`MESH_TRAIN_SHAPE` at the largest depth
+    whose per-rank step-peak estimate fits :data:`MESH_TRAIN_SHARE` of
+    the card, and hymba's at :data:`SSM_GRAD_LAYERS` (``"grads"``):
+    ``{name: (arch cut to that depth, plan)}``."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    shape = ShapeConfig(*MESH_TRAIN_SHAPE)
+    card = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+
+    def cut_plan(arch, n):
+        cut = dataclasses.replace(arch, n_layers=n)
+        return cut, specialize(cut, shape, mesh_axes=("data", "model"),
+                               mesh_shape=(1, 2), target="h100-sxm",
+                               cache=False)
+    out["grads"] = cut_plan(get_arch("hymba-1.5b"), SSM_GRAD_LAYERS)
+    for name in ("hymba-1.5b", "mamba2-2.7b"):
+        arch = get_arch(name)
+        plan = functools.partial(cut_plan, arch)
+        lo, hi = 0, arch.n_layers
+        while lo < hi:                   # estimates grow with depth
+            mid = (lo + hi + 1) // 2
+            if plan(mid)[1].estimates["step_peak_bytes"] \
+                    <= MESH_TRAIN_SHARE * card:
+                lo = mid
+            else:
+                hi = mid - 1
+        check(lo > 0, f"ssm mesh: no depth of {name} fits two ranks")
+        out[name] = plan(lo)
+    return shape, out
+
+
+@contextlib.contextmanager
+def ssm_fault(which):
+    """(c)'s planted faults in ``models.ssm``: ``regroup``, the regroup's
+    ``copy_in`` dropped (the gathered ``in_proj`` product and conv output
+    cut into the rank's heads without summing the cuts' gradients);
+    ``norm``, the gated norm's sum of squares all-reduced forward only
+    (its gradient not summed over the ranks that use it)."""
+    from repro_torch.models import ssm, tp
+    name = {"regroup": "_regroup_in", "norm": "_norm_sum"}[which]
+    keep = getattr(ssm, name)
+    setattr(ssm, name, {"regroup": lambda t, c: t,
+                        "norm": tp.reduce_sum}[which])
+    try:
+        yield
+    finally:
+        setattr(ssm, name, keep)
+
+
+def _ssm_grads(grads):
+    """The last layer's SSM leaves of :func:`_layer_grads`' gradients."""
+    return {n: grads[n] for n in SSM_GRAD_LEAVES}
+
+
+def _ssm_mesh_rank(rank: int, tmp: str, src: str) -> None:
+    """One of phase 24c's two ranks on ``cuda:0`` over gloo, held to
+    :data:`MESH_TRAIN_FRACTION` of the card: (a) and (b) served, (c)'s
+    gradients (with the planted faults) and fit, (d)'s fit."""
+    import datetime
+    import os
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    torch.cuda.set_per_process_memory_fraction(MESH_TRAIN_FRACTION, 0)
+    dev = torch.device("cuda", 0)
+    out = {}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=600))
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        t0, out["times"] = time.perf_counter(), {}
+
+        def lap(what):
+            out["times"][what] = time.perf_counter() - t0
+        for name in ("mamba2-2.7b", "hymba-1.5b"):
+            out[name] = _ssm_mesh_engine(torch, dev, mesh, name)
+            lap(name)
+        shape, plans = ssm_mesh_train_plans(torch)
+        arch, plan = plans["grads"]
+        batches = _mesh_batches(arch, shape)
+        tr, state = _mesh_trainer(torch, dev, plan, arch, shape, mesh)
+        b0 = _on_dev(torch, batches[0], dev)
+        args = (torch, arch, state["params"], b0, tr.step_def.cfg,
+                tr.step_def.layout)
+        out["grads"] = _layer_grads(*args)
+        for which in ("regroup", "norm"):
+            with ssm_fault(which):
+                out[f"grads_{which}"] = _layer_grads(*args)
+        del tr, state, args
+        torch.cuda.empty_cache()
+        lap("grads")
+        arch, plan = plans["hymba-1.5b"]
+        out["fit"] = _mesh_fit(torch, dev, plan, arch, shape, mesh)[2]
+        torch.cuda.empty_cache()
+        lap("fit")
+        arch, plan = plans["mamba2-2.7b"]
+        out["fsdp"] = _mesh_fit(torch, dev, plan, arch, shape, mesh,
+                                steps=SSM_MESH_FSDP_STEPS)[2]
+        lap("fsdp")
+    except Exception:
+        import traceback
+        out["error"] = traceback.format_exc()[-4000:]
+    torch.save(out, os.path.join(tmp, f"r{rank}.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _ssm_mesh_anchor_engine(torch, dev, name):
+    """The one-rank engine of ``name`` at the (1, 2) plan's padded
+    sizes (no host tier, no prefix reuse): tokens, margins, first
+    logits."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    arch, plan, one = ssm_mesh_serve_plans(name)
+    params = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                            *plan.padded_sizes())
+    eng = _recording_engine(ServeEngine).from_plan(
+        one, params, arch=arch, kv_host_blocks=0, kv_prefix_reuse="off")
+    for p in _ssm_mesh_prompts(arch):
+        eng.submit(p, max_new_tokens=SSM_MESH_TOKENS)
+    done = eng.run_until_idle(max_ticks=4096)
+    out = ({r.rid: list(r.out_tokens) for r in done}, eng.margins,
+           eng.first, eng.decode_path)
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_mesh_served(torch, name, ranks, one):
+    """(a) / (b)'s checks on both ranks' records against the one-rank
+    engine's ``one``."""
+    from repro_torch.models import lm
+    arch, plan, _ = ssm_mesh_serve_plans(name)
+    want, margins, first, one_path = one
+    r0 = ranks[0][name]
+    specs = lm.leaf_specs(arch, *plan.padded_sizes())
+    whole = sum(math.prod(sp.shape) * sp.dtype.itemsize
+                for sp in _leaves(specs))
+    L = arch.n_layers
+    res = {"path": r0["path"], "split": r0["split"], "whole_bytes": whole,
+           "weight_bytes": [o[name]["weight_bytes"] for o in ranks],
+           "launches": [o[name]["launches"] for o in ranks],
+           "prefill_calls": r0["prefill_calls"], "ticks": r0["ticks"],
+           "s": [o[name]["s"] for o in ranks],
+           "peak": [o[name]["peak"] for o in ranks], "one_path": one_path}
+    for r, out in enumerate(ranks):
+        o = out[name]
+        check(o["tokens"] == r0["tokens"], f"ssm mesh: {name}: the ranks' "
+              "tokens differ")
+        share = o["weight_bytes"] / whole
+        check(0.45 <= share <= 0.55, f"ssm mesh: {name}: rank {r} holds "
+              f"{share:.3f} of the weights")
+        c = o["launches"]
+        check(c["ssd_scan"] == L * o["prefill_calls"],
+              f"ssm mesh: {name}: rank {r} launched ssd_scan "
+              f"{c['ssd_scan']} times in {o['prefill_calls']} prefill calls")
+        if arch.has_attention:
+            check(c["flash_attention"] == L * o["prefill_calls"]
+                  and c["paged_decode_partial"] > 0,
+                  f"ssm mesh: {name}: rank {r} launched {c}")
+    if arch.has_attention:
+        check(r0["path"] == "shard_map_flash" and r0["split"] == "rows",
+              f"ssm mesh: {name}: decode path {r0['path']}, split "
+              f"{r0['split']}")
+    rels = {rid: _rms_rel(torch, r0["first"][rid], row)
+            for rid, row in first.items()}
+    # a control: another request's logits
+    wrong = _rms_rel(torch, r0["first"][1], first[0])
+    check(max(rels.values()) <= FULL_TOL < wrong,
+          f"ssm mesh: {name}: first logits {rels}, control {wrong}")
+    compared, splits = 0, []
+    for rid, toks in want.items():
+        got = r0["tokens"][rid]
+        check(len(got) == len(toks), f"ssm mesh: {name}: token counts")
+        for i, (a, b) in enumerate(zip(got, toks)):
+            if a != b:
+                splits.append((rid, i, margins[rid][i]))
+                check(margins[rid][i] <= FULL_TOL,
+                      f"ssm mesh: {name}: request {rid} token {i}: {a} vs "
+                      f"{b} at margin {margins[rid][i]}")
+                break
+            compared += 1
+    res.update(first_logits_rms_rel=rels, first_logits_wrong_request=wrong,
+               tokens_compared=compared, splits=splits,
+               tokens=sum(len(t) for t in want.values()))
+    log(f"ssm mesh: ({'a' if name.startswith('mamba') else 'b'}) {name} "
+        f"full width, {L} layers, (1, 2) plan: decode path {r0['path']} "
+        f"(split {r0['split']}; one rank {one_path}), "
+        f"{len(want)} requests x {SSM_MESH_TOKENS} tokens in "
+        f"{fmt(res['s'])} s a rank, {compared} of {res['tokens']} tokens "
+        f"equal the one-rank engine's before the first margin-rule split "
+        f"{splits}, first-token logits rms-relative "
+        f"{fmt(list(rels.values()))} (bound {FULL_TOL}; another request's "
+        f"{wrong:.3f}), weights {res['weight_bytes']} bytes a rank of "
+        f"{whole}, launches a rank {res['launches'][0]} in "
+        f"{r0['prefill_calls']} prefill calls and {r0['ticks']} ticks, "
+        f"peak allocated {res['peak']} bytes a rank [{CARD}]")
+    return res
+
+
+def ssm_mesh_phase(torch, dev):
+    """Phase 24c: two ranks spawned on ``cuda:0`` over gloo, each held to
+    :data:`MESH_TRAIN_FRACTION` of the card, run (a) mamba2-2.7b and
+    (b) hymba-1.5b served at full width and depth from their (1, 2)
+    ``h100-sxm`` plans, (c) hymba trained on its (1, 2) ``megatron_tp``
+    plan (its gradient check at :data:`SSM_GRAD_LAYERS`) and (d) mamba2
+    on its (1, 2) ``fsdp_dp`` plan, each at the depth
+    :func:`ssm_mesh_train_plans` finds; then the one-rank anchors in this
+    process.  Returns ``(launches summed over both ranks' runs, the
+    results)``.  A rank that fails fails the run."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    shape, plans = ssm_mesh_train_plans(torch)
+    gib = 2 ** 30
+    for name, (arch, plan) in plans.items():
+        log(f"ssm mesh: {name} train at depth {arch.n_layers} (the largest "
+            f"whose per-rank estimate fits {MESH_TRAIN_SHARE:.2f} of the "
+            f"card): (1, 2) {plan.estimates['strategy']}, remat "
+            f"{plan.comm.remat_policy}, estimate "
+            f"{plan.estimates['step_peak_bytes'] / gib:.3f} GiB a rank "
+            f"[{CARD}]")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_ssm_mesh_rank,
+                             args=(r, tmp, str(SRC_IN_USE)))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=900)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks = []
+        for r, p in enumerate(procs):
+            path = Path(tmp) / f"r{r}.pt"
+            check(path.exists(), f"ssm mesh: rank {r} left no result "
+                  f"(exit {p.exitcode})")
+            ranks.append(torch.load(path, weights_only=False))
+    for r, out in enumerate(ranks):
+        check("error" not in out, f"ssm mesh: rank {r} failed: "
+              f"{out.get('error')}")
+    t_ranks = time.perf_counter() - t0
+    res = {"ranks_s": t_ranks, "rank_laps_s": ranks[0]["times"]}
+    log(f"ssm mesh: the ranks took {t_ranks:.1f} s, rank 0's laps "
+        f"{ {k: round(v, 1) for k, v in ranks[0]['times'].items()} } "
+        f"[{CARD}]")
+    launches = {k: 0 for k in ("ssd_scan", "ssd_scan_bwd", "flash_attention",
+                               "flash_attention_bwd", "paged_decode_partial")}
+    # (a), (b)
+    for name in ("mamba2-2.7b", "hymba-1.5b"):
+        one = _ssm_mesh_anchor_engine(torch, dev, name)
+        res[name] = _ssm_mesh_served(torch, name, ranks, one)
+        for out in ranks:
+            for k in launches:
+                launches[k] += out[name]["launches"][k]
+    # (c): the gradients at SSM_GRAD_LAYERS, then the fit at full depth
+    garch, gplan = plans["grads"]
+    batches = _mesh_batches(garch, shape)
+    gone = _mesh_anchor(torch, dev, gplan, garch, shape, batches, fit=False)
+    arch, plan = plans["hymba-1.5b"]
+    one = _mesh_anchor(torch, dev, plan, arch, shape, batches, grads=False)
+    loss_tol = max(MESH_LOSS_MIN, 4 * abs(
+        one["fit"]["hist"][0][0] - one["plain_loss"]) / abs(
+            one["plain_loss"]))
+    for r, out in enumerate(ranks):
+        _mesh_track(f"ssm (c) hymba rank {r}", out["fit"], one["fit"],
+                    loss_tol)
+    want = _ssm_grads(gone["grads"][1])
+
+    def errs(grads):
+        return {n: grad_row_err(torch, g, want[n])[1]
+                for n, g in _ssm_grads(grads).items()}
+    got = errs(ranks[0]["grads"][1])
+    controls = {"regroup_copy_in_dropped": errs(ranks[0]["grads_regroup"][1]),
+                "norm_backward_all_reduce_dropped":
+                    errs(ranks[0]["grads_norm"][1]),
+                "wrong_target": errs(gone["wrong_grads"][1])}
+    log(f"ssm mesh: (c) hymba depth {garch.n_layers}, the last layer's SSM "
+        f"gradients (1, 2) against one rank, worst row rel "
+        f"{max(got.values()):.3e} (tol {MESH_GRAD_TOL}) "
+        f"{ {n: round(v, 5) for n, v in got.items()} }; planted controls, "
+        f"worst: " + ", ".join(f"{k} {max(v.values()):.3e}"
+                               for k, v in controls.items())
+        + f"; loss tol {loss_tol:.3e} [{CARD}]")
+    check(max(got.values()) <= MESH_GRAD_TOL,
+          f"ssm mesh: (c) gradients {got}")
+    for k, v in controls.items():
+        check(max(v.values()) > MESH_GRAD_TOL,
+              f"ssm mesh: (c) the control {k} passed {v}")
+    check(all(torch.equal(ranks[0]["grads"][1][n], ranks[1]["grads"][1][n])
+              for n in SSM_GRAD_LEAVES),
+          "ssm mesh: (c) the ranks' gathered gradients differ")
+    want_l = expected_train_launches(arch, plan.comm.remat_policy)
+    peaks = {}
+    for r, out in enumerate(ranks):
+        o = out["fit"]
+        ratio = o["estimate"] / o["peak"]
+        peaks[f"rank{r}"] = (o["peak"], o["estimate"], ratio)
+        log(f"ssm mesh: (c) rank {r}: peak allocated {o['peak']} bytes, "
+            f"estimate {o['estimate']:.0f} ({ratio:.4f} x the peak), "
+            f"{MESH_TRAIN_STEPS} steps in {o['s']:.2f} s, launches "
+            f"{o['launches']} [{CARD}]")
+        check(o["peak"] <= o["estimate"] <= MESH_PEAK_SLACK * o["peak"],
+              f"ssm mesh: (c) rank {r} peak {o['peak']} against its "
+              f"estimate {o['estimate']}")
+        for k in ("ssd_scan", "ssd_scan_bwd", "flash_attention",
+                  "flash_attention_bwd"):
+            check(o["launches"][k] == MESH_TRAIN_STEPS * want_l[k],
+                  f"ssm mesh: (c) rank {r} launched {k} "
+                  f"{o['launches'][k]} times, not {MESH_TRAIN_STEPS} x "
+                  f"{want_l[k]}")
+            launches[k] += o["launches"][k]
+    res["c"] = {"n_layers": arch.n_layers, "grad_layers": garch.n_layers,
+                "grad_row_rel": got,
+                "controls": controls, "loss_tol": loss_tol, "peaks": peaks,
+                "strategy": plan.estimates["strategy"],
+                "hist": [o["fit"]["hist"] for o in ranks],
+                "one_rank": one["fit"]["hist"],
+                "s": [o["fit"]["s"] for o in ranks],
+                "one_rank_s": one["fit"]["s"]}
+    del one, gone
+    torch.cuda.empty_cache()
+    # (d)
+    arch, plan = plans["mamba2-2.7b"]
+    check(plan.estimates["strategy"] == "fsdp_dp",
+          f"ssm mesh: (d) mamba2's (1, 2) plan is "
+          f"{plan.estimates['strategy']}")
+    one = _mesh_fit(torch, dev, plan, arch, shape, None,
+                    steps=SSM_MESH_FSDP_STEPS)[2]
+    torch.cuda.empty_cache()
+    for r, out in enumerate(ranks):
+        _mesh_track(f"ssm (d) mamba2 fsdp_dp rank {r}", out["fsdp"], one,
+                    max(MESH_LOSS_MIN, loss_tol))
+        o = out["fsdp"]
+        log(f"ssm mesh: (d) rank {r}: peak allocated {o['peak']} bytes, "
+            f"estimate {o['estimate']:.0f} ({o['estimate'] / o['peak']:.4f}"
+            f" x the peak), {SSM_MESH_FSDP_STEPS} steps in {o['s']:.2f} s "
+            f"[{CARD}]")
+        for k in ("ssd_scan", "ssd_scan_bwd"):
+            check(o["launches"][k] > 0, f"ssm mesh: (d) rank {r} launched "
+                  f"{k} no time")
+            launches[k] += o["launches"][k]
+    res["d"] = {"n_layers": arch.n_layers,
+                "strategy": plan.estimates["strategy"],
+                "hist": [o["fsdp"]["hist"] for o in ranks],
+                "one_rank": one["hist"],
+                "peaks": [(o["fsdp"]["peak"], o["fsdp"]["estimate"])
+                          for o in ranks],
+                "s": [o["fsdp"]["s"] for o in ranks]}
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"ssm mesh: phase took {res['phase_s']:.1f} s (ranks "
+        f"{t_ranks:.1f} s), launches over both ranks {launches} [{CARD}]")
+    return launches, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port on one NVIDIA card")
     ap.add_argument("--only", choices=("flash_bwd", "flash_pos", "ssd_bwd",
-                                       "matmul_fp32", "mesh", "mesh_train"),
+                                       "matmul_fp32", "mesh", "mesh_train",
+                                       "ssm_mesh"),
                     help="run this kernel's check alone and print its "
                          "result")
     ap.add_argument("--src", type=Path, default=SRC,
@@ -6393,6 +6875,13 @@ def main(argv=None) -> int:
         _, res = mesh_train_phase(torch, dev)
         log(json.dumps({"src": str(args.src), "card": CARD,
                         "mesh_train": res}))
+        return 0
+    if args.only == "ssm_mesh":
+        log(f"build: {time.perf_counter() - t0:.1f} s [{CARD}]")
+        expandable_segments(torch)
+        _, res = ssm_mesh_phase(torch, dev)
+        log(json.dumps({"src": str(args.src), "card": CARD,
+                        "ssm_mesh": res}))
         return 0
     log(f"build: {len(build.SOURCES)} sources with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
@@ -6592,6 +7081,9 @@ def main(argv=None) -> int:
     # ---- phase 24b: two ranks training on the card ----
     mesh_launches, mesh_train = mesh_train_phase(torch, dev)
 
+    # ---- phase 24c: SSM and hybrid archs on two ranks ----
+    ssm_launches, ssm_mesh = ssm_mesh_phase(torch, dev)
+
     # ---- phase 25: results ----
     family_counts = [c for c, _ in families.values()]
     runs = (*serve_runs.values(), train_counts, *family_counts,
@@ -6604,6 +7096,9 @@ def main(argv=None) -> int:
     launches = {k: sum(c[k] for c in runs) for k in paged_counts}
     for name, n in mesh_launches.items():
         launches[name] += n
+    for name, n in ssm_launches.items():
+        if name != "paged_decode_partial":
+            launches[name] += n
     for name in ("flash_attention", "paged_decode_attention"):
         kern[name]["g7"]["launches"] = (grant["launches"][name]
                                         + grant_ctl["launches"][name])
@@ -6621,6 +7116,12 @@ def main(argv=None) -> int:
         kern[name]["train"]["launches"][
             "qwen3-8b two ranks (1, 2) and (2, 1), both ranks"] = \
             mesh_launches[name]
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                 "ssd_scan_bwd"):
+        kern[name]["ssm_mesh"] = {
+            "launches": ssm_launches[name], "launched_by":
+            "phase 24c: mamba2-2.7b and hymba-1.5b served and trained on "
+            "two ranks of a (1, 2) mesh on one card, both ranks"}
     # the frontends' pairs: qwen2-vl's plan is paged, so its dense decode
     # instance runs in the kernel phase only (0 on the main path)
     for name in ("flash_attention", "paged_decode_attention",
@@ -6647,6 +7148,12 @@ def main(argv=None) -> int:
         kern[name]["launched_by"] = (
             "flash_decode / flash_decode_paged (flat combine) on each of "
             "two ranks of a (1, 2) mesh on one card over gloo")
+    # K8 inside an engine: hymba-1.5b's shard_map_flash decode ticks
+    launches["paged_decode_partial"] += ssm_launches["paged_decode_partial"]
+    kern["paged_decode_partial"]["ssm_mesh"] = {
+        "launches": ssm_launches["paged_decode_partial"], "launched_by":
+        "phase 24c: hymba-1.5b's (1, 2) engine on the shard_map_flash "
+        "path, every decode tick, both ranks"}
     kernels = []
     for name, r in kern.items():
         kernels.append({"name": name, **{k: r[k] for k in (
@@ -6669,7 +7176,7 @@ def main(argv=None) -> int:
                                  "qwen2vl", "hubert", "noncausal128",
                                  "fwd_with_lse_ms", "fwd_without_lse_ms",
                                  "autograd_plain_ms", "fold_row_rel_err",
-                                 "shards_ms",
+                                 "shards_ms", "ssm_mesh",
                                  "autograd_plain_turns_ms")
                if k in r},
             "ptxas": [[kernel, regs, spills] for kernel, regs, spills
@@ -6701,7 +7208,7 @@ def main(argv=None) -> int:
                     "small_train_mamba2": small_train_ssm,
                     "frontends": front, "disagg": disagg_res,
                     "step_guard": guard, "two_ranks": two,
-                    "mesh_train": mesh_train,
+                    "mesh_train": mesh_train, "ssm_mesh": ssm_mesh,
                     "allocator": allocator}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")

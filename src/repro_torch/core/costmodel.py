@@ -650,7 +650,8 @@ def _norm_bytes(T: float, width: float) -> float:
     return 8 * T * width + 4 * T + 4 * width
 
 
-def _ssm_saved_bytes(arch, T: float, seqs: float, chunk: int) -> float:
+def _ssm_saved_bytes(arch, T: float, seqs: float, chunk: int,
+                     heads: int = 0, conv_channels: int = 0) -> float:
     """The mamba2 mixer after its pre-norm (``models.ssm.mixer`` and
     :class:`repro_torch.kernels.ssd_scan.SSDScan` as PyTorch records
     them): the conv's zero-padded bf16 input (k - 1 rows more a
@@ -659,19 +660,31 @@ def _ssm_saved_bytes(arch, T: float, seqs: float, chunk: int) -> float:
     output; the scan's fp32 x, dt, A, B, C, y, final state and the state
     carried into each chunk; the SiLU's output (the D skip keeps a view
     of it); the gated norm's z, y, SiLU(z), its input, rsqrt, scale and
-    normed output, and the fp32 ``out_proj`` copy."""
-    H, P, N, G = arch.ssm_heads, arch.ssm_head_dim, arch.ssm_state, \
-        arch.ssm_n_groups
+    normed output, and the fp32 ``out_proj`` copy.
+
+    On a mesh whose model ranks each hold ``heads`` SSM heads and
+    ``conv_channels`` conv channels (``models.ssm``'s regroup): the
+    conv's padded input is the rank's channels; its output, gathered
+    whole, is cut before the SiLU, which keeps the fp32 inputs of the
+    rank's heads of ``x`` and of the whole ``B`` and ``C``, and whose
+    outputs are the scan's own (no whole-width copy is kept: the
+    gathered products die in the forward); every per-head term counts
+    the rank's heads, the gated norm its ``heads * P`` channels."""
+    P, N, G = arch.ssm_head_dim, arch.ssm_state, arch.ssm_n_groups
+    H = heads or arch.ssm_heads
     di, d, k = H * P, arch.d_model, arch.ssm_conv
-    C = di + 2 * G * N
     S = T / seqs
     nc = math.ceil(S / min(chunk, S))
-    conv = 2 * seqs * (S + k - 1) * C + 4 * T * C + 4 * T * H + 4 * H
     scan = (8 * T * di + 4 * T * H + 4 * H + 8 * T * G * N
             + 4 * seqs * (nc + 1) * H * P * N)
-    skip = 4 * T * C
     gated = 12 * T * di + _norm_bytes(T, di) + 4 * T * di + 4 * di * d
-    return conv + scan + skip + gated
+    if not heads:
+        C = di + 2 * G * N
+        conv = 2 * seqs * (S + k - 1) * C + 4 * T * C + 4 * T * H + 4 * H
+        return conv + scan + 4 * T * C + gated
+    conv = (2 * seqs * (S + k - 1) * conv_channels
+            + 4 * T * (di + 2 * G * N) + 4 * T * H + 4 * H)
+    return conv + scan + gated
 
 
 def _moe_saved_bytes(arch, T: float, seqs: float, impl: str) -> float:
@@ -714,7 +727,8 @@ def _moe_saved_bytes(arch, T: float, seqs: float, impl: str) -> float:
 
 def eager_layer_saved_bytes(arch, tokens: float, heads: int, kv_heads: int,
                             remat: str, *, seqs: float = 1, ffn: str = "mlp",
-                            ssd_chunk: int = 256, ff_shards: int = 1
+                            ssd_chunk: int = 256, ff_shards: int = 1,
+                            ssm_heads: int = 0, conv_channels: int = 0
                             ) -> float:
     """Bytes eager autograd keeps for one layer between its forward and
     its backward, under ``remat`` (the port's ``models.lm._block_fwd`` as
@@ -740,7 +754,9 @@ def eager_layer_saved_bytes(arch, tokens: float, heads: int, kv_heads: int,
     On a mesh ``heads`` / ``kv_heads`` are a rank's and ``ff_shards``
     the model ranks the dense FFN's ff dims are cut over (each keeps
     its ``1 / ff_shards`` of the FFN's tensors; the norms and the normed
-    input stay whole).
+    input stay whole), and ``ssm_heads`` / ``conv_channels`` the SSM
+    heads and conv channels a rank holds where its heads are split (0:
+    whole; :func:`_ssm_saved_bytes`).
     """
     T, d, hd = tokens, arch.d_model, arch.hd
     if remat == "full":
@@ -756,7 +772,8 @@ def eager_layer_saved_bytes(arch, tokens: float, heads: int, kv_heads: int,
             out += 8 * T * hd
         out += 4 * T * (heads + kv_heads) * hd + 4 * T * heads
     if arch.has_ssm:
-        out += _ssm_saved_bytes(arch, T, seqs, ssd_chunk)
+        out += _ssm_saved_bytes(arch, T, seqs, ssd_chunk, ssm_heads,
+                                conv_channels)
     if ffn == "mlp":
         per_ff = 6 if arch.family == "encoder" else 12
         ff = arch.d_ff or arch.d_inner
@@ -788,7 +805,8 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
                             moe_impl: str = "", ssd_chunk: int = 256,
                             ff_shards: int = 1, vocab_split: bool = False,
                             gathered_layer_bytes: float = 0.0,
-                            ef_bytes: float = 0.0) -> Dict[str, float]:
+                            ef_bytes: float = 0.0, ssm_heads: int = 0,
+                            conv_channels: int = 0) -> Dict[str, float]:
     """The peak bytes of one eager train step on one card
     (``core.passes.lowering.lower_train_step``: autograd through
     ``models.lm.train_loss``, then AdamW in place), by part:
@@ -830,8 +848,10 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
     On a mesh every term is one rank's (the caller's arguments): its
     tokens, heads and vocab piece (``vocab``), its gradient bytes
     (``param_bytes``, ``largest_stacked_bytes``, ``embed_bytes``: each
-    leaf over its shard factor), ``ff_shards`` as in
-    :func:`eager_layer_saved_bytes`; with ``vocab_split`` the loss's
+    leaf over its shard factor), ``ff_shards``, ``ssm_heads`` and
+    ``conv_channels`` as in :func:`eager_layer_saved_bytes` (the SSD
+    backward's workspace then the rank's heads'); with ``vocab_split``
+    the loss's
     region is the vocab-split cross-entropy's (``models.lm._split_ce``:
     the fp32 exponentials it keeps, then, as its backward starts, their
     product with the gradient, the padding mask's output and its bf16
@@ -846,7 +866,8 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
     ffns = layer_group_ffns(arch, moe_impl)
     group = sum(eager_layer_saved_bytes(
         arch, T, heads, kv_heads, "none", seqs=seqs / nmicro, ffn=f,
-        ssd_chunk=ssd_chunk, ff_shards=ff_shards) for f in ffns)
+        ssd_chunk=ssd_chunk, ff_shards=ff_shards, ssm_heads=ssm_heads,
+        conv_channels=conv_channels) for f in ffns)
     steps = arch.n_layers // len(ffns)
     if remat == "none":
         saved = steps * group
@@ -863,7 +884,7 @@ def eager_train_step_memory(arch, *, tokens: float, heads: int,
         from repro_torch.kernels.ssd_scan import bwd_workspace_floats
         ssd_ws = 4.0 * bwd_workspace_floats(
             math.ceil(seqs / nmicro), round(T * nmicro / seqs),
-            arch.ssm_heads, arch.ssm_head_dim, arch.ssm_state,
+            ssm_heads or arch.ssm_heads, arch.ssm_head_dim, arch.ssm_state,
             arch.ssm_n_groups, ssd_chunk)
     sum32 = 2 * param_bytes if nmicro > 1 else 0.0
     grads = param_bytes + sum32

@@ -17,7 +17,7 @@ TPU re-targeting — everything that moves bytes between memories/chips:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 from repro_torch.core.costmodel import (REMAT_LADDER, compressed_ratio,
                                         eager_train_step_memory,
@@ -332,6 +332,7 @@ class CommunicationPass(Pass):
                 ff_shards=share.ff_shards(),
                 vocab_split=share.vocab(vocab) != vocab,
                 gathered_layer_bytes=share.gathered_layer(arch),
+                **share.ssm(arch, plan.padded_sizes()[2]),
                 ef_bytes=(sum(2 * share.bytes(t) // t.dtype_bytes
                               for t in params)
                           if plan.comm.compresses_gradients else 0.0))
@@ -452,6 +453,19 @@ class _RankShare:
     def ff_shards(self) -> int:
         fi, fo = self._dim("mlp.wi", "ff"), self._dim("mlp.wo", "ff")
         return fi if fi == fo else 1
+
+    def ssm(self, arch, heads_padded: int) -> Dict[str, int]:
+        """The SSM heads and conv channels a rank holds where the model
+        axis splits its heads (``ssm.out_proj`` on ``ssm_inner``); none
+        where they are whole."""
+        f = self._dim("ssm.out_proj", "ssm_inner")
+        if not arch.has_ssm or f == 1:
+            return {}
+        H = heads_padded or arch.ssm_heads
+        C = H * arch.ssm_head_dim + 2 * arch.ssm_n_groups * arch.ssm_state
+        fc = self._dim("ssm.conv", "ssm_inner")
+        return {"ssm_heads": H // f,
+                "conv_channels": C // fc if C % fc == 0 else C}
 
     def gathered_layer(self, arch) -> float:
         """One layer's stacked leaves gathered whole on their FSDP

@@ -35,8 +35,10 @@ def build_run_cfg(plan, arch: ArchConfig, mesh=None):
     padded vocab (``src/repro/core/passes/lowering.py:71-101``).  With a
     ``mesh`` (a ``DeviceMesh``) the config carries it, the plan's data
     axes and its decode decisions (``decode_impl``,
-    ``combine_topology``), and the padded head and vocab counts the
-    ranks' pieces are measured against."""
+    ``combine_topology``), and the padded head, SSM head and vocab
+    counts the ranks' pieces are measured against (the layout pass pads
+    SSM heads to a multiple of the model axis where it splits them,
+    ``src/repro/core/passes/layout.py:104-111``)."""
     from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK
     from repro_torch.models.lm import RunCfg
     fa = plan.partitions.get("flash_attention")
@@ -62,6 +64,7 @@ def build_run_cfg(plan, arch: ArchConfig, mesh=None):
                           if est.get("combine_topology") else None),
         heads_padded=int(est.get("heads_padded", 0)),
         vocab_padded=int(est.get("vocab_padded", 0)),
+        ssm_heads_padded=int(est.get("ssm_heads_padded", 0)),
     )
 
 
@@ -145,9 +148,8 @@ class LoweredStep:
 def mesh_refusals(plan, arch: ArchConfig, mesh, layout=None,
                   wire_dp: int = 0) -> None:
     """Raise :class:`NotImplementedError`, naming ROADMAP item 10b, for
-    what training on a mesh does not do yet: several data axes, an SSM
-    or hybrid arch whose SSM leaves are split over ``model``; and, with
-    the reference's reason, the compressed wire over leaves FSDP splits
+    what training on a mesh does not do yet: several data axes; and,
+    with the reference's reason, the compressed wire over leaves FSDP splits
     over the data axes (its stacked EF spec ``P(dp, *pspec)`` would name
     a data axis twice, ``src/repro/core/passes/lowering.py:246-252``).
     Returns the mesh's :class:`repro_torch.dist.fsdp.MeshLayout`."""
@@ -160,16 +162,6 @@ def mesh_refusals(plan, arch: ArchConfig, mesh, layout=None,
             f"training on data axes {tuple(data)}: one data axis is ported; "
             "several wait for ROADMAP item 10b")
     layout = layout or MeshLayout(plan, arch, mesh)
-    ssm = layout.places["blocks"]
-    ssm = [ssm.get("ssm")] if "dense" not in ssm else [
-        ssm[k].get("ssm") for k in ("dense", "moe")]
-    for tree in filter(None, ssm):
-        for pl in tree.values():
-            if any(a == "model" for a in pl.split_axes) and pl.gather is None:
-                raise NotImplementedError(
-                    f"{arch.name}: its SSM leaves split over the model axis "
-                    f"({pl.spec}); SSM and hybrid archs on a model axis wait "
-                    "for ROADMAP item 10b")
     if wire_dp:
         dp = set(layout.batch_axes)
         for pl in layout.leaf_places():

@@ -15,9 +15,10 @@ the step what the rank holds and what its gradients owe:
   (:func:`gather_layer`, inside the layer loop and so inside its remat
   region), and the gather's backward reduce-scatters the layer's
   gradient in fp32 and rounds it once to the leaf's dtype;
-* any other split (heads, ``ff``, vocab, experts over ``model``) is
-  tensor parallel: the model code runs on the piece
-  (:mod:`repro_torch.models.tp`);
+* any other split (heads, ``ff``, vocab, experts, the mamba2 mixer's
+  ``ssm_inner`` / ``ssm_heads`` over ``model``) is tensor parallel: the
+  model code runs on the piece (:mod:`repro_torch.models.tp`,
+  :mod:`repro_torch.models.ssm`);
 * a gradient is summed over the batch axes the leaf is not split on
   (:attr:`MeshLayout.reduce_groups`): replicated leaves over ``data``
   after the backward (:func:`repro_torch.core.passes.lowering

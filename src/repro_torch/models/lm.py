@@ -102,8 +102,10 @@ class RunCfg:
     On a mesh, ``mesh``
     is the :class:`torch.distributed.device_mesh.DeviceMesh` whose ranks
     each hold their piece of the parameters and cache, ``data_axes`` and
-    ``model_axis`` name its axes, ``heads_padded`` / ``vocab_padded``
-    the whole sizes a piece is measured against (0: the arch's), and
+    ``model_axis`` name its axes, ``heads_padded`` / ``vocab_padded`` /
+    ``ssm_heads_padded`` the whole sizes a piece is measured against
+    (0: the arch's; the layout pass pads SSM heads to a multiple of the
+    model axis where it splits them), and
     ``decode_impl`` / ``combine_topology`` the plan's decode decisions.
     Training on a mesh sets ``fsdp``, the tree of each leaf's FSDP
     gather (:class:`repro_torch.dist.fsdp.MeshLayout`), and
@@ -133,6 +135,7 @@ class RunCfg:
     combine_topology: Optional[str] = None
     heads_padded: int = 0
     vocab_padded: int = 0
+    ssm_heads_padded: int = 0
     kv_split: str = "none"
     kv_whole: Tuple[int, int] = (0, 0)
     fsdp: Any = None
@@ -491,12 +494,18 @@ def _window_schedule(arch: ArchConfig) -> List[int]:
     return [0 if g else arch.window for g in mask]
 
 
-def _ssm_dims(arch: ArchConfig, sp: SSMParams) -> SSMDims:
-    """The mixer's dims, read off ``sp`` so that they follow the layout
-    pass's padding (heads from ``A_log``, ``d_inner`` from
-    ``out_proj``)."""
-    H = sp.A_log.shape[-1]
-    di = sp.out_proj.shape[-2]
+def _ssm_dims(arch: ArchConfig, sp: SSMParams,
+              cfg: Optional[RunCfg] = None) -> SSMDims:
+    """The whole mixer's dims.  On one card they are read off ``sp``, so
+    that they follow the layout pass's padding (heads from ``A_log``,
+    ``d_inner`` from ``out_proj``); on a mesh, whose ranks hold pieces,
+    from the plan's padded head count (``cfg.ssm_heads_padded``)."""
+    if tp.ctx(cfg) is None:
+        H = sp.A_log.shape[-1]
+        di = sp.out_proj.shape[-2]
+    else:
+        H = cfg.ssm_heads_padded or arch.ssm_heads
+        di = H * arch.ssm_head_dim
     return SSMDims(arch.d_model, di, H, di // H, arch.ssm_state,
                    arch.ssm_n_groups, arch.ssm_conv)
 
@@ -834,8 +843,9 @@ def _block_fwd(arch: ArchConfig, cfg: RunCfg, grp, x: torch.Tensor,
     if "ssm" in grp:
         sp = SSMParams(**grp["ssm"])
         outs.append(ssm_mod.ssm_forward(
-            h, sp, _ssm_dims(arch, sp), cfg.ssd_chunk,
-            heads_block=cfg.ssd_heads_block, mode=cfg.kernels))
+            h, sp, _ssm_dims(arch, sp, cfg), cfg.ssd_chunk,
+            heads_block=cfg.ssd_heads_block, mode=cfg.kernels,
+            c=tp.ctx(cfg)))
     x = _residual(x, outs)
     if arch.family == "ssm":
         return x, None
@@ -1016,11 +1026,13 @@ def _kv_geometry(arch: ArchConfig, kv_heads: int) -> Tuple[int, int, int]:
 
 def init_cache(arch: ArchConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, kv_heads: int = 0, ssm_heads: int = 0,
-               device="cuda") -> Dict[str, torch.Tensor]:
+               device="cuda", conv_dim: int = 0) -> Dict[str, torch.Tensor]:
     """Dense session state: per-slot positions ``pos`` ``(B,)``; with
     attention, ``k``/``v`` stripes ``(L, B, max_len, K, hd)``; with an
     SSM, the fp32 ``ssm`` state ``(L, B, H, P, N)`` and the bf16 ``conv``
-    window ``(L, B, k, di + 2GN)`` (``src/repro/models/lm.py:513-525``)."""
+    window ``(L, B, k, di + 2GN)`` (``src/repro/models/lm.py:513-525``;
+    ``conv_dim``, where given, is its last dim: a rank's piece of the
+    channels)."""
     L, K, hd = _kv_geometry(arch, kv_heads)
     cache = {"pos": torch.zeros((batch_size,), dtype=torch.int32,
                                 device=device)}
@@ -1028,12 +1040,12 @@ def init_cache(arch: ArchConfig, batch_size: int, max_len: int,
         shape = (L, batch_size, max_len, K, hd)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
-    cache.update(_ssm_cache(arch, batch_size, ssm_heads, device))
+    cache.update(_ssm_cache(arch, batch_size, ssm_heads, device, conv_dim))
     return cache
 
 
 def _ssm_cache(arch: ArchConfig, batch_size: int, ssm_heads: int,
-               device) -> Dict[str, torch.Tensor]:
+               device, conv_dim: int = 0) -> Dict[str, torch.Tensor]:
     """The per-slot SSM state and conv window (none without an SSM)."""
     if not arch.has_ssm:
         return {}
@@ -1043,14 +1055,15 @@ def _ssm_cache(arch: ArchConfig, batch_size: int, ssm_heads: int,
     return {"ssm": torch.zeros((L, batch_size, H, P, N),
                                dtype=torch.float32, device=device),
             "conv": torch.zeros(
-                (L, batch_size, arch.ssm_conv, H * P + 2 * G * N),
+                (L, batch_size, arch.ssm_conv,
+                 conv_dim or H * P + 2 * G * N),
                 dtype=torch.bfloat16, device=device)}
 
 
 def init_paged_cache(arch: ArchConfig, batch_size: int, max_len: int,
                      block_len: int, n_blocks: int, dtype=torch.bfloat16,
-                     kv_heads: int = 0, ssm_heads: int = 0, device="cuda"
-                     ) -> Dict[str, torch.Tensor]:
+                     kv_heads: int = 0, ssm_heads: int = 0, device="cuda",
+                     conv_dim: int = 0) -> Dict[str, torch.Tensor]:
     """Paged session state: ``k``/``v`` block pools ``(L, n_blocks,
     block_len, K, hd)`` shared by all slots (one block id addresses the
     same block in every layer), ``block_tbl`` ``(B, ceil(max_len /
@@ -1067,7 +1080,7 @@ def init_paged_cache(arch: ArchConfig, batch_size: int, max_len: int,
              "v": torch.zeros(shape, dtype=dtype, device=device),
              "block_tbl": torch.full((batch_size, nb), -1,
                                      dtype=torch.int32, device=device)}
-    cache.update(_ssm_cache(arch, batch_size, ssm_heads, device))
+    cache.update(_ssm_cache(arch, batch_size, ssm_heads, device, conv_dim))
     return cache
 
 
@@ -1174,10 +1187,10 @@ def _ssm_prefill(h: torch.Tensor, sp: SSMParams, arch: ArchConfig,
     cache (``src/repro/models/lm.py:1034-1057``): ``(y, ssm_state,
     conv_tail)``, the tail being the last ``k`` pre-conv rows, left-padded
     with zeros for prompts shorter than ``k``."""
-    dims = _ssm_dims(arch, sp)
+    dims = _ssm_dims(arch, sp, cfg)
     y, final, xbc_raw = ssm_mod.mixer(h, sp, dims, cfg.ssd_chunk,
                                       heads_block=cfg.ssd_heads_block,
-                                      mode=cfg.kernels)
+                                      mode=cfg.kernels, c=tp.ctx(cfg))
     k = dims.conv_k
     tail = F.pad(xbc_raw, (0, 0, k - 1, 0))[:, -k:, :].to(torch.bfloat16)
     return y, final, tail
@@ -1185,13 +1198,15 @@ def _ssm_prefill(h: torch.Tensor, sp: SSMParams, arch: ArchConfig,
 
 def cache_heads(arch: ArchConfig, blocks) -> Dict[str, int]:
     """Cache head counts read off the (possibly padded) parameters of
-    layer 0 (every layer has the same)."""
+    layer 0 (every layer has the same), and the conv window's channels
+    (``conv_dim``; a rank's piece of them on a mesh)."""
     grp = layer_params(blocks, 0)
     out = {}
     if "attn" in grp:
         out["kv_heads"] = grp["attn"]["wk"].shape[-1] // arch.hd
     if "ssm" in grp:
         out["ssm_heads"] = grp["ssm"]["A_log"].shape[-1]
+        out["conv_dim"] = grp["ssm"]["conv_w"].shape[-1]
     return out
 
 
@@ -1448,13 +1463,7 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
                                      cache["k"][i], cache["v"][i], tbl, pos,
                                      cache_len, windows[i], targets))
         if arch.has_ssm:
-            sp = SSMParams(**grp["ssm"])
-            y, sc, cc = ssm_mod.ssm_decode_step(
-                h, sp, _ssm_dims(arch, sp), cache["ssm"][i],
-                cache["conv"][i])
-            cache["ssm"][i].copy_(sc)
-            cache["conv"][i].copy_(cc)
-            outs.append(y)
+            outs.append(_ssm_decode(arch, cfg, c, grp, h, cache, i))
         x = _residual(x, outs)
         if arch.family != "ssm":
             x, _ = _ffn_fwd(arch, grp, x, cfg.moe_impl, cfg)
@@ -1469,6 +1478,20 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
     return logits, cache
 
 
+def _ssm_decode(arch: ArchConfig, cfg: RunCfg, c, grp, h: torch.Tensor,
+                cache: Dict[str, torch.Tensor], i: int) -> torch.Tensor:
+    """Layer ``i``'s SSM recurrence, its state and conv window stepped
+    in place (on a mesh the rank's pieces: its heads, its conv channels,
+    the slots of the rows it decodes)."""
+    sp = SSMParams(**grp["ssm"])
+    y, sc, cc = ssm_mod.ssm_decode_step(h, sp, _ssm_dims(arch, sp, cfg),
+                                        cache["ssm"][i], cache["conv"][i],
+                                        c=c)
+    cache["ssm"][i].copy_(sc)
+    cache["conv"][i].copy_(cc)
+    return y
+
+
 def _mesh_rows(cfg: RunCfg, c, cache) -> Tuple[int, int]:
     """The batch rows ``[r0, r1)`` this rank decodes: its data shard's
     where the cache piece splits the batch (a dense cache's batch dim,
@@ -1481,7 +1504,7 @@ def _mesh_rows(cfg: RunCfg, c, cache) -> Tuple[int, int]:
             cfg.model_axis) == "2d"
         bl = B // c.dsize if split else B
     else:
-        bl = cache["k"].shape[1]
+        bl = cache["k" if "k" in cache else "ssm"].shape[1]
     if bl == B:
         return 0, B
     return c.drank * bl, (c.drank + 1) * bl

@@ -36,7 +36,11 @@ autograd function with its conjugate backward (the Megatron pairs):
   then cuts per-rank pieces puts :func:`copy_in` between);
 * :func:`regroup_gated` hands a rank the gate and up columns of its FFN
   piece from the ``gate || up`` columns it computed (an all-gather each
-  way).
+  way);
+* :func:`shared_sum` all-reduces forward and backward: a statistic
+  summed over the ranks' pieces that every rank then applies to its own
+  piece (the mamba2 gated norm's sum of squares over ``d_inner``), so
+  each rank's share of its gradient comes from every rank.
 
 Forwards are the serving code's values unchanged.  Several mesh axes
 act together through :func:`repro_torch.dist.collectives.axes_groups`
@@ -126,6 +130,26 @@ class _ReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx_, g):
         return g, None
+
+
+class _SharedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, x, groups):
+        ctx_.groups = groups
+        return _sum_fp32(x, groups)
+
+    @staticmethod
+    def backward(ctx_, g):
+        return _sum_fp32(g, ctx_.groups), None
+
+
+def shared_sum(t: torch.Tensor, c: Optional[MeshCtx]) -> torch.Tensor:
+    """The sum of every model rank's ``t`` (fp32, rounded once), which
+    every rank then uses on its own piece: the gradient is summed over
+    the ranks too."""
+    if c is None or c.msize == 1:
+        return t
+    return _SharedSum.apply(t, [(c.mgroup, c.msize)])
 
 
 def sum_over(t: torch.Tensor, groups) -> torch.Tensor:
@@ -282,13 +306,15 @@ def kv_for_heads(k: torch.Tensor, h0: int, hn: int, group: int
                  ) -> torch.Tensor:
     """The kv heads (dim 2 of ``k``, all ``K`` of them) that query heads
     ``[h0, h0 + hn)`` read at ``group`` query heads a kv head: a run of
-    whole groups, or one kv head shared by a piece of a group."""
-    if hn >= group:
-        if h0 % group or hn % group:
-            raise ValueError(f"query heads [{h0}, {h0 + hn}) split a GQA "
-                             f"group of {group}")
+    whole groups, or one kv head shared by a piece of a group.  A range
+    that cuts groups otherwise (13 of hymba-1.5b's 26 padded query heads
+    over 13 kv heads) reads one kv head a query head: each kv head
+    repeated for its group's heads, the range's rows kept (GQA group 1)."""
+    if hn >= group and h0 % group == 0 and hn % group == 0:
         return k[:, :, h0 // group:(h0 + hn) // group]
-    if group % hn or h0 // group != (h0 + hn - 1) // group:
-        raise ValueError(f"query heads [{h0}, {h0 + hn}) straddle GQA "
-                         f"groups of {group}")
-    return k[:, :, h0 // group:h0 // group + 1]
+    if hn < group and group % hn == 0 \
+            and h0 // group == (h0 + hn - 1) // group:
+        return k[:, :, h0 // group:h0 // group + 1]
+    g0, g1 = h0 // group, (h0 + hn - 1) // group + 1
+    return k[:, :, g0:g1].repeat_interleave(group, dim=2)[
+        :, :, h0 - g0 * group:h0 - g0 * group + hn]

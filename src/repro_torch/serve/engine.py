@@ -88,9 +88,11 @@ On a mesh (``from_plan(mesh=...)``, a ``DeviceMesh``) every rank runs
 this engine on the same requests with its pieces of the weights and the
 cache (:mod:`repro_torch.serve.sharded`); the decode runs each rank's
 heads, or the sharded flash decode (:mod:`repro_torch.dist
-.flash_decode`), as the placement says.  SSM and hybrid archs, the host
-tier, disaggregated prefill and migration between sub-pools wait for
-ROADMAP item 10b there.
+.flash_decode`), as the placement says, and an SSM arch's mixer its
+heads (its state and conv window pieces written and read through
+:class:`~repro_torch.serve.sharded.MeshPieces`).  The host tier,
+disaggregated prefill and migration between sub-pools wait for ROADMAP
+item 10b there.
 
 State lives in torch tensors on the device of the parameters; the
 cache, the block table and ``pos`` are updated in place.  Sampling
@@ -229,13 +231,12 @@ def _unsupported(decision: str, value, hint: str) -> NotImplementedError:
         f"{decision}={value!r} is not ported yet; {hint}")
 
 
-def _mesh_refusals(arch: ArchConfig, kv_host_blocks: int) -> None:
-    """What a mesh does not serve yet (ROADMAP item 10b): SSM and hybrid
-    archs (their states split over ``ssm_heads``), and the host tier."""
-    if arch.has_ssm:
-        raise NotImplementedError(
-            f"{arch.name} on a mesh: SSM and hybrid archs wait for ROADMAP "
-            "item 10b; serve it on one card")
+def _mesh_refusals(cfg: RunCfg, kv_host_blocks: int) -> None:
+    """What a mesh does not serve yet (ROADMAP item 10b), before any
+    cache exists: several data axes (:func:`repro_torch.models.tp.ctx`
+    raises for them) and the host tier."""
+    from repro_torch.models import tp
+    tp.ctx(cfg)
     if kv_host_blocks > 0:
         raise NotImplementedError(
             "kv_host_blocks > 0 on a mesh: the host tier waits for ROADMAP "
@@ -265,7 +266,7 @@ class ServeEngine:
                 f"kv_host_blocks must be >= 0, got {kv_host_blocks}")
         lm.check_serves(arch)
         if cfg.mesh is not None:
-            _mesh_refusals(arch, kv_host_blocks)
+            _mesh_refusals(cfg, kv_host_blocks)
         self.device = params["embed"].device
         attn = lm.layer_params(params["blocks"], 0).get("attn")
         lm.check_on_device(
@@ -292,6 +293,9 @@ class ServeEngine:
         # on a mesh the cache is sized here (its whole shapes, no memory)
         # and from_plan allocates the rank's pieces (_place_on_mesh)
         cache_dev = "meta" if cfg.mesh is not None else self.device
+        ssm_heads = (cfg.ssm_heads_padded if cfg.mesh is not None else
+                     lm.cache_heads(arch, params["blocks"]).get(
+                         "ssm_heads", 0))
         if self.kv_residency == "paged":
             self.block_len = kv_block_len or default_block_len(max_len)
             per_seq = -(-max_len // self.block_len)
@@ -313,9 +317,7 @@ class ServeEngine:
                 self.pool_groups = kv_pool_groups
             self.cache = lm.init_paged_cache(
                 arch, max_batch, max_len, self.block_len, self.n_blocks,
-                kv_heads=kv_heads, ssm_heads=lm.cache_heads(
-                    arch, params["blocks"]).get("ssm_heads", 0),
-                device=cache_dev)
+                kv_heads=kv_heads, ssm_heads=ssm_heads, device=cache_dev)
             # the host spill tier, clamped like the pool (to a park depth
             # of 8 full worst-case batches, as in the JAX engine)
             self.host_blocks = (min(kv_host_blocks, 8 * cap)
@@ -331,8 +333,7 @@ class ServeEngine:
             self.n_blocks = 0
             self.cache = lm.init_cache(
                 arch, max_batch, max_len, kv_heads=kv_heads,
-                ssm_heads=lm.cache_heads(arch, params["blocks"]).get(
-                    "ssm_heads", 0), device=cache_dev)
+                ssm_heads=ssm_heads, device=cache_dev)
         self._alloc = BlockAllocator(self.n_blocks, self.pool_groups,
                                      host_blocks=self.host_blocks)
         self.kv_prefix_reuse = self._prefix is not None
@@ -1508,7 +1509,7 @@ class ServeEngine:
                 self.cache[key][:, st, :plen] = cacheg[key][:, gi]
         for key in ("ssm", "conv"):
             if key in self.cache:
-                self.cache[key][:, st] = cacheg[key][:, gi]
+                self._write_state(key, live_slots, cacheg[key][:, gi])
         for slot, r in zip(live_slots, live):
             r.slot = int(slot)
             self.slot_len[slot] = plen
@@ -1615,6 +1616,21 @@ class ServeEngine:
             self.pieces.write_blocks(self.cache[key], ids, rows)
         else:
             self.cache[key][:, self._ids(ids)] = rows
+
+    def _write_state(self, key: str, slots, rows: torch.Tensor) -> None:
+        """``cache[key][:, slots] = rows`` for a per-slot SSM state; on a
+        mesh, into the slots this rank's piece holds."""
+        if self.pieces is not None:
+            self.pieces.write_state(self.cache[key], slots, rows)
+        else:
+            self.cache[key][:, self._ids(slots)] = rows.to(self.device)
+
+    def _read_state(self, key: str, slots) -> torch.Tensor:
+        """``cache[key][:, slots]`` of a per-slot SSM state; on a mesh,
+        from the data shard that holds each slot."""
+        if self.pieces is not None:
+            return self.pieces.read_state(self.cache[key], slots)
+        return self.cache[key][:, self._ids(slots)]
 
     def _read_blocks(self, key: str, ids: List[int]) -> torch.Tensor:
         """``cache[key][:, ids]``; on a mesh, gathered from the pool's
@@ -1748,7 +1764,7 @@ class ServeEngine:
                 self.cache[key][:, new_ids] = self.cache[key][:, old_ids]
         for key in ("ssm", "conv"):
             if key in self.cache:
-                self.cache[key][:, s2] = self.cache[key][:, s1]
+                self._write_state(key, [s2], self._read_state(key, [s1]))
         self._table_row(s2, new_blocks)
         self.cache["block_tbl"][s1] = -1
         self._release_blocks(old)
@@ -1865,7 +1881,7 @@ class ServeEngine:
                              self._host_copy(self.cache["v"][:, slot, :n]))
         for key in ("ssm", "conv"):
             if key in self.cache:
-                st[key] = self._host_copy(self.cache[key][:, slot])
+                st[key] = self._host_copy(self._read_state(key, [slot])[:, 0])
         return st
 
     def preempt(self, rid: int) -> None:
@@ -1978,7 +1994,7 @@ class ServeEngine:
                 self.cache["v"][:, slot, :n] = v_rows.to(self.device)
         for key in ("ssm", "conv"):
             if key in st:
-                self.cache[key][:, slot] = st[key].to(self.device)
+                self._write_state(key, [slot], st[key][:, None])
         self.free_slots.remove(slot)
         self.slot_len[slot] = st["slot_len"]
         r.slot = int(slot)

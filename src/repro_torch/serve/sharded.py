@@ -13,6 +13,10 @@ cache writes and block reads through it:
   splits) or its kv heads (where those split);
 * a pool piece holds the blocks of the rank's shard (1-D over the model
   axis, or 2-D data-major over ``(data, model)``) or its kv heads;
+* an SSM arch's per-slot state pieces (``ssm``: the rank's heads;
+  ``conv``: the channels of its ``conv_w`` piece) hold the slots of the
+  rank's data shard where the batch splits (:meth:`MeshPieces
+  .write_state`, :meth:`MeshPieces.read_state`);
 * ``pos`` and ``block_tbl`` stay whole on every rank: they are the
   host's per-slot state, rewritten every tick, and the decode step cuts
   the rows it needs (``cache_pspecs`` splits them over data, and the
@@ -134,6 +138,14 @@ class MeshPieces:
             i, n = sharding.shard_index(mesh, spec[2]) if spec[2] \
                 else (0, 1)
             self.s0, self.sn = i * (S // n), S // n
+        # the per-slot SSM states' slots (all of them where the batch
+        # does not split)
+        st = self.cache_specs.get("ssm")
+        self.state_axes = sharding._names(st[1]) if st is not None else ()
+        if st is not None:
+            B = self.cache_shapes["ssm"][1]
+            i, n = sharding.shard_index(mesh, st[1]) if st[1] else (0, 1)
+            self.st0, self.stn = i * (B // n), B // n
 
     def piece_shape(self, shape: Sequence[int], spec: Sequence[Any]
                     ) -> Tuple[int, ...]:
@@ -203,6 +215,37 @@ class MeshPieces:
         dev = t.device
         t[:, torch.as_tensor(loc[mine], device=dev)] = \
             rows[:, torch.as_tensor(mine, device=rows.device)]
+
+    def write_state(self, t: torch.Tensor, slots: Sequence[int],
+                    rows: torch.Tensor) -> None:
+        """``t[:, slot] = rows[:, i]`` for the slots of an SSM state
+        piece (``ssm`` or ``conv``) this rank holds; ``rows`` ``(L, n,
+        ...)`` are the rank's heads or channels of each slot's state."""
+        loc = np.asarray(slots, np.int64) - self.st0
+        mine = np.nonzero((loc >= 0) & (loc < self.stn))[0]
+        if not len(mine):
+            return
+        t[:, torch.as_tensor(loc[mine], device=t.device)] = \
+            rows[:, torch.as_tensor(mine, device=rows.device)].to(t.device)
+
+    def read_state(self, t: torch.Tensor, slots: Sequence[int]
+                   ) -> torch.Tensor:
+        """The ``(L, n, ...)`` rows of ``slots`` of an SSM state piece on
+        every rank of its data shards: each rank puts in the slots it
+        holds, and the ranks the batch splits over add them up (one
+        all-reduce in fp32, exact: every slot is held once)."""
+        loc = np.asarray(slots, np.int64) - self.st0
+        if not self.state_axes:
+            return t[:, torch.as_tensor(loc, device=t.device)]
+        mine = (loc >= 0) & (loc < self.stn)
+        idx = torch.as_tensor(np.where(mine, loc, 0), device=t.device)
+        keep = torch.as_tensor(mine, device=t.device).view(
+            1, -1, *(1,) * (t.dim() - 2))
+        out = torch.where(keep, t[:, idx], torch.zeros(
+            (), dtype=t.dtype, device=t.device)).float()
+        for axis in self.state_axes:
+            dist.all_reduce(out, group=self.mesh.get_group(axis))
+        return out.to(t.dtype)
 
     def read_blocks(self, t: torch.Tensor, ids: Sequence[int]
                     ) -> torch.Tensor:

@@ -31,6 +31,16 @@ qwen3-8b through every placement the plans give it:
   ``moe_gshard_einsum`` (the reference's bulk bar, > 0.9 of outputs
   within 1e-3) and exactly against a plain per-shard routing computed in
   one process;
+* reduced mamba2-2.7b at (1, 2) and (2, 2) (the mixer split over
+  ``model``: its heads, conv channels and ``in_proj`` columns; at (2, 2)
+  the state pieces hold a data shard's slots, and a ``preempt(rid)`` is
+  resumed into another shard's slot), reduced hymba-1.5b at (2, 2)
+  (attention heads and SSM heads split; dense, and paged with the pool
+  split 2-D) and a reduced hybrid of 6 query
+  / 3 kv heads at head_dim 32 with a window, whose (1, 2) plan puts the
+  paged cache on rows as full-width hymba's does (its 13 padded kv heads
+  do not split two ways): tokens against the JAX engine's on one device
+  and the port's unsharded engine's, as the cells above;
 * ``elastic_mesh`` over the world (a ``DeviceMesh`` of the survivors, and
   both typed errors), and the refusals that name ROADMAP item 10b.
 
@@ -60,8 +70,11 @@ def _prompts(vocab, n):
 
 
 def _arch(name="qwen3-8b", kv=0):
+    """The reduced arch; ``kv`` its kv heads, or ``(query, kv)`` heads."""
     from repro_torch.configs import get_arch
     a = get_arch(name).reduced()
+    if isinstance(kv, tuple):
+        return dataclasses.replace(a, n_heads=kv[0], n_kv_heads=kv[1])
     return dataclasses.replace(a, n_kv_heads=kv) if kv else a
 
 
@@ -89,7 +102,16 @@ CELLS = {
     "tp_2x2_dense": (("qwen3-8b", 0), (2, 2), 64, 4,
                      {"kv_residency": "dense"}, 4),
     "moe_1x2": (("granite-moe-1b-a400m", 0), (1, 2), 64, 4, {}, 3),
+    "ssm_1x2": (("mamba2-2.7b", 0), (1, 2), 64, 4, {}, 4),
+    "ssm_2x2": (("mamba2-2.7b", 0), (2, 2), 64, 4, {}, 4),
+    "hybrid_2x2": (("hymba-1.5b", 0), (2, 2), 64, 4,
+                   {"kv_residency": "dense"}, 4),
+    "hybrid_2x2_paged": (("hymba-1.5b", 0), (2, 2), 64, 4, {}, 4),
+    "hybrid_rows": (("hymba-1.5b", (6, 3)), (1, 2), 64, 4, {}, 4),
 }
+
+#: cells whose run preempts a request and resumes it
+PREEMPT = ("ssm_2x2",)
 
 
 def _mesh(cell_mesh):
@@ -102,12 +124,17 @@ def _mesh(cell_mesh):
         "data", "model"]
 
 
-def _run(eng, prompts, n=5, stagger=False):
+def _run(eng, prompts, n=5, stagger=False, preempt=False):
     eng.submit(prompts[0], max_new_tokens=n)
     if stagger:
         eng.step()
     for p in prompts[1:]:
         eng.submit(p, max_new_tokens=n)
+    if preempt:
+        # the first request, parked after its second token and resumed
+        # by a re-prefill into the lowest free slot
+        eng.step()
+        eng.preempt(min(r.rid for r in eng.active.values()))
     done = eng.run_until_idle(max_ticks=64)
     assert len(done) == len(prompts)
     return {r.prompt.tobytes(): list(r.out_tokens) for r in done}
@@ -148,7 +175,7 @@ def _same_pieces(a, b) -> bool:
 
 def _serve_world(rank, world, tmp):
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     from repro_torch.models import lm
     from repro_torch.runtime import fault
@@ -170,8 +197,10 @@ def _serve_world(rank, world, tmp):
              "combine": eng.combine_topology,
              "cache": {k: tuple(v.shape) for k, v in eng.cache.items()},
              "groups": eng.pool_groups, "n_blocks": eng.n_blocks,
-             "tokens": _run(eng, prompts, stagger=True),
-             "fractions": _leaf_fractions(eng)}
+             "tokens": _run(eng, prompts, stagger=True,
+                            preempt=cell in PREEMPT),
+             "fractions": _leaf_fractions(eng),
+             "preemptions": eng.preemptions}
         if eng.kv_residency == "paged":
             st = eng.block_stats()
             r["pool_whole"] = st["free"] == st["total"]
@@ -215,13 +244,40 @@ def _serve_world(rank, world, tmp):
         except RuntimeError as e:
             res[f"elastic_{n}"] = str(e)
     # what a mesh does not serve yet
+    arch = _arch()
+    plan = _plan(arch, (1, 2), 64, 4)
+    params = _params(arch, plan)
+    for what, kw in (("host_tier", {"kv_host_blocks": 8}),
+                     ("disagg", {"kv_prefill_mode": "disagg",
+                                 "disagg_workers": 1})):
+        try:
+            ServeEngine.from_plan(plan, params, arch=arch, mesh=_mesh((1, 2)),
+                                  **kw)
+        except NotImplementedError as e:
+            res[f"{what}_refused"] = str(e)
+    # several data axes, and a cache split on its head_dim
+    pod = DeviceMesh("cpu", torch.arange(8).reshape(2, 2, 2),
+                     mesh_dim_names=("pod", "data", "model"))
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.pipeline import specialize
+    pplan = specialize(arch, ShapeConfig("serve_mesh_t", "decode", 64, 8),
+                       mesh_axes=("pod", "data", "model"),
+                       mesh_shape=(2, 2, 2), cache=False)
     try:
-        mam = _arch("mamba2-2.7b")
-        mplan = _plan(mam, (1, 2), 64, 4)
-        ServeEngine.from_plan(mplan, _params(mam, mplan), arch=mam,
+        ServeEngine.from_plan(pplan, _params(arch, pplan), arch=arch,
+                              mesh=pod)
+    except NotImplementedError as e:
+        res["data_axes_refused"] = str(e)
+    dplan = _plan(arch, (1, 2), 64, 4, kv_residency="dense")
+    hd = {k: dataclasses.replace(dplan.placements[k],
+                                 spec=(None, None, None, None, "model"))
+          for k in ("cache.k", "cache.v")}
+    dplan = dataclasses.replace(dplan, placements={**dplan.placements, **hd})
+    try:
+        ServeEngine.from_plan(dplan, _params(arch, dplan), arch=arch,
                               mesh=_mesh((1, 2)))
     except NotImplementedError as e:
-        res["ssm_refused"] = str(e)
+        res["head_dim_refused"] = str(e)
     torch.save(res, os.path.join(tmp, f"r{rank}.pt"))
     dist.destroy_process_group()
 
@@ -249,7 +305,9 @@ class Tokens(list):
 
 for cell, (name, kv, mesh, seq, batch, kw, n) in {cells!r}.items():
     arch = get_arch(name).reduced()
-    if kv:
+    if isinstance(kv, tuple):
+        arch = dataclasses.replace(arch, n_heads=kv[0], n_kv_heads=kv[1])
+    elif kv:
         arch = dataclasses.replace(arch, n_kv_heads=kv)
     plan = specialize(arch, ShapeConfig("serve_mesh_t", "decode", seq, batch),
                       mesh_axes=("data", "model"), mesh_shape=mesh,
@@ -426,7 +484,9 @@ def test_shard_map_flash_serves_and_matches_sequential(world, cell):
 
 
 @pytest.mark.parametrize("cell", ["tp_1x2", "tp_2x2", "tp_2x2_dense",
-                                  "moe_1x2"])
+                                  "moe_1x2", "ssm_1x2", "ssm_2x2",
+                                  "hybrid_2x2", "hybrid_2x2_paged",
+                                  "hybrid_rows"])
 def test_tensor_parallel_engine_matches_the_unsharded_one(world, cell):
     from repro_torch.serve.engine import ServeEngine
     ranks, ref, models, _ = world
@@ -435,17 +495,35 @@ def test_tensor_parallel_engine_matches_the_unsharded_one(world, cell):
     r0 = ranks[0][cell]
     dsize, msize = mesh
     _same_on_every_rank(ranks, cell)
-    if cell == "tp_2x2":
+    if cell in ("tp_2x2", "hybrid_2x2_paged"):
         # the pool splits 2-D: one sub-pool a data shard
         assert r0["path"] == "shard_map_flash_paged_2d"
         assert r0["groups"] == dsize
         assert r0["cache"]["k"][1] == r0["n_blocks"] // (dsize * msize)
+    elif cell.startswith("ssm"):
+        assert r0["path"] == "ssm_recurrence:cpu"
+    elif cell == "hybrid_rows":
+        # 3 kv heads do not split two ways: the pool splits by blocks
+        assert r0["path"] == "shard_map_flash" and r0["split"] == "rows"
+        assert r0["cache"]["k"][1] == r0["n_blocks"] // msize
+        assert r0["cache"]["k"][3] == 3
     else:
         assert r0["split"] == "heads"
         assert r0["path"].split(":")[0] in ("paged_decode_attention",
                                             "decode_attention")
     if cell == "tp_2x2_dense":
         assert r0["cache"]["k"][1] == batch // dsize
+    if arch.has_ssm:
+        # the SSM state on the rank's heads, the conv window on its
+        # channels, the slots of its data shard
+        H, P, N = arch.ssm_heads, arch.ssm_head_dim, arch.ssm_state
+        C = H * P + 2 * arch.ssm_n_groups * N
+        assert r0["cache"]["ssm"] == (arch.n_layers, batch // dsize,
+                                      H // msize, P, N)
+        assert r0["cache"]["conv"] == (arch.n_layers, batch // dsize,
+                                       arch.ssm_conv, C // msize)
+    assert r0["preemptions"] == (1 if cell in CELLS and cell in PREEMPT
+                                 else 0)
     split = 0
     for path, local_times_n, whole, n_split in r0["fractions"]:
         assert local_times_n == whole, path
@@ -460,6 +538,8 @@ def test_tensor_parallel_engine_matches_the_unsharded_one(world, cell):
     assert one.padded_sizes() == plan.padded_sizes()
     eng = ServeEngine.from_plan(one, params, arch=arch, max_batch=batch)
     want = _run(eng, prompts, stagger=True)
+    assert eng.decode_path.split(":")[0] != r0["path"].split(":")[0] \
+        or not arch.has_attention or r0["split"] == "heads"
     compared = 0
     for p, toks in want.items():
         prompt = np.frombuffer(p, np.int32)
@@ -502,8 +582,18 @@ def test_elastic_mesh_is_a_device_mesh_of_the_survivors(world):
 
 
 def test_what_a_mesh_does_not_serve_names_item_10b(world):
+    """What stays refused on a mesh: the host tier, disaggregated
+    prefill workers, several data axes and a cache split on its
+    head_dim (SSM and hybrid archs serve: the cells above)."""
     ranks, _, _, _ = world
-    assert "ROADMAP item 10b" in ranks[0]["ssm_refused"]
+    assert "ROADMAP item 10b" in ranks[0]["host_tier_refused"]
+    assert "host tier" in ranks[0]["host_tier_refused"]
+    assert "ROADMAP item 10b" in ranks[0]["disagg_refused"]
+    assert "disaggregated prefill" in ranks[0]["disagg_refused"]
+    assert "ROADMAP item 10b" in ranks[0]["data_axes_refused"]
+    assert "data axes" in ranks[0]["data_axes_refused"]
+    assert "ROADMAP item 10b" in ranks[0]["head_dim_refused"]
+    assert "head_dim" in ranks[0]["head_dim_refused"]
 
 
 def test_launcher_serves_on_a_mesh_under_torchrun():

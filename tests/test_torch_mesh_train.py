@@ -18,7 +18,13 @@ replica 0's results are read, every replica's must agree).  The cells:
   data slices count different tokens (the global-mean rule);
 * reduced granite-moe-1b-a400m on (2, 1) (the aux loss over the whole
   batch) and (1, 2) (experts over ``model``);
-* reduced mamba2-2.7b on (2, 1).
+* reduced mamba2-2.7b on (2, 1) and (2, 2) (``megatron_tp``: the mixer
+  split over ``model``, its ``in_proj`` product and conv output
+  regrouped onto the rank's heads), reduced hymba-1.5b on (2, 2)
+  (``megatron_tp``: attention and SSM heads split) and (1, 2)
+  (``fsdp_dp``), and a mamba2 whose 3 SSM heads of 128 do not divide
+  the model axis (the layout pass pads them to 4, as
+  ``src/repro/core/passes/layout.py:104-111`` does).
 
 Each runs two steps of ``lower_train_step(mesh=)`` from the reference's
 weights (cut into the rank's pieces) on the reference's synthetic
@@ -75,11 +81,37 @@ CELLS = {
     "wire21": ("qwen3-8b", (2, 1), {"grad_compression": "on"}, None),
     "q12rs": ("qwen3-8b", (1, 2), {}, None),
     "q22ci": ("qwen3-8b", (2, 2), {}, None),
+    "m22": ("mamba2-2.7b", (2, 2), {}, None),
+    "h22": ("hymba-1.5b", (2, 2), {}, None),
+    "h12": ("hymba-1.5b", (1, 2), {}, None),
+    "m22pad": ("mamba2-2.7b", (2, 2), {}, "ssm_pad"),
+    "m22ci": ("mamba2-2.7b", (2, 2), {}, None),
 }
 
 #: planted faults, each a cell run with one collective broken; the
 #: parity test's update check must fail them
-FAULTS = {"q12rs": "reduce_scatter", "q22ci": "copy_in"}
+FAULTS = {"q12rs": "reduce_scatter", "q22ci": "copy_in",
+          "m22ci": "ssm_copy_in"}
+
+#: variants that change the arch itself (both packages' plans and
+#: weights follow it): 3 SSM heads of 128, which the layout pass pads
+#: to a multiple of the model axis
+ARCH_VARIANTS = {"ssm_pad": dict(ssm_expand=3, ssm_head_dim=128)}
+
+
+def _arch_of(cell, get_arch):
+    """The cell's reduced arch (``get_arch`` either package's)."""
+    name, _, _, variant = CELLS[cell]
+    arch = get_arch(name).reduced()
+    if variant in ARCH_VARIANTS:
+        arch = dataclasses.replace(arch, **ARCH_VARIANTS[variant])
+    return arch
+
+
+def _wkey(cell) -> str:
+    """The name the cell's weights and batches are kept under."""
+    name, _, _, variant = CELLS[cell]
+    return f"{name}_{variant}" if variant in ARCH_VARIANTS else name
 
 
 def _opt_kw():
@@ -113,7 +145,7 @@ def _tplan(cell, **over):
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core.pipeline import specialize
     name, mesh, kw, variant = CELLS[cell]
-    arch = get_arch(name).reduced()
+    arch = _arch_of(cell, get_arch)
     plan = specialize(arch, ShapeConfig(**QUICK), mesh_axes=("data", "model"),
                       mesh_shape=over.pop("mesh", mesh), target="tpu-v5e",
                       cache=False, **{**kw, **over})
@@ -167,13 +199,24 @@ def _same(a, b) -> bool:
 def _planted(fault):
     """The cell's planted fault: the FSDP reduce-scatter handing each
     rank its neighbour's piece of the summed gradient (the norm is
-    kept), or ``tp.copy_in`` without its backward all-reduce."""
+    kept), ``tp.copy_in`` without its backward all-reduce, or the SSM
+    regroup's ``copy_in`` alone dropped (``models.ssm._regroup_in``:
+    the gathered ``in_proj`` product and conv output cut into the
+    rank's heads without summing the cuts' gradients)."""
     import torch.distributed as dist
 
     from repro_torch.dist import fsdp
-    from repro_torch.models import tp
+    from repro_torch.models import ssm, tp
     if fault is None:
         yield
+        return
+    if fault == "ssm_copy_in":
+        keep = ssm._regroup_in
+        ssm._regroup_in = lambda t, c: t
+        try:
+            yield
+        finally:
+            ssm._regroup_in = keep
         return
     name, keep = {"reduce_scatter": ("_reduce_scatter0",
                                      fsdp._reduce_scatter0),
@@ -222,13 +265,13 @@ def _run_cell(cell, tmp, steps=STEPS, record_psum=False, **over):
             return mean, err
         collectives.compressed_psum = recording
     step = lower_train_step(plan, arch, tshape, mesh, opt_cfg)
-    params = _trainable(_pieces_of(torch.load(Path(tmp) / f"{name}.pt"),
+    params = _trainable(_pieces_of(torch.load(Path(tmp) / f"{_wkey(cell)}.pt"),
                                    step.layout))
     opt = adamw.init_opt_state(params, opt_cfg)
     if step.ef:
         opt["ef"] = ef_state(params)
     state = {"params": params, "opt": opt}
-    batches = torch.load(Path(tmp) / f"{name}_batches.pt",
+    batches = torch.load(Path(tmp) / f"{_wkey(cell)}_batches.pt",
                          weights_only=False)
     hist = []
     try:
@@ -331,15 +374,30 @@ def _extras(tmp):
     out["norm"] = (float(adamw.global_norm(
         _pieces_of(tree, tr12.step_def.layout), pcs)),
         float(adamw.global_norm(tree)))
+    # a hybrid's checkpoint on (2, 2) (``megatron_tp``: SSM pieces)
+    hy = get_arch("hymba-1.5b").reduced()
+    hplan = specialize(hy, tshape, mesh_axes=("data", "model"),
+                       mesh_shape=(2, 2), target="tpu-v5e", cache=False)
+    ckh = Path(tmp) / f"ckh_{_rep((2, 2))}"
+    trh = Trainer(hplan, _mesh((2, 2)), TrainerConfig(
+        n_steps=2, ckpt_every=2, ckpt_dir=str(ckh), log_every=100),
+        opt_cfg=adamw.OptConfig.from_plan(hplan, **_opt_kw()), arch=hy,
+        shape=tshape, device="cpu")
+    sth, _ = trh.fit()
+    out["ckh_whole"] = whole_state(sth, trh.step_def)
+    out["ckh_strategy"] = hplan.estimates.get("strategy")
+    dist.barrier()
+    hplan12 = specialize(hy, tshape, mesh_axes=("data", "model"),
+                         mesh_shape=(1, 2), target="tpu-v5e", cache=False)
+    trh12 = Trainer(hplan12, m12, TrainerConfig(
+        ckpt_dir=str(Path(tmp) / f"ckh_{_rep((1, 2)) % 2}")),
+        opt_cfg=adamw.OptConfig.from_plan(hplan12, **_opt_kw()), arch=hy,
+        shape=tshape, device="cpu")
+    sth12, steph12 = trh12.resume()
+    out["ckh_resume12"] = (whole_state(sth12, trh12.step_def), steph12,
+                           hplan12.estimates.get("strategy"))
     # what stays refused names ROADMAP item 10b
     refused = {}
-    mam = get_arch("mamba2-2.7b").reduced()
-    mplan = specialize(mam, tshape, mesh_axes=("data", "model"),
-                       mesh_shape=(2, 2), target="tpu-v5e", cache=False)
-    try:
-        Trainer(mplan, _mesh((2, 2)), arch=mam, shape=tshape, device="cpu")
-    except NotImplementedError as e:
-        refused["ssm_on_model"] = (str(e), mplan.estimates.get("strategy"))
     pod = _mesh((2, 2, 2), ("pod", "data", "model"))
     pplan = specialize(arch, tshape, mesh_axes=("pod", "data", "model"),
                        mesh_shape=(2, 2, 2), target="tpu-v5e", cache=False)
@@ -354,7 +412,56 @@ def _extras(tmp):
         refused["wire_over_fsdp"] = str(e)
     out["refused"] = refused
     out["codes"] = _codes_on_pieces()
+    out["keeps"] = {n: _saved_on_pieces(n, m12)
+                    for n in ("mamba2-2.7b", "hymba-1.5b")}
     return out
+
+
+def _saved_on_pieces(name, mesh):
+    """``(bytes autograd keeps for one layer on this rank's pieces of
+    the (2, 2) ``megatron_tp`` plan's model split, the per-rank estimate
+    of them)`` on the (1, 2) ``mesh``: 2 x 64 tokens, the SSD chunk 16,
+    as ``tests/test_torch_plan.py``'s one-card check counts them (the
+    storages the saved-tensor hooks see, alive while the output is)."""
+    import weakref
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import costmodel
+    from repro_torch.core.passes.lowering import lower_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    arch = get_arch(name).reduced()
+    _, plan = _tplan("m22" if name.startswith("mamba") else "h22")
+    step = lower_train_step(plan, arch, ShapeConfig(**QUICK), mesh)
+    whole = lm.init_params(arch, torch.Generator().manual_seed(0),
+                           *plan.padded_sizes())
+    params = _trainable(_pieces_of(whole, step.layout))
+    owned = {t.untyped_storage().data_ptr() for t in adamw.leaves(params)}
+    B, S = 2, 64
+    x = torch.randn(B, S, arch.d_model).to(torch.bfloat16).requires_grad_()
+    positions = torch.arange(S).expand(B, S)
+    owned.add(positions.untyped_storage().data_ptr())
+    seen = []
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in owned:
+            seen.append((st.data_ptr(), st.nbytes(), weakref.ref(t)))
+        return t
+    cfg = dataclasses.replace(step.cfg, ssd_chunk=16)
+    grp = lm.layer_groups(arch, params["blocks"])[0]
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y = lm._group_fwd(arch, cfg, grp, x, positions, (0, 0))
+    got = sum({p: n for p, n, ref in seen if ref() is not None}.values())
+    del y
+    m = 2
+    C = arch.d_inner + 2 * arch.ssm_n_groups * arch.ssm_state
+    want = costmodel.eager_layer_saved_bytes(
+        arch, B * S, max(arch.n_heads // m, 1), max(arch.n_kv_heads // m, 1),
+        "none", seqs=B, ffn=costmodel.layer_group_ffns(arch)[0],
+        ssd_chunk=16, ff_shards=m, ssm_heads=arch.ssm_heads // m,
+        conv_channels=C // m)
+    return got, want
 
 
 def _codes_on_pieces():
@@ -458,14 +565,15 @@ def _ref_cell(cell, batches, rparams, steps=STEPS):
     from repro.dist.collectives import ef_state as ref_state
     from repro.optim import adamw as radamw
     name, mesh, kw, variant = CELLS[cell]
-    rarch = rget_arch(name).reduced()
+    rarch = _arch_of(cell, rget_arch)
     rplan = rspecialize(rarch, RShape(**QUICK), mesh_axes=("data", "model"),
                         mesh_shape=mesh, cache=False, **kw)
     _, tplan = _tplan(cell)
-    if variant is None:
+    if variant is None or variant in ARCH_VARIANTS:
         assert rplan.content_hash() == tplan.content_hash()
     rplan = _variant(rplan, variant)
-    key = (name, rplan.comm.microbatches, tuple(sorted(rplan.opt.items())),
+    key = (_wkey(cell), rplan.comm.microbatches,
+           tuple(sorted(rplan.opt.items())),
            rplan.comm.compresses_gradients, variant == "mask")
     if key in _REF:
         return (*_REF[key], tplan, rplan)
@@ -576,20 +684,20 @@ def world(tmp_path_factory):
     from repro_torch.models import convert
     tmp = tmp_path_factory.mktemp("mesh_train")
     refs = {}
-    for name in {c[0] for c in CELLS.values()}:
-        rarch = rget_arch(name).reduced()
-        _, tplan = _tplan(next(c for c, v in CELLS.items() if v[0] == name))
+    from repro_torch.configs import get_arch
+    for key in {_wkey(c) for c in CELLS}:
+        cell = next(c for c in CELLS if _wkey(c) == key)
+        rarch = _arch_of(cell, rget_arch)
+        _, tplan = _tplan(cell)
         rparams = rlm.init_params(rarch, jax.random.PRNGKey(0),
                                   *tplan.padded_sizes())
         npp = jax.tree.map(np.asarray, rparams)
-        from repro_torch.configs import get_arch
         torch.save(convert.params_from_numpy(
-            get_arch(name).reduced(), npp, device="cpu"),
-            tmp / f"{name}.pt")
+            _arch_of(cell, get_arch), npp, device="cpu"), tmp / f"{key}.pt")
         src = RSource(rarch, RShape(**QUICK), seed=0)
         batches = [src.batch_at(t) for t in range(4)]
-        torch.save(batches, tmp / f"{name}_batches.pt")
-        refs[name] = (rparams, batches)
+        torch.save(batches, tmp / f"{key}_batches.pt")
+        refs[key] = (rparams, batches)
     mp.start_processes(_world, args=(8, str(tmp)), nprocs=8,
                        start_method="spawn")
     ranks = [torch.load(tmp / f"r{r}.pt", weights_only=False)
@@ -663,7 +771,7 @@ def _cell_ranks(ranks, cell):
 
 
 PARITY = ["q11", "q21", "q22", "q12", "q24", "q12on", "spill21", "mask21",
-          "g21", "g12", "m21"]
+          "g21", "g12", "m21", "m22", "h22", "h12", "m22pad"]
 
 #: the update check: each leaf's change over the two steps against the
 #: reference's, as a norm relative to the norm of the reference's change
@@ -689,7 +797,7 @@ def _update_errs(world, cell):
     step already parts from the reference held against that step)."""
     ranks, refs, _ = world
     name = CELLS[cell][0]
-    rparams, batches = refs[name]
+    rparams, batches = refs[_wkey(cell)]
     _, wparams, _, _ = _ref_cell(cell, batches, rparams)
     mine = _cell_ranks(ranks, cell)
     got = _rflat(mine[0]["master"] if mine[0]["master"] is not None
@@ -715,7 +823,7 @@ def _update_errs(world, cell):
 def test_mesh_step_matches_the_reference_one_device_step(world, cell):
     ranks, refs, _ = world
     name, mesh, _, variant = CELLS[cell]
-    rparams, batches = refs[name]
+    rparams, batches = refs[_wkey(cell)]
     want, _, tplan, rplan = _ref_cell(cell, batches, rparams)
     mine = _cell_ranks(ranks, cell)
     print(cell, mine[0]["strategy"], "microbatches", mine[0]["micro"],
@@ -739,14 +847,21 @@ def test_mesh_step_matches_the_reference_one_device_step(world, cell):
         assert mine[0]["fsdp"] and mine[0]["strategy"] == "megatron_tp"
     if cell in ("q21", "q22", "g21", "m21"):
         assert mine[0]["micro"] == 2
+    if cell in ("m22", "h22", "m22pad"):
+        assert mine[0]["strategy"] == "megatron_tp" and not mine[0]["fsdp"]
+    if cell == "h12":
+        assert mine[0]["strategy"] == "fsdp_dp" and mine[0]["fsdp"]
+    if cell == "m22pad":            # 3 SSM heads padded to 4
+        assert tplan.padded_sizes()[2] == 4
 
 
 @pytest.mark.parametrize("cell", sorted(FAULTS))
 def test_the_update_check_fails_a_planted_fault(world, cell):
     """The FSDP reduce-scatter handing each rank its neighbour's piece
-    (``fsdp_dp`` on (1, 2): the gradient norm is kept) and ``copy_in``
-    without its backward all-reduce (``megatron_tp`` on (2, 2)): the
-    update check fails each by more than four times its bar."""
+    (``fsdp_dp`` on (1, 2): the gradient norm is kept), ``copy_in``
+    without its backward all-reduce (``megatron_tp`` on (2, 2)) and the
+    SSM regroup's ``copy_in`` dropped (mamba2, ``megatron_tp`` on (2,
+    2)): the update check fails each by more than four times its bar."""
     errs = _update_errs(world, cell)
     worst = max(d for _, d in errs.values())
     print(cell, FAULTS[cell], "worst update error", worst,
@@ -900,6 +1015,57 @@ def test_checkpoint_on_2x1_resumes_on_1x2_and_1x1(world):
     assert np.isfinite(tr.history[-1]["loss"])
 
 
+def test_hybrid_checkpoint_on_2x2_resumes_on_1x1(world):
+    """hymba's checkpoint saved on (2, 2) (``megatron_tp``: its SSM and
+    attention leaves split over ``model``) holds whole leaves: one card
+    resumes it at step 2 with exactly those parameters and moments, and
+    trains on; (1, 2) resumes it too."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core.pipeline import specialize
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    ranks, _, tmp = world
+    saved = ranks[0]["ckh_whole"]
+    assert ranks[0]["ckh_strategy"] == "megatron_tp"
+    arch = get_arch("hymba-1.5b").reduced()
+    tshape = ShapeConfig(**QUICK)
+    plan = specialize(arch, tshape, mesh_axes=("data", "model"),
+                      mesh_shape=(1, 1), target="tpu-v5e", cache=False)
+    tr = Trainer(plan, None, TrainerConfig(ckpt_dir=str(tmp / "ckh_0")),
+                 opt_cfg=adamw.OptConfig.from_plan(plan, **_opt_kw()),
+                 arch=arch, shape=tshape, device="cpu")
+    st, step = tr.resume()
+    assert step == 2
+    ssm = _flat(saved["params"])["blocks/ssm/in_proj"]
+    assert ssm.shape[-1] == 2 * arch.d_inner + 2 * arch.ssm_state \
+        + arch.ssm_heads
+    assert _same({k: v.detach() for k, v in _flat(st["params"]).items()},
+                 _flat(saved["params"]))
+    for key in ("m", "v"):
+        assert _same(st["opt"][key], saved["opt"][key])
+    st, _ = tr.fit(st, n_steps=3, start_step=2)
+    assert np.isfinite(tr.history[-1]["loss"])
+    # (1, 2), ``fsdp_dp``: its pieces gathered are the saved leaves
+    whole12, step12, strategy12 = ranks[0]["ckh_resume12"]
+    assert step12 == 2 and strategy12 == "fsdp_dp"
+    assert _same(whole12["params"], saved["params"])
+    for key in ("m", "v"):
+        assert _same(whole12["opt"][key], saved["opt"][key])
+
+
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "hymba-1.5b"])
+def test_rank_estimate_is_what_autograd_keeps_on_ssm_pieces(world, name):
+    """The per-rank saved-bytes term of the step-peak estimate for a
+    layer whose mixer is split over two model ranks (the rank's heads,
+    conv channels and regrouped cuts: ``costmodel._ssm_saved_bytes``
+    with ``heads`` / ``conv_channels``; hymba's attention heads too)
+    against what PyTorch keeps on each rank, byte for byte."""
+    ranks, _, _ = world
+    for r in ranks:
+        got, want = r["keeps"][name]
+        assert got == want, (name, got, want)
+
+
 def test_pieces_norm_and_every_plan_runs(world):
     ranks, _, _ = world
     r0 = ranks[0]
@@ -951,21 +1117,25 @@ class _FakeMesh:
 
 
 def test_what_stays_refused_names_item_10b(world):
+    """What training on a mesh still refuses: several data axes, and,
+    with the reference's reason, the wire over FSDP leaves (SSM and
+    hybrid archs train: the cells above)."""
     refused = world[0][0]["refused"]
-    msg, strategy = refused["ssm_on_model"]
-    assert strategy == "megatron_tp"
-    assert "ROADMAP item 10b" in msg and "SSM" in msg
+    assert set(refused) == {"two_data_axes", "wire_over_fsdp"}
     assert "ROADMAP item 10b" in refused["two_data_axes"]
+    assert "data axes" in refused["two_data_axes"]
     assert "P(dp, *pspec)" in refused["wire_over_fsdp"]
 
 
-@pytest.mark.parametrize("launcher", ["train", "serve", "train_mp"])
+@pytest.mark.parametrize("launcher", ["train", "serve", "train_mp",
+                                      "serve_hybrid"])
 def test_launchers_take_a_mesh_under_torchrun(launcher):
     """Both launchers' ``--mesh 1x2 --device cpu`` (and the train
     launcher's ``--model-parallel 2``, the reference's flag) under
     ``torchrun --standalone`` on two gloo ranks, through the shared
     ``launch.mesh.init_mesh``: rank 0 reports the (1, 2) plan and the
-    run's end."""
+    run's end (reduced hymba-1.5b too: its attention and SSM heads
+    split over the two ranks)."""
     import subprocess
     import sys
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
@@ -976,14 +1146,18 @@ def test_launchers_take_a_mesh_under_torchrun(launcher):
                          "--batch", "4"],
             "serve": ["repro_torch.launch.serve", "--mesh", "1x2",
                       "--requests", "2", "--new-tokens", "3",
-                      "--max-len", "64", "--max-batch", "2"]}[launcher]
+                      "--max-len", "64", "--max-batch", "2"],
+            "serve_hybrid": ["repro_torch.launch.serve", "--arch",
+                             "hymba-1.5b", "--mesh", "1x2", "--requests",
+                             "2", "--new-tokens", "3", "--max-len", "64",
+                             "--max-batch", "2"]}[launcher]
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", *args, "--device", "cpu"],
         capture_output=True, text=True, env=env, timeout=240)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "mesh=(1, 2)" in out.stdout
-    if launcher == "serve":
+    if launcher.startswith("serve"):
         assert out.stdout.count("served 2 requests, 6 tokens") == 1
     else:
         assert out.stdout.count("trained 2 steps") == 1

@@ -546,15 +546,25 @@ def test_what_a_mesh_still_refuses(case):
     """What training on a mesh does not do yet raises before any weight,
     naming ROADMAP item 10b (the wire over an FSDP split with the
     reference's own reason); a mesh built for CUDA never trains on the
-    CPU."""
+    CPU.  An SSM arch whose mixer ``megatron_tp`` splits over ``model``
+    is no longer refused: its SSM leaves are tensor-parallel pieces
+    (split over ``model``, no FSDP gather, gradients summed over
+    ``data``)."""
     from repro_torch.core.passes.lowering import mesh_refusals
     qwen = tget_arch("qwen3-8b").reduced()
     if case == "ssm_on_model":
         mam = tget_arch("mamba2-2.7b").reduced()
         plan = _mesh_plan(mam, (2, 2))
         assert plan.estimates["strategy"] == "megatron_tp"
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
-            mesh_refusals(plan, mam, _Mesh((2, 2)))
+        layout = mesh_refusals(plan, mam, _Mesh((2, 2)))
+        places = layout.places["blocks"]["ssm"]
+        assert set(places) == {"in_proj", "conv_w", "conv_b", "A_log", "D",
+                               "dt_bias", "norm", "out_proj"}
+        for name, pl in places.items():
+            assert pl.split_axes == ("model",), name
+            assert pl.gather is None and pl.reduce_axes == ("data",), name
+        assert layout.piece_shape(places["A_log"]) == (
+            mam.n_layers, mam.ssm_heads // 2)
     elif case == "two_data_axes":
         plan = tspecialize(qwen, TShape(**dict(QUICK, seq_len=64,
                                                global_batch=8)),
