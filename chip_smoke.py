@@ -267,6 +267,19 @@ Phases (any failure exits non-zero before the last line):
    target); (d)
    mamba2 trained on its (1, 2) ``fsdp_dp`` plan at the depth that fits,
    losses against one rank;
+24d. the paged plan as frozen on two ranks of the one card over gloo
+   (:func:`mesh_tier_phase`): (a) full-width, full-depth qwen3-8b's
+   (2, 1) grant plan with its host tier (each rank a whole copy), its
+   pool cut to 8 blocks, a burst that walks spill, promote, a park with
+   a staged prefetch and the migrate rung between the data shards'
+   sub-pools, K8 in every decode tick, against the one-rank engine with
+   ``kv_pool_groups=2`` (every counter equal, tokens by the full-depth
+   margin rule); (b) the (1, 2) 4096 x 8 plan that writes ``disagg``
+   (4 prompts of 1,024-1,600 tokens): one prefill worker owned by rank
+   0 on the whole weights it gathers from the ranks' pieces, SIGKILLed
+   mid-flight and resumed on both ranks in the same tick, its chunks
+   broadcast to both ranks as host tensors, tokens against the inline
+   mesh engine's by the margin rule;
 25. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
@@ -275,9 +288,10 @@ name and power limit.
 Run from the repository root:  python3 chip_smoke.py
 
 ``--only flash_bwd`` (``flash_pos``, ``ssd_bwd``, ``matmul_fp32``,
-``mesh``, ``mesh_train``, ``ssm_mesh``) runs the flash backward's (the
-positions variant's, the SSD scan backward's, the fp32 tiled matmul's,
-phases 2b and 24's, phase 24b's, phase 24c's) check and timings alone
+``mesh``, ``mesh_train``, ``ssm_mesh``, ``mesh_tier``) runs the flash
+backward's (the positions variant's, the SSD scan backward's, the fp32
+tiled matmul's, phases 2b and 24's, phase 24b's, phase 24c's, phase
+24d's) check and timings alone
 (:func:`flash_bwd_check`, :func:`flash_pos_check`, :func:`ssd_bwd_check`,
 :func:`matmul_fp32_check`) and prints its result as one JSON line.
 ``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
@@ -6772,11 +6786,515 @@ def ssm_mesh_phase(torch, dev):
     return launches, res
 
 
+# ---------------------------------------------------------------------
+# phase 24d: the paged plan as frozen on two ranks of the one card: the
+# host tier, migration between the data shards' sub-pools, disaggregated
+# prefill into a sharded pool
+# ---------------------------------------------------------------------
+
+#: (a)'s plan: qwen3-8b's (2, 1) ``h100-sxm`` decode 2048 x 8 plan, which
+#: writes grant admission and a host tier (256 blocks of 256 rows) itself;
+#: its pool is cut to :data:`TIER_BLOCKS` (4 a data shard's sub-pool) so
+#: the burst walks the ladder: the one override of the plan, named
+TIER_SHAPE = ("serve_h100", "decode", 2048, 8)
+TIER_BLOCKS = 8
+#: (a)'s waves (prompt lengths; the last wave's prompt opens with the
+#: first prompt of the first), tokens a request, and the park's backoff
+TIER_WAVES = ((512, 512), (700, 700, 700), (612,))
+TIER_NEW, TIER_BACKOFF = 8, 2
+#: the counters (a) holds equal to the one-rank engine's
+TIER_COUNTERS = ("preemptions", "migrations", "grant_denials", "shed",
+                 "parked", "spills", "promotes", "prefix_hits",
+                 "prefix_rides", "cow_copies", "parks_with_state", "resumes",
+                 "resumes_by_promote", "prefetch_staged",
+                 "prefetch_consumed")
+#: (b)'s plan: the (1, 2) decode 4096 x 8 plan, which writes disagg
+#: (chunks of 512), with prompts and tokens a request
+MESH_DISAGG_SHAPE = ("serve_h100_4k", "decode", 4096, 8)
+MESH_DISAGG_REQUESTS, MESH_DISAGG_NEW = 4, 8
+MESH_DISAGG_LENS = (1024, 1600)
+
+
+def _tier_prompts(arch):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 31)
+    waves = [[rng.integers(0, arch.vocab_size, n).astype(np.int32)
+              for n in lens] for lens in TIER_WAVES[:2]]
+    first = waves[0][0]
+    waves.append([np.concatenate([first, rng.integers(
+        0, arch.vocab_size, TIER_WAVES[2][0] - len(first))]).astype(
+            np.int32)])
+    return waves
+
+
+def tier_plan():
+    """(a)'s ``(arch, (2, 1) plan cut to TIER_BLOCKS blocks)``."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    arch = get_arch("qwen3-8b")
+    plan = specialize(arch, ShapeConfig(*TIER_SHAPE),
+                      mesh_axes=("data", "model"), mesh_shape=(2, 1),
+                      target="h100-sxm", cache=False)
+    return arch, dataclasses.replace(plan, estimates={
+        **plan.estimates, "kv_n_blocks": TIER_BLOCKS})
+
+
+def tier_burst(eng):
+    """(a) on either engine: the waves in turn, each run out; two ticks
+    into the second wave the request with the most output is parked with
+    state (its rows staged the tick before its resume)."""
+    waves = _tier_prompts(eng.arch)
+    for w, prompts in enumerate(waves):
+        for p in prompts:
+            eng.submit(p, max_new_tokens=TIER_NEW)
+        if w == 1:
+            for _ in range(2):
+                eng.step()
+            eng.preempt(max(eng.active.values(), key=lambda r: (
+                len(r.out_tokens), -r.rid)).rid)
+        eng.run_until_idle(max_ticks=4096)
+    return eng
+
+
+def _mesh_tier_engine(torch, dev, mesh):
+    """(a) on one rank: the (2, 1) grant engine of full-width qwen3-8b
+    (each rank the whole weights, its data shard's sub-pool, a whole copy
+    of the host tier) through :func:`tier_burst`."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import PreemptionPolicy, ServeEngine
+    from repro_torch.serve.sharded import param_pieces
+    arch, plan = tier_plan()
+    params = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                            *plan.padded_sizes(),
+                            pieces=param_pieces(mesh, plan, arch))
+    eng = ServeEngine.from_plan(
+        plan, params, arch=arch, mesh=mesh, seed=SEED,
+        preemption=PreemptionPolicy(backoff_base_ticks=TIER_BACKOFF))
+    del params
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tier_burst(eng)
+    torch.cuda.synchronize()
+    ps = eng.pressure_stats()
+    out = {"launches": ops.launch_counts(), "s": time.perf_counter() - t0,
+           "path": eng.decode_path, "split": eng.cfg.kv_split,
+           "groups": eng.pool_groups, "n_blocks": eng.n_blocks,
+           "host_blocks": eng.host_blocks,
+           "host_shape": tuple(eng._host["k"].shape),
+           "pool_shape": tuple(eng.cache["k"].shape),
+           "counters": {k: ps[k] for k in TIER_COUNTERS},
+           "prefill_calls": eng.prefill_calls, "ticks": eng.tick,
+           "tier_ms": dict(eng.tier_ms),
+           "tokens": {r.rid: list(r.out_tokens) for r in eng.finished}}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_disagg_prompts(arch):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 30)
+    return [rng.integers(0, arch.vocab_size, int(n)).astype(np.int32)
+            for n in rng.integers(MESH_DISAGG_LENS[0],
+                                  MESH_DISAGG_LENS[1] + 1,
+                                  MESH_DISAGG_REQUESTS)]
+
+
+def _mesh_disagg_runs(torch, dev, mesh):
+    """(b) on one rank: full-width qwen3-8b's (1, 2) 4096 x 8 plan
+    (``kv_prefill_mode: disagg``) from the rank's pieces, inline first
+    (the recording engine: tokens and their one-mesh margins), then with
+    one prefill worker owned by rank 0 on the whole weights it gathers,
+    the worker SIGKILLed once a prompt has a journaled chunk and more to
+    come."""
+    import gc
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sharded import param_pieces
+    arch = get_arch("qwen3-8b")
+    plan = specialize(arch, ShapeConfig(*MESH_DISAGG_SHAPE),
+                      mesh_axes=("data", "model"), mesh_shape=(1, 2),
+                      target="h100-sxm", cache=False)
+    est = plan.estimates
+    params = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                            *plan.padded_sizes(),
+                            pieces=param_pieces(mesh, plan, arch))
+    prompts = _mesh_disagg_prompts(arch)
+    out = {"plan": {k: est.get(k) for k in (
+        "kv_prefill_mode", "kv_prefill_chunk", "kv_block_len",
+        "kv_n_blocks", "kv_admission", "kv_host_blocks")}}
+
+    def serve(eng, kill):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.submit(p, max_new_tokens=MESH_DISAGG_NEW)
+        killed, resume_tick, deadline = None, None, time.time() + 600
+        while (eng.pending or eng.active or eng._disagg) \
+                and time.time() < deadline:
+            eng.step()
+            if resume_tick is None and eng.disagg_resumes:
+                resume_tick = eng.tick
+            if kill and killed is None:
+                fl = next((f for f in eng._disagg.values()
+                           if 1 <= f.acked < f.nb_feed), None)
+                if fl is not None \
+                        and eng._fleet.kill_worker(rid=fl.request.rid):
+                    killed = (fl.request.rid, fl.acked, fl.nb_feed)
+        torch.cuda.synchronize()
+        done = sorted(eng.finished, key=lambda r: r.rid)
+        tel = eng.telemetry()
+        return {"s": time.perf_counter() - t0, "launches": ops.launch_counts(),
+                "idle": not (eng.pending or eng.active or eng._disagg),
+                "tokens": {r.rid: list(r.out_tokens) for r in done},
+                "killed": killed, "resume_tick": resume_tick,
+                "prefill_mode": eng.prefill_mode,
+                "disagg": tel["prefill"]["disagg"],
+                "path": eng.decode_path, "split": eng.cfg.kv_split,
+                "scatter_ms": eng.tier_ms["disagg_chunk"]}
+
+    inline = _recording_engine(ServeEngine).from_plan(
+        plan, params, arch=arch, mesh=mesh, seed=SEED,
+        kv_prefill_mode="inline")
+    out["inline"] = serve(inline, kill=False)
+    out["inline"]["margins"] = dict(inline.margins)
+    del inline
+    gc.collect()
+    torch.cuda.empty_cache()
+    opts = dict(heartbeat_s=0.5, heartbeat_timeout_s=120.0,
+                hello_timeout_s=300.0)
+    t0 = time.perf_counter()
+    eng = ServeEngine.from_plan(plan, params, arch=arch, mesh=mesh,
+                                seed=SEED, disagg_workers=1,
+                                disagg_opts=opts)
+    build_s = time.perf_counter() - t0
+    try:
+        out["disagg"] = serve(eng, kill=True)
+        out["disagg"].update(build_s=build_s,
+                             fleet_weight_bytes=eng.fleet_weight_bytes,
+                             record_ms=eng._fleet.record_ms,
+                             slab_ms=eng._fleet.slab_ms,
+                             wire=str(eng._fleet.device),
+                             held_bytes=eng.pieces.param_bytes(
+                                 eng.params)[0],
+                             whole_bytes=eng.pieces.param_bytes(
+                                 eng.params)[1])
+    finally:
+        eng.shutdown()
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_tier_rank(rank: int, tmp: str, src: str) -> None:
+    """One of phase 24d's two ranks on ``cuda:0`` over gloo, held to
+    :data:`MESH_TRAIN_FRACTION` of the card: (a) on a (2, 1) mesh, then
+    (b) on a (1, 2) mesh of the same two ranks."""
+    import datetime
+    import os
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    torch.cuda.set_per_process_memory_fraction(MESH_TRAIN_FRACTION, 0)
+    dev = torch.device("cuda", 0)
+    out = {}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=600))
+        t0, out["times"] = time.perf_counter(), {}
+        mesh = init_device_mesh("cuda", (2, 1),
+                                mesh_dim_names=("data", "model"))
+        out["tier"] = _mesh_tier_engine(torch, dev, mesh)
+        out["times"]["tier"] = time.perf_counter() - t0
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        out["disagg"] = _mesh_disagg_runs(torch, dev, mesh)
+        out["times"]["disagg"] = time.perf_counter() - t0
+        out["peak"] = torch.cuda.max_memory_allocated()
+    except Exception:
+        import traceback
+        out["error"] = traceback.format_exc()[-4000:]
+    torch.save(out, os.path.join(tmp, f"r{rank}.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _tier_anchor(torch, dev):
+    """(a)'s one-rank engine on the same card: the (2, 1) plan's geometry
+    with ``kv_pool_groups=2`` and the same host tier, the recording
+    engine (tokens and their margins)."""
+    from repro_torch.core.passes.lowering import build_run_cfg
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import PreemptionPolicy, ServeEngine
+    arch, plan = tier_plan()
+    est = plan.estimates
+    params = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                            *plan.padded_sizes())
+    cfg = build_run_cfg(plan, arch)
+    eng = _recording_engine(ServeEngine)(
+        arch, params, cfg, max_batch=TIER_SHAPE[3], max_len=TIER_SHAPE[2],
+        kv_heads=cfg.kv_heads_padded, seed=SEED, kv_residency="paged",
+        kv_block_len=int(est["kv_block_len"]), kv_n_blocks=TIER_BLOCKS,
+        kv_admission=str(est["kv_admission"]), kv_pool_groups=2,
+        kv_prefix_reuse=str(est["kv_prefix_reuse"]),
+        kv_host_blocks=int(est["kv_host_blocks"]),
+        kv_prefetch=str(est["kv_prefetch"]),
+        preemption=PreemptionPolicy(backoff_base_ticks=TIER_BACKOFF))
+    tier_burst(eng)
+    ps = eng.pressure_stats()
+    out = {"counters": {k: ps[k] for k in TIER_COUNTERS},
+           "prefill_calls": eng.prefill_calls, "ticks": eng.tick,
+           "tokens": {r.rid: list(r.out_tokens) for r in eng.finished},
+           "margins": dict(eng.margins), "path": eng.decode_path,
+           "n_blocks": eng.n_blocks, "host_blocks": eng.host_blocks}
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _margin_rule(what, got, want, margins):
+    """``got`` tokens (by rid) equal ``want``'s up to each request's first
+    difference, allowed only where ``margins`` (the anchor's top-2 margin
+    at that token) is within :data:`FULL_TOL`; returns (tokens held
+    equal, the splits)."""
+    check(sorted(got) == sorted(want), f"{what}: requests {sorted(got)} "
+          f"against {sorted(want)}")
+    compared, splits = 0, []
+    for rid, toks in want.items():
+        g = got[rid]
+        check(len(g) == len(toks), f"{what}: request {rid} token count")
+        for i, (a, b) in enumerate(zip(g, toks)):
+            if a != b:
+                m = margins[rid][i]
+                splits.append((rid, i, m))
+                check(m <= FULL_TOL, f"{what}: request {rid} token {i}: "
+                      f"{a} vs {b} at margin {m}")
+                break
+            compared += 1
+    return compared, splits
+
+
+def mesh_tier_phase(torch, dev):
+    """Phase 24d: two ranks spawned on ``cuda:0`` over gloo, each held to
+    :data:`MESH_TRAIN_FRACTION` of the card, on classic allocator
+    segments (CUDA IPC exports them): (a) full-width qwen3-8b's (2, 1)
+    grant plan with its host tier, the pool cut to :data:`TIER_BLOCKS`,
+    a burst that walks spill, promote, a park with a staged prefetch and
+    the migrate rung between the data shards' sub-pools, against the
+    one-rank engine on the same card with ``kv_pool_groups=2`` and the
+    same tier (tokens by the full-depth margin rule, every counter
+    equal); (b) the (1, 2) 4096 x 8 plan that writes ``disagg``, one
+    prefill worker owned by rank 0 on the whole weights it gathered,
+    SIGKILLed mid-flight and resumed, against the inline mesh engine.
+    Returns ``(launches summed over both ranks' runs and the worker's,
+    the results)``.  A rank that fails fails the run."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    keep = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:False"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ctx = mp.get_context("spawn")
+            procs = [ctx.Process(target=_mesh_tier_rank,
+                                 args=(r, tmp, str(SRC_IN_USE)))
+                     for r in range(2)]
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(timeout=900)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            ranks = []
+            for r, p in enumerate(procs):
+                path = Path(tmp) / f"r{r}.pt"
+                check(path.exists(), f"mesh tier: rank {r} left no result "
+                      f"(exit {p.exitcode})")
+                ranks.append(torch.load(path, weights_only=False))
+    finally:
+        if keep is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = keep
+    for r, out in enumerate(ranks):
+        check("error" not in out, f"mesh tier: rank {r} failed: "
+              f"{out.get('error')}")
+    return mesh_tier_checks(torch, dev, ranks, t0)
+
+
+def mesh_tier_checks(torch, dev, ranks, t0):
+    """Phase 24d's checks on both ranks' records, with (a)'s one-rank
+    anchor run here; returns what :func:`mesh_tier_phase` returns."""
+    t_ranks = time.perf_counter() - t0
+    res = {"ranks_s": t_ranks, "rank_laps_s": ranks[0]["times"],
+           "peak": [o["peak"] for o in ranks]}
+    # (a)
+    one = _tier_anchor(torch, dev)
+    a0 = ranks[0]["tier"]
+    arch, plan = tier_plan()
+    for r, out in enumerate(ranks):
+        a = out["tier"]
+        check(a["tokens"] == a0["tokens"] and a["counters"] == a0["counters"],
+              f"mesh tier: (a) rank {r}'s tokens or counters differ from "
+              "rank 0's")
+        check(a["launches"]["paged_decode_partial"] > 0
+              and a["launches"]["flash_attention"] > 0,
+              f"mesh tier: (a) rank {r} launched {a['launches']}")
+    check(a0["path"] == "shard_map_flash_paged_2d" and a0["split"] == "rows"
+          and a0["groups"] == 2,
+          f"mesh tier: (a) path {a0['path']}, split {a0['split']}, "
+          f"{a0['groups']} sub-pools")
+    check(a0["host_shape"][3] == a0["pool_shape"][3] == 8
+          and a0["pool_shape"][1] == TIER_BLOCKS // 2,
+          f"mesh tier: (a) host piece {a0['host_shape']}, pool piece "
+          f"{a0['pool_shape']}")
+    check(a0["counters"] == one["counters"]
+          and a0["prefill_calls"] == one["prefill_calls"],
+          f"mesh tier: (a) counters {a0['counters']} ({a0['prefill_calls']}"
+          f" prefill calls) against one rank's {one['counters']} "
+          f"({one['prefill_calls']})")
+    c = a0["counters"]
+    check(c["migrations"] >= 1 and c["spills"] >= 1 and c["promotes"] >= 1
+          and c["parks_with_state"] >= 1 and c["prefetch_consumed"] >= 1
+          and c["prefix_hits"] >= 1,
+          f"mesh tier: (a) the burst did not walk the ladder: {c}")
+    compared, splits = _margin_rule("mesh tier: (a)", a0["tokens"],
+                                    one["tokens"], one["margins"])
+    n_tok = sum(len(t) for t in one["tokens"].values())
+    res["a"] = {"counters": c, "prefill_calls": a0["prefill_calls"],
+                "ticks": a0["ticks"], "s": [o["tier"]["s"] for o in ranks],
+                "tier_ms": [o["tier"]["tier_ms"] for o in ranks],
+                "launches": [o["tier"]["launches"] for o in ranks],
+                "tokens_compared": compared, "tokens": n_tok,
+                "splits": splits, "one_rank_path": one["path"],
+                "host_shape": a0["host_shape"],
+                "pool_shape": a0["pool_shape"]}
+    log(f"mesh tier: (a) qwen3-8b full width, {arch.n_layers} layers, (2, 1)"
+        f" grant plan (pool cut to {TIER_BLOCKS} blocks of "
+        f"{plan.estimates['kv_block_len']}, host tier "
+        f"{plan.estimates['kv_host_blocks']} blocks, a whole copy a rank "
+        f"{a0['host_shape']}): decode path {a0['path']} (one rank "
+        f"{one['path']}); counters {c} equal the one-rank engine's "
+        f"(kv_pool_groups=2); {compared} of {n_tok} tokens equal before the "
+        f"first margin-rule splits {splits}; {a0['prefill_calls']} prefill "
+        f"calls, {a0['ticks']} ticks in {fmt(res['a']['s'])} s a rank; tier "
+        f"host ms rank 0 {a0['tier_ms']}; launches a rank "
+        f"{res['a']['launches'][0]} [{CARD}]")
+    # (b)
+    b0 = ranks[0]["disagg"]
+    d0 = b0["disagg"]
+    for r, out in enumerate(ranks):
+        b = out["disagg"]
+        d = b["disagg"]
+        check(b["inline"]["idle"] and d["idle"],
+              f"mesh tier: (b) rank {r} not idle after 600 s")
+        check(b["plan"]["kv_prefill_mode"] == "disagg"
+              and d["prefill_mode"] == "disagg",
+              f"mesh tier: (b) rank {r}: plan {b['plan']}, mode "
+              f"{d['prefill_mode']}")
+        check(d["killed"] is not None and d["disagg"]["resumes"] >= 1
+              and d["disagg"]["fleet"]["deaths"] >= 1,
+              f"mesh tier: (b) rank {r}: killed {d['killed']}, "
+              f"{d['disagg']}")
+        check(d["tokens"] == d0["tokens"]
+              and b["inline"]["tokens"] == b0["inline"]["tokens"]
+              and d["resume_tick"] == d0["resume_tick"]
+              and d["disagg"] == d0["disagg"],
+              f"mesh tier: (b) rank {r}'s tokens, resume tick or telemetry "
+              "differ from rank 0's")
+        check(d["launches"]["paged_decode_attention"] > 0
+              and b["inline"]["launches"]["flash_attention"] > 0,
+              f"mesh tier: (b) rank {r} launched {d['launches']} / "
+              f"{b['inline']['launches']}")
+    check(d0["fleet_weight_bytes"] == d0["whole_bytes"] > 0
+          and ranks[1]["disagg"]["disagg"]["fleet_weight_bytes"] == 0,
+          f"mesh tier: (b) whole weights gathered {d0['fleet_weight_bytes']}"
+          f" / {ranks[1]['disagg']['disagg']['fleet_weight_bytes']} bytes "
+          f"of {d0['whole_bytes']}")
+    compared_b, splits_b = _margin_rule(
+        "mesh tier: (b)", d0["tokens"], b0["inline"]["tokens"],
+        b0["inline"]["margins"])
+    fl = d0["disagg"]["fleet"]
+    n_chunks = max(fl["chunks"], 1)
+    per_chunk = {"worker_ring_ms": fl["chunk_host_ms"] / n_chunks,
+                 "engine_read_ms": fl["recv_ms"] / n_chunks,
+                 "record_bcast_ms": d0["record_ms"] / n_chunks,
+                 "slab_bcast_ms": d0["slab_ms"] / n_chunks,
+                 "scatter_ms": d0["scatter_ms"] / n_chunks}
+    per_chunk["host_ms"] = sum(per_chunk.values())
+    res["b"] = {"plan": b0["plan"], "killed": d0["killed"],
+                "resume_tick": d0["resume_tick"],
+                "fleet_weight_bytes": d0["fleet_weight_bytes"],
+                "pieces_bytes": d0["held_bytes"],
+                "collective": f"broadcast of {d0['wire']} tensors",
+                "per_chunk": per_chunk,
+                "chunks": fl["chunks"], "deaths": fl["deaths"],
+                "spawn_to_ready_s": fl["spawn_to_ready_s"],
+                "worker_launches": fl["worker_launches"],
+                "build_s": d0["build_s"],
+                "s": {"inline": [o["disagg"]["inline"]["s"] for o in ranks],
+                      "disagg": [o["disagg"]["disagg"]["s"] for o in ranks]},
+                "tokens_compared": compared_b, "splits": splits_b,
+                "tokens": sum(len(t) for t in b0["inline"]["tokens"].values()),
+                "launches": {"inline": [o["disagg"]["inline"]["launches"]
+                                        for o in ranks],
+                             "disagg": [o["disagg"]["disagg"]["launches"]
+                                        for o in ranks]},
+                "path": d0["path"], "split": d0["split"]}
+    log(f"mesh tier: (b) qwen3-8b full width, (1, 2) 4096 x 8 plan "
+        f"{b0['plan']}: one worker owned by rank 0, whole weights gathered "
+        f"{d0['fleet_weight_bytes']} bytes beside its pieces "
+        f"{d0['held_bytes']} bytes, engine with the fleet built in "
+        f"{d0['build_s']:.1f} s; killed at (rid, acked, blocks) "
+        f"{d0['killed']}, resumed at tick {d0['resume_tick']} on both ranks;"
+        f" {compared_b} of {res['b']['tokens']} tokens equal the inline mesh"
+        f" engine's before the first margin-rule splits {splits_b}; "
+        f"{fl['chunks']} chunks by broadcast of {d0['wire']} tensors, host "
+        f"ms a chunk "
+        f"{ {k: round(v, 3) for k, v in per_chunk.items()} }; spawn to "
+        f"weights taken {fl['spawn_to_ready_s']} s; serve s inline "
+        f"{fmt(res['b']['s']['inline'])} / disagg "
+        f"{fmt(res['b']['s']['disagg'])} a rank; worker launches "
+        f"{fl['worker_launches']} [{CARD}]")
+    launches = {k: 0 for k in ("flash_attention", "paged_decode_attention",
+                               "paged_decode_partial")}
+    for out in ranks:
+        for run in (out["tier"]["launches"],
+                    out["disagg"]["inline"]["launches"],
+                    out["disagg"]["disagg"]["launches"]):
+            for k in launches:
+                launches[k] += run[k]
+    launches["flash_attention"] += fl["worker_launches"].get(
+        "flash_attention", 0)
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"mesh tier: phase took {res['phase_s']:.1f} s (ranks "
+        f"{t_ranks:.1f} s, rank 0's laps "
+        f"{ {k: round(v, 1) for k, v in ranks[0]['times'].items()} }), "
+        f"peak allocated {res['peak']} bytes a rank, launches over both "
+        f"ranks and the worker {launches} [{CARD}]")
+    return launches, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port on one NVIDIA card")
     ap.add_argument("--only", choices=("flash_bwd", "flash_pos", "ssd_bwd",
                                        "matmul_fp32", "mesh", "mesh_train",
-                                       "ssm_mesh"),
+                                       "ssm_mesh", "mesh_tier"),
                     help="run this kernel's check alone and print its "
                          "result")
     ap.add_argument("--src", type=Path, default=SRC,
@@ -6882,6 +7400,12 @@ def main(argv=None) -> int:
         _, res = ssm_mesh_phase(torch, dev)
         log(json.dumps({"src": str(args.src), "card": CARD,
                         "ssm_mesh": res}))
+        return 0
+    if args.only == "mesh_tier":
+        log(f"build: {time.perf_counter() - t0:.1f} s [{CARD}]")
+        _, res = mesh_tier_phase(torch, dev)
+        log(json.dumps({"src": str(args.src), "card": CARD,
+                        "mesh_tier": res}))
         return 0
     log(f"build: {len(build.SOURCES)} sources with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
@@ -7084,6 +7608,9 @@ def main(argv=None) -> int:
     # ---- phase 24c: SSM and hybrid archs on two ranks ----
     ssm_launches, ssm_mesh = ssm_mesh_phase(torch, dev)
 
+    # ---- phase 24d: the host tier, migration and disagg on two ranks ----
+    tier_launches, mesh_tier = mesh_tier_phase(torch, dev)
+
     # ---- phase 25: results ----
     family_counts = [c for c, _ in families.values()]
     runs = (*serve_runs.values(), train_counts, *family_counts,
@@ -7099,6 +7626,13 @@ def main(argv=None) -> int:
     for name, n in ssm_launches.items():
         if name != "paged_decode_partial":
             launches[name] += n
+    for name in ("flash_attention", "paged_decode_attention"):
+        launches[name] += tier_launches[name]
+        kern[name]["mesh_tier"] = {
+            "launches": tier_launches[name], "launched_by":
+            "phase 24d: qwen3-8b's (2, 1) grant engine with its host tier "
+            "and migration, and its (1, 2) engine inline and with a prefill "
+            "worker (the worker's flash launches included), both ranks"}
     for name in ("flash_attention", "paged_decode_attention"):
         kern[name]["g7"]["launches"] = (grant["launches"][name]
                                         + grant_ctl["launches"][name])
@@ -7148,8 +7682,14 @@ def main(argv=None) -> int:
         kern[name]["launched_by"] = (
             "flash_decode / flash_decode_paged (flat combine) on each of "
             "two ranks of a (1, 2) mesh on one card over gloo")
-    # K8 inside an engine: hymba-1.5b's shard_map_flash decode ticks
+    # K8 inside an engine: hymba-1.5b's shard_map_flash decode ticks, and
+    # qwen3-8b's (2, 1) engine on its 2-D pool
     launches["paged_decode_partial"] += ssm_launches["paged_decode_partial"]
+    launches["paged_decode_partial"] += tier_launches["paged_decode_partial"]
+    kern["paged_decode_partial"]["mesh_tier"] = {
+        "launches": tier_launches["paged_decode_partial"], "launched_by":
+        "phase 24d: qwen3-8b's (2, 1) grant engine on the "
+        "shard_map_flash_paged_2d path, every decode tick, both ranks"}
     kern["paged_decode_partial"]["ssm_mesh"] = {
         "launches": ssm_launches["paged_decode_partial"], "launched_by":
         "phase 24c: hymba-1.5b's (1, 2) engine on the shard_map_flash "
@@ -7176,7 +7716,7 @@ def main(argv=None) -> int:
                                  "qwen2vl", "hubert", "noncausal128",
                                  "fwd_with_lse_ms", "fwd_without_lse_ms",
                                  "autograd_plain_ms", "fold_row_rel_err",
-                                 "shards_ms", "ssm_mesh",
+                                 "shards_ms", "ssm_mesh", "mesh_tier",
                                  "autograd_plain_turns_ms")
                if k in r},
             "ptxas": [[kernel, regs, spills] for kernel, regs, spills
@@ -7209,6 +7749,7 @@ def main(argv=None) -> int:
                     "frontends": front, "disagg": disagg_res,
                     "step_guard": guard, "two_ranks": two,
                     "mesh_train": mesh_train, "ssm_mesh": ssm_mesh,
+                    "mesh_tier": mesh_tier,
                     "allocator": allocator}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")

@@ -35,7 +35,14 @@ Two modes, as in the JAX package's launcher, on one card:
   pieces (:meth:`ServeEngine.from_plan` with the ``DeviceMesh``), and
   every rank serves the same requests; rank 0 reports.  ``check_fits``
   then measures one rank's share of the weights, and a model one card
-  cannot hold is refused with the mesh it needs;
+  cannot hold is refused with the mesh it needs.  The plan is served as
+  frozen there too: its host spill tier (a piece a rank: the rank's kv
+  heads, or, where the pool splits by blocks, a whole copy), grant
+  admission with migration between the data shards' sub-pools, and with
+  ``--disagg N`` a prefill fleet of N workers owned by rank 0, which
+  gathers the whole weights for them from the ranks' pieces (refused
+  before any worker spawns where they do not fit its device beside its
+  pieces) and broadcasts the fleet's events to every rank each tick;
 * disaggregated prefill (``--disagg N``, implies ``--from-plan``) —
   the same plan with ``kv_prefill_mode=disagg`` forced: prefill runs on
   N spawned worker processes behind the engine
@@ -80,6 +87,8 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve --from-plan
           --max-len 4096 --max-batch 8 --disagg 1
       PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
           -m repro_torch.launch.serve --mesh 1x2 --device cpu
+      PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+          -m repro_torch.launch.serve --mesh 2x1 --disagg 1 --device cpu
 """
 
 from __future__ import annotations
@@ -186,7 +195,9 @@ def main(argv=None) -> None:
               f"kv_host_blocks={engine.host_blocks} "
               f"kv_prefetch={engine.kv_prefetch} "
               f"prefill_mode={engine.prefill_mode} "
-              f"-> decode_path={engine.decode_path}")
+              + (f"fleet_weight_bytes={engine.fleet_weight_bytes} "
+                 if mesh is not None and args.disagg else "")
+              + f"-> decode_path={engine.decode_path}")
     else:
         check_on_device(arch, args.device)
         check_fits(arch, (), args.device)

@@ -42,12 +42,21 @@ engine reads and scatters it as any other; a chunk the kill cut short
 was never announced.  Nothing of the worker's own memory is referenced
 after its death.  (Host copies pickled down the pipe, the reference's
 ``np.asarray``, moved a 75.5 MB full-width chunk in 0.86 s.)
+
+On a mesh the fleet lives in the mesh's first rank (its workers run the
+whole model, as the reference's do, on the whole weights that rank
+gathers from the ranks' pieces), and every rank sees it through a
+:class:`MeshFleet`: the first rank polls and dispatches, and broadcasts
+what came of it (the events with their chunk slabs and logits, each
+dispatch's result, the degraded record, the fleet's telemetry), so every
+rank applies the same events in the same tick.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
 import queue as _queue
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -724,3 +733,130 @@ class PrefillFleet:
                 slot.proc.join(timeout=5)
             self._close(slot)
         self._assign.clear()
+
+
+# ---------------------------------------------------------------------
+# the fleet on a mesh
+# ---------------------------------------------------------------------
+
+def fleet_fit_error(whole: int, held: int, device) -> str:
+    """Why the mesh's first rank cannot hold the fleet's whole weights,
+    ``whole`` bytes, beside its own pieces (``held`` bytes, already
+    allocated), or ``""`` when they fit the free memory of ``device``
+    (the card's, ``torch.cuda.mem_get_info``, or the host's available
+    RAM)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        free, where = torch.cuda.mem_get_info(device)[0], f"{device}"
+    else:
+        free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+        where = "the host"
+    if whole <= free:
+        return ""
+    return (f"disaggregated prefill on a mesh: the prefill workers map the "
+            f"whole weights, {whole} bytes, which the mesh's first rank "
+            f"gathers beside its own pieces ({held} bytes); {free} bytes "
+            f"are free on {where}: serve this mesh's prefill inline (no "
+            "workers)")
+
+
+#: tag of a tensor's place in a broadcast event record
+_TENSOR = "__tensor__"
+
+
+class MeshFleet:
+    """A :class:`PrefillFleet` as every rank of a mesh sees it.  The
+    fleet lives in the mesh's first rank (``fleet`` there, ``None``
+    elsewhere); every rank calls :meth:`poll`, :meth:`dispatch` and
+    :meth:`kill_worker` at the same point of the same tick, the first
+    rank does the work, and broadcasts what came of it
+    (:meth:`repro_torch.serve.sharded.MeshPieces.bcast_object` for the
+    records, :meth:`~repro_torch.serve.sharded.MeshPieces.bcast` for the
+    chunk slabs and logits, on ``device``), so every rank returns the
+    same.  The slabs and logits cross as the fleet gives them, host
+    tensors, where the default group's backend carries host tensors
+    (gloo), and through ``device`` where it does not (NCCL alone).
+    :attr:`degraded` and :meth:`stats` are the first rank's, as of the
+    last broadcast.  :meth:`cancel` and :meth:`shutdown` act on the first
+    rank only (nothing comes back)."""
+
+    def __init__(self, pieces, fleet: Optional[PrefillFleet], device):
+        self.pieces, self.fleet = pieces, fleet
+        self.device = (torch.device(device)
+                       if torch.distributed.get_backend() == "nccl"
+                       else torch.device("cpu"))
+        self.degraded: Optional[DegradedMode] = None
+        # this rank's host ms in the broadcasts: of the records (waiting
+        # for the first rank's poll included) and of the tensors
+        self.record_ms = self.slab_ms = 0.0
+        self._stats = pieces.bcast_object(
+            fleet.stats() if pieces.is_root else None)
+
+    def _share(self, payload):
+        """The first rank's ``payload`` on every rank, with the fleet's
+        degraded record and telemetry refreshed."""
+        root = self.pieces.is_root
+        t0 = time.perf_counter()
+        got = self.pieces.bcast_object(
+            (payload, self.fleet.degraded, self.fleet.stats())
+            if root else None)
+        self.record_ms += (time.perf_counter() - t0) * 1e3
+        out, self.degraded, self._stats = got
+        return out
+
+    def poll(self) -> List[Tuple]:
+        """The first rank's :meth:`PrefillFleet.poll` events on every
+        rank, tensors included."""
+        tensors: List[torch.Tensor] = []
+        meta = None
+        if self.pieces.is_root:
+            meta = []
+            for ev in self.fleet.poll():
+                rec = []
+                for x in ev:
+                    if isinstance(x, torch.Tensor):
+                        rec.append((_TENSOR, tuple(x.shape), str(x.dtype)))
+                        tensors.append(x.to(self.device).contiguous())
+                    else:
+                        rec.append(x)
+                meta.append(tuple(rec))
+        meta = self._share(meta)
+        by_name = {str(d): d for d in _DTYPES}
+        out, it = [], iter(tensors)
+        t0 = time.perf_counter()
+        for rec in meta:
+            ev = []
+            for x in rec:
+                if isinstance(x, tuple) and x and x[0] == _TENSOR:
+                    t = next(it) if self.pieces.is_root else torch.empty(
+                        x[1], dtype=by_name[x[2]], device=self.device)
+                    ev.append(self.pieces.bcast(t))
+                else:
+                    ev.append(x)
+            out.append(tuple(ev))
+        self.slab_ms += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def dispatch(self, rid: int, tokens, prefix_k=None,
+                 prefix_v=None) -> bool:
+        ok = (self.fleet.dispatch(rid, tokens, prefix_k=prefix_k,
+                                  prefix_v=prefix_v)
+              if self.pieces.is_root else None)
+        return bool(self._share(ok))
+
+    def kill_worker(self, idx: Optional[int] = None,
+                    rid: Optional[int] = None) -> bool:
+        done = (self.fleet.kill_worker(idx=idx, rid=rid)
+                if self.pieces.is_root else None)
+        return bool(self._share(done))
+
+    def cancel(self, rid: int) -> None:
+        if self.fleet is not None:
+            self.fleet.cancel(rid)
+
+    def shutdown(self) -> None:
+        if self.fleet is not None:
+            self.fleet.shutdown()
+
+    def stats(self) -> Dict[str, Any]:
+        return dict(self._stats)

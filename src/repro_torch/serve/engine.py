@@ -90,9 +90,21 @@ cache (:mod:`repro_torch.serve.sharded`); the decode runs each rank's
 heads, or the sharded flash decode (:mod:`repro_torch.dist
 .flash_decode`), as the placement says, and an SSM arch's mixer its
 heads (its state and conv window pieces written and read through
-:class:`~repro_torch.serve.sharded.MeshPieces`).  The host tier,
-disaggregated prefill and migration between sub-pools wait for ROADMAP
-item 10b there.
+:class:`~repro_torch.serve.sharded.MeshPieces`).  The paged plan is
+served as frozen there too.  The host tier keeps a piece a rank (the
+rank's kv heads where they split; where the pool splits by blocks, every
+head of every host block, a whole copy of the tier, so that a promote
+writes its owner's rows with no collective), and a spill, a promote, a
+park and a staged prefetch move each rank's rows through the pieces.
+Migration moves a slot between the data shards' sub-pools of a 2-D pool:
+its blocks' rows are read from the old owner and written on the new one.
+A prefill fleet is owned by the mesh's first rank, whose workers map the
+whole weights it gathers from the ranks' pieces; every tick that rank
+broadcasts what the fleet said (the chunk slabs, the logits, deaths and
+the degraded record) and every rank applies it in the same order, so the
+host decisions stay the same on every rank; for the same reason the
+deadlines read that rank's clock, broadcast once a tick.  Several data
+axes and a cache split on head_dim wait for ROADMAP item 10b.
 
 State lives in torch tensors on the device of the parameters; the
 cache, the block table and ``pos`` are updated in place.  Sampling
@@ -231,16 +243,14 @@ def _unsupported(decision: str, value, hint: str) -> NotImplementedError:
         f"{decision}={value!r} is not ported yet; {hint}")
 
 
-def _mesh_refusals(cfg: RunCfg, kv_host_blocks: int) -> None:
+def _mesh_refusals(cfg: RunCfg) -> None:
     """What a mesh does not serve yet (ROADMAP item 10b), before any
     cache exists: several data axes (:func:`repro_torch.models.tp.ctx`
-    raises for them) and the host tier."""
+    raises for them).  A cache split on head_dim is refused where the
+    pieces are laid out (:class:`~repro_torch.serve.sharded.MeshPieces`);
+    the host tier, migration and a prefill fleet serve."""
     from repro_torch.models import tp
     tp.ctx(cfg)
-    if kv_host_blocks > 0:
-        raise NotImplementedError(
-            "kv_host_blocks > 0 on a mesh: the host tier waits for ROADMAP "
-            "item 10b; pass kv_host_blocks=0")
 
 
 class ServeEngine:
@@ -266,7 +276,7 @@ class ServeEngine:
                 f"kv_host_blocks must be >= 0, got {kv_host_blocks}")
         lm.check_serves(arch)
         if cfg.mesh is not None:
-            _mesh_refusals(cfg, kv_host_blocks)
+            _mesh_refusals(cfg)
         self.device = params["embed"].device
         attn = lm.layer_params(params["blocks"], 0).get("attn")
         lm.check_on_device(
@@ -319,10 +329,11 @@ class ServeEngine:
                 arch, max_batch, max_len, self.block_len, self.n_blocks,
                 kv_heads=kv_heads, ssm_heads=ssm_heads, device=cache_dev)
             # the host spill tier, clamped like the pool (to a park depth
-            # of 8 full worst-case batches, as in the JAX engine)
+            # of 8 full worst-case batches, as in the JAX engine); on a
+            # mesh _place_on_mesh allocates the rank's piece of it
             self.host_blocks = (min(kv_host_blocks, 8 * cap)
                                 if kv_host_blocks > 0 else 0)
-            if self.host_blocks:
+            if self.host_blocks and cfg.mesh is None:
                 self._host = lm.init_host_pool(
                     arch, self.host_blocks, self.block_len,
                     kv_heads=kv_heads)
@@ -412,6 +423,11 @@ class ServeEngine:
         self.disagg_dispatches = 0
         self.disagg_chunks = 0
         self.disagg_resumes = 0
+        # on a mesh, the bytes of whole weights the first rank gathered
+        # for its fleet's workers, beside its pieces (0 elsewhere)
+        self.fleet_weight_bytes = 0
+        # on a mesh, the first rank's wall clock at the start of this tick
+        self._mesh_now = 0.0
 
     def _mesh_pool(self, cfg: RunCfg, max_batch: int,
                    kv_n_blocks: int) -> None:
@@ -483,8 +499,11 @@ class ServeEngine:
         and keeps only its pieces (:meth:`_place_on_mesh`); the decode
         follows the placement (``RunCfg.kv_split``: the rank's heads, or
         the sharded flash decode with the plan's ``combine_topology``,
-        which ``combine_topology`` overrides).  A plan specialized for a
-        mesh wants one: without it raises :class:`NotImplementedError`.
+        which ``combine_topology`` overrides).  The plan's host tier is
+        kept there (a piece a rank), and a fleet is spawned in (or
+        ``fleet`` given by) the mesh's first rank only
+        (:meth:`_mesh_fleet`).  A plan specialized for a mesh wants one:
+        without it raises :class:`NotImplementedError`.
         """
         from repro_torch.core.passes.lowering import build_run_cfg
         from repro_torch.dist.sharding import mesh_sizes
@@ -523,11 +542,6 @@ class ServeEngine:
         def pick(override, key, default):
             return override if override is not None else est.get(key, default)
 
-        if mesh is not None and kv_host_blocks is None:
-            # the plan's host tier waits for ROADMAP item 10b on a mesh:
-            # served without one, as the pass falls back to inline
-            # prefill (an explicit kv_host_blocks > 0 raises)
-            kv_host_blocks = 0
         cfg = build_run_cfg(plan, arch, mesh)
         if combine_topology is not None:
             cfg = dataclasses.replace(cfg, combine_topology=combine_topology)
@@ -558,13 +572,14 @@ class ServeEngine:
         # keeps the inline path, as the pass's own fallback does
         if str(pick(kv_prefill_mode, "kv_prefill_mode", "inline")) \
                 == "disagg":
-            if mesh is not None and (fleet is not None or disagg_workers):
-                raise NotImplementedError(
-                    "disaggregated prefill on a mesh waits for ROADMAP "
-                    "item 10b; serve it inline (no workers, no fleet)")
-            if fleet is None and disagg_workers > 0 \
-                    and eng.kv_residency == "paged" \
-                    and arch.has_attention and not arch.has_ssm:
+            spawn = fleet is None and disagg_workers > 0 \
+                and eng.kv_residency == "paged" \
+                and arch.has_attention and not arch.has_ssm
+            if mesh is not None:
+                eng._mesh_fleet(fleet, disagg_workers if spawn else 0,
+                                disagg_opts)
+                return eng
+            if spawn:
                 from repro_torch.serve.disagg import PrefillFleet
                 fleet = PrefillFleet(
                     plan, arch, params, disagg_workers,
@@ -573,6 +588,38 @@ class ServeEngine:
             if fleet is not None:
                 eng.attach_fleet(fleet)
         return eng
+
+    def _mesh_fleet(self, fleet, workers: int,
+                    disagg_opts: Optional[Dict[str, Any]]) -> None:
+        """A prefill fleet on a mesh, owned by its first rank: that rank's
+        ``fleet``, or ``workers`` spawned there, whose workers map the
+        whole weights (each leaf gathered from the ranks' pieces, after
+        a check that they fit that rank's device beside its pieces).
+        Every rank calls this; the first rank's verdicts are broadcast,
+        so every rank attaches, or refuses, alike."""
+        from repro_torch.serve import disagg
+        pc = self.pieces
+        root = pc.is_root
+        have = pc.bcast_object(fleet is not None if root else None)
+        if not (have or workers):
+            return
+        if not have:
+            held, whole = pc.param_bytes(self.params)
+            err = pc.bcast_object(
+                disagg.fleet_fit_error(whole, held, self.device)
+                if root else None)
+            if err:
+                raise RuntimeError(err)
+            params = pc.whole_params(self.params)
+            if root:
+                fleet = disagg.PrefillFleet(
+                    self.plan, self.arch, params, workers,
+                    block_len=self.block_len,
+                    kv_heads=self.cfg.kv_heads_padded,
+                    **(disagg_opts or {}))
+                self.fleet_weight_bytes = whole
+            del params
+        self.attach_fleet(fleet)
 
     # ---------------- disaggregated prefill ---------------------------
     @property
@@ -588,7 +635,10 @@ class ServeEngine:
         """Switch prefill to disaggregated mode through ``fleet`` (a
         :class:`repro_torch.serve.disagg.PrefillFleet`).  Refused as the
         JAX engine refuses: chunked prefill needs the paged pool to
-        scatter into and pure-attention KV to chunk."""
+        scatter into and pure-attention KV to chunk.  On a mesh every
+        rank calls it, the first with its fleet and the others with
+        ``None``: each sees the fleet through a
+        :class:`~repro_torch.serve.disagg.MeshFleet`."""
         if self.kv_residency != "paged":
             raise ValueError(
                 "disaggregated prefill streams pool-block-shaped KV "
@@ -599,6 +649,9 @@ class ServeEngine:
                 f"disaggregated prefill needs pure-attention KV; "
                 f"{self.arch.name} carries SSM state that is sequential "
                 "across the whole prompt")
+        if self.pieces is not None:
+            from repro_torch.serve.disagg import MeshFleet
+            fleet = MeshFleet(self.pieces, fleet, self.device)
         self._fleet = fleet
         self.kv_prefill_mode = "disagg"
 
@@ -642,7 +695,10 @@ class ServeEngine:
         r = Request(self._rid, prompt, max_new_tokens, temperature,
                     t_submit=time.time())
         if deadline_s is not None:
-            r.deadline = r.t_submit + deadline_s
+            # on a mesh the first rank's clock (every rank submits the
+            # same requests), so every rank holds the same deadline
+            r.deadline = (r.t_submit if self.pieces is None
+                          else self._mesh_clock()) + deadline_s
         self._rid += 1
         self.pending.append(r)
         return r.rid
@@ -729,6 +785,10 @@ class ServeEngine:
         self.params = pieces.place_params(self.params)
         self.cache = pieces.place_cache(self.cache, self.device)
         self.pieces = pieces
+        if self.host_blocks:
+            self._host = lm.init_host_pool(
+                self.arch, self.host_blocks, self.block_len,
+                kv_heads=pieces.host_kv_heads)
         whole = self.n_blocks if self.kv_residency == "paged" \
             else self.max_len
         self.cfg = dataclasses.replace(
@@ -916,13 +976,14 @@ class ServeEngine:
     def _spill_rows(self, pairs: List[Tuple[int, int]]) -> None:
         """Copy the k/v rows of just-spilled blocks into the host pool,
         synchronously: the vacated pool ids are already free, and the
-        copy must end before a next tenant writes them."""
+        copy must end before a next tenant writes them.  On a mesh each
+        rank copies its piece of the tier's rows (:meth:`_read_blocks`:
+        its heads, or every head of a block gathered from its owner)."""
         t0 = time.perf_counter()
-        old = self._ids([b for b, _ in pairs])
+        old = [b for b, _ in pairs]
         idx = [h - self.n_blocks for _, h in pairs]
         for key in ("k", "v"):
-            self._host[key][:, idx] = lm.gather_blocks(
-                self.cache[key], old).cpu()
+            self._host[key][:, idx] = self._read_blocks(key, old).cpu()
         self.tier_ms["spill"] += (time.perf_counter() - t0) * 1e3
 
     def _promote_rows(self, pairs: List[Tuple[int, int]],
@@ -934,12 +995,12 @@ class ServeEngine:
         device copy of the host pool's rows; then one scatter per
         tensor."""
         t0 = time.perf_counter()
-        new = self._ids([b for _, b in pairs])
+        new = [b for _, b in pairs]
         if k_rows is None:
             idx = [h - self.n_blocks for h, _ in pairs]
             k_rows, v_rows = self._host["k"][:, idx], self._host["v"][:, idx]
-        lm.scatter_blocks(self.cache["k"], new, k_rows)
-        lm.scatter_blocks(self.cache["v"], new, v_rows)
+        self._write_blocks("k", new, k_rows)
+        self._write_blocks("v", new, v_rows)
         self.tier_ms["promote"] += (time.perf_counter() - t0) * 1e3
 
     def _promote_matched(self, matched: List[int], group: int) -> List[int]:
@@ -1209,11 +1270,11 @@ class ServeEngine:
             r.blocks = blocks
         pk = pv = None
         if start_block:
-            ids = self._ids(r.blocks[:start_block])
+            ids = r.blocks[:start_block]
             m = start_block * self.block_len
-            pk, pv = (lm.gather_blocks(self.cache[key], ids).reshape(
-                self.cache[key].shape[0], m, *self.cache[key].shape[3:])
-                for key in ("k", "v"))
+            pk, pv = (self._whole_rows(key, ids) for key in ("k", "v"))
+            pk, pv = (t.reshape(t.shape[0], m, *t.shape[3:])
+                      for t in (pk, pv))
         feed = r.feed_tokens
         ok = self._fleet.dispatch(r.rid, feed[start_block * self.block_len:],
                                   prefix_k=pk, prefix_v=pv)
@@ -1245,15 +1306,18 @@ class ServeEngine:
             return
         t0 = time.perf_counter()
         t = k_rows.shape[1]
-        bid = self._ids([r.blocks[idx]])
         for key, rows in (("k", k_rows), ("v", v_rows)):
+            if self.pieces is not None:
+                # the worker's rows carry every head: the rank's heads,
+                # into the block where this rank owns it
+                rows = self.pieces.cut_heads(rows)
             rows = rows.to(self.device, non_blocking=True)
             if t < self.block_len:
                 # a partial last block: zero rows past the feed (slot_len
                 # masks them, as the inline scatter's clamped rows)
                 rows = torch.nn.functional.pad(
                     rows, (0, 0, 0, 0, 0, self.block_len - t))
-            lm.scatter_blocks(self.cache[key], bid, rows[:, None])
+            self._write_blocks(key, [r.blocks[idx]], rows[:, None])
         self.tier_ms["disagg_chunk"] += (time.perf_counter() - t0) * 1e3
         self.disagg_chunks += 1
         if t == self.block_len and idx == fl.acked:
@@ -1323,13 +1387,25 @@ class ServeEngine:
         self._inline_poison.add(rid)
         self.pending.insert(0, fl.request)
 
+    def _mesh_clock(self) -> float:
+        """The mesh's first rank's ``time.time()`` on every rank (every
+        rank must call it at the same point)."""
+        return float(self.pieces.bcast_object(
+            time.time() if self.pieces.is_root else None))
+
+    def _now(self) -> float:
+        """The wall clock the deadline decisions read: ``time.time()`` on
+        one card; on a mesh the first rank's at the start of this tick,
+        so every rank sheds, spares and picks victims alike."""
+        return time.time() if self.pieces is None else self._mesh_now
+
     def _shed_expired_flights(self) -> None:
         """A request whose deadline passes mid-prefill sheds as a pending
         one does: blocks released, ``Request.error`` set."""
         if not any(fl.request.deadline is not None
                    for fl in self._disagg.values()):
             return
-        now = time.time()
+        now = self._now()
         for fl in list(self._disagg.values()):
             r = fl.request
             if r.deadline is not None and now > r.deadline:
@@ -1610,12 +1686,12 @@ class ServeEngine:
 
     def _write_blocks(self, key: str, ids: List[int],
                       rows: torch.Tensor) -> None:
-        """``cache[key][:, ids] = rows``; on a mesh, into the blocks this
-        rank's pool piece holds."""
+        """``cache[key][:, ids] = rows`` (rows on any device); on a mesh,
+        into the blocks this rank's pool piece holds."""
         if self.pieces is not None:
             self.pieces.write_blocks(self.cache[key], ids, rows)
         else:
-            self.cache[key][:, self._ids(ids)] = rows
+            lm.scatter_blocks(self.cache[key], self._ids(ids), rows)
 
     def _write_state(self, key: str, slots, rows: torch.Tensor) -> None:
         """``cache[key][:, slots] = rows`` for a per-slot SSM state; on a
@@ -1638,6 +1714,32 @@ class ServeEngine:
         if self.pieces is not None:
             return self.pieces.read_blocks(self.cache[key], ids)
         return self.cache[key][:, self._ids(ids)]
+
+    def _whole_rows(self, key: str, ids: List[int]) -> torch.Tensor:
+        """Every kv head of blocks ``ids`` (what a prefill worker, which
+        runs the whole model, resumes from); on a mesh every rank takes
+        part in the gathers."""
+        rows = self._read_blocks(key, ids)
+        return self.pieces.whole_heads(rows) if self.pieces is not None \
+            else rows
+
+    def _read_stripe(self, key: str, slot: int, n: int) -> torch.Tensor:
+        """The first ``n`` rows of a dense slot's stripe, ``(L, n, K,
+        hd)``; on a mesh the rank's heads, from the ranks that hold the
+        slot and its rows."""
+        if self.pieces is not None:
+            return self.pieces.read_slots(self.cache[key], [slot], n)[:, 0]
+        return self.cache[key][:, slot, :n]
+
+    def _write_stripe(self, key: str, slot: int, rows: torch.Tensor
+                      ) -> None:
+        """The inverse of :meth:`_read_stripe`."""
+        n = rows.shape[1]
+        if self.pieces is not None:
+            self.pieces.write_slots(self.cache[key], np.asarray([slot]),
+                                    rows[:, None].to(self.device), n)
+        else:
+            self.cache[key][:, slot, :n] = rows.to(self.device)
 
     # ---------------- grow-on-demand grants + the ladder --------------
     def _needs_block(self, r: Request) -> bool:
@@ -1734,9 +1836,7 @@ class ServeEngine:
         block it asks for (the idlest wins).  A slot holding a shared
         block stays put: the sharers' tables point at the original
         ids."""
-        if self.pool_groups <= 1 or self.pieces is not None:
-            # on a mesh another sub-pool is another data shard's piece:
-            # moving rows there waits for ROADMAP item 10b
+        if self.pool_groups <= 1:
             return False
         if any(self._alloc.refcount(b) > 1 for b in r.blocks):
             return False
@@ -1758,10 +1858,11 @@ class ServeEngine:
         assert new_blocks is not None, "donor free count was just checked"
         old = list(r.blocks)
         if old:
-            old_ids = self._ids(old)
-            new_ids = self._ids(new_blocks[:len(old)])
+            # on a mesh the old owner's rows reach the new owner (another
+            # data shard's sub-pool) through the pool's ranks
             for key in ("k", "v"):
-                self.cache[key][:, new_ids] = self.cache[key][:, old_ids]
+                self._write_blocks(key, new_blocks[:len(old)],
+                                   self._read_blocks(key, old))
         for key in ("ssm", "conv"):
             if key in self.cache:
                 self._write_state(key, [s2], self._read_state(key, [s1]))
@@ -1798,7 +1899,7 @@ class ServeEngine:
                            if self._alloc.refcount(b) > 1)
             lo = min(shared(a) for a in cands)
             cands = [a for a in cands if shared(a) == lo]
-        self._preempt(self.preemption.pick_victim(cands, time.time()))
+        self._preempt(self.preemption.pick_victim(cands, self._now()))
 
     def _preempt(self, r: Request) -> None:
         """Evict an active request to the host side.  With tiering on it
@@ -1815,7 +1916,7 @@ class ServeEngine:
         self._preempt_ticks.append(self.tick)
         shed_why = ""
         delay = 0
-        if r.deadline is not None and time.time() > r.deadline:
+        if r.deadline is not None and self._now() > r.deadline:
             shed_why = ("deadline missed at preemption: a re-prefill "
                         "could not finish in time")
         else:
@@ -1877,8 +1978,8 @@ class ServeEngine:
             self.cache["block_tbl"][slot] = -1
         elif self.arch.has_attention and self.kv_residency == "dense":
             n = st["slot_len"]
-            st["kv_rows"] = (self._host_copy(self.cache["k"][:, slot, :n]),
-                             self._host_copy(self.cache["v"][:, slot, :n]))
+            st["kv_rows"] = tuple(self._host_copy(self._read_stripe(
+                key, slot, n)) for key in ("k", "v"))
         for key in ("ssm", "conv"):
             if key in self.cache:
                 st[key] = self._host_copy(self._read_state(key, [slot])[:, 0])
@@ -1902,7 +2003,7 @@ class ServeEngine:
     def _shed_expired_pending(self) -> None:
         if not any(r.deadline is not None for r in self.pending):
             return
-        now = time.time()
+        now = self._now()
         keep: List[Request] = []
         for r in self.pending:
             if r.deadline is not None and now > r.deadline:
@@ -1931,7 +2032,7 @@ class ServeEngine:
                 self.pending.insert(0, p.request)
                 continue
             r = p.request
-            if r.deadline is not None and time.time() > r.deadline:
+            if r.deadline is not None and self._now() > r.deadline:
                 self._drop_parked(p)
                 self._shed(r, f"deadline missed while parked "
                               f"(tick {self.tick})")
@@ -1988,10 +2089,8 @@ class ServeEngine:
         else:
             slot = min(self.free_slots)
             if "kv_rows" in st:
-                n = st["slot_len"]
-                k_rows, v_rows = st["kv_rows"]
-                self.cache["k"][:, slot, :n] = k_rows.to(self.device)
-                self.cache["v"][:, slot, :n] = v_rows.to(self.device)
+                for key, rows in zip(("k", "v"), st["kv_rows"]):
+                    self._write_stripe(key, slot, rows)
         for key in ("ssm", "conv"):
             if key in st:
                 self._write_state(key, [slot], st[key][:, None])
@@ -2113,6 +2212,8 @@ class ServeEngine:
         active slot.  Returns the number of requests that finished."""
         t0 = time.perf_counter()
         self.tick += 1
+        if self.pieces is not None:
+            self._mesh_now = self._mesh_clock()
         if self.kv_residency == "paged" and \
                 self.tick % self.preemption.shed_window_ticks == 0:
             # a new low-water epoch once a window: one transient dip must

@@ -23,9 +23,26 @@ cache writes and block reads through it:
   JAX package's partitioner moves them where its ``shard_map`` wants
   them).
 
+The host spill tier behind a paged pool (the engine's ``_host``) has one
+piece a rank, of :attr:`MeshPieces.host_kv_heads` kv heads and every
+host block: where the kv heads split (``kv_split == "heads"``) a rank's
+host rows are its own heads of every spilled block, so a spill and a
+promote copy rank-local rows only; where the pool splits by blocks
+(``"rows"``) every rank holds every head of every spilled block, a whole
+copy of the tier: a spill gathers the block's rows from its owner
+(:meth:`MeshPieces.read_blocks`) onto every rank of the pool's axes, and
+a promote writes each new id's rows on the rank that owns it
+(:meth:`MeshPieces.write_blocks`), whichever data shard that is, with no
+further collective.  Rows made with every head (a prefill worker's
+chunks) are cut to the rank's heads by :meth:`MeshPieces.cut_heads`, and
+a rank's rows are made whole again by :meth:`MeshPieces.whole_heads`.
+
 Every rank runs the same engine loop on the same requests; the host
 decisions are the same on every rank, so the collectives in the model
-code and in :meth:`MeshPieces.read_blocks` line up.
+code and in :meth:`MeshPieces.read_blocks` line up.  What only one rank
+learns (a prefill fleet's events, owned by the mesh's first rank) reaches
+the others through :meth:`MeshPieces.bcast` and
+:meth:`MeshPieces.bcast_object` before any rank acts on it.
 """
 
 from __future__ import annotations
@@ -36,7 +53,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist import sharding
+from repro_torch.dist import collectives, fsdp, sharding
 from repro_torch.dist.sharding import P
 
 #: cache keys the engine keeps whole on every rank
@@ -138,6 +155,20 @@ class MeshPieces:
             i, n = sharding.shard_index(mesh, spec[2]) if spec[2] \
                 else (0, 1)
             self.s0, self.sn = i * (S // n), S // n
+        # the rank's kv heads of the whole cache (all of them unless the
+        # heads split), and the axes a dense stripe's slots and rows
+        # split over
+        self.kv_h0, self.kv_hn, self.head_axes = 0, 0, ()
+        self.slot_axes: Tuple[str, ...] = ()
+        if spec is not None:
+            K = self.cache_shapes["k"][3]
+            i, n = sharding.shard_index(mesh, spec[3]) if spec[3] \
+                else (0, 1)
+            self.kv_h0, self.kv_hn = i * (K // n), K // n
+            self.head_axes = sharding._names(spec[3])
+            if not self.paged:
+                self.slot_axes = (sharding._names(spec[1])
+                                  + sharding._names(spec[2]))
         # the per-slot SSM states' slots (all of them where the batch
         # does not split)
         st = self.cache_specs.get("ssm")
@@ -146,6 +177,18 @@ class MeshPieces:
             B = self.cache_shapes["ssm"][1]
             i, n = sharding.shard_index(mesh, st[1]) if st[1] else (0, 1)
             self.st0, self.stn = i * (B // n), B // n
+
+    @property
+    def host_kv_heads(self) -> int:
+        """The kv heads of this rank's piece of the host spill tier: its
+        own where the heads split, every head otherwise."""
+        return self.kv_hn
+
+    @property
+    def is_root(self) -> bool:
+        """This rank is the mesh's first: the one that owns what lives
+        in one process only (a prefill fleet)."""
+        return dist.get_rank() == int(self.mesh.mesh.flatten()[0])
 
     def piece_shape(self, shape: Sequence[int], spec: Sequence[Any]
                     ) -> Tuple[int, ...]:
@@ -206,7 +249,8 @@ class MeshPieces:
     def write_blocks(self, t: torch.Tensor, ids: Sequence[int],
                      rows: torch.Tensor) -> None:
         """``t[:, id] = rows[:, i]`` for the blocks this rank's pool
-        piece holds (``rows`` ``(L, n, bl, K, hd)``)."""
+        piece holds (``rows`` ``(L, n, bl, K, hd)`` in the pool's head
+        layout, on any device: a promote's come from the host)."""
         ids = np.asarray(ids, np.int64)
         loc = ids - self.start
         mine = np.nonzero((loc >= 0) & (loc < t.shape[1]))[0]
@@ -214,7 +258,30 @@ class MeshPieces:
             return
         dev = t.device
         t[:, torch.as_tensor(loc[mine], device=dev)] = \
-            rows[:, torch.as_tensor(mine, device=rows.device)]
+            rows[:, torch.as_tensor(mine, device=rows.device)].to(dev)
+
+    def read_slots(self, t: torch.Tensor, slots: Sequence[int], n: int
+                   ) -> torch.Tensor:
+        """The first ``n`` rows of dense stripes ``slots``, ``(L,
+        len(slots), n, K, hd)`` in the cache's head layout, on every
+        rank: each rank puts in the slots and rows its piece holds, and
+        the ranks the batch and seq dims split over add them up (one
+        all-reduce an axis in fp32, exact: every row is held once).  The
+        inverse of :meth:`write_slots`."""
+        loc = np.asarray(slots, np.int64) - self.b0
+        mine = (loc >= 0) & (loc < self.bn)
+        idx = torch.as_tensor(np.where(mine, loc, 0), device=t.device)
+        out = torch.zeros((t.shape[0], len(loc), n, *t.shape[3:]),
+                          dtype=torch.float32, device=t.device)
+        lo, hi = self.s0, min(n, self.s0 + self.sn)
+        if hi > lo:
+            keep = torch.as_tensor(mine, device=t.device).view(
+                1, -1, 1, 1, 1)
+            out[:, :, lo:hi] = torch.where(
+                keep, t[:, idx, :hi - lo].float(), out[:, :, lo:hi])
+        for axis in self.slot_axes:
+            dist.all_reduce(out, group=self.mesh.get_group(axis))
+        return out.to(t.dtype)
 
     def write_state(self, t: torch.Tensor, slots: Sequence[int],
                     rows: torch.Tensor) -> None:
@@ -265,3 +332,76 @@ class MeshPieces:
         for axis in self.pool_axes:
             dist.all_reduce(out, group=self.mesh.get_group(axis))
         return out.to(t.dtype)
+
+    # ------------------------------------------------------------------
+    def cut_heads(self, rows: torch.Tensor) -> torch.Tensor:
+        """This rank's kv heads of rows made with every head (``(...,
+        K, hd)``: a prefill worker's chunks, a whole host row); the
+        rows as they are where the heads do not split."""
+        if self.kv_split != "heads":
+            return rows
+        return rows.narrow(-2, self.kv_h0, self.kv_hn)
+
+    def whole_heads(self, rows: torch.Tensor) -> torch.Tensor:
+        """Every kv head of rows in the pool's head layout (``(..., K,
+        hd)``), gathered from the ranks the heads split over (one
+        all-gather an axis; none where they do not split)."""
+        if self.kv_split != "heads":
+            return rows
+        return collectives.all_gather(
+            rows, rows.dim() - 2,
+            collectives.axes_groups(self.mesh, self.head_axes))
+
+    def param_bytes(self, params) -> Tuple[int, int]:
+        """``(bytes this rank holds, bytes of the whole weights)`` of
+        ``params``, the rank's pieces."""
+        held, whole = [0], [0]
+
+        def add(t, w):
+            held[0] += t.numel() * t.element_size()
+            whole[0] += int(np.prod(w)) * t.element_size()
+        _tree(add, params, self.param_shapes)
+        return held[0], whole[0]
+
+    def whole_params(self, params) -> Dict[str, Any]:
+        """The whole weights from the ranks' pieces, on the mesh's first
+        rank: each leaf gathered over the axes its spec splits it across
+        (:func:`repro_torch.dist.fsdp.whole`).  Every rank of the mesh
+        must call it; the others get ``None`` leaves (each whole leaf
+        dropped as soon as it is gathered)."""
+        def gather(t, spec):
+            t = fsdp.whole(t, spec, self.mesh)
+            return t if self.is_root else None
+        return _tree(gather, params, self.param_specs)
+
+    def _stages(self):
+        """``(group, source global rank)`` of the broadcast stages this
+        rank takes part in to carry a value of the mesh's first rank to
+        every rank: stage ``j`` runs along mesh dim ``j`` from its
+        coordinate 0 among the ranks whose later coordinates are 0, so
+        after the last stage every rank has it."""
+        coord = list(self.mesh.get_coordinate())
+        grid = self.mesh.mesh
+        out = []
+        for j in range(grid.dim()):
+            if grid.shape[j] == 1 or any(coord[j + 1:]):
+                continue
+            src = list(coord)
+            src[j] = 0
+            out.append((self.mesh.get_group(j), int(grid[tuple(src)])))
+        return out
+
+    def bcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Broadcast ``t`` in place from the mesh's first rank to every
+        rank of the mesh (``torch.distributed.broadcast``, which gloo
+        carries for CUDA tensors too); returns ``t``."""
+        for g, src in self._stages():
+            dist.broadcast(t, src=src, group=g)
+        return t
+
+    def bcast_object(self, obj: Any) -> Any:
+        """The mesh's first rank's ``obj`` (picklable) on every rank."""
+        box = [obj]
+        for g, src in self._stages():
+            dist.broadcast_object_list(box, src=src, group=g)
+        return box[0]

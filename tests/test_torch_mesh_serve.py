@@ -42,7 +42,8 @@ qwen3-8b through every placement the plans give it:
   do not split two ways): tokens against the JAX engine's on one device
   and the port's unsharded engine's, as the cells above;
 * ``elastic_mesh`` over the world (a ``DeviceMesh`` of the survivors, and
-  both typed errors), and the refusals that name ROADMAP item 10b.
+  both typed errors), the refusals that name ROADMAP item 10b, and the
+  plan's host tier and a prefill fleet built on a (1, 2) mesh.
 
 Every rank runs the same engine loop; each rank's tokens are saved and
 must agree.
@@ -243,18 +244,23 @@ def _serve_world(rank, world, tmp):
             fault.elastic_mesh(n, mp_)
         except RuntimeError as e:
             res[f"elastic_{n}"] = str(e)
-    # what a mesh does not serve yet
+    # what a mesh serves since the host tier and disagg came to it: the
+    # plan's host tier (clamped as on one card) and a prefill fleet
     arch = _arch()
     plan = _plan(arch, (1, 2), 64, 4)
     params = _params(arch, plan)
-    for what, kw in (("host_tier", {"kv_host_blocks": 8}),
-                     ("disagg", {"kv_prefill_mode": "disagg",
-                                 "disagg_workers": 1})):
-        try:
-            ServeEngine.from_plan(plan, params, arch=arch, mesh=_mesh((1, 2)),
-                                  **kw)
-        except NotImplementedError as e:
-            res[f"{what}_refused"] = str(e)
+    est = plan.estimates
+    eng = ServeEngine.from_plan(plan, params, arch=arch, mesh=_mesh((1, 2)))
+    cap = 4 * -(-64 // int(est["kv_block_len"]))
+    res["host_tier"] = (eng.host_blocks,
+                        min(int(est["kv_host_blocks"]), 8 * cap),
+                        eng._host is not None)
+    eng = ServeEngine.from_plan(plan, params, arch=arch, mesh=_mesh((1, 2)),
+                                kv_prefill_mode="disagg", disagg_workers=1)
+    try:
+        res["disagg_mode"] = eng.prefill_mode
+    finally:
+        eng.shutdown()
     # several data axes, and a cache split on its head_dim
     pod = DeviceMesh("cpu", torch.arange(8).reshape(2, 2, 2),
                      mesh_dim_names=("pod", "data", "model"))
@@ -582,14 +588,17 @@ def test_elastic_mesh_is_a_device_mesh_of_the_survivors(world):
 
 
 def test_what_a_mesh_does_not_serve_names_item_10b(world):
-    """What stays refused on a mesh: the host tier, disaggregated
-    prefill workers, several data axes and a cache split on its
-    head_dim (SSM and hybrid archs serve: the cells above)."""
+    """What stays refused on a mesh: several data axes and a cache split
+    on its head_dim.  The host tier and a prefill fleet now build there:
+    the plan's clamped host tier is kept (allocated as the rank's
+    piece), and a fleet of one worker turns the prefill mode to
+    ``disagg`` (SSM and hybrid archs serve: the cells above;
+    ``tests/test_torch_mesh_tier.py`` serves the tier and the fleet)."""
     ranks, _, _, _ = world
-    assert "ROADMAP item 10b" in ranks[0]["host_tier_refused"]
-    assert "host tier" in ranks[0]["host_tier_refused"]
-    assert "ROADMAP item 10b" in ranks[0]["disagg_refused"]
-    assert "disaggregated prefill" in ranks[0]["disagg_refused"]
+    for r in ranks:
+        got, want, allocated = r["host_tier"]
+        assert got == want > 0 and allocated
+        assert r["disagg_mode"] == "disagg"
     assert "ROADMAP item 10b" in ranks[0]["data_axes_refused"]
     assert "data axes" in ranks[0]["data_axes_refused"]
     assert "ROADMAP item 10b" in ranks[0]["head_dim_refused"]
