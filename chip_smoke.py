@@ -6347,6 +6347,11 @@ SSM_MESH_PROMPTS, SSM_MESH_TOKENS = (1100, 300, 160, 96), 8
 SSM_GRAD_LAYERS = 2
 #: (d)'s steps (the fit of (c) takes :data:`MESH_TRAIN_STEPS`)
 SSM_MESH_FSDP_STEPS = 2
+#: (c)'s second fit: hymba's (1, 2) plan cut to this depth, its peak
+#: against its estimate under the same :data:`MESH_PEAK_SLACK` (the
+#: estimate once overshot 1.24x here: the rank's vocab piece and state,
+#: F5), for :data:`SSM_MESH_FSDP_STEPS` steps
+SSM_SHALLOW_LAYERS = 8
 #: the plan estimates a one-rank engine takes from the (1, 2) plan, so
 #: both draw the same weights and run the same dead heads
 PADDED_KEYS = ("vocab_padded", "heads_padded", "kv_heads_padded",
@@ -6436,6 +6441,7 @@ def ssm_mesh_train_plans(torch):
                                mesh_shape=(1, 2), target="h100-sxm",
                                cache=False)
     out["grads"] = cut_plan(get_arch("hymba-1.5b"), SSM_GRAD_LAYERS)
+    out["shallow"] = cut_plan(get_arch("hymba-1.5b"), SSM_SHALLOW_LAYERS)
     for name in ("hymba-1.5b", "mamba2-2.7b"):
         arch = get_arch(name)
         plan = functools.partial(cut_plan, arch)
@@ -6520,6 +6526,11 @@ def _ssm_mesh_rank(rank: int, tmp: str, src: str) -> None:
         out["fit"] = _mesh_fit(torch, dev, plan, arch, shape, mesh)[2]
         torch.cuda.empty_cache()
         lap("fit")
+        arch, plan = plans["shallow"]
+        out["fit_shallow"] = _mesh_fit(torch, dev, plan, arch, shape, mesh,
+                                       steps=SSM_MESH_FSDP_STEPS)[2]
+        torch.cuda.empty_cache()
+        lap("fit_shallow")
         arch, plan = plans["mamba2-2.7b"]
         out["fsdp"] = _mesh_fit(torch, dev, plan, arch, shape, mesh,
                                 steps=SSM_MESH_FSDP_STEPS)[2]
@@ -6742,7 +6753,29 @@ def ssm_mesh_phase(torch, dev):
                   f"{o['launches'][k]} times, not {MESH_TRAIN_STEPS} x "
                   f"{want_l[k]}")
             launches[k] += o["launches"][k]
+    # F5: the same plan cut to SSM_SHALLOW_LAYERS, under the same bar
+    sarch, splan = plans["shallow"]
+    want_s = expected_train_launches(sarch, splan.comm.remat_policy)
+    for r, out in enumerate(ranks):
+        o = out["fit_shallow"]
+        ratio = o["estimate"] / o["peak"]
+        peaks[f"rank{r}/depth{sarch.n_layers}"] = (o["peak"], o["estimate"],
+                                                   ratio)
+        log(f"ssm mesh: (c) F5 rank {r} at depth {sarch.n_layers}: peak "
+            f"allocated {o['peak']} bytes, estimate {o['estimate']:.0f} "
+            f"({ratio:.4f} x the peak), {SSM_MESH_FSDP_STEPS} steps in "
+            f"{o['s']:.2f} s [{CARD}]")
+        check(o["peak"] <= o["estimate"] <= MESH_PEAK_SLACK * o["peak"],
+              f"ssm mesh: (c) rank {r} at depth {sarch.n_layers}: peak "
+              f"{o['peak']} against its estimate {o['estimate']}")
+        for k in ("ssd_scan", "ssd_scan_bwd", "flash_attention",
+                  "flash_attention_bwd"):
+            check(o["launches"][k] == SSM_MESH_FSDP_STEPS * want_s[k],
+                  f"ssm mesh: (c) rank {r} at depth {sarch.n_layers} "
+                  f"launched {k} {o['launches'][k]} times")
+            launches[k] += o["launches"][k]
     res["c"] = {"n_layers": arch.n_layers, "grad_layers": garch.n_layers,
+                "shallow_layers": sarch.n_layers,
                 "grad_row_rel": got,
                 "controls": controls, "loss_tol": loss_tol, "peaks": peaks,
                 "strategy": plan.estimates["strategy"],
@@ -7290,11 +7323,703 @@ def mesh_tier_checks(torch, dev, ranks, t0):
     return launches, res
 
 
+
+# ---------------------------------------------------------------------
+# phase 2c: K9, decode over a head_dim-split cache, pass by pass
+# ---------------------------------------------------------------------
+
+#: K9's checked instances: (label, query heads, kv heads, head_dim, model
+#: ranks m, window, timed).  hymba-1.5b's (1, 2) plan on the XLA decode
+#: (26 / 13 padded heads: (G, D / m) = (2, 32)) and its (1, 4) plan (28 /
+#: 7: (4, 16)), hymba's unpadded group of 5 split 2 and 4 ways, and
+#: qwen3-8b's widths split 2 ways (4, 64)
+SPLIT_CASES = (("hymba12", 26, 13, 64, 2, 1024, True),
+               ("hymba14", 28, 7, 64, 4, 1024, False),
+               ("g5m2", 25, 5, 64, 2, 0, True),
+               ("g5m4", 25, 5, 64, 4, 1024, False),
+               ("qwen3m2", 32, 8, 128, 2, 0, True))
+SPLIT_B, SPLIT_S, SPLIT_BL, SPLIT_N = 8, 2048, 256, 64
+#: K9 against its plain passes, row by row (one (slot, head)'s scores
+#: over the cache rows in pass 1; one head's context columns for one
+#: query in pass 2 and joined): fp32 scores and an fp32 softmax on both
+#: sides, the output rounded to bf16 on both, as the fused decode's
+TOL["decode_split"] = 3e-3
+
+
+def split_kernel_phase(torch, dev):
+    """K9 at full width, for each of :data:`SPLIT_CASES`, dense and
+    paged: every rank's pass 1 over its columns against the plain pass
+    1, the ranks' scores summed as the all-reduce sums them, every rank's
+    pass 2 on those scores against the plain pass 2, and the ranks'
+    columns joined against the plain unsharded decode; the planted
+    faults, a 16-byte column chunk dropped from one rank's pass 1 and
+    (paged) table entries 0 and 1 swapped in one rank's pass 2, must
+    fail the joined check.  The timed cases' rank-0 passes run in turns
+    (:data:`TURNS` rounds of CUDA-graph device time) with the unsharded
+    decode kernel at the same widths and, dense pass 1, one
+    ``torch.matmul`` of the same slice products, beside the byte bounds
+    of the slices' live rows and the score buffer."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+    g = torch.Generator(dev).manual_seed(SEED + 9)
+    tol = TOL["decode_split"]
+    B, S, bl, N = SPLIT_B, SPLIT_S, SPLIT_BL, SPLIT_N
+    nb = S // bl
+    worst = {"decode_split_scores": [0.0, 0.0],
+             "decode_split_context": [0.0, 0.0], "joined": 0.0}
+    controls = {"drop_chunk": [], "swap_entry": []}
+    timing = {}
+    for label, Hq, Kv, Dh, m, W, timed in SPLIT_CASES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+        q = rnd(B, Hq, Dh)
+        k, v = rnd(B, S, Kv, Dh), rnd(B, S, Kv, Dh)
+        kp, vp = rnd(N, bl, Kv, Dh), rnd(N, bl, Kv, Dh)
+        lens = torch.randint(1, S + 1, (B,), generator=g, device=dev,
+                             dtype=torch.int32)
+        lens[0], lens[1] = 1, S
+        tbl = torch.randperm(N, generator=g, device=dev).reshape(
+            B, nb).to(torch.int32)
+        used = torch.arange(nb, device=dev)[None] * bl < lens[:, None]
+        tbl = torch.where(used, tbl, -1).contiguous()
+        DS, scale = Dh // m, Dh ** -0.5
+        cols = [slice(r * DS, (r + 1) * DS) for r in range(m)]
+        for paged in (False, True):
+            kk, vv, tb = (kp, vp, tbl) if paged else (k, v, None)
+            want = (dec.paged_decode_attention_plain(
+                q, kp, vp, tbl, cache_len=lens, window=W) if paged else
+                dec.decode_attention_plain(q, k, v, cache_len=lens,
+                                           window=W))
+            qs = [q[..., c].contiguous() for c in cols]
+            ks = [kk[..., c].contiguous() for c in cols]
+            vs = [vv[..., c].contiguous() for c in cols]
+            kw = dict(cache_len=lens, window=W)
+            sc = []
+            for r in range(m):
+                got = dec.decode_split_scores(qs[r], ks[r], tb, scale=scale,
+                                              **kw)
+                ref = dec.decode_split_scores_plain(qs[r], ks[r], tb,
+                                                    scale=scale, **kw)
+                e, rel = row_err(torch, got, ref)
+                check(rel <= tol, f"K9 scores {label} paged={paged} rank "
+                      f"{r}: row rel {rel} > {tol}")
+                w = worst["decode_split_scores"]
+                w[0], w[1] = max(w[0], e), max(w[1], rel)
+                sc.append(got)
+            s = torch.stack(sc).sum(0)
+            ctx = []
+            for r in range(m):
+                got = dec.decode_split_context(s, vs[r], tb, **kw)
+                ref = dec.decode_split_context_plain(s, vs[r], tb, **kw)
+                e, rel = row_err(torch, got, ref)
+                check(rel <= tol, f"K9 context {label} paged={paged} rank "
+                      f"{r}: row rel {rel} > {tol}")
+                w = worst["decode_split_context"]
+                w[0], w[1] = max(w[0], e), max(w[1], rel)
+                ctx.append(got)
+            _, rel = row_err(torch, torch.cat(ctx, -1), want)
+            check(rel <= tol, f"K9 {label} paged={paged}: the ranks' "
+                  f"columns joined against the unsharded plain decode, "
+                  f"row rel {rel} > {tol}")
+            worst["joined"] = max(worst["joined"], rel)
+            # planted faults: each must fail the joined row check
+            bad = dec.decode_split_scores(qs[0], ks[0], tb, scale=scale,
+                                          drop_chunk=0, **kw)
+            sbad = s - sc[0] + bad
+            controls["drop_chunk"].append(control(
+                "decode_split", f"{label} paged={paged}: a column chunk "
+                "dropped from rank 0's pass 1", torch, torch.cat(
+                    [dec.decode_split_context(sbad, vs[r], tb, **kw)
+                     for r in range(m)], -1), want))
+            if paged:
+                swapped = [dec.decode_split_context(s, vs[0], tb,
+                                                    swap_entry=True, **kw)]
+                controls["swap_entry"].append(control(
+                    "decode_split", f"{label}: table entries 0 and 1 "
+                    "swapped in rank 0's pass 2", torch,
+                    torch.cat(swapped + ctx[1:], -1), want))
+            if not timed:
+                continue
+            lo = (lens - W).clamp_min(0) if W else torch.zeros_like(lens)
+            live = int((torch.minimum(lens, torch.full_like(lens, S))
+                        - lo).sum())
+            cap = S
+            fns = {"scores": functools.partial(
+                       dec.decode_split_scores, qs[0], ks[0], tb,
+                       scale=scale, **kw),
+                   "context": functools.partial(
+                       dec.decode_split_context, s, vs[0], tb, **kw)}
+            if dec.takes_group(Hq // Kv, Dh):
+                fns["unsharded"] = (
+                    functools.partial(dec.paged_decode_attention, q, kp, vp,
+                                      tbl, **kw) if paged else
+                    functools.partial(dec.decode_attention, q, k, v, **kw))
+            if not paged:
+                qg = qs[0].reshape(B, Kv, Hq // Kv, DS)
+                kt = ks[0].permute(0, 2, 3, 1).contiguous()
+                fns["matmul"] = functools.partial(torch.matmul, qg, kt)
+            med, rounds = in_turns(torch, fns, graph_ms)
+            pmed, _ = in_turns(torch, {
+                "scores": functools.partial(
+                    dec.decode_split_scores_plain, qs[0], ks[0], tb,
+                    scale=scale, **kw),
+                "context": functools.partial(
+                    dec.decode_split_context_plain, s, vs[0], tb, **kw)})
+            slice_bytes = live * Kv * DS * 2
+            b_sc = bound(slice_bytes + qs[0].numel() * 2 + B * Hq * cap * 4
+                         + B * 4, 2 * live * Hq * DS, PEAK_FP32)
+            b_cx = bound(slice_bytes + live * Hq * 4 + B * Hq * DS * 2
+                         + B * 4, 2 * live * Hq * DS, PEAK_FP32)
+            timing[(label, paged)] = {
+                "scores_ms": med["scores"], "context_ms": med["context"],
+                "unsharded_ms": med.get("unsharded"),
+                "matmul_ms": med.get("matmul"),
+                "plain_scores_ms": pmed["scores"],
+                "plain_context_ms": pmed["context"],
+                "bound_scores_ms": b_sc[0], "bound_context_ms": b_cx[0],
+                "bound_by": b_sc[1], "live_rows": live,
+                "rounds": {n: r for n, r in rounds.items()}}
+            log(f"timing K9 {label} ({Hq}/{Kv} x {Dh} over {m} ranks: "
+                f"{DS} columns) {'paged' if paged else 'dense'}: pass 1 "
+                f"{med['scores']:.4f} ms (bound {b_sc[0]:.4f}, plain "
+                f"{pmed['scores']:.4f}), pass 2 {med['context']:.4f} ms "
+                f"(bound {b_cx[0]:.4f}, plain {pmed['context']:.4f}), the "
+                f"unsharded decode kernel {med.get('unsharded')}, "
+                f"torch.matmul of the slice products {med.get('matmul')} "
+                f"in turns of {TURNS} [{CARD}]")
+        log(f"kernel K9 {label} ({Hq}/{Kv} x {Dh}, m = {m}, window {W}): "
+            f"passes dense and paged held at {tol} [{CARD}]")
+    head = timing[("hymba12", False)]
+    headp = timing[("hymba12", True)]
+    src = "src/repro_torch/kernels/csrc/decode_split.cu"
+    shape = (f"B={B} S={S} (paged: {N} blocks of {bl}) H=26 K=13 D=64 "
+             "over 2 ranks (32 columns), window 1024: hymba-1.5b's (1, 2) "
+             "plan on the XLA decode; rank 0's launch")
+    turns = {f"{lb} {'paged' if p else 'dense'}": t
+             for (lb, p), t in timing.items()}
+    out = {
+        "decode_split_scores": dict(
+            route="cuda", source=src,
+            replaces="src/repro/models/lm.py:697 (the head_dim-split "
+                     "decode through attention_decode, "
+                     "src/repro/models/attention.py:171)",
+            max_abs_err=worst["decode_split_scores"][0],
+            row_rel_err=worst["decode_split_scores"][1], tolerance=tol,
+            control_row_rel_err=min(controls["drop_chunk"]),
+            kernel_check_row_rel_err=worst["joined"],
+            ms=head["scores_ms"], plain_ms=head["plain_scores_ms"],
+            bound_ms=head["bound_scores_ms"], bound_by=head["bound_by"],
+            library_ms=head["matmul_ms"], shape=shape, shapes=turns,
+            library_call="torch.matmul of the rank's (B, K, G, 32) query "
+                         "slices with its (B, K, 32, S) key slices (every "
+                         "row; the kernel reads only the live ones)"),
+        "decode_split_context": dict(
+            route="cuda", source=src,
+            replaces="src/repro/models/lm.py:697 (the head_dim-split "
+                     "decode through attention_decode_paged, "
+                     "src/repro/models/attention.py:195)",
+            max_abs_err=worst["decode_split_context"][0],
+            row_rel_err=worst["decode_split_context"][1], tolerance=tol,
+            control_row_rel_err=min(controls["swap_entry"]),
+            kernel_check_row_rel_err=worst["joined"],
+            ms=headp["context_ms"], plain_ms=headp["plain_context_ms"],
+            bound_ms=headp["bound_context_ms"], bound_by=headp["bound_by"],
+            library_ms=None, shape=shape.replace("rank 0's launch",
+                                                 "rank 0's launch, paged"),
+            shapes=turns,
+            library_call="none: no library call takes a block table")}
+    ops.reset_launch_counts()       # comparison launches do not count
+    # torch.matmul captured in a CUDA graph leaves a cuBLAS workspace
+    # (32 MiB on this card) allocated for each stream it ran on; they
+    # would sit in every later phase's peak (the train phase's estimate
+    # check), so they are released here
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return out
+
+
+# ---------------------------------------------------------------------
+# phases 24e and 24f: several data axes, and a cache split on head_dim
+# ---------------------------------------------------------------------
+
+#: 24e: the production mesh's axes cut to one card's four ranks
+POD_MESH = (2, 2, 1)
+POD_AXES = ("pod", "data", "model")
+#: each of the four ranks may allocate this share of the card
+POD_FRACTION = 0.2
+#: 24e serving: hymba-1.5b's decode plan, two requests a data shard
+#: (one prompt past the 1,024 window), 8 tokens each
+POD_SERVE = ("serve_h100", "decode", 2048, 8)
+POD_PROMPTS, POD_TOKENS = (1100, 300, 160, 96, 700, 512, 257, 64), 8
+#: 24e training: hymba-1.5b at full width cut to this depth, one
+#: sequence a rank (its per-rank estimate ~5.7 GiB: four ranks' whole
+#: state ~23 GiB of the card), under the post-reduce error feedback and
+#: under the wire (``grad_compression="on"``: wire_dp = pod x data = 4)
+POD_TRAIN_SHAPE = ("mesh_pod", "train", 2048, 4)
+POD_TRAIN_LAYERS, POD_TRAIN_STEPS = 2, MESH_TRAIN_STEPS
+#: 24f: hymba-1.5b's (1, 2) plan on the XLA decode (kv heads 13 padded
+#: do not split two ways, so the cache splits on head_dim), dense and
+#: paged, the prompts of phase 24c
+HEAD_DIM_SERVE = ("serve_h100", "decode", 2048, 8)
+
+
+def _served_on_mesh(torch, dev, mesh, arch, plan, prompts, new_tokens):
+    """One rank's engine of ``plan`` on ``mesh``, built from the rank's
+    pieces, the prompts served: its launches, tokens, first logits,
+    decode path, split and peak."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sharded import param_pieces
+    params = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                            *plan.padded_sizes(),
+                            pieces=param_pieces(mesh, plan, arch))
+    torch.cuda.reset_peak_memory_stats()
+    eng = _recording_engine(ServeEngine).from_plan(plan, params, arch=arch,
+                                                   mesh=mesh)
+    del params
+    for p in prompts:
+        eng.submit(p, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_idle(max_ticks=4096)
+    torch.cuda.synchronize()
+    out = {"launches": ops.launch_counts(), "s": time.perf_counter() - t0,
+           "first": eng.first, "path": eng.decode_path,
+           "split": eng.cfg.kv_split, "groups": eng.pool_groups,
+           "cache": {k: tuple(v.shape) for k, v in eng.cache.items()},
+           "tokens": {r.rid: list(r.out_tokens) for r in done},
+           "ticks": eng.tick, "peak": torch.cuda.max_memory_allocated()}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _one_rank_served(torch, dev, arch, plan, one, prompts, new_tokens):
+    """The one-rank engine of ``one`` (``plan``'s padded sizes, no host
+    tier, no prefix reuse): tokens, margins, first logits, path."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    params = lm.init_params(arch, torch.Generator(dev).manual_seed(SEED),
+                            *plan.padded_sizes())
+    eng = _recording_engine(ServeEngine).from_plan(
+        one, params, arch=arch, kv_host_blocks=0, kv_prefix_reuse="off")
+    for p in prompts:
+        eng.submit(p, max_new_tokens=new_tokens)
+    done = eng.run_until_idle(max_ticks=4096)
+    out = ({r.rid: list(r.out_tokens) for r in done}, eng.margins,
+           eng.first, eng.decode_path)
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_served_checks(torch, what, recs, one):
+    """Every rank's tokens equal, and each rank's first-token logits
+    within :data:`FULL_TOL` rms-relative of the one-rank engine's (beside
+    another request's, which must not be), its tokens by the margin
+    rule.  Returns the rank-0 summary."""
+    want, margins, first, one_path = one
+    r0 = recs[0]
+    rels = []
+    for r, o in enumerate(recs):
+        check(o["tokens"] == r0["tokens"], f"{what}: rank {r}'s tokens "
+              "differ from rank 0's")
+        rel = {rid: _rms_rel(torch, o["first"][rid], row)
+               for rid, row in first.items()}
+        rels.append(max(rel.values()))
+        wrong = _rms_rel(torch, o["first"][1], first[0])
+        check(max(rel.values()) <= FULL_TOL < wrong,
+              f"{what}: rank {r} first logits {rel}, control {wrong}")
+    compared, splits = _margin_rule(what, r0["tokens"], want, margins)
+    return {"path": r0["path"], "split": r0["split"], "one_path": one_path,
+            "first_logits_rms_rel": rels, "tokens_compared": compared,
+            "tokens": sum(len(t) for t in want.values()), "splits": splits,
+            "s": [o["s"] for o in recs], "peak": [o["peak"] for o in recs],
+            "ticks": r0["ticks"], "cache": r0["cache"]}
+
+
+def _prompts_of(arch, lens, seed):
+    import numpy as np
+    rng = np.random.default_rng(SEED + seed)
+    return [rng.integers(0, arch.vocab_size, n).astype(np.int32)
+            for n in lens]
+
+
+def pod_plans(grad_compression=None):
+    """24e's plans of hymba-1.5b on :data:`POD_MESH`: ``(arch, serve
+    plan, one-rank serve plan)`` and ``(cut arch, train plan, one-rank
+    train plan)`` (``grad_compression="on"``: the wire)."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    arch = get_arch("hymba-1.5b")
+    kw = dict(mesh_axes=POD_AXES, mesh_shape=POD_MESH, target="h100-sxm",
+              cache=False)
+    splan = specialize(arch, ShapeConfig(*POD_SERVE), **kw)
+    sone = specialize(arch, ShapeConfig(*POD_SERVE), mesh_shape=(1, 1),
+                      target="h100-sxm", cache=False)
+    sone = dataclasses.replace(sone, estimates={
+        **sone.estimates, **{k: splan.estimates[k] for k in PADDED_KEYS
+                             if k in splan.estimates}})
+    cut = dataclasses.replace(arch, n_layers=POD_TRAIN_LAYERS)
+    tshape = ShapeConfig(*POD_TRAIN_SHAPE)
+    gc_kw = {} if grad_compression is None else {
+        "grad_compression": grad_compression}
+    tplan = specialize(cut, tshape, **kw, **gc_kw)
+    return (arch, splan, sone), (cut, tplan, tshape)
+
+
+def _pod_rank(rank: int, tmp: str, src: str) -> None:
+    """One of phase 24e's four ranks on ``cuda:0`` over gloo, held to
+    :data:`POD_FRACTION` of the card, on the ``(pod, data, model)`` mesh
+    :data:`POD_MESH`: hymba-1.5b served; the last layer's gradients of
+    the cut train plan (the rank's share of the batch mean, summed over
+    the four ranks on the host; the rank's share alone as the planted
+    control); the fit under the post-reduce error feedback, then under
+    the wire."""
+    import datetime
+    import os
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    torch.cuda.set_per_process_memory_fraction(POD_FRACTION, 0)
+    dev = torch.device("cuda", 0)
+    out = {}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                rank=rank, world_size=4,
+                                timeout=datetime.timedelta(seconds=600))
+        mesh = init_device_mesh("cuda", POD_MESH, mesh_dim_names=POD_AXES)
+        t0, out["times"] = time.perf_counter(), {}
+        (arch, splan, _), (cut, tplan, tshape) = pod_plans()
+        out["serve"] = _served_on_mesh(
+            torch, dev, mesh, arch, splan,
+            _prompts_of(arch, POD_PROMPTS, 11), POD_TOKENS)
+        out["times"]["serve"] = time.perf_counter() - t0
+        batches = _mesh_batches(cut, tshape)
+        tr, state = _mesh_trainer(torch, dev, tplan, cut, tshape, mesh)
+        lay = tr.step_def.layout
+        b0 = {k: lay.batch_rows(v, 0)
+              for k, v in _on_dev(torch, batches[0], dev).items()}
+        loss, share = _layer_grads(torch, cut, state["params"], b0,
+                                   tr.step_def.cfg, lay)
+        summed = {}
+        for n, g in share.items():
+            t = g.clone()
+            dist.all_reduce(t)
+            summed[n] = t
+        out["grads"] = (loss, summed)
+        out["grads_share"] = share
+        out["layout"] = (lay.batch_axes, lay.batch_index, lay.batch_count)
+        del tr, state
+        torch.cuda.empty_cache()
+        out["times"]["grads"] = time.perf_counter() - t0
+        out["ef"] = _mesh_fit(torch, dev, tplan, cut, tshape, mesh,
+                              steps=POD_TRAIN_STEPS)[2]
+        torch.cuda.empty_cache()
+        out["times"]["ef"] = time.perf_counter() - t0
+        _, (_, wplan, _) = pod_plans("on")
+        out["wire"] = _mesh_fit(torch, dev, wplan, cut, tshape, mesh,
+                                steps=POD_TRAIN_STEPS)[2]
+        out["times"]["wire"] = time.perf_counter() - t0
+    except Exception:
+        import traceback
+        out["error"] = traceback.format_exc()[-4000:]
+    torch.save(out, os.path.join(tmp, f"r{rank}.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(torch, target, n: int, what: str, timeout: int = 600):
+    """``target(rank, tmp, src)`` on ``n`` spawned ranks; their records
+    (a rank that left none, or an error, fails the run)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=target,
+                             args=(r, tmp, str(SRC_IN_USE)))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=timeout)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks = []
+        for r, p in enumerate(procs):
+            path = Path(tmp) / f"r{r}.pt"
+            check(path.exists(), f"{what}: rank {r} left no result "
+                  f"(exit {p.exitcode})")
+            ranks.append(torch.load(path, weights_only=False))
+    for r, out in enumerate(ranks):
+        check("error" not in out, f"{what}: rank {r} failed: "
+              f"{out.get('error')}")
+    return ranks
+
+
+def pod_mesh_phase(torch, dev):
+    """Phase 24e: four ranks spawned on ``cuda:0`` over gloo on the
+    production mesh's axes cut to :data:`POD_MESH` ``(pod, data,
+    model)``, each held to :data:`POD_FRACTION` of the card.  Serving:
+    hymba-1.5b at full width and depth from its decode plan (the batch
+    and a 2-D pool over the linearised ``(pod, data)`` data group, two
+    requests a data shard), each rank's tokens and first-token logits
+    held against one rank's engine on the same plan.  Training:
+    hymba-1.5b cut to :data:`POD_TRAIN_LAYERS` layers, one sequence a
+    rank: the last layer's gradients summed over the ranks against one
+    rank's on the whole batch (the rank's share alone and a wrong target
+    as controls), the fit under the post-reduce error feedback (an fp32
+    sum over ``(pod, data)``, then ``ef_compress``) and under the wire
+    (``wire_dp = 4``), losses and grad norms held against one rank's fit
+    of the same plan.  Returns ``(launches over the four ranks, the
+    results)``."""
+    import os
+    t0 = time.perf_counter()
+    (arch, splan, sone), (cut, tplan, tshape) = pod_plans()
+    _, (_, wplan, _) = pod_plans("on")
+    gib = 2 ** 30
+    check(tplan.axis_rules["batch"] == ("pod", "data")
+          and tplan.comm.compress_pod_grads and wplan.comm.compress_grads,
+          f"pod mesh: the train plans' batch rule "
+          f"{tplan.axis_rules['batch']}")
+    log(f"pod mesh: hymba-1.5b on {POD_MESH} {POD_AXES}: serve plan "
+        f"{splan.estimates.get('kv_residency')}, train at depth "
+        f"{cut.n_layers} {tplan.estimates['strategy']} estimate "
+        f"{tplan.estimates['step_peak_bytes'] / gib:.3f} GiB a rank "
+        f"(four ranks {4 * tplan.estimates['step_peak_bytes'] / gib:.3f} "
+        f"GiB), the wire's {wplan.estimates['step_peak_bytes'] / gib:.3f} "
+        f"GiB, wire_dp {wplan.estimates.get('grad_compress_lowered')} "
+        f"[{CARD}]")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    ranks = _spawn_ranks(torch, _pod_rank, 4, "pod mesh")
+    t_ranks = time.perf_counter() - t0
+    res = {"ranks_s": t_ranks, "rank_laps_s": ranks[0]["times"]}
+    # serving against one rank
+    prompts = _prompts_of(arch, POD_PROMPTS, 11)
+    one = _one_rank_served(torch, dev, arch, splan, sone, prompts,
+                           POD_TOKENS)
+    res["serve"] = _mesh_served_checks(torch, "pod mesh: serve",
+                                       [o["serve"] for o in ranks], one)
+    r0 = ranks[0]["serve"]
+    check(r0["groups"] == 4 and r0["path"] == "shard_map_flash_paged_2d",
+          f"pod mesh: serve path {r0['path']}, {r0['groups']} sub-pools")
+    launches = {k: 0 for k in ("flash_attention", "paged_decode_partial",
+                               "ssd_scan", "flash_attention_bwd",
+                               "ssd_scan_bwd")}
+    for o in ranks:
+        c = o["serve"]["launches"]
+        check(c["flash_attention"] > 0 and c["paged_decode_partial"] > 0
+              and c["ssd_scan"] > 0, f"pod mesh: serve launched {c}")
+        for k in ("flash_attention", "paged_decode_partial", "ssd_scan"):
+            launches[k] += c[k]
+    s = res["serve"]
+    log(f"pod mesh: serve hymba-1.5b {len(POD_PROMPTS)} requests x "
+        f"{POD_TOKENS} tokens on {POD_MESH}: path {s['path']} (one rank "
+        f"{s['one_path']}), 4 data shards' sub-pools, {s['tokens_compared']}"
+        f" of {s['tokens']} tokens equal the one-rank engine's before the "
+        f"first margin-rule split {s['splits']}, first-token logits "
+        f"rms-relative {fmt(s['first_logits_rms_rel'])} a rank (bound "
+        f"{FULL_TOL}), {fmt(s['s'])} s a rank, peak {s['peak']} bytes "
+        f"[{CARD}]")
+    # training against one rank
+    for o in ranks:
+        check(o["layout"][0] == ("pod", "data") and o["layout"][2] == 4,
+              f"pod mesh: a rank's batch layout {o['layout']}")
+    check(sorted(o["layout"][1] for o in ranks) == [0, 1, 2, 3],
+          "pod mesh: the ranks' batch slices are not 0..3")
+    batches = _mesh_batches(cut, tshape)
+    anchor = _mesh_anchor(torch, dev, tplan, cut, tshape, batches)
+    loss_tol = max(MESH_LOSS_MIN, 4 * abs(
+        anchor["fit"]["hist"][0][0] - anchor["plain_loss"]) / abs(
+            anchor["plain_loss"]))
+    want = anchor["grads"][1]
+    got = {n: grad_row_err(torch, g, want[n])[1]
+           for n, g in ranks[0]["grads"][1].items()}
+    share = {n: grad_row_err(torch, g, want[n])[1]
+             for n, g in ranks[0]["grads_share"].items()}
+    wrong = {n: grad_row_err(torch, anchor["wrong_grads"][1][n], want[n])[1]
+             for n in want}
+    log(f"pod mesh: train the last layer's gradients at depth "
+        f"{cut.n_layers}, summed over the four ranks against one rank, "
+        f"worst row rel {max(got.values()):.3e} (tol {MESH_GRAD_TOL}); "
+        f"controls: the rank's share alone {max(share.values()):.3e}, a "
+        f"wrong target {max(wrong.values()):.3e} [{CARD}]")
+    check(max(got.values()) <= MESH_GRAD_TOL,
+          f"pod mesh: gradients {got}")
+    check(max(share.values()) > MESH_GRAD_TOL,
+          f"pod mesh: the unsummed-share control passed {share}")
+    check(max(wrong.values()) > MESH_GRAD_TOL,
+          f"pod mesh: the wrong-target control passed {wrong}")
+    peaks = {}
+    for r, out in enumerate(ranks):
+        for k, wire in (("ef", 0), ("wire", 4)):
+            o = out[k]
+            check(o["wire"] == wire and o["ef"],
+                  f"pod mesh: rank {r} {k}: wire {o['wire']} ef {o['ef']}")
+            _mesh_track(f"pod {k} rank {r}", o, anchor["fit"], loss_tol)
+            peaks[f"rank{r}/{k}"] = (o["peak"], o["estimate"],
+                                     o["estimate"] / o["peak"])
+            log(f"pod mesh: rank {r} {k}: peak allocated {o['peak']} bytes"
+                f", estimate {o['estimate']:.0f} ({o['estimate'] / o['peak']:.4f}"
+                f" x the peak), {POD_TRAIN_STEPS} steps in {o['s']:.2f} s "
+                f"[{CARD}]")
+            check(o["peak"] <= o["estimate"] <= MESH_PEAK_SLACK * o["peak"],
+                  f"pod mesh: rank {r} {k} peak {o['peak']} against its "
+                  f"estimate {o['estimate']}")
+            for name in ("flash_attention_bwd", "ssd_scan_bwd",
+                         "flash_attention", "ssd_scan"):
+                check(o["launches"][name] > 0, f"pod mesh: rank {r} {k} "
+                      f"launched {name} no time")
+                launches[name] += o["launches"][name]
+    res["train"] = {"n_layers": cut.n_layers, "grad_row_rel": got,
+                    "controls": {"share_alone": share, "wrong_target": wrong},
+                    "loss_tol": loss_tol, "peaks": peaks,
+                    "ef": [o["ef"]["hist"] for o in ranks],
+                    "wire": [o["wire"]["hist"] for o in ranks],
+                    "one_rank": anchor["fit"]["hist"],
+                    "s": {k: [o[k]["s"] for o in ranks]
+                          for k in ("ef", "wire")}}
+    del anchor
+    torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"pod mesh: phase took {res['phase_s']:.1f} s (ranks "
+        f"{t_ranks:.1f} s), launches over the four ranks {launches} "
+        f"[{CARD}]")
+    return launches, res
+
+
+def head_dim_plans(residency):
+    """24f's ``(arch, (1, 2) plan, one-rank plan)`` of hymba-1.5b at
+    :data:`HEAD_DIM_SERVE`, ``residency`` ``"paged"`` or ``"dense"``: the
+    (1, 2) plan on the XLA decode (the cache splits on head_dim); the
+    one-rank plan carries its padded sizes."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    arch = get_arch("hymba-1.5b")
+    shape = ShapeConfig(*HEAD_DIM_SERVE)
+    kw = {} if residency == "paged" else {"kv_residency": "dense"}
+    tp_plan = specialize(arch, shape, mesh_axes=("data", "model"),
+                         mesh_shape=(1, 2), target="h100-sxm", cache=False,
+                         decode_impl="xla", **kw)
+    one = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
+                     cache=False, **kw)
+    est = dict(one.estimates)
+    est.update({k: tp_plan.estimates[k] for k in PADDED_KEYS
+                if k in tp_plan.estimates})
+    return arch, tp_plan, dataclasses.replace(one, estimates=est)
+
+
+def _head_dim_rank(rank: int, tmp: str, src: str) -> None:
+    """One of phase 24f's two ranks on ``cuda:0`` over gloo, held to
+    :data:`MESH_TRAIN_FRACTION` of the card: hymba-1.5b's (1, 2)
+    head_dim-split engine served, dense then paged."""
+    import datetime
+    import os
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    torch.cuda.set_per_process_memory_fraction(MESH_TRAIN_FRACTION, 0)
+    dev = torch.device("cuda", 0)
+    out = {}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=600))
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        for residency in ("dense", "paged"):
+            arch, plan, _ = head_dim_plans(residency)
+            out[residency] = _served_on_mesh(
+                torch, dev, mesh, arch, plan, _ssm_mesh_prompts(arch),
+                SSM_MESH_TOKENS)
+    except Exception:
+        import traceback
+        out["error"] = traceback.format_exc()[-4000:]
+    torch.save(out, os.path.join(tmp, f"r{rank}.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def head_dim_phase(torch, dev):
+    """Phase 24f: two ranks spawned on ``cuda:0`` over gloo serve
+    hymba-1.5b at full width and depth from its (1, 2) plan on the XLA
+    decode, whose cache splits on head_dim (each rank 32 of every kv
+    head's 64 columns), dense and paged, with the window layers and the
+    global layers (one prompt past the window): every decode tick runs
+    K9's two passes a layer around an all-reduce of the scores.  Each
+    rank's tokens and first-token logits are held against one rank's
+    engine on the same padded sizes, and K9's launches are counted.
+    Returns ``(K9's launches over both ranks, the results)``."""
+    import os
+    t0 = time.perf_counter()
+    for residency in ("dense", "paged"):
+        arch, plan, _ = head_dim_plans(residency)
+        check(plan.placements["cache.k"].spec[4] == "model",
+              f"head_dim: the (1, 2) {residency} plan's cache is "
+              f"{plan.placements['cache.k'].spec}")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    ranks = _spawn_ranks(torch, _head_dim_rank, 2, "head_dim")
+    t_ranks = time.perf_counter() - t0
+    res = {"ranks_s": t_ranks}
+    launches = {"decode_split_scores": 0, "decode_split_context": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+    L = arch.n_layers
+    for residency in ("dense", "paged"):
+        arch, plan, one_plan = head_dim_plans(residency)
+        prompts = _ssm_mesh_prompts(arch)
+        one = _one_rank_served(torch, dev, arch, plan, one_plan, prompts,
+                               SSM_MESH_TOKENS)
+        recs = [o[residency] for o in ranks]
+        r = _mesh_served_checks(torch, f"head_dim {residency}", recs, one)
+        check(r["split"] == "head_dim" and r["path"] == "decode_split:cuda",
+              f"head_dim {residency}: split {r['split']}, path {r['path']}")
+        check(r["cache"]["k"][-1] == arch.hd // 2,
+              f"head_dim {residency}: cache piece {r['cache']['k']}")
+        for o in recs:
+            c = o["launches"]
+            check(c["decode_split_scores"] == c["decode_split_context"] > 0
+                  and c["decode_split_scores"] % L == 0
+                  and c["paged_decode_attention"] == 0
+                  and c["decode_attention"] == 0,
+                  f"head_dim {residency}: a rank launched {c}")
+            for k in launches:
+                launches[k] += c[k]
+        r["launches"] = [o["launches"] for o in recs]
+        res[residency] = r
+        log(f"head_dim: ({residency}) hymba-1.5b full width, {L} layers, "
+            f"(1, 2) plan on the XLA decode: path {r['path']} (one rank "
+            f"{r['one_path']}), cache piece {r['cache']['k']}, "
+            f"{r['tokens_compared']} of {r['tokens']} tokens equal the "
+            f"one-rank engine's before the first margin-rule split "
+            f"{r['splits']}, first-token logits rms-relative "
+            f"{fmt(r['first_logits_rms_rel'])} a rank (bound {FULL_TOL}), "
+            f"K9 launches a rank {recs[0]['launches']['decode_split_scores']}"
+            f" a pass in {r['ticks']} ticks, {fmt(r['s'])} s a rank "
+            f"[{CARD}]")
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"head_dim: phase took {res['phase_s']:.1f} s (ranks "
+        f"{t_ranks:.1f} s), launches over both ranks {launches} [{CARD}]")
+    return launches, res
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port on one NVIDIA card")
     ap.add_argument("--only", choices=("flash_bwd", "flash_pos", "ssd_bwd",
                                        "matmul_fp32", "mesh", "mesh_train",
-                                       "ssm_mesh", "mesh_tier"),
+                                       "ssm_mesh", "mesh_tier", "pod_mesh",
+                                       "head_dim"),
                     help="run this kernel's check alone and print its "
                          "result")
     ap.add_argument("--src", type=Path, default=SRC,
@@ -7407,6 +8132,25 @@ def main(argv=None) -> int:
         log(json.dumps({"src": str(args.src), "card": CARD,
                         "mesh_tier": res}))
         return 0
+    if args.only == "pod_mesh":
+        log(f"build: {time.perf_counter() - t0:.1f} s [{CARD}]")
+        expandable_segments(torch)
+        _, res = pod_mesh_phase(torch, dev)
+        log(json.dumps({"src": str(args.src), "card": CARD,
+                        "pod_mesh": res}))
+        return 0
+    if args.only == "head_dim":
+        log(f"build: {time.perf_counter() - t0:.1f} s [{CARD}]")
+        for kernel, regs, spills in build.ptxas_entries(
+                build.PTXAS_LOG.get("decode_split", "")):
+            log(f"ptxas decode_split: {kernel}: {regs} registers at entry, "
+                f"{spills} bytes of spills [{CARD}]")
+        kern = split_kernel_phase(torch, dev)
+        expandable_segments(torch)
+        _, res = head_dim_phase(torch, dev)
+        log(json.dumps({"src": str(args.src), "card": CARD,
+                        "k9": kern, "head_dim": res}))
+        return 0
     log(f"build: {len(build.SOURCES)} sources with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s [{CARD}]")
     ptxas = {name: build.ptxas_entries(text)
@@ -7439,6 +8183,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kern.update(mesh_kernel_phase(torch, dev))
     log(f"mesh kernel phase took {time.perf_counter() - t0:.1f} s [{CARD}]")
+    # ---- phase 2c: K9, decode over a head_dim-split cache ----
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    kern.update(split_kernel_phase(torch, dev))
+    torch.cuda.synchronize()
+    check(torch.cuda.memory_allocated() <= held,
+          f"the K9 kernel phase left {torch.cuda.memory_allocated() - held} "
+          "bytes allocated")
+    log(f"K9 kernel phase took {time.perf_counter() - t0:.1f} s [{CARD}]")
 
     # ---- phases 3-4: serve ----
     from repro_torch.configs import ShapeConfig, get_arch
@@ -7611,6 +8365,12 @@ def main(argv=None) -> int:
     # ---- phase 24d: the host tier, migration and disagg on two ranks ----
     tier_launches, mesh_tier = mesh_tier_phase(torch, dev)
 
+    # ---- phase 24e: several data axes, four ranks ----
+    pod_launches, pod_mesh = pod_mesh_phase(torch, dev)
+
+    # ---- phase 24f: a cache split on head_dim (K9), two ranks ----
+    hd_launches, head_dim = head_dim_phase(torch, dev)
+
     # ---- phase 25: results ----
     family_counts = [c for c, _ in families.values()]
     runs = (*serve_runs.values(), train_counts, *family_counts,
@@ -7694,6 +8454,23 @@ def main(argv=None) -> int:
         "launches": ssm_launches["paged_decode_partial"], "launched_by":
         "phase 24c: hymba-1.5b's (1, 2) engine on the shard_map_flash "
         "path, every decode tick, both ranks"}
+    # phase 24e: the (pod, data, model) mesh's four ranks
+    for name, n in pod_launches.items():
+        launches[name] += n
+        kern[name]["pod_mesh"] = {
+            "launches": n, "launched_by":
+            "phase 24e: hymba-1.5b served and trained on four ranks of a "
+            "(2, 2, 1) (pod, data, model) mesh on one card"}
+    # phase 24f: K9 inside hymba-1.5b's head_dim-split engines
+    for name in ("decode_split_scores", "decode_split_context"):
+        launches[name] = hd_launches[name]
+        check(launches[name] > 0, f"the head_dim phase launched {name} no "
+              "time")
+        kern[name]["launched_by"] = (
+            "phase 24f: hymba-1.5b's (1, 2) engines on the XLA decode, "
+            "dense and paged, every decode tick a layer, both ranks")
+    for name in ("flash_attention", "ssd_scan"):
+        launches[name] += hd_launches[name]
     kernels = []
     for name, r in kern.items():
         kernels.append({"name": name, **{k: r[k] for k in (
@@ -7717,6 +8494,7 @@ def main(argv=None) -> int:
                                  "fwd_with_lse_ms", "fwd_without_lse_ms",
                                  "autograd_plain_ms", "fold_row_rel_err",
                                  "shards_ms", "ssm_mesh", "mesh_tier",
+                                 "pod_mesh",
                                  "autograd_plain_turns_ms")
                if k in r},
             "ptxas": [[kernel, regs, spills] for kernel, regs, spills
@@ -7749,7 +8527,8 @@ def main(argv=None) -> int:
                     "frontends": front, "disagg": disagg_res,
                     "step_guard": guard, "two_ranks": two,
                     "mesh_train": mesh_train, "ssm_mesh": ssm_mesh,
-                    "mesh_tier": mesh_tier,
+                    "mesh_tier": mesh_tier, "pod_mesh": pod_mesh,
+                    "head_dim": head_dim,
                     "allocator": allocator}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")

@@ -17,6 +17,7 @@ TPU re-targeting — everything that moves bytes between memories/chips:
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 from repro_torch.core.costmodel import (REMAT_LADDER, compressed_ratio,
@@ -323,7 +324,8 @@ class CommunicationPass(Pass):
                            or ssd.DEFAULT_CHUNK),
                 heads=heads, kv_heads=kv_heads,
                 vocab=share.vocab(vocab),
-                state_bytes=plan.estimates["persistent_bytes_per_dev"],
+                state_bytes=(share.state(arch) if ctx.mesh.n_devices > 1
+                             else plan.estimates["persistent_bytes_per_dev"]),
                 param_bytes=sum(share.bytes(t) for t in params),
                 largest_stacked_bytes=max(stacked, default=0),
                 embed_bytes=sum(share.bytes(t) for t in params
@@ -423,8 +425,60 @@ class _RankShare:
         self.params = {t.name: t for t in params}
 
     def _spec(self, name):
+        """``name``'s placement; a leaf with a vocab dim is placed as the
+        model places it: the layout pass pads the vocab after the
+        placements were repaired on the IR's unpadded dim, so an odd
+        vocab (hymba's 32001) that the IR leaves whole is split once
+        padded (``lowering.param_pspecs``)."""
         p = self.plan.placements.get(name)
-        return tuple(p.spec) if p is not None and p.spec else ()
+        spec = tuple(p.spec) if p is not None and p.spec else ()
+        t = self.params.get(name)
+        vpad = int(self.plan.estimates.get("vocab_padded", 0))
+        if t is None or "vocab" not in t.logical_axes or not vpad:
+            return spec
+        from repro_torch.dist.sharding import resolve_pspec
+        shape = [vpad if a == "vocab" else n
+                 for n, a in zip(t.shape, t.logical_axes)]
+        return tuple(resolve_pspec(self.plan.axis_rules, shape,
+                                   t.logical_axes, self._sizes()))
+
+    def _sizes(self) -> Dict[str, int]:
+        return {a: self.mesh.axis_size(a) for a in self.mesh.axes}
+
+    def state(self, arch) -> float:
+        """The rank's parameters, moments and master copy as the trainer
+        holds them (``Trainer.init_state``): each leaf of the model's
+        plan-padded tree over its resolved spec
+        (``lowering.param_pspecs``), in its dtype, with two moments in
+        the plan's moment dtype and, with master weights, an fp32 copy.
+        The IR's placements undercount a mesh rank's state where the
+        layout pass pads heads (hymba's 5 kv heads to 13 a rank at (1,
+        2)) and overcount it where they leave an odd vocab whole."""
+        import torch
+
+        from repro_torch.core.costmodel import spec_shards
+        from repro_torch.core.passes.lowering import param_pspecs
+        from repro_torch.models import lm
+        padded = self.plan.padded_sizes()
+        specs = lm.leaf_specs(arch, *padded)
+        pspecs = param_pspecs(self.plan, arch, self._sizes(),
+                              shapes=lm.param_shapes(arch, *padded))
+        opt = self.plan.opt
+        moment = torch.empty((), dtype=getattr(
+            torch, opt["moment_dtype"])).element_size()
+        master = 4 if opt["master_weights"] else 0
+        total = 0.0
+
+        def walk(sp, ps):
+            nonlocal total
+            if isinstance(sp, dict):
+                for k in sp:
+                    walk(sp[k], ps[k])
+                return
+            n = math.prod(sp.shape) // spec_shards(tuple(ps), self.mesh)
+            total += n * (sp.dtype.itemsize + 2 * moment + master)
+        walk(specs, pspecs)
+        return total
 
     def _dim(self, name, logical) -> int:
         t = self.params.get(name)

@@ -147,20 +147,13 @@ class LoweredStep:
 
 def mesh_refusals(plan, arch: ArchConfig, mesh, layout=None,
                   wire_dp: int = 0) -> None:
-    """Raise :class:`NotImplementedError`, naming ROADMAP item 10b, for
-    what training on a mesh does not do yet: several data axes; and,
-    with the reference's reason, the compressed wire over leaves FSDP splits
-    over the data axes (its stacked EF spec ``P(dp, *pspec)`` would name
-    a data axis twice, ``src/repro/core/passes/lowering.py:246-252``).
-    Returns the mesh's :class:`repro_torch.dist.fsdp.MeshLayout`."""
+    """Raise :class:`NotImplementedError`, with the reference's reason,
+    for the compressed wire over leaves FSDP splits over the data axes
+    (its stacked EF spec ``P(dp, *pspec)`` would name a data axis twice,
+    ``src/repro/core/passes/lowering.py:246-252``): the reference cannot
+    lower such a plan either.  Returns the mesh's
+    :class:`repro_torch.dist.fsdp.MeshLayout`."""
     from repro_torch.dist.fsdp import MeshLayout
-    names = tuple(mesh.mesh_dim_names)
-    data = [a for a in names if a != "model" and mesh.size(
-        names.index(a)) > 1]
-    if len(data) > 1:
-        raise NotImplementedError(
-            f"training on data axes {tuple(data)}: one data axis is ported; "
-            "several wait for ROADMAP item 10b")
     layout = layout or MeshLayout(plan, arch, mesh)
     if wire_dp:
         dp = set(layout.batch_axes)
@@ -375,20 +368,20 @@ def _wire(grads, efs, groups, layout=None, places=None):
     """The compressed reduction of a rank's per-slice gradients, in
     place: per leaf ``g + e`` in fp32 (a scalar leaf as one element,
     the reference's ``(dp,) -> (dp, 1)``), its mean over the data group
-    by shared-scale int8 codes written over ``g``, and the rank's
-    residual over its bf16 EF leaf ``e``
+    (``groups``: every data axis of the wire, one linearised group) by
+    shared-scale int8 codes written over ``g``, and the rank's residual over its bf16 EF leaf ``e``
     (``src/repro/core/passes/lowering.py:327-341``).  Whole rows at a
     time (the codes' blocks run along the last dim, so a run of rows
     gives the whole leaf's codes), at most ``adamw.CHUNK`` elements; a
     leaf whose model pieces cut those blocks is coded whole."""
     from repro_torch.dist import collectives
     from repro_torch.optim.adamw import CHUNK
-    (group, _), = groups
+    groups = list(groups)
 
     def code(g, e):
         for gc, ec in zip(_row_chunks(g, CHUNK), _row_chunks(e, CHUNK)):
             mean, err = collectives.compressed_psum(
-                gc.float() + ec.float(), group)
+                gc.float() + ec.float(), groups)
             gc.copy_(mean)
             ec.copy_(err)
 

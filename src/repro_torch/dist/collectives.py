@@ -147,17 +147,26 @@ def compressed_psum(x: torch.Tensor, group=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean all-reduce over ``group`` of int8-quantized values:
     ``(mean, err)``, ``err`` this rank's quantization residual.  Two
-    collectives: MAX of the block amax, SUM of the codes (int32)."""
+    collectives: MAX of the block amax, SUM of the codes (int32).
+    ``group`` may be a list of ``(group, size)`` (:func:`axes_groups`):
+    several mesh axes taken as one group, each collective run over each
+    axis in turn (a MAX of MAXes, a SUM of SUMs)."""
+    groups = group if isinstance(group, list) else [
+        (group, dist.get_world_size(group))]
     x32 = torch.as_tensor(x).to(torch.float32)
     d = x32.shape[-1]
     blocks, pad = _last_dim_blocks(x32)
     amax = blocks.abs().amax(dim=-1)
-    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    for g, _ in groups:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=g)
     scale = amax.clamp_min(1e-30) / 127.0
     q = torch.clamp(torch.round(blocks / scale[..., None]), -127.0, 127.0)
-    n = dist.get_world_size(group)
+    n = 1
+    for _, k in groups:
+        n *= k
     qsum = q.to(torch.int32)
-    dist.all_reduce(qsum, op=dist.ReduceOp.SUM, group=group)
+    for g, _ in groups:
+        dist.all_reduce(qsum, op=dist.ReduceOp.SUM, group=g)
     y = _unblock(qsum.to(torch.float32) * scale[..., None], d, pad) / n
     err = x32 - _unblock(q * scale[..., None], d, pad)
     return y.to(x.dtype), err.to(x.dtype)

@@ -25,8 +25,8 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES: Tuple[str, ...] = ("flash_attention", "flash_attention_bwd",
-                            "decode_attention", "ssd_scan", "ssd_scan_bwd",
-                            "tiled_matmul")
+                            "decode_attention", "decode_split", "ssd_scan",
+                            "ssd_scan_bwd", "tiled_matmul")
 HEADERS: Tuple[str, ...] = ("common.cuh", "hopper.cuh", "ssd_common.cuh",
                             "positions.cuh")
 NVCC_FLAGS: Tuple[str, ...] = (
@@ -195,6 +195,14 @@ _SIGNATURES = {
         # nb, n_local, block_start, window, splits, split_rows, scale,
         # drop_split, stream
         "paged_decode_partial": [_P] * 8 + [_I] * 11 + [_F, _I, _P],
+    },
+    "decode_split": {
+        # q, k, tbl, cache_len, s, B, H, K, DS, seq, nb, window, scale,
+        # drop_chunk, stream
+        "decode_split_scores": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
+        # s, v, tbl, cache_len, ws, out, B, H, K, DS, seq, nb, window,
+        # splits, split_rows, swap_entry, stream
+        "decode_split_context": [_P] * 6 + [_I] * 10 + [_P],
     },
     "ssd_scan": {
         # x, dt, A, Bm, Cm, init, y, fin, states, ws, B, S, H, P, G, N,

@@ -502,3 +502,181 @@ def paged_decode_partial(q: torch.Tensor, k_pool: torch.Tensor,
     _launch_error("paged_decode_partial", err)
     paged_partial_launches += 1
     return m, l, acc
+
+
+# =====================================================================
+# K9: decode over a rank's head_dim slice (csrc/decode_split.cu)
+# =====================================================================
+
+#: (GQA group, head_dim / m) pairs K9 is built for (``csrc/decode_split.cu``
+#: ``REPRO_SPLIT_CASES``): what hymba-1.5b's head_dim-split plans reach at
+#: m = 2 and 4 (its padded 26 / 13 heads at 32 columns, 28 / 7 at 16), its
+#: unpadded group of 5 at both, and qwen3-8b's group of 4 at 64
+SPLIT_INSTANCES = ((2, 32), (4, 16), (5, 32), (5, 16), (4, 64))
+#: rows a pass-2 split covers at most (whole tiles of :func:`decode_split`)
+SPLIT_TILE = 256
+
+#: launches of K9's passes in this process (reset by the caller)
+split_scores_launches = 0
+split_context_launches = 0
+
+
+def takes_split(G: int, DS: int) -> bool:
+    """K9's admission rule: ``G`` query heads per kv head over ``DS``
+    columns of each head is one of :data:`SPLIT_INSTANCES`."""
+    return (G, DS) in SPLIT_INSTANCES
+
+
+def _live_rows(cache_len: IntOrTensor, B: int, C: int, window: int,
+               device) -> torch.Tensor:
+    """``(B, C)``: the rows ``[cache_len - window, cache_len)`` (from 0
+    without a window) of each slot's view of ``C`` rows."""
+    cl = _lengths(cache_len, B, device).long().clamp(max=C)[:, None]
+    kpos = torch.arange(C, device=device)[None, :]
+    live = kpos < cl
+    if window > 0:
+        live &= kpos >= cl - window
+    return live
+
+
+def _view(t: torch.Tensor, block_tbl: Optional[torch.Tensor]
+          ) -> torch.Tensor:
+    """A dense ``(B, C, K, DS)`` view: ``t`` as it is, or a pool's
+    blocks gathered through the table (``-1`` entries as zero rows)."""
+    if block_tbl is None:
+        return t
+    tbl = block_tbl.long()
+    live = (tbl >= 0)[..., None, None, None]
+    g = torch.where(live, t[tbl.clamp_min(0)], 0)
+    return g.reshape(tbl.shape[0], -1, *t.shape[2:])
+
+
+def decode_split_scores_plain(q: torch.Tensor, k: torch.Tensor,
+                              block_tbl: Optional[torch.Tensor] = None, *,
+                              cache_len: IntOrTensor, window: int = 0,
+                              scale: float) -> torch.Tensor:
+    """Pass 1 in plain PyTorch: q ``(B, H, DS)`` (the rank's columns of
+    every query head) against a dense ``(B, S, K, DS)`` slice, or a
+    ``(N, bl, K, DS)`` pool through ``block_tbl``: the fp32 partial
+    scores ``(B, H, C)`` scaled by ``scale`` (the whole head_dim's
+    ``D^-0.5``), 0 on rows outside each slot's live range."""
+    kv = _view(k, block_tbl)
+    B, H, DS = q.shape
+    C, K = kv.shape[1], kv.shape[2]
+    s = torch.einsum("bkgd,bckd->bkgc",
+                     q.reshape(B, K, H // K, DS).float() * scale, kv.float())
+    live = _live_rows(cache_len, B, C, window, q.device)[:, None, None, :]
+    return torch.where(live, s, 0.0).reshape(B, H, C)
+
+
+def decode_split_context_plain(s: torch.Tensor, v: torch.Tensor,
+                               block_tbl: Optional[torch.Tensor] = None, *,
+                               cache_len: IntOrTensor, window: int = 0
+                               ) -> torch.Tensor:
+    """Pass 2 in plain PyTorch: the summed scores ``(B, H, C)``, masked
+    to each slot's live rows, through an fp32 softmax against the rank's
+    V columns (dense ``(B, S, K, DS)``, or a pool through the table):
+    the context's ``(B, H, DS)`` columns in V's dtype; zeros for a slot
+    with no live row."""
+    vv = _view(v, block_tbl)
+    B, H, C = s.shape
+    K, DS = vv.shape[2], vv.shape[3]
+    live = _live_rows(cache_len, B, C, window, s.device)[:, None, None, :]
+    sc = torch.where(live, s.reshape(B, K, H // K, C).float(),
+                     float("-inf"))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.where(live, torch.exp(sc - m), 0.0)
+    o = torch.einsum("bkgc,bckd->bkgd", p, vv.float())
+    o = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(B, H, DS).to(v.dtype)
+
+
+def _split_check(name: str, cache: torch.Tensor,
+                 block_tbl: Optional[torch.Tensor], cl: torch.Tensor,
+                 heads: int) -> Tuple[int, int, int]:
+    """``(seq, nb, K)`` of a K9 launch over ``cache`` (a dense slice or
+    a pool); raises on any other device or input it does not take."""
+    _on_card(name, cache)
+    if cache.dtype != torch.bfloat16 or not cache.is_contiguous() \
+            or cache.data_ptr() % 16:
+        raise TypeError(f"{name}: the cache slice must be contiguous, "
+                        "16-byte aligned bfloat16")
+    ints = [("cache_len", cl)] + ([("block_tbl", block_tbl)]
+                                  if block_tbl is not None else [])
+    for tname, t in ints:
+        if t.device != cache.device or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous int32 on "
+                             f"{cache.device}")
+    K, DS = cache.shape[2], cache.shape[3]
+    if heads % K or not takes_split(heads // K, DS):
+        raise ValueError(f"{name}: K9 takes (GQA group, columns) in "
+                         f"{SPLIT_INSTANCES}, got H={heads} K={K} DS={DS}")
+    if block_tbl is None:
+        return cache.shape[1], 0, K
+    return cache.shape[1], block_tbl.shape[1], K
+
+
+def decode_split_scores(q: torch.Tensor, k: torch.Tensor,
+                        block_tbl: Optional[torch.Tensor] = None, *,
+                        cache_len: IntOrTensor, window: int = 0,
+                        scale: float, drop_chunk: int = -1) -> torch.Tensor:
+    """Launch K9's pass 1 on CUDA tensors (the contract of
+    :func:`decode_split_scores_plain`; raises on any other device or
+    input the kernel does not take).  ``drop_chunk`` plants a fault for
+    the checks: that 16-byte column chunk is left out of every score."""
+    global split_scores_launches
+    B, H, DS = q.shape
+    cl = _lengths(cache_len, B, q.device)
+    seq, nb, K = _split_check("decode_split_scores", k, block_tbl, cl, H)
+    if q.dtype != torch.bfloat16 or not q.is_contiguous() \
+            or q.device != k.device or k.shape[3] != DS or (
+            block_tbl is None and k.shape[0] != B) or (
+            block_tbl is not None and block_tbl.shape[0] != B):
+        raise ValueError(f"decode_split_scores: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)}")
+    cap = seq if block_tbl is None else nb * seq
+    s = torch.empty((B, H, cap), dtype=torch.float32, device=q.device)
+    err = build.library("decode_split").decode_split_scores(
+        q.data_ptr(), k.data_ptr(),
+        block_tbl.data_ptr() if block_tbl is not None else None,
+        cl.data_ptr(), s.data_ptr(), B, H, K, DS, seq, nb, int(window),
+        float(scale), int(drop_chunk),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _launch_error("decode_split_scores", err)
+    split_scores_launches += 1
+    return s
+
+
+def decode_split_context(s: torch.Tensor, v: torch.Tensor,
+                         block_tbl: Optional[torch.Tensor] = None, *,
+                         cache_len: IntOrTensor, window: int = 0,
+                         swap_entry: bool = False) -> torch.Tensor:
+    """Launch K9's pass 2 on CUDA tensors (the contract of
+    :func:`decode_split_context_plain`; raises on any other device or
+    input the kernel does not take): the context pass and its merge.
+    ``swap_entry`` plants a fault for the checks: each slot's table
+    entries 0 and 1 are read in each other's place."""
+    global split_context_launches
+    B, H, C = s.shape
+    cl = _lengths(cache_len, B, s.device)
+    seq, nb, K = _split_check("decode_split_context", v, block_tbl, cl, H)
+    DS = v.shape[3]
+    if s.dtype != torch.float32 or not s.is_contiguous() \
+            or s.device != v.device \
+            or C != (seq if block_tbl is None else nb * seq):
+        raise ValueError(f"decode_split_context: scores {tuple(s.shape)} "
+                         f"{s.dtype} against v {tuple(v.shape)}")
+    splits, rows = decode_split(B, K, C, SPLIT_TILE)
+    ws = torch.empty(B * K * splits * (H // K) * (DS + 2),
+                     dtype=torch.float32, device=s.device)
+    out = torch.empty((B, H, DS), dtype=torch.bfloat16, device=s.device)
+    err = build.library("decode_split").decode_split_context(
+        s.data_ptr(), v.data_ptr(),
+        block_tbl.data_ptr() if block_tbl is not None else None,
+        cl.data_ptr(), ws.data_ptr(), out.data_ptr(), B, H, K, DS, seq, nb,
+        int(window), splits, rows, int(bool(swap_entry)),
+        torch.cuda.current_stream(s.device).cuda_stream)
+    _launch_error("decode_split_context", err)
+    split_context_launches += 1
+    return out

@@ -145,6 +145,38 @@ def paged_decode_partial(q, k_pool, v_pool, block_tbl, *, block_start: int,
                                      window=window, block_kv=block_kv)
 
 
+def decode_split_scores(q, k, block_tbl=None, *, cache_len, scale: float,
+                        window: int = 0, mode: str = "auto") -> torch.Tensor:
+    """K9's pass 1: the fp32 partial scores ``(B, H, C)`` of q ``(B, H,
+    DS)``, a rank's columns of every query head, against its columns of
+    a dense ``(B, S, K, DS)`` cache or a ``(N, bl, K, DS)`` pool through
+    ``block_tbl``, scaled by ``scale`` (the whole head_dim's), 0 outside
+    each slot's live rows: the kernel on a CUDA tensor, the plain version
+    on a CPU one.  Raises under autograd (:func:`_refuse_grad`)."""
+    _refuse_grad("decode_split_scores", q, k)
+    if not _use_kernel("decode_split_scores", q, mode):
+        return _dec.decode_split_scores_plain(
+            q, k, block_tbl, cache_len=cache_len, window=window,
+            scale=scale)
+    return _dec.decode_split_scores(q, k, block_tbl, cache_len=cache_len,
+                                    window=window, scale=scale)
+
+
+def decode_split_context(s, v, block_tbl=None, *, cache_len,
+                         window: int = 0, mode: str = "auto"
+                         ) -> torch.Tensor:
+    """K9's pass 2: the masked fp32 softmax of the scores ``(B, H, C)``
+    summed over the model ranks, against the rank's V columns: the
+    context's ``(B, H, DS)`` columns.  The kernel on a CUDA tensor, the
+    plain version on a CPU one.  Raises under autograd."""
+    _refuse_grad("decode_split_context", s, v)
+    if not _use_kernel("decode_split_context", s, mode):
+        return _dec.decode_split_context_plain(
+            s, v, block_tbl, cache_len=cache_len, window=window)
+    return _dec.decode_split_context(s, v, block_tbl, cache_len=cache_len,
+                                     window=window)
+
+
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: Optional[int] = None,
              heads_block: Optional[int] = None, initial_state=None,
              mode: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -205,6 +237,8 @@ def launch_counts() -> Dict[str, int]:
             "decode_attention": _dec.dense_launches,
             "decode_partial": _dec.partial_launches,
             "paged_decode_partial": _dec.paged_partial_launches,
+            "decode_split_scores": _dec.split_scores_launches,
+            "decode_split_context": _dec.split_context_launches,
             "ssd_scan": _ssd.launches,
             "ssd_scan_bwd": _ssd.bwd_launches,
             "tiled_matmul": _mm.launches}
@@ -220,6 +254,8 @@ def reset_launch_counts() -> None:
     _dec.dense_launches = 0
     _dec.partial_launches = 0
     _dec.paged_partial_launches = 0
+    _dec.split_scores_launches = 0
+    _dec.split_context_launches = 0
     _ssd.launches = 0
     _ssd.bwd_launches = 0
     _mm.launches = 0

@@ -170,8 +170,10 @@ def main(argv=None) -> None:
                           mesh_shape=mesh_shape, target="h100-sxm")
         _, heads, _, kv_heads = plan.padded_sizes()
         # refuse an arch the card's kernels cannot take before any weight
+        from repro_torch.serve.sharded import head_dim_ways
         check_on_device(arch, args.device, heads=heads, kv_heads=kv_heads,
-                        flash_tiles=build_run_cfg(plan, arch).flash_tiles)
+                        flash_tiles=build_run_cfg(plan, arch).flash_tiles,
+                        head_dim_ways=head_dim_ways(plan, arch))
         check_fits(arch, plan.padded_sizes(), args.device, plan=plan)
         gen = torch.Generator(args.device).manual_seed(args.seed)
         pieces = None

@@ -74,6 +74,30 @@ def attention_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                                       **kw)[:, None]
 
 
+def attention_decode_split(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           block_tbl: Optional[torch.Tensor] = None, *,
+                           cache_len, head_dim: int, reduce,
+                           window: int = 0, mode: str = "auto"
+                           ) -> torch.Tensor:
+    """One-token decode over a cache split on head_dim: q ``(B, 1, H,
+    DS)`` is this rank's columns of every query head and the dense ``(B,
+    S, K, DS)`` cache (or ``(N, bl, K, DS)`` pool through ``block_tbl``)
+    its columns of every row.  K9's pass 1
+    (:func:`repro_torch.kernels.ops.decode_split_scores`) scores the
+    columns at the whole ``head_dim``'s scale, ``reduce`` sums the fp32
+    ``(B, H, C)`` scores over the ranks in place (the reference's psum of
+    the score tensor, ``src/repro/models/lm.py:697-713``), and pass 2
+    (:func:`~repro_torch.kernels.ops.decode_split_context`) applies the
+    masked softmax to the rank's V columns: the context's ``(B, 1, H,
+    DS)`` columns."""
+    kw = dict(cache_len=cache_len, window=window, mode=mode)
+    s = ops.decode_split_scores(q[:, 0].contiguous(), k_cache, block_tbl,
+                                scale=head_dim ** -0.5, **kw)
+    reduce(s)
+    return ops.decode_split_context(s, v_cache, block_tbl, **kw)[:, None]
+
+
 def project_qkv(x: torch.Tensor, p: AttnParams, n_heads: int, n_kv: int,
                 hd: int, positions: torch.Tensor, theta: float,
                 mrope_sections: Optional[Tuple[int, int, int]] = None,

@@ -115,7 +115,9 @@ class RunCfg:
     The engine that placed the cache sets ``kv_split``: ``"heads"``
     (the kv-head dim is split over the model axis: every rank decodes
     its own heads), ``"rows"`` (the seq dim, or a paged cache's pool
-    dim, is split: :mod:`repro_torch.dist.flash_decode`), or ``"none"``;
+    dim, is split: :mod:`repro_torch.dist.flash_decode`), ``"head_dim"``
+    (each rank holds its columns of every kv head: K9's two passes
+    around an all-reduce of the scores), or ``"none"``;
     and ``kv_whole``, the whole cache's ``(batch, seq_len or
     n_blocks)``.
     """
@@ -167,7 +169,8 @@ def check_serves(arch: ArchConfig) -> None:
 
 def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
                     kv_heads: int = 0,
-                    flash_tiles: Optional[Tuple[int, int]] = None) -> None:
+                    flash_tiles: Optional[Tuple[int, int]] = None,
+                    head_dim_ways: int = 0) -> None:
     """Raise, before any weights are built, for an architecture whose
     attention the port's CUDA kernels do not take on ``device``: the
     rules are the kernels' own (:func:`repro_torch.kernels
@@ -177,7 +180,10 @@ def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
     instance).  On the CPU every arch :func:`check_supported`
     admits runs (the plain versions take any GQA group and head_dim).
     ``heads``/``kv_heads`` are the layout pass's padded counts (0: the
-    arch's own)."""
+    arch's own).  ``head_dim_ways`` > 0: the cache splits on head_dim
+    over that many model ranks, so the decode runs K9 at ``(G, head_dim
+    / head_dim_ways)`` (:func:`repro_torch.kernels.decode_attention
+    .takes_split`) instead of the fused decode kernels."""
     check_supported(arch)
     if torch.device(device).type != "cuda" or not arch.has_attention:
         return
@@ -193,7 +199,14 @@ def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
         fa.kernel_tiles(G, *(flash_tiles or (None, None)))
     except ValueError as e:
         refused.append(f"flash_attention ({e})")
-    if not arch.is_encoder and not dec.takes_group(G, arch.hd):
+    if head_dim_ways:
+        DS = arch.hd // head_dim_ways
+        if not dec.takes_split(G, DS):
+            refused.append(
+                f"K9 decode_split at (G, head_dim / m) = ({G}, {DS}), the "
+                f"head_dim split over {head_dim_ways} ranks (built for "
+                f"{dec.SPLIT_INSTANCES})")
+    elif not arch.is_encoder and not dec.takes_group(G, arch.hd):
         refused.append(f"decode_attention (built for (GQA group, head_dim) "
                        f"in {dec.INSTANCES})")
     if refused:
@@ -1471,7 +1484,7 @@ def decode_step(arch: ArchConfig, params, cache: Dict[str, torch.Tensor],
     logits = _logits(arch, params, x, cfg)[:, 0]
     if rows is not None:
         if rows[1] - rows[0] < pos_all.shape[0]:
-            logits = tp.gather(logits, 0, c.dgroup, c.dsize)
+            logits = tp.gather_data(logits, 0, c)
         cache["pos"] = pos_all + 1
     else:
         cache["pos"] = cache_len
@@ -1510,6 +1523,35 @@ def _mesh_rows(cfg: RunCfg, c, cache) -> Tuple[int, int]:
     return c.drank * bl, (c.drank + 1) * bl
 
 
+def _decode_cols(cfg: RunCfg, c, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                 tbl: Optional[torch.Tensor], pos: torch.Tensor,
+                 cache_len: torch.Tensor, window: int, targets,
+                 hd: int) -> torch.Tensor:
+    """Decode attention over a cache split on head_dim (``cfg.kv_split
+    == "head_dim"``): every head's q, k and v whole on every rank, the
+    rank's columns ``[mrank * DS, (mrank + 1) * DS)`` of the new k/v
+    appended to its cache piece, then K9 through
+    :func:`repro_torch.models.attention.attention_decode_split` (the
+    scores summed over the model ranks between its passes), and the
+    context's columns gathered whole: ``(B, 1, H, hd)``."""
+    from repro_torch.dist.collectives import sum_over_
+    n = kc.shape[-1]
+    c0 = c.mrank * n
+    kn, vn = (t[..., c0:c0 + n].contiguous() for t in (k, v))
+    if tbl is not None:
+        append_kv_paged(kc, kn, pos, tbl, targets)
+        append_kv_paged(vc, vn, pos, tbl, targets)
+    else:
+        append_kv(kc, kn, pos)
+        append_kv(vc, vn, pos)
+    ctx = attn_mod.attention_decode_split(
+        q[..., c0:c0 + n], kc, vc, tbl, cache_len=cache_len, head_dim=hd,
+        window=window, mode=cfg.kernels,
+        reduce=lambda s: sum_over_(s, [(c.mgroup, c.msize)]))
+    return tp.gather_model(ctx, -1, c)
+
+
 def _decode_attn(arch: ArchConfig, cfg: RunCfg, c, grp, h: torch.Tensor,
                  positions: torch.Tensor, kc: torch.Tensor,
                  vc: torch.Tensor, tbl: Optional[torch.Tensor],
@@ -1518,10 +1560,12 @@ def _decode_attn(arch: ArchConfig, cfg: RunCfg, c, grp, h: torch.Tensor,
     """One layer's decode attention: each slot's new row appended at its
     ``pos`` (in place), then ``cache_len = pos + 1`` rows attended through the dense
     or paged decode kernel.  On a mesh whose cache holds every kv head
-    (``cfg.kv_split`` ``"rows"`` or ``"none"``) the rank's query and kv
-    heads are gathered whole and every head attends, through the sharded
-    flash decode over the rank's rows under ``"rows"``; the rank keeps
-    its heads for its rows of ``wo`` (:func:`_attn_out`)."""
+    (``cfg.kv_split`` ``"rows"``, ``"head_dim"`` or ``"none"``) the
+    rank's query and kv heads are gathered whole and every head attends,
+    through the sharded flash decode over the rank's rows under
+    ``"rows"``, through K9 over the rank's columns under ``"head_dim"``
+    (:func:`_decode_cols`); the rank keeps its heads for its rows of
+    ``wo`` (:func:`_attn_out`)."""
     ap, (q, k, v) = _qkv(arch, grp, h, positions, cfg)
     h0, hl = 0, q.shape[2]
     if c is not None and cfg.kv_split != "heads":
@@ -1531,7 +1575,10 @@ def _decode_attn(arch: ArchConfig, cfg: RunCfg, c, grp, h: torch.Tensor,
             q = tp.gather_model(q, 2, c)
         if tp.split(K, k.shape[2], c):
             k, v = tp.gather_model(k, 2, c), tp.gather_model(v, 2, c)
-    if cfg.kv_split == "rows":
+    if cfg.kv_split == "head_dim":
+        ctx = _decode_cols(cfg, c, q, k, v, kc, vc, tbl, pos, cache_len,
+                           window, targets, arch.hd)
+    elif cfg.kv_split == "rows":
         from repro_torch.dist import flash_decode as fd
         kw = dict(mesh=cfg.mesh, data_axes=cfg.data_axes,
                   model_axis=cfg.model_axis, combine=cfg.combine_topology,

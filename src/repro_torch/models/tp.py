@@ -60,9 +60,13 @@ from repro_torch.dist.collectives import all_gather, axes_groups, sum_over_
 
 class MeshCtx(NamedTuple):
     """This rank's place on the mesh: the model group (``msize`` ranks,
-    this one ``mrank``) and the data group (``dsize``, ``drank``; a
-    size-1 group where the mesh has no data axis); ``bgroups`` the
-    ``(group, size)`` of each mesh axis a training loss averages over
+    this one ``mrank``) and the data group, the mesh's data axes taken
+    together as one linearised group (``dgroups``, the ``(group, size)``
+    of each data axis, data-major as :func:`repro_torch.dist.collectives
+    .axes_groups` orders them; ``dsize`` ranks, this one ``drank``, the
+    index a spec entry ``("pod", "data")`` gives it; empty, 1 and 0
+    where the mesh has no data axis); ``bgroups`` the ``(group, size)``
+    of each mesh axis a training loss averages over
     (:attr:`RunCfg.batch_axes`, data-major; empty: this rank's tokens
     alone)."""
 
@@ -70,7 +74,7 @@ class MeshCtx(NamedTuple):
     mgroup: object
     msize: int
     mrank: int
-    dgroup: object
+    dgroups: Tuple
     dsize: int
     drank: int
     bgroups: Tuple = ()
@@ -79,29 +83,23 @@ class MeshCtx(NamedTuple):
 def ctx(cfg) -> Optional[MeshCtx]:
     """The mesh context of a :class:`RunCfg`, ``None`` without one or
     without a mesh (then every helper here is the identity of one card).
-    One data axis at most: several wait for ROADMAP item 10b."""
+    Several data axes (``("pod", "data", "model")``) act as one data
+    group."""
     mesh = cfg.mesh if cfg is not None else None
     if mesh is None:
         return None
+    from repro_torch.dist.sharding import shard_index
     names = tuple(mesh.mesh_dim_names)
-    data = [a for a in cfg.data_axes if a in names]
-    if len(data) > 1:
-        raise NotImplementedError(
-            f"a mesh with data axes {tuple(data)}: one data axis is "
-            "ported; several wait for ROADMAP item 10b")
+    data = tuple(a for a in names if a in cfg.data_axes)
     ma = cfg.model_axis
     if ma in names:
         mgroup, msize, mrank = (mesh.get_group(ma), mesh.size(names.index(ma)),
                                 mesh.get_local_rank(ma))
     else:
         mgroup, msize, mrank = None, 1, 0
-    if data:
-        d = data[0]
-        dgroup, dsize, drank = (mesh.get_group(d), mesh.size(names.index(d)),
-                                mesh.get_local_rank(d))
-    else:
-        dgroup, dsize, drank = None, 1, 0
-    return MeshCtx(ma, mgroup, msize, mrank, dgroup, dsize, drank,
+    drank, dsize = shard_index(mesh, data) if data else (0, 1)
+    return MeshCtx(ma, mgroup, msize, mrank, tuple(axes_groups(mesh, data)),
+                   dsize, drank,
                    tuple(axes_groups(mesh, getattr(cfg, "batch_axes", ()))))
 
 
@@ -186,10 +184,12 @@ def batch_sum(t: torch.Tensor, c: Optional[MeshCtx]) -> torch.Tensor:
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx_, t, dim, group, n):
-        ctx_.dim, ctx_.n = dim, n
-        ctx_.rank = dist.get_rank(group)
-        return all_gather(t, dim, [(group, n)])
+    def forward(ctx_, t, dim, groups, rank):
+        ctx_.dim, ctx_.rank = dim, rank
+        ctx_.n = 1
+        for _, n in groups:
+            ctx_.n *= n
+        return all_gather(t, dim, groups)
 
     @staticmethod
     def backward(ctx_, g):
@@ -204,7 +204,15 @@ def gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     back."""
     if n == 1:
         return t
-    return _Gather.apply(t, dim, group, n)
+    return _Gather.apply(t, dim, [(group, n)], dist.get_rank(group))
+
+
+def gather_data(t: torch.Tensor, dim: int, c: MeshCtx) -> torch.Tensor:
+    """The data group's ``t`` joined along ``dim`` in its linearised
+    (data-major) order; the gradient's slice of this rank comes back."""
+    if c.dsize == 1:
+        return t
+    return _Gather.apply(t, dim, list(c.dgroups), c.drank)
 
 
 class _RegroupGated(torch.autograd.Function):

@@ -104,7 +104,11 @@ broadcasts what the fleet said (the chunk slabs, the logits, deaths and
 the degraded record) and every rank applies it in the same order, so the
 host decisions stay the same on every rank; for the same reason the
 deadlines read that rank's clock, broadcast once a tick.  Several data
-axes and a cache split on head_dim wait for ROADMAP item 10b.
+axes (``("pod", "data", "model")``) act as one linearised data group: a
+data shard's slots, sub-pool and stripes are its index in that group's
+data-major order.  A cache split on head_dim (``kv_split ==
+"head_dim"``) decodes each rank's columns through the split decode
+(:func:`repro_torch.models.attention.attention_decode_split`).
 
 State lives in torch tensors on the device of the parameters; the
 cache, the block table and ``pos`` are updated in place.  Sampling
@@ -243,16 +247,6 @@ def _unsupported(decision: str, value, hint: str) -> NotImplementedError:
         f"{decision}={value!r} is not ported yet; {hint}")
 
 
-def _mesh_refusals(cfg: RunCfg) -> None:
-    """What a mesh does not serve yet (ROADMAP item 10b), before any
-    cache exists: several data axes (:func:`repro_torch.models.tp.ctx`
-    raises for them).  A cache split on head_dim is refused where the
-    pieces are laid out (:class:`~repro_torch.serve.sharded.MeshPieces`);
-    the host tier, migration and a prefill fleet serve."""
-    from repro_torch.models import tp
-    tp.ctx(cfg)
-
-
 class ServeEngine:
     def __init__(self, arch: ArchConfig, params, cfg: RunCfg,
                  max_batch: int = 8, max_len: int = 512, kv_heads: int = 0,
@@ -275,8 +269,6 @@ class ServeEngine:
             raise ValueError(
                 f"kv_host_blocks must be >= 0, got {kv_host_blocks}")
         lm.check_serves(arch)
-        if cfg.mesh is not None:
-            _mesh_refusals(cfg)
         self.device = params["embed"].device
         attn = lm.layer_params(params["blocks"], 0).get("attn")
         lm.check_on_device(
@@ -782,6 +774,14 @@ class ServeEngine:
         from repro_torch.serve.sharded import MeshPieces
         pieces = MeshPieces(mesh, self.plan, self.arch, self.params,
                             self.cache)
+        if pieces.kv_split == "head_dim":
+            # the decode runs K9 at (G, hd / m): refuse an instance that
+            # is not built before the cache exists
+            _, heads, _, kv_heads = self.plan.padded_sizes()
+            lm.check_on_device(
+                self.arch, self.device, heads=heads, kv_heads=kv_heads,
+                flash_tiles=self.cfg.flash_tiles,
+                head_dim_ways=self.arch.hd // pieces.coln)
         self.params = pieces.place_params(self.params)
         self.cache = pieces.place_cache(self.cache, self.device)
         self.pieces = pieces
@@ -804,8 +804,9 @@ class ServeEngine:
         ``shard_map_flash`` runs: ``shard_map_flash_paged_2d`` (the pool
         split 2-D), ``shard_map_flash`` (the seq dim or the pool split
         over the model axis), ``flash`` (the plan's ``shard_map_flash``
-        on a placement that does not split the rows); and where the
-        kv heads split, the kernel names, each rank decoding its heads."""
+        on a placement that does not split the rows); where the kv
+        heads split, the kernel names, each rank decoding its heads; and
+        where the cache splits on head_dim, ``decode_split`` (K9)."""
         if self.pieces is not None and self.cfg.kv_split == "rows":
             from repro_torch.dist.flash_decode import pool_sharding_kind
             if self.kv_residency == "paged" and pool_sharding_kind(
@@ -817,6 +818,8 @@ class ServeEngine:
                 self.cfg.decode_impl == "shard_map_flash":
             return "flash"
         on_card = self.device.type == "cuda"
+        if self.pieces is not None and self.cfg.kv_split == "head_dim":
+            return f"decode_split:{'cuda' if on_card else 'plain'}"
         if not self.arch.has_attention:
             return f"ssm_recurrence:{'cuda' if on_card else 'cpu'}"
         kernel = ("paged_decode_attention" if self.kv_residency == "paged"

@@ -9,8 +9,12 @@ runs on.  :class:`MeshPieces` records the layout and does the engine's
 cache writes and block reads through it:
 
 * a dense cache piece holds the slots of the rank's data shard (where
-  the batch splits) and the rows of its model shard (where the seq dim
-  splits) or its kv heads (where those split);
+  the batch splits; several data axes are one data-major index) and the
+  rows of its model shard (where the seq dim splits), its kv heads
+  (where those split) or its columns of every kv head (where head_dim
+  splits: ``kv_split == "head_dim"``; rows cross the engine whole, and
+  :meth:`MeshPieces.cut_cols` / :meth:`MeshPieces.whole_cols` cut and
+  gather the columns on every write and read);
 * a pool piece holds the blocks of the rank's shard (1-D over the model
   axis, or 2-D data-major over ``(data, model)``) or its kv heads;
 * an SSM arch's per-slot state pieces (``ssm``: the rank's heads;
@@ -95,6 +99,36 @@ def param_pieces(mesh, plan, arch) -> Dict[str, Any]:
     return _tree(lambda w, sp: _piece(mesh, w, sp), whole, specs)
 
 
+def head_dim_ways(plan, arch) -> int:
+    """The model ranks a plan's KV cache splits head_dim over on its own
+    mesh, resolved as :class:`MeshPieces` resolves the engine's cache
+    (:func:`repro_torch.dist.sharding.cache_pspecs` on the plan's cache
+    geometry), 0 where it does not split head_dim: what
+    :func:`repro_torch.models.lm.check_on_device` needs to refuse a K9
+    instance that is not built before any weight exists."""
+    from types import SimpleNamespace
+    est = plan.estimates
+    if not arch.has_attention or "cache.k" not in plan.placements:
+        return 0
+    sizes = {a: int(n) for a, n in zip(plan.mesh_axes, plan.mesh_shape)}
+    K = int(est.get("kv_heads_padded", 0)) or arch.n_kv_heads
+    B, S = int(plan.global_batch or 1), int(plan.seq_len or 1)
+    if str(est.get("kv_residency", "dense")) == "paged":
+        bl = int(est.get("kv_block_len", 0)) or S
+        N = int(est.get("kv_n_blocks", 0)) or B * -(-S // bl)
+        shapes = {"k": (arch.n_layers, N, bl, K, arch.hd),
+                  "block_tbl": (B, -(-S // bl))}
+    else:
+        shapes = {"k": (arch.n_layers, B, S, K, arch.hd)}
+    specs = sharding.cache_pspecs(
+        plan, arch, {k: SimpleNamespace(shape=v) for k, v in shapes.items()},
+        sizes)
+    n = 1
+    for a in sharding._names(specs["k"][4]):
+        n *= sizes[a]
+    return n if n > 1 else 0
+
+
 class MeshPieces:
     """The layout of one engine's pieces on ``mesh``.
 
@@ -135,10 +169,17 @@ class MeshPieces:
                 self.kv_split = "heads"
             elif spec[1 if self.paged else 2] is not None:
                 self.kv_split = "rows"
-            if spec[4] is not None:
-                raise NotImplementedError(
-                    f"a cache split on head_dim ({spec}) is not ported; "
-                    "ROADMAP item 10b")
+            elif spec[4] is not None:
+                self.kv_split = "head_dim"
+        # the rank's columns of every kv head (all of them unless the
+        # cache splits on head_dim), and the axes they split over
+        self.col0, self.coln, self.col_axes = 0, 0, ()
+        if spec is not None:
+            D = self.cache_shapes["k"][4]
+            i, n = sharding.shard_index(mesh, spec[4]) if spec[4] \
+                else (0, 1)
+            self.col0, self.coln = i * (D // n), D // n
+            self.col_axes = sharding._names(spec[4])
         # the rank's ranges: dense (batch, seq); paged pool blocks
         self.b0 = self.s0 = self.start = 0
         if spec is not None and self.paged:
@@ -243,7 +284,8 @@ class MeshPieces:
             return
         dev = t.device
         st = torch.as_tensor(slots[mine] - self.b0, device=dev)
-        src = rows[:, torch.as_tensor(mine, device=rows.device)]
+        src = self.cut_cols(rows[:, torch.as_tensor(mine,
+                                                    device=rows.device)])
         t[:, st, :hi - lo] = src[:, :, lo:hi]
 
     def write_blocks(self, t: torch.Tensor, ids: Sequence[int],
@@ -257,8 +299,8 @@ class MeshPieces:
         if not len(mine):
             return
         dev = t.device
-        t[:, torch.as_tensor(loc[mine], device=dev)] = \
-            rows[:, torch.as_tensor(mine, device=rows.device)].to(dev)
+        t[:, torch.as_tensor(loc[mine], device=dev)] = self.cut_cols(
+            rows[:, torch.as_tensor(mine, device=rows.device)]).to(dev)
 
     def read_slots(self, t: torch.Tensor, slots: Sequence[int], n: int
                    ) -> torch.Tensor:
@@ -281,7 +323,7 @@ class MeshPieces:
                 keep, t[:, idx, :hi - lo].float(), out[:, :, lo:hi])
         for axis in self.slot_axes:
             dist.all_reduce(out, group=self.mesh.get_group(axis))
-        return out.to(t.dtype)
+        return self.whole_cols(out.to(t.dtype))
 
     def write_state(self, t: torch.Tensor, slots: Sequence[int],
                     rows: torch.Tensor) -> None:
@@ -322,7 +364,8 @@ class MeshPieces:
         is not split by blocks)."""
         ids = np.asarray(ids, np.int64)
         if self.kv_split != "rows":
-            return t[:, torch.as_tensor(ids, device=t.device)]
+            return self.whole_cols(t[:, torch.as_tensor(ids,
+                                                        device=t.device)])
         loc = ids - self.start
         mine = (loc >= 0) & (loc < t.shape[1])
         idx = torch.as_tensor(np.where(mine, loc, 0), device=t.device)
@@ -334,6 +377,24 @@ class MeshPieces:
         return out.to(t.dtype)
 
     # ------------------------------------------------------------------
+    def cut_cols(self, rows: torch.Tensor) -> torch.Tensor:
+        """This rank's head_dim columns of rows with every column
+        (``(..., hd)``); the rows as they are where the cache does not
+        split on head_dim."""
+        if self.kv_split != "head_dim":
+            return rows
+        return rows.narrow(-1, self.col0, self.coln)
+
+    def whole_cols(self, rows: torch.Tensor) -> torch.Tensor:
+        """Every head_dim column of rows of this rank's columns, gathered
+        from the ranks the columns split over (one all-gather an axis;
+        none where the cache does not split on head_dim)."""
+        if self.kv_split != "head_dim":
+            return rows
+        return collectives.all_gather(
+            rows, rows.dim() - 1,
+            collectives.axes_groups(self.mesh, self.col_axes))
+
     def cut_heads(self, rows: torch.Tensor) -> torch.Tensor:
         """This rank's kv heads of rows made with every head (``(...,
         K, hd)``: a prefill worker's chunks, a whole host row); the

@@ -595,7 +595,9 @@ def test_wrappers_count_launches_and_refuse_what_the_kernels_do_not_take(dev):
                                    "paged_decode_attention": 1,
                                    "decode_attention": 1,
                                    "decode_partial": 0,
-                                   "paged_decode_partial": 0, "ssd_scan": 0,
+                                   "paged_decode_partial": 0,
+                                   "decode_split_scores": 0,
+                                   "decode_split_context": 0, "ssd_scan": 0,
                                    "ssd_scan_bwd": 0, "tiled_matmul": 0}
     with pytest.raises(RuntimeError, match="use_pallas='off'"):
         ops.flash_attention(q, k, k, mode="off")
@@ -1977,3 +1979,68 @@ def test_partial_wrappers_count_launches(dev):
     c = ops.launch_counts()
     assert c["decode_partial"] == 1 and c["paged_decode_partial"] == 1
     assert sum(c.values()) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,DS,m", list(
+    (g, ds, 64 // ds) for g, ds in tdec.SPLIT_INSTANCES if ds < 64)
+    + [(4, 64, 2)])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("window", [0, 1024])
+def test_split_decode_passes_match_plain(dev, G, DS, m, paged, window):
+    """K9 (``csrc/decode_split.cu``) at every built ``(G, head_dim / m)``:
+    each rank's pass 1 over its columns against the plain pass 1 (per
+    (slot, head) row of scores), the scores summed, each rank's pass 2
+    against the plain pass 2, and the ranks' columns joined against the
+    unsharded plain decode; a column chunk dropped from rank 0's pass 1
+    and (paged) rank 0's table entries 0 and 1 swapped must fail the
+    joined check by 5x."""
+    Dh = DS * m
+    Kv = 4
+    g = torch.Generator(dev).manual_seed(G * 100 + DS + window)
+    bl, B, S = 256, 8, 2048
+    nb = S // bl
+    lens = torch.tensor([1, 64, 300, 1023, 1024, 1025, 1999, 2048],
+                        dtype=torch.int32, device=dev)
+    tbl = torch.randperm(B * nb, generator=g, device=dev).int().reshape(
+        B, nb).contiguous()
+    q = _rnd(g, B, G * Kv, Dh)
+    kp, vp = _rnd(g, B * nb, bl, Kv, Dh), _rnd(g, B * nb, bl, Kv, Dh)
+    kd, vd = tref.paged_gather_ref(kp, tbl), tref.paged_gather_ref(vp, tbl)
+    kk, vv, tb = (kp, vp, tbl) if paged else (kd.contiguous(),
+                                               vd.contiguous(), None)
+    kw = dict(cache_len=lens, window=window)
+    cols = [slice(r * DS, (r + 1) * DS) for r in range(m)]
+    qs = [q[..., c].contiguous() for c in cols]
+    ks = [kk[..., c].contiguous() for c in cols]
+    vs = [vv[..., c].contiguous() for c in cols]
+    scale = Dh ** -0.5
+    sc = []
+    for r in range(m):
+        s = tdec.decode_split_scores(qs[r], ks[r], tb, scale=scale, **kw)
+        want = tdec.decode_split_scores_plain(qs[r], ks[r], tb, scale=scale,
+                                              **kw)
+        assert _rel_err(s, want) < DECODE_TOL
+        sc.append(s)
+    s = torch.stack(sc).sum(0)
+    ctx = []
+    for r in range(m):
+        c = tdec.decode_split_context(s, vs[r], tb, **kw)
+        assert _rel_err(c, tdec.decode_split_context_plain(
+            s, vs[r], tb, **kw)) < DECODE_TOL
+        ctx.append(c)
+    want = tdec.decode_attention_plain(q, kd, vd, **kw)
+    assert _rel_err(torch.cat(ctx, -1), want) < DECODE_TOL
+    bad = tdec.decode_split_scores(qs[0], ks[0], tb, scale=scale,
+                                   drop_chunk=0, **kw)
+    sbad = s - sc[0] + bad
+    assert _rel_err(torch.cat([tdec.decode_split_context(sbad, vs[r], tb,
+                                                         **kw)
+                               for r in range(m)], -1), want) \
+        > 5 * DECODE_TOL
+    if paged:
+        swapped = tdec.decode_split_context(s, vs[0], tb, swap_entry=True,
+                                            **kw)
+        assert _rel_err(torch.cat([swapped] + ctx[1:], -1), want) \
+            > 5 * DECODE_TOL
+    torch.cuda.synchronize()

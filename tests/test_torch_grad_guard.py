@@ -1,7 +1,8 @@
 """The kernels without a backward refuse autograd, and serving still runs.
 
-``ops.decode_attention``, ``ops.paged_decode_attention`` and
-``ops.matmul`` write their CUDA outputs through ctypes, so under autograd
+``ops.decode_attention``, ``ops.paged_decode_attention``,
+``ops.matmul`` and K9's ``ops.decode_split_scores`` /
+``ops.decode_split_context`` write their CUDA outputs through ctypes, so under autograd
 those outputs would carry no ``grad_fn`` and a loss through them would
 train nothing upstream (ROADMAP §3, F3).  Each entry raises when grad
 mode is on and a tensor input requires grad, on the CPU as on the card,
@@ -44,6 +45,13 @@ def _call(name, grad: bool):
                 _rnd(rng, 4, 8, K, D),
                 torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)]
         kw = dict(cache_len=torch.tensor([7, 12], dtype=torch.int32))
+    elif name == "decode_split_scores":
+        args = [_rnd(rng, B, H, D // 2), _rnd(rng, B, S, K, D // 2)]
+        kw = dict(cache_len=torch.tensor([5, 9], dtype=torch.int32),
+                  scale=D ** -0.5)
+    elif name == "decode_split_context":
+        args = [_rnd(rng, B, H, S), _rnd(rng, B, S, K, D // 2)]
+        kw = dict(cache_len=torch.tensor([5, 9], dtype=torch.int32))
     elif name == "ssd_scan":
         args = [_rnd(rng, 1, S, H, 8), _rnd(rng, 1, S, H).abs(),
                 -_rnd(rng, H).abs(), _rnd(rng, 1, S, 1, 4),
@@ -57,7 +65,7 @@ def _call(name, grad: bool):
 
 
 ENTRIES = ["decode_attention", "paged_decode_attention", "ssd_scan",
-           "matmul"]
+           "matmul", "decode_split_scores", "decode_split_context"]
 
 
 def _ssd_scan_routes_gradients_through_ssdscan():

@@ -397,7 +397,9 @@ def test_ops_on_cpu_tensors_launch_no_kernel():
                                    "paged_decode_attention": 0,
                                    "decode_attention": 0,
                                    "decode_partial": 0,
-                                   "paged_decode_partial": 0, "ssd_scan": 0,
+                                   "paged_decode_partial": 0,
+                                   "decode_split_scores": 0,
+                                   "decode_split_context": 0, "ssd_scan": 0,
                                    "ssd_scan_bwd": 0, "tiled_matmul": 0}
     with pytest.raises(ValueError, match="kernel mode"):
         ops.flash_attention(q, k, k, mode="maybe")
@@ -408,3 +410,92 @@ def test_ops_on_cpu_tensors_launch_no_kernel():
     with pytest.raises(ValueError, match="runs on CUDA tensors"):
         tdec.paged_decode_attention(qd, pool, pool, tbl,
                                     cache_len=torch.tensor([5, 70]))
+
+
+# ---------------------------------------------------------------------
+# K9: decode over a head_dim-split cache, pass by pass
+# ---------------------------------------------------------------------
+
+def _split_passes(q, k, v, tbl, lens, window, m):
+    """The head_dim-split decode of ``m`` ranks in one process: each
+    rank's pass-1 scores over its columns, summed (the all-reduce), then
+    each rank's pass-2 columns, joined."""
+    D = q.shape[-1]
+    n = D // m
+    cols = [slice(r * n, (r + 1) * n) for r in range(m)]
+    s = sum(tdec.decode_split_scores_plain(
+        q[..., c].contiguous(), k[..., c].contiguous(), tbl, cache_len=lens,
+        window=window, scale=D ** -0.5) for c in cols)
+    return torch.cat([tdec.decode_split_context_plain(
+        s, v[..., c].contiguous(), tbl, cache_len=lens, window=window)
+        for c in cols], -1)
+
+
+@pytest.mark.parametrize("G,m", [(5, 2), (4, 2), (5, 4), (4, 4)])
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("paged", [False, True])
+def test_split_passes_match_jax_decode(G, m, window, paged):
+    """K9's plain passes across ``m`` column slices (G = 5: hymba's
+    group; 4: qwen3-8b's; windowed and global) against the reference's
+    ``attention_decode`` / ``attention_decode_paged``, the XLA path the
+    reference runs on a head_dim-split cache (it contracts QK^T over the
+    split dim and sums the scores): bf16 at 2e-2; fp32 at 1e-5."""
+    from repro.models.attention import (attention_decode,
+                                        attention_decode_paged)
+    rng = np.random.default_rng(11 + G + m + window)
+    B, K, D, S = 3, 2, 64, 64
+    H = G * K
+    lens_np = np.array([64, 9, 40], np.int32)
+    for dtype in ("bfloat16", "float32"):
+        jq, tq = _pair(rng, (B, 1, H, D), dtype)
+        if paged:
+            bl, N = 16, 16
+            jk, tk = _pair(rng, (N, bl, K, D), dtype)
+            jv, tv = _pair(rng, (N, bl, K, D), dtype)
+            tbl_np = rng.permutation(N)[:B * 4].reshape(B, 4).astype(np.int32)
+            tbl_np[1, 1:] = -1               # 9 rows: one block
+            want = attention_decode_paged(
+                jq, jk, jv, jnp.asarray(tbl_np),
+                cache_len=jnp.asarray(lens_np), window=window)
+            tbl = torch.from_numpy(tbl_np)
+        else:
+            jk, tk = _pair(rng, (B, S, K, D), dtype)
+            jv, tv = _pair(rng, (B, S, K, D), dtype)
+            want = attention_decode(jq, jk, jv,
+                                    cache_len=jnp.asarray(lens_np),
+                                    window=window)
+            tbl = None
+        got = _split_passes(tq[:, 0], tk, tv, tbl, torch.from_numpy(lens_np),
+                            window, m)
+        err = _rel_err(_np(got), np.asarray(want[:, 0], np.float32))
+        assert err <= TOL[dtype], (dtype, err)
+        # one rank's slice is the whole head_dim's (m = 1): the fused
+        # decode's plain version
+        fused = (tdec.paged_decode_attention_plain(tq[:, 0], tk, tv, tbl,
+                                                   cache_len=lens_np,
+                                                   window=window)
+                 if paged else tdec.decode_attention_plain(
+                     tq[:, 0], tk, tv, cache_len=lens_np, window=window))
+        one = _split_passes(tq[:, 0], tk, tv, tbl, torch.from_numpy(lens_np),
+                            window, 1)
+        assert _rel_err(_np(one), _np(fused)) <= TOL[dtype]
+
+
+def test_split_scores_are_zero_outside_the_live_rows():
+    """Pass 1 scores only each slot's live rows (past ``cache_len`` and
+    before the window: 0), and a dropped column is a different score."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 32, 2, 16)).astype(
+        np.float32))
+    lens = torch.tensor([20, 5], dtype=torch.int32)
+    s = tdec.decode_split_scores_plain(q, k, cache_len=lens, window=8,
+                                       scale=0.125)
+    assert s.shape == (2, 4, 32)
+    assert (s[0, :, :12] == 0).all() and (s[0, :, 20:] == 0).all()
+    assert (s[1, :, 5:] == 0).all() and (s[0, :, 12:20] != 0).all()
+    k2 = k.clone()
+    k2[..., :8] = 0
+    s2 = tdec.decode_split_scores_plain(q, k2, cache_len=lens, window=8,
+                                        scale=0.125)
+    assert not torch.allclose(s, s2)

@@ -41,9 +41,17 @@ qwen3-8b through every placement the plans give it:
   paged cache on rows as full-width hymba's does (its 13 padded kv heads
   do not split two ways): tokens against the JAX engine's on one device
   and the port's unsharded engine's, as the cells above;
+* several data axes: reduced qwen3-8b on ``(pod, data, model)`` meshes
+  (2, 2, 2) (paged, its pool split 2-D over the linearised ``(pod,
+  data)`` shard and ``model``; dense) and reduced hymba-1.5b on (2, 2,
+  1), tokens as the cells above;
+* a cache split on head_dim: a 10 / 5-head hybrid whose (1, 2) plan on
+  the XLA decode splits the cache's head_dim (K9's plain passes decode
+  each rank's columns), dense and paged, tokens as the cells above;
 * ``elastic_mesh`` over the world (a ``DeviceMesh`` of the survivors, and
-  both typed errors), the refusals that name ROADMAP item 10b, and the
-  plan's host tier and a prefill fleet built on a (1, 2) mesh.
+  both typed errors), what stays refused (a K9 instance that is not
+  built, on CUDA), and the plan's host tier and a prefill fleet built on
+  a (1, 2) mesh.
 
 Every rank runs the same engine loop; each rank's tokens are saved and
 must agree.
@@ -79,11 +87,17 @@ def _arch(name="qwen3-8b", kv=0):
     return dataclasses.replace(a, n_kv_heads=kv) if kv else a
 
 
+def _axes(mesh):
+    """A mesh shape's axes: ``(data, model)``, or the production
+    mesh's ``(pod, data, model)`` for three dims."""
+    return ("pod", "data", "model") if len(mesh) == 3 else ("data", "model")
+
+
 def _plan(arch, mesh, seq, batch, **kw):
     from repro_torch.configs import ShapeConfig
     from repro_torch.core.pipeline import specialize
     return specialize(arch, ShapeConfig("serve_mesh_t", "decode", seq, batch),
-                      mesh_axes=("data", "model"), mesh_shape=mesh,
+                      mesh_axes=_axes(mesh), mesh_shape=mesh,
                       cache=False, **kw)
 
 
@@ -109,6 +123,14 @@ CELLS = {
                    {"kv_residency": "dense"}, 4),
     "hybrid_2x2_paged": (("hymba-1.5b", 0), (2, 2), 64, 4, {}, 4),
     "hybrid_rows": (("hymba-1.5b", (6, 3)), (1, 2), 64, 4, {}, 4),
+    "pod_222": (("qwen3-8b", 0), (2, 2, 2), 64, 8, {}, 5),
+    "pod_222_dense": (("qwen3-8b", 0), (2, 2, 2), 64, 8,
+                      {"kv_residency": "dense"}, 5),
+    "pod_221_hybrid": (("hymba-1.5b", 0), (2, 2, 1), 64, 8, {}, 5),
+    "hd_dense": (("hymba-1.5b", (10, 5)), (1, 2), 64, 4,
+                 {"kv_residency": "dense", "decode_impl": "xla"}, 4),
+    "hd_paged": (("hymba-1.5b", (10, 5)), (1, 2), 64, 4,
+                 {"decode_impl": "xla"}, 4),
 }
 
 #: cells whose run preempts a request and resumes it
@@ -116,13 +138,14 @@ PREEMPT = ("ssm_2x2",)
 
 
 def _mesh(cell_mesh):
-    """The ``(data, model)`` mesh of ``cell_mesh`` this rank belongs to:
-    the world of 8 cut into ``8 / (d * m)`` replicas."""
+    """The ``(data, model)`` (or ``(pod, data, model)``) mesh of
+    ``cell_mesh`` this rank belongs to: the world of 8 cut into ``8 /
+    (d * m)`` replicas."""
     from torch.distributed.device_mesh import DeviceMesh
-    d, m = cell_mesh
-    grid = torch.arange(8).reshape(8 // (d * m), d, m)
-    return DeviceMesh("cpu", grid, mesh_dim_names=("rep", "data", "model"))[
-        "data", "model"]
+    n = int(np.prod(cell_mesh))
+    grid = torch.arange(8).reshape(8 // n, *cell_mesh)
+    names = _axes(cell_mesh)
+    return DeviceMesh("cpu", grid, mesh_dim_names=("rep",) + names)[names]
 
 
 def _run(eng, prompts, n=5, stagger=False, preempt=False):
@@ -176,7 +199,7 @@ def _same_pieces(a, b) -> bool:
 
 def _serve_world(rank, world, tmp):
     import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+    from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.models import lm
     from repro_torch.runtime import fault
@@ -261,29 +284,17 @@ def _serve_world(rank, world, tmp):
         res["disagg_mode"] = eng.prefill_mode
     finally:
         eng.shutdown()
-    # several data axes, and a cache split on its head_dim
-    pod = DeviceMesh("cpu", torch.arange(8).reshape(2, 2, 2),
-                     mesh_dim_names=("pod", "data", "model"))
-    from repro_torch.configs import ShapeConfig
-    from repro_torch.core.pipeline import specialize
-    pplan = specialize(arch, ShapeConfig("serve_mesh_t", "decode", 64, 8),
-                       mesh_axes=("pod", "data", "model"),
-                       mesh_shape=(2, 2, 2), cache=False)
-    try:
-        ServeEngine.from_plan(pplan, _params(arch, pplan), arch=arch,
-                              mesh=pod)
-    except NotImplementedError as e:
-        res["data_axes_refused"] = str(e)
+    # a cache split on its head_dim
     dplan = _plan(arch, (1, 2), 64, 4, kv_residency="dense")
     hd = {k: dataclasses.replace(dplan.placements[k],
                                  spec=(None, None, None, None, "model"))
           for k in ("cache.k", "cache.v")}
     dplan = dataclasses.replace(dplan, placements={**dplan.placements, **hd})
-    try:
-        ServeEngine.from_plan(dplan, _params(arch, dplan), arch=arch,
-                              mesh=_mesh((1, 2)))
-    except NotImplementedError as e:
-        res["head_dim_refused"] = str(e)
+    eng = ServeEngine.from_plan(dplan, _params(arch, dplan), arch=arch,
+                                mesh=_mesh((1, 2)))
+    res["head_dim"] = (eng.cfg.kv_split, eng.decode_path,
+                       tuple(eng.cache["k"].shape),
+                       _run(eng, _prompts(arch.vocab_size, 3)))
     torch.save(res, os.path.join(tmp, f"r{rank}.pt"))
     dist.destroy_process_group()
 
@@ -316,7 +327,8 @@ for cell, (name, kv, mesh, seq, batch, kw, n) in {cells!r}.items():
     elif kv:
         arch = dataclasses.replace(arch, n_kv_heads=kv)
     plan = specialize(arch, ShapeConfig("serve_mesh_t", "decode", seq, batch),
-                      mesh_axes=("data", "model"), mesh_shape=mesh,
+                      mesh_axes=("pod", "data", "model") if len(mesh) == 3
+                      else ("data", "model"), mesh_shape=mesh,
                       cache=False, **kw)
     flash = cell.startswith("flash")
     if flash:
@@ -492,22 +504,31 @@ def test_shard_map_flash_serves_and_matches_sequential(world, cell):
 @pytest.mark.parametrize("cell", ["tp_1x2", "tp_2x2", "tp_2x2_dense",
                                   "moe_1x2", "ssm_1x2", "ssm_2x2",
                                   "hybrid_2x2", "hybrid_2x2_paged",
-                                  "hybrid_rows"])
+                                  "hybrid_rows", "pod_222", "pod_222_dense",
+                                  "pod_221_hybrid", "hd_dense", "hd_paged"])
 def test_tensor_parallel_engine_matches_the_unsharded_one(world, cell):
     from repro_torch.serve.engine import ServeEngine
     ranks, ref, models, _ = world
     arch, plan, params = models[cell]
     (name, kv), mesh, seq, batch, kw, n = CELLS[cell]
     r0 = ranks[0][cell]
-    dsize, msize = mesh
+    # several data axes act as one data group of their product
+    dsize, msize = int(np.prod(mesh[:-1])), mesh[-1]
     _same_on_every_rank(ranks, cell)
-    if cell in ("tp_2x2", "hybrid_2x2_paged"):
+    if cell in ("tp_2x2", "hybrid_2x2_paged", "pod_222", "pod_221_hybrid"):
         # the pool splits 2-D: one sub-pool a data shard
         assert r0["path"] == "shard_map_flash_paged_2d"
         assert r0["groups"] == dsize
         assert r0["cache"]["k"][1] == r0["n_blocks"] // (dsize * msize)
     elif cell.startswith("ssm"):
         assert r0["path"] == "ssm_recurrence:cpu"
+    elif cell.startswith("hd_"):
+        # 5 kv heads do not split two ways and the plan's decode is the
+        # XLA one: the cache splits on head_dim, K9's passes decode it
+        assert plan.placements["cache.k"].spec[4] == "model"
+        assert r0["split"] == "head_dim" and r0["path"] == "decode_split:plain"
+        assert r0["cache"]["k"][-1] == arch.hd // msize
+        assert r0["cache"]["k"][-2] == 5
     elif cell == "hybrid_rows":
         # 3 kv heads do not split two ways: the pool splits by blocks
         assert r0["path"] == "shard_map_flash" and r0["split"] == "rows"
@@ -517,7 +538,7 @@ def test_tensor_parallel_engine_matches_the_unsharded_one(world, cell):
         assert r0["split"] == "heads"
         assert r0["path"].split(":")[0] in ("paged_decode_attention",
                                             "decode_attention")
-    if cell == "tp_2x2_dense":
+    if cell in ("tp_2x2_dense", "pod_222_dense"):
         assert r0["cache"]["k"][1] == batch // dsize
     if arch.has_ssm:
         # the SSM state on the rank's heads, the conv window on its
@@ -534,7 +555,7 @@ def test_tensor_parallel_engine_matches_the_unsharded_one(world, cell):
     for path, local_times_n, whole, n_split in r0["fractions"]:
         assert local_times_n == whole, path
         split += n_split > 1
-    assert split >= 8
+    assert split >= 8 or msize == 1
     # the JAX engine on the same weights, plan and mixed batch
     prompts = _prompts(arch.vocab_size, n)
     assert _agree_with_reference(ref, cell, r0["tokens"],
@@ -588,21 +609,55 @@ def test_elastic_mesh_is_a_device_mesh_of_the_survivors(world):
 
 
 def test_what_a_mesh_does_not_serve_names_item_10b(world):
-    """What stays refused on a mesh: several data axes and a cache split
-    on its head_dim.  The host tier and a prefill fleet now build there:
-    the plan's clamped host tier is kept (allocated as the rank's
-    piece), and a fleet of one worker turns the prefill mode to
-    ``disagg`` (SSM and hybrid archs serve: the cells above;
-    ``tests/test_torch_mesh_tier.py`` serves the tier and the fleet)."""
+    """What stays refused on a mesh: a head_dim split whose K9 instance
+    ``(G, head_dim / m)`` is not built, on CUDA, before any weight
+    (``lm.check_on_device``, naming K9; the plain passes serve it on the
+    CPU).  Several data axes serve (the ``pod_*`` cells above), a cache
+    split on its head_dim serves (a (1, 2) plan whose cache placement is
+    set to head_dim: K9's plain passes, the tokens of the unsharded
+    engine), and the host tier and a prefill fleet build: the plan's
+    clamped host tier is kept (allocated as the rank's piece), and a
+    fleet of one worker turns the prefill mode to ``disagg`` (SSM and
+    hybrid archs serve: the cells above; ``tests/test_torch_mesh_tier.py``
+    serves the tier and the fleet)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sharded import head_dim_ways
     ranks, _, _, _ = world
     for r in ranks:
         got, want, allocated = r["host_tier"]
         assert got == want > 0 and allocated
         assert r["disagg_mode"] == "disagg"
-    assert "ROADMAP item 10b" in ranks[0]["data_axes_refused"]
-    assert "data axes" in ranks[0]["data_axes_refused"]
-    assert "ROADMAP item 10b" in ranks[0]["head_dim_refused"]
-    assert "head_dim" in ranks[0]["head_dim_refused"]
+    arch = _arch()
+    split, path, kshape, tokens = ranks[0]["head_dim"]
+    assert split == "head_dim" and path == "decode_split:plain"
+    assert kshape[-1] == arch.hd // 2
+    for r in ranks[1:2]:
+        assert r["head_dim"][3] == tokens
+    plan = _plan(arch, (1, 1), 64, 4, kv_residency="dense")
+    params = _params(arch, plan)
+    eng = ServeEngine.from_plan(plan, params, arch=arch)
+    want = _run(eng, _prompts(arch.vocab_size, 3))
+    for p, toks in want.items():
+        prompt = np.frombuffer(p, np.int32)
+        _agree(tokens[p], toks, lambda i: _margin(arch, params, prompt,
+                                                  toks, i))
+    # full-width hymba-1.5b: its (1, 2) plan on the XLA decode splits the
+    # cache's head_dim two ways (26 / 13 padded heads: K9 at (2, 32),
+    # built); an 8-way split would need (2, 8), which is not
+    hymba = get_arch("hymba-1.5b")
+    hplan = _plan(hymba, (1, 2), 2048, 8, decode_impl="xla")
+    assert head_dim_ways(hplan, hymba) == 2
+    _, H, _, K = hplan.padded_sizes()
+    lm.check_on_device(hymba, "cuda", heads=H, kv_heads=K, head_dim_ways=2)
+    with pytest.raises(NotImplementedError,
+                       match=r"K9 decode_split at \(G, head_dim / m\) = "
+                       r"\(2, 8\)"):
+        lm.check_on_device(hymba, "cuda", heads=H, kv_heads=K,
+                           head_dim_ways=8)
+    assert lm.check_on_device(hymba, "cpu", heads=H, kv_heads=K,
+                              head_dim_ways=8) is None
 
 
 def test_launcher_serves_on_a_mesh_under_torchrun():

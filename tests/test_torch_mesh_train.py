@@ -46,7 +46,14 @@ step-0 losses (the reference's bars, ``tests/test_train_equivalence.py
 :96-103``), and two uncompressed runs give bitwise-equal losses.  A
 checkpoint saved on (2, 1) (the wire's EF residuals stacked ``(dp,
 ...)``) is read by the reference's ``Checkpointer`` and resumed on (1,
-1) and (1, 2).  The refusals that stay name ROADMAP item 10b.
+1) and (1, 2).  Several data axes: reduced qwen3-8b on the production
+mesh's ``(pod, data, model)`` axes at (2, 2, 2) under the pod plan's
+post-reduce error feedback (against the reference's one-device step)
+and at (2, 2, 2) and (2, 2, 1) under the wire with ``wire_dp = 4``
+(against the reference's wire step composed at dp 4), and the (2, 2, 1)
+wire's checkpoint resumed on (1, 1).  The wire over an FSDP split stays
+refused with the reference's reason.  F5: the per-rank step-peak
+estimate's vocab and state terms at two depths.
 """
 
 import contextlib
@@ -86,7 +93,14 @@ CELLS = {
     "h12": ("hymba-1.5b", (1, 2), {}, None),
     "m22pad": ("mamba2-2.7b", (2, 2), {}, "ssm_pad"),
     "m22ci": ("mamba2-2.7b", (2, 2), {}, None),
+    "p222": ("qwen3-8b", (2, 2, 2), {}, None),
+    "p222w": ("qwen3-8b", (2, 2, 2), {"grad_compression": "on"}, None),
+    "p221w": ("qwen3-8b", (2, 2, 1), {"grad_compression": "on"}, None),
 }
+
+#: the wire cells, each held against the reference's wire step composed
+#: on one device at its data degree
+WIRE_CELLS = ("p222w", "p221w")
 
 #: planted faults, each a cell run with one collective broken; the
 #: parity test's update check must fail them
@@ -141,13 +155,20 @@ def _variant(plan, variant):
     return plan
 
 
+def _axes(mesh):
+    """A mesh shape's axes: ``(data, model)``, or the production
+    mesh's ``(pod, data, model)`` for three dims."""
+    return ("pod", "data", "model") if len(mesh) == 3 else ("data", "model")
+
+
 def _tplan(cell, **over):
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core.pipeline import specialize
     name, mesh, kw, variant = CELLS[cell]
     arch = _arch_of(cell, get_arch)
-    plan = specialize(arch, ShapeConfig(**QUICK), mesh_axes=("data", "model"),
-                      mesh_shape=over.pop("mesh", mesh), target="tpu-v5e",
+    mesh = over.pop("mesh", mesh)
+    plan = specialize(arch, ShapeConfig(**QUICK), mesh_axes=_axes(mesh),
+                      mesh_shape=mesh, target="tpu-v5e",
                       cache=False, **{**kw, **over})
     return arch, _variant(plan, variant)
 
@@ -162,9 +183,10 @@ def _mask(batch):
     return dict(batch, mask=m)
 
 
-def _mesh(shape, names=("data", "model")):
+def _mesh(shape, names=None):
     """This rank's ``shape`` mesh of the 8-rank world (replica-major)."""
     from torch.distributed.device_mesh import DeviceMesh
+    names = names or _axes(shape)
     n = int(np.prod(shape))
     grid = torch.arange(8).reshape(8 // n, *shape)
     return DeviceMesh("cpu", grid, mesh_dim_names=("rep",) + tuple(names))[
@@ -396,15 +418,23 @@ def _extras(tmp):
     sth12, steph12 = trh12.resume()
     out["ckh_resume12"] = (whole_state(sth12, trh12.step_def), steph12,
                            hplan12.estimates.get("strategy"))
-    # what stays refused names ROADMAP item 10b
+    # the wire's checkpoint on the production mesh's (2, 2, 1): its EF
+    # residuals stacked (4, ...) over (pod, data)
+    _, pplan = _tplan("p221w")
+    ckp = Path(tmp) / f"ckp_{_rep((2, 2, 1))}"
+    trp = Trainer(pplan, _mesh((2, 2, 1)), TrainerConfig(
+        n_steps=2, ckpt_every=2, ckpt_dir=str(ckp), log_every=100),
+        opt_cfg=adamw.OptConfig.from_plan(pplan, **_opt_kw()), arch=arch,
+        shape=tshape, device="cpu")
+    stp, _ = trp.fit()
+    out["ckp_whole"] = whole_state(stp, trp.step_def)
+    out["ckp_layout"] = (trp.step_def.wire_dp,
+                         trp.step_def.layout.batch_axes,
+                         trp.step_def.layout.batch_index)
+    dist.barrier()
+    # what stays refused: the wire over FSDP leaves (the reference's
+    # reason)
     refused = {}
-    pod = _mesh((2, 2, 2), ("pod", "data", "model"))
-    pplan = specialize(arch, tshape, mesh_axes=("pod", "data", "model"),
-                       mesh_shape=(2, 2, 2), target="tpu-v5e", cache=False)
-    try:
-        Trainer(pplan, pod, arch=arch, shape=tshape, device="cpu")
-    except NotImplementedError as e:
-        refused["two_data_axes"] = str(e)
     _, splan = _tplan("spill21", grad_compression="on")
     try:
         Trainer(splan, m21, arch=arch, shape=tshape, device="cpu")
@@ -566,7 +596,7 @@ def _ref_cell(cell, batches, rparams, steps=STEPS):
     from repro.optim import adamw as radamw
     name, mesh, kw, variant = CELLS[cell]
     rarch = _arch_of(cell, rget_arch)
-    rplan = rspecialize(rarch, RShape(**QUICK), mesh_axes=("data", "model"),
+    rplan = rspecialize(rarch, RShape(**QUICK), mesh_axes=_axes(mesh),
                         mesh_shape=mesh, cache=False, **kw)
     _, tplan = _tplan(cell)
     if variant is None or variant in ARCH_VARIANTS:
@@ -594,11 +624,14 @@ def _ref_cell(cell, batches, rparams, steps=STEPS):
     return (*_REF[key], tplan, rplan)
 
 
-def _ref_wire(batches, rparams, dp=2, steps=STEPS):
+def _ref_wire(batches, rparams, mesh=(2, 1), steps=STEPS):
     """The reference's wire step composed on one device
-    (``src/repro/core/passes/lowering.py:269-351``): per contiguous
-    slice the loss and gradients (microbatches interleaved within it),
-    per leaf ``compressed_slice_sum`` of the stacked ``g + e``, then
+    (``src/repro/core/passes/lowering.py:269-351``) for the plan of
+    ``mesh`` with ``grad_compression="on"``, at its lowered data degree
+    (the ``(pod, data)`` slices of a three-dim mesh, data-major, as its
+    ``_dp_entry`` stacks them): per contiguous slice the loss and
+    gradients (microbatches interleaved within it), per leaf
+    ``compressed_slice_sum`` of the stacked ``g + e``, then
     ``apply_updates``."""
     import jax
     import jax.numpy as jnp
@@ -610,10 +643,11 @@ def _ref_wire(batches, rparams, dp=2, steps=STEPS):
     from repro.models import lm as rlm
     from repro.optim import adamw as radamw
     rarch = rget_arch("qwen3-8b").reduced()
-    rplan = rspecialize(rarch, RShape(**QUICK), mesh_axes=("data", "model"),
-                        mesh_shape=(2, 1), cache=False,
+    rplan = rspecialize(rarch, RShape(**QUICK), mesh_axes=_axes(mesh),
+                        mesh_shape=mesh, cache=False,
                         grad_compression="on")
-    assert rplan.estimates["grad_compress_lowered"] == 2.0
+    dp = int(rplan.estimates["grad_compress_lowered"])
+    rows = QUICK["global_batch"] // dp
     nm = max(rplan.comm.microbatches, 1)
     cfg = rbuild(rplan, rarch, None)
     ropt = radamw.OptConfig.from_plan(rplan, **_opt_kw())
@@ -648,7 +682,7 @@ def _ref_wire(batches, rparams, dp=2, steps=STEPS):
         b = batches[t]
         losses, gs = [], []
         for i in range(dp):
-            sl = {k: v[i * 4:(i + 1) * 4] for k, v in b.items()}
+            sl = {k: v[i * rows:(i + 1) * rows] for k, v in b.items()}
             if nm == 1:
                 l_, g_ = vg(params, sl)
             else:
@@ -766,12 +800,11 @@ def _routed(key: str, name: str) -> bool:
 
 
 def _cell_ranks(ranks, cell):
-    d, m = CELLS[cell][1]
-    return [r[cell] for r in ranks[:d * m]]
+    return [r[cell] for r in ranks[:int(np.prod(CELLS[cell][1]))]]
 
 
 PARITY = ["q11", "q21", "q22", "q12", "q24", "q12on", "spill21", "mask21",
-          "g21", "g12", "m21", "m22", "h22", "h12", "m22pad"]
+          "g21", "g12", "m21", "m22", "h22", "h12", "m22pad", "p222"]
 
 #: the update check: each leaf's change over the two steps against the
 #: reference's, as a norm relative to the norm of the reference's change
@@ -853,6 +886,16 @@ def test_mesh_step_matches_the_reference_one_device_step(world, cell):
         assert mine[0]["strategy"] == "fsdp_dp" and mine[0]["fsdp"]
     if cell == "m22pad":            # 3 SSM heads padded to 4
         assert tplan.padded_sizes()[2] == 4
+    if cell == "p222":
+        # the production mesh's pod plan: the batch over (pod, data), the
+        # int8 + EF booked on the slow channel; the wire needs
+        # ``compress_grads``, so the post-reduce error feedback runs
+        # after an fp32 sum over both data axes
+        assert tplan.axis_rules["batch"] == ("pod", "data")
+        assert tplan.comm.compress_pod_grads and not tplan.comm.compress_grads
+        assert mine[0]["wire"] == 0 and mine[0]["ef"] is not None
+        assert [c[:2] for c in (r["coord"] for r in mine)] == [
+            (i // 4, (i // 2) % 2) for i in range(8)]
 
 
 @pytest.mark.parametrize("cell", sorted(FAULTS))
@@ -932,6 +975,37 @@ def test_wire_matches_the_composed_reference_wire_step(world):
     gef = _rflat(mine[0]["ef"])
     for k, w in _rflat(wef).items():
         assert gef[k].shape == w.shape, k
+        rms = float(np.sqrt(np.mean(gef[k] ** 2)))
+        wrms = float(np.sqrt(np.mean(w ** 2)))
+        assert 0.5 * wrms <= rms <= 2 * wrms, (k, rms, wrms)
+
+
+@pytest.mark.parametrize("cell", WIRE_CELLS)
+def test_wire_over_pod_and_data_matches_the_composed_reference(world,
+                                                               cell):
+    """The wire on the production mesh's ``(pod, data)``: ``wire_dp =
+    pod x data = 4``, one linearised data group (the codes' MAX and SUM
+    over each axis in turn), each rank's EF row the reference's
+    ``_dp_entry`` row (data-major), held against the reference's wire
+    step composed on one device at dp 4; the EF residuals stacked
+    ``(4, ...)``."""
+    ranks, refs, _ = world
+    rparams, batches = refs["qwen3-8b"]
+    want, wparams, wef = _ref_wire(batches, rparams, CELLS[cell][1])
+    mine = _cell_ranks(ranks, cell)
+    assert mine[0]["wire"] == 4
+    for r in mine:
+        assert r["hist"] == mine[0]["hist"]
+        for (l, g), (lw, gw) in zip(r["hist"], want):
+            assert _rel(l, lw) <= BF16_TOL, (l, lw)
+            assert _rel(g, gw) <= BF16_TOL, (g, gw)
+    got, init = _rflat(mine[0]["master"]), _rflat(rparams)
+    for k, w in _rflat(wparams).items():
+        assert _rel(got[k], w) <= BF16_TOL, k
+        assert _delta_err(got[k], w, init[k]) <= DELTA_TOL, k
+    gef = _rflat(mine[0]["ef"])
+    for k, w in _rflat(wef).items():
+        assert gef[k].shape == w.shape and w.shape[0] == 4, k
         rms = float(np.sqrt(np.mean(gef[k] ** 2)))
         wrms = float(np.sqrt(np.mean(w ** 2)))
         assert 0.5 * wrms <= rms <= 2 * wrms, (k, rms, wrms)
@@ -1066,6 +1140,72 @@ def test_rank_estimate_is_what_autograd_keeps_on_ssm_pieces(world, name):
         assert got == want, (name, got, want)
 
 
+@pytest.mark.parametrize("n_layers", [8, 32])
+def test_rank_step_peak_counts_the_rank_vocab_and_state(n_layers):
+    """F5: hymba-1.5b's full-width (1, 2) ``megatron_tp`` train plan at
+    two depths.  The IR leaves its odd vocab (32001) whole, but the
+    model splits the padded table (32256) over the model ranks, so the
+    loss's region is the vocab-split cross-entropy's 14 T V over the
+    rank's vocab piece, not the whole logits' 20 T V; the state is the
+    rank's pieces as the trainer builds them (``param_pieces``: the kv
+    heads padded to 13 a rank), parameters, two fp32 moments and the
+    fp32 master, counted exactly; and the two depths differ only by
+    their layers' terms."""
+    import math
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.core.passes import communication as comm
+    from repro_torch.serve.sharded import param_pieces
+    seen = []
+    keep = comm.eager_train_step_memory
+
+    def spy(arch, **kw):
+        out = keep(arch, **kw)
+        seen.append((kw, out))
+        return out
+    ests = {}
+    for n in (n_layers, n_layers // 2):
+        arch = dataclasses.replace(get_arch("hymba-1.5b"), n_layers=n)
+        seen.clear()
+        comm.eager_train_step_memory = spy
+        try:
+            plan = specialize(arch, ShapeConfig("t", "train", 2048, 2),
+                              mesh_axes=("data", "model"),
+                              mesh_shape=(1, 2), target="h100-sxm",
+                              cache=False)
+        finally:
+            comm.eager_train_step_memory = keep
+        kw, est = seen[-1]
+        assert plan.comm.remat_policy == "none" and kw["remat"] == "none"
+        T = 2048 * 2
+        pieces = param_pieces(_FakeMesh((1, 2)), plan, arch)
+        vl = pieces["lm_head"][1][-1]
+        assert vl == 32256 // 2 and pieces["embed"][1][0] == vl
+        assert kw["vocab"] == vl and kw["vocab_split"]
+        assert est["loss"] == 14 * T * vl
+        # the rank's state, exactly: bf16 leaves, fp32 m, v and master
+        from repro_torch.models import lm
+        specs = lm.leaf_specs(arch, *plan.padded_sizes())
+
+        def walk(sp, pc):
+            if isinstance(sp, dict):
+                return sum(walk(sp[k], pc[k]) for k in sp)
+            return math.prod(pc[1]) * (sp.dtype.itemsize + 4 + 4 + 4)
+        assert plan.opt["moment_dtype"] == "float32" \
+            and plan.opt["master_weights"]
+        assert est["state"] == walk(specs, pieces)
+        assert plan.estimates["step_peak_bytes"] == est["peak"]
+        ests[n] = est
+    lo, hi = ests[n_layers // 2], ests[n_layers]
+    for k in ("runtime", "loss", "ssd_workspace"):
+        assert hi[k] == lo[k], k
+    half = n_layers // 2
+    per = (hi["saved"] - lo["saved"]) / half
+    assert per > 0 and lo["saved"] - half * per == \
+        pytest.approx(hi["saved"] - n_layers * per)
+
+
 def test_pieces_norm_and_every_plan_runs(world):
     ranks, _, _ = world
     r0 = ranks[0]
@@ -1117,14 +1257,51 @@ class _FakeMesh:
 
 
 def test_what_stays_refused_names_item_10b(world):
-    """What training on a mesh still refuses: several data axes, and,
-    with the reference's reason, the wire over FSDP leaves (SSM and
-    hybrid archs train: the cells above)."""
-    refused = world[0][0]["refused"]
-    assert set(refused) == {"two_data_axes", "wire_over_fsdp"}
-    assert "ROADMAP item 10b" in refused["two_data_axes"]
-    assert "data axes" in refused["two_data_axes"]
+    """What training on a mesh still refuses: the wire over FSDP leaves,
+    with the reference's reason (it cannot lower such a plan either).
+    Several data axes train (the pod cells above; the (2, 2, 1) wire's
+    checkpoint below), as SSM and hybrid archs do."""
+    ranks = world[0]
+    refused = ranks[0]["refused"]
+    assert set(refused) == {"wire_over_fsdp"}
     assert "P(dp, *pspec)" in refused["wire_over_fsdp"]
+    assert "cannot lower this plan either" in refused["wire_over_fsdp"]
+    for i, r in enumerate(ranks[:4]):
+        assert r["ckp_layout"] == (4, ("pod", "data"), i)
+
+
+def test_checkpoint_on_2x2x1_resumes_on_1x1(world):
+    """The wire's checkpoint written on the production mesh's (2, 2, 1)
+    (residuals stacked ``(4, ...)`` over ``(pod, data)``, data-major)
+    resumes on one card at step 2: the parameters exactly, each
+    residual the mean of the four rows (what the slices still owe), and
+    trains on."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core.pipeline import specialize
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    ranks, _, tmp = world
+    saved = ranks[0]["ckp_whole"]
+    params = _flat(saved["params"])
+    for k, e in _flat(saved["opt"]["ef"]).items():
+        assert tuple(e.shape) == (4, *params[k].shape), k
+    arch = get_arch("qwen3-8b").reduced()
+    tshape = ShapeConfig(**QUICK)
+    plan = specialize(arch, tshape, mesh_axes=("data", "model"),
+                      mesh_shape=(1, 1), target="tpu-v5e", cache=False,
+                      grad_compression="on")
+    tr = Trainer(plan, None, TrainerConfig(ckpt_dir=str(tmp / "ckp_0")),
+                 opt_cfg=adamw.OptConfig.from_plan(plan, **_opt_kw()),
+                 arch=arch, shape=tshape, device="cpu")
+    st, step = tr.resume()
+    assert step == 2
+    assert _same({k: v.detach() for k, v in _flat(st["params"]).items()},
+                 params)
+    for k, e in _flat(st["opt"]["ef"]).items():
+        stacked = _flat(saved["opt"]["ef"])[k]
+        assert torch.equal(e, stacked.float().mean(0).to(e.dtype)), k
+    st, _ = tr.fit(st, n_steps=3, start_step=2)
+    assert np.isfinite(tr.history[-1]["loss"])
 
 
 @pytest.mark.parametrize("launcher", ["train", "serve", "train_mp",

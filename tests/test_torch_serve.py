@@ -118,6 +118,8 @@ def test_pool_accounting_and_prefill_batching_match(served):
                                       "decode_attention": 0,
                                       "decode_partial": 0,
                                       "paged_decode_partial": 0,
+                                      "decode_split_scores": 0,
+                                      "decode_split_context": 0,
                                       "ssd_scan": 0, "ssd_scan_bwd": 0,
                                       "tiled_matmul": 0}
 

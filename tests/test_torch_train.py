@@ -543,10 +543,11 @@ def _mesh_plan(arch, mesh, **kw):
 @pytest.mark.parametrize("case", ["ssm_on_model", "two_data_axes",
                                   "wire_over_fsdp", "device_type"])
 def test_what_a_mesh_still_refuses(case):
-    """What training on a mesh does not do yet raises before any weight,
-    naming ROADMAP item 10b (the wire over an FSDP split with the
-    reference's own reason); a mesh built for CUDA never trains on the
-    CPU.  An SSM arch whose mixer ``megatron_tp`` splits over ``model``
+    """What training on a mesh does not do raises before any weight:
+    the wire over an FSDP split, with the reference's own reason; a mesh
+    built for CUDA never trains on the CPU.  Several data axes
+    (``two_data_axes``) are no longer refused: the layout splits the
+    batch over ``(pod, data)`` under either gradient path.  An SSM arch whose mixer ``megatron_tp`` splits over ``model``
     is no longer refused: its SSM leaves are tensor-parallel pieces
     (split over ``model``, no FSDP gather, gradients summed over
     ``data``)."""
@@ -566,14 +567,22 @@ def test_what_a_mesh_still_refuses(case):
         assert layout.piece_shape(places["A_log"]) == (
             mam.n_layers, mam.ssm_heads // 2)
     elif case == "two_data_axes":
-        plan = tspecialize(qwen, TShape(**dict(QUICK, seq_len=64,
-                                               global_batch=8)),
-                           mesh_axes=("pod", "data", "model"),
-                           mesh_shape=(2, 2, 2), target="h100-sxm",
-                           cache=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
-            mesh_refusals(plan, qwen, _Mesh((2, 2, 2),
-                                            ("pod", "data", "model")))
+        # no longer refused: the batch splits over (pod, data), one
+        # linearised data group of 4, under the post-reduce EF and the
+        # wire (wire_dp = pod x data)
+        from repro_torch.core.passes.lowering import wire_compression
+        pod = _Mesh((2, 2, 2), ("pod", "data", "model"))
+        for gc in ("off", "on"):
+            plan = tspecialize(qwen, TShape(**dict(QUICK, seq_len=64,
+                                                   global_batch=8)),
+                               mesh_axes=("pod", "data", "model"),
+                               mesh_shape=(2, 2, 2), target="h100-sxm",
+                               cache=False, grad_compression=gc)
+            wire = wire_compression(plan, pod, qwen)
+            assert wire == (4 if gc == "on" else 0)
+            layout = mesh_refusals(plan, qwen, pod, wire_dp=wire)
+            assert layout.batch_axes == ("pod", "data")
+            assert layout.batch_count == 4 and plan.comm.compress_pod_grads
     elif case == "wire_over_fsdp":
         plan = _mesh_plan(qwen, (2, 1), grad_compression="on")
         plan = dataclasses.replace(plan, axis_rules=dict(
