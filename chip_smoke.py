@@ -293,7 +293,9 @@ backward's (the positions variant's, the SSD scan backward's, the fp32
 tiled matmul's, phases 2b and 24's, phase 24b's, phase 24c's, phase
 24d's) check and timings alone
 (:func:`flash_bwd_check`, :func:`flash_pos_check`, :func:`ssd_bwd_check`,
-:func:`matmul_fp32_check`) and prints its result as one JSON line.
+:func:`matmul_fp32_check`) and prints its result as one JSON line;
+``--only head_dim`` runs K9's checks and timings (phase 2c) and phase
+24f, ``--only k9`` phase 2c alone.
 ``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
 as a parent commit's unpacked with ``git archive``: run two trees in
 alternating processes (parent, change, change, parent) to compare them
@@ -7354,11 +7356,16 @@ def split_kernel_phase(torch, dev):
     columns joined against the plain unsharded decode; the planted
     faults, a 16-byte column chunk dropped from one rank's pass 1 and
     (paged) table entries 0 and 1 swapped in one rank's pass 2, must
-    fail the joined check.  The timed cases' rank-0 passes run in turns
-    (:data:`TURNS` rounds of CUDA-graph device time) with the unsharded
-    decode kernel at the same widths and, dense pass 1, one
-    ``torch.matmul`` of the same slice products, beside the byte bounds
-    of the slices' live rows and the score buffer."""
+    fail the joined check.  Each pass takes what the same tree's passes
+    give it (the score buffer's layout is the tree's: ``--src`` runs a
+    parent's), so the turns compare trees on the same q, cache and
+    lengths.  The timed cases' rank-0 passes run in turns (:data:`TURNS`
+    rounds of CUDA-graph device time) with the unsharded decode kernel
+    at the same widths, dense pass 1 one ``torch.matmul`` of the same
+    slice products, and one trivial graph-captured launch (a one-element
+    add: the harness's fixed cost a launch), beside the byte bounds of
+    what the inputs need: the slices' live rows, and each slot's live
+    scores once."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import ops
     g = torch.Generator(dev).manual_seed(SEED + 9)
@@ -7369,6 +7376,7 @@ def split_kernel_phase(torch, dev):
              "decode_split_context": [0.0, 0.0], "joined": 0.0}
     controls = {"drop_chunk": [], "swap_entry": []}
     timing = {}
+    one = torch.zeros(1, device=dev)
     for label, Hq, Kv, Dh, m, W, timed in SPLIT_CASES:
         def rnd(*shape):
             return torch.randn(shape, generator=g, device=dev).to(
@@ -7444,7 +7452,6 @@ def split_kernel_phase(torch, dev):
             lo = (lens - W).clamp_min(0) if W else torch.zeros_like(lens)
             live = int((torch.minimum(lens, torch.full_like(lens, S))
                         - lo).sum())
-            cap = S
             fns = {"scores": functools.partial(
                        dec.decode_split_scores, qs[0], ks[0], tb,
                        scale=scale, **kw),
@@ -7459,6 +7466,7 @@ def split_kernel_phase(torch, dev):
                 qg = qs[0].reshape(B, Kv, Hq // Kv, DS)
                 kt = ks[0].permute(0, 2, 3, 1).contiguous()
                 fns["matmul"] = functools.partial(torch.matmul, qg, kt)
+            fns["launch"] = functools.partial(one.add_, 1.0)
             med, rounds = in_turns(torch, fns, graph_ms)
             pmed, _ = in_turns(torch, {
                 "scores": functools.partial(
@@ -7467,14 +7475,15 @@ def split_kernel_phase(torch, dev):
                 "context": functools.partial(
                     dec.decode_split_context_plain, s, vs[0], tb, **kw)})
             slice_bytes = live * Kv * DS * 2
-            b_sc = bound(slice_bytes + qs[0].numel() * 2 + B * Hq * cap * 4
+            b_sc = bound(slice_bytes + qs[0].numel() * 2 + live * Hq * 4
                          + B * 4, 2 * live * Hq * DS, PEAK_FP32)
             b_cx = bound(slice_bytes + live * Hq * 4 + B * Hq * DS * 2
                          + B * 4, 2 * live * Hq * DS, PEAK_FP32)
             timing[(label, paged)] = {
                 "scores_ms": med["scores"], "context_ms": med["context"],
                 "unsharded_ms": med.get("unsharded"),
-                "matmul_ms": med.get("matmul"),
+                "matmul_ms": med.get("matmul"), "launch_ms": med["launch"],
+                "scores_cols": int(sc[0].shape[-1]),
                 "plain_scores_ms": pmed["scores"],
                 "plain_context_ms": pmed["context"],
                 "bound_scores_ms": b_sc[0], "bound_context_ms": b_cx[0],
@@ -7486,8 +7495,9 @@ def split_kernel_phase(torch, dev):
                 f"{pmed['scores']:.4f}), pass 2 {med['context']:.4f} ms "
                 f"(bound {b_cx[0]:.4f}, plain {pmed['context']:.4f}), the "
                 f"unsharded decode kernel {med.get('unsharded')}, "
-                f"torch.matmul of the slice products {med.get('matmul')} "
-                f"in turns of {TURNS} [{CARD}]")
+                f"torch.matmul of the slice products {med.get('matmul')}, "
+                f"one trivial launch {med['launch']:.4f} ms, in turns of "
+                f"{TURNS}; score buffer {tuple(sc[0].shape)} [{CARD}]")
         log(f"kernel K9 {label} ({Hq}/{Kv} x {Dh}, m = {m}, window {W}): "
             f"passes dense and paged held at {tol} [{CARD}]")
     head = timing[("hymba12", False)]
@@ -7510,7 +7520,8 @@ def split_kernel_phase(torch, dev):
             kernel_check_row_rel_err=worst["joined"],
             ms=head["scores_ms"], plain_ms=head["plain_scores_ms"],
             bound_ms=head["bound_scores_ms"], bound_by=head["bound_by"],
-            library_ms=head["matmul_ms"], shape=shape, shapes=turns,
+            library_ms=head["matmul_ms"], launch_ms=head["launch_ms"],
+            shape=shape, shapes=turns,
             library_call="torch.matmul of the rank's (B, K, G, 32) query "
                          "slices with its (B, K, 32, S) key slices (every "
                          "row; the kernel reads only the live ones)"),
@@ -7525,7 +7536,8 @@ def split_kernel_phase(torch, dev):
             kernel_check_row_rel_err=worst["joined"],
             ms=headp["context_ms"], plain_ms=headp["plain_context_ms"],
             bound_ms=headp["bound_context_ms"], bound_by=headp["bound_by"],
-            library_ms=None, shape=shape.replace("rank 0's launch",
+            library_ms=None, launch_ms=headp["launch_ms"],
+            shape=shape.replace("rank 0's launch",
                                                  "rank 0's launch, paged"),
             shapes=turns,
             library_call="none: no library call takes a block table")}
@@ -7950,6 +7962,27 @@ def _head_dim_rank(rank: int, tmp: str, src: str) -> None:
         dist.destroy_process_group()
 
 
+def _score_reduce_bytes(arch, plan, cache):
+    """The bytes of K9's score buffer that the all-reduce moves a layer,
+    ``B * H * Wc * 4``, by the layers' window (``"global"`` or
+    ``"window <w>"``: their count and bytes), from the engine's cache
+    shapes and the tree's own buffer rule (a tree before the compact
+    buffer scores every row: ``Wc`` is the view's capacity)."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.models import lm
+    k = cache["k"]                  # (L, B, S, K, DS) or (L, N, bl, K, DS)
+    tbl = cache.get("block_tbl")
+    B, cap = (tbl[0], tbl[1] * k[2]) if tbl else (k[1], k[2])
+    H = plan.padded_sizes()[1] or arch.n_heads
+    cols = getattr(dec, "split_cols", lambda c, w: c)
+    out = {}
+    for w in lm._window_schedule(arch):
+        name = f"window {w}" if w else "global"
+        n, _ = out.get(name, (0, 0))
+        out[name] = (n + 1, B * H * cols(cap, w) * 4)
+    return {name: {"layers": n, "bytes": b} for name, (n, b) in out.items()}
+
+
 def head_dim_phase(torch, dev):
     """Phase 24f: two ranks spawned on ``cuda:0`` over gloo serve
     hymba-1.5b at full width and depth from its (1, 2) plan on the XLA
@@ -7995,7 +8028,12 @@ def head_dim_phase(torch, dev):
             for k in launches:
                 launches[k] += c[k]
         r["launches"] = [o["launches"] for o in recs]
+        r["score_reduce_bytes"] = _score_reduce_bytes(arch, plan,
+                                                      r["cache"])
         res[residency] = r
+        log(f"head_dim: ({residency}) the score all-reduce a rank, bytes a "
+            f"layer (B * H * Wc * 4, the tree's score buffer): "
+            f"{r['score_reduce_bytes']} [{CARD}]")
         log(f"head_dim: ({residency}) hymba-1.5b full width, {L} layers, "
             f"(1, 2) plan on the XLA decode: path {r['path']} (one rank "
             f"{r['one_path']}), cache piece {r['cache']['k']}, "
@@ -8019,7 +8057,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("flash_bwd", "flash_pos", "ssd_bwd",
                                        "matmul_fp32", "mesh", "mesh_train",
                                        "ssm_mesh", "mesh_tier", "pod_mesh",
-                                       "head_dim"),
+                                       "head_dim", "k9"),
                     help="run this kernel's check alone and print its "
                          "result")
     ap.add_argument("--src", type=Path, default=SRC,
@@ -8139,13 +8177,16 @@ def main(argv=None) -> int:
         log(json.dumps({"src": str(args.src), "card": CARD,
                         "pod_mesh": res}))
         return 0
-    if args.only == "head_dim":
+    if args.only in ("head_dim", "k9"):
         log(f"build: {time.perf_counter() - t0:.1f} s [{CARD}]")
         for kernel, regs, spills in build.ptxas_entries(
                 build.PTXAS_LOG.get("decode_split", "")):
             log(f"ptxas decode_split: {kernel}: {regs} registers at entry, "
                 f"{spills} bytes of spills [{CARD}]")
         kern = split_kernel_phase(torch, dev)
+        if args.only == "k9":
+            log(json.dumps({"src": str(args.src), "card": CARD, "k9": kern}))
+            return 0
         expandable_segments(torch)
         _, res = head_dim_phase(torch, dev)
         log(json.dumps({"src": str(args.src), "card": CARD,

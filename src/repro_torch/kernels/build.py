@@ -197,12 +197,12 @@ _SIGNATURES = {
         "paged_decode_partial": [_P] * 8 + [_I] * 11 + [_F, _I, _P],
     },
     "decode_split": {
-        # q, k, tbl, cache_len, s, B, H, K, DS, seq, nb, window, scale,
-        # drop_chunk, stream
-        "decode_split_scores": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
-        # s, v, tbl, cache_len, ws, out, B, H, K, DS, seq, nb, window,
-        # splits, split_rows, swap_entry, stream
-        "decode_split_context": [_P] * 6 + [_I] * 10 + [_P],
+        # q, k, tbl, cache_len, s, B, H, K, DS, seq, nb, Wc, window,
+        # scale, drop_chunk, stream
+        "decode_split_scores": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
+        # s, v, tbl, cache_len, out, B, H, K, DS, seq, nb, Wc, window,
+        # splits, rows, swap_entry, stream
+        "decode_split_context": [_P] * 5 + [_I] * 11 + [_P],
     },
     "ssd_scan": {
         # x, dt, A, Bm, Cm, init, y, fin, states, ws, B, S, H, P, G, N,

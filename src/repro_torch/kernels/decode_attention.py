@@ -513,8 +513,18 @@ def paged_decode_partial(q: torch.Tensor, k_pool: torch.Tensor,
 #: m = 2 and 4 (its padded 26 / 13 heads at 32 columns, 28 / 7 at 16), its
 #: unpadded group of 5 at both, and qwen3-8b's group of 4 at 64
 SPLIT_INSTANCES = ((2, 32), (4, 16), (5, 32), (5, 16), (4, 64))
-#: rows a pass-2 split covers at most (whole tiles of :func:`decode_split`)
-SPLIT_TILE = 256
+#: a pass-2 split covers a whole number of these compact columns (the
+#: rows of one register stage, ``csrc`` ``kCtxLoads * kCtxRows``)
+SPLIT_TILE = 128
+#: the stages a pass-2 split aims at (a cluster takes more where it must)
+SPLIT_TILES = 2
+#: threads of pass-2 CTAs one SM holds at once, for the split rule's wave
+#: (a quarter of its 2,048: the kernel's 96-128 registers a thread allow
+#: 512-640)
+SPLIT_SM_THREADS = 512
+#: pass 2's splits of one (slot, kv head) form one thread-block cluster
+#: of at most this many CTAs (the portable cluster size)
+SPLIT_CLUSTER = 8
 
 #: launches of K9's passes in this process (reset by the caller)
 split_scores_launches = 0
@@ -527,16 +537,39 @@ def takes_split(G: int, DS: int) -> bool:
     return (G, DS) in SPLIT_INSTANCES
 
 
-def _live_rows(cache_len: IntOrTensor, B: int, C: int, window: int,
-               device) -> torch.Tensor:
-    """``(B, C)``: the rows ``[cache_len - window, cache_len)`` (from 0
-    without a window) of each slot's view of ``C`` rows."""
-    cl = _lengths(cache_len, B, device).long().clamp(max=C)[:, None]
-    kpos = torch.arange(C, device=device)[None, :]
-    live = kpos < cl
-    if window > 0:
-        live &= kpos >= cl - window
-    return live
+def split_cols(capacity: int, window: int) -> int:
+    """``Wc``, the columns of K9's compact score buffer over a view of
+    ``capacity`` rows: ``min(capacity, window)`` with a window, else
+    ``capacity``.  It reads the shapes and the window alone."""
+    return min(capacity, window) if window > 0 else capacity
+
+
+def context_split(B: int, K: int, DS: int, cols: int) -> Tuple[int, int]:
+    """``(splits, rows)`` of pass 2 over ``cols`` compact columns of
+    ``B * K`` (slot, kv head) pairs, ``DS`` columns a row: split ``p``
+    covers the columns ``[p * rows, (p + 1) * rows)``, ``rows`` a
+    multiple of :data:`SPLIT_TILE`.  :data:`SPLIT_TILES` tiles a split,
+    with no more splits than one wave of the grid holds (CTAs of ``4 *
+    DS`` threads, :data:`SPLIT_SM_THREADS` of them an SM) and than one
+    cluster takes: :data:`SPLIT_CLUSTER`.  It reads no ``cache_len``."""
+    tiles = -(-cols // SPLIT_TILE)
+    wave = SMS * SPLIT_SM_THREADS // (4 * DS) // max(1, B * K)
+    splits = max(1, min(SPLIT_CLUSTER, -(-tiles // SPLIT_TILES), wave))
+    rows = SPLIT_TILE * -(-tiles // splits)
+    return -(-cols // rows), rows
+
+
+def _compact(cache_len: IntOrTensor, B: int, C: int, window: int, device
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The compact layout over each slot's view of ``C`` rows: ``(rows,
+    live)``, both ``(B, Wc)``.  Column ``x`` of slot ``b`` is the row
+    ``lo_b + x`` (clamped into the view), live for ``x < len_b - lo_b``,
+    where ``len_b = min(cache_len_b, C)`` and ``lo_b = len_b - window``
+    (0 without a window)."""
+    cl = _lengths(cache_len, B, device).long().clamp(0, C)[:, None]
+    lo = (cl - window).clamp_min(0) if window > 0 else torch.zeros_like(cl)
+    x = torch.arange(split_cols(C, window), device=device)[None, :]
+    return (lo + x).clamp(max=C - 1), x < cl - lo
 
 
 def _view(t: torch.Tensor, block_tbl: Optional[torch.Tensor]
@@ -551,6 +584,17 @@ def _view(t: torch.Tensor, block_tbl: Optional[torch.Tensor]
     return g.reshape(tbl.shape[0], -1, *t.shape[2:])
 
 
+def _compact_view(t: torch.Tensor, block_tbl: Optional[torch.Tensor],
+                  cache_len: IntOrTensor, window: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows of the compact layout, ``(B, Wc, K, DS)``, and their
+    liveness ``(B, Wc)``."""
+    kv = _view(t, block_tbl)
+    B = kv.shape[0]
+    rows, live = _compact(cache_len, B, kv.shape[1], window, t.device)
+    return kv[torch.arange(B, device=t.device)[:, None], rows], live
+
+
 def decode_split_scores_plain(q: torch.Tensor, k: torch.Tensor,
                               block_tbl: Optional[torch.Tensor] = None, *,
                               cache_len: IntOrTensor, window: int = 0,
@@ -558,36 +602,75 @@ def decode_split_scores_plain(q: torch.Tensor, k: torch.Tensor,
     """Pass 1 in plain PyTorch: q ``(B, H, DS)`` (the rank's columns of
     every query head) against a dense ``(B, S, K, DS)`` slice, or a
     ``(N, bl, K, DS)`` pool through ``block_tbl``: the fp32 partial
-    scores ``(B, H, C)`` scaled by ``scale`` (the whole head_dim's
-    ``D^-0.5``), 0 on rows outside each slot's live range."""
-    kv = _view(k, block_tbl)
+    scores scaled by ``scale`` (the whole head_dim's ``D^-0.5``) in the
+    compact layout ``(B, H, Wc)`` (:func:`split_cols`): column ``x`` of
+    slot ``b`` is its live row ``lo_b + x``, 0 past its live count."""
+    kv, live = _compact_view(k, block_tbl, cache_len, window)
     B, H, DS = q.shape
-    C, K = kv.shape[1], kv.shape[2]
+    K = kv.shape[2]
     s = torch.einsum("bkgd,bckd->bkgc",
                      q.reshape(B, K, H // K, DS).float() * scale, kv.float())
-    live = _live_rows(cache_len, B, C, window, q.device)[:, None, None, :]
-    return torch.where(live, s, 0.0).reshape(B, H, C)
+    return torch.where(live[:, None, None, :], s, 0.0).reshape(B, H, -1)
 
 
 def decode_split_context_plain(s: torch.Tensor, v: torch.Tensor,
                                block_tbl: Optional[torch.Tensor] = None, *,
                                cache_len: IntOrTensor, window: int = 0
                                ) -> torch.Tensor:
-    """Pass 2 in plain PyTorch: the summed scores ``(B, H, C)``, masked
-    to each slot's live rows, through an fp32 softmax against the rank's
-    V columns (dense ``(B, S, K, DS)``, or a pool through the table):
-    the context's ``(B, H, DS)`` columns in V's dtype; zeros for a slot
-    with no live row."""
-    vv = _view(v, block_tbl)
-    B, H, C = s.shape
+    """Pass 2 in plain PyTorch: the summed compact scores ``(B, H, Wc)``,
+    masked to each slot's live count, through an fp32 softmax against
+    the rank's V columns of the same rows (dense ``(B, S, K, DS)``, or a
+    pool through the table): the context's ``(B, H, DS)`` columns in V's
+    dtype; zeros for a slot with no live row."""
+    vv, live = _compact_view(v, block_tbl, cache_len, window)
+    B, H, Wc = s.shape
     K, DS = vv.shape[2], vv.shape[3]
-    live = _live_rows(cache_len, B, C, window, s.device)[:, None, None, :]
-    sc = torch.where(live, s.reshape(B, K, H // K, C).float(),
+    live = live[:, None, None, :]
+    sc = torch.where(live, s.reshape(B, K, H // K, Wc).float(),
                      float("-inf"))
     m = sc.amax(-1, keepdim=True)
     p = torch.where(live, torch.exp(sc - m), 0.0)
     o = torch.einsum("bkgc,bckd->bkgd", p, vv.float())
     o = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(B, H, DS).to(v.dtype)
+
+
+def decode_split_context_splits(s: torch.Tensor, v: torch.Tensor,
+                                block_tbl: Optional[torch.Tensor] = None, *,
+                                cache_len: IntOrTensor, window: int = 0,
+                                rows: Optional[int] = None,
+                                drop_split: int = -1) -> torch.Tensor:
+    """Pass 2's split-and-merge arithmetic in plain fp32 PyTorch: split
+    ``p`` (:func:`context_split`'s, or of ``rows`` columns each) takes
+    the partial ``(m, l, acc)`` of its live compact columns, an empty
+    split ``m = -inf, l = 0``, and the partials merge in split order,
+    empty ones absent; ``drop_split`` leaves one out (a planted fault).
+    The tests hold it against :func:`decode_split_context_plain`;
+    nothing on the main path calls it."""
+    vv, live = _compact_view(v, block_tbl, cache_len, window)
+    B, H, Wc = s.shape
+    K, DS = vv.shape[2], vv.shape[3]
+    rows = rows or context_split(B, K, DS, Wc)[1]
+    x = torch.arange(Wc, device=s.device)[None, :]
+    sc = s.reshape(B, K, H // K, Wc).float()
+    parts = []
+    for i in range(-(-Wc // rows)):
+        ok = (live & (x >= i * rows) & (x < (i + 1) * rows))[:, None, None]
+        si = torch.where(ok, sc, float("-inf"))
+        m = si.amax(-1)                                        # (B, K, G)
+        p = torch.where(ok, torch.exp(si - m[..., None]), 0.0)
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgc,bckd->bkgd", p, vv.float())))
+    kept = [t for i, t in enumerate(parts) if i != drop_split]
+    m_all = torch.stack([m for m, _, _ in kept]).amax(0)
+    acc = torch.zeros_like(kept[0][2])
+    lsum = torch.zeros_like(kept[0][1])
+    for m, l, a in kept:
+        f = torch.where(m == float("-inf"), 0.0, torch.exp(m - m_all))
+        acc = acc + f[..., None] * a
+        lsum = lsum + f * l
+    o = torch.where(lsum[..., None] > 0,
+                    acc / lsum.clamp_min(1e-30)[..., None], 0.0)
     return o.reshape(B, H, DS).to(v.dtype)
 
 
@@ -630,18 +713,19 @@ def decode_split_scores(q: torch.Tensor, k: torch.Tensor,
     cl = _lengths(cache_len, B, q.device)
     seq, nb, K = _split_check("decode_split_scores", k, block_tbl, cl, H)
     if q.dtype != torch.bfloat16 or not q.is_contiguous() \
+            or q.data_ptr() % 16 \
             or q.device != k.device or k.shape[3] != DS or (
             block_tbl is None and k.shape[0] != B) or (
             block_tbl is not None and block_tbl.shape[0] != B):
         raise ValueError(f"decode_split_scores: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)}")
-    cap = seq if block_tbl is None else nb * seq
-    s = torch.empty((B, H, cap), dtype=torch.float32, device=q.device)
+    cols = split_cols(seq if block_tbl is None else nb * seq, int(window))
+    s = torch.empty((B, H, cols), dtype=torch.float32, device=q.device)
     err = build.library("decode_split").decode_split_scores(
         q.data_ptr(), k.data_ptr(),
         block_tbl.data_ptr() if block_tbl is not None else None,
-        cl.data_ptr(), s.data_ptr(), B, H, K, DS, seq, nb, int(window),
-        float(scale), int(drop_chunk),
+        cl.data_ptr(), s.data_ptr(), B, H, K, DS, seq, nb, cols,
+        int(window), float(scale), int(drop_chunk),
         torch.cuda.current_stream(q.device).cuda_stream)
     _launch_error("decode_split_scores", err)
     split_scores_launches += 1
@@ -654,27 +738,28 @@ def decode_split_context(s: torch.Tensor, v: torch.Tensor,
                          swap_entry: bool = False) -> torch.Tensor:
     """Launch K9's pass 2 on CUDA tensors (the contract of
     :func:`decode_split_context_plain`; raises on any other device or
-    input the kernel does not take): the context pass and its merge.
-    ``swap_entry`` plants a fault for the checks: each slot's table
-    entries 0 and 1 are read in each other's place."""
+    input the kernel does not take): one launch, the splits of a (slot,
+    kv head) merged inside it (one thread-block cluster).  ``swap_entry`` plants a fault for the
+    checks: each slot's table entries 0 and 1 are read in each other's
+    place."""
     global split_context_launches
-    B, H, C = s.shape
+    B, H, cols = s.shape
     cl = _lengths(cache_len, B, s.device)
     seq, nb, K = _split_check("decode_split_context", v, block_tbl, cl, H)
     DS = v.shape[3]
+    cap = seq if block_tbl is None else nb * seq
     if s.dtype != torch.float32 or not s.is_contiguous() \
-            or s.device != v.device \
-            or C != (seq if block_tbl is None else nb * seq):
+            or s.device != v.device or cols != split_cols(cap, int(window)):
         raise ValueError(f"decode_split_context: scores {tuple(s.shape)} "
-                         f"{s.dtype} against v {tuple(v.shape)}")
-    splits, rows = decode_split(B, K, C, SPLIT_TILE)
-    ws = torch.empty(B * K * splits * (H // K) * (DS + 2),
-                     dtype=torch.float32, device=s.device)
+                         f"{s.dtype} against v {tuple(v.shape)}, window "
+                         f"{window}: K9 takes the compact (B, H, "
+                         f"{split_cols(cap, int(window))}) fp32 buffer")
+    splits, rows = context_split(B, K, DS, cols)
     out = torch.empty((B, H, DS), dtype=torch.bfloat16, device=s.device)
     err = build.library("decode_split").decode_split_context(
         s.data_ptr(), v.data_ptr(),
         block_tbl.data_ptr() if block_tbl is not None else None,
-        cl.data_ptr(), ws.data_ptr(), out.data_ptr(), B, H, K, DS, seq, nb,
+        cl.data_ptr(), out.data_ptr(), B, H, K, DS, seq, nb, cols,
         int(window), splits, rows, int(bool(swap_entry)),
         torch.cuda.current_stream(s.device).cuda_stream)
     _launch_error("decode_split_context", err)

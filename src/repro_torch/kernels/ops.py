@@ -147,12 +147,15 @@ def paged_decode_partial(q, k_pool, v_pool, block_tbl, *, block_start: int,
 
 def decode_split_scores(q, k, block_tbl=None, *, cache_len, scale: float,
                         window: int = 0, mode: str = "auto") -> torch.Tensor:
-    """K9's pass 1: the fp32 partial scores ``(B, H, C)`` of q ``(B, H,
-    DS)``, a rank's columns of every query head, against its columns of
-    a dense ``(B, S, K, DS)`` cache or a ``(N, bl, K, DS)`` pool through
-    ``block_tbl``, scaled by ``scale`` (the whole head_dim's), 0 outside
-    each slot's live rows: the kernel on a CUDA tensor, the plain version
-    on a CPU one.  Raises under autograd (:func:`_refuse_grad`)."""
+    """K9's pass 1: the fp32 partial scores of q ``(B, H, DS)``, a
+    rank's columns of every query head, against its columns of a dense
+    ``(B, S, K, DS)`` cache or a ``(N, bl, K, DS)`` pool through
+    ``block_tbl``, scaled by ``scale`` (the whole head_dim's), in the
+    compact layout ``(B, H, Wc)``: column ``x`` of a slot is its live row
+    ``lo + x``, 0 past its live count
+    (:func:`repro_torch.kernels.decode_attention.split_cols`).  The
+    kernel on a CUDA tensor, the plain version on a CPU one.  Raises
+    under autograd (:func:`_refuse_grad`)."""
     _refuse_grad("decode_split_scores", q, k)
     if not _use_kernel("decode_split_scores", q, mode):
         return _dec.decode_split_scores_plain(
@@ -165,9 +168,10 @@ def decode_split_scores(q, k, block_tbl=None, *, cache_len, scale: float,
 def decode_split_context(s, v, block_tbl=None, *, cache_len,
                          window: int = 0, mode: str = "auto"
                          ) -> torch.Tensor:
-    """K9's pass 2: the masked fp32 softmax of the scores ``(B, H, C)``
-    summed over the model ranks, against the rank's V columns: the
-    context's ``(B, H, DS)`` columns.  The kernel on a CUDA tensor, the
+    """K9's pass 2: the fp32 softmax of the compact scores ``(B, H,
+    Wc)`` summed over the model ranks, masked to each slot's live count,
+    against the rank's V columns of the same rows: the context's ``(B,
+    H, DS)`` columns.  The kernel on a CUDA tensor (one launch), the
     plain version on a CPU one.  Raises under autograd."""
     _refuse_grad("decode_split_context", s, v)
     if not _use_kernel("decode_split_context", s, mode):

@@ -85,9 +85,11 @@ def attention_decode_split(q: torch.Tensor, k_cache: torch.Tensor,
     S, K, DS)`` cache (or ``(N, bl, K, DS)`` pool through ``block_tbl``)
     its columns of every row.  K9's pass 1
     (:func:`repro_torch.kernels.ops.decode_split_scores`) scores the
-    columns at the whole ``head_dim``'s scale, ``reduce`` sums the fp32
-    ``(B, H, C)`` scores over the ranks in place (the reference's psum of
-    the score tensor, ``src/repro/models/lm.py:697-713``), and pass 2
+    columns at the whole ``head_dim``'s scale into the compact fp32
+    ``(B, H, Wc)`` buffer (each slot's live rows only, ``Wc`` the window
+    where there is one), ``reduce`` sums it over the ranks in place (the
+    reference's psum of the score tensor,
+    ``src/repro/models/lm.py:697-713``), and pass 2
     (:func:`~repro_torch.kernels.ops.decode_split_context`) applies the
     masked softmax to the rank's V columns: the context's ``(B, 1, H,
     DS)`` columns."""

@@ -1533,8 +1533,9 @@ def _decode_cols(cfg: RunCfg, c, q: torch.Tensor, k: torch.Tensor,
     rank's columns ``[mrank * DS, (mrank + 1) * DS)`` of the new k/v
     appended to its cache piece, then K9 through
     :func:`repro_torch.models.attention.attention_decode_split` (the
-    scores summed over the model ranks between its passes), and the
-    context's columns gathered whole: ``(B, 1, H, hd)``."""
+    compact ``(B, H, Wc)`` scores, each slot's live rows only, summed
+    over the model ranks between its passes), and the context's columns
+    gathered whole: ``(B, 1, H, hd)``."""
     from repro_torch.dist.collectives import sum_over_
     n = kc.shape[-1]
     c0 = c.mrank * n

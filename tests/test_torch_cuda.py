@@ -1986,15 +1986,16 @@ def test_partial_wrappers_count_launches(dev):
     (g, ds, 64 // ds) for g, ds in tdec.SPLIT_INSTANCES if ds < 64)
     + [(4, 64, 2)])
 @pytest.mark.parametrize("paged", [False, True])
-@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("window", [0, 1024, 4096])
 def test_split_decode_passes_match_plain(dev, G, DS, m, paged, window):
-    """K9 (``csrc/decode_split.cu``) at every built ``(G, head_dim / m)``:
-    each rank's pass 1 over its columns against the plain pass 1 (per
-    (slot, head) row of scores), the scores summed, each rank's pass 2
-    against the plain pass 2, and the ranks' columns joined against the
-    unsharded plain decode; a column chunk dropped from rank 0's pass 1
-    and (paged) rank 0's table entries 0 and 1 swapped must fail the
-    joined check by 5x."""
+    """K9 (``csrc/decode_split.cu``) at every built ``(G, head_dim / m)``,
+    without a window, with hymba's and with one wider than the cache:
+    each rank's pass 1 over its columns against the plain pass 1 (the
+    compact ``(B, H, Wc)`` buffer, per (slot, head) row of scores), the
+    scores summed, each rank's pass 2 against the plain pass 2, and the
+    ranks' columns joined against the unsharded plain decode; a column
+    chunk dropped from rank 0's pass 1 and (paged) rank 0's table
+    entries 0 and 1 swapped must fail the joined check by 5x."""
     Dh = DS * m
     Kv = 4
     g = torch.Generator(dev).manual_seed(G * 100 + DS + window)
@@ -2020,6 +2021,7 @@ def test_split_decode_passes_match_plain(dev, G, DS, m, paged, window):
         s = tdec.decode_split_scores(qs[r], ks[r], tb, scale=scale, **kw)
         want = tdec.decode_split_scores_plain(qs[r], ks[r], tb, scale=scale,
                                               **kw)
+        assert s.shape == (B, G * Kv, tdec.split_cols(S, window))
         assert _rel_err(s, want) < DECODE_TOL
         sc.append(s)
     s = torch.stack(sc).sum(0)
@@ -2043,4 +2045,47 @@ def test_split_decode_passes_match_plain(dev, G, DS, m, paged, window):
                                             **kw)
         assert _rel_err(torch.cat([swapped] + ctx[1:], -1), want) \
             > 5 * DECODE_TOL
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bl", [4, 24])
+@pytest.mark.parametrize("window", [0, 1024])
+def test_split_decode_block_lengths(dev, bl, window):
+    """K9 over pools of other block lengths than the plan's powers of two
+    from 16: 4-row blocks (384 table columns, past the 256 a CTA stages
+    whole, so each CTA stages its own rows' entries) and 24-row blocks (a
+    length no shift divides), with -1 entries past each slot's rows,
+    both passes against the plain ones and the ranks' columns against
+    the unsharded plain decode."""
+    G, DS, m, Kv, B, S = 2, 32, 2, 4, 8, 1536
+    nb = S // bl
+    g = torch.Generator(dev).manual_seed(bl * 10 + window)
+    lens = torch.tensor([1, 5, 300, 777, 1024, 1025, 1400, 1536],
+                        dtype=torch.int32, device=dev)
+    tbl = torch.randperm(B * nb, generator=g, device=dev).int().reshape(
+        B, nb)
+    used = torch.arange(nb, device=dev)[None] * bl < lens[:, None]
+    tbl = torch.where(used, tbl, -1).contiguous()
+    q = _rnd(g, B, G * Kv, DS * m)
+    kp, vp = (_rnd(g, B * nb, bl, Kv, DS * m) for _ in range(2))
+    kw = dict(cache_len=lens, window=window)
+    scale = (DS * m) ** -0.5
+    cols = [slice(r * DS, (r + 1) * DS) for r in range(m)]
+    sc, ctx = [], []
+    for c in cols:
+        qc, kc = q[..., c].contiguous(), kp[..., c].contiguous()
+        s = tdec.decode_split_scores(qc, kc, tbl, scale=scale, **kw)
+        assert _rel_err(s, tdec.decode_split_scores_plain(
+            qc, kc, tbl, scale=scale, **kw)) < DECODE_TOL
+        sc.append(s)
+    s = torch.stack(sc).sum(0)
+    for c in cols:
+        vc = vp[..., c].contiguous()
+        out = tdec.decode_split_context(s, vc, tbl, **kw)
+        assert _rel_err(out, tdec.decode_split_context_plain(
+            s, vc, tbl, **kw)) < DECODE_TOL
+        ctx.append(out)
+    want = tdec.paged_decode_attention_plain(q, kp, vp, tbl, **kw)
+    assert _rel_err(torch.cat(ctx, -1), want) < DECODE_TOL
     torch.cuda.synchronize()

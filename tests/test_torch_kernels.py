@@ -482,8 +482,10 @@ def test_split_passes_match_jax_decode(G, m, window, paged):
 
 
 def test_split_scores_are_zero_outside_the_live_rows():
-    """Pass 1 scores only each slot's live rows (past ``cache_len`` and
-    before the window: 0), and a dropped column is a different score."""
+    """Pass 1 writes the compact layout: slot 0 (20 rows, window 8) has
+    its rows 12-19 in columns 0-7, slot 1 (5 rows) its rows 0-4 in
+    columns 0-4, and every other column is 0; a dropped column is a
+    different score."""
     rng = np.random.default_rng(3)
     q = torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((2, 32, 2, 16)).astype(
@@ -491,11 +493,124 @@ def test_split_scores_are_zero_outside_the_live_rows():
     lens = torch.tensor([20, 5], dtype=torch.int32)
     s = tdec.decode_split_scores_plain(q, k, cache_len=lens, window=8,
                                        scale=0.125)
-    assert s.shape == (2, 4, 32)
-    assert (s[0, :, :12] == 0).all() and (s[0, :, 20:] == 0).all()
-    assert (s[1, :, 5:] == 0).all() and (s[0, :, 12:20] != 0).all()
+    assert s.shape == (2, 4, 8)
+    full = torch.einsum("bkgd,bskd->bkgs", q.reshape(2, 2, 2, 16) * 0.125,
+                        k).reshape(2, 4, 32)
+    assert torch.allclose(s[0], full[0, :, 12:20])
+    assert torch.allclose(s[1, :, :5], full[1, :, :5])
+    assert (s[1, :, 5:] == 0).all() and (s[:, :, :5] != 0).all()
     k2 = k.clone()
     k2[..., :8] = 0
     s2 = tdec.decode_split_scores_plain(q, k2, cache_len=lens, window=8,
                                         scale=0.125)
     assert not torch.allclose(s, s2)
+
+
+def _full_context(q, k, v, tbl, lens, window):
+    """The head_dim-split decode over the full ``(B, H, cap)`` score
+    buffer (the layout before the compact one): every row scored, the
+    rows outside each slot's live range masked, one fp32 softmax."""
+    kv, vv = (tdec._view(t, tbl).float() for t in (k, v))
+    B, H, D = q.shape
+    C, K = kv.shape[1], kv.shape[2]
+    s = torch.einsum("bkgd,bckd->bkgc",
+                     q.reshape(B, K, H // K, D).float() * D ** -0.5, kv)
+    cl = lens.long().clamp(max=C)[:, None]
+    row = torch.arange(C)[None, :]
+    live = (row < cl) & ((row >= cl - window) if window > 0 else True)
+    s = torch.where(live[:, None, None, :], s, float("-inf"))
+    p = torch.softmax(s, -1)
+    o = torch.einsum("bkgc,bckd->bkgd", p, vv)
+    return o.reshape(B, H, D)
+
+
+@pytest.mark.parametrize("window", [0, 24, 100])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("m", [2, 4])
+def test_compact_split_passes_equal_the_full_buffer(window, paged, m):
+    """The compact plain passes, summed over ``m`` column slices, give
+    the context of the full ``(B, H, cap)`` computation (fp32, 1e-5):
+    windows 0, 24 and 100 (wider than the 64-row cache), slots of 1, 9
+    (shorter than the window), 40 and 64 rows; the buffer has
+    ``min(cap, window)`` columns, ``cap`` without a window."""
+    rng = np.random.default_rng(17 + window + m)
+    B, K, G, D, S = 4, 2, 4, 32, 64
+    lens = torch.tensor([1, 9, 40, 64], dtype=torch.int32)
+    q = torch.from_numpy(rng.standard_normal((B, G * K, D)).astype(
+        np.float32))
+    if paged:
+        bl, N = 16, 20
+        shape = (N, bl, K, D)
+        tbl_np = rng.permutation(N)[:B * 4].reshape(B, 4).astype(np.int32)
+        tbl_np[0, 1:] = -1
+        tbl = torch.from_numpy(tbl_np)
+    else:
+        shape, tbl = (B, S, K, D), None
+    k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for _ in range(2))
+    got = _split_passes(q, k, v, tbl, lens, window, m)
+    want = _full_context(q, k, v, tbl, lens, window)
+    assert _rel_err(_np(got), _np(want)) <= TOL["float32"]
+    s = tdec.decode_split_scores_plain(q[..., :D // m].contiguous(),
+                                       k[..., :D // m].contiguous(), tbl,
+                                       cache_len=lens, window=window,
+                                       scale=D ** -0.5)
+    assert s.shape == (B, G * K, min(S, window) if window else S)
+
+
+@pytest.mark.parametrize("window,rows", [(0, 8), (0, None), (24, 8),
+                                         (24, 16), (100, 16)])
+@pytest.mark.parametrize("paged", [False, True])
+def test_split_context_merge_mirror(window, rows, paged):
+    """The plain mirror of pass 2's split and merge (partials of each
+    split's live compact columns, merged in split order, empty splits
+    absent) equals the one-softmax plain pass 2 (fp32, 1e-5), whatever
+    the split size; leaving a split out (the planted fault) does not."""
+    rng = np.random.default_rng(29 + window + (rows or 0))
+    B, K, G, DS, S = 4, 2, 5, 16, 64
+    lens = torch.tensor([1, 9, 40, 64], dtype=torch.int32)
+    if paged:
+        bl, N = 16, 20
+        shape = (N, bl, K, DS)
+        tbl_np = rng.permutation(N)[:B * 4].reshape(B, 4).astype(np.int32)
+        tbl_np[2, 1] = -1                     # a -1 entry among live rows
+        tbl = torch.from_numpy(tbl_np)
+    else:
+        shape, tbl = (B, S, K, DS), None
+    v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    cols = min(S, window) if window else S
+    s = torch.from_numpy(rng.standard_normal((B, G * K, cols)).astype(
+        np.float32))
+    kw = dict(cache_len=lens, window=window)
+    want = tdec.decode_split_context_plain(s, v, tbl, **kw)
+    got = tdec.decode_split_context_splits(s, v, tbl, rows=rows, **kw)
+    assert _rel_err(_np(got), _np(want)) <= TOL["float32"]
+    assert tdec.context_split(B, K, DS, cols)[0] <= tdec.SPLIT_CLUSTER
+    if rows is not None and cols > rows:
+        bad = tdec.decode_split_context_splits(s, v, tbl, rows=rows,
+                                               drop_split=0, **kw)
+        assert _rel_err(_np(bad), _np(want)) > 100 * TOL["float32"]
+
+
+def test_context_split_rule():
+    """Pass 2's splits: two tiles of 128 columns a split where one wave
+    of the grid (CTAs of 4 * DS threads, 512 threads an SM) and a cluster
+    of at most 8 splits a (slot, kv head) allow, more tiles a split
+    beyond that, covering every column: hymba's window of 1024 over 8 x
+    13 gives 4 splits of 256, g5m2's 2048 rows over 8 x 5 8 of 256,
+    qwen3-8b's 2048 over 8 x 8 at 64 columns 4 of 512."""
+    assert tdec.context_split(8, 13, 32, 1024) == (4, 256)
+    assert tdec.context_split(8, 5, 32, 2048) == (8, 256)
+    assert tdec.context_split(8, 8, 64, 2048) == (4, 512)
+    assert tdec.context_split(8, 13, 32, 24) == (1, 128)
+    assert tdec.context_split(1, 4, 64, 32768) == (8, 4096)
+    assert tdec.context_split(64, 8, 64, 2048) == (1, 2048)
+    for B, K in ((1, 1), (8, 13), (64, 8)):
+        for DS in (16, 32, 64):
+            for cols in (1, 127, 129, 1000, 1025, 5000, 32768):
+                splits, rows = tdec.context_split(B, K, DS, cols)
+                assert rows % tdec.SPLIT_TILE == 0
+                assert 1 <= splits <= tdec.SPLIT_CLUSTER
+                assert splits * rows >= cols > (splits - 1) * rows
+    assert tdec.split_cols(2048, 1024) == 1024
+    assert tdec.split_cols(64, 100) == 64 and tdec.split_cols(64, 0) == 64
