@@ -280,6 +280,18 @@ Phases (any failure exits non-zero before the last line):
    mid-flight and resumed on both ranks in the same tick, its chunks
    broadcast to both ranks as host tensors, tokens against the inline
    mesh engine's by the margin rule;
+24g. the tools (:func:`tools_phase`): the dry run
+   (``repro_torch.launch.dryrun``: fake tensors, nothing launched) of
+   phase 3's qwen3-8b 2048 x 8 paged decode plan, one tick, and of phase
+   16's 2048 x 1 train step, each kernel entry's count held to the
+   launches those phases counted a tick and a step, its peak of live
+   bytes and modelled step time printed beside the measured ones; and,
+   in processes of their own started first, the plan round trip
+   (``scripts/torch_plan_roundtrip_smoke.py``), the serve smoke's
+   ``--chaos`` and ``--disagg`` modes (``scripts/torch_serve_smoke.py``)
+   and ``examples/torch_train_tiny_lm.py --steps 100`` (every loss
+   finite, the last within 0.25 of log(vocab): its random targets admit
+   no fall below that);
 25. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
@@ -295,7 +307,8 @@ tiled matmul's, phases 2b and 24's, phase 24b's, phase 24c's, phase
 (:func:`flash_bwd_check`, :func:`flash_pos_check`, :func:`ssd_bwd_check`,
 :func:`matmul_fp32_check`) and prints its result as one JSON line;
 ``--only head_dim`` runs K9's checks and timings (phase 2c) and phase
-24f, ``--only k9`` phase 2c alone.
+24f, ``--only k9`` phase 2c alone, ``--only tools`` phase 24g alone (its
+dry runs held to the counts the plans imply).
 ``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
 as a parent commit's unpacked with ``git archive``: run two trees in
 alternating processes (parent, change, change, parent) to compare them
@@ -546,6 +559,14 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_BF16):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def work_bound(work, peak: float = PEAK_BF16):
+    """:func:`bound` of a kernel module's ``work()``, ``(flops, bytes)``:
+    the one count of a call's work the kernel phase's bounds and the
+    dry run (``repro_torch.launch.dryrun``) share."""
+    flops, nbytes = work
+    return bound(nbytes, flops, peak)
+
+
 def row_err(torch, got, want):
     """``max |got - want|`` and the worst row's rms-relative error, a row
     being one head's ``D`` outputs for one query (one slot in decode).
@@ -629,9 +650,7 @@ def kernel_phase(torch, dev):
             "kernel": lambda: fa.flash_attention(q, k, v, causal=True),
             "library": lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)})
-        pairs = B * S * (S + 1) / 2
-        b_ms, b_by = bound(2 * (2 * B * S * H * D + 2 * B * S * K * D),
-                           4 * D * H * pairs)
+        b_ms, b_by = work_bound(fa.work(B, S, S, H, K, D))
         log(f"timing flash_attention B={B} S={S}: kernel {med['kernel']:.4f} "
             f"ms, SDPA {med['library']:.4f} ms (medians of {TURNS} turns: "
             f"kernel {fmt(rounds['kernel'])}, SDPA {fmt(rounds['library'])}"
@@ -705,10 +724,6 @@ def kernel_phase(torch, dev):
     qd = rnd(Bd, H, D)
     kp, vp = rnd(N, bl, K, D), rnd(N, bl, K, D)
     kd, vd = rnd(Bd, max_len, K, D), rnd(Bd, max_len, K, D)
-    live = sum(lens_list)
-    dec_flops = 4 * D * H * live
-    qkv_io = 2 * (2 * Bd * H * D) + 4 * Bd        # q, out, cache_len
-    kv_bytes = 2 * 2 * live * K * D
 
     # the planted faults: the longest slot one tile short, and one of its
     # full blocks swapped for another slot's
@@ -746,7 +761,7 @@ def kernel_phase(torch, dev):
           "paged_decode_attention: freed slot output is not zero")
     plain = time_ms(torch, lambda: dec.paged_decode_attention_plain(
         qd, kp, vp, tbl, cache_len=lens), iters=5)
-    b_ms, b_by = bound(qkv_io + kv_bytes + 4 * sum(need), dec_flops)
+    b_ms, b_by = work_bound(dec.work(Bd, H, K, D, lens_list, block_len=bl))
     res["paged_decode_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:130",
@@ -820,7 +835,7 @@ def kernel_phase(torch, dev):
         ms=med["paged"], turns_ms=rounds["paged"], grid=grid,
         eager_ms=eager["paged"], host_us=host["paged"],
         timing="device time: CUDA graph of 20 launches, medians of 5 turns")
-    b_ms, b_by = bound(qkv_io + kv_bytes, dec_flops)
+    b_ms, b_by = work_bound(dec.work(Bd, H, K, D, lens_list))
     res["decode_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:194",
@@ -921,9 +936,7 @@ def flash_offset_check(torch, F, fa, rnd):
                 qt, kt, vt, attn_mask=mask, enable_gqa=True),
             "library_full": lambda: F.scaled_dot_product_attention(
                 qft, kt, vt, is_causal=True, enable_gqa=True)})
-        pairs = B * (T * M + T * (T + 1) / 2)
-        b_ms, b_by = bound(2 * (2 * B * T * H * D + 2 * B * S * K * D),
-                           4 * D * H * pairs)
+        b_ms, b_by = work_bound(fa.work(B, T, S, H, K, D))
         plain = time_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, causal=True), iters=5)
         log(f"timing flash_attention offset B={B} M={M} T={T}: kernel "
@@ -984,9 +997,7 @@ def g7_kernel_check(torch, F, fa, dec, rnd, dev, g):
         "kernel": lambda: fa.flash_attention(q, k, v, causal=True),
         "library": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)})
-    pairs = B * S * (S + 1) / 2
-    b_ms, b_by = bound(2 * (2 * B * S * H7 * D + 2 * B * S * K7 * D),
-                       4 * D * H7 * pairs)
+    b_ms, b_by = work_bound(fa.work(B, S, S, H7, K7, D))
     plain = time_ms(torch, lambda: fa.flash_attention_plain(
         q, k, v, causal=True), iters=5)
     log(f"timing flash_attention G=7 B={B} S={S}: kernel {med['kernel']:.4f}"
@@ -1025,9 +1036,7 @@ def g7_kernel_check(torch, F, fa, dec, rnd, dev, g):
         "kernel": lambda: fa.flash_attention(q, k, v, causal=True),
         "library": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)})
-    pairs = B * (T * M + T * (T + 1) / 2)
-    b_ms, b_by = bound(2 * (2 * B * T * H7 * D + 2 * B * (M + T) * K7 * D),
-                       4 * D * H7 * pairs)
+    b_ms, b_by = work_bound(fa.work(B, T, M + T, H7, K7, D))
     plain = time_ms(torch, lambda: fa.flash_attention_plain(
         q, k, v, causal=True), iters=5)
     log(f"timing flash_attention G=7 offset B={B} M={M} T={T}: kernel "
@@ -1060,10 +1069,6 @@ def g7_kernel_check(torch, F, fa, dec, rnd, dev, g):
     short[-1] -= bl
     swapped = tbl.clone()
     swapped[-1, 0] = tbl[-2, 0]
-    live = sum(lens_list)
-    flops = 4 * D * H7 * live
-    io = 2 * (2 * Bd * H7 * D) + 4 * Bd
-    kv_bytes = 2 * 2 * live * K7 * D
     dtol = TOL["paged_decode_attention"]
     want = dec.paged_decode_attention_plain(qd, kp, vp, tbl, cache_len=lens)
     err, rel = row_err(torch, dec.paged_decode_attention(
@@ -1109,8 +1114,9 @@ def g7_kernel_check(torch, F, fa, dec, rnd, dev, g):
         "dense": lambda: dec.decode_attention(qd, kd, vd, cache_len=lens),
         "library": lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, enable_gqa=True)}, timer=graph_ms)
-    bp_ms, bp_by = bound(io + kv_bytes + 4 * sum(need), flops)
-    bd_ms, bd_by = bound(io + kv_bytes, flops)
+    bp_ms, bp_by = work_bound(dec.work(Bd, H7, K7, D, lens_list,
+                                       block_len=bl))
+    bd_ms, bd_by = work_bound(dec.work(Bd, H7, K7, D, lens_list))
     log(f"timing decode G=7 B={Bd} S={max_len} lens={lens_list}, device "
         f"(CUDA graph): paged {med['paged']:.4f} ms, dense "
         f"{med['dense']:.4f} ms, SDPA (masked) {med['library']:.4f} ms "
@@ -1219,9 +1225,8 @@ def gqa_kernel_check(torch, F, fa, dec, rnd, dev, g, Hq=H5, Kv=K5, Dh=D64,
                                                  window=window),
             "library": lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True, **lib)})
-        pairs = B * float(mask.sum())
-        b_ms, b_by = bound(2 * (2 * B * S * Hq * Dh + 2 * B * Sk * Kv * Dh),
-                           4 * Dh * Hq * pairs)
+        b_ms, b_by = work_bound(fa.work(B, S, Sk, Hq, Kv, Dh,
+                                        window=window))
         plain = time_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, causal=True, window=window), iters=5)
         log(f"timing flash_attention G={G} D={Dh} {label}: kernel "
@@ -1313,14 +1318,10 @@ def gqa_kernel_check(torch, F, fa, dec, rnd, dev, g, Hq=H5, Kv=K5, Dh=D64,
             qd, kp, vp, tbl, **kw), iters=5)
         plain_d = time_ms(torch, lambda: dec.decode_attention_plain(
             qd, kd, vd, **kw), iters=5)
-        live = int(mask.sum())
-        flops = 4 * Dh * Hq * live
-        io = 2 * (2 * Bd * Hq * Dh) + 4 * Bd
-        kv_bytes = 2 * 2 * live * Kv * Dh
-        rows_read = [min(n, window) if window else n for n in lens_list]
-        blocks_read = sum(-(-n // bl) for n in rows_read)
-        bp_ms, bp_by = bound(io + kv_bytes + 4 * blocks_read, flops)
-        bd_ms, bd_by = bound(io + kv_bytes, flops)
+        bp_ms, bp_by = work_bound(dec.work(Bd, Hq, Kv, Dh, lens_list,
+                                           window=window, block_len=bl))
+        bd_ms, bd_by = work_bound(dec.work(Bd, Hq, Kv, Dh, lens_list,
+                                           window=window))
         log(f"timing decode G={G} D={Dh} window {window} B={Bd} S={max_len}, "
             f"device (CUDA graph): paged {med['paged']:.4f} ms, dense "
             f"{med['dense']:.4f} ms, SDPA (masked) {med['library']:.4f} ms "
@@ -1379,8 +1380,7 @@ def noncausal_flash_case(torch, F, fa, rnd, B, S, Hq, Kv, Dh):
             qt, kt, vt, enable_gqa=True)})
     plain = time_ms(torch, lambda: fa.flash_attention_plain(
         q, k, v, causal=False), iters=5)
-    b_ms, b_by = bound(2 * (2 * B * S * Hq * Dh + 2 * B * S * Kv * Dh),
-                       4 * Dh * Hq * B * S * S)
+    b_ms, b_by = work_bound(fa.work(B, S, S, Hq, Kv, Dh, causal=False))
     log(f"timing flash_attention {label}: kernel {med['kernel']:.4f} ms, "
         f"SDPA {med['library']:.4f} ms (medians of {TURNS} turns: kernel "
         f"{fmt(rounds['kernel'])}, SDPA {fmt(rounds['library'])}), plain "
@@ -1450,8 +1450,8 @@ def mm_fp32_bound(M, K, N):
     of its bytes at 3.35 TB/s and the kernel's three TF32 products (3 x
     2 MKN) at :data:`PEAK_TF32`, and beside it the 2 MKN at the CUDA
     cores' :data:`PEAK_FP32` (the FFMA design's bound)."""
-    b_ms, by = bound(4 * (M * K + K * N + M * N), 3 * 2 * M * K * N,
-                     PEAK_TF32)
+    from repro_torch.kernels import tiled_matmul as mm
+    b_ms, by = work_bound(mm.work(M, K, N, 4), PEAK_TF32)
     return b_ms, by, 2 * M * K * N / PEAK_FP32 * 1e3
 
 
@@ -1669,14 +1669,12 @@ def ssd_kernel_check(torch, dev, g, H=SSD_H, P=SSD_P, N=SSD_N, G=SSD_G,
             f"[{CARD}]")
     S, Q = 2048, chunk
     nc = -(-S // Q)
-    # causal half only: the k <= q entries of C.B^T (once per group: its
-    # heads share B and C) and of scores.x (per head), plus C.state^T and
-    # the state update (per head)
-    flops = nc * (G * Q * (Q + 1) * N
-                  + H * (Q * (Q + 1) * P + 4 * Q * P * N))
+    # causal half only (ssd.work): the k <= q entries of C.B^T (once per
+    # group: its heads share B and C) and of scores.x (per head), plus
+    # C.state^T and the state update (per head)
+    flops, nbytes = ssd.work(1, S, H, P, G, N, Q)
     # the count with C.B^T per head, for comparison with a per-head scan
     flops_per_head = H * nc * (Q * (Q + 1) * (N + P) + 4 * Q * P * N)
-    nbytes = 4 * (2 * S * H * P + S * H + H + 2 * S * G * N + H * P * N)
     # the products run in fp64 on the tensor cores: 67 TFLOP/s, the data
     # sheet's fp32 CUDA-core rate too
     b_ms, b_by = bound(nbytes, flops, PEAK_FP32)
@@ -1788,6 +1786,10 @@ def serve_phase(torch, dev, name, arch, plan, params, n_requests,
                     "ttft_ms_p50": float(np.percentile(ttft, 50)),
                     "ttft_ms_p95": float(np.percentile(ttft, 95)),
                     "prefill_calls": calls, "decode_ticks": ticks[0],
+                    "decode_launches_per_tick": {
+                        k: counts[k] / max(ticks[0], 1) for k in (
+                            "paged_decode_attention", "decode_attention")
+                        if counts[k]},
                     "card": CARD}
 
 
@@ -3902,12 +3904,6 @@ def grad_row_err(torch, got, want):
     return float(e.abs().max()), float(rel.max())
 
 
-def _causal_pairs(S: int, window: int) -> int:
-    """Live (query, key) pairs of one causal sequence of ``S``, under a
-    window counted back from each query (0: none)."""
-    return sum(min(i + 1, window) if window else i + 1 for i in range(S))
-
-
 #: the flash backward's shapes (B, S, H, K, D, window, causal): qwen3-8b's
 #: train shape and B=2 S=1024, hymba's through its window, granite's,
 #: qwen2-vl-72b's (G = 8) and hubert-xlarge's (16 heads of 80, non-causal)
@@ -4003,10 +3999,8 @@ def flash_bwd_check(torch, F, fa, dev):
                 q, k, v, causal=C, window=W, return_lse=True),
             "without": lambda: fa.flash_attention(q, k, v, causal=C,
                                                   window=W)})
-        pairs = B * (_causal_pairs(S, W) if C else S * S)
-        nbytes = 2 * (3 * B * S * Hq * Dh + 2 * B * S * Kv * Dh) \
-            + 4 * B * Hq * S + 2 * (B * S * Hq * Dh + 2 * B * S * Kv * Dh)
-        b_ms, b_by = bound(nbytes, 2.5 * 4 * Dh * Hq * pairs)
+        b_ms, b_by = work_bound(fa.bwd_work(B, S, S, Hq, Kv, Dh, causal=C,
+                                            window=W))
         row = dict(B=B, S=S, H=Hq, K=Kv, D=Dh, window=W, causal=C,
                    ms=med["kernel"],
                    library_ms=med["library"], turns_ms=rounds["kernel"],
@@ -4177,8 +4171,8 @@ def flash_pos_check(torch, F, fa, dev):
         "index": lambda: fa.flash_attention(q, k, v, causal=True)})
     plain = time_ms(torch, lambda: fa.flash_attention_plain(
         q, k, v, causal=True, positions=pos), iters=5)
-    b_ms, b_by = bound(2 * (2 * B * S * hq * dh + 2 * B * S * kv * dh)
-                       + 4 * B * S, 4 * dh * hq * live)
+    b_ms, b_by = work_bound(fa.work(B, S, S, hq, kv, dh, pairs=live,
+                                    positions=True))
     log(f"timing flash_attention positions B={B} S={S}: kernel "
         f"{med['kernel']:.4f} ms, SDPA with the mask {med['library']:.4f} ms, "
         f"index path {med['index']:.4f} ms (medians of {TURNS} turns: kernel "
@@ -4244,10 +4238,8 @@ def flash_pos_check(torch, F, fa, dev):
                                                 causal=True)})
     plain = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, lse, do, causal=True, positions=pos), iters=3, warmup=1)
-    nbytes = 2 * (3 * B * S * hq * dh + 2 * B * S * kv * dh) \
-        + 4 * B * hq * S + 4 * B * S \
-        + 2 * (B * S * hq * dh + 2 * B * S * kv * dh)
-    b_ms, b_by = bound(nbytes, 2.5 * 4 * dh * hq * live)
+    b_ms, b_by = work_bound(fa.bwd_work(B, S, S, hq, kv, dh, pairs=live,
+                                        positions=True))
     log(f"timing flash_attention_bwd positions B={B} S={S}: kernel "
         f"{med['kernel']:.4f} ms, SDPA backward with the mask "
         f"{med['library']:.4f} ms, index path {med['index']:.4f} ms "
@@ -4280,18 +4272,6 @@ SSD_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
 SSD_BWD_FAULTS = ("skip_tile", "no_carry")
 
 
-def ssd_bwd_flops(B, S, H, P, N, chunk):
-    """The SSD backward's operations (``csrc/ssd_scan_bwd.cu``'s header):
-    per (batch, head, chunk) the causal halves of C.B^T and dy.xdt^T (the
-    one decayed tile gives dB over the keys and dC over the queries) and
-    the three products that apply them, and four state products.  The
-    kernel computes its diagonal tile pairs whole, which this count
-    leaves out: the function does not need them."""
-    nc = -(-S // chunk)
-    Q = chunk
-    return B * H * nc * (Q * (Q + 1) * (3 * N + 2 * P) + 8 * Q * P * N)
-
-
 def ssd_bwd_check(torch, dev):
     """The SSD scan's backward kernel at :data:`SSD_BWD_SHAPES`: every
     gradient (dx, ddt, dA, dB, dC and, with an initial state, its
@@ -4304,7 +4284,7 @@ def ssd_bwd_check(torch, dev):
     At mamba2's and hymba's shapes (the first two), timed in turns
     against torch autograd of the fp32 plain forward, beside the plain
     backward, the device time of each pass, and the bound: the
-    operations the gradient needs (:func:`ssd_bwd_flops`) at 67 TFLOP/s
+    operations the gradient needs (``ssd_scan.bwd_work``) at 67 TFLOP/s
     (fp64 tensor cores), or its bytes.  The result's top-level keys are
     mamba2's; each shape's row holds its own.  On a generator of its
     own."""
@@ -4393,11 +4373,8 @@ def ssd_bwd_check(torch, dev):
             passes = {re.search(r"(\w+)(<[^>]*>)?\(", k).group(1): v
                       for k, v in device_ms_by_kernel(
                           torch, lambda: kernel()).items()}
-            nc = -(-S // chunk)
-            nbytes = 4 * (4 * B * S * H * P + 2 * B * S * H + 2 * H
-                          + 4 * B * S * G * N + B * (nc + 1) * H * P * N)
-            b_ms, b_by = bound(nbytes, ssd_bwd_flops(B, S, H, P, N, chunk),
-                               PEAK_FP32)
+            b_ms, b_by = work_bound(ssd.bwd_work(B, S, H, P, G, N, chunk),
+                                    PEAK_FP32)
             log(f"timing ssd_scan_bwd {tag}: kernel {med['kernel']:.4f} ms, "
                 f"autograd of the plain forward "
                 f"{med['autograd_plain']:.4f} ms (medians of {TURNS} turns: "
@@ -5268,7 +5245,7 @@ def matmul_path_phase(torch, dev, plans, shapes):
         if dt == "float32":
             b_ms, b_by, extra["ffma_bound_ms"] = mm_fp32_bound(M, K, N)
         else:
-            b_ms, b_by = bound(e * (M * K + K * N + M * N), 2 * M * K * N)
+            b_ms, b_by = work_bound(mm.work(M, K, N, e))
         log(f"timing tiled_matmul {name} ({M}, {K}, {N}) {dt} tiles={t}: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
             f"{lib:.4f} ms (medians of {TURNS} turns: kernel "
@@ -5523,10 +5500,8 @@ def mesh_kernel_phase(torch, dev):
                         i: functools.partial(plain, *sh)
                         for i, sh in enumerate(shards)})
                     plain_ms = [pm[i] for i in range(n)]
-                io = q.numel() * 2 + B * Hq * (Dh + 2) * 4 + B * 4
-                bounds = [bound(r * Kv * Dh * 2 * 2 + io,
-                                4 * r * Hq * Dh, PEAK_FP32)
-                          for r in rows]
+                bounds = [work_bound(dec.partial_work(B, Hq, Kv, Dh, r),
+                                     PEAK_FP32) for r in rows]
                 timing[(name, n)] = {
                     "unsharded_ms": med["unsharded"],
                     "shards_ms": [med[f"shard{i}"] for i in range(n)],
@@ -7474,11 +7449,10 @@ def split_kernel_phase(torch, dev):
                     scale=scale, **kw),
                 "context": functools.partial(
                     dec.decode_split_context_plain, s, vs[0], tb, **kw)})
-            slice_bytes = live * Kv * DS * 2
-            b_sc = bound(slice_bytes + qs[0].numel() * 2 + live * Hq * 4
-                         + B * 4, 2 * live * Hq * DS, PEAK_FP32)
-            b_cx = bound(slice_bytes + live * Hq * 4 + B * Hq * DS * 2
-                         + B * 4, 2 * live * Hq * DS, PEAK_FP32)
+            b_sc = work_bound(dec.split_scores_work(B, Hq, Kv, DS, live),
+                              PEAK_FP32)
+            b_cx = work_bound(dec.split_context_work(B, Hq, Kv, DS, live),
+                              PEAK_FP32)
             timing[(label, paged)] = {
                 "scores_ms": med["scores"], "context_ms": med["context"],
                 "unsharded_ms": med.get("unsharded"),
@@ -8052,12 +8026,211 @@ def head_dim_phase(torch, dev):
 
 
 
+# ---------------------------------------------------------------------
+# phase 24g: the tools
+# ---------------------------------------------------------------------
+
+#: phase 24g's target seconds (a soft bar: printed, not held)
+TOOLS_BUDGET_S = 60
+#: the tiny LM's last loss, at most this far above log(vocab): its
+#: synthetic tokens and targets are independent uniform draws, so no
+#: model can beat log(vocab) on a fresh batch and its loss does not fall
+#: (10.4831 -> 10.4959 in 30 steps, -> 10.5102 in 100, with log(32768)
+#: = 10.3972); a step that diverges or goes non-finite leaves this band
+TINY_LM_BAND = 0.25
+#: the tools phase's subprocesses: (name, script, arguments, the line of
+#: success); each runs alone, with the card, from the checkout's root
+TOOLS_RUNS = (
+    ("roundtrip", "scripts/torch_plan_roundtrip_smoke.py", (),
+     "plan round-trip smoke OK"),
+    ("chaos", "scripts/torch_serve_smoke.py", ("--chaos",),
+     "serve chaos OK"),
+    ("disagg", "scripts/torch_serve_smoke.py", ("--disagg",),
+     "serve disagg OK"),
+    ("tiny_lm", "examples/torch_train_tiny_lm.py", ("--steps", "100"),
+     "final loss"),
+)
+TOOLS_DEADLINE_S = 600
+
+
+def _tools_runs():
+    """Start :data:`TOOLS_RUNS` together, each on the classic allocator
+    segments a fresh process starts with (the disagg workers' CUDA IPC
+    needs them), output to ``chiprun_out/tools_<name>.log``."""
+    import os
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if k != "PYTORCH_CUDA_ALLOC_CONF"}
+    env["PYTHONPATH"] = str(SRC_IN_USE)
+    procs = {}
+    for name, script, argv, _ in TOOLS_RUNS:
+        path = out_dir / f"tools_{name}.log"
+        f = open(path, "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, str(ROOT / script), *argv], cwd=ROOT, env=env,
+            stdout=f, stderr=subprocess.STDOUT), f, path)
+    return procs
+
+
+def _tools_wait(procs, t0: float):
+    """Each run's exit code, seconds and last lines; a run past
+    :data:`TOOLS_DEADLINE_S` is killed and fails the phase."""
+    out = {}
+    for name, script, argv, ok_line in TOOLS_RUNS:
+        p, f, path = procs[name]
+        try:
+            rc = p.wait(timeout=max(1.0, TOOLS_DEADLINE_S
+                                    - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        f.close()
+        lines = path.read_text().splitlines()
+        out[name] = dict(rc=rc, s=time.perf_counter() - t0,
+                         last=lines[-3:], ok=rc == 0 and any(
+                             ok_line in ln for ln in lines))
+        log(f"tools {name}: {script} {' '.join(argv)} rc={rc} after "
+            f"{out[name]['s']:.1f} s; {lines[-1] if lines else ''} [{CARD}]")
+        check(out[name]["ok"], f"tools {name}: {script} failed (rc {rc}): "
+              f"{lines[-5:]}")
+    return out
+
+
+def tools_phase(torch, dev, paged=None, train=None):
+    """Phase 24g: the tools.  (a) The dry run
+    (:func:`repro_torch.launch.dryrun.run_cell`, fake tensors, nothing
+    launched) of the plans phases 3 and 16 ran on the card: qwen3-8b's
+    2048 x 8 paged decode plan on (1, 1), one tick, and its 2048 x 1
+    train step at the depth that phase trained; each kernel entry's
+    count in the dry run must equal the launches those phases counted a
+    tick and a step (``paged`` / ``train``, their result dicts; without
+    them, under ``--only tools``, the counts the plans imply: a decode
+    launch a layer a tick, :func:`expected_train_launches`).  Printed,
+    with no bar: the dry run's peak of live bytes and the plan's
+    step-peak estimate beside the measured peak, the modelled step time
+    beside the measured one.  (b)-(d), started first and run meanwhile
+    in processes of their own: the plan round trip, the serve smoke's
+    ``--chaos`` and ``--disagg`` modes at the script's reduced size, and
+    the tiny LM's 100 steps, every logged loss finite and the last
+    within :data:`TINY_LM_BAND` of log(vocab)."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import specialize
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    procs = _tools_runs()
+    before = ops.launch_counts()
+    full = get_arch("qwen3-8b")
+    res = {}
+    # (a) the paged decode plan, one tick
+    shape = ShapeConfig("serve_h100", "decode", 2048, 8)
+    cell = dryrun.run_cell(full.name, shape.name, mesh_shape=(1, 1),
+                           arch=full, shape=shape)
+    check("roofline" in cell, f"tools: the decode dry run refused or "
+          f"failed: {cell.get('skip_reason')}")
+    got = {k: v["calls"] for k, v in cell["kernels"].items()}
+    want = (paged["decode_launches_per_tick"] if paged is not None
+            else {"paged_decode_attention": full.n_layers})
+    log(f"tools dry run decode {full.name} 2048 x 8 (1, 1) plan "
+        f"{cell['plan_hash'][:12]}: kernel calls {got} against the serve "
+        f"phase's launches a tick {want}; {cell['trace_s']} s of trace, "
+        f"fake tensors on {cell['fake_device']}")
+    check(got == want, f"tools: the decode dry run's kernel calls {got} "
+          f"are not the launches a tick {want}")
+    r = cell["roofline"]
+    tick_ms = (paged["wall_s"] / paged["decode_ticks"] * 1e3
+               if paged is not None else None)
+    log(f"tools finding decode: modelled tick {r['step_time_s'] * 1e3:.4f} "
+        f"ms ({r['bottleneck']}; compute {r['compute_s'] * 1e3:.4f}, memory "
+        f"{r['memory_s'] * 1e3:.4f} ms, h100-sxm data sheet) beside the "
+        f"serve phase's wall time a decode tick {tick_ms} ms (host clock, "
+        f"prefills included) [{CARD}]")
+    res["decode"] = dict(plan=cell["plan_hash"], calls=got, want=want,
+                         modelled_ms=r["step_time_s"] * 1e3,
+                         measured_wall_ms_per_tick=tick_ms,
+                         peak_live_bytes=cell["memory_analysis"][
+                             "peak_estimate_per_device"],
+                         hlo_flops=r["hlo_flops"], hlo_bytes=r["hlo_bytes"],
+                         trace_s=cell["trace_s"])
+    # (a) the train step at the depth phase 16 trained
+    tshape = ShapeConfig("train_2k", "train", 2048, 1)
+    if train is not None:
+        arch = dataclasses.replace(full, n_layers=train["n_layers"])
+        plan = specialize(arch, tshape, mesh_shape=(1, 1),
+                          target="h100-sxm", plan_dir=PLAN_DIR)
+    else:
+        arch, plan = train_plan(specialize, full, tshape)
+    cell = dryrun.run_cell(full.name, tshape.name, mesh_shape=(1, 1),
+                           arch=arch, shape=tshape)
+    check("roofline" in cell, f"tools: the train dry run refused or "
+          f"failed: {cell.get('skip_reason')}")
+    check(cell["plan_hash"] == plan.content_hash()
+          and (train is None or train["plan"] == plan.content_hash()),
+          "tools: the train dry run's plan is not the train phase's")
+    got = {k: v["calls"] for k, v in cell["kernels"].items()}
+    if train is not None:
+        want = {k: n // TRAIN_STEPS for k, n in train["launches"].items()
+                if n}
+    else:
+        want = {k: n for k, n in expected_train_launches(
+            arch, plan.comm.remat_policy).items() if n}
+    log(f"tools dry run train {full.name} at {arch.n_layers} layers 2048 x 1 "
+        f"(remat {plan.comm.remat_policy}) plan {cell['plan_hash'][:12]}: "
+        f"kernel calls {got} against the train phase's launches a step "
+        f"{want}; {cell['trace_s']} s of trace")
+    check(got == want, f"tools: the train dry run's kernel calls {got} are "
+          f"not the launches a step {want}")
+    r = cell["roofline"]
+    peak = cell["memory_analysis"]["peak_estimate_per_device"]
+    est = plan.estimates.get("step_peak_bytes")
+    measured = train["peak_bytes"] if train is not None else None
+    step_ms = train["step_ms"] if train is not None else None
+    log(f"tools finding train: dry-run peak of live bytes {peak} B, the "
+        f"plan's step-peak estimate {est} B, the train phase's measured "
+        f"peak {measured} B; modelled step {r['step_time_s'] * 1e3:.2f} ms "
+        f"({r['bottleneck']}; compute {r['compute_s'] * 1e3:.2f}, memory "
+        f"{r['memory_s'] * 1e3:.2f} ms, h100-sxm data sheet) beside the "
+        f"measured median step {step_ms} ms (host clock around a "
+        f"synchronising step) [{CARD}]")
+    res["train"] = dict(plan=cell["plan_hash"], n_layers=arch.n_layers,
+                        calls=got, want=want, peak_live_bytes=peak,
+                        plan_step_peak_bytes=est,
+                        measured_peak_bytes=measured,
+                        modelled_ms=r["step_time_s"] * 1e3,
+                        measured_step_ms=step_ms, hlo_flops=r["hlo_flops"],
+                        hlo_bytes=r["hlo_bytes"], trace_s=cell["trace_s"])
+    check(ops.launch_counts() == before,
+          "tools: the dry runs launched a kernel")
+    # (b)-(d)
+    res["runs"] = _tools_wait(procs, t0)
+    text = procs["tiny_lm"][2].read_text()
+    losses = [float(x) for x in re.findall(r"loss\s+(\S+)\s+\S+ ms", text)]
+    m = re.search(r"final loss (\S+) \(first (\S+)\)", text)
+    floor = math.log(32768)             # the example's vocab
+    check(m is not None and all(math.isfinite(x) for x in losses)
+          and abs(float(m.group(1)) - floor) <= TINY_LM_BAND,
+          f"tools tiny_lm: losses {losses}, last {m and m.group(1)}, not "
+          f"finite or not within {TINY_LM_BAND} of log(32768) = {floor:.4f}")
+    res["tiny_lm_loss"] = dict(first=float(m.group(2)),
+                               last=float(m.group(1)), logged=losses,
+                               log_vocab=floor)
+    log(f"tools finding tiny_lm: loss {res['tiny_lm_loss']['first']} -> "
+        f"{res['tiny_lm_loss']['last']} over 100 steps of independent "
+        f"random tokens and targets (log(32768) = {floor:.4f}) [{CARD}]")
+    res["s"] = time.perf_counter() - t0
+    log(f"tools phase took {res['s']:.1f} s (target {TOOLS_BUDGET_S} s) "
+        f"[{CARD}]")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port on one NVIDIA card")
     ap.add_argument("--only", choices=("flash_bwd", "flash_pos", "ssd_bwd",
                                        "matmul_fp32", "mesh", "mesh_train",
                                        "ssm_mesh", "mesh_tier", "pod_mesh",
-                                       "head_dim", "k9"),
+                                       "head_dim", "k9", "tools"),
                     help="run this kernel's check alone and print its "
                          "result")
     ap.add_argument("--src", type=Path, default=SRC,
@@ -8176,6 +8349,10 @@ def main(argv=None) -> int:
         _, res = pod_mesh_phase(torch, dev)
         log(json.dumps({"src": str(args.src), "card": CARD,
                         "pod_mesh": res}))
+        return 0
+    if args.only == "tools":
+        log(json.dumps({"src": str(args.src), "card": CARD,
+                        "tools": tools_phase(torch, dev)}, default=str))
         return 0
     if args.only in ("head_dim", "k9"):
         log(f"build: {time.perf_counter() - t0:.1f} s [{CARD}]")
@@ -8412,6 +8589,9 @@ def main(argv=None) -> int:
     # ---- phase 24f: a cache split on head_dim (K9), two ranks ----
     hd_launches, head_dim = head_dim_phase(torch, dev)
 
+    # ---- phase 24g: the tools (dry run, smokes, an example) ----
+    tools = tools_phase(torch, dev, paged, train)
+
     # ---- phase 25: results ----
     family_counts = [c for c, _ in families.values()]
     runs = (*serve_runs.values(), train_counts, *family_counts,
@@ -8569,8 +8749,8 @@ def main(argv=None) -> int:
                     "step_guard": guard, "two_ranks": two,
                     "mesh_train": mesh_train, "ssm_mesh": ssm_mesh,
                     "mesh_tier": mesh_tier, "pod_mesh": pod_mesh,
-                    "head_dim": head_dim,
-                    "allocator": allocator}))
+                    "head_dim": head_dim, "tools": tools,
+                    "allocator": allocator}, default=str))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")
     log(smi)

@@ -7,6 +7,7 @@ from repro_torch.configs.base import (
     applicable,
     get_arch,
     get_shape,
+    reduced_on,
 )
 
 __all__ = [
@@ -18,4 +19,5 @@ __all__ = [
     "applicable",
     "get_arch",
     "get_shape",
+    "reduced_on",
 ]

@@ -219,6 +219,19 @@ def get_arch(name: str) -> ArchConfig:
     return mod.CONFIG
 
 
+def reduced_on(arch: ArchConfig, device) -> ArchConfig:
+    """``arch.reduced()`` for a run on ``device``: on a CUDA device kept
+    at the published head_dim and GQA group (the widths the card's
+    kernels are built for), on any other as it is."""
+    import torch
+    small = arch.reduced()
+    if torch.device(device).type != "cuda" or not arch.n_heads:
+        return small
+    group = arch.n_heads // arch.n_kv_heads
+    return dataclasses.replace(small, head_dim=arch.hd,
+                               n_heads=small.n_kv_heads * group)
+
+
 def get_shape(name: str) -> ShapeConfig:
     if name not in SHAPES:
         raise KeyError(f"unknown shape {name!r}; have {sorted(SHAPES)}")

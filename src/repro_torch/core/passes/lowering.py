@@ -10,8 +10,12 @@ communication pass records its verdict through) and
 backward, microbatch accumulation, the gradients' reduction (the int8
 + error-feedback wire where the plan lowers it), AdamW — on one card
 or on each rank of a ``(data, model)`` mesh, eagerly (no jit:
-:class:`LoweredStep` carries the step function as it is).
-Torch is imported where a step is built, not at import.
+:class:`LoweredStep` carries the step function as it is);
+:func:`init_plan_cache` (the session cache the plan's residency asks
+for), :func:`lower_serve_step` (a decode step, a prefill, or an
+encoder's forward and logits) and :func:`lower_step`, the dispatch on
+the shape's kind that the dry run (:mod:`repro_torch.launch.dryrun`)
+enters.  Torch is imported where a step is built, not at import.
 """
 
 from __future__ import annotations
@@ -128,14 +132,20 @@ def wire_compression(plan, mesh=None,
 
 @dataclasses.dataclass
 class LoweredStep:
-    """A lowered train step: ``fn(state, batch) -> (state, metrics)``, run
-    as it is (the port has no jit), and the plan it came from.  On a
-    mesh, ``layout`` is the rank's :class:`repro_torch.dist.fsdp
-    .MeshLayout` and ``wire_dp`` the data degree of the compressed wire
-    (0: none); ``ef`` whether the optimizer state carries error-feedback
-    residuals (one bf16 leaf a parameter piece: under the wire the
-    rank's row of the reference's stacked ``(dp, ...)`` leaf); ``cfg``
-    the :class:`repro_torch.models.lm.RunCfg` its loss runs under."""
+    """A lowered step, run as it is (the port has no jit), and the plan
+    it came from.  ``kind`` is ``"train"`` (``fn(state, batch) ->
+    (state, metrics)``), ``"decode"`` (``fn(params, cache, batch) ->
+    (logits, cache)``), ``"prefill"`` (``fn(params, batch) -> (logits,
+    cache)``) or ``"forward"`` (an encoder: ``fn(params, batch) ->
+    logits``).  ``make_args(device)`` builds the arguments ``fn`` takes
+    at their shapes (the rank's pieces on a mesh; uninitialised: the
+    dry run calls it on fake tensors).  On a mesh, ``layout`` is the
+    rank's :class:`repro_torch.dist.fsdp.MeshLayout` and ``wire_dp`` the
+    data degree of the compressed wire (0: none); ``ef`` whether the
+    optimizer state carries error-feedback residuals (one bf16 leaf a
+    parameter piece: under the wire the rank's row of the reference's
+    stacked ``(dp, ...)`` leaf); ``cfg`` the
+    :class:`repro_torch.models.lm.RunCfg` its model runs under."""
 
     fn: Callable
     plan: Any
@@ -143,6 +153,8 @@ class LoweredStep:
     wire_dp: int = 0
     ef: bool = False
     cfg: Any = None
+    kind: str = "train"
+    make_args: Optional[Callable] = None
 
 
 def mesh_refusals(plan, arch: ArchConfig, mesh, layout=None,
@@ -301,8 +313,184 @@ def lower_train_step(plan, arch: ArchConfig, shape: ShapeConfig,
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return {"params": params, "opt": opt}, metrics
 
+    def make_args(device):
+        params = _empty_params(plan, arch, mesh, device, grad=True)
+        opt = adamw.init_opt_state(params, opt_cfg)
+        opt["step"] = 0
+        if compress:
+            opt["ef"] = adamw.tree_map(
+                lambda t: torch.empty(t.shape, dtype=torch.bfloat16,
+                                      device=device), params)
+        return {"params": params, "opt": opt}, _empty_batch(arch, shape,
+                                                            device)
+
     return LoweredStep(fn=train_step, plan=plan, layout=layout,
-                       wire_dp=wire_dp, ef=compress, cfg=cfg)
+                       wire_dp=wire_dp, ef=compress, cfg=cfg,
+                       make_args=make_args)
+
+
+def init_plan_cache(plan, arch: ArchConfig, batch: int, seq_len: int, *,
+                    ssm_heads: int = 0, kv_heads: int = 0, device="cuda"):
+    """The session cache the plan's residency decision asks for
+    (``src/repro/core/passes/lowering.py:159``): a block pool of the
+    plan's ``kv_block_len`` x ``kv_n_blocks`` and a block table for
+    ``kv_residency == "paged"`` over an arch with attention, dense
+    per-slot stripes otherwise, on ``device`` (``"meta"``: shapes
+    alone)."""
+    from repro_torch.models import lm
+    if str(plan.estimates.get("kv_residency", "dense")) == "paged" \
+            and arch.has_attention:
+        return lm.init_paged_cache(
+            arch, batch, seq_len, int(plan.estimates["kv_block_len"]),
+            int(plan.estimates["kv_n_blocks"]), ssm_heads=ssm_heads,
+            kv_heads=kv_heads, device=device)
+    return lm.init_cache(arch, batch, seq_len, ssm_heads=ssm_heads,
+                         kv_heads=kv_heads, device=device)
+
+
+def _empty_params(plan, arch: ArchConfig, mesh, device, grad: bool = False):
+    """Uninitialised parameters at the plan's padded sizes, the rank's
+    pieces on a mesh (:func:`repro_torch.serve.sharded.param_pieces`);
+    float leaves require grad where ``grad``."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.serve.sharded import _tree, param_pieces
+    specs = lm.leaf_specs(arch, *plan.padded_sizes())
+    pieces = param_pieces(mesh, plan, arch) if mesh is not None else \
+        lm._map_specs(specs, lambda s: (None, s.shape))
+
+    def leaf(s, piece):
+        t = torch.empty(piece[1], dtype=s.dtype, device=device)
+        return t.requires_grad_(grad and t.is_floating_point())
+    return _tree(leaf, lm._map_specs(specs, lambda s: s), pieces)
+
+
+def _empty_batch(arch: ArchConfig, shape: ShapeConfig, device):
+    """A step's inputs at :func:`repro_torch.models.frontends
+    .input_specs`' shapes and dtypes, uninitialised but for integer
+    inputs (zeros: token ids and positions index tables)."""
+    import torch
+
+    from repro_torch.models import frontends
+    out = {}
+    for k, sp in frontends.input_specs(arch, shape).items():
+        make = torch.zeros if not sp.dtype.is_floating_point else torch.empty
+        out[k] = make(tuple(sp.shape), dtype=sp.dtype, device=device)
+    return out
+
+
+def _serve_mesh(plan, arch: ArchConfig, mesh, cfg, params, cache):
+    """On a mesh, the rank's cache pieces and the config that says where
+    the kv rows lie (as ``ServeEngine._place_on_mesh``)."""
+    from repro_torch.serve.sharded import MeshPieces
+    pieces = MeshPieces(mesh, plan, arch, params, cache)
+    whole = cache["k"].shape[1] if "block_tbl" in cache and "k" in cache \
+        else cache["k"].shape[2] if "k" in cache else 0
+    cfg = dataclasses.replace(
+        cfg, kv_split=pieces.kv_split,
+        kv_whole=(cache["pos"].shape[0], whole))
+    return pieces, cfg
+
+
+def lower_serve_step(plan, arch: ArchConfig, shape: ShapeConfig,
+                     mesh=None) -> LoweredStep:
+    """The plan's serve step (``src/repro/core/passes/lowering.py:428``):
+    a decode shape's one-token ``lm.decode_step`` over the residency
+    :func:`init_plan_cache` builds (``kind="decode"``); an encoder's
+    forward followed by its logits (``"forward"``); else a decoder's
+    ``lm.prefill`` of the whole prompt (``"prefill"``).  On a mesh the
+    rank holds its pieces of the weights (``serve.sharded
+    .param_pieces``) and of the cache (``MeshPieces``, as the engine
+    places them: ``make_args`` sets ``cfg``'s kv placement from them),
+    and the model's mesh code runs them.  The steps run under
+    ``torch.no_grad``."""
+    import torch
+
+    from repro_torch.models import lm
+    lm.check_supported(arch)
+    cfg = build_run_cfg(plan, arch, mesh)
+    B, S = shape.global_batch, shape.seq_len
+
+    def cache_heads(params):
+        if mesh is not None:
+            return {"ssm_heads": cfg.ssm_heads_padded,
+                    "kv_heads": cfg.kv_heads_padded}
+        return {"kv_heads": cfg.kv_heads_padded,
+                "ssm_heads": lm.cache_heads(arch, params["blocks"]).get(
+                    "ssm_heads", 0)}
+
+    if shape.kind == "decode":
+        lm.check_serves(arch)
+        step = LoweredStep(fn=None, plan=plan, cfg=cfg, kind="decode")
+
+        def make_args(device):
+            params = _empty_params(plan, arch, mesh, device)
+            cache = init_plan_cache(plan, arch, B, S, device="meta"
+                                    if mesh is not None else device,
+                                    **cache_heads(params))
+            if mesh is not None:
+                pieces, step.cfg = _serve_mesh(plan, arch, mesh, cfg,
+                                               params, cache)
+                cache = pieces.place_cache(cache, device)
+            tokens = torch.zeros((B, 1), dtype=torch.int32, device=device)
+            return params, cache, {"tokens": tokens}
+
+        @torch.no_grad()
+        def decode(params, cache, batch):
+            return lm.decode_step(arch, params, cache, batch, step.cfg)
+
+        step.fn, step.make_args = decode, make_args
+        return step
+
+    def inputs(device):
+        batch = _empty_batch(arch, shape, device)
+        return {k: v for k, v in batch.items()
+                if k not in ("targets", "loss_mask")}
+
+    if arch.is_encoder:
+        @torch.no_grad()
+        def forward(params, batch):
+            x, _ = lm.forward(arch, params, batch, cfg)
+            return lm._logits(arch, params, x, cfg)
+
+        return LoweredStep(
+            fn=forward, plan=plan, cfg=cfg, kind="forward",
+            make_args=lambda device: (
+                _empty_params(plan, arch, mesh, device), inputs(device)))
+
+    lm.check_serves(arch)
+    step = LoweredStep(fn=None, plan=plan, cfg=cfg, kind="prefill")
+
+    def make_args(device):
+        params = _empty_params(plan, arch, mesh, device)
+        if mesh is not None:
+            meta = lm.init_cache(arch, B, S, device="meta",
+                                 **cache_heads(params))
+            _, step.cfg = _serve_mesh(plan, arch, mesh, cfg, params, meta)
+        return params, inputs(device)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        return lm.prefill(arch, params, batch, step.cfg, max_len=S)
+
+    step.fn, step.make_args = prefill, make_args
+    return step
+
+
+def lower_step(plan, mesh=None, opt_cfg=None, arch: Optional[ArchConfig] = None,
+               shape: Optional[ShapeConfig] = None) -> LoweredStep:
+    """Dispatch on the shape's kind (``src/repro/core/passes/lowering.py
+    :508``, the dry run's entry point): :func:`lower_train_step` for a
+    train shape, :func:`lower_serve_step` otherwise.  ``arch`` /
+    ``shape`` default to the plan's registered names (pass them for a
+    reduced or ad hoc config)."""
+    from repro_torch.configs.base import get_arch, get_shape
+    arch = arch if arch is not None else get_arch(plan.arch)
+    shape = shape if shape is not None else get_shape(plan.shape)
+    if shape.kind == "train":
+        return lower_train_step(plan, arch, shape, mesh, opt_cfg)
+    return lower_serve_step(plan, arch, shape, mesh)
 
 
 def _train_kv_split(arch: ArchConfig, layout) -> str:

@@ -41,6 +41,7 @@ import torch.distributed as dist
 
 from repro_torch.dist.sharding import mesh_sizes
 from repro_torch.kernels import ops
+from repro_torch.kernels.fake import is_fake
 
 _NINF = float("-inf")
 
@@ -148,7 +149,9 @@ def _append(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
             in_range: torch.Tensor) -> torch.Tensor:
     """Write ``new[b, 0]`` at row ``idx[b]`` of ``cache[b]`` where
     ``in_range[b]`` (in place)."""
-    b = torch.nonzero(in_range, as_tuple=True)[0]
+    # the dry run's fake mask has no values: every slot writes
+    b = torch.arange(in_range.shape[0], device=in_range.device) \
+        if is_fake(in_range) else torch.nonzero(in_range, as_tuple=True)[0]
     cache[b, idx.long()[b]] = new[b, 0].to(cache.dtype)
     return cache
 

@@ -58,7 +58,7 @@ live row.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -134,6 +134,136 @@ def decode_split(B: int, K: int, capacity: int, tile: int
     want = -(-SPLIT_CTAS // max(1, B * K))
     rows = tile * max(1, tiles // want, -(-tiles // MAX_SPLITS))
     return -(-capacity // rows), rows
+
+
+# ---------------------------------------------------------------------
+# work: (flops, bytes) of one call, and the fake path
+# ---------------------------------------------------------------------
+
+def work(B: int, H: int, K: int, D: int, lens: Sequence[int], *,
+         window: int = 0, block_len: int = 0,
+         itemsize: int = 2) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one dense (``block_len`` 0) or paged decode
+    call over slots of cache lengths ``lens``: 4 D a live row a query
+    head, and q read and the output written once, the int32 lengths,
+    each live K/V row read once and, paged, each table entry those rows
+    lie in (4 bytes).  A window keeps each slot's last ``window``
+    rows."""
+    rows = [min(n, window) if window else n for n in lens]
+    live = sum(rows)
+    nbytes = itemsize * 2 * B * H * D + 4 * B + itemsize * 2 * live * K * D
+    if block_len:
+        nbytes += 4 * sum(-(-n // block_len) for n in rows)
+    return 4.0 * D * H * live, float(nbytes)
+
+
+def partial_work(B: int, H: int, K: int, D: int, rows: int,
+                 itemsize: int = 2) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one per-shard partial (K8) over ``rows``
+    live rows of the shard, summed over the slots: 4 D a row a query
+    head; q and the lengths read, the fp32 ``(m, l, acc)`` written, each
+    live K/V row read once."""
+    nbytes = rows * K * D * itemsize * 2 + B * H * D * itemsize \
+        + B * H * (D + 2) * 4 + B * 4
+    return 4.0 * rows * H * D, float(nbytes)
+
+
+def split_scores_work(B: int, H: int, K: int, DS: int, live: int
+                      ) -> Tuple[float, float]:
+    """``(flops, bytes)`` of K9's pass 1 over ``live`` rows (summed over
+    the slots): 2 DS a row a query head; the slice's live K rows and q
+    read, each live fp32 score written once, the lengths read."""
+    nbytes = live * K * DS * 2 + B * H * DS * 2 + live * H * 4 + B * 4
+    return 2.0 * live * H * DS, float(nbytes)
+
+
+def split_context_work(B: int, H: int, K: int, DS: int, live: int
+                       ) -> Tuple[float, float]:
+    """``(flops, bytes)`` of K9's pass 2: 2 DS a live row a query head;
+    the live V rows and scores read, the context's columns written."""
+    nbytes = live * K * DS * 2 + live * H * 4 + B * H * DS * 2 + B * 4
+    return 2.0 * live * H * DS, float(nbytes)
+
+
+def _fake_lens(cache_len, B: int, capacity: int, window: int) -> List[int]:
+    from repro_torch.kernels import fake
+    return [min(n, window) if window else n
+            for n in fake.lengths(cache_len, B, capacity)]
+
+
+def decode_fake(q: torch.Tensor, k: torch.Tensor,
+                block_tbl: Optional[torch.Tensor] = None, *,
+                cache_len: IntOrTensor, window: int = 0) -> torch.Tensor:
+    """The decode kernels' fake path (:mod:`repro_torch.kernels.fake`):
+    the output ``(B, H, D)``, the call's :func:`work` recorded under
+    ``decode_attention`` or ``paged_decode_attention``; a length that
+    cannot be read counts the whole cache (a paged slot: its table
+    row's blocks)."""
+    from repro_torch.kernels import fake
+    B, H, D = q.shape
+    if block_tbl is None:
+        name, bl, cap = "decode_attention", 0, k.shape[1]
+    else:
+        name, bl = "paged_decode_attention", k.shape[1]
+        cap = block_tbl.shape[1] * bl
+    lens = fake.lengths(cache_len, B, cap)
+    fake.record(name, work(B, H, k.shape[2], D, lens, window=window,
+                           block_len=bl, itemsize=k.element_size()))
+    return torch.empty_like(q)
+
+
+def partial_fake(q: torch.Tensor, k: torch.Tensor,
+                 block_tbl: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8's fake path: ``(m, l, acc)`` in fp32, :func:`partial_work`
+    over every row the shard could hold for each slot (a dense slice's
+    rows; a sub-pool's ``min(table width, blocks)`` blocks)."""
+    from repro_torch.kernels import fake
+    B, H, D = q.shape
+    if block_tbl is None:
+        name, rows = "decode_partial", B * k.shape[1]
+    else:
+        name = "paged_decode_partial"
+        rows = B * min(block_tbl.shape[1], k.shape[0]) * k.shape[1]
+    fake.record(name, partial_work(B, H, k.shape[2], D, rows,
+                                   k.element_size()))
+    m = q.new_empty((B, H), dtype=torch.float32)
+    return m, torch.empty_like(m), q.new_empty((B, H, D),
+                                               dtype=torch.float32)
+
+
+def split_scores_fake(q: torch.Tensor, k: torch.Tensor,
+                      block_tbl: Optional[torch.Tensor] = None, *,
+                      cache_len: IntOrTensor, window: int = 0
+                      ) -> torch.Tensor:
+    """K9 pass 1's fake path: the compact ``(B, H, Wc)`` fp32 scores,
+    :func:`split_scores_work` over the live rows (the whole view where
+    the lengths cannot be read)."""
+    from repro_torch.kernels import fake
+    B, H, DS = q.shape
+    cap = k.shape[1] if block_tbl is None \
+        else block_tbl.shape[1] * k.shape[1]
+    live = sum(_fake_lens(cache_len, B, cap, window))
+    fake.record("decode_split_scores",
+                split_scores_work(B, H, k.shape[2], DS, live))
+    return q.new_empty((B, H, split_cols(cap, window)), dtype=torch.float32)
+
+
+def split_context_fake(s: torch.Tensor, v: torch.Tensor,
+                       block_tbl: Optional[torch.Tensor] = None, *,
+                       cache_len: IntOrTensor, window: int = 0
+                       ) -> torch.Tensor:
+    """K9 pass 2's fake path: the context's ``(B, H, DS)`` columns in
+    V's dtype, :func:`split_context_work` recorded."""
+    from repro_torch.kernels import fake
+    B, H, _ = s.shape
+    K, DS = v.shape[2], v.shape[3]
+    cap = v.shape[1] if block_tbl is None \
+        else block_tbl.shape[1] * v.shape[1]
+    live = sum(_fake_lens(cache_len, B, cap, window))
+    fake.record("decode_split_context",
+                split_context_work(B, H, K, DS, live))
+    return v.new_empty((B, H, DS))
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

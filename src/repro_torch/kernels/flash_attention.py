@@ -140,6 +140,94 @@ def pos_ranges_ints(B: int, Sq: int, Skv: int, tiles) -> int:
     return 2 * B * sum(-(-n // t) for n, t in tiles)
 
 
+def causal_pairs(Sq: int, Skv: int, window: int = 0) -> int:
+    """Live (query, key) pairs of one sequence whose ``Sq`` queries are
+    the last of ``Skv`` keys, causal, under a window counted back from
+    each query (0: none)."""
+    M = Skv - Sq
+    if not window:
+        return Sq * M + Sq * (Sq + 1) // 2
+    lo, hi = M + 1, min(Skv, window)     # queries that see every key
+    whole = (lo + hi) * (hi - lo + 1) // 2 if hi >= lo else 0
+    return whole + window * max(0, Skv - max(M, window))
+
+
+def work(B: int, Sq: int, Skv: int, H: int, K: int, D: int, *,
+         causal: bool = True, window: int = 0,
+         pairs: Optional[int] = None, positions: bool = False,
+         lse: bool = False, itemsize: int = 2) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one forward call: 4 D a live (query, key)
+    pair a query head (``pairs``, over the batch, where a mask by
+    positions decides them; else :func:`causal_pairs`, or ``Sq * Skv``
+    non-causal), and q, k, v read once and the output written once
+    (with ``positions`` their int32 row; with ``lse`` the fp32
+    log-sum-exp written for the backward)."""
+    if pairs is None:
+        pairs = B * (causal_pairs(Sq, Skv, window) if causal else Sq * Skv)
+    nbytes = itemsize * (2 * B * Sq * H * D + 2 * B * Skv * K * D)
+    nbytes += 4 * B * Skv * positions + 4 * B * H * Sq * lse
+    return 4.0 * D * H * pairs, float(nbytes)
+
+
+def bwd_work(B: int, Sq: int, Skv: int, H: int, K: int, D: int, *,
+             causal: bool = True, window: int = 0,
+             pairs: Optional[int] = None, positions: bool = False,
+             itemsize: int = 2) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one backward call: 2.5 times the forward's
+    products (S and P again, dV, dP, dS, dQ, dK), and q, o, dO, k, v,
+    the log-sum-exp (and positions) read once, dq, dk, dv written
+    once."""
+    flops, _ = work(B, Sq, Skv, H, K, D, causal=causal, window=window,
+                    pairs=pairs)
+    nbytes = itemsize * (3 * B * Sq * H * D + 2 * B * Skv * K * D) \
+        + 4 * B * H * Sq + 4 * B * Skv * positions \
+        + itemsize * (B * Sq * H * D + 2 * B * Skv * K * D)
+    return 2.5 * flops, float(nbytes)
+
+
+def _call_work(q, k, causal: bool, window: int, positions, bwd: bool,
+               lse: bool = False) -> Tuple[float, float]:
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    kw = dict(causal=causal, window=window, positions=positions is not None,
+              itemsize=q.element_size())
+    if bwd:
+        return bwd_work(B, Sq, Skv, H, K, D, **kw)
+    return work(B, Sq, Skv, H, K, D, lse=lse, **kw)
+
+
+def flash_attention_fake(q, k, v, *, causal: bool = True, window: int = 0,
+                         return_lse: bool = False,
+                         positions: Optional[torch.Tensor] = None):
+    """The forward's fake path (:mod:`repro_torch.kernels.fake`): outputs
+    of the kernel's shapes and dtypes, the call's :func:`work` recorded
+    under its ``ops.launch_counts()`` key; nothing built or launched.
+    A mask by positions is counted over every pair the index mask
+    keeps (a fake tensor's positions are not known)."""
+    from repro_torch.kernels import fake
+    B, Sq, H, _ = q.shape
+    fake.record("flash_attention_positions" if positions is not None
+                else "flash_attention",
+                _call_work(q, k, causal, window, positions, False,
+                           return_lse))
+    o = torch.empty_like(q)
+    if not return_lse:
+        return o
+    return o, q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+def flash_attention_bwd_fake(q, k, v, *, causal: bool = True,
+                             window: int = 0,
+                             positions: Optional[torch.Tensor] = None):
+    """The backward's fake path: ``dq, dk, dv`` of q, k and v's shapes,
+    :func:`bwd_work` recorded."""
+    from repro_torch.kernels import fake
+    fake.record("flash_attention_bwd_positions" if positions is not None
+                else "flash_attention_bwd",
+                _call_work(q, k, causal, window, positions, True))
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def kernel_tiles(G: int, block_q: Optional[int] = None,
                  block_kv: Optional[int] = None) -> Tuple[int, int]:
     """``(rows, block_kv)`` for a GQA group of ``G`` heads: the CTA's
@@ -436,7 +524,12 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, window: int,
                 tiles: Optional[Tuple[int, int]],
                 positions: Optional[torch.Tensor] = None):
-        if q.device.type == "cuda":
+        from repro_torch.kernels import fake
+        if fake.is_fake(q):
+            o, lse = flash_attention_fake(q, k, v, causal=causal,
+                                          window=window, return_lse=True,
+                                          positions=positions)
+        elif q.device.type == "cuda":
             bq, bkv = tiles if tiles is not None else (None, None)
             o, lse = flash_attention(q, k, v, causal=causal, window=window,
                                      block_q=bq, block_kv=bkv,
@@ -451,7 +544,12 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        from repro_torch.kernels import fake
         q, k, v, o, lse, positions = ctx.saved_tensors
+        if fake.is_fake(q):
+            return (*flash_attention_bwd_fake(
+                q, k, v, causal=ctx.causal, window=ctx.window,
+                positions=positions), None, None, None, None)
         bwd = (flash_attention_bwd if q.device.type == "cuda"
                else flash_attention_bwd_plain)
         dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(),

@@ -8,6 +8,10 @@ unkernelled path on the card, so the plan's ``use_pallas="off"`` raises
 for a CUDA tensor.  Tiles come from the plan's ``BlockPlan``s (through
 :class:`repro_torch.models.lm.RunCfg`); each kernel module documents its
 default for a plan that has none and raises on a tile it cannot run.
+A fake tensor (the dry run's, :mod:`repro_torch.kernels.fake`) takes a
+third route, whatever its device: outputs of the kernel's shapes and
+dtypes and the call's work recorded, never a plain version and never a
+launch.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import fake as _fake
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import tiled_matmul as _mm
@@ -26,10 +31,17 @@ MODES = ("auto", "on", "off")
 
 def _use_kernel(name: str, t: torch.Tensor, mode: str) -> bool:
     """The one routing decision: ``False`` for a CPU tensor (the plain
-    version), ``True`` for a CUDA tensor (the kernel); raises on a bad
-    mode, on ``"off"`` for a CUDA tensor and on any other device."""
+    version), ``True`` for a CUDA tensor (the kernel) and for a fake
+    tensor (the entry's fake path, which the caller takes where
+    :func:`_fake.is_fake` holds); raises on a bad mode, on ``"off"`` for
+    a CUDA or fake tensor and on any other device."""
     if mode not in MODES:
         raise ValueError(f"{name}: kernel mode {mode!r} not in {MODES}")
+    if _fake.is_fake(t):
+        if mode == "off":
+            raise RuntimeError(f"{name}: the plan says use_pallas='off', but "
+                               "the port has no unkernelled path")
+        return True
     if t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
@@ -82,6 +94,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if not kernel:
         return _fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window, positions=positions)
+    if _fake.is_fake(q):
+        return _fa.flash_attention_fake(q, k, v, causal=causal,
+                                        window=window, positions=positions)
     bq, bkv = tiles if tiles is not None else (None, None)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                block_q=bq, block_kv=bkv, positions=positions)
@@ -96,6 +111,8 @@ def decode_attention(q, k, v, *, cache_len, window: int = 0,
     if not _use_kernel("decode_attention", q, mode):
         return _dec.decode_attention_plain(q, k, v, cache_len=cache_len,
                                            window=window)
+    if _fake.is_fake(q):
+        return _dec.decode_fake(q, k, cache_len=cache_len, window=window)
     return _dec.decode_attention(q, k, v, cache_len=cache_len, window=window,
                                  block_kv=block_kv)
 
@@ -109,6 +126,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, *, cache_len,
     if not _use_kernel("paged_decode_attention", q, mode):
         return _dec.paged_decode_attention_plain(
             q, k_pool, v_pool, block_tbl, cache_len=cache_len, window=window)
+    if _fake.is_fake(q):
+        return _dec.decode_fake(q, k_pool, block_tbl, cache_len=cache_len,
+                                window=window)
     return _dec.paged_decode_attention(q, k_pool, v_pool, block_tbl,
                                        cache_len=cache_len, window=window,
                                        block_kv=block_kv)
@@ -124,6 +144,8 @@ def decode_partial(q, k, v, *, kv_start: int, pos, window: int = 0,
     if not _use_kernel("decode_partial", q, mode):
         return _dec.decode_partial_plain(q, k, v, kv_start=kv_start, pos=pos,
                                          window=window)
+    if _fake.is_fake(q):
+        return _dec.partial_fake(q, k)
     return _dec.decode_partial(q, k, v, kv_start=kv_start, pos=pos,
                                window=window, block_kv=block_kv)
 
@@ -140,6 +162,8 @@ def paged_decode_partial(q, k_pool, v_pool, block_tbl, *, block_start: int,
         return _dec.paged_decode_partial_plain(
             q, k_pool, v_pool, block_tbl, block_start=block_start, pos=pos,
             window=window)
+    if _fake.is_fake(q):
+        return _dec.partial_fake(q, k_pool, block_tbl)
     return _dec.paged_decode_partial(q, k_pool, v_pool, block_tbl,
                                      block_start=block_start, pos=pos,
                                      window=window, block_kv=block_kv)
@@ -161,6 +185,9 @@ def decode_split_scores(q, k, block_tbl=None, *, cache_len, scale: float,
         return _dec.decode_split_scores_plain(
             q, k, block_tbl, cache_len=cache_len, window=window,
             scale=scale)
+    if _fake.is_fake(q):
+        return _dec.split_scores_fake(q, k, block_tbl, cache_len=cache_len,
+                                      window=window)
     return _dec.decode_split_scores(q, k, block_tbl, cache_len=cache_len,
                                     window=window, scale=scale)
 
@@ -177,6 +204,9 @@ def decode_split_context(s, v, block_tbl=None, *, cache_len,
     if not _use_kernel("decode_split_context", s, mode):
         return _dec.decode_split_context_plain(
             s, v, block_tbl, cache_len=cache_len, window=window)
+    if _fake.is_fake(s):
+        return _dec.split_context_fake(s, v, block_tbl, cache_len=cache_len,
+                                       window=window)
     return _dec.decode_split_context(s, v, block_tbl, cache_len=cache_len,
                                      window=window)
 
@@ -203,6 +233,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: Optional[int] = None,
         return _ssd.ssd_scan_plain(
             x, dt, A, Bm, Cm, chunk=chunk or _ssd.DEFAULT_CHUNK,
             initial_state=initial_state)
+    if _fake.is_fake(x):
+        return _ssd.ssd_scan_fake(x, Bm, chunk or _ssd.DEFAULT_CHUNK)
     return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                          heads_block=heads_block,
                          initial_state=initial_state)
@@ -228,6 +260,8 @@ def matmul(a, b, *, tiles: Optional[Tuple[int, int, int]] = None,
     _mm.kernel_tiles(tiles)
     if not _use_kernel("tiled_matmul", a, mode):
         return _mm.tiled_matmul_plain(a, b)
+    if _fake.is_fake(a):
+        return _mm.tiled_matmul_fake(a, b)
     return _mm.tiled_matmul(a, b, tiles=tiles)
 
 

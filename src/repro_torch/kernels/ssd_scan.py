@@ -287,6 +287,55 @@ def grid_ctas(B: int, S: int, H: int, P: int, N: int, chunk: int
     return B * H * nc, -(-B * H * P * N // 256), B * H * nc * (chunk // 64)
 
 
+def work(B: int, S: int, H: int, P: int, G: int, N: int, chunk: int
+         ) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one forward call (fp32): per chunk the
+    causal half of C.B^T once a group (its heads share B and C) and of
+    the scores times x a head, C.state^T and the state update a head;
+    x, dt, A, B, C read once, y and the final state written once."""
+    nc = -(-S // chunk)
+    Q = chunk
+    flops = B * nc * (G * Q * (Q + 1) * N
+                      + H * (Q * (Q + 1) * P + 4 * Q * P * N))
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * G * N
+                  + B * H * P * N)
+    return float(flops), float(nbytes)
+
+
+def bwd_work(B: int, S: int, H: int, P: int, G: int, N: int, chunk: int
+             ) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one backward call (``csrc/ssd_scan_bwd.cu``'s
+    header): per (batch, head, chunk) the causal halves of C.B^T and
+    dy.xdt^T and the three products that apply them, and four state
+    products (the diagonal tile pairs the kernel computes whole are not
+    counted: the function does not need them); x, y, dy, dx and dt, ddt
+    and A, dA, B, C, dB, dC, the chunk states and the final state's
+    gradient read or written once."""
+    nc = -(-S // chunk)
+    Q = chunk
+    flops = B * H * nc * (Q * (Q + 1) * (3 * N + 2 * P) + 8 * Q * P * N)
+    nbytes = 4 * (4 * B * S * H * P + 2 * B * S * H + 2 * H
+                  + 4 * B * S * G * N + B * (nc + 1) * H * P * N)
+    return float(flops), float(nbytes)
+
+
+def ssd_scan_fake(x, Bm, chunk: int, return_states: bool = False):
+    """The forward's fake path (:mod:`repro_torch.kernels.fake`): ``y``,
+    the fp32 final state (and chunk states), :func:`work` recorded under
+    ``ssd_scan``; nothing built or launched."""
+    from repro_torch.kernels import fake
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    q = min(chunk, S)
+    fake.record("ssd_scan", work(Bsz, S, H, P, G, N, q))
+    y = torch.empty_like(x)
+    fin = x.new_empty((Bsz, H, P, N), dtype=torch.float32)
+    if not return_states:
+        return y, fin
+    return y, fin, x.new_empty((Bsz, -(-S // q), H, N, P),
+                               dtype=torch.float32)
+
+
 def _check(fn: str, given, want, device) -> None:
     """Raise unless every tensor of ``given`` lies on ``device``, is
     float32, contiguous, 16-byte aligned and of its ``want`` shape."""
@@ -418,8 +467,11 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, initial_state,
                 chunk: Optional[int], heads_block: Optional[int]):
+        from repro_torch.kernels import fake
         chunk = DEFAULT_CHUNK if chunk is None else chunk
-        if x.device.type == "cuda":
+        if fake.is_fake(x):
+            y, fin, states = ssd_scan_fake(x, Bm, chunk, return_states=True)
+        elif x.device.type == "cuda":
             y, fin, states = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                                       heads_block=heads_block,
                                       initial_state=initial_state,
@@ -435,7 +487,16 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dfinal):
+        from repro_torch.kernels import fake
         x, dt, A, Bm, Cm, y, states, fin = ctx.saved_tensors
+        if fake.is_fake(x):
+            Bsz, S, H, P = x.shape
+            fake.record("ssd_scan_bwd", bwd_work(
+                Bsz, S, H, P, Bm.shape[2], Bm.shape[3], min(ctx.chunk, S)))
+            grads = [torch.empty_like(t) for t in (x, dt, A, Bm, Cm)]
+            grads.append(x.new_empty(fin.shape, dtype=torch.float32)
+                         if ctx.initial else None)
+            return (*grads, None, None)
         bwd = (ssd_scan_bwd if x.device.type == "cuda"
                else ssd_scan_bwd_plain)
         dy = torch.zeros_like(y) if dy is None else dy.contiguous()

@@ -124,6 +124,23 @@ def kernel_tiles(tiles: Optional[Sequence[int]]) -> Tuple[int, int, int]:
     return t
 
 
+def work(M: int, K: int, N: int, itemsize: int = 2) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one (M, K) @ (K, N): a and b read once, the
+    output written once; 2 MKN in bf16, and in fp32 the kernel's three
+    TF32 products (3 x 2 MKN, what its bound is counted at)."""
+    flops = 2 * M * K * N * (3 if itemsize == 4 else 1)
+    return float(flops), float(itemsize * (M * K + K * N + M * N))
+
+
+def tiled_matmul_fake(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The fake path (:mod:`repro_torch.kernels.fake`): the ``(M, N)``
+    output in a's dtype, :func:`work` recorded under ``tiled_matmul``."""
+    from repro_torch.kernels import fake
+    M, K = a.shape
+    fake.record("tiled_matmul", work(M, K, b.shape[1], a.element_size()))
+    return a.new_empty((M, b.shape[1]))
+
+
 def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the product in fp32, cast
     back to ``a``'s dtype (``repro/kernels/ref.py`` ``tiled_matmul_ref``).

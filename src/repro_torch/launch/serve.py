@@ -99,6 +99,7 @@ import math
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -249,11 +250,13 @@ def main(argv=None) -> None:
         torch.distributed.destroy_process_group()
 
 
-def check_fits(arch, padded_sizes, device, plan=None) -> None:
+def check_fits(arch, padded_sizes, device, plan=None,
+               free: Optional[int] = None) -> None:
     """Raise, before any weight is built, for a model whose weights
     (``lm.leaf_specs`` at the plan's padded sizes) exceed the free
     memory of ``device``: the card's (``torch.cuda.mem_get_info``) or
-    the host's available RAM.  With a ``plan`` for a mesh, one rank's
+    the host's available RAM, or ``free`` bytes where given (the dry
+    run's target HBM).  With a ``plan`` for a mesh, one rank's
     share: each leaf's bytes over the ranks its spec splits it across
     (``lowering.param_pspecs``), what the rank builds
     (``serve.sharded.param_pieces``) and the engine keeps.  The refusal
@@ -273,7 +276,9 @@ def check_fits(arch, padded_sizes, device, plan=None) -> None:
     need = sum(math.prod(s.shape) * s.dtype.itemsize // n
                for s, n in zip(leaves, split))
     device = torch.device(device)
-    if device.type == "cuda":
+    if free is not None:
+        where = "the target"
+    elif device.type == "cuda":
         free, where = torch.cuda.mem_get_info(device)[0], "the card"
     else:
         free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")

@@ -56,9 +56,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
             raise ValueError(f"M-RoPE sections {mrope_sections} do not "
                              f"cover head_dim / 2 = {half}")
         # which of the three streams drives each frequency slot
-        sel = torch.repeat_interleave(
-            torch.arange(3, device=x.device),
-            torch.tensor(mrope_sections, device=x.device))
+        sel = torch.tensor([i for i, n in enumerate(mrope_sections)
+                            for _ in range(n)], device=x.device)
         pos = positions.float().movedim(0, -1)               # (..., seq, 3)
         angles = pos[..., sel] * inv                         # (..., seq, half)
     else:

@@ -62,6 +62,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.describe import global_layer_mask
 from repro_torch.dist import fsdp
+from repro_torch.kernels.fake import is_fake
 from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -557,7 +558,9 @@ def _embed_in(arch: ArchConfig, params, batch, cfg: Optional[RunCfg] = None):
     if "positions" in batch:
         positions = batch["positions"].to(x.device)
         pos0 = positions[0] if positions.dim() == 3 else positions
-        if not bool((pos0 == rows).all()):
+        # the dry run's fake positions have no values: they are taken
+        # as differing from the row index (an image's repeated ids)
+        if is_fake(pos0) or not bool((pos0 == rows).all()):
             mask_pos = pos0
     else:
         positions = rows.expand(B, S)
@@ -1169,8 +1172,12 @@ def paged_targets(pos: torch.Tensor, tbl: torch.Tensor, block_len: int,
     the owner writes)."""
     pos = pos.long()
     blk = tbl.long().gather(1, (pos // block_len)[:, None])[:, 0] - start
-    keep = (blk >= 0) if n_local is None else (blk >= 0) & (blk < n_local)
     b = torch.arange(pos.shape[0], device=pos.device)
+    if is_fake(tbl):
+        # the dry run's fake table has no values: every slot's row is
+        # taken as landing in a block this piece holds
+        return b, blk, pos % block_len
+    keep = (blk >= 0) if n_local is None else (blk >= 0) & (blk < n_local)
     return b[keep], blk[keep], (pos % block_len)[keep]
 
 

@@ -44,6 +44,8 @@ from typing import (Any, Dict, Iterator, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from repro_torch.kernels.fake import is_fake
+
 #: elements of a leaf updated at a time (64 MB a fp32 temporary)
 CHUNK = 1 << 24
 _SR_KEY = 0x5AD3
@@ -205,7 +207,8 @@ def apply_updates(params, grads, state: Dict[str, Any], cfg: OptConfig,
             leaves(params), leaves(grads), leaves(state["m"]),
             leaves(state["v"]), leaves(master))):
         gen = None
-        if not cfg.master_weights and p.dtype == torch.bfloat16:
+        rounds = not cfg.master_weights and p.dtype == torch.bfloat16
+        if rounds and not is_fake(p):   # a fake leaf (the dry run): no seed
             gen = torch.Generator(p.device).manual_seed(_sr_seed(
                 step, i, pieces[i].index if pieces is not None else -1))
         for pc, gc, mc, vc, wc in zip(_chunks(p), _chunks(g), _chunks(m),
@@ -221,7 +224,7 @@ def apply_updates(params, grads, state: Dict[str, Any], cfg: OptConfig,
             if cfg.master_weights:
                 wc.copy_(w32)
                 pc.copy_(w32)
-            elif gen is not None:
+            elif rounds:
                 pc.copy_(_stochastic_round_bf16(w32, gen))
             else:
                 pc.copy_(w32)
