@@ -101,6 +101,15 @@ Phases (any failure exits non-zero before the last line):
    (a shard left out, the slice's start off by one block, an unowned
    block counted as owned), each shard timed in turns with the
    unsharded kernel beside the bytes of its live rows;
+2d. the instances the reference's 16x16 mesh needs where its 16-wide
+   model axis pads the heads (:func:`mesh16_kernel_phase`): flash at G
+   = 3 (a rank's 3 of llama4-maverick's padded group of 6) at its
+   train_4k rank shape (8, 4096) against SDPA and at an offset, its
+   backward (:data:`FLASH_BWD_SHAPES`' last row); the decode kernels at
+   (6, 128) and (4, 64); K8 over 16 shards at the cells' rank shapes
+   (a data shard's 64 blocks of 512, 4 a rank; one slot's 524,288 rows,
+   32,768 a rank), with planted faults (a shard left out, a start off
+   by one block, the next shard's block read as owned);
 3. qwen3-8b serve, paged: the plan as frozen (paged pool, prefix reuse,
    512 host blocks), 16 requests; both tiers whole after the engine's
    block cache is dropped;
@@ -291,7 +300,15 @@ Phases (any failure exits non-zero before the last line):
    ``--chaos`` and ``--disagg`` modes (``scripts/torch_serve_smoke.py``)
    and ``examples/torch_train_tiny_lm.py --steps 100`` (every loss
    finite, the last within 0.25 of log(vocab): its random targets admit
-   no fall below that);
+   no fall below that), and the dry runs of the six 16x16 cells the
+   port refused while it judged the global padded group
+   (:data:`MESH16_CELLS`) at a cut depth, traced, each layer's decode
+   or flash entry called once; these processes run beside 24g's own
+   dry runs and no other phase;
+24h. sixteen ranks on the card (:func:`mesh16_phase`), alone after 24g,
+   the 16x16 mesh's model axis: hymba-1.5b from its (1, 16) plan, its
+   padding held to 16x16's, first-token logits against one rank's, K8
+   at (4, 64) once a layer a tick;
 25. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Every line with a measured number carries the card's ``nvidia-smi``
@@ -308,7 +325,8 @@ tiled matmul's, phases 2b and 24's, phase 24b's, phase 24c's, phase
 :func:`matmul_fp32_check`) and prints its result as one JSON line;
 ``--only head_dim`` runs K9's checks and timings (phase 2c) and phase
 24f, ``--only k9`` phase 2c alone, ``--only tools`` phase 24g alone (its
-dry runs held to the counts the plans imply).
+dry runs held to the counts the plans imply), ``--only mesh16`` phase 2d,
+the G = 3 flash backward, phase 24h and the six cells' dry runs.
 ``--src DIR`` takes ``repro_torch`` from another ``src`` directory, such
 as a parent commit's unpacked with ``git archive``: run two trees in
 alternating processes (parent, change, change, parent) to compare them
@@ -318,6 +336,7 @@ on one card.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -379,6 +398,13 @@ MOE_PAIRS = {"granite": (16, 8, 64), "llama4": (40, 8, 128)}
 # (query heads, kv heads, head_dim) of the frontends' archs: qwen2-vl-72b
 # (G = 8 at 128) and hubert-xlarge (G = 1 at 80, non-causal)
 VLM_PAIR, ENC_PAIR = (64, 8, 128), (16, 16, 80)
+# the instances the reference's 16x16 cells need, where a 16-wide model
+# axis pads llama4-maverick to 48 / 8 heads of 128 and hymba-1.5b to 32 /
+# 8 of 64 (phase 2d): flash at G = 3, a rank's 3 heads of a group of 6
+# over one kv head (query heads, kv heads, head_dim), at llama4's
+# train_4k rank shape (B, S); the decode pairs (6, 128) and (4, 64)
+MESH16_FLASH, MESH16_FLASH_TRAIN = (3, 1, 128), (8, 4096)
+MESH16_DECODE = {"g6": (48, 8, 128, 0), "g4d64": (32, 8, 64, 1024)}
 QWEN2VL, HUBERT = "qwen2-vl-72b", "hubert-xlarge"
 QWEN2VL_SERVE_LAYERS = 16   # 16 x 1.756 GB + 4.98 GB: ~33.1 GB of bf16
 GRANITE, LLAMA4 = "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"
@@ -427,6 +453,11 @@ TURNS = 5                   # rounds of kernel / library taken in turns
 HOPPER_SOURCES = ("flash_attention", "flash_attention_bwd", "tiled_matmul")
 
 
+#: the subprocesses this run started (24g's); any still running at exit,
+#: a failed check's included, is killed
+CHILDREN: list = []
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -434,6 +465,14 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+@atexit.register
+def _stop_children() -> None:
+    for p in CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1140,15 +1179,17 @@ def g7_kernel_check(torch, F, fa, dec, rnd, dev, g):
 
 
 def gqa_kernel_check(torch, F, fa, dec, rnd, dev, g, Hq=H5, Kv=K5, Dh=D64,
-                     W=W5):
+                     W=W5, flash=True, decode=True, main=(2, 1024)):
     """The attention kernels at ``Hq`` query heads over ``Kv`` kv heads
     of ``Dh``, global and, with a window ``W`` > 0, through it: by
     default hymba-1.5b's 25 / 5 heads of 64 (G = 5: 25 positions fill
     125 of the flash CTA's 128 rows) and its 1024-token window; granite's
     16 / 8 of 64 and llama4's 40 / 8 of 128 with no window.  Flash at
-    B=2 S=1024 causal, at B=1 S=2048 with the window, and at a query
-    offset (M=1024, T=256); decode, paged and dense, at 8 slots of 1 to
-    2048 rows with the window and without.  Each is held row by row
+    ``main`` = (B, S) (B=2 S=1024) causal, at B=1 S=2048 with the window,
+    and at a query offset (M=1024, T=256); decode, paged and dense, at 8
+    slots of 1 to 2048 rows with the window and without (``flash`` /
+    ``decode`` False leaves either out: an instance one kernel has and
+    the other does not).  Each is held row by row
     against its plain version at :data:`TOL`, the rows of every flash
     CTA's first position (``q0 + BQ``) among them and on their own;
     beside each, planted faults must fail the same check: a dropped kv
@@ -1161,7 +1202,7 @@ def gqa_kernel_check(torch, F, fa, dec, rnd, dev, g, Hq=H5, Kv=K5, Dh=D64,
     out = {}
     tol = TOL["flash_attention"]
     G = Hq // Kv
-    rows, bkv = fa.kernel_tiles(G)
+    rows, bkv = fa.kernel_tiles(G) if flash else (0, 0)
     bq = rows // G
 
     def flash_case(label, B, S, window, M=0):
@@ -1244,12 +1285,16 @@ def gqa_kernel_check(torch, F, fa, dec, rnd, dev, g, Hq=H5, Kv=K5, Dh=D64,
             kernel_turns_ms=rounds["kernel"],
             library_turns_ms=rounds["library"])
 
-    out["flash_attention"] = flash_case("B=2 S=1024", 2, 1024, 0)
-    if W:
-        out["flash_attention"]["window"] = flash_case(
-            f"B=1 S=2048 window {W}", 1, 2048, W)
-    out["flash_attention"]["offset"] = flash_case(
-        f"offset B=2 M=1024 T=256 window {W}", 2, 256, W, M=1024)
+    if flash:
+        out["flash_attention"] = flash_case(f"B={main[0]} S={main[1]}",
+                                            *main, 0)
+        if W:
+            out["flash_attention"]["window"] = flash_case(
+                f"B=1 S=2048 window {W}", 1, 2048, W)
+        out["flash_attention"]["offset"] = flash_case(
+            f"offset B=2 M=1024 T=256 window {W}", 2, 256, W, M=1024)
+    if not decode:
+        return out
 
     # ---- decode, paged and dense: 8 slots, 1..2048 rows
     lens_list = [1, 64, 300, 777, 1024, 1500, 1999, 2048]
@@ -3906,15 +3951,17 @@ def grad_row_err(torch, got, want):
 
 #: the flash backward's shapes (B, S, H, K, D, window, causal): qwen3-8b's
 #: train shape and B=2 S=1024, hymba's through its window, granite's,
-#: qwen2-vl-72b's (G = 8) and hubert-xlarge's (16 heads of 80, non-causal)
+#: qwen2-vl-72b's (G = 8), hubert-xlarge's (16 heads of 80, non-causal)
+#: and a rank's of llama4-maverick's train_4k on the 16x16 mesh (G = 3)
 FLASH_BWD_SHAPES = ((1, 2048, H, K, D, 0, True), (2, 1024, H, K, D, 0, True),
                     (1, 2048, H5, K5, D64, W5, True),
                     (1, 2048, *MOE_PAIRS["granite"], 0, True),
                     (1, 2048, *VLM_PAIR, 0, True),
-                    (1, 2048, *ENC_PAIR, 0, False))
+                    (1, 2048, *ENC_PAIR, 0, False),
+                    (*MESH16_FLASH_TRAIN, *MESH16_FLASH, 0, True))
 
 
-def flash_bwd_check(torch, F, fa, dev):
+def flash_bwd_check(torch, F, fa, dev, shapes=FLASH_BWD_SHAPES):
     """The flash backward at the training shape, qwen3-8b's widths (32 /
     8 heads of 128) at B=1 S=2048 causal, also at B=2 S=1024, at hymba's
     (25 / 5 heads of 64) through a 1024 window at B=1 S=2048, at
@@ -3940,7 +3987,7 @@ def flash_bwd_check(torch, F, fa, dev):
     g = torch.Generator(dev).manual_seed(SEED + 20)
     tol = TOL["flash_attention_bwd"]
     out = {"shapes": []}
-    for B, S, Hq, Kv, Dh, W, C in FLASH_BWD_SHAPES:
+    for B, S, Hq, Kv, Dh, W, C in shapes:
         def rnd(*shape):
             return torch.randn(shape, generator=g, device=dev).to(
                 torch.bfloat16)
@@ -4015,7 +4062,7 @@ def flash_bwd_check(torch, F, fa, dev):
             f"{fmt(rounds['library'])}), bound {b_ms:.4f} ms ({b_by}); "
             f"forward kernel with lse {fwd['with_lse']:.4f} ms, without "
             f"{fwd['without']:.4f} ms [{CARD}]")
-        if (Hq, Kv, Dh) in (VLM_PAIR, ENC_PAIR):
+        if (Hq, Kv, Dh) in (VLM_PAIR, ENC_PAIR, MESH16_FLASH):
             row["plain_ms"] = time_ms(
                 torch, lambda: fa.flash_attention_bwd_plain(
                     q, k, v, o, lse, do, causal=C, window=W),
@@ -6104,13 +6151,40 @@ def _mesh_trainer(torch, dev, plan, arch, shape, mesh):
     return tr, tr.init_state(SEED)
 
 
+def one_rank_plan(plan, arch):
+    """``plan`` for one rank on the whole padded weights (a one-rank
+    anchor): where a rank of the plan's mesh runs flash at a piece of a
+    group (:func:`repro_torch.models.lm.kernel_instances`; hymba-1.5b's
+    (1, 2) plan: 13 of 26 heads over every kv head, G = 1), the flash
+    tile keeps its CTA's rows and ``block_kv`` and counts ``block_q`` in
+    positions of the whole group ``G = H / K``, as the partitioning pass
+    sizes a tile; any other plan as it is."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    bp = plan.partitions.get("flash_attention")
+    if bp is None or not arch.has_attention:
+        return plan
+    _, H, _, K = plan.padded_sizes()
+    g = lm.kernel_instances(arch, "train", plan)[0].group
+    if g == H // K:
+        return plan
+    rows, _ = fa.kernel_tiles(g, bp.blocks["block_q"], bp.blocks["block_kv"])
+    one = plan.thaw()
+    one.partitions["flash_attention"] = dataclasses.replace(
+        one.partitions["flash_attention"],
+        blocks={**bp.blocks, "block_q": rows // (H // K)})
+    return one.freeze()
+
+
 def _mesh_anchor(torch, dev, plan, arch, shape, batches, grads=True,
                  fit=True):
     """The one-rank run of ``plan`` on the card (the same cut, optimizer,
-    remat and global batches): its fit, the last layer's gradients on
-    the step-0 batch (with a wrong-target control) and its kernels' loss
-    against the plain attention's (the loss floor); ``grads`` / ``fit``
-    False leave those out."""
+    remat and global batches, :func:`one_rank_plan`'s flash tile): its
+    fit, the last layer's gradients on the step-0 batch (with a
+    wrong-target control) and its kernels' loss against the plain
+    attention's (the loss floor); ``grads`` / ``fit`` False leave those
+    out."""
+    plan = one_rank_plan(plan, arch)
     tr, state = _mesh_trainer(torch, dev, plan, arch, shape, None)
     b0 = _on_dev(torch, batches[0], dev)
     cfg = tr.step_def.cfg
@@ -7302,6 +7376,243 @@ def mesh_tier_checks(torch, dev, ranks, t0):
 
 
 # ---------------------------------------------------------------------
+# phase 2d: the instances the reference's 16x16 cells need
+# ---------------------------------------------------------------------
+
+#: K8 at the 16x16 cells' rank shapes: (label, query heads, kv heads,
+#: head_dim, windows, slots, rows a shard holds, block length (0:
+#: dense)).  llama4-maverick's and hymba-1.5b's decode_32k (paged, grant
+#: admission): a data shard's pool of 64 blocks of 512 for its 8 slots,
+#: 4 blocks a model rank; hymba's long_500k (dense): one slot's 524,288
+#: rows, 32,768 a rank
+MESH16_K8 = (("g6", 48, 8, 128, (0,), 8, 2048, 512),
+             ("g4d64", 32, 8, 64, (1024, 0), 8, 2048, 512),
+             ("g4d64_dense", 32, 8, 64, (1024, 0), 1, 32768, 0))
+MESH16_SHARDS = 16
+#: the paged cases' pool (a data shard's blocks) and each slot's table
+#: width in rows (the cells' 32k sequence)
+MESH16_POOL, MESH16_SEQ = 64, 32768
+#: the paged cases' slot lengths: 61 of the data shard's 64 blocks live
+MESH16_LENS = (1, 512, 3000, 4096, 4600, 6144, 7000, 5000)
+#: the dense case's one slot: its position crosses the boundary of
+#: shards 11 and 12 inside the window
+MESH16_DENSE_POS = 393700
+
+
+def mesh16_kernel_phase(torch, dev):
+    """Phase 2d: the kernel instances the reference's 16x16 cells need
+    where a 16-wide model axis pads the heads (llama4-maverick: 48 / 8 of
+    128; hymba-1.5b: 32 / 8 of 64), each held row by row against its
+    plain version beside planted faults that must fail the same check,
+    and timed in medians of :data:`TURNS` turns.  Flash at G = 3 (a
+    rank's 3 heads of a group of 6 over one kv head; 42 positions and 2
+    pad rows in 128) at llama4's train_4k rank shape against SDPA in the
+    same turns, and at a query offset (:func:`gqa_kernel_check`; its
+    backward is :data:`FLASH_BWD_SHAPES`' last row); the fused decode
+    kernels at (6, 128) and (4, 64), hymba's through its window
+    (:func:`gqa_kernel_check`, ``flash=False``); K8 at the cells' rank
+    shapes (:func:`k8_rank_check`).  On a generator of its own."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    g = torch.Generator(dev).manual_seed(SEED + 34)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    t0 = time.perf_counter()
+    hq, kv, dh = MESH16_FLASH
+    out = {"flash_attention": gqa_kernel_check(
+        torch, F, fa, dec, rnd, dev, g, Hq=hq, Kv=kv, Dh=dh, W=0,
+        decode=False, main=MESH16_FLASH_TRAIN)["flash_attention"]}
+    for key, (hq, kv, dh, w) in MESH16_DECODE.items():
+        for name, r in gqa_kernel_check(torch, F, fa, dec, rnd, dev, g,
+                                        Hq=hq, Kv=kv, Dh=dh, W=w,
+                                        flash=False).items():
+            out.setdefault(name, {})[key] = r
+    for case in MESH16_K8:
+        name = "paged_decode_partial" if case[7] else "decode_partial"
+        out.setdefault(name, {})[case[0]] = k8_rank_check(torch, dec, dev,
+                                                          g, *case)
+    ops.reset_launch_counts()       # comparison launches do not count
+    log(f"16x16 instances kernel phase took {time.perf_counter() - t0:.1f} "
+        f"s [{CARD}]")
+    return out
+
+
+def k8_rank_check(torch, dec, dev, g, label, Hq, Kv, Dh, windows, B, Sl,
+                  bl):
+    """K8 over :data:`MESH16_SHARDS` shards of one data shard's cache at
+    a 16x16 cell's rank shape: every shard's partial (dense: rows ``[i
+    Sl, (i + 1) Sl)``; paged: blocks ``[i n, (i + 1) n)`` of the pool
+    through the whole table) held against the plain partial, the 16
+    partials folded flat and ring against the plain decode over the
+    whole cache, beside planted faults (the heaviest shard left out of
+    the fold, its start off by one block, and, paged, a shard reading
+    the next shard's first block as its own); then the heaviest shard's
+    launch timed in turns with the fused decode over the whole cache
+    (device time of a CUDA graph), beside the byte bound of its live rows
+    and its plain partial's time."""
+    tol = TOL["decode_attention"]
+    n = MESH16_SHARDS
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q = rnd(B, Hq, Dh)
+    N = nl = 0
+    if bl:
+        N, nl = MESH16_POOL, MESH16_POOL // n
+        width = MESH16_SEQ // bl
+        lens = torch.tensor(MESH16_LENS, dtype=torch.int32, device=dev)
+        need = [-(-x // bl) for x in MESH16_LENS]
+        perm = torch.randperm(N, generator=g, device=dev).int()
+        tbl = torch.full((B, width), -1, dtype=torch.int32, device=dev)
+        at = 0
+        for b, k in enumerate(need):
+            tbl[b, :k] = perm[at:at + k]
+            at += k
+        kc, vc = rnd(N, bl, Kv, Dh), rnd(N, bl, Kv, Dh)
+        shards = [(kc[i * nl:(i + 1) * nl], vc[i * nl:(i + 1) * nl], i * nl)
+                  for i in range(n)]
+    else:
+        lens = torch.tensor([MESH16_DENSE_POS + 1] * B, dtype=torch.int32,
+                            device=dev)
+        kc, vc = rnd(B, Sl * n, Kv, Dh), rnd(B, Sl * n, Kv, Dh)
+        shards = [(kc[:, i * Sl:(i + 1) * Sl].contiguous(),
+                   vc[:, i * Sl:(i + 1) * Sl].contiguous(), i * Sl)
+                  for i in range(n)]
+    pos = (lens - 1).contiguous()
+
+    def run(ks, vs, start, w):
+        if bl:
+            return dec.paged_decode_partial(q, ks, vs, tbl, block_start=start,
+                                            pos=pos, window=w)
+        return dec.decode_partial(q, ks, vs, kv_start=start, pos=pos,
+                                  window=w)
+
+    def plain(ks, vs, start, w):
+        if bl:
+            return dec.paged_decode_partial_plain(
+                q, ks, vs, tbl, block_start=start, pos=pos, window=w)
+        return dec.decode_partial_plain(q, ks, vs, kv_start=start, pos=pos,
+                                        window=w)
+
+    def block_rows(w):
+        """Each table entry's rows live under window ``w``, and each
+        slot's live count."""
+        lo = (lens - w).clamp_min(0) if w else torch.zeros_like(lens)
+        col = torch.arange(tbl.shape[1], device=dev)[None] * bl
+        return (torch.minimum(lens[:, None], col + bl)
+                - torch.maximum(lo[:, None], col)).clamp_min(0), lens - lo
+
+    def live_rows(i, w):
+        if not bl:
+            lo = (lens - w).clamp_min(0) if w else torch.zeros_like(lens)
+            r0 = torch.clamp(lo - i * Sl, 0, Sl)
+            return int((torch.clamp(lens - i * Sl, 0, Sl) - r0).sum())
+        own = (tbl >= i * nl) & (tbl < (i + 1) * nl)
+        return int((block_rows(w)[0] * own).sum())
+
+    res = {}
+    worst = [0.0, 0.0, 0.0]
+    ctl = []
+    for w in windows:
+        want = (dec.paged_decode_attention_plain(q, kc, vc, tbl,
+                                                 cache_len=lens, window=w)
+                if bl else dec.decode_attention_plain(q, kc, vc,
+                                                      cache_len=lens,
+                                                      window=w))
+        parts = []
+        for ks, vs, start in shards:
+            got = run(ks, vs, start, w)
+            dm, rel = partial_err(torch, got, plain(ks, vs, start, w))
+            check(rel <= tol, f"K8 {label} window {w}, shard at {start}: "
+                  f"acc/l row rel {rel} > {tol}")
+            worst[0], worst[1] = max(worst[0], dm), max(worst[1], rel)
+            parts.append(got)
+        for ring in (False, True):
+            _, rel = row_err(torch, fold(torch, parts, ring).to(
+                torch.bfloat16), want)
+            check(rel <= tol, f"K8 {label} window {w} {n} shards "
+                  f"{'ring' if ring else 'flat'} fold: row rel {rel}")
+            worst[2] = max(worst[2], rel)
+        rows = [live_rows(i, w) for i in range(n)]
+        heavy = max(range(n), key=lambda i: rows[i])
+        # a start off by one block: the heaviest shard (paged: it reads
+        # other blocks), or the dense shard of the slot's last row (only
+        # there do its rows' positions decide what is live)
+        at = heavy if bl else MESH16_DENSE_POS // Sl
+        off = list(parts)
+        off[at] = run(*shards[at][:2], shards[at][2] + (1 if bl else 256), w)
+        faults = {"the heaviest shard left out": fold(torch, parts, False,
+                                                      drop=heavy),
+                  f"shard {at}'s start off by one block": fold(torch, off,
+                                                              False)}
+        ks, vs, start = shards[heavy]
+        if bl:
+            # a shard whose next shard's first block holds some, not all,
+            # of a slot's rows live under this window, so reading it as
+            # owned counts them twice (a block of all of them would only
+            # scale that slot's sums, which the softmax cancels)
+            span, live = block_rows(w)
+            part = (span > 0) & (span < live[:, None])
+            hot = set(tbl[part & (tbl >= 0)].tolist())
+            i0 = next((i for i in range(n - 1) if (i + 1) * nl in hot),
+                      None)
+            if i0 is not None:
+                wide = list(parts)
+                wide[i0] = run(kc[i0 * nl:(i0 + 1) * nl + 1],
+                               vc[i0 * nl:(i0 + 1) * nl + 1], i0 * nl, w)
+                faults["the next shard's first block read as owned"] = fold(
+                    torch, wide, False)
+        ctl.append(min(control("decode_attention", f"K8 {label} window {w}: "
+                               f"{f}", torch, bad.to(torch.bfloat16), want)
+                       for f, bad in faults.items()))
+        held = (f"{N} blocks of {bl}, {nl} a shard" if bl
+                else f"{Sl} rows a shard")
+        log(f"kernel K8 {label} ({Hq}/{Kv}x{Dh}, window {w}, B={B}, {held}"
+            f"): {n} shards' partials (worst acc/l row rel {worst[1]:.3e}) "
+            f"and their flat and ring folds held (tol {tol}); live rows a "
+            f"shard {rows} [{CARD}]")
+        if w != windows[0]:
+            continue
+        whole = ((lambda: dec.paged_decode_attention(
+            q, kc, vc, tbl, cache_len=lens, window=w)) if bl else
+            (lambda: dec.decode_attention(q, kc, vc, cache_len=lens,
+                                          window=w)))
+        med, rounds = in_turns(torch, {
+            "shard": functools.partial(run, ks, vs, start, w),
+            "whole": whole}, graph_ms)
+        plain_ms = time_ms(torch, functools.partial(plain, ks, vs, start, w),
+                           iters=5)
+        b_ms, b_by = work_bound(dec.partial_work(B, Hq, Kv, Dh,
+                                                 rows[heavy]), PEAK_FP32)
+        log(f"timing K8 {label} window {w}: the heaviest shard ({heavy}, "
+            f"{rows[heavy]} live rows) {med['shard']:.4f} ms, the fused "
+            f"decode over all {n} shards' rows {med['whole']:.4f} ms "
+            f"(medians of {TURNS} turns: {fmt(rounds['shard'])}), plain "
+            f"partial {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+            f"[{CARD}]")
+        res = dict(
+            shape=(f"B={B} H={Hq} K={Kv} D={Dh} window {w}, "
+                   + (f"a sub-pool of {nl} of {N} blocks of {bl}, lens "
+                      f"{list(MESH16_LENS)}" if bl else
+                      f"a slice of {Sl} of {Sl * n} rows, pos "
+                      f"{MESH16_DENSE_POS}")
+                   + f": shard {heavy}, {rows[heavy]} live rows"),
+            ms=med["shard"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, whole_fused_ms=med["whole"],
+            turns_ms=rounds["shard"], shard_live_rows=rows)
+    res.update(max_abs_err=worst[0], row_rel_err=worst[1],
+               fold_row_rel_err=worst[2], control_row_rel_err=min(ctl),
+               tolerance=tol)
+    return res
+
+
+# ---------------------------------------------------------------------
 # phase 2c: K9, decode over a head_dim-split cache, pass by pass
 # ---------------------------------------------------------------------
 
@@ -7550,10 +7861,11 @@ POD_TRAIN_LAYERS, POD_TRAIN_STEPS = 2, MESH_TRAIN_STEPS
 HEAD_DIM_SERVE = ("serve_h100", "decode", 2048, 8)
 
 
-def _served_on_mesh(torch, dev, mesh, arch, plan, prompts, new_tokens):
+def _served_on_mesh(torch, dev, mesh, arch, plan, prompts, new_tokens,
+                    **kw):
     """One rank's engine of ``plan`` on ``mesh``, built from the rank's
-    pieces, the prompts served: its launches, tokens, first logits,
-    decode path, split and peak."""
+    pieces (``from_plan`` keywords ``kw``), the prompts served: its
+    launches, tokens, first logits, decode path, split and peak."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine
@@ -7563,7 +7875,7 @@ def _served_on_mesh(torch, dev, mesh, arch, plan, prompts, new_tokens):
                             pieces=param_pieces(mesh, plan, arch))
     torch.cuda.reset_peak_memory_stats()
     eng = _recording_engine(ServeEngine).from_plan(plan, params, arch=arch,
-                                                   mesh=mesh)
+                                                   mesh=mesh, **kw)
     del params
     for p in prompts:
         eng.submit(p, max_new_tokens=new_tokens)
@@ -7720,14 +8032,20 @@ def _pod_rank(rank: int, tmp: str, src: str) -> None:
         dist.destroy_process_group()
 
 
-def _spawn_ranks(torch, target, n: int, what: str, timeout: int = 600):
+def _spawn_ranks(torch, target, n: int, what: str, timeout: int = 600,
+                 preload=()):
     """``target(rank, tmp, src)`` on ``n`` spawned ranks; their records
-    (a rank that left none, or an error, fails the run)."""
+    (a rank that left none, or an error, fails the run).  With
+    ``preload``, modules a fork server imports once, which every rank
+    then forks from: the server starts here, so it takes this process's
+    environment as it is now (CUDA is never initialized in it)."""
     import tempfile
 
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.get_context("spawn")
+        ctx = mp.get_context("forkserver" if preload else "spawn")
+        if preload:
+            ctx.set_forkserver_preload(list(preload))
         procs = [ctx.Process(target=target,
                              args=(r, tmp, str(SRC_IN_USE)))
                  for r in range(n)]
@@ -8027,6 +8345,181 @@ def head_dim_phase(torch, dev):
 
 
 # ---------------------------------------------------------------------
+# phase 24h: a 16-wide model axis, sixteen ranks
+# ---------------------------------------------------------------------
+
+#: 24h: hymba-1.5b at full width on a (1, 16) mesh, the reference's
+#: 16x16 model axis, cut to a depth that holds a global and a windowed
+#: attention layer (global, windowed, global); its 2048 x 8 decode plan,
+#: paged, four prompts (one past the 1,024 window), a few tokens each
+MESH16_RANKS, MESH16_LAYERS = 16, 3
+MESH16_SERVE = ("serve_h100", "decode", 2048, 8)
+MESH16_PROMPTS, MESH16_TOKENS = (1100, 300, 96, 700), 4
+#: each of the sixteen ranks may allocate this share of the card
+MESH16_FRACTION = 0.04
+#: what the sixteen ranks' fork server imports once (each rank would
+#: otherwise import it itself, sixteen processes on the host's cores)
+MESH16_PRELOAD = ("torch", "torch.distributed", "repro_torch.models.lm",
+                  "repro_torch.serve.engine", "repro_torch.core.pipeline")
+#: the first-token logits of another request against a rank's: the
+#: wrong-token control must stay above this rms-relative distance
+MESH16_WRONG_MIN = 1.0
+
+
+def mesh16_plans(held=True):
+    """24h's plans: ``(cut arch, (1, 16) plan, one-rank plan carrying the
+    (1, 16) plan's padded sizes)``; with ``held``, the padding is held to
+    the 16x16 decode_32k plan's."""
+    from repro_torch.configs import ShapeConfig, get_arch, get_shape
+    from repro_torch.core import specialize
+    full = get_arch("hymba-1.5b")
+    arch = dataclasses.replace(full, n_layers=MESH16_LAYERS)
+    shape = ShapeConfig(*MESH16_SERVE)
+    plan = specialize(arch, shape, mesh_axes=("data", "model"),
+                      mesh_shape=(1, MESH16_RANKS), target="h100-sxm",
+                      cache=False)
+    ref = specialize(full, get_shape("decode_32k"),
+                     mesh_axes=("data", "model"), mesh_shape=(16, 16),
+                     target="h100-sxm", cache=False) if held else plan
+    check(plan.padded_sizes() == ref.padded_sizes()
+          and plan.padded_sizes()[1:] == (32, 64, 8)
+          and plan.padded_sizes()[2] // MESH16_RANKS == 4,
+          f"16 ranks: hymba's (1, 16) padding {plan.padded_sizes()} is not "
+          f"16x16's {ref.padded_sizes()} (32 / 8 heads, 64 SSM heads, 4 a "
+          "rank)")
+    one = specialize(arch, shape, mesh_shape=(1, 1), target="h100-sxm",
+                     cache=False)
+    one = dataclasses.replace(one, estimates={
+        **one.estimates, **{k: plan.estimates[k] for k in PADDED_KEYS
+                            if k in plan.estimates}})
+    return arch, plan, one
+
+
+def _mesh16_rank(rank: int, tmp: str, src: str) -> None:
+    """One of phase 24h's sixteen ranks on ``cuda:0`` over gloo, held to
+    :data:`MESH16_FRACTION` of the card: hymba-1.5b served from its (1,
+    16) plan, its decode ticks counted."""
+    import datetime
+    import os
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.set_num_threads(1)        # sixteen ranks share the host's cores
+    torch.cuda.set_device(0)
+    torch.cuda.set_per_process_memory_fraction(MESH16_FRACTION, 0)
+    dev = torch.device("cuda", 0)
+    out = {}
+    try:
+        from repro_torch.models import lm
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                rank=rank, world_size=MESH16_RANKS,
+                                timeout=datetime.timedelta(seconds=300))
+        mesh = init_device_mesh("cuda", (1, MESH16_RANKS),
+                                mesh_dim_names=("data", "model"))
+        arch, plan, _ = mesh16_plans(held=False)
+        ticks = [0]
+        step = lm.decode_step
+
+        def counted(*args, **kw):
+            ticks[0] += 1
+            return step(*args, **kw)
+        lm.decode_step = counted
+        t0 = time.perf_counter()
+        # gloo has no batch_isend_irecv for CUDA tensors, which the
+        # plan's ring combine needs: the flat combine (the same partials)
+        out["serve"] = _served_on_mesh(
+            torch, dev, mesh, arch, plan,
+            _prompts_of(arch, MESH16_PROMPTS, 24), MESH16_TOKENS,
+            combine_topology="flat")
+        out["decode_ticks"] = ticks[0]
+        from repro_torch.serve.sharded import cache_split
+        out["instances"] = [tuple(i[:3]) for i in lm.kernel_instances(
+            arch, "decode", plan, cache_split=cache_split(plan, arch))]
+        out["s"] = time.perf_counter() - t0
+    except Exception:
+        import traceback
+        out["error"] = traceback.format_exc()[-4000:]
+    torch.save(out, os.path.join(tmp, f"r{rank}.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def mesh16_phase(torch, dev):
+    """Phase 24h: sixteen ranks spawned on ``cuda:0`` over gloo, the
+    model axis of the reference's 16x16 mesh, serving hymba-1.5b at full
+    width from its frozen (1, 16) plan (:func:`mesh16_plans`:
+    ``specialize(target="h100-sxm")`` -> ``ServeEngine.from_plan(plan,
+    params, mesh=)``, each rank building only its pieces), cut to
+    :data:`MESH16_LAYERS` layers: its padding is 16x16's (32 / 8 heads,
+    64 SSM heads, 4 a rank: the state of F7), its kv heads whole on
+    every rank, so the pool splits over the sixteen ranks and every
+    decode tick runs K8 at (4, 64) a layer, flash at (2, 64) a prefill.
+    Every rank's tokens must be equal, its first-token logits within
+    :data:`FULL_TOL` rms-relative of one rank's engine on the same plan
+    and weights (another request's logits, the wrong-token control,
+    above :data:`MESH16_WRONG_MIN`), its tokens by the margin rule, and
+    its K8 launches a decode tick equal to the layers.  Returns
+    ``(launches over the sixteen ranks, the results)``."""
+    t0 = time.perf_counter()
+    arch, plan, one_plan = mesh16_plans()
+    log(f"16 ranks: hymba-1.5b at {arch.n_layers} layers on (1, "
+        f"{MESH16_RANKS}): padded {plan.padded_sizes()} (vocab, heads, SSM "
+        f"heads, kv heads), {plan.estimates.get('kv_residency')} "
+        f"{plan.estimates.get('kv_n_blocks')} blocks of "
+        f"{plan.estimates.get('kv_block_len')}, decode "
+        f"{plan.estimates.get('decode_impl')} [{CARD}]")
+    ranks = _spawn_ranks(torch, _mesh16_rank, MESH16_RANKS, "16 ranks",
+                         preload=MESH16_PRELOAD)
+    t_ranks = time.perf_counter() - t0
+    prompts = _prompts_of(arch, MESH16_PROMPTS, 24)
+    one = _one_rank_served(torch, dev, arch, plan, one_plan, prompts,
+                           MESH16_TOKENS)
+    res = _mesh_served_checks(torch, "16 ranks", [o["serve"] for o in ranks],
+                              one)
+    wrong = [_rms_rel(torch, o["serve"]["first"][1], one[2][0])
+             for o in ranks]
+    check(min(wrong) > MESH16_WRONG_MIN, f"16 ranks: the wrong-token control "
+          f"{wrong} is not above {MESH16_WRONG_MIN}")
+    r0 = ranks[0]["serve"]
+    check(r0["split"] == "rows" and r0["path"] == "shard_map_flash"
+          and r0["cache"]["ssm"][2] == 4
+          and ranks[0]["instances"] == [("flash_attention", 2, 64),
+                                        ("paged_decode_partial", 4, 64)],
+          f"16 ranks: path {r0['path']} split {r0['split']} state "
+          f"{r0['cache']['ssm']} instances {ranks[0]['instances']}")
+    launches = {k: 0 for k in ("flash_attention", "paged_decode_partial",
+                               "ssd_scan")}
+    per_tick = []
+    for r, o in enumerate(ranks):
+        c = o["serve"]["launches"]
+        for k in launches:
+            check(c[k] > 0, f"16 ranks: rank {r} launched {k} no time: {c}")
+            launches[k] += c[k]
+        per_tick.append(c["paged_decode_partial"] / o["decode_ticks"])
+    check(all(x == arch.n_layers for x in per_tick),
+          f"16 ranks: K8 launches a decode tick {per_tick}, not the "
+          f"{arch.n_layers} layers")
+    res.update(wrong_token_rms_rel=wrong, k8_per_tick=per_tick,
+               decode_ticks=ranks[0]["decode_ticks"], ranks_s=t_ranks,
+               rank_serve_s=[o["s"] for o in ranks],
+               padded=plan.padded_sizes(), launches=launches)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"16 ranks: serve hymba-1.5b {len(MESH16_PROMPTS)} requests x "
+        f"{MESH16_TOKENS} tokens: path {res['path']} (one rank "
+        f"{res['one_path']}), K8 (4, 64) launches a decode tick "
+        f"{fmt(per_tick)} a rank = {arch.n_layers} layers, "
+        f"{res['tokens_compared']} of {res['tokens']} tokens equal the "
+        f"one-rank engine's before the first margin-rule split "
+        f"{res['splits']}, first-token logits rms-relative "
+        f"{fmt(res['first_logits_rms_rel'])} a rank (bound {FULL_TOL}), "
+        f"wrong-token control {min(wrong):.3f}-{max(wrong):.3f}; launches "
+        f"over the sixteen ranks {launches}; phase {res['phase_s']:.1f} s "
+        f"(ranks {t_ranks:.1f} s) [{CARD}]")
+    return launches, res
+
+
+# ---------------------------------------------------------------------
 # phase 24g: the tools
 # ---------------------------------------------------------------------
 
@@ -8051,6 +8544,23 @@ TOOLS_RUNS = (
      "final loss"),
 )
 TOOLS_DEADLINE_S = 600
+#: 24g: the six cells of the reference's 16x16 mesh the port refused
+#: while it judged the global padded group, each dry-run (fake tensors,
+#: nothing launched) at a cut depth in a process of its own: (arch,
+#: shape, layers; llama4-maverick's two make one dense-and-MoE
+#: super-block, hymba-1.5b's three a global, a windowed and a global
+#: attention layer)
+MESH16_CELLS = (("llama4-maverick-400b-a17b", "train_4k", 2),
+                ("llama4-maverick-400b-a17b", "prefill_32k", 2),
+                ("llama4-maverick-400b-a17b", "decode_32k", 2),
+                ("hymba-1.5b", "prefill_32k", 3),
+                ("hymba-1.5b", "decode_32k", 3),
+                ("hymba-1.5b", "long_500k", 3))
+#: the kernel entry each cell's step must call once a layer
+MESH16_CELL_ENTRY = {"train_4k": "flash_attention_bwd",
+                     "prefill_32k": "flash_attention",
+                     "decode_32k": "paged_decode_partial",
+                     "long_500k": "decode_partial"}
 
 
 def _tools_runs():
@@ -8070,6 +8580,7 @@ def _tools_runs():
         procs[name] = (subprocess.Popen(
             [sys.executable, str(ROOT / script), *argv], cwd=ROOT, env=env,
             stdout=f, stderr=subprocess.STDOUT), f, path)
+        CHILDREN.append(procs[name][0])
     return procs
 
 
@@ -8097,6 +8608,58 @@ def _tools_wait(procs, t0: float):
     return out
 
 
+def _dryrun16_runs():
+    """Start :data:`MESH16_CELLS`' dry runs together, JSON to
+    ``chiprun_out/dryrun16/``, output to ``chiprun_out/dryrun16_*.log``."""
+    import os
+    out_dir = ROOT / "chiprun_out" / "dryrun16"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC_IN_USE))
+    procs = {}
+    for a, s, n in MESH16_CELLS:
+        path = out_dir.parent / f"dryrun16_{a}@{s}.log"
+        f = open(path, "w")
+        procs[(a, s)] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+             "--shape", s, "--n-layers", str(n), "--out", str(out_dir)],
+            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT), f, path)
+        CHILDREN.append(procs[(a, s)][0])
+    return out_dir, procs
+
+
+def _dryrun16_wait(out_dir, procs, t0: float):
+    """Each of the six cells traced, not refused, its decode or flash
+    entry called once a layer: their kernel counts."""
+    res = {}
+    for a, s, n in MESH16_CELLS:
+        p, f, path = procs[(a, s)]
+        try:
+            rc = p.wait(timeout=max(1.0, TOOLS_DEADLINE_S
+                                    - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        f.close()
+        js = out_dir / f"{a}@{s}@16x16.json"
+        cell = json.loads(js.read_text()) if js.exists() else {}
+        calls = {k: v["calls"] for k, v in cell.get("kernels", {}).items()}
+        log(f"tools dry run 16x16 {a}@{s} at {n} layers: rc={rc}, runnable "
+            f"{cell.get('runnable')}, kind {cell.get('kind')}, kernel calls "
+            f"{calls}, {cell.get('trace_s')} s of trace, fake tensors on "
+            f"{cell.get('fake_device')} "
+            f"{cell.get('skip_reason') or cell.get('error') or ''}")
+        check(rc == 0 and cell.get("runnable") and "roofline" in cell
+              and calls.get(MESH16_CELL_ENTRY[s]) == n,
+              f"tools: the 16x16 cell {a}@{s} was not traced with "
+              f"{MESH16_CELL_ENTRY[s]} once a layer: {calls} "
+              f"{cell.get('skip_reason') or cell.get('error')}")
+        res[f"{a}@{s}"] = dict(n_layers=n, calls=calls, kind=cell["kind"],
+                               plan=cell["plan_hash"],
+                               trace_s=cell["trace_s"])
+    return res
+
+
 def tools_phase(torch, dev, paged=None, train=None):
     """Phase 24g: the tools.  (a) The dry run
     (:func:`repro_torch.launch.dryrun.run_cell`, fake tensors, nothing
@@ -8109,11 +8672,14 @@ def tools_phase(torch, dev, paged=None, train=None):
     launch a layer a tick, :func:`expected_train_launches`).  Printed,
     with no bar: the dry run's peak of live bytes and the plan's
     step-peak estimate beside the measured peak, the modelled step time
-    beside the measured one.  (b)-(d), started first and run meanwhile
+    beside the measured one.  (b)-(e), started first and run meanwhile
     in processes of their own: the plan round trip, the serve smoke's
-    ``--chaos`` and ``--disagg`` modes at the script's reduced size, and
-    the tiny LM's 100 steps, every logged loss finite and the last
-    within :data:`TINY_LM_BAND` of log(vocab)."""
+    ``--chaos`` and ``--disagg`` modes at the script's reduced size, the
+    tiny LM's 100 steps, every logged loss finite and the last within
+    :data:`TINY_LM_BAND` of log(vocab), and (e) the dry runs of
+    :data:`MESH16_CELLS` on the reference's 16x16 mesh at a cut depth,
+    each traced, not refused, its decode or flash entry called once a
+    layer."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core import specialize
     from repro_torch.kernels import ops
@@ -8121,6 +8687,7 @@ def tools_phase(torch, dev, paged=None, train=None):
 
     t0 = time.perf_counter()
     procs = _tools_runs()
+    cells16 = _dryrun16_runs()
     before = ops.launch_counts()
     full = get_arch("qwen3-8b")
     res = {}
@@ -8205,6 +8772,8 @@ def tools_phase(torch, dev, paged=None, train=None):
           "tools: the dry runs launched a kernel")
     # (b)-(d)
     res["runs"] = _tools_wait(procs, t0)
+    # (e) the six 16x16 cells the port refused
+    res["cells16"] = _dryrun16_wait(*cells16, t0)
     text = procs["tiny_lm"][2].read_text()
     losses = [float(x) for x in re.findall(r"loss\s+(\S+)\s+\S+ ms", text)]
     m = re.search(r"final loss (\S+) \(first (\S+)\)", text)
@@ -8230,7 +8799,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("flash_bwd", "flash_pos", "ssd_bwd",
                                        "matmul_fp32", "mesh", "mesh_train",
                                        "ssm_mesh", "mesh_tier", "pod_mesh",
-                                       "head_dim", "k9", "tools"),
+                                       "head_dim", "k9", "tools", "mesh16"),
                     help="run this kernel's check alone and print its "
                          "result")
     ap.add_argument("--src", type=Path, default=SRC,
@@ -8354,6 +8923,23 @@ def main(argv=None) -> int:
         log(json.dumps({"src": str(args.src), "card": CARD,
                         "tools": tools_phase(torch, dev)}, default=str))
         return 0
+    if args.only == "mesh16":
+        log(f"build: {time.perf_counter() - t0:.1f} s [{CARD}]")
+        import torch.nn.functional as F
+        from repro_torch.kernels import flash_attention as fa
+        bwd = flash_bwd_check(torch, F, fa, dev, shapes=(
+            (*MESH16_FLASH_TRAIN, *MESH16_FLASH, 0, True),))
+        kern = mesh16_kernel_phase(torch, dev)
+        _, res = mesh16_phase(torch, dev)
+        t1 = time.perf_counter()
+        cells16 = _dryrun16_runs()
+        log(json.dumps({"src": str(args.src), "card": CARD,
+                        "mesh16": {"kernels": kern, "flash_bwd": bwd,
+                                   "serve": res,
+                                   "cells16": _dryrun16_wait(*cells16,
+                                                             t1)}},
+                       default=str))
+        return 0
     if args.only in ("head_dim", "k9"):
         log(f"build: {time.perf_counter() - t0:.1f} s [{CARD}]")
         for kernel, regs, spills in build.ptxas_entries(
@@ -8411,6 +8997,12 @@ def main(argv=None) -> int:
           f"the K9 kernel phase left {torch.cuda.memory_allocated() - held} "
           "bytes allocated")
     log(f"K9 kernel phase took {time.perf_counter() - t0:.1f} s [{CARD}]")
+    # ---- phase 2d: the instances the 16x16 mesh's padded heads need ----
+    for name, r in mesh16_kernel_phase(torch, dev).items():
+        kern[name]["mesh16"] = r
+    kern["flash_attention_bwd"]["mesh16"] = next(
+        r for r in kern["flash_attention_bwd"]["shapes"]
+        if (r["H"], r["K"], r["D"]) == MESH16_FLASH)
 
     # ---- phases 3-4: serve ----
     from repro_torch.configs import ShapeConfig, get_arch
@@ -8589,8 +9181,13 @@ def main(argv=None) -> int:
     # ---- phase 24f: a cache split on head_dim (K9), two ranks ----
     hd_launches, head_dim = head_dim_phase(torch, dev)
 
-    # ---- phase 24g: the tools (dry run, smokes, an example) ----
+    # ---- phase 24g: the tools (dry run, smokes, an example, the six
+    # 16x16 cells' dry runs), after every timed phase but 24h, which
+    # runs alone after it ----
     tools = tools_phase(torch, dev, paged, train)
+
+    # ---- phase 24h: the 16x16 mesh's model axis, sixteen ranks ----
+    m16_launches, mesh16 = mesh16_phase(torch, dev)
 
     # ---- phase 25: results ----
     family_counts = [c for c, _ in families.values()]
@@ -8692,6 +9289,14 @@ def main(argv=None) -> int:
             "dense and paged, every decode tick a layer, both ranks")
     for name in ("flash_attention", "ssd_scan"):
         launches[name] += hd_launches[name]
+    # phase 24h: hymba-1.5b's (1, 16) engines, K8 at (4, 64)
+    for name, n in m16_launches.items():
+        launches[name] += n
+    kern["paged_decode_partial"]["mesh16_serve"] = {
+        "launches": m16_launches["paged_decode_partial"], "launched_by":
+        "phase 24h: hymba-1.5b's (1, 16) engines on the shard_map_flash "
+        "path at (G, head_dim) = (4, 64), every decode tick a layer, "
+        "sixteen ranks"}
     kernels = []
     for name, r in kern.items():
         kernels.append({"name": name, **{k: r[k] for k in (
@@ -8715,7 +9320,7 @@ def main(argv=None) -> int:
                                  "fwd_with_lse_ms", "fwd_without_lse_ms",
                                  "autograd_plain_ms", "fold_row_rel_err",
                                  "shards_ms", "ssm_mesh", "mesh_tier",
-                                 "pod_mesh",
+                                 "pod_mesh", "mesh16", "mesh16_serve",
                                  "autograd_plain_turns_ms")
                if k in r},
             "ptxas": [[kernel, regs, spills] for kernel, regs, spills
@@ -8749,7 +9354,8 @@ def main(argv=None) -> int:
                     "step_guard": guard, "two_ranks": two,
                     "mesh_train": mesh_train, "ssm_mesh": ssm_mesh,
                     "mesh_tier": mesh_tier, "pod_mesh": pod_mesh,
-                    "head_dim": head_dim, "tools": tools,
+                    "head_dim": head_dim, "mesh16": mesh16,
+                    "tools": tools,
                     "allocator": allocator}, default=str))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
         f"the results [{CARD}]")

@@ -120,12 +120,23 @@ class LocalPartitioningPass(Pass):
         live in registers, so only those tiles are charged, at the arch's
         head_dim.  An arch the kernel is not built for (a head_dim
         outside ``fa.HEAD_DIMS``, or a GQA group outside ``fa.GROUPS``)
-        gets no tile, and the kernel's wrapper raises on it at launch."""
+        gets no tile, and the kernel's wrapper raises on it at launch.
+        ``G`` is the group a rank's flash call runs at: on a mesh whose
+        model axis splits the heads but not the kv heads, a rank holds a
+        piece of a group or a run of groups
+        (:func:`repro_torch.models.tp.flash_group`; llama4-maverick's 48
+        / 8 padded heads on a 16-wide axis: 3 of a group of 6)."""
+        from repro_torch.dist.sharding import _names
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.models import tp
 
         arch, est = ctx.arch, ctx.plan.estimates
-        G = (int(est.get("heads_padded", arch.n_heads))
-             // int(est.get("kv_heads_padded", arch.n_kv_heads)))
+        H = int(est.get("heads_padded", arch.n_heads))
+        K = int(est.get("kv_heads_padded", arch.n_kv_heads))
+        G = tp.rank_group(
+            H, K, ctx.mesh.axis_size("model")
+            if "model" in ctx.mesh.axes else 1,
+            "model" in _names(ctx.plan.axis_rules.get("heads")))
         fits = [t for t in fa.KERNEL_TILES
                 if fa.smem_bytes(*t, arch.hd) <= budget]
         if arch.hd not in fa.HEAD_DIMS or G not in fa.GROUPS or not fits:

@@ -183,7 +183,11 @@ def cache_pspecs(plan, arch, cache_shapes: Mapping[str, Any],
     Starts from the plan's axis rules, overlays the data-organization
     pass's placement of ``cache.*`` (the seq-vs-heads spill for the
     sharded flash decode), then repairs divisibility against the runtime
-    shapes.  A paged cache (it has ``block_tbl``) resolves through
+    shapes.  The SSM state's heads keep the rule where the placement
+    dropped them: the placement was repaired against the arch's heads,
+    the state holds the padded heads the mixer splits (hymba-1.5b's 50
+    padded to 64 on a 16-wide model axis).  A paged cache (it has
+    ``block_tbl``) resolves through
     :data:`PAGED_CACHE_AXES`, the IR's seq spill landing on the pool
     dim; where :func:`repro_torch.dist.flash_decode.pool_sharding_kind`
     says ``"2d"``, the pool shards data-major over ``(data..., model)``."""
@@ -210,6 +214,12 @@ def cache_pspecs(plan, arch, cache_shapes: Mapping[str, Any],
             for ax, assign in zip(ir_axes, placed.spec):
                 if ax == "seq_kv" and paged:
                     ax = "kv_blocks"
+                if ax == "ssm_heads" and assign is None:
+                    # the IR declares the arch's SSM heads; the runtime
+                    # state holds the layout pass's padded heads, split
+                    # as the mixer's weights split: the rule decides,
+                    # repaired against that shape below
+                    continue
                 if ax is not None:
                     rules[ax] = assign
         if pool_2d is not None and key in ("k", "v"):

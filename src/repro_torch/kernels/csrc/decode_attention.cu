@@ -47,8 +47,8 @@
 // cores (bytes bound it).  D is a template parameter, built at 128 and, for
 // hymba-1.5b and granite-moe-1b-a400m, 64 (a row is 8 chunks of 16 bytes,
 // a lane pair's 4 each, and each lane accumulates D / 32 = 2 dims of P.V);
-// G is read only as a loop bound and an array size, built at 1, 2, 4, 5, 7
-// and 8 (D = 128) and 2 and 5 (D = 64).
+// G is read only as a loop bound and an array size, built at 1, 2, 4, 5, 6,
+// 7 and 8 (D = 128) and 2, 4 and 5 (D = 64).
 //
 // PARTIAL (the per-shard partial of a sharded decode, dist/flash_decode.py):
 // the same kernel over one shard's rows, where the last CTA of a (slot, kv
@@ -466,6 +466,10 @@ int dispatch(const void* q, const void* k, const void* v, const int* tbl,
   REPRO_DECODE_CASE(5, 64)   // hymba-1.5b: 25 query heads of 64 over 5
   REPRO_DECODE_CASE(2, 64)   // granite-moe-1b-a400m: 16 heads of 64 over 8
   REPRO_DECODE_CASE(5, 128)  // llama4-maverick: 40 heads of 128 over 8
+  // a 16-wide model axis pads llama4-maverick to 48 heads over 8 and
+  // hymba-1.5b to 32 of 64 over 8; the sharded decode runs every head
+  REPRO_DECODE_CASE(6, 128)
+  REPRO_DECODE_CASE(4, 64)
 #undef REPRO_DECODE_CASE
   return int(cudaErrorInvalidValue);
 }

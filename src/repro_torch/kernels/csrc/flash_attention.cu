@@ -22,7 +22,8 @@
 //     starts on a 1024-byte swizzle atom, and D = 64 is one box: a row of
 //     64 bf16 is one 128-byte swizzle row;
 //   * a group that divides no tile (G = 7: 18 positions = 126 of 128 rows;
-//     G = 5: 25 positions = 125 of 128, 12 = 60 of 64) leaves rows - BQ*G
+//     G = 5: 25 positions = 125 of 128, 12 = 60 of 64; G = 3: 42 = 126 of
+//     128, 21 = 63 of 64) leaves rows - BQ*G
 //     pad rows at the bottom of the tile.  The Q barrier
 //     expects the bytes the boxes deliver (BQ*G rows, not rows), the pad
 //     rows are zeroed once before the first product (their scores stay in
@@ -84,10 +85,10 @@
 // Tiles (rows, block_kv) in {(64, 64), (64, 128), (128, 64), (128, 128)}
 // (rows = 64 per consumer warpgroup), head_dim a template parameter
 // instantiated at 64 (hymba-1.5b), 80 (hubert-xlarge, padded to 128) and
-// 128; a tile holds at least one whole GQA group.  The wrapper admits G in {1, 2, 4, 5, 7, 8, 16} and raises on
-// anything else.  Shared memory at (128, 128): Q 32 KB + 2 stages x (K + V)
-// 128 KB = 160 KB at D = 128 and at D = 80 (padded), half that at D = 64;
-// one CTA an SM.
+// 128; a tile holds at least one whole GQA group.  The wrapper admits G in
+// {1, 2, 3, 4, 5, 7, 8, 16} and raises on anything else.  Shared memory at
+// (128, 128): Q 32 KB + 2 stages x (K + V) 128 KB = 160 KB at D = 128 and
+// at D = 80 (padded), half that at D = 64; one CTA an SM.
 // Not done yet (later work): overlapping one tile's softmax with the next
 // tile's S product (in a warpgroup or ping-pong across the two), a
 // TMA-store epilogue, a persistent grid.

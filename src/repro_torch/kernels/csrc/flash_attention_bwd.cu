@@ -73,8 +73,9 @@
 // boundary.  Ragged S: TMA zero-fills rows past S; a zero-filled query row
 // has lse +inf in the tables (P = 0), a zero-filled key is masked in dQ
 // and its dK/dV rows are never written.  Sq <= Skv with q_off = Skv - Sq.
-// Group pad rows (G = 5, 7: 60 or 63 of 64 rows) are zeroed once in every
-// ring stage and have lse +inf.  head_dim 64, 80 and 128; any G up to 64.
+// Group pad rows (G = 3, 5, 7: 63, 60 or 63 of 64 rows) are zeroed once in
+// every ring stage and have lse +inf.  head_dim 64, 80 and 128; any G up to
+// 64.
 // head_dim 80 (hubert-xlarge) runs as the forward runs it
 // (csrc/flash_attention.cu): the tensor maps keep the 160-byte rows, the
 // box at column 64 comes back with columns 80..127 zero-filled by TMA, the

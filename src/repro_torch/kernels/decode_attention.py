@@ -69,10 +69,13 @@ DEFAULT_BLOCK_KV = 256
 #: (GQA group, head_dim) pairs the kernels are instantiated for (``csrc``
 #: ``REPRO_DECODE_CASE``): the powers of two up to 8, deepseek-coder-33b's
 #: 7 and llama4-maverick's 5 at head_dim 128, hymba-1.5b's 5 and
-#: granite-moe-1b-a400m's 2 at 64.  The template reads G only as a loop
-#: bound and an array size, so a pair is one more instance
+#: granite-moe-1b-a400m's 2 at 64; on a 16-wide model axis the padded
+#: llama4-maverick's 6 at 128 (48 / 8 heads) and hymba-1.5b's 4 at 64
+#: (32 / 8), which the sharded decode runs over every head.  The template
+#: reads G only as a loop bound and an array size, so a pair is one more
+#: instance
 INSTANCES = ((1, 128), (2, 128), (4, 128), (7, 128), (8, 128), (5, 64),
-             (2, 64), (5, 128))
+             (2, 64), (5, 128), (6, 128), (4, 64))
 #: the card's SMs; the split rule aims at two CTAs for each
 SMS = 132
 SPLIT_CTAS = 2 * SMS
@@ -198,7 +201,7 @@ def decode_fake(q: torch.Tensor, k: torch.Tensor,
     the output ``(B, H, D)``, the call's :func:`work` recorded under
     ``decode_attention`` or ``paged_decode_attention``; a length that
     cannot be read counts the whole cache (a paged slot: its table
-    row's blocks)."""
+    row's blocks).  Raises where the launch would (:func:`admit`)."""
     from repro_torch.kernels import fake
     B, H, D = q.shape
     if block_tbl is None:
@@ -206,6 +209,7 @@ def decode_fake(q: torch.Tensor, k: torch.Tensor,
     else:
         name, bl = "paged_decode_attention", k.shape[1]
         cap = block_tbl.shape[1] * bl
+    admit(name, H, k.shape[2], D)
     lens = fake.lengths(cache_len, B, cap)
     fake.record(name, work(B, H, k.shape[2], D, lens, window=window,
                            block_len=bl, itemsize=k.element_size()))
@@ -217,7 +221,8 @@ def partial_fake(q: torch.Tensor, k: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K8's fake path: ``(m, l, acc)`` in fp32, :func:`partial_work`
     over every row the shard could hold for each slot (a dense slice's
-    rows; a sub-pool's ``min(table width, blocks)`` blocks)."""
+    rows; a sub-pool's ``min(table width, blocks)`` blocks).  Raises
+    where the launch would (:func:`admit`)."""
     from repro_torch.kernels import fake
     B, H, D = q.shape
     if block_tbl is None:
@@ -225,6 +230,7 @@ def partial_fake(q: torch.Tensor, k: torch.Tensor,
     else:
         name = "paged_decode_partial"
         rows = B * min(block_tbl.shape[1], k.shape[0]) * k.shape[1]
+    admit(name, H, k.shape[2], D)
     fake.record(name, partial_work(B, H, k.shape[2], D, rows,
                                    k.element_size()))
     m = q.new_empty((B, H), dtype=torch.float32)
@@ -238,9 +244,11 @@ def split_scores_fake(q: torch.Tensor, k: torch.Tensor,
                       ) -> torch.Tensor:
     """K9 pass 1's fake path: the compact ``(B, H, Wc)`` fp32 scores,
     :func:`split_scores_work` over the live rows (the whole view where
-    the lengths cannot be read)."""
+    the lengths cannot be read).  Raises where the launch would
+    (:func:`admit_split`)."""
     from repro_torch.kernels import fake
     B, H, DS = q.shape
+    admit_split("decode_split_scores", H, k.shape[2], DS)
     cap = k.shape[1] if block_tbl is None \
         else block_tbl.shape[1] * k.shape[1]
     live = sum(_fake_lens(cache_len, B, cap, window))
@@ -254,10 +262,12 @@ def split_context_fake(s: torch.Tensor, v: torch.Tensor,
                        cache_len: IntOrTensor, window: int = 0
                        ) -> torch.Tensor:
     """K9 pass 2's fake path: the context's ``(B, H, DS)`` columns in
-    V's dtype, :func:`split_context_work` recorded."""
+    V's dtype, :func:`split_context_work` recorded; raises where the
+    launch would (:func:`admit_split`)."""
     from repro_torch.kernels import fake
     B, H, _ = s.shape
     K, DS = v.shape[2], v.shape[3]
+    admit_split("decode_split_context", H, K, DS)
     cap = v.shape[1] if block_tbl is None \
         else block_tbl.shape[1] * v.shape[1]
     live = sum(_fake_lens(cache_len, B, cap, window))
@@ -450,6 +460,15 @@ def takes_group(G: int, D: int) -> bool:
     return (G, D) in INSTANCES
 
 
+def admit(name: str, H: int, K: int, D: int) -> None:
+    """Raise where the decode kernels (and K8) have no instance for
+    ``H`` query heads over ``K`` kv heads at head_dim ``D``: the rule
+    every launch and every fake call applies."""
+    if H % K or not takes_group(H // K, D):
+        raise ValueError(f"{name}: kernel takes (GQA group, head_dim) in "
+                         f"{INSTANCES}, got D={D} H={H} K={K}")
+
+
 def _check(name: str, q, caches, ints) -> None:
     for tname, t in caches:
         if t.device != q.device:
@@ -465,10 +484,7 @@ def _check(name: str, q, caches, ints) -> None:
             raise ValueError(f"{name}: {tname} must be contiguous int32 on "
                              f"{q.device}, got {t.dtype} on {t.device}")
     B, H, D = q.shape
-    K = caches[1][1].shape[2]
-    if H % K or not takes_group(H // K, D):
-        raise ValueError(f"{name}: kernel takes (GQA group, head_dim) in "
-                         f"{INSTANCES}, got D={D} H={H} K={K}")
+    admit(name, H, caches[1][1].shape[2], D)
 
 
 def _on_card(name: str, q: torch.Tensor) -> None:
@@ -667,6 +683,15 @@ def takes_split(G: int, DS: int) -> bool:
     return (G, DS) in SPLIT_INSTANCES
 
 
+def admit_split(name: str, H: int, K: int, DS: int) -> None:
+    """Raise where K9 has no instance for ``H`` query heads over ``K``
+    kv heads at ``DS`` columns a head: the rule its launches and fake
+    calls apply."""
+    if H % K or not takes_split(H // K, DS):
+        raise ValueError(f"{name}: K9 takes (GQA group, columns) in "
+                         f"{SPLIT_INSTANCES}, got H={H} K={K} DS={DS}")
+
+
 def split_cols(capacity: int, window: int) -> int:
     """``Wc``, the columns of K9's compact score buffer over a view of
     ``capacity`` rows: ``min(capacity, window)`` with a window, else
@@ -822,9 +847,7 @@ def _split_check(name: str, cache: torch.Tensor,
             raise ValueError(f"{name}: {tname} must be contiguous int32 on "
                              f"{cache.device}")
     K, DS = cache.shape[2], cache.shape[3]
-    if heads % K or not takes_split(heads // K, DS):
-        raise ValueError(f"{name}: K9 takes (GQA group, columns) in "
-                         f"{SPLIT_INSTANCES}, got H={heads} K={K} DS={DS}")
+    admit_split(name, heads, K, DS)
     if block_tbl is None:
         return cache.shape[1], 0, K
     return cache.shape[1], block_tbl.shape[1], K

@@ -81,8 +81,11 @@ DEFAULT_BLOCK_KV = 128
 #: two in shared memory (TMA zero-fills columns 80..127)
 HEAD_DIMS = (64, 80, 128)
 #: GQA groups (query heads per kv head) the kernel is checked at: the
-#: powers of two, hymba-1.5b's 5 and deepseek-coder-33b's 7
-GROUPS = (1, 2, 4, 5, 7, 8, 16)
+#: powers of two, hymba-1.5b's 5, deepseek-coder-33b's 7, and 3, a rank
+#: of llama4-maverick's 16-wide model axis (3 of the padded group of 6
+#: over one kv head, :func:`repro_torch.models.tp.flash_group`: 42
+#: positions in 128 rows, 2 pad)
+GROUPS = (1, 2, 3, 4, 5, 7, 8, 16)
 #: K/V stages of the TMA ring in shared memory
 STAGES = 2
 #: the head dim the kernels' positions variant is built at (qwen2-vl-72b,
@@ -198,14 +201,17 @@ def _call_work(q, k, causal: bool, window: int, positions, bwd: bool,
 
 def flash_attention_fake(q, k, v, *, causal: bool = True, window: int = 0,
                          return_lse: bool = False,
-                         positions: Optional[torch.Tensor] = None):
+                         positions: Optional[torch.Tensor] = None,
+                         tiles: Optional[Tuple[int, int]] = None):
     """The forward's fake path (:mod:`repro_torch.kernels.fake`): outputs
     of the kernel's shapes and dtypes, the call's :func:`work` recorded
     under its ``ops.launch_counts()`` key; nothing built or launched.
     A mask by positions is counted over every pair the index mask
-    keeps (a fake tensor's positions are not known)."""
+    keeps (a fake tensor's positions are not known).  Raises where the
+    launch at the plan's ``tiles`` would (:func:`admit`)."""
     from repro_torch.kernels import fake
     B, Sq, H, _ = q.shape
+    _admit_call(q, k, tiles, positions)
     fake.record("flash_attention_positions" if positions is not None
                 else "flash_attention",
                 _call_work(q, k, causal, window, positions, False,
@@ -220,12 +226,43 @@ def flash_attention_bwd_fake(q, k, v, *, causal: bool = True,
                              window: int = 0,
                              positions: Optional[torch.Tensor] = None):
     """The backward's fake path: ``dq, dk, dv`` of q, k and v's shapes,
-    :func:`bwd_work` recorded."""
+    :func:`bwd_work` recorded; raises where the launch would
+    (:func:`admit`, ``bwd=True``)."""
     from repro_torch.kernels import fake
+    _admit_call(q, k, None, positions, bwd=True)
     fake.record("flash_attention_bwd_positions" if positions is not None
                 else "flash_attention_bwd",
                 _call_work(q, k, causal, window, positions, True))
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def admit(H: int, K: int, D: int,
+          tiles: Optional[Tuple[int, int]] = None, *,
+          positions: bool = False, bwd: bool = False) -> None:
+    """Raise where the kernels have no instance for ``H`` query heads
+    over ``K`` kv heads at head_dim ``D``: a head_dim outside
+    :data:`HEAD_DIMS`, a GQA group outside :data:`GROUPS` or without
+    the plan's ``tiles``
+    (:func:`kernel_tiles`), the positions variant off
+    :data:`POS_HEAD_DIM`, or (``bwd``) a group wider than a dK/dV step.
+    The rule every launch and every fake call applies."""
+    name = "flash_attention_bwd" if bwd else "flash_attention"
+    if D not in HEAD_DIMS or H % K:
+        raise ValueError(f"{name}: kernel takes head_dim in {HEAD_DIMS} "
+                         f"and H % K == 0, got D={D} H={H} K={K}")
+    kernel_tiles(H // K, *(tiles or (None, None)))
+    if positions and D != POS_HEAD_DIM:
+        raise ValueError(
+            f"{name}: the positions variant is built at head_dim "
+            f"{POS_HEAD_DIM} (qwen2-vl-72b's M-RoPE), got {D}")
+    if bwd and H // K > BWD_ROWS_KV:
+        raise ValueError(f"{name}: GQA group {H // K} > {BWD_ROWS_KV} rows "
+                         "of a dK/dV step")
+
+
+def _admit_call(q, k, tiles=None, positions=None, bwd=False) -> None:
+    admit(q.shape[2], k.shape[2], q.shape[3], tiles,
+          positions=positions is not None, bwd=bwd)
 
 
 def kernel_tiles(G: int, block_q: Optional[int] = None,
@@ -384,10 +421,7 @@ def _check(q, k, v) -> None:
     if k.shape[0] != B or k.shape[1] < Sq or k.shape[3] != D:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
                          f"match q {tuple(q.shape)} (Sq <= Skv)")
-    if D not in HEAD_DIMS or H % k.shape[2]:
-        raise ValueError(f"flash_attention: kernel takes head_dim in "
-                         f"{HEAD_DIMS} and H % K == 0, got D={D} H={H} "
-                         f"K={k.shape[2]}")
+    _admit_call(q, k)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -480,9 +514,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"flash_attention_bwd: {name} must be a contiguous, 16-byte "
                 f"aligned {dtype} {tuple(shape)} on {q.device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if H // K > BWD_ROWS_KV:
-        raise ValueError(f"flash_attention_bwd: GQA group {H // K} > "
-                         f"{BWD_ROWS_KV} rows of a dK/dV step")
+    _admit_call(q, k, bwd=True)
     pos = None if ignore_positions else _kernel_positions(positions, q, Skv)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -528,7 +560,8 @@ class FlashAttention(torch.autograd.Function):
         if fake.is_fake(q):
             o, lse = flash_attention_fake(q, k, v, causal=causal,
                                           window=window, return_lse=True,
-                                          positions=positions)
+                                          positions=positions,
+                                          tiles=tiles)
         elif q.device.type == "cuda":
             bq, bkv = tiles if tiles is not None else (None, None)
             o, lse = flash_attention(q, k, v, causal=causal, window=window,

@@ -96,7 +96,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                          window=window, positions=positions)
     if _fake.is_fake(q):
         return _fa.flash_attention_fake(q, k, v, causal=causal,
-                                        window=window, positions=positions)
+                                        window=window, positions=positions,
+                                        tiles=tiles)
     bq, bkv = tiles if tiles is not None else (None, None)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                block_q=bq, block_kv=bkv, positions=positions)

@@ -21,8 +21,9 @@ step's peak of live bytes a device, the arguments' bytes); the
 roofline; ``kind``; and ``trace_s`` (the fake step's seconds: there is
 no ``compile_s``), beside the port's own: ``kernels`` (calls, flops and
 bytes by kernel entry), ``collective_calls``, ``notes``.  A cell the
-port refuses (``lm.check_serves``, ``lm.check_on_device`` at the
-target's card, ``launch.serve.check_fits`` against the target's HBM, or
+port refuses (``lm.check_serves``, ``lm.check_on_device`` on the kernel
+instances rank 0 launches, ``launch.serve.check_fits`` against the
+target's HBM, or
 a refusal raised while lowering or tracing) is written ``runnable:
 false`` with the port's reason, as the reference writes
 ``applicable``'s skips.
@@ -37,6 +38,7 @@ refusals are the card's.
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape decode_32k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--skip-done]
+  (``--n-layers N`` cuts each arch's depth, ``--out DIR`` writes there)
 """
 
 from __future__ import annotations
@@ -102,21 +104,18 @@ def fake_mesh(shape: Sequence[int], names: Sequence[str]):
 
 def refusal(plan, arch, shape, target) -> str:
     """The port's reason for refusing the cell on its target's card, or
-    ``""``."""
+    ``""``: the kernel instances rank 0's step launches
+    (:func:`repro_torch.models.lm.kernel_instances`) judged by the
+    kernels' rules, and, for serving, the fit."""
     from repro_torch.launch.serve import check_fits
     from repro_torch.models import lm
-    from repro_torch.serve.sharded import head_dim_ways
+    from repro_torch.serve.sharded import cache_split
     try:
         if shape.kind == "decode":
             lm.check_serves(arch)
-        _, heads, _, kv_heads = plan.padded_sizes()
-        fa = plan.partitions.get("flash_attention")
-        lm.check_on_device(
-            arch, "cuda", heads=heads, kv_heads=kv_heads,
-            flash_tiles=((int(fa.blocks["block_q"]),
-                          int(fa.blocks["block_kv"])) if fa else None),
-            head_dim_ways=(head_dim_ways(plan, arch)
-                           if shape.kind == "decode" else 0))
+        split = cache_split(plan, arch) if shape.kind == "decode" else None
+        lm.check_on_device(arch, "cuda", lm.kernel_instances(
+            arch, shape.kind, plan, cache_split=split))
         if shape.kind != "train":
             check_fits(arch, plan.padded_sizes(), "cuda", plan,
                        free=target.hbm_bytes)
@@ -229,11 +228,19 @@ def main(argv=None) -> int:
     ap.add_argument("--overrides", default="",
                     help="JSON dict forwarded to specialize() (a 'target' "
                          "key picks the target; default h100-sxm)")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut each arch to this depth (0: its own)")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="the directory the cells' JSON go to (default "
+                         "results/dryrun_torch)")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs import all_cells
+    import dataclasses
 
-    RESULTS.mkdir(parents=True, exist_ok=True)
+    from repro_torch.configs import all_cells, get_arch
+
+    out_dir = args.out or RESULTS
+    out_dir.mkdir(parents=True, exist_ok=True)
     overrides = json.loads(args.overrides) if args.overrides else None
     mesh_desc = "2x16x16" if args.multi_pod else "16x16"
     if args.all:
@@ -245,13 +252,16 @@ def main(argv=None) -> int:
 
     failures = 0
     for a, s in cells:
-        path = cell_path(a, s, mesh_desc, args.tag)
+        path = out_dir / cell_path(a, s, mesh_desc, args.tag).name
         if args.skip_done and path.exists():
             print(f"[skip] {a}@{s}@{mesh_desc}")
             continue
         print(f"[cell] {a}@{s}@{mesh_desc} ...", flush=True)
         try:
-            out = run_cell(a, s, args.multi_pod, overrides, args.tag)
+            cut = (dataclasses.replace(get_arch(a), n_layers=args.n_layers)
+                   if args.n_layers else None)
+            out = run_cell(a, s, args.multi_pod, overrides, args.tag,
+                           arch=cut)
         except Exception as e:  # noqa: BLE001 - record and continue
             out = {"arch": a, "shape": s, "mesh": mesh_desc,
                    "error": f"{type(e).__name__}: {e}",

@@ -143,7 +143,6 @@ def main(argv=None) -> None:
             sys.stdout = open(os.devnull, "w")     # rank 0 reports
 
     from repro_torch.configs.base import ShapeConfig, get_arch
-    from repro_torch.core.passes.lowering import build_run_cfg
     from repro_torch.core.pipeline import specialize
     from repro_torch.models import lm
     from repro_torch.models.lm import RunCfg, check_on_device
@@ -169,12 +168,11 @@ def main(argv=None) -> None:
         mesh_shape = tuple(mesh.shape) if mesh is not None else (1, 1)
         plan = specialize(arch, shape, mesh_axes=("data", "model"),
                           mesh_shape=mesh_shape, target="h100-sxm")
-        _, heads, _, kv_heads = plan.padded_sizes()
-        # refuse an arch the card's kernels cannot take before any weight
-        from repro_torch.serve.sharded import head_dim_ways
-        check_on_device(arch, args.device, heads=heads, kv_heads=kv_heads,
-                        flash_tiles=build_run_cfg(plan, arch).flash_tiles,
-                        head_dim_ways=head_dim_ways(plan, arch))
+        # refuse, before any weight, a kernel instance a rank would
+        # launch that the card's kernels do not take
+        from repro_torch.serve.sharded import cache_split
+        check_on_device(arch, args.device, lm.kernel_instances(
+            arch, "decode", plan, cache_split=cache_split(plan, arch)))
         check_fits(arch, plan.padded_sizes(), args.device, plan=plan)
         gen = torch.Generator(args.device).manual_seed(args.seed)
         pieces = None

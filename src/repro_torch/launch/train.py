@@ -118,9 +118,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     from repro_torch.configs.base import ShapeConfig, get_arch
-    from repro_torch.core.passes.lowering import build_run_cfg
     from repro_torch.core.pipeline import specialize
-    from repro_torch.models.lm import check_on_device
+    from repro_torch.models.lm import check_on_device, kernel_instances
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     mesh = None
@@ -149,9 +148,8 @@ def main(argv=None) -> None:
     plan = specialize(arch, shape, mesh_axes=("data", "model"),
                       mesh_shape=(tuple(mesh.shape) if mesh is not None
                                   else (1, 1)), target="h100-sxm")
-    _, heads, _, kv_heads = plan.padded_sizes()
-    check_on_device(arch, args.device, heads=heads, kv_heads=kv_heads,
-                    flash_tiles=build_run_cfg(plan, arch).flash_tiles)
+    # the kernel instances a rank's step launches, before any weight
+    check_on_device(arch, args.device, kernel_instances(arch, "train", plan))
     print(f"plan {plan.content_hash()[:12]} target={plan.target} "
           f"mesh={tuple(mesh.shape) if mesh is not None else (1, 1)} "
           f"strategy={plan.estimates.get('strategy')} "

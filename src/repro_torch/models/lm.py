@@ -54,7 +54,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -168,54 +168,152 @@ def check_serves(arch: ArchConfig) -> None:
             f"{arch.name}: encoder-only arch has no decode step")
 
 
-def check_on_device(arch: ArchConfig, device, *, heads: int = 0,
-                    kv_heads: int = 0,
-                    flash_tiles: Optional[Tuple[int, int]] = None,
-                    head_dim_ways: int = 0) -> None:
-    """Raise, before any weights are built, for an architecture whose
-    attention the port's CUDA kernels do not take on ``device``: the
-    rules are the kernels' own (:func:`repro_torch.kernels
-    .flash_attention.kernel_tiles` at the plan's flash tiles and its
-    ``HEAD_DIMS``, and :func:`repro_torch.kernels.decode_attention
-    .takes_group`; an encoder, which has no decode step, needs no decode
-    instance).  On the CPU every arch :func:`check_supported`
-    admits runs (the plain versions take any GQA group and head_dim).
-    ``heads``/``kv_heads`` are the layout pass's padded counts (0: the
-    arch's own).  ``head_dim_ways`` > 0: the cache splits on head_dim
-    over that many model ranks, so the decode runs K9 at ``(G, head_dim
-    / head_dim_ways)`` (:func:`repro_torch.kernels.decode_attention
-    .takes_split`) instead of the fused decode kernels."""
+class KernelInstance(NamedTuple):
+    """One attention kernel instance a rank's step launches: ``kernel``
+    (its ``ops`` entry; ``decode_split`` for K9's two passes), the GQA
+    ``group`` it runs at and the ``head_dim`` of a head in the call (K9:
+    the rank's columns), and for the flash forward the plan's
+    ``(block_q, block_kv)`` tiles (``None``: the kernel's default)."""
+    kernel: str
+    group: int
+    head_dim: int
+    tiles: Optional[Tuple[int, int]] = None
+
+
+#: the step kinds :func:`kernel_instances` names: a training step (flash
+#: forward and backward), a prefill (flash forward) and serving (the
+#: engine's prefills and its decode ticks)
+STEP_KINDS = ("train", "prefill", "decode")
+
+
+def kernel_instances(arch: ArchConfig, kind: str, plan=None, *,
+                     cache_split: Optional[Tuple[str, int, bool]] = None,
+                     heads: int = 0, kv_heads: int = 0,
+                     flash_tiles: Optional[Tuple[int, int]] = None
+                     ) -> Tuple[KernelInstance, ...]:
+    """The attention kernel instances one rank's step of ``kind`` (one
+    of :data:`STEP_KINDS`) launches, by the model code's own rules.
+
+    With a ``plan`` the heads are its padded counts, the flash tiles its
+    ``flash_attention`` BlockPlan's and the mesh its own; without one,
+    one card at ``heads`` / ``kv_heads`` (0: the arch's) and
+    ``flash_tiles``.  A rank whose plan splits heads over ``w`` model
+    ranks holds ``H / w`` query heads
+    (:func:`repro_torch.models.tp.rank_group`): over its own kv heads
+    where those split too, the group ``G = H / K``; over every kv head
+    otherwise, at :func:`repro_torch.models.tp.flash_group`'s group (a
+    run of whole groups G, a piece of one group its length, else 1).
+    The flash backward runs at the same group where the step trains.
+    Serving adds the decode, by ``cache_split``, ``(kv_split, ways,
+    paged)`` as the caller placed the cache (the engine's
+    :class:`repro_torch.serve.sharded.MeshPieces`, or
+    :func:`repro_torch.serve.sharded.cache_split` of the plan): where
+    the cache splits its rows (the sequence, or a pool's blocks), K8's
+    dense or paged partial at ``(G, head_dim)`` over every head; on
+    head_dim over ``m`` ranks, K9 at ``(G, head_dim / m)``; otherwise
+    (one card, or a cache split on kv heads) the fused decode kernels at
+    ``(G, head_dim)``.  A decode step of a plan on more than one device
+    needs ``cache_split``; on one card it defaults to no split, at the
+    plan's residency."""
+    if kind not in STEP_KINDS:
+        raise ValueError(f"kernel_instances: step kind {kind!r} not in "
+                         f"{STEP_KINDS}")
+    if not arch.has_attention:
+        return ()
+    ways, split, paged = 1, False, False
+    if plan is not None:
+        from repro_torch.dist.sharding import _names
+        _, heads, _, kv_heads = plan.padded_sizes()
+        ways = dict(zip(plan.mesh_axes, (int(n) for n in plan.mesh_shape)
+                        )).get("model", 1)
+        split = "model" in _names(plan.axis_rules.get("heads"))
+        fa = plan.partitions.get("flash_attention")
+        if flash_tiles is None and fa is not None:
+            flash_tiles = (int(fa.blocks["block_q"]),
+                           int(fa.blocks["block_kv"]))
+        paged = str(plan.estimates.get("kv_residency")) == "paged"
+        if cache_split is None and kind == "decode" \
+                and math.prod(plan.mesh_shape) > 1:
+            raise ValueError(
+                f"kernel_instances: a decode step on the {plan.mesh_shape} "
+                "mesh needs the cache's split (cache_split)")
+    H, K = heads or arch.n_heads, kv_heads or arch.n_kv_heads
+    G, hd = H // K, arch.hd
+    fg = tp.rank_group(H, K, ways, split)
+    out = [KernelInstance("flash_attention", fg, hd, flash_tiles)]
+    if kind == "train":
+        out.append(KernelInstance("flash_attention_bwd", fg, hd))
+    if kind == "decode" and not arch.is_encoder:
+        where, n, paged = cache_split or ("none", 0, paged)
+        if where == "head_dim":
+            out.append(KernelInstance("decode_split", G, hd // n))
+        elif where == "rows":
+            out.append(KernelInstance(
+                "paged_decode_partial" if paged else "decode_partial", G,
+                hd))
+        else:
+            out.append(KernelInstance(
+                "paged_decode_attention" if paged else "decode_attention",
+                G, hd))
+    return tuple(out)
+
+
+def instance_refusal(inst: KernelInstance) -> str:
+    """Why the card cannot launch ``inst`` (the kernels' own admission
+    rules: :func:`repro_torch.kernels.flash_attention.admit`,
+    :func:`repro_torch.kernels.decode_attention.admit`,
+    :func:`~repro_torch.kernels.decode_attention.admit_split`), or
+    ``""``."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    try:
+        if inst.kernel.startswith("flash_attention"):
+            fa.admit(inst.group, 1, inst.head_dim, inst.tiles,
+                     bwd=inst.kernel == "flash_attention_bwd")
+        elif inst.kernel == "decode_split":
+            dec.admit_split(inst.kernel, inst.group, 1, inst.head_dim)
+        else:
+            dec.admit(inst.kernel, inst.group, 1, inst.head_dim)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def check_on_device(arch: ArchConfig, device,
+                    instances: Optional[Sequence[KernelInstance]] = None
+                    ) -> None:
+    """Raise, before any weights are built, for a step whose attention
+    the port's CUDA kernels do not take on ``device``: each of
+    ``instances`` (a rank's, :func:`kernel_instances`) judged by the
+    kernels' own rules (:func:`instance_refusal`).  Without
+    ``instances``, the arch's own step on one card: serving, or for an
+    encoder (no decode step) training.  On the CPU every arch
+    :func:`check_supported` admits runs (the plain versions take any GQA
+    group and head_dim)."""
     check_supported(arch)
     if torch.device(device).type != "cuda" or not arch.has_attention:
         return
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fa
-    H, K = heads or arch.n_heads, kv_heads or arch.n_kv_heads
-    G = H // K
+    if instances is None:
+        instances = kernel_instances(
+            arch, "train" if arch.is_encoder else "decode")
     refused = []
-    if arch.hd not in fa.HEAD_DIMS:
-        refused.append(f"flash_attention (built for head_dim in "
-                       f"{fa.HEAD_DIMS}, got {arch.hd})")
-    try:
-        fa.kernel_tiles(G, *(flash_tiles or (None, None)))
-    except ValueError as e:
-        refused.append(f"flash_attention ({e})")
-    if head_dim_ways:
-        DS = arch.hd // head_dim_ways
-        if not dec.takes_split(G, DS):
+    for inst in instances:
+        why = instance_refusal(inst)
+        if not why:
+            continue
+        if inst.kernel == "decode_split":
             refused.append(
-                f"K9 decode_split at (G, head_dim / m) = ({G}, {DS}), the "
-                f"head_dim split over {head_dim_ways} ranks (built for "
-                f"{dec.SPLIT_INSTANCES})")
-    elif not arch.is_encoder and not dec.takes_group(G, arch.hd):
-        refused.append(f"decode_attention (built for (GQA group, head_dim) "
-                       f"in {dec.INSTANCES})")
+                f"K9 decode_split at (G, head_dim / m) = ({inst.group}, "
+                f"{inst.head_dim}), the head_dim split over "
+                f"{arch.hd // inst.head_dim} ranks ({why})")
+        else:
+            refused.append(f"{inst.kernel} at (G, head_dim) = "
+                           f"({inst.group}, {inst.head_dim}) ({why})")
     if refused:
         raise NotImplementedError(
-            f"{arch.name}: GQA group G = {G} ({H} query heads over {K} kv "
-            f"heads) at head_dim {arch.hd} is refused on CUDA by "
-            + "; ".join(refused) + "; the plain versions serve it on the "
-            "CPU")
+            f"{arch.name} at head_dim {arch.hd}: a rank's step is refused "
+            "on CUDA: it launches " + "; ".join(refused) + "; the plain "
+            "versions serve it on the CPU")
 
 
 # =====================================================================

@@ -326,3 +326,30 @@ def kv_for_heads(k: torch.Tensor, h0: int, hn: int, group: int
     g0, g1 = h0 // group, (h0 + hn - 1) // group + 1
     return k[:, :, g0:g1].repeat_interleave(group, dim=2)[
         :, :, h0 - g0 * group:h0 - g0 * group + hn]
+
+
+def flash_group(H: int, K: int, hn: int) -> int:
+    """The GQA group a rank's flash call runs at when it holds ``hn`` of
+    ``H`` query heads (a run from a multiple of ``hn``) over all ``K``
+    kv heads, as :func:`kv_for_heads` hands them the kv heads: a run of
+    whole groups keeps the group ``H / K``, a piece of one group runs at
+    its length, any other range at 1 (one kv head a query head)."""
+    group = H // K
+    if hn >= group and hn % group == 0:
+        return group
+    if hn < group and group % hn == 0:
+        return hn
+    return 1
+
+
+def rank_group(H: int, K: int, ways: int, split: bool) -> int:
+    """The GQA group a rank's flash call runs at, ``H`` / ``K`` query /
+    kv heads split over ``ways`` model ranks where the plan splits heads
+    (``split``).  A count that divides ``ways`` is cut into whole heads;
+    any other stays whole on every rank (its projection's columns are
+    gathered whole, :func:`repro_torch.models.lm._qkv`).  Query heads
+    over their own kv heads, or whole, keep ``H / K``; a rank's query
+    heads over every kv head run at :func:`flash_group`'s group."""
+    hl = H // ways if split and ways > 1 and H % ways == 0 else H
+    kv_split = split and ways > 1 and K % ways == 0
+    return H // K if hl == H or kv_split else flash_group(H, K, hl)

@@ -270,12 +270,16 @@ class ServeEngine:
                 f"kv_host_blocks must be >= 0, got {kv_host_blocks}")
         lm.check_serves(arch)
         self.device = params["embed"].device
-        attn = lm.layer_params(params["blocks"], 0).get("attn")
-        lm.check_on_device(
-            arch, self.device,
-            heads=attn["wq"].shape[-1] // arch.hd if attn else 0,
-            kv_heads=attn["wk"].shape[-1] // arch.hd if attn else 0,
-            flash_tiles=cfg.flash_tiles)
+        if cfg.mesh is None:
+            # one card: its heads are the weights'; on a mesh the rank's
+            # instances are judged where its pieces are placed
+            attn = lm.layer_params(params["blocks"], 0).get("attn")
+            lm.check_on_device(arch, self.device, lm.kernel_instances(
+                arch, "decode",
+                heads=attn["wq"].shape[-1] // arch.hd if attn else 0,
+                kv_heads=attn["wk"].shape[-1] // arch.hd if attn else 0,
+                flash_tiles=cfg.flash_tiles,
+                cache_split=("none", 0, kv_residency == "paged")))
         self.arch, self.params, self.cfg = arch, params, cfg
         self.plan = None               # set by from_plan()
         self.pieces = None             # a mesh's MeshPieces (from_plan)
@@ -774,14 +778,16 @@ class ServeEngine:
         from repro_torch.serve.sharded import MeshPieces
         pieces = MeshPieces(mesh, self.plan, self.arch, self.params,
                             self.cache)
-        if pieces.kv_split == "head_dim":
-            # the decode runs K9 at (G, hd / m): refuse an instance that
-            # is not built before the cache exists
-            _, heads, _, kv_heads = self.plan.padded_sizes()
-            lm.check_on_device(
-                self.arch, self.device, heads=heads, kv_heads=kv_heads,
-                flash_tiles=self.cfg.flash_tiles,
-                head_dim_ways=self.arch.hd // pieces.coln)
+        # refuse, before the cache exists, an instance this rank would
+        # launch that is not built: its flash group and the decode its
+        # cache's split runs (K8, K9 or the fused kernels)
+        lm.check_on_device(self.arch, self.device, lm.kernel_instances(
+            self.arch, "decode", self.plan,
+            flash_tiles=self.cfg.flash_tiles,
+            cache_split=(pieces.kv_split,
+                         self.arch.hd // pieces.coln
+                         if pieces.kv_split == "head_dim" else 0,
+                         pieces.paged)))
         self.params = pieces.place_params(self.params)
         self.cache = pieces.place_cache(self.cache, self.device)
         self.pieces = pieces

@@ -99,34 +99,49 @@ def param_pieces(mesh, plan, arch) -> Dict[str, Any]:
     return _tree(lambda w, sp: _piece(mesh, w, sp), whole, specs)
 
 
-def head_dim_ways(plan, arch) -> int:
-    """The model ranks a plan's KV cache splits head_dim over on its own
-    mesh, resolved as :class:`MeshPieces` resolves the engine's cache
+def cache_split(plan, arch) -> Tuple[str, int, bool]:
+    """``(kv_split, ways, paged)`` of a plan's KV cache on its own mesh,
+    resolved as :class:`MeshPieces` resolves the engine's cache
     (:func:`repro_torch.dist.sharding.cache_pspecs` on the plan's cache
-    geometry), 0 where it does not split head_dim: what
-    :func:`repro_torch.models.lm.check_on_device` needs to refuse a K9
-    instance that is not built before any weight exists."""
+    geometry): ``kv_split`` as :attr:`MeshPieces.kv_split`, ``ways`` the
+    model ranks a head_dim split spans (0 where it does not split
+    head_dim), ``paged`` the residency.  What
+    :func:`repro_torch.models.lm.kernel_instances` needs to name a
+    rank's decode kernel before any weight exists."""
     from types import SimpleNamespace
     est = plan.estimates
+    paged = str(est.get("kv_residency", "dense")) == "paged"
     if not arch.has_attention or "cache.k" not in plan.placements:
-        return 0
+        return "none", 0, paged
     sizes = {a: int(n) for a, n in zip(plan.mesh_axes, plan.mesh_shape)}
     K = int(est.get("kv_heads_padded", 0)) or arch.n_kv_heads
     B, S = int(plan.global_batch or 1), int(plan.seq_len or 1)
-    if str(est.get("kv_residency", "dense")) == "paged":
+    if paged:
         bl = int(est.get("kv_block_len", 0)) or S
         N = int(est.get("kv_n_blocks", 0)) or B * -(-S // bl)
         shapes = {"k": (arch.n_layers, N, bl, K, arch.hd),
                   "block_tbl": (B, -(-S // bl))}
     else:
         shapes = {"k": (arch.n_layers, B, S, K, arch.hd)}
-    specs = sharding.cache_pspecs(
+    spec = sharding.cache_pspecs(
         plan, arch, {k: SimpleNamespace(shape=v) for k, v in shapes.items()},
-        sizes)
+        sizes)["k"]
+    kind = split_kind(spec, paged)
     n = 1
-    for a in sharding._names(specs["k"][4]):
+    for a in sharding._names(spec[4]):
         n *= sizes[a]
-    return n if n > 1 else 0
+    return kind, (n if kind == "head_dim" else 0), paged
+
+
+def split_kind(spec, paged: bool) -> str:
+    """The ``kv_split`` a cache ``k`` spec gives: ``"heads"`` where the
+    kv heads split, ``"rows"`` where the seq (a pool's block) dim does,
+    ``"head_dim"`` where only head_dim does, else ``"none"``."""
+    if spec[3] is not None:
+        return "heads"
+    if spec[1 if paged else 2] is not None:
+        return "rows"
+    return "head_dim" if spec[4] is not None else "none"
 
 
 class MeshPieces:
@@ -163,14 +178,8 @@ class MeshPieces:
                 self.cache_specs[k] = P(*(None,) * len(self.cache_shapes[k]))
         self.paged = "block_tbl" in cache
         spec = self.cache_specs.get("k")
-        self.kv_split = "none"
-        if spec is not None:
-            if spec[3] is not None:
-                self.kv_split = "heads"
-            elif spec[1 if self.paged else 2] is not None:
-                self.kv_split = "rows"
-            elif spec[4] is not None:
-                self.kv_split = "head_dim"
+        self.kv_split = "none" if spec is None \
+            else split_kind(spec, self.paged)
         # the rank's columns of every kv head (all of them unless the
         # cache splits on head_dim), and the axes they split over
         self.col0, self.coln, self.col_axes = 0, 0, ()

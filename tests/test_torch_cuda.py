@@ -912,9 +912,11 @@ def test_device_check_names_the_group_and_k2():
     64), llama4-maverick (G = 5 at 128), qwen2-vl-72b (G = 8 at 128) and
     hubert-xlarge (G = 1 at head_dim 80, flash only: an encoder has no
     decode step) are admitted for a CUDA device; a (group, head_dim)
-    pair no kernel instance takes — G = 3 at head_dim 128, G = 4 at 64,
-    head_dim 80 beside a decode step, head_dim 96 — is refused before
-    any weight is built, on any machine, naming the kernels."""
+    pair no kernel instance takes — G = 3 at head_dim 128 (the decode
+    kernels only: flash takes G = 3, a rank's piece of llama4-maverick's
+    padded group), G = 3 at 64, head_dim 80 beside a decode step,
+    head_dim 96 — is refused before any weight is built, on any machine,
+    naming the kernels."""
     for name in ("deepseek-coder-33b", "qwen3-8b", "mamba2-2.7b",
                  "minitron-8b", "hymba-1.5b", "granite-moe-1b-a400m",
                  "llama4-maverick-400b-a17b", "qwen2-vl-72b",
@@ -922,11 +924,14 @@ def test_device_check_names_the_group_and_k2():
         lm.check_on_device(get_arch(name), "cuda")
     qwen = get_arch("qwen3-8b")
     with pytest.raises(NotImplementedError,
-                       match=r"G = 3.*flash_attention.*decode_attention"):
+                       match=r"head_dim 128.*decode_attention at "
+                             r"\(G, head_dim\) = \(3, 128\)") as refused:
         lm.check_on_device(dataclasses.replace(qwen, n_heads=24), "cuda")
+    assert "flash_attention at" not in str(refused.value)
     with pytest.raises(NotImplementedError,
                        match=r"head_dim 64.*decode_attention"):
-        lm.check_on_device(dataclasses.replace(qwen, head_dim=64), "cuda")
+        lm.check_on_device(dataclasses.replace(qwen, n_heads=24,
+                                               head_dim=64), "cuda")
     with pytest.raises(NotImplementedError,
                        match=r"head_dim 80.*decode_attention"):
         lm.check_on_device(dataclasses.replace(qwen, head_dim=80), "cuda")

@@ -115,14 +115,23 @@ def test_an_encoder_prefill_is_a_forward():
 
 def test_a_refused_cell_is_written_with_the_ports_reason(tmp_path,
                                                         monkeypatch):
+    """hymba-1.5b's 16x16 decode cell on the XLA decode with a dense
+    cache: its kv heads do not split 16 ways, so the cache splits on
+    head_dim and a rank would launch K9 at (4, 4), which is not built
+    (the cell itself, on its plan's paged shard_map_flash decode, is
+    traced)."""
     monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
-    assert dryrun.main(["--arch", "hymba-1.5b", "--shape",
-                        "decode_32k"]) == 0
+    assert dryrun.main(["--arch", "hymba-1.5b", "--shape", "decode_32k",
+                        "--overrides", json.dumps({
+                            "decode_impl": "xla",
+                            "kv_residency": "dense"})]) == 0
     out = json.loads((tmp_path / "hymba-1.5b@decode_32k@16x16.json")
                      .read_text())
     assert out["runnable"] is False and "roofline" not in out
     assert out["skip_reason"].startswith("port: hymba-1.5b")
     assert "refused on CUDA" in out["skip_reason"]
+    assert "K9 decode_split at (G, head_dim / m) = (4, 4)" in \
+        out["skip_reason"]
     assert out["plan_hash"]
 
 

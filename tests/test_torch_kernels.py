@@ -119,8 +119,13 @@ def test_flash_kernel_tiles_raise_instead_of_substituting():
     assert tfa.kernel_tiles(5, 12, 64) == (64, 64)
     with pytest.raises(ValueError, match="not one the kernel is built for"):
         tfa.kernel_tiles(5, 32, 128)
-    with pytest.raises(ValueError, match="GQA group G = 3"):
-        tfa.kernel_tiles(3)
+    # G = 3 (a rank of llama4-maverick's 16-wide model axis): 42
+    # positions in 128 rows, 21 in 64
+    assert tfa.kernel_tiles(3) == (128, 128)
+    assert tfa.kernel_tiles(3, 42, 128) == (128, 128)
+    assert tfa.kernel_tiles(3, 21, 64) == (64, 64)
+    with pytest.raises(ValueError, match="GQA group G = 6"):
+        tfa.kernel_tiles(6)
     for rows, bkv in tfa.KERNEL_TILES:
         for d in tfa.HEAD_DIMS:
             assert tfa.smem_bytes(rows, bkv, d) <= 232_448
@@ -216,7 +221,8 @@ def test_decode_tile_contract():
         assert tdec.smem_bytes(g, max(tdec.KERNEL_TILES), d) <= 232_448
     assert tdec.takes_group(5, 64) and tdec.takes_group(5, 128)
     assert tdec.takes_group(2, 64) and not tdec.takes_group(3, 128)
-    assert tdec.takes_group(4, 128) and not tdec.takes_group(4, 64)
+    assert tdec.takes_group(4, 128) and tdec.takes_group(4, 64)
+    assert tdec.takes_group(6, 128) and not tdec.takes_group(6, 64)
 
 
 @pytest.mark.parametrize("B,K,capacity", [(8, 8, 2048), (1, 8, 2048),

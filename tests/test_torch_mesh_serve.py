@@ -623,7 +623,7 @@ def test_what_a_mesh_does_not_serve_names_item_10b(world):
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.sharded import head_dim_ways
+    from repro_torch.serve.sharded import cache_split
     ranks, _, _, _ = world
     for r in ranks:
         got, want, allocated = r["host_tier"]
@@ -648,16 +648,18 @@ def test_what_a_mesh_does_not_serve_names_item_10b(world):
     # built); an 8-way split would need (2, 8), which is not
     hymba = get_arch("hymba-1.5b")
     hplan = _plan(hymba, (1, 2), 2048, 8, decode_impl="xla")
-    assert head_dim_ways(hplan, hymba) == 2
-    _, H, _, K = hplan.padded_sizes()
-    lm.check_on_device(hymba, "cuda", heads=H, kv_heads=K, head_dim_ways=2)
+    split = cache_split(hplan, hymba)
+    assert split[:2] == ("head_dim", 2)
+
+    def ways(m):
+        return lm.kernel_instances(hymba, "decode", hplan,
+                                   cache_split=("head_dim", m, split[2]))
+    lm.check_on_device(hymba, "cuda", instances=ways(2))
     with pytest.raises(NotImplementedError,
                        match=r"K9 decode_split at \(G, head_dim / m\) = "
                        r"\(2, 8\)"):
-        lm.check_on_device(hymba, "cuda", heads=H, kv_heads=K,
-                           head_dim_ways=8)
-    assert lm.check_on_device(hymba, "cpu", heads=H, kv_heads=K,
-                              head_dim_ways=8) is None
+        lm.check_on_device(hymba, "cuda", instances=ways(8))
+    assert lm.check_on_device(hymba, "cpu", instances=ways(8)) is None
 
 
 def test_launcher_serves_on_a_mesh_under_torchrun():

@@ -22,6 +22,7 @@ from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.kernels import tiled_matmul as tmm
+from repro_torch.models import lm as tlm
 
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of shared memory per block
 RUNNABLE = [(a, s) for a, s, ok, _ in rcfg.all_cells() if ok]
@@ -123,8 +124,10 @@ def test_h100_flash_tile_is_a_kernel_tile_that_fits(arch, shape):
     bp = plan.partitions.get("flash_attention")
     logged = [(d, why) for _, subj, d, why in plan.log
               if subj == "flash_attention"]
-    G = (int(plan.estimates.get("heads_padded", a.n_heads))
-         // int(plan.estimates.get("kv_heads_padded", a.n_kv_heads or 1)))
+    # the group a rank's flash call runs at (a piece of a group where
+    # the 16-wide model axis splits the heads but not the kv heads)
+    G = tlm.kernel_instances(a, "prefill", plan)[0].group \
+        if a.has_attention else 1
     if bp is None:
         if logged:
             assert [d for d, _ in logged] == ["no kernel tile"]
@@ -205,24 +208,34 @@ def test_h100_ssd_tile_is_a_chunk_parallel_kernel_tile(arch, shape):
 
 
 def test_h100_prefill_plan_flash_tile_runs_through_kernel_tiles():
-    """qwen3-8b's prefill-shape plan on the card: 32 positions x G=4 =
-    128 rows by 128 kv rows, which the kernel takes and the model's
-    RunCfg carries; the tpu-v5e plan keeps its TPU tile (512 x 512 per
-    head), which the CUDA kernel refuses."""
+    """qwen3-8b's prefill-shape plan on the card's 16x16 mesh: a rank
+    holds 2 of a kv head's 4 query heads (8 kv heads do not split 16
+    ways), so its flash call runs at G = 2: 64 positions x G=2 = 128
+    rows by 128 kv rows, which the kernel takes; a RunCfg carries the
+    plan's tile with or without the mesh, never another, so a run of
+    the mesh plan at the whole group of 4 (256 rows) is refused, and a
+    one-card run takes the one-card plan's tile; the tpu-v5e plan keeps
+    its TPU tile (512 x 512 per head), which the CUDA kernel refuses."""
     from repro_torch.core.passes.lowering import build_run_cfg
     arch = tcfg.get_arch("qwen3-8b")
     plan = tcore.specialize(arch, "prefill_32k", target="h100-sxm",
                             cache=False)
     bp = plan.partitions["flash_attention"]
-    assert (bp.blocks["block_q"], bp.blocks["block_kv"]) == (32, 128)
-    cfg = build_run_cfg(plan, arch)
-    assert cfg.flash_tiles == (32, 128)
-    assert tfa.kernel_tiles(4, *cfg.flash_tiles) == (128, 128)
+    assert (bp.blocks["block_q"], bp.blocks["block_kv"]) == (64, 128)
+    assert tlm.kernel_instances(arch, "prefill", plan)[0].group == 2
+    assert tfa.kernel_tiles(2, 64, 128) == (128, 128)
+    assert build_run_cfg(plan, arch).flash_tiles == (64, 128)
+    with pytest.raises(ValueError, match="not one the kernel is built for"):
+        tfa.kernel_tiles(4, 64, 128)
+    one = tcore.specialize(arch, "prefill_32k", mesh_shape=(1, 1),
+                           target="h100-sxm", cache=False)
+    assert build_run_cfg(one, arch).flash_tiles == (32, 128)
+    assert tfa.kernel_tiles(4, 32, 128) == (128, 128)
     tpu = tcore.specialize(arch, "prefill_32k", target="tpu-v5e",
                            cache=False).partitions["flash_attention"]
     assert (tpu.blocks["block_q"], tpu.blocks["block_kv"]) == (512, 512)
     with pytest.raises(ValueError, match="not one the kernel is built for"):
-        tfa.kernel_tiles(4, tpu.blocks["block_q"], tpu.blocks["block_kv"])
+        tfa.kernel_tiles(2, tpu.blocks["block_q"], tpu.blocks["block_kv"])
 
 
 def test_tpu_v5e_plans_a_one_sequence_grant_pool_for_full_qwen3():

@@ -498,11 +498,13 @@ def test_serve_batch_flow_runs_the_plan_as_frozen(qwen):
 
 def test_device_check_refuses_group_7_on_cuda_before_any_weights():
     """The F1 check, now that the kernels take G = 7, hymba-1.5b's (G =
-    5, head_dim 64), granite's (2, 64) and llama4's (5, 128):
-    deepseek-coder-33b and hymba-1.5b are admitted on CUDA, and what the
-    kernels still refuse — G = 3, and G = 4 at head_dim 64 (no decode
-    instance) — is refused before any weights load, naming the kernels,
-    by the device check; the launcher refuses an arch the port does not
+    5, head_dim 64), granite's (2, 64) and llama4's (5, 128), and flash
+    at G = 3 with the decode pairs (4, 64) and (6, 128) that the 16-wide
+    model axis needs: deepseek-coder-33b and hymba-1.5b are admitted on
+    CUDA, and what the kernels still refuse — the decode at G = 3, and
+    G = 6 at head_dim 64 (flash and decode) — is refused before any
+    weights load, naming the kernels and the instances, by the device
+    check; the launcher refuses an arch the port does not
     serve (hubert-xlarge: an encoder has no decode step) before any plan
     or weight too (on a CPU-only torch a CUDA generator would raise
     RuntimeError, not NotImplementedError)."""
@@ -511,13 +513,19 @@ def test_device_check_refuses_group_7_on_cuda_before_any_weights():
     tlm.check_on_device(coder, "cuda")
     tlm.check_on_device(coder, torch.device("cuda", 0))
     tlm.check_on_device(tget_arch("hymba-1.5b"), "cuda")
-    three = dataclasses.replace(coder, n_heads=24)
+    three = dataclasses.replace(coder, n_heads=24, head_dim=128)
     with pytest.raises(NotImplementedError,
-                       match=r"G = 3.*flash_attention.*decode_attention"):
+                       match=r"head_dim 128.*decode_attention at "
+                       r"\(G, head_dim\) = \(3, 128\)") as e:
         tlm.check_on_device(three, "cuda")
-    four = dataclasses.replace(coder, n_heads=32, head_dim=64)
-    with pytest.raises(NotImplementedError, match=r"G = 4.*decode_attention"):
-        tlm.check_on_device(four, torch.device("cuda", 0))
+    assert "flash_attention" not in str(e.value)
+    tlm.check_on_device(dataclasses.replace(coder, n_heads=32, head_dim=64),
+                        "cuda")
+    six = dataclasses.replace(coder, n_heads=48, head_dim=64)
+    with pytest.raises(NotImplementedError,
+                       match=r"flash_attention at \(G, head_dim\) = "
+                       r"\(6, 64\).*decode_attention"):
+        tlm.check_on_device(six, torch.device("cuda", 0))
     with pytest.raises(NotImplementedError,
                        match=r"hubert-xlarge.*no decode step"):
         tserve.main(["--arch", "hubert-xlarge", "--full", "--device",

@@ -317,6 +317,8 @@ def _entries(dev=None):
     bf = dict(dtype=torch.bfloat16, **kw)
     q4, k4 = torch.randn(1, 8, 4, 64, **bf), torch.randn(1, 8, 2, 64, **bf)
     q3, kc = torch.randn(2, 4, 64, **bf), torch.randn(2, 16, 2, 64, **bf)
+    # K9 at (G, DS) = (4, 64), an instance it is built for
+    q8 = torch.randn(2, 8, 64, **bf)
     pool = torch.randn(4, 8, 2, 64, **bf)
     tbl = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, **kw)
     lens = torch.tensor([5, 16], dtype=torch.int32, **kw)
@@ -335,9 +337,9 @@ def _entries(dev=None):
         "paged_decode_partial": lambda: ops.paged_decode_partial(
             q3, pool, pool, tbl, block_start=0, pos=lens - 1),
         "decode_split_scores": lambda: ops.decode_split_scores(
-            q3, kc, cache_len=lens, scale=0.125),
+            q8, kc, cache_len=lens, scale=0.125),
         "decode_split_context": lambda: ops.decode_split_context(
-            torch.randn(2, 4, 16, **kw), kc, cache_len=lens),
+            torch.randn(2, 8, 16, **kw), kc, cache_len=lens),
         "ssd_scan": lambda: ops.ssd_scan(x, dt, A, Bm, Bm, chunk=64),
         "tiled_matmul": lambda: ops.matmul(a, b),
     }

@@ -700,7 +700,9 @@ def test_one_device_plans_keep_their_hashes_and_estimates():
     """``tests/torch_one_device_plans.json``: each one-device h100-sxm
     train plan's content hash and step-peak estimate as they were before
     the per-rank estimate (six archs, full and reduced): a (1, 1) plan
-    keeps both bit for bit."""
+    keeps both bit for bit.  The five reduced plans' hashes were pinned
+    again when the flash kernel's groups took in G = 3: their head_dim
+    32 gets no kernel tile, and the logged reason lists the groups."""
     import json
     from pathlib import Path
     pinned = json.loads((Path(__file__).parent
